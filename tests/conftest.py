@@ -31,6 +31,12 @@ jax.config.update("jax_platforms", "cpu")
 _RSS_LIMIT_MB = int(os.environ.get("SIMPLE_TAD_TEST_RSS_MB", "6000"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with nvcc (the port's CUDA "
+        "kernels); skips where there is none")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _bound_compiled_program_memory():
     """Clear jax's executable caches between modules once RSS grows."""

@@ -1,0 +1,123 @@
+"""The port's copies of the JAX package's numpy-only host modules give the
+same outputs as their originals on seeded inputs.
+
+simple_tad_tpu/__init__.py imports flax eagerly, so the port cannot import
+these modules from the JAX package; it carries copies, and this file holds
+each copy to its original.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import simple_tad_tpu.config as jax_config
+import simple_tad_tpu.data.frame_datasets as jax_fd
+import simple_tad_tpu.data.labels as jax_labels
+import simple_tad_tpu.data.sequencing as jax_seq
+import simple_tad_tpu.data.zipreader as jax_zip
+import simple_tad_tpu.eval.metrics as jax_metrics
+import simple_tad_tpu_torch.config as port_config
+import simple_tad_tpu_torch.data.frame_datasets as port_fd
+import simple_tad_tpu_torch.data.labels as port_labels
+import simple_tad_tpu_torch.data.sequencing as port_seq
+import simple_tad_tpu_torch.data.zipreader as port_zip
+import simple_tad_tpu_torch.eval.metrics as port_metrics
+from tests.fixtures import make_synthetic_dota
+
+
+def _equal(a, b):
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__
+        for f in dataclasses.fields(a):
+            _equal(getattr(a, f.name), getattr(b, f.name))
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _equal(x, y)
+    elif isinstance(a, dict):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            _equal(a[k], b[k])
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b or (a != a and b != b), (a, b)
+
+
+def _metrics(m):
+    rng = np.random.default_rng(0)
+    labels = (rng.random(500) < 0.3).astype(np.int64)
+    probs = np.clip(labels * 0.3 + rng.random(500) * 0.7, 0, 1)
+    return m.binary_metrics(probs, labels)
+
+
+def _sequencing(m):
+    rng = np.random.default_rng(1)
+    unsafe = rng.random(120) < 0.1
+    return [m.RegularSequencer(10, 16, step=s).get_sequences(n, fps)
+            for s in (1, 3) for n, fps in ((40, 10), (120, 30), (10, 10))] + [
+        m.RegularSequencerWithStart(10, 16, 2).get_sequences(61, 30),
+        m.UnsafeOverlapSequencer(10, 16, 2, (3, 1)).get_sequences(unsafe, 10)]
+
+
+def _labels(m):
+    rng = np.random.default_rng(2)
+    binary = (rng.random(200) < 0.05).astype(np.int64)
+    tv = m.compute_time_vector(binary, fps=10, TT=2.0, TA=1.0)
+    return [tv, m.smooth_labels(binary, tv, 2.0, 1.0)]
+
+
+def _config(m):
+    argv = ["--model", "vit_small_patch16_224", "--batch_size", "8",
+            "--input_size", "32", "--no_dist_eval", "--clip_grad", "1.5",
+            "--opt_betas", "0.9", "0.98", "--resize_on_host"]
+    return [dataclasses.asdict(m.FinetuneConfig.from_args(argv)),
+            dataclasses.asdict(m.FinetuneConfig.from_args([]))]
+
+
+def _frame_views(m, root):
+    clips = m.read_dota_clips(root, "val_split.txt")
+    ds = m.FrameDataset(clips, mode="test", view_len=16, target_fps=5,
+                        orig_fps=10, view_step=1, crop_size=32)
+    views = ds.clip_eval_views()
+    return [clips, ds.samples, views,
+            ds.decode_clip_frames(views[1], resize_on_host=True)]
+
+
+@pytest.fixture(scope="module")
+def dota_root(tmp_path_factory):
+    return make_synthetic_dota(str(tmp_path_factory.mktemp("dota")),
+                               n_clips=2, frames_per_clip=40, h=48, w=64)
+
+
+@pytest.mark.parametrize("make,jax_mod,port_mod", [
+    (_metrics, jax_metrics, port_metrics),
+    (_sequencing, jax_seq, port_seq),
+    (_labels, jax_labels, port_labels),
+    (_config, jax_config, port_config),
+], ids=["metrics", "sequencing", "labels", "config"])
+def test_host_copy_matches_original(make, jax_mod, port_mod):
+    _equal(make(port_mod), make(jax_mod))
+
+
+def test_frame_dataset_views_match_original(dota_root, monkeypatch):
+    # the port decodes with python zipfile + cv2; hold the original to the
+    # same decoder (its native C++ branch is not ported)
+    from simple_tad_tpu.data import native
+    monkeypatch.setattr(native, "decode_zip_frames_native",
+                        lambda *a, **k: None)
+    _equal(_frame_views(port_fd, dota_root), _frame_views(jax_fd, dota_root))
+
+
+def test_zip_decode_matches_original(dota_root, monkeypatch):
+    from simple_tad_tpu.data import native
+    monkeypatch.setattr(native, "decode_zip_frames_native",
+                        lambda *a, **k: None)
+    zp = f"{dota_root}/frames/clip_000/images.zip"
+    names = [f"{t:06d}.jpg" for t in range(0, 30, 7)]
+    for resize in (None, (32, 24)):
+        _equal(port_zip.decode_zip_frames(zp, names, resize=resize),
+               jax_zip.decode_zip_frames(zp, names, resize=resize))
+    _equal(port_zip.decode_scaled(zp, names, 32, 1.2),
+           jax_zip.decode_scaled(zp, names, 32, 1.2))

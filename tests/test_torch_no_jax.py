@@ -1,0 +1,32 @@
+"""The port imports no jax, flax, pandas or cv2 at module level.
+
+Runs in a subprocess: the test process itself already holds jax.
+"""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+import simple_tad_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+bad = sorted(m for m in ("jax", "flax", "pandas", "cv2", "simple_tad_tpu")
+             if m in sys.modules)
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_flax_pandas_cv2():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 20, proc.stdout
