@@ -15,7 +15,10 @@ Phases (any failure raises, so the exit code is non-zero):
      plain version with one required numerics step left out (LayerNorm:
      unbiased variance; attention: probabilities not rounded to bf16
      before PV and the denominator).  The control must fail the bound, so
-     the bound is shown to catch it;
+     the bound is shown to catch it.  The int8 kernels (LayerNorm->int8,
+     int8-storage attention) are held to their plain versions by the
+     largest code difference (<= 1) and the share of codes that differ,
+     with the same two controls;
   3. sliding-window evaluation at full width: ViT-B 16x224 bf16 with
      seeded weights on a synthetic 96-frame 360x640 clip (81 windows),
      device resize, token path, batch 32, through FrameEvaluator, timed
@@ -23,9 +26,24 @@ Phases (any failure raises, so the exit code is non-zero):
      LayerNorm launches per chunk forward, and the logits must agree with
      the same model run through the plain versions on the card (and the
      model run through the controls must not);
-  4. streaming: 16 batch-1 steps of cli/inference.py's StreamingScorer.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+  4. streaming: 16 batch-1 steps of cli/inference.py's StreamingScorer;
+  5. int8 static serving: the same clip through FrameEvaluator(quant8=True)
+     (ViT-B quantized from its seeded fp32 masters, calibrated explicitly
+     first), timed over 5 runs; the counters must show 24 LayerNorm->int8,
+     12 int8 attention, 1 LayerNorm (fc_norm) and 0 bf16 attention
+     launches per chunk forward.  In one more run every int8 kernel call
+     of the main path is checked on its own inputs against its plain
+     version (the int8 bounds above) and against its control (which must
+     fail them).  The logits must agree with the same int8 model run
+     through the plain versions within LOGIT_RTOL_I8, and a gross control
+     (attention output left unnormalized) must not: with seeded weights
+     one flipped int8 code moves the logits by 4.6e-3 of max |logit|, so
+     at the logit level the kernels and the subtle controls read alike
+     (PERF.md), and the sharp check is the per-site one.  The
+     int8-vs-bf16 logit drift is printed, not bounded; then 16 int8
+     streaming steps.
+The line before the last is the kernels' JSON record (max_abs_err of an
+int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -47,6 +65,11 @@ import torch
 #   bf16 outputs differing   layernorm  < 5e-5 vs control 0.0833
 #                            attention  0.0019 vs control 0.4208
 #   logits, max |err| / max |logit|     4.535e-3 vs controls 7.234e-3
+#   int8 codes differing     layernorm_quant  <= 1.9e-6 vs control >= 9.0e-3
+#                            attention_i8     <= 5.2e-5 vs control >= 2.7e-3
+#   int8 logits, max |err| / max |logit|  1.004e-2; a single flipped code
+#                                         4.6e-3; subtle controls 7.4e-3 to
+#                                         9.7e-3 (they saturate)
 # Readings are bit-for-bit the same from run to run on one card and
 # software stack (no atomics; fixed seeds).
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)    # ~1 bf16 ulp (2^-7 relative)
@@ -54,7 +77,23 @@ BF16_TOL = dict(atol=1e-2, rtol=1e-2)    # ~1 bf16 ulp (2^-7 relative)
 BF16_MISMATCH = {"layernorm": 0.01, "attention": 0.03}
 F32_TOL = dict(atol=1e-5, rtol=1e-5)     # fp32 summation order
 LOGIT_RTOL = 5.7e-3      # max |logit error| / max |logit|, 12 bf16 layers
+# int8 kernels: codes at most 1 apart, and at most this share apart (a
+# code moves only where its fp32 value sits within a rounding error of a
+# half-integer)
+I8_MISMATCH = {"layernorm_quant": 1.5e-4, "attention_i8": 4e-4}
+LOGIT_RTOL_I8 = 2.5e-2   # as LOGIT_RTOL, the 12-layer int8 model
 EVAL_RUNS = 5
+# kernel name -> (source, the TPU kernel it replaces)
+SOURCES = {
+    "layernorm": ("simple_tad_tpu_torch/csrc/layernorm.cu",
+                  "simple_tad_tpu/ops/ln.py:27"),
+    "attention": ("simple_tad_tpu_torch/csrc/attention.cu",
+                  "simple_tad_tpu/ops/flash_attention.py:293"),
+    "layernorm_quant": ("simple_tad_tpu_torch/csrc/layernorm.cu",
+                        "simple_tad_tpu/ops/ln.py:37"),
+    "attention_i8": ("simple_tad_tpu_torch/csrc/attention_i8.cu",
+                     "simple_tad_tpu/ops/flash_attention.py:1158"),
+}
 
 
 def cuda_ms(fn, runs: int = 30, warmup: int = 3) -> float:
@@ -112,14 +151,55 @@ def attention_control(qkv, num_heads: int, scale: float):
     return o.to(qkv.dtype).permute(0, 2, 1, 3).reshape(B, N, C3 // 3)
 
 
-def layernorm_control(x, weight, bias, eps: float = 1e-6, out_dtype=None):
-    """The plain LayerNorm with the unbiased variance, as a kernel that got
-    that step wrong would compute."""
+def attention_i8_variant(qkv_i8, amax, num_heads: int, scale: float,
+                         out_amax, *, round_p: bool, normalize: bool):
+    """The plain int8 attention with a required step left out: the
+    probability rounding to bf16 (``round_p=False``: the control) or the
+    softmax denominator (``normalize=False``: the gross control of the
+    int8 logit check)."""
+    from simple_tad_tpu_torch.ops.flash_attention import LOG2E
+    from simple_tad_tpu_torch.ops.ln import quantize_static
+    B, N, C3 = qkv_i8.shape
+    q, k, v = qkv_i8.view(B, N, 3, num_heads, -1).permute(2, 0, 3, 1, 4)
+    sq, sk, sv = (amax * (1.0 / 127.0))[..., None, None]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s * (sq * sk * scale * LOG2E)
+    p = torch.exp2(s - torch.ceil(s.amax(dim=-1, keepdim=True)))
+    if round_p:
+        p = p.to(torch.bfloat16).float()
+    o = torch.matmul(p, (v.float() * sv).to(torch.bfloat16).float())
+    if normalize:
+        o = o / p.sum(dim=-1, keepdim=True)
+    return quantize_static(o.permute(0, 2, 1, 3).reshape(B, N, C3 // 3),
+                           out_amax)
+
+
+def attention_i8_control(*args):
+    return attention_i8_variant(*args, round_p=False, normalize=True)
+
+
+def attention_i8_unnormalized(*args):
+    return attention_i8_variant(*args, round_p=True, normalize=False)
+
+
+def _layernorm_control_f32(x, weight, bias, eps):
     x32 = x.float()
     xc = x32 - x32.mean(dim=-1, keepdim=True)
     var = (xc * xc).sum(dim=-1, keepdim=True) / (x.shape[-1] - 1)
-    y = xc * torch.rsqrt(var + eps) * weight.float() + bias.float()
-    return y.to(out_dtype or x.dtype)
+    return xc * torch.rsqrt(var + eps) * weight.float() + bias.float()
+
+
+def layernorm_control(x, weight, bias, eps: float = 1e-6, out_dtype=None):
+    """The plain LayerNorm with the unbiased variance, as a kernel that got
+    that step wrong would compute."""
+    return _layernorm_control_f32(x, weight, bias, eps).to(
+        out_dtype or x.dtype)
+
+
+def layernorm_quant_control(x, weight, bias, amax, eps: float = 1e-6):
+    """The plain LayerNorm->int8 with the unbiased variance."""
+    from simple_tad_tpu_torch.ops.ln import quantize_static
+    return quantize_static(_layernorm_control_f32(x, weight, bias, eps), amax)
 
 
 def compare(name, got, want):
@@ -127,7 +207,9 @@ def compare(name, got, want):
     of kernel ``name``)."""
     err = (got.float() - want.float()).abs().max().item()
     share = (got != want).float().mean().item()
-    if got.dtype == torch.bfloat16:
+    if got.dtype == torch.int8:
+        ok = err <= 1 and share <= I8_MISMATCH[name]
+    elif got.dtype == torch.bfloat16:
         ok = (torch.allclose(got.float(), want.float(), **BF16_TOL)
               and share <= BF16_MISMATCH[name])
     else:
@@ -148,7 +230,7 @@ def check_kernels(dev, seed: int) -> dict:
         got, want = kernel(), plain()
         err, share, ok = compare(name, got, want)
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, runs=20)
-        print(f"[{name}] {case}: max_abs_err {err:.3e} differ {share:.4f} "
+        print(f"[{name}] {case}: max_abs_err {err:.3e} differ {share:.3e} "
               f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  "
               f"plain {plain_ms:.4f} ms")
         if not ok:
@@ -156,7 +238,7 @@ def check_kernels(dev, seed: int) -> dict:
         if control is not None:
             c_err, c_share, c_ok = compare(name, control(), want)
             print(f"[{name}] {case}: control max_abs_err {c_err:.3e} "
-                  f"differ {c_share:.4f} "
+                  f"differ {c_share:.3e} "
                   f"{'NOT CAUGHT' if c_ok else 'caught'}")
             if c_ok:
                 failures.append(f"{name} {case}: the bounds let the "
@@ -167,7 +249,9 @@ def check_kernels(dev, seed: int) -> dict:
             r["ms"], r["plain_ms"] = ms, plain_ms
 
     print(f"[bounds] bf16: allclose {BF16_TOL} and at most this share of "
-          f"outputs differing {BF16_MISMATCH}; fp32: allclose {F32_TOL}")
+          f"outputs differing {BF16_MISMATCH}; fp32: allclose {F32_TOL}; "
+          f"int8: codes at most 1 apart and at most this share apart "
+          f"{I8_MISMATCH}")
     ln_cases = [((32 * 1568, 768), torch.bfloat16),   # norm1/norm2, ViT-B b32
                 ((32, 768), torch.bfloat16),          # fc_norm
                 ((4096, 384), torch.float32),
@@ -198,6 +282,49 @@ def check_kernels(dev, seed: int) -> dict:
                  (lambda: attention_control(qkv, heads, scale))
                  if dt == torch.bfloat16 else None)
         del qkv
+        torch.cuda.empty_cache()
+
+    lnq_cases = [((32 * 1568, 768), torch.bfloat16),   # norm1/norm2 int8
+                 ((4096, 384), torch.float32)]
+    for shape, dt in lnq_cases:
+        C = shape[-1]
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dt)
+        w = torch.randn(C, generator=g, device=dev) * 0.2 + 1
+        b = torch.randn(C, generator=g, device=dev) * 0.1
+        # a calibrated absmax: that of the LayerNorm output itself
+        amax = ln.layernorm_plain(x, w, b, out_dtype=torch.float32
+                                  ).abs().max()
+        run_case("layernorm_quant", f"{shape} {dt}",
+                 lambda: ln.layernorm_quant(x, w, b, amax),
+                 lambda: ln.layernorm_quant_plain(x, w, b, amax),
+                 lambda: layernorm_quant_control(x, w, b, amax))
+        del x
+    torch.cuda.empty_cache()
+
+    i8_cases = [((32, 1568, 2304), 12),     # ViT-B b32
+                ((8, 1568, 1152), 6),       # ViT-S
+                ((4, 1568, 3072), 16),      # ViT-L
+                ((2, 200, 384), 2),         # masked tail
+                ((2, 1568, 3840), 16)]      # ViT-H, Dh=80
+    for shape, heads in i8_cases:
+        B, N, C3 = shape
+        D = C3 // 3 // heads
+        qkv = torch.randn(shape, generator=g, device=dev)
+        amax = qkv.view(B, N, 3, heads, D).abs().amax(dim=(0, 1, 4))
+        inv = (127.0 / amax).reshape(-1).repeat_interleave(D)
+        qkv_i8 = torch.clamp(torch.round(qkv * inv), -127, 127).to(torch.int8)
+        del qkv
+        scale = D ** -0.5
+        out_amax = fa.attention_i8_plain_f32(qkv_i8, amax, heads,
+                                             scale).abs().max()
+        run_case("attention_i8", f"{shape} H={heads}",
+                 lambda: fa.flash_attention_qkv_i8d(qkv_i8, amax, heads,
+                                                    scale, out_amax),
+                 lambda: fa.flash_attention_qkv_i8d_plain(
+                     qkv_i8, amax, heads, scale, out_amax),
+                 lambda: attention_i8_control(qkv_i8, amax, heads, scale,
+                                              out_amax))
+        del qkv_i8
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
@@ -239,13 +366,17 @@ class MemoryClipDataset:
 
 
 @contextlib.contextmanager
-def routed(layernorm_fn, attention_fn):
-    """Route the model's LayerNorm and attention through other versions
+def routed(**fns):
+    """Route the model's kernel wrappers, by name, through other versions
     (the plain versions or the controls, for the comparison runs only)."""
     from simple_tad_tpu_torch.models import layers
     from simple_tad_tpu_torch.ops import attention
-    with mock.patch.object(layers, "layernorm", layernorm_fn), \
-            mock.patch.object(attention, "flash_attention_qkv", attention_fn):
+    owner = {"layernorm": layers, "layernorm_quant": layers,
+             "flash_attention_qkv": attention,
+             "flash_attention_qkv_i8d": attention}
+    with contextlib.ExitStack() as stack:
+        for name, fn in fns.items():
+            stack.enter_context(mock.patch.object(owner[name], name, fn))
         yield
 
 
@@ -253,22 +384,35 @@ def logits_of(res) -> np.ndarray:
     return np.stack([res.rows["logits_safe"], res.rows["logits_risk"]], 1)
 
 
-def run_eval(dev, seed: int):
-    """Phase 3 -> (model, stats dict)."""
-    n_frames, height, width, batch = 96, 360, 640, 32
-    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
+N_FRAMES, HEIGHT, WIDTH, BATCH = 96, 360, 640, 32
+
+
+def vit_b(dev, seed: int, dtype):
     from simple_tad_tpu_torch.models import create_model
-    from simple_tad_tpu_torch.ops import flash_attention, ln
-    model = create_model("vit_base_patch16_224", device=dev,
-                         dtype=torch.bfloat16,
-                         generator=torch.Generator().manual_seed(seed),
-                         init_scale=1.0)
-    cfg = model.cfg
+    return create_model("vit_base_patch16_224", device=dev, dtype=dtype,
+                        generator=torch.Generator().manual_seed(seed),
+                        init_scale=1.0)
+
+
+def synthetic_clip(cfg, seed: int):
+    """-> (dataset of one seeded 96-frame 360x640 clip, window count,
+    chunk forwards per evaluate)."""
     rng = np.random.default_rng(seed)
-    frames = rng.integers(0, 256, (n_frames, height, width, 3), np.uint8)
+    frames = rng.integers(0, 256, (N_FRAMES, HEIGHT, WIDTH, 3), np.uint8)
     ds = MemoryClipDataset(frames, cfg.all_frames, seed)
     n_windows = ds.view.window_idx.shape[0]
-    chunks = -(-n_windows // batch)
+    assert n_windows == N_FRAMES - cfg.all_frames + 1
+    return ds, n_windows, -(-n_windows // BATCH)
+
+
+def run_eval(dev, seed: int):
+    """Phase 3 -> (model, stats dict)."""
+    batch = BATCH
+    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
+    from simple_tad_tpu_torch.ops import flash_attention, ln
+    model = vit_b(dev, seed, torch.bfloat16)
+    cfg = model.cfg
+    ds, n_windows, chunks = synthetic_clip(cfg, seed)
     ev = FrameEvaluator(model, device=dev, batch_size=batch,
                         resize_on_host=False, precompute_tubelets=True)
     ev.evaluate(ds)                                  # warm-up
@@ -280,9 +424,11 @@ def run_eval(dev, seed: int):
     rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
                                      for _ in range(EVAL_RUNS - 1)]
     logits = logits_of(res)
-    with routed(ln.layernorm_plain, flash_attention.flash_attention_qkv_plain):
+    with routed(layernorm=ln.layernorm_plain,
+                flash_attention_qkv=flash_attention.flash_attention_qkv_plain):
         plain_res = ev.evaluate(ds)
-    with routed(layernorm_control, attention_control):
+    with routed(layernorm=layernorm_control,
+                flash_attention_qkv=attention_control):
         control = logits_of(ev.evaluate(ds))
     plain = logits_of(plain_res)
     scale = float(np.abs(plain).max())
@@ -300,7 +446,7 @@ def run_eval(dev, seed: int):
     print(f"[eval] launches {launches}; logits vs plain: max_abs_err / max "
           f"|logit| {err:.3e}, controls {control_err:.3e} (bound "
           f"{LOGIT_RTOL:.3e}, max |logit| {scale:.3e})")
-    assert res.n_windows == n_windows == n_frames - cfg.all_frames + 1
+    assert res.n_windows == n_windows
     assert np.isfinite(logits).all(), "non-finite logits"
     assert launches["attention"] == cfg.depth * chunks, launches
     assert launches["layernorm"] == (2 * cfg.depth + 1) * chunks, launches
@@ -308,10 +454,119 @@ def run_eval(dev, seed: int):
     assert control_err > LOGIT_RTOL, \
         f"the logit bound lets the controls through: {control_err}"
     return model, {"windows_per_sec": rate, "launches": launches,
-                   "logits_err": err}
+                   "logits_err": err, "logits": logits}
 
 
-def run_stream(model, dev, seed: int, steps: int = 16) -> float:
+def check_int8_sites(ev, ds) -> list:
+    """One evaluate in which every int8 kernel call also runs the plain
+    version and the control on the same inputs (the forward goes on with
+    the kernel's output) -> the failed checks."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    readings = {"layernorm_quant": [], "attention_i8": []}
+
+    def checked(name, kernel, plain, control):
+        def fn(*args):
+            want = plain(*args)
+            got = kernel(*args)
+            readings[name].append((compare(name, got, want),
+                                   compare(name, control(*args), want)))
+            return got
+        return fn
+
+    with routed(
+            layernorm_quant=checked("layernorm_quant", ln.layernorm_quant,
+                                    ln.layernorm_quant_plain,
+                                    layernorm_quant_control),
+            flash_attention_qkv_i8d=checked(
+                "attention_i8", fa.flash_attention_qkv_i8d,
+                fa.flash_attention_qkv_i8d_plain, attention_i8_control)):
+        ev.evaluate(ds)
+    failures = []
+    for name, rs in readings.items():
+        shares = [r[0][1] for r in rs]
+        c_shares = [r[1][1] for r in rs]
+        print(f"[int8 sites] {name}: {len(rs)} calls on the main path; "
+              f"codes differing from plain max {max(shares):.3e} (mean "
+              f"{statistics.mean(shares):.3e}); controls min "
+              f"{min(c_shares):.3e} (bound {I8_MISMATCH[name]:.1e})")
+        failures += [f"{name} call {i}" for i, r in enumerate(rs)
+                     if not r[0][2]]
+        failures += [f"{name} call {i}: control not caught"
+                     for i, r in enumerate(rs) if r[1][2]]
+    return failures
+
+
+def run_eval_int8(model, dev, seed: int, bf16_logits):
+    """Phase 5 -> (static int8 model, stats dict)."""
+    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    cfg = model.cfg
+    ds, n_windows, chunks = synthetic_clip(cfg, seed)
+    # the int8 model is quantized from the fp32 masters: the same seeded
+    # build at fp32 (never the bf16 model's weights)
+    masters = vit_b("cpu", seed, torch.float32).state_dict()
+    ev = FrameEvaluator(model, device=dev, batch_size=BATCH,
+                        resize_on_host=False, precompute_tubelets=True,
+                        quant8=True, fp32_state=masters)
+    t0 = time.perf_counter()
+    ev.calibrate(ds)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    ev.evaluate(ds)                                  # warm-up
+
+    ln.LAUNCHES = ln.QUANT_LAUNCHES = 0
+    fa.LAUNCHES = fa.I8_LAUNCHES = 0
+    res = ev.evaluate(ds)
+    launches = {"layernorm": ln.LAUNCHES, "attention": fa.LAUNCHES,
+                "layernorm_quant": ln.QUANT_LAUNCHES,
+                "attention_i8": fa.I8_LAUNCHES}
+    rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
+                                     for _ in range(EVAL_RUNS - 1)]
+    logits = logits_of(res)
+    site_failures = check_int8_sites(ev, ds)
+    with routed(layernorm=ln.layernorm_plain,
+                layernorm_quant=ln.layernorm_quant_plain,
+                flash_attention_qkv_i8d=fa.flash_attention_qkv_i8d_plain):
+        plain_res = ev.evaluate(ds)
+    with routed(layernorm=ln.layernorm_plain,
+                layernorm_quant=ln.layernorm_quant_plain,
+                flash_attention_qkv_i8d=attention_i8_unnormalized):
+        control = logits_of(ev.evaluate(ds))
+    plain = logits_of(plain_res)
+    scale = float(np.abs(plain).max())
+    err = float(np.abs(logits - plain).max()) / scale
+    control_err = float(np.abs(control - plain).max()) / scale
+    drift = float(np.abs(logits - bf16_logits).max())
+    rate = statistics.median(rates)
+    print(f"[int8] vit_base_patch16_224 static int8 batch {BATCH}: "
+          f"calibrate {calib_s:.2f} s; evaluate median {rate:.2f} windows/s "
+          f"over {EVAL_RUNS} runs (min {min(rates):.2f}, max "
+          f"{max(rates):.2f}); plain versions "
+          f"{plain_res.windows_per_sec:.2f} windows/s (one run)")
+    print(f"[int8] launches {launches} over {chunks} chunk forwards; logits "
+          f"vs plain: max_abs_err / max |logit| {err:.3e}, gross control "
+          f"{control_err:.3e} (bound {LOGIT_RTOL_I8:.3e}, max |logit| "
+          f"{scale:.3e}); int8 vs bf16 max |logit difference| {drift:.3e} "
+          f"(seeded weights: printed, not bounded)")
+    assert not site_failures, site_failures
+    assert res.n_windows == n_windows
+    assert np.isfinite(logits).all(), "non-finite int8 logits"
+    want = {"layernorm_quant": 2 * cfg.depth * chunks,
+            "attention_i8": cfg.depth * chunks, "layernorm": chunks,
+            "attention": 0}
+    assert launches == want, (launches, want)
+    assert err <= LOGIT_RTOL_I8, \
+        f"int8 logits disagree with the plain run: {err}"
+    assert control_err > LOGIT_RTOL_I8, \
+        f"the int8 logit bound lets the gross control through: {control_err}"
+    return ev.model, {"windows_per_sec": rate, "launches": launches,
+                      "logits_err": err}
+
+
+def run_stream(model, dev, seed: int, steps: int = 16,
+               label: str = "stream") -> float:
     """Phase 4 -> median ms per streamed frame (host clock, synchronised)."""
     from simple_tad_tpu_torch.cli.inference import StreamingScorer
     cfg = model.cfg
@@ -330,7 +585,7 @@ def run_stream(model, dev, seed: int, steps: int = 16) -> float:
         times.append((time.perf_counter() - t0) * 1e3)
     assert all(0.0 <= r <= 1.0 for r in risks), risks
     ms = statistics.median(times)
-    print(f"[stream] {steps} batch-1 steps: median {ms:.3f} ms/frame "
+    print(f"[{label}] {steps} batch-1 steps: median {ms:.3f} ms/frame "
           f"(min {min(times):.3f}, max {max(times):.3f})")
     return ms
 
@@ -346,19 +601,19 @@ def main(argv=None):
     kstats = check_kernels(dev, args.seed)
     model, estats = run_eval(dev, args.seed)
     run_stream(model, dev, args.seed)
+    qmodel, qstats = run_eval_int8(model, dev, args.seed, estats["logits"])
+    del model
+    run_stream(qmodel, dev, args.seed, label="int8 stream")
 
-    sources = {
-        "layernorm": ("simple_tad_tpu_torch/csrc/layernorm.cu",
-                      "simple_tad_tpu/ops/ln.py:27"),
-        "attention": ("simple_tad_tpu_torch/csrc/attention.cu",
-                      "simple_tad_tpu/ops/flash_attention.py:293"),
-    }
+    launches = {**estats["launches"],
+                **{k: qstats["launches"][k]
+                   for k in ("layernorm_quant", "attention_i8")}}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": estats["launches"][name],
+         "launches": launches[name],
          "max_abs_err": kstats[name]["max_abs_err"],
          "ms": kstats[name]["ms"], "plain_ms": kstats[name]["plain_ms"]}
-        for name, (src, rep) in sources.items()]}
+        for name, (src, rep) in SOURCES.items()]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

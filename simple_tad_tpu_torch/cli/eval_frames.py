@@ -4,13 +4,16 @@ Port of simple_tad_tpu/cli/eval_frames.py (reference:
 ``run_frame_finetuning.py --eval``): builds the test-mode dataset (stride
 1: every frame gets a window), scores every window, writes
 predictions.csv + stats.txt + params.json.  Same flags as the JAX CLI,
-plus ``--device`` (default cuda).
+plus ``--device`` (default cuda).  ``--quant8`` serves the int8 model,
+quantized from fp32 masters (the seeded fp32 build with the checkpoint
+loaded), in ``--quant8_mode`` static (calibrated on the first clips, the
+default) or dynamic.
 
 Usage:
   python -m simple_tad_tpu_torch.cli.eval_frames \
       --data_set DoTA --data_path /data/dota \
       --model vit_base_patch16_224 --finetune ckpt.pth \
-      --output_dir out/ --device cuda
+      --output_dir out/ --device cuda [--quant8 [--quant8_mode dynamic]]
 """
 
 from __future__ import annotations
@@ -28,9 +31,6 @@ def main(argv=None):
     pre.add_argument("--device", default="cuda")
     dev_args, rest = pre.parse_known_args(argv)
     cfg = FinetuneConfig.from_args(rest)
-    if cfg.quant8:
-        raise NotImplementedError(
-            "--quant8 is not ported yet (ROADMAP.md queue 1, int8 serving)")
     # dist_eval is on by default in the reference flags, where one device
     # makes it a no-op; asked for explicitly it needs multi-device eval
     if "--dist_eval" in rest:
@@ -46,19 +46,29 @@ def main(argv=None):
 
     device = torch.device(dev_args.device)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    model = create_model(
-        cfg.model, device=device,
-        generator=torch.Generator().manual_seed(cfg.seed),
-        num_classes=cfg.nb_classes, all_frames=cfg.num_frames,
-        img_size=cfg.input_size, tubelet_size=cfg.tubelet_size,
-        final_reduction=cfg.final_reduction, init_scale=cfg.init_scale,
-        dtype=dtype)
+    if cfg.finetune and not cfg.finetune.endswith(".pth"):
+        raise NotImplementedError(
+            "only reference .pth checkpoints load into the port")
+
+    def build(dev, dt):
+        model = create_model(
+            cfg.model, device=dev,
+            generator=torch.Generator().manual_seed(cfg.seed),
+            num_classes=cfg.nb_classes, all_frames=cfg.num_frames,
+            img_size=cfg.input_size, tubelet_size=cfg.tubelet_size,
+            final_reduction=cfg.final_reduction, init_scale=cfg.init_scale,
+            dtype=dt)
+        if cfg.finetune:
+            load_vit_checkpoint(cfg.finetune, model)
+        return model
+
+    model = build(device, dtype)
     if cfg.finetune:
-        if not cfg.finetune.endswith(".pth"):
-            raise NotImplementedError(
-                "only reference .pth checkpoints load into the port")
-        load_vit_checkpoint(cfg.finetune, model)
         print(f"loaded checkpoint {cfg.finetune}")
+    # the int8 model is quantized from the fp32 masters, never from the
+    # compute-dtype copy
+    fp32_state = (build(torch.device("cpu"), torch.float32).state_dict()
+                  if cfg.quant8 else None)
 
     if cfg.data_set == "DoTA":
         clips = read_dota_clips(cfg.data_path, "val_split.txt",
@@ -81,7 +91,8 @@ def main(argv=None):
     print(f"eval windows: {len(ds)} over {len(clips)} clips")
 
     ev = FrameEvaluator(model, device=device, batch_size=cfg.batch_size,
-                        resize_on_host=cfg.resize_on_host)
+                        resize_on_host=cfg.resize_on_host, quant8=cfg.quant8,
+                        quant8_mode=cfg.quant8_mode, fp32_state=fp32_state)
     res = ev.evaluate(ds, exact_metrics=cfg.exact_metrics)
     print(f"AUROC {res.metrics.auroc:.4f}  AP {res.metrics.ap:.4f}  "
           f"AUC-MCC {res.metrics.mcc_auc:.4f}  "

@@ -5,6 +5,8 @@ fill a T-frame window from the first frames, then per new frame shift the
 window, append the frame and emit a risk probability.  The uint8 window
 stays on the device; only the new frame crosses from the host.
 ``--batched`` scores all windows of the folder in batches instead.
+``--quant8`` serves the static int8 model, quantized from fp32 masters
+and calibrated on the first T frames (batch 1), as the JAX CLI does.
 
 Usage:
   python -m simple_tad_tpu_torch.cli.inference --ckpt model.pth \
@@ -51,12 +53,15 @@ class StreamingScorer:
         self.kernel = patch_matrix(weight).contiguous()
         self.bias = bias
 
+    def tokens(self, windows_u8: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, C) uint8 windows -> (B, N, D) model input tokens."""
+        return embed_tubelets(windows_u8.to(self.dtype), self.kernel,
+                              self.bias, self.patch, self.tubelet, self.dtype)
+
     @torch.inference_mode()
     def risk(self, windows_u8: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, C) uint8 windows -> (B,) fp32 risk probabilities."""
-        tokens = embed_tubelets(windows_u8.to(self.dtype), self.kernel,
-                                self.bias, self.patch, self.tubelet,
-                                self.dtype)
+        tokens = self.tokens(windows_u8)
         logits = self.model(tokens, tokens_input=True).float()
         return torch.softmax(logits, dim=-1)[:, 1]
 
@@ -88,23 +93,26 @@ def main(argv=None):
     parser.add_argument("--quant8", action="store_true")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.quant8:
-        raise NotImplementedError(
-            "--quant8 is not ported yet (ROADMAP.md queue 1, int8 serving)")
     if not args.ckpt.endswith(".pth"):
         raise NotImplementedError(
             "only reference .pth checkpoints load into the port")
 
     from simple_tad_tpu_torch.models import create_model
+    from simple_tad_tpu_torch.ops.quant import quantize_and_calibrate
     from simple_tad_tpu_torch.utils.torch_convert import load_vit_checkpoint
 
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = create_model(args.model, device=device,
-                         generator=torch.Generator().manual_seed(0),
-                         num_classes=2, all_frames=args.num_frames,
-                         img_size=args.input_size, dtype=dtype)
-    load_vit_checkpoint(args.ckpt, model)
+
+    def build(dev, dt):
+        model = create_model(args.model, device=dev,
+                             generator=torch.Generator().manual_seed(0),
+                             num_classes=2, all_frames=args.num_frames,
+                             img_size=args.input_size, dtype=dt)
+        load_vit_checkpoint(args.ckpt, model)
+        return model
+
+    model = build(device, dtype)
     scorer = StreamingScorer(model)
 
     files = sorted(glob.glob(os.path.join(args.frames_folder, "*")))
@@ -113,6 +121,15 @@ def main(argv=None):
     T, S = args.num_frames, args.input_size
     if len(files) < T:
         raise ValueError(f"need at least {T} frames, found {len(files)}")
+    if args.quant8:
+        # quantize the fp32 masters (never the compute-dtype copy) and
+        # calibrate the activation scales on the first window
+        first = torch.from_numpy(
+            np.stack([prepare_image(f, S) for f in files[:T]])).to(device)
+        model = quantize_and_calibrate(
+            model.cfg, build(torch.device("cpu"), torch.float32).state_dict(),
+            [scorer.tokens(first[None])], device=device, tokens_input=True)
+        scorer = StreamingScorer(model)
 
     results = []
     if args.batched:

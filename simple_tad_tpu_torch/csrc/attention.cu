@@ -45,6 +45,8 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using stt::as_u32;
+using stt::mma_16816;
 
 constexpr int kBlockM = 64;     // query rows per block
 constexpr int kBlockN = 64;     // keys per tile (bf16 kernel)
@@ -53,20 +55,6 @@ constexpr int kBlockNF32 = 32;  // keys per tile (fp32 kernel)
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (16x8, fp32) += A (16x16, bf16, row-major) * B (16x8, bf16, col-major)
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Copy a (rows x DP) bf16 tile, rows starting at row0 of a strided source,

@@ -1,0 +1,326 @@
+// Non-causal inference attention on int8-stored packed qkv with an int8
+// output (kernel B2).
+//
+// Replaces the TPU kernel simple_tad_tpu/ops/flash_attention.py:
+// _fwd_kernel_nomax_packed_q8io with _attend_rows_t(qk_scale_i8=...),
+// launched by flash_attention_qkv_i8d with out_amax: the attention of the
+// int8 static serving path.  q, k and v are read in place from the
+// (B, N, 3C) int8 qkv through base pointers at columns 0, C and 2C plus
+// h * Dh and the row stride, as kernel A1 reads the bf16 one.
+//
+// Numerics held to the plain version (ops/flash_attention.py), per head h
+// with sq, sk, sv = amax[0..2, h] / 127:
+//   * s = float(q_i8 . k_i8 as an exact int32) * (sq * sk * scale * log2e);
+//   * v = bf16(float(v_i8) * sv) (the TPU kernel computes in bf16 whatever
+//     the model dtype);
+//   * p = exp2(s - m) rounded to bf16, the denominator sums the rounded p,
+//     o = (p v) / denominator in fp32;
+//   * out = clip(round_half_even(o * 127 / out_amax), +-127) as int8;
+//   * keys >= N are masked in registers (no padding copy).
+// m is A1's online row maximum rounded up to an integer: every rescale is
+// an exact power of two, so the rounded probabilities are the TPU kernel's
+// max-free ones times 2^-m and the result is the max-free one.
+//
+// What bounds it on the H100: at (32, 1568, 2304), H = 12, it does 1.2e11
+// int8 ops (QK) and 1.2e11 bf16 flops (PV) against 154 MB moved, so once
+// tiled it is compute-bound, like A1.  The design is A1's FlashAttention-2
+// shape: one block of 4 warps per (64-query tile, head, batch); each warp
+// owns 16 query rows whose int8 Q fragments stay in registers; 64-key int8
+// K tiles and dequantized, transposed bf16 V tiles stream through shared
+// memory.  QK runs on mma.sync m16n8k32 s8 x s8 -> s32 (exact), PV on
+// bf16 m16n8k16 with fp32 accumulators.  The s32 accumulator fragment of
+// m16n8k32 has the (16x8, 4 values a thread) layout of the fp32 one of
+// m16n8k16, and an int8 A/B fragment holds in each 32-bit register the 4
+// bytes a bf16 one holds at the same byte offsets, so the tile addressing
+// is A1's in bytes and the scores become the PV A fragments in registers
+// exactly as in A1.  Dh is zero-padded to a multiple of 32 (the QK depth)
+// in shared memory: Dh = 80 runs as 96.  No TMA, wgmma or warp
+// specialisation yet.
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using stt::as_u32;
+using stt::mma_16816;
+
+constexpr int kBlockM = 64;    // query rows per block
+constexpr int kBlockN = 64;    // keys per tile
+constexpr int kThreads = 128;  // 4 warps x 16 query rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t ld32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D (16x8, s32) += A (16x32, s8, row-major) * B (32x8, s8, col-major)
+__device__ __forceinline__ void mma_16832_s8(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Copy a (ROWS x DP) int8 tile, rows starting at row0 of a strided source,
+// into shared memory (row stride ld bytes) in 16-byte chunks.  Rows >= n
+// and columns >= d read as zero (d % 16 == 0).
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_tile_i8(int8_t* dst, int ld,
+                                             const int8_t* src, int row0,
+                                             int n, int d, int row_stride) {
+  constexpr int kChunks = DP / 16;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 16;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n && col < d) {
+      val = *reinterpret_cast<const uint4*>(
+          src + static_cast<size_t>(row0 + r) * row_stride + col);
+    }
+    *reinterpret_cast<uint4*>(dst + r * ld + col) = val;
+  }
+}
+
+// The V tile, dequantized to bf16(float(v) * sv) and stored transposed:
+// element (key r, dim c) lands at dst[c * ld + r].
+template <int DP>
+__device__ __forceinline__ void load_v_t(bf16* dst, int ld, const int8_t* src,
+                                         int row0, int n, int d,
+                                         int row_stride, float sv) {
+  constexpr int kChunks = DP / 16;
+  for (int c = threadIdx.x; c < kBlockN * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 16;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n && col < d) {
+      val = *reinterpret_cast<const uint4*>(
+          src + static_cast<size_t>(row0 + r) * row_stride + col);
+    }
+    const int8_t* e = reinterpret_cast<const int8_t*>(&val);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      dst[(col + i) * ld + r] =
+          __float2bfloat16_rn(__fmul_rn(static_cast<float>(e[i]), sv));
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+    attn_fwd_i8_kernel(const int8_t* __restrict__ q,
+                       const int8_t* __restrict__ k,
+                       const int8_t* __restrict__ v,
+                       const float* __restrict__ amax,
+                       const float* __restrict__ out_amax,
+                       int8_t* __restrict__ o, int n, int d, int in_sb,
+                       int in_sn, int out_sb, int out_sn, float scale) {
+  constexpr int KS = DP + 16;       // row stride of the Q/K tile (bytes)
+  constexpr int VS = kBlockN + 8;   // row stride of the transposed V tile
+  constexpr int KSTEPS = DP / 32;   // k-steps of the QK product
+  constexpr int NT = kBlockN / 8;   // 8-key column tiles of S
+  constexpr int DT = DP / 8;        // 8-wide column tiles of O
+  // sK stages the Q tile first, then each K tile
+  __shared__ __align__(16) int8_t sK[kBlockN * KS];
+  __shared__ __align__(16) bf16 sVt[DP * VS];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // row within the 8-row group of a fragment
+  const int t4 = lane & 3;  // thread within the group
+  const int head = blockIdx.y;
+  const int heads = gridDim.y;
+  const int q0 = blockIdx.x * kBlockM;
+  const size_t in_off = static_cast<size_t>(blockIdx.z) * in_sb +
+                        static_cast<size_t>(head) * d;
+  const int8_t* qb = q + in_off;
+  const int8_t* kb = k + in_off;
+  const int8_t* vb = v + in_off;
+
+  // per-head scales, in the plain version's order of fp32 operations
+  const float sq = amax[head] * (1.f / 127.f);
+  const float sk = amax[heads + head] * (1.f / 127.f);
+  const float sv = amax[2 * heads + head] * (1.f / 127.f);
+  const float sscale = sq * sk * scale * kLog2e;
+
+  // 1. int8 Q tile -> registers, as m16n8k32 A fragments
+  load_tile_i8<DP, kBlockM>(sK, KS, qb, q0, n, d, in_sn);
+  __syncthreads();
+  uint32_t qf[KSTEPS][4];
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const int c = kk * 32 + t4 * 4;
+    qf[kk][0] = ld32(&sK[r0 * KS + c]);
+    qf[kk][1] = ld32(&sK[(r0 + 8) * KS + c]);
+    qf[kk][2] = ld32(&sK[r0 * KS + c + 16]);
+    qf[kk][3] = ld32(&sK[(r0 + 8) * KS + c + 16]);
+  }
+  __syncthreads();
+
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+  // rows r0 and r0 + 8: running integer max and partial denominators
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int k0 = 0; k0 < n; k0 += kBlockN) {
+    load_tile_i8<DP, kBlockN>(sK, KS, kb, k0, n, d, in_sn);
+    load_v_t<DP>(sVt, VS, vb, k0, n, d, in_sn, sv);
+    __syncthreads();
+
+    // 2. S = float(q_i8 k_i8^T) * sq sk scale log2e, 16 rows x 64 keys
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      int si[4] = {0, 0, 0, 0};
+      const int8_t* krow = &sK[(j * 8 + g) * KS + t4 * 4];
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        mma_16832_s8(si, qf[kk], ld32(krow + kk * 32), ld32(krow + kk * 32 + 16));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = __fmul_rn(static_cast<float>(si[i]), sscale);
+      }
+    }
+    if (k0 + kBlockN > n) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int key = k0 + j * 8 + t4 * 2;
+        if (key >= n) s[j][0] = s[j][2] = -INFINITY;
+        if (key + 1 >= n) s[j][1] = s[j][3] = -INFINITY;
+      }
+    }
+
+    // 3. online softmax with an integer running max (as A1)
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    float mn0 = fmaxf(m0, ceilf(mx0));
+    float mn1 = fmaxf(m1, ceilf(mx1));
+    if (mn0 == -INFINITY) mn0 = 0.f;  // only if every key so far is masked
+    if (mn1 == -INFINITY) mn1 = 0.f;
+    const float a0 = exp2f(m0 - mn0);  // exact powers of two; 0 on the first tile
+    const float a1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][0] *= a0;
+      acc[j][1] *= a0;
+      acc[j][2] *= a1;
+      acc[j][3] *= a1;
+    }
+
+    // probabilities rounded to bf16; the S accumulator layout of key tiles
+    // 2kk and 2kk+1 is exactly the A fragment layout of PV k-step kk
+    uint32_t pf[NT / 2][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat162 p01 =
+          __floats2bfloat162_rn(exp2f(s[j][0] - mn0), exp2f(s[j][1] - mn0));
+      const __nv_bfloat162 p23 =
+          __floats2bfloat162_rn(exp2f(s[j][2] - mn1), exp2f(s[j][3] - mn1));
+      l0 += __low2float(p01) + __high2float(p01);
+      l1 += __low2float(p23) + __high2float(p23);
+      pf[j / 2][(j % 2) * 2] = as_u32(p01);
+      pf[j / 2][(j % 2) * 2 + 1] = as_u32(p23);
+    }
+
+    // 4. O += P V
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        const bf16* vrow = &sVt[(j * 8 + g) * VS + kk * 16 + t4 * 2];
+        mma_16816(acc[j], pf[kk], ld32(vrow), ld32(vrow + 8));
+      }
+    }
+    __syncthreads();  // the next tile overwrites sK and sVt
+  }
+
+  // 5. full row denominators, normalise, int8 codes against out_amax
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float oinv = stt::quant_inv(out_amax);
+  const int row0 = q0 + r0;
+  const int row1 = row0 + 8;
+  int8_t* ob = o + static_cast<size_t>(blockIdx.z) * out_sb +
+               static_cast<size_t>(head) * d;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int col = j * 8 + t4 * 2;
+    if (col >= d) continue;
+    if (row0 < n) {
+      *reinterpret_cast<char2*>(ob + static_cast<size_t>(row0) * out_sn + col) =
+          make_char2(stt::quant_i8(__fdiv_rn(acc[j][0], l0), oinv),
+                     stt::quant_i8(__fdiv_rn(acc[j][1], l0), oinv));
+    }
+    if (row1 < n) {
+      *reinterpret_cast<char2*>(ob + static_cast<size_t>(row1) * out_sn + col) =
+          make_char2(stt::quant_i8(__fdiv_rn(acc[j][2], l1), oinv),
+                     stt::quant_i8(__fdiv_rn(acc[j][3], l1), oinv));
+    }
+  }
+}
+
+template <int DP>
+void launch(const void* q, const void* k, const void* v, const void* amax,
+            const void* out_amax, void* o, int b, int n, int h, int d,
+            int in_sb, int in_sn, int out_sb, int out_sn, float scale,
+            cudaStream_t stream) {
+  const dim3 grid((n + kBlockM - 1) / kBlockM, h, b);
+  attn_fwd_i8_kernel<DP><<<grid, kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
+      static_cast<const int8_t*>(v), static_cast<const float*>(amax),
+      static_cast<const float*>(out_amax), static_cast<int8_t*>(o), n, d,
+      in_sb, in_sn, out_sb, out_sn, scale);
+}
+
+}  // namespace
+
+// q, k, v: int8 base pointers of head 0 (for packed qkv: qkv, qkv + C,
+// qkv + 2C); element (batch, row, head h, dim c) of each is at
+// base + batch * in_sb + row * in_sn + h * d + c.  o (int8) likewise with
+// out_sb, out_sn.  amax: (3, h) fp32 absmax of q, k and v per head;
+// out_amax: one fp32 absmax of the output; both in device memory.  d must
+// be a multiple of 16 and at most 128; every base pointer and stride must
+// keep 16-byte alignment.
+extern "C" int stt_attention_i8(const void* q, const void* k, const void* v,
+                                const void* amax, const void* out_amax,
+                                void* o, int b, int n, int h, int d,
+                                int in_sb, int in_sn, int out_sb, int out_sn,
+                                float scale, void* stream) {
+  if (b <= 0 || n <= 0 || h <= 0 || d <= 0 || d % 16 != 0 || d > 128 ||
+      b > 65535 || h > 65535 || amax == nullptr || out_amax == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((d + 31) / 32 * 32) {
+    case 32: launch<32>(q, k, v, amax, out_amax, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, scale, s); break;
+    case 64: launch<64>(q, k, v, amax, out_amax, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, scale, s); break;
+    case 96: launch<96>(q, k, v, amax, out_amax, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, scale, s); break;
+    default: launch<128>(q, k, v, amax, out_amax, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, scale, s); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,21 +1,30 @@
-// Row LayerNorm over the last axis (kernel A2).
+// Row LayerNorm over the last axis (kernel A2), and the same LayerNorm
+// with a static int8 output (kernel B1).
 //
-// Replaces the TPU kernel simple_tad_tpu/ops/ln.py:_ln_kernel (launched by
-// fused_layernorm -> _fused_ln_impl).  Same numerics: fp32 mean, fp32
-// biased variance of the centred values (mean(xc * xc), not E[x^2] - m^2),
-// rsqrt(var + eps), fp32 affine, one cast to the output dtype.
+// A2 replaces the TPU kernel simple_tad_tpu/ops/ln.py:_ln_kernel (launched
+// by fused_layernorm -> _fused_ln_impl).  B1 replaces
+// simple_tad_tpu/ops/ln.py:_ln_quant_kernel (launched by
+// fused_layernorm_quant): the int8 serving path's norm1/norm2, which hand
+// the next GEMM its int8 activation directly.  Same numerics as there:
+// fp32 mean, fp32 biased variance of the centred values (mean(xc * xc),
+// not E[x^2] - m^2), rsqrt(var + eps), fp32 affine ((xc * r) * w + b, each
+// product rounded, no fused multiply-add), then one cast to the output
+// dtype, or for B1 clip(round_half_even(y * 127 / amax), +-127) as int8
+// with amax the calibrated absmax read from device memory.
 //
-// What bounds it on the H100: bytes.  A row of C values is read once and
-// written once (rows * C * (in + out) bytes) against a handful of flops per
-// element, far below the ~295 flop/byte at which the tensor cores would
-// become the limit.  The design therefore reads x from device memory
-// exactly once, in 16-byte loads: one thread block per row, each thread
-// keeping one 8-value chunk of the row in registers (C % 8 == 0, the ViT
-// widths), so the centred second pass and the affine pass touch no memory.
-// Other widths take a fallback that stages the row in shared memory as
-// fp32 (C <= 4096, at most 16 KB).  Block-wide sums go through warp
-// shuffles.  Rows are many (32 * 1568 at ViT-B batch 32) and blocks small,
-// so the 132 SMs stay full.
+// What bounds both on the H100: bytes.  A row of C values is read once and
+// written once (rows * C * (in + out) bytes; B1 at ViT-B batch 32 moves
+// 3 bytes an element, 116 MB, >= 35 us at 3.35 TB/s) against a handful of
+// flops per element, far below the ~295 flop/byte at which the tensor
+// cores would become the limit.  The design therefore reads x from device
+// memory exactly once, in 16-byte loads: one thread block per row, each
+// thread keeping one 8-value chunk of the row in registers (C % 8 == 0,
+// the ViT widths), so the centred second pass and the affine pass touch no
+// memory; B1 stores its 8 codes as one 8-byte store.  Other widths take a
+// fallback that stages the row in shared memory as fp32 (C <= 4096, at
+// most 16 KB).  Block-wide sums go through warp shuffles.  Rows are many
+// (32 * 1568 at ViT-B batch 32) and blocks small, so the 132 SMs stay
+// full.
 #include "common.cuh"
 
 namespace {
@@ -42,10 +51,25 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[32];
 }
 
+// (xc * r) * w + b with every step rounded, as the plain version computes it
+__device__ __forceinline__ float affine(float xc, float r, float w, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(xc, r), w), b);
+}
+
+// Output stores; qinv (127 / amax) is read only by the int8 ones.
+__device__ __forceinline__ void store1(float* p, float v, float) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v, float) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store1(int8_t* p, float v, float qinv) {
+  *p = stt::quant_i8(v, qinv);
+}
+
 template <typename TIn, typename TOut>
 __global__ void layernorm_kernel(const TIn* __restrict__ x,
                                  const float* __restrict__ w,
                                  const float* __restrict__ b,
+                                 const float* __restrict__ amax,
                                  TOut* __restrict__ y, int cols, float eps) {
   extern __shared__ float row[];  // cols floats
   __shared__ float red[33];
@@ -68,10 +92,10 @@ __global__ void layernorm_kernel(const TIn* __restrict__ x,
   }
   const float var = block_sum(ss, red) / static_cast<float>(cols);
   const float inv = rsqrtf(var + eps);
+  const float qinv = amax != nullptr ? stt::quant_inv(amax) : 1.f;
 
   for (int c = threadIdx.x; c < cols; c += blockDim.x) {
-    const float v = (row[c] - mean) * inv * w[c] + b[c];
-    yr[c] = stt::from_float<TOut>(v);
+    store1(yr + c, affine(row[c] - mean, inv, w[c], b[c]), qinv);
   }
 }
 
@@ -93,7 +117,8 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8],
+                                       float) {
   uint4 raw;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
@@ -101,9 +126,18 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+__device__ __forceinline__ void store8(float* p, const float (&v)[8], float) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void store8(int8_t* p, const float (&v)[8],
+                                       float qinv) {
+  uint2 raw;
+  int8_t* e = reinterpret_cast<int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = stt::quant_i8(v[i], qinv);
+  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // cols % 8 == 0, 16-byte aligned: thread t owns columns [8t, 8t + 8)
@@ -111,6 +145,7 @@ template <typename TIn, typename TOut>
 __global__ void layernorm_vec8_kernel(const TIn* __restrict__ x,
                                       const float* __restrict__ w,
                                       const float* __restrict__ b,
+                                      const float* __restrict__ amax,
                                       TOut* __restrict__ y, int cols,
                                       float eps) {
   __shared__ float red[33];
@@ -136,12 +171,13 @@ __global__ void layernorm_vec8_kernel(const TIn* __restrict__ x,
   const float var = block_sum(ss, red) / static_cast<float>(cols);
   const float inv = rsqrtf(var + eps);
   if (active) {
+    const float qinv = amax != nullptr ? stt::quant_inv(amax) : 1.f;
     float wv[8], bv[8];
     load8(w + c0, wv);
     load8(b + c0, bv);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = v[i] * inv * wv[i] + bv[i];
-    store8(y + base + c0, v);
+    for (int i = 0; i < 8; ++i) v[i] = affine(v[i], inv, wv[i], bv[i]);
+    store8(y + base + c0, v, qinv);
   }
 }
 
@@ -150,17 +186,18 @@ bool aligned16(const void* p) {
 }
 
 template <typename TIn, typename TOut>
-void launch(const void* x, const void* w, const void* b, void* y, int rows,
-            int cols, float eps, cudaStream_t stream) {
+void launch(const void* x, const void* w, const void* b, const void* amax,
+            void* y, int rows, int cols, float eps, cudaStream_t stream) {
   const TIn* xt = static_cast<const TIn*>(x);
   const float* wt = static_cast<const float*>(w);
   const float* bt = static_cast<const float*>(b);
+  const float* at = static_cast<const float*>(amax);
   TOut* yt = static_cast<TOut*>(y);
   if (cols % 8 == 0 && aligned16(x) && aligned16(w) && aligned16(b) &&
       aligned16(y)) {
     const int threads = (cols / 8 + 31) / 32 * 32;   // <= 512 for C <= 4096
     layernorm_vec8_kernel<TIn, TOut><<<rows, threads, 0, stream>>>(
-        xt, wt, bt, yt, cols, eps);
+        xt, wt, bt, at, yt, cols, eps);
     return;
   }
   // about four values per thread, whole warps, at most 1024 threads
@@ -168,7 +205,11 @@ void launch(const void* x, const void* w, const void* b, void* y, int rows,
   threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
   const size_t smem = static_cast<size_t>(cols) * sizeof(float);
   layernorm_kernel<TIn, TOut><<<rows, threads, smem, stream>>>(
-      xt, wt, bt, yt, cols, eps);
+      xt, wt, bt, at, yt, cols, eps);
+}
+
+bool valid_shape(int rows, int cols) {
+  return rows > 0 && cols > 0 && cols <= kMaxCols;
 }
 
 }  // namespace
@@ -178,9 +219,7 @@ void launch(const void* x, const void* w, const void* b, void* y, int rows,
 extern "C" int stt_layernorm(const void* x, const void* w, const void* b,
                              void* y, int rows, int cols, float eps,
                              int in_dtype, int out_dtype, void* stream) {
-  if (rows <= 0 || cols <= 0 || cols > kMaxCols) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!valid_shape(rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   const bool in_bf = in_dtype == stt::kBFloat16;
@@ -190,13 +229,33 @@ extern "C" int stt_layernorm(const void* x, const void* w, const void* b,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (in_bf && out_bf) {
-    launch<bf16, bf16>(x, w, b, y, rows, cols, eps, s);
+    launch<bf16, bf16>(x, w, b, nullptr, y, rows, cols, eps, s);
   } else if (in_bf) {
-    launch<bf16, float>(x, w, b, y, rows, cols, eps, s);
+    launch<bf16, float>(x, w, b, nullptr, y, rows, cols, eps, s);
   } else if (out_bf) {
-    launch<float, bf16>(x, w, b, y, rows, cols, eps, s);
+    launch<float, bf16>(x, w, b, nullptr, y, rows, cols, eps, s);
   } else {
-    launch<float, float>(x, w, b, y, rows, cols, eps, s);
+    launch<float, float>(x, w, b, nullptr, y, rows, cols, eps, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As stt_layernorm, with y int8: the static codes against amax (one fp32
+// value in device memory, the calibrated absmax of the LayerNorm output).
+extern "C" int stt_layernorm_quant(const void* x, const void* w,
+                                   const void* b, const void* amax, void* y,
+                                   int rows, int cols, float eps,
+                                   int in_dtype, void* stream) {
+  if (!valid_shape(rows, cols) || amax == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == stt::kBFloat16) {
+    launch<__nv_bfloat16, int8_t>(x, w, b, amax, y, rows, cols, eps, s);
+  } else if (in_dtype == stt::kFloat32) {
+    launch<float, int8_t>(x, w, b, amax, y, rows, cols, eps, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,11 @@ and each window gathers its token rows.  PyTorch runs eagerly, so the JAX
 package's jit artefacts (frame-count buckets, fixed chunk shapes, per-step
 program caches) are gone: chunks are simply the last, shorter slice.  One
 device; while the device scores a clip, the host decodes the next.
+
+``quant8=True`` serves the int8 model (ops/quant.py) made from the fp32
+masters; in the default 'static' mode the first ``evaluate`` (or
+``score_view``) calibrates it on the first clips, through the pixel path,
+as the JAX package does.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ from simple_tad_tpu_torch.data.frame_datasets import ClipEvalView, FrameDataset
 from simple_tad_tpu_torch.eval.metrics import BinaryMetrics, binary_metrics
 from simple_tad_tpu_torch.models.layers import embed_tubelets, patch_matrix
 from simple_tad_tpu_torch.ops import image as image_ops
+from simple_tad_tpu_torch.ops.quant import (apply_act_amax,
+                                            calibrate_act_amax, quant_vit,
+                                            quantize_vit_params)
 from simple_tad_tpu_torch.utils.fold_norm import fold_normalization
 
 COLUMNS = ("clip", "filename", "logits_safe", "logits_risk", "label", "ttc")
@@ -90,18 +98,37 @@ class EvalResult:
 
 
 class FrameEvaluator:
-    """Scores FrameDataset eval views with ``model`` on ``device``."""
+    """Scores FrameDataset eval views with ``model`` on ``device``.
+
+    quant8: serve the int8 model instead, quantized from ``fp32_state``
+    (the fp32 masters, e.g. an fp32 model's state_dict; default: the
+    model's own state, which must then be fp32) in ``quant8_mode``
+    'static' (calibrated, see ``calibrate``) or 'dynamic'.
+    """
 
     def __init__(self, model, *, device, batch_size: int = 96,
                  resize_on_host: bool = False, precompute_tubelets: bool = True,
-                 devices=None):
+                 quant8: bool = False, quant8_mode: str = "static",
+                 fp32_state=None, devices=None):
         if devices is not None:
             raise NotImplementedError(
                 "multi-device evaluation is not ported yet (ROADMAP.md "
                 "queue 1, evaluation path)")
         cfg = model.cfg
-        self.model = model
         self.device = torch.device(device)
+        self._qstate = None
+        if quant8:
+            if quant8_mode not in ("static", "dynamic"):
+                raise ValueError(f"quant8_mode must be 'static' or "
+                                 f"'dynamic', got {quant8_mode!r}")
+            qstate = quantize_vit_params(
+                model.state_dict() if fp32_state is None else fp32_state)
+            static = quant8_mode == "static"
+            # a static model is served by its calib twin until calibrate()
+            self._qstate = qstate if static else None
+            model = quant_vit(cfg, qstate, "calib" if static else "dynamic",
+                              self.device)
+        self.model = model
         self.batch_size = batch_size
         self.dtype = cfg.dtype
         self.resize_on_host = resize_on_host
@@ -136,11 +163,43 @@ class FrameEvaluator:
             x = image_ops.resize_bicubic(x, (self.crop, self.crop))
         return x.to(self.dtype)
 
+    def _pixel_tokens(self, frames, chunk):
+        """Tokens of the windows ``chunk`` (b, T) embedded from pixels."""
+        return embed_tubelets(image_ops.make_windows(frames, chunk),
+                              self.patch_kernel, self.patch_bias,
+                              self.patch, self.tubelet, self.dtype)
+
+    def calibrate(self, dataset: FrameDataset, n_views: int = 4, views=None,
+                  reduce="max") -> None:
+        """Static int8 calibration: the first ``batch_size`` windows of the
+        first ``n_views`` eval clips go through the pixel path of the calib
+        model; the absmax it records (combined by ``reduce``: 'max' or a
+        quantile, see ops/quant.py:calibrate_act_amax) become the static
+        model's activation scales.  A no-op once calibrated, and for the
+        bf16 or dynamic int8 model."""
+        if self._qstate is None:
+            return
+        if views is None:
+            views = dataset.clip_eval_views()
+        batches = []
+        for view in views[:n_views]:
+            chunk = torch.from_numpy(view.window_idx[:self.batch_size].astype(
+                np.int64)).to(self.device)
+            batches.append(self._pixel_tokens(
+                self._device_frames(dataset, view), chunk))
+        amax = calibrate_act_amax(self.model, batches, reduce,
+                                  tokens_input=True)
+        self.model = quant_vit(self.model.cfg,
+                               apply_act_amax(self._qstate, amax), "static",
+                               self.device)
+        self._qstate = None
+
     @torch.inference_mode()
     def score_view_async(self, dataset: FrameDataset,
                          view: ClipEvalView) -> torch.Tensor:
         """Launch every window chunk of one clip; -> (W, num_classes) fp32
         logits on the device (not yet synchronised)."""
+        self.calibrate(dataset)
         frames = self._device_frames(dataset, view)
         idx = torch.from_numpy(view.window_idx.astype(np.int64)).to(
             self.device)
@@ -159,9 +218,7 @@ class FrameEvaluator:
                 g = tokens[chunk[:, ::self.tubelet]]     # (b, T/t, P, D)
                 x = g.reshape(g.shape[0], -1, g.shape[-1])
             else:
-                x = embed_tubelets(image_ops.make_windows(frames, chunk),
-                                   self.patch_kernel, self.patch_bias,
-                                   self.patch, self.tubelet, self.dtype)
+                x = self._pixel_tokens(frames, chunk)
             out.append(self.model(x, tokens_input=True).float())
         return torch.cat(out)
 
@@ -173,6 +230,8 @@ class FrameEvaluator:
     def evaluate(self, dataset: FrameDataset, *,
                  exact_metrics: bool = False) -> EvalResult:
         """Score every window of every eval view of ``dataset``."""
+        views = dataset.clip_eval_views()
+        self.calibrate(dataset, views=views)
         rows: Dict[str, list] = {k: [] for k in COLUMNS}
         t0 = time.perf_counter()
 
@@ -188,7 +247,7 @@ class FrameEvaluator:
         # one clip in flight: the host decodes and launches clip k+1 while
         # the device still scores clip k; rows keep dispatch order
         inflight = None
-        for view in dataset.clip_eval_views():
+        for view in views:
             launched = (view, self.score_view_async(dataset, view))
             if inflight is not None:
                 drain(*inflight)

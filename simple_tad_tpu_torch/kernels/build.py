@@ -99,9 +99,15 @@ def load() -> ctypes.CDLL:
             lib.stt_layernorm.argtypes = [p, p, p, p, i, i, ctypes.c_float,
                                           i, i, p]
             lib.stt_layernorm.restype = i
+            lib.stt_layernorm_quant.argtypes = [p, p, p, p, p, i, i,
+                                                ctypes.c_float, i, p]
+            lib.stt_layernorm_quant.restype = i
             lib.stt_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                               i, i, ctypes.c_float, i, p]
             lib.stt_attention_fwd.restype = i
+            lib.stt_attention_i8.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                             i, i, i, i, ctypes.c_float, p]
+            lib.stt_attention_i8.restype = i
             lib.stt_error_string.argtypes = [i]
             lib.stt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -9,6 +9,19 @@ and LayerScale gammas in the compute dtype; LayerNorm parameters and the
 patch-embed bias in fp32.  Nothing is initialised at construction
 (``torch.empty``); ``init_weights`` fills every parameter from an explicit
 ``torch.Generator``.
+
+The int8 model (``quant=True``) swaps in ``QuantLinear`` for the block
+GEMMs and, at widths that are multiples of 128 (the JAX gate),
+``LayerNormQuant`` for norm1/norm2, in one of three modes: 'static'
+(calibrated activation scales, the serving path: LayerNorm->int8 and
+int8-storage attention kernels), 'dynamic' (per-row scales) and 'calib'
+(dynamic, recording each activation site's absmax for
+ops/quant.py:calibrate_act_amax).  Its weights come from
+ops/quant.py:quantize_vit_params of an fp32 state dict and are never
+initialised here.  Casts and bias adds follow the JAX modules: the qkv
+GEMM's output is cast to the compute dtype before the q/v bias add; the
+proj, fc1 and fc2 GEMMs add their fp32 bias in fp32; GELU runs on fc1's
+fp32 output.
 """
 
 from __future__ import annotations
@@ -20,8 +33,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from simple_tad_tpu_torch.ops.attention import dot_product_attention_qkv
-from simple_tad_tpu_torch.ops.ln import layernorm
+from simple_tad_tpu_torch.ops.attention import (dot_product_attention_qkv,
+                                                dot_product_attention_qkv_i8)
+from simple_tad_tpu_torch.ops.ln import layernorm, layernorm_quant
+from simple_tad_tpu_torch.ops.quant import int8_matmul, int8_matmul_static
+
+QUANT_MODES = ("static", "dynamic", "calib")
 
 
 def gelu_for(dtype):
@@ -79,6 +96,48 @@ class Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
+def observe(module, name: str, value) -> None:
+    """Calibration: keep the running absmax of one activation site in
+    ``module.observed`` (the JAX package's sow into its 'calib' collection
+    with reduce_fn=maximum)."""
+    prev = module.observed.get(name)
+    module.observed[name] = value if prev is None \
+        else torch.maximum(prev, value)
+
+
+def absmax(x):
+    return x.float().abs().amax()
+
+
+class QuantLinear(nn.Module):
+    """Int8-weight Linear, inference only (port of the JAX QuantDense):
+    ``weight_q`` (out, in) int8, ``weight_scale`` (out,) fp32, fp32
+    ``bias``; mode 'static' adds ``act_amax``, the calibrated absmax of the
+    input.  Returns fp32 with the bias added in fp32."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True,
+                 mode: str, device=None):
+        super().__init__()
+        self.mode = mode
+        self.weight_q = _param((out_dim, in_dim), torch.int8, device)
+        self.weight_scale = _param((out_dim,), torch.float32, device)
+        self.bias = _param((out_dim,), torch.float32, device) if bias \
+            else None
+        if mode == "static":
+            self.act_amax = _param((), torch.float32, device)
+        self.observed = {}
+
+    def forward(self, x):
+        if self.mode == "static":
+            y = int8_matmul_static(x, self.weight_q, self.weight_scale,
+                                   self.act_amax)
+        else:
+            if self.mode == "calib":
+                observe(self, "act_amax", absmax(x))
+            y = int8_matmul(x, self.weight_q, self.weight_scale)
+        return y if self.bias is None else y + self.bias
+
+
 class LayerNormFp32(nn.Module):
     """LayerNorm with fp32 statistics and fp32 ``weight``/``bias``; the
     output is cast to ``dtype``.  Routes through ops/ln.py."""
@@ -101,14 +160,45 @@ class LayerNormFp32(nn.Module):
                          out_dtype=self.dtype)
 
 
+class LayerNormQuant(LayerNormFp32):
+    """norm1/norm2 of the int8 model (port of the JAX LayerNormQuant).
+    'static': the LayerNorm->int8 kernel emits the next GEMM's int8 input
+    against the calibrated ``act_amax``; 'calib': the LayerNorm, recording
+    the absmax of its output after the cast to the compute dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, mode: str,
+                 dtype=torch.float32, device=None):
+        super().__init__(dim, eps, dtype=dtype, device=device)
+        self.mode = mode
+        if mode == "static":
+            self.act_amax = _param((), torch.float32, device)
+        self.observed = {}
+
+    def forward(self, x):
+        if self.mode == "static":
+            return layernorm_quant(x, self.weight, self.bias, self.act_amax,
+                                   self.eps)
+        y = super().forward(x)
+        observe(self, "act_amax", absmax(y))
+        return y
+
+
 class Mlp(nn.Module):
     """fc1 -> GELU (erf at fp32, tanh at bf16) -> fc2."""
 
     def __init__(self, dim: int, hidden_dim: int, *, dtype=torch.float32,
+                 quant: bool = False, quant_mode: str = "dynamic",
                  device=None):
         super().__init__()
-        self.fc1 = Linear(dim, hidden_dim, dtype=dtype, device=device)
-        self.fc2 = Linear(hidden_dim, dim, dtype=dtype, device=device)
+        self.dtype = dtype
+        if quant:
+            self.fc1 = QuantLinear(dim, hidden_dim, mode=quant_mode,
+                                   device=device)
+            self.fc2 = QuantLinear(hidden_dim, dim, mode=quant_mode,
+                                   device=device)
+        else:
+            self.fc1 = Linear(dim, hidden_dim, dtype=dtype, device=device)
+            self.fc2 = Linear(hidden_dim, dim, dtype=dtype, device=device)
         self.act = gelu_for(dtype)
 
     def init_weights(self, generator):
@@ -116,28 +206,45 @@ class Mlp(nn.Module):
         self.fc2.init_weights(generator)
 
     def forward(self, x):
-        return self.fc2(self.act(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x))).to(self.dtype)
 
 
 class Attention(nn.Module):
     """Packed-qkv multi-head attention: one bias-free ``qkv`` projection,
     then ``q_bias | 0 | v_bias`` added in the compute dtype, then
-    ops/attention.py, then ``proj``."""
+    ops/attention.py, then ``proj``.  Int8 mode 'static' quantizes qkv per
+    head against the calibrated ``qkv_amax`` (3, H) and runs the
+    int8-storage kernel, whose int8 output (against ``out_amax``) is the
+    proj GEMM's input; 'calib' records both absmax sites around the bf16
+    attention."""
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
-                 qk_scale=None, dtype=torch.float32, device=None):
+                 qk_scale=None, dtype=torch.float32, quant: bool = False,
+                 quant_mode: str = "dynamic", device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
+        self.quant = quant
+        self.mode = quant_mode
         head_dim = dim // num_heads
         self.scale = qk_scale or head_dim ** -0.5
-        self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype,
-                          device=device)
+        if quant:
+            self.qkv = QuantLinear(dim, 3 * dim, bias=False, mode=quant_mode,
+                                   device=device)
+            self.proj = QuantLinear(dim, dim, mode=quant_mode, device=device)
+            if quant_mode == "static":
+                self.qkv_amax = _param((3, num_heads), torch.float32, device)
+                self.out_amax = _param((), torch.float32, device)
+            self.observed = {}
+        else:
+            self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype,
+                              device=device)
+            self.proj = Linear(dim, dim, dtype=dtype, device=device)
         if qkv_bias:
             self.q_bias = _param((dim,), dtype, device)
             self.v_bias = _param((dim,), dtype, device)
         else:
             self.q_bias = self.v_bias = None
-        self.proj = Linear(dim, dim, dtype=dtype, device=device)
 
     def init_weights(self, generator):
         self.qkv.init_weights(generator)
@@ -148,13 +255,25 @@ class Attention(nn.Module):
                 self.v_bias.zero_()
 
     def forward(self, x):
-        qkv = self.qkv(x)
+        qkv = self.qkv(x).to(self.dtype)
         if self.q_bias is not None:
             qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                                    self.v_bias])
-        out = dot_product_attention_qkv(qkv, num_heads=self.num_heads,
-                                        scale=self.scale)
-        return self.proj(out)
+        heads, scale = self.num_heads, self.scale
+        if self.quant and self.mode == "static":
+            out = dot_product_attention_qkv_i8(
+                qkv, self.qkv_amax, self.out_amax, num_heads=heads,
+                scale=scale)
+        else:
+            if self.quant and self.mode == "calib":
+                B, N, _ = qkv.shape
+                observe(self, "qkv_amax", qkv.float().abs().view(
+                    B, N, 3, heads, -1).amax(dim=(0, 1, 4)))
+            out = dot_product_attention_qkv(qkv, num_heads=heads,
+                                            scale=scale)
+            if self.quant and self.mode == "calib":
+                observe(self, "out_amax", absmax(out))
+        return self.proj(out).to(self.dtype)
 
 
 class Block(nn.Module):
@@ -164,14 +283,27 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale=None,
                  init_values: float = 0.0, norm_eps: float = 1e-6,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, quant: bool = False,
+                 quant_mode: str = "dynamic", device=None):
         super().__init__()
         self.init_values = init_values
-        self.norm1 = LayerNormFp32(dim, norm_eps, dtype=dtype, device=device)
+        if quant and quant_mode not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {quant_mode!r}")
+        if quant and quant_mode != "dynamic" and dim % 128 == 0:
+            def norm():
+                return LayerNormQuant(dim, norm_eps, mode=quant_mode,
+                                      dtype=dtype, device=device)
+        else:
+            def norm():
+                return LayerNormFp32(dim, norm_eps, dtype=dtype,
+                                     device=device)
+        self.norm1 = norm()
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
-                              qk_scale=qk_scale, dtype=dtype, device=device)
-        self.norm2 = LayerNormFp32(dim, norm_eps, dtype=dtype, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+                              qk_scale=qk_scale, dtype=dtype, quant=quant,
+                              quant_mode=quant_mode, device=device)
+        self.norm2 = norm()
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, quant=quant,
+                       quant_mode=quant_mode, device=device)
         if init_values > 0:
             self.gamma_1 = _param((dim,), dtype, device)
             self.gamma_2 = _param((dim,), dtype, device)

@@ -5,7 +5,9 @@ sincos position table without a CLS token (the VideoMAE fine-tuned models
 of the main path).  Input is channels-last video (B, T, H, W, C), or
 pre-embedded tokens (B, num_patches, D) with ``tokens_input=True``.  The
 sincos table is a non-persistent buffer: it is regenerated, never loaded.
-The head runs in fp32.
+The head runs in fp32.  ``quant=True`` builds the int8 model
+(models/layers.py, ops/quant.py) in ``quant_mode`` 'static', 'dynamic' or
+'calib'; its state comes from ops/quant.py and is never initialised.
 """
 
 from __future__ import annotations
@@ -43,6 +45,10 @@ class ViTConfig:
     pos_embed_kind: str = "sincos"
     use_cls_token: bool = False
     use_learnable_pos_emb: bool = False
+    # int8 GEMM inference (ops/quant.py): 'static' calibrated activation
+    # scales, 'dynamic' per-row scales, 'calib' records the absmax sites
+    quant: bool = False
+    quant_mode: str = "dynamic"
 
     @property
     def num_patches(self) -> int:
@@ -74,7 +80,8 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg.embed_dim, cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
                   qkv_bias=cfg.qkv_bias, qk_scale=cfg.qk_scale,
-                  init_values=cfg.init_values, dtype=dt, device=device)
+                  init_values=cfg.init_values, dtype=dt, quant=cfg.quant,
+                  quant_mode=cfg.quant_mode, device=device)
             for _ in range(cfg.depth))
         norm_name = "fc_norm" if cfg.final_reduction == "fc_norm" else "norm"
         setattr(self, norm_name, LayerNormFp32(cfg.embed_dim, dtype=dt,
@@ -87,6 +94,10 @@ class VisionTransformer(nn.Module):
         initialisers: trunc-normal 0.02 Linears, lecun-normal patch kernel,
         unit LayerNorms, head std 0.02 * init_scale)."""
         cfg = self.cfg
+        if cfg.quant:
+            raise ValueError(
+                "the int8 model is not initialised: its state comes from "
+                "ops/quant.py:quantize_vit_params of an fp32 state dict")
         self.patch_embed.init_weights(generator)
         for blk in self.blocks:
             blk.init_weights(generator)

@@ -9,6 +9,10 @@ count does not match.  A fixed sincos ``pos_embed`` is never loaded (the
 port regenerates it).  ``from_jax_params`` is the inverse of the JAX
 package's torch_to_vit_params: JAX VisionTransformer params (nested dicts
 of numpy arrays, blocks stacked on a leading depth axis) -> a state dict.
+It also reads the JAX package's quantized, calibrated tree
+(ops/quant.py there: ``qkv_q``/``kernel_q`` int8, ``*_scale``, the
+``act_amax``/``qkv_amax``/``out_amax`` absmax) into the port's int8 model
+state, so the port serves exactly the JAX package's int8 codes and scales.
 """
 
 from __future__ import annotations
@@ -83,12 +87,26 @@ def load_vit_checkpoint(path: str, model, num_classes: Optional[int] = None):
 
 def from_jax_params(params: Mapping[str, Any], *, tubelet_size: int = 2,
                     in_chans: int = 3) -> Dict[str, torch.Tensor]:
-    """JAX VisionTransformer params -> reference-named fp32 state dict."""
-    def arr(a):
-        return np.asarray(a, np.float32)
+    """JAX VisionTransformer params -> reference-named state dict: fp32,
+    with int8 ``weight_q`` where the tree is quantized."""
+    def arr(a):                     # a writable copy (JAX arrays are not)
+        return np.array(a, np.float32)
 
     def t(a):                                   # Dense (in, out) -> (out, in)
         return np.ascontiguousarray(arr(a).T)
+
+    def dense(name, leaves, i):
+        """One Dense: fp ``kernel`` or int8 ``kernel_q`` + ``kernel_scale``
+        (+ calibrated ``act_amax``), and ``bias``."""
+        if "kernel_q" in leaves:
+            out[name + ".weight_q"] = np.ascontiguousarray(
+                np.asarray(leaves["kernel_q"][i], np.int8).T)
+            out[name + ".weight_scale"] = arr(leaves["kernel_scale"][i])
+        else:
+            out[name + ".weight"] = t(leaves["kernel"][i])
+        for key in ("act_amax", "bias"):
+            if key in leaves:
+                out[f"{name}.{key}"] = arr(leaves[key][i])
 
     out: Dict[str, np.ndarray] = {}
     kernel = arr(params["patch_embed"]["kernel"])           # (t*p*p*c, D)
@@ -107,15 +125,21 @@ def from_jax_params(params: Mapping[str, Any], *, tubelet_size: int = 2,
         for norm in ("norm1", "norm2"):
             out[pre + norm + ".weight"] = arr(blocks[norm]["scale"][i])
             out[pre + norm + ".bias"] = arr(blocks[norm]["bias"][i])
-        out[pre + "attn.qkv.weight"] = t(attn["qkv_kernel"][i])
-        if "q_bias" in attn:
-            out[pre + "attn.q_bias"] = arr(attn["q_bias"][i])
-            out[pre + "attn.v_bias"] = arr(attn["v_bias"][i])
-        out[pre + "attn.proj.weight"] = t(attn["proj"]["kernel"][i])
-        out[pre + "attn.proj.bias"] = arr(attn["proj"]["bias"][i])
+            if "act_amax" in blocks[norm]:
+                out[pre + norm + ".act_amax"] = arr(
+                    blocks[norm]["act_amax"][i])
+        # the packed qkv Dense keeps its leaves in the attention scope
+        qkv = {k: attn[j] for j, k in (
+            ("qkv_kernel", "kernel"), ("qkv_q", "kernel_q"),
+            ("qkv_scale", "kernel_scale"), ("act_amax", "act_amax"))
+            if j in attn}
+        dense(pre + "attn.qkv", qkv, i)
+        for name in ("q_bias", "v_bias", "qkv_amax", "out_amax"):
+            if name in attn:
+                out[pre + "attn." + name] = arr(attn[name][i])
+        dense(pre + "attn.proj", attn["proj"], i)
         for fc in ("fc1", "fc2"):
-            out[pre + f"mlp.{fc}.weight"] = t(mlp[fc]["kernel"][i])
-            out[pre + f"mlp.{fc}.bias"] = arr(mlp[fc]["bias"][i])
+            dense(pre + f"mlp.{fc}", mlp[fc], i)
         if "gamma_1" in blocks:
             out[pre + "gamma_1"] = arr(blocks["gamma_1"][i])
             out[pre + "gamma_2"] = arr(blocks["gamma_2"][i])
