@@ -18,7 +18,17 @@ Phases (any failure raises, so the exit code is non-zero):
      the bound is shown to catch it.  The int8 kernels (LayerNorm->int8,
      int8-storage attention) are held to their plain versions by the
      largest code difference (<= 1) and the share of codes that differ,
-     with the same two controls;
+     with the same two controls.  The training attention kernels (C1,
+     the forward with lse; C2, the backward) are checked at ViT-B's
+     training shape (8, 1568, 2304) bf16 and on a masked fp32 tail: C1's
+     out under the attention bounds and its lse within LSE_ATOL, C2's
+     dqkv under the bf16 bounds, each with a control (the plain version
+     with probabilities not rounded before PV, or before dV); they are
+     timed at the job's batch, (56, 1568, 2304).  Every kernel is also
+     timed against one PyTorch call that computes the same function where
+     there is one (library_ms: scaled_dot_product_attention forward or
+     backward, layer_norm; a yardstick the port never calls), and its
+     bound_ms is computed from its shapes and the H100's data-sheet rates;
   3. sliding-window evaluation at full width: ViT-B 16x224 bf16 with
      seeded weights on a synthetic 96-frame 360x640 clip (81 windows),
      device resize, token path, batch 32, through FrameEvaluator, timed
@@ -41,7 +51,28 @@ Phases (any failure raises, so the exit code is non-zero):
      at the logit level the kernels and the subtle controls read alike
      (PERF.md), and the sharp check is the per-site one.  The
      int8-vs-bf16 logit drift is printed, not bounded; then 16 int8
-     streaming steps.
+     streaming steps;
+  6. frame fine-tuning at full width: ViT-B 16x224 with seeded fp32
+     masters computed in bf16, the paper's job hyperparameters
+     (jobs/finetune/VideoMAE-B_DoTA.sh: layer decay 0.6, drop path 0.2,
+     RandAugment m6 n3, RandomErasing 0.25, crossentropy, AdamW, weight
+     decay 0.05), synthetic uint8 clips through ops/augment.py on the
+     card.  (i) batch 8: one train step must launch C1 12 times, C2 12
+     times (each C2 call is two kernel launches: dk/dv, then dq), the
+     LayerNorm kernel 25 times and the inference attention 0 times; the
+     step's gradients must agree with the same step run through the plain
+     versions (relative error of the global gradient norm within
+     GRAD_NORM_RTOL, of the worst parameter within GRAD_PARAM_RTOL), and a
+     control (the backward without its delta term) must not;
+     (ii) 10 steps on one fixed augmented batch at a constant lr of
+     TRAIN_LR: the last loss must be at least LOSS_DROP below the first;
+     (iii) FinetuneTrainer at the job's batch 56 in TIMING_PROCESSES fresh
+     processes: median step ms and clips/s of TIMED_STEPS steps after
+     WARMUP_STEPS, peak device memory; in the first process also the
+     device time of the step's parts over BREAKDOWN_STEPS steps (CUDA
+     events around the augmentation, forward + backward and the
+     optimizer update) and one torch.profiler window of PROFILE_STEPS
+     steps (kernel time by name, device busy share).
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -51,6 +82,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import multiprocessing
 import statistics
 import subprocess
 import time
@@ -70,6 +102,17 @@ import torch
 #   int8 logits, max |err| / max |logit|  1.004e-2; a single flipped code
 #                                         4.6e-3; subtle controls 7.4e-3 to
 #                                         9.7e-3 (they saturate)
+#   training attention at (8, 1568, 2304) bf16:
+#     C1 bf16 outputs differing           1.626e-3 vs control 0.4215
+#     C1 lse max |err|                    1.373e-4 (control 5.913e-4; the
+#                                         bound is the analytic one below)
+#     C2 bf16 dqkv differing              2.058e-3 vs control 0.1412
+#   ViT-B train step at batch 8, gradients vs the plain-version step:
+#     worst parameter ||err|| / ||grad||  8.083e-3 vs control 3.183
+#     global gradient norm                1.699e-5; the control leaves it
+#                                         at 1.1e-7 (the fc head's gradient
+#                                         dominates it), so the per-parameter
+#                                         bound is the one that catches it
 # Readings are bit-for-bit the same from run to run on one card and
 # software stack (no atomics; fixed seeds).
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)    # ~1 bf16 ulp (2^-7 relative)
@@ -83,6 +126,25 @@ LOGIT_RTOL = 5.7e-3      # max |logit error| / max |logit|, 12 bf16 layers
 I8_MISMATCH = {"layernorm_quant": 1.5e-4, "attention_i8": 4e-4}
 LOGIT_RTOL_I8 = 2.5e-2   # as LOGIT_RTOL, the 12-layer int8 model
 EVAL_RUNS = 5
+# training attention: C1's out is A1's out (its bounds); lse within one
+# flipped bf16 rounding of a probability (log2(1 + 2^-7), 0.0112); C2's
+# bf16 dqkv by the share of outputs that differ; fp32 backward sums N
+# products in another order
+BF16_MISMATCH.update({"attention_fwd_lse": BF16_MISMATCH["attention"],
+                      "attention_bwd": 0.02})
+LSE_ATOL = 1.2e-2
+F32_TOL_BWD = dict(atol=1e-4, rtol=1e-4)
+# phase 6 (i): one ViT-B train step, kernels vs plain versions
+GRAD_NORM_RTOL = 1e-3
+GRAD_PARAM_RTOL = 5e-2
+TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS, LOSS_DROP = 8, 1e-4, 10, 0.05
+JOB_BATCH = 56
+TIMING_PROCESSES, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 3, 3, 10, 2
+BREAKDOWN_STEPS = 4
+CLIP_H, CLIP_W = 224, 398          # decode_scaled's short side 224, 16:9
+# the card's data-sheet rates (H100 SXM, dense): bf16 tensor cores, int8
+# tensor cores, fp32 outside the tensor cores, device memory
+PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "bytes": 3.35e12}
 # kernel name -> (source, the TPU kernel it replaces)
 SOURCES = {
     "layernorm": ("simple_tad_tpu_torch/csrc/layernorm.cu",
@@ -93,6 +155,10 @@ SOURCES = {
                         "simple_tad_tpu/ops/ln.py:37"),
     "attention_i8": ("simple_tad_tpu_torch/csrc/attention_i8.cu",
                      "simple_tad_tpu/ops/flash_attention.py:1158"),
+    "attention_fwd_lse": ("simple_tad_tpu_torch/csrc/attention.cu",
+                          "simple_tad_tpu/ops/flash_attention.py:875"),
+    "attention_bwd": ("simple_tad_tpu_torch/csrc/attention_train.cu",
+                      "simple_tad_tpu/ops/flash_attention.py:945"),
 }
 
 
@@ -205,6 +271,11 @@ def layernorm_quant_control(x, weight, bias, amax, eps: float = 1e-6):
 def compare(name, got, want):
     """-> (max abs error, share of elements that differ, within the bounds
     of kernel ``name``)."""
+    if isinstance(got, tuple):             # C1: (out, lse)
+        err, share, ok = compare(name, got[0], want[0])
+        lse_err = (got[1] - want[1]).abs().max().item()
+        print(f"[{name}] lse max_abs_err {lse_err:.3e} (bound {LSE_ATOL})")
+        return max(err, lse_err), share, ok and lse_err <= LSE_ATOL
     err = (got.float() - want.float()).abs().max().item()
     share = (got != want).float().mean().item()
     if got.dtype == torch.int8:
@@ -213,26 +284,128 @@ def compare(name, got, want):
         ok = (torch.allclose(got.float(), want.float(), **BF16_TOL)
               and share <= BF16_MISMATCH[name])
     else:
-        ok = torch.allclose(got, want, **F32_TOL)
+        tol = F32_TOL_BWD if name == "attention_bwd" else F32_TOL
+        ok = torch.allclose(got, want, **tol)
     return err, share, ok
 
 
+def attention_fwd_lse_control(qkv, num_heads: int, scale: float):
+    """The plain training forward without the probability rounding."""
+    from simple_tad_tpu_torch.ops.flash_attention import LOG2E
+    B, N, C3 = qkv.shape
+    q, k, v = qkv.view(B, N, 3, num_heads, -1).permute(2, 0, 3, 1, 4)
+    qs = (q.float() * (scale * LOG2E)).to(qkv.dtype)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    m = torch.ceil(s.amax(dim=-1, keepdim=True))
+    p = torch.exp2(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p, v.float()) / denom
+    return (o.to(qkv.dtype).permute(0, 2, 1, 3).reshape(B, N, C3 // 3),
+            (m + torch.log2(denom))[..., 0])
+
+
+def attention_bwd_variant(qkv, out, lse, dout, num_heads: int, scale: float,
+                          *, round_p: bool = True, use_delta: bool = True):
+    """The plain training backward with a required step left out: the
+    rounding of p before dV (``round_p=False``, phase 2's control) or the
+    delta term of ds (``use_delta=False``, phase 6's gradient control)."""
+    from simple_tad_tpu_torch.ops.flash_attention import (LOG2E,
+                                                          attention_delta)
+    B, N, C3 = qkv.shape
+    dt = qkv.dtype
+    q, k, v = (t.float() for t in
+               qkv.view(B, N, 3, num_heads, -1).permute(2, 0, 3, 1, 4))
+    do = dout.view(B, N, num_heads, -1).permute(0, 2, 1, 3).float()
+    delta = attention_delta(out, dout, num_heads)[..., None]
+    s = torch.matmul((q * (scale * LOG2E)).to(dt).float(),
+                     k.transpose(-1, -2))
+    p = torch.exp2(s - lse[..., None])
+    pv = p.to(dt).float() if round_p else p
+    dv = torch.matmul(pv.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = (p * (dp - delta if use_delta else dp)).to(dt).float()
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    dq = torch.matmul(ds, k) * scale
+    return torch.stack([dq, dk, dv]).to(dt).permute(1, 3, 0, 2, 4).reshape(
+        B, N, C3)
+
+
+def attention_bwd_control(*args):
+    return attention_bwd_variant(*args, round_p=False)
+
+
+def attention_bwd_no_delta(*args):
+    return attention_bwd_variant(*args, use_delta=False)
+
+
+def qkv_views(qkv, num_heads: int):
+    """(B, N, 3C) -> q, k, v views (B, H, N, Dh), no copies."""
+    B, N, C3 = qkv.shape
+    return qkv.view(B, N, 3, num_heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def attention_bound(B, N, C, heads, dtype=torch.bfloat16, *, backward=False,
+                    int8_qk=False, lse=False):
+    """-> (bound ms, 'operations' or 'bytes') of one packed-qkv attention
+    call: QK and PV are N^2 Dh multiply-adds each per (batch, head) (the
+    backward's five products: 2.5x the forward's); bytes: qkv read once,
+    the output (and lse) written once (backward: qkv, out, dout and lse
+    read, dqkv written)."""
+    D = C // heads
+    prod = 2.0 * B * heads * N * N * D          # one N x N x Dh product
+    esz = 1 if int8_qk else torch.finfo(dtype).bits // 8
+    if backward:
+        t_ops = 5 * prod / PEAK["bf16"]
+        nbytes = (2 * B * N * 3 * C + 2 * B * N * C) * esz + B * heads * N * 4
+    elif int8_qk:                               # s8 QK, bf16 PV
+        t_ops = prod / PEAK["int8"] + prod / PEAK["bf16"]
+        nbytes = B * N * 3 * C + B * N * C
+    else:
+        t_ops = 2 * prod / PEAK["bf16"]
+        nbytes = B * N * 4 * C * esz + (B * heads * N * 4 if lse else 0)
+    t_bytes = nbytes / PEAK["bytes"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def layernorm_bound(rows, C, in_bytes, out_bytes):
+    """LayerNorm reads each input once and writes each output once (~8
+    fp32 operations per element outside the tensor cores)."""
+    t_bytes = rows * C * (in_bytes + out_bytes) / PEAK["bytes"]
+    t_ops = 8.0 * rows * C / PEAK["fp32"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def check_kernels(dev, seed: int) -> dict:
-    """Phase 2 -> {kernel name: {max_abs_err, ms, plain_ms}}; the times are
-    those of the main-path shape (first case of each kernel)."""
+    """Phase 2 -> {kernel name: {max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by}}; the times are those of the main-path shape (first
+    case of each kernel; C1 and C2 at the job's batch)."""
+    import torch.nn.functional as F
     from simple_tad_tpu_torch.ops import flash_attention as fa
     from simple_tad_tpu_torch.ops import ln
     g = torch.Generator(device=dev).manual_seed(seed)
     results = {}
     failures = []
 
-    def run_case(name, case, kernel, plain, control=None):
+    def timed(name, kernel, plain, library=None, bound=None, plain_runs=20):
+        r = results.setdefault(name, {"max_abs_err": 0.0})
+        r["ms"], r["plain_ms"] = cuda_ms(kernel), cuda_ms(plain,
+                                                          runs=plain_runs)
+        r["library_ms"] = cuda_ms(library) if library is not None else None
+        r["bound_ms"], r["bound_by"] = bound
+        lib = ("none" if library is None
+               else "%.4f ms" % r["library_ms"])
+        print(f"[{name}] timed: kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library {lib}  bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    def run_case(name, case, kernel, plain, control=None, time_it=True,
+                 library=None, bound=None):
         got, want = kernel(), plain()
         err, share, ok = compare(name, got, want)
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, runs=20)
         print(f"[{name}] {case}: max_abs_err {err:.3e} differ {share:.3e} "
-              f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms")
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} {case}")
         if control is not None:
@@ -245,11 +418,12 @@ def check_kernels(dev, seed: int) -> dict:
                                 f"control through")
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if "ms" not in r:
-            r["ms"], r["plain_ms"] = ms, plain_ms
+        if time_it and "ms" not in r:
+            timed(name, kernel, plain, library, bound)
 
     print(f"[bounds] bf16: allclose {BF16_TOL} and at most this share of "
-          f"outputs differing {BF16_MISMATCH}; fp32: allclose {F32_TOL}; "
+          f"outputs differing {BF16_MISMATCH}; fp32: allclose {F32_TOL} "
+          f"(backward {F32_TOL_BWD}); lse max_abs_err {LSE_ATOL}; "
           f"int8: codes at most 1 apart and at most this share apart "
           f"{I8_MISMATCH}")
     ln_cases = [((32 * 1568, 768), torch.bfloat16),   # norm1/norm2, ViT-B b32
@@ -261,10 +435,14 @@ def check_kernels(dev, seed: int) -> dict:
         x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dt)
         w = torch.randn(C, generator=g, device=dev) * 0.2 + 1
         b = torch.randn(C, generator=g, device=dev) * 0.1
+        wl, bl = w.to(dt), b.to(dt)
         run_case("layernorm", f"{shape} {dt}",
                  lambda: ln.layernorm(x, w, b),
                  lambda: ln.layernorm_plain(x, w, b),
-                 lambda: layernorm_control(x, w, b))
+                 lambda: layernorm_control(x, w, b),
+                 library=lambda: F.layer_norm(x, (C,), wl, bl, 1e-6),
+                 bound=layernorm_bound(shape[0], C, x.element_size(),
+                                       x.element_size()))
 
     attn_cases = [((32, 1568, 2304), 12, torch.bfloat16),   # ViT-B b32
                   ((8, 1568, 2304), 12, torch.bfloat16),    # ViT-B
@@ -275,13 +453,18 @@ def check_kernels(dev, seed: int) -> dict:
     for shape, heads, dt in attn_cases:
         qkv = torch.randn(shape, generator=g, device=dev).to(dt)
         scale = (shape[-1] // 3 // heads) ** -0.5
+        q, k, v = qkv_views(qkv, heads)
         run_case("attention", f"{shape} H={heads} {dt}",
                  lambda: fa.flash_attention_qkv(qkv, heads, scale),
                  lambda: fa.flash_attention_qkv_plain(qkv, heads, scale),
                  # in fp32 the rounding the control leaves out is exact
                  (lambda: attention_control(qkv, heads, scale))
-                 if dt == torch.bfloat16 else None)
-        del qkv
+                 if dt == torch.bfloat16 else None,
+                 library=lambda: F.scaled_dot_product_attention(
+                     q, k, v, scale=scale),
+                 bound=attention_bound(shape[0], shape[1], shape[2] // 3,
+                                       heads, dt))
+        del qkv, q, k, v
         torch.cuda.empty_cache()
 
     lnq_cases = [((32 * 1568, 768), torch.bfloat16),   # norm1/norm2 int8
@@ -297,7 +480,8 @@ def check_kernels(dev, seed: int) -> dict:
         run_case("layernorm_quant", f"{shape} {dt}",
                  lambda: ln.layernorm_quant(x, w, b, amax),
                  lambda: ln.layernorm_quant_plain(x, w, b, amax),
-                 lambda: layernorm_quant_control(x, w, b, amax))
+                 lambda: layernorm_quant_control(x, w, b, amax),
+                 bound=layernorm_bound(shape[0], C, x.element_size(), 1))
         del x
     torch.cuda.empty_cache()
 
@@ -323,9 +507,64 @@ def check_kernels(dev, seed: int) -> dict:
                  lambda: fa.flash_attention_qkv_i8d_plain(
                      qkv_i8, amax, heads, scale, out_amax),
                  lambda: attention_i8_control(qkv_i8, amax, heads, scale,
-                                              out_amax))
+                                              out_amax),
+                 bound=attention_bound(B, N, C3 // 3, heads, int8_qk=True))
         del qkv_i8
         torch.cuda.empty_cache()
+
+    # training attention: checked at ViT-B's b8 and a masked fp32 tail,
+    # timed at the job's batch
+    train_cases = [((8, 1568, 2304), 12, torch.bfloat16),
+                   ((2, 200, 384), 2, torch.float32)]
+    for shape, heads, dt in train_cases:
+        B, N, C3 = shape
+        qkv = torch.randn(shape, generator=g, device=dev).to(dt)
+        dout = torch.randn((B, N, C3 // 3), generator=g, device=dev).to(dt)
+        scale = (C3 // 3 // heads) ** -0.5
+        bf16 = dt == torch.bfloat16
+        run_case("attention_fwd_lse", f"{shape} H={heads} {dt}",
+                 lambda: fa.flash_attention_qkv_fwd_lse(qkv, heads, scale),
+                 lambda: fa.flash_attention_qkv_fwd_lse_plain(qkv, heads,
+                                                              scale),
+                 (lambda: attention_fwd_lse_control(qkv, heads, scale))
+                 if bf16 else None, time_it=False)
+        out, lse = fa.flash_attention_qkv_fwd_lse_plain(qkv, heads, scale)
+        run_case("attention_bwd", f"{shape} H={heads} {dt}",
+                 lambda: fa.flash_attention_qkv_bwd(qkv, out, lse, dout,
+                                                    heads, scale),
+                 lambda: fa.flash_attention_qkv_bwd_plain(qkv, out, lse,
+                                                          dout, heads, scale),
+                 (lambda: attention_bwd_control(qkv, out, lse, dout, heads,
+                                                scale)) if bf16 else None,
+                 time_it=False)
+        del qkv, dout, out, lse
+        torch.cuda.empty_cache()
+    B, N, C, heads = JOB_BATCH, 1568, 768, 12
+    scale = (C // heads) ** -0.5
+    qkv = torch.randn((B, N, 3 * C), generator=g,
+                      device=dev).to(torch.bfloat16)
+    dout = torch.randn((B, N, C), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv_views(qkv, heads)
+    timed("attention_fwd_lse",
+          lambda: fa.flash_attention_qkv_fwd_lse(qkv, heads, scale),
+          lambda: fa.flash_attention_qkv_fwd_lse_plain(qkv, heads, scale),
+          lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+          attention_bound(B, N, C, heads, lse=True), plain_runs=5)
+    out, lse = fa.flash_attention_qkv_fwd_lse(qkv, heads, scale)
+    leaf = qkv.detach().requires_grad_(True)
+    ql, kl, vl = qkv_views(leaf, heads)
+    sdpa_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+    sdpa_dout = dout.view(B, N, heads, -1).transpose(1, 2)
+    timed("attention_bwd",
+          lambda: fa.flash_attention_qkv_bwd(qkv, out, lse, dout, heads,
+                                             scale),
+          lambda: fa.flash_attention_qkv_bwd_plain(qkv, out, lse, dout,
+                                                   heads, scale),
+          lambda: torch.autograd.grad(sdpa_out, leaf, sdpa_dout,
+                                      retain_graph=True),
+          attention_bound(B, N, C, heads, backward=True), plain_runs=3)
+    del qkv, dout, q, k, v, out, lse, leaf, ql, kl, vl, sdpa_out
+    torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return results
@@ -590,6 +829,355 @@ def run_stream(model, dev, seed: int, steps: int = 16,
     return ms
 
 
+class SyntheticTrainDataset:
+    """``n`` training windows of seeded uint8 frames (16, CLIP_H, CLIP_W, 3)
+    with the two members TrainLoader reads; the frames cycle through a pool
+    of 8 so the host pays copies, not random draws."""
+
+    def __init__(self, n: int, seed: int, pool: int = 8):
+        import types
+        rng = np.random.default_rng(seed)
+        self.frames = rng.integers(0, 256, (pool, 16, CLIP_H, CLIP_W, 3),
+                                   np.uint8)
+        labels = rng.integers(0, 2, n)
+        self.samples = [types.SimpleNamespace(
+            label=int(y), ttc=0.0,
+            smoothed=np.array([1.0 - y, y], np.float32)) for y in labels]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def get_window_frames(self, index, *, final_resize=True,
+                          resize_scale=None):
+        return self.frames[index % len(self.frames)], self.samples[index]
+
+
+def job_model(dev, seed: int):
+    """ViT-B 16x224 of the paper's fine-tuning job: seeded fp32 masters
+    computed in bf16, drop path 0.2, the job's default head init scale."""
+    from simple_tad_tpu_torch.models import create_model
+    return create_model("vit_base_patch16_224", device=dev,
+                        dtype=torch.bfloat16, param_dtype=torch.float32,
+                        drop_path_rate=0.2,
+                        generator=torch.Generator().manual_seed(seed))
+
+
+def job_state(model, dev, seed: int, lr: float):
+    """AdamW of the job (weight decay 0.05, layer decay 0.6, no clipping)
+    at a constant lr, and the generator of the training masks."""
+    from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
+    from simple_tad_tpu_torch.train.steps import TrainState
+    opt = FinetuneOptimizer(dict(model.named_parameters()), lr_schedule=lr,
+                            weight_decay=0.05, layer_decay=0.6,
+                            depth=model.cfg.depth)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    return TrainState.create(model, opt, gen)
+
+
+def augmented_batch(dev, batch: int, seed: int):
+    """Seeded uint8 clips through the port's train_augment on the card (the
+    job's RandAugment m6 n3 and RandomErasing 0.25)."""
+    from simple_tad_tpu_torch.ops.augment import train_augment
+    rng = np.random.default_rng(seed)
+    u8 = torch.from_numpy(rng.integers(
+        0, 256, (batch, 16, CLIP_H, CLIP_W, 3), np.uint8)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    video = train_augment(u8, gen, crop_size=224, magnitude=6.0,
+                          num_layers=3, reprob=0.25, dtype=torch.bfloat16)
+    assert video.shape == (batch, 16, 224, 224, 3), video.shape
+    assert torch.isfinite(video.float()).all(), "non-finite augmentation"
+    labels = torch.from_numpy(rng.integers(0, 2, batch)).to(dev)
+    return {"video": video, "label": labels,
+            "smoothed": torch.stack([1 - labels, labels], 1).float(),
+            "ttc": torch.zeros(batch, device=dev)}
+
+
+@contextlib.contextmanager
+def routed_train(fwd, bwd, layernorm):
+    """Route the training attention's forward and backward and the
+    LayerNorm forward through other versions (comparison runs only)."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    with mock.patch.object(fa, "flash_attention_qkv_fwd_lse", fwd), \
+            mock.patch.object(fa, "flash_attention_qkv_bwd", bwd), \
+            mock.patch.object(ln, "layernorm", layernorm):
+        yield
+
+
+def step_grads(model, batch, gen, gen_state):
+    """Forward and backward of one train step (no update) -> {name: grad}
+    and the loss; the masks are drawn from ``gen`` reset to ``gen_state``."""
+    from simple_tad_tpu_torch.train.losses import cross_entropy
+    gen.set_state(gen_state)
+    model.train()
+    for p in model.parameters():
+        p.grad = None
+    loss = cross_entropy(model(batch["video"], generator=gen),
+                         batch["label"])
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return grads, loss.item()
+
+
+def grad_errors(got, want):
+    """-> (relative error of the global gradient norm, worst relative
+    error ||got - want|| / ||want|| of a parameter, its name)."""
+    from simple_tad_tpu_torch.train.optim import global_norm
+    gn, wn = global_norm(got.values()).item(), global_norm(want.values()).item()
+    per = {n: ((got[n] - want[n]).float().norm()
+               / want[n].float().norm()).item()
+           for n in want if want[n].float().norm() > 0}
+    worst = max(per, key=per.get)
+    return abs(gn - wn) / wn, per[worst], worst
+
+
+def run_finetune(dev, seed: int) -> dict:
+    """Phase 6 (i) and (ii) at batch TRAIN_BATCH -> stats."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    from simple_tad_tpu_torch.train.losses import create_criterion
+    from simple_tad_tpu_torch.train.steps import make_finetune_train_step
+    model = job_model(dev, seed)
+    batch = augmented_batch(dev, TRAIN_BATCH, seed)
+    state = job_state(model, dev, seed, TRAIN_LR)
+    g0 = state.generator.get_state()
+    kern, loss_k = step_grads(model, batch, state.generator, g0)
+    with routed_train(fa.flash_attention_qkv_fwd_lse_plain,
+                      fa.flash_attention_qkv_bwd_plain, ln.layernorm_plain):
+        plain, loss_p = step_grads(model, batch, state.generator, g0)
+    with routed_train(fa.flash_attention_qkv_fwd_lse_plain,
+                      attention_bwd_no_delta, ln.layernorm_plain):
+        ctrl, _ = step_grads(model, batch, state.generator, g0)
+    norm_err, param_err, worst = grad_errors(kern, plain)
+    c_norm, c_param, c_worst = grad_errors(ctrl, plain)
+    del kern, plain, ctrl
+    state.generator.set_state(g0)
+    print(f"[finetune] vit_base_patch16_224 bf16, fp32 masters, batch "
+          f"{TRAIN_BATCH}: loss {loss_k:.6f} (plain versions {loss_p:.6f}); "
+          f"gradients vs plain: global norm rel err {norm_err:.3e} (bound "
+          f"{GRAD_NORM_RTOL:.1e}), worst parameter {param_err:.3e} ({worst};"
+          f" bound {GRAD_PARAM_RTOL:.1e}); control (no delta): {c_norm:.3e},"
+          f" {c_param:.3e} ({c_worst})")
+
+    step = make_finetune_train_step(create_criterion("crossentropy"))
+    ln.LAUNCHES = ln.QUANT_LAUNCHES = 0
+    fa.LAUNCHES = fa.I8_LAUNCHES = fa.FWD_LSE_LAUNCHES = fa.BWD_LAUNCHES = 0
+    metrics, logits = step(state, batch)
+    torch.cuda.synchronize()
+    launches = {"layernorm": ln.LAUNCHES, "attention": fa.LAUNCHES,
+                "attention_fwd_lse": fa.FWD_LSE_LAUNCHES,
+                "attention_bwd": fa.BWD_LAUNCHES}
+    losses = [float(metrics["loss"])]
+    for _ in range(TRAIN_STEPS - 1):
+        metrics, logits = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    drop = 1.0 - losses[-1] / losses[0]
+    print(f"[finetune] launches in one train step {launches} (each "
+          f"attention_bwd call launches two kernels: dk/dv, then dq)")
+    print(f"[finetune] {TRAIN_STEPS} steps on one augmented batch at "
+          f"constant lr {TRAIN_LR}: losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; drop {drop:.3f} "
+          f"(required {LOSS_DROP}); last grad_norm "
+          f"{float(metrics['grad_norm']):.4e}")
+    assert logits.shape == (TRAIN_BATCH, 2)
+    assert np.isfinite(losses).all(), losses
+    assert launches == {"layernorm": 2 * model.cfg.depth + 1,
+                        "attention": 0,
+                        "attention_fwd_lse": model.cfg.depth,
+                        "attention_bwd": model.cfg.depth}, launches
+    assert norm_err <= GRAD_NORM_RTOL and param_err <= GRAD_PARAM_RTOL, \
+        "gradients disagree with the plain-version step"
+    assert c_norm > GRAD_NORM_RTOL or c_param > GRAD_PARAM_RTOL, \
+        "the gradient bounds let the control through"
+    assert drop >= LOSS_DROP, f"the fixed-batch loss fell by {drop:.3f}"
+    return {"launches": launches, "grad_norm_err": norm_err,
+            "grad_param_err": param_err, "losses": losses}
+
+
+def _kernel_categories(prof):
+    """-> ({category: device ms}, top kernels [(name, calls, ms)], total
+    device ms) of a torch.profiler run."""
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA]
+    # first match wins: copies run inside elementwise kernels
+    cats = {"C1 attention_fwd_lse": ("attn_fwd_bf16",),
+            "C2 attention_bwd": ("attn_bwd_",),
+            "A2 layernorm": ("layernorm",),
+            "gemm (cuBLAS)": ("gemm", "nvjet", "cutlass", "xmma"),
+            "copies": ("direct_copy", "copy_kernel", "Memcpy", "memcpy"),
+            "reductions": ("reduce_kernel",),
+            "indexing": ("index", "gather", "scatter"),
+            "elementwise": ("elementwise",)}
+    sums = {c: 0.0 for c in cats}
+    sums["other"] = 0.0
+    rows = []
+    for e in events:
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        rows.append((e.key, e.count, ms))
+        cat = next((c for c, keys in cats.items()
+                    if any(k in e.key for k in keys)), "other")
+        sums[cat] += ms
+    rows.sort(key=lambda r: -r[2])
+    return sums, rows[:15], sum(r[2] for r in rows)
+
+
+def time_training_process(seed: int, profile: bool) -> dict:
+    """Phase 6 (iii), in a fresh process: FinetuneTrainer at the job's
+    batch (or the largest of JOB_BATCH, 48, 40, 32 that fits) -> step
+    times, peak memory and, with ``profile``, a profiler window."""
+    from simple_tad_tpu_torch.train.engine import FinetuneTrainer, TrainLoader
+    from simple_tad_tpu_torch.train.losses import create_criterion
+    from simple_tad_tpu_torch.train.steps import make_finetune_train_step
+    dev = torch.device("cuda", 0)
+    step = make_finetune_train_step(create_criterion("crossentropy"))
+    starts = []
+
+    def timed_step(state, batch):
+        starts.append(time.perf_counter())
+        return step(state, batch)
+
+    out = {"oom": []}
+    for batch in (JOB_BATCH, 48, 40, 32):
+        starts.clear()
+        model = job_model(dev, seed)
+        state = job_state(model, dev, seed, TRAIN_LR)
+        n_steps = WARMUP_STEPS + TIMED_STEPS
+        data = SyntheticTrainDataset(n_steps * batch, seed)
+        trainer = FinetuneTrainer(timed_step, state, device=dev,
+                                  crop_size=224, reprob=0.25,
+                                  dtype=torch.bfloat16, seed=seed)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            trainer.train_one_epoch(TrainLoader(data, batch, seed=seed),
+                                    0, print_freq=10 ** 6)
+            end = time.perf_counter()
+        except torch.OutOfMemoryError:
+            out["oom"].append(batch)
+            del model, state, trainer
+            torch.cuda.empty_cache()
+            continue
+        marks = starts + [end]
+        ms = [(b - a) * 1e3 for a, b in zip(marks[WARMUP_STEPS:],
+                                            marks[WARMUP_STEPS + 1:])]
+        out.update(batch=batch, step_ms=ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if profile:
+            out["parts"] = step_parts(trainer, data, batch, seed, starts)
+            loader = TrainLoader(data, batch, seed=seed,
+                                 nb_samples_per_epoch=PROFILE_STEPS * batch)
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                trainer.train_one_epoch(loader, 1, print_freq=10 ** 6)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            sums, top, total = _kernel_categories(prof)
+            out.update(profile={"wall_ms": wall, "device_ms": total,
+                                "categories": sums, "top": top})
+        return out
+    return out
+
+
+def step_parts(trainer, data, batch: int, seed: int, starts) -> dict:
+    """Median device ms of the augmentation, the forward + backward and the
+    optimizer update over BREAKDOWN_STEPS train steps (CUDA events), and
+    the median step ms on the host clock."""
+    from simple_tad_tpu_torch.train.engine import TrainLoader
+    events = []
+    device_batch, opt_step = trainer.device_batch, trainer.state.optimizer.step
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[-1].append(ev)
+
+    def timed_batch(*args):
+        events.append([])
+        mark()
+        out = device_batch(*args)
+        mark()
+        return out
+
+    def timed_opt():
+        mark()
+        out = opt_step()
+        mark()
+        return out
+
+    trainer.device_batch, trainer.state.optimizer.step = timed_batch, timed_opt
+    starts.clear()
+    try:
+        trainer.train_one_epoch(
+            TrainLoader(data, batch, seed=seed,
+                        nb_samples_per_epoch=BREAKDOWN_STEPS * batch),
+            2, print_freq=10 ** 6)
+        end = time.perf_counter()
+    finally:
+        del trainer.device_batch, trainer.state.optimizer.step
+    torch.cuda.synchronize()
+    parts = {"augment": [], "forward_backward": [], "optimizer": []}
+    for a0, a1, o0, o1 in events:
+        parts["augment"].append(a0.elapsed_time(a1))
+        parts["forward_backward"].append(a1.elapsed_time(o0))
+        parts["optimizer"].append(o0.elapsed_time(o1))
+    marks = starts + [end]
+    out = {k: statistics.median(v) for k, v in parts.items()}
+    out["step"] = statistics.median((b - a) * 1e3
+                                    for a, b in zip(marks, marks[1:]))
+    return out
+
+
+def run_finetune_timing(seed: int) -> dict:
+    """Phase 6 (iii): TIMING_PROCESSES fresh processes, one after another;
+    the first also takes the profiler window."""
+    ctx = multiprocessing.get_context("spawn")
+    runs = []
+    for i in range(TIMING_PROCESSES):
+        with ctx.Pool(1) as pool:
+            runs.append(pool.apply(time_training_process, (seed, i == 0)))
+        r = runs[-1]
+        if r["oom"]:
+            print(f"[finetune timing] process {i}: batch {r['oom']} does "
+                  f"not fit (out of memory)")
+        assert "batch" in r, "no batch size fits"
+        med = statistics.median(r["step_ms"])
+        print(f"[finetune timing] process {i}: batch {r['batch']}, median "
+              f"step {med:.2f} ms over {len(r['step_ms'])} steps after "
+              f"{WARMUP_STEPS} warm-up (min {min(r['step_ms']):.2f}, max "
+              f"{max(r['step_ms']):.2f}): {r['batch'] * 1e3 / med:.2f} "
+              f"clips/s; peak device memory {r['peak_gb']:.2f} GiB")
+    parts = runs[0].get("parts")
+    if parts:
+        print(f"[finetune parts] process 0, median of {BREAKDOWN_STEPS} "
+              f"steps: host step {parts['step']:.2f} ms; device ms: augment "
+              f"{parts['augment']:.2f}, forward + backward "
+              f"{parts['forward_backward']:.2f}, optimizer "
+              f"{parts['optimizer']:.2f}")
+    prof = runs[0].get("profile")
+    if prof:
+        busy = prof["device_ms"] / prof["wall_ms"]
+        print(f"[finetune profile] {PROFILE_STEPS} steps: wall "
+              f"{prof['wall_ms']:.1f} ms, kernel time {prof['device_ms']:.1f}"
+              f" ms, device busy {busy:.3f}, idle {1 - busy:.3f}")
+        print("[finetune profile] by category (ms): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in prof["categories"].items()))
+        for name, calls, ms in prof["top"]:
+            print(f"[finetune profile]   {ms:9.2f} ms  {calls:5d}x  "
+                  f"{name[:90]}")
+    meds = [statistics.median(r["step_ms"]) for r in runs]
+    return {"batch": runs[0]["batch"], "step_ms": meds,
+            "clips_per_s": [runs[0]["batch"] * 1e3 / m for m in meds],
+            "peak_gb": max(r["peak_gb"] for r in runs)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -604,15 +1192,23 @@ def main(argv=None):
     qmodel, qstats = run_eval_int8(model, dev, args.seed, estats["logits"])
     del model
     run_stream(qmodel, dev, args.seed, label="int8 stream")
+    del qmodel
+    torch.cuda.empty_cache()
+    fstats = run_finetune(dev, args.seed)
+    torch.cuda.empty_cache()
+    run_finetune_timing(args.seed)
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]
-                   for k in ("layernorm_quant", "attention_i8")}}
+                   for k in ("layernorm_quant", "attention_i8")},
+                **{k: fstats["launches"][k]
+                   for k in ("attention_fwd_lse", "attention_bwd")}}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
-         "max_abs_err": kstats[name]["max_abs_err"],
-         "ms": kstats[name]["ms"], "plain_ms": kstats[name]["plain_ms"]}
+         **{k: kstats[name][k] for k in keys}}
         for name, (src, rep) in SOURCES.items()]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 NVIDIA H100.
 
 Same layout and module names as the JAX package (models/, ops/, eval/,
-data/, utils/, cli/).  The hand-written CUDA kernels live in csrc/ and are
+train/, data/, utils/, cli/).  The hand-written CUDA kernels live in csrc/ and are
 built at first use by kernels/build.py.  Importing the package imports
 torch and numpy only: no jax, flax, pandas or cv2.
 """

@@ -1,5 +1,12 @@
 // Non-causal inference attention read in place from the packed qkv tensor
-// (kernel A1).
+// (kernel A1), and the same kernels with an lse store (kernel C1, the
+// training forward).
+//
+// C1 replaces the TPU kernel simple_tad_tpu/ops/flash_attention.py:
+// _fwd_kernel_nomax_packed_lse, launched by _flash_fwd_packed_qkv_impl from
+// the packed custom VJP's forward.  It is A1 instantiated with LSE = true:
+// the only added work is one log2 and one 4-byte store per (row, head), so
+// it is bounded like A1; A1's own instantiation (LSE = false) is unchanged.
 //
 // Replaces the TPU kernel simple_tad_tpu/ops/flash_attention.py:
 // _fwd_kernel_nomax_packed with _attend_rows_t, launched by
@@ -46,6 +53,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using stt::as_u32;
+using stt::ld32;
 using stt::mma_16816;
 
 constexpr int kBlockM = 64;     // query rows per block
@@ -53,49 +61,25 @@ constexpr int kBlockN = 64;     // keys per tile (bf16 kernel)
 constexpr int kThreads = 128;   // 4 warps x 16 query rows
 constexpr int kBlockNF32 = 32;  // keys per tile (fp32 kernel)
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy a (rows x DP) bf16 tile, rows starting at row0 of a strided source,
-// into shared memory in 16-byte chunks.  Rows >= n and columns >= d read as
-// zero.  With TRANSPOSE, element (r, c) lands at dst[c * ld + r].  With
-// SCALE every value is multiplied by qscale in fp32 and rounded back.
 template <int DP, int ROWS, bool TRANSPOSE, bool SCALE>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
                                           int row0, int n, int d,
                                           int row_stride, float qscale) {
-  constexpr int kChunks = DP / 8;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n && col < d) {
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row0 + r) * row_stride + col);
-    }
-    bf16* e = reinterpret_cast<bf16*>(&val);
-    if (SCALE) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * qscale);
-      }
-    }
-    if (TRANSPOSE) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst[(col + i) * ld + r] = e[i];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * ld + col) = val;
-    }
-  }
+  stt::load_tile<DP, ROWS, TRANSPOSE, SCALE, kThreads>(
+      dst, ld, src, row0, n, d, row_stride, qscale);
 }
 
-template <int DP>
+// With LSE (kernel C1, the training forward) the kernel also stores, per
+// (batch, head, row), lse = log2 of the softmax denominator of the max-free
+// form: the running max is an integer and every rescale exact, so that is
+// m + log2(l) with l the sum of the rounded probabilities.  lse is (B, H, N)
+// fp32, contiguous.
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(kThreads)
     attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                         int n, int d, int in_sb, int in_sn, int out_sb,
-                         int out_sn, float qscale) {
+                         float* __restrict__ lse, int n, int d, int in_sb,
+                         int in_sn, int out_sb, int out_sn, float qscale) {
   constexpr int KS = DP + 8;       // row stride of the Q/K tile (elements)
   constexpr int VS = kBlockN + 8;  // row stride of the transposed V tile
   constexpr int KSTEPS = DP / 16;  // k-steps of the QK product
@@ -229,6 +213,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int row0 = q0 + r0;
   const int row1 = row0 + 8;
+  if (LSE && t4 == 0) {
+    float* lrow = lse + (static_cast<size_t>(blockIdx.z) * gridDim.y +
+                         blockIdx.y) * n;
+    if (row0 < n) lrow[row0] = m0 + log2f(l0);
+    if (row1 < n) lrow[row1] = m1 + log2f(l1);
+  }
   bf16* ob = o + static_cast<size_t>(blockIdx.z) * out_sb +
              static_cast<size_t>(blockIdx.y) * d;
 #pragma unroll
@@ -248,12 +238,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DP>
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(kBlockM)
     attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
-                        int n, int d, int in_sb, int in_sn, int out_sb,
-                        int out_sn, float qscale) {
+                        float* __restrict__ lse, int n, int d, int in_sb,
+                        int in_sn, int out_sb, int out_sn, float qscale) {
   __shared__ float sK[kBlockNF32][DP];
   __shared__ float sV[kBlockNF32][DP];
   const int row = blockIdx.x * kBlockM + threadIdx.x;
@@ -310,25 +300,52 @@ __global__ void __launch_bounds__(kBlockM)
     for (int c = 0; c < DP; ++c) {
       if (c < d) orow[c] = acc[c] / l;
     }
+    if (LSE) {
+      lse[(static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * n +
+          row] = m + log2f(l);
+    }
   }
 }
 
-template <int DP>
-void launch(const void* q, const void* k, const void* v, void* o, int b, int n,
-            int h, int d, int in_sb, int in_sn, int out_sb, int out_sn,
-            float qscale, int dtype, cudaStream_t stream) {
+template <int DP, bool LSE>
+void launch(const void* q, const void* k, const void* v, void* o, float* lse,
+            int b, int n, int h, int d, int in_sb, int in_sn, int out_sb,
+            int out_sn, float qscale, int dtype, cudaStream_t stream) {
   const dim3 grid((n + kBlockM - 1) / kBlockM, h, b);
   if (dtype == stt::kBFloat16) {
-    attn_fwd_bf16_kernel<DP><<<grid, kThreads, 0, stream>>>(
+    attn_fwd_bf16_kernel<DP, LSE><<<grid, kThreads, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), n, d, in_sb,
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, n, d, in_sb,
         in_sn, out_sb, out_sn, qscale);
   } else {
-    attn_fwd_f32_kernel<DP><<<grid, kBlockM, 0, stream>>>(
+    attn_fwd_f32_kernel<DP, LSE><<<grid, kBlockM, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), n, d, in_sb,
-        in_sn, out_sb, out_sn, qscale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, n, d,
+        in_sb, in_sn, out_sb, out_sn, qscale);
   }
+}
+
+template <bool LSE>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int b, int n, int h, int d, int in_sb, int in_sn,
+             int out_sb, int out_sn, float qscale, int dtype, void* stream) {
+  if (b <= 0 || n <= 0 || h <= 0 || d <= 0 || d % 8 != 0 || d > 128 ||
+      b > 65535 || h > 65535 ||
+      (dtype != stt::kBFloat16 && dtype != stt::kFloat32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((d + 15) / 16 * 16) {
+    case 16: launch<16, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
+    case 32: launch<32, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
+    case 48: launch<48, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
+    case 64: launch<64, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
+    case 80: launch<80, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
+    case 96: launch<96, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
+    case 112: launch<112, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
+    default: launch<128, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -342,21 +359,18 @@ extern "C" int stt_attention_fwd(const void* q, const void* k, const void* v,
                                  void* o, int b, int n, int h, int d,
                                  int in_sb, int in_sn, int out_sb, int out_sn,
                                  float qscale, int dtype, void* stream) {
-  if (b <= 0 || n <= 0 || h <= 0 || d <= 0 || d % 8 != 0 || d > 128 ||
-      b > 65535 || h > 65535 ||
-      (dtype != stt::kBFloat16 && dtype != stt::kFloat32)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 15) / 16 * 16) {
-    case 16: launch<16>(q, k, v, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 32: launch<32>(q, k, v, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 48: launch<48>(q, k, v, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 64: launch<64>(q, k, v, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 80: launch<80>(q, k, v, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 96: launch<96>(q, k, v, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 112: launch<112>(q, k, v, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    default: launch<128>(q, k, v, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(q, k, v, o, nullptr, b, n, h, d, in_sb, in_sn,
+                         out_sb, out_sn, qscale, dtype, stream);
+}
+
+// Kernel C1: stt_attention_fwd that also writes lse (B, H, N) fp32,
+// contiguous, base 2 (replaces the TPU kernel _fwd_kernel_nomax_packed_lse,
+// launched by _flash_fwd_packed_qkv_impl).
+extern "C" int stt_attention_fwd_lse(const void* q, const void* k,
+                                     const void* v, void* o, float* lse,
+                                     int b, int n, int h, int d, int in_sb,
+                                     int in_sn, int out_sb, int out_sn,
+                                     float qscale, int dtype, void* stream) {
+  return dispatch<true>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb,
+                        out_sn, qscale, dtype, stream);
 }

@@ -59,4 +59,43 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Copy a (ROWS x DP) bf16 tile, rows starting at row0 of a strided source,
+// into shared memory in 16-byte chunks, THREADS threads striding.  Rows >= n
+// and columns >= d read as zero.  With TRANSPOSE, element (r, c) lands at
+// dst[c * ld + r].  With SCALE every value is multiplied by qscale in fp32
+// and rounded back.
+template <int DP, int ROWS, bool TRANSPOSE, bool SCALE, int THREADS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
+                                          const __nv_bfloat16* src, int row0,
+                                          int n, int d, int row_stride,
+                                          float qscale) {
+  constexpr int kChunks = DP / 8;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n && col < d) {
+      val = *reinterpret_cast<const uint4*>(
+          src + static_cast<size_t>(row0 + r) * row_stride + col);
+    }
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+    if (SCALE) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * qscale);
+      }
+    }
+    if (TRANSPOSE) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst[(col + i) * ld + r] = e[i];
+    } else {
+      *reinterpret_cast<uint4*>(dst + r * ld + col) = val;
+    }
+  }
+}
+
 }  // namespace stt

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels into one shared library, at first use.
 
-Every ``simple_tad_tpu_torch/csrc/*.cu`` goes through ONE ``nvcc`` call
-(plain C entry points, no PyTorch headers, so the build takes seconds)
-into ``build/simple_tad_tpu_torch/<hash of the sources>/libstt_torch_kernels.so``
-beside the package, then loads with ``ctypes``.  Nothing here runs when a
+Every ``simple_tad_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc -c``,
+all started together (plain C entry points, no PyTorch headers, so the
+build takes seconds), and one link makes
+``build/simple_tad_tpu_torch/<hash of the sources>/libstt_torch_kernels.so``
+beside the package, which loads with ``ctypes``.  Nothing here runs when a
 module is imported: the CPU tests import every module without ``nvcc``.
 
 A missing ``nvcc`` or a failed build raises with the compiler's output.
@@ -29,7 +30,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "simple_tad_tpu_torch"
 LIB_NAME = "libstt_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of csrc/common.cuh
 DTYPE_FLOAT32 = 0
@@ -69,23 +70,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless this source hash is already built."""
+    """Compile the library unless this source hash is already built: one
+    ``nvcc -c`` per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    (out.parent / "build.log").write_text(log)
-    os.replace(tmp, out)          # atomic: a concurrent loader sees all or none
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC_DIR), "-o", obj,
+                   str(src)]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _, proc in procs:
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = os.path.join(tmp, LIB_NAME)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+                *(obj for _, obj, _ in procs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        (out.parent / "build.log").write_text("".join(log))
+        os.replace(so, out)       # atomic: a concurrent loader sees all or none
     return out
 
 
@@ -105,6 +123,15 @@ def load() -> ctypes.CDLL:
             lib.stt_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                               i, i, ctypes.c_float, i, p]
             lib.stt_attention_fwd.restype = i
+            lib.stt_attention_fwd_lse.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                  i, i, i, i, ctypes.c_float,
+                                                  i, p]
+            lib.stt_attention_fwd_lse.restype = i
+            lib.stt_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i,
+                                              i, i, i, i, i, i, i, i, i,
+                                              ctypes.c_float, ctypes.c_float,
+                                              i, p]
+            lib.stt_attention_bwd.restype = i
             lib.stt_attention_i8.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                              i, i, i, i, ctypes.c_float, p]
             lib.stt_attention_i8.restype = i

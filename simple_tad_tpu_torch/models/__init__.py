@@ -34,9 +34,13 @@ def list_models():
 
 def create_model(name: str, *, device, generator: torch.Generator = None,
                  **overrides) -> VisionTransformer:
-    """Build a ViT by registry name on ``device``.  Keyword overrides set
-    ViTConfig fields; keys that are not fields (training-only rates such as
-    ``drop_path_rate``) are ignored, as in the JAX registry.  With
+    """Build a ViT by registry name on ``device``, in eval mode.  Keyword
+    overrides set ViTConfig fields (those of the JAX registry that
+    cli/finetune.py passes: ``num_classes``, ``all_frames``, ``img_size``,
+    ``tubelet_size``, the dropout and drop-path rates, ``final_reduction``,
+    ``init_scale``, ``dtype``, ``remat``; and ``param_dtype`` for fp32
+    training masters); keys that are not fields (``attn_impl``: the port
+    has one attention path) are ignored, as in the JAX registry.  With
     ``generator`` the weights are initialised from it; otherwise they are
     left uninitialised for a checkpoint to fill."""
     if name not in _REGISTRY:

@@ -3,12 +3,20 @@
 Port of simple_tad_tpu/models/layers.py.  Parameters carry the reference's
 torch names (``norm1.weight``, ``attn.qkv.weight``, ``attn.q_bias``,
 ``mlp.fc1.weight``, ``patch_embed.proj.weight``, ...) so a released
-``.pth`` loads by name.  Parameters are stored in the dtype the JAX
-package computes them in: Linear weights and biases, ``q_bias``/``v_bias``
-and LayerScale gammas in the compute dtype; LayerNorm parameters and the
-patch-embed bias in fp32.  Nothing is initialised at construction
-(``torch.empty``); ``init_weights`` fills every parameter from an explicit
-``torch.Generator``.
+``.pth`` loads by name.  Parameters are stored in ``param_dtype``: by
+default (inference) the dtype the JAX package computes them in, i.e.
+Linear weights and biases, ``q_bias``/``v_bias`` and LayerScale gammas in
+the compute dtype and LayerNorm parameters and the patch-embed bias in
+fp32; for training fp32 masters throughout, each cast to the compute dtype
+in ``forward`` as flax's ``nn.Dense(dtype=bf16)`` casts its fp32 kernel, so
+gradients reach the fp32 parameters.  Nothing is initialised at
+construction (``torch.empty``); ``init_weights`` fills every parameter from
+an explicit ``torch.Generator``.
+
+Training (``module.train()``): stochastic depth (``drop_path``, after the
+LayerScale multiply) and the proj/MLP dropout draw their masks from the
+``generator`` passed to ``forward``; attention dropout needs the dropout
+attention kernels and raises (ops/attention.py).
 
 The int8 model (``quant=True``) swaps in ``QuantLinear`` for the block
 GEMMs and, at widths that are multiples of 128 (the JAX gate),
@@ -35,7 +43,8 @@ from torch import nn
 
 from simple_tad_tpu_torch.ops.attention import (dot_product_attention_qkv,
                                                 dot_product_attention_qkv_i8)
-from simple_tad_tpu_torch.ops.ln import layernorm, layernorm_quant
+from simple_tad_tpu_torch.ops.ln import (LayerNormFn, layernorm,
+                                         layernorm_quant)
 from simple_tad_tpu_torch.ops.quant import int8_matmul, int8_matmul_static
 
 QUANT_MODES = ("static", "dynamic", "calib")
@@ -77,14 +86,53 @@ def _param(shape, dtype, device):
                         requires_grad=False)
 
 
+def drop_path(x, rate: float, training: bool, generator=None, mask=None):
+    """Stochastic depth on a residual branch (port of the JAX package's
+    layers.drop_path, timm semantics): per sample, keep with probability
+    1 - rate and scale kept samples by 1 / (1 - rate).  ``mask`` (B,) bool
+    replaces the draw (tests)."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    if mask is None:
+        mask = torch.rand(x.shape[0], generator=generator,
+                          device=x.device) < keep
+    mask = mask.to(x.dtype).view((x.shape[0],) + (1,) * (x.ndim - 1))
+    return x * mask / torch.tensor(keep, dtype=x.dtype, device=x.device)
+
+
+def dropout(x, rate: float, training: bool, generator=None):
+    """Element dropout (flax nn.Dropout semantics: kept values / (1 - rate),
+    dropped values 0)."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+class DropPath(nn.Module):
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, generator=None):
+        return drop_path(x, self.rate, self.training, generator)
+
+
 class Linear(nn.Module):
-    """y = x W^T + b with reference-named ``weight`` (out, in) and ``bias``."""
+    """y = x W^T + b with reference-named ``weight`` (out, in) and ``bias``,
+    stored in ``param_dtype`` (default ``dtype``) and computed in
+    ``dtype``."""
 
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
-        self.weight = _param((out_dim, in_dim), dtype, device)
-        self.bias = _param((out_dim,), dtype, device) if bias else None
+        self.dtype = dtype
+        pdt = param_dtype or dtype
+        self.weight = _param((out_dim, in_dim), pdt, device)
+        self.bias = _param((out_dim,), pdt, device) if bias else None
 
     def init_weights(self, generator, std: float = 0.02):
         with torch.no_grad():
@@ -93,7 +141,9 @@ class Linear(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 def observe(module, name: str, value) -> None:
@@ -140,7 +190,8 @@ class QuantLinear(nn.Module):
 
 class LayerNormFp32(nn.Module):
     """LayerNorm with fp32 statistics and fp32 ``weight``/``bias``; the
-    output is cast to ``dtype``.  Routes through ops/ln.py."""
+    output is cast to ``dtype``.  Routes through ops/ln.py: the kernel, or
+    in grad mode ``LayerNormFn`` (the kernel forward, the JAX backward)."""
 
     def __init__(self, dim: int, eps: float = 1e-6, *, dtype=torch.float32,
                  device=None):
@@ -156,6 +207,10 @@ class LayerNormFp32(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.weight.requires_grad):
+            return LayerNormFn.apply(x, self.weight, self.bias, self.eps,
+                                     self.dtype)
         return layernorm(x, self.weight, self.bias, self.eps,
                          out_dtype=self.dtype)
 
@@ -184,29 +239,34 @@ class LayerNormQuant(LayerNormFp32):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU (erf at fp32, tanh at bf16) -> fc2."""
+    """fc1 -> GELU (erf at fp32, tanh at bf16) -> fc2 -> dropout ``drop``
+    (training)."""
 
     def __init__(self, dim: int, hidden_dim: int, *, dtype=torch.float32,
-                 quant: bool = False, quant_mode: str = "dynamic",
-                 device=None):
+                 param_dtype=None, drop: float = 0.0, quant: bool = False,
+                 quant_mode: str = "dynamic", device=None):
         super().__init__()
         self.dtype = dtype
+        self.drop = drop
         if quant:
             self.fc1 = QuantLinear(dim, hidden_dim, mode=quant_mode,
                                    device=device)
             self.fc2 = QuantLinear(hidden_dim, dim, mode=quant_mode,
                                    device=device)
         else:
-            self.fc1 = Linear(dim, hidden_dim, dtype=dtype, device=device)
-            self.fc2 = Linear(hidden_dim, dim, dtype=dtype, device=device)
+            self.fc1 = Linear(dim, hidden_dim, dtype=dtype,
+                              param_dtype=param_dtype, device=device)
+            self.fc2 = Linear(hidden_dim, dim, dtype=dtype,
+                              param_dtype=param_dtype, device=device)
         self.act = gelu_for(dtype)
 
     def init_weights(self, generator):
         self.fc1.init_weights(generator)
         self.fc2.init_weights(generator)
 
-    def forward(self, x):
-        return self.fc2(self.act(self.fc1(x))).to(self.dtype)
+    def forward(self, x, generator=None):
+        y = self.fc2(self.act(self.fc1(x))).to(self.dtype)
+        return dropout(y, self.drop, self.training, generator)
 
 
 class Attention(nn.Module):
@@ -219,11 +279,15 @@ class Attention(nn.Module):
     attention."""
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
-                 qk_scale=None, dtype=torch.float32, quant: bool = False,
-                 quant_mode: str = "dynamic", device=None):
+                 qk_scale=None, dtype=torch.float32, param_dtype=None,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 quant: bool = False, quant_mode: str = "dynamic",
+                 device=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.quant = quant
         self.mode = quant_mode
         head_dim = dim // num_heads
@@ -238,11 +302,12 @@ class Attention(nn.Module):
             self.observed = {}
         else:
             self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype,
-                              device=device)
-            self.proj = Linear(dim, dim, dtype=dtype, device=device)
+                              param_dtype=param_dtype, device=device)
+            self.proj = Linear(dim, dim, dtype=dtype, param_dtype=param_dtype,
+                               device=device)
         if qkv_bias:
-            self.q_bias = _param((dim,), dtype, device)
-            self.v_bias = _param((dim,), dtype, device)
+            self.q_bias = _param((dim,), param_dtype or dtype, device)
+            self.v_bias = _param((dim,), param_dtype or dtype, device)
         else:
             self.q_bias = self.v_bias = None
 
@@ -254,11 +319,11 @@ class Attention(nn.Module):
                 self.q_bias.zero_()
                 self.v_bias.zero_()
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         qkv = self.qkv(x).to(self.dtype)
         if self.q_bias is not None:
             qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
-                                   self.v_bias])
+                                   self.v_bias]).to(self.dtype)
         heads, scale = self.num_heads, self.scale
         if self.quant and self.mode == "static":
             out = dot_product_attention_qkv_i8(
@@ -269,24 +334,31 @@ class Attention(nn.Module):
                 B, N, _ = qkv.shape
                 observe(self, "qkv_amax", qkv.float().abs().view(
                     B, N, 3, heads, -1).amax(dim=(0, 1, 4)))
-            out = dot_product_attention_qkv(qkv, num_heads=heads,
-                                            scale=scale)
+            out = dot_product_attention_qkv(
+                qkv, num_heads=heads, scale=scale,
+                dropout_rate=self.attn_drop if self.training else 0.0)
             if self.quant and self.mode == "calib":
                 observe(self, "out_amax", absmax(out))
-        return self.proj(out).to(self.dtype)
+        return dropout(self.proj(out).to(self.dtype), self.proj_drop,
+                       self.training, generator)
 
 
 class Block(nn.Module):
-    """Pre-LN block with optional LayerScale (DropPath is identity at eval):
-    x = x + gamma_1 * Attn(LN1(x));  x = x + gamma_2 * MLP(LN2(x))."""
+    """Pre-LN block with optional LayerScale and DropPath (identity at eval):
+    x = x + DropPath(gamma_1 * Attn(LN1(x)));
+    x = x + DropPath(gamma_2 * MLP(LN2(x)))."""
 
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale=None,
                  init_values: float = 0.0, norm_eps: float = 1e-6,
-                 dtype=torch.float32, quant: bool = False,
+                 drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path: float = 0.0, dtype=torch.float32,
+                 param_dtype=None, quant: bool = False,
                  quant_mode: str = "dynamic", device=None):
         super().__init__()
         self.init_values = init_values
+        self.dtype = dtype
+        self.drop_path = DropPath(drop_path)
         if quant and quant_mode not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {quant_mode!r}")
         if quant and quant_mode != "dynamic" and dim % 128 == 0:
@@ -299,14 +371,17 @@ class Block(nn.Module):
                                      device=device)
         self.norm1 = norm()
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
-                              qk_scale=qk_scale, dtype=dtype, quant=quant,
+                              qk_scale=qk_scale, dtype=dtype,
+                              param_dtype=param_dtype, attn_drop=attn_drop,
+                              proj_drop=drop, quant=quant,
                               quant_mode=quant_mode, device=device)
         self.norm2 = norm()
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, quant=quant,
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype,
+                       param_dtype=param_dtype, drop=drop, quant=quant,
                        quant_mode=quant_mode, device=device)
         if init_values > 0:
-            self.gamma_1 = _param((dim,), dtype, device)
-            self.gamma_2 = _param((dim,), dtype, device)
+            self.gamma_1 = _param((dim,), param_dtype or dtype, device)
+            self.gamma_2 = _param((dim,), param_dtype or dtype, device)
         else:
             self.gamma_1 = self.gamma_2 = None
 
@@ -320,15 +395,15 @@ class Block(nn.Module):
                 self.gamma_1.fill_(self.init_values)
                 self.gamma_2.fill_(self.init_values)
 
-    def forward(self, x):
-        a = self.attn(self.norm1(x))
+    def forward(self, x, generator=None):
+        a = self.attn(self.norm1(x), generator)
         if self.gamma_1 is not None:
-            a = a * self.gamma_1
-        x = x + a
-        m = self.mlp(self.norm2(x))
+            a = a * self.gamma_1.to(self.dtype)
+        x = x + self.drop_path(a, generator)
+        m = self.mlp(self.norm2(x), generator)
         if self.gamma_2 is not None:
-            m = m * self.gamma_2
-        return x + m
+            m = m * self.gamma_2.to(self.dtype)
+        return x + self.drop_path(m, generator)
 
 
 class PatchEmbed(nn.Module):
@@ -343,7 +418,7 @@ class PatchEmbed(nn.Module):
 
     def __init__(self, embed_dim: int, patch_size: int = 16,
                  tubelet_size: int = 2, in_chans: int = 3, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         self.patch_size = patch_size
         self.tubelet_size = tubelet_size
@@ -351,7 +426,7 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Module()
         self.proj.weight = _param(
             (embed_dim, in_chans, tubelet_size, patch_size, patch_size),
-            dtype, device)
+            param_dtype or dtype, device)
         self.proj.bias = _param((embed_dim,), torch.float32, device)
 
     def init_weights(self, generator):

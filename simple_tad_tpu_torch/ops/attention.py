@@ -5,9 +5,12 @@ bf16/fp32 path is ops/flash_attention.py:flash_attention_qkv; the int8
 static-quant path is ``dot_product_attention_qkv_i8`` (the JAX Attention
 module's int8-storage branch, models/layers.py there): qkv quantized per
 head against calibrated scales, then flash_attention_qkv_i8d.  Each is the
-CUDA kernel on a CUDA tensor and its plain version on a CPU tensor.  The
-JAX package's environment knobs are not ported; attention dropout is
-training work.
+CUDA kernel on a CUDA tensor and its plain version on a CPU tensor.  In
+training (grad mode, qkv requiring grad) flash_attention_qkv is the
+training attention (forward with lse, backward; kernels C1 and C2).  The
+JAX package's environment knobs are not ported.  Attention dropout (the
+JAX package's kernels C4) is not ported: callers pass a dropout rate only
+in training, and a positive one raises.
 """
 
 from __future__ import annotations
@@ -20,11 +23,12 @@ from simple_tad_tpu_torch.ops.flash_attention import (
 
 def dot_product_attention_qkv(qkv, *, num_heads: int, scale: float,
                               dropout_rate: float = 0.0):
-    """qkv: (B, N, 3C) in [q | k | v] column order -> (B, N, C)."""
+    """qkv: (B, N, 3C) in [q | k | v] column order -> (B, N, C).
+    ``dropout_rate``: the attention dropout in effect (0 outside training)."""
     if dropout_rate > 0.0:
         raise NotImplementedError(
-            "attention dropout is training work (ROADMAP.md queue 1, frame "
-            "fine-tuning)")
+            "attention dropout needs the dropout attention kernels C4, not "
+            "ported yet (ROADMAP.md queue 2)")
     return flash_attention_qkv(qkv, num_heads=num_heads, scale=scale)
 
 

@@ -1,0 +1,418 @@
+"""Batched on-device training augmentation for frame fine-tuning, in
+PyTorch.
+
+Port of the fine-tuning path of simple_tad_tpu/ops/augment.py
+(``train_augment``; reference: _aug_frame, dota.py:288-331):
+  1. ``pad_wide_and_resize``: random vertical pad {none x5, black x2,
+     color x1, reflect-blend x2, replicate x2} with U(0, 0.5 (w - h))
+     top/bottom offsets, then cubic resize to crop^2 (Keys a = -0.5);
+  2. ``rand_augment_drive``: 'rand-m6-n3-mstd0.5-inc1' over the 10
+     driving-safe ops, clip-consistent parameters;
+  3. /255 and ImageNet normalization;
+  4. ``random_erasing``: p = 0.25, pixel-mode noise, one cube per clip.
+
+Every random op is split into ``draw_*`` (its parameters, from an explicit
+``torch.Generator`` on the video's device) and ``apply_*`` (the op on
+those parameters), so tests can feed both packages the same parameters.
+The whole batch is processed at once on its device: per-sample parameters
+are tensors, and the RandAugment ops run once per (layer, op) on the
+samples that drew that op.  Video is float (B, T, H, W, C) in [0, 255]
+(channels-last, as in the JAX package).  The pre-training augmentations
+and mixup/cutmix are not ported yet (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from simple_tad_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
+
+GRAY_FILL = 128.0
+NUM_RA_OPS = 10   # autocontrast equalize invert rotate color contrast
+                  # brightness sharpness shear_x shear_y
+PAD_MODES = ("none", "black", "color", "reflect", "replicate")
+
+
+def _uniform(shape, generator, device):
+    return torch.rand(shape, generator=generator, device=device)
+
+
+# ---------------------------------------------------------------- sampling --
+
+def _cubic_weights(t):
+    """Keys cubic (a = -0.5) weights for fractional offset t: taps -1..2."""
+    a = -0.5
+    t2, t3 = t * t, t * t * t
+    w0 = a * (t3 - 2 * t2 + t)
+    w1 = (a + 2) * t3 - (a + 3) * t2 + 1
+    w2 = -(a + 2) * t3 + (2 * a + 3) * t2 - a * t
+    w3 = -a * (t3 - t2)
+    return w0, w1, w2, w3
+
+
+def _resample_rows_cubic(video, coords, mode: str, fill):
+    """4-tap cubic resample of video (b, T, H, W, C) along H at per-sample
+    float row coordinates ``coords`` (b, H').  mode: 'constant'
+    (out-of-range taps read ``fill``, (b, C) or a scalar), 'replicate'
+    (clamp), 'reflect' (edge pixel duplicated, period 2n)."""
+    b, T, n, W, C = video.shape
+    base = torch.floor(coords)
+    w = _cubic_weights(coords - base)
+    base = base.long()
+    bidx = torch.arange(b, device=video.device)[:, None]
+    out = None
+    for wk, off in zip(w, (-1, 0, 1, 2)):
+        idx = base + off
+        if mode == "reflect":
+            idx = (idx + (idx < 0).long()).abs()
+            idx = torch.where(idx >= n, 2 * n - 1 - idx, idx)
+        rows = video[bidx, :, idx.clamp(0, n - 1)]        # (b, H', T, W, C)
+        rows = rows.permute(0, 2, 1, 3, 4)
+        if mode == "constant":
+            inr = ((idx >= 0) & (idx < n))[:, None, :, None, None]
+            fill_t = torch.as_tensor(fill, dtype=video.dtype,
+                                     device=video.device)
+            if fill_t.ndim:
+                fill_t = fill_t[:, None, None, None, :]
+            rows = torch.where(inr, rows, fill_t)
+        term = wk[:, None, :, None, None] * rows
+        out = term if out is None else out + term
+    return out
+
+
+def _resample_cols_cubic(video, coords):
+    """4-tap cubic resample along W (axis 3) at coordinates (W',) shared by
+    the batch, edge-clamped."""
+    n = video.shape[3]
+    base = torch.floor(coords)
+    w = _cubic_weights(coords - base)
+    base = base.long()
+    out = None
+    for wk, off in zip(w, (-1, 0, 1, 2)):
+        term = wk[:, None] * video.index_select(3, (base + off).clamp(0, n - 1))
+        out = term if out is None else out + term
+    return out
+
+
+# ------------------------------------------------------ pad_wide + resize --
+
+def draw_pad_wide(video, generator) -> Dict[str, torch.Tensor]:
+    """Per-sample pad parameters: mode (index into PAD_MODES; 12 slots:
+    0-4 none, 5-6 black, 7 color, 8-9 reflect, 10-11 replicate), pad_top,
+    pad_bot (rounded U(0, 0.5 (W - H))), alpha (U(0, 0.7), the reflect
+    blend) and color (B, 3) in 0..255."""
+    B, _, H, W, _ = video.shape
+    dev = video.device
+    slot = torch.randint(0, 12, (B,), generator=generator, device=dev)
+    mode = torch.bucketize(slot, torch.tensor([5, 7, 8, 10], device=dev),
+                           right=True)
+    h_to_sq = max(W - H, 0)
+    return {
+        "mode": mode,
+        "pad_top": torch.round(_uniform(B, generator, dev) * 0.5 * h_to_sq),
+        "pad_bot": torch.round(_uniform(B, generator, dev) * 0.5 * h_to_sq),
+        "alpha": _uniform(B, generator, dev) * 0.7,
+        "color": torch.randint(0, 256, (B, 3), generator=generator,
+                               device=dev).float(),
+    }
+
+
+def apply_pad_wide(video, params, crop_size: int):
+    """Random vertical pad-to-square + cubic resize: (B, T, H, W, C) float
+    [0, 255] with W >= H -> (B, T, crop, crop, C), clipped to [0, 255]."""
+    B, T, H, W, C = video.shape
+    dev = video.device
+    ys = torch.arange(crop_size, dtype=torch.float32, device=dev)
+    xs = (ys + 0.5) * (W / crop_size) - 0.5
+    rows = torch.empty((B, T, crop_size, W, C), dtype=video.dtype,
+                       device=dev)
+    for m, name in enumerate(PAD_MODES):
+        sel = torch.nonzero(params["mode"] == m)[:, 0]
+        if sel.numel() == 0:
+            continue
+        clip = video[sel]
+        if name == "none":
+            y = ((ys + 0.5) * (H / crop_size) - 0.5).expand(len(sel), -1)
+            rows[sel] = _resample_rows_cubic(clip, y, "replicate", 0.0)
+            continue
+        pt = params["pad_top"][sel][:, None]
+        hp = H + pt + params["pad_bot"][sel][:, None]
+        y = (ys + 0.5) * (hp / crop_size) - 0.5 - pt
+        if name == "black":
+            out = _resample_rows_cubic(clip, y, "constant", 0.0)
+        elif name == "color":
+            out = _resample_rows_cubic(clip, y, "constant",
+                                       params["color"][sel])
+        elif name == "reflect":
+            a = params["alpha"][sel][:, None, None, None, None]
+            out = (_resample_rows_cubic(clip, y, "reflect", 0.0) * a
+                   + _resample_rows_cubic(clip, y, "constant", 0.0) * (1 - a))
+        else:
+            out = _resample_rows_cubic(clip, y, "replicate", 0.0)
+        rows[sel] = out
+    return torch.clamp(_resample_cols_cubic(rows, xs), 0.0, 255.0)
+
+
+def pad_wide_and_resize(video, generator, crop_size: int):
+    return apply_pad_wide(video, draw_pad_wide(video, generator), crop_size)
+
+
+# ------------------------------------------------------- randaugment ops --
+# Each op maps clips (b, T, H, W, C) and per-sample magnitude (b,) and sign
+# (b,) bool -> (b, T, H, W, C).
+
+def _bcast(v):
+    return v[:, None, None, None, None]
+
+
+def _luma(x):
+    return (0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2])[..., None]
+
+
+def _blend(a, b, factor):
+    """PIL Image.blend semantics used by enhancers: b + factor * (a - b)."""
+    return b + factor * (a - b)
+
+
+def _enhance_factor(mag, sign):
+    """timm increasing variant: 1 +/- 0.9 * mag / 10."""
+    s = torch.where(sign, 1.0, -1.0)
+    return _bcast(1.0 + s * 0.9 * mag / 10.0)
+
+
+def op_autocontrast(x, mag, sign):
+    lo = x.amin(dim=(1, 2, 3), keepdim=True)
+    hi = x.amax(dim=(1, 2, 3), keepdim=True)
+    scale = 255.0 / torch.clamp(hi - lo, min=1e-6)
+    return torch.where(hi > lo, (x - lo) * scale, x)
+
+
+def op_equalize(x, mag, sign):
+    """PIL ImageOps.equalize per channel, LUT over the whole clip."""
+    b, C = x.shape[0], x.shape[-1]
+    vals = torch.clamp(x, 0, 255).long()
+    base = ((torch.arange(b, device=x.device)[:, None] * C
+             + torch.arange(C, device=x.device)[None, :]) * 256)
+    flat = vals + base[:, None, None, None, :]
+    h = torch.bincount(flat.reshape(-1), minlength=b * C * 256).view(b, C, 256)
+    step = (h.sum(-1) - h[..., 255]) // 255                     # (b, C)
+    csum = torch.cumsum(h, -1) - h
+    lut = torch.clamp((step[..., None] // 2 + csum)
+                      // torch.clamp(step, min=1)[..., None], 0, 255)
+    out = lut.reshape(-1)[flat].to(x.dtype)
+    return torch.where((step == 0)[:, None, None, None, :], x, out)
+
+
+def op_invert(x, mag, sign):
+    return 255.0 - x
+
+
+def op_color(x, mag, sign):
+    return _blend(x, _luma(x).expand_as(x), _enhance_factor(mag, sign))
+
+
+def op_contrast(x, mag, sign):
+    mean = _luma(x).mean(dim=(2, 3), keepdim=True)             # per frame
+    return _blend(x, mean.expand_as(x), _enhance_factor(mag, sign))
+
+
+def op_brightness(x, mag, sign):
+    return x * _enhance_factor(mag, sign)
+
+
+def _smooth(x):
+    """PIL SMOOTH (3x3 [[1,1,1],[1,5,1],[1,1,1]] / 13, zero padding) per
+    frame and channel, the 1-pixel border left unfiltered."""
+    H, W = x.shape[2], x.shape[3]
+    p = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            wgt = (5.0 if dy == dx == 1 else 1.0) / 13.0
+            term = wgt * p[:, :, dy:dy + H, dx:dx + W]
+            acc = term if acc is None else acc + term
+    border = torch.zeros((H, W), dtype=torch.bool, device=x.device)
+    border[0], border[-1], border[:, 0], border[:, -1] = True, True, True, True
+    return torch.where(border[None, None, :, :, None], x, acc)
+
+
+def op_sharpness(x, mag, sign):
+    return _blend(x, _smooth(x), _enhance_factor(mag, sign))
+
+
+def _warp(x, coeffs):
+    """PIL AFFINE inverse-map warp with per-sample coefficients (a..f, each
+    (b,)): out(x, y) <- src(a x + b y + c, d x + e y + f), bilinear, gray
+    fill outside."""
+    b, T, H, W, C = x.shape
+    a, bb, c, d, e, f = (t[:, None, None] for t in coeffs)
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32,
+                                         device=x.device),
+                            torch.arange(W, dtype=torch.float32,
+                                         device=x.device), indexing="ij")
+    sx = a * xs + bb * ys + c
+    sy = d * xs + e * ys + f
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    wx = (sx - x0)[:, None, :, :, None]
+    wy = (sy - y0)[:, None, :, :, None]
+    x0i = x0.long().clamp(0, W - 1)
+    x1i = (x0i + 1).clamp(0, W - 1)
+    y0i = y0.long().clamp(0, H - 1)
+    y1i = (y0i + 1).clamp(0, H - 1)
+    bidx = torch.arange(b, device=x.device)[:, None, None]
+
+    def at(yi, xi):
+        return x[bidx, :, yi, xi].permute(0, 3, 1, 2, 4)
+
+    top = at(y0i, x0i) * (1 - wx) + at(y0i, x1i) * wx
+    bot = at(y1i, x0i) * (1 - wx) + at(y1i, x1i) * wx
+    out = top * (1 - wy) + bot * wy
+    valid = ((sx >= -0.5) & (sx <= W - 0.5) & (sy >= -0.5)
+             & (sy <= H - 0.5))[:, None, :, :, None]
+    return torch.where(valid, out, torch.tensor(GRAY_FILL, device=x.device))
+
+
+def op_rotate(x, mag, sign):
+    deg = mag / 10.0 * 30.0
+    rad = torch.deg2rad(torch.where(sign, deg, -deg))
+    h, w = x.shape[2], x.shape[3]
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    cos, sin = torch.cos(rad), torch.sin(rad)
+    a, b = cos, sin
+    d, e = -sin, cos
+    return _warp(x, (a, b, cx - a * cx - b * cy, d, e, cy - d * cx - e * cy))
+
+
+def op_shear_x(x, mag, sign):
+    s = mag / 10.0 * 0.3
+    s = torch.where(sign, s, -s)
+    one, zero = torch.ones_like(s), torch.zeros_like(s)
+    return _warp(x, (one, s, zero, zero, one, zero))
+
+
+def op_shear_y(x, mag, sign):
+    s = mag / 10.0 * 0.3
+    s = torch.where(sign, s, -s)
+    one, zero = torch.ones_like(s), torch.zeros_like(s)
+    return _warp(x, (one, zero, zero, s, one, zero))
+
+
+RA_OPS = (op_autocontrast, op_equalize, op_invert, op_rotate, op_color,
+          op_contrast, op_brightness, op_sharpness, op_shear_x, op_shear_y)
+
+
+def draw_rand_augment(video, generator, *, magnitude: float = 6.0,
+                      mstd: float = 0.5, num_layers: int = 3,
+                      prob: float = 0.5) -> Dict[str, torch.Tensor]:
+    """Per sample and layer (B, num_layers): op index (uniform over the 10
+    ops, with replacement), magnitude ~ N(magnitude, mstd) clipped to
+    [0, 10], apply (probability ``prob``) and the op's random sign."""
+    B = video.shape[0]
+    dev = video.device
+    shape = (B, num_layers)
+    return {
+        "op": torch.randint(0, NUM_RA_OPS, shape, generator=generator,
+                            device=dev),
+        "mag": torch.clamp(magnitude + mstd * torch.randn(
+            shape, generator=generator, device=dev), 0.0, 10.0),
+        "apply": _uniform(shape, generator, dev) < prob,
+        "sign": _uniform(shape, generator, dev) < 0.5,
+    }
+
+
+def apply_rand_augment(video, params):
+    """Apply each layer's drawn op to each sample (clipped to [0, 255]),
+    keeping the sample unchanged where ``apply`` is False."""
+    x = video
+    ops = params["op"].cpu()
+    for layer in range(ops.shape[1]):
+        x = x.clone()
+        for op in torch.unique(ops[:, layer]).tolist():
+            sel = torch.nonzero(ops[:, layer] == op)[:, 0].to(x.device)
+            clip = x[sel]
+            out = torch.clamp(RA_OPS[op](clip, params["mag"][sel, layer],
+                                         params["sign"][sel, layer]),
+                              0.0, 255.0)
+            x[sel] = torch.where(_bcast(params["apply"][sel, layer]), out,
+                                 clip)
+    return x
+
+
+def rand_augment_drive(video, generator, **kw):
+    return apply_rand_augment(video, draw_rand_augment(video, generator,
+                                                       **kw))
+
+
+# -------------------------------------------------------- random erasing --
+
+def draw_random_erasing(video, generator, *, probability: float = 0.25,
+                        min_area: float = 0.02, max_area: float = 1 / 3,
+                        min_aspect: float = 0.01) -> Dict[str, torch.Tensor]:
+    """Per sample: one rectangle (h, w, top, left), whether to erase it,
+    and standard-normal noise of the video's shape."""
+    B, T, H, W, C = video.shape
+    dev = video.device
+    area = (min_area + _uniform(B, generator, dev) * (max_area - min_area)) \
+        * (H * W)
+    lo, hi = math.log(min_aspect), math.log(1.0 / min_aspect)
+    ar = torch.exp(lo + _uniform(B, generator, dev) * (hi - lo))
+    h = torch.clamp(torch.round(torch.sqrt(area * ar)), 1, H - 1).long()
+    w = torch.clamp(torch.round(torch.sqrt(area / ar)), 1, W - 1).long()
+    return {
+        "h": h, "w": w,
+        "top": (_uniform(B, generator, dev) * (H - h)).long(),
+        "left": (_uniform(B, generator, dev) * (W - w)).long(),
+        "erase": _uniform(B, generator, dev) < probability,
+        "noise": torch.randn(video.shape, generator=generator, device=dev,
+                             dtype=video.dtype),
+    }
+
+
+def apply_random_erasing(video, params):
+    """Pixel-mode cube RandomErasing (random_erasing.py:27-173, mode
+    'pixel', cube, count 1): the rectangle, the same in every frame, gets
+    the noise."""
+    H, W = video.shape[2], video.shape[3]
+    ys = torch.arange(H, device=video.device)[None, :]
+    xs = torch.arange(W, device=video.device)[None, :]
+    top, left = params["top"][:, None], params["left"][:, None]
+    row = (ys >= top) & (ys < top + params["h"][:, None])          # (B, H)
+    col = (xs >= left) & (xs < left + params["w"][:, None])        # (B, W)
+    mask = (row[:, None, :, None, None] & col[:, None, None, :, None]
+            & _bcast(params["erase"]))
+    return torch.where(mask, params["noise"], video)
+
+
+def random_erasing(video, generator, **kw):
+    return apply_random_erasing(video, draw_random_erasing(video, generator,
+                                                           **kw))
+
+
+# --------------------------------------------------------------- pipeline --
+
+def normalize(x):
+    """[0, 255] -> ImageNet-normalized, as the JAX train pipeline does it."""
+    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
+    std = torch.as_tensor(IMAGENET_STD, device=x.device)
+    return (x / 255.0 - mean) / std
+
+
+def train_augment(video_u8, generator, *, crop_size: int = 224,
+                  magnitude: float = 6.0, num_layers: int = 3,
+                  reprob: float = 0.25, dtype=torch.float32):
+    """The full train-path augmentation: (B, T, H, W, C) uint8 frames on
+    the device -> normalized, augmented (B, T, crop, crop, C) in ``dtype``.
+    Order as _aug_frame (dota.py:288-331): pad + resize -> RandAugment ->
+    /255 + ImageNet normalize -> RandomErasing."""
+    x = video_u8.float()
+    x = pad_wide_and_resize(x, generator, crop_size)
+    x = rand_augment_drive(x, generator, magnitude=magnitude,
+                           num_layers=num_layers)
+    x = normalize(x)
+    if reprob > 0:
+        x = random_erasing(x, generator, probability=reprob)
+    return x.to(dtype)

@@ -22,9 +22,23 @@ whatever the model dtype (csrc/attention_i8.cu).  The TPU kernel's
 bf16-output mode is reached only through an environment knob of the JAX
 package and is not ported.
 
+Training (port of the packed custom VJP, _flash_core_packed_qkv with
+_packed_train_ok): ``flash_attention_qkv`` on a qkv that requires grad, in
+grad mode, goes through ``FlashAttentionQKV``, whose forward is
+``flash_attention_qkv_fwd_lse`` (TPU kernel _fwd_kernel_nomax_packed_lse:
+A1 that also returns lse = log2 of the denominator, (B, H, N) fp32) and
+whose backward is ``flash_attention_qkv_bwd`` (TPU kernel
+_bwd_merged_kernel_packed: dq, dk, dv from qkv, out, lse, dout and
+delta = rowsum(dout * out), written as one (B, N, 3C) gradient in
+[dq | dk | dv] column order; csrc/attention_train.cu).  It saves
+(qkv, out, lse), as the JAX forward does.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  ``LAUNCHES`` counts launches of the bf16/fp32
-kernel, ``I8_LAUNCHES`` those of the int8 one.
+inference kernel, ``I8_LAUNCHES`` those of the int8 one,
+``FWD_LSE_LAUNCHES`` those of the training forward and ``BWD_LAUNCHES``
+calls of the training backward (each call launches two kernels: dk/dv,
+then dq).
 """
 
 from __future__ import annotations
@@ -38,6 +52,8 @@ LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 128
 LAUNCHES = 0
 I8_LAUNCHES = 0
+FWD_LSE_LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
 def _split_heads(qkv, num_heads: int):
@@ -46,18 +62,97 @@ def _split_heads(qkv, num_heads: int):
     return qkv.view(B, N, 3, num_heads, C // num_heads).permute(2, 0, 3, 1, 4)
 
 
-def flash_attention_qkv_plain(qkv, num_heads: int, scale: float):
-    """qkv (B, N, 3C) in [q | k | v] x (H, Dh)-major columns -> (B, N, C)."""
+def _acc(dtype):
+    """Accumulation dtype of the plain versions: fp32, or fp64 for fp64
+    inputs (gradient checks)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _attention_plain(qkv, num_heads: int, scale: float):
+    """-> (out (B, N, C) in qkv's dtype, lse (B, H, N) base 2)."""
     B, N, C3 = qkv.shape
-    dt = qkv.dtype
+    dt, acc = qkv.dtype, _acc(qkv.dtype)
     q, k, v = _split_heads(qkv, num_heads)                 # (B, H, N, Dh)
-    qs = (q.float() * (scale * LOG2E)).to(dt)
-    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    qs = (q.to(acc) * (scale * LOG2E)).to(dt)
+    s = torch.matmul(qs.to(acc), k.to(acc).transpose(-1, -2))
     m = torch.ceil(s.amax(dim=-1, keepdim=True))
     p = torch.exp2(s - m).to(v.dtype)
-    denom = p.float().sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.float(), v.float()) / denom
-    return o.to(dt).permute(0, 2, 1, 3).reshape(B, N, C3 // 3)
+    denom = p.to(acc).sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(acc), v.to(acc)) / denom
+    lse = (m + torch.log2(denom))[..., 0]
+    return o.to(dt).permute(0, 2, 1, 3).reshape(B, N, C3 // 3), lse
+
+
+def flash_attention_qkv_plain(qkv, num_heads: int, scale: float):
+    """qkv (B, N, 3C) in [q | k | v] x (H, Dh)-major columns -> (B, N, C)."""
+    return _attention_plain(qkv, num_heads, scale)[0]
+
+
+def flash_attention_qkv_fwd_lse_plain(qkv, num_heads: int, scale: float):
+    """The training forward: (out (B, N, C), lse (B, H, N) fp32 base 2,
+    log2 of the sum of the rounded probabilities of the max-free form)."""
+    return _attention_plain(qkv, num_heads, scale)
+
+
+def attention_delta(out, dout, num_heads: int):
+    """delta = rowsum(dout * out) per head, (B, N, C) x2 -> (B, H, N) in
+    the accumulation dtype, contiguous."""
+    B, N, C = out.shape
+    acc = _acc(out.dtype)
+    d = (dout.to(acc) * out.to(acc)).view(B, N, num_heads, -1).sum(-1)
+    return d.permute(0, 2, 1).contiguous()
+
+
+def flash_attention_qkv_bwd_plain(qkv, out, lse, dout, num_heads: int,
+                                  scale: float):
+    """-> dqkv (B, N, 3C) in [dq | dk | dv] columns, in qkv's dtype.
+
+    s = bf16(q * scale * log2 e) . k; p = exp2(s - lse) in fp32;
+    dv = dout^T bf16(p); dp = dout v^T; ds = p (dp - delta);
+    dk = q^T bf16(ds) * scale; dq = bf16(ds) k * scale (q unscaled).
+    """
+    B, N, C3 = qkv.shape
+    dt, acc = qkv.dtype, _acc(qkv.dtype)
+    q, k, v = (t.to(acc) for t in _split_heads(qkv, num_heads))
+    do = dout.view(B, N, num_heads, -1).permute(0, 2, 1, 3).to(acc)
+    delta = attention_delta(out, dout, num_heads)[..., None]
+    qs = (q * (scale * LOG2E)).to(dt).to(acc)
+    s = torch.matmul(qs, k.transpose(-1, -2))
+    p = torch.exp2(s - lse.to(acc)[..., None])
+    dv = torch.matmul(p.to(dt).to(acc).transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = (p * (dp - delta)).to(dt).to(acc)
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    dq = torch.matmul(ds, k) * scale
+    grads = torch.stack([dq, dk, dv]).to(dt)               # (3, B, H, N, Dh)
+    return grads.permute(1, 3, 0, 2, 4).reshape(B, N, C3)
+
+
+def _check_packed(name: str, qkv, num_heads: int, scale: float):
+    """Validate a CUDA packed qkv -> (B, N, C, Dh)."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {qkv.device}")
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"{name}: qkv {tuple(qkv.shape)} is "
+                         f"not (B, N, 3 * {num_heads} * Dh)")
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    D = C // num_heads
+    if D % 8 or D > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} must be a "
+                         f"multiple of 8 and at most {MAX_HEAD_DIM}")
+    if not qkv.is_contiguous():
+        raise ValueError(f"{name}: qkv must be contiguous")
+    if not scale > 0:
+        raise ValueError(f"{name}: scale {scale} must be > 0")
+    if qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: qkv must be 16-byte aligned")
+    return B, N, C, D
+
+
+def _qkv_pointers(qkv, C: int):
+    base, esz = qkv.data_ptr(), qkv.element_size()
+    return base, base + C * esz, base + 2 * C * esz
 
 
 def flash_attention_qkv(qkv, num_heads: int, scale: float):
@@ -65,43 +160,110 @@ def flash_attention_qkv(qkv, num_heads: int, scale: float):
 
     qkv: (B, N, 3C) bf16 or fp32, contiguous, [q | k | v] columns each
     (H, Dh)-major; Dh a multiple of 8 and at most 128 -> (B, N, C) in
-    qkv's dtype.
+    qkv's dtype.  In grad mode, on a qkv that requires grad, this is the
+    training attention (``FlashAttentionQKV``); otherwise the inference
+    kernel.
     """
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return FlashAttentionQKV.apply(qkv, num_heads, scale)
     if qkv.device.type == "cpu":
         return flash_attention_qkv_plain(qkv, num_heads, scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"flash_attention_qkv: unsupported device "
-                         f"{qkv.device}")
-    if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
-        raise ValueError(f"flash_attention_qkv: qkv {tuple(qkv.shape)} is "
-                         f"not (B, N, 3 * {num_heads} * Dh)")
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    D = C // num_heads
-    if D % 8 or D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_qkv: head dim {D} must be a "
-                         f"multiple of 8 and at most {MAX_HEAD_DIM}")
-    if not qkv.is_contiguous():
-        raise ValueError("flash_attention_qkv: qkv must be contiguous")
-    if not scale > 0:
-        raise ValueError(f"flash_attention_qkv: scale {scale} must be > 0")
-    if qkv.data_ptr() % 16:
-        raise ValueError("flash_attention_qkv: qkv must be 16-byte aligned")
+    B, N, C, D = _check_packed("flash_attention_qkv", qkv, num_heads, scale)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     if B == 0 or N == 0:
         return out
     lib = kbuild.load()
-    esz = qkv.element_size()
-    base = qkv.data_ptr()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     code = lib.stt_attention_fwd(
-        base, base + C * esz, base + 2 * C * esz, out.data_ptr(),
-        B, N, num_heads, D, N * C3, C3, N * C, C,
+        *_qkv_pointers(qkv, C), out.data_ptr(),
+        B, N, num_heads, D, N * 3 * C, 3 * C, N * C, C,
         float(scale * LOG2E), kbuild.dtype_code(qkv.dtype), stream)
     kbuild.check(code, "attention")
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def flash_attention_qkv_fwd_lse(qkv, num_heads: int, scale: float):
+    """The training forward (kernel C1): qkv as ``flash_attention_qkv`` ->
+    (out (B, N, C) in qkv's dtype, lse (B, H, N) fp32 base 2)."""
+    if qkv.device.type == "cpu":
+        return flash_attention_qkv_fwd_lse_plain(qkv, num_heads, scale)
+    B, N, C, D = _check_packed("flash_attention_qkv_fwd_lse", qkv,
+                               num_heads, scale)
+    out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((B, num_heads, N), dtype=torch.float32,
+                      device=qkv.device)
+    if B == 0 or N == 0:
+        return out, lse
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    code = lib.stt_attention_fwd_lse(
+        *_qkv_pointers(qkv, C), out.data_ptr(), lse.data_ptr(),
+        B, N, num_heads, D, N * 3 * C, 3 * C, N * C, C,
+        float(scale * LOG2E), kbuild.dtype_code(qkv.dtype), stream)
+    kbuild.check(code, "attention_fwd_lse")
+    global FWD_LSE_LAUNCHES
+    FWD_LSE_LAUNCHES += 1
+    return out, lse
+
+
+def flash_attention_qkv_bwd(qkv, out, lse, dout, num_heads: int,
+                            scale: float):
+    """The training backward (kernel C2): qkv (B, N, 3C), the forward's out
+    (B, N, C) and lse (B, H, N) fp32, and dout (B, N, C) -> dqkv (B, N, 3C)
+    in [dq | dk | dv] column order, in qkv's dtype."""
+    if qkv.device.type == "cpu":
+        return flash_attention_qkv_bwd_plain(qkv, out, lse, dout, num_heads,
+                                             scale)
+    B, N, C, D = _check_packed("flash_attention_qkv_bwd", qkv, num_heads,
+                               scale)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != (B, N, C) or t.dtype != qkv.dtype \
+                or t.device != qkv.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_qkv_bwd: {name} must be a "
+                             f"contiguous, 16-byte aligned {qkv.dtype} "
+                             f"({B}, {N}, {C}) on qkv's device")
+    if lse.shape != (B, num_heads, N) or lse.dtype != torch.float32 \
+            or lse.device != qkv.device or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_qkv_bwd: lse must be contiguous "
+                         f"fp32 ({B}, {num_heads}, {N}) on qkv's device")
+    dqkv = torch.empty_like(qkv)
+    if B == 0 or N == 0:
+        return dqkv
+    delta = attention_delta(out, dout, num_heads)
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    code = lib.stt_attention_bwd(
+        *_qkv_pointers(qkv, C), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *_qkv_pointers(dqkv, C),
+        B, N, num_heads, D, N * 3 * C, 3 * C, N * C, C, N * 3 * C, 3 * C,
+        float(scale * LOG2E), float(scale), kbuild.dtype_code(qkv.dtype),
+        stream)
+    kbuild.check(code, "attention_bwd")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dqkv
+
+
+class FlashAttentionQKV(torch.autograd.Function):
+    """Training attention on the packed qkv: forward C1, backward C2.
+    Saves (qkv, out, lse), as the JAX package's packed forward does."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int, scale: float):
+        out, lse = flash_attention_qkv_fwd_lse(qkv, num_heads, scale)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        return (flash_attention_qkv_bwd(qkv, out, lse, dout.contiguous(),
+                                        ctx.num_heads, ctx.scale),
+                None, None)
 
 
 def attention_i8_plain_f32(qkv_i8, amax, num_heads: int, scale: float):

@@ -10,6 +10,12 @@ by default), the kernels take any C up to 4096: ``layernorm`` serves every
 LayerNorm of the bf16 ViT (norm1, norm2, fc_norm), ``layernorm_quant`` the
 int8 model's norm1 and norm2, whose output is the next GEMM's int8 input.
 
+Training: ``LayerNormFn`` is the port of the JAX package's custom VJP
+(_fused_ln_core): its forward is ``layernorm`` (the kernel on a CUDA
+tensor), its backward the plain math of _fused_ln_bwd (fp32 recompute of
+mean and rstd; dx in x's dtype, dweight and dbias in fp32).  The JAX
+backward is not a Pallas kernel, so neither is this one.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  ``LAUNCHES`` counts launches of the LayerNorm
 kernel, ``QUANT_LAUNCHES`` those of the LayerNorm->int8 kernel.
@@ -125,3 +131,38 @@ def layernorm_quant(x, weight, bias, amax, eps: float = 1e-6):
     global QUANT_LAUNCHES
     QUANT_LAUNCHES += 1
     return out
+
+
+def layernorm_bwd(x, weight, dy, eps: float = 1e-6):
+    """The LayerNorm backward of simple_tad_tpu/ops/ln.py:_fused_ln_bwd:
+    -> (dx in x's dtype, dweight, dbias in fp32)."""
+    C = x.shape[-1]
+    x32 = x.float()
+    dy32 = dy.float()
+    xc = x32 - x32.mean(dim=-1, keepdim=True)
+    r = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * r
+    dxhat = dy32 * weight.float()
+    dx = r * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+              - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    dweight = (dy32 * xhat).reshape(-1, C).sum(dim=0)
+    dbias = dy32.reshape(-1, C).sum(dim=0)
+    return dx.to(x.dtype), dweight, dbias
+
+
+class LayerNormFn(torch.autograd.Function):
+    """Differentiable ``layernorm``: the kernel forward, the plain backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, out_dtype):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        ctx.param_dtypes = (weight.dtype, bias.dtype)
+        return layernorm(x, weight, bias, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dweight, dbias = layernorm_bwd(x, weight, dy, ctx.eps)
+        wdt, bdt = ctx.param_dtypes
+        return dx, dweight.to(wdt), dbias.to(bdt), None, None

@@ -13,6 +13,11 @@ It also reads the JAX package's quantized, calibrated tree
 (ops/quant.py there: ``qkv_q``/``kernel_q`` int8, ``*_scale``, the
 ``act_amax``/``qkv_amax``/``out_amax`` absmax) into the port's int8 model
 state, so the port serves exactly the JAX package's int8 codes and scales.
+``to_jax_params`` is its inverse for the fp model (tests compare
+gradients, updated parameters and optimizer moments leaf by leaf with
+it).  ``load_vit_checkpoint`` also initialises the fp32 training model
+(cli/finetune.py ``--finetune``): values are copied into the model's own
+parameter dtype.
 """
 
 from __future__ import annotations
@@ -151,3 +156,65 @@ def from_jax_params(params: Mapping[str, Any], *, tubelet_size: int = 2,
         out["head.weight"] = t(params["head"]["kernel"])
         out["head.bias"] = arr(params["head"]["bias"])
     return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def to_jax_params(state: Mapping[str, torch.Tensor], *,
+                  tubelet_size: int = 2,
+                  in_chans: int = 3) -> Dict[str, Any]:
+    """Inverse of ``from_jax_params`` for the fp model: a reference-named
+    state dict (or any dict keyed by the model's parameter names, such as
+    its gradients or Adam moments) -> the JAX VisionTransformer tree of
+    fp32 numpy arrays, blocks stacked on a leading depth axis."""
+    def arr(name):
+        return state[name].detach().float().cpu().numpy()
+
+    def dense(name):
+        leaves = {"kernel": arr(name + ".weight").T}
+        if name + ".bias" in state:
+            leaves["bias"] = arr(name + ".bias")
+        return leaves
+
+    def stack(leaves):
+        return {k: (stack(v) if isinstance(v, dict) else np.stack(v))
+                for k, v in leaves.items()}
+
+    def append(tree, leaves):
+        for k, v in leaves.items():
+            if isinstance(v, dict):
+                append(tree.setdefault(k, {}), v)
+            else:
+                tree.setdefault(k, []).append(v)
+
+    out: Dict[str, Any] = {}
+    w = arr("patch_embed.proj.weight")                  # (D, c, t, p, p)
+    out["patch_embed"] = {
+        "kernel": np.ascontiguousarray(
+            w.transpose(2, 3, 4, 1, 0).reshape(-1, w.shape[0])),
+        "bias": arr("patch_embed.proj.bias")}
+    depth = 1 + max(int(k.split(".")[1]) for k in state
+                    if k.startswith("blocks."))
+    blocks: Dict[str, Any] = {}
+    for i in range(depth):
+        pre = f"blocks.{i}."
+        leaves = {norm: {"scale": arr(pre + norm + ".weight"),
+                         "bias": arr(pre + norm + ".bias")}
+                  for norm in ("norm1", "norm2")}
+        attn = {"qkv_kernel": arr(pre + "attn.qkv.weight").T,
+                "proj": dense(pre + "attn.proj")}
+        for name in ("q_bias", "v_bias"):
+            if pre + "attn." + name in state:
+                attn[name] = arr(pre + "attn." + name)
+        leaves["attn"] = attn
+        leaves["mlp"] = {fc: dense(pre + f"mlp.{fc}") for fc in ("fc1", "fc2")}
+        if pre + "gamma_1" in state:
+            leaves["gamma_1"] = arr(pre + "gamma_1")
+            leaves["gamma_2"] = arr(pre + "gamma_2")
+        append(blocks, leaves)
+    out["blocks"] = stack(blocks)
+    for norm in ("fc_norm", "norm"):
+        if norm + ".weight" in state:
+            out[norm] = {"scale": arr(norm + ".weight"),
+                         "bias": arr(norm + ".bias")}
+    if "head.weight" in state:
+        out["head"] = dense("head")
+    return out

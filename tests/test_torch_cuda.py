@@ -189,3 +189,136 @@ def test_tiny_int8_vit_forward_goes_through_kernels(cuda):
     after = (ln.LAUNCHES, ln.QUANT_LAUNCHES, fa.LAUNCHES, fa.I8_LAUNCHES)
     assert tuple(a - b for a, b in zip(after, counts)) == (1, 4, 0, 2)
     assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+
+
+# Training attention (C1 forward with lse, C2 backward).  lse is fp32: in
+# fp32 atol 1e-4 (a sum of up to N probabilities in another order); in bf16
+# one probability may round to the other neighbour (its exp2 and the score
+# sum run in another order), which moves lse by at most log2(1 + 2^-7) =
+# 0.0112: atol 1.2e-2.  The fp32 backward sums up to N = 1568 products per
+# element in another order than the plain version: atol/rtol 1e-4.
+TRAIN_CASES = [(2, 1568, 12, 64), (2, 200, 2, 64), (3, 97, 16, 80),
+               (1, 130, 3, 128), (2, 33, 4, 32)]
+BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+LSE_TOL = {torch.float32: dict(atol=1e-4, rtol=0.0),
+           torch.bfloat16: dict(atol=1.2e-2, rtol=0.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,n,heads,d", TRAIN_CASES)
+def test_attention_fwd_lse_kernel_matches_plain(b, n, heads, d, dtype, cuda):
+    qkv = _randn((b, n, 3 * heads * d), 11, cuda).to(dtype)
+    before = fa.FWD_LSE_LAUNCHES
+    out, lse = fa.flash_attention_qkv_fwd_lse(qkv, heads, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.FWD_LSE_LAUNCHES == before + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert lse.shape == (b, heads, n)
+    want_out, want_lse = fa.flash_attention_qkv_fwd_lse_plain(qkv, heads,
+                                                              d ** -0.5)
+    torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,n,heads,d", TRAIN_CASES)
+def test_attention_fwd_lse_out_is_the_inference_out(b, n, heads, d, dtype,
+                                                    cuda):
+    """C1 is A1 with an lse store: the same output, bit for bit."""
+    qkv = _randn((b, n, 3 * heads * d), 16, cuda).to(dtype)
+    out, _ = fa.flash_attention_qkv_fwd_lse(qkv, heads, d ** -0.5)
+    assert torch.equal(out, fa.flash_attention_qkv(qkv, heads, d ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,n,heads,d", TRAIN_CASES)
+def test_attention_bwd_kernel_matches_plain(b, n, heads, d, dtype, cuda):
+    scale = d ** -0.5
+    qkv = _randn((b, n, 3 * heads * d), 12, cuda).to(dtype)
+    dout = _randn((b, n, heads * d), 13, cuda).to(dtype)
+    out, lse = fa.flash_attention_qkv_fwd_lse_plain(qkv, heads, scale)
+    before = fa.BWD_LAUNCHES
+    got = fa.flash_attention_qkv_bwd(qkv, out, lse, dout, heads, scale)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == qkv.shape
+    want = fa.flash_attention_qkv_bwd_plain(qkv, out, lse, dout, heads, scale)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_attention_function_gradients_match_plain_function(dtype, cuda,
+                                                           monkeypatch):
+    """Gradients through FlashAttentionQKV (kernels) equal those through the
+    same Function routed to the plain versions."""
+    b, n, heads, d = 2, 200, 4, 64
+    x = _randn((b, n, 3 * heads * d), 14, cuda).to(dtype)
+    w = _randn((b, n, heads * d), 15, cuda).to(dtype)
+
+    def grad():
+        qkv = x.clone().requires_grad_(True)
+        (fa.flash_attention_qkv(qkv, heads, d ** -0.5).float()
+         * w.float()).sum().backward()
+        return qkv.grad
+
+    counts = (fa.LAUNCHES, fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES)
+    got = grad()
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES) == (
+        counts[0], counts[1] + 1, counts[2] + 1)
+    monkeypatch.setattr(fa, "flash_attention_qkv_fwd_lse",
+                        fa.flash_attention_qkv_fwd_lse_plain)
+    monkeypatch.setattr(fa, "flash_attention_qkv_bwd",
+                        fa.flash_attention_qkv_bwd_plain)
+    want = grad()
+    torch.testing.assert_close(got.float(), want.float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_attention_bwd_kernel_rejects_bad_lse(cuda):
+    qkv = torch.zeros((1, 8, 3 * 2 * 64), device=cuda, dtype=torch.bfloat16)
+    out = torch.zeros((1, 8, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_qkv_bwd(qkv, out, torch.zeros(1, 2, 8, device=cuda,
+                                                         dtype=torch.bfloat16),
+                                   out, 2, 0.125)
+
+
+@pytest.mark.cuda
+def test_tiny_vit_train_step_goes_through_kernels(cuda):
+    """One train step of a 2-layer ViT-S with fp32 masters computed in bf16
+    runs C1 and C2 once per block, the LayerNorm kernel 5 times and the
+    inference attention never; gradients reach the fp32 masters."""
+    from simple_tad_tpu_torch.models import create_model
+    from simple_tad_tpu_torch.train.losses import create_criterion
+    from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
+    from simple_tad_tpu_torch.train.steps import (TrainState,
+                                                  make_finetune_train_step)
+    model = create_model("vit_small_patch16_224", device=cuda,
+                         generator=torch.Generator().manual_seed(0),
+                         img_size=32, depth=2, dtype=torch.bfloat16,
+                         param_dtype=torch.float32, drop_path_rate=0.2)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    state = TrainState.create(model, FinetuneOptimizer(
+        dict(model.named_parameters()), lr_schedule=1e-3, layer_decay=0.75,
+        depth=2), gen)
+    step = make_finetune_train_step(create_criterion("crossentropy"))
+    batch = {"video": _randn((2, 16, 32, 32, 3), 17, cuda).bfloat16(),
+             "label": torch.tensor([0, 1], device=cuda)}
+    counts = (ln.LAUNCHES, fa.LAUNCHES, fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES)
+    metrics, logits = step(state, batch)
+    torch.cuda.synchronize()
+    after = (ln.LAUNCHES, fa.LAUNCHES, fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, counts)) == (5, 0, 2, 2)
+    assert torch.isfinite(metrics["loss"]) and logits.shape == (2, 2)
+    for n, p in model.named_parameters():
+        assert p.dtype == torch.float32, n
+        assert not torch.equal(p, before[n]), n

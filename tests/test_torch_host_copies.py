@@ -17,12 +17,16 @@ import simple_tad_tpu.data.labels as jax_labels
 import simple_tad_tpu.data.sequencing as jax_seq
 import simple_tad_tpu.data.zipreader as jax_zip
 import simple_tad_tpu.eval.metrics as jax_metrics
+import simple_tad_tpu.train.engine as jax_engine
+import simple_tad_tpu.utils.logging as jax_logging
 import simple_tad_tpu_torch.config as port_config
 import simple_tad_tpu_torch.data.frame_datasets as port_fd
 import simple_tad_tpu_torch.data.labels as port_labels
 import simple_tad_tpu_torch.data.sequencing as port_seq
 import simple_tad_tpu_torch.data.zipreader as port_zip
 import simple_tad_tpu_torch.eval.metrics as port_metrics
+import simple_tad_tpu_torch.train.engine as port_engine
+import simple_tad_tpu_torch.utils.logging as port_logging
 from tests.fixtures import make_synthetic_dota
 
 
@@ -76,6 +80,17 @@ def _config(m):
             dataclasses.asdict(m.FinetuneConfig.from_args([]))]
 
 
+def _logging(m):
+    sv = m.SmoothedValue(window_size=3)
+    for v in (3.0, 1.0, 4.0, 1.5):
+        sv.update(v)
+    ml = m.MetricLogger()
+    ml.update(loss=2.0, acc=0.5)
+    ml.update(loss=1.0, acc=1.0)
+    return [sv.median, sv.avg, sv.global_avg, sv.max, sv.value, str(sv),
+            ml.epoch_stats(), str(ml)]
+
+
 def _frame_views(m, root):
     clips = m.read_dota_clips(root, "val_split.txt")
     ds = m.FrameDataset(clips, mode="test", view_len=16, target_fps=5,
@@ -96,7 +111,8 @@ def dota_root(tmp_path_factory):
     (_sequencing, jax_seq, port_seq),
     (_labels, jax_labels, port_labels),
     (_config, jax_config, port_config),
-], ids=["metrics", "sequencing", "labels", "config"])
+    (_logging, jax_logging, port_logging),
+], ids=["metrics", "sequencing", "labels", "config", "logging"])
 def test_host_copy_matches_original(make, jax_mod, port_mod):
     _equal(make(port_mod), make(jax_mod))
 
@@ -121,3 +137,24 @@ def test_zip_decode_matches_original(dota_root, monkeypatch):
                jax_zip.decode_zip_frames(zp, names, resize=resize))
     _equal(port_zip.decode_scaled(zp, names, 32, 1.2),
            jax_zip.decode_scaled(zp, names, 32, 1.2))
+
+
+@pytest.mark.parametrize("balanced_ratio", [None, 0.5])
+def test_train_loader_matches_original(dota_root, monkeypatch,
+                                       balanced_ratio):
+    """The same batch order and contents for a seed (one decode thread:
+    with several, both loaders yield batches in the order threads finish)."""
+    from simple_tad_tpu.data import native
+    monkeypatch.setattr(native, "decode_zip_frames_native",
+                        lambda *a, **k: None)
+
+    def batches(engine, fd):
+        clips = fd.read_dota_clips(dota_root, "val_split.txt")
+        ds = fd.FrameDataset(clips, mode="train", view_len=16, target_fps=5,
+                             orig_fps=10, view_step=2, crop_size=32)
+        loader = engine.TrainLoader(ds, 3, seed=7, num_threads=1,
+                                    nb_samples_per_epoch=12, num_sample=2,
+                                    balanced_ratio=balanced_ratio)
+        return [loader.steps_per_epoch()] + list(loader.epoch(1))
+
+    _equal(batches(port_engine, port_fd), batches(jax_engine, jax_fd))
