@@ -28,7 +28,16 @@ Phases (any failure raises, so the exit code is non-zero):
      timed against one PyTorch call that computes the same function where
      there is one (library_ms: scaled_dot_product_attention forward or
      backward, layer_norm; a yardstick the port never calls), and its
-     bound_ms is computed from its shapes and the H100's data-sheet rates;
+     bound_ms is computed from its shapes and the H100's data-sheet rates.
+     InternVideo2's kernels are checked at IV2-S and IV2-B batch 32, N =
+     2049 (8 x 16 x 16 patches + CLS): A1 on separate operands
+     (attention_sep) with v the strided column block of a real qkv tensor,
+     timed against SDPA; D2 (attention_i8_sep, int8 storage on separate
+     operands) likewise, once with keys masked at n_valid < N, and at
+     IV2-1B's head dim 88 (padded to 96); D3 (rmsnorm_quant, RMSNorm->int8)
+     at (32 x 2049, 384) with per-head inverse scales.  Their controls: the
+     probabilities not rounded to bf16 (A1, D2), and for D3 the bf16-rounded
+     value quantized instead of the fp32 one;
   3. sliding-window evaluation at full width: ViT-B 16x224 bf16 with
      seeded weights on a synthetic 96-frame 360x640 clip (81 windows),
      device resize, token path, batch 32, through FrameEvaluator, timed
@@ -72,7 +81,27 @@ Phases (any failure raises, so the exit code is non-zero):
      device time of the step's parts over BREAKDOWN_STEPS steps (CUDA
      events around the augmentation, forward + backward and the
      optimizer update) and one torch.profiler window of PROFILE_STEPS
-     steps (kernel time by name, device busy share).
+     steps (kernel time by name, device busy share);
+  7. InternVideo2 serving at full width: IV2-S 8x224 (N = 2049) bf16 with
+     seeded weights (LayerScale 0.1, head scale 1) on the same synthetic
+     clip with the DoTA job's view setting (--num_frames 8 --view_fps 5:
+     every other frame, 82 windows), token path, batch 32, through
+     FrameEvaluator, timed over 5 runs; the counters must show 12
+     separate-operand attention launches per chunk forward and no other
+     kernel (its norms are plain PyTorch, as the JAX package leaves them
+     to XLA); every attention call of one run is checked against its plain
+     version and its control, and the logits against the plain-version run
+     and a gross control (v read with q's row stride, the fault of a
+     kernel with one stride pair for all operands); at the logit level
+     the kernel and the subtle control read alike (PERF.md), as in phase
+     5; then 16 streaming steps;
+  8. the same IV2-S as static int8 (quantized from its seeded fp32 masters,
+     calibrated explicitly first), once unfused and once with fused_rmsq:
+     the counters must show 12 D2 launches per chunk forward and, with
+     fused_rmsq, 48 D3 (norm1, norm2, q-norm, k-norm), and nothing else;
+     every D2 and D3 call of one run is checked against its plain version
+     and its control, and the logits against the plain-version run (and a
+     gross control, attention output left unnormalized).
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -107,6 +136,17 @@ import torch
 #     C1 lse max |err|                    1.373e-4 (control 5.913e-4; the
 #                                         bound is the analytic one below)
 #     C2 bf16 dqkv differing              2.058e-3 vs control 0.1412
+#   InternVideo2 (IV2-S/B b32, N = 2049; readings at one seeded draw):
+#     attention_sep bf16 outputs differing  ~2.1e-3 vs control ~0.42; on
+#                                           the IV2-S main path <= 7.3e-4
+#                                           vs >= 4.5e-2
+#     attention_i8_sep codes differing      <= 3.2e-5 vs control >= 6.6e-3;
+#                                           main path <= 9.3e-5 vs >= 1.7e-3
+#     rmsnorm_quant codes differing         <= 6.4e-7 vs control >= 2.0e-2;
+#                                           main path <= 1.1e-6 vs >= 2.7e-2
+#     IV2-S logits / max |logit|: bf16 3.251e-3 vs the subtle control
+#     3.806e-3 (no margin: hence the per-call check) and the gross control
+#     4.180e-2; int8 4.801e-3, fused 3.755e-3, vs gross controls >= 9.07e-2
 #   ViT-B train step at batch 8, gradients vs the plain-version step:
 #     worst parameter ||err|| / ||grad||  8.083e-3 vs control 3.183
 #     global gradient norm                1.699e-5; the control leaves it
@@ -123,7 +163,8 @@ LOGIT_RTOL = 5.7e-3      # max |logit error| / max |logit|, 12 bf16 layers
 # int8 kernels: codes at most 1 apart, and at most this share apart (a
 # code moves only where its fp32 value sits within a rounding error of a
 # half-integer)
-I8_MISMATCH = {"layernorm_quant": 1.5e-4, "attention_i8": 4e-4}
+I8_MISMATCH = {"layernorm_quant": 1.5e-4, "attention_i8": 4e-4,
+               "attention_i8_sep": 4e-4, "rmsnorm_quant": 1.5e-4}
 LOGIT_RTOL_I8 = 2.5e-2   # as LOGIT_RTOL, the 12-layer int8 model
 EVAL_RUNS = 5
 # training attention: C1's out is A1's out (its bounds); lse within one
@@ -131,6 +172,7 @@ EVAL_RUNS = 5
 # bf16 dqkv by the share of outputs that differ; fp32 backward sums N
 # products in another order
 BF16_MISMATCH.update({"attention_fwd_lse": BF16_MISMATCH["attention"],
+                      "attention_sep": BF16_MISMATCH["attention"],
                       "attention_bwd": 0.02})
 LSE_ATOL = 1.2e-2
 F32_TOL_BWD = dict(atol=1e-4, rtol=1e-4)
@@ -142,6 +184,11 @@ JOB_BATCH = 56
 TIMING_PROCESSES, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 3, 3, 10, 2
 BREAKDOWN_STEPS = 4
 CLIP_H, CLIP_W = 224, 398          # decode_scaled's short side 224, 16:9
+# phases 7 and 8: IV2-S of jobs/finetune/IV2-S_DoTA.sh (--num_frames 8
+# --view_fps 5 on 10 fps DoTA: windows of every other frame)
+IV2_VIEW_STEP = 2
+LOGIT_RTOL_IV2 = 5.7e-3      # as LOGIT_RTOL, the 12-layer bf16 IV2-S
+LOGIT_RTOL_IV2_I8 = 2.5e-2   # as LOGIT_RTOL_I8
 # the card's data-sheet rates (H100 SXM, dense): bf16 tensor cores, int8
 # tensor cores, fp32 outside the tensor cores, device memory
 PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "bytes": 3.35e12}
@@ -159,6 +206,15 @@ SOURCES = {
                           "simple_tad_tpu/ops/flash_attention.py:875"),
     "attention_bwd": ("simple_tad_tpu_torch/csrc/attention_train.cu",
                       "simple_tad_tpu/ops/flash_attention.py:945"),
+    # InternVideo2 at N = 2049: the key-grid kernels (the same kernels also
+    # take the single-pass _fwd_kernel_nomax_packed / _q8io on separate
+    # operands, flash_attention.py:293 and :1158, at shorter N)
+    "attention_sep": ("simple_tad_tpu_torch/csrc/attention.cu",
+                      "simple_tad_tpu/ops/flash_attention.py:541"),
+    "attention_i8_sep": ("simple_tad_tpu_torch/csrc/attention_i8.cu",
+                         "simple_tad_tpu/ops/flash_attention.py:645"),
+    "rmsnorm_quant": ("simple_tad_tpu_torch/csrc/layernorm.cu",
+                      "simple_tad_tpu/ops/ln.py:155"),
 }
 
 
@@ -203,30 +259,47 @@ def build_kernels() -> None:
                 print("[ptxas]", line.strip())
 
 
-def attention_control(qkv, num_heads: int, scale: float):
-    """The plain attention without the probability rounding: fp32
-    probabilities go into PV and the denominator, as a kernel that skipped
-    that step would compute."""
+def merge_heads(o):
+    """(B, H, N, Dh) -> (B, N, C)."""
+    B, H, N, D = o.shape
+    return o.permute(0, 2, 1, 3).reshape(B, N, H * D)
+
+
+def sep_heads(num_heads: int, *ts):
+    """Separate (B, N, C) operands -> (B, H, N, Dh) views."""
+    return [t.view(*t.shape[:2], num_heads, -1).transpose(1, 2) for t in ts]
+
+
+def _attention_control(q, k, v, scale: float):
+    """(B, H, N, Dh) -> the plain attention without the probability
+    rounding: fp32 probabilities go into PV and the denominator, as a
+    kernel that skipped that step would compute."""
     from simple_tad_tpu_torch.ops.flash_attention import LOG2E
-    B, N, C3 = qkv.shape
-    q, k, v = qkv.view(B, N, 3, num_heads, -1).permute(2, 0, 3, 1, 4)
-    qs = (q.float() * (scale * LOG2E)).to(qkv.dtype)
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
     s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
     p = torch.exp2(s - torch.ceil(s.amax(dim=-1, keepdim=True)))
     o = torch.matmul(p, v.float()) / p.sum(dim=-1, keepdim=True)
-    return o.to(qkv.dtype).permute(0, 2, 1, 3).reshape(B, N, C3 // 3)
+    return merge_heads(o.to(q.dtype))
 
 
-def attention_i8_variant(qkv_i8, amax, num_heads: int, scale: float,
-                         out_amax, *, round_p: bool, normalize: bool):
-    """The plain int8 attention with a required step left out: the
-    probability rounding to bf16 (``round_p=False``: the control) or the
-    softmax denominator (``normalize=False``: the gross control of the
-    int8 logit check)."""
+def attention_control(qkv, num_heads: int, scale: float):
+    """The control of the packed attention (A1)."""
+    return _attention_control(*qkv_views(qkv, num_heads), scale)
+
+
+def attention_sep_control(q, k, v, num_heads: int, scale: float):
+    """The control of the separate-operand attention (A1 sep)."""
+    return _attention_control(*sep_heads(num_heads, q, k, v), scale)
+
+
+def _attention_i8_variant(q, k, v, amax, scale: float, out_amax, *,
+                          round_p: bool, normalize: bool):
+    """int8 (B, H, N, Dh) -> the plain int8 attention with a required step
+    left out: the probability rounding to bf16 (``round_p=False``: the
+    control) or the softmax denominator (``normalize=False``: the gross
+    control of the int8 logit check)."""
     from simple_tad_tpu_torch.ops.flash_attention import LOG2E
     from simple_tad_tpu_torch.ops.ln import quantize_static
-    B, N, C3 = qkv_i8.shape
-    q, k, v = qkv_i8.view(B, N, 3, num_heads, -1).permute(2, 0, 3, 1, 4)
     sq, sk, sv = (amax * (1.0 / 127.0))[..., None, None]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     s = s * (sq * sk * scale * LOG2E)
@@ -236,16 +309,54 @@ def attention_i8_variant(qkv_i8, amax, num_heads: int, scale: float,
     o = torch.matmul(p, (v.float() * sv).to(torch.bfloat16).float())
     if normalize:
         o = o / p.sum(dim=-1, keepdim=True)
-    return quantize_static(o.permute(0, 2, 1, 3).reshape(B, N, C3 // 3),
-                           out_amax)
+    return quantize_static(merge_heads(o), out_amax)
 
 
-def attention_i8_control(*args):
-    return attention_i8_variant(*args, round_p=False, normalize=True)
+def attention_i8_control(qkv_i8, amax, num_heads, scale, out_amax):
+    return _attention_i8_variant(*qkv_views(qkv_i8, num_heads), amax, scale,
+                                 out_amax, round_p=False, normalize=True)
 
 
-def attention_i8_unnormalized(*args):
-    return attention_i8_variant(*args, round_p=True, normalize=False)
+def attention_i8_unnormalized(qkv_i8, amax, num_heads, scale, out_amax):
+    return _attention_i8_variant(*qkv_views(qkv_i8, num_heads), amax, scale,
+                                 out_amax, round_p=True, normalize=False)
+
+
+def _i8_sep_variant(q, k, v, amax, num_heads, scale, out_amax, n_valid=None,
+                    **steps):
+    q, k, v = sep_heads(num_heads, q, k, v)
+    if n_valid is not None:
+        k, v = k[:, :, :n_valid], v[:, :, :n_valid]
+    return _attention_i8_variant(q, k, v, amax, scale, out_amax, **steps)
+
+
+def attention_i8_sep_control(*args):
+    """The control of the separate-operand int8 attention (D2)."""
+    return _i8_sep_variant(*args, round_p=False, normalize=True)
+
+
+def attention_i8_sep_unnormalized(*args):
+    return _i8_sep_variant(*args, round_p=True, normalize=False)
+
+
+def attention_sep_misread_v(q, k, v, num_heads: int, scale: float):
+    """The gross control of the IV2 logit check: v read with q's row stride
+    (C) instead of its own (3C, the column block of the qkv output), the
+    fault a kernel with one stride pair for all operands would make with
+    no error."""
+    from simple_tad_tpu_torch.ops.flash_attention import flash_attention_plain
+    return flash_attention_plain(q, k, v.as_strided(v.shape, q.stride()),
+                                 num_heads, scale)
+
+
+def rmsnorm_quant_control(x, weight, inv_c, eps: float = 1e-6):
+    """The plain RMSNorm->int8 quantizing the bf16-rounded value instead of
+    the fp32 one (the rounding site of the unfused int8 program)."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    y = (y * weight.float()).to(torch.bfloat16).float()
+    return torch.clamp(torch.round(y * inv_c.float()), -127,
+                       127).to(torch.int8)
 
 
 def _layernorm_control_f32(x, weight, bias, eps):
@@ -565,6 +676,81 @@ def check_kernels(dev, seed: int) -> dict:
           attention_bound(B, N, C, heads, backward=True), plain_runs=3)
     del qkv, dout, q, k, v, out, lse, leaf, ql, kl, vl, sdpa_out
     torch.cuda.empty_cache()
+
+    # InternVideo2's kernels at IV2-S/B batch 32, N = 2049 (8 x 16 x 16
+    # patches + CLS): A1 on separate operands with v the strided column
+    # block of a real qkv tensor, D2 likewise in int8 (keys masked once),
+    # D3 with per-head inverse scales (the q/k-norm sites)
+    sep_cases = [((32, 2049, 1152), 6, torch.bfloat16),    # IV2-S b32
+                 ((32, 2049, 2304), 12, torch.bfloat16),   # IV2-B b32
+                 ((2, 200, 384), 2, torch.float32)]        # masked tail
+    for shape, heads, dt in sep_cases:
+        B, N, C3 = shape
+        C = C3 // 3
+        qkv = torch.randn(shape, generator=g, device=dev).to(dt)
+        q, k, v = (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
+                   qkv[..., 2 * C:])
+        scale = (C // heads) ** -0.5
+        qh, kh, vh = sep_heads(heads, q, k, v)
+        run_case("attention_sep", f"{shape} H={heads} {dt}, v strided",
+                 lambda: fa.flash_attention(q, k, v, heads, scale),
+                 lambda: fa.flash_attention_plain(q, k, v, heads, scale),
+                 (lambda: attention_sep_control(q, k, v, heads, scale))
+                 if dt == torch.bfloat16 else None,
+                 library=lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, scale=scale),
+                 bound=attention_bound(B, N, C, heads, dt))
+        del qkv, q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+
+    i8_sep_cases = [((32, 2049, 1152), 6, None),      # IV2-S b32
+                    ((32, 2049, 1152), 6, 2040),      # keys masked
+                    ((32, 2049, 2304), 12, None),     # IV2-B b32
+                    ((4, 2049, 4224), 16, None),      # IV2-1B, Dh 88 -> 96
+                    ((2, 200, 240), 2, 190)]          # Dh 40 -> 48, tail
+    for shape, heads, n_valid in i8_sep_cases:
+        B, N, C3 = shape
+        C, D = C3 // 3, C3 // 3 // heads
+        qkv = torch.randn(shape, generator=g, device=dev)
+        amax = qkv.view(B, N, 3, heads, D).abs().amax(dim=(0, 1, 4))
+        inv = (127.0 / amax).reshape(-1).repeat_interleave(D)
+        qkv_i8 = torch.clamp(torch.round(qkv * inv), -127, 127).to(torch.int8)
+        del qkv
+        q, k, v = (qkv_i8[..., :C].contiguous(),
+                   qkv_i8[..., C:2 * C].contiguous(), qkv_i8[..., 2 * C:])
+        scale = D ** -0.5
+        out_amax = fa.attention_i8d_plain_f32(q, k, v, amax, heads, scale,
+                                              n_valid).abs().max()
+        args = (q, k, v, amax, heads, scale, out_amax, n_valid)
+        run_case("attention_i8_sep",
+                 f"{shape} H={heads} n_valid={n_valid}, v strided",
+                 lambda: fa.flash_attention_i8d(*args),
+                 lambda: fa.flash_attention_i8d_plain(*args),
+                 lambda: attention_i8_sep_control(*args),
+                 bound=attention_bound(B, N, C, heads, int8_qk=True))
+        del qkv_i8, q, k, v, args
+        torch.cuda.empty_cache()
+
+    rmsq_cases = [((32 * 2049, 384), 6, torch.bfloat16),   # IV2-S b32
+                  ((4096, 768), 12, torch.float32),
+                  ((1000, 100), 2, torch.bfloat16)]        # C % 8 != 0
+    for shape, heads, dt in rmsq_cases:
+        C = shape[-1]
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dt)
+        w = torch.randn(C, generator=g, device=dev) * 0.2 + 1
+        # per-head calibrated absmax of the output itself, as at q and k
+        y = x.float() * torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True)
+                                    + 1e-6) * w
+        head_amax = y.abs().view(-1, heads, C // heads).amax(dim=(0, 2))
+        inv = (127.0 / head_amax).repeat_interleave(C // heads)
+        del y
+        run_case("rmsnorm_quant", f"{shape} {dt} {heads} heads",
+                 lambda: ln.rmsnorm_quant(x, w, inv),
+                 lambda: ln.rmsnorm_quant_plain(x, w, inv),
+                 lambda: rmsnorm_quant_control(x, w, inv),
+                 bound=layernorm_bound(shape[0], C, x.element_size(), 1))
+        del x
+    torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return results
@@ -573,7 +759,8 @@ def check_kernels(dev, seed: int) -> dict:
 class MemoryClipDataset:
     """One in-memory clip with the two methods FrameEvaluator calls."""
 
-    def __init__(self, frames: np.ndarray, view_len: int, seed: int):
+    def __init__(self, frames: np.ndarray, view_len: int, seed: int,
+                 step: int = 1):
         from simple_tad_tpu_torch.data.frame_datasets import (ClipEvalView,
                                                               ClipInfo)
         rng = np.random.default_rng(seed)
@@ -585,8 +772,9 @@ class MemoryClipDataset:
             timesteps=np.arange(n), binary_labels=labels, cat_labels=labels,
             ego=False, night=False, ttc=np.zeros(n),
             smoothed=np.stack([1.0 - labels, labels], 1).astype(np.float32))
-        windows = np.stack([np.arange(s, s + view_len)
-                            for s in range(n - view_len + 1)])
+        span = (view_len - 1) * step + 1
+        windows = np.stack([np.arange(s, s + span, step)
+                            for s in range(n - span + 1)])
         last = windows[:, -1]
         self.frames = frames
         self.view = ClipEvalView(
@@ -608,11 +796,13 @@ class MemoryClipDataset:
 def routed(**fns):
     """Route the model's kernel wrappers, by name, through other versions
     (the plain versions or the controls, for the comparison runs only)."""
-    from simple_tad_tpu_torch.models import layers
+    from simple_tad_tpu_torch.models import internvideo2, layers
     from simple_tad_tpu_torch.ops import attention
     owner = {"layernorm": layers, "layernorm_quant": layers,
              "flash_attention_qkv": attention,
-             "flash_attention_qkv_i8d": attention}
+             "flash_attention_qkv_i8d": attention,
+             "flash_attention": attention, "flash_attention_i8d": attention,
+             "rmsnorm_quant": internvideo2}
     with contextlib.ExitStack() as stack:
         for name, fn in fns.items():
             stack.enter_context(mock.patch.object(owner[name], name, fn))
@@ -633,14 +823,14 @@ def vit_b(dev, seed: int, dtype):
                         init_scale=1.0)
 
 
-def synthetic_clip(cfg, seed: int):
-    """-> (dataset of one seeded 96-frame 360x640 clip, window count,
-    chunk forwards per evaluate)."""
+def synthetic_clip(cfg, seed: int, step: int = 1):
+    """-> (dataset of one seeded 96-frame 360x640 clip whose windows take
+    every ``step``-th frame, window count, chunk forwards per evaluate)."""
     rng = np.random.default_rng(seed)
     frames = rng.integers(0, 256, (N_FRAMES, HEIGHT, WIDTH, 3), np.uint8)
-    ds = MemoryClipDataset(frames, cfg.all_frames, seed)
+    ds = MemoryClipDataset(frames, cfg.all_frames, seed, step)
     n_windows = ds.view.window_idx.shape[0]
-    assert n_windows == N_FRAMES - cfg.all_frames + 1
+    assert n_windows == N_FRAMES - (cfg.all_frames - 1) * step
     return ds, n_windows, -(-n_windows // BATCH)
 
 
@@ -696,39 +886,63 @@ def run_eval(dev, seed: int):
                    "logits_err": err, "logits": logits}
 
 
-def check_int8_sites(ev, ds) -> list:
-    """One evaluate in which every int8 kernel call also runs the plain
-    version and the control on the same inputs (the forward goes on with
-    the kernel's output) -> the failed checks."""
+def vit_int8_sites():
+    """-> {kernel name: (wrapper name, kernel, plain, control)} of the int8
+    ViT's main path."""
     from simple_tad_tpu_torch.ops import flash_attention as fa
     from simple_tad_tpu_torch.ops import ln
-    readings = {"layernorm_quant": [], "attention_i8": []}
+    return {"layernorm_quant": ("layernorm_quant", ln.layernorm_quant,
+                                ln.layernorm_quant_plain,
+                                layernorm_quant_control),
+            "attention_i8": ("flash_attention_qkv_i8d",
+                             fa.flash_attention_qkv_i8d,
+                             fa.flash_attention_qkv_i8d_plain,
+                             attention_i8_control)}
+
+
+def iv2_int8_sites(fused_rmsq: bool):
+    """-> the same for static int8 InternVideo2."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    sites = {"attention_i8_sep": ("flash_attention_i8d",
+                                  fa.flash_attention_i8d,
+                                  fa.flash_attention_i8d_plain,
+                                  attention_i8_sep_control)}
+    if fused_rmsq:
+        sites["rmsnorm_quant"] = ("rmsnorm_quant", ln.rmsnorm_quant,
+                                  ln.rmsnorm_quant_plain,
+                                  rmsnorm_quant_control)
+    return sites
+
+
+def check_sites(ev, ds, sites, label: str = "int8 sites") -> list:
+    """One evaluate in which every kernel call of ``sites`` also runs the
+    plain version and the control on the same inputs (the forward goes on
+    with the kernel's output) -> the failed checks."""
+    readings = {name: [] for name in sites}
 
     def checked(name, kernel, plain, control):
-        def fn(*args):
-            want = plain(*args)
-            got = kernel(*args)
+        def fn(*args, **kwargs):
+            want = plain(*args, **kwargs)
+            got = kernel(*args, **kwargs)
             readings[name].append((compare(name, got, want),
-                                   compare(name, control(*args), want)))
+                                   compare(name, control(*args, **kwargs),
+                                           want)))
             return got
         return fn
 
-    with routed(
-            layernorm_quant=checked("layernorm_quant", ln.layernorm_quant,
-                                    ln.layernorm_quant_plain,
-                                    layernorm_quant_control),
-            flash_attention_qkv_i8d=checked(
-                "attention_i8", fa.flash_attention_qkv_i8d,
-                fa.flash_attention_qkv_i8d_plain, attention_i8_control)):
+    with routed(**{route: checked(name, *fns)
+                   for name, (route, *fns) in sites.items()}):
         ev.evaluate(ds)
     failures = []
     for name, rs in readings.items():
         shares = [r[0][1] for r in rs]
         c_shares = [r[1][1] for r in rs]
-        print(f"[int8 sites] {name}: {len(rs)} calls on the main path; "
-              f"codes differing from plain max {max(shares):.3e} (mean "
+        bound = I8_MISMATCH.get(name, BF16_MISMATCH.get(name))
+        print(f"[{label}] {name}: {len(rs)} calls on the main path; "
+              f"outputs differing from plain max {max(shares):.3e} (mean "
               f"{statistics.mean(shares):.3e}); controls min "
-              f"{min(c_shares):.3e} (bound {I8_MISMATCH[name]:.1e})")
+              f"{min(c_shares):.3e} (bound {bound:.1e})")
         failures += [f"{name} call {i}" for i, r in enumerate(rs)
                      if not r[0][2]]
         failures += [f"{name} call {i}: control not caught"
@@ -764,7 +978,7 @@ def run_eval_int8(model, dev, seed: int, bf16_logits):
     rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
                                      for _ in range(EVAL_RUNS - 1)]
     logits = logits_of(res)
-    site_failures = check_int8_sites(ev, ds)
+    site_failures = check_sites(ev, ds, vit_int8_sites())
     with routed(layernorm=ln.layernorm_plain,
                 layernorm_quant=ln.layernorm_quant_plain,
                 flash_attention_qkv_i8d=fa.flash_attention_qkv_i8d_plain):
@@ -827,6 +1041,164 @@ def run_stream(model, dev, seed: int, steps: int = 16,
     print(f"[{label}] {steps} batch-1 steps: median {ms:.3f} ms/frame "
           f"(min {min(times):.3f}, max {max(times):.3f})")
     return ms
+
+
+COUNTERS = {"layernorm": ("ln", "LAUNCHES"),
+            "layernorm_quant": ("ln", "QUANT_LAUNCHES"),
+            "rmsnorm_quant": ("ln", "RMSQ_LAUNCHES"),
+            "attention": ("fa", "LAUNCHES"),
+            "attention_sep": ("fa", "SEP_LAUNCHES"),
+            "attention_i8": ("fa", "I8_LAUNCHES"),
+            "attention_i8_sep": ("fa", "I8_SEP_LAUNCHES")}
+
+
+def _counter_owners():
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    return {"ln": ln, "fa": fa}
+
+
+def reset_counts() -> None:
+    owners = _counter_owners()
+    for mod, attr in COUNTERS.values():
+        setattr(owners[mod], attr, 0)
+
+
+def read_counts() -> dict:
+    owners = _counter_owners()
+    return {name: getattr(owners[mod], attr)
+            for name, (mod, attr) in COUNTERS.items()}
+
+
+def iv2_s(dev, seed: int, dtype):
+    """IV2-S 8x224 of the DoTA job, seeded; LayerScale 0.1 (the reference
+    goldens' magnitude) and head scale 1, so the trunk moves the logits."""
+    from simple_tad_tpu_torch.models import create_model
+    return create_model("internvideo2_small_patch14_224", device=dev,
+                        dtype=dtype, num_frames=8, init_values=0.1,
+                        init_scale=1.0,
+                        generator=torch.Generator().manual_seed(seed))
+
+
+def logit_errors(logits, plain, control):
+    """-> (max |logits - plain| / max |plain|, the same for the control)."""
+    scale = float(np.abs(plain).max())
+    return (float(np.abs(logits - plain).max()) / scale,
+            float(np.abs(control - plain).max()) / scale, scale)
+
+
+def run_eval_iv2(dev, seed: int):
+    """Phase 7 -> (model, stats dict)."""
+    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    model = iv2_s(dev, seed, torch.bfloat16)
+    cfg = model.cfg
+    ds, n_windows, chunks = synthetic_clip(cfg, seed, IV2_VIEW_STEP)
+    ev = FrameEvaluator(model, device=dev, batch_size=BATCH,
+                        resize_on_host=False, precompute_tubelets=True)
+    ev.evaluate(ds)                                  # warm-up
+    reset_counts()
+    res = ev.evaluate(ds)
+    launches = read_counts()
+    rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
+                                     for _ in range(EVAL_RUNS - 1)]
+    logits = logits_of(res)
+    site_failures = check_sites(
+        ev, ds, {"attention_sep": ("flash_attention", fa.flash_attention,
+                                   fa.flash_attention_plain,
+                                   attention_sep_control)}, "iv2 sites")
+    with routed(flash_attention=fa.flash_attention_plain):
+        plain_res = ev.evaluate(ds)
+    with routed(flash_attention=attention_sep_misread_v):
+        control = logits_of(ev.evaluate(ds))
+    err, control_err, scale = logit_errors(logits, logits_of(plain_res),
+                                           control)
+    rate = statistics.median(rates)
+    print(f"[iv2 eval] internvideo2_small_patch14_224 8x224 (N = "
+          f"{cfg.num_patches + 1}) bf16 batch {BATCH}, view step "
+          f"{IV2_VIEW_STEP}: windows {res.n_windows}, chunks {chunks}; "
+          f"evaluate median {rate:.2f} windows/s over {EVAL_RUNS} runs (min "
+          f"{min(rates):.2f}, max {max(rates):.2f}); plain versions "
+          f"{plain_res.windows_per_sec:.2f} windows/s (one run)")
+    print(f"[iv2 eval] launches {launches}; logits vs plain: max_abs_err / "
+          f"max |logit| {err:.3e}, gross control (v read with q's row "
+          f"stride) {control_err:.3e} (bound {LOGIT_RTOL_IV2:.3e}, max "
+          f"|logit| {scale:.3e})")
+    assert not site_failures, site_failures
+    assert res.n_windows == n_windows
+    assert np.isfinite(logits).all(), "non-finite IV2 logits"
+    want = dict.fromkeys(COUNTERS, 0)
+    want["attention_sep"] = cfg.depth * chunks
+    assert launches == want, (launches, want)
+    assert err <= LOGIT_RTOL_IV2, f"IV2 logits disagree with plain: {err}"
+    assert control_err > LOGIT_RTOL_IV2, \
+        f"the IV2 logit bound lets the gross control through: {control_err}"
+    return model, {"windows_per_sec": rate, "launches": launches,
+                   "logits_err": err, "logits": logits}
+
+
+def run_eval_iv2_int8(dev, seed: int, bf16_logits, fused_rmsq: bool):
+    """Phase 8, once unfused and once with ``fused_rmsq`` -> stats dict."""
+    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    model = iv2_s(dev, seed, torch.bfloat16)
+    cfg = model.cfg
+    ds, n_windows, chunks = synthetic_clip(cfg, seed, IV2_VIEW_STEP)
+    masters = iv2_s("cpu", seed, torch.float32).state_dict()
+    ev = FrameEvaluator(model, device=dev, batch_size=BATCH,
+                        resize_on_host=False, precompute_tubelets=True,
+                        quant8=True, fp32_state=masters,
+                        fused_rmsq=fused_rmsq)
+    del model
+    t0 = time.perf_counter()
+    ev.calibrate(ds)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    ev.evaluate(ds)                                  # warm-up
+    reset_counts()
+    res = ev.evaluate(ds)
+    launches = read_counts()
+    rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
+                                     for _ in range(EVAL_RUNS - 1)]
+    logits = logits_of(res)
+    site_failures = check_sites(ev, ds, iv2_int8_sites(fused_rmsq))
+    plain = dict(flash_attention_i8d=fa.flash_attention_i8d_plain,
+                 **({"rmsnorm_quant": ln.rmsnorm_quant_plain}
+                    if fused_rmsq else {}))
+    with routed(**plain):
+        plain_res = ev.evaluate(ds)
+    with routed(**dict(plain,
+                       flash_attention_i8d=attention_i8_sep_unnormalized)):
+        control = logits_of(ev.evaluate(ds))
+    err, control_err, scale = logit_errors(logits, logits_of(plain_res),
+                                           control)
+    drift = float(np.abs(logits - bf16_logits).max())
+    rate = statistics.median(rates)
+    label = "[iv2 int8" + (" fused_rmsq]" if fused_rmsq else "]")
+    print(f"{label} static int8 batch {BATCH}: calibrate {calib_s:.2f} s; "
+          f"evaluate median {rate:.2f} windows/s over {EVAL_RUNS} runs (min "
+          f"{min(rates):.2f}, max {max(rates):.2f}); plain versions "
+          f"{plain_res.windows_per_sec:.2f} windows/s (one run)")
+    print(f"{label} launches {launches} over {chunks} chunk forwards; "
+          f"logits vs plain: max_abs_err / max |logit| {err:.3e}, gross "
+          f"control {control_err:.3e} (bound {LOGIT_RTOL_IV2_I8:.3e}, max "
+          f"|logit| {scale:.3e}); int8 vs bf16 max |logit difference| "
+          f"{drift:.3e} (seeded weights: printed, not bounded)")
+    assert not site_failures, site_failures
+    assert res.n_windows == n_windows
+    assert np.isfinite(logits).all(), "non-finite IV2 int8 logits"
+    want = dict.fromkeys(COUNTERS, 0)
+    want["attention_i8_sep"] = cfg.depth * chunks
+    if fused_rmsq:   # norm1, norm2, q-norm, k-norm
+        want["rmsnorm_quant"] = 4 * cfg.depth * chunks
+    assert launches == want, (launches, want)
+    assert err <= LOGIT_RTOL_IV2_I8, \
+        f"IV2 int8 logits disagree with the plain run: {err}"
+    assert control_err > LOGIT_RTOL_IV2_I8, \
+        f"the IV2 int8 logit bound lets the control through: {control_err}"
+    return {"windows_per_sec": rate, "launches": launches,
+            "logits_err": err}
 
 
 class SyntheticTrainDataset:
@@ -1197,12 +1569,22 @@ def main(argv=None):
     fstats = run_finetune(dev, args.seed)
     torch.cuda.empty_cache()
     run_finetune_timing(args.seed)
+    imodel, istats = run_eval_iv2(dev, args.seed)
+    run_stream(imodel, dev, args.seed, label="iv2 stream")
+    del imodel
+    torch.cuda.empty_cache()
+    i8stats = {fused: run_eval_iv2_int8(dev, args.seed, istats["logits"],
+                                        fused)
+               for fused in (False, True)}
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]
                    for k in ("layernorm_quant", "attention_i8")},
                 **{k: fstats["launches"][k]
-                   for k in ("attention_fwd_lse", "attention_bwd")}}
+                   for k in ("attention_fwd_lse", "attention_bwd")},
+                "attention_sep": istats["launches"]["attention_sep"],
+                **{k: i8stats[True]["launches"][k]
+                   for k in ("attention_i8_sep", "rmsnorm_quant")}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     record = {"kernels": [

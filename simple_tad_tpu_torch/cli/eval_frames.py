@@ -9,6 +9,14 @@ quantized from fp32 masters (the seeded fp32 build with the checkpoint
 loaded), in ``--quant8_mode`` static (calibrated on the first clips, the
 default) or dynamic.
 
+``--model internvideo2_{small,base,large,1B,6B}_patch14_224`` serves
+InternVideo2 (tubelet 1, patch 14; the DoTA job's setting is
+``--num_frames 8 --view_fps 5``).  Its tubelet is the family's own: the
+ViT's ``--tubelet_size`` and ``--final_reduction`` do not apply to it.
+``--fused_rmsq`` (static int8 InternVideo2 only) makes its RMSNorms emit
+int8 through the RMSNorm->int8 kernel, the JAX package's
+SIMPLE_TAD_FUSED_RMSQ opt-in.
+
 Usage:
   python -m simple_tad_tpu_torch.cli.eval_frames \
       --data_set DoTA --data_path /data/dota \
@@ -29,6 +37,7 @@ from simple_tad_tpu_torch.config import FinetuneConfig
 def main(argv=None):
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
+    pre.add_argument("--fused_rmsq", action="store_true")
     dev_args, rest = pre.parse_known_args(argv)
     cfg = FinetuneConfig.from_args(rest)
     # dist_eval is on by default in the reference flags, where one device
@@ -41,8 +50,8 @@ def main(argv=None):
     from simple_tad_tpu_torch.data.frame_datasets import (
         FrameDataset, read_dada_clips, read_dota_clips)
     from simple_tad_tpu_torch.eval.engine import FrameEvaluator
-    from simple_tad_tpu_torch.models import create_model
-    from simple_tad_tpu_torch.utils.torch_convert import load_vit_checkpoint
+    from simple_tad_tpu_torch.models import create_model, model_family
+    from simple_tad_tpu_torch.utils.torch_convert import load_checkpoint_auto
 
     device = torch.device(dev_args.device)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -50,16 +59,18 @@ def main(argv=None):
         raise NotImplementedError(
             "only reference .pth checkpoints load into the port")
 
+    vit_only = {} if model_family(cfg.model) == "iv2" else dict(
+        tubelet_size=cfg.tubelet_size, final_reduction=cfg.final_reduction)
+
     def build(dev, dt):
         model = create_model(
             cfg.model, device=dev,
             generator=torch.Generator().manual_seed(cfg.seed),
             num_classes=cfg.nb_classes, all_frames=cfg.num_frames,
-            img_size=cfg.input_size, tubelet_size=cfg.tubelet_size,
-            final_reduction=cfg.final_reduction, init_scale=cfg.init_scale,
-            dtype=dt)
+            img_size=cfg.input_size, init_scale=cfg.init_scale, dtype=dt,
+            **vit_only)
         if cfg.finetune:
-            load_vit_checkpoint(cfg.finetune, model)
+            load_checkpoint_auto(cfg.finetune, model)
         return model
 
     model = build(device, dtype)
@@ -92,7 +103,8 @@ def main(argv=None):
 
     ev = FrameEvaluator(model, device=device, batch_size=cfg.batch_size,
                         resize_on_host=cfg.resize_on_host, quant8=cfg.quant8,
-                        quant8_mode=cfg.quant8_mode, fp32_state=fp32_state)
+                        quant8_mode=cfg.quant8_mode, fp32_state=fp32_state,
+                        fused_rmsq=dev_args.fused_rmsq)
     res = ev.evaluate(ds, exact_metrics=cfg.exact_metrics)
     print(f"AUROC {res.metrics.auroc:.4f}  AP {res.metrics.ap:.4f}  "
           f"AUC-MCC {res.metrics.mcc_auc:.4f}  "

@@ -7,6 +7,9 @@ stays on the device; only the new frame crosses from the host.
 ``--batched`` scores all windows of the folder in batches instead.
 ``--quant8`` serves the static int8 model, quantized from fp32 masters
 and calibrated on the first T frames (batch 1), as the JAX CLI does.
+``--model internvideo2_*_patch14_224`` serves InternVideo2 (e.g.
+``--num_frames 8``); ``--fused_rmsq`` adds its RMSNorm->int8 kernel to
+``--quant8``.
 
 Usage:
   python -m simple_tad_tpu_torch.cli.inference --ckpt model.pth \
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import glob
 import os
 import time
@@ -91,15 +95,18 @@ def main(argv=None):
                              "simulating a stream")
     parser.add_argument("--output_csv", default="")
     parser.add_argument("--quant8", action="store_true")
+    parser.add_argument("--fused_rmsq", action="store_true",
+                        help="with --quant8, InternVideo2's RMSNorms emit "
+                             "int8 (RMSNorm->int8 kernel)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     if not args.ckpt.endswith(".pth"):
         raise NotImplementedError(
             "only reference .pth checkpoints load into the port")
 
-    from simple_tad_tpu_torch.models import create_model
+    from simple_tad_tpu_torch.models import create_model, model_family
     from simple_tad_tpu_torch.ops.quant import quantize_and_calibrate
-    from simple_tad_tpu_torch.utils.torch_convert import load_vit_checkpoint
+    from simple_tad_tpu_torch.utils.torch_convert import load_checkpoint_auto
 
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -109,7 +116,7 @@ def main(argv=None):
                              generator=torch.Generator().manual_seed(0),
                              num_classes=2, all_frames=args.num_frames,
                              img_size=args.input_size, dtype=dt)
-        load_vit_checkpoint(args.ckpt, model)
+        load_checkpoint_auto(args.ckpt, model)
         return model
 
     model = build(device, dtype)
@@ -121,13 +128,20 @@ def main(argv=None):
     T, S = args.num_frames, args.input_size
     if len(files) < T:
         raise ValueError(f"need at least {T} frames, found {len(files)}")
+    if args.fused_rmsq and not (args.quant8
+                                and model_family(args.model) == "iv2"):
+        raise ValueError("--fused_rmsq is an option of --quant8 with an "
+                         "InternVideo2 model")
     if args.quant8:
         # quantize the fp32 masters (never the compute-dtype copy) and
         # calibrate the activation scales on the first window
         first = torch.from_numpy(
             np.stack([prepare_image(f, S) for f in files[:T]])).to(device)
+        cfg = model.cfg
+        if args.fused_rmsq:
+            cfg = dataclasses.replace(cfg, fused_rmsq=True)
         model = quantize_and_calibrate(
-            model.cfg, build(torch.device("cpu"), torch.float32).state_dict(),
+            cfg, build(torch.device("cpu"), torch.float32).state_dict(),
             [scorer.tokens(first[None])], device=device, tokens_input=True)
         scorer = StreamingScorer(model)
 

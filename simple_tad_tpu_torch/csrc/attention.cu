@@ -14,8 +14,19 @@
 // _flash_primal_packed_qkv_impl.  As there, q, k and v are read straight
 // from the qkv projection's (B, N, 3C) output through its row stride and the
 // column offsets 0, C and 2C plus h * Dh: no slice copies and no
-// (B, H, N, Dh) relayout.  The caller passes three base pointers and the
-// strides, so separate (B, N, C) q/k/v tensors can use the same kernel.
+// (B, H, N, Dh) relayout.  The caller passes three base pointers and a
+// (batch, row) stride pair for each operand.
+//
+// The same kernel serves separate (B, N, C) q, k and v (InternVideo2, whose
+// q and k are RMS-normalised between the qkv projection and attention).  It
+// replaces the TPU kernels _fwd_kernel_nomax_packed on separate operands
+// (launched by _flash_primal_packed_impl, N <= ~1620) and
+// _fwd_kernel_nomax_packed_kv (D1, the key-grid kernel _kv_grid_call
+// launches for N = 2049): the key grid is a TPU VMEM plan whose partial
+// numerators and denominators add up to the same max-free result, which
+// this kernel's loop over key tiles computes directly.  q and k are the
+// norms' fresh (B, N, C) outputs; v is read in place from the qkv output
+// through its row stride 3C, with no copy.
 //
 // Numerics held to the plain version (ops/flash_attention.py):
 //   * q is pre-scaled by scale * log2(e) in fp32 and rounded to the input
@@ -61,6 +72,11 @@ constexpr int kBlockN = 64;     // keys per tile (bf16 kernel)
 constexpr int kThreads = 128;   // 4 warps x 16 query rows
 constexpr int kBlockNF32 = 32;  // keys per tile (fp32 kernel)
 
+// (batch, row) strides in elements of q, k, v and the output
+struct Strides {
+  int q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn;
+};
+
 template <int DP, int ROWS, bool TRANSPOSE, bool SCALE>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
                                           int row0, int n, int d,
@@ -78,8 +94,8 @@ template <int DP, bool LSE>
 __global__ void __launch_bounds__(kThreads)
     attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                         float* __restrict__ lse, int n, int d, int in_sb,
-                         int in_sn, int out_sb, int out_sn, float qscale) {
+                         float* __restrict__ lse, int n, int d, Strides st,
+                         float qscale) {
   constexpr int KS = DP + 8;       // row stride of the Q/K tile (elements)
   constexpr int VS = kBlockN + 8;  // row stride of the transposed V tile
   constexpr int KSTEPS = DP / 16;  // k-steps of the QK product
@@ -94,14 +110,14 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane >> 2;  // row within the 8-row group of a fragment
   const int t4 = lane & 3;  // thread within the group
   const int q0 = blockIdx.x * kBlockM;
-  const size_t in_off = static_cast<size_t>(blockIdx.z) * in_sb +
-                        static_cast<size_t>(blockIdx.y) * d;
-  const bf16* qb = q + in_off;
-  const bf16* kb = k + in_off;
-  const bf16* vb = v + in_off;
+  const size_t batch = blockIdx.z;
+  const size_t hoff = static_cast<size_t>(blockIdx.y) * d;
+  const bf16* qb = q + batch * st.q_sb + hoff;
+  const bf16* kb = k + batch * st.k_sb + hoff;
+  const bf16* vb = v + batch * st.v_sb + hoff;
 
   // 1. pre-scaled Q tile -> registers, as m16n8k16 A fragments
-  load_tile<DP, kBlockM, false, true>(sK, KS, qb, q0, n, d, in_sn, qscale);
+  load_tile<DP, kBlockM, false, true>(sK, KS, qb, q0, n, d, st.q_sn, qscale);
   __syncthreads();
   uint32_t qf[KSTEPS][4];
   const int r0 = warp * 16 + g;
@@ -124,8 +140,8 @@ __global__ void __launch_bounds__(kThreads)
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   for (int k0 = 0; k0 < n; k0 += kBlockN) {
-    load_tile<DP, kBlockN, false, false>(sK, KS, kb, k0, n, d, in_sn, 0.f);
-    load_tile<DP, kBlockN, true, false>(sVt, VS, vb, k0, n, d, in_sn, 0.f);
+    load_tile<DP, kBlockN, false, false>(sK, KS, kb, k0, n, d, st.k_sn, 0.f);
+    load_tile<DP, kBlockN, true, false>(sVt, VS, vb, k0, n, d, st.v_sn, 0.f);
     __syncthreads();
 
     // 2. S = (q * scale * log2e) K^T for this warp's 16 rows x 64 keys
@@ -219,20 +235,19 @@ __global__ void __launch_bounds__(kThreads)
     if (row0 < n) lrow[row0] = m0 + log2f(l0);
     if (row1 < n) lrow[row1] = m1 + log2f(l1);
   }
-  bf16* ob = o + static_cast<size_t>(blockIdx.z) * out_sb +
-             static_cast<size_t>(blockIdx.y) * d;
+  bf16* ob = o + batch * st.o_sb + hoff;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int col = j * 8 + t4 * 2;
     if (col >= d) continue;
     if (row0 < n) {
       *reinterpret_cast<__nv_bfloat162*>(
-          ob + static_cast<size_t>(row0) * out_sn + col) =
+          ob + static_cast<size_t>(row0) * st.o_sn + col) =
           __floats2bfloat162_rn(acc[j][0] / l0, acc[j][1] / l0);
     }
     if (row1 < n) {
       *reinterpret_cast<__nv_bfloat162*>(
-          ob + static_cast<size_t>(row1) * out_sn + col) =
+          ob + static_cast<size_t>(row1) * st.o_sn + col) =
           __floats2bfloat162_rn(acc[j][2] / l1, acc[j][3] / l1);
     }
   }
@@ -242,22 +257,22 @@ template <int DP, bool LSE>
 __global__ void __launch_bounds__(kBlockM)
     attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
-                        float* __restrict__ lse, int n, int d, int in_sb,
-                        int in_sn, int out_sb, int out_sn, float qscale) {
+                        float* __restrict__ lse, int n, int d, Strides st,
+                        float qscale) {
   __shared__ float sK[kBlockNF32][DP];
   __shared__ float sV[kBlockNF32][DP];
   const int row = blockIdx.x * kBlockM + threadIdx.x;
-  const size_t in_off = static_cast<size_t>(blockIdx.z) * in_sb +
-                        static_cast<size_t>(blockIdx.y) * d;
-  const float* qb = q + in_off;
-  const float* kb = k + in_off;
-  const float* vb = v + in_off;
+  const size_t batch = blockIdx.z;
+  const size_t hoff = static_cast<size_t>(blockIdx.y) * d;
+  const float* qb = q + batch * st.q_sb + hoff;
+  const float* kb = k + batch * st.k_sb + hoff;
+  const float* vb = v + batch * st.v_sb + hoff;
 
   float qr[DP], acc[DP];
 #pragma unroll
   for (int c = 0; c < DP; ++c) {
     qr[c] = (row < n && c < d)
-                ? qb[static_cast<size_t>(row) * in_sn + c] * qscale
+                ? qb[static_cast<size_t>(row) * st.q_sn + c] * qscale
                 : 0.f;
     acc[c] = 0.f;
   }
@@ -267,9 +282,9 @@ __global__ void __launch_bounds__(kBlockM)
       const int r = i / DP;
       const int c = i % DP;
       const bool ok = k0 + r < n && c < d;
-      const size_t at = static_cast<size_t>(k0 + r) * in_sn + c;
-      sK[r][c] = ok ? kb[at] : 0.f;
-      sV[r][c] = ok ? vb[at] : 0.f;
+      const size_t key = k0 + r;
+      sK[r][c] = ok ? kb[key * st.k_sn + c] : 0.f;
+      sV[r][c] = ok ? vb[key * st.v_sn + c] : 0.f;
     }
     __syncthreads();
     const int nk = min(kBlockNF32, n - k0);
@@ -293,9 +308,8 @@ __global__ void __launch_bounds__(kBlockM)
     __syncthreads();
   }
   if (row < n) {
-    float* orow = o + static_cast<size_t>(blockIdx.z) * out_sb +
-                  static_cast<size_t>(blockIdx.y) * d +
-                  static_cast<size_t>(row) * out_sn;
+    float* orow = o + batch * st.o_sb + hoff +
+                  static_cast<size_t>(row) * st.o_sn;
 #pragma unroll
     for (int c = 0; c < DP; ++c) {
       if (c < d) orow[c] = acc[c] / l;
@@ -309,26 +323,26 @@ __global__ void __launch_bounds__(kBlockM)
 
 template <int DP, bool LSE>
 void launch(const void* q, const void* k, const void* v, void* o, float* lse,
-            int b, int n, int h, int d, int in_sb, int in_sn, int out_sb,
-            int out_sn, float qscale, int dtype, cudaStream_t stream) {
+            int b, int n, int h, int d, const Strides& st, float qscale,
+            int dtype, cudaStream_t stream) {
   const dim3 grid((n + kBlockM - 1) / kBlockM, h, b);
   if (dtype == stt::kBFloat16) {
     attn_fwd_bf16_kernel<DP, LSE><<<grid, kThreads, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, n, d, in_sb,
-        in_sn, out_sb, out_sn, qscale);
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, n, d, st,
+        qscale);
   } else {
     attn_fwd_f32_kernel<DP, LSE><<<grid, kBlockM, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, n, d,
-        in_sb, in_sn, out_sb, out_sn, qscale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, n, d, st,
+        qscale);
   }
 }
 
 template <bool LSE>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             float* lse, int b, int n, int h, int d, int in_sb, int in_sn,
-             int out_sb, int out_sn, float qscale, int dtype, void* stream) {
+             float* lse, int b, int n, int h, int d, const Strides& st,
+             float qscale, int dtype, void* stream) {
   if (b <= 0 || n <= 0 || h <= 0 || d <= 0 || d % 8 != 0 || d > 128 ||
       b > 65535 || h > 65535 ||
       (dtype != stt::kBFloat16 && dtype != stt::kFloat32)) {
@@ -336,14 +350,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 15) / 16 * 16) {
-    case 16: launch<16, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 32: launch<32, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 48: launch<48, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 64: launch<64, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 80: launch<80, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 96: launch<96, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    case 112: launch<112, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
-    default: launch<128, LSE>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb, out_sn, qscale, dtype, s); break;
+    case 16: launch<16, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
+    case 32: launch<32, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
+    case 48: launch<48, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
+    case 64: launch<64, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
+    case 80: launch<80, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
+    case 96: launch<96, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
+    case 112: launch<112, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
+    default: launch<128, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -351,26 +365,31 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, k, v: base pointers of head 0 (for packed qkv: qkv, qkv + C, qkv + 2C);
-// element (batch, row, head h, dim c) of each is at
-// base + batch * in_sb + row * in_sn + h * d + c.  o likewise with out_sb,
-// out_sn.  d must be a multiple of 8 and at most 128; for bf16 every base
-// pointer and stride must keep 16-byte alignment.
+// element (batch, row, head h, dim c) of q is at
+// q + batch * q_sb + row * q_sn + h * d + c, and likewise for k (k_sb,
+// k_sn), v (v_sb, v_sn) and o (o_sb, o_sn).  d must be a multiple of 8 and
+// at most 128; for bf16 every base pointer and stride must keep 16-byte
+// alignment.
 extern "C" int stt_attention_fwd(const void* q, const void* k, const void* v,
                                  void* o, int b, int n, int h, int d,
-                                 int in_sb, int in_sn, int out_sb, int out_sn,
+                                 int q_sb, int q_sn, int k_sb, int k_sn,
+                                 int v_sb, int v_sn, int o_sb, int o_sn,
                                  float qscale, int dtype, void* stream) {
-  return dispatch<false>(q, k, v, o, nullptr, b, n, h, d, in_sb, in_sn,
-                         out_sb, out_sn, qscale, dtype, stream);
+  const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
+  return dispatch<false>(q, k, v, o, nullptr, b, n, h, d, st, qscale, dtype,
+                         stream);
 }
 
-// Kernel C1: stt_attention_fwd that also writes lse (B, H, N) fp32,
-// contiguous, base 2 (replaces the TPU kernel _fwd_kernel_nomax_packed_lse,
-// launched by _flash_fwd_packed_qkv_impl).
+// Kernel C1: A1 on the packed qkv (one stride pair for q, k and v) that
+// also writes lse (B, H, N) fp32, contiguous, base 2 (replaces the TPU
+// kernel _fwd_kernel_nomax_packed_lse, launched by
+// _flash_fwd_packed_qkv_impl).
 extern "C" int stt_attention_fwd_lse(const void* q, const void* k,
                                      const void* v, void* o, float* lse,
                                      int b, int n, int h, int d, int in_sb,
                                      int in_sn, int out_sb, int out_sn,
                                      float qscale, int dtype, void* stream) {
-  return dispatch<true>(q, k, v, o, lse, b, n, h, d, in_sb, in_sn, out_sb,
-                        out_sn, qscale, dtype, stream);
+  const Strides st{in_sb, in_sn, in_sb, in_sn, in_sb, in_sn, out_sb, out_sn};
+  return dispatch<true>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype,
+                        stream);
 }

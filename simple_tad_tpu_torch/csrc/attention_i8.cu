@@ -8,6 +8,17 @@
 // (B, N, 3C) int8 qkv through base pointers at columns 0, C and 2C plus
 // h * Dh and the row stride, as kernel A1 reads the bf16 one.
 //
+// With a (batch, row) stride pair per operand and a key count of its own
+// (n_kv <= N), the same kernel is D2: it replaces
+// _fwd_kernel_nomax_packed_kv_q8io (the key-grid kernel flash_attention_i8d
+// launches for InternVideo2's N = 2049) and _fwd_kernel_nomax_packed_q8io on
+// separate operands (its single-pass branch), both with int8 out.  q, k and
+// v are separate (B, N, C) int8 tensors there (q and k quantized after the
+// RMS q/k-norm, v from the qkv projection); keys at or beyond n_kv are
+// masked by index, as the TPU kernels' mask_keys masks a model-level
+// sequence pad.  The key grid is a TPU VMEM plan whose partial sums add up
+// to the result this kernel's loop over key tiles computes.
+//
 // Numerics held to the plain version (ops/flash_attention.py), per head h
 // with sq, sk, sv = amax[0..2, h] / 127:
 //   * s = float(q_i8 . k_i8 as an exact int32) * (sq * sk * scale * log2e);
@@ -16,7 +27,7 @@
 //   * p = exp2(s - m) rounded to bf16, the denominator sums the rounded p,
 //     o = (p v) / denominator in fp32;
 //   * out = clip(round_half_even(o * 127 / out_amax), +-127) as int8;
-//   * keys >= N are masked in registers (no padding copy).
+//   * keys >= n_kv are masked in registers (no padding copy).
 // m is A1's online row maximum rounded up to an integer: every rescale is
 // an exact power of two, so the rounded probabilities are the TPU kernel's
 // max-free ones times 2^-m and the result is the max-free one.
@@ -50,6 +61,11 @@ constexpr int kBlockM = 64;    // query rows per block
 constexpr int kBlockN = 64;    // keys per tile
 constexpr int kThreads = 128;  // 4 warps x 16 query rows
 constexpr float kLog2e = 1.4426950408889634f;
+
+// (batch, row) strides in elements of q, k, v and the output
+struct Strides {
+  int q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn;
+};
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -117,8 +133,8 @@ __global__ void __launch_bounds__(kThreads)
                        const int8_t* __restrict__ v,
                        const float* __restrict__ amax,
                        const float* __restrict__ out_amax,
-                       int8_t* __restrict__ o, int n, int d, int in_sb,
-                       int in_sn, int out_sb, int out_sn, float scale) {
+                       int8_t* __restrict__ o, int n, int n_kv, int d,
+                       Strides st, float scale) {
   constexpr int KS = DP + 16;       // row stride of the Q/K tile (bytes)
   constexpr int VS = kBlockN + 8;   // row stride of the transposed V tile
   constexpr int KSTEPS = DP / 32;   // k-steps of the QK product
@@ -135,11 +151,11 @@ __global__ void __launch_bounds__(kThreads)
   const int head = blockIdx.y;
   const int heads = gridDim.y;
   const int q0 = blockIdx.x * kBlockM;
-  const size_t in_off = static_cast<size_t>(blockIdx.z) * in_sb +
-                        static_cast<size_t>(head) * d;
-  const int8_t* qb = q + in_off;
-  const int8_t* kb = k + in_off;
-  const int8_t* vb = v + in_off;
+  const size_t batch = blockIdx.z;
+  const size_t hoff = static_cast<size_t>(head) * d;
+  const int8_t* qb = q + batch * st.q_sb + hoff;
+  const int8_t* kb = k + batch * st.k_sb + hoff;
+  const int8_t* vb = v + batch * st.v_sb + hoff;
 
   // per-head scales, in the plain version's order of fp32 operations
   const float sq = amax[head] * (1.f / 127.f);
@@ -148,7 +164,7 @@ __global__ void __launch_bounds__(kThreads)
   const float sscale = sq * sk * scale * kLog2e;
 
   // 1. int8 Q tile -> registers, as m16n8k32 A fragments
-  load_tile_i8<DP, kBlockM>(sK, KS, qb, q0, n, d, in_sn);
+  load_tile_i8<DP, kBlockM>(sK, KS, qb, q0, n, d, st.q_sn);
   __syncthreads();
   uint32_t qf[KSTEPS][4];
   const int r0 = warp * 16 + g;
@@ -170,9 +186,9 @@ __global__ void __launch_bounds__(kThreads)
   // rows r0 and r0 + 8: running integer max and partial denominators
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int k0 = 0; k0 < n; k0 += kBlockN) {
-    load_tile_i8<DP, kBlockN>(sK, KS, kb, k0, n, d, in_sn);
-    load_v_t<DP>(sVt, VS, vb, k0, n, d, in_sn, sv);
+  for (int k0 = 0; k0 < n_kv; k0 += kBlockN) {
+    load_tile_i8<DP, kBlockN>(sK, KS, kb, k0, n_kv, d, st.k_sn);
+    load_v_t<DP>(sVt, VS, vb, k0, n_kv, d, st.v_sn, sv);
     __syncthreads();
 
     // 2. S = float(q_i8 k_i8^T) * sq sk scale log2e, 16 rows x 64 keys
@@ -190,12 +206,12 @@ __global__ void __launch_bounds__(kThreads)
         s[j][i] = __fmul_rn(static_cast<float>(si[i]), sscale);
       }
     }
-    if (k0 + kBlockN > n) {
+    if (k0 + kBlockN > n_kv) {
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int key = k0 + j * 8 + t4 * 2;
-        if (key >= n) s[j][0] = s[j][2] = -INFINITY;
-        if (key + 1 >= n) s[j][1] = s[j][3] = -INFINITY;
+        if (key >= n_kv) s[j][0] = s[j][2] = -INFINITY;
+        if (key + 1 >= n_kv) s[j][1] = s[j][3] = -INFINITY;
       }
     }
 
@@ -265,19 +281,18 @@ __global__ void __launch_bounds__(kThreads)
   const float oinv = stt::quant_inv(out_amax);
   const int row0 = q0 + r0;
   const int row1 = row0 + 8;
-  int8_t* ob = o + static_cast<size_t>(blockIdx.z) * out_sb +
-               static_cast<size_t>(head) * d;
+  int8_t* ob = o + batch * st.o_sb + hoff;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int col = j * 8 + t4 * 2;
     if (col >= d) continue;
     if (row0 < n) {
-      *reinterpret_cast<char2*>(ob + static_cast<size_t>(row0) * out_sn + col) =
+      *reinterpret_cast<char2*>(ob + static_cast<size_t>(row0) * st.o_sn + col) =
           make_char2(stt::quant_i8(__fdiv_rn(acc[j][0], l0), oinv),
                      stt::quant_i8(__fdiv_rn(acc[j][1], l0), oinv));
     }
     if (row1 < n) {
-      *reinterpret_cast<char2*>(ob + static_cast<size_t>(row1) * out_sn + col) =
+      *reinterpret_cast<char2*>(ob + static_cast<size_t>(row1) * st.o_sn + col) =
           make_char2(stt::quant_i8(__fdiv_rn(acc[j][2], l1), oinv),
                      stt::quant_i8(__fdiv_rn(acc[j][3], l1), oinv));
     }
@@ -286,41 +301,44 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int DP>
 void launch(const void* q, const void* k, const void* v, const void* amax,
-            const void* out_amax, void* o, int b, int n, int h, int d,
-            int in_sb, int in_sn, int out_sb, int out_sn, float scale,
-            cudaStream_t stream) {
+            const void* out_amax, void* o, int b, int n, int n_kv, int h,
+            int d, const Strides& st, float scale, cudaStream_t stream) {
   const dim3 grid((n + kBlockM - 1) / kBlockM, h, b);
   attn_fwd_i8_kernel<DP><<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(amax),
-      static_cast<const float*>(out_amax), static_cast<int8_t*>(o), n, d,
-      in_sb, in_sn, out_sb, out_sn, scale);
+      static_cast<const float*>(out_amax), static_cast<int8_t*>(o), n, n_kv,
+      d, st, scale);
 }
 
 }  // namespace
 
 // q, k, v: int8 base pointers of head 0 (for packed qkv: qkv, qkv + C,
-// qkv + 2C); element (batch, row, head h, dim c) of each is at
-// base + batch * in_sb + row * in_sn + h * d + c.  o (int8) likewise with
-// out_sb, out_sn.  amax: (3, h) fp32 absmax of q, k and v per head;
-// out_amax: one fp32 absmax of the output; both in device memory.  d must
-// be a multiple of 16 and at most 128; every base pointer and stride must
-// keep 16-byte alignment.
+// qkv + 2C); element (batch, row, head h, dim c) of q is at
+// q + batch * q_sb + row * q_sn + h * d + c, and likewise for k, v and o
+// (int8) with their own stride pairs.  Queries are rows 0..n-1; keys rows
+// 0..n_kv-1 (1 <= n_kv <= n; the rest are masked).  amax: (3, h) fp32
+// absmax of q, k and v per head; out_amax: one fp32 absmax of the output;
+// both in device memory.  d must be a multiple of 16 and at most 128; every
+// base pointer and stride must keep 16-byte alignment.
 extern "C" int stt_attention_i8(const void* q, const void* k, const void* v,
                                 const void* amax, const void* out_amax,
-                                void* o, int b, int n, int h, int d,
-                                int in_sb, int in_sn, int out_sb, int out_sn,
+                                void* o, int b, int n, int n_kv, int h, int d,
+                                int q_sb, int q_sn, int k_sb, int k_sn,
+                                int v_sb, int v_sn, int o_sb, int o_sn,
                                 float scale, void* stream) {
-  if (b <= 0 || n <= 0 || h <= 0 || d <= 0 || d % 16 != 0 || d > 128 ||
-      b > 65535 || h > 65535 || amax == nullptr || out_amax == nullptr) {
+  if (b <= 0 || n <= 0 || n_kv <= 0 || n_kv > n || h <= 0 || d <= 0 ||
+      d % 16 != 0 || d > 128 || b > 65535 || h > 65535 || amax == nullptr ||
+      out_amax == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 31) / 32 * 32) {
-    case 32: launch<32>(q, k, v, amax, out_amax, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, scale, s); break;
-    case 64: launch<64>(q, k, v, amax, out_amax, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, scale, s); break;
-    case 96: launch<96>(q, k, v, amax, out_amax, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, scale, s); break;
-    default: launch<128>(q, k, v, amax, out_amax, o, b, n, h, d, in_sb, in_sn, out_sb, out_sn, scale, s); break;
+    case 32: launch<32>(q, k, v, amax, out_amax, o, b, n, n_kv, h, d, st, scale, s); break;
+    case 64: launch<64>(q, k, v, amax, out_amax, o, b, n, n_kv, h, d, st, scale, s); break;
+    case 96: launch<96>(q, k, v, amax, out_amax, o, b, n, n_kv, h, d, st, scale, s); break;
+    default: launch<128>(q, k, v, amax, out_amax, o, b, n, n_kv, h, d, st, scale, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -67,7 +67,10 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 // into shared memory in 16-byte chunks, THREADS threads striding.  Rows >= n
 // and columns >= d read as zero.  With TRANSPOSE, element (r, c) lands at
 // dst[c * ld + r].  With SCALE every value is multiplied by qscale in fp32
-// and rounded back.
+// and rounded back.  Row offsets are 32-bit (callers keep n * row_stride
+// below 2^31): A1 keeps its per-thread K and V offsets in registers across
+// the key loop, and as 64-bit values they cost A1 a block per SM (35%
+// slower at ViT-B batch 32 on an H100).
 template <int DP, int ROWS, bool TRANSPOSE, bool SCALE, int THREADS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
                                           const __nv_bfloat16* src, int row0,
@@ -80,7 +83,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n && col < d) {
       val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row0 + r) * row_stride + col);
+          src + ((row0 + r) * row_stride + col));
     }
     __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
     if (SCALE) {

@@ -1,5 +1,6 @@
-// Row LayerNorm over the last axis (kernel A2), and the same LayerNorm
-// with a static int8 output (kernel B1).
+// Row LayerNorm over the last axis (kernel A2), the same LayerNorm with a
+// static int8 output (kernel B1), and RMSNorm with a static int8 output
+// (kernel D3).
 //
 // A2 replaces the TPU kernel simple_tad_tpu/ops/ln.py:_ln_kernel (launched
 // by fused_layernorm -> _fused_ln_impl).  B1 replaces
@@ -25,6 +26,18 @@
 // most 16 KB).  Block-wide sums go through warp shuffles.  Rows are many
 // (32 * 1568 at ViT-B batch 32) and blocks small, so the 132 SMs stay
 // full.
+//
+// D3 replaces simple_tad_tpu/ops/ln.py:_rms_quant_kernel (launched by
+// fused_rmsnorm_quant): InternVideo2's static int8 serving with the fused
+// RMSNorm->int8 option, where norm1/norm2 hand the next GEMM its int8 input
+// and the q/k-norms hand the int8-storage attention its per-head codes.
+// Numerics as there: fp32 mean(x * x) (no mean subtraction, no bias),
+// rsqrt(var + eps), (x * r) * w with each product rounded, then
+// clip(round_half_even(y * inv_c[c]), +-127) with inv_c a per-channel
+// 127 / amax vector (one value repeated for a GEMM input, a per-head repeat
+// for q and k).  It is B1's body without the mean and with that vector,
+// bounded by bytes in the same way: IV2-S at batch 32 moves
+// 32 * 2049 * 384 * 3 bytes (75.5 MB, >= 23 us at 3.35 TB/s).
 #include "common.cuh"
 
 namespace {
@@ -181,6 +194,64 @@ __global__ void layernorm_vec8_kernel(const TIn* __restrict__ x,
   }
 }
 
+// D3, cols % 8 == 0, 16-byte aligned: thread t owns columns [8t, 8t + 8)
+template <typename TIn>
+__global__ void rmsnorm_quant_vec8_kernel(const TIn* __restrict__ x,
+                                          const float* __restrict__ w,
+                                          const float* __restrict__ inv_c,
+                                          int8_t* __restrict__ y, int cols,
+                                          float eps) {
+  __shared__ float red[33];
+  const size_t base = static_cast<size_t>(blockIdx.x) * cols;
+  const int c0 = threadIdx.x * 8;
+  const bool active = c0 < cols;
+  float v[8];
+  float ss = 0.f;
+  if (active) {
+    load8(x + base + c0, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ss += v[i] * v[i];
+  }
+  const float var = block_sum(ss, red) / static_cast<float>(cols);
+  const float r = rsqrtf(var + eps);
+  if (active) {
+    float wv[8], iv[8];
+    load8(w + c0, wv);
+    load8(inv_c + c0, iv);
+    uint2 raw;
+    int8_t* e = reinterpret_cast<int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      e[i] = stt::quant_i8(__fmul_rn(__fmul_rn(v[i], r), wv[i]), iv[i]);
+    }
+    *reinterpret_cast<uint2*>(y + base + c0) = raw;
+  }
+}
+
+// D3 for any width up to kMaxCols: the row staged in shared memory as fp32
+template <typename TIn>
+__global__ void rmsnorm_quant_kernel(const TIn* __restrict__ x,
+                                     const float* __restrict__ w,
+                                     const float* __restrict__ inv_c,
+                                     int8_t* __restrict__ y, int cols,
+                                     float eps) {
+  extern __shared__ float row[];  // cols floats
+  __shared__ float red[33];
+  const size_t base = static_cast<size_t>(blockIdx.x) * cols;
+  float ss = 0.f;
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    const float v = stt::to_float(x[base + c]);
+    row[c] = v;
+    ss += v * v;
+  }
+  const float var = block_sum(ss, red) / static_cast<float>(cols);
+  const float r = rsqrtf(var + eps);
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    y[base + c] = stt::quant_i8(__fmul_rn(__fmul_rn(row[c], r), w[c]),
+                                inv_c[c]);
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -256,6 +327,45 @@ extern "C" int stt_layernorm_quant(const void* x, const void* w,
     launch<float, int8_t>(x, w, b, amax, y, rows, cols, eps, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel D3: x (rows, cols) in in_dtype, w and inv_c (cols,) fp32 -> y
+// (rows, cols) int8, the RMSNorm's static codes against the per-channel
+// inverse scales inv_c (127 / amax).  All contiguous.
+extern "C" int stt_rmsnorm_quant(const void* x, const void* w,
+                                 const void* inv_c, void* y, int rows,
+                                 int cols, float eps, int in_dtype,
+                                 void* stream) {
+  if (!valid_shape(rows, cols) ||
+      (in_dtype != stt::kBFloat16 && in_dtype != stt::kFloat32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* wt = static_cast<const float*>(w);
+  const float* it = static_cast<const float*>(inv_c);
+  int8_t* yt = static_cast<int8_t*>(y);
+  const bool vec8 = cols % 8 == 0 && aligned16(x) && aligned16(w) &&
+                    aligned16(inv_c) && reinterpret_cast<uintptr_t>(y) % 8 == 0;
+  int threads = vec8 ? (cols / 8 + 31) / 32 * 32
+                     : ((cols + 3) / 4 + 31) / 32 * 32;
+  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
+  const size_t smem = vec8 ? 0 : static_cast<size_t>(cols) * sizeof(float);
+  if (in_dtype == stt::kBFloat16) {
+    const __nv_bfloat16* xt = static_cast<const __nv_bfloat16*>(x);
+    if (vec8) {
+      rmsnorm_quant_vec8_kernel<<<rows, threads, 0, s>>>(xt, wt, it, yt, cols, eps);
+    } else {
+      rmsnorm_quant_kernel<<<rows, threads, smem, s>>>(xt, wt, it, yt, cols, eps);
+    }
+  } else {
+    const float* xt = static_cast<const float*>(x);
+    if (vec8) {
+      rmsnorm_quant_vec8_kernel<<<rows, threads, 0, s>>>(xt, wt, it, yt, cols, eps);
+    } else {
+      rmsnorm_quant_kernel<<<rows, threads, smem, s>>>(xt, wt, it, yt, cols, eps);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,10 +13,15 @@ package's jit artefacts (frame-count buckets, fixed chunk shapes, per-step
 program caches) are gone: chunks are simply the last, shorter slice.  One
 device; while the device scores a clip, the host decodes the next.
 
+The model is a VisionTransformer or an InternVideo2 (tubelet 1, patch 14;
+its patch embedding has the ViT's ``patch_embed.proj`` names, and the CLS
+token and position table are added inside the model from tokens).
 ``quant8=True`` serves the int8 model (ops/quant.py) made from the fp32
-masters; in the default 'static' mode the first ``evaluate`` (or
-``score_view``) calibrates it on the first clips, through the pixel path,
-as the JAX package does.
+masters, dispatched on the model's family; in the default 'static' mode the
+first ``evaluate`` (or ``score_view``) calibrates it on the first clips,
+through the pixel path, as the JAX package does.  ``fused_rmsq`` (static
+int8 InternVideo2 only) makes its RMSNorms emit int8 through the
+RMSNorm->int8 kernel, the JAX package's SIMPLE_TAD_FUSED_RMSQ opt-in.
 """
 
 from __future__ import annotations
@@ -31,10 +36,11 @@ import torch
 
 from simple_tad_tpu_torch.data.frame_datasets import ClipEvalView, FrameDataset
 from simple_tad_tpu_torch.eval.metrics import BinaryMetrics, binary_metrics
+from simple_tad_tpu_torch.models.internvideo2 import IV2Config
 from simple_tad_tpu_torch.models.layers import embed_tubelets, patch_matrix
 from simple_tad_tpu_torch.ops import image as image_ops
 from simple_tad_tpu_torch.ops.quant import (apply_act_amax,
-                                            calibrate_act_amax, quant_vit,
+                                            calibrate_act_amax, quant_model,
                                             quantize_vit_params)
 from simple_tad_tpu_torch.utils.fold_norm import fold_normalization
 
@@ -103,13 +109,14 @@ class FrameEvaluator:
     quant8: serve the int8 model instead, quantized from ``fp32_state``
     (the fp32 masters, e.g. an fp32 model's state_dict; default: the
     model's own state, which must then be fp32) in ``quant8_mode``
-    'static' (calibrated, see ``calibrate``) or 'dynamic'.
+    'static' (calibrated, see ``calibrate``) or 'dynamic'.  ``fused_rmsq``:
+    the static int8 InternVideo2's norms emit int8 (kernel D3).
     """
 
     def __init__(self, model, *, device, batch_size: int = 96,
                  resize_on_host: bool = False, precompute_tubelets: bool = True,
                  quant8: bool = False, quant8_mode: str = "static",
-                 fp32_state=None, devices=None):
+                 fp32_state=None, devices=None, fused_rmsq: bool = False):
         if devices is not None:
             raise NotImplementedError(
                 "multi-device evaluation is not ported yet (ROADMAP.md "
@@ -117,6 +124,11 @@ class FrameEvaluator:
         cfg = model.cfg
         self.device = torch.device(device)
         self._qstate = None
+        if fused_rmsq and not (quant8 and quant8_mode == "static"
+                               and isinstance(cfg, IV2Config)):
+            raise ValueError("fused_rmsq is an option of static int8 "
+                             "InternVideo2 serving (quant8=True, "
+                             "quant8_mode='static')")
         if quant8:
             if quant8_mode not in ("static", "dynamic"):
                 raise ValueError(f"quant8_mode must be 'static' or "
@@ -124,10 +136,12 @@ class FrameEvaluator:
             qstate = quantize_vit_params(
                 model.state_dict() if fp32_state is None else fp32_state)
             static = quant8_mode == "static"
+            if fused_rmsq:
+                cfg = dataclasses.replace(cfg, fused_rmsq=True)
             # a static model is served by its calib twin until calibrate()
             self._qstate = qstate if static else None
-            model = quant_vit(cfg, qstate, "calib" if static else "dynamic",
-                              self.device)
+            model = quant_model(cfg, qstate,
+                                "calib" if static else "dynamic", self.device)
         self.model = model
         self.batch_size = batch_size
         self.dtype = cfg.dtype
@@ -189,9 +203,9 @@ class FrameEvaluator:
                 self._device_frames(dataset, view), chunk))
         amax = calibrate_act_amax(self.model, batches, reduce,
                                   tokens_input=True)
-        self.model = quant_vit(self.model.cfg,
-                               apply_act_amax(self._qstate, amax), "static",
-                               self.device)
+        self.model = quant_model(self.model.cfg,
+                                 apply_act_amax(self._qstate, amax),
+                                 "static", self.device)
         self._qstate = None
 
     @torch.inference_mode()

@@ -120,8 +120,11 @@ def load() -> ctypes.CDLL:
             lib.stt_layernorm_quant.argtypes = [p, p, p, p, p, i, i,
                                                 ctypes.c_float, i, p]
             lib.stt_layernorm_quant.restype = i
-            lib.stt_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                              i, i, ctypes.c_float, i, p]
+            lib.stt_rmsnorm_quant.argtypes = [p, p, p, p, i, i,
+                                              ctypes.c_float, i, p]
+            lib.stt_rmsnorm_quant.restype = i
+            lib.stt_attention_fwd.argtypes = [p, p, p, p, *[i] * 12,
+                                              ctypes.c_float, i, p]
             lib.stt_attention_fwd.restype = i
             lib.stt_attention_fwd_lse.argtypes = [p, p, p, p, p, i, i, i, i,
                                                   i, i, i, i, ctypes.c_float,
@@ -132,8 +135,8 @@ def load() -> ctypes.CDLL:
                                               ctypes.c_float, ctypes.c_float,
                                               i, p]
             lib.stt_attention_bwd.restype = i
-            lib.stt_attention_i8.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                             i, i, i, i, ctypes.c_float, p]
+            lib.stt_attention_i8.argtypes = [p, p, p, p, p, p, *[i] * 13,
+                                             ctypes.c_float, p]
             lib.stt_attention_i8.restype = i
             lib.stt_error_string.argtypes = [i]
             lib.stt_error_string.restype = ctypes.c_char_p

@@ -22,6 +22,20 @@ whatever the model dtype (csrc/attention_i8.cu).  The TPU kernel's
 bf16-output mode is reached only through an environment knob of the JAX
 package and is not ported.
 
+Separate operands (InternVideo2, whose q and k are RMS-normalised between
+the qkv projection and attention): ``flash_attention`` is the port of
+flash_attention -> _flash_primal_packed_impl (TPU kernels
+_fwd_kernel_nomax_packed on separate q/k/v, and the key-grid
+_fwd_kernel_nomax_packed_kv that _kv_grid_call runs at N = 2049), and
+``flash_attention_i8d`` the port of flash_attention_i8d with ``out_amax``
+(TPU kernels _fwd_kernel_nomax_packed_kv_q8io and
+_fwd_kernel_nomax_packed_q8io on separate operands).  They run the same
+CUDA kernels as the packed wrappers, given a (batch, row) stride pair per
+operand, so v is read in place as the column block of the qkv output.  The
+key grid is a TPU VMEM plan: its max-free partial sums add up to the same
+result.  ``n_valid`` masks keys at or beyond it, as the TPU kernels'
+``mask_keys`` does.
+
 Training (port of the packed custom VJP, _flash_core_packed_qkv with
 _packed_train_ok): ``flash_attention_qkv`` on a qkv that requires grad, in
 grad mode, goes through ``FlashAttentionQKV``, whose forward is
@@ -35,15 +49,17 @@ delta = rowsum(dout * out), written as one (B, N, 3C) gradient in
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  ``LAUNCHES`` counts launches of the bf16/fp32
-inference kernel, ``I8_LAUNCHES`` those of the int8 one,
-``FWD_LSE_LAUNCHES`` those of the training forward and ``BWD_LAUNCHES``
-calls of the training backward (each call launches two kernels: dk/dv,
-then dq).
+inference kernel on the packed qkv, ``SEP_LAUNCHES`` on separate operands,
+``I8_LAUNCHES`` those of the int8 one on the packed qkv and
+``I8_SEP_LAUNCHES`` on separate operands, ``FWD_LSE_LAUNCHES`` those of
+the training forward and ``BWD_LAUNCHES`` calls of the training backward
+(each call launches two kernels: dk/dv, then dq).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from simple_tad_tpu_torch.kernels import build as kbuild
 from simple_tad_tpu_torch.ops.ln import quantize_static
@@ -51,7 +67,9 @@ from simple_tad_tpu_torch.ops.ln import quantize_static
 LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 128
 LAUNCHES = 0
+SEP_LAUNCHES = 0
 I8_LAUNCHES = 0
+I8_SEP_LAUNCHES = 0
 FWD_LSE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
@@ -62,17 +80,28 @@ def _split_heads(qkv, num_heads: int):
     return qkv.view(B, N, 3, num_heads, C // num_heads).permute(2, 0, 3, 1, 4)
 
 
+def _heads(t, num_heads: int):
+    """(B, N, C), possibly a strided column block -> (B, H, N, Dh) view."""
+    B, N, C = t.shape
+    return t.view(B, N, num_heads, C // num_heads).transpose(1, 2)
+
+
+def _merge_heads(o):
+    """(B, H, N, Dh) -> (B, N, C)."""
+    B, H, N, D = o.shape
+    return o.permute(0, 2, 1, 3).reshape(B, N, H * D)
+
+
 def _acc(dtype):
     """Accumulation dtype of the plain versions: fp32, or fp64 for fp64
     inputs (gradient checks)."""
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _attention_plain(qkv, num_heads: int, scale: float):
-    """-> (out (B, N, C) in qkv's dtype, lse (B, H, N) base 2)."""
-    B, N, C3 = qkv.shape
-    dt, acc = qkv.dtype, _acc(qkv.dtype)
-    q, k, v = _split_heads(qkv, num_heads)                 # (B, H, N, Dh)
+def _attend_plain(q, k, v, scale: float):
+    """q, k, v (B, H, N, Dh) -> (out (B, H, N, Dh) in q's dtype, lse
+    (B, H, N) base 2)."""
+    dt, acc = q.dtype, _acc(q.dtype)
     qs = (q.to(acc) * (scale * LOG2E)).to(dt)
     s = torch.matmul(qs.to(acc), k.to(acc).transpose(-1, -2))
     m = torch.ceil(s.amax(dim=-1, keepdim=True))
@@ -80,12 +109,24 @@ def _attention_plain(qkv, num_heads: int, scale: float):
     denom = p.to(acc).sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(acc), v.to(acc)) / denom
     lse = (m + torch.log2(denom))[..., 0]
-    return o.to(dt).permute(0, 2, 1, 3).reshape(B, N, C3 // 3), lse
+    return o.to(dt), lse
+
+
+def _attention_plain(qkv, num_heads: int, scale: float):
+    """-> (out (B, N, C) in qkv's dtype, lse (B, H, N) base 2)."""
+    o, lse = _attend_plain(*_split_heads(qkv, num_heads), scale)
+    return _merge_heads(o), lse
 
 
 def flash_attention_qkv_plain(qkv, num_heads: int, scale: float):
     """qkv (B, N, 3C) in [q | k | v] x (H, Dh)-major columns -> (B, N, C)."""
     return _attention_plain(qkv, num_heads, scale)[0]
+
+
+def flash_attention_plain(q, k, v, num_heads: int, scale: float):
+    """Separate (B, N, C) q, k, v, (H, Dh)-major columns -> (B, N, C)."""
+    heads = (_heads(t, num_heads) for t in (q, k, v))
+    return _merge_heads(_attend_plain(*heads, scale)[0])
 
 
 def flash_attention_qkv_fwd_lse_plain(qkv, num_heads: int, scale: float):
@@ -147,12 +188,98 @@ def _check_packed(name: str, qkv, num_heads: int, scale: float):
         raise ValueError(f"{name}: scale {scale} must be > 0")
     if qkv.data_ptr() % 16:
         raise ValueError(f"{name}: qkv must be 16-byte aligned")
+    if N * C3 >= 2 ** 31:
+        raise ValueError(f"{name}: N * 3C must be below 2^31 (the kernels' "
+                         f"row offsets are 32-bit)")
     return B, N, C, D
 
 
 def _qkv_pointers(qkv, C: int):
     base, esz = qkv.data_ptr(), qkv.element_size()
     return base, base + C * esz, base + 2 * C * esz
+
+
+def _check_sep(name: str, operands, num_heads: int, scale: float, dtypes):
+    """Validate separate CUDA (B, N, C) operands, each of which may be a
+    strided view with unit column stride -> (B, N, C, Dh)."""
+    q = operands[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dim() != 3 or q.shape[-1] % num_heads:
+        raise ValueError(f"{name}: q {tuple(q.shape)} is not "
+                         f"(B, N, {num_heads} * Dh)")
+    if q.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {q.dtype} is not one of {dtypes}")
+    if not scale > 0:
+        raise ValueError(f"{name}: scale {scale} must be > 0")
+    for t in operands:
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: q, k and v must share shape, dtype "
+                             f"and device")
+        if t.stride(2) != 1:
+            raise ValueError(f"{name}: every operand needs unit column "
+                             f"stride")
+    B, N, C = q.shape
+    return B, N, C, C // num_heads
+
+
+def _check_aligned(name: str, operands):
+    """The bf16 and int8 kernels read 16 bytes at a time: every base
+    pointer, and every stride in bytes, must be a multiple of 16 (fp32
+    operands are read one value at a time)."""
+    for t in operands:
+        esz = t.element_size()
+        vec = 16 if esz < 4 else esz
+        if t.data_ptr() % vec or any(s * esz % vec or s >= 2 ** 31
+                                     for s in t.stride()[:2]):
+            raise ValueError(f"{name}: every operand needs a {vec}-byte "
+                             f"aligned base and row and batch strides")
+        if t.shape[1] * t.stride(1) >= 2 ** 31:
+            raise ValueError(f"{name}: N * row stride must be below 2^31 "
+                             f"(the kernels' row offsets are 32-bit)")
+
+
+def _strides(t):
+    """The (batch, row) stride pair of a (B, N, C) operand, in elements."""
+    return t.stride(0), t.stride(1)
+
+
+def _qkv_views(qkv, C: int):
+    """The q, k and v column blocks of a (B, N, 3C) tensor, as views."""
+    return qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+
+
+def _launch_attention(q, k, v, num_heads: int, scale: float):
+    """Kernel A1 on three non-empty (B, N, C) operands, each read through
+    its own (batch, row) strides -> (B, N, C) contiguous."""
+    B, N, C = q.shape
+    out = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.stt_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, N, num_heads, C // num_heads, *_strides(q), *_strides(k),
+        *_strides(v), N * C, C, float(scale * LOG2E),
+        kbuild.dtype_code(q.dtype), stream)
+    kbuild.check(code, "attention")
+    return out
+
+
+def _launch_attention_i8(q, k, v, amax, out_amax, num_heads: int,
+                         scale: float, n_kv: int):
+    """The int8-storage kernel on three non-empty int8 (B, N, C) operands,
+    keys at or beyond ``n_kv`` masked -> int8 (B, N, C) contiguous."""
+    B, N, C = q.shape
+    out = torch.empty((B, N, C), dtype=torch.int8, device=q.device)
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.stt_attention_i8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), amax.data_ptr(),
+        out_amax.data_ptr(), out.data_ptr(), B, N, n_kv, num_heads,
+        C // num_heads, *_strides(q), *_strides(k), *_strides(v), N * C, C,
+        float(scale), stream)
+    kbuild.check(code, "attention_i8")
+    return out
 
 
 def flash_attention_qkv(qkv, num_heads: int, scale: float):
@@ -169,18 +296,40 @@ def flash_attention_qkv(qkv, num_heads: int, scale: float):
     if qkv.device.type == "cpu":
         return flash_attention_qkv_plain(qkv, num_heads, scale)
     B, N, C, D = _check_packed("flash_attention_qkv", qkv, num_heads, scale)
-    out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     if B == 0 or N == 0:
-        return out
-    lib = kbuild.load()
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    code = lib.stt_attention_fwd(
-        *_qkv_pointers(qkv, C), out.data_ptr(),
-        B, N, num_heads, D, N * 3 * C, 3 * C, N * C, C,
-        float(scale * LOG2E), kbuild.dtype_code(qkv.dtype), stream)
-    kbuild.check(code, "attention")
+        return torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    out = _launch_attention(*_qkv_views(qkv, C), num_heads, scale)
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def flash_attention(q, k, v, num_heads: int, scale: float):
+    """Non-causal attention on separate operands (kernel A1).
+
+    q, k, v: (B, N, C) bf16 or fp32 with (H, Dh)-major columns, each
+    contiguous or a strided view with unit column stride (v may be the
+    column block of the qkv projection output); Dh a multiple of 8 and at
+    most 128 -> (B, N, C) contiguous, in q's dtype.  Inference only: the
+    separate-operand training kernels (C3) are not ported.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "training attention on separate q/k/v needs the kernels C3, not "
+            "ported yet (ROADMAP.md queue 2)")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, num_heads, scale)
+    B, N, C, D = _check_sep("flash_attention", (q, k, v), num_heads, scale,
+                            (torch.bfloat16, torch.float32))
+    if D % 8 or D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {D} must be a multiple "
+                         f"of 8 and at most {MAX_HEAD_DIM}")
+    _check_aligned("flash_attention", (q, k, v))
+    if B == 0 or N == 0:
+        return torch.empty((B, N, C), dtype=q.dtype, device=q.device)
+    out = _launch_attention(q, k, v, num_heads, scale)
+    global SEP_LAUNCHES
+    SEP_LAUNCHES += 1
     return out
 
 
@@ -266,6 +415,18 @@ class FlashAttentionQKV(torch.autograd.Function):
                 None, None)
 
 
+def _attend_i8_plain(q, k, v, amax, scale: float):
+    """int8 q, k, v (B, H, N, Dh) -> (B, H, N, Dh) fp32; see
+    ``attention_i8_plain_f32``."""
+    sq, sk, sv = (amax.float() * (1.0 / 127.0))[..., None, None]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s * (sq * sk * scale * LOG2E)
+    m = torch.ceil(s.amax(dim=-1, keepdim=True))
+    p = torch.exp2(s - m).to(torch.bfloat16).float()
+    vf = (v.float() * sv).to(torch.bfloat16).float()
+    return torch.matmul(p, vf) / p.sum(dim=-1, keepdim=True)
+
+
 def attention_i8_plain_f32(qkv_i8, amax, num_heads: int, scale: float):
     """The int8 attention before its output epilogue -> (B, N, C) fp32.
 
@@ -277,16 +438,8 @@ def attention_i8_plain_f32(qkv_i8, amax, num_heads: int, scale: float):
     in fp32.  The int8 product runs as an fp32 matmul: every partial sum is
     an integer below 127^2 * 128 < 2^24, so it is exact.
     """
-    B, N, C3 = qkv_i8.shape
-    q, k, v = _split_heads(qkv_i8, num_heads)              # (B, H, N, Dh)
-    sq, sk, sv = (amax.float() * (1.0 / 127.0))[..., None, None]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    s = s * (sq * sk * scale * LOG2E)
-    m = torch.ceil(s.amax(dim=-1, keepdim=True))
-    p = torch.exp2(s - m).to(torch.bfloat16).float()
-    vf = (v.float() * sv).to(torch.bfloat16).float()
-    o = torch.matmul(p, vf) / p.sum(dim=-1, keepdim=True)
-    return o.permute(0, 2, 1, 3).reshape(B, N, C3 // 3)
+    return _merge_heads(_attend_i8_plain(*_split_heads(qkv_i8, num_heads),
+                                         amax, scale))
 
 
 def flash_attention_qkv_i8d_plain(qkv_i8, amax, num_heads: int,
@@ -336,17 +489,82 @@ def flash_attention_qkv_i8d(qkv_i8, amax, num_heads: int, scale: float,
             raise ValueError(f"flash_attention_qkv_i8d: {name} must be "
                              f"{numel} contiguous fp32 values on qkv's "
                              f"device")
-    out = torch.empty((B, N, C), dtype=torch.int8, device=qkv_i8.device)
     if B == 0 or N == 0:
-        return out
-    lib = kbuild.load()
-    base = qkv_i8.data_ptr()
-    stream = torch.cuda.current_stream(qkv_i8.device).cuda_stream
-    code = lib.stt_attention_i8(
-        base, base + C, base + 2 * C, amax.data_ptr(), out_amax.data_ptr(),
-        out.data_ptr(), B, N, num_heads, D, N * C3, C3, N * C, C,
-        float(scale), stream)
-    kbuild.check(code, "attention_i8")
+        return torch.empty((B, N, C), dtype=torch.int8, device=qkv_i8.device)
+    out = _launch_attention_i8(*_qkv_views(qkv_i8, C), amax, out_amax,
+                               num_heads, scale, N)
     global I8_LAUNCHES
     I8_LAUNCHES += 1
+    return out
+
+
+def attention_i8d_plain_f32(q_i8, k_i8, v_i8, amax, num_heads: int,
+                            scale: float, n_valid=None):
+    """``attention_i8_plain_f32`` on separate int8 (B, N, C) operands, keys
+    at or beyond ``n_valid`` left out -> (B, N, C) fp32."""
+    q, k, v = (_heads(t, num_heads) for t in (q_i8, k_i8, v_i8))
+    if n_valid is not None:
+        k, v = k[:, :, :n_valid], v[:, :, :n_valid]
+    return _merge_heads(_attend_i8_plain(q, k, v, amax, scale))
+
+
+def flash_attention_i8d_plain(q_i8, k_i8, v_i8, amax, num_heads: int,
+                              scale: float, out_amax, n_valid=None):
+    """The separate-operand int8 attention with its int8 epilogue."""
+    return quantize_static(attention_i8d_plain_f32(
+        q_i8, k_i8, v_i8, amax, num_heads, scale, n_valid), out_amax)
+
+
+def _pad_heads(t, num_heads: int, dp: int):
+    """Zero-pad each head of a (B, N, H * Dh) int8 tensor to dp columns
+    (zero codes add nothing to QK or PV, so the result is exact)."""
+    B, N, C = t.shape
+    x = t.reshape(B, N, num_heads, C // num_heads)
+    return F.pad(x, (0, dp - x.shape[-1])).reshape(B, N, num_heads * dp)
+
+
+def flash_attention_i8d(q_i8, k_i8, v_i8, amax, num_heads: int,
+                        scale: float, out_amax, n_valid=None):
+    """Non-causal attention on separate int8-stored operands -> int8
+    (B, N, C) (kernel D2: B2's kernel with a stride pair per operand).
+
+    q_i8, k_i8, v_i8: (B, N, C) int8 per-head codes against amax (3, H)
+    fp32, each contiguous or a strided view with unit column stride; Dh a
+    multiple of 8 up to 128 (a multiple of 16 goes straight in, any other is
+    zero-padded to the next multiple of 16: IV2-1B's 88 runs as 96);
+    out_amax: one fp32 value, the absmax the output codes are made against;
+    n_valid: keys at or beyond it are masked (all N query rows are
+    computed).  Both scales stay on the device.
+    """
+    if q_i8.device.type == "cpu":
+        return flash_attention_i8d_plain(q_i8, k_i8, v_i8, amax, num_heads,
+                                         scale, out_amax, n_valid)
+    B, N, C, D = _check_sep("flash_attention_i8d", (q_i8, k_i8, v_i8),
+                            num_heads, scale, (torch.int8,))
+    if D % 8 or D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_i8d: head dim {D} must be a "
+                         f"multiple of 8 and at most {MAX_HEAD_DIM}")
+    n_kv = N if n_valid is None else int(n_valid)
+    if N and not 0 < n_kv <= N:
+        raise ValueError(f"flash_attention_i8d: n_valid {n_valid} outside "
+                         f"1..{N}")
+    for name, t, numel in (("amax", amax, 3 * num_heads),
+                           ("out_amax", out_amax, 1)):
+        if t.numel() != numel or t.dtype != torch.float32 \
+                or t.device != q_i8.device or not t.is_contiguous():
+            raise ValueError(f"flash_attention_i8d: {name} must be {numel} "
+                             f"contiguous fp32 values on q's device")
+    if B == 0 or N == 0:
+        return torch.empty((B, N, C), dtype=torch.int8, device=q_i8.device)
+    dp = -(-D // 16) * 16
+    if dp != D:
+        q_i8, k_i8, v_i8 = (_pad_heads(t, num_heads, dp)
+                            for t in (q_i8, k_i8, v_i8))
+    _check_aligned("flash_attention_i8d", (q_i8, k_i8, v_i8))
+    out = _launch_attention_i8(q_i8, k_i8, v_i8, amax, out_amax, num_heads,
+                               scale, n_kv)
+    global I8_SEP_LAUNCHES
+    I8_SEP_LAUNCHES += 1
+    if dp != D:
+        out = out.view(B, N, num_heads, dp)[..., :D].reshape(B, N, C)
     return out

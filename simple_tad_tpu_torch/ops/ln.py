@@ -10,6 +10,12 @@ by default), the kernels take any C up to 4096: ``layernorm`` serves every
 LayerNorm of the bf16 ViT (norm1, norm2, fc_norm), ``layernorm_quant`` the
 int8 model's norm1 and norm2, whose output is the next GEMM's int8 input.
 
+RMSNorm->int8 (kernel D3, csrc/layernorm.cu ``stt_rmsnorm_quant``): port
+of fused_rmsnorm_quant (TPU kernel _rms_quant_kernel), InternVideo2's
+static int8 serving with the fused RMSNorm->int8 option.  fp32 mean(x^2),
+rsqrt(var + eps), times the weight, then the codes against a per-channel
+127 / amax vector; the fp32 value is quantized, not its cast to x's dtype.
+
 Training: ``LayerNormFn`` is the port of the JAX package's custom VJP
 (_fused_ln_core): its forward is ``layernorm`` (the kernel on a CUDA
 tensor), its backward the plain math of _fused_ln_bwd (fp32 recompute of
@@ -18,7 +24,8 @@ backward is not a Pallas kernel, so neither is this one.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  ``LAUNCHES`` counts launches of the LayerNorm
-kernel, ``QUANT_LAUNCHES`` those of the LayerNorm->int8 kernel.
+kernel, ``QUANT_LAUNCHES`` those of the LayerNorm->int8 kernel,
+``RMSQ_LAUNCHES`` those of the RMSNorm->int8 kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from simple_tad_tpu_torch.kernels import build as kbuild
 MAX_COLS = 4096
 LAUNCHES = 0
 QUANT_LAUNCHES = 0
+RMSQ_LAUNCHES = 0
 
 
 def _normalize_f32(x, weight, bias, eps):
@@ -61,16 +69,20 @@ def layernorm_quant_plain(x, weight, bias, amax, eps: float = 1e-6):
     return quantize_static(_normalize_f32(x, weight, bias, eps), amax)
 
 
-def _check(name, x, weight, bias):
+def _check(name, x, *vectors):
+    """x (..., C) contiguous and its (C,) parameter vectors on its device
+    -> (rows, C)."""
     C = x.shape[-1]
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous")
     if not 0 < C <= MAX_COLS:
         raise ValueError(f"{name}: C={C} outside 1..{MAX_COLS}")
-    if weight.shape != (C,) or bias.shape != (C,):
-        raise ValueError(f"{name}: weight and bias must have shape (C,)")
-    if weight.device != x.device or bias.device != x.device:
-        raise ValueError(f"{name}: weight and bias must be on x's device")
+    if any(t.shape != (C,) for t in vectors):
+        raise ValueError(f"{name}: the parameter vectors must have shape "
+                         f"(C,)")
+    if any(t.device != x.device for t in vectors):
+        raise ValueError(f"{name}: the parameter vectors must be on x's "
+                         f"device")
     return x.numel() // C, C
 
 
@@ -130,6 +142,44 @@ def layernorm_quant(x, weight, bias, amax, eps: float = 1e-6):
     kbuild.check(code, "layernorm_quant")
     global QUANT_LAUNCHES
     QUANT_LAUNCHES += 1
+    return out
+
+
+def rmsnorm_quant_plain(x, weight, inv_c, eps: float = 1e-6):
+    """RMSNorm in fp32 (no mean subtraction, no bias), then the int8 codes
+    clip(round_half_even(y * inv_c), +-127) against the per-channel inverse
+    scales ``inv_c`` (C,)."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps) * weight.float()
+    return torch.clamp(torch.round(y * inv_c.float()), -127,
+                       127).to(torch.int8)
+
+
+def rmsnorm_quant(x, weight, inv_c, eps: float = 1e-6):
+    """RMSNorm over the last axis, then its static int8 codes.
+
+    x: (..., C) bf16 or fp32, contiguous; weight: (C,); inv_c: (C,) fp32
+    127 / amax per channel, on x's device -> (..., C) int8.
+    """
+    if x.device.type == "cpu":
+        return rmsnorm_quant_plain(x, weight, inv_c, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_quant: unsupported device {x.device}")
+    rows, C = _check("rmsnorm_quant", x, weight, inv_c)
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if rows == 0:
+        return out
+    w = weight.float().contiguous()
+    inv = inv_c.float().contiguous()
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.stt_rmsnorm_quant(x.data_ptr(), w.data_ptr(), inv.data_ptr(),
+                                 out.data_ptr(), rows, C, float(eps),
+                                 kbuild.dtype_code(x.dtype), stream)
+    kbuild.check(code, "rmsnorm_quant")
+    global RMSQ_LAUNCHES
+    RMSQ_LAUNCHES += 1
     return out
 
 

@@ -1,6 +1,8 @@
-"""Int8 inference of the ViT: weight quantization, int8 GEMMs, calibration.
+"""Int8 inference of the ViT and InternVideo2: weight quantization, int8
+GEMMs, calibration.
 
-Port of simple_tad_tpu/ops/quant.py for the VisionTransformer.  Weights
+Port of simple_tad_tpu/ops/quant.py for the VisionTransformer and
+InternVideo2 (whose block GEMMs carry the same names).  Weights
 quantize offline per output channel (absmax / 127, symmetric), from fp32
 masters only: quantizing a bf16 copy would give other codes and scales.
 Activations quantize per row on the fly (``int8_matmul``, quant_mode
@@ -11,10 +13,14 @@ product over K = 3072 is not exact, 127^2 * 3072 > 2^24), rescaled in fp32.
 The JAX package leaves these GEMMs to XLA; here they are a library GEMM.
 
 Static serving recipe (``quantize_and_calibrate``; FrameEvaluator and the
-inference CLI do it for the user): ``quantize_vit_params`` on the fp32
-state dict, a 'calib' model run over a few representative batches
-(``calibrate_act_amax``), the recorded absmax written into the state
-(``apply_act_amax``), and the 'static' model built from it.
+inference CLI do it for the user): ``quantize_vit_params`` (or
+``quantize_iv2_params``) on the fp32 state dict, a 'calib' model run over a
+few representative batches (``calibrate_act_amax``), the recorded absmax
+written into the state (``apply_act_amax``), and the 'static' model built
+from it (``quant_model`` dispatches on the config's family).  InternVideo2's
+calib model records the per-head absmax of the post-norm q/k and the raw v
+(``attn.qkv_amax``) and, with ``fused_rmsq``, that of norm1/norm2's output
+in the norm scopes (``norm1.act_amax``, ``norm2.act_amax``).
 """
 
 from __future__ import annotations
@@ -71,8 +77,8 @@ def int8_matmul_static(x, w_q, w_scale, a_amax):
 
 def quantize_vit_params(state: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
-    """fp32 ViT state dict -> the int8 model's: each block GEMM's
-    ``weight`` (out, in) becomes ``weight_q`` (out, in) int8 and
+    """fp32 ViT or InternVideo2 state dict -> the int8 model's: each block
+    GEMM's ``weight`` (out, in) becomes ``weight_q`` (out, in) int8 and
     ``weight_scale`` (out,) fp32; everything else passes through.  Raises
     unless those weights are fp32 (the masters, never a bf16 copy)."""
     out = {}
@@ -92,6 +98,16 @@ def quantize_vit_params(state: Dict[str, torch.Tensor]
         out[mod + ".weight_q"] = torch.from_numpy(np.ascontiguousarray(w_q.T))
         out[mod + ".weight_scale"] = torch.from_numpy(scale)
     return out
+
+
+def quantize_iv2_params(state: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """fp32 InternVideo2 state dict -> the int8 model's (port of the JAX
+    quantize_iv2_params): qkv, proj, fc1 and fc2 of every block become int8
+    with per-channel scales; norms, LayerScale, position tables, the patch
+    embedding and the pooling head stay fp32.  The block GEMMs have the
+    ViT's names, so this is ``quantize_vit_params``."""
+    return quantize_vit_params(state)
 
 
 def calibrate_act_amax(model, batches, reduce="max", **forward_kwargs
@@ -132,13 +148,17 @@ def apply_act_amax(qstate, amax):
     return {**qstate, **amax}
 
 
-def quant_vit(cfg, qstate, mode: str, device):
-    """The int8 VisionTransformer of ``cfg`` in quant ``mode`` holding
-    ``qstate`` (quantize_vit_params' output; with the calibrated absmax
-    for mode 'static')."""
+def quant_model(cfg, qstate, mode: str, device):
+    """The int8 model of ``cfg`` (a ViTConfig or an IV2Config) in quant
+    ``mode`` holding ``qstate`` (quantize_vit_params' or
+    quantize_iv2_params' output; with the calibrated absmax for mode
+    'static')."""
+    from simple_tad_tpu_torch.models.internvideo2 import (IV2Config,
+                                                          InternVideo2)
     from simple_tad_tpu_torch.models.vit import VisionTransformer
-    model = VisionTransformer(
-        dataclasses.replace(cfg, quant=True, quant_mode=mode), device=device)
+    family = InternVideo2 if isinstance(cfg, IV2Config) else VisionTransformer
+    model = family(dataclasses.replace(cfg, quant=True, quant_mode=mode),
+                   device=device)
     model.load_state_dict(qstate)
     return model.eval()
 
@@ -149,6 +169,6 @@ def quantize_and_calibrate(cfg, fp32_state, batches, *, device,
     (model inputs; ``forward_kwargs`` such as ``tokens_input=True`` go to
     each forward)."""
     qstate = quantize_vit_params(fp32_state)
-    amax = calibrate_act_amax(quant_vit(cfg, qstate, "calib", device),
+    amax = calibrate_act_amax(quant_model(cfg, qstate, "calib", device),
                               batches, reduce, **forward_kwargs)
-    return quant_vit(cfg, apply_act_amax(qstate, amax), "static", device)
+    return quant_model(cfg, apply_act_amax(qstate, amax), "static", device)

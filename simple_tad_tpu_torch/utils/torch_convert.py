@@ -1,6 +1,8 @@
-"""Checkpoints into the port's ViT: reference ``.pth`` files and JAX params.
+"""Checkpoints into the port's models: reference ``.pth`` files and JAX
+params.
 
-Port of simple_tad_tpu/utils/torch_convert.py for the VideoMAE ViT.  The
+Port of simple_tad_tpu/utils/torch_convert.py for the VideoMAE ViT and
+InternVideo2.  The
 port's parameters already carry the reference's torch names, so a ``.pth``
 needs only the reference's key surgery (run_frame_finetuning.py:404-430):
 'model' | 'module' unwrapping, 'backbone.' / 'encoder.' prefixes,
@@ -13,7 +15,13 @@ It also reads the JAX package's quantized, calibrated tree
 (ops/quant.py there: ``qkv_q``/``kernel_q`` int8, ``*_scale``, the
 ``act_amax``/``qkv_amax``/``out_amax`` absmax) into the port's int8 model
 state, so the port serves exactly the JAX package's int8 codes and scales.
-``to_jax_params`` is its inverse for the fp model (tests compare
+``from_jax_params`` reads the JAX InternVideo2 tree too (its flat
+``patch_kernel``/``patch_bias``, the scanned ``blocks`` unstacked, the
+pooling head), fp or quantized and calibrated.  ``load_checkpoint_auto``
+loads a reference ``.pth`` into either family: an InternVideo2 checkpoint
+by name as it is (its learnable position table included), as the JAX
+package's torch_to_iv2_params reads it.
+``to_jax_params`` is its inverse for the fp ViT (tests compare
 gradients, updated parameters and optimizer moments leaf by leaf with
 it).  ``load_vit_checkpoint`` also initialises the fp32 training model
 (cli/finetune.py ``--finetune``): values are copied into the model's own
@@ -58,6 +66,14 @@ def remap_finetune_keys(sd: Mapping[str, Any]) -> Dict[str, Any]:
     return new
 
 
+def _drop_mismatched_head(sd, num_classes: int) -> None:
+    """A classifier head of another class count is not loaded (the model
+    keeps its fresh head, run_frame_finetuning.py:414-417)."""
+    if "head.weight" in sd and sd["head.weight"].shape[0] != num_classes:
+        sd.pop("head.weight")
+        sd.pop("head.bias", None)
+
+
 def load_vit_checkpoint(path: str, model, num_classes: Optional[int] = None):
     """Read a reference .pth into ``model`` by parameter name.
 
@@ -66,16 +82,36 @@ def load_vit_checkpoint(path: str, model, num_classes: Optional[int] = None):
     mismatch raises.  Returns the names that were loaded."""
     sd = remap_finetune_keys(load_torch_state_dict(path))
     cfg = model.cfg
-    num_classes = cfg.num_classes if num_classes is None else num_classes
     if cfg.final_reduction == "fc_norm" and "fc_norm.weight" not in sd \
             and "norm.weight" in sd:
         # some MAE-encoder exports keep the final norm as 'norm'
         sd["fc_norm.weight"] = sd.pop("norm.weight")
         sd["fc_norm.bias"] = sd.pop("norm.bias")
-    if "head.weight" in sd and sd["head.weight"].shape[0] != num_classes:
-        sd.pop("head.weight")
-        sd.pop("head.bias", None)
+    _drop_mismatched_head(sd, cfg.num_classes if num_classes is None
+                          else num_classes)
     sd.pop("pos_embed", None)
+    return _load_by_name(model, sd)
+
+
+def load_iv2_checkpoint(path: str, model):
+    """Read a reference InternVideo2 .pth into ``model`` by parameter name,
+    with the rules of ``load_vit_checkpoint``; the position table is a
+    learned parameter and is loaded.  Returns the names that were
+    loaded."""
+    sd = load_torch_state_dict(path)
+    _drop_mismatched_head(sd, model.cfg.num_classes)
+    return _load_by_name(model, sd)
+
+
+def load_checkpoint_auto(path: str, model):
+    """Model-aware .pth loader: InternVideo2 or the ViT."""
+    from simple_tad_tpu_torch.models.internvideo2 import InternVideo2
+    if isinstance(model, InternVideo2):
+        return load_iv2_checkpoint(path, model)
+    return load_vit_checkpoint(path, model)
+
+
+def _load_by_name(model, sd):
     own = model.state_dict()
     loaded = {}
     for key, val in sd.items():
@@ -90,71 +126,137 @@ def load_vit_checkpoint(path: str, model, num_classes: Optional[int] = None):
     return sorted(loaded)
 
 
-def from_jax_params(params: Mapping[str, Any], *, tubelet_size: int = 2,
-                    in_chans: int = 3) -> Dict[str, torch.Tensor]:
-    """JAX VisionTransformer params -> reference-named state dict: fp32,
-    with int8 ``weight_q`` where the tree is quantized."""
-    def arr(a):                     # a writable copy (JAX arrays are not)
-        return np.array(a, np.float32)
+def _f32(a):
+    """A writable fp32 numpy copy (JAX arrays are not writable)."""
+    return np.array(a, np.float32)
 
-    def t(a):                                   # Dense (in, out) -> (out, in)
-        return np.ascontiguousarray(arr(a).T)
 
-    def dense(name, leaves, i):
-        """One Dense: fp ``kernel`` or int8 ``kernel_q`` + ``kernel_scale``
-        (+ calibrated ``act_amax``), and ``bias``."""
-        if "kernel_q" in leaves:
-            out[name + ".weight_q"] = np.ascontiguousarray(
-                np.asarray(leaves["kernel_q"][i], np.int8).T)
-            out[name + ".weight_scale"] = arr(leaves["kernel_scale"][i])
-        else:
-            out[name + ".weight"] = t(leaves["kernel"][i])
-        for key in ("act_amax", "bias"):
-            if key in leaves:
-                out[f"{name}.{key}"] = arr(leaves[key][i])
-
-    out: Dict[str, np.ndarray] = {}
-    kernel = arr(params["patch_embed"]["kernel"])           # (t*p*p*c, D)
+def _conv3d_from_kernel(kernel, tubelet_size: int, in_chans: int):
+    """(t*p*p*c, D) patch kernel in (t, h, w, c) row order -> the reference
+    Conv3d weight (D, c, t, p, p)."""
     rows, dim = kernel.shape
     p = int(round((rows // (tubelet_size * in_chans)) ** 0.5))
-    out["patch_embed.proj.weight"] = np.ascontiguousarray(
+    return np.ascontiguousarray(
         kernel.reshape(tubelet_size, p, p, in_chans, dim)
         .transpose(4, 3, 0, 1, 2))
-    out["patch_embed.proj.bias"] = arr(params["patch_embed"]["bias"])
+
+
+def from_jax_params(params: Mapping[str, Any], *,
+                    tubelet_size: Optional[int] = None,
+                    in_chans: int = 3) -> Dict[str, torch.Tensor]:
+    """JAX VisionTransformer or InternVideo2 params -> reference-named state
+    dict: fp32, with int8 ``weight_q`` where the tree is quantized.
+    ``tubelet_size`` defaults to the family's (ViT 2, InternVideo2 1)."""
+    if "patch_kernel" in params:
+        return _from_jax_iv2(params, tubelet_size or 1, in_chans)
+
+    out: Dict[str, np.ndarray] = {}
+    out["patch_embed.proj.weight"] = _conv3d_from_kernel(
+        _f32(params["patch_embed"]["kernel"]), tubelet_size or 2, in_chans)
+    out["patch_embed.proj.bias"] = _f32(params["patch_embed"]["bias"])
 
     blocks = params["blocks"]
     attn, mlp = blocks["attn"], blocks["mlp"]
-    depth = arr(blocks["norm1"]["scale"]).shape[0]
-    for i in range(depth):
+    for i in range(np.shape(blocks["norm1"]["scale"])[0]):
         pre = f"blocks.{i}."
         for norm in ("norm1", "norm2"):
-            out[pre + norm + ".weight"] = arr(blocks[norm]["scale"][i])
-            out[pre + norm + ".bias"] = arr(blocks[norm]["bias"][i])
+            out[pre + norm + ".weight"] = _f32(blocks[norm]["scale"][i])
+            out[pre + norm + ".bias"] = _f32(blocks[norm]["bias"][i])
             if "act_amax" in blocks[norm]:
-                out[pre + norm + ".act_amax"] = arr(
+                out[pre + norm + ".act_amax"] = _f32(
                     blocks[norm]["act_amax"][i])
         # the packed qkv Dense keeps its leaves in the attention scope
         qkv = {k: attn[j] for j, k in (
             ("qkv_kernel", "kernel"), ("qkv_q", "kernel_q"),
             ("qkv_scale", "kernel_scale"), ("act_amax", "act_amax"))
             if j in attn}
-        dense(pre + "attn.qkv", qkv, i)
+        _dense_leaves(out, pre + "attn.qkv", qkv, i)
         for name in ("q_bias", "v_bias", "qkv_amax", "out_amax"):
             if name in attn:
-                out[pre + "attn." + name] = arr(attn[name][i])
-        dense(pre + "attn.proj", attn["proj"], i)
+                out[pre + "attn." + name] = _f32(attn[name][i])
+        _dense_leaves(out, pre + "attn.proj", attn["proj"], i)
         for fc in ("fc1", "fc2"):
-            dense(pre + f"mlp.{fc}", mlp[fc], i)
+            _dense_leaves(out, pre + f"mlp.{fc}", mlp[fc], i)
         if "gamma_1" in blocks:
-            out[pre + "gamma_1"] = arr(blocks["gamma_1"][i])
-            out[pre + "gamma_2"] = arr(blocks["gamma_2"][i])
+            out[pre + "gamma_1"] = _f32(blocks["gamma_1"][i])
+            out[pre + "gamma_2"] = _f32(blocks["gamma_2"][i])
     for norm in ("fc_norm", "norm"):
         if norm in params:
-            out[norm + ".weight"] = arr(params[norm]["scale"])
-            out[norm + ".bias"] = arr(params[norm]["bias"])
+            out[norm + ".weight"] = _f32(params[norm]["scale"])
+            out[norm + ".bias"] = _f32(params[norm]["bias"])
     if "head" in params:
-        out["head.weight"] = t(params["head"]["kernel"])
-        out["head.bias"] = arr(params["head"]["bias"])
+        _dense_leaves(out, "head", params["head"])
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def _dense_leaves(out, name, leaves, i=None):
+    """One JAX Dense (``kernel``, or int8 ``kernel_q`` + ``kernel_scale``,
+    with ``bias`` and a calibrated ``act_amax``) into ``out`` under the
+    torch ``name``; ``i`` picks one layer of a stacked tree."""
+    def pick(a):
+        return np.asarray(a if i is None else a[i])
+
+    if "kernel_q" in leaves:
+        out[name + ".weight_q"] = np.ascontiguousarray(
+            pick(leaves["kernel_q"]).astype(np.int8).T)
+        out[name + ".weight_scale"] = pick(leaves["kernel_scale"]).astype(
+            np.float32)
+    else:
+        out[name + ".weight"] = np.ascontiguousarray(
+            pick(leaves["kernel"]).astype(np.float32).T)
+    for key in ("act_amax", "bias"):
+        if key in leaves:
+            out[f"{name}.{key}"] = pick(leaves[key]).astype(np.float32)
+
+
+def _from_jax_iv2(params, tubelet_size: int, in_chans: int):
+    """The JAX InternVideo2 tree (blocks scanned: stacked on a leading depth
+    axis) -> reference-named state dict."""
+    out: Dict[str, np.ndarray] = {
+        "patch_embed.proj.weight": _conv3d_from_kernel(
+            _f32(params["patch_kernel"]), tubelet_size, in_chans),
+        "patch_embed.proj.bias": _f32(params["patch_bias"]),
+        "cls_token": _f32(params["cls_token"])}
+    for key in ("pos_embed", "pos_embed_spatial", "pos_embed_temporal",
+                "pos_embed_cls"):
+        if key in params:
+            out[key] = _f32(params[key])
+    blocks = params["blocks"]
+    attn = blocks["attn"]
+    for i in range(np.shape(blocks["norm1"]["scale"])[0]):
+        pre = f"blocks.{i}."
+        for norm in ("norm1", "norm2"):
+            out[pre + norm + ".weight"] = _f32(blocks[norm]["scale"][i])
+            if "act_amax" in blocks[norm]:
+                out[pre + norm + ".act_amax"] = _f32(
+                    blocks[norm]["act_amax"][i])
+        out[pre + "ls1.gamma"] = _f32(blocks["gamma_1"][i])
+        out[pre + "ls2.gamma"] = _f32(blocks["gamma_2"][i])
+        _dense_leaves(out, pre + "attn.qkv", attn["qkv"], i)
+        _dense_leaves(out, pre + "attn.proj", attn["proj"], i)
+        for norm in ("q_norm", "k_norm"):
+            if norm in attn:
+                out[pre + f"attn.{norm}.weight"] = _f32(
+                    attn[norm]["scale"][i])
+        for name in ("qkv_amax", "out_amax"):
+            if name in attn:
+                out[pre + "attn." + name] = _f32(attn[name][i])
+        for fc in ("fc1", "fc2"):
+            _dense_leaves(out, pre + f"mlp.{fc}", blocks[fc], i)
+    pool = params["clip_projector"]
+    for side in ("q", "k", "v"):
+        norm = pool[f"norm_{side}"]
+        out[f"clip_projector.norm1_{side}.weight"] = _f32(norm["scale"])
+        out[f"clip_projector.norm1_{side}.bias"] = _f32(norm["bias"])
+        out[f"clip_projector.cross_attn.{side}.weight"] = np.ascontiguousarray(
+            _f32(pool[f"{side}_kernel"]).T)
+        out[f"clip_projector.cross_attn.{side}_bias"] = _f32(
+            pool[f"{side}_bias"])
+    _dense_leaves(out, "clip_projector.cross_attn.proj", pool["proj"])
+    out["fc_norm.weight"] = _f32(params["fc_norm"]["scale"])
+    out["fc_norm.bias"] = _f32(params["fc_norm"]["bias"])
+    if "head" in params:
+        _dense_leaves(out, "head", params["head"])
     return {k: torch.from_numpy(v) for k, v in out.items()}
 
 

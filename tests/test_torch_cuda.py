@@ -322,3 +322,149 @@ def test_tiny_vit_train_step_goes_through_kernels(cuda):
     for n, p in model.named_parameters():
         assert p.dtype == torch.float32, n
         assert not torch.equal(p, before[n]), n
+
+
+# InternVideo2's separate-operand kernels: A1 on separate q/k/v with v read
+# in place from the qkv tensor (row stride 3C), D2 (int8 storage, separate
+# operands, keys masked at n_valid) and D3 (RMSNorm->int8).
+SEP_CASES = [(2, 2049, 6, 64), (2, 200, 2, 64), (3, 97, 4, 80),
+             (1, 130, 3, 128), (2, 33, 4, 8)]
+
+
+def _sep_operands(b, n, heads, d, seed, device, dtype):
+    """q, k contiguous (B, N, C) and v the strided column block of a
+    (B, N, 3C) tensor, as InternVideo2's attention gives them."""
+    C = heads * d
+    qkv = _randn((b, n, 3 * C), seed, device).to(dtype)
+    v = qkv[..., 2 * C:]
+    assert v.stride(1) == 3 * C
+    return qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(), v, qkv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,n,heads,d", SEP_CASES)
+def test_attention_sep_kernel_matches_plain(b, n, heads, d, dtype, cuda):
+    q, k, v, qkv = _sep_operands(b, n, heads, d, 18, cuda, dtype)
+    before = fa.SEP_LAUNCHES
+    got = fa.flash_attention(q, k, v, heads, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.SEP_LAUNCHES == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(
+        got.float(), fa.flash_attention_plain(q, k, v, heads, d ** -0.5
+                                              ).float(), **TOL[dtype])
+    # the packed call reads the same values through one stride pair: the
+    # same kernel, the same result bit for bit
+    assert torch.equal(got, fa.flash_attention_qkv(qkv, heads, d ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,heads,d,n_valid", [
+    (2, 2049, 6, 64, None), (2, 2049, 6, 64, 2040), (2, 200, 2, 40, 190),
+    (1, 130, 16, 88, None), (2, 33, 4, 16, 1)])
+def test_attention_i8d_kernel_matches_plain(b, n, heads, d, n_valid, cuda):
+    """v strided from an int8 (B, N, 3C) tensor; d = 40 and 88 run padded
+    to 48 and 96."""
+    qkv_i8, amax = _qkv_i8(b, n, heads, d, 19, cuda)
+    C = heads * d
+    q, k, v = (qkv_i8[..., :C].contiguous(), qkv_i8[..., C:2 * C].contiguous(),
+               qkv_i8[..., 2 * C:])
+    scale = d ** -0.5
+    out_amax = fa.attention_i8d_plain_f32(q, k, v, amax, heads, scale,
+                                          n_valid).abs().max()
+    before = fa.I8_SEP_LAUNCHES
+    got = fa.flash_attention_i8d(q, k, v, amax, heads, scale, out_amax,
+                                 n_valid)
+    torch.cuda.synchronize()
+    assert fa.I8_SEP_LAUNCHES == before + 1 and got.dtype == torch.int8
+    want = fa.flash_attention_i8d_plain(q, k, v, amax, heads, scale,
+                                        out_amax, n_valid)
+    worst, share = _code_diff(got, want)
+    assert worst <= 1 and share <= I8_SHARE, (worst, share)
+
+
+@pytest.mark.cuda
+def test_attention_i8_packed_equals_separate_call(cuda):
+    """B2's packed call and D2's separate call on views of one int8 qkv
+    run the same kernel: the same codes bit for bit."""
+    qkv_i8, amax = _qkv_i8(2, 300, 12, 64, 20, cuda)
+    C = 768
+    out_amax = torch.tensor(0.2, device=cuda)
+    packed = fa.flash_attention_qkv_i8d(qkv_i8, amax, 12, 0.125, out_amax)
+    sep = fa.flash_attention_i8d(qkv_i8[..., :C], qkv_i8[..., C:2 * C],
+                                 qkv_i8[..., 2 * C:], amax, 12, 0.125,
+                                 out_amax)
+    assert torch.equal(packed, sep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(4 * 2049, 384), (3, 5, 100), (17, 4096),
+                                   (2, 1408)])
+def test_rmsnorm_quant_kernel_matches_plain(shape, dtype, cuda):
+    """Per-head inverse scales (6 heads' worth of columns, as at the q/k-norm
+    sites); (3, 5, 100) takes the kernel for widths that are not a multiple
+    of 8."""
+    C = shape[-1]
+    x = (_randn(shape, 21, cuda) * 2 + 0.5).to(dtype)
+    w = _randn((C,), 22, cuda) * 0.2 + 1
+    y = x.float() * torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True)) * w
+    amax = y.reshape(-1, C).abs().amax(0)
+    inv = 127.0 / amax.view(-1).max().expand(C).clone()
+    inv[: C // 2] *= 1.3                          # some codes clip
+    before = ln.RMSQ_LAUNCHES
+    got = ln.rmsnorm_quant(x, w, inv)
+    torch.cuda.synchronize()
+    assert ln.RMSQ_LAUNCHES == before + 1 and got.dtype == torch.int8
+    worst, share = _code_diff(got, ln.rmsnorm_quant_plain(x, w, inv))
+    assert worst <= 1 and share <= I8_SHARE, (worst, share)
+
+
+def _tiny_iv2(device, **kw):
+    from simple_tad_tpu_torch.models import create_model
+    return create_model("internvideo2_small_patch14_224", device=device,
+                        generator=torch.Generator().manual_seed(0),
+                        img_size=28, num_frames=4, depth=2, init_scale=1.0,
+                        init_values=0.1, **kw)
+
+
+@pytest.mark.cuda
+def test_tiny_iv2_forward_goes_through_kernels(cuda):
+    """bf16 IV2-S (2 layers): one separate-operand attention launch per
+    block, and no packed attention or LayerNorm kernel (its norms are plain
+    PyTorch, as the JAX package leaves them to XLA)."""
+    model = _tiny_iv2(cuda, dtype=torch.bfloat16)
+    x = _randn((2, 4, 28, 28, 3), 23, cuda)
+    counts = (ln.LAUNCHES, fa.LAUNCHES, fa.SEP_LAUNCHES)
+    with torch.inference_mode():
+        logits = model(x)
+    torch.cuda.synchronize()
+    after = (ln.LAUNCHES, fa.LAUNCHES, fa.SEP_LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, counts)) == (0, 0, 2)
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_rmsq", [False, True])
+def test_tiny_int8_iv2_forward_goes_through_kernels(fused_rmsq, cuda):
+    """Static int8 IV2-S (2 layers): D2 once per block, no bf16 attention;
+    with fused_rmsq, D3 four times per block (norm1, norm2, q-norm,
+    k-norm)."""
+    from simple_tad_tpu_torch.ops.quant import quantize_and_calibrate
+    masters = _tiny_iv2("cpu")
+    cfg = dataclasses.replace(masters.cfg, dtype=torch.bfloat16,
+                              fused_rmsq=fused_rmsq)
+    x = _randn((2, 16, 384), 24, cuda).bfloat16()
+    model = quantize_and_calibrate(cfg, masters.state_dict(), [x],
+                                   device=cuda, tokens_input=True)
+    names = ("RMSQ_LAUNCHES", "I8_SEP_LAUNCHES", "SEP_LAUNCHES",
+             "I8_LAUNCHES")
+    owners = (ln, fa, fa, fa)
+    counts = [getattr(m, n) for m, n in zip(owners, names)]
+    with torch.inference_mode():
+        logits = model(x, tokens_input=True)
+    torch.cuda.synchronize()
+    after = [getattr(m, n) for m, n in zip(owners, names)]
+    assert [a - b for a, b in zip(after, counts)] == [
+        8 if fused_rmsq else 0, 2, 0, 0]
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()

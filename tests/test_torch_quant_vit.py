@@ -50,7 +50,8 @@ from simple_tad_tpu_torch.ops import flash_attention as fa
 from simple_tad_tpu_torch.ops import ln, quant
 from simple_tad_tpu_torch.utils import torch_convert as tc
 from tests.fixtures import make_synthetic_dota
-from tests.test_torch_vit import TINY, perturbed_jax_params, port_model_from
+from tests.test_torch_vit import (TINY, one_torch_thread,  # noqa: F401
+                                   perturbed_jax_params, port_model_from)
 
 TINY4 = dict(TINY, all_frames=4)           # N = 2 * 2 * 2 = 8 tokens
 
@@ -90,7 +91,7 @@ def test_static_vit_on_jax_tree_matches_jax(init_values, jax_int8_gates):
     sd = _jax_tree_to_port(qp)
     assert sd["blocks.1.norm2.act_amax"].shape == ()
     assert sd["blocks.0.attn.qkv_amax"].shape == (3, 2)
-    model = quant.quant_vit(ViTConfig(**cfg), sd, "static", "cpu")
+    model = quant.quant_model(ViTConfig(**cfg), sd, "static", "cpu")
     before = _launch_counts()
     with torch.inference_mode():
         got = model(torch.from_numpy(x))
@@ -112,7 +113,7 @@ def test_calibration_matches_jax(jax_int8_gates):
     want = {k: v for k, v in _jax_tree_to_port(
         jax_quant.apply_act_amax(qp, jamax)).items() if k.endswith("amax")}
     qstate = quant.quantize_vit_params(tc.from_jax_params(params))
-    model = quant.quant_vit(ViTConfig(**TINY4), qstate, "calib", "cpu")
+    model = quant.quant_model(ViTConfig(**TINY4), qstate, "calib", "cpu")
     got = quant.calibrate_act_amax(model,
                                    [torch.from_numpy(b) for b in batches])
     assert sorted(got) == sorted(want)

@@ -12,6 +12,8 @@ import os
 import pytest
 import torch
 
+from tests.test_torch_vit import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def full_root(tmp_path_factory):

@@ -31,6 +31,19 @@ TINY = dict(img_size=32, all_frames=16, patch_size=16, tubelet_size=2,
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's torch CPU work on one intra-op thread (autouse here
+    and in each port test module that imports it).  Under pytest-xdist
+    every worker would otherwise start a thread per core, and the many
+    small ops of these tests then wait on each other's thread barriers: a
+    CLI test that takes seconds alone took minutes in the parallel suite."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def perturbed_jax_params(cfg, seed=0):
     """JAX init, then every leaf moved by seeded numpy noise so q/v biases,
     LayerNorms, gammas and the head are all exercised."""
