@@ -34,10 +34,17 @@ Phases (any failure raises, so the exit code is non-zero):
      (attention_sep) with v the strided column block of a real qkv tensor,
      timed against SDPA; D2 (attention_i8_sep, int8 storage on separate
      operands) likewise, once with keys masked at n_valid < N, and at
-     IV2-1B's head dim 88 (padded to 96); D3 (rmsnorm_quant, RMSNorm->int8)
+     IV2-1B's head dim 88 (padded to 96), and A1 on separate operands at
+     C = 192 (H = 3, Dh = 64), the geometry at which the JAX package takes
+     its (B*H, N, Dh) inference kernel; D3 (rmsnorm_quant, RMSNorm->int8)
      at (32 x 2049, 384) with per-head inverse scales.  Their controls: the
      probabilities not rounded to bf16 (A1, D2), and for D3 the bf16-rounded
-     value quantized instead of the fp32 one;
+     value quantized instead of the fp32 one.  InternVideo2's training
+     attention (C3: attention_sep_fwd_lse, attention_sep_bwd, C1 and C2 on
+     separate operands) is checked at IV2-S batch 8 (8, 2049, 384 x 3) bf16
+     and a masked fp32 tail, v strided, with C1's and C2's bounds and
+     controls plus a gross one (v read with q's row stride), and timed at
+     the job's batch 56 against SDPA's forward and backward;
   3. sliding-window evaluation at full width: ViT-B 16x224 bf16 with
      seeded weights on a synthetic 96-frame 360x640 clip (81 windows),
      device resize, token path, batch 32, through FrameEvaluator, timed
@@ -101,7 +108,21 @@ Phases (any failure raises, so the exit code is non-zero):
      fused_rmsq, 48 D3 (norm1, norm2, q-norm, k-norm), and nothing else;
      every D2 and D3 call of one run is checked against its plain version
      and its control, and the logits against the plain-version run (and a
-     gross control, attention output left unnormalized).
+     gross control, attention output left unnormalized);
+  9. InternVideo2 fine-tuning at full width: IV2-S 8x224 (N = 2049) with
+     seeded fp32 masters computed in bf16 (LayerScale 0.1), the IV2-S job's
+     hyperparameters (jobs/finetune/IV2-S_DoTA.sh: lr 1e-3 scaled to batch
+     56, weight decay 0.05; the CLI's defaults for the rest: layer decay
+     0.75, drop path 0.1, RandAugment m6 n3, RandomErasing 0.25), synthetic
+     uint8 clips of 8 frames through ops/augment.py on the card; as phase
+     6: (i) batch 8, one train step must launch C3-fwd 12 times, C3-bwd 12
+     times and no other kernel (RMSNorm, LayerScale and the pooling head
+     are plain PyTorch), its gradients within phase 6's bounds of the
+     plain-version step and the control (no delta term) outside them; (ii)
+     10 steps on one fixed batch at the constant lr IV2_LR, the loss must
+     fall by LOSS_DROP; (iii) FinetuneTrainer at batch 56 in
+     TIMING_PROCESSES fresh processes, with the step breakdown and a
+     profiler window in the first.
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -173,7 +194,10 @@ EVAL_RUNS = 5
 # products in another order
 BF16_MISMATCH.update({"attention_fwd_lse": BF16_MISMATCH["attention"],
                       "attention_sep": BF16_MISMATCH["attention"],
-                      "attention_bwd": 0.02})
+                      "attention_bwd": 0.02,
+                      # C3 is C1 / C2 on separate operands: their bounds
+                      "attention_sep_fwd_lse": BF16_MISMATCH["attention"],
+                      "attention_sep_bwd": 0.02})
 LSE_ATOL = 1.2e-2
 F32_TOL_BWD = dict(atol=1e-4, rtol=1e-4)
 # phase 6 (i): one ViT-B train step, kernels vs plain versions
@@ -181,6 +205,9 @@ GRAD_NORM_RTOL = 1e-3
 GRAD_PARAM_RTOL = 5e-2
 TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS, LOSS_DROP = 8, 1e-4, 10, 0.05
 JOB_BATCH = 56
+# phase 9: the IV2-S job's lr 1e-3 scaled to its batch 56, as the CLI
+# scales it (x batch / 256)
+IV2_LR = 1e-3 * JOB_BATCH / 256
 TIMING_PROCESSES, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 3, 3, 10, 2
 BREAKDOWN_STEPS = 4
 CLIP_H, CLIP_W = 224, 398          # decode_scaled's short side 224, 16:9
@@ -215,6 +242,14 @@ SOURCES = {
                          "simple_tad_tpu/ops/flash_attention.py:645"),
     "rmsnorm_quant": ("simple_tad_tpu_torch/csrc/layernorm.cu",
                       "simple_tad_tpu/ops/ln.py:155"),
+    # InternVideo2 training (C3): _fwd_kernel, launched by _flash_fwd_impl,
+    # and _bwd_merged_kernel_dt, launched by _flash_bwd_impl (its other
+    # orientations _bwd_merged_kernel, _bwd_dq_kernel and _bwd_dkv_kernel,
+    # flash_attention.py:2183, :2124, :2151, compute the same function)
+    "attention_sep_fwd_lse": ("simple_tad_tpu_torch/csrc/attention.cu",
+                              "simple_tad_tpu/ops/flash_attention.py:1532"),
+    "attention_sep_bwd": ("simple_tad_tpu_torch/csrc/attention_train.cu",
+                          "simple_tad_tpu/ops/flash_attention.py:2238"),
 }
 
 
@@ -339,14 +374,34 @@ def attention_i8_sep_unnormalized(*args):
     return _i8_sep_variant(*args, round_p=True, normalize=False)
 
 
+def misread_v(q, v):
+    """v read with q's row stride (C) instead of its own (3C, the column
+    block of the qkv output): the fault a kernel with one stride pair for
+    all operands would make with no error."""
+    return v.as_strided(v.shape, q.stride())
+
+
 def attention_sep_misread_v(q, k, v, num_heads: int, scale: float):
-    """The gross control of the IV2 logit check: v read with q's row stride
-    (C) instead of its own (3C, the column block of the qkv output), the
-    fault a kernel with one stride pair for all operands would make with
-    no error."""
+    """The gross control of the IV2 logit check (``misread_v``)."""
     from simple_tad_tpu_torch.ops.flash_attention import flash_attention_plain
-    return flash_attention_plain(q, k, v.as_strided(v.shape, q.stride()),
-                                 num_heads, scale)
+    return flash_attention_plain(q, k, misread_v(q, v), num_heads, scale)
+
+
+def attention_sep_fwd_lse_misread_v(q, k, v, num_heads: int, scale: float):
+    """The plain C3 forward with v misread (``misread_v``)."""
+    from simple_tad_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd_lse_plain)
+    return flash_attention_fwd_lse_plain(q, k, misread_v(q, v), num_heads,
+                                         scale)
+
+
+def attention_sep_bwd_misread_v(q, k, v, out, lse, dout, num_heads: int,
+                                scale: float):
+    """The plain C3 backward with v misread (``misread_v``)."""
+    from simple_tad_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain)
+    return flash_attention_bwd_plain(q, k, misread_v(q, v), out, lse, dout,
+                                     num_heads, scale)
 
 
 def rmsnorm_quant_control(x, weight, inv_c, eps: float = 1e-6):
@@ -382,7 +437,9 @@ def layernorm_quant_control(x, weight, bias, amax, eps: float = 1e-6):
 def compare(name, got, want):
     """-> (max abs error, share of elements that differ, within the bounds
     of kernel ``name``)."""
-    if isinstance(got, tuple):             # C1: (out, lse)
+    if name == "attention_sep_bwd":        # C3-bwd: (dq, dk, dv)
+        got, want = torch.cat(got, -1), torch.cat(want, -1)
+    if isinstance(got, tuple):             # C1, C3-fwd: (out, lse)
         err, share, ok = compare(name, got[0], want[0])
         lse_err = (got[1] - want[1]).abs().max().item()
         print(f"[{name}] lse max_abs_err {lse_err:.3e} (bound {LSE_ATOL})")
@@ -395,38 +452,46 @@ def compare(name, got, want):
         ok = (torch.allclose(got.float(), want.float(), **BF16_TOL)
               and share <= BF16_MISMATCH[name])
     else:
-        tol = F32_TOL_BWD if name == "attention_bwd" else F32_TOL
+        tol = (F32_TOL_BWD if name in ("attention_bwd", "attention_sep_bwd")
+               else F32_TOL)
         ok = torch.allclose(got, want, **tol)
     return err, share, ok
 
 
-def attention_fwd_lse_control(qkv, num_heads: int, scale: float):
-    """The plain training forward without the probability rounding."""
+def _fwd_lse_control(q, k, v, scale: float):
+    """(B, H, N, Dh) -> the plain training forward without the probability
+    rounding -> (out (B, N, C), lse (B, H, N))."""
     from simple_tad_tpu_torch.ops.flash_attention import LOG2E
-    B, N, C3 = qkv.shape
-    q, k, v = qkv.view(B, N, 3, num_heads, -1).permute(2, 0, 3, 1, 4)
-    qs = (q.float() * (scale * LOG2E)).to(qkv.dtype)
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
     s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
     m = torch.ceil(s.amax(dim=-1, keepdim=True))
     p = torch.exp2(s - m)
     denom = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p, v.float()) / denom
-    return (o.to(qkv.dtype).permute(0, 2, 1, 3).reshape(B, N, C3 // 3),
-            (m + torch.log2(denom))[..., 0])
+    return merge_heads(o.to(q.dtype)), (m + torch.log2(denom))[..., 0]
 
 
-def attention_bwd_variant(qkv, out, lse, dout, num_heads: int, scale: float,
-                          *, round_p: bool = True, use_delta: bool = True):
-    """The plain training backward with a required step left out: the
-    rounding of p before dV (``round_p=False``, phase 2's control) or the
-    delta term of ds (``use_delta=False``, phase 6's gradient control)."""
+def attention_fwd_lse_control(qkv, num_heads: int, scale: float):
+    """The control of the packed training forward (C1)."""
+    return _fwd_lse_control(*qkv_views(qkv, num_heads), scale)
+
+
+def attention_sep_fwd_lse_control(q, k, v, num_heads: int, scale: float):
+    """The control of the separate-operand training forward (C3-fwd)."""
+    return _fwd_lse_control(*sep_heads(num_heads, q, k, v), scale)
+
+
+def _bwd_variant(q, k, v, out, lse, dout, num_heads: int, scale: float, *,
+                 round_p: bool = True, use_delta: bool = True):
+    """(B, H, N, Dh) q, k, v -> the plain training backward's (dq, dk, dv)
+    (B, H, N, Dh) fp32 with a required step left out: the rounding of p
+    before dV (``round_p=False``, phase 2's control) or the delta term of
+    ds (``use_delta=False``, the gradient control of phases 6 and 9)."""
     from simple_tad_tpu_torch.ops.flash_attention import (LOG2E,
                                                           attention_delta)
-    B, N, C3 = qkv.shape
-    dt = qkv.dtype
-    q, k, v = (t.float() for t in
-               qkv.view(B, N, 3, num_heads, -1).permute(2, 0, 3, 1, 4))
-    do = dout.view(B, N, num_heads, -1).permute(0, 2, 1, 3).float()
+    dt = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    do = sep_heads(num_heads, dout)[0].float()
     delta = attention_delta(out, dout, num_heads)[..., None]
     s = torch.matmul((q * (scale * LOG2E)).to(dt).float(),
                      k.transpose(-1, -2))
@@ -437,8 +502,24 @@ def attention_bwd_variant(qkv, out, lse, dout, num_heads: int, scale: float,
     ds = (p * (dp - delta if use_delta else dp)).to(dt).float()
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
     dq = torch.matmul(ds, k) * scale
-    return torch.stack([dq, dk, dv]).to(dt).permute(1, 3, 0, 2, 4).reshape(
-        B, N, C3)
+    return dq, dk, dv
+
+
+def attention_bwd_variant(qkv, out, lse, dout, num_heads: int, scale: float,
+                          **steps):
+    """``_bwd_variant`` on the packed qkv -> dqkv (B, N, 3C)."""
+    B, N, C3 = qkv.shape
+    grads = torch.stack(_bwd_variant(*qkv_views(qkv, num_heads), out, lse,
+                                     dout, num_heads, scale, **steps))
+    return grads.to(qkv.dtype).permute(1, 3, 0, 2, 4).reshape(B, N, C3)
+
+
+def attention_sep_bwd_variant(q, k, v, out, lse, dout, num_heads: int,
+                              scale: float, **steps):
+    """``_bwd_variant`` on separate operands -> (dq, dk, dv) (B, N, C)."""
+    return tuple(merge_heads(g.to(q.dtype)) for g in _bwd_variant(
+        *sep_heads(num_heads, q, k, v), out, lse, dout, num_heads, scale,
+        **steps))
 
 
 def attention_bwd_control(*args):
@@ -447,6 +528,14 @@ def attention_bwd_control(*args):
 
 def attention_bwd_no_delta(*args):
     return attention_bwd_variant(*args, use_delta=False)
+
+
+def attention_sep_bwd_control(*args):
+    return attention_sep_bwd_variant(*args, round_p=False)
+
+
+def attention_sep_bwd_no_delta(*args):
+    return attention_sep_bwd_variant(*args, use_delta=False)
 
 
 def qkv_views(qkv, num_heads: int):
@@ -513,20 +602,25 @@ def check_kernels(dev, seed: int) -> dict:
 
     def run_case(name, case, kernel, plain, control=None, time_it=True,
                  library=None, bound=None):
+        """``control``: one callable, or a list of them (each must fail
+        the bounds)."""
         got, want = kernel(), plain()
         err, share, ok = compare(name, got, want)
         print(f"[{name}] {case}: max_abs_err {err:.3e} differ {share:.3e} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} {case}")
-        if control is not None:
-            c_err, c_share, c_ok = compare(name, control(), want)
-            print(f"[{name}] {case}: control max_abs_err {c_err:.3e} "
+        controls = control if isinstance(control, list) else (
+            [] if control is None else [control])
+        for i, ctrl in enumerate(controls):
+            c_err, c_share, c_ok = compare(name, ctrl(), want)
+            label = "control" if i == 0 else f"control {i + 1}"
+            print(f"[{name}] {case}: {label} max_abs_err {c_err:.3e} "
                   f"differ {c_share:.3e} "
                   f"{'NOT CAUGHT' if c_ok else 'caught'}")
             if c_ok:
-                failures.append(f"{name} {case}: the bounds let the "
-                                f"control through")
+                failures.append(f"{name} {case}: the bounds let {label} "
+                                f"through")
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if time_it and "ms" not in r:
@@ -683,7 +777,12 @@ def check_kernels(dev, seed: int) -> dict:
     # D3 with per-head inverse scales (the q/k-norm sites)
     sep_cases = [((32, 2049, 1152), 6, torch.bfloat16),    # IV2-S b32
                  ((32, 2049, 2304), 12, torch.bfloat16),   # IV2-B b32
-                 ((2, 200, 384), 2, torch.float32)]        # masked tail
+                 ((2, 200, 384), 2, torch.float32),        # masked tail
+                 # C = 192 is no multiple of 128: the geometry at which the
+                 # JAX package takes _fwd_kernel_nomax (flash_attention.py
+                 # :345) on the (B*H, N, Dh) layout; A1 computes the same
+                 # function
+                 ((8, 2049, 576), 3, torch.bfloat16)]
     for shape, heads, dt in sep_cases:
         B, N, C3 = shape
         C = C3 // 3
@@ -730,6 +829,64 @@ def check_kernels(dev, seed: int) -> dict:
                  bound=attention_bound(B, N, C, heads, int8_qk=True))
         del qkv_i8, q, k, v, args
         torch.cuda.empty_cache()
+
+    # training attention on separate operands (C3): checked at IV2-S batch 8
+    # and a masked fp32 tail with v the strided column block of a real qkv
+    # tensor, timed at the job's batch
+    sep_train_cases = [((8, 2049, 1152), 6, torch.bfloat16),
+                       ((2, 200, 384), 2, torch.float32)]
+    for shape, heads, dt in sep_train_cases:
+        B, N, C3 = shape
+        C = C3 // 3
+        qkv = torch.randn(shape, generator=g, device=dev).to(dt)
+        dout = torch.randn((B, N, C), generator=g, device=dev).to(dt)
+        ops = (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
+               qkv[..., 2 * C:], heads, (C // heads) ** -0.5)
+        bf16 = dt == torch.bfloat16
+        run_case("attention_sep_fwd_lse",
+                 f"{shape} H={heads} {dt}, v strided",
+                 lambda: fa.flash_attention_fwd_lse(*ops),
+                 lambda: fa.flash_attention_fwd_lse_plain(*ops),
+                 ([lambda: attention_sep_fwd_lse_control(*ops)] if bf16
+                  else []) + [lambda: attention_sep_fwd_lse_misread_v(*ops)],
+                 time_it=False)
+        out, lse = fa.flash_attention_fwd_lse_plain(*ops)
+        bargs = (*ops[:3], out, lse, dout, *ops[3:])
+        run_case("attention_sep_bwd", f"{shape} H={heads} {dt}, v strided",
+                 lambda: fa.flash_attention_bwd(*bargs),
+                 lambda: fa.flash_attention_bwd_plain(*bargs),
+                 ([lambda: attention_sep_bwd_control(*bargs)] if bf16
+                  else []) + [lambda: attention_sep_bwd_misread_v(*bargs)],
+                 time_it=False)
+        del qkv, dout, ops, out, lse, bargs
+        torch.cuda.empty_cache()
+    B, N, C, heads = JOB_BATCH, 2049, 384, 6
+    qkv = torch.randn((B, N, 3 * C), generator=g,
+                      device=dev).to(torch.bfloat16)
+    dout = torch.randn((B, N, C), generator=g, device=dev).to(torch.bfloat16)
+    ops = (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
+           qkv[..., 2 * C:], heads, (C // heads) ** -0.5)
+    scale = ops[-1]
+    timed("attention_sep_fwd_lse",
+          lambda: fa.flash_attention_fwd_lse(*ops),
+          lambda: fa.flash_attention_fwd_lse_plain(*ops),
+          lambda: F.scaled_dot_product_attention(
+              *sep_heads(heads, *ops[:3]), scale=scale),
+          attention_bound(B, N, C, heads, lse=True), plain_runs=5)
+    out, lse = fa.flash_attention_fwd_lse(*ops)
+    leaves = [t.detach().requires_grad_(True) for t in ops[:3]]
+    sdpa_out = F.scaled_dot_product_attention(*sep_heads(heads, *leaves),
+                                              scale=scale)
+    sdpa_dout = sep_heads(heads, dout)[0]
+    bargs = (*ops[:3], out, lse, dout, *ops[3:])
+    timed("attention_sep_bwd",
+          lambda: fa.flash_attention_bwd(*bargs),
+          lambda: fa.flash_attention_bwd_plain(*bargs),
+          lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_dout,
+                                      retain_graph=True),
+          attention_bound(B, N, C, heads, backward=True), plain_runs=3)
+    del qkv, dout, ops, out, lse, leaves, sdpa_out, sdpa_dout, bargs
+    torch.cuda.empty_cache()
 
     rmsq_cases = [((32 * 2049, 384), 6, torch.bfloat16),   # IV2-S b32
                   ((4096, 768), 12, torch.float32),
@@ -1049,7 +1206,11 @@ COUNTERS = {"layernorm": ("ln", "LAUNCHES"),
             "attention": ("fa", "LAUNCHES"),
             "attention_sep": ("fa", "SEP_LAUNCHES"),
             "attention_i8": ("fa", "I8_LAUNCHES"),
-            "attention_i8_sep": ("fa", "I8_SEP_LAUNCHES")}
+            "attention_i8_sep": ("fa", "I8_SEP_LAUNCHES"),
+            "attention_fwd_lse": ("fa", "FWD_LSE_LAUNCHES"),
+            "attention_bwd": ("fa", "BWD_LAUNCHES"),
+            "attention_sep_fwd_lse": ("fa", "SEP_FWD_LSE_LAUNCHES"),
+            "attention_sep_bwd": ("fa", "SEP_BWD_LAUNCHES")}
 
 
 def _counter_owners():
@@ -1202,14 +1363,14 @@ def run_eval_iv2_int8(dev, seed: int, bf16_logits, fused_rmsq: bool):
 
 
 class SyntheticTrainDataset:
-    """``n`` training windows of seeded uint8 frames (16, CLIP_H, CLIP_W, 3)
-    with the two members TrainLoader reads; the frames cycle through a pool
-    of 8 so the host pays copies, not random draws."""
+    """``n`` training windows of seeded uint8 frames (frames, CLIP_H,
+    CLIP_W, 3) with the two members TrainLoader reads; the frames cycle
+    through a pool of 8 so the host pays copies, not random draws."""
 
-    def __init__(self, n: int, seed: int, pool: int = 8):
+    def __init__(self, n: int, seed: int, frames: int = 16, pool: int = 8):
         import types
         rng = np.random.default_rng(seed)
-        self.frames = rng.integers(0, 256, (pool, 16, CLIP_H, CLIP_W, 3),
+        self.frames = rng.integers(0, 256, (pool, frames, CLIP_H, CLIP_W, 3),
                                    np.uint8)
         labels = rng.integers(0, 2, n)
         self.samples = [types.SimpleNamespace(
@@ -1224,41 +1385,53 @@ class SyntheticTrainDataset:
         return self.frames[index % len(self.frames)], self.samples[index]
 
 
-def job_model(dev, seed: int):
-    """ViT-B 16x224 of the paper's fine-tuning job: seeded fp32 masters
-    computed in bf16, drop path 0.2, the job's default head init scale."""
+def job_model(dev, seed: int, family: str = "vit"):
+    """The model of a fine-tuning job, seeded fp32 masters computed in bf16
+    with the job's default head init scale: ViT-B 16x224 with drop path 0.2
+    (jobs/finetune/VideoMAE-B_DoTA.sh), or IV2-S 8x224 with the CLI's drop
+    path 0.1 (jobs/finetune/IV2-S_DoTA.sh) and LayerScale 0.1 (the
+    reference goldens' magnitude, as phase 7)."""
     from simple_tad_tpu_torch.models import create_model
+    if family == "iv2":
+        return create_model("internvideo2_small_patch14_224", device=dev,
+                            dtype=torch.bfloat16, param_dtype=torch.float32,
+                            num_frames=8, drop_path_rate=0.1,
+                            init_values=0.1,
+                            generator=torch.Generator().manual_seed(seed))
     return create_model("vit_base_patch16_224", device=dev,
                         dtype=torch.bfloat16, param_dtype=torch.float32,
                         drop_path_rate=0.2,
                         generator=torch.Generator().manual_seed(seed))
 
 
-def job_state(model, dev, seed: int, lr: float):
-    """AdamW of the job (weight decay 0.05, layer decay 0.6, no clipping)
-    at a constant lr, and the generator of the training masks."""
+def job_state(model, dev, seed: int, family: str = "vit"):
+    """AdamW of the job at a constant lr (weight decay 0.05, no clipping;
+    ViT-B: layer decay 0.6 and TRAIN_LR; IV2-S: the CLI's layer decay 0.75
+    and IV2_LR), and the generator of the training masks."""
     from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
     from simple_tad_tpu_torch.train.steps import TrainState
+    lr, layer_decay = (IV2_LR, 0.75) if family == "iv2" else (TRAIN_LR, 0.6)
     opt = FinetuneOptimizer(dict(model.named_parameters()), lr_schedule=lr,
-                            weight_decay=0.05, layer_decay=0.6,
+                            weight_decay=0.05, layer_decay=layer_decay,
                             depth=model.cfg.depth)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     return TrainState.create(model, opt, gen)
 
 
-def augmented_batch(dev, batch: int, seed: int):
-    """Seeded uint8 clips through the port's train_augment on the card (the
-    job's RandAugment m6 n3 and RandomErasing 0.25)."""
+def augmented_batch(dev, batch: int, seed: int, frames: int = 16):
+    """Seeded uint8 clips of ``frames`` frames through the port's
+    train_augment on the card (the jobs' RandAugment m6 n3 and
+    RandomErasing 0.25)."""
     from simple_tad_tpu_torch.ops.augment import train_augment
     rng = np.random.default_rng(seed)
     u8 = torch.from_numpy(rng.integers(
-        0, 256, (batch, 16, CLIP_H, CLIP_W, 3), np.uint8)).to(dev)
+        0, 256, (batch, frames, CLIP_H, CLIP_W, 3), np.uint8)).to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     video = train_augment(u8, gen, crop_size=224, magnitude=6.0,
                           num_layers=3, reprob=0.25, dtype=torch.bfloat16)
-    assert video.shape == (batch, 16, 224, 224, 3), video.shape
+    assert video.shape == (batch, frames, 224, 224, 3), video.shape
     assert torch.isfinite(video.float()).all(), "non-finite augmentation"
     labels = torch.from_numpy(rng.integers(0, 2, batch)).to(dev)
     return {"video": video, "label": labels,
@@ -1267,15 +1440,34 @@ def augmented_batch(dev, batch: int, seed: int):
 
 
 @contextlib.contextmanager
-def routed_train(fwd, bwd, layernorm):
-    """Route the training attention's forward and backward and the
-    LayerNorm forward through other versions (comparison runs only)."""
+def routed_train(**fns):
+    """Route the training kernels' wrappers (the attention forward and
+    backward, the LayerNorm forward), by name, through other versions
+    (comparison runs only)."""
     from simple_tad_tpu_torch.ops import flash_attention as fa
     from simple_tad_tpu_torch.ops import ln
-    with mock.patch.object(fa, "flash_attention_qkv_fwd_lse", fwd), \
-            mock.patch.object(fa, "flash_attention_qkv_bwd", bwd), \
-            mock.patch.object(ln, "layernorm", layernorm):
+    with contextlib.ExitStack() as stack:
+        for name, fn in fns.items():
+            stack.enter_context(mock.patch.object(
+                ln if name == "layernorm" else fa, name, fn))
         yield
+
+
+def train_routes(family: str, no_delta: bool = False) -> dict:
+    """The wrappers a train step of ``family`` runs, routed to their plain
+    versions, or with the backward's control (no delta term)."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    if family == "iv2":
+        return {"flash_attention_fwd_lse": fa.flash_attention_fwd_lse_plain,
+                "flash_attention_bwd": (attention_sep_bwd_no_delta
+                                        if no_delta
+                                        else fa.flash_attention_bwd_plain)}
+    return {"flash_attention_qkv_fwd_lse":
+            fa.flash_attention_qkv_fwd_lse_plain,
+            "flash_attention_qkv_bwd": (attention_bwd_no_delta if no_delta
+                                        else fa.flash_attention_qkv_bwd_plain),
+            "layernorm": ln.layernorm_plain}
 
 
 def step_grads(model, batch, gen, gen_state):
@@ -1295,72 +1487,86 @@ def step_grads(model, batch, gen, gen_state):
     return grads, loss.item()
 
 
+# parameters whose gradient is zero in exact arithmetic: IV2's pooling head
+# adds these biases to every key of its one query, which shifts each softmax
+# row by a constant, so both runs hold only rounding noise there (on the
+# H100 the two read 1.36 of its own norm apart); they are held to the global
+# norm
+ZERO_GRAD_PARAMS = ("clip_projector.cross_attn.k_bias",
+                    "clip_projector.norm1_k.bias")
+
+
 def grad_errors(got, want):
     """-> (relative error of the global gradient norm, worst relative
-    error ||got - want|| / ||want|| of a parameter, its name)."""
+    error ||got - want|| / ||want|| of a parameter (of the global norm for
+    ZERO_GRAD_PARAMS), its name)."""
     from simple_tad_tpu_torch.train.optim import global_norm
     gn, wn = global_norm(got.values()).item(), global_norm(want.values()).item()
     per = {n: ((got[n] - want[n]).float().norm()
-               / want[n].float().norm()).item()
+               / (wn if n in ZERO_GRAD_PARAMS else want[n].float().norm())
+               ).item()
            for n in want if want[n].float().norm() > 0}
     worst = max(per, key=per.get)
     return abs(gn - wn) / wn, per[worst], worst
 
 
-def run_finetune(dev, seed: int) -> dict:
-    """Phase 6 (i) and (ii) at batch TRAIN_BATCH -> stats."""
-    from simple_tad_tpu_torch.ops import flash_attention as fa
-    from simple_tad_tpu_torch.ops import ln
+def run_finetune(dev, seed: int, family: str = "vit") -> dict:
+    """Phase 6 (ViT-B) or 9 (IV2-S) (i) and (ii) at batch TRAIN_BATCH ->
+    stats."""
     from simple_tad_tpu_torch.train.losses import create_criterion
     from simple_tad_tpu_torch.train.steps import make_finetune_train_step
-    model = job_model(dev, seed)
-    batch = augmented_batch(dev, TRAIN_BATCH, seed)
-    state = job_state(model, dev, seed, TRAIN_LR)
+    iv2 = family == "iv2"
+    label, frames, lr = (("iv2 finetune", 8, IV2_LR) if iv2
+                         else ("finetune", 16, TRAIN_LR))
+    model = job_model(dev, seed, family)
+    batch = augmented_batch(dev, TRAIN_BATCH, seed, frames)
+    state = job_state(model, dev, seed, family)
     g0 = state.generator.get_state()
     kern, loss_k = step_grads(model, batch, state.generator, g0)
-    with routed_train(fa.flash_attention_qkv_fwd_lse_plain,
-                      fa.flash_attention_qkv_bwd_plain, ln.layernorm_plain):
+    with routed_train(**train_routes(family)):
         plain, loss_p = step_grads(model, batch, state.generator, g0)
-    with routed_train(fa.flash_attention_qkv_fwd_lse_plain,
-                      attention_bwd_no_delta, ln.layernorm_plain):
+    with routed_train(**train_routes(family, no_delta=True)):
         ctrl, _ = step_grads(model, batch, state.generator, g0)
     norm_err, param_err, worst = grad_errors(kern, plain)
     c_norm, c_param, c_worst = grad_errors(ctrl, plain)
     del kern, plain, ctrl
     state.generator.set_state(g0)
-    print(f"[finetune] vit_base_patch16_224 bf16, fp32 masters, batch "
-          f"{TRAIN_BATCH}: loss {loss_k:.6f} (plain versions {loss_p:.6f}); "
-          f"gradients vs plain: global norm rel err {norm_err:.3e} (bound "
-          f"{GRAD_NORM_RTOL:.1e}), worst parameter {param_err:.3e} ({worst};"
-          f" bound {GRAD_PARAM_RTOL:.1e}); control (no delta): {c_norm:.3e},"
-          f" {c_param:.3e} ({c_worst})")
+    name = ("internvideo2_small_patch14_224 8x224" if iv2
+            else "vit_base_patch16_224")
+    print(f"[{label}] {name} bf16, fp32 masters, batch {TRAIN_BATCH}: loss "
+          f"{loss_k:.6f} (plain versions {loss_p:.6f}); gradients vs plain: "
+          f"global norm rel err {norm_err:.3e} (bound {GRAD_NORM_RTOL:.1e}), "
+          f"worst parameter {param_err:.3e} ({worst}; bound "
+          f"{GRAD_PARAM_RTOL:.1e}); control (no delta): {c_norm:.3e}, "
+          f"{c_param:.3e} ({c_worst})")
 
     step = make_finetune_train_step(create_criterion("crossentropy"))
-    ln.LAUNCHES = ln.QUANT_LAUNCHES = 0
-    fa.LAUNCHES = fa.I8_LAUNCHES = fa.FWD_LSE_LAUNCHES = fa.BWD_LAUNCHES = 0
+    reset_counts()
     metrics, logits = step(state, batch)
     torch.cuda.synchronize()
-    launches = {"layernorm": ln.LAUNCHES, "attention": fa.LAUNCHES,
-                "attention_fwd_lse": fa.FWD_LSE_LAUNCHES,
-                "attention_bwd": fa.BWD_LAUNCHES}
+    launches = read_counts()
     losses = [float(metrics["loss"])]
     for _ in range(TRAIN_STEPS - 1):
         metrics, logits = step(state, batch)
         losses.append(float(metrics["loss"]))
     drop = 1.0 - losses[-1] / losses[0]
-    print(f"[finetune] launches in one train step {launches} (each "
-          f"attention_bwd call launches two kernels: dk/dv, then dq)")
-    print(f"[finetune] {TRAIN_STEPS} steps on one augmented batch at "
-          f"constant lr {TRAIN_LR}: losses "
+    print(f"[{label}] launches in one train step {launches} (each backward "
+          f"call launches two kernels: dk/dv, then dq)")
+    print(f"[{label}] {TRAIN_STEPS} steps on one augmented batch at "
+          f"constant lr {lr}: losses "
           f"{' '.join(f'{x:.5f}' for x in losses)}; drop {drop:.3f} "
           f"(required {LOSS_DROP}); last grad_norm "
           f"{float(metrics['grad_norm']):.4e}")
+    depth = model.cfg.depth
+    want = dict.fromkeys(COUNTERS, 0)
+    if iv2:       # RMSNorm and the pooling head are plain PyTorch
+        want.update(attention_sep_fwd_lse=depth, attention_sep_bwd=depth)
+    else:
+        want.update(layernorm=2 * depth + 1, attention_fwd_lse=depth,
+                    attention_bwd=depth)
     assert logits.shape == (TRAIN_BATCH, 2)
     assert np.isfinite(losses).all(), losses
-    assert launches == {"layernorm": 2 * model.cfg.depth + 1,
-                        "attention": 0,
-                        "attention_fwd_lse": model.cfg.depth,
-                        "attention_bwd": model.cfg.depth}, launches
+    assert launches == want, (launches, want)
     assert norm_err <= GRAD_NORM_RTOL and param_err <= GRAD_PARAM_RTOL, \
         "gradients disagree with the plain-version step"
     assert c_norm > GRAD_NORM_RTOL or c_param > GRAD_PARAM_RTOL, \
@@ -1377,8 +1583,10 @@ def _kernel_categories(prof):
               if getattr(e, "device_type", None)
               == torch.autograd.DeviceType.CUDA]
     # first match wins: copies run inside elementwise kernels
-    cats = {"C1 attention_fwd_lse": ("attn_fwd_bf16",),
-            "C2 attention_bwd": ("attn_bwd_",),
+    # the training forward (C1 packed, C3 separate) is attn_fwd_bf16, the
+    # backward (C2, C3) attn_bwd_: the launch counts say which ran
+    cats = {"attention fwd + lse": ("attn_fwd_bf16",),
+            "attention bwd": ("attn_bwd_",),
             "A2 layernorm": ("layernorm",),
             "gemm (cuBLAS)": ("gemm", "nvjet", "cutlass", "xmma"),
             "copies": ("direct_copy", "copy_kernel", "Memcpy", "memcpy"),
@@ -1399,8 +1607,9 @@ def _kernel_categories(prof):
     return sums, rows[:15], sum(r[2] for r in rows)
 
 
-def time_training_process(seed: int, profile: bool) -> dict:
-    """Phase 6 (iii), in a fresh process: FinetuneTrainer at the job's
+def time_training_process(seed: int, profile: bool,
+                          family: str = "vit") -> dict:
+    """Phase 6 or 9 (iii), in a fresh process: FinetuneTrainer at the job's
     batch (or the largest of JOB_BATCH, 48, 40, 32 that fits) -> step
     times, peak memory and, with ``profile``, a profiler window."""
     from simple_tad_tpu_torch.train.engine import FinetuneTrainer, TrainLoader
@@ -1417,10 +1626,11 @@ def time_training_process(seed: int, profile: bool) -> dict:
     out = {"oom": []}
     for batch in (JOB_BATCH, 48, 40, 32):
         starts.clear()
-        model = job_model(dev, seed)
-        state = job_state(model, dev, seed, TRAIN_LR)
+        model = job_model(dev, seed, family)
+        state = job_state(model, dev, seed, family)
         n_steps = WARMUP_STEPS + TIMED_STEPS
-        data = SyntheticTrainDataset(n_steps * batch, seed)
+        data = SyntheticTrainDataset(n_steps * batch, seed,
+                                     8 if family == "iv2" else 16)
         trainer = FinetuneTrainer(timed_step, state, device=dev,
                                   crop_size=224, reprob=0.25,
                                   dtype=torch.bfloat16, seed=seed)
@@ -1507,28 +1717,30 @@ def step_parts(trainer, data, batch: int, seed: int, starts) -> dict:
     return out
 
 
-def run_finetune_timing(seed: int) -> dict:
-    """Phase 6 (iii): TIMING_PROCESSES fresh processes, one after another;
-    the first also takes the profiler window."""
+def run_finetune_timing(seed: int, family: str = "vit") -> dict:
+    """Phase 6 or 9 (iii): TIMING_PROCESSES fresh processes, one after
+    another; the first also takes the profiler window."""
+    label = "iv2 finetune" if family == "iv2" else "finetune"
     ctx = multiprocessing.get_context("spawn")
     runs = []
     for i in range(TIMING_PROCESSES):
         with ctx.Pool(1) as pool:
-            runs.append(pool.apply(time_training_process, (seed, i == 0)))
+            runs.append(pool.apply(time_training_process,
+                                   (seed, i == 0, family)))
         r = runs[-1]
         if r["oom"]:
-            print(f"[finetune timing] process {i}: batch {r['oom']} does "
+            print(f"[{label} timing] process {i}: batch {r['oom']} does "
                   f"not fit (out of memory)")
         assert "batch" in r, "no batch size fits"
         med = statistics.median(r["step_ms"])
-        print(f"[finetune timing] process {i}: batch {r['batch']}, median "
+        print(f"[{label} timing] process {i}: batch {r['batch']}, median "
               f"step {med:.2f} ms over {len(r['step_ms'])} steps after "
               f"{WARMUP_STEPS} warm-up (min {min(r['step_ms']):.2f}, max "
               f"{max(r['step_ms']):.2f}): {r['batch'] * 1e3 / med:.2f} "
               f"clips/s; peak device memory {r['peak_gb']:.2f} GiB")
     parts = runs[0].get("parts")
     if parts:
-        print(f"[finetune parts] process 0, median of {BREAKDOWN_STEPS} "
+        print(f"[{label} parts] process 0, median of {BREAKDOWN_STEPS} "
               f"steps: host step {parts['step']:.2f} ms; device ms: augment "
               f"{parts['augment']:.2f}, forward + backward "
               f"{parts['forward_backward']:.2f}, optimizer "
@@ -1536,13 +1748,13 @@ def run_finetune_timing(seed: int) -> dict:
     prof = runs[0].get("profile")
     if prof:
         busy = prof["device_ms"] / prof["wall_ms"]
-        print(f"[finetune profile] {PROFILE_STEPS} steps: wall "
+        print(f"[{label} profile] {PROFILE_STEPS} steps: wall "
               f"{prof['wall_ms']:.1f} ms, kernel time {prof['device_ms']:.1f}"
               f" ms, device busy {busy:.3f}, idle {1 - busy:.3f}")
-        print("[finetune profile] by category (ms): " + ", ".join(
+        print(f"[{label} profile] by category (ms): " + ", ".join(
             f"{k} {v:.1f}" for k, v in prof["categories"].items()))
         for name, calls, ms in prof["top"]:
-            print(f"[finetune profile]   {ms:9.2f} ms  {calls:5d}x  "
+            print(f"[{label} profile]   {ms:9.2f} ms  {calls:5d}x  "
                   f"{name[:90]}")
     meds = [statistics.median(r["step_ms"]) for r in runs]
     return {"batch": runs[0]["batch"], "step_ms": meds,
@@ -1576,6 +1788,10 @@ def main(argv=None):
     i8stats = {fused: run_eval_iv2_int8(dev, args.seed, istats["logits"],
                                         fused)
                for fused in (False, True)}
+    torch.cuda.empty_cache()
+    f9stats = run_finetune(dev, args.seed, "iv2")
+    torch.cuda.empty_cache()
+    run_finetune_timing(args.seed, "iv2")
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]
@@ -1584,7 +1800,9 @@ def main(argv=None):
                    for k in ("attention_fwd_lse", "attention_bwd")},
                 "attention_sep": istats["launches"]["attention_sep"],
                 **{k: i8stats[True]["launches"][k]
-                   for k in ("attention_i8_sep", "rmsnorm_quant")}}
+                   for k in ("attention_i8_sep", "rmsnorm_quant")},
+                **{k: f9stats["launches"][k]
+                   for k in ("attention_sep_fwd_lse", "attention_sep_bwd")}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     record = {"kernels": [

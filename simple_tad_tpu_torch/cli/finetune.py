@@ -8,6 +8,13 @@ auto-resume.  Same flags as the JAX CLI, plus ``--device`` (default cuda).
 Validation scores a copy of the weights in the compute dtype (the EMA
 weights under ``--model_ema``); the fp32 masters are never touched.
 
+``--model internvideo2_{small,base,large,1B,6B}_patch14_224`` fine-tunes
+InternVideo2 (``jobs/finetune/IV2-S_DoTA.sh``: ``--num_frames 8
+--view_fps 5``).  Its tubelet is the family's own (1): the ViT's
+``--tubelet_size`` and ``--final_reduction`` do not apply to it, as in
+cli/eval_frames.py (the JAX CLI passes them to every model; ROADMAP.md F3).
+``--finetune`` loads a reference ``.pth`` of either family.
+
 Not ported: more than one device (``--zero_stage``, or ``--device`` naming
 several devices, raise: ROADMAP.md queue 1, DDP), gradient checkpointing
 (``--use_checkpoint``), attention dropout (``--attn_drop_rate`` > 0), and
@@ -66,16 +73,18 @@ def build_datasets(cfg: FinetuneConfig):
 
 
 def build_model(cfg: FinetuneConfig, device, dtype, param_dtype=None):
-    from simple_tad_tpu_torch.models import create_model
+    from simple_tad_tpu_torch.models import create_model, model_family
+    vit_only = {} if model_family(cfg.model) == "iv2" else dict(
+        tubelet_size=cfg.tubelet_size, final_reduction=cfg.final_reduction)
     return create_model(
         cfg.model, device=device,
         generator=torch.Generator().manual_seed(cfg.seed),
         num_classes=cfg.nb_classes, all_frames=cfg.num_frames,
-        img_size=cfg.input_size, tubelet_size=cfg.tubelet_size,
-        fc_drop_rate=cfg.fc_drop_rate, drop_rate=cfg.drop,
-        drop_path_rate=cfg.drop_path, attn_drop_rate=cfg.attn_drop_rate,
-        final_reduction=cfg.final_reduction, init_scale=cfg.init_scale,
-        dtype=dtype, param_dtype=param_dtype, remat=cfg.use_checkpoint)
+        img_size=cfg.input_size, fc_drop_rate=cfg.fc_drop_rate,
+        drop_rate=cfg.drop, drop_path_rate=cfg.drop_path,
+        attn_drop_rate=cfg.attn_drop_rate, init_scale=cfg.init_scale,
+        dtype=dtype, param_dtype=param_dtype, remat=cfg.use_checkpoint,
+        **vit_only)
 
 
 def build_optimizer(cfg: FinetuneConfig, model, steps_per_epoch: int):
@@ -128,14 +137,14 @@ def main(argv=None):
     from simple_tad_tpu_torch.utils import checkpoint as ckpt_utils
     from simple_tad_tpu_torch.utils.logging import (JsonlLogger,
                                                     TensorboardLogger)
-    from simple_tad_tpu_torch.utils.torch_convert import load_vit_checkpoint
+    from simple_tad_tpu_torch.utils.torch_convert import load_checkpoint_auto
 
     np.random.seed(cfg.seed)
     device = torch.device(dev_args.device)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     model = build_model(cfg, device, dtype, param_dtype=torch.float32)
     if cfg.finetune:
-        load_vit_checkpoint(cfg.finetune, model)
+        load_checkpoint_auto(cfg.finetune, model)
         print(f"initialized from {cfg.finetune}")
 
     train_ds, val_ds = build_datasets(cfg)

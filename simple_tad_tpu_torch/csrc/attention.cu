@@ -1,6 +1,6 @@
 // Non-causal inference attention read in place from the packed qkv tensor
 // (kernel A1), and the same kernels with an lse store (kernel C1, the
-// training forward).
+// training forward; kernel C3-fwd, the same on separate q, k and v).
 //
 // C1 replaces the TPU kernel simple_tad_tpu/ops/flash_attention.py:
 // _fwd_kernel_nomax_packed_lse, launched by _flash_fwd_packed_qkv_impl from
@@ -390,6 +390,27 @@ extern "C" int stt_attention_fwd_lse(const void* q, const void* k,
                                      int in_sn, int out_sb, int out_sn,
                                      float qscale, int dtype, void* stream) {
   const Strides st{in_sb, in_sn, in_sb, in_sn, in_sb, in_sn, out_sb, out_sn};
+  return dispatch<true>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype,
+                        stream);
+}
+
+// Kernel C3-fwd: C1 on separate q, k and v, each read through its own
+// (batch, row) stride pair, as stt_attention_fwd takes them (InternVideo2's
+// training forward: q and k the q/k-norms' outputs, v the column block of
+// the qkv output).  Replaces the TPU kernel _fwd_kernel, launched by
+// _flash_fwd_impl from the custom VJPs _flash_core_packed and _flash_core.
+// That kernel subtracts the true row maximum; this one the integer running
+// maximum above, which gives the same softmax and lse up to the bf16
+// rounding of p (ops/flash_attention.py:flash_attention_fwd_lse_plain).
+// Bounded like A1 (tensor-core throughput at N = 2049, Dh = 64).
+extern "C" int stt_attention_fwd_lse_sep(const void* q, const void* k,
+                                         const void* v, void* o, float* lse,
+                                         int b, int n, int h, int d, int q_sb,
+                                         int q_sn, int k_sb, int k_sn,
+                                         int v_sb, int v_sn, int o_sb,
+                                         int o_sn, float qscale, int dtype,
+                                         void* stream) {
+  const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
   return dispatch<true>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype,
                         stream);
 }

@@ -1,22 +1,38 @@
-// Backward of the packed-qkv training attention (kernel C2).
+// Backward of the training attention: kernel C2 on the packed qkv, and
+// kernel C3-bwd on separate q, k and v.
 //
-// Replaces the TPU kernel simple_tad_tpu/ops/flash_attention.py:
+// C2 replaces the TPU kernel simple_tad_tpu/ops/flash_attention.py:
 // _bwd_merged_kernel_packed, launched by _flash_bwd_packed_qkv_impl from the
 // packed custom VJP's backward.  As there, q, k, v and the gradient are read
 // and written in place on the (B, N, 3C) layout through its row stride and
 // the column offsets 0, C and 2C plus h * Dh: dq, dk and dv land in the
 // [dq | dk | dv] columns of one gradient tensor, with no relayout and no
-// concatenation.  The inputs are qkv, the output gradient dout (B, N, C),
-// the forward's base-2 lse (B, H, N) and delta = rowsum(dout * out)
-// (B, H, N), both fp32 (delta is computed by the caller, as the JAX package
-// computes it outside its kernel).
+// concatenation.
+//
+// C3-bwd is the same kernels given a (batch, row) stride pair for each of q,
+// k and v (InternVideo2's training attention: q and k the q/k-norms' fresh
+// outputs, v read in place as the column block of the qkv output, row
+// stride 3C); dq, dk and dv are three contiguous (B, N, C) tensors, which one
+// gradient stride pair and three base pointers address.  It replaces
+// _flash_bwd_impl's TPU kernels on the (B*H, N, Dh) layout:
+// _bwd_merged_kernel_dt (the default) and the forms its environment knobs
+// select, _bwd_merged_kernel and _bwd_dq_kernel with _bwd_dkv_kernel, which
+// compute the same function in other TPU orientations.  The packed entry
+// point passes one stride pair three times.
+//
+// The inputs are q, k, v, the output gradient dout (B, N, C), the
+// forward's base-2 lse (B, H, N) and delta = rowsum(dout * out) (B, H, N),
+// both fp32 (delta is computed by the caller, as the JAX package computes
+// it outside its kernel).
 //
 // Numerics held to the plain version (ops/flash_attention.py) and the TPU
-// kernel: s = bf16(q * scale * log2 e) . k in fp32; p = exp2(s - lse) in
+// kernels: s = bf16(q * scale * log2 e) . k in fp32; p = exp2(s - lse) in
 // fp32, 0 for keys and queries at or beyond N; dv = dout^T bf16(p);
 // dp = dout v^T; ds = p (dp - delta); dk = q^T bf16(ds) * scale and
 // dq = bf16(ds) k * scale with the raw (unscaled) q.  Rows of a pad query
-// never read their lse, so a pad row cannot put a NaN into dk or dv.
+// never read their lse, so a pad row cannot put a NaN into dk or dv.  The
+// ragged tail (N = 2049 for InternVideo2) is masked by index: nothing is
+// padded to the TPU's row multiple.
 //
 // What bounds it on the H100: per (batch, head) the backward does five
 // N x N x Dh products (s, dp, dv, dk, dq; the dq kernel recomputes s and
@@ -36,9 +52,10 @@
 //     16 rows of scaled Q and dout as fragments and loops over 64-key
 //     tiles (K and V row-major, K transposed), dQ += dS K.
 // mma.sync m16n8k16 bf16 with fp32 accumulators; no TMA, wgmma or warp
-// specialisation yet.  fp32 inputs (tests, small shapes) take two simple
-// CUDA-core kernels with the same split: one thread per key (dk/dv) or per
-// query (dq), 16-row tiles in shared memory.
+// specialisation yet.  Row offsets inside a (batch, head) stay 32-bit, as
+// in common.cuh's tile loader.  fp32 inputs (tests, small shapes) take two
+// simple CUDA-core kernels with the same split: one thread per key (dk/dv)
+// or per query (dq), 16-row tiles in shared memory.
 #include <math.h>
 
 #include "common.cuh"
@@ -55,6 +72,17 @@ constexpr int kTile = 64;      // keys per dk/dv block, queries per dq block,
 constexpr int kThreads = 128;  // 4 warps x 16 rows
 constexpr int kTileF32 = 16;   // streamed rows per tile (fp32 kernels)
 constexpr int kThreadsF32 = 64;
+
+// (batch, row) strides in elements of q, k, v, dout and the gradients
+struct Strides {
+  int q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, do_sb, do_sn, g_sb, g_sn;
+};
+
+// offset of (batch, head) in an operand with batch stride sb
+__device__ __forceinline__ size_t head_off(int sb, int d) {
+  return static_cast<size_t>(blockIdx.z) * sb +
+         static_cast<size_t>(blockIdx.y) * d;
+}
 
 template <int DP, int ROWS, bool TRANSPOSE, bool SCALE>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
@@ -98,8 +126,7 @@ __global__ void __launch_bounds__(kThreads)
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               bf16* __restrict__ dk, bf16* __restrict__ dv,
-                              int n, int d, int in_sb, int in_sn, int do_sb,
-                              int do_sn, int g_sb, int g_sn, float qscale,
+                              int n, int d, Strides st, float qscale,
                               float scale) {
   constexpr int KS = DP + 8;       // row stride of row-major tiles
   constexpr int TS = kTile + 8;    // row stride of transposed tiles
@@ -120,18 +147,16 @@ __global__ void __launch_bounds__(kThreads)
   const int t4 = lane & 3;
   const int k0 = blockIdx.x * kTile;
   const int r0 = warp * 16 + g;
-  const size_t in_off = static_cast<size_t>(blockIdx.z) * in_sb +
-                        static_cast<size_t>(blockIdx.y) * d;
-  const size_t do_off = static_cast<size_t>(blockIdx.z) * do_sb +
-                        static_cast<size_t>(blockIdx.y) * d;
   const size_t row_off =
       (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * n;
-  const bf16* qb = q + in_off;
-  const bf16* ob = dout + do_off;
+  const bf16* qb = q + head_off(st.q_sb, d);
+  const bf16* ob = dout + head_off(st.do_sb, d);
 
   // this warp's 16 keys of K and V -> registers
-  load_tile<DP, kTile, false, false>(sQ, KS, k + in_off, k0, n, d, in_sn, 0.f);
-  load_tile<DP, kTile, false, false>(sO, KS, v + in_off, k0, n, d, in_sn, 0.f);
+  load_tile<DP, kTile, false, false>(sQ, KS, k + head_off(st.k_sb, d), k0, n,
+                                     d, st.k_sn, 0.f);
+  load_tile<DP, kTile, false, false>(sO, KS, v + head_off(st.v_sb, d), k0, n,
+                                     d, st.v_sn, 0.f);
   __syncthreads();
   uint32_t kf[KSTEPS][4], vf[KSTEPS][4];
   load_frags<KSTEPS>(kf, sQ, KS, r0, t4);
@@ -146,10 +171,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   for (int q0 = 0; q0 < n; q0 += kTile) {
-    load_tile<DP, kTile, false, true>(sQ, KS, qb, q0, n, d, in_sn, qscale);
-    load_tile<DP, kTile, true, false>(sQt, TS, qb, q0, n, d, in_sn, 0.f);
-    load_tile<DP, kTile, false, false>(sO, KS, ob, q0, n, d, do_sn, 0.f);
-    load_tile<DP, kTile, true, false>(sOt, TS, ob, q0, n, d, do_sn, 0.f);
+    load_tile<DP, kTile, false, true>(sQ, KS, qb, q0, n, d, st.q_sn, qscale);
+    load_tile<DP, kTile, true, false>(sQt, TS, qb, q0, n, d, st.q_sn, 0.f);
+    load_tile<DP, kTile, false, false>(sO, KS, ob, q0, n, d, st.do_sn, 0.f);
+    load_tile<DP, kTile, true, false>(sOt, TS, ob, q0, n, d, st.do_sn, 0.f);
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       const bool ok = q0 + i < n;
       sL[i] = ok ? lse[row_off + q0 + i] : 0.f;
@@ -212,8 +237,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int key0 = k0 + r0;
   const int key1 = key0 + 8;
-  const size_t g_off = static_cast<size_t>(blockIdx.z) * g_sb +
-                       static_cast<size_t>(blockIdx.y) * d;
+  const size_t g_off = head_off(st.g_sb, d);
   bf16* dkb = dk + g_off;
   bf16* dvb = dv + g_off;
 #pragma unroll
@@ -221,14 +245,14 @@ __global__ void __launch_bounds__(kThreads)
     const int col = j * 8 + t4 * 2;
     if (col >= d) continue;
     if (key0 < n) {
-      const size_t at = static_cast<size_t>(key0) * g_sn + col;
+      const size_t at = static_cast<size_t>(key0) * st.g_sn + col;
       *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
           __floats2bfloat162_rn(dka[j][0] * scale, dka[j][1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
           __floats2bfloat162_rn(dva[j][0], dva[j][1]);
     }
     if (key1 < n) {
-      const size_t at = static_cast<size_t>(key1) * g_sn + col;
+      const size_t at = static_cast<size_t>(key1) * st.g_sn + col;
       *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
           __floats2bfloat162_rn(dka[j][2] * scale, dka[j][3] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
@@ -245,9 +269,8 @@ __global__ void __launch_bounds__(kThreads)
                             const bf16* __restrict__ dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
-                            bf16* __restrict__ dq, int n, int d, int in_sb,
-                            int in_sn, int do_sb, int do_sn, int g_sb,
-                            int g_sn, float qscale, float scale) {
+                            bf16* __restrict__ dq, int n, int d, Strides st,
+                            float qscale, float scale) {
   constexpr int KS = DP + 8;
   constexpr int TS = kTile + 8;
   constexpr int KSTEPS = DP / 16;
@@ -264,20 +287,16 @@ __global__ void __launch_bounds__(kThreads)
   const int t4 = lane & 3;
   const int q0 = blockIdx.x * kTile;
   const int r0 = warp * 16 + g;
-  const size_t in_off = static_cast<size_t>(blockIdx.z) * in_sb +
-                        static_cast<size_t>(blockIdx.y) * d;
-  const size_t do_off = static_cast<size_t>(blockIdx.z) * do_sb +
-                        static_cast<size_t>(blockIdx.y) * d;
   const size_t row_off =
       (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * n;
-  const bf16* kb = k + in_off;
-  const bf16* vb = v + in_off;
+  const bf16* kb = k + head_off(st.k_sb, d);
+  const bf16* vb = v + head_off(st.v_sb, d);
 
   // this warp's 16 rows of scaled q and dout -> registers
-  load_tile<DP, kTile, false, true>(sK, KS, q + in_off, q0, n, d, in_sn,
-                                    qscale);
-  load_tile<DP, kTile, false, false>(sV, KS, dout + do_off, q0, n, d, do_sn,
-                                     0.f);
+  load_tile<DP, kTile, false, true>(sK, KS, q + head_off(st.q_sb, d), q0, n,
+                                    d, st.q_sn, qscale);
+  load_tile<DP, kTile, false, false>(sV, KS, dout + head_off(st.do_sb, d), q0,
+                                     n, d, st.do_sn, 0.f);
   __syncthreads();
   uint32_t qf[KSTEPS][4], of[KSTEPS][4];
   load_frags<KSTEPS>(qf, sK, KS, r0, t4);
@@ -298,9 +317,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   for (int k0 = 0; k0 < n; k0 += kTile) {
-    load_tile<DP, kTile, false, false>(sK, KS, kb, k0, n, d, in_sn, 0.f);
-    load_tile<DP, kTile, false, false>(sV, KS, vb, k0, n, d, in_sn, 0.f);
-    load_tile<DP, kTile, true, false>(sKt, TS, kb, k0, n, d, in_sn, 0.f);
+    load_tile<DP, kTile, false, false>(sK, KS, kb, k0, n, d, st.k_sn, 0.f);
+    load_tile<DP, kTile, false, false>(sV, KS, vb, k0, n, d, st.v_sn, 0.f);
+    load_tile<DP, kTile, true, false>(sKt, TS, kb, k0, n, d, st.k_sn, 0.f);
     __syncthreads();
 
     float s[NT][4], dp[NT][4];
@@ -345,20 +364,19 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  bf16* dqb = dq + static_cast<size_t>(blockIdx.z) * g_sb +
-              static_cast<size_t>(blockIdx.y) * d;
+  bf16* dqb = dq + head_off(st.g_sb, d);
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int col = j * 8 + t4 * 2;
     if (col >= d) continue;
     if (row0 < n) {
       *reinterpret_cast<__nv_bfloat162*>(
-          dqb + static_cast<size_t>(row0) * g_sn + col) =
+          dqb + static_cast<size_t>(row0) * st.g_sn + col) =
           __floats2bfloat162_rn(acc[j][0] * scale, acc[j][1] * scale);
     }
     if (row1 < n) {
       *reinterpret_cast<__nv_bfloat162*>(
-          dqb + static_cast<size_t>(row1) * g_sn + col) =
+          dqb + static_cast<size_t>(row1) * st.g_sn + col) =
           __floats2bfloat162_rn(acc[j][2] * scale, acc[j][3] * scale);
     }
   }
@@ -374,8 +392,7 @@ __global__ void __launch_bounds__(kThreadsF32)
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              float* __restrict__ dk, float* __restrict__ dv,
-                             int n, int d, int in_sb, int in_sn, int do_sb,
-                             int do_sn, int g_sb, int g_sn, float qscale,
+                             int n, int d, Strides st, float qscale,
                              float scale) {
   __shared__ float sQ[kTileF32][DP];
   __shared__ float sQr[kTileF32][DP];
@@ -383,19 +400,18 @@ __global__ void __launch_bounds__(kThreadsF32)
   __shared__ float sL[kTileF32];
   __shared__ float sD[kTileF32];
   const int key = blockIdx.x * kThreadsF32 + threadIdx.x;
-  const size_t in_off = static_cast<size_t>(blockIdx.z) * in_sb +
-                        static_cast<size_t>(blockIdx.y) * d;
-  const size_t do_off = static_cast<size_t>(blockIdx.z) * do_sb +
-                        static_cast<size_t>(blockIdx.y) * d;
+  const float* qb = q + head_off(st.q_sb, d);
+  const float* ob = dout + head_off(st.do_sb, d);
+  const float* kb = k + head_off(st.k_sb, d) + static_cast<size_t>(key) * st.k_sn;
+  const float* vb = v + head_off(st.v_sb, d) + static_cast<size_t>(key) * st.v_sn;
   const size_t row_off =
       (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * n;
   float kr[DP], vr[DP], dka[DP], dva[DP];
 #pragma unroll
   for (int c = 0; c < DP; ++c) {
     const bool ok = key < n && c < d;
-    const size_t at = in_off + static_cast<size_t>(key) * in_sn + c;
-    kr[c] = ok ? k[at] : 0.f;
-    vr[c] = ok ? v[at] : 0.f;
+    kr[c] = ok ? kb[c] : 0.f;
+    vr[c] = ok ? vb[c] : 0.f;
     dka[c] = dva[c] = 0.f;
   }
   for (int q0 = 0; q0 < n; q0 += kTileF32) {
@@ -403,12 +419,10 @@ __global__ void __launch_bounds__(kThreadsF32)
       const int r = i / DP;
       const int c = i % DP;
       const bool ok = q0 + r < n && c < d;
-      const float x =
-          ok ? q[in_off + static_cast<size_t>(q0 + r) * in_sn + c] : 0.f;
+      const float x = ok ? qb[static_cast<size_t>(q0 + r) * st.q_sn + c] : 0.f;
       sQ[r][c] = x * qscale;
       sQr[r][c] = x;
-      sO[r][c] =
-          ok ? dout[do_off + static_cast<size_t>(q0 + r) * do_sn + c] : 0.f;
+      sO[r][c] = ok ? ob[static_cast<size_t>(q0 + r) * st.do_sn + c] : 0.f;
     }
     for (int i = threadIdx.x; i < kTileF32; i += kThreadsF32) {
       const bool ok = q0 + i < n;
@@ -435,9 +449,7 @@ __global__ void __launch_bounds__(kThreadsF32)
     __syncthreads();
   }
   if (key < n) {
-    const size_t at = static_cast<size_t>(blockIdx.z) * g_sb +
-                      static_cast<size_t>(blockIdx.y) * d +
-                      static_cast<size_t>(key) * g_sn;
+    const size_t at = head_off(st.g_sb, d) + static_cast<size_t>(key) * st.g_sn;
 #pragma unroll
     for (int c = 0; c < DP; ++c) {
       if (c < d) {
@@ -457,25 +469,24 @@ __global__ void __launch_bounds__(kThreadsF32)
                            const float* __restrict__ dout,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           float* __restrict__ dq, int n, int d, int in_sb,
-                           int in_sn, int do_sb, int do_sn, int g_sb,
-                           int g_sn, float qscale, float scale) {
+                           float* __restrict__ dq, int n, int d, Strides st,
+                           float qscale, float scale) {
   __shared__ float sK[kTileF32][DP];
   __shared__ float sV[kTileF32][DP];
   const int row = blockIdx.x * kThreadsF32 + threadIdx.x;
-  const size_t in_off = static_cast<size_t>(blockIdx.z) * in_sb +
-                        static_cast<size_t>(blockIdx.y) * d;
-  const size_t do_off = static_cast<size_t>(blockIdx.z) * do_sb +
-                        static_cast<size_t>(blockIdx.y) * d;
+  const float* qb = q + head_off(st.q_sb, d) + static_cast<size_t>(row) * st.q_sn;
+  const float* ob =
+      dout + head_off(st.do_sb, d) + static_cast<size_t>(row) * st.do_sn;
+  const float* kb = k + head_off(st.k_sb, d);
+  const float* vb = v + head_off(st.v_sb, d);
   const size_t row_off =
       (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * n;
   float qr[DP], orr[DP], acc[DP];
 #pragma unroll
   for (int c = 0; c < DP; ++c) {
     const bool ok = row < n && c < d;
-    qr[c] = ok ? q[in_off + static_cast<size_t>(row) * in_sn + c] * qscale
-               : 0.f;
-    orr[c] = ok ? dout[do_off + static_cast<size_t>(row) * do_sn + c] : 0.f;
+    qr[c] = ok ? qb[c] * qscale : 0.f;
+    orr[c] = ok ? ob[c] : 0.f;
     acc[c] = 0.f;
   }
   const float l = row < n ? lse[row_off + row] : 0.f;
@@ -485,9 +496,8 @@ __global__ void __launch_bounds__(kThreadsF32)
       const int r = i / DP;
       const int c = i % DP;
       const bool ok = k0 + r < n && c < d;
-      const size_t at = in_off + static_cast<size_t>(k0 + r) * in_sn + c;
-      sK[r][c] = ok ? k[at] : 0.f;
-      sV[r][c] = ok ? v[at] : 0.f;
+      sK[r][c] = ok ? kb[static_cast<size_t>(k0 + r) * st.k_sn + c] : 0.f;
+      sV[r][c] = ok ? vb[static_cast<size_t>(k0 + r) * st.v_sn + c] : 0.f;
     }
     __syncthreads();
     const int nk = min(kTileF32, n - k0);
@@ -505,9 +515,7 @@ __global__ void __launch_bounds__(kThreadsF32)
     __syncthreads();
   }
   if (row < n) {
-    float* out = dq + static_cast<size_t>(blockIdx.z) * g_sb +
-                 static_cast<size_t>(blockIdx.y) * d +
-                 static_cast<size_t>(row) * g_sn;
+    float* out = dq + head_off(st.g_sb, d) + static_cast<size_t>(row) * st.g_sn;
 #pragma unroll
     for (int c = 0; c < DP; ++c) {
       if (c < d) out[c] = acc[c] * scale;
@@ -525,9 +533,8 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 template <int DP>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk, void* dv,
-           int b, int n, int h, int d, int in_sb, int in_sn, int do_sb,
-           int do_sn, int g_sb, int g_sn, float qscale, float scale,
-           int dtype, cudaStream_t stream) {
+           int b, int n, int h, int d, const Strides& st, float qscale,
+           float scale, int dtype, cudaStream_t stream) {
   if (dtype == stt::kBFloat16) {
     const dim3 grid((n + kTile - 1) / kTile, h, b);
     const bf16* qp = static_cast<const bf16*>(q);
@@ -542,13 +549,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     if (err != cudaSuccess) return static_cast<int>(err);
     attn_bwd_dkdv_bf16_kernel<DP><<<grid, kThreads, kv_bytes, stream>>>(
         qp, kp, vp, op, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), n, d, in_sb, in_sn, do_sb, do_sn, g_sb, g_sn,
-        qscale, scale);
+        static_cast<bf16*>(dv), n, d, st, qscale, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     attn_bwd_dq_bf16_kernel<DP><<<grid, kThreads, q_bytes, stream>>>(
-        qp, kp, vp, op, lse, delta, static_cast<bf16*>(dq), n, d, in_sb,
-        in_sn, do_sb, do_sn, g_sb, g_sn, qscale, scale);
+        qp, kp, vp, op, lse, delta, static_cast<bf16*>(dq), n, d, st, qscale,
+        scale);
   } else {
     const dim3 grid((n + kThreadsF32 - 1) / kThreadsF32, h, b);
     const float* qp = static_cast<const float*>(q);
@@ -557,43 +563,29 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     const float* op = static_cast<const float*>(dout);
     attn_bwd_dkdv_f32_kernel<DP><<<grid, kThreadsF32, 0, stream>>>(
         qp, kp, vp, op, lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), n, d, in_sb, in_sn, do_sb, do_sn, g_sb, g_sn,
-        qscale, scale);
+        static_cast<float*>(dv), n, d, st, qscale, scale);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     attn_bwd_dq_f32_kernel<DP><<<grid, kThreadsF32, 0, stream>>>(
-        qp, kp, vp, op, lse, delta, static_cast<float*>(dq), n, d, in_sb,
-        in_sn, do_sb, do_sn, g_sb, g_sn, qscale, scale);
+        qp, kp, vp, op, lse, delta, static_cast<float*>(dq), n, d, st, qscale,
+        scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// q, k, v: base pointers of head 0 of the packed qkv (qkv, qkv + C,
-// qkv + 2C); element (batch, row, head h, dim c) at base + batch * in_sb +
-// row * in_sn + h * d + c.  dout likewise with do_sb, do_sn; dq, dk, dv
-// (the [dq | dk | dv] column blocks of one gradient tensor) with g_sb,
-// g_sn.  lse and delta: (B, H, N) fp32, contiguous.  qscale = scale *
-// log2(e).  Launches two kernels (dk/dv, then dq) on the stream.  d must be
-// a multiple of 8 and at most 128; for bf16 every base pointer and stride
-// must keep 16-byte alignment.
-extern "C" int stt_attention_bwd(const void* q, const void* k, const void* v,
-                                 const void* dout, const float* lse,
-                                 const float* delta, void* dq, void* dk,
-                                 void* dv, int b, int n, int h, int d,
-                                 int in_sb, int in_sn, int do_sb, int do_sn,
-                                 int g_sb, int g_sn, float qscale,
-                                 float scale, int dtype, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, void* dq, void* dk,
+             void* dv, int b, int n, int h, int d, const Strides& st,
+             float qscale, float scale, int dtype, void* stream) {
   if (b <= 0 || n <= 0 || h <= 0 || d <= 0 || d % 8 != 0 || d > 128 ||
       b > 65535 || h > 65535 ||
       (dtype != stt::kBFloat16 && dtype != stt::kFloat32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STT_BWD(DP)                                                          \
-  return launch<DP>(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, d, in_sb, \
-                    in_sn, do_sb, do_sn, g_sb, g_sn, qscale, scale, dtype, s)
+#define STT_BWD(DP)                                                        \
+  return launch<DP>(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, d, st, \
+                    qscale, scale, dtype, s)
   switch ((d + 15) / 16 * 16) {
     case 16: STT_BWD(16);
     case 32: STT_BWD(32);
@@ -606,4 +598,44 @@ extern "C" int stt_attention_bwd(const void* q, const void* k, const void* v,
   }
 #undef STT_BWD
   return static_cast<int>(cudaErrorInvalidValue);  // not reached
+}
+
+}  // namespace
+
+// Kernel C2.  q, k, v: base pointers of head 0 of the packed qkv (qkv,
+// qkv + C, qkv + 2C); element (batch, row, head h, dim c) at base +
+// batch * in_sb + row * in_sn + h * d + c.  dout likewise with do_sb,
+// do_sn; dq, dk, dv (the [dq | dk | dv] column blocks of one gradient
+// tensor) with g_sb, g_sn.  lse and delta: (B, H, N) fp32, contiguous.
+// qscale = scale * log2(e).  Launches two kernels (dk/dv, then dq) on the
+// stream.  d must be a multiple of 8 and at most 128; for bf16 every base
+// pointer and stride must keep 16-byte alignment.
+extern "C" int stt_attention_bwd(const void* q, const void* k, const void* v,
+                                 const void* dout, const float* lse,
+                                 const float* delta, void* dq, void* dk,
+                                 void* dv, int b, int n, int h, int d,
+                                 int in_sb, int in_sn, int do_sb, int do_sn,
+                                 int g_sb, int g_sn, float qscale,
+                                 float scale, int dtype, void* stream) {
+  const Strides st{in_sb, in_sn, in_sb, in_sn, in_sb, in_sn,
+                   do_sb, do_sn, g_sb, g_sn};
+  return dispatch(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, d, st,
+                  qscale, scale, dtype, stream);
+}
+
+// Kernel C3-bwd: stt_attention_bwd with a (batch, row) stride pair for each
+// of q (q_sb, q_sn), k and v; dq, dk and dv share g_sb, g_sn.
+extern "C" int stt_attention_bwd_sep(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     void* dq, void* dk, void* dv, int b,
+                                     int n, int h, int d, int q_sb, int q_sn,
+                                     int k_sb, int k_sn, int v_sb, int v_sn,
+                                     int do_sb, int do_sn, int g_sb, int g_sn,
+                                     float qscale, float scale, int dtype,
+                                     void* stream) {
+  const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
+                   do_sb, do_sn, g_sb, g_sn};
+  return dispatch(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, d, st,
+                  qscale, scale, dtype, stream);
 }

@@ -130,11 +130,18 @@ def load() -> ctypes.CDLL:
                                                   i, i, i, i, ctypes.c_float,
                                                   i, p]
             lib.stt_attention_fwd_lse.restype = i
+            lib.stt_attention_fwd_lse_sep.argtypes = [p, p, p, p, p,
+                                                      *[i] * 12,
+                                                      ctypes.c_float, i, p]
+            lib.stt_attention_fwd_lse_sep.restype = i
             lib.stt_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i,
                                               i, i, i, i, i, i, i, i, i,
                                               ctypes.c_float, ctypes.c_float,
                                               i, p]
             lib.stt_attention_bwd.restype = i
+            lib.stt_attention_bwd_sep.argtypes = [p] * 9 + [i] * 14 + [
+                ctypes.c_float, ctypes.c_float, i, p]
+            lib.stt_attention_bwd_sep.restype = i
             lib.stt_attention_i8.argtypes = [p, p, p, p, p, p, *[i] * 13,
                                              ctypes.c_float, p]
             lib.stt_attention_i8.restype = i

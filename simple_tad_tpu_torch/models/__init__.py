@@ -64,13 +64,15 @@ def create_model(name: str, *, device, generator: torch.Generator = None,
     overrides set config fields (those of the JAX registry that the CLIs
     pass: ``num_classes``, ``all_frames``, ``img_size``, ``tubelet_size``,
     the dropout and drop-path rates, ``final_reduction``, ``init_scale``,
-    ``dtype``, ``remat``; and ``param_dtype`` for fp32 training masters of
-    the ViT); keys that are not fields of the family's config
-    (``attn_impl``: the port has one attention path) are ignored, as in the
-    JAX registry.  For InternVideo2, ``all_frames`` sets ``num_frames``, as
-    the JAX registry maps it.  With ``generator`` the weights are
-    initialised from it; otherwise they are left uninitialised for a
-    checkpoint to fill."""
+    ``dtype``, ``remat``; and ``param_dtype`` for fp32 training masters);
+    keys that are not fields of the family's config (``attn_impl``: the
+    port has one attention path; InternVideo2's ``drop_rate`` and
+    ``attn_drop_rate``, which its config lacks) are ignored, as in the JAX
+    registry.  For InternVideo2, ``all_frames`` sets ``num_frames``, as
+    the JAX registry maps it, and ``param_dtype``, ``drop_path_rate`` and
+    ``fc_drop_rate`` reach its config as they reach the ViT's.  With
+    ``generator`` the weights are initialised from it; otherwise they are
+    left uninitialised for a checkpoint to fill."""
     kind = model_family(name)
     kw = dict(_REGISTRY[name][1])
     kw.update(overrides)

@@ -1,12 +1,12 @@
 """InternVideo2 single-modality video transformer (S/B/L/1B/6B), in PyTorch.
 
 Port of simple_tad_tpu/models/internvideo2.py for serving (bf16 or fp32,
-and static int8).  Differences from the VideoMAE ViT: patch 14, tubelet 1,
-8 frames; a CLS token; a learnable position table (joint, or separate
-spatial/temporal/cls tables), loaded from checkpoints; RMSNorm blocks with
-q/k RMS-normalisation over the whole width C; LayerScale multiplied in
-fp32; an attention-pooling head projecting to ``clip_embed_dim``, then
-``fc_norm`` and the classifier.
+and static int8) and frame fine-tuning.  Differences from the VideoMAE
+ViT: patch 14, tubelet 1, 8 frames; a CLS token; a learnable position
+table (joint, or separate spatial/temporal/cls tables), loaded from
+checkpoints; RMSNorm blocks with q/k RMS-normalisation over the whole
+width C; LayerScale multiplied in fp32; an attention-pooling head
+projecting to ``clip_embed_dim``, then ``fc_norm`` and the classifier.
 
 Parameter names are the reference checkpoint's (the JAX package's
 torch_to_iv2_params reads the same keys), so a reference ``.pth`` loads by
@@ -19,7 +19,9 @@ name: ``patch_embed.proj``, ``cls_token``, ``pos_embed``,
 models/layers.py: Linear weights and biases (and the pooling head's
 projections) in the compute dtype, which the JAX package casts them to at
 use; norms, LayerScale gammas, the position tables, the CLS token, the
-patch-embed bias and the classifier in fp32.
+patch-embed bias and the classifier in fp32.  ``param_dtype=torch.float32``
+stores every parameter as an fp32 master, computed in ``dtype`` (the JAX
+package's training setup), and the parameters require grad.
 
 Kernels: the bf16/fp32 attention is ops/attention.py:dot_product_attention
 on separate operands, v read in place from the qkv output (kernel A1 with a
@@ -34,16 +36,26 @@ package's SIMPLE_TAD_FUSED_RMSQ opt-in, here an explicit argument) makes
 norm1/norm2 and the q/k-norms emit int8 through the RMSNorm->int8 kernel
 (D3); their absmax is calibrated in the norm scopes.
 
+Training (the JAX model's ``deterministic=False``): in ``train()`` mode,
+with fp32 masters, the attention is the separate-operand training attention
+(kernels C3: forward with lse, backward; ops/flash_attention.py), stochastic
+depth runs on both residual branches after LayerScale with rates
+``linspace(0, drop_path_rate, depth)``, and dropout ``fc_drop_rate`` on the
+pooled features before the head, their masks drawn from the ``generator``
+given to ``forward``.  RMSNorm, LayerScale and the pooling head train
+through plain PyTorch autograd, as the JAX package leaves them to XLA.
+Gradient checkpointing (``remat``) is not ported and raises.
+
 The JAX package's model-level sequence pad (``attn_seq_pad``) is not
 ported: it exists to save per-layer copies on the TPU, the port's kernels
 mask keys by index, and the unpadded program computes the same valid rows.
-Training (stochastic depth, head dropout), ``features_only`` and the
-distillation taps are later slices.
+``features_only`` and the distillation taps are later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,7 +63,8 @@ from torch import nn
 
 from simple_tad_tpu_torch.models.layers import (QUANT_MODES, Linear, Mlp,
                                                 PatchEmbed, QuantLinear,
-                                                _param, absmax, observe,
+                                                _param, absmax, drop_path,
+                                                dropout, observe,
                                                 trunc_normal)
 from simple_tad_tpu_torch.ops.attention import (dot_product_attention,
                                                 dot_product_attention_i8_sep)
@@ -84,8 +97,9 @@ def sincos_3d_pos_embed(dim: int, grid_size: int, t_size: int) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class IV2Config:
-    """The serving fields of simple_tad_tpu/models/internvideo2.py:IV2Config
-    (its defaults are IV2-1B's), plus ``fused_rmsq``."""
+    """The fields of simple_tad_tpu/models/internvideo2.py:IV2Config (its
+    defaults are IV2-1B's, drop path 0.25 included; the fine-tuning CLI
+    passes its ``--drop_path``), plus ``fused_rmsq`` and ``param_dtype``."""
     img_size: int = 224
     patch_size: int = 14
     in_chans: int = 3
@@ -102,6 +116,8 @@ class IV2Config:
     num_frames: int = 8
     tubelet_size: int = 1
     sep_pos_embed: bool = False
+    drop_path_rate: float = 0.25
+    fc_drop_rate: float = 0.0
     init_scale: float = 0.001
     # int8 GEMM inference (ops/quant.py): 'static', 'dynamic' or 'calib';
     # fused_rmsq: norm1/norm2 and the q/k-norms emit int8 (static/calib)
@@ -109,6 +125,11 @@ class IV2Config:
     quant_mode: str = "dynamic"
     fused_rmsq: bool = False
     dtype: torch.dtype = torch.float32
+    # parameter storage: None keeps each parameter in the dtype the JAX
+    # package computes it in (inference); torch.float32 gives fp32 training
+    # masters
+    param_dtype: Optional[torch.dtype] = None
+    remat: bool = False
 
     @property
     def grid_size(self):
@@ -216,8 +237,9 @@ class IV2Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = False,
                  qk_normalization: bool = True, dtype=torch.float32,
-                 quant: bool = False, quant_mode: str = "dynamic",
-                 fused_rmsq: bool = False, device=None):
+                 param_dtype=None, quant: bool = False,
+                 quant_mode: str = "dynamic", fused_rmsq: bool = False,
+                 device=None):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
@@ -236,8 +258,9 @@ class IV2Attention(nn.Module):
             self.observed = {}
         else:
             self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
-                              device=device)
-            self.proj = Linear(dim, dim, dtype=dtype, device=device)
+                              param_dtype=param_dtype, device=device)
+            self.proj = Linear(dim, dim, dtype=dtype, param_dtype=param_dtype,
+                               device=device)
         if qk_normalization:
             self.q_norm = RMSNorm(dim, dtype=dtype, device=device)
             self.k_norm = RMSNorm(dim, dtype=dtype, device=device)
@@ -298,14 +321,17 @@ class LayerScale(nn.Module):
 
 
 class IV2Block(nn.Module):
-    """x += ls1(attn(norm1(x))); x += ls2(mlp(norm2(x)))."""
+    """x += dp(ls1(attn(norm1(x)))); x += dp(ls2(mlp(norm2(x)))), dp the
+    stochastic depth at ``drop_path_rate`` (identity at eval)."""
 
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, init_values: float = 1e-5,
-                 qk_normalization: bool = True, dtype=torch.float32,
-                 quant: bool = False, quant_mode: str = "dynamic",
-                 fused_rmsq: bool = False, device=None):
+                 qk_normalization: bool = True, drop_path_rate: float = 0.0,
+                 dtype=torch.float32, param_dtype=None, quant: bool = False,
+                 quant_mode: str = "dynamic", fused_rmsq: bool = False,
+                 device=None):
         super().__init__()
+        self.drop_path_rate = float(drop_path_rate)
         if quant and quant_mode not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {quant_mode!r}")
         fused = quant and fused_rmsq and quant_mode in ("static", "calib")
@@ -319,12 +345,13 @@ class IV2Block(nn.Module):
         self.norm1 = norm()
         self.attn = IV2Attention(dim, num_heads, qkv_bias=qkv_bias,
                                  qk_normalization=qk_normalization,
-                                 dtype=dtype, quant=quant,
-                                 quant_mode=quant_mode,
+                                 dtype=dtype, param_dtype=param_dtype,
+                                 quant=quant, quant_mode=quant_mode,
                                  fused_rmsq=fused_rmsq, device=device)
         self.ls1 = LayerScale(dim, init_values, dtype=dtype, device=device)
         self.norm2 = norm()
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, quant=quant,
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype,
+                       param_dtype=param_dtype, quant=quant,
                        quant_mode=quant_mode, device=device)
         self.ls2 = LayerScale(dim, init_values, dtype=dtype, device=device)
 
@@ -334,23 +361,30 @@ class IV2Block(nn.Module):
         self.attn.init_weights(generator)
         self.mlp.init_weights(generator)
 
-    def forward(self, x):
-        x = x + self.ls1(self.attn(self.norm1(x)))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+    def forward(self, x, generator=None):
+        rate, training = self.drop_path_rate, self.training
+        h = self.ls1(self.attn(self.norm1(x)))
+        x = x + drop_path(h, rate, training, generator)
+        h = self.ls2(self.mlp(self.norm2(x)))
+        return x + drop_path(h, rate, training, generator)
 
 
 class CrossAttention(nn.Module):
     """The pooling head's projections: bias-free ``q``/``k``/``v`` weights
     with standalone ``q_bias``/``k_bias``/``v_bias``, and ``proj``."""
 
-    def __init__(self, dim: int, out_dim: int, *, dtype, device=None):
+    def __init__(self, dim: int, out_dim: int, *, dtype, param_dtype=None,
+                 device=None):
         super().__init__()
         self.dtype = dtype
         for name in ("q", "k", "v"):
             setattr(self, name, Linear(dim, dim, bias=False, dtype=dtype,
+                                       param_dtype=param_dtype,
                                        device=device))
-            setattr(self, f"{name}_bias", _param((dim,), dtype, device))
-        self.proj = Linear(dim, out_dim, dtype=dtype, device=device)
+            setattr(self, f"{name}_bias",
+                    _param((dim,), param_dtype or dtype, device))
+        self.proj = Linear(dim, out_dim, dtype=dtype, param_dtype=param_dtype,
+                           device=device)
 
     def init_weights(self, generator):
         for name in ("q", "k", "v"):
@@ -372,7 +406,7 @@ class AttentionPooling(nn.Module):
     compute dtype, the weighted sum accumulated in fp32 and cast."""
 
     def __init__(self, dim: int, num_heads: int, out_dim: int, *, dtype,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
@@ -380,6 +414,7 @@ class AttentionPooling(nn.Module):
         self.norm1_k = LayerNormEps(dim, dtype=dtype, device=device)
         self.norm1_v = LayerNormEps(dim, dtype=dtype, device=device)
         self.cross_attn = CrossAttention(dim, out_dim, dtype=dtype,
+                                         param_dtype=param_dtype,
                                          device=device)
 
     def init_weights(self, generator):
@@ -412,11 +447,18 @@ class InternVideo2(nn.Module):
                                    and cfg.quant_mode in ("static", "calib")):
             raise ValueError("fused_rmsq is an option of the static int8 "
                              "model (and its calibration twin)")
+        if cfg.quant and cfg.param_dtype is not None:
+            raise ValueError("the int8 model is inference only")
+        if cfg.remat:
+            raise NotImplementedError(
+                "gradient checkpointing (--use_checkpoint) is not ported yet "
+                "(ROADMAP.md queue 1, frame fine-tuning: remat)")
         self.cfg = cfg
-        dt, D = cfg.dtype, cfg.embed_dim
+        dt, pdt, D = cfg.dtype, cfg.param_dtype, cfg.embed_dim
         nt, nh, nw = cfg.grid_size
         self.patch_embed = PatchEmbed(D, cfg.patch_size, cfg.tubelet_size,
-                                      cfg.in_chans, dtype=dt, device=device)
+                                      cfg.in_chans, dtype=dt, param_dtype=pdt,
+                                      device=device)
         self.cls_token = _param((1, 1, D), torch.float32, device)
         if cfg.sep_pos_embed:
             self.pos_embed_spatial = _param((1, nh * nw, D), torch.float32,
@@ -430,18 +472,19 @@ class InternVideo2(nn.Module):
         self.blocks = nn.ModuleList(
             IV2Block(D, cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
                      qkv_bias=cfg.qkv_bias, init_values=cfg.init_values,
-                     qk_normalization=cfg.qk_normalization, dtype=dt,
+                     qk_normalization=cfg.qk_normalization,
+                     drop_path_rate=float(rate), dtype=dt, param_dtype=pdt,
                      quant=cfg.quant, quant_mode=cfg.quant_mode,
                      fused_rmsq=cfg.fused_rmsq, device=device)
-            for _ in range(cfg.depth))
+            for rate in np.linspace(0.0, cfg.drop_path_rate, cfg.depth))
         self.clip_projector = AttentionPooling(
             D, cfg.attn_pool_num_heads, cfg.clip_embed_dim, dtype=dt,
-            device=device)
+            param_dtype=pdt, device=device)
         self.fc_norm = LayerNormEps(cfg.clip_embed_dim, dtype=dt,
                                     device=device)
         self.head = (Linear(cfg.clip_embed_dim, cfg.num_classes,
                             device=device) if cfg.num_classes > 0 else None)
-        self.requires_grad_(False)
+        self.requires_grad_(pdt is not None)
 
     def init_weights(self, generator: torch.Generator) -> "InternVideo2":
         """Fill every parameter from ``generator`` with the JAX package's
@@ -491,21 +534,21 @@ class InternVideo2(nn.Module):
                                                            dim=1))
         return torch.cat([self.pos_embed_cls, pos], dim=1)
 
-    def forward(self, x, *, tokens_input: bool = False):
+    def forward(self, x, *, tokens_input: bool = False, generator=None):
         """x: (B, T, H, W, C) normalized video -> (B, num_classes) fp32
         logits; with ``tokens_input``, x is (B, num_patches, D) tokens (the
-        CLS token and the position table are added here)."""
-        if self.training:
-            raise NotImplementedError(
-                "InternVideo2 training is not ported yet (ROADMAP.md queue "
-                "1, item 10)")
+        CLS token and the position table are added here).  ``generator``:
+        the source of the training-mode stochastic-depth and head-dropout
+        masks (on x's device)."""
         dt = self.cfg.dtype
         tokens = x.to(dt) if tokens_input else self.patch_embed(x)
         cls = self.cls_token.to(dt).expand(tokens.shape[0], -1, -1)
         tokens = torch.cat([cls, tokens], dim=1) + self.position_table().to(dt)
         for blk in self.blocks:
-            tokens = blk(tokens)
+            tokens = blk(tokens, generator)
         feats = self.fc_norm(self.clip_projector(tokens))
         if self.head is None:
             return feats
+        feats = dropout(feats, self.cfg.fc_drop_rate, self.training,
+                        generator)
         return self.head(feats.float())

@@ -14,7 +14,9 @@ environment knobs are not ported.
 
 Separate operands (InternVideo2's attention, whose q and k are
 RMS-normalised after the projection): ``dot_product_attention`` is
-ops/flash_attention.py:flash_attention; its static int8 form
+ops/flash_attention.py:flash_attention, in training (grad mode, operands
+requiring grad) the separate-operand training attention (kernels C3); its
+static int8 form
 ``dot_product_attention_i8_sep`` (the JAX IV2Attention's int8-storage
 branch) quantizes each operand per head against the calibrated
 ``qkv_amax``, unless it already arrives as int8 codes (the fused
@@ -51,7 +53,9 @@ def dot_product_attention_qkv(qkv, *, num_heads: int, scale: float,
 def dot_product_attention(q, k, v, *, num_heads: int, scale: float,
                           dropout_rate: float = 0.0):
     """Separate (B, N, C) q, k, v (each may be a strided column view) ->
-    (B, N, C).  ``dropout_rate``: the attention dropout in effect."""
+    (B, N, C); trains through kernels C3 where the operands require grad.
+    ``dropout_rate``: the attention dropout in effect (a positive one
+    raises: C4)."""
     _no_dropout(dropout_rate)
     return flash_attention(q, k, v, num_heads=num_heads, scale=scale)
 

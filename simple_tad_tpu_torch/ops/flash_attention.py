@@ -34,26 +34,44 @@ CUDA kernels as the packed wrappers, given a (batch, row) stride pair per
 operand, so v is read in place as the column block of the qkv output.  The
 key grid is a TPU VMEM plan: its max-free partial sums add up to the same
 result.  ``n_valid`` masks keys at or beyond it, as the TPU kernels'
-``mask_keys`` does.
+``mask_keys`` does.  Where the channel axis is no multiple of 128 the JAX
+package takes _flash_primal_impl's _fwd_kernel_nomax on a (B*H, N, Dh)
+relayout instead; ``flash_attention`` computes the same function at every
+geometry, so it stands for that kernel too.
 
 Training (port of the packed custom VJP, _flash_core_packed_qkv with
 _packed_train_ok): ``flash_attention_qkv`` on a qkv that requires grad, in
 grad mode, goes through ``FlashAttentionQKV``, whose forward is
-``flash_attention_qkv_fwd_lse`` (TPU kernel _fwd_kernel_nomax_packed_lse:
-A1 that also returns lse = log2 of the denominator, (B, H, N) fp32) and
-whose backward is ``flash_attention_qkv_bwd`` (TPU kernel
+``flash_attention_qkv_fwd_lse`` (kernel C1, TPU kernel
+_fwd_kernel_nomax_packed_lse: A1 that also returns lse = log2 of the
+denominator, (B, H, N) fp32) and whose backward is
+``flash_attention_qkv_bwd`` (kernel C2, TPU kernel
 _bwd_merged_kernel_packed: dq, dk, dv from qkv, out, lse, dout and
 delta = rowsum(dout * out), written as one (B, N, 3C) gradient in
 [dq | dk | dv] column order; csrc/attention_train.cu).  It saves
 (qkv, out, lse), as the JAX forward does.
 
+Training on separate operands (InternVideo2; port of the custom VJPs
+_flash_core_packed and _flash_core under grad): ``flash_attention`` on
+operands that require grad, in grad mode, goes through ``FlashAttention``,
+whose forward is ``flash_attention_fwd_lse`` (kernel C3-fwd, TPU kernel
+_fwd_kernel launched by _flash_fwd_impl: C1's kernel given a stride pair
+per operand) and whose backward is ``flash_attention_bwd`` (kernel
+C3-bwd, TPU kernels _bwd_merged_kernel_dt and its other orientations,
+launched by _flash_bwd_impl: C2's kernels given a stride pair per
+operand, dq, dk and dv as three (B, N, C) tensors).  It saves
+(q, k, v, out, lse), v as the strided view it was given.  The TPU kernels
+run on a (B*H, N, Dh) relayout padded to a row multiple; the port reads
+the (B, N, C) operands in place and masks the ragged tail by index.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  ``LAUNCHES`` counts launches of the bf16/fp32
 inference kernel on the packed qkv, ``SEP_LAUNCHES`` on separate operands,
 ``I8_LAUNCHES`` those of the int8 one on the packed qkv and
-``I8_SEP_LAUNCHES`` on separate operands, ``FWD_LSE_LAUNCHES`` those of
-the training forward and ``BWD_LAUNCHES`` calls of the training backward
-(each call launches two kernels: dk/dv, then dq).
+``I8_SEP_LAUNCHES`` on separate operands, ``FWD_LSE_LAUNCHES`` and
+``SEP_FWD_LSE_LAUNCHES`` those of the training forward (packed, separate)
+and ``BWD_LAUNCHES`` and ``SEP_BWD_LAUNCHES`` calls of the training
+backward (each call launches two kernels: dk/dv, then dq).
 """
 
 from __future__ import annotations
@@ -72,6 +90,8 @@ I8_LAUNCHES = 0
 I8_SEP_LAUNCHES = 0
 FWD_LSE_LAUNCHES = 0
 BWD_LAUNCHES = 0
+SEP_FWD_LSE_LAUNCHES = 0
+SEP_BWD_LAUNCHES = 0
 
 
 def _split_heads(qkv, num_heads: int):
@@ -144,18 +164,20 @@ def attention_delta(out, dout, num_heads: int):
     return d.permute(0, 2, 1).contiguous()
 
 
-def flash_attention_qkv_bwd_plain(qkv, out, lse, dout, num_heads: int,
-                                  scale: float):
-    """-> dqkv (B, N, 3C) in [dq | dk | dv] columns, in qkv's dtype.
+def _attend_bwd_plain(q, k, v, out, lse, dout, num_heads: int,
+                      scale: float):
+    """q, k, v (B, H, N, Dh) and out, dout (B, N, C) in the input dtype,
+    lse (B, H, N) -> dq, dk, dv (B, H, N, Dh) in the accumulation dtype.
 
     s = bf16(q * scale * log2 e) . k; p = exp2(s - lse) in fp32;
     dv = dout^T bf16(p); dp = dout v^T; ds = p (dp - delta);
-    dk = q^T bf16(ds) * scale; dq = bf16(ds) k * scale (q unscaled).
+    dk = q^T bf16(ds) * scale; dq = bf16(ds) k * scale (q unscaled):
+    the arithmetic of the TPU kernel _bwd_merged_kernel_dt (and of its
+    packed twin _bwd_merged_kernel_packed).
     """
-    B, N, C3 = qkv.shape
-    dt, acc = qkv.dtype, _acc(qkv.dtype)
-    q, k, v = (t.to(acc) for t in _split_heads(qkv, num_heads))
-    do = dout.view(B, N, num_heads, -1).permute(0, 2, 1, 3).to(acc)
+    dt, acc = q.dtype, _acc(q.dtype)
+    q, k, v = q.to(acc), k.to(acc), v.to(acc)
+    do = _heads(dout, num_heads).to(acc)
     delta = attention_delta(out, dout, num_heads)[..., None]
     qs = (q * (scale * LOG2E)).to(dt).to(acc)
     s = torch.matmul(qs, k.transpose(-1, -2))
@@ -165,8 +187,54 @@ def flash_attention_qkv_bwd_plain(qkv, out, lse, dout, num_heads: int,
     ds = (p * (dp - delta)).to(dt).to(acc)
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
     dq = torch.matmul(ds, k) * scale
-    grads = torch.stack([dq, dk, dv]).to(dt)               # (3, B, H, N, Dh)
+    return dq, dk, dv
+
+
+def flash_attention_qkv_bwd_plain(qkv, out, lse, dout, num_heads: int,
+                                  scale: float):
+    """-> dqkv (B, N, 3C) in [dq | dk | dv] columns, in qkv's dtype (see
+    ``_attend_bwd_plain``)."""
+    B, N, C3 = qkv.shape
+    grads = torch.stack(_attend_bwd_plain(*_split_heads(qkv, num_heads), out,
+                                          lse, dout, num_heads, scale))
+    grads = grads.to(qkv.dtype)                            # (3, B, H, N, Dh)
     return grads.permute(1, 3, 0, 2, 4).reshape(B, N, C3)
+
+
+def flash_attention_fwd_lse_plain(q, k, v, num_heads: int, scale: float):
+    """The training forward on separate (B, N, C) operands -> (out (B, N, C)
+    in q's dtype, lse (B, H, N) fp32 base 2).
+
+    The same arithmetic as ``flash_attention_qkv_fwd_lse_plain``, and so
+    not quite the TPU kernel's (_fwd_kernel, reached by _flash_fwd_impl):
+    that kernel subtracts the true row maximum m, this one the row maximum
+    rounded up to an integer.  Both are overflow-safe and the shift cancels
+    in exact arithmetic, but each bf16-rounded probability is rounded from
+    another value (2^(s - ceil m) and 2^(s - m) differ by a factor that is
+    not a power of two), so out and lse agree with the TPU kernel's to
+    about one bf16 rounding of p, not bit for bit: in the CPU test
+    (tests/test_torch_iv2_train_attention.py, N = 9 and 37) bf16 out
+    differs by up to one bf16 ulp (7.8e-3 at |out| < 2) and lse by up to
+    2.9e-3, within the analytic log2(1 + 2^-8) = 5.6e-3; in fp32 the two
+    are the same function (out 1.3e-6, lse 9.5e-7).  The TPU kernel's
+    denominator sums the bf16-rounded p where Dh is not a multiple of 128
+    (on the matrix unit, through a ones column beside v: IV2-S/B/L's Dh 64)
+    and the unrounded fp32 p where it is (IV2-1B's 88, padded to 128); the
+    port always sums the rounded p, the weights its PV product uses, as its
+    kernels C1 and C3-fwd do.
+    """
+    heads = (_heads(t, num_heads) for t in (q, k, v))
+    o, lse = _attend_plain(*heads, scale)
+    return _merge_heads(o), lse
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, num_heads: int,
+                              scale: float):
+    """The training backward on separate (B, N, C) operands -> (dq, dk, dv),
+    each (B, N, C) in q's dtype (see ``_attend_bwd_plain``)."""
+    heads = [_heads(t, num_heads) for t in (q, k, v)]
+    return tuple(_merge_heads(g).to(q.dtype) for g in _attend_bwd_plain(
+        *heads, out, lse, dout, num_heads, scale))
 
 
 def _check_packed(name: str, qkv, num_heads: int, scale: float):
@@ -221,6 +289,36 @@ def _check_sep(name: str, operands, num_heads: int, scale: float, dtypes):
                              f"stride")
     B, N, C = q.shape
     return B, N, C, C // num_heads
+
+
+def _check_sep_float(name: str, operands, num_heads: int, scale: float):
+    """``_check_sep`` for the bf16/fp32 kernels (A1, C3), with their head
+    dims and alignment -> (B, N, C, Dh)."""
+    B, N, C, D = _check_sep(name, operands, num_heads, scale,
+                            (torch.bfloat16, torch.float32))
+    if D % 8 or D > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} must be a multiple of 8 and "
+                         f"at most {MAX_HEAD_DIM}")
+    _check_aligned(name, operands)
+    return B, N, C, D
+
+
+def _check_bwd_inputs(name: str, ref, out, lse, dout, shape,
+                      num_heads: int):
+    """out and dout contiguous, 16-byte aligned ``shape`` (B, N, C) in ref's
+    dtype, lse contiguous fp32 (B, H, N), all on ref's device."""
+    B, N, C = shape
+    for what, t in (("out", out), ("dout", dout)):
+        if t.shape != (B, N, C) or t.dtype != ref.dtype \
+                or t.device != ref.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be a contiguous, 16-byte "
+                             f"aligned {ref.dtype} ({B}, {N}, {C}) on the "
+                             f"inputs' device")
+    if lse.shape != (B, num_heads, N) or lse.dtype != torch.float32 \
+            or lse.device != ref.device or not lse.is_contiguous():
+        raise ValueError(f"{name}: lse must be contiguous fp32 "
+                         f"({B}, {num_heads}, {N}) on the inputs' device")
 
 
 def _check_aligned(name: str, operands):
@@ -310,21 +408,16 @@ def flash_attention(q, k, v, num_heads: int, scale: float):
     q, k, v: (B, N, C) bf16 or fp32 with (H, Dh)-major columns, each
     contiguous or a strided view with unit column stride (v may be the
     column block of the qkv projection output); Dh a multiple of 8 and at
-    most 128 -> (B, N, C) contiguous, in q's dtype.  Inference only: the
-    separate-operand training kernels (C3) are not ported.
+    most 128 -> (B, N, C) contiguous, in q's dtype.  In grad mode, on
+    operands of which one requires grad, this is the training attention
+    (``FlashAttention``: kernels C3); otherwise the inference kernel.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "training attention on separate q/k/v needs the kernels C3, not "
-            "ported yet (ROADMAP.md queue 2)")
+        return FlashAttention.apply(q, k, v, num_heads, scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, num_heads, scale)
-    B, N, C, D = _check_sep("flash_attention", (q, k, v), num_heads, scale,
-                            (torch.bfloat16, torch.float32))
-    if D % 8 or D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {D} must be a multiple "
-                         f"of 8 and at most {MAX_HEAD_DIM}")
-    _check_aligned("flash_attention", (q, k, v))
+    B, N, C, D = _check_sep_float("flash_attention", (q, k, v), num_heads,
+                                  scale)
     if B == 0 or N == 0:
         return torch.empty((B, N, C), dtype=q.dtype, device=q.device)
     out = _launch_attention(q, k, v, num_heads, scale)
@@ -367,17 +460,8 @@ def flash_attention_qkv_bwd(qkv, out, lse, dout, num_heads: int,
                                              scale)
     B, N, C, D = _check_packed("flash_attention_qkv_bwd", qkv, num_heads,
                                scale)
-    for name, t in (("out", out), ("dout", dout)):
-        if t.shape != (B, N, C) or t.dtype != qkv.dtype \
-                or t.device != qkv.device or not t.is_contiguous() \
-                or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_qkv_bwd: {name} must be a "
-                             f"contiguous, 16-byte aligned {qkv.dtype} "
-                             f"({B}, {N}, {C}) on qkv's device")
-    if lse.shape != (B, num_heads, N) or lse.dtype != torch.float32 \
-            or lse.device != qkv.device or not lse.is_contiguous():
-        raise ValueError(f"flash_attention_qkv_bwd: lse must be contiguous "
-                         f"fp32 ({B}, {num_heads}, {N}) on qkv's device")
+    _check_bwd_inputs("flash_attention_qkv_bwd", qkv, out, lse, dout,
+                      (B, N, C), num_heads)
     dqkv = torch.empty_like(qkv)
     if B == 0 or N == 0:
         return dqkv
@@ -413,6 +497,85 @@ class FlashAttentionQKV(torch.autograd.Function):
         return (flash_attention_qkv_bwd(qkv, out, lse, dout.contiguous(),
                                         ctx.num_heads, ctx.scale),
                 None, None)
+
+
+def flash_attention_fwd_lse(q, k, v, num_heads: int, scale: float):
+    """The training forward on separate operands (kernel C3-fwd): q, k, v
+    as ``flash_attention`` -> (out (B, N, C) contiguous in q's dtype, lse
+    (B, H, N) fp32 base 2)."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_lse_plain(q, k, v, num_heads, scale)
+    B, N, C, D = _check_sep_float("flash_attention_fwd_lse", (q, k, v),
+                                  num_heads, scale)
+    out = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, num_heads, N), dtype=torch.float32,
+                      device=q.device)
+    if B == 0 or N == 0:
+        return out, lse
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.stt_attention_fwd_lse_sep(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, N, num_heads, D, *_strides(q), *_strides(k),
+        *_strides(v), N * C, C, float(scale * LOG2E),
+        kbuild.dtype_code(q.dtype), stream)
+    kbuild.check(code, "attention_fwd_lse_sep")
+    global SEP_FWD_LSE_LAUNCHES
+    SEP_FWD_LSE_LAUNCHES += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, num_heads: int,
+                        scale: float):
+    """The training backward on separate operands (kernel C3-bwd): q, k, v
+    as ``flash_attention``, the forward's out (B, N, C) and lse (B, H, N)
+    fp32, and dout (B, N, C) -> (dq, dk, dv), each (B, N, C) contiguous in
+    q's dtype.  delta = rowsum(dout * out) is computed here, as
+    ``attention_delta`` does for the packed backward."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, num_heads,
+                                         scale)
+    B, N, C, D = _check_sep_float("flash_attention_bwd", (q, k, v),
+                                  num_heads, scale)
+    _check_bwd_inputs("flash_attention_bwd", q, out, lse, dout, (B, N, C),
+                      num_heads)
+    dq, dk, dv = torch.empty((3, B, N, C), dtype=q.dtype,
+                             device=q.device).unbind(0)
+    if B == 0 or N == 0:
+        return dq, dk, dv
+    delta = attention_delta(out, dout, num_heads)
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.stt_attention_bwd_sep(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, N, num_heads, D, *_strides(q), *_strides(k),
+        *_strides(v), N * C, C, N * C, C, float(scale * LOG2E), float(scale),
+        kbuild.dtype_code(q.dtype), stream)
+    kbuild.check(code, "attention_bwd_sep")
+    global SEP_BWD_LAUNCHES
+    SEP_BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Training attention on separate operands: forward C3-fwd, backward
+    C3-bwd.  Saves (q, k, v, out, lse), as the JAX package's _flash_core
+    forward does; v stays the view it was given (InternVideo2: the column
+    block of the qkv output), not a copy."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, scale: float):
+        out, lse = flash_attention_fwd_lse(q, k, v, num_heads, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                     ctx.num_heads, ctx.scale), None, None)
 
 
 def _attend_i8_plain(q, k, v, amax, scale: float):

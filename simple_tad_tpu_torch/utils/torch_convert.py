@@ -21,11 +21,11 @@ pooling head), fp or quantized and calibrated.  ``load_checkpoint_auto``
 loads a reference ``.pth`` into either family: an InternVideo2 checkpoint
 by name as it is (its learnable position table included), as the JAX
 package's torch_to_iv2_params reads it.
-``to_jax_params`` is its inverse for the fp ViT (tests compare
-gradients, updated parameters and optimizer moments leaf by leaf with
-it).  ``load_vit_checkpoint`` also initialises the fp32 training model
-(cli/finetune.py ``--finetune``): values are copied into the model's own
-parameter dtype.
+``to_jax_params`` is its inverse for the fp ViT and InternVideo2 (tests
+compare gradients, updated parameters and optimizer moments leaf by leaf
+with it).  ``load_checkpoint_auto`` (and ``load_vit_checkpoint``) also
+initialise the fp32 training model of either family (cli/finetune.py
+``--finetune``): values are copied into the model's own parameter dtype.
 """
 
 from __future__ import annotations
@@ -260,63 +260,107 @@ def _from_jax_iv2(params, tubelet_size: int, in_chans: int):
     return {k: torch.from_numpy(v) for k, v in out.items()}
 
 
-def to_jax_params(state: Mapping[str, torch.Tensor], *,
-                  tubelet_size: int = 2,
-                  in_chans: int = 3) -> Dict[str, Any]:
-    """Inverse of ``from_jax_params`` for the fp model: a reference-named
-    state dict (or any dict keyed by the model's parameter names, such as
-    its gradients or Adam moments) -> the JAX VisionTransformer tree of
-    fp32 numpy arrays, blocks stacked on a leading depth axis."""
-    def arr(name):
-        return state[name].detach().float().cpu().numpy()
+class _Leaves:
+    """A state dict read as the fp32 numpy leaves of a JAX tree."""
 
-    def dense(name):
-        leaves = {"kernel": arr(name + ".weight").T}
-        if name + ".bias" in state:
-            leaves["bias"] = arr(name + ".bias")
+    def __init__(self, state: Mapping[str, torch.Tensor]):
+        self.state = state
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.state
+
+    def arr(self, name: str) -> np.ndarray:
+        return self.state[name].detach().float().cpu().numpy()
+
+    def dense(self, name: str) -> Dict[str, np.ndarray]:
+        leaves = {"kernel": self.arr(name + ".weight").T}
+        if name + ".bias" in self:
+            leaves["bias"] = self.arr(name + ".bias")
         return leaves
 
-    def stack(leaves):
-        return {k: (stack(v) if isinstance(v, dict) else np.stack(v))
-                for k, v in leaves.items()}
+    def norm(self, name: str, bias: bool = True) -> Dict[str, np.ndarray]:
+        leaves = {"scale": self.arr(name + ".weight")}
+        if bias:
+            leaves["bias"] = self.arr(name + ".bias")
+        return leaves
 
-    def append(tree, leaves):
-        for k, v in leaves.items():
-            if isinstance(v, dict):
-                append(tree.setdefault(k, {}), v)
-            else:
-                tree.setdefault(k, []).append(v)
 
-    out: Dict[str, Any] = {}
-    w = arr("patch_embed.proj.weight")                  # (D, c, t, p, p)
-    out["patch_embed"] = {
-        "kernel": np.ascontiguousarray(
-            w.transpose(2, 3, 4, 1, 0).reshape(-1, w.shape[0])),
-        "bias": arr("patch_embed.proj.bias")}
+def _stacked(layers) -> Dict[str, Any]:
+    """Per-layer trees -> one tree, each leaf stacked on a leading depth
+    axis (the scanned blocks)."""
+    def stack(trees):
+        return {k: (stack([t[k] for t in trees]) if isinstance(v, dict)
+                    else np.stack([t[k] for t in trees]))
+                for k, v in trees[0].items()}
+    return stack(list(layers))
+
+
+def _vit_layer(r: _Leaves, pre: str) -> Dict[str, Any]:
+    attn = {"qkv_kernel": r.arr(pre + "attn.qkv.weight").T,
+            "proj": r.dense(pre + "attn.proj")}
+    for name in ("q_bias", "v_bias"):
+        if pre + "attn." + name in r:
+            attn[name] = r.arr(pre + "attn." + name)
+    leaves = {"norm1": r.norm(pre + "norm1"), "norm2": r.norm(pre + "norm2"),
+              "attn": attn,
+              "mlp": {fc: r.dense(pre + f"mlp.{fc}") for fc in ("fc1", "fc2")}}
+    if pre + "gamma_1" in r:
+        leaves["gamma_1"] = r.arr(pre + "gamma_1")
+        leaves["gamma_2"] = r.arr(pre + "gamma_2")
+    return leaves
+
+
+def _iv2_layer(r: _Leaves, pre: str) -> Dict[str, Any]:
+    attn = {"qkv": r.dense(pre + "attn.qkv"),
+            "proj": r.dense(pre + "attn.proj")}
+    for norm in ("q_norm", "k_norm"):
+        if pre + f"attn.{norm}.weight" in r:
+            attn[norm] = r.norm(pre + f"attn.{norm}", bias=False)
+    return {"norm1": r.norm(pre + "norm1", bias=False),
+            "norm2": r.norm(pre + "norm2", bias=False),
+            "gamma_1": r.arr(pre + "ls1.gamma"),
+            "gamma_2": r.arr(pre + "ls2.gamma"), "attn": attn,
+            "fc1": r.dense(pre + "mlp.fc1"), "fc2": r.dense(pre + "mlp.fc2")}
+
+
+def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of ``from_jax_params`` for the fp model: a reference-named
+    state dict (or any dict keyed by the model's parameter names, such as
+    its gradients or Adam moments) -> the JAX VisionTransformer or
+    InternVideo2 tree of fp32 numpy arrays, blocks stacked on a leading
+    depth axis (InternVideo2: its flat ``patch_kernel``/``patch_bias`` and
+    the pooling head, the inverse of ``_from_jax_iv2``)."""
+    r = _Leaves(state)
+    iv2 = "cls_token" in r
+    w = r.arr("patch_embed.proj.weight")                # (D, c, t, p, p)
+    kernel = np.ascontiguousarray(
+        w.transpose(2, 3, 4, 1, 0).reshape(-1, w.shape[0]))
+    bias = r.arr("patch_embed.proj.bias")
     depth = 1 + max(int(k.split(".")[1]) for k in state
                     if k.startswith("blocks."))
-    blocks: Dict[str, Any] = {}
-    for i in range(depth):
-        pre = f"blocks.{i}."
-        leaves = {norm: {"scale": arr(pre + norm + ".weight"),
-                         "bias": arr(pre + norm + ".bias")}
-                  for norm in ("norm1", "norm2")}
-        attn = {"qkv_kernel": arr(pre + "attn.qkv.weight").T,
-                "proj": dense(pre + "attn.proj")}
-        for name in ("q_bias", "v_bias"):
-            if pre + "attn." + name in state:
-                attn[name] = arr(pre + "attn." + name)
-        leaves["attn"] = attn
-        leaves["mlp"] = {fc: dense(pre + f"mlp.{fc}") for fc in ("fc1", "fc2")}
-        if pre + "gamma_1" in state:
-            leaves["gamma_1"] = arr(pre + "gamma_1")
-            leaves["gamma_2"] = arr(pre + "gamma_2")
-        append(blocks, leaves)
-    out["blocks"] = stack(blocks)
+    layer = _iv2_layer if iv2 else _vit_layer
+    out: Dict[str, Any] = {
+        "blocks": _stacked(layer(r, f"blocks.{i}.") for i in range(depth))}
+    if iv2:
+        out.update(patch_kernel=kernel, patch_bias=bias,
+                   cls_token=r.arr("cls_token"))
+        for key in ("pos_embed", "pos_embed_spatial", "pos_embed_temporal",
+                    "pos_embed_cls"):
+            if key in r:
+                out[key] = r.arr(key)
+        pool = {"proj": r.dense("clip_projector.cross_attn.proj")}
+        for side in ("q", "k", "v"):
+            pool[f"norm_{side}"] = r.norm(f"clip_projector.norm1_{side}")
+            pool[f"{side}_kernel"] = r.arr(
+                f"clip_projector.cross_attn.{side}.weight").T
+            pool[f"{side}_bias"] = r.arr(
+                f"clip_projector.cross_attn.{side}_bias")
+        out["clip_projector"] = pool
+    else:
+        out["patch_embed"] = {"kernel": kernel, "bias": bias}
     for norm in ("fc_norm", "norm"):
-        if norm + ".weight" in state:
-            out[norm] = {"scale": arr(norm + ".weight"),
-                         "bias": arr(norm + ".bias")}
-    if "head.weight" in state:
-        out["head"] = dense("head")
+        if norm + ".weight" in r:
+            out[norm] = r.norm(norm)
+    if "head.weight" in r:
+        out["head"] = r.dense("head")
     return out

@@ -468,3 +468,117 @@ def test_tiny_int8_iv2_forward_goes_through_kernels(fused_rmsq, cuda):
     assert [a - b for a, b in zip(after, counts)] == [
         8 if fused_rmsq else 0, 2, 0, 0]
     assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+
+
+# InternVideo2's training attention (C3): C1 and C2 on separate operands, v
+# the strided column block of a (B, N, 3C) tensor; C1's and C2's bounds.
+SEP_TRAIN_CASES = [(2, 2049, 6, 64), (2, 200, 2, 64), (3, 97, 4, 88),
+                   (1, 130, 3, 128), (2, 33, 4, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,n,heads,d", SEP_TRAIN_CASES)
+def test_attention_sep_fwd_lse_kernel_matches_plain(b, n, heads, d, dtype,
+                                                    cuda):
+    q, k, v, _ = _sep_operands(b, n, heads, d, 25, cuda, dtype)
+    before = fa.SEP_FWD_LSE_LAUNCHES
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, heads, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.SEP_FWD_LSE_LAUNCHES == before + 1
+    assert out.dtype == dtype and lse.shape == (b, heads, n)
+    want_out, want_lse = fa.flash_attention_fwd_lse_plain(q, k, v, heads,
+                                                          d ** -0.5)
+    torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,n,heads,d", SEP_TRAIN_CASES)
+def test_attention_sep_bwd_kernel_matches_plain(b, n, heads, d, dtype, cuda):
+    scale = d ** -0.5
+    q, k, v, _ = _sep_operands(b, n, heads, d, 26, cuda, dtype)
+    dout = _randn((b, n, heads * d), 27, cuda).to(dtype)
+    out, lse = fa.flash_attention_fwd_lse_plain(q, k, v, heads, scale)
+    before = fa.SEP_BWD_LAUNCHES
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, heads, scale)
+    torch.cuda.synchronize()
+    assert fa.SEP_BWD_LAUNCHES == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, heads, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == q.shape and g.is_contiguous()
+        assert torch.isfinite(g.float()).all(), name
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype],
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_attention_sep_training_on_packed_views_equals_packed(dtype, cuda):
+    """C3 on the q, k, v column views of one qkv tensor reads the values C1
+    and C2 read through one stride pair: the same kernels, the same results
+    bit for bit."""
+    b, n, heads, d = 2, 300, 4, 64
+    C, scale = heads * d, d ** -0.5
+    qkv = _randn((b, n, 3 * C), 28, cuda).to(dtype)
+    dout = _randn((b, n, C), 29, cuda).to(dtype)
+    views = (qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:])
+    out, lse = fa.flash_attention_fwd_lse(*views, heads, scale)
+    pout, plse = fa.flash_attention_qkv_fwd_lse(qkv, heads, scale)
+    assert torch.equal(out, pout) and torch.equal(lse, plse)
+    grads = fa.flash_attention_bwd(*views, out, lse, dout, heads, scale)
+    assert torch.equal(torch.cat(grads, -1),
+                       fa.flash_attention_qkv_bwd(qkv, out, lse, dout, heads,
+                                                  scale))
+
+
+@pytest.mark.cuda
+def test_attention_sep_training_wrappers_reject_bad_inputs(cuda):
+    q = torch.zeros((1, 8, 128), device=cuda, dtype=torch.bfloat16)
+    bad_lse = torch.zeros(1, 2, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, q, q, q, bad_lse, q, 2, 0.125)
+    strided = torch.zeros((1, 8, 256), device=cuda,
+                          dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError, match="column"):
+        fa.flash_attention_fwd_lse(q, q, strided, 2, 0.125)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="column"):
+        fa.flash_attention_bwd(q, strided, q, q, lse, q, 2, 0.125)
+
+
+@pytest.mark.cuda
+def test_tiny_iv2_train_step_goes_through_kernels(cuda):
+    """One train step of a 2-layer IV2-S with fp32 masters computed in bf16
+    runs C3-fwd and C3-bwd once per block and no other kernel (RMSNorm,
+    LayerScale and the pooling head are plain PyTorch); gradients reach
+    every fp32 master and the update moves every block parameter (the
+    pooling head's key biases have a zero gradient in exact arithmetic)."""
+    from simple_tad_tpu_torch.train.losses import create_criterion
+    from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
+    from simple_tad_tpu_torch.train.steps import (TrainState,
+                                                  make_finetune_train_step)
+    model = _tiny_iv2(cuda, dtype=torch.bfloat16, param_dtype=torch.float32,
+                      drop_path_rate=0.1)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    state = TrainState.create(model, FinetuneOptimizer(
+        dict(model.named_parameters()), lr_schedule=1e-3, layer_decay=0.75,
+        depth=2), gen)
+    step = make_finetune_train_step(create_criterion("crossentropy"))
+    batch = {"video": _randn((2, 4, 28, 28, 3), 30, cuda).bfloat16(),
+             "label": torch.tensor([0, 1], device=cuda)}
+    names = ("LAUNCHES", "SEP_LAUNCHES", "FWD_LSE_LAUNCHES", "BWD_LAUNCHES",
+             "SEP_FWD_LSE_LAUNCHES", "SEP_BWD_LAUNCHES")
+    counts = [getattr(fa, n) for n in names] + [ln.LAUNCHES]
+    metrics, logits = step(state, batch)
+    torch.cuda.synchronize()
+    after = [getattr(fa, n) for n in names] + [ln.LAUNCHES]
+    assert [a - b for a, b in zip(after, counts)] == [0, 0, 0, 0, 2, 2, 0]
+    assert torch.isfinite(metrics["loss"]) and logits.shape == (2, 2)
+    for n, p in model.named_parameters():
+        assert p.dtype == torch.float32 and p.grad is not None, n
+        if n.startswith("blocks."):
+            assert not torch.equal(p, before[n]), n

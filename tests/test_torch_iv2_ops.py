@@ -209,7 +209,8 @@ def test_i8_sep_dispatch_quantizes_per_head():
 
 def test_cpu_tensors_take_plain_versions():
     """On the CPU the wrappers run the plain versions and count no launch;
-    the separate-operand attention refuses training and dropout."""
+    the separate-operand attention trains through FlashAttention (the
+    plain C3) and refuses dropout."""
     (q, k, v), amax = _codes(40, 64, seed=5)
     x = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (3, 128)).astype(np.float32))
@@ -223,8 +224,13 @@ def test_cpu_tensors_take_plain_versions():
     rq = (x, torch.ones(128), torch.full((128,), 40.0))
     assert torch.equal(ln.rmsnorm_quant(*rq), ln.rmsnorm_quant_plain(*rq))
     assert (fa.SEP_LAUNCHES, fa.I8_SEP_LAUNCHES, ln.RMSQ_LAUNCHES) == before
-    with pytest.raises(NotImplementedError, match="C3"):
-        fa.flash_attention(f.requires_grad_(), f, f, H, 0.125)
+    counts = (fa.SEP_FWD_LSE_LAUNCHES, fa.SEP_BWD_LAUNCHES)
+    out = fa.flash_attention(f.requires_grad_(), f, f, H, 0.125)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(),
+                       fa.flash_attention_plain(*(f.detach(),) * 3, H, 0.125))
+    out.sum().backward()
+    assert (fa.SEP_FWD_LSE_LAUNCHES, fa.SEP_BWD_LAUNCHES) == counts
     with pytest.raises(NotImplementedError, match="C4"):
         dot_product_attention(f, f, f, num_heads=H, scale=0.1,
                               dropout_rate=0.1)
