@@ -122,7 +122,34 @@ Phases (any failure raises, so the exit code is non-zero):
      10 steps on one fixed batch at the constant lr IV2_LR, the loss must
      fall by LOSS_DROP; (iii) FinetuneTrainer at batch 56 in
      TIMING_PROCESSES fresh processes, with the step breakdown and a
-     profiler window in the first.
+     profiler window in the first;
+ 10. static int8 serving on the fused int8 GEMM kernels (B4) and the
+     int8-output attention (B3), at full width on the clip and batch of
+     phases 5 and 8, through FrameEvaluator(quant8=True, fused_w8a8=True,
+     fused_mlp=True): (i) ViT-B: per chunk forward 24 LayerNorm->int8, 12
+     int8-storage attention, 24 int8_gemm (qkv, proj), 12 int8_mlp, 1
+     LayerNorm and no torch._int_mm call; (ii) ViT-B with qkv_i8=False: 12
+     attention_q8 (B3) instead of the int8-storage attention; (iii) IV2-S:
+     12 D2, 24 int8_gemm, 12 int8_mlp (the MLP's input bf16: the JAX
+     package's own fused-MLP program), then with fused_rmsq (+48 D3, the
+     MLP's input int8); (iv) IV2-S with qkv_i8=False: 12 attention_q8_sep.
+     In each, every kernel call of one run is checked against its plain
+     version and its control, the logits against the plain-version run
+     and a gross control (attention left unnormalized), and evaluate is
+     timed over EVAL_RUNS runs; (i) ends with 16 int8 streaming steps.
+     Phase 2 holds int8_gemm (ViT-B qkv and proj on int8 input, fc2 on
+     fp32 input), int8_mlp (ViT-B on int8 input, IV2-S on bf16 input) and
+     B3 (packed at ViT-B, separate at IV2-S with v strided) to their plain
+     versions, each with a control the bound must reject: the int8 GEMMs'
+     outputs equal the plain version's bit for bit (an exact int32 product
+     and the same fp32 epilogue), against q8 rounding half away from zero
+     (roundf) where x is fp32, the fp32 rescale done in bf16 where it is
+     int8 codes or bf16, and for the MLP fc1's bias left out and its activation
+     rounded to bf16 before the q8 (the main-path check, whose seeded
+     biases are zero, uses the latter); B3 by codes, against
+     probabilities not rounded to bf16.  Their library yardstick is
+     torch._int_mm on the same int8 operands, the product alone (no
+     quantize, rescale, bias or GELU), and SDPA's forward for B3.
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -168,6 +195,13 @@ import torch
 #     IV2-S logits / max |logit|: bf16 3.251e-3 vs the subtle control
 #     3.806e-3 (no margin: hence the per-call check) and the gross control
 #     4.180e-2; int8 4.801e-3, fused 3.755e-3, vs gross controls >= 9.07e-2
+#   static int8 on the fused GEMMs (B4) and B3, at the main-path shapes:
+#     int8_gemm, int8_mlp outputs differing  0 (bit for bit) vs controls
+#                                          >= 1.1e-3 (roundf at fc2) and
+#                                          >= 0.33 (bf16 rescale, bf16 hidden)
+#     attention_q8(_sep) codes differing   <= 5.1e-5 vs controls >= 2.0e-2
+#     phase 10 logits / max |logit|: ViT-B 8.648e-3 (B3 9.450e-3), IV2-S
+#     <= 4.830e-3, vs gross controls >= 8.966e-2
 #   ViT-B train step at batch 8, gradients vs the plain-version step:
 #     worst parameter ||err|| / ||grad||  8.083e-3 vs control 3.183
 #     global gradient norm                1.699e-5; the control leaves it
@@ -185,7 +219,9 @@ LOGIT_RTOL = 5.7e-3      # max |logit error| / max |logit|, 12 bf16 layers
 # code moves only where its fp32 value sits within a rounding error of a
 # half-integer)
 I8_MISMATCH = {"layernorm_quant": 1.5e-4, "attention_i8": 4e-4,
-               "attention_i8_sep": 4e-4, "rmsnorm_quant": 1.5e-4}
+               "attention_i8_sep": 4e-4, "rmsnorm_quant": 1.5e-4,
+               # B3 quantizes A1's fp32 result: B2's bounds
+               "attention_q8": 4e-4, "attention_q8_sep": 4e-4}
 LOGIT_RTOL_I8 = 2.5e-2   # as LOGIT_RTOL, the 12-layer int8 model
 EVAL_RUNS = 5
 # training attention: C1's out is A1's out (its bounds); lse within one
@@ -197,7 +233,11 @@ BF16_MISMATCH.update({"attention_fwd_lse": BF16_MISMATCH["attention"],
                       "attention_bwd": 0.02,
                       # C3 is C1 / C2 on separate operands: their bounds
                       "attention_sep_fwd_lse": BF16_MISMATCH["attention"],
-                      "attention_sep_bwd": 0.02})
+                      "attention_sep_bwd": 0.02,
+                      # B4: without GELU the exact plain epilogue, bit for
+                      # bit; the MLP's GELU (CUDA tanhf / erff) may round
+                      # apart from PyTorch's and flip a hidden code
+                      "int8_gemm": 0.0, "int8_mlp": 1e-3})
 LSE_ATOL = 1.2e-2
 F32_TOL_BWD = dict(atol=1e-4, rtol=1e-4)
 # phase 6 (i): one ViT-B train step, kernels vs plain versions
@@ -250,6 +290,17 @@ SOURCES = {
                               "simple_tad_tpu/ops/flash_attention.py:1532"),
     "attention_sep_bwd": ("simple_tad_tpu_torch/csrc/attention_train.cu",
                           "simple_tad_tpu/ops/flash_attention.py:2238"),
+    # static int8 on the fused GEMMs (B4) and the int8-output attention
+    # (B3: _fwd_kernel_nomax_packed_q8 on the packed qkv; on separate
+    # operands at N = 2049 the key-grid _fwd_kernel_nomax_packed_kv_q8)
+    "int8_gemm": ("simple_tad_tpu_torch/csrc/int8_gemm.cu",
+                  "simple_tad_tpu/ops/int8_gemm.py:92"),
+    "int8_mlp": ("simple_tad_tpu_torch/csrc/int8_gemm.cu",
+                 "simple_tad_tpu/ops/int8_gemm.py:170"),
+    "attention_q8": ("simple_tad_tpu_torch/csrc/attention.cu",
+                     "simple_tad_tpu/ops/flash_attention.py:265"),
+    "attention_q8_sep": ("simple_tad_tpu_torch/csrc/attention.cu",
+                         "simple_tad_tpu/ops/flash_attention.py:567"),
 }
 
 
@@ -434,6 +485,141 @@ def layernorm_quant_control(x, weight, bias, amax, eps: float = 1e-6):
     return quantize_static(_layernorm_control_f32(x, weight, bias, eps), amax)
 
 
+def _q8_variant(q, k, v, scale: float, out_amax, *, round_p: bool,
+                normalize: bool):
+    """(B, H, N, Dh) bf16/fp32 -> B3's plain computation with a required
+    step left out (as ``_attention_i8_variant``), quantized against
+    ``out_amax``."""
+    from simple_tad_tpu_torch.ops.flash_attention import LOG2E
+    from simple_tad_tpu_torch.ops.ln import quantize_static
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    p = torch.exp2(s - torch.ceil(s.amax(dim=-1, keepdim=True)))
+    if round_p:
+        p = p.to(v.dtype).float()
+    o = torch.matmul(p, v.float())
+    if normalize:
+        o = o / p.sum(dim=-1, keepdim=True)
+    return quantize_static(merge_heads(o), out_amax)
+
+
+def attention_q8_control(qkv, num_heads, scale, out_amax):
+    """B3's control: probabilities not rounded to bf16."""
+    return _q8_variant(*qkv_views(qkv, num_heads), scale, out_amax,
+                       round_p=False, normalize=True)
+
+
+def attention_q8_unnormalized(qkv, num_heads, scale, out_amax):
+    return _q8_variant(*qkv_views(qkv, num_heads), scale, out_amax,
+                       round_p=True, normalize=False)
+
+
+def _q8_sep_variant(q, k, v, num_heads, scale, out_amax, n_valid=None,
+                    **steps):
+    q, k, v = sep_heads(num_heads, q, k, v)
+    if n_valid is not None:
+        k, v = k[:, :, :n_valid], v[:, :, :n_valid]
+    return _q8_variant(q, k, v, scale, out_amax, **steps)
+
+
+def attention_q8_sep_control(*args):
+    return _q8_sep_variant(*args, round_p=False, normalize=True)
+
+
+def attention_q8_sep_unnormalized(*args):
+    return _q8_sep_variant(*args, round_p=True, normalize=False)
+
+
+def attention_q8_sep_misread_v(q, k, v, num_heads, scale, out_amax,
+                               n_valid=None):
+    """B3 on separate operands with v misread (``misread_v``)."""
+    from simple_tad_tpu_torch.ops.flash_attention import (
+        flash_attention_q8_plain)
+    return flash_attention_q8_plain(q, k, misread_v(q, v), num_heads, scale,
+                                    out_amax, n_valid)
+
+
+def _roundf_codes(y, amax):
+    """q8 rounding half away from zero (C's roundf) instead of half to
+    even: the fault ROADMAP F1 warns of."""
+    y = y * (127.0 / torch.clamp(amax.float(), min=1e-12))
+    return torch.clamp(torch.sign(y) * torch.floor(y.abs() + 0.5), -127,
+                       127).to(torch.int8)
+
+
+def int8_gemm_roundf(x, w_q, w_scale, a_amax, bias=None, act=None,
+                     out_dtype=torch.bfloat16):
+    """The GEMM's control where x is a float: q8 with roundf."""
+    from simple_tad_tpu_torch.ops.int8_gemm import w8a8_gemm_plain
+    if x.dtype != torch.int8:
+        x = _roundf_codes(x.float(), a_amax)
+    return w8a8_gemm_plain(x, w_q, w_scale, a_amax, bias, act, out_dtype)
+
+
+def int8_gemm_bf16_rescale(x, w_q, w_scale, a_amax, bias=None, act=None,
+                           out_dtype=torch.bfloat16):
+    """The GEMM's control where x is int8 codes: the exact product rounded
+    to bf16 before an fp32 rescale done in bf16 (the fp32 epilogue left
+    out)."""
+    from simple_tad_tpu_torch.ops import int8_gemm
+    from simple_tad_tpu_torch.ops.ln import quantize_static
+    from simple_tad_tpu_torch.ops.quant import _int_mm
+    if x.dtype != torch.int8:
+        x = quantize_static(x.float(), a_amax)
+    y = (_int_mm(x, w_q).to(torch.bfloat16)
+         * int8_gemm.rescale(w_scale, a_amax).to(torch.bfloat16)).float()
+    if bias is not None:
+        y = y + bias
+    return int8_gemm.activation(y, act).to(out_dtype)
+
+
+def int8_mlp_no_bias1(x, w1_q, s1, amax1, b1, *rest):
+    """The MLP's control: fc1's bias left out."""
+    from simple_tad_tpu_torch.ops.int8_gemm import w8a8_mlp_plain
+    return w8a8_mlp_plain(x, w1_q, s1, amax1, None, *rest)
+
+
+def int8_mlp_bf16_hidden(x, w1_q, s1, amax1, b1, w2_q, s2, amax2, b2,
+                         act="gelu_tanh", out_dtype=torch.bfloat16):
+    """The MLP's control: fc1's activation rounded to bf16 before its q8
+    (the fp32 value is the one quantized; the seeded models' biases are
+    zero, so this is the control the main-path check can use)."""
+    from simple_tad_tpu_torch.ops.int8_gemm import w8a8_gemm_plain
+    h = w8a8_gemm_plain(x, w1_q, s1, amax1, b1, act, torch.bfloat16)
+    return w8a8_gemm_plain(h, w2_q, s2, amax2, b2, None, out_dtype)
+
+
+def int8_library(*products):
+    """torch._int_mm on the same int8 operands ((codes, weight) pairs: two
+    for the MLP, its hidden codes made beforehand): the products alone,
+    with none of the kernels' quantize, rescale, bias or GELU."""
+    def run():
+        for x_i8, w_q in products:
+            torch._int_mm(x_i8.reshape(-1, x_i8.shape[-1]), w_q.t())
+    return run
+
+
+def int8_gemm_bound(M, K, N, in_bytes, out_bytes):
+    """-> (bound ms, by): 2 M K N int8 operations; x, W, the (N,) vectors
+    read once and y written once."""
+    t_ops = 2.0 * M * K * N / PEAK["int8"]
+    t_bytes = (M * K * in_bytes + N * K + 8 * N + M * N * out_bytes
+               ) / PEAK["bytes"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def int8_mlp_bound(M, dim, hidden, in_bytes, out_bytes):
+    """-> (bound ms, by): two products of 2 M dim hidden int8 operations;
+    x, both weights and the vectors read once, y written once (the
+    (M, hidden) activation never leaves the chip)."""
+    t_ops = 4.0 * M * dim * hidden / PEAK["int8"]
+    t_bytes = (M * dim * (in_bytes + out_bytes) + 2 * dim * hidden
+               + 8 * (dim + hidden)) / PEAK["bytes"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def compare(name, got, want):
     """-> (max abs error, share of elements that differ, within the bounds
     of kernel ``name``)."""
@@ -545,7 +731,7 @@ def qkv_views(qkv, num_heads: int):
 
 
 def attention_bound(B, N, C, heads, dtype=torch.bfloat16, *, backward=False,
-                    int8_qk=False, lse=False):
+                    int8_qk=False, lse=False, q8_out=False):
     """-> (bound ms, 'operations' or 'bytes') of one packed-qkv attention
     call: QK and PV are N^2 Dh multiply-adds each per (batch, head) (the
     backward's five products: 2.5x the forward's); bytes: qkv read once,
@@ -563,6 +749,8 @@ def attention_bound(B, N, C, heads, dtype=torch.bfloat16, *, backward=False,
     else:
         t_ops = 2 * prod / PEAK["bf16"]
         nbytes = B * N * 4 * C * esz + (B * heads * N * 4 if lse else 0)
+        if q8_out:                              # B3: int8 output
+            nbytes -= B * N * C * (esz - 1)
     t_bytes = nbytes / PEAK["bytes"]
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -588,22 +776,27 @@ def check_kernels(dev, seed: int) -> dict:
     results = {}
     failures = []
 
-    def timed(name, kernel, plain, library=None, bound=None, plain_runs=20):
-        r = results.setdefault(name, {"max_abs_err": 0.0})
+    def timed(name, kernel, plain, library=None, bound=None, plain_runs=20,
+              case=None):
+        """Time the kernel, its plain version and the library call; the
+        first shape timed (``case`` None) is the kernel's record, others
+        are printed with their case."""
+        r = {} if case else results.setdefault(name, {"max_abs_err": 0.0})
         r["ms"], r["plain_ms"] = cuda_ms(kernel), cuda_ms(plain,
                                                           runs=plain_runs)
         r["library_ms"] = cuda_ms(library) if library is not None else None
         r["bound_ms"], r["bound_by"] = bound
         lib = ("none" if library is None
                else "%.4f ms" % r["library_ms"])
-        print(f"[{name}] timed: kernel {r['ms']:.4f} ms  plain "
-              f"{r['plain_ms']:.4f} ms  library {lib}  bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"[{name}] timed{' ' + case if case else ''}: kernel "
+              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
+              f"{lib}  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     def run_case(name, case, kernel, plain, control=None, time_it=True,
                  library=None, bound=None):
         """``control``: one callable, or a list of them (each must fail
-        the bounds)."""
+        the bounds).  The first case of a kernel is timed (its record);
+        ``time_it='every'`` times every case."""
         got, want = kernel(), plain()
         err, share, ok = compare(name, got, want)
         print(f"[{name}] {case}: max_abs_err {err:.3e} differ {share:.3e} "
@@ -623,8 +816,9 @@ def check_kernels(dev, seed: int) -> dict:
                                 f"through")
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if time_it and "ms" not in r:
-            timed(name, kernel, plain, library, bound)
+        if time_it == "every" or (time_it and "ms" not in r):
+            timed(name, kernel, plain, library, bound,
+                  case=case if "ms" in r else None)
 
     print(f"[bounds] bf16: allclose {BF16_TOL} and at most this share of "
           f"outputs differing {BF16_MISMATCH}; fp32: allclose {F32_TOL} "
@@ -908,9 +1102,137 @@ def check_kernels(dev, seed: int) -> dict:
                  bound=layernorm_bound(shape[0], C, x.element_size(), 1))
         del x
     torch.cuda.empty_cache()
+    check_int8_kernels(dev, g, run_case, timed)
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return results
+
+
+def _gemm_operands(g, dev, M, K, N, x_dtype, bias: bool):
+    """Seeded GEMM operands at a main-path shape: x (its calibrated absmax
+    the 0.999 quantile of |x|, so a few codes clip), the (N, K) int8 weight
+    of a trunc-normal fp32 master quantized per channel, its scales, and a
+    bias."""
+    from simple_tad_tpu_torch.ops.ln import quantize_static
+    x = torch.randn((M, K), generator=g, device=dev)
+    amax = torch.quantile(x[:4096].abs().flatten().float(), 0.999)
+    if x_dtype == torch.int8:
+        x = quantize_static(x, amax)
+    w = torch.randn((N, K), generator=g, device=dev) * 0.02
+    w_scale = torch.clamp(w.abs().amax(dim=1) / 127.0, min=1e-12)
+    w_q = torch.clamp(torch.round(w / w_scale[:, None]), -127,
+                      127).to(torch.int8)
+    b = torch.randn(N, generator=g, device=dev) * 0.1 if bias else None
+    return x.to(x_dtype), w_q, w_scale, amax, b
+
+
+def check_int8_kernels(dev, g, run_case, timed) -> None:
+    """Phase 2's static int8 cases: the GEMM and MLP kernels (B4) and the
+    int8-output attention (B3), each against its plain version and a
+    control, timed against torch._int_mm / SDPA and the bound."""
+    import torch.nn.functional as F
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import int8_gemm
+    from simple_tad_tpu_torch.ops.ln import quantize_static
+    M = 32 * 1568                              # ViT-B batch 32 tokens
+    gemm_cases = [("qkv", M, 768, 2304, torch.int8, False),
+                  ("proj", M, 768, 768, torch.int8, True),
+                  ("fc2", M, 3072, 768, torch.float32, True),
+                  # IV2-S: qkv on the bf16 RMSNorm output, an M tail
+                  ("iv2 qkv", 32 * 2049, 384, 1152, torch.bfloat16, False)]
+    for label, m, k, n, x_dtype, bias in gemm_cases:
+        x, w_q, w_s, amax, b = _gemm_operands(g, dev, m, k, n, x_dtype, bias)
+        args = (x, w_q, w_s, amax, b, None, torch.bfloat16)
+        x_i8 = x if x_dtype == torch.int8 else quantize_static(x.float(),
+                                                               amax)
+        # roundf moves a code only at an exact tie, which fp32 inputs hit
+        # (bf16 ones at these shapes did not, on the CPU rehearsal)
+        control = (int8_gemm_roundf if x_dtype == torch.float32
+                   else int8_gemm_bf16_rescale)
+        run_case("int8_gemm", f"{label} ({m}, {k}) {x_dtype} -> {n}"
+                 f"{' + bias' if bias else ''}",
+                 lambda: int8_gemm.w8a8_gemm(*args),
+                 lambda: int8_gemm.w8a8_gemm_plain(*args),
+                 lambda: control(*args),
+                 time_it="every", library=int8_library((x_i8, w_q)),
+                 bound=int8_gemm_bound(m, k, n, x.element_size(), 2))
+        del x, x_i8, args
+        torch.cuda.empty_cache()
+
+    mlp_cases = [("vit-b", M, 768, 3072, torch.int8),
+                 ("iv2-s", 32 * 2049, 384, 1536, torch.bfloat16)]
+    for label, m, dim, hidden, x_dtype in mlp_cases:
+        x, w1, s1, a1, b1 = _gemm_operands(g, dev, m, dim, hidden, x_dtype,
+                                           True)
+        _, w2, s2, _, b2 = _gemm_operands(g, dev, 8, hidden, dim,
+                                          torch.float32, True)
+        h = int8_gemm.w8a8_gemm_plain(x, w1, s1, a1, b1, "gelu_tanh",
+                                      torch.float32)
+        a2 = torch.quantile(h[:4096].abs().flatten(), 0.999)
+        h_i8 = quantize_static(h, a2)
+        del h
+        x_i8 = x if x_dtype == torch.int8 else quantize_static(x.float(), a1)
+        args = (x, w1, s1, a1, b1, w2, s2, a2, b2, "gelu_tanh",
+                torch.bfloat16)
+        run_case("int8_mlp", f"{label} ({m}, {dim}) {x_dtype} -> {hidden}",
+                 lambda: int8_gemm.w8a8_mlp(*args),
+                 lambda: int8_gemm.w8a8_mlp_plain(*args),
+                 [lambda: int8_mlp_no_bias1(*args),
+                  lambda: int8_mlp_bf16_hidden(*args)],
+                 time_it="every",
+                 library=int8_library((x_i8, w1), (h_i8, w2)),
+                 bound=int8_mlp_bound(m, dim, hidden, x.element_size(), 2))
+        del x, x_i8, h_i8, args
+        torch.cuda.empty_cache()
+
+    # B3: packed at ViT-B b32, on separate operands at IV2-S b32 (v the
+    # strided column block), and a masked fp32 tail
+    for shape, heads, dt in [((32, 1568, 2304), 12, torch.bfloat16),
+                             ((2, 200, 384), 2, torch.float32)]:
+        B, N, C3 = shape
+        qkv = torch.randn(shape, generator=g, device=dev).to(dt)
+        scale = (C3 // 3 // heads) ** -0.5
+        out_amax = fa.flash_attention_qkv_plain(qkv[:2], heads,
+                                                scale).float().abs().max()
+        q, k, v = qkv_views(qkv, heads)
+        run_case("attention_q8", f"{shape} H={heads} {dt}",
+                 lambda: fa.flash_attention_qkv_q8(qkv, heads, scale,
+                                                   out_amax),
+                 lambda: fa.flash_attention_qkv_q8_plain(qkv, heads, scale,
+                                                         out_amax),
+                 (lambda: attention_q8_control(qkv, heads, scale, out_amax))
+                 if dt == torch.bfloat16 else None,
+                 library=lambda: F.scaled_dot_product_attention(
+                     q, k, v, scale=scale),
+                 bound=attention_bound(B, N, C3 // 3, heads, dt,
+                                       q8_out=True))
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+    for shape, heads, dt, n_valid in [
+            ((32, 2049, 1152), 6, torch.bfloat16, None),
+            ((2, 200, 384), 2, torch.float32, 190)]:
+        B, N, C3 = shape
+        C = C3 // 3
+        qkv = torch.randn(shape, generator=g, device=dev).to(dt)
+        q, k, v = (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
+                   qkv[..., 2 * C:])
+        scale = (C // heads) ** -0.5
+        out_amax = fa.flash_attention_plain(q[:2], k[:2], v[:2], heads,
+                                            scale).float().abs().max()
+        args = (q, k, v, heads, scale, out_amax, n_valid)
+        qh, kh, vh = sep_heads(heads, q, k, v)
+        bf16 = dt == torch.bfloat16
+        run_case("attention_q8_sep",
+                 f"{shape} H={heads} {dt} n_valid={n_valid}, v strided",
+                 lambda: fa.flash_attention_q8(*args),
+                 lambda: fa.flash_attention_q8_plain(*args),
+                 ([lambda: attention_q8_sep_control(*args)] if bf16 else [])
+                 + [lambda: attention_q8_sep_misread_v(*args)],
+                 library=lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, scale=scale),
+                 bound=attention_bound(B, N, C, heads, dt, q8_out=True))
+        del qkv, q, k, v, qh, kh, vh, args
+        torch.cuda.empty_cache()
 
 
 class MemoryClipDataset:
@@ -959,7 +1281,10 @@ def routed(**fns):
              "flash_attention_qkv": attention,
              "flash_attention_qkv_i8d": attention,
              "flash_attention": attention, "flash_attention_i8d": attention,
-             "rmsnorm_quant": internvideo2}
+             "flash_attention_qkv_q8": layers,
+             "flash_attention_q8": internvideo2,
+             "rmsnorm_quant": internvideo2, "w8a8_gemm": layers,
+             "w8a8_mlp": layers}
     with contextlib.ExitStack() as stack:
         for name, fn in fns.items():
             stack.enter_context(mock.patch.object(owner[name], name, fn))
@@ -1210,13 +1535,17 @@ COUNTERS = {"layernorm": ("ln", "LAUNCHES"),
             "attention_fwd_lse": ("fa", "FWD_LSE_LAUNCHES"),
             "attention_bwd": ("fa", "BWD_LAUNCHES"),
             "attention_sep_fwd_lse": ("fa", "SEP_FWD_LSE_LAUNCHES"),
-            "attention_sep_bwd": ("fa", "SEP_BWD_LAUNCHES")}
+            "attention_sep_bwd": ("fa", "SEP_BWD_LAUNCHES"),
+            "attention_q8": ("fa", "Q8_LAUNCHES"),
+            "attention_q8_sep": ("fa", "Q8_SEP_LAUNCHES"),
+            "int8_gemm": ("gemm", "GEMM_LAUNCHES"),
+            "int8_mlp": ("gemm", "MLP_LAUNCHES")}
 
 
 def _counter_owners():
     from simple_tad_tpu_torch.ops import flash_attention as fa
-    from simple_tad_tpu_torch.ops import ln
-    return {"ln": ln, "fa": fa}
+    from simple_tad_tpu_torch.ops import int8_gemm, ln
+    return {"ln": ln, "fa": fa, "gemm": int8_gemm}
 
 
 def reset_counts() -> None:
@@ -1360,6 +1689,130 @@ def run_eval_iv2_int8(dev, seed: int, bf16_logits, fused_rmsq: bool):
         f"the IV2 int8 logit bound lets the control through: {control_err}"
     return {"windows_per_sec": rate, "launches": launches,
             "logits_err": err}
+
+
+def fused_sites(family: str, qkv_i8: bool, fused_rmsq: bool) -> dict:
+    """-> {kernel name: (wrapper name, kernel, plain, control)} of the
+    static int8 model on the fused GEMMs (phase 10)."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import int8_gemm
+    sites = {"int8_gemm": ("w8a8_gemm", int8_gemm.w8a8_gemm,
+                           int8_gemm.w8a8_gemm_plain, int8_gemm_bf16_rescale),
+             "int8_mlp": ("w8a8_mlp", int8_gemm.w8a8_mlp,
+                          int8_gemm.w8a8_mlp_plain, int8_mlp_bf16_hidden)}
+    if family == "vit":
+        vit = vit_int8_sites()
+        sites["layernorm_quant"] = vit["layernorm_quant"]
+        sites.update({"attention_i8": vit["attention_i8"]} if qkv_i8 else {
+            "attention_q8": ("flash_attention_qkv_q8",
+                             fa.flash_attention_qkv_q8,
+                             fa.flash_attention_qkv_q8_plain,
+                             attention_q8_control)})
+    else:
+        sites.update(iv2_int8_sites(fused_rmsq) if qkv_i8 else {
+            "attention_q8_sep": ("flash_attention_q8", fa.flash_attention_q8,
+                                 fa.flash_attention_q8_plain,
+                                 attention_q8_sep_control)})
+    return sites
+
+
+def fused_launches(family: str, depth: int, chunks: int, qkv_i8: bool,
+                   fused_rmsq: bool) -> dict:
+    """The kernel launches of one static int8 evaluate on the fused GEMMs:
+    per block and chunk forward one attention, two GEMM kernels (qkv,
+    proj) and one MLP kernel, the ViT's two LayerNorm->int8 and the IV2's
+    four RMSNorm->int8 with fused_rmsq (norm1, norm2, q-norm, k-norm), and
+    the ViT's fc_norm."""
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(int8_gemm=2 * depth * chunks, int8_mlp=depth * chunks)
+    if family == "vit":
+        want.update(layernorm_quant=2 * depth * chunks, layernorm=chunks)
+        want["attention_i8" if qkv_i8 else "attention_q8"] = depth * chunks
+    else:
+        want["attention_i8_sep" if qkv_i8 else "attention_q8_sep"] = \
+            depth * chunks
+        if fused_rmsq:
+            want["rmsnorm_quant"] = 4 * depth * chunks
+    return want
+
+
+def run_eval_fused(dev, seed: int, family: str, variants, bf16_logits):
+    """Phase 10 for one family: static int8 serving with fused_w8a8 and
+    fused_mlp, in each of ``variants`` ((label, qkv_i8, fused_rmsq, runs)),
+    from one set of seeded fp32 masters -> {label: stats dict}."""
+    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import int8_gemm, ln, quant
+    build = vit_b if family == "vit" else iv2_s
+    step = 1 if family == "vit" else IV2_VIEW_STEP
+    masters = build("cpu", seed, torch.float32).state_dict()
+    out = {}
+    for label, qkv_i8, fused_rmsq, runs in variants:
+        model = build(dev, seed, torch.bfloat16)
+        cfg = model.cfg
+        ds, n_windows, chunks = synthetic_clip(cfg, seed, step)
+        ev = FrameEvaluator(model, device=dev, batch_size=BATCH,
+                            resize_on_host=False, precompute_tubelets=True,
+                            quant8=True, fp32_state=masters,
+                            fused_rmsq=fused_rmsq, fused_w8a8=True,
+                            fused_mlp=True, qkv_i8=qkv_i8)
+        del model
+        ev.calibrate(ds)
+        ev.evaluate(ds)                              # warm-up
+        reset_counts()
+        int_mm = quant.INT_MM_CALLS
+        res = ev.evaluate(ds)
+        launches = read_counts()
+        int_mm = quant.INT_MM_CALLS - int_mm
+        rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
+                                         for _ in range(runs - 1)]
+        logits = logits_of(res)
+        sites = fused_sites(family, qkv_i8, fused_rmsq)
+        site_failures = check_sites(ev, ds, sites, f"{label} sites")
+        plain = {route: fns[1] for route, *fns in sites.values()}
+        plain.update(layernorm=ln.layernorm_plain)
+        with routed(**plain):
+            plain_res = ev.evaluate(ds)
+        attn = [k for k in sites if k.startswith("attention")][0]
+        gross = {"attention_i8": attention_i8_unnormalized,
+                 "attention_q8": attention_q8_unnormalized,
+                 "attention_i8_sep": attention_i8_sep_unnormalized,
+                 "attention_q8_sep": attention_q8_sep_unnormalized}[attn]
+        with routed(**dict(plain, **{sites[attn][0]: gross})):
+            control = logits_of(ev.evaluate(ds))
+        err, control_err, scale = logit_errors(logits, logits_of(plain_res),
+                                               control)
+        drift = float(np.abs(logits - bf16_logits).max())
+        rate = statistics.median(rates)
+        bound = LOGIT_RTOL_I8 if family == "vit" else LOGIT_RTOL_IV2_I8
+        print(f"[{label}] static int8, fused_w8a8 + fused_mlp"
+              f"{'' if qkv_i8 else ', qkv_i8=False'}"
+              f"{', fused_rmsq' if fused_rmsq else ''}, batch {BATCH}: "
+              f"evaluate median {rate:.2f} windows/s over {runs} runs (min "
+              f"{min(rates):.2f}, max {max(rates):.2f}); plain versions "
+              f"{plain_res.windows_per_sec:.2f} windows/s (one run)")
+        print(f"[{label}] launches {launches} over {chunks} chunk "
+              f"forwards, torch._int_mm calls {int_mm}; logits vs plain: "
+              f"max_abs_err / max |logit| {err:.3e}, gross control "
+              f"{control_err:.3e} (bound {bound:.3e}, max |logit| "
+              f"{scale:.3e}); vs bf16 max |logit difference| {drift:.3e} "
+              f"(printed, not bounded)")
+        assert not site_failures, site_failures
+        assert res.n_windows == n_windows
+        assert np.isfinite(logits).all(), f"non-finite {label} logits"
+        want = fused_launches(family, cfg.depth, chunks, qkv_i8, fused_rmsq)
+        assert launches == want, (label, launches, want)
+        assert int_mm == 0, f"{label}: {int_mm} torch._int_mm calls"
+        assert err <= bound, f"{label} logits disagree with plain: {err}"
+        assert control_err > bound, \
+            f"the {label} logit bound lets the gross control through"
+        if label == "vit fused":
+            run_stream(ev.model, dev, seed, label="int8 fused stream")
+        out[label] = {"windows_per_sec": rate, "launches": launches,
+                      "logits_err": err}
+        del ev
+        torch.cuda.empty_cache()
+    return out
 
 
 class SyntheticTrainDataset:
@@ -1792,6 +2245,16 @@ def main(argv=None):
     f9stats = run_finetune(dev, args.seed, "iv2")
     torch.cuda.empty_cache()
     run_finetune_timing(args.seed, "iv2")
+    # phase 10: (label, qkv_i8, fused_rmsq, evaluate runs)
+    p10 = run_eval_fused(dev, args.seed, "vit",
+                         [("vit fused", True, False, EVAL_RUNS),
+                          ("vit fused q8", False, False, EVAL_RUNS)],
+                         estats["logits"])
+    p10.update(run_eval_fused(dev, args.seed, "iv2",
+                              [("iv2 fused", True, False, EVAL_RUNS),
+                               ("iv2 fused rmsq", True, True, EVAL_RUNS),
+                               ("iv2 fused q8", False, False, EVAL_RUNS)],
+                              istats["logits"]))
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]
@@ -1802,7 +2265,13 @@ def main(argv=None):
                 **{k: i8stats[True]["launches"][k]
                    for k in ("attention_i8_sep", "rmsnorm_quant")},
                 **{k: f9stats["launches"][k]
-                   for k in ("attention_sep_fwd_lse", "attention_sep_bwd")}}
+                   for k in ("attention_sep_fwd_lse", "attention_sep_bwd")},
+                **{k: p10["vit fused"]["launches"][k]
+                   for k in ("int8_gemm", "int8_mlp")},
+                "attention_q8": p10["vit fused q8"]["launches"][
+                    "attention_q8"],
+                "attention_q8_sep": p10["iv2 fused q8"]["launches"][
+                    "attention_q8_sep"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     record = {"kernels": [

@@ -15,7 +15,11 @@ InternVideo2 (tubelet 1, patch 14; the DoTA job's setting is
 ViT's ``--tubelet_size`` and ``--final_reduction`` do not apply to it.
 ``--fused_rmsq`` (static int8 InternVideo2 only) makes its RMSNorms emit
 int8 through the RMSNorm->int8 kernel, the JAX package's
-SIMPLE_TAD_FUSED_RMSQ opt-in.
+SIMPLE_TAD_FUSED_RMSQ opt-in.  With static ``--quant8``, ``--fused_w8a8``
+and ``--fused_mlp`` run the fused int8 GEMM kernels (per GEMM, and the
+whole MLP) and ``--no_qkv_i8`` the bf16 attention with the int8 output
+epilogue instead of int8 storage: the JAX package's SIMPLE_TAD_FUSED_W8A8,
+SIMPLE_TAD_FUSED_MLP and SIMPLE_TAD_QKV_I8=0 programs.
 
 Usage:
   python -m simple_tad_tpu_torch.cli.eval_frames \
@@ -38,6 +42,9 @@ def main(argv=None):
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
     pre.add_argument("--fused_rmsq", action="store_true")
+    pre.add_argument("--fused_w8a8", action="store_true")
+    pre.add_argument("--fused_mlp", action="store_true")
+    pre.add_argument("--no_qkv_i8", dest="qkv_i8", action="store_false")
     dev_args, rest = pre.parse_known_args(argv)
     cfg = FinetuneConfig.from_args(rest)
     # dist_eval is on by default in the reference flags, where one device
@@ -104,7 +111,10 @@ def main(argv=None):
     ev = FrameEvaluator(model, device=device, batch_size=cfg.batch_size,
                         resize_on_host=cfg.resize_on_host, quant8=cfg.quant8,
                         quant8_mode=cfg.quant8_mode, fp32_state=fp32_state,
-                        fused_rmsq=dev_args.fused_rmsq)
+                        fused_rmsq=dev_args.fused_rmsq,
+                        fused_w8a8=dev_args.fused_w8a8,
+                        fused_mlp=dev_args.fused_mlp,
+                        qkv_i8=dev_args.qkv_i8)
     res = ev.evaluate(ds, exact_metrics=cfg.exact_metrics)
     print(f"AUROC {res.metrics.auroc:.4f}  AP {res.metrics.ap:.4f}  "
           f"AUC-MCC {res.metrics.mcc_auc:.4f}  "

@@ -9,7 +9,8 @@ stays on the device; only the new frame crosses from the host.
 and calibrated on the first T frames (batch 1), as the JAX CLI does.
 ``--model internvideo2_*_patch14_224`` serves InternVideo2 (e.g.
 ``--num_frames 8``); ``--fused_rmsq`` adds its RMSNorm->int8 kernel to
-``--quant8``.
+``--quant8``.  ``--fused_w8a8``, ``--fused_mlp`` and ``--no_qkv_i8`` are
+the static int8 model's options (cli/eval_frames.py), in both modes.
 
 Usage:
   python -m simple_tad_tpu_torch.cli.inference --ckpt model.pth \
@@ -98,6 +99,15 @@ def main(argv=None):
     parser.add_argument("--fused_rmsq", action="store_true",
                         help="with --quant8, InternVideo2's RMSNorms emit "
                              "int8 (RMSNorm->int8 kernel)")
+    parser.add_argument("--fused_w8a8", action="store_true",
+                        help="with --quant8, every int8 GEMM is the fused "
+                             "int8 GEMM kernel")
+    parser.add_argument("--fused_mlp", action="store_true",
+                        help="with --quant8, each MLP is one fused int8 "
+                             "kernel")
+    parser.add_argument("--no_qkv_i8", dest="qkv_i8", action="store_false",
+                        help="with --quant8, bf16 attention with an int8 "
+                             "output instead of int8-storage attention")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     if not args.ckpt.endswith(".pth"):
@@ -132,6 +142,12 @@ def main(argv=None):
                                 and model_family(args.model) == "iv2"):
         raise ValueError("--fused_rmsq is an option of --quant8 with an "
                          "InternVideo2 model")
+    options = dict(fused_w8a8=args.fused_w8a8, fused_mlp=args.fused_mlp,
+                   qkv_i8=args.qkv_i8)
+    if not args.quant8 and options != dict(fused_w8a8=False, fused_mlp=False,
+                                           qkv_i8=True):
+        raise ValueError("--fused_w8a8, --fused_mlp and --no_qkv_i8 are "
+                         "options of --quant8")
     if args.quant8:
         # quantize the fp32 masters (never the compute-dtype copy) and
         # calibrate the activation scales on the first window
@@ -140,6 +156,7 @@ def main(argv=None):
         cfg = model.cfg
         if args.fused_rmsq:
             cfg = dataclasses.replace(cfg, fused_rmsq=True)
+        cfg = dataclasses.replace(cfg, **options)
         model = quantize_and_calibrate(
             cfg, build(torch.device("cpu"), torch.float32).state_dict(),
             [scorer.tokens(first[None])], device=device, tokens_input=True)

@@ -56,6 +56,17 @@
 // fp32 inputs (tests, small shapes) take a simple CUDA-core kernel: one
 // thread per query row, 32-key tiles in shared memory, the same online
 // integer-max softmax.
+//
+// With Q8 the same kernels are B3, the int8-output epilogue of the static
+// int8 model's bf16 attention: they replace the TPU kernels
+// _fwd_kernel_nomax_packed_q8 (launched by _flash_primal_packed_qkv_q8_impl
+// on the packed qkv and by _flash_primal_packed_q8_impl on separate
+// operands) and _fwd_kernel_nomax_packed_kv_q8 (the key-grid form
+// _kv_grid_call launches at N = 2049).  Nothing changes before the store:
+// the normalised fp32 result (not a bf16 copy of it) is written as
+// clip(round_half_even(o * 127 / out_amax), +-127) int8 codes, out_amax read
+// from device memory.  The store moves half the bytes of A1's; the kernel
+// is bounded like A1.  Keys at or beyond n_kv (<= n) are masked by index.
 #include <math.h>
 
 #include "common.cuh"
@@ -90,12 +101,15 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
 // form: the running max is an integer and every rescale exact, so that is
 // m + log2(l) with l the sum of the rounded probabilities.  lse is (B, H, N)
 // fp32, contiguous.
-template <int DP, bool LSE>
+// With Q8 (kernel B3) o is int8 and out_amax the absmax its codes are made
+// against.
+template <int DP, bool LSE, bool Q8>
 __global__ void __launch_bounds__(kThreads)
     attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                         float* __restrict__ lse, int n, int d, Strides st,
-                         float qscale) {
+                         const bf16* __restrict__ v, void* __restrict__ o,
+                         float* __restrict__ lse,
+                         const float* __restrict__ out_amax, int n, int n_kv,
+                         int d, Strides st, float qscale) {
   constexpr int KS = DP + 8;       // row stride of the Q/K tile (elements)
   constexpr int VS = kBlockN + 8;  // row stride of the transposed V tile
   constexpr int KSTEPS = DP / 16;  // k-steps of the QK product
@@ -139,9 +153,11 @@ __global__ void __launch_bounds__(kThreads)
   // rows r0 and r0 + 8: running integer max and partial denominators
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int k0 = 0; k0 < n; k0 += kBlockN) {
-    load_tile<DP, kBlockN, false, false>(sK, KS, kb, k0, n, d, st.k_sn, 0.f);
-    load_tile<DP, kBlockN, true, false>(sVt, VS, vb, k0, n, d, st.v_sn, 0.f);
+  for (int k0 = 0; k0 < n_kv; k0 += kBlockN) {
+    load_tile<DP, kBlockN, false, false>(sK, KS, kb, k0, n_kv, d, st.k_sn,
+                                         0.f);
+    load_tile<DP, kBlockN, true, false>(sVt, VS, vb, k0, n_kv, d, st.v_sn,
+                                        0.f);
     __syncthreads();
 
     // 2. S = (q * scale * log2e) K^T for this warp's 16 rows x 64 keys
@@ -155,12 +171,12 @@ __global__ void __launch_bounds__(kThreads)
         mma_16816(s[j], qf[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
       }
     }
-    if (k0 + kBlockN > n) {
+    if (k0 + kBlockN > n_kv) {
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int key = k0 + j * 8 + t4 * 2;
-        if (key >= n) s[j][0] = s[j][2] = -INFINITY;
-        if (key + 1 >= n) s[j][1] = s[j][3] = -INFINITY;
+        if (key >= n_kv) s[j][0] = s[j][2] = -INFINITY;
+        if (key + 1 >= n_kv) s[j][1] = s[j][3] = -INFINITY;
       }
     }
 
@@ -235,7 +251,29 @@ __global__ void __launch_bounds__(kThreads)
     if (row0 < n) lrow[row0] = m0 + log2f(l0);
     if (row1 < n) lrow[row1] = m1 + log2f(l1);
   }
-  bf16* ob = o + batch * st.o_sb + hoff;
+  if (Q8) {
+    const float oinv = stt::quant_inv(out_amax);
+    int8_t* ob = static_cast<int8_t*>(o) + batch * st.o_sb + hoff;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int col = j * 8 + t4 * 2;
+      if (col >= d) continue;
+      if (row0 < n) {
+        *reinterpret_cast<char2*>(ob + static_cast<size_t>(row0) * st.o_sn +
+                                  col) =
+            make_char2(stt::quant_i8(__fdiv_rn(acc[j][0], l0), oinv),
+                       stt::quant_i8(__fdiv_rn(acc[j][1], l0), oinv));
+      }
+      if (row1 < n) {
+        *reinterpret_cast<char2*>(ob + static_cast<size_t>(row1) * st.o_sn +
+                                  col) =
+            make_char2(stt::quant_i8(__fdiv_rn(acc[j][2], l1), oinv),
+                       stt::quant_i8(__fdiv_rn(acc[j][3], l1), oinv));
+      }
+    }
+    return;
+  }
+  bf16* ob = static_cast<bf16*>(o) + batch * st.o_sb + hoff;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int col = j * 8 + t4 * 2;
@@ -253,12 +291,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DP, bool LSE>
+template <int DP, bool LSE, bool Q8>
 __global__ void __launch_bounds__(kBlockM)
     attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ o,
-                        float* __restrict__ lse, int n, int d, Strides st,
-                        float qscale) {
+                        const float* __restrict__ v, void* __restrict__ o,
+                        float* __restrict__ lse,
+                        const float* __restrict__ out_amax, int n, int n_kv,
+                        int d, Strides st, float qscale) {
   __shared__ float sK[kBlockNF32][DP];
   __shared__ float sV[kBlockNF32][DP];
   const int row = blockIdx.x * kBlockM + threadIdx.x;
@@ -277,17 +316,17 @@ __global__ void __launch_bounds__(kBlockM)
     acc[c] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
-  for (int k0 = 0; k0 < n; k0 += kBlockNF32) {
+  for (int k0 = 0; k0 < n_kv; k0 += kBlockNF32) {
     for (int i = threadIdx.x; i < kBlockNF32 * DP; i += kBlockM) {
       const int r = i / DP;
       const int c = i % DP;
-      const bool ok = k0 + r < n && c < d;
+      const bool ok = k0 + r < n_kv && c < d;
       const size_t key = k0 + r;
       sK[r][c] = ok ? kb[key * st.k_sn + c] : 0.f;
       sV[r][c] = ok ? vb[key * st.v_sn + c] : 0.f;
     }
     __syncthreads();
-    const int nk = min(kBlockNF32, n - k0);
+    const int nk = min(kBlockNF32, n_kv - k0);
     for (int j = 0; j < nk; ++j) {
       float s = 0.f;
 #pragma unroll
@@ -307,8 +346,16 @@ __global__ void __launch_bounds__(kBlockM)
     }
     __syncthreads();
   }
-  if (row < n) {
-    float* orow = o + batch * st.o_sb + hoff +
+  if (row < n && Q8) {
+    const float oinv = stt::quant_inv(out_amax);
+    int8_t* orow = static_cast<int8_t*>(o) + batch * st.o_sb + hoff +
+                   static_cast<size_t>(row) * st.o_sn;
+#pragma unroll
+    for (int c = 0; c < DP; ++c) {
+      if (c < d) orow[c] = stt::quant_i8(__fdiv_rn(acc[c], l), oinv);
+    }
+  } else if (row < n) {
+    float* orow = static_cast<float*>(o) + batch * st.o_sb + hoff +
                   static_cast<size_t>(row) * st.o_sn;
 #pragma unroll
     for (int c = 0; c < DP; ++c) {
@@ -321,43 +368,52 @@ __global__ void __launch_bounds__(kBlockM)
   }
 }
 
-template <int DP, bool LSE>
-void launch(const void* q, const void* k, const void* v, void* o, float* lse,
-            int b, int n, int h, int d, const Strides& st, float qscale,
-            int dtype, cudaStream_t stream) {
+// Output and scratch of one launch: o (and, with Q8, the absmax its int8
+// codes are made against), lse (LSE only).
+struct Out {
+  void* o;
+  float* lse;
+  const float* out_amax;
+};
+
+template <int DP, bool LSE, bool Q8>
+void launch(const void* q, const void* k, const void* v, const Out& out,
+            int b, int n, int n_kv, int h, int d, const Strides& st,
+            float qscale, int dtype, cudaStream_t stream) {
   const dim3 grid((n + kBlockM - 1) / kBlockM, h, b);
   if (dtype == stt::kBFloat16) {
-    attn_fwd_bf16_kernel<DP, LSE><<<grid, kThreads, 0, stream>>>(
+    attn_fwd_bf16_kernel<DP, LSE, Q8><<<grid, kThreads, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, n, d, st,
-        qscale);
+        static_cast<const bf16*>(v), out.o, out.lse, out.out_amax, n, n_kv,
+        d, st, qscale);
   } else {
-    attn_fwd_f32_kernel<DP, LSE><<<grid, kBlockM, 0, stream>>>(
+    attn_fwd_f32_kernel<DP, LSE, Q8><<<grid, kBlockM, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, n, d, st,
-        qscale);
+        static_cast<const float*>(v), out.o, out.lse, out.out_amax, n, n_kv,
+        d, st, qscale);
   }
 }
 
-template <bool LSE>
-int dispatch(const void* q, const void* k, const void* v, void* o,
-             float* lse, int b, int n, int h, int d, const Strides& st,
+template <bool LSE, bool Q8 = false>
+int dispatch(const void* q, const void* k, const void* v, const Out& out,
+             int b, int n, int n_kv, int h, int d, const Strides& st,
              float qscale, int dtype, void* stream) {
-  if (b <= 0 || n <= 0 || h <= 0 || d <= 0 || d % 8 != 0 || d > 128 ||
-      b > 65535 || h > 65535 ||
+  if (b <= 0 || n <= 0 || n_kv <= 0 || n_kv > n || h <= 0 || d <= 0 ||
+      d % 8 != 0 || d > 128 || b > 65535 || h > 65535 ||
+      (Q8 && out.out_amax == nullptr) ||
       (dtype != stt::kBFloat16 && dtype != stt::kFloat32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 15) / 16 * 16) {
-    case 16: launch<16, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
-    case 32: launch<32, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
-    case 48: launch<48, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
-    case 64: launch<64, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
-    case 80: launch<80, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
-    case 96: launch<96, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
-    case 112: launch<112, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
-    default: launch<128, LSE>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype, s); break;
+    case 16: launch<16, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
+    case 32: launch<32, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
+    case 48: launch<48, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
+    case 64: launch<64, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
+    case 80: launch<80, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
+    case 96: launch<96, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
+    case 112: launch<112, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
+    default: launch<128, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -376,8 +432,8 @@ extern "C" int stt_attention_fwd(const void* q, const void* k, const void* v,
                                  int v_sb, int v_sn, int o_sb, int o_sn,
                                  float qscale, int dtype, void* stream) {
   const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
-  return dispatch<false>(q, k, v, o, nullptr, b, n, h, d, st, qscale, dtype,
-                         stream);
+  return dispatch<false>(q, k, v, Out{o, nullptr, nullptr}, b, n, n, h, d, st,
+                         qscale, dtype, stream);
 }
 
 // Kernel C1: A1 on the packed qkv (one stride pair for q, k and v) that
@@ -390,8 +446,8 @@ extern "C" int stt_attention_fwd_lse(const void* q, const void* k,
                                      int in_sn, int out_sb, int out_sn,
                                      float qscale, int dtype, void* stream) {
   const Strides st{in_sb, in_sn, in_sb, in_sn, in_sb, in_sn, out_sb, out_sn};
-  return dispatch<true>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype,
-                        stream);
+  return dispatch<true>(q, k, v, Out{o, lse, nullptr}, b, n, n, h, d, st,
+                        qscale, dtype, stream);
 }
 
 // Kernel C3-fwd: C1 on separate q, k and v, each read through its own
@@ -411,6 +467,23 @@ extern "C" int stt_attention_fwd_lse_sep(const void* q, const void* k,
                                          int o_sn, float qscale, int dtype,
                                          void* stream) {
   const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
-  return dispatch<true>(q, k, v, o, lse, b, n, h, d, st, qscale, dtype,
-                        stream);
+  return dispatch<true>(q, k, v, Out{o, lse, nullptr}, b, n, n, h, d, st,
+                        qscale, dtype, stream);
+}
+
+// Kernel B3: A1 with the int8 output epilogue, on the packed qkv (three base
+// pointers, one stride pair passed three times) or on separate q, k and v
+// (InternVideo2, v the strided column block of the qkv output).  o is int8
+// with its own (batch, row) strides; out_amax one fp32 value in device
+// memory; keys at or beyond n_kv (1 <= n_kv <= n) are masked.  Replaces
+// _fwd_kernel_nomax_packed_q8 and _fwd_kernel_nomax_packed_kv_q8.
+extern "C" int stt_attention_q8(const void* q, const void* k, const void* v,
+                                const float* out_amax, void* o, int b, int n,
+                                int n_kv, int h, int d, int q_sb, int q_sn,
+                                int k_sb, int k_sn, int v_sb, int v_sn,
+                                int o_sb, int o_sn, float qscale, int dtype,
+                                void* stream) {
+  const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
+  return dispatch<false, true>(q, k, v, Out{o, nullptr, out_amax}, b, n,
+                               n_kv, h, d, st, qscale, dtype, stream);
 }

@@ -56,6 +56,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 using stt::as_u32;
 using stt::mma_16816;
+using stt::mma_16832_s8;
 
 constexpr int kBlockM = 64;    // query rows per block
 constexpr int kBlockN = 64;    // keys per tile
@@ -69,17 +70,6 @@ struct Strides {
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D (16x8, s32) += A (16x32, s8, row-major) * B (32x8, s8, col-major)
-__device__ __forceinline__ void mma_16832_s8(int (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Copy a (ROWS x DP) int8 tile, rows starting at row0 of a strided source,

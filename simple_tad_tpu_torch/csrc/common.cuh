@@ -13,7 +13,7 @@
 namespace stt {
 
 // dtype codes shared with simple_tad_tpu_torch/kernels/build.py
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -40,7 +40,7 @@ __device__ __forceinline__ int8_t quant_i8(float y, float inv) {
 }
 
 // 127 / max(amax, 1e-12) from a device-side amax, as the plain versions
-// compute it (IEEE division)
+// (ops/ln.py:quant_scale) and the JAX package compute it (IEEE division)
 __device__ __forceinline__ float quant_inv(const float* amax) {
   return 127.f / fmaxf(*amax, 1e-12f);
 }
@@ -56,6 +56,18 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (16x8, s32) += A (16x32, s8, row-major) * B (32x8, s8, col-major); the
+// int8 products (kernels B2/D2 and B4) accumulate exactly in int32
+__device__ __forceinline__ void mma_16832_s8(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

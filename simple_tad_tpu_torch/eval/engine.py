@@ -21,7 +21,10 @@ masters, dispatched on the model's family; in the default 'static' mode the
 first ``evaluate`` (or ``score_view``) calibrates it on the first clips,
 through the pixel path, as the JAX package does.  ``fused_rmsq`` (static
 int8 InternVideo2 only) makes its RMSNorms emit int8 through the
-RMSNorm->int8 kernel, the JAX package's SIMPLE_TAD_FUSED_RMSQ opt-in.
+RMSNorm->int8 kernel, the JAX package's SIMPLE_TAD_FUSED_RMSQ opt-in;
+``fused_w8a8``, ``fused_mlp`` and ``qkv_i8=False`` (static int8, ViT or
+InternVideo2) are the model options of models/layers.py: the fused int8
+GEMM kernels, and the bf16 attention with the int8 output epilogue.
 """
 
 from __future__ import annotations
@@ -110,13 +113,17 @@ class FrameEvaluator:
     (the fp32 masters, e.g. an fp32 model's state_dict; default: the
     model's own state, which must then be fp32) in ``quant8_mode``
     'static' (calibrated, see ``calibrate``) or 'dynamic'.  ``fused_rmsq``:
-    the static int8 InternVideo2's norms emit int8 (kernel D3).
+    the static int8 InternVideo2's norms emit int8 (kernel D3);
+    ``fused_w8a8``, ``fused_mlp``, ``qkv_i8``: the static int8 model's
+    options (models/layers.py), the JAX package's defaults unless given.
     """
 
     def __init__(self, model, *, device, batch_size: int = 96,
                  resize_on_host: bool = False, precompute_tubelets: bool = True,
                  quant8: bool = False, quant8_mode: str = "static",
-                 fp32_state=None, devices=None, fused_rmsq: bool = False):
+                 fp32_state=None, devices=None, fused_rmsq: bool = False,
+                 fused_w8a8: bool = False, fused_mlp: bool = False,
+                 qkv_i8: bool = True):
         if devices is not None:
             raise NotImplementedError(
                 "multi-device evaluation is not ported yet (ROADMAP.md "
@@ -129,6 +136,13 @@ class FrameEvaluator:
             raise ValueError("fused_rmsq is an option of static int8 "
                              "InternVideo2 serving (quant8=True, "
                              "quant8_mode='static')")
+        options = dict(fused_w8a8=fused_w8a8, fused_mlp=fused_mlp,
+                       qkv_i8=qkv_i8)
+        if options != dict(fused_w8a8=False, fused_mlp=False, qkv_i8=True) \
+                and not (quant8 and quant8_mode == "static"):
+            raise ValueError("fused_w8a8, fused_mlp and qkv_i8 are options "
+                             "of static int8 serving (quant8=True, "
+                             "quant8_mode='static')")
         if quant8:
             if quant8_mode not in ("static", "dynamic"):
                 raise ValueError(f"quant8_mode must be 'static' or "
@@ -138,6 +152,8 @@ class FrameEvaluator:
             static = quant8_mode == "static"
             if fused_rmsq:
                 cfg = dataclasses.replace(cfg, fused_rmsq=True)
+            if static:
+                cfg = dataclasses.replace(cfg, **options)
             # a static model is served by its calib twin until calibrate()
             self._qstate = qstate if static else None
             model = quant_model(cfg, qstate,

@@ -1,7 +1,9 @@
-"""A/B of the packed attention kernels between this checkout and another.
+"""A/B of the attention kernels between this checkout and another.
 
 A1 (inference), C1 (training forward with lse) and C2 (training backward)
-on the packed qkv run on the same seeded inputs at ViT-B's shapes in both
+on the packed qkv, and the int8-storage attention packed (B2) and on
+separate operands (D2, at IV2-S's N = 2049, v strided), run on the same
+seeded inputs at ViT-B's (and IV2-S's) shapes in both
 checkouts, each in a fresh process (the two packages share a name), in the
 order other, this, this, other, all on one card.  Each process builds its
 checkout's kernels from its own sources.  Printed per kernel: whether the
@@ -28,7 +30,8 @@ RUNS = 30
 # kernel -> (batch, tokens, heads): ViT-B 16x224 at the eval batch (A1) and
 # the fine-tuning job's batch (C1, C2)
 SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
-          "attention_bwd": (56, 1568, 12)}
+          "attention_bwd": (56, 1568, 12), "attention_i8": (32, 1568, 12),
+          "attention_i8_sep": (32, 2049, 6)}
 
 
 def _worker(root: str) -> dict:
@@ -48,7 +51,25 @@ def _worker(root: str) -> dict:
         g = torch.Generator(device=dev).manual_seed(SEED)
         qkv = torch.randn((B, N, 3 * C), generator=g,
                           device=dev).to(torch.bfloat16)
-        if name == "attention":
+        if name in ("attention_i8", "attention_i8_sep"):
+            amax = qkv.float().view(B, N, 3, heads, 64).abs().amax(
+                dim=(0, 1, 4))
+            inv = (127.0 / amax).reshape(-1).repeat_interleave(64)
+            q8 = torch.clamp(torch.round(qkv.float() * inv), -127,
+                             127).to(torch.int8)
+            out_amax = torch.ones((), device=dev)
+            if name == "attention_i8":
+                def fn():
+                    return (fa.flash_attention_qkv_i8d(q8, amax, heads, scale,
+                                                       out_amax),)
+            else:
+                ops = (q8[..., :C].contiguous(),
+                       q8[..., C:2 * C].contiguous(), q8[..., 2 * C:])
+
+                def fn():
+                    return (fa.flash_attention_i8d(*ops, amax, heads, scale,
+                                                   out_amax),)
+        elif name == "attention":
             def fn():
                 return (fa.flash_attention_qkv(qkv, heads, scale),)
         elif name == "attention_fwd_lse":

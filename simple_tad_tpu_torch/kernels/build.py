@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # dtype codes of csrc/common.cuh
 DTYPE_FLOAT32 = 0
 DTYPE_BFLOAT16 = 1
+DTYPE_INT8 = 2
 
 _lock = threading.Lock()
 _lib = None
@@ -145,6 +146,14 @@ def load() -> ctypes.CDLL:
             lib.stt_attention_i8.argtypes = [p, p, p, p, p, p, *[i] * 13,
                                              ctypes.c_float, p]
             lib.stt_attention_i8.restype = i
+            lib.stt_attention_q8.argtypes = [p] * 5 + [i] * 13 + [
+                ctypes.c_float, i, p]
+            lib.stt_attention_q8.restype = i
+            lib.stt_w8a8_gemm.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i,
+                                          p]
+            lib.stt_w8a8_gemm.restype = i
+            lib.stt_w8a8_mlp.argtypes = [p, i] + [p] * 9 + [i] * 5 + [p]
+            lib.stt_w8a8_mlp.restype = i
             lib.stt_error_string.argtypes = [i]
             lib.stt_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -158,9 +167,14 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel failed: CUDA error {code} ({msg})")
 
 
-def dtype_code(dtype) -> int:
+def dtype_code(dtype, int8: bool = False) -> int:
+    """The csrc/common.cuh code of ``dtype``; int8 only where the caller
+    allows it (the int8 GEMMs' input)."""
     if dtype == torch.float32:
         return DTYPE_FLOAT32
     if dtype == torch.bfloat16:
         return DTYPE_BFLOAT16
-    raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+    if int8 and dtype == torch.int8:
+        return DTYPE_INT8
+    raise TypeError(f"kernels take float32 or bfloat16"
+                    f"{' or int8' if int8 else ''}, not {dtype}")

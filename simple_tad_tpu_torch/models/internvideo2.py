@@ -34,7 +34,14 @@ separate operands (kernel D2) against the calibrated per-head ``qkv_amax``
 of the post-norm q/k and the raw v.  ``fused_rmsq=True`` (the JAX
 package's SIMPLE_TAD_FUSED_RMSQ opt-in, here an explicit argument) makes
 norm1/norm2 and the q/k-norms emit int8 through the RMSNorm->int8 kernel
-(D3); their absmax is calibrated in the norm scopes.
+(D3); their absmax is calibrated in the norm scopes.  The static model's
+other serving options are the ViT's (models/layers.py): ``fused_w8a8`` and
+``fused_mlp`` (the fused int8 GEMM kernels, B4), and ``qkv_i8=False``,
+which takes the bf16 attention on separate operands with the int8 output
+epilogue (B3) instead of int8 storage; the attention route follows the
+TPU program's geometry gates (ops/attention.py:
+static_attention_sep_route), and with ``qkv_i8=False`` the q/k-norms stay
+bf16, as in the JAX package.
 
 Training (the JAX model's ``deterministic=False``): in ``train()`` mode,
 with fp32 masters, the attention is the separate-operand training attention
@@ -63,12 +70,16 @@ from torch import nn
 
 from simple_tad_tpu_torch.models.layers import (QUANT_MODES, Linear, Mlp,
                                                 PatchEmbed, QuantLinear,
-                                                _param, absmax, drop_path,
-                                                dropout, observe,
+                                                _param, absmax,
+                                                check_static_options,
+                                                drop_path, dropout, observe,
                                                 trunc_normal)
 from simple_tad_tpu_torch.ops.attention import (dot_product_attention,
-                                                dot_product_attention_i8_sep)
-from simple_tad_tpu_torch.ops.ln import layernorm_plain, rmsnorm_quant
+                                                dot_product_attention_i8_sep,
+                                                static_attention_sep_route)
+from simple_tad_tpu_torch.ops.flash_attention import flash_attention_q8
+from simple_tad_tpu_torch.ops.ln import (layernorm_plain, quant_scale,
+                                         rmsnorm_quant)
 
 
 def sincos_1d_mae(dim: int, positions: np.ndarray) -> np.ndarray:
@@ -124,6 +135,10 @@ class IV2Config:
     quant: bool = False
     quant_mode: str = "dynamic"
     fused_rmsq: bool = False
+    # static int8 serving options of models/layers.py
+    fused_w8a8: bool = False
+    fused_mlp: bool = False
+    qkv_i8: bool = True
     dtype: torch.dtype = torch.float32
     # parameter storage: None keeps each parameter in the dtype the JAX
     # package computes it in (inference); torch.float32 gives fp32 training
@@ -199,8 +214,7 @@ class RMSNormQuant(RMSNorm):
 
     def forward(self, x, quant_inv=None):
         if self.mode == "static":
-            inv = (127.0 / torch.clamp(self.act_amax, min=1e-12)).expand(
-                x.shape[-1])
+            inv = quant_scale(self.act_amax).expand(x.shape[-1])
             return super().forward(x, inv)
         y = super().forward(x)
         observe(self, "act_amax", absmax(y))
@@ -239,6 +253,7 @@ class IV2Attention(nn.Module):
                  qk_normalization: bool = True, dtype=torch.float32,
                  param_dtype=None, quant: bool = False,
                  quant_mode: str = "dynamic", fused_rmsq: bool = False,
+                 fused_w8a8: bool = False, qkv_i8: bool = True,
                  device=None):
         super().__init__()
         self.dim = dim
@@ -247,13 +262,18 @@ class IV2Attention(nn.Module):
         self.quant = quant
         self.mode = quant_mode
         self.fused_rmsq = fused_rmsq
+        self.qkv_i8 = qkv_i8
         self.scale = (dim // num_heads) ** -0.5
         if quant:
             self.qkv = QuantLinear(dim, 3 * dim, bias=qkv_bias,
-                                   mode=quant_mode, device=device)
-            self.proj = QuantLinear(dim, dim, mode=quant_mode, device=device)
+                                   mode=quant_mode, fused=fused_w8a8,
+                                   device=device)
+            self.proj = QuantLinear(dim, dim, mode=quant_mode,
+                                    fused=fused_w8a8, device=device)
             if quant_mode == "static":
-                self.qkv_amax = _param((3, num_heads), torch.float32, device)
+                if qkv_i8:
+                    self.qkv_amax = _param((3, num_heads), torch.float32,
+                                           device)
                 self.out_amax = _param((), torch.float32, device)
             self.observed = {}
         else:
@@ -277,20 +297,25 @@ class IV2Attention(nn.Module):
     def forward(self, x):
         C, H = self.dim, self.num_heads
         static = self.quant and self.mode == "static"
-        qkv = self.qkv(x).to(self.dtype)
+        route = static_attention_sep_route(x.shape[1], C, H, self.qkv_i8) \
+            if static else None
+        qkv = self.qkv(x, out_dtype=self.dtype) if self.quant \
+            else self.qkv(x).to(self.dtype)
         q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
         if self.q_norm is not None:
             qi = ki = None
-            if static and self.fused_rmsq:
-                inv = (127.0 / torch.clamp(self.qkv_amax, min=1e-12)
-                       ).repeat_interleave(C // H, dim=1)
+            if route == "i8" and self.fused_rmsq:
+                inv = quant_scale(self.qkv_amax).repeat_interleave(C // H,
+                                                                  dim=1)
                 qi, ki = inv[0], inv[1]
             q = self.q_norm(q, qi)
             k = self.k_norm(k, ki)
-        if static:
+        if route == "i8":
             out = dot_product_attention_i8_sep(
                 q, k, v, self.qkv_amax, self.out_amax, num_heads=H,
                 scale=self.scale)
+        elif route == "q8":
+            out = flash_attention_q8(q, k, v, H, self.scale, self.out_amax)
         else:
             if self.quant and self.mode == "calib":
                 observe(self, "qkv_amax", torch.stack([
@@ -300,6 +325,8 @@ class IV2Attention(nn.Module):
                                         scale=self.scale)
             if self.quant and self.mode == "calib":
                 observe(self, "out_amax", absmax(out))
+        if self.quant:
+            return self.proj(out, out_dtype=self.dtype)
         return self.proj(out).to(self.dtype)
 
 
@@ -329,7 +356,8 @@ class IV2Block(nn.Module):
                  qk_normalization: bool = True, drop_path_rate: float = 0.0,
                  dtype=torch.float32, param_dtype=None, quant: bool = False,
                  quant_mode: str = "dynamic", fused_rmsq: bool = False,
-                 device=None):
+                 fused_w8a8: bool = False, fused_mlp: bool = False,
+                 qkv_i8: bool = True, device=None):
         super().__init__()
         self.drop_path_rate = float(drop_path_rate)
         if quant and quant_mode not in QUANT_MODES:
@@ -347,12 +375,14 @@ class IV2Block(nn.Module):
                                  qk_normalization=qk_normalization,
                                  dtype=dtype, param_dtype=param_dtype,
                                  quant=quant, quant_mode=quant_mode,
-                                 fused_rmsq=fused_rmsq, device=device)
+                                 fused_rmsq=fused_rmsq, fused_w8a8=fused_w8a8,
+                                 qkv_i8=qkv_i8, device=device)
         self.ls1 = LayerScale(dim, init_values, dtype=dtype, device=device)
         self.norm2 = norm()
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype,
                        param_dtype=param_dtype, quant=quant,
-                       quant_mode=quant_mode, device=device)
+                       quant_mode=quant_mode, fused_w8a8=fused_w8a8,
+                       fused_mlp=fused_mlp, device=device)
         self.ls2 = LayerScale(dim, init_values, dtype=dtype, device=device)
 
     def init_weights(self, generator):
@@ -449,6 +479,7 @@ class InternVideo2(nn.Module):
                              "model (and its calibration twin)")
         if cfg.quant and cfg.param_dtype is not None:
             raise ValueError("the int8 model is inference only")
+        check_static_options(cfg)
         if cfg.remat:
             raise NotImplementedError(
                 "gradient checkpointing (--use_checkpoint) is not ported yet "
@@ -475,7 +506,9 @@ class InternVideo2(nn.Module):
                      qk_normalization=cfg.qk_normalization,
                      drop_path_rate=float(rate), dtype=dt, param_dtype=pdt,
                      quant=cfg.quant, quant_mode=cfg.quant_mode,
-                     fused_rmsq=cfg.fused_rmsq, device=device)
+                     fused_rmsq=cfg.fused_rmsq, fused_w8a8=cfg.fused_w8a8,
+                     fused_mlp=cfg.fused_mlp, qkv_i8=cfg.qkv_i8,
+                     device=device)
             for rate in np.linspace(0.0, cfg.drop_path_rate, cfg.depth))
         self.clip_projector = AttentionPooling(
             D, cfg.attn_pool_num_heads, cfg.clip_embed_dim, dtype=dt,

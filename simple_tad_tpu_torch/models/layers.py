@@ -30,6 +30,18 @@ initialised here.  Casts and bias adds follow the JAX modules: the qkv
 GEMM's output is cast to the compute dtype before the q/v bias add; the
 proj, fc1 and fc2 GEMMs add their fp32 bias in fp32; GELU runs on fc1's
 fp32 output.
+
+Static serving options (the JAX package's environment opt-ins, here
+explicit arguments): ``fused_w8a8`` runs every static ``QuantLinear``
+through the fused int8 GEMM kernel (ops/int8_gemm.py:w8a8_gemm, B4),
+``fused_mlp`` the whole static MLP through w8a8_mlp where
+``use_fused_mlp`` holds (else per-GEMM B4 with ``fused_w8a8``, else the
+unfused GEMMs), and ``qkv_i8=False`` opts the attention out of int8
+storage (ops/attention.py:static_attention_route: the bf16 attention with
+the int8 output epilogue, B3, where the geometry allows).  The attention
+route follows the TPU program's geometry gates whatever the options.  The
+fused kernels compute the unfused model's function (the same codes, the
+same fp32 roundings, the same GELU form).
 """
 
 from __future__ import annotations
@@ -41,13 +53,31 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from simple_tad_tpu_torch.ops.attention import (dot_product_attention_qkv,
-                                                dot_product_attention_qkv_i8)
+from simple_tad_tpu_torch.ops.attention import (
+    dot_product_attention, dot_product_attention_qkv,
+    dot_product_attention_qkv_i8, static_attention_route)
+from simple_tad_tpu_torch.ops.flash_attention import flash_attention_qkv_q8
+from simple_tad_tpu_torch.ops.int8_gemm import (activation, gelu_act,
+                                                use_fused_mlp, w8a8_gemm,
+                                                w8a8_mlp)
 from simple_tad_tpu_torch.ops.ln import (LayerNormFn, layernorm,
                                          layernorm_quant)
 from simple_tad_tpu_torch.ops.quant import int8_matmul, int8_matmul_static
 
 QUANT_MODES = ("static", "dynamic", "calib")
+
+
+def check_static_options(cfg) -> None:
+    """The static serving options of a ViTConfig or IV2Config are options of
+    the int8 model with calibrated scales: raise unless it is one (mode
+    'calib' builds the calibration model of such a config)."""
+    static = cfg.quant and cfg.quant_mode in ("static", "calib")
+    for name, on in (("fused_w8a8", cfg.fused_w8a8),
+                     ("fused_mlp", cfg.fused_mlp),
+                     ("qkv_i8=False", not cfg.qkv_i8)):
+        if on and not static:
+            raise ValueError(f"{name} is an option of the static int8 "
+                             f"model (quant=True, quant_mode='static')")
 
 
 def gelu_for(dtype):
@@ -163,12 +193,16 @@ class QuantLinear(nn.Module):
     """Int8-weight Linear, inference only (port of the JAX QuantDense):
     ``weight_q`` (out, in) int8, ``weight_scale`` (out,) fp32, fp32
     ``bias``; mode 'static' adds ``act_amax``, the calibrated absmax of the
-    input.  Returns fp32 with the bias added in fp32."""
+    input.  Adds the bias in fp32, then applies ``act`` in fp32 (None,
+    'gelu_tanh' or 'gelu_erf'), and returns ``out_dtype`` (fp32 by
+    default).  ``fused`` (static only): the fused int8 GEMM kernel computes
+    all of it."""
 
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True,
-                 mode: str, device=None):
+                 mode: str, fused: bool = False, device=None):
         super().__init__()
         self.mode = mode
+        self.fused = fused and mode == "static"
         self.weight_q = _param((out_dim, in_dim), torch.int8, device)
         self.weight_scale = _param((out_dim,), torch.float32, device)
         self.bias = _param((out_dim,), torch.float32, device) if bias \
@@ -177,7 +211,10 @@ class QuantLinear(nn.Module):
             self.act_amax = _param((), torch.float32, device)
         self.observed = {}
 
-    def forward(self, x):
+    def forward(self, x, act=None, out_dtype=torch.float32):
+        if self.fused:
+            return w8a8_gemm(x, self.weight_q, self.weight_scale,
+                             self.act_amax, self.bias, act, out_dtype)
         if self.mode == "static":
             y = int8_matmul_static(x, self.weight_q, self.weight_scale,
                                    self.act_amax)
@@ -185,7 +222,9 @@ class QuantLinear(nn.Module):
             if self.mode == "calib":
                 observe(self, "act_amax", absmax(x))
             y = int8_matmul(x, self.weight_q, self.weight_scale)
-        return y if self.bias is None else y + self.bias
+        if self.bias is not None:
+            y = y + self.bias
+        return activation(y, act).to(out_dtype)
 
 
 class LayerNormFp32(nn.Module):
@@ -240,19 +279,25 @@ class LayerNormQuant(LayerNormFp32):
 
 class Mlp(nn.Module):
     """fc1 -> GELU (erf at fp32, tanh at bf16) -> fc2 -> dropout ``drop``
-    (training)."""
+    (training).  The static int8 MLP with ``fused_mlp`` is one w8a8_mlp
+    kernel where ``use_fused_mlp`` holds; ``fused_w8a8`` makes each GEMM a
+    w8a8_gemm kernel, fc1's carrying the GELU."""
 
     def __init__(self, dim: int, hidden_dim: int, *, dtype=torch.float32,
                  param_dtype=None, drop: float = 0.0, quant: bool = False,
-                 quant_mode: str = "dynamic", device=None):
+                 quant_mode: str = "dynamic", fused_w8a8: bool = False,
+                 fused_mlp: bool = False, device=None):
         super().__init__()
         self.dtype = dtype
         self.drop = drop
+        self.quant = quant
+        self.fused_mlp = (quant and quant_mode == "static" and fused_mlp
+                          and use_fused_mlp(dim, hidden_dim))
         if quant:
             self.fc1 = QuantLinear(dim, hidden_dim, mode=quant_mode,
-                                   device=device)
+                                   fused=fused_w8a8, device=device)
             self.fc2 = QuantLinear(hidden_dim, dim, mode=quant_mode,
-                                   device=device)
+                                   fused=fused_w8a8, device=device)
         else:
             self.fc1 = Linear(dim, hidden_dim, dtype=dtype,
                               param_dtype=param_dtype, device=device)
@@ -265,6 +310,15 @@ class Mlp(nn.Module):
         self.fc2.init_weights(generator)
 
     def forward(self, x, generator=None):
+        if self.fused_mlp:
+            f1, f2 = self.fc1, self.fc2
+            return w8a8_mlp(x, f1.weight_q, f1.weight_scale, f1.act_amax,
+                            f1.bias, f2.weight_q, f2.weight_scale,
+                            f2.act_amax, f2.bias, gelu_act(self.dtype),
+                            self.dtype)
+        if self.quant:
+            h = self.fc1(x, act=gelu_act(self.dtype))
+            return self.fc2(h, out_dtype=self.dtype)
         y = self.fc2(self.act(self.fc1(x))).to(self.dtype)
         return dropout(y, self.drop, self.training, generator)
 
@@ -272,16 +326,19 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Packed-qkv multi-head attention: one bias-free ``qkv`` projection,
     then ``q_bias | 0 | v_bias`` added in the compute dtype, then
-    ops/attention.py, then ``proj``.  Int8 mode 'static' quantizes qkv per
-    head against the calibrated ``qkv_amax`` (3, H) and runs the
-    int8-storage kernel, whose int8 output (against ``out_amax``) is the
-    proj GEMM's input; 'calib' records both absmax sites around the bf16
-    attention."""
+    ops/attention.py, then ``proj``.  Int8 mode 'static' routes as the TPU
+    program (ops/attention.py:static_attention_route): qkv quantized per
+    head against the calibrated ``qkv_amax`` (3, H) into the int8-storage
+    kernel, or the bf16 attention with the int8 output epilogue, each
+    emitting the proj GEMM's int8 input against ``out_amax``; or the bf16
+    attention, whose output proj quantizes itself.  'calib' records both
+    absmax sites around the bf16 attention."""
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
                  qk_scale=None, dtype=torch.float32, param_dtype=None,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
                  quant: bool = False, quant_mode: str = "dynamic",
+                 fused_w8a8: bool = False, qkv_i8: bool = True,
                  device=None):
         super().__init__()
         self.num_heads = num_heads
@@ -290,14 +347,18 @@ class Attention(nn.Module):
         self.proj_drop = proj_drop
         self.quant = quant
         self.mode = quant_mode
+        self.qkv_i8 = qkv_i8
         head_dim = dim // num_heads
         self.scale = qk_scale or head_dim ** -0.5
         if quant:
             self.qkv = QuantLinear(dim, 3 * dim, bias=False, mode=quant_mode,
-                                   device=device)
-            self.proj = QuantLinear(dim, dim, mode=quant_mode, device=device)
+                                   fused=fused_w8a8, device=device)
+            self.proj = QuantLinear(dim, dim, mode=quant_mode,
+                                    fused=fused_w8a8, device=device)
             if quant_mode == "static":
-                self.qkv_amax = _param((3, num_heads), torch.float32, device)
+                if qkv_i8:
+                    self.qkv_amax = _param((3, num_heads), torch.float32,
+                                           device)
                 self.out_amax = _param((), torch.float32, device)
             self.observed = {}
         else:
@@ -320,15 +381,26 @@ class Attention(nn.Module):
                 self.v_bias.zero_()
 
     def forward(self, x, generator=None):
-        qkv = self.qkv(x).to(self.dtype)
+        qkv = self.qkv(x, out_dtype=self.dtype) if self.quant \
+            else self.qkv(x).to(self.dtype)
         if self.q_bias is not None:
             qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                                    self.v_bias]).to(self.dtype)
         heads, scale = self.num_heads, self.scale
         if self.quant and self.mode == "static":
-            out = dot_product_attention_qkv_i8(
-                qkv, self.qkv_amax, self.out_amax, num_heads=heads,
-                scale=scale)
+            B, N, C3 = qkv.shape
+            route = static_attention_route(N, C3 // 3, heads, self.qkv_i8)
+            if route == "i8":
+                out = dot_product_attention_qkv_i8(
+                    qkv, self.qkv_amax, self.out_amax, num_heads=heads,
+                    scale=scale)
+            elif route == "q8":
+                out = flash_attention_qkv_q8(qkv, heads, scale, self.out_amax)
+            else:
+                C = C3 // 3
+                out = dot_product_attention(
+                    qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:],
+                    num_heads=heads, scale=scale)
         else:
             if self.quant and self.mode == "calib":
                 B, N, _ = qkv.shape
@@ -339,8 +411,9 @@ class Attention(nn.Module):
                 dropout_rate=self.attn_drop if self.training else 0.0)
             if self.quant and self.mode == "calib":
                 observe(self, "out_amax", absmax(out))
-        return dropout(self.proj(out).to(self.dtype), self.proj_drop,
-                       self.training, generator)
+        y = self.proj(out, out_dtype=self.dtype) if self.quant \
+            else self.proj(out).to(self.dtype)
+        return dropout(y, self.proj_drop, self.training, generator)
 
 
 class Block(nn.Module):
@@ -354,7 +427,8 @@ class Block(nn.Module):
                  drop: float = 0.0, attn_drop: float = 0.0,
                  drop_path: float = 0.0, dtype=torch.float32,
                  param_dtype=None, quant: bool = False,
-                 quant_mode: str = "dynamic", device=None):
+                 quant_mode: str = "dynamic", fused_w8a8: bool = False,
+                 fused_mlp: bool = False, qkv_i8: bool = True, device=None):
         super().__init__()
         self.init_values = init_values
         self.dtype = dtype
@@ -374,11 +448,13 @@ class Block(nn.Module):
                               qk_scale=qk_scale, dtype=dtype,
                               param_dtype=param_dtype, attn_drop=attn_drop,
                               proj_drop=drop, quant=quant,
-                              quant_mode=quant_mode, device=device)
+                              quant_mode=quant_mode, fused_w8a8=fused_w8a8,
+                              qkv_i8=qkv_i8, device=device)
         self.norm2 = norm()
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype,
                        param_dtype=param_dtype, drop=drop, quant=quant,
-                       quant_mode=quant_mode, device=device)
+                       quant_mode=quant_mode, fused_w8a8=fused_w8a8,
+                       fused_mlp=fused_mlp, device=device)
         if init_values > 0:
             self.gamma_1 = _param((dim,), param_dtype or dtype, device)
             self.gamma_2 = _param((dim,), param_dtype or dtype, device)

@@ -7,7 +7,10 @@ pre-embedded tokens (B, num_patches, D) with ``tokens_input=True``.  The
 sincos table is a non-persistent buffer: it is regenerated, never loaded.
 The head runs in fp32.  ``quant=True`` builds the int8 model
 (models/layers.py, ops/quant.py) in ``quant_mode`` 'static', 'dynamic' or
-'calib'; its state comes from ops/quant.py and is never initialised.
+'calib'; its state comes from ops/quant.py and is never initialised.  The
+static model's serving options ``fused_w8a8``, ``fused_mlp`` and
+``qkv_i8`` (models/layers.py) default to the JAX package's program and
+raise on any other model.
 
 Training: ``param_dtype=torch.float32`` builds fp32 masters computed in
 ``dtype`` (the JAX package's training setup), and their parameters
@@ -29,7 +32,8 @@ import torch
 from torch import nn
 
 from simple_tad_tpu_torch.models.layers import (Block, LayerNormFp32, Linear,
-                                                PatchEmbed, dropout,
+                                                PatchEmbed,
+                                                check_static_options, dropout,
                                                 sincos_pos_embed)
 
 
@@ -64,6 +68,11 @@ class ViTConfig:
     # scales, 'dynamic' per-row scales, 'calib' records the absmax sites
     quant: bool = False
     quant_mode: str = "dynamic"
+    # static int8 serving: the fused int8 GEMM kernels per GEMM and for the
+    # whole MLP; qkv_i8=False opts the attention out of int8 storage
+    fused_w8a8: bool = False
+    fused_mlp: bool = False
+    qkv_i8: bool = True
     # parameter storage: None keeps each parameter in the dtype the JAX
     # package computes it in (inference); torch.float32 gives fp32 training
     # masters
@@ -93,6 +102,7 @@ class VisionTransformer(nn.Module):
                 "(ROADMAP.md queue 1, frame fine-tuning: remat)")
         if cfg.quant and cfg.param_dtype is not None:
             raise ValueError("the int8 model is inference only")
+        check_static_options(cfg)
         self.cfg = cfg
         dt, pdt = cfg.dtype, cfg.param_dtype
         self.patch_embed = PatchEmbed(cfg.embed_dim, cfg.patch_size,
@@ -111,7 +121,8 @@ class VisionTransformer(nn.Module):
                   init_values=cfg.init_values, drop=cfg.drop_rate,
                   attn_drop=cfg.attn_drop_rate, drop_path=float(rate),
                   dtype=dt, param_dtype=pdt, quant=cfg.quant,
-                  quant_mode=cfg.quant_mode, device=device)
+                  quant_mode=cfg.quant_mode, fused_w8a8=cfg.fused_w8a8,
+                  fused_mlp=cfg.fused_mlp, qkv_i8=cfg.qkv_i8, device=device)
             for rate in dpr)
         norm_name = "fc_norm" if cfg.final_reduction == "fc_norm" else "norm"
         setattr(self, norm_name, LayerNormFp32(cfg.embed_dim, dtype=dt,

@@ -22,6 +22,20 @@ branch) quantizes each operand per head against the calibrated
 ``qkv_amax``, unless it already arrives as int8 codes (the fused
 RMSNorm->int8 q/k-norms), then runs flash_attention_i8d.
 
+Static int8 routes (the JAX Attention and IV2Attention modules' branches,
+with the TPU program's geometry gates copied as plain functions of the
+shape, without its environment knobs): ``static_attention_route`` picks
+int8 storage (B2) where ``i8_storage_attn_supported`` holds and the model
+keeps its ``qkv_i8`` default, else the bf16 attention with the int8
+output epilogue (B3, ops/flash_attention.py:flash_attention_qkv_q8) where
+the packed kernel takes the geometry, else plain bf16 attention on
+separate operands whose float output the proj GEMM quantizes itself (the
+JAX fallback, which drops the int8 epilogue).
+``static_attention_sep_route`` is InternVideo2's: int8 storage on
+separate operands (D2) where ``i8_storage_attn_sep_supported`` holds,
+else B3 on separate operands (flash_attention_q8) where the TPU's
+flash_attention takes the padded head dim, else the float fallback.
+
 Attention dropout (the JAX package's kernels C4) is not ported: callers
 pass a dropout rate only in training, and a positive one raises.
 """
@@ -33,6 +47,104 @@ import torch
 from simple_tad_tpu_torch.ops.flash_attention import (
     MAX_HEAD_DIM, flash_attention, flash_attention_i8d, flash_attention_qkv,
     flash_attention_qkv_i8d)
+from simple_tad_tpu_torch.ops.ln import quant_scale
+
+# the TPU kernels' single-pass sequence cap (simple_tad_tpu/ops/
+# flash_attention.py:MAX_SINGLE_PASS_N): beyond it the JAX package's
+# static models take plain attention
+MAX_SINGLE_PASS_N = 4096
+_LANE_GROUP = 128
+
+
+def _pick_block(n: int) -> int:
+    """Largest multiple-of-8 divisor of n within the TPU kernels' 10 MiB
+    fp32 score-tile budget (flash_attention.py:_pick_block, target 0)."""
+    target = max(128, 10 * 2 ** 20 // (n * 4))
+    best = 8
+    for d in range(8, min(n, target) + 1, 8):
+        if n % d == 0:
+            best = d
+    return best
+
+
+def _pad_rows(n: int) -> int:
+    """The TPU kernels' padded sequence length (flash_attention.py:
+    _pad_rows): a multiple of 8, or of 256 where the multiple of 8 has no
+    query block of 256 rows."""
+    np8 = -(-n // 8) * 8
+    if n > 256 and _pick_block(np8) < 256:
+        return -(-n // 256) * 256
+    return np8
+
+
+def i8_storage_attn_supported(N: int, C: int, num_heads: int) -> bool:
+    """Does the JAX package's static ViT take int8-storage attention (B2)
+    at this geometry (ops/attention.py:i8_storage_attn_supported)?  The
+    head dim divides 128 and is no multiple of it, the channel axis is
+    128-aligned, and N is within the single-pass cap (within it the
+    packed kernel's VMEM plan always exists)."""
+    D = C // num_heads
+    return (N <= MAX_SINGLE_PASS_N and _LANE_GROUP % D == 0
+            and D % _LANE_GROUP != 0 and C % _LANE_GROUP == 0)
+
+
+def packed_q8_attn_supported(N: int, C: int, num_heads: int) -> bool:
+    """Does the JAX package's static ViT take the packed bf16 attention
+    with the int8 output epilogue (B3) where int8 storage is not taken
+    (ops/attention.py:dot_product_attention_qkv's TPU branch)?"""
+    D = C // num_heads
+    return (D % 64 == 0 and _LANE_GROUP % D == 0 and C % _LANE_GROUP == 0
+            and N <= MAX_SINGLE_PASS_N)
+
+
+def _i8_head_pad(D: int) -> int:
+    """The smallest divisor of 128 that holds D (flash_attention.py:
+    _i8_head_pad), 0 past 128."""
+    return next((dp for dp in (8, 16, 32, 64, 128) if dp >= D), 0)
+
+
+def i8_storage_attn_sep_supported(N: int, C: int, num_heads: int) -> bool:
+    """Does the JAX package's static InternVideo2 take int8-storage
+    attention on separate operands (D2) at this geometry
+    (ops/attention.py:i8_storage_attn_sep_supported)?  The head dim pads
+    to a divisor of 128, the padded channel axis is 128-aligned, and a TPU
+    plan exists: the key-grid plan (which covers N up to ~4580), or the
+    single-pass one, whose double-buffered 128-lane k/v blocks
+    (4 * padded N * 128 * 2 bytes) must stay under an 18 MiB budget."""
+    dp = _i8_head_pad(C // num_heads)
+    return (dp > 0 and (num_heads * dp) % _LANE_GROUP == 0
+            and 4 * _pad_rows(N) * _LANE_GROUP * 2 < 18 * 2 ** 20)
+
+
+def sep_q8_attn_supported(N: int, C: int, num_heads: int) -> bool:
+    """Does the JAX package's static InternVideo2 take the bf16 attention
+    with the int8 output epilogue on separate operands (B3) where int8
+    storage is not taken (ops/attention.py:dot_product_attention ->
+    flash_attention's packed branch, the head dim zero-padded to a multiple
+    of 64)?"""
+    dp = -(-(C // num_heads) // 64) * 64
+    return (_LANE_GROUP % dp == 0 and (num_heads * dp) % _LANE_GROUP == 0
+            and N <= MAX_SINGLE_PASS_N)
+
+
+def static_attention_route(N: int, C: int, num_heads: int,
+                           qkv_i8: bool = True) -> str:
+    """The static int8 ViT's attention at this geometry, as the TPU program
+    routes it (models/layers.py Attention): 'i8' (int8 storage, B2), 'q8'
+    (bf16 with the int8 epilogue, B3) or 'float' (bf16 on separate
+    operands, the proj GEMM quantizing its input)."""
+    if qkv_i8 and i8_storage_attn_supported(N, C, num_heads):
+        return "i8"
+    return "q8" if packed_q8_attn_supported(N, C, num_heads) else "float"
+
+
+def static_attention_sep_route(N: int, C: int, num_heads: int,
+                               qkv_i8: bool = True) -> str:
+    """The same for InternVideo2 (models/internvideo2.py IV2Attention):
+    'i8' (D2), 'q8' (B3 on separate operands) or 'float'."""
+    if qkv_i8 and i8_storage_attn_sep_supported(N, C, num_heads):
+        return "i8"
+    return "q8" if sep_q8_attn_supported(N, C, num_heads) else "float"
 
 
 def _no_dropout(dropout_rate: float):
@@ -64,7 +176,7 @@ def quantize_per_head(t, amax, num_heads: int):
     """(B, N, C) float -> int8 codes clip(round_half_even(t * 127 / amax),
     +-127) with ``amax`` (H,) the absmax of each head's columns."""
     D = t.shape[-1] // num_heads
-    inv = 127.0 / torch.clamp(amax.float(), min=1e-12)
+    inv = quant_scale(amax)
     return torch.clamp(torch.round(t.float() * inv.repeat_interleave(D)),
                        -127, 127).to(torch.int8)
 
@@ -95,16 +207,10 @@ def dot_product_attention_qkv_i8(qkv, qkv_amax, out_amax, *, num_heads: int,
 
     qkv is quantized per head against ``qkv_amax`` (3, H):
     clip(round(qkv * 127 / amax), +-127), then read by the int8-storage
-    kernel.  Unlike the TPU gate, any N and channel width are taken, and
-    any head dim that is a multiple of 16 up to 128 (80 zero-pads to 96).
+    kernel.  The static model takes this where
+    ``i8_storage_attn_supported`` holds (``static_attention_route``).
     """
-    B, N, C3 = qkv.shape
-    D = C3 // 3 // num_heads
-    if D % 16 or D > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"int8 attention at head dim {D}: the int8-storage kernel takes "
-            f"multiples of 16 up to 128; other geometries need the int8-"
-            f"output bf16 kernel B3 (ROADMAP.md queue 2)")
     qkv_i8 = quantize_per_head(qkv, qkv_amax.reshape(-1), 3 * num_heads)
     return flash_attention_qkv_i8d(qkv_i8, qkv_amax, num_heads, scale,
                                    out_amax)
+

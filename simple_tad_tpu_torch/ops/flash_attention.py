@@ -64,9 +64,20 @@ operand, dq, dk and dv as three (B, N, C) tensors).  It saves
 run on a (B*H, N, Dh) relayout padded to a row multiple; the port reads
 the (B, N, C) operands in place and masks the ragged tail by index.
 
+Static int8 attention in bf16 with an int8 output (kernel B3; port of
+flash_attention_qkv / flash_attention with ``out_quant_amax``, TPU kernels
+_fwd_kernel_nomax_packed_q8 and, at N = 2049, the key-grid
+_fwd_kernel_nomax_packed_kv_q8): ``flash_attention_qkv_q8`` on the packed
+qkv and ``flash_attention_q8`` on separate operands are A1 on bf16/fp32
+q, k, v whose normalised fp32 result is written as int8 codes against
+``out_amax`` (the proj GEMM's input).  The static int8 models take it
+where the int8-storage kernel is opted out of or cannot serve the geometry
+(ops/attention.py).
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  ``LAUNCHES`` counts launches of the bf16/fp32
 inference kernel on the packed qkv, ``SEP_LAUNCHES`` on separate operands,
+``Q8_LAUNCHES`` and ``Q8_SEP_LAUNCHES`` those of B3 (packed, separate),
 ``I8_LAUNCHES`` those of the int8 one on the packed qkv and
 ``I8_SEP_LAUNCHES`` on separate operands, ``FWD_LSE_LAUNCHES`` and
 ``SEP_FWD_LSE_LAUNCHES`` those of the training forward (packed, separate)
@@ -88,6 +99,8 @@ LAUNCHES = 0
 SEP_LAUNCHES = 0
 I8_LAUNCHES = 0
 I8_SEP_LAUNCHES = 0
+Q8_LAUNCHES = 0
+Q8_SEP_LAUNCHES = 0
 FWD_LSE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 SEP_FWD_LSE_LAUNCHES = 0
@@ -118,9 +131,9 @@ def _acc(dtype):
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _attend_plain(q, k, v, scale: float):
-    """q, k, v (B, H, N, Dh) -> (out (B, H, N, Dh) in q's dtype, lse
-    (B, H, N) base 2)."""
+def _attend_plain(q, k, v, scale: float, out_dtype=None):
+    """q, k, v (B, H, N, Dh) -> (out (B, H, N, Dh) in ``out_dtype``, by
+    default q's, lse (B, H, N) base 2)."""
     dt, acc = q.dtype, _acc(q.dtype)
     qs = (q.to(acc) * (scale * LOG2E)).to(dt)
     s = torch.matmul(qs.to(acc), k.to(acc).transpose(-1, -2))
@@ -129,7 +142,7 @@ def _attend_plain(q, k, v, scale: float):
     denom = p.to(acc).sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(acc), v.to(acc)) / denom
     lse = (m + torch.log2(denom))[..., 0]
-    return o.to(dt), lse
+    return o.to(out_dtype or dt), lse
 
 
 def _attention_plain(qkv, num_heads: int, scale: float):
@@ -730,4 +743,90 @@ def flash_attention_i8d(q_i8, k_i8, v_i8, amax, num_heads: int,
     I8_SEP_LAUNCHES += 1
     if dp != D:
         out = out.view(B, N, num_heads, dp)[..., :D].reshape(B, N, C)
+    return out
+
+
+def flash_attention_qkv_q8_plain(qkv, num_heads: int, scale: float,
+                                 out_amax):
+    """A1's plain version on the packed qkv with the fp32 result quantized
+    against ``out_amax`` -> int8 (B, N, C)."""
+    o, _ = _attend_plain(*_split_heads(qkv, num_heads), scale,
+                         _acc(qkv.dtype))
+    return quantize_static(_merge_heads(o).float(), out_amax)
+
+
+def flash_attention_q8_plain(q, k, v, num_heads: int, scale: float,
+                             out_amax, n_valid=None):
+    """The same on separate (B, N, C) operands, keys at or beyond
+    ``n_valid`` left out."""
+    q, k, v = (_heads(t, num_heads) for t in (q, k, v))
+    if n_valid is not None:
+        k, v = k[:, :, :n_valid], v[:, :, :n_valid]
+    o, _ = _attend_plain(q, k, v, scale, _acc(q.dtype))
+    return quantize_static(_merge_heads(o).float(), out_amax)
+
+
+def _check_out_amax(name, out_amax, dev):
+    if out_amax.numel() != 1 or out_amax.dtype != torch.float32 \
+            or out_amax.device != dev or not out_amax.is_contiguous():
+        raise ValueError(f"{name}: out_amax must be one contiguous fp32 "
+                         f"value on the inputs' device")
+
+
+def _launch_attention_q8(q, k, v, out_amax, num_heads: int, scale: float,
+                         n_kv: int):
+    """Kernel B3 on three non-empty (B, N, C) operands, each read through
+    its own (batch, row) strides, keys at or beyond ``n_kv`` masked -> int8
+    (B, N, C) contiguous."""
+    B, N, C = q.shape
+    out = torch.empty((B, N, C), dtype=torch.int8, device=q.device)
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.stt_attention_q8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out_amax.data_ptr(),
+        out.data_ptr(), B, N, n_kv, num_heads, C // num_heads, *_strides(q),
+        *_strides(k), *_strides(v), N * C, C, float(scale * LOG2E),
+        kbuild.dtype_code(q.dtype), stream)
+    kbuild.check(code, "attention_q8")
+    return out
+
+
+def flash_attention_qkv_q8(qkv, num_heads: int, scale: float, out_amax):
+    """Static int8 attention with an int8 output, on the packed qkv
+    (kernel B3): qkv as ``flash_attention_qkv``; out_amax one fp32 value on
+    the device -> int8 (B, N, C) codes against it.  Inference only."""
+    if qkv.device.type == "cpu":
+        return flash_attention_qkv_q8_plain(qkv, num_heads, scale, out_amax)
+    name = "flash_attention_qkv_q8"
+    B, N, C, D = _check_packed(name, qkv, num_heads, scale)
+    _check_out_amax(name, out_amax, qkv.device)
+    if B == 0 or N == 0:
+        return torch.empty((B, N, C), dtype=torch.int8, device=qkv.device)
+    out = _launch_attention_q8(*_qkv_views(qkv, C), out_amax, num_heads,
+                               scale, N)
+    global Q8_LAUNCHES
+    Q8_LAUNCHES += 1
+    return out
+
+
+def flash_attention_q8(q, k, v, num_heads: int, scale: float, out_amax,
+                       n_valid=None):
+    """Kernel B3 on separate operands: q, k, v as ``flash_attention``
+    (v may be the strided column block of the qkv output); out_amax one
+    fp32 value on the device; n_valid: keys at or beyond it are masked (all
+    N query rows are computed) -> int8 (B, N, C) codes.  Inference only."""
+    if q.device.type == "cpu":
+        return flash_attention_q8_plain(q, k, v, num_heads, scale, out_amax,
+                                        n_valid)
+    name = "flash_attention_q8"
+    B, N, C, D = _check_sep_float(name, (q, k, v), num_heads, scale)
+    _check_out_amax(name, out_amax, q.device)
+    n_kv = N if n_valid is None else int(n_valid)
+    if N and not 0 < n_kv <= N:
+        raise ValueError(f"{name}: n_valid {n_valid} outside 1..{N}")
+    if B == 0 or N == 0:
+        return torch.empty((B, N, C), dtype=torch.int8, device=q.device)
+    out = _launch_attention_q8(q, k, v, out_amax, num_heads, scale, n_kv)
+    global Q8_SEP_LAUNCHES
+    Q8_SEP_LAUNCHES += 1
     return out

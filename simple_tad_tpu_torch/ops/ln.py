@@ -51,11 +51,21 @@ def _normalize_f32(x, weight, bias, eps):
     return y * weight.float() + bias.float()
 
 
+def quant_scale(amax):
+    """127 / max(amax, 1e-12) in fp32, by IEEE division, as the JAX package
+    and the kernels' quant_inv (csrc/common.cuh) compute it.  (Python's
+    ``127.0 / tensor`` is torch's reciprocal times 127, which rounds to
+    another fp32 value for about a quarter of absmax values and then moves
+    the codes that sit at a rounding boundary.)"""
+    amax = torch.clamp(amax.float(), min=1e-12)
+    return torch.full_like(amax, 127.0) / amax
+
+
 def quantize_static(y, amax):
     """clip(round_half_even(y * 127 / max(amax, 1e-12)), +-127) as int8:
     the static symmetric codes of fp32 ``y`` against a calibrated absmax."""
-    inv = 127.0 / torch.clamp(amax.float(), min=1e-12)
-    return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8)
+    return torch.clamp(torch.round(y * quant_scale(amax)), -127,
+                       127).to(torch.int8)
 
 
 def layernorm_plain(x, weight, bias, eps: float = 1e-6, out_dtype=None):

@@ -10,7 +10,10 @@ Activations quantize per row on the fly (``int8_matmul``, quant_mode
 (``int8_matmul_static``, quant_mode 'static', the serving default).  Both
 products are exact int8 x int8 -> int32 GEMMs (``torch._int_mm``: an fp32
 product over K = 3072 is not exact, 127^2 * 3072 > 2^24), rescaled in fp32.
-The JAX package leaves these GEMMs to XLA; here they are a library GEMM.
+The JAX package leaves these GEMMs to XLA; here they are a library GEMM,
+counted in ``INT_MM_CALLS``, unless the static model takes the fused int8
+GEMM kernels (``fused_w8a8``, ``fused_mlp``: ops/int8_gemm.py), which make
+none.
 
 Static serving recipe (``quantize_and_calibrate``; FrameEvaluator and the
 inference CLI do it for the user): ``quantize_vit_params`` (or
@@ -36,6 +39,7 @@ from simple_tad_tpu_torch.ops.ln import quantize_static
 
 # the int8 GEMMs of every block, by state-dict module name
 QUANT_GEMMS = ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")
+INT_MM_CALLS = 0
 
 
 def quantize_weight(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -50,6 +54,8 @@ def quantize_weight(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 def _int_mm(x_i8, w_q):
     """(..., K) int8 x (N, K) int8 -> (..., N) exact int32."""
+    global INT_MM_CALLS
+    INT_MM_CALLS += 1
     lead = x_i8.shape[:-1]
     y = torch._int_mm(x_i8.reshape(-1, x_i8.shape[-1]), w_q.t())
     return y.reshape(*lead, w_q.shape[0])
@@ -152,14 +158,20 @@ def quant_model(cfg, qstate, mode: str, device):
     """The int8 model of ``cfg`` (a ViTConfig or an IV2Config) in quant
     ``mode`` holding ``qstate`` (quantize_vit_params' or
     quantize_iv2_params' output; with the calibrated absmax for mode
-    'static')."""
+    'static').  The config's static serving options (``fused_w8a8``,
+    ``fused_mlp``, ``qkv_i8``, ``fused_rmsq``) carry over.  A model that
+    never takes int8-storage attention (``qkv_i8=False``) has no
+    ``attn.qkv_amax``; one in ``qstate`` (calibration records it) is left
+    out."""
     from simple_tad_tpu_torch.models.internvideo2 import (IV2Config,
                                                           InternVideo2)
     from simple_tad_tpu_torch.models.vit import VisionTransformer
     family = InternVideo2 if isinstance(cfg, IV2Config) else VisionTransformer
     model = family(dataclasses.replace(cfg, quant=True, quant_mode=mode),
                    device=device)
-    model.load_state_dict(qstate)
+    own = model.state_dict()
+    model.load_state_dict({k: v for k, v in qstate.items()
+                           if k in own or not k.endswith("attn.qkv_amax")})
     return model.eval()
 
 

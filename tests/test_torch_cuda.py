@@ -582,3 +582,217 @@ def test_tiny_iv2_train_step_goes_through_kernels(cuda):
         assert p.dtype == torch.float32 and p.grad is not None, n
         if n.startswith("blocks."):
             assert not torch.equal(p, before[n]), n
+
+
+# Static int8 GEMMs (B4).  Without an activation the kernel's output is the
+# plain version's bit for bit (an exact int32 product, then the same fp32
+# multiply and add and one cast).  With GELU, CUDA's tanhf / erff need not
+# round as PyTorch's GELU kernel does: fp32 outputs within 1e-5.  The MLP
+# re-quantizes the GELU output, so a code can flip where it sits at a
+# half-integer; a flip moves one row's outputs by one hidden code's share:
+# at most 2% of outputs differ, all within 2% of max |y|.
+def _gemm_operands(m, k, n, x_dtype, seed, device):
+    from simple_tad_tpu_torch.ops.quant import quantize_weight
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    amax = torch.tensor(float(x.abs().max()) * 0.9)       # some codes clip
+    if x_dtype == torch.int8:
+        x = ln.quantize_static(x, amax)
+    w_q, w_s = quantize_weight(rng.normal(0, 0.05, (k, n)))
+    return (x.to(x_dtype).to(device),
+            torch.from_numpy(np.ascontiguousarray(w_q.T)).to(device),
+            torch.from_numpy(w_s).to(device), amax.to(device),
+            torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)
+                             ).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,x_dtype,bias,act,out", [
+    (1000, 768, 2304, torch.int8, False, None, torch.bfloat16),   # qkv
+    (1000, 768, 768, torch.int8, True, None, torch.bfloat16),     # proj
+    (333, 3072, 768, torch.float32, True, None, torch.bfloat16),  # fc2
+    (257, 384, 1536, torch.bfloat16, True, "gelu_tanh", torch.float32),
+    (130, 256, 200, torch.float32, True, "gelu_erf", torch.float32),
+    (64, 64, 8, torch.int8, False, None, torch.float32),
+    (40, 96, 136, torch.bfloat16, False, "gelu_erf", torch.bfloat16)])
+def test_w8a8_gemm_kernel_matches_plain(m, k, n, x_dtype, bias, act, out,
+                                        cuda):
+    from simple_tad_tpu_torch.ops import int8_gemm, quant
+    x, w_q, w_s, amax, b = _gemm_operands(m, k, n, x_dtype, 30, cuda)
+    args = (x, w_q, w_s, amax, b if bias else None, act, out)
+    before = (int8_gemm.GEMM_LAUNCHES, quant.INT_MM_CALLS)
+    got = int8_gemm.w8a8_gemm(*args)
+    torch.cuda.synchronize()
+    assert (int8_gemm.GEMM_LAUNCHES, quant.INT_MM_CALLS) == (
+        before[0] + 1, before[1])
+    want = int8_gemm.w8a8_gemm_plain(*args)
+    assert got.dtype == out and got.shape == (m, n)
+    if act is None:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **TOL[out])
+
+
+def _mlp_operands(m, dim, hidden, x_dtype, seed, device):
+    x, w1, s1, amax1, b1 = _gemm_operands(m, dim, hidden, x_dtype, seed,
+                                          device)
+    _, w2, s2, _, b2 = _gemm_operands(8, hidden, dim, torch.float32,
+                                      seed + 1, device)
+    from simple_tad_tpu_torch.ops import int8_gemm
+    h = int8_gemm.w8a8_gemm_plain(x, w1, s1, amax1, b1, "gelu_tanh",
+                                  torch.float32)
+    return x, w1, s1, amax1, b1, w2, s2, h.abs().max() * 0.9, b2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,dim,hidden,x_dtype,act,out", [
+    (1000, 384, 1536, torch.bfloat16, "gelu_tanh", torch.bfloat16),
+    (777, 768, 3072, torch.int8, "gelu_erf", torch.float32),
+    (100, 128, 512, torch.float32, "gelu_tanh", torch.float32),
+    (65, 256, 96, torch.bfloat16, "gelu_erf", torch.bfloat16)])
+def test_w8a8_mlp_kernel_matches_plain(m, dim, hidden, x_dtype, act, out,
+                                       cuda):
+    from simple_tad_tpu_torch.ops import int8_gemm
+    ops = _mlp_operands(m, dim, hidden, x_dtype, 31, cuda)
+    before = int8_gemm.MLP_LAUNCHES
+    got = int8_gemm.w8a8_mlp(*ops, act, out)
+    torch.cuda.synchronize()
+    assert int8_gemm.MLP_LAUNCHES == before + 1
+    want = int8_gemm.w8a8_mlp_plain(*ops, act, out)
+    assert got.dtype == out and got.shape == (m, dim)
+    share = float((got != want).float().mean())
+    scale = float(want.float().abs().max())
+    assert share <= 0.02, share
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=0.02 * scale)
+    # control: fc1's bias left out
+    control = int8_gemm.w8a8_mlp_plain(*ops[:4], None, *ops[5:], act, out)
+    assert float((control != want).float().mean()) > 0.02
+
+
+@pytest.mark.cuda
+def test_w8a8_kernels_reject_what_they_do_not_take(cuda):
+    from simple_tad_tpu_torch.ops import int8_gemm
+    x, w_q, w_s, amax, b = _gemm_operands(64, 48, 64, torch.int8, 32, cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        int8_gemm.w8a8_gemm(x, w_q, w_s, amax, b)
+    # IV2-1B's 1408 x 6144 pair: no MLP kernel (two w8a8_gemm launches)
+    assert not int8_gemm.use_fused_mlp(1408, 6144)
+    ops = _mlp_operands(32, 1408, 64, torch.bfloat16, 33, cuda)
+    with pytest.raises(ValueError, match="use_fused_mlp"):
+        int8_gemm.w8a8_mlp(*ops)
+
+
+# B3: A1 with the int8 output epilogue, packed and on separate operands
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,n,heads,d", [(2, 1568, 12, 64), (2, 200, 2, 64),
+                                         (3, 97, 16, 80), (1, 130, 3, 128),
+                                         (2, 33, 4, 8)])
+def test_attention_q8_kernel_matches_plain(b, n, heads, d, dtype, cuda):
+    qkv = _randn((b, n, 3 * heads * d), 34, cuda).to(dtype)
+    scale = d ** -0.5
+    out_amax = fa.flash_attention_qkv_plain(qkv, heads, scale).float(
+        ).abs().max() * 0.9
+    before = fa.Q8_LAUNCHES
+    got = fa.flash_attention_qkv_q8(qkv, heads, scale, out_amax)
+    torch.cuda.synchronize()
+    assert fa.Q8_LAUNCHES == before + 1 and got.dtype == torch.int8
+    worst, share = _code_diff(got, fa.flash_attention_qkv_q8_plain(
+        qkv, heads, scale, out_amax))
+    assert worst <= 1 and share <= I8_SHARE, (worst, share)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,n,heads,d,n_valid", [
+    (2, 2049, 6, 64, None), (2, 200, 2, 64, 190), (3, 97, 4, 88, None),
+    (2, 33, 4, 64, 1)])
+def test_attention_q8_sep_kernel_matches_plain(b, n, heads, d, n_valid,
+                                               dtype, cuda):
+    q, k, v, _ = _sep_operands(b, n, heads, d, 35, cuda, dtype)
+    scale = d ** -0.5
+    out_amax = fa.flash_attention_plain(q, k, v, heads, scale).float(
+        ).abs().max()
+    before = fa.Q8_SEP_LAUNCHES
+    got = fa.flash_attention_q8(q, k, v, heads, scale, out_amax, n_valid)
+    torch.cuda.synchronize()
+    assert fa.Q8_SEP_LAUNCHES == before + 1 and got.dtype == torch.int8
+    worst, share = _code_diff(got, fa.flash_attention_q8_plain(
+        q, k, v, heads, scale, out_amax, n_valid))
+    assert worst <= 1 and share <= I8_SHARE, (worst, share)
+
+
+def _launches():
+    from simple_tad_tpu_torch.ops import int8_gemm, quant
+    return {"lnq": ln.QUANT_LAUNCHES, "rmsq": ln.RMSQ_LAUNCHES,
+            "i8": fa.I8_LAUNCHES, "i8_sep": fa.I8_SEP_LAUNCHES,
+            "q8": fa.Q8_LAUNCHES, "q8_sep": fa.Q8_SEP_LAUNCHES,
+            "sep": fa.SEP_LAUNCHES, "gemm": int8_gemm.GEMM_LAUNCHES,
+            "mlp": int8_gemm.MLP_LAUNCHES, "int_mm": quant.INT_MM_CALLS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qkv_i8", [True, False])
+def test_tiny_int8_vit_fused_forward_goes_through_kernels(qkv_i8, cuda):
+    """Static int8 ViT-S (2 layers) with fused_w8a8 and fused_mlp: per
+    block two LayerNorm->int8, one int8 attention (B2, or B3 with
+    qkv_i8=False), two GEMM kernels (qkv, proj), one MLP kernel and no
+    torch._int_mm; the logits within the int8 bound of the unfused
+    model's."""
+    from simple_tad_tpu_torch.models import create_model
+    from simple_tad_tpu_torch.ops.quant import quantize_and_calibrate
+    masters = create_model("vit_small_patch16_224", device="cpu",
+                           generator=torch.Generator().manual_seed(0),
+                           img_size=32, depth=2, init_scale=1.0)
+    x = _randn((2, 32, 384), 36, cuda).bfloat16()
+    base = dataclasses.replace(masters.cfg, dtype=torch.bfloat16,
+                               qkv_i8=qkv_i8)
+    unfused = quantize_and_calibrate(base, masters.state_dict(), [x],
+                                     device=cuda, tokens_input=True)
+    model = quantize_and_calibrate(
+        dataclasses.replace(base, fused_w8a8=True, fused_mlp=True),
+        masters.state_dict(), [x], device=cuda, tokens_input=True)
+    before = _launches()
+    with torch.inference_mode():
+        logits = model(x, tokens_input=True)
+    torch.cuda.synchronize()
+    after = _launches()
+    got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    attn = {"i8": 2} if qkv_i8 else {"q8": 2}
+    assert got == {"lnq": 4, "gemm": 4, "mlp": 2, **attn}, got
+    with torch.inference_mode():
+        want = unfused(x, tokens_input=True)
+    assert torch.isfinite(logits).all()
+    torch.testing.assert_close(logits, want, rtol=0,
+                               atol=2.5e-2 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qkv_i8,fused_rmsq", [(True, False), (True, True),
+                                               (False, False)])
+def test_tiny_int8_iv2_fused_forward_goes_through_kernels(qkv_i8, fused_rmsq,
+                                                          cuda):
+    """Static int8 IV2-S (2 layers) with fused_w8a8 and fused_mlp: per
+    block D2 (or B3 on separate operands with qkv_i8=False), two GEMM
+    kernels, one MLP kernel, no torch._int_mm; with fused_rmsq four D3."""
+    from simple_tad_tpu_torch.ops.quant import quantize_and_calibrate
+    masters = _tiny_iv2("cpu")
+    cfg = dataclasses.replace(masters.cfg, dtype=torch.bfloat16,
+                              fused_rmsq=fused_rmsq, fused_w8a8=True,
+                              fused_mlp=True, qkv_i8=qkv_i8)
+    x = _randn((2, 16, 384), 37, cuda).bfloat16()
+    model = quantize_and_calibrate(cfg, masters.state_dict(), [x],
+                                   device=cuda, tokens_input=True)
+    before = _launches()
+    with torch.inference_mode():
+        logits = model(x, tokens_input=True)
+    torch.cuda.synchronize()
+    after = _launches()
+    got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    want = {"gemm": 4, "mlp": 2, **({"i8_sep": 2} if qkv_i8
+                                    else {"q8_sep": 2})}
+    if fused_rmsq:
+        want["rmsq"] = 8 if qkv_i8 else 4
+    assert got == want, got
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()

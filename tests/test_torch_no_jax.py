@@ -20,11 +20,11 @@ bad = sorted(m for m in ("jax", "flax", "pandas", "cv2", "simple_tad_tpu")
              if m in sys.modules)
 print(len(names), bad)
 assert not bad, bad
-# the int8 serving path's, the fine-tuning path's and InternVideo2's
-# modules are among them
-for name in ("ops.quant", "ops.ln", "ops.flash_attention", "ops.attention",
-             "models.layers", "models.internvideo2", "eval.engine",
-             "cli.inference", "train.steps",
+# the int8 serving path's (its fused GEMMs too), the fine-tuning path's
+# and InternVideo2's modules are among them
+for name in ("ops.quant", "ops.int8_gemm", "ops.ln", "ops.flash_attention",
+             "ops.attention", "models.layers", "models.internvideo2",
+             "eval.engine", "cli.inference", "train.steps",
              "train.optim", "train.losses", "train.engine", "ops.augment",
              "utils.checkpoint", "utils.logging", "cli.finetune"):
     assert "simple_tad_tpu_torch." + name in names, name

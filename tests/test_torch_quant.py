@@ -30,7 +30,8 @@ from simple_tad_tpu.ops.flash_attention import (
 from simple_tad_tpu.ops.ln import fused_layernorm_quant
 from simple_tad_tpu_torch.ops import flash_attention as fa
 from simple_tad_tpu_torch.ops import ln, quant
-from simple_tad_tpu_torch.ops.attention import dot_product_attention_qkv_i8
+from simple_tad_tpu_torch.ops.attention import (dot_product_attention_qkv_i8,
+                                                static_attention_route)
 from simple_tad_tpu_torch.utils import torch_convert as tc
 from tests.test_torch_vit import TINY, perturbed_jax_params
 
@@ -210,7 +211,9 @@ def test_attention_i8_matches_pallas_kernel(n):
 def test_attention_i8_dispatch_quantizes_per_head():
     """dot_product_attention_qkv_i8 quantizes float qkv against the
     per-head absmax as the JAX Attention module does; head dims the
-    kernel cannot take raise, naming B3."""
+    int8-storage kernel cannot take have a route of their own, as in the
+    TPU program (B3 where the packed kernel takes them, else bf16
+    attention)."""
     qkv_i8, amax, qkv = _qkv_i8(48, seed=4)
     out_amax = torch.tensor(0.5)
     a = torch.from_numpy(amax)
@@ -219,10 +222,16 @@ def test_attention_i8_dispatch_quantizes_per_head():
     want = fa.flash_attention_qkv_i8d_plain(torch.from_numpy(qkv_i8), a, 2,
                                             0.125, out_amax)
     assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="B3"):
-        dot_product_attention_qkv_i8(torch.zeros(1, 8, 3 * 2 * 24),
-                                     torch.ones(3, 2), out_amax,
-                                     num_heads=2, scale=0.2)
+    # (N, C, H, qkv_i8) -> the JAX static ViT's branch on the TPU
+    routes = {(1568, 768, 12, True): "i8",      # ViT-B
+              (1568, 768, 12, False): "q8",     # SIMPLE_TAD_QKV_I8=0
+              (1568, 768, 6, True): "q8",       # Dh 128
+              (1568, 1280, 16, True): "float",  # ViT-H, Dh 80
+              (8, 48, 2, True): "float",        # Dh 24
+              (4608, 768, 12, True): "float",   # img_size 384
+              (1568, 576, 9, True): "float"}    # C % 128 != 0
+    for (n, c, h, i8), route in routes.items():
+        assert static_attention_route(n, c, h, i8) == route, (n, c, h, i8)
 
 
 def test_cpu_tensors_take_plain_versions():
