@@ -149,7 +149,26 @@ Phases (any failure raises, so the exit code is non-zero):
      biases are zero, uses the latter); B3 by codes, against
      probabilities not rounded to bf16.  Their library yardstick is
      torch._int_mm on the same int8 operands, the product alone (no
-     quantize, rescale, bias or GELU), and SDPA's forward for B3.
+     quantize, rescale, bias or GELU), and SDPA's forward for B3;
+ 11. ViT-B fine-tuning with attention dropout ATTN_DROP (0.1, the JAX
+     package's own measurement's rate), kernels C4 in both keep sources
+     ('mask': an int8 mask in memory; 'rng': Philox bits drawn in the
+     kernels from a 2-word seed): (i) inside phase 2, C4-fwd and C4-bwd
+     against their plain versions on the same mask or seed at ViT-B's
+     training shape (8, 1568, 2304) bf16 and a masked fp32 tail, each with
+     three controls that must fail (the denominator summed after dropout,
+     or dP not scaled by the keep factor; the mask read transposed, or the
+     next seed), and timed at the job's batch 56 against SDPA with
+     dropout_p 0.1 forward and backward; (ii) the Philox forward's keep
+     bits, read off its output (q = k = 0, v one-hot) at (2, 2, 392, 392)
+     bf16, must equal dropout_keep_plain's bit for bit; (iii) one train
+     step per form at batch 8: 12 dropout forward and 12 dropout backward
+     calls of the form, 25 LayerNorm and no C1/C2, its gradients within
+     phase 6's bounds of the plain-version step from the same generator
+     state and phase 6's control outside them; (iv) the batch-56
+     FinetuneTrainer timing of phase 6 in TIMING_PROCESSES fresh processes
+     (Philox form) and one (mask form), each first process with the step
+     breakdown and a profiler window.
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -208,6 +227,11 @@ import torch
 #                                         at 1.1e-7 (the fc head's gradient
 #                                         dominates it), so the per-parameter
 #                                         bound is the one that catches it
+#   attention dropout (C4) at (8, 1568, 2304) bf16, rate 0.1, both forms:
+#     C4-fwd outputs differing            <= 1.620e-3 vs controls >= 0.838
+#     C4-bwd dqkv differing               <= 2.089e-3 vs controls >= 0.663
+#     ViT-B train step with dropout, worst parameter <= 6.909e-3 vs control
+#                                         >= 3.304
 # Readings are bit-for-bit the same from run to run on one card and
 # software stack (no atomics; fixed seeds).
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)    # ~1 bf16 ulp (2^-7 relative)
@@ -238,6 +262,14 @@ BF16_MISMATCH.update({"attention_fwd_lse": BF16_MISMATCH["attention"],
                       # bit; the MLP's GELU (CUDA tanhf / erff) may round
                       # apart from PyTorch's and flip a hidden code
                       "int8_gemm": 0.0, "int8_mlp": 1e-3})
+# C4, the dropout attention: C3 with a keep factor, C1's and C2's bounds
+BF16_MISMATCH.update({name: BF16_MISMATCH["attention"] for name in (
+    "attention_drop_fwd", "attention_drop_rng_fwd")})
+BF16_MISMATCH.update({name: BF16_MISMATCH["attention_bwd"] for name in (
+    "attention_drop_bwd", "attention_drop_rng_bwd")})
+# kernels whose result is a (dq, dk, dv) tuple
+SEP_GRADS = ("attention_sep_bwd", "attention_drop_bwd",
+             "attention_drop_rng_bwd")
 LSE_ATOL = 1.2e-2
 F32_TOL_BWD = dict(atol=1e-4, rtol=1e-4)
 # phase 6 (i): one ViT-B train step, kernels vs plain versions
@@ -249,6 +281,18 @@ JOB_BATCH = 56
 # scales it (x batch / 256)
 IV2_LR = 1e-3 * JOB_BATCH / 256
 TIMING_PROCESSES, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 3, 3, 10, 2
+# phase 11: the attention dropout rate of the JAX package's own measurement
+# (simple_tad_tpu/ops/flash_attention.py:flash_attention's docstring); the
+# kernel names of each keep source
+ATTN_DROP = 0.1
+DROP_KERNELS = {"mask": ("attention_drop_fwd", "attention_drop_bwd"),
+                "rng": ("attention_drop_rng_fwd", "attention_drop_rng_bwd")}
+# C4 checked at ViT-B's training shape and a masked fp32 tail, its Philox
+# bits read off at (B, H, N, Dh), timed at the job's batch (B, N, C, H)
+DROP_CASES = [((8, 1568, 2304), 12, torch.bfloat16),
+              ((2, 200, 384), 2, torch.float32)]
+DROP_PROBE = (2, 2, 392, 64)
+DROP_TIMED = (JOB_BATCH, 1568, 768, 12)
 BREAKDOWN_STEPS = 4
 CLIP_H, CLIP_W = 224, 398          # decode_scaled's short side 224, 16:9
 # phases 7 and 8: IV2-S of jobs/finetune/IV2-S_DoTA.sh (--num_frames 8
@@ -301,6 +345,19 @@ SOURCES = {
                      "simple_tad_tpu/ops/flash_attention.py:265"),
     "attention_q8_sep": ("simple_tad_tpu_torch/csrc/attention.cu",
                          "simple_tad_tpu/ops/flash_attention.py:567"),
+    # attention dropout (C4): the mask form's _fwd_kernel_drop and
+    # _bwd_dq_kernel_drop (with _bwd_dkv_kernel_drop, :1654), the RNG
+    # form's _fwd_kernel_drop_rng and _bwd_merged_kernel_drop_rng (its
+    # split forms _bwd_dq_kernel_drop_rng, :1863, and
+    # _bwd_dkv_kernel_drop_rng, :1898, compute the same function)
+    "attention_drop_fwd": ("simple_tad_tpu_torch/csrc/attention.cu",
+                           "simple_tad_tpu/ops/flash_attention.py:1606"),
+    "attention_drop_bwd": ("simple_tad_tpu_torch/csrc/attention_train.cu",
+                           "simple_tad_tpu/ops/flash_attention.py:1628"),
+    "attention_drop_rng_fwd": ("simple_tad_tpu_torch/csrc/attention.cu",
+                               "simple_tad_tpu/ops/flash_attention.py:1833"),
+    "attention_drop_rng_bwd": ("simple_tad_tpu_torch/csrc/attention_train.cu",
+                               "simple_tad_tpu/ops/flash_attention.py:1941"),
 }
 
 
@@ -623,7 +680,7 @@ def int8_mlp_bound(M, dim, hidden, in_bytes, out_bytes):
 def compare(name, got, want):
     """-> (max abs error, share of elements that differ, within the bounds
     of kernel ``name``)."""
-    if name == "attention_sep_bwd":        # C3-bwd: (dq, dk, dv)
+    if name in SEP_GRADS:                  # C3-bwd, C4-bwd: (dq, dk, dv)
         got, want = torch.cat(got, -1), torch.cat(want, -1)
     if isinstance(got, tuple):             # C1, C3-fwd: (out, lse)
         err, share, ok = compare(name, got[0], want[0])
@@ -638,7 +695,7 @@ def compare(name, got, want):
         ok = (torch.allclose(got.float(), want.float(), **BF16_TOL)
               and share <= BF16_MISMATCH[name])
     else:
-        tol = (F32_TOL_BWD if name in ("attention_bwd", "attention_sep_bwd")
+        tol = (F32_TOL_BWD if name == "attention_bwd" or name in SEP_GRADS
                else F32_TOL)
         ok = torch.allclose(got, want, **tol)
     return err, share, ok
@@ -1103,9 +1160,206 @@ def check_kernels(dev, seed: int) -> dict:
         del x
     torch.cuda.empty_cache()
     check_int8_kernels(dev, g, run_case, timed)
+    failures += check_dropout_kernels(dev, g, run_case, timed)
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return results
+
+
+def _drop_keep(B, heads, N, rate, mask, seed):
+    from simple_tad_tpu_torch.ops.flash_attention import dropout_keep_plain
+    return mask if mask is not None else dropout_keep_plain(seed, B, heads,
+                                                            N, rate)
+
+
+def attention_drop_fwd_after(q, k, v, heads, scale, rate, *, mask=None,
+                             seed=None):
+    """The plain dropout forward with its denominator summed over the kept,
+    scaled probabilities (after dropout, not before) -> (out, lse): phase
+    11's control of C4-fwd."""
+    from simple_tad_tpu_torch.ops.flash_attention import LOG2E
+    B, N, _ = q.shape
+    keep = _drop_keep(B, heads, N, rate, mask, seed)
+    qh, kh, vh = sep_heads(heads, q, k, v)
+    s = torch.matmul((qh.float() * (scale * LOG2E)).to(q.dtype).float(),
+                     kh.float().transpose(-1, -2))
+    m = torch.ceil(s.amax(dim=-1, keepdim=True))
+    pd = s.sub_(m).exp2_().mul_(keep.float() * (1.0 / (1.0 - rate)))
+    denom = pd.sum(dim=-1, keepdim=True)
+    o = torch.matmul(pd.to(q.dtype).float(), vh.float()) / denom
+    return merge_heads(o.to(q.dtype)), (m + torch.log2(denom))[..., 0]
+
+
+def attention_drop_bwd_variant(q, k, v, out, lse, dout, heads, scale, rate,
+                               *, mask=None, seed=None, scale_dp=True,
+                               use_delta=True):
+    """The plain dropout backward with a required step left out: dP not
+    scaled by the keep factor (``scale_dp=False``, phase 11's control of
+    C4-bwd) or no delta term (``use_delta=False``, the gradient control of
+    phases 6 and 11) -> (dq, dk, dv) (B, N, C)."""
+    from simple_tad_tpu_torch.ops.flash_attention import (LOG2E,
+                                                          attention_delta)
+    B, N, _ = q.shape
+    f = _drop_keep(B, heads, N, rate, mask, seed).float() * (
+        1.0 / (1.0 - rate))
+    dt = q.dtype
+    qh, kh, vh = (t.float() for t in sep_heads(heads, q, k, v))
+    do = sep_heads(heads, dout)[0].float()
+    delta = attention_delta(out, dout, heads)[..., None]
+    p = torch.matmul((qh * (scale * LOG2E)).to(dt).float(),
+                     kh.transpose(-1, -2)).sub_(lse[..., None]).exp2_()
+    dv = torch.matmul((p * f).to(dt).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, vh.transpose(-1, -2))
+    if scale_dp:
+        dp.mul_(f)
+    del f
+    ds = (dp.sub_(delta) if use_delta else dp).mul_(p).to(dt).float()
+    del dp, p
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+    dq = torch.matmul(ds, kh) * scale
+    return tuple(merge_heads(t.to(dt)) for t in (dq, dk, dv))
+
+
+def attention_drop_bwd_unscaled(*args, **kw):
+    return attention_drop_bwd_variant(*args, **kw, scale_dp=False)
+
+
+def attention_drop_bwd_no_delta(*args, **kw):
+    return attention_drop_bwd_variant(*args, **kw, use_delta=False)
+
+
+def drop_bound(B, N, C, heads, *, mask: bool, backward: bool = False):
+    """-> (bound ms, 'operations' or 'bytes') of one dropout attention call:
+    the tensor-core products of C1/C2 (``attention_bound``) against the
+    bytes, with the mask's B H N^2 bytes read once in the mask form.  The
+    Philox form's integer work (~20 operations per score element) is left
+    out: the data-sheet table has no int32 rate to set it against."""
+    D = C // heads
+    prod = 2.0 * B * heads * N * N * D
+    t_ops = (5 if backward else 2) * prod / PEAK["bf16"]
+    nbytes = (B * N * 3 * C * 2 + B * N * C * 2 + B * heads * N * 4
+              + (B * N * 3 * C * 2 + B * N * C * 2 + B * heads * N * 4
+                 if backward else 0)
+              + (B * heads * N * N if mask else 0))
+    t_bytes = nbytes / PEAK["bytes"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def probe_keep_mask(B, heads, N, D, rate, seed, dtype, dev):
+    """The keep mask of the Philox forward, read off its output: with
+    q = k = 0 every probability is 1 and l = N, and with v one-hot
+    (v[key, c] = 1 for key = shift + c) output column c of row q is nonzero
+    exactly where (q, shift + c) is kept."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    C = heads * D
+    z = torch.zeros((B, N, C), dtype=dtype, device=dev)
+    mask = torch.zeros((B, heads, N, N), dtype=torch.int8, device=dev)
+    for shift in range(0, N, D):
+        w = min(D, N - shift)
+        v = torch.zeros((B, N, heads, D), dtype=dtype, device=dev)
+        c = torch.arange(w, device=dev)
+        v[:, shift + c, :, c] = 1
+        out, _ = fa.flash_attention_drop_fwd(z, z, v.view(B, N, C), heads,
+                                             D ** -0.5, rate, seed=seed)
+        got = out.view(B, N, heads, D)[..., :w] != 0
+        mask[..., shift:shift + w] = got.permute(0, 2, 1, 3).to(torch.int8)
+    return mask
+
+
+def check_dropout_kernels(dev, g, run_case, timed) -> list:
+    """Phase 11 (i)-(ii), inside phase 2: C4 in both forms against the plain
+    versions on the same mask or seed at ViT-B's training shape (8, 1568,
+    2304) bf16 and a masked fp32 tail, each with its controls; the Philox
+    forward's keep bits against dropout_keep_plain's; then the times at the
+    job's batch.  -> failures."""
+    import torch.nn.functional as F
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops.attention import (draw_dropout_seed,
+                                                    make_dropout_mask)
+    failures = []
+    for shape, heads, dt in DROP_CASES:
+        B, N, C3 = shape
+        C = C3 // 3
+        qkv = torch.randn(shape, generator=g, device=dev).to(dt)
+        dout = torch.randn((B, N, C), generator=g, device=dev).to(dt)
+        args = (*qkv.view(B, N, 3, C).unbind(2), heads, (C // heads) ** -0.5,
+                ATTN_DROP)
+        mask = make_dropout_mask(g, ATTN_DROP, B, heads, N)
+        seed = draw_dropout_seed(g)
+        # the gross controls: the mask read transposed, the next seed
+        for form, src, gross in (
+                ("mask", {"mask": mask},
+                 {"mask": mask.transpose(-1, -2).contiguous()}),
+                ("rng", {"seed": seed}, {"seed": seed + 1})):
+            fwd, bwd = DROP_KERNELS[form]
+            case = f"{shape} H={heads} {dt} rate {ATTN_DROP}"
+            run_case(fwd, case,
+                     lambda: fa.flash_attention_drop_fwd(*args, **src),
+                     lambda: fa.flash_attention_drop_fwd_plain(*args, **src),
+                     [lambda: attention_drop_fwd_after(*args, **src),
+                      lambda: fa.flash_attention_drop_fwd_plain(*args,
+                                                                **gross)],
+                     time_it=False)
+            out, lse = fa.flash_attention_drop_fwd_plain(*args, **src)
+            bargs = (*args[:3], out, lse, dout, *args[3:])
+            run_case(bwd, case,
+                     lambda: fa.flash_attention_drop_bwd(*bargs, **src),
+                     lambda: fa.flash_attention_drop_bwd_plain(*bargs, **src),
+                     [lambda: attention_drop_bwd_unscaled(*bargs, **src),
+                      lambda: fa.flash_attention_drop_bwd_plain(*bargs,
+                                                                **gross)],
+                     time_it=False)
+            del out, lse, bargs
+        del qkv, dout, args, mask
+        torch.cuda.empty_cache()
+
+    # (ii) the bits the Philox kernel draws, two batches x two heads at
+    # N = 392 (q and key tiles past the first), bf16 as on the main path
+    seed = draw_dropout_seed(g)
+    B, heads, N, D = DROP_PROBE
+    got = probe_keep_mask(B, heads, N, D, ATTN_DROP, seed, torch.bfloat16,
+                          dev)
+    want = fa.dropout_keep_plain(seed, B, heads, N, ATTN_DROP)
+    equal = torch.equal(got, want)
+    print(f"[attention_drop_rng] keep bits of the kernel {tuple(got.shape)} "
+          f"{'equal' if equal else 'DIFFER from'} dropout_keep_plain's "
+          f"({(got != want).sum().item()} differ); keep rate "
+          f"{got.float().mean().item():.5f} (1 - rate {1 - ATTN_DROP})")
+    if not equal:
+        failures.append("attention_drop_rng: kernel keep bits")
+
+    B, N, C, heads = DROP_TIMED
+    scale = (C // heads) ** -0.5
+    qkv = torch.randn((B, N, 3 * C), generator=g,
+                      device=dev).to(torch.bfloat16)
+    dout = torch.randn((B, N, C), generator=g, device=dev).to(torch.bfloat16)
+    args = (*qkv.view(B, N, 3, C).unbind(2), heads, scale, ATTN_DROP)
+    qh, kh, vh = qkv_views(qkv, heads)
+    leaf = qkv.detach().requires_grad_(True)
+    sdpa_out = F.scaled_dot_product_attention(
+        *qkv_views(leaf, heads), dropout_p=ATTN_DROP, scale=scale)
+    sdpa_dout = dout.view(B, N, heads, -1).transpose(1, 2)
+    for form, src in (("mask", {"mask": make_dropout_mask(
+            g, ATTN_DROP, B, heads, N)}), ("rng", {"seed": seed})):
+        fwd, bwd = DROP_KERNELS[form]
+        timed(fwd, lambda: fa.flash_attention_drop_fwd(*args, **src),
+              lambda: fa.flash_attention_drop_fwd_plain(*args, **src),
+              lambda: F.scaled_dot_product_attention(
+                  qh, kh, vh, dropout_p=ATTN_DROP, scale=scale),
+              drop_bound(B, N, C, heads, mask=form == "mask"), plain_runs=3)
+        out, lse = fa.flash_attention_drop_fwd(*args, **src)
+        bargs = (*args[:3], out, lse, dout, *args[3:])
+        timed(bwd, lambda: fa.flash_attention_drop_bwd(*bargs, **src),
+              lambda: fa.flash_attention_drop_bwd_plain(*bargs, **src),
+              lambda: torch.autograd.grad(sdpa_out, leaf, sdpa_dout,
+                                          retain_graph=True),
+              drop_bound(B, N, C, heads, mask=form == "mask", backward=True),
+              plain_runs=3)
+        del src, out, lse, bargs
+    del qkv, dout, args, qh, kh, vh, leaf, sdpa_out, sdpa_dout
+    torch.cuda.empty_cache()
+    return failures
 
 
 def _gemm_operands(g, dev, M, K, N, x_dtype, bias: bool):
@@ -1526,6 +1780,10 @@ def run_stream(model, dev, seed: int, steps: int = 16,
 
 
 COUNTERS = {"layernorm": ("ln", "LAUNCHES"),
+            "attention_drop_fwd": ("fa", "DROP_FWD_LAUNCHES"),
+            "attention_drop_bwd": ("fa", "DROP_BWD_LAUNCHES"),
+            "attention_drop_rng_fwd": ("fa", "DROP_RNG_FWD_LAUNCHES"),
+            "attention_drop_rng_bwd": ("fa", "DROP_RNG_BWD_LAUNCHES"),
             "layernorm_quant": ("ln", "QUANT_LAUNCHES"),
             "rmsnorm_quant": ("ln", "RMSQ_LAUNCHES"),
             "attention": ("fa", "LAUNCHES"),
@@ -1838,12 +2096,14 @@ class SyntheticTrainDataset:
         return self.frames[index % len(self.frames)], self.samples[index]
 
 
-def job_model(dev, seed: int, family: str = "vit"):
+def job_model(dev, seed: int, family: str = "vit", attn_drop: float = 0.0,
+              form: str = "rng"):
     """The model of a fine-tuning job, seeded fp32 masters computed in bf16
     with the job's default head init scale: ViT-B 16x224 with drop path 0.2
-    (jobs/finetune/VideoMAE-B_DoTA.sh), or IV2-S 8x224 with the CLI's drop
-    path 0.1 (jobs/finetune/IV2-S_DoTA.sh) and LayerScale 0.1 (the
-    reference goldens' magnitude, as phase 7)."""
+    (jobs/finetune/VideoMAE-B_DoTA.sh), with attention dropout ``attn_drop``
+    in ``form`` (phase 11), or IV2-S 8x224 with the CLI's drop path 0.1
+    (jobs/finetune/IV2-S_DoTA.sh) and LayerScale 0.1 (the reference goldens'
+    magnitude, as phase 7)."""
     from simple_tad_tpu_torch.models import create_model
     if family == "iv2":
         return create_model("internvideo2_small_patch14_224", device=dev,
@@ -1853,7 +2113,8 @@ def job_model(dev, seed: int, family: str = "vit"):
                             generator=torch.Generator().manual_seed(seed))
     return create_model("vit_base_patch16_224", device=dev,
                         dtype=torch.bfloat16, param_dtype=torch.float32,
-                        drop_path_rate=0.2,
+                        drop_path_rate=0.2, attn_drop_rate=attn_drop,
+                        attn_dropout_form=form,
                         generator=torch.Generator().manual_seed(seed))
 
 
@@ -2029,6 +2290,72 @@ def run_finetune(dev, seed: int, family: str = "vit") -> dict:
             "grad_param_err": param_err, "losses": losses}
 
 
+def run_finetune_dropout(dev, seed: int) -> dict:
+    """Phase 11 (iii): one ViT-B train step at batch TRAIN_BATCH with
+    attention dropout ATTN_DROP in each form -> {form: launches}.  Its
+    gradients against the same step through the plain versions from the
+    same generator state (phase 6's bounds), and phase 6's control outside
+    them (the backward without its delta term); then the launch counts of
+    one real step: 12 dropout forward and 12 dropout backward calls of the
+    form, 25 LayerNorm, and no C1, C2 or other attention."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    from simple_tad_tpu_torch.train.losses import create_criterion
+    from simple_tad_tpu_torch.train.steps import make_finetune_train_step
+    out = {}
+    batch = augmented_batch(dev, TRAIN_BATCH, seed)
+    for form in ("rng", "mask"):
+        label = f"finetune attn_drop {ATTN_DROP} {form}"
+        model = job_model(dev, seed, attn_drop=ATTN_DROP, form=form)
+        state = job_state(model, dev, seed)
+        g0 = state.generator.get_state()
+        plain = {"flash_attention_drop_fwd": fa.flash_attention_drop_fwd_plain,
+                 "layernorm": ln.layernorm_plain}
+        kern, loss_k = step_grads(model, batch, state.generator, g0)
+        with routed_train(**plain,
+                          flash_attention_drop_bwd=fa
+                          .flash_attention_drop_bwd_plain):
+            want, loss_p = step_grads(model, batch, state.generator, g0)
+        errs = grad_errors(kern, want)
+        no_delta = {"flash_attention_drop_bwd": attention_drop_bwd_no_delta}
+        with routed_train(**plain, **no_delta):
+            ctrl, _ = step_grads(model, batch, state.generator, g0)
+        c_errs = grad_errors(ctrl, want)
+        del kern, want, ctrl
+        print(f"[{label}] {model.cfg.embed_dim}-wide ViT, "
+              f"{model.cfg.depth} blocks, bf16, fp32 masters, batch "
+              f"{TRAIN_BATCH}: loss {loss_k:.6f} (plain versions "
+              f"{loss_p:.6f}); gradients vs plain: global norm rel err "
+              f"{errs[0]:.3e} (bound {GRAD_NORM_RTOL:.1e}), worst parameter "
+              f"{errs[1]:.3e} ({errs[2]}; bound {GRAD_PARAM_RTOL:.1e}); "
+              f"control (no delta): {c_errs[0]:.3e}, {c_errs[1]:.3e} "
+              f"({c_errs[2]})")
+        step = make_finetune_train_step(create_criterion("crossentropy"))
+        state.generator.set_state(g0)
+        reset_counts()
+        metrics, logits = step(state, batch)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"[{label}] launches in one train step {launches}; loss "
+              f"{float(metrics['loss']):.6f}")
+        depth = model.cfg.depth
+        want_counts = dict.fromkeys(COUNTERS, 0)
+        fwd, bwd = DROP_KERNELS[form]
+        want_counts.update({"layernorm": 2 * depth + 1, fwd: depth,
+                            bwd: depth})
+        assert logits.shape == (TRAIN_BATCH, 2)
+        assert np.isfinite(float(metrics["loss"]))
+        assert launches == want_counts, (launches, want_counts)
+        assert errs[0] <= GRAD_NORM_RTOL and errs[1] <= GRAD_PARAM_RTOL, \
+            f"{label}: gradients disagree with the plain-version step"
+        assert c_errs[0] > GRAD_NORM_RTOL or c_errs[1] > GRAD_PARAM_RTOL, \
+            f"{label}: the gradient bounds let the control through"
+        out[form] = launches
+        del model, state, metrics, logits
+        torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_categories(prof):
     """-> ({category: device ms}, top kernels [(name, calls, ms)], total
     device ms) of a torch.profiler run."""
@@ -2060,10 +2387,10 @@ def _kernel_categories(prof):
     return sums, rows[:15], sum(r[2] for r in rows)
 
 
-def time_training_process(seed: int, profile: bool,
-                          family: str = "vit") -> dict:
-    """Phase 6 or 9 (iii), in a fresh process: FinetuneTrainer at the job's
-    batch (or the largest of JOB_BATCH, 48, 40, 32 that fits) -> step
+def time_training_process(seed: int, profile: bool, family: str = "vit",
+                          attn_drop: float = 0.0, form: str = "rng") -> dict:
+    """Phase 6, 9 or 11 (iii), in a fresh process: FinetuneTrainer at the
+    job's batch (or the largest of JOB_BATCH, 48, 40, 32 that fits) -> step
     times, peak memory and, with ``profile``, a profiler window."""
     from simple_tad_tpu_torch.train.engine import FinetuneTrainer, TrainLoader
     from simple_tad_tpu_torch.train.losses import create_criterion
@@ -2079,7 +2406,7 @@ def time_training_process(seed: int, profile: bool,
     out = {"oom": []}
     for batch in (JOB_BATCH, 48, 40, 32):
         starts.clear()
-        model = job_model(dev, seed, family)
+        model = job_model(dev, seed, family, attn_drop, form)
         state = job_state(model, dev, seed, family)
         n_steps = WARMUP_STEPS + TIMED_STEPS
         data = SyntheticTrainDataset(n_steps * batch, seed,
@@ -2170,16 +2497,20 @@ def step_parts(trainer, data, batch: int, seed: int, starts) -> dict:
     return out
 
 
-def run_finetune_timing(seed: int, family: str = "vit") -> dict:
-    """Phase 6 or 9 (iii): TIMING_PROCESSES fresh processes, one after
+def run_finetune_timing(seed: int, family: str = "vit",
+                        attn_drop: float = 0.0, form: str = "rng",
+                        processes: int = TIMING_PROCESSES) -> dict:
+    """Phase 6, 9 or 11 (iii): ``processes`` fresh processes, one after
     another; the first also takes the profiler window."""
     label = "iv2 finetune" if family == "iv2" else "finetune"
+    if attn_drop:
+        label += f" attn_drop {attn_drop} {form}"
     ctx = multiprocessing.get_context("spawn")
     runs = []
-    for i in range(TIMING_PROCESSES):
+    for i in range(processes):
         with ctx.Pool(1) as pool:
             runs.append(pool.apply(time_training_process,
-                                   (seed, i == 0, family)))
+                                   (seed, i == 0, family, attn_drop, form)))
         r = runs[-1]
         if r["oom"]:
             print(f"[{label} timing] process {i}: batch {r['oom']} does "
@@ -2255,6 +2586,13 @@ def main(argv=None):
                                ("iv2 fused rmsq", True, True, EVAL_RUNS),
                                ("iv2 fused q8", False, False, EVAL_RUNS)],
                               istats["logits"]))
+    torch.cuda.empty_cache()
+    # phase 11: ViT-B fine-tuning with attention dropout (C4)
+    p11 = run_finetune_dropout(dev, args.seed)
+    torch.cuda.empty_cache()
+    run_finetune_timing(args.seed, attn_drop=ATTN_DROP, form="rng")
+    run_finetune_timing(args.seed, attn_drop=ATTN_DROP, form="mask",
+                        processes=1)
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]
@@ -2271,7 +2609,10 @@ def main(argv=None):
                 "attention_q8": p10["vit fused q8"]["launches"][
                     "attention_q8"],
                 "attention_q8_sep": p10["iv2 fused q8"]["launches"][
-                    "attention_q8_sep"]}
+                    "attention_q8_sep"],
+                **{name: p11[form][name]
+                   for form, names in DROP_KERNELS.items()
+                   for name in names}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     record = {"kernels": [

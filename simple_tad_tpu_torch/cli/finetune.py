@@ -4,7 +4,8 @@ Port of simple_tad_tpu/cli/finetune.py (reference: run_frame_finetuning.py):
 dataset build, model build (fp32 masters computed in ``--dtype``) and
 ``--finetune`` checkpoint init, layer-decay AdamW with per-step cosine
 lr/wd, the epoch loop with validation, best-metric checkpoints and
-auto-resume.  Same flags as the JAX CLI, plus ``--device`` (default cuda).
+auto-resume.  Same flags as the JAX CLI, plus ``--device`` (default cuda)
+and ``--attn_dropout_form``.
 Validation scores a copy of the weights in the compute dtype (the EMA
 weights under ``--model_ema``); the fp32 masters are never touched.
 
@@ -15,10 +16,16 @@ InternVideo2 (``jobs/finetune/IV2-S_DoTA.sh``: ``--num_frames 8
 cli/eval_frames.py (the JAX CLI passes them to every model; ROADMAP.md F3).
 ``--finetune`` loads a reference ``.pth`` of either family.
 
+``--attn_drop_rate`` > 0 trains the ViT with attention dropout (kernels
+C4) in the form ``--attn_dropout_form`` selects: ``rng`` (the default, the
+TPU program's: the kernels draw Philox bits from a seed) or ``mask`` (an
+int8 keep mask in memory; the JAX package's SIMPLE_TAD_DROPOUT_MASK).
+InternVideo2 has no attention dropout, as in the JAX package.
+
 Not ported: more than one device (``--zero_stage``, or ``--device`` naming
 several devices, raise: ROADMAP.md queue 1, DDP), gradient checkpointing
-(``--use_checkpoint``), attention dropout (``--attn_drop_rate`` > 0), and
-the optimizers of the menu other than adamw and adam.
+(``--use_checkpoint``), and the optimizers of the menu other than adamw
+and adam.
 
 Usage:
   python -m simple_tad_tpu_torch.cli.finetune --data_set DoTA \\
@@ -72,10 +79,12 @@ def build_datasets(cfg: FinetuneConfig):
     return train_ds, val_ds
 
 
-def build_model(cfg: FinetuneConfig, device, dtype, param_dtype=None):
+def build_model(cfg: FinetuneConfig, device, dtype, param_dtype=None,
+                attn_dropout_form: str = "rng"):
     from simple_tad_tpu_torch.models import create_model, model_family
     vit_only = {} if model_family(cfg.model) == "iv2" else dict(
-        tubelet_size=cfg.tubelet_size, final_reduction=cfg.final_reduction)
+        tubelet_size=cfg.tubelet_size, final_reduction=cfg.final_reduction,
+        attn_dropout_form=attn_dropout_form)
     return create_model(
         cfg.model, device=device,
         generator=torch.Generator().manual_seed(cfg.seed),
@@ -118,6 +127,8 @@ def build_optimizer(cfg: FinetuneConfig, model, steps_per_epoch: int):
 def main(argv=None):
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
+    pre.add_argument("--attn_dropout_form", choices=("rng", "mask"),
+                     default="rng")
     dev_args, rest = pre.parse_known_args(argv)
     cfg = FinetuneConfig.from_args(rest)
     if cfg.zero_stage or "," in dev_args.device:
@@ -142,7 +153,8 @@ def main(argv=None):
     np.random.seed(cfg.seed)
     device = torch.device(dev_args.device)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    model = build_model(cfg, device, dtype, param_dtype=torch.float32)
+    model = build_model(cfg, device, dtype, param_dtype=torch.float32,
+                        attn_dropout_form=dev_args.attn_dropout_form)
     if cfg.finetune:
         load_checkpoint_auto(cfg.finetune, model)
         print(f"initialized from {cfg.finetune}")

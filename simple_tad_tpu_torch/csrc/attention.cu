@@ -57,6 +57,10 @@
 // thread per query row, 32-key tiles in shared memory, the same online
 // integer-max softmax.
 //
+// With a keep source (kernel C4-fwd, stt_attention_fwd_lse_drop) the same
+// kernels are C3-fwd with attention dropout: see attn_fwd_bf16_kernel's
+// DROP and philox.cuh.
+//
 // With Q8 the same kernels are B3, the int8-output epilogue of the static
 // int8 model's bf16 attention: they replace the TPU kernels
 // _fwd_kernel_nomax_packed_q8 (launched by _flash_primal_packed_qkv_q8_impl
@@ -70,10 +74,13 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using stt::Drop;
+using stt::Keep;
 using stt::as_u32;
 using stt::ld32;
 using stt::mma_16816;
@@ -103,13 +110,21 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
 // fp32, contiguous.
 // With Q8 (kernel B3) o is int8 and out_amax the absmax its codes are made
 // against.
-template <int DP, bool LSE, bool Q8>
+// With DROP (kernel C4-fwd, LSE only) the probabilities are those of the
+// JAX drop forward (simple_tad_tpu/ops/flash_attention.py:_fwd_kernel_drop,
+// _fwd_kernel_drop_rng): l sums the unrounded fp32 p = exp2(s - m) before
+// dropout, the PV operand is bf16(p * keep / keep_prob) (the factor applied
+// in fp32, then one rounding), and lse = m + log2(l); the keep bits come
+// from kp (philox.cuh).  Rescaling by exact powers of two commutes with
+// both roundings, so the integer running maximum still gives the same
+// result as one final maximum.
+template <int DP, bool LSE, bool Q8, Drop DROP = Drop::kNone>
 __global__ void __launch_bounds__(kThreads)
     attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, void* __restrict__ o,
                          float* __restrict__ lse,
                          const float* __restrict__ out_amax, int n, int n_kv,
-                         int d, Strides st, float qscale) {
+                         int d, Strides st, float qscale, Keep kp) {
   constexpr int KS = DP + 8;       // row stride of the Q/K tile (elements)
   constexpr int VS = kBlockN + 8;  // row stride of the transposed V tile
   constexpr int KSTEPS = DP / 16;  // k-steps of the QK product
@@ -152,12 +167,18 @@ __global__ void __launch_bounds__(kThreads)
   }
   // rows r0 and r0 + 8: running integer max and partial denominators
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
 
   for (int k0 = 0; k0 < n_kv; k0 += kBlockN) {
     load_tile<DP, kBlockN, false, false>(sK, KS, kb, k0, n_kv, d, st.k_sn,
                                          0.f);
     load_tile<DP, kBlockN, true, false>(sVt, VS, vb, k0, n_kv, d, st.v_sn,
                                         0.f);
+    uint32_t keep = 0;
+    if constexpr (DROP != Drop::kNone) {
+      keep = stt::keep_bits<DROP, false, NT>(kp, mh, bh, q0 + r0, k0, t4, n);
+    }
     __syncthreads();
 
     // 2. S = (q * scale * log2e) K^T for this warp's 16 rows x 64 keys
@@ -215,14 +236,28 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t pf[NT / 2][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat162 p01 =
-          __floats2bfloat162_rn(exp2f(s[j][0] - mn0), exp2f(s[j][1] - mn0));
-      const __nv_bfloat162 p23 =
-          __floats2bfloat162_rn(exp2f(s[j][2] - mn1), exp2f(s[j][3] - mn1));
-      l0 += __low2float(p01) + __high2float(p01);
-      l1 += __low2float(p23) + __high2float(p23);
-      pf[j / 2][(j % 2) * 2] = as_u32(p01);
-      pf[j / 2][(j % 2) * 2 + 1] = as_u32(p23);
+      if constexpr (DROP == Drop::kNone) {
+        const __nv_bfloat162 p01 = __floats2bfloat162_rn(
+            exp2f(s[j][0] - mn0), exp2f(s[j][1] - mn0));
+        const __nv_bfloat162 p23 = __floats2bfloat162_rn(
+            exp2f(s[j][2] - mn1), exp2f(s[j][3] - mn1));
+        l0 += __low2float(p01) + __high2float(p01);
+        l1 += __low2float(p23) + __high2float(p23);
+        pf[j / 2][(j % 2) * 2] = as_u32(p01);
+        pf[j / 2][(j % 2) * 2 + 1] = as_u32(p23);
+      } else {
+        const float p0 = exp2f(s[j][0] - mn0), p1 = exp2f(s[j][1] - mn0);
+        const float p2 = exp2f(s[j][2] - mn1), p3 = exp2f(s[j][3] - mn1);
+        l0 += p0 + p1;  // before dropout, unrounded
+        l1 += p2 + p3;
+        const float f = kp.inv_keep;
+        pf[j / 2][(j % 2) * 2] = as_u32(__floats2bfloat162_rn(
+            p0 * stt::keep_factor(keep, j, 0, f),
+            p1 * stt::keep_factor(keep, j, 1, f)));
+        pf[j / 2][(j % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(
+            p2 * stt::keep_factor(keep, j, 2, f),
+            p3 * stt::keep_factor(keep, j, 3, f)));
+      }
     }
 
     // 4. O += P V
@@ -291,13 +326,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DP, bool LSE, bool Q8>
+template <int DP, bool LSE, bool Q8, Drop DROP = Drop::kNone>
 __global__ void __launch_bounds__(kBlockM)
     attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, void* __restrict__ o,
                         float* __restrict__ lse,
                         const float* __restrict__ out_amax, int n, int n_kv,
-                        int d, Strides st, float qscale) {
+                        int d, Strides st, float qscale, Keep kp) {
   __shared__ float sK[kBlockNF32][DP];
   __shared__ float sV[kBlockNF32][DP];
   const int row = blockIdx.x * kBlockM + threadIdx.x;
@@ -316,6 +351,8 @@ __global__ void __launch_bounds__(kBlockM)
     acc[c] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
   for (int k0 = 0; k0 < n_kv; k0 += kBlockNF32) {
     for (int i = threadIdx.x; i < kBlockNF32 * DP; i += kBlockM) {
       const int r = i / DP;
@@ -339,8 +376,13 @@ __global__ void __launch_bounds__(kBlockM)
         for (int c = 0; c < DP; ++c) acc[c] *= a;
         m = mn;
       }
-      const float p = exp2f(s - m);
-      l += p;
+      float p = exp2f(s - m);
+      l += p;  // before dropout
+      if constexpr (DROP != Drop::kNone) {
+        p = row < n && stt::keep_one<DROP>(kp, mh, bh, row, k0 + j, n)
+                ? p * kp.inv_keep
+                : 0.f;
+      }
 #pragma unroll
       for (int c = 0; c < DP; ++c) acc[c] = fmaf(p, sV[j][c], acc[c]);
     }
@@ -369,32 +411,33 @@ __global__ void __launch_bounds__(kBlockM)
 }
 
 // Output and scratch of one launch: o (and, with Q8, the absmax its int8
-// codes are made against), lse (LSE only).
+// codes are made against), lse (LSE only), and the keep source (DROP only).
 struct Out {
   void* o;
   float* lse;
   const float* out_amax;
+  Keep keep;
 };
 
-template <int DP, bool LSE, bool Q8>
+template <int DP, bool LSE, bool Q8, Drop DROP>
 void launch(const void* q, const void* k, const void* v, const Out& out,
             int b, int n, int n_kv, int h, int d, const Strides& st,
             float qscale, int dtype, cudaStream_t stream) {
   const dim3 grid((n + kBlockM - 1) / kBlockM, h, b);
   if (dtype == stt::kBFloat16) {
-    attn_fwd_bf16_kernel<DP, LSE, Q8><<<grid, kThreads, 0, stream>>>(
+    attn_fwd_bf16_kernel<DP, LSE, Q8, DROP><<<grid, kThreads, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), out.o, out.lse, out.out_amax, n, n_kv,
-        d, st, qscale);
+        d, st, qscale, out.keep);
   } else {
-    attn_fwd_f32_kernel<DP, LSE, Q8><<<grid, kBlockM, 0, stream>>>(
+    attn_fwd_f32_kernel<DP, LSE, Q8, DROP><<<grid, kBlockM, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), out.o, out.lse, out.out_amax, n, n_kv,
-        d, st, qscale);
+        d, st, qscale, out.keep);
   }
 }
 
-template <bool LSE, bool Q8 = false>
+template <bool LSE, bool Q8 = false, Drop DROP = Drop::kNone>
 int dispatch(const void* q, const void* k, const void* v, const Out& out,
              int b, int n, int n_kv, int h, int d, const Strides& st,
              float qscale, int dtype, void* stream) {
@@ -405,16 +448,19 @@ int dispatch(const void* q, const void* k, const void* v, const Out& out,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define STT_FWD(DP) \
+  launch<DP, LSE, Q8, DROP>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s)
   switch ((d + 15) / 16 * 16) {
-    case 16: launch<16, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
-    case 32: launch<32, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
-    case 48: launch<48, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
-    case 64: launch<64, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
-    case 80: launch<80, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
-    case 96: launch<96, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
-    case 112: launch<112, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
-    default: launch<128, LSE, Q8>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s); break;
+    case 16: STT_FWD(16); break;
+    case 32: STT_FWD(32); break;
+    case 48: STT_FWD(48); break;
+    case 64: STT_FWD(64); break;
+    case 80: STT_FWD(80); break;
+    case 96: STT_FWD(96); break;
+    case 112: STT_FWD(112); break;
+    default: STT_FWD(128); break;
   }
+#undef STT_FWD
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -469,6 +515,38 @@ extern "C" int stt_attention_fwd_lse_sep(const void* q, const void* k,
   const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
   return dispatch<true>(q, k, v, Out{o, lse, nullptr}, b, n, n, h, d, st,
                         qscale, dtype, stream);
+}
+
+// Kernel C4-fwd: C3-fwd with attention dropout (replaces the TPU kernels
+// _fwd_kernel_drop, launched by _flash_drop_fwd_impl, and
+// _fwd_kernel_drop_rng with _unit_keep, launched by
+// _flash_drop_rng_fwd_impl).  The keep source is exactly one of ``mask``
+// (int8 (B, H, N, N), 1 = keep, (batch, head) strides m_sb, m_sh in bytes,
+// rows of N contiguous bytes) and ``seed`` (2 int32 words in device memory:
+// Philox4x32-10 with the map of philox.cuh; nothing is read to the host);
+// kept probabilities are scaled by inv_keep = 1 / (1 - rate) and the
+// Philox bits kept where they are at least thresh.  Bounded like C1 (the
+// two tensor-core products); the mask form adds N^2 bytes per (batch,
+// head) read, the Philox form ~20 integer operations per score element.
+extern "C" int stt_attention_fwd_lse_drop(
+    const void* q, const void* k, const void* v, void* o, float* lse, int b,
+    int n, int h, int d, int q_sb, int q_sn, int k_sb, int k_sn, int v_sb,
+    int v_sn, int o_sb, int o_sn, float qscale, const int8_t* mask,
+    long long m_sb, long long m_sh, const int32_t* seed, unsigned thresh,
+    float inv_keep, int dtype, void* stream) {
+  if ((mask == nullptr) == (seed == nullptr) || !(inv_keep >= 1.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
+  const Out out{o, lse, nullptr, Keep{mask, m_sb, m_sh, seed, thresh,
+                                      inv_keep}};
+  return mask != nullptr
+             ? dispatch<true, false, Drop::kMask>(q, k, v, out, b, n, n, h,
+                                                  d, st, qscale, dtype,
+                                                  stream)
+             : dispatch<true, false, Drop::kPhilox>(q, k, v, out, b, n, n, h,
+                                                    d, st, qscale, dtype,
+                                                    stream);
 }
 
 // Kernel B3: A1 with the int8 output epilogue, on the packed qkv (three base

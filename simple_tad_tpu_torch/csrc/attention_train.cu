@@ -59,10 +59,13 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using stt::Drop;
+using stt::Keep;
 using stt::as_u32;
 using stt::ld32;
 using stt::mma_16816;
@@ -117,7 +120,11 @@ constexpr int dq_smem_bytes() {
   return (2 * kTile * (DP + 8) + DP * (kTile + 8)) * 2;
 }
 
-template <int DP>
+// With DROP (kernel C4-bwd) dV takes bf16(P^T keep / keep_prob) and dP^T
+// is scaled by keep / keep_prob before dS^T = P^T (dP^T - delta), as the
+// JAX drop backward (_bwd_dkv_kernel_drop, _bwd_merged_kernel_drop_rng);
+// the keep bits are read transposed (rows are keys here; philox.cuh).
+template <int DP, Drop DROP = Drop::kNone>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
@@ -127,7 +134,7 @@ __global__ void __launch_bounds__(kThreads)
                               const float* __restrict__ delta,
                               bf16* __restrict__ dk, bf16* __restrict__ dv,
                               int n, int d, Strides st, float qscale,
-                              float scale) {
+                              float scale, Keep kp) {
   constexpr int KS = DP + 8;       // row stride of row-major tiles
   constexpr int TS = kTile + 8;    // row stride of transposed tiles
   constexpr int KSTEPS = DP / 16;
@@ -170,6 +177,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
   }
 
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
+
   for (int q0 = 0; q0 < n; q0 += kTile) {
     load_tile<DP, kTile, false, true>(sQ, KS, qb, q0, n, d, st.q_sn, qscale);
     load_tile<DP, kTile, true, false>(sQt, TS, qb, q0, n, d, st.q_sn, 0.f);
@@ -179,6 +189,10 @@ __global__ void __launch_bounds__(kThreads)
       const bool ok = q0 + i < n;
       sL[i] = ok ? lse[row_off + q0 + i] : 0.f;
       sD[i] = ok ? delta[row_off + q0 + i] : 0.f;
+    }
+    uint32_t keep = 0;
+    if constexpr (DROP != Drop::kNone) {
+      keep = stt::keep_bits<DROP, true, NT>(kp, mh, bh, k0 + r0, q0, t4, n);
     }
     __syncthreads();
 
@@ -211,12 +225,28 @@ __global__ void __launch_bounds__(kThreads)
       const float p01 = ok1 ? exp2f(st[j][1] - sL[c + 1]) : 0.f;
       const float p10 = ok0 ? exp2f(st[j][2] - sL[c]) : 0.f;
       const float p11 = ok1 ? exp2f(st[j][3] - sL[c + 1]) : 0.f;
+      if constexpr (DROP == Drop::kNone) {
+        pf[j / 2][(j % 2) * 2] = as_u32(__floats2bfloat162_rn(p00, p01));
+        pf[j / 2][(j % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(p10, p11));
+      } else {
+        const float f = kp.inv_keep;
+        const float f00 = stt::keep_factor(keep, j, 0, f);
+        const float f01 = stt::keep_factor(keep, j, 1, f);
+        const float f10 = stt::keep_factor(keep, j, 2, f);
+        const float f11 = stt::keep_factor(keep, j, 3, f);
+        pf[j / 2][(j % 2) * 2] =
+            as_u32(__floats2bfloat162_rn(p00 * f00, p01 * f01));
+        pf[j / 2][(j % 2) * 2 + 1] =
+            as_u32(__floats2bfloat162_rn(p10 * f10, p11 * f11));
+        dpt[j][0] *= f00;
+        dpt[j][1] *= f01;
+        dpt[j][2] *= f10;
+        dpt[j][3] *= f11;
+      }
       const float ds00 = p00 * (dpt[j][0] - sD[c]);
       const float ds01 = p01 * (dpt[j][1] - sD[c + 1]);
       const float ds10 = p10 * (dpt[j][2] - sD[c]);
       const float ds11 = p11 * (dpt[j][3] - sD[c + 1]);
-      pf[j / 2][(j % 2) * 2] = as_u32(__floats2bfloat162_rn(p00, p01));
-      pf[j / 2][(j % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(p10, p11));
       dsf[j / 2][(j % 2) * 2] = as_u32(__floats2bfloat162_rn(ds00, ds01));
       dsf[j / 2][(j % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(ds10, ds11));
     }
@@ -261,7 +291,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DP>
+// With DROP (kernel C4-bwd) dP is scaled by keep / keep_prob before
+// dS = P (dP - delta), as _bwd_dq_kernel_drop (rows are queries).
+template <int DP, Drop DROP = Drop::kNone>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
@@ -270,7 +302,7 @@ __global__ void __launch_bounds__(kThreads)
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             bf16* __restrict__ dq, int n, int d, Strides st,
-                            float qscale, float scale) {
+                            float qscale, float scale, Keep kp) {
   constexpr int KS = DP + 8;
   constexpr int TS = kTile + 8;
   constexpr int KSTEPS = DP / 16;
@@ -315,11 +347,17 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < DT; ++j) {
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   }
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
 
   for (int k0 = 0; k0 < n; k0 += kTile) {
     load_tile<DP, kTile, false, false>(sK, KS, kb, k0, n, d, st.k_sn, 0.f);
     load_tile<DP, kTile, false, false>(sV, KS, vb, k0, n, d, st.v_sn, 0.f);
     load_tile<DP, kTile, true, false>(sKt, TS, kb, k0, n, d, st.k_sn, 0.f);
+    uint32_t keep = 0;
+    if constexpr (DROP != Drop::kNone) {
+      keep = stt::keep_bits<DROP, false, NT>(kp, mh, bh, row0, k0, t4, n);
+    }
     __syncthreads();
 
     float s[NT][4], dp[NT][4];
@@ -346,6 +384,13 @@ __global__ void __launch_bounds__(kThreads)
       const float p01 = ok1 ? exp2f(s[j][1] - l0) : 0.f;
       const float p10 = ok0 ? exp2f(s[j][2] - l1) : 0.f;
       const float p11 = ok1 ? exp2f(s[j][3] - l1) : 0.f;
+      if constexpr (DROP != Drop::kNone) {
+        const float f = kp.inv_keep;
+        dp[j][0] *= stt::keep_factor(keep, j, 0, f);
+        dp[j][1] *= stt::keep_factor(keep, j, 1, f);
+        dp[j][2] *= stt::keep_factor(keep, j, 2, f);
+        dp[j][3] *= stt::keep_factor(keep, j, 3, f);
+      }
       dsf[j / 2][(j % 2) * 2] = as_u32(__floats2bfloat162_rn(
           p00 * (dp[j][0] - e0), p01 * (dp[j][1] - e0)));
       dsf[j / 2][(j % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(
@@ -383,7 +428,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // fp32: one thread per key; 16-query tiles in shared memory
-template <int DP>
+template <int DP, Drop DROP = Drop::kNone>
 __global__ void __launch_bounds__(kThreadsF32)
     attn_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
@@ -393,7 +438,7 @@ __global__ void __launch_bounds__(kThreadsF32)
                              const float* __restrict__ delta,
                              float* __restrict__ dk, float* __restrict__ dv,
                              int n, int d, Strides st, float qscale,
-                             float scale) {
+                             float scale, Keep kp) {
   __shared__ float sQ[kTileF32][DP];
   __shared__ float sQr[kTileF32][DP];
   __shared__ float sO[kTileF32][DP];
@@ -406,6 +451,8 @@ __global__ void __launch_bounds__(kThreadsF32)
   const float* vb = v + head_off(st.v_sb, d) + static_cast<size_t>(key) * st.v_sn;
   const size_t row_off =
       (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * n;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
   float kr[DP], vr[DP], dka[DP], dva[DP];
 #pragma unroll
   for (int c = 0; c < DP; ++c) {
@@ -439,10 +486,19 @@ __global__ void __launch_bounds__(kThreadsF32)
         dp = fmaf(sO[j][c], vr[c], dp);
       }
       const float p = exp2f(s - sL[j]);
+      float pd = p;
+      if constexpr (DROP != Drop::kNone) {
+        const float f =
+            key < n && stt::keep_one<DROP>(kp, mh, bh, q0 + j, key, n)
+                ? kp.inv_keep
+                : 0.f;
+        pd = p * f;
+        dp *= f;
+      }
       const float ds = p * (dp - sD[j]);
 #pragma unroll
       for (int c = 0; c < DP; ++c) {
-        dva[c] = fmaf(p, sO[j][c], dva[c]);
+        dva[c] = fmaf(pd, sO[j][c], dva[c]);
         dka[c] = fmaf(ds, sQr[j][c], dka[c]);
       }
     }
@@ -461,7 +517,7 @@ __global__ void __launch_bounds__(kThreadsF32)
 }
 
 // fp32: one thread per query; 16-key tiles in shared memory
-template <int DP>
+template <int DP, Drop DROP = Drop::kNone>
 __global__ void __launch_bounds__(kThreadsF32)
     attn_bwd_dq_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -470,7 +526,7 @@ __global__ void __launch_bounds__(kThreadsF32)
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            float* __restrict__ dq, int n, int d, Strides st,
-                           float qscale, float scale) {
+                           float qscale, float scale, Keep kp) {
   __shared__ float sK[kTileF32][DP];
   __shared__ float sV[kTileF32][DP];
   const int row = blockIdx.x * kThreadsF32 + threadIdx.x;
@@ -481,6 +537,8 @@ __global__ void __launch_bounds__(kThreadsF32)
   const float* vb = v + head_off(st.v_sb, d);
   const size_t row_off =
       (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * n;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
   float qr[DP], orr[DP], acc[DP];
 #pragma unroll
   for (int c = 0; c < DP; ++c) {
@@ -508,6 +566,13 @@ __global__ void __launch_bounds__(kThreadsF32)
         s = fmaf(qr[c], sK[j][c], s);
         dp = fmaf(orr[c], sV[j][c], dp);
       }
+      if constexpr (DROP != Drop::kNone) {
+        if (!(row < n && stt::keep_one<DROP>(kp, mh, bh, row, k0 + j, n))) {
+          dp = 0.f;
+        } else {
+          dp *= kp.inv_keep;
+        }
+      }
       const float ds = exp2f(s - l) * (dp - e);
 #pragma unroll
       for (int c = 0; c < DP; ++c) acc[c] = fmaf(ds, sK[j][c], acc[c]);
@@ -530,62 +595,66 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int DP>
+template <int DP, Drop DROP>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk, void* dv,
            int b, int n, int h, int d, const Strides& st, float qscale,
-           float scale, int dtype, cudaStream_t stream) {
+           float scale, const Keep& kp, int dtype, cudaStream_t stream) {
   if (dtype == stt::kBFloat16) {
     const dim3 grid((n + kTile - 1) / kTile, h, b);
     const bf16* qp = static_cast<const bf16*>(q);
-    const bf16* kp = static_cast<const bf16*>(k);
+    const bf16* kp_ = static_cast<const bf16*>(k);
     const bf16* vp = static_cast<const bf16*>(v);
     const bf16* op = static_cast<const bf16*>(dout);
     constexpr int kv_bytes = dkdv_smem_bytes<DP>();
     constexpr int q_bytes = dq_smem_bytes<DP>();
-    cudaError_t err = allow_smem(attn_bwd_dkdv_bf16_kernel<DP>, kv_bytes);
+    cudaError_t err =
+        allow_smem(attn_bwd_dkdv_bf16_kernel<DP, DROP>, kv_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = allow_smem(attn_bwd_dq_bf16_kernel<DP>, q_bytes);
+    err = allow_smem(attn_bwd_dq_bf16_kernel<DP, DROP>, q_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dkdv_bf16_kernel<DP><<<grid, kThreads, kv_bytes, stream>>>(
-        qp, kp, vp, op, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), n, d, st, qscale, scale);
+    attn_bwd_dkdv_bf16_kernel<DP, DROP>
+        <<<grid, kThreads, kv_bytes, stream>>>(
+            qp, kp_, vp, op, lse, delta, static_cast<bf16*>(dk),
+            static_cast<bf16*>(dv), n, d, st, qscale, scale, kp);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dq_bf16_kernel<DP><<<grid, kThreads, q_bytes, stream>>>(
-        qp, kp, vp, op, lse, delta, static_cast<bf16*>(dq), n, d, st, qscale,
-        scale);
+    attn_bwd_dq_bf16_kernel<DP, DROP><<<grid, kThreads, q_bytes, stream>>>(
+        qp, kp_, vp, op, lse, delta, static_cast<bf16*>(dq), n, d, st, qscale,
+        scale, kp);
   } else {
     const dim3 grid((n + kThreadsF32 - 1) / kThreadsF32, h, b);
     const float* qp = static_cast<const float*>(q);
-    const float* kp = static_cast<const float*>(k);
+    const float* kp_ = static_cast<const float*>(k);
     const float* vp = static_cast<const float*>(v);
     const float* op = static_cast<const float*>(dout);
-    attn_bwd_dkdv_f32_kernel<DP><<<grid, kThreadsF32, 0, stream>>>(
-        qp, kp, vp, op, lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), n, d, st, qscale, scale);
+    attn_bwd_dkdv_f32_kernel<DP, DROP><<<grid, kThreadsF32, 0, stream>>>(
+        qp, kp_, vp, op, lse, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv), n, d, st, qscale, scale, kp);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dq_f32_kernel<DP><<<grid, kThreadsF32, 0, stream>>>(
-        qp, kp, vp, op, lse, delta, static_cast<float*>(dq), n, d, st, qscale,
-        scale);
+    attn_bwd_dq_f32_kernel<DP, DROP><<<grid, kThreadsF32, 0, stream>>>(
+        qp, kp_, vp, op, lse, delta, static_cast<float*>(dq), n, d, st,
+        qscale, scale, kp);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <Drop DROP = Drop::kNone>
 int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const float* lse, const float* delta, void* dq, void* dk,
              void* dv, int b, int n, int h, int d, const Strides& st,
-             float qscale, float scale, int dtype, void* stream) {
+             float qscale, float scale, int dtype, void* stream,
+             const Keep& kp = Keep{}) {
   if (b <= 0 || n <= 0 || h <= 0 || d <= 0 || d % 8 != 0 || d > 128 ||
       b > 65535 || h > 65535 ||
       (dtype != stt::kBFloat16 && dtype != stt::kFloat32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STT_BWD(DP)                                                        \
-  return launch<DP>(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, d, st, \
-                    qscale, scale, dtype, s)
+#define STT_BWD(DP)                                                     \
+  return launch<DP, DROP>(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, \
+                          d, st, qscale, scale, kp, dtype, s)
   switch ((d + 15) / 16 * 16) {
     case 16: STT_BWD(16);
     case 32: STT_BWD(32);
@@ -638,4 +707,38 @@ extern "C" int stt_attention_bwd_sep(const void* q, const void* k,
                    do_sb, do_sn, g_sb, g_sn};
   return dispatch(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, d, st,
                   qscale, scale, dtype, stream);
+}
+
+// Kernel C4-bwd: C3-bwd with attention dropout (replaces the TPU kernels
+// _bwd_dq_kernel_drop and _bwd_dkv_kernel_drop, launched by
+// _flash_drop_bwd_impl, and _bwd_merged_kernel_drop_rng,
+// _bwd_dq_kernel_drop_rng and _bwd_dkv_kernel_drop_rng, launched by
+// _flash_drop_rng_bwd_impl: one function in three TPU orientations).  The
+// arguments of stt_attention_bwd_sep, lse from the dropout forward and
+// delta = rowsum(dout * out) of its output, and the keep source of
+// stt_attention_fwd_lse_drop (exactly one of mask and seed).  The dk/dv
+// kernel reads the mask transposed by index (mask[b, h, query, key] from
+// its key-major tile; no transposed copy) and draws the Philox words in
+// its own orientation (philox.cuh): two launches, as C2.
+extern "C" int stt_attention_bwd_drop(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, void* dk, void* dv,
+    int b, int n, int h, int d, int q_sb, int q_sn, int k_sb, int k_sn,
+    int v_sb, int v_sn, int do_sb, int do_sn, int g_sb, int g_sn,
+    float qscale, float scale, const int8_t* mask, long long m_sb,
+    long long m_sh, const int32_t* seed, unsigned thresh, float inv_keep,
+    int dtype, void* stream) {
+  if ((mask == nullptr) == (seed == nullptr) || !(inv_keep >= 1.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
+                   do_sb, do_sn, g_sb, g_sn};
+  const Keep kp{mask, m_sb, m_sh, seed, thresh, inv_keep};
+  return mask != nullptr
+             ? dispatch<Drop::kMask>(q, k, v, dout, lse, delta, dq, dk, dv, b,
+                                     n, h, d, st, qscale, scale, dtype,
+                                     stream, kp)
+             : dispatch<Drop::kPhilox>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                       b, n, h, d, st, qscale, scale, dtype,
+                                       stream, kp);
 }

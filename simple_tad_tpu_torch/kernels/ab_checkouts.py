@@ -1,9 +1,10 @@
 """A/B of the attention kernels between this checkout and another.
 
 A1 (inference), C1 (training forward with lse) and C2 (training backward)
-on the packed qkv, and the int8-storage attention packed (B2) and on
-separate operands (D2, at IV2-S's N = 2049, v strided), run on the same
-seeded inputs at ViT-B's (and IV2-S's) shapes in both
+on the packed qkv, C3-fwd and C3-bwd (the same on separate operands, at
+IV2-S's N = 2049 and the job's batch 56, v strided), and the int8-storage
+attention packed (B2) and on separate operands (D2, IV2-S, v strided), run
+on the same seeded inputs at ViT-B's (and IV2-S's) shapes in both
 checkouts, each in a fresh process (the two packages share a name), in the
 order other, this, this, other, all on one card.  Each process builds its
 checkout's kernels from its own sources.  Printed per kernel: whether the
@@ -28,9 +29,12 @@ import sys
 SEED = 0
 RUNS = 30
 # kernel -> (batch, tokens, heads): ViT-B 16x224 at the eval batch (A1) and
-# the fine-tuning job's batch (C1, C2)
+# the fine-tuning job's batch (C1, C2); IV2-S 8x224 at the job's batch (C3)
+# and the eval batch (D2)
 SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
-          "attention_bwd": (56, 1568, 12), "attention_i8": (32, 1568, 12),
+          "attention_bwd": (56, 1568, 12),
+          "attention_sep_fwd_lse": (56, 2049, 6),
+          "attention_sep_bwd": (56, 2049, 6), "attention_i8": (32, 1568, 12),
           "attention_i8_sep": (32, 2049, 6)}
 
 
@@ -75,6 +79,20 @@ def _worker(root: str) -> dict:
         elif name == "attention_fwd_lse":
             def fn():
                 return fa.flash_attention_qkv_fwd_lse(qkv, heads, scale)
+        elif name in ("attention_sep_fwd_lse", "attention_sep_bwd"):
+            ops = (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
+                   qkv[..., 2 * C:], heads, scale)
+            if name == "attention_sep_fwd_lse":
+                def fn():
+                    return fa.flash_attention_fwd_lse(*ops)
+            else:
+                o, lse = fa.flash_attention_fwd_lse_plain(*ops)
+                dout = torch.randn((B, N, C), generator=g,
+                                   device=dev).to(torch.bfloat16)
+
+                def fn():
+                    return fa.flash_attention_bwd(*ops[:3], o, lse, dout,
+                                                  *ops[3:])
         else:
             o, lse = fa.flash_attention_qkv_fwd_lse_plain(qkv, heads, scale)
             dout = torch.randn((B, N, C), generator=g,

@@ -143,6 +143,16 @@ def load() -> ctypes.CDLL:
             lib.stt_attention_bwd_sep.argtypes = [p] * 9 + [i] * 14 + [
                 ctypes.c_float, ctypes.c_float, i, p]
             lib.stt_attention_bwd_sep.restype = i
+            # the keep source of the dropout kernels: mask, its (batch,
+            # head) strides, seed, threshold, 1 / keep
+            keep = [p, ctypes.c_int64, ctypes.c_int64, p, ctypes.c_uint32,
+                    ctypes.c_float]
+            lib.stt_attention_fwd_lse_drop.argtypes = [
+                p] * 5 + [i] * 12 + [ctypes.c_float] + keep + [i, p]
+            lib.stt_attention_fwd_lse_drop.restype = i
+            lib.stt_attention_bwd_drop.argtypes = [p] * 9 + [i] * 14 + [
+                ctypes.c_float, ctypes.c_float] + keep + [i, p]
+            lib.stt_attention_bwd_drop.restype = i
             lib.stt_attention_i8.argtypes = [p, p, p, p, p, p, *[i] * 13,
                                              ctypes.c_float, p]
             lib.stt_attention_i8.restype = i

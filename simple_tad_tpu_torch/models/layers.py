@@ -14,9 +14,11 @@ construction (``torch.empty``); ``init_weights`` fills every parameter from
 an explicit ``torch.Generator``.
 
 Training (``module.train()``): stochastic depth (``drop_path``, after the
-LayerScale multiply) and the proj/MLP dropout draw their masks from the
-``generator`` passed to ``forward``; attention dropout needs the dropout
-attention kernels and raises (ops/attention.py).
+LayerScale multiply), the proj/MLP dropout and the attention dropout
+(kernels C4, in ``attn_dropout_form`` 'rng' or 'mask': ops/attention.py)
+draw their masks from the ``generator`` passed to ``forward``, each
+layer's attention draw before its proj dropout's, as the JAX Attention
+calls make_rng.
 
 The int8 model (``quant=True``) swaps in ``QuantLinear`` for the block
 GEMMs and, at widths that are multiples of 128 (the JAX gate),
@@ -332,18 +334,20 @@ class Attention(nn.Module):
     kernel, or the bf16 attention with the int8 output epilogue, each
     emitting the proj GEMM's int8 input against ``out_amax``; or the bf16
     attention, whose output proj quantizes itself.  'calib' records both
-    absmax sites around the bf16 attention."""
+    absmax sites around the bf16 attention.  In training the attention
+    probabilities take dropout ``attn_drop`` in ``attn_dropout_form``."""
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
                  qk_scale=None, dtype=torch.float32, param_dtype=None,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 quant: bool = False, quant_mode: str = "dynamic",
-                 fused_w8a8: bool = False, qkv_i8: bool = True,
-                 device=None):
+                 attn_dropout_form: str = "rng", quant: bool = False,
+                 quant_mode: str = "dynamic", fused_w8a8: bool = False,
+                 qkv_i8: bool = True, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_drop = attn_drop
+        self.attn_dropout_form = attn_dropout_form
         self.proj_drop = proj_drop
         self.quant = quant
         self.mode = quant_mode
@@ -408,7 +412,8 @@ class Attention(nn.Module):
                     B, N, 3, heads, -1).amax(dim=(0, 1, 4)))
             out = dot_product_attention_qkv(
                 qkv, num_heads=heads, scale=scale,
-                dropout_rate=self.attn_drop if self.training else 0.0)
+                dropout_rate=self.attn_drop if self.training else 0.0,
+                generator=generator, dropout_form=self.attn_dropout_form)
             if self.quant and self.mode == "calib":
                 observe(self, "out_amax", absmax(out))
         y = self.proj(out, out_dtype=self.dtype) if self.quant \
@@ -425,6 +430,7 @@ class Block(nn.Module):
                  qkv_bias: bool = True, qk_scale=None,
                  init_values: float = 0.0, norm_eps: float = 1e-6,
                  drop: float = 0.0, attn_drop: float = 0.0,
+                 attn_dropout_form: str = "rng",
                  drop_path: float = 0.0, dtype=torch.float32,
                  param_dtype=None, quant: bool = False,
                  quant_mode: str = "dynamic", fused_w8a8: bool = False,
@@ -447,7 +453,9 @@ class Block(nn.Module):
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
                               qk_scale=qk_scale, dtype=dtype,
                               param_dtype=param_dtype, attn_drop=attn_drop,
-                              proj_drop=drop, quant=quant,
+                              proj_drop=drop,
+                              attn_dropout_form=attn_dropout_form,
+                              quant=quant,
                               quant_mode=quant_mode, fused_w8a8=fused_w8a8,
                               qkv_i8=qkv_i8, device=device)
         self.norm2 = norm()

@@ -18,8 +18,12 @@ require grad.  In ``train()`` mode the model applies the position and
 head dropout (``drop_rate``, ``fc_drop_rate``), the blocks' proj/MLP
 dropout (``drop_rate``) and stochastic depth spread as
 ``linspace(0, drop_path_rate, depth)`` over the blocks, drawing from the
-``generator`` given to ``forward``.  Attention dropout and gradient
-checkpointing (``remat``) are not ported and raise.
+``generator`` given to ``forward``, and the attention dropout
+(``attn_drop_rate``, kernels C4) in ``attn_dropout_form``: 'rng' (the TPU
+program's default: the kernels draw Philox bits from a seed) or 'mask' (an
+int8 keep mask drawn beside them; the JAX package's
+SIMPLE_TAD_DROPOUT_MASK).  Gradient checkpointing (``remat``) is not
+ported and raises.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from simple_tad_tpu_torch.models.layers import (Block, LayerNormFp32, Linear,
                                                 PatchEmbed,
                                                 check_static_options, dropout,
                                                 sincos_pos_embed)
+from simple_tad_tpu_torch.ops.attention import DROPOUT_FORMS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +59,9 @@ class ViTConfig:
     fc_drop_rate: float = 0.0
     drop_rate: float = 0.0
     attn_drop_rate: float = 0.0
+    # the attention dropout's keep source: 'rng' (Philox bits drawn inside
+    # the kernels from a seed) or 'mask' (an int8 keep mask in memory)
+    attn_dropout_form: str = "rng"
     drop_path_rate: float = 0.0
     init_values: float = 0.0
     init_scale: float = 0.001
@@ -96,6 +104,10 @@ class VisionTransformer(nn.Module):
                 "trunk variants)")
         if cfg.final_reduction not in ("fc_norm", "cls", "none"):
             raise ValueError(f"unknown final_reduction {cfg.final_reduction!r}")
+        if cfg.attn_dropout_form not in DROPOUT_FORMS:
+            raise ValueError(f"unknown attn_dropout_form "
+                             f"{cfg.attn_dropout_form!r}; expected one of "
+                             f"{DROPOUT_FORMS}")
         if cfg.remat:
             raise NotImplementedError(
                 "gradient checkpointing (--use_checkpoint) is not ported yet "
@@ -119,7 +131,9 @@ class VisionTransformer(nn.Module):
             Block(cfg.embed_dim, cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
                   qkv_bias=cfg.qkv_bias, qk_scale=cfg.qk_scale,
                   init_values=cfg.init_values, drop=cfg.drop_rate,
-                  attn_drop=cfg.attn_drop_rate, drop_path=float(rate),
+                  attn_drop=cfg.attn_drop_rate,
+                  attn_dropout_form=cfg.attn_dropout_form,
+                  drop_path=float(rate),
                   dtype=dt, param_dtype=pdt, quant=cfg.quant,
                   quant_mode=cfg.quant_mode, fused_w8a8=cfg.fused_w8a8,
                   fused_mlp=cfg.fused_mlp, qkv_i8=cfg.qkv_i8, device=device)

@@ -36,18 +36,34 @@ separate operands (D2) where ``i8_storage_attn_sep_supported`` holds,
 else B3 on separate operands (flash_attention_q8) where the TPU's
 flash_attention takes the padded head dim, else the float fallback.
 
-Attention dropout (the JAX package's kernels C4) is not ported: callers
-pass a dropout rate only in training, and a positive one raises.
+Attention dropout (port of the JAX dispatch's dropout branch,
+ops/attention.py:248-310 there): callers pass a positive ``dropout_rate``
+only in training, with the ``generator`` the keep bits are drawn from.
+The JAX package takes dropout on its (B*H, N, Dh) path, never the packed
+one; the port's kernels C4 (ops/flash_attention.py:flash_attention_drop)
+read q, k and v in place, the packed qkv as three column views.
+``dropout_form`` is the JAX package's environment knob
+SIMPLE_TAD_DROPOUT_MASK made an argument: 'rng' (the TPU program's
+default) draws a 2-word seed on the generator's device and the kernels
+draw Philox bits from it, 'mask' draws an int8 (B, H, N, N) keep mask
+(``make_dropout_mask``) that the kernels read.  Beyond the TPU kernels'
+single-pass cap (N > 4096) both take the JAX package's route: plain
+attention with the mask form.  With no dropout nothing changes and the
+generator is not advanced.
 """
 
 from __future__ import annotations
 
 import torch
 
-from simple_tad_tpu_torch.ops.flash_attention import (
-    MAX_HEAD_DIM, flash_attention, flash_attention_i8d, flash_attention_qkv,
-    flash_attention_qkv_i8d)
+# dropout_rng_thresh (the Philox form's keep threshold, a copy of the JAX
+# package's _drop_rng_thresh) is re-exported beside the dispatch
+from simple_tad_tpu_torch.ops.flash_attention import (  # noqa: F401
+    MAX_HEAD_DIM, dropout_rng_thresh, flash_attention, flash_attention_drop,
+    flash_attention_i8d, flash_attention_qkv, flash_attention_qkv_i8d)
 from simple_tad_tpu_torch.ops.ln import quant_scale
+
+DROPOUT_FORMS = ("rng", "mask")
 
 # the TPU kernels' single-pass sequence cap (simple_tad_tpu/ops/
 # flash_attention.py:MAX_SINGLE_PASS_N): beyond it the JAX package's
@@ -147,28 +163,91 @@ def static_attention_sep_route(N: int, C: int, num_heads: int,
     return "q8" if sep_q8_attn_supported(N, C, num_heads) else "float"
 
 
-def _no_dropout(dropout_rate: float):
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout needs the dropout attention kernels C4, not "
-            "ported yet (ROADMAP.md queue 2)")
+def _draw_device(generator, device):
+    if device is not None:
+        return device
+    return generator.device if generator is not None else "cpu"
+
+
+def make_dropout_mask(generator, rate: float, B: int, H: int, N: int,
+                      device=None):
+    """int8 (B, H, N, N) keep mask, 1 with probability 1 - rate, drawn from
+    ``generator`` on ``device`` (by default the generator's): the mask
+    form's source, as the JAX package's make_dropout_mask draws it outside
+    any kernel."""
+    return torch.empty((B, H, N, N), dtype=torch.int8,
+                       device=_draw_device(generator, device)).bernoulli_(
+                           1.0 - rate, generator=generator)
+
+
+def draw_dropout_seed(generator, device=None):
+    """The RNG form's source: 2 int32 words drawn from ``generator`` on
+    ``device`` (by default the generator's), left there (no host
+    synchronisation)."""
+    return torch.randint(-2 ** 31, 2 ** 31, (2,), generator=generator,
+                         device=_draw_device(generator, device),
+                         dtype=torch.int64).to(torch.int32)
+
+
+def naive_attention_dropout(q, k, v, num_heads: int, scale: float,
+                            rate: float, mask):
+    """The JAX package's route beyond the single-pass cap
+    (ops/attention.py:_naive_attention with a dropout mask): (q * scale)
+    k^T in fp32, softmax, times mask / (1 - rate), rounded to q's dtype,
+    times v -> (B, N, C) in q's dtype; plain PyTorch under autograd."""
+    dt = q.dtype
+    qh, kh, vh = (t.view(*t.shape[:2], num_heads, -1).transpose(1, 2)
+                  for t in (q, k, v))
+    logits = torch.matmul((qh * scale).float(), kh.float().transpose(-1, -2))
+    probs = torch.softmax(logits, dim=-1) * (mask.float() / (1.0 - rate))
+    o = torch.matmul(probs.to(dt).float(), vh.float()).to(dt)
+    return o.transpose(1, 2).reshape(q.shape)
+
+
+def _dropout_attention(q, k, v, num_heads: int, scale: float, rate: float,
+                       generator, form: str):
+    """Attention with dropout on (B, N, C) operands, the keep source drawn
+    from ``generator`` on q's device."""
+    if form not in DROPOUT_FORMS:
+        raise ValueError(f"unknown dropout form {form!r}; expected one of "
+                         f"{DROPOUT_FORMS}")
+    B, N, _ = q.shape
+    if N > MAX_SINGLE_PASS_N:
+        mask = make_dropout_mask(generator, rate, B, num_heads, N, q.device)
+        return naive_attention_dropout(q, k, v, num_heads, scale, rate, mask)
+    if form == "rng":
+        return flash_attention_drop(q, k, v, num_heads, scale, rate,
+                                    seed=draw_dropout_seed(generator,
+                                                           q.device))
+    return flash_attention_drop(
+        q, k, v, num_heads, scale, rate,
+        mask=make_dropout_mask(generator, rate, B, num_heads, N, q.device))
 
 
 def dot_product_attention_qkv(qkv, *, num_heads: int, scale: float,
-                              dropout_rate: float = 0.0):
+                              dropout_rate: float = 0.0, generator=None,
+                              dropout_form: str = "rng"):
     """qkv: (B, N, 3C) in [q | k | v] column order -> (B, N, C).
-    ``dropout_rate``: the attention dropout in effect (0 outside training)."""
-    _no_dropout(dropout_rate)
+    ``dropout_rate``: the attention dropout in effect (0 outside training),
+    its keep bits drawn from ``generator`` in ``dropout_form``."""
+    if dropout_rate > 0.0:
+        B, N, C3 = qkv.shape
+        q, k, v = qkv.view(B, N, 3, C3 // 3).unbind(2)
+        return _dropout_attention(q, k, v, num_heads, scale, dropout_rate,
+                                  generator, dropout_form)
     return flash_attention_qkv(qkv, num_heads=num_heads, scale=scale)
 
 
 def dot_product_attention(q, k, v, *, num_heads: int, scale: float,
-                          dropout_rate: float = 0.0):
+                          dropout_rate: float = 0.0, generator=None,
+                          dropout_form: str = "rng"):
     """Separate (B, N, C) q, k, v (each may be a strided column view) ->
-    (B, N, C); trains through kernels C3 where the operands require grad.
-    ``dropout_rate``: the attention dropout in effect (a positive one
-    raises: C4)."""
-    _no_dropout(dropout_rate)
+    (B, N, C); trains through kernels C3 where the operands require grad,
+    and through C4 with a positive ``dropout_rate`` (drawn from
+    ``generator`` in ``dropout_form``)."""
+    if dropout_rate > 0.0:
+        return _dropout_attention(q, k, v, num_heads, scale, dropout_rate,
+                                  generator, dropout_form)
     return flash_attention(q, k, v, num_heads=num_heads, scale=scale)
 
 

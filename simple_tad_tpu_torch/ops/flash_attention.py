@@ -74,6 +74,28 @@ q, k, v whose normalised fp32 result is written as int8 codes against
 where the int8-storage kernel is opted out of or cannot serve the geometry
 (ops/attention.py).
 
+Attention dropout in training (kernels C4; port of the JAX package's
+_flash_core_drop and _flash_core_drop_rng, reached from its
+flash_attention with ``dropout_mask`` or ``dropout_seed``):
+``flash_attention_drop`` goes through ``FlashAttentionDrop``, whose forward
+is ``flash_attention_drop_fwd`` (C4-fwd, TPU kernels _fwd_kernel_drop and
+_fwd_kernel_drop_rng: C3-fwd that also applies the keep factor) and whose
+backward is ``flash_attention_drop_bwd`` (C4-bwd, TPU kernels
+_bwd_dq_kernel_drop + _bwd_dkv_kernel_drop and _bwd_merged_kernel_drop_rng
+with its split forms: C3-bwd with the keep factor).  The keep source is
+exactly one of ``mask`` (int8 (B, H, N, N), 1 = keep, as the JAX
+package's make_dropout_mask draws it) and ``seed`` (2 int32 words on the
+device, from which the kernels draw Philox4x32-10 bits themselves:
+csrc/philox.cuh, copied exactly by ``philox4x32_plain`` and
+``dropout_keep_plain``).  Softmax, then dropout, then PV: the denominator
+is summed over the unrounded fp32 probabilities before dropout, and the PV
+operand is p * keep / (1 - rate) rounded once to the v dtype.  The TPU's
+hardware PRNG bits cannot be reproduced, so the seed form is held to the
+JAX mask kernels fed ``dropout_keep_plain``'s mask.  q, k and v are
+(B, N, C) views with a stride pair each, as C3 takes them (the ViT's packed
+qkv is read in place).  It saves (q, k, v, mask or seed, out, lse), as
+_flash_core_drop_fwd and _flash_core_drop_rng_fwd do.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  ``LAUNCHES`` counts launches of the bf16/fp32
 inference kernel on the packed qkv, ``SEP_LAUNCHES`` on separate operands,
@@ -82,7 +104,10 @@ inference kernel on the packed qkv, ``SEP_LAUNCHES`` on separate operands,
 ``I8_SEP_LAUNCHES`` on separate operands, ``FWD_LSE_LAUNCHES`` and
 ``SEP_FWD_LSE_LAUNCHES`` those of the training forward (packed, separate)
 and ``BWD_LAUNCHES`` and ``SEP_BWD_LAUNCHES`` calls of the training
-backward (each call launches two kernels: dk/dv, then dq).
+backward (each call launches two kernels: dk/dv, then dq);
+``DROP_FWD_LAUNCHES`` and ``DROP_BWD_LAUNCHES`` those of the dropout
+forward and backward with a mask, ``DROP_RNG_FWD_LAUNCHES`` and
+``DROP_RNG_BWD_LAUNCHES`` with a seed.
 """
 
 from __future__ import annotations
@@ -105,6 +130,14 @@ FWD_LSE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 SEP_FWD_LSE_LAUNCHES = 0
 SEP_BWD_LAUNCHES = 0
+DROP_FWD_LAUNCHES = 0
+DROP_BWD_LAUNCHES = 0
+DROP_RNG_FWD_LAUNCHES = 0
+DROP_RNG_BWD_LAUNCHES = 0
+# Philox4x32-10's multipliers and Weyl constants (csrc/philox.cuh)
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
 
 
 def _split_heads(qkv, num_heads: int):
@@ -589,6 +622,277 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         return (*flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
                                      ctx.num_heads, ctx.scale), None, None)
+
+
+def dropout_rng_thresh(rate: float) -> int:
+    """Keep a Philox word iff it is at least this (copy of
+    simple_tad_tpu/ops/flash_attention.py:_drop_rng_thresh)."""
+    return min(int(rate * 2 ** 32), 2 ** 32 - 1)
+
+
+def _mulhilo(a, m: int):
+    """(hi, lo) 32-bit words of the 64-bit product of uint32 values ``a``
+    (int64 tensor) and ``m``: a 32 x 32-bit product overflows int64, so
+    ``a`` is split into 16-bit halves."""
+    t1 = (a & 0xFFFF) * m                       # < 2^48
+    t2 = (a >> 16) * m + (t1 >> 16)             # < 2^48 + 2^32
+    return t2 >> 16, ((t2 & 0xFFFF) << 16) | (t1 & 0xFFFF)
+
+
+def philox4x32_plain(counter, key):
+    """Philox4x32-10 (csrc/philox.cuh) in PyTorch integer arithmetic.
+
+    counter (..., 4) and key (..., 2) integer tensors of 32-bit words (an
+    int32 word is read as its bits), broadcast together -> (..., 4) int64
+    words in [0, 2^32)."""
+    c = [t.to(torch.int64) & _U32 for t in counter.unbind(-1)]
+    k0, k1 = (t.to(torch.int64) & _U32 for t in key.unbind(-1))
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c[0], PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c[2], PHILOX_M[1])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+        k0 = (k0 + PHILOX_W[0]) & _U32
+        k1 = (k1 + PHILOX_W[1]) & _U32
+    return torch.stack(torch.broadcast_tensors(*c), -1)
+
+
+def dropout_keep_plain(seed, B: int, H: int, N: int, rate: float):
+    """The keep mask the Philox kernels draw from ``seed`` (2 int32 words)
+    -> int8 (B, H, N, N) contiguous on seed's device, 1 = keep.
+
+    The map of csrc/philox.cuh: element (b, h, query q, key k) is word
+    2 * ((q >> 3) & 1) + ((k >> 3) & 1) of Philox4x32-10 at counter
+    (k & ~8, q & ~8, b * H + h, 0) with key (seed[0], seed[1]), kept iff
+    it is at least ``dropout_rng_thresh(rate)``."""
+    dev = seed.device
+    G = -(-N // 16)                              # 16-row groups
+    # the row (column) indices with bit 3 clear
+    lo = (torch.arange(G, device=dev)[:, None] * 16
+          + torch.arange(8, device=dev)).reshape(-1)
+    thresh = dropout_rng_thresh(rate)
+    out = torch.empty((B * H, 16 * G, 16 * G), dtype=torch.int8, device=dev)
+    step = max(1, 2 ** 22 // lo.numel() ** 2)
+    for b0 in range(0, B * H, step):
+        bh = torch.arange(b0, min(b0 + step, B * H), device=dev)
+        counter = torch.stack(torch.broadcast_tensors(
+            lo[None, None, :], lo[None, :, None], bh[:, None, None],
+            torch.zeros((), dtype=torch.int64, device=dev)), -1)
+        keep = philox4x32_plain(counter, seed.reshape(2)) >= thresh
+        # (bh, q group, q low, k group, k low, q bit 3, k bit 3)
+        keep = keep.view(-1, G, 8, G, 8, 2, 2).permute(0, 1, 5, 2, 3, 6, 4)
+        out[b0:b0 + len(bh)] = keep.reshape(-1, 16 * G, 16 * G)
+    return out[:, :N, :N].reshape(B, H, N, N).contiguous()
+
+
+def _keep_mask(mask, seed, B: int, H: int, N: int, rate: float):
+    """The int8 keep mask of the plain versions: ``mask`` as given, or the
+    Philox bits of ``seed``."""
+    if (mask is None) == (seed is None):
+        raise ValueError("dropout attention takes exactly one of mask= and "
+                         "seed=")
+    return mask if mask is not None else dropout_keep_plain(seed, B, H, N,
+                                                            rate)
+
+
+def _drop_attend_plain(q, k, v, keep, scale: float, rate: float):
+    """q, k, v (B, H, N, Dh), keep int8 (B, H, N, N) -> (out (B, H, N, Dh)
+    in q's dtype, lse (B, H, N) base 2).  The JAX drop forward's order:
+    l = sum of the unrounded p = exp2(s - m) before dropout; the PV
+    operand p * keep / (1 - rate) rounded to the v dtype; out = (pd v) / l;
+    lse = m + log2 l.  m is the row maximum rounded up to an integer, as
+    the kernel's: power-of-two shifts commute with both roundings."""
+    dt, acc = q.dtype, _acc(q.dtype)
+    qs = (q.to(acc) * (scale * LOG2E)).to(dt)
+    s = torch.matmul(qs.to(acc), k.to(acc).transpose(-1, -2))
+    m = torch.ceil(s.amax(dim=-1, keepdim=True))
+    p = s.sub_(m).exp2_()           # in place: N^2 temporaries are large
+    denom = p.sum(dim=-1, keepdim=True)
+    pd = keep.to(acc).mul_(1.0 / (1.0 - rate)).mul_(p).to(v.dtype)
+    del s, p
+    o = torch.matmul(pd.to(acc), v.to(acc)) / denom
+    return o.to(dt), (m + torch.log2(denom))[..., 0]
+
+
+def flash_attention_drop_fwd_plain(q, k, v, num_heads: int, scale: float,
+                                   rate: float, *, mask=None, seed=None):
+    """The dropout training forward on separate (B, N, C) operands -> (out
+    (B, N, C) in q's dtype, lse (B, H, N) base 2); the keep source is
+    exactly one of ``mask`` (int8 (B, H, N, N)) and ``seed`` (2 int32
+    words, the kernels' Philox bits)."""
+    B, N, _ = q.shape
+    keep = _keep_mask(mask, seed, B, num_heads, N, rate)
+    heads = (_heads(t, num_heads) for t in (q, k, v))
+    o, lse = _drop_attend_plain(*heads, keep, scale, rate)
+    return _merge_heads(o), lse
+
+
+def flash_attention_drop_bwd_plain(q, k, v, out, lse, dout, num_heads: int,
+                                   scale: float, rate: float, *, mask=None,
+                                   seed=None):
+    """The dropout training backward -> (dq, dk, dv), each (B, N, C) in q's
+    dtype: with f = keep / (1 - rate), s = bf16(q * scale * log2 e) . k,
+    p = exp2(s - lse); dv = bf16(p f)^T dout; dp = (dout v^T) f;
+    ds = p (dp - delta), delta = rowsum(dout * out); dk = bf16(ds)^T q *
+    scale and dq = bf16(ds) k * scale (q unscaled): the arithmetic of the
+    TPU kernels _bwd_dq_kernel_drop and _bwd_dkv_kernel_drop."""
+    B, N, _ = q.shape
+    keep = _keep_mask(mask, seed, B, num_heads, N, rate)
+    dt, acc = q.dtype, _acc(q.dtype)
+    q, k, v = (_heads(t, num_heads).to(acc) for t in (q, k, v))
+    do = _heads(dout, num_heads).to(acc)
+    delta = attention_delta(out, dout, num_heads)[..., None]
+    qs = (q * (scale * LOG2E)).to(dt).to(acc)
+    p = torch.matmul(qs, k.transpose(-1, -2)).sub_(
+        lse.to(acc)[..., None]).exp2_()
+    f = keep.to(acc).mul_(1.0 / (1.0 - rate))
+    dv = torch.matmul((p * f).to(dt).to(acc).transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2)).mul_(f)
+    del f
+    ds = dp.sub_(delta).mul_(p).to(dt).to(acc)
+    del dp, p
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    dq = torch.matmul(ds, k) * scale
+    return tuple(_merge_heads(g).to(dt) for g in (dq, dk, dv))
+
+
+def _check_drop(name: str, q, num_heads: int, rate: float, mask, seed):
+    """The dropout rate and the keep source of a CUDA launch."""
+    B, N, _ = q.shape
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"{name}: dropout rate {rate} outside (0, 1)")
+    if (mask is None) == (seed is None):
+        raise ValueError(f"{name}: exactly one of mask= and seed=")
+    if mask is not None:
+        if mask.dtype != torch.int8 or mask.shape != (B, num_heads, N, N) \
+                or mask.device != q.device or mask.stride(3) != 1 \
+                or mask.stride(2) != N:
+            raise ValueError(f"{name}: mask must be int8 ({B}, {num_heads}, "
+                             f"{N}, {N}) on q's device, its (N, N) rows "
+                             f"contiguous")
+    elif seed.dtype != torch.int32 or seed.numel() != 2 \
+            or seed.device != q.device or not seed.is_contiguous():
+        raise ValueError(f"{name}: seed must be 2 contiguous int32 words on "
+                         f"q's device")
+
+
+def _keep_args(rate: float, mask, seed):
+    """The keep-source arguments of the C entry points: mask, its (batch,
+    head) strides, seed, threshold, 1 / keep."""
+    inv_keep = 1.0 / (1.0 - rate)
+    if mask is not None:
+        return (mask.data_ptr(), mask.stride(0), mask.stride(1), None, 0,
+                inv_keep)
+    return None, 0, 0, seed.data_ptr(), dropout_rng_thresh(rate), inv_keep
+
+
+def flash_attention_drop_fwd(q, k, v, num_heads: int, scale: float,
+                             rate: float, *, mask=None, seed=None):
+    """The dropout training forward (kernel C4-fwd): q, k, v as
+    ``flash_attention``, dropout ``rate`` in (0, 1), the keep source
+    exactly one of ``mask`` (int8 (B, H, N, N) on the device, 1 = keep)
+    and ``seed`` (2 int32 words on the device) -> (out (B, N, C) contiguous
+    in q's dtype, lse (B, H, N) fp32 base 2)."""
+    if q.device.type == "cpu":
+        return flash_attention_drop_fwd_plain(q, k, v, num_heads, scale,
+                                              rate, mask=mask, seed=seed)
+    name = "flash_attention_drop_fwd"
+    B, N, C, D = _check_sep_float(name, (q, k, v), num_heads, scale)
+    _check_drop(name, q, num_heads, rate, mask, seed)
+    out = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, num_heads, N), dtype=torch.float32,
+                      device=q.device)
+    if B == 0 or N == 0:
+        return out, lse
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.stt_attention_fwd_lse_drop(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, N, num_heads, D, *_strides(q), *_strides(k),
+        *_strides(v), N * C, C, float(scale * LOG2E),
+        *_keep_args(rate, mask, seed), kbuild.dtype_code(q.dtype), stream)
+    kbuild.check(code, "attention_fwd_lse_drop")
+    global DROP_FWD_LAUNCHES, DROP_RNG_FWD_LAUNCHES
+    if mask is not None:
+        DROP_FWD_LAUNCHES += 1
+    else:
+        DROP_RNG_FWD_LAUNCHES += 1
+    return out, lse
+
+
+def flash_attention_drop_bwd(q, k, v, out, lse, dout, num_heads: int,
+                             scale: float, rate: float, *, mask=None,
+                             seed=None):
+    """The dropout training backward (kernel C4-bwd): q, k, v, rate and the
+    keep source as ``flash_attention_drop_fwd``, its out (B, N, C) and lse
+    (B, H, N) fp32, and dout (B, N, C) -> (dq, dk, dv), each (B, N, C)
+    contiguous in q's dtype; delta = rowsum(dout * out) is computed here."""
+    if q.device.type == "cpu":
+        return flash_attention_drop_bwd_plain(q, k, v, out, lse, dout,
+                                              num_heads, scale, rate,
+                                              mask=mask, seed=seed)
+    name = "flash_attention_drop_bwd"
+    B, N, C, D = _check_sep_float(name, (q, k, v), num_heads, scale)
+    _check_bwd_inputs(name, q, out, lse, dout, (B, N, C), num_heads)
+    _check_drop(name, q, num_heads, rate, mask, seed)
+    dq, dk, dv = torch.empty((3, B, N, C), dtype=q.dtype,
+                             device=q.device).unbind(0)
+    if B == 0 or N == 0:
+        return dq, dk, dv
+    delta = attention_delta(out, dout, num_heads)
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.stt_attention_bwd_drop(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, N, num_heads, D, *_strides(q), *_strides(k),
+        *_strides(v), N * C, C, N * C, C, float(scale * LOG2E), float(scale),
+        *_keep_args(rate, mask, seed), kbuild.dtype_code(q.dtype), stream)
+    kbuild.check(code, "attention_bwd_drop")
+    global DROP_BWD_LAUNCHES, DROP_RNG_BWD_LAUNCHES
+    if mask is not None:
+        DROP_BWD_LAUNCHES += 1
+    else:
+        DROP_RNG_BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class FlashAttentionDrop(torch.autograd.Function):
+    """Training attention with dropout: forward C4-fwd, backward C4-bwd.
+    ``keep`` is the mask (``form`` 'mask') or the seed ('seed'); saves
+    (q, k, v, keep, out, lse), as _flash_core_drop_fwd and
+    _flash_core_drop_rng_fwd do."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, keep, num_heads: int, scale: float,
+                rate: float, form: str):
+        out, lse = flash_attention_drop_fwd(q, k, v, num_heads, scale, rate,
+                                            **{form: keep})
+        ctx.save_for_backward(q, k, v, keep, out, lse)
+        ctx.num_heads, ctx.scale, ctx.rate, ctx.form = (num_heads, scale,
+                                                        rate, form)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, keep, out, lse = ctx.saved_tensors
+        grads = flash_attention_drop_bwd(q, k, v, out, lse, dout.contiguous(),
+                                         ctx.num_heads, ctx.scale, ctx.rate,
+                                         **{ctx.form: keep})
+        return (*grads, None, None, None, None, None)
+
+
+def flash_attention_drop(q, k, v, num_heads: int, scale: float, rate: float,
+                         *, mask=None, seed=None):
+    """Non-causal attention with dropout on the probabilities (kernels C4):
+    q, k, v as ``flash_attention``, dropout ``rate`` in (0, 1) and exactly
+    one keep source, ``mask`` (int8 (B, H, N, N), 1 = keep) or ``seed``
+    (2 int32 words, the kernels' Philox bits) -> (B, N, C) in q's dtype."""
+    if (mask is None) == (seed is None):
+        raise ValueError("flash_attention_drop: exactly one of mask= and "
+                         "seed=")
+    form, keep = ("mask", mask) if mask is not None else ("seed", seed)
+    return FlashAttentionDrop.apply(q, k, v, keep, num_heads, scale, rate,
+                                    form)
 
 
 def _attend_i8_plain(q, k, v, amax, scale: float):

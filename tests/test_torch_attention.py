@@ -67,9 +67,11 @@ def test_dispatch_cpu_takes_plain_path():
 
 
 def test_dispatch_rejects_dropout_and_other_devices():
+    """A positive dropout rate needs a known keep-source form (the dropout
+    kernels C4: tests/test_torch_attn_dropout.py); other devices raise."""
     qkv = torch.from_numpy(_qkv(32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout form"):
         dot_product_attention_qkv(qkv, num_heads=H, scale=SCALE,
-                                  dropout_rate=0.1)
+                                  dropout_rate=0.1, dropout_form="bits")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_qkv(qkv.to("meta"), H, SCALE)

@@ -796,3 +796,192 @@ def test_tiny_int8_iv2_fused_forward_goes_through_kernels(qkv_i8, fused_rmsq,
         want["rmsq"] = 8 if qkv_i8 else 4
     assert got == want, got
     assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+
+
+# Attention dropout (C4): C3 with a keep source, the int8 mask or Philox
+# bits drawn in the kernel from a seed; v the strided column block of a
+# (B, N, 3C) tensor; C1's and C2's bounds.  Both forms compute the same
+# function of the same keep bits, so the seed form equals the mask form fed
+# dropout_keep_plain's mask bit for bit.
+DROP_CASES = [(2, 392, 12, 64), (2, 200, 2, 64), (3, 97, 4, 80),
+              (1, 130, 3, 128), (2, 33, 4, 32)]
+DROP_RATE = 0.1
+
+
+def _keep_source(form, b, heads, n, seed, device):
+    """{'mask': int8 (b, heads, n, n)} or {'seed': 2 int32 words}."""
+    words = torch.tensor([seed * 7919 + 1, -seed - 3], dtype=torch.int32,
+                         device=device)
+    if form == "seed":
+        return {"seed": words}
+    return {"mask": fa.dropout_keep_plain(words, b, heads, n, DROP_RATE)}
+
+
+def _drop_counts():
+    return (fa.DROP_FWD_LAUNCHES, fa.DROP_BWD_LAUNCHES,
+            fa.DROP_RNG_FWD_LAUNCHES, fa.DROP_RNG_BWD_LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["mask", "seed"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,n,heads,d", DROP_CASES)
+def test_attention_drop_fwd_kernel_matches_plain(b, n, heads, d, dtype, form,
+                                                 cuda):
+    q, k, v, _ = _sep_operands(b, n, heads, d, 40, cuda, dtype)
+    src = _keep_source(form, b, heads, n, 41, cuda)
+    before = _drop_counts()
+    out, lse = fa.flash_attention_drop_fwd(q, k, v, heads, d ** -0.5,
+                                           DROP_RATE, **src)
+    torch.cuda.synchronize()
+    moved = tuple(a - x for a, x in zip(_drop_counts(), before))
+    assert moved == ((1, 0, 0, 0) if form == "mask" else (0, 0, 1, 0))
+    assert out.dtype == dtype and lse.shape == (b, heads, n)
+    want_out, want_lse = fa.flash_attention_drop_fwd_plain(
+        q, k, v, heads, d ** -0.5, DROP_RATE, **src)
+    torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["mask", "seed"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,n,heads,d", DROP_CASES)
+def test_attention_drop_bwd_kernel_matches_plain(b, n, heads, d, dtype, form,
+                                                 cuda):
+    scale = d ** -0.5
+    q, k, v, _ = _sep_operands(b, n, heads, d, 42, cuda, dtype)
+    dout = _randn((b, n, heads * d), 43, cuda).to(dtype)
+    src = _keep_source(form, b, heads, n, 44, cuda)
+    out, lse = fa.flash_attention_drop_fwd_plain(q, k, v, heads, scale,
+                                                 DROP_RATE, **src)
+    before = _drop_counts()
+    got = fa.flash_attention_drop_bwd(q, k, v, out, lse, dout, heads, scale,
+                                      DROP_RATE, **src)
+    torch.cuda.synchronize()
+    moved = tuple(a - x for a, x in zip(_drop_counts(), before))
+    assert moved == ((0, 1, 0, 0) if form == "mask" else (0, 0, 0, 1))
+    want = fa.flash_attention_drop_bwd_plain(q, k, v, out, lse, dout, heads,
+                                             scale, DROP_RATE, **src)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == q.shape and g.is_contiguous()
+        assert torch.isfinite(g.float()).all(), name
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype],
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("b,n,heads,d", DROP_CASES[:3])
+def test_attention_drop_seed_form_is_the_mask_form_of_its_bits(b, n, heads,
+                                                               d, dtype,
+                                                               cuda):
+    """The Philox kernels draw exactly dropout_keep_plain's bits: fed that
+    mask, the mask kernels give the same out, lse and gradients, bit for
+    bit."""
+    scale = d ** -0.5
+    q, k, v, _ = _sep_operands(b, n, heads, d, 45, cuda, dtype)
+    dout = _randn((b, n, heads * d), 46, cuda).to(dtype)
+    seed = _keep_source("seed", b, heads, n, 47, cuda)["seed"]
+    mask = fa.dropout_keep_plain(seed, b, heads, n, DROP_RATE)
+    fwd_s = fa.flash_attention_drop_fwd(q, k, v, heads, scale, DROP_RATE,
+                                        seed=seed)
+    fwd_m = fa.flash_attention_drop_fwd(q, k, v, heads, scale, DROP_RATE,
+                                        mask=mask)
+    assert all(torch.equal(a, b_) for a, b_ in zip(fwd_s, fwd_m))
+    out, lse = fwd_s
+    bwd_s = fa.flash_attention_drop_bwd(q, k, v, out, lse, dout, heads,
+                                        scale, DROP_RATE, seed=seed)
+    bwd_m = fa.flash_attention_drop_bwd(q, k, v, out, lse, dout, heads,
+                                        scale, DROP_RATE, mask=mask)
+    assert all(torch.equal(a, b_) for a, b_ in zip(bwd_s, bwd_m))
+
+
+def _probe_keep_mask(b, heads, n, d, rate, seed, dtype, device):
+    """The keep mask of the seed-form forward, read off its output: with
+    q = k = 0 every probability is 1 and l = N, and with v one-hot
+    (v[key, c] = 1 for key = shift + c) output column c of row q is
+    nonzero exactly where (q, shift + c) is kept."""
+    C = heads * d
+    z = torch.zeros((b, n, C), dtype=dtype, device=device)
+    mask = torch.zeros((b, heads, n, n), dtype=torch.int8, device=device)
+    for shift in range(0, n, d):
+        w = min(d, n - shift)
+        v = torch.zeros((b, n, heads, d), dtype=dtype, device=device)
+        c = torch.arange(w, device=device)
+        v[:, shift + c, :, c] = 1
+        out, _ = fa.flash_attention_drop_fwd(z, z, v.view(b, n, C), heads,
+                                             d ** -0.5, rate, seed=seed)
+        got = out.view(b, n, heads, d)[..., :w] != 0
+        mask[..., shift:shift + w] = got.permute(0, 2, 1, 3).to(torch.int8)
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_attention_drop_rng_kernel_bits_equal_plain(rate, dtype, cuda):
+    """The keep bits the Philox forward draws (q-tiles and key tiles past
+    the first, a ragged tail) equal dropout_keep_plain's, bit for bit."""
+    b, heads, n, d = 2, 3, 200, 64
+    seed = torch.tensor([12345, -678], dtype=torch.int32, device=cuda)
+    got = _probe_keep_mask(b, heads, n, d, rate, seed, dtype, cuda)
+    want = fa.dropout_keep_plain(seed, b, heads, n, rate)
+    assert torch.equal(got, want)
+    assert abs(1 - got.float().mean().item() - rate) < 0.02
+
+
+@pytest.mark.cuda
+def test_attention_drop_wrappers_reject_bad_keep_sources(cuda):
+    q = torch.zeros((1, 8, 128), device=cuda, dtype=torch.bfloat16)
+    seed = torch.zeros(2, dtype=torch.int32, device=cuda)
+    mask = torch.ones((1, 2, 8, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="exactly one"):
+        fa.flash_attention_drop_fwd(q, q, q, 2, 0.125, 0.1, mask=mask,
+                                    seed=seed)
+    with pytest.raises(ValueError, match="exactly one"):
+        fa.flash_attention_drop_fwd(q, q, q, 2, 0.125, 0.1)
+    with pytest.raises(ValueError, match="mask"):
+        fa.flash_attention_drop_fwd(q, q, q, 2, 0.125, 0.1,
+                                    mask=mask.float())
+    with pytest.raises(ValueError, match="seed"):
+        fa.flash_attention_drop_fwd(q, q, q, 2, 0.125, 0.1,
+                                    seed=seed.long())
+    with pytest.raises(ValueError, match="rate"):
+        fa.flash_attention_drop_fwd(q, q, q, 2, 0.125, 1.0, seed=seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["rng", "mask"])
+def test_tiny_vit_train_step_with_attn_dropout_goes_through_kernels(form,
+                                                                    cuda):
+    """One train step of a 2-layer ViT-S with attention dropout runs the
+    dropout forward and backward once per block in its form, and C1 and C2
+    never; gradients reach the fp32 masters."""
+    from simple_tad_tpu_torch.models import create_model
+    from simple_tad_tpu_torch.train.losses import create_criterion
+    from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
+    from simple_tad_tpu_torch.train.steps import (TrainState,
+                                                  make_finetune_train_step)
+    model = create_model("vit_small_patch16_224", device=cuda,
+                         generator=torch.Generator().manual_seed(0),
+                         img_size=32, depth=2, dtype=torch.bfloat16,
+                         param_dtype=torch.float32, attn_drop_rate=0.1,
+                         attn_dropout_form=form)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    state = TrainState.create(model, FinetuneOptimizer(
+        dict(model.named_parameters()), lr_schedule=1e-3, layer_decay=0.75,
+        depth=2), gen)
+    step = make_finetune_train_step(create_criterion("crossentropy"))
+    batch = {"video": _randn((2, 16, 32, 32, 3), 48, cuda).bfloat16(),
+             "label": torch.tensor([0, 1], device=cuda)}
+    counts = (fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES, *_drop_counts())
+    metrics, logits = step(state, batch)
+    torch.cuda.synchronize()
+    after = (fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES, *_drop_counts())
+    moved = tuple(a - b for a, b in zip(after, counts))
+    assert moved == ((0, 0, 2, 2, 0, 0) if form == "mask"
+                     else (0, 0, 0, 0, 2, 2))
+    assert torch.isfinite(metrics["loss"]) and logits.shape == (2, 2)
+    assert all(p.grad is not None for p in model.parameters())

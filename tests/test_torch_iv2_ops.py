@@ -36,6 +36,7 @@ from simple_tad_tpu_torch.ops import flash_attention as fa
 from simple_tad_tpu_torch.ops import ln
 from simple_tad_tpu_torch.ops.attention import (dot_product_attention,
                                                 dot_product_attention_i8_sep,
+                                                draw_dropout_seed,
                                                 quantize_per_head)
 
 B, H = 2, 2
@@ -210,7 +211,7 @@ def test_i8_sep_dispatch_quantizes_per_head():
 def test_cpu_tensors_take_plain_versions():
     """On the CPU the wrappers run the plain versions and count no launch;
     the separate-operand attention trains through FlashAttention (the
-    plain C3) and refuses dropout."""
+    plain C3) and takes dropout through the plain C4."""
     (q, k, v), amax = _codes(40, 64, seed=5)
     x = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (3, 128)).astype(np.float32))
@@ -231,8 +232,17 @@ def test_cpu_tensors_take_plain_versions():
                        fa.flash_attention_plain(*(f.detach(),) * 3, H, 0.125))
     out.sum().backward()
     assert (fa.SEP_FWD_LSE_LAUNCHES, fa.SEP_BWD_LAUNCHES) == counts
-    with pytest.raises(NotImplementedError, match="C4"):
+    # dropout on separate operands takes C4's plain version (kernels C4
+    # are ported: it no longer raises); an unknown keep-source form raises
+    g = torch.Generator().manual_seed(7)
+    seed = draw_dropout_seed(torch.Generator().manual_seed(7))
+    assert torch.equal(
         dot_product_attention(f, f, f, num_heads=H, scale=0.1,
-                              dropout_rate=0.1)
+                              dropout_rate=0.1, generator=g),
+        fa.flash_attention_drop_fwd_plain(f, f, f, H, 0.1, 0.1,
+                                          seed=seed)[0])
+    with pytest.raises(ValueError, match="dropout form"):
+        dot_product_attention(f, f, f, num_heads=H, scale=0.1,
+                              dropout_rate=0.1, dropout_form="bits")
     with pytest.raises(ValueError, match="unsupported device"):
         ln.rmsnorm_quant(*(t.to("meta") for t in rq))

@@ -71,16 +71,30 @@ def test_finetune_cli_rejects_unported_options(full_root, tmp_path, extra,
 
 
 def test_attention_dropout_raises_in_training():
+    """Attention dropout no longer raises in training (kernels C4 are
+    ported): evaluation draws nothing, training draws the keep source from
+    the generator and changes the output.  The form is checked at
+    construction."""
     from simple_tad_tpu_torch.models import create_model
     model = create_model("vit_small_patch16_224", device="cpu", img_size=32,
-                         depth=1, all_frames=4, attn_drop_rate=0.1,
+                         depth=1, all_frames=4, attn_drop_rate=0.5,
                          param_dtype=torch.float32,
                          generator=torch.Generator().manual_seed(0))
-    x = torch.zeros(1, 4, 32, 32, 3)
+    x = torch.randn(1, 4, 32, 32, 3,
+                    generator=torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(2)
+    state = g.get_state()
     with torch.inference_mode():
-        model(x)                                  # eval: no dropout
-    with pytest.raises(NotImplementedError, match="C4"):
-        model.train()(x)
+        clean = model(x, generator=g)             # eval: no dropout
+    assert torch.equal(g.get_state(), state)
+    model.train()
+    with torch.no_grad():
+        dropped = model(x, generator=g)
+    assert not torch.equal(g.get_state(), state)
+    assert not torch.allclose(dropped, clean)
+    with pytest.raises(ValueError, match="attn_dropout_form"):
+        create_model("vit_small_patch16_224", device="cpu", img_size=32,
+                     depth=1, attn_drop_rate=0.1, attn_dropout_form="bits")
 
 
 def test_finetune_checkpoint_loads_into_fp32_training_model(tmp_path):
