@@ -168,7 +168,30 @@ Phases (any failure raises, so the exit code is non-zero):
      state and phase 6's control outside them; (iv) the batch-56
      FinetuneTrainer timing of phase 6 in TIMING_PROCESSES fresh processes
      (Philox form) and one (mask form), each first process with the step
-     breakdown and a profiler window.
+     breakdown and a profiler window;
+ 12. the static int8 ViT's two opt-in serving variants, kernels E1 (the
+     residual add + LayerNorm->int8 of the deferred-residual carry,
+     add_lnq) and E2 (int8-compute attention, int8_attn): (i) inside phase
+     2, E1 at ViT-B's (32 x 1568, 768) bf16, an fp32 tail and a C % 8 != 0
+     tail, its sum bit for bit, its codes equal to B1's of the stored sum
+     bit for bit and under B1's bounds against the plain version, with B1's
+     control and a gross one (the LayerNorm of the residual alone); E2 at
+     (32, 1568, 2304) H=12 and N = 131, under the bf16 bounds (at most
+     BF16_MISMATCH['attention_int8'] of outputs differing), with three
+     controls (the probabilities left unrounded, a max-free softmax, v read
+     without the kernel's key permutation); (ii) ViT-B static int8 from
+     phase 5's seeded masters and explicit calibration, on phase 3's clip at
+     batch 32, through FrameEvaluator in three variants: add_lnq; int8_attn;
+     both with fused_w8a8 and fused_mlp.  Each: the launch counts per chunk
+     forward (24 E1 and no B1; 12 E2, no B2 or B3, 24 B1; 24 E1, 12 E2, 24
+     GEMM and 12 MLP kernels and no torch._int_mm), every kernel call of one
+     run against its plain version and its control, windows/s as the median
+     of EVAL_RUNS; add_lnq's logits equal phase 5's (the same static model
+     without the carry) bit for bit; the int8_attn variants' logits within
+     LOGIT_RTOL_I8 of their plain-version run, a gross control (attention
+     left unnormalized) outside it, and their distance from the bf16 and
+     the phase-5 int8 logits printed; the last variant ends with 16 batch-1
+     streaming steps.
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -232,6 +255,12 @@ import torch
 #     C4-bwd dqkv differing               <= 2.089e-3 vs controls >= 0.663
 #     ViT-B train step with dropout, worst parameter <= 6.909e-3 vs control
 #                                         >= 3.304
+#   the static int8 ViT's variants (phases 2 and 12):
+#     add_layernorm_quant codes differing <= 9.9e-7 vs controls >= 8.6e-3;
+#                                         its sum, and its codes against
+#                                         B1's of that sum, bit for bit
+#     attention_int8 outputs differing    0 (bit for bit) vs controls
+#                                         >= 0.119
 # Readings are bit-for-bit the same from run to run on one card and
 # software stack (no atomics; fixed seeds).
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)    # ~1 bf16 ulp (2^-7 relative)
@@ -243,6 +272,8 @@ LOGIT_RTOL = 5.7e-3      # max |logit error| / max |logit|, 12 bf16 layers
 # code moves only where its fp32 value sits within a rounding error of a
 # half-integer)
 I8_MISMATCH = {"layernorm_quant": 1.5e-4, "attention_i8": 4e-4,
+               # E1's codes are B1's of its stored sum: B1's bound
+               "add_layernorm_quant": 1.5e-4,
                "attention_i8_sep": 4e-4, "rmsnorm_quant": 1.5e-4,
                # B3 quantizes A1's fp32 result: B2's bounds
                "attention_q8": 4e-4, "attention_q8_sep": 4e-4}
@@ -267,6 +298,9 @@ BF16_MISMATCH.update({name: BF16_MISMATCH["attention"] for name in (
     "attention_drop_fwd", "attention_drop_rng_fwd")})
 BF16_MISMATCH.update({name: BF16_MISMATCH["attention_bwd"] for name in (
     "attention_drop_bwd", "attention_drop_rng_bwd")})
+# E2, bf16 out: where exp2f and torch.exp2 round one probability code
+# apart, a row's outputs move by about one code's effect (sv * 254 / l)
+BF16_MISMATCH["attention_int8"] = 0.01
 # kernels whose result is a (dq, dk, dv) tuple
 SEP_GRADS = ("attention_sep_bwd", "attention_drop_bwd",
              "attention_drop_rng_bwd")
@@ -294,6 +328,11 @@ DROP_CASES = [((8, 1568, 2304), 12, torch.bfloat16),
 DROP_PROBE = (2, 2, 392, 64)
 DROP_TIMED = (JOB_BATCH, 1568, 768, 12)
 BREAKDOWN_STEPS = 4
+# phase 12 (i): E1 at ViT-B's norm shape and two tails (fp32; C % 8 != 0),
+# E2 at ViT-B's attention shape and a masked key tail (N = 131)
+E1_CASES = [((32 * 1568, 768), torch.bfloat16), ((4096, 384), torch.float32),
+            ((1000, 100), torch.bfloat16)]
+E2_CASES = [((32, 1568, 2304), 12), ((4, 131, 2304), 12)]
 CLIP_H, CLIP_W = 224, 398          # decode_scaled's short side 224, 16:9
 # phases 7 and 8: IV2-S of jobs/finetune/IV2-S_DoTA.sh (--num_frames 8
 # --view_fps 5 on 10 fps DoTA: windows of every other frame)
@@ -358,6 +397,14 @@ SOURCES = {
                                "simple_tad_tpu/ops/flash_attention.py:1833"),
     "attention_drop_rng_bwd": ("simple_tad_tpu_torch/csrc/attention_train.cu",
                                "simple_tad_tpu/ops/flash_attention.py:1941"),
+    # the static int8 ViT's opt-in variants: E1, _add_ln_quant_kernel
+    # (launched by fused_add_layernorm_quant, ln.py:135), and E2,
+    # _fwd_kernel_int8_packed (launched by flash_attention_qkv_int8,
+    # flash_attention.py:1140)
+    "add_layernorm_quant": ("simple_tad_tpu_torch/csrc/layernorm.cu",
+                            "simple_tad_tpu/ops/ln.py:91"),
+    "attention_int8": ("simple_tad_tpu_torch/csrc/attention_int8.cu",
+                       "simple_tad_tpu/ops/flash_attention.py:1081"),
 }
 
 
@@ -596,6 +643,80 @@ def attention_q8_sep_misread_v(q, k, v, num_heads, scale, out_amax,
                                     out_amax, n_valid)
 
 
+def add_layernorm_quant_control(branch, residual, weight, bias, amax,
+                                eps: float = 1e-6):
+    """E1's control: B1's (the unbiased variance) on the stored sum ->
+    (sum, codes)."""
+    from simple_tad_tpu_torch.ops.ln import add_layernorm_quant_plain
+    total, _ = add_layernorm_quant_plain(branch, residual, weight, bias,
+                                         amax, eps)
+    return total, layernorm_quant_control(total, weight, bias, amax, eps)
+
+
+def add_layernorm_quant_residual_only(branch, residual, weight, bias, amax,
+                                      eps: float = 1e-6):
+    """E1's gross control: the codes of the residual alone (the add left
+    out of the LayerNorm's input) -> (sum, codes)."""
+    from simple_tad_tpu_torch.ops.ln import (add_layernorm_quant_plain,
+                                             layernorm_quant_plain)
+    total, _ = add_layernorm_quant_plain(branch, residual, weight, bias,
+                                         amax, eps)
+    return total, layernorm_quant_plain(residual, weight, bias, amax, eps)
+
+
+def unpermuted_keys(n: int, device):
+    """(n,) the key whose v each PV term reads where the V tile is staged
+    without E2's key permutation: key j reads key perm_key(j) of its 64-key
+    tile (csrc/attention_int8.cu), where that is below n."""
+    j = torch.arange(n, device=device)
+    q = j % 16
+    perm = j - q + 4 * ((q % 8) // 2) + q % 2 + 2 * (q // 8)
+    return torch.where(perm < n, perm, j)
+
+
+def _int8_attention_variant(qkv_i8, amax, num_heads, scale, *,
+                            round_p=True, max_free=False, normalize=True,
+                            permute_v=False):
+    """E2's plain computation with a required step left out -> bf16
+    (B, N, C): the probability codes not rounded (``round_p=False``), the
+    maximum not subtracted (``max_free``: B2's integer running maximum, the
+    max-free result), the denominator left out (``normalize=False``: the
+    gross control of the logit check), or v read without the key
+    permutation (``permute_v``)."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    q, k, v = qkv_views(qkv_i8, num_heads)
+    sq, sk, sv = (amax.float() * (1.0 / 127.0))[..., None, None]
+    with fa._fp32_matmul_exact():
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s * (sq * sk * scale * fa.LOG2E)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - (torch.ceil(m) if max_free else m)) * 127.0
+    if round_p:
+        p = torch.round(p)
+    if permute_v:
+        v = v[:, :, unpermuted_keys(v.shape[2], v.device)]
+    o = torch.matmul(p.double(), v.double()).float()
+    if normalize:
+        o = o / p.sum(dim=-1, keepdim=True)
+    return merge_heads((o * sv).to(torch.bfloat16))
+
+
+def attention_int8_unrounded(*args):
+    return _int8_attention_variant(*args, round_p=False)
+
+
+def attention_int8_max_free(*args):
+    return _int8_attention_variant(*args, max_free=True)
+
+
+def attention_int8_unpermuted_v(*args):
+    return _int8_attention_variant(*args, permute_v=True)
+
+
+def attention_int8_unnormalized(*args):
+    return _int8_attention_variant(*args, normalize=False)
+
+
 def _roundf_codes(y, amax):
     """q8 rounding half away from zero (C's roundf) instead of half to
     even: the fault ROADMAP F1 warns of."""
@@ -680,6 +801,10 @@ def int8_mlp_bound(M, dim, hidden, in_bytes, out_bytes):
 def compare(name, got, want):
     """-> (max abs error, share of elements that differ, within the bounds
     of kernel ``name``)."""
+    if name == "add_layernorm_quant" and isinstance(got, tuple):
+        # E1: (sum, codes), the sum bit for bit
+        err, share, ok = compare(name, got[1], want[1])
+        return err, share, ok and torch.equal(got[0], want[0])
     if name in SEP_GRADS:                  # C3-bwd, C4-bwd: (dq, dk, dv)
         got, want = torch.cat(got, -1), torch.cat(want, -1)
     if isinstance(got, tuple):             # C1, C3-fwd: (out, lse)
@@ -788,16 +913,20 @@ def qkv_views(qkv, num_heads: int):
 
 
 def attention_bound(B, N, C, heads, dtype=torch.bfloat16, *, backward=False,
-                    int8_qk=False, lse=False, q8_out=False):
+                    int8_qk=False, lse=False, q8_out=False, int8_pv=False):
     """-> (bound ms, 'operations' or 'bytes') of one packed-qkv attention
     call: QK and PV are N^2 Dh multiply-adds each per (batch, head) (the
     backward's five products: 2.5x the forward's); bytes: qkv read once,
     the output (and lse) written once (backward: qkv, out, dout and lse
-    read, dqkv written)."""
+    read, dqkv written).  ``int8_pv`` (E2): both products int8, int8 qkv
+    in, bf16 out."""
     D = C // heads
     prod = 2.0 * B * heads * N * N * D          # one N x N x Dh product
     esz = 1 if int8_qk else torch.finfo(dtype).bits // 8
-    if backward:
+    if int8_pv:
+        t_ops = 2 * prod / PEAK["int8"]
+        nbytes = B * N * 3 * C + 2 * B * N * C
+    elif backward:
         t_ops = 5 * prod / PEAK["bf16"]
         nbytes = (2 * B * N * 3 * C + 2 * B * N * C) * esz + B * heads * N * 4
     elif int8_qk:                               # s8 QK, bf16 PV
@@ -1161,6 +1290,7 @@ def check_kernels(dev, seed: int) -> dict:
     torch.cuda.empty_cache()
     check_int8_kernels(dev, g, run_case, timed)
     failures += check_dropout_kernels(dev, g, run_case, timed)
+    failures += check_variant_kernels(dev, g, run_case)
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return results
@@ -1489,6 +1619,65 @@ def check_int8_kernels(dev, g, run_case, timed) -> None:
         torch.cuda.empty_cache()
 
 
+def check_variant_kernels(dev, g, run_case) -> list:
+    """Phase 12 (i): E1 (add_layernorm_quant) and E2 (attention_int8)
+    against their plain versions and controls, each timed at its first
+    case (the main-path shape) -> the failed checks beyond run_case's."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    failures = []
+    for shape, dt in E1_CASES:
+        C = shape[-1]
+        branch = (torch.randn(shape, generator=g, device=dev) * 2
+                  + 0.5).to(dt)
+        residual = (torch.randn(shape, generator=g, device=dev) * 3).to(dt)
+        w = torch.randn(C, generator=g, device=dev) * 0.2 + 1
+        b = torch.randn(C, generator=g, device=dev) * 0.1
+        total = (branch.float() + residual.float()).to(dt)
+        # a calibrated absmax: that of the LayerNorm of the sum itself
+        amax = ln.layernorm_plain(total, w, b, out_dtype=torch.float32
+                                  ).abs().max()
+        del total
+        args = (branch, residual, w, b, amax)
+        got_sum, got = ln.add_layernorm_quant(*args)
+        same = torch.equal(got, ln.layernorm_quant(got_sum, w, b, amax))
+        print(f"[add_layernorm_quant] {shape} {dt}: codes equal to B1's of "
+              f"the stored sum bit for bit: {same}")
+        if not same:
+            failures.append(f"add_layernorm_quant {shape} {dt}: codes "
+                            f"differ from B1's of the stored sum")
+        del got_sum, got
+        esz = branch.element_size()
+        run_case("add_layernorm_quant", f"{shape} {dt}",
+                 lambda: ln.add_layernorm_quant(*args),
+                 lambda: ln.add_layernorm_quant_plain(*args),
+                 [lambda: add_layernorm_quant_control(*args),
+                  lambda: add_layernorm_quant_residual_only(*args)],
+                 bound=layernorm_bound(shape[0], C, 2 * esz, esz + 1))
+        del branch, residual, args
+        torch.cuda.empty_cache()
+
+    for shape, heads in E2_CASES:
+        B, N, C3 = shape
+        D = C3 // 3 // heads
+        qkv = torch.randn(shape, generator=g, device=dev)
+        amax = qkv.view(B, N, 3, heads, D).abs().amax(dim=(0, 1, 4))
+        inv = (127.0 / amax).reshape(-1).repeat_interleave(D)
+        qkv_i8 = torch.clamp(torch.round(qkv * inv), -127, 127).to(torch.int8)
+        del qkv, inv
+        args = (qkv_i8, amax, heads, D ** -0.5)
+        run_case("attention_int8", f"{shape} H={heads}",
+                 lambda: fa.flash_attention_qkv_int8(*args),
+                 lambda: fa.flash_attention_qkv_int8_plain(*args),
+                 [lambda: attention_int8_unrounded(*args),
+                  lambda: attention_int8_max_free(*args),
+                  lambda: attention_int8_unpermuted_v(*args)],
+                 bound=attention_bound(B, N, C3 // 3, heads, int8_pv=True))
+        del qkv_i8, args
+        torch.cuda.empty_cache()
+    return failures
+
+
 class MemoryClipDataset:
     """One in-memory clip with the two methods FrameEvaluator calls."""
 
@@ -1538,7 +1727,8 @@ def routed(**fns):
              "flash_attention_qkv_q8": layers,
              "flash_attention_q8": internvideo2,
              "rmsnorm_quant": internvideo2, "w8a8_gemm": layers,
-             "w8a8_mlp": layers}
+             "w8a8_mlp": layers, "add_layernorm_quant": layers,
+             "flash_attention_qkv_int8": attention}
     with contextlib.ExitStack() as stack:
         for name, fn in fns.items():
             stack.enter_context(mock.patch.object(owner[name], name, fn))
@@ -1751,7 +1941,7 @@ def run_eval_int8(model, dev, seed: int, bf16_logits):
     assert control_err > LOGIT_RTOL_I8, \
         f"the int8 logit bound lets the gross control through: {control_err}"
     return ev.model, {"windows_per_sec": rate, "launches": launches,
-                      "logits_err": err}
+                      "logits_err": err, "logits": logits}
 
 
 def run_stream(model, dev, seed: int, steps: int = 16,
@@ -1797,7 +1987,9 @@ COUNTERS = {"layernorm": ("ln", "LAUNCHES"),
             "attention_q8": ("fa", "Q8_LAUNCHES"),
             "attention_q8_sep": ("fa", "Q8_SEP_LAUNCHES"),
             "int8_gemm": ("gemm", "GEMM_LAUNCHES"),
-            "int8_mlp": ("gemm", "MLP_LAUNCHES")}
+            "int8_mlp": ("gemm", "MLP_LAUNCHES"),
+            "add_layernorm_quant": ("ln", "ADD_QUANT_LAUNCHES"),
+            "attention_int8": ("fa", "INT8_LAUNCHES")}
 
 
 def _counter_owners():
@@ -2068,6 +2260,128 @@ def run_eval_fused(dev, seed: int, family: str, variants, bf16_logits):
             run_stream(ev.model, dev, seed, label="int8 fused stream")
         out[label] = {"windows_per_sec": rate, "launches": launches,
                       "logits_err": err}
+        del ev
+        torch.cuda.empty_cache()
+    return out
+
+
+def variant_sites(options: dict) -> dict:
+    """-> {kernel name: (wrapper name, kernel, plain, control)} of the
+    static int8 ViT with the variants in ``options`` (phase 12)."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    sites = (fused_sites("vit", True, False) if options.get("fused_w8a8")
+             else vit_int8_sites())
+    if options.get("add_lnq"):
+        del sites["layernorm_quant"]
+        sites["add_layernorm_quant"] = (
+            "add_layernorm_quant", ln.add_layernorm_quant,
+            ln.add_layernorm_quant_plain, add_layernorm_quant_control)
+    if options.get("int8_attn"):
+        del sites["attention_i8"]
+        sites["attention_int8"] = (
+            "flash_attention_qkv_int8", fa.flash_attention_qkv_int8,
+            fa.flash_attention_qkv_int8_plain, attention_int8_unrounded)
+    return sites
+
+
+def variant_launches(options: dict, depth: int, chunks: int) -> dict:
+    """The kernel launches of one evaluate of the static int8 ViT with the
+    variants in ``options``: per block and chunk forward two norms (E1 with
+    add_lnq, else B1), one attention (E2 with int8_attn, else B2), with the
+    fused GEMMs two GEMM kernels and one MLP kernel; the fc_norm."""
+    want = dict.fromkeys(COUNTERS, 0)
+    want["layernorm"] = chunks
+    norm = "add_layernorm_quant" if options.get("add_lnq") \
+        else "layernorm_quant"
+    attn = "attention_int8" if options.get("int8_attn") else "attention_i8"
+    want.update({norm: 2 * depth * chunks, attn: depth * chunks})
+    if options.get("fused_w8a8"):
+        want.update(int8_gemm=2 * depth * chunks, int8_mlp=depth * chunks)
+    return want
+
+
+def run_eval_variants(dev, seed: int, bf16_logits, int8_logits) -> dict:
+    """Phase 12 (ii): static int8 ViT-B with add_lnq, with int8_attn, and
+    with both on the fused GEMMs, from phase 5's seeded masters and
+    explicit calibration on phase 3's clip -> {label: stats dict}.
+    ``int8_logits``: phase 5's (the static model without either variant)."""
+    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
+    from simple_tad_tpu_torch.ops import ln, quant
+    masters = vit_b("cpu", seed, torch.float32).state_dict()
+    variants = [("add_lnq", dict(add_lnq=True)),
+                ("int8_attn", dict(int8_attn=True)),
+                ("variants fused", dict(add_lnq=True, int8_attn=True,
+                                        fused_w8a8=True, fused_mlp=True))]
+    out = {}
+    for label, options in variants:
+        model = vit_b(dev, seed, torch.bfloat16)
+        cfg = model.cfg
+        ds, n_windows, chunks = synthetic_clip(cfg, seed)
+        ev = FrameEvaluator(model, device=dev, batch_size=BATCH,
+                            resize_on_host=False, precompute_tubelets=True,
+                            quant8=True, fp32_state=masters, **options)
+        del model
+        ev.calibrate(ds)
+        ev.evaluate(ds)                              # warm-up
+        reset_counts()
+        int_mm = quant.INT_MM_CALLS
+        res = ev.evaluate(ds)
+        launches = read_counts()
+        int_mm = quant.INT_MM_CALLS - int_mm
+        rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
+                                         for _ in range(EVAL_RUNS - 1)]
+        logits = logits_of(res)
+        sites = variant_sites(options)
+        site_failures = check_sites(ev, ds, sites, f"{label} sites")
+        rate = statistics.median(rates)
+        drift = float(np.abs(logits - bf16_logits).max())
+        vs_int8 = float(np.abs(logits - int8_logits).max())
+        print(f"[{label}] static int8 ViT-B {options}, batch {BATCH}: "
+              f"evaluate median {rate:.2f} windows/s over {EVAL_RUNS} runs "
+              f"(min {min(rates):.2f}, max {max(rates):.2f})")
+        print(f"[{label}] launches {launches} over {chunks} chunk forwards, "
+              f"torch._int_mm calls {int_mm}; vs bf16 max |logit "
+              f"difference| {drift:.3e}, vs the phase-5 int8 model "
+              f"{vs_int8:.3e} (max |bf16 logit| "
+              f"{float(np.abs(bf16_logits).max()):.3e}; printed, not "
+              f"bounded)")
+        assert not site_failures, site_failures
+        assert res.n_windows == n_windows
+        assert np.isfinite(logits).all(), f"non-finite {label} logits"
+        want = variant_launches(options, cfg.depth, chunks)
+        assert launches == want, (label, launches, want)
+        if options.get("fused_w8a8"):
+            assert int_mm == 0, f"{label}: {int_mm} torch._int_mm calls"
+        stats = {"windows_per_sec": rate, "launches": launches}
+        if options.get("int8_attn"):
+            plain = {route: fns[1] for route, *fns in sites.values()}
+            plain.update(layernorm=ln.layernorm_plain)
+            with routed(**plain):
+                plain_res = ev.evaluate(ds)
+            with routed(**dict(plain, flash_attention_qkv_int8=(
+                    attention_int8_unnormalized))):
+                control = logits_of(ev.evaluate(ds))
+            err, control_err, scale = logit_errors(
+                logits, logits_of(plain_res), control)
+            print(f"[{label}] logits vs plain: max_abs_err / max |logit| "
+                  f"{err:.3e}, gross control {control_err:.3e} (bound "
+                  f"{LOGIT_RTOL_I8:.3e}, max |logit| {scale:.3e}); plain "
+                  f"versions {plain_res.windows_per_sec:.2f} windows/s (one "
+                  f"run)")
+            assert err <= LOGIT_RTOL_I8, \
+                f"{label} logits disagree with plain: {err}"
+            assert control_err > LOGIT_RTOL_I8, \
+                f"the {label} logit bound lets the gross control through"
+            stats["logits_err"] = err
+        else:
+            equal = np.array_equal(logits, int8_logits)
+            print(f"[{label}] logits equal to the phase-5 static model's "
+                  f"(no carry) bit for bit: {equal}")
+            assert equal, f"{label}: logits differ from the unfused chain"
+        if label == "variants fused":
+            run_stream(ev.model, dev, seed, label="int8 variants stream")
+        out[label] = stats
         del ev
         torch.cuda.empty_cache()
     return out
@@ -2593,6 +2907,10 @@ def main(argv=None):
     run_finetune_timing(args.seed, attn_drop=ATTN_DROP, form="rng")
     run_finetune_timing(args.seed, attn_drop=ATTN_DROP, form="mask",
                         processes=1)
+    # phase 12: the static int8 ViT's opt-in variants (E1, E2)
+    p12 = run_eval_variants(dev, args.seed, estats["logits"],
+                            qstats["logits"])
+    torch.cuda.empty_cache()
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]
@@ -2612,7 +2930,11 @@ def main(argv=None):
                     "attention_q8_sep"],
                 **{name: p11[form][name]
                    for form, names in DROP_KERNELS.items()
-                   for name in names}}
+                   for name in names},
+                "add_layernorm_quant": p12["add_lnq"]["launches"][
+                    "add_layernorm_quant"],
+                "attention_int8": p12["int8_attn"]["launches"][
+                    "attention_int8"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     record = {"kernels": [

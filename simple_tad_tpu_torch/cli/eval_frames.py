@@ -19,13 +19,18 @@ SIMPLE_TAD_FUSED_RMSQ opt-in.  With static ``--quant8``, ``--fused_w8a8``
 and ``--fused_mlp`` run the fused int8 GEMM kernels (per GEMM, and the
 whole MLP) and ``--no_qkv_i8`` the bf16 attention with the int8 output
 epilogue instead of int8 storage: the JAX package's SIMPLE_TAD_FUSED_W8A8,
-SIMPLE_TAD_FUSED_MLP and SIMPLE_TAD_QKV_I8=0 programs.
+SIMPLE_TAD_FUSED_MLP and SIMPLE_TAD_QKV_I8=0 programs.  With static
+``--quant8`` on a ViT, ``--add_lnq`` runs each residual add inside the next
+norm's LayerNorm->int8 kernel (the deferred-residual carry) and
+``--int8_attn`` the int8-compute attention: the JAX package's
+SIMPLE_TAD_ADD_LNQ and SIMPLE_TAD_INT8_ATTN programs.
 
 Usage:
   python -m simple_tad_tpu_torch.cli.eval_frames \
       --data_set DoTA --data_path /data/dota \
       --model vit_base_patch16_224 --finetune ckpt.pth \
-      --output_dir out/ --device cuda [--quant8 [--quant8_mode dynamic]]
+      --output_dir out/ --device cuda [--quant8 [--quant8_mode dynamic]
+      [--add_lnq] [--int8_attn]]
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ def main(argv=None):
     pre.add_argument("--fused_w8a8", action="store_true")
     pre.add_argument("--fused_mlp", action="store_true")
     pre.add_argument("--no_qkv_i8", dest="qkv_i8", action="store_false")
+    pre.add_argument("--add_lnq", action="store_true")
+    pre.add_argument("--int8_attn", action="store_true")
     dev_args, rest = pre.parse_known_args(argv)
     cfg = FinetuneConfig.from_args(rest)
     # dist_eval is on by default in the reference flags, where one device
@@ -114,7 +121,9 @@ def main(argv=None):
                         fused_rmsq=dev_args.fused_rmsq,
                         fused_w8a8=dev_args.fused_w8a8,
                         fused_mlp=dev_args.fused_mlp,
-                        qkv_i8=dev_args.qkv_i8)
+                        qkv_i8=dev_args.qkv_i8,
+                        add_lnq=dev_args.add_lnq,
+                        int8_attn=dev_args.int8_attn)
     res = ev.evaluate(ds, exact_metrics=cfg.exact_metrics)
     print(f"AUROC {res.metrics.auroc:.4f}  AP {res.metrics.ap:.4f}  "
           f"AUC-MCC {res.metrics.mcc_auc:.4f}  "

@@ -10,7 +10,8 @@ and calibrated on the first T frames (batch 1), as the JAX CLI does.
 ``--model internvideo2_*_patch14_224`` serves InternVideo2 (e.g.
 ``--num_frames 8``); ``--fused_rmsq`` adds its RMSNorm->int8 kernel to
 ``--quant8``.  ``--fused_w8a8``, ``--fused_mlp`` and ``--no_qkv_i8`` are
-the static int8 model's options (cli/eval_frames.py), in both modes.
+the static int8 model's options (cli/eval_frames.py), in both modes, and
+``--add_lnq`` and ``--int8_attn`` the static int8 ViT's.
 
 Usage:
   python -m simple_tad_tpu_torch.cli.inference --ckpt model.pth \
@@ -108,6 +109,12 @@ def main(argv=None):
     parser.add_argument("--no_qkv_i8", dest="qkv_i8", action="store_false",
                         help="with --quant8, bf16 attention with an int8 "
                              "output instead of int8-storage attention")
+    parser.add_argument("--add_lnq", action="store_true",
+                        help="with --quant8 on a ViT, each residual add runs "
+                             "inside the next norm's LayerNorm->int8 kernel")
+    parser.add_argument("--int8_attn", action="store_true",
+                        help="with --quant8 on a ViT, int8-compute "
+                             "attention")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     if not args.ckpt.endswith(".pth"):
@@ -148,6 +155,11 @@ def main(argv=None):
                                            qkv_i8=True):
         raise ValueError("--fused_w8a8, --fused_mlp and --no_qkv_i8 are "
                          "options of --quant8")
+    if args.add_lnq or args.int8_attn:
+        if not args.quant8 or model_family(args.model) == "iv2":
+            raise ValueError("--add_lnq and --int8_attn are options of "
+                             "--quant8 with a ViT model")
+        options.update(add_lnq=args.add_lnq, int8_attn=args.int8_attn)
     if args.quant8:
         # quantize the fp32 masters (never the compute-dtype copy) and
         # calibrate the activation scales on the first window

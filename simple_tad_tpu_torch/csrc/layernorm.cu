@@ -1,6 +1,6 @@
 // Row LayerNorm over the last axis (kernel A2), the same LayerNorm with a
-// static int8 output (kernel B1), and RMSNorm with a static int8 output
-// (kernel D3).
+// static int8 output (kernel B1), B1 after a residual add (kernel E1), and
+// RMSNorm with a static int8 output (kernel D3).
 //
 // A2 replaces the TPU kernel simple_tad_tpu/ops/ln.py:_ln_kernel (launched
 // by fused_layernorm -> _fused_ln_impl).  B1 replaces
@@ -26,6 +26,17 @@
 // most 16 KB).  Block-wide sums go through warp shuffles.  Rows are many
 // (32 * 1568 at ViT-B batch 32) and blocks small, so the 132 SMs stay
 // full.
+//
+// E1 replaces simple_tad_tpu/ops/ln.py:_add_ln_quant_kernel (launched by
+// fused_add_layernorm_quant): the static int8 ViT's deferred-residual carry
+// (add_lnq), where each residual add runs inside the next norm's read.  It is
+// B1 with a prologue: the branch and the residual are added in fp32, the sum
+// is rounded to the input dtype and stored (the first output), and the
+// statistics are taken on that stored value, as the unfused chain (add, then
+// B1) takes them.  B1's kernels are instantiated with ADD = true, so the
+// reductions run in B1's order and the codes equal B1's of the stored sum
+// bit for bit.  Bounded by bytes: two rows read, the sum and the codes
+// written (ViT-B batch 32 bf16: 270 MB, >= 81 us at 3.35 TB/s).
 //
 // D3 replaces simple_tad_tpu/ops/ln.py:_rms_quant_kernel (launched by
 // fused_rmsnorm_quant): InternVideo2's static int8 serving with the fused
@@ -78,8 +89,22 @@ __device__ __forceinline__ void store1(int8_t* p, float v, float qinv) {
   *p = stt::quant_i8(v, qinv);
 }
 
-template <typename TIn, typename TOut>
+// The value the statistics are taken on: x, or with ADD (kernel E1) the sum
+// x + r rounded to TIn, which is also stored to s
+template <typename TIn, bool ADD>
+__device__ __forceinline__ float load1(const TIn* x, const TIn* r, TIn* s,
+                                       size_t i) {
+  const float v = stt::to_float(x[i]);
+  if (!ADD) return v;
+  const TIn sum = stt::from_float<TIn>(__fadd_rn(v, stt::to_float(r[i])));
+  s[i] = sum;
+  return stt::to_float(sum);
+}
+
+template <typename TIn, typename TOut, bool ADD>
 __global__ void layernorm_kernel(const TIn* __restrict__ x,
+                                 const TIn* __restrict__ r,
+                                 TIn* __restrict__ sum,
                                  const float* __restrict__ w,
                                  const float* __restrict__ b,
                                  const float* __restrict__ amax,
@@ -87,12 +112,11 @@ __global__ void layernorm_kernel(const TIn* __restrict__ x,
   extern __shared__ float row[];  // cols floats
   __shared__ float red[33];
   const size_t base = static_cast<size_t>(blockIdx.x) * cols;
-  const TIn* xr = x + base;
   TOut* yr = y + base;
 
   float s = 0.f;
   for (int c = threadIdx.x; c < cols; c += blockDim.x) {
-    const float v = stt::to_float(xr[c]);
+    const float v = load1<TIn, ADD>(x, r, sum, base + c);
     row[c] = v;
     s += v;
   }
@@ -153,9 +177,27 @@ __device__ __forceinline__ void store8(int8_t* p, const float (&v)[8],
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
+// load8, and with ADD (kernel E1) the sum with r's 8 values rounded to TIn,
+// stored to s and read back as the stored values
+template <typename TIn, bool ADD>
+__device__ __forceinline__ void load8_sum(const TIn* x, const TIn* r, TIn* s,
+                                          float (&v)[8]) {
+  load8(x, v);
+  if (!ADD) return;
+  float rv[8];
+  load8(r, rv);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    v[i] = stt::to_float(stt::from_float<TIn>(__fadd_rn(v[i], rv[i])));
+  }
+  store8(s, v, 0.f);   // exact: each v[i] is a TIn value
+}
+
 // cols % 8 == 0, 16-byte aligned: thread t owns columns [8t, 8t + 8)
-template <typename TIn, typename TOut>
+template <typename TIn, typename TOut, bool ADD>
 __global__ void layernorm_vec8_kernel(const TIn* __restrict__ x,
+                                      const TIn* __restrict__ r,
+                                      TIn* __restrict__ sum,
                                       const float* __restrict__ w,
                                       const float* __restrict__ b,
                                       const float* __restrict__ amax,
@@ -168,7 +210,7 @@ __global__ void layernorm_vec8_kernel(const TIn* __restrict__ x,
   float v[8];
   float s = 0.f;
   if (active) {
-    load8(x + base + c0, v);
+    load8_sum<TIn, ADD>(x + base + c0, r + base + c0, sum + base + c0, v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) s += v[i];
   }
@@ -256,27 +298,32 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename TIn, typename TOut>
+// With ADD (kernel E1), r is the residual and s receives the rounded sum;
+// otherwise both are null.
+template <typename TIn, typename TOut, bool ADD = false>
 void launch(const void* x, const void* w, const void* b, const void* amax,
-            void* y, int rows, int cols, float eps, cudaStream_t stream) {
+            void* y, int rows, int cols, float eps, cudaStream_t stream,
+            const void* r = nullptr, void* s = nullptr) {
   const TIn* xt = static_cast<const TIn*>(x);
+  const TIn* rt = static_cast<const TIn*>(r);
+  TIn* st = static_cast<TIn*>(s);
   const float* wt = static_cast<const float*>(w);
   const float* bt = static_cast<const float*>(b);
   const float* at = static_cast<const float*>(amax);
   TOut* yt = static_cast<TOut*>(y);
   if (cols % 8 == 0 && aligned16(x) && aligned16(w) && aligned16(b) &&
-      aligned16(y)) {
+      aligned16(y) && (!ADD || (aligned16(r) && aligned16(s)))) {
     const int threads = (cols / 8 + 31) / 32 * 32;   // <= 512 for C <= 4096
-    layernorm_vec8_kernel<TIn, TOut><<<rows, threads, 0, stream>>>(
-        xt, wt, bt, at, yt, cols, eps);
+    layernorm_vec8_kernel<TIn, TOut, ADD><<<rows, threads, 0, stream>>>(
+        xt, rt, st, wt, bt, at, yt, cols, eps);
     return;
   }
   // about four values per thread, whole warps, at most 1024 threads
   int threads = ((cols + 3) / 4 + 31) / 32 * 32;
   threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
   const size_t smem = static_cast<size_t>(cols) * sizeof(float);
-  layernorm_kernel<TIn, TOut><<<rows, threads, smem, stream>>>(
-      xt, wt, bt, at, yt, cols, eps);
+  layernorm_kernel<TIn, TOut, ADD><<<rows, threads, smem, stream>>>(
+      xt, rt, st, wt, bt, at, yt, cols, eps);
 }
 
 bool valid_shape(int rows, int cols) {
@@ -325,6 +372,32 @@ extern "C" int stt_layernorm_quant(const void* x, const void* w,
     launch<__nv_bfloat16, int8_t>(x, w, b, amax, y, rows, cols, eps, s);
   } else if (in_dtype == stt::kFloat32) {
     launch<float, int8_t>(x, w, b, amax, y, rows, cols, eps, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel E1: branch and residual (rows, cols) in in_dtype, w and b (cols,)
+// fp32, amax one fp32 value in device memory -> sum (rows, cols) in in_dtype,
+// the residual add rounded to it, and y (rows, cols) int8, the static codes of
+// the LayerNorm of that stored sum.  All contiguous.
+extern "C" int stt_add_layernorm_quant(const void* branch,
+                                       const void* residual, const void* w,
+                                       const void* b, const void* amax,
+                                       void* sum, void* y, int rows, int cols,
+                                       float eps, int in_dtype,
+                                       void* stream) {
+  if (!valid_shape(rows, cols) || amax == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == stt::kBFloat16) {
+    launch<__nv_bfloat16, int8_t, true>(branch, w, b, amax, y, rows, cols,
+                                        eps, s, residual, sum);
+  } else if (in_dtype == stt::kFloat32) {
+    launch<float, int8_t, true>(branch, w, b, amax, y, rows, cols, eps, s,
+                                residual, sum);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,6 +25,10 @@ RMSNorm->int8 kernel, the JAX package's SIMPLE_TAD_FUSED_RMSQ opt-in;
 ``fused_w8a8``, ``fused_mlp`` and ``qkv_i8=False`` (static int8, ViT or
 InternVideo2) are the model options of models/layers.py: the fused int8
 GEMM kernels, and the bf16 attention with the int8 output epilogue.
+``add_lnq`` and ``int8_attn`` (static int8 ViT only; the JAX package's
+SIMPLE_TAD_ADD_LNQ and SIMPLE_TAD_INT8_ATTN) are the ViT's deferred-residual
+carry through the add + LayerNorm->int8 kernel and its int8-compute
+attention (models/vit.py).
 """
 
 from __future__ import annotations
@@ -115,7 +119,8 @@ class FrameEvaluator:
     'static' (calibrated, see ``calibrate``) or 'dynamic'.  ``fused_rmsq``:
     the static int8 InternVideo2's norms emit int8 (kernel D3);
     ``fused_w8a8``, ``fused_mlp``, ``qkv_i8``: the static int8 model's
-    options (models/layers.py), the JAX package's defaults unless given.
+    options (models/layers.py), the JAX package's defaults unless given;
+    ``add_lnq``, ``int8_attn``: the static int8 ViT's (models/vit.py).
     """
 
     def __init__(self, model, *, device, batch_size: int = 96,
@@ -123,7 +128,8 @@ class FrameEvaluator:
                  quant8: bool = False, quant8_mode: str = "static",
                  fp32_state=None, devices=None, fused_rmsq: bool = False,
                  fused_w8a8: bool = False, fused_mlp: bool = False,
-                 qkv_i8: bool = True):
+                 qkv_i8: bool = True, add_lnq: bool = False,
+                 int8_attn: bool = False):
         if devices is not None:
             raise NotImplementedError(
                 "multi-device evaluation is not ported yet (ROADMAP.md "
@@ -143,6 +149,14 @@ class FrameEvaluator:
             raise ValueError("fused_w8a8, fused_mlp and qkv_i8 are options "
                              "of static int8 serving (quant8=True, "
                              "quant8_mode='static')")
+        vit_options = dict(add_lnq=add_lnq, int8_attn=int8_attn)
+        if any(vit_options.values()):
+            if not (quant8 and quant8_mode == "static"
+                    and not isinstance(cfg, IV2Config)):
+                raise ValueError("add_lnq and int8_attn are options of "
+                                 "static int8 ViT serving (quant8=True, "
+                                 "quant8_mode='static', not InternVideo2)")
+            options.update(vit_options)
         if quant8:
             if quant8_mode not in ("static", "dynamic"):
                 raise ValueError(f"quant8_mode must be 'static' or "

@@ -1,11 +1,13 @@
-"""A/B of the attention kernels between this checkout and another.
+"""A/B of the attention and norm kernels between this checkout and another.
 
 A1 (inference), C1 (training forward with lse) and C2 (training backward)
 on the packed qkv, C3-fwd and C3-bwd (the same on separate operands, at
-IV2-S's N = 2049 and the job's batch 56, v strided), and the int8-storage
-attention packed (B2) and on separate operands (D2, IV2-S, v strided), run
-on the same seeded inputs at ViT-B's (and IV2-S's) shapes in both
-checkouts, each in a fresh process (the two packages share a name), in the
+IV2-S's N = 2049 and the job's batch 56, v strided), the int8-storage
+attention packed (B2) and on separate operands (D2, IV2-S, v strided), and
+the row norms of csrc/layernorm.cu (A2 LayerNorm and B1 LayerNorm->int8 on
+ViT-B's (32 * 1568, 768) bf16, D3 RMSNorm->int8 on IV2-S's (32 * 2049,
+384)), run on the same seeded inputs at ViT-B's (and IV2-S's) shapes in
+both checkouts, each in a fresh process (the two packages share a name), in the
 order other, this, this, other, all on one card.  Each process builds its
 checkout's kernels from its own sources.  Printed per kernel: whether the
 outputs of all four runs are bit-equal (a digest of their bytes), the
@@ -35,7 +37,13 @@ SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
           "attention_bwd": (56, 1568, 12),
           "attention_sep_fwd_lse": (56, 2049, 6),
           "attention_sep_bwd": (56, 2049, 6), "attention_i8": (32, 1568, 12),
-          "attention_i8_sep": (32, 2049, 6)}
+          "attention_i8_sep": (32, 2049, 6), "layernorm": (32, 1568, 12),
+          "layernorm_quant": (32, 1568, 12), "rmsnorm_quant": (32, 2049, 6)}
+NORMS = ("layernorm", "layernorm_quant", "rmsnorm_quant")
+# the norms take ~0.07 ms, about the host's time in a wrapper call, which a
+# single call's event pair would include: they are timed CALLS_PER_EVENT
+# calls to an event pair, so the calls queue up on the card
+CALLS_PER_EVENT = 20
 
 
 def _worker(root: str) -> dict:
@@ -46,6 +54,7 @@ def _worker(root: str) -> dict:
 
     from simple_tad_tpu_torch.kernels import build as kbuild
     from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
     kbuild.load()
     dev = torch.device("cuda")
     out = {}
@@ -55,7 +64,23 @@ def _worker(root: str) -> dict:
         g = torch.Generator(device=dev).manual_seed(SEED)
         qkv = torch.randn((B, N, 3 * C), generator=g,
                           device=dev).to(torch.bfloat16)
-        if name in ("attention_i8", "attention_i8_sep"):
+        if name in NORMS:
+            x = qkv[..., :C].reshape(B * N, C) * 2 + 0.5
+            w = torch.randn(C, generator=g, device=dev) * 0.2 + 1
+            b = torch.randn(C, generator=g, device=dev) * 0.1
+            amax = torch.full((), 4.0, device=dev)
+            if name == "layernorm":
+                def fn():
+                    return (ln.layernorm(x, w, b),)
+            elif name == "layernorm_quant":
+                def fn():
+                    return (ln.layernorm_quant(x, w, b, amax),)
+            else:
+                inv = 127.0 / (w.abs() * 4)
+
+                def fn():
+                    return (ln.rmsnorm_quant(x, w, inv),)
+        elif name in ("attention_i8", "attention_i8_sep"):
             amax = qkv.float().view(B, N, 3, heads, 64).abs().amax(
                 dim=(0, 1, 4))
             inv = (127.0 / amax).reshape(-1).repeat_interleave(64)
@@ -106,15 +131,17 @@ def _worker(root: str) -> dict:
             h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
         for _ in range(3):
             fn()
+        calls = CALLS_PER_EVENT if name in NORMS else 1
         times = []
         for _ in range(RUNS):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(calls):
+                fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / calls)
         out[name] = {"digest": h.hexdigest(), "ms": statistics.median(times)}
         del qkv, fn
         torch.cuda.empty_cache()

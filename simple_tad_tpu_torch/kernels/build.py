@@ -121,6 +121,9 @@ def load() -> ctypes.CDLL:
             lib.stt_layernorm_quant.argtypes = [p, p, p, p, p, i, i,
                                                 ctypes.c_float, i, p]
             lib.stt_layernorm_quant.restype = i
+            lib.stt_add_layernorm_quant.argtypes = [p] * 7 + [
+                i, i, ctypes.c_float, i, p]
+            lib.stt_add_layernorm_quant.restype = i
             lib.stt_rmsnorm_quant.argtypes = [p, p, p, p, i, i,
                                               ctypes.c_float, i, p]
             lib.stt_rmsnorm_quant.restype = i
@@ -156,6 +159,9 @@ def load() -> ctypes.CDLL:
             lib.stt_attention_i8.argtypes = [p, p, p, p, p, p, *[i] * 13,
                                              ctypes.c_float, p]
             lib.stt_attention_i8.restype = i
+            lib.stt_attention_int8.argtypes = [p, p, p, i, i, i, i,
+                                               ctypes.c_float, p]
+            lib.stt_attention_int8.restype = i
             lib.stt_attention_q8.argtypes = [p] * 5 + [i] * 13 + [
                 ctypes.c_float, i, p]
             lib.stt_attention_q8.restype = i

@@ -40,10 +40,17 @@ through the fused int8 GEMM kernel (ops/int8_gemm.py:w8a8_gemm, B4),
 ``use_fused_mlp`` holds (else per-GEMM B4 with ``fused_w8a8``, else the
 unfused GEMMs), and ``qkv_i8=False`` opts the attention out of int8
 storage (ops/attention.py:static_attention_route: the bf16 attention with
-the int8 output epilogue, B3, where the geometry allows).  The attention
-route follows the TPU program's geometry gates whatever the options.  The
-fused kernels compute the unfused model's function (the same codes, the
-same fp32 roundings, the same GELU form).
+the int8 output epilogue, B3, where the geometry allows).  Two more are the
+JAX package's SIMPLE_TAD_INT8_ATTN and SIMPLE_TAD_ADD_LNQ: ``int8_attn``
+routes the attention to the int8-compute kernel (E2,
+ops/flash_attention.py:flash_attention_qkv_int8) where its gate holds, and
+``add_lnq`` (models/vit.py) chains the blocks through
+``Block.forward_carry``, whose residual adds run inside the next norm's
+add + LayerNorm->int8 kernel (E1, ops/ln.py:add_layernorm_quant).  The
+attention route follows the TPU program's geometry gates whatever the
+options.  The fused kernels compute the unfused model's function (the same
+codes, the same fp32 roundings, the same GELU form), and so does the carry,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -57,13 +64,14 @@ from torch import nn
 
 from simple_tad_tpu_torch.ops.attention import (
     dot_product_attention, dot_product_attention_qkv,
-    dot_product_attention_qkv_i8, static_attention_route)
+    dot_product_attention_qkv_i8, dot_product_attention_qkv_int8,
+    static_attention_route)
 from simple_tad_tpu_torch.ops.flash_attention import flash_attention_qkv_q8
 from simple_tad_tpu_torch.ops.int8_gemm import (activation, gelu_act,
                                                 use_fused_mlp, w8a8_gemm,
                                                 w8a8_mlp)
-from simple_tad_tpu_torch.ops.ln import (LayerNormFn, layernorm,
-                                         layernorm_quant)
+from simple_tad_tpu_torch.ops.ln import (LayerNormFn, add_layernorm_quant,
+                                         layernorm, layernorm_quant)
 from simple_tad_tpu_torch.ops.quant import int8_matmul, int8_matmul_static
 
 QUANT_MODES = ("static", "dynamic", "calib")
@@ -72,11 +80,14 @@ QUANT_MODES = ("static", "dynamic", "calib")
 def check_static_options(cfg) -> None:
     """The static serving options of a ViTConfig or IV2Config are options of
     the int8 model with calibrated scales: raise unless it is one (mode
-    'calib' builds the calibration model of such a config)."""
+    'calib' builds the calibration model of such a config).  ``add_lnq``
+    and ``int8_attn`` exist on the ViTConfig only."""
     static = cfg.quant and cfg.quant_mode in ("static", "calib")
     for name, on in (("fused_w8a8", cfg.fused_w8a8),
                      ("fused_mlp", cfg.fused_mlp),
-                     ("qkv_i8=False", not cfg.qkv_i8)):
+                     ("qkv_i8=False", not cfg.qkv_i8),
+                     ("add_lnq", getattr(cfg, "add_lnq", False)),
+                     ("int8_attn", getattr(cfg, "int8_attn", False))):
         if on and not static:
             raise ValueError(f"{name} is an option of the static int8 "
                              f"model (quant=True, quant_mode='static')")
@@ -260,7 +271,10 @@ class LayerNormQuant(LayerNormFp32):
     """norm1/norm2 of the int8 model (port of the JAX LayerNormQuant).
     'static': the LayerNorm->int8 kernel emits the next GEMM's int8 input
     against the calibrated ``act_amax``; 'calib': the LayerNorm, recording
-    the absmax of its output after the cast to the compute dtype."""
+    the absmax of its output after the cast to the compute dtype.  Given a
+    ``residual`` (the deferred-residual carry), x is the branch and the
+    result is (residual + x, the norm of that sum): in 'static' one add +
+    LayerNorm->int8 kernel, in 'calib' the add, then the LayerNorm."""
 
     def __init__(self, dim: int, eps: float = 1e-6, *, mode: str,
                  dtype=torch.float32, device=None):
@@ -270,13 +284,18 @@ class LayerNormQuant(LayerNormFp32):
             self.act_amax = _param((), torch.float32, device)
         self.observed = {}
 
-    def forward(self, x):
+    def forward(self, x, residual=None):
         if self.mode == "static":
+            if residual is not None:
+                return add_layernorm_quant(x, residual, self.weight,
+                                           self.bias, self.act_amax, self.eps)
             return layernorm_quant(x, self.weight, self.bias, self.act_amax,
                                    self.eps)
+        if residual is not None:
+            x = residual + x
         y = super().forward(x)
         observe(self, "act_amax", absmax(y))
-        return y
+        return y if residual is None else (x, y)
 
 
 class Mlp(nn.Module):
@@ -332,9 +351,10 @@ class Attention(nn.Module):
     program (ops/attention.py:static_attention_route): qkv quantized per
     head against the calibrated ``qkv_amax`` (3, H) into the int8-storage
     kernel, or the bf16 attention with the int8 output epilogue, each
-    emitting the proj GEMM's int8 input against ``out_amax``; or the bf16
-    attention, whose output proj quantizes itself.  'calib' records both
-    absmax sites around the bf16 attention.  In training the attention
+    emitting the proj GEMM's int8 input against ``out_amax``; or, with
+    ``int8_attn``, the int8-compute attention on the same per-head codes;
+    or the bf16 attention.  Those two emit bf16, which proj quantizes
+    itself.  'calib' records both absmax sites around the bf16 attention.  In training the attention
     probabilities take dropout ``attn_drop`` in ``attn_dropout_form``."""
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
@@ -342,7 +362,7 @@ class Attention(nn.Module):
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
                  attn_dropout_form: str = "rng", quant: bool = False,
                  quant_mode: str = "dynamic", fused_w8a8: bool = False,
-                 qkv_i8: bool = True, device=None):
+                 qkv_i8: bool = True, int8_attn: bool = False, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
@@ -352,6 +372,7 @@ class Attention(nn.Module):
         self.quant = quant
         self.mode = quant_mode
         self.qkv_i8 = qkv_i8
+        self.int8_attn = int8_attn
         head_dim = dim // num_heads
         self.scale = qk_scale or head_dim ** -0.5
         if quant:
@@ -360,7 +381,7 @@ class Attention(nn.Module):
             self.proj = QuantLinear(dim, dim, mode=quant_mode,
                                     fused=fused_w8a8, device=device)
             if quant_mode == "static":
-                if qkv_i8:
+                if qkv_i8 or int8_attn:
                     self.qkv_amax = _param((3, num_heads), torch.float32,
                                            device)
                 self.out_amax = _param((), torch.float32, device)
@@ -393,8 +414,13 @@ class Attention(nn.Module):
         heads, scale = self.num_heads, self.scale
         if self.quant and self.mode == "static":
             B, N, C3 = qkv.shape
-            route = static_attention_route(N, C3 // 3, heads, self.qkv_i8)
-            if route == "i8":
+            route = static_attention_route(N, C3 // 3, heads, self.qkv_i8,
+                                           self.int8_attn)
+            if route == "int8":
+                out = dot_product_attention_qkv_int8(
+                    qkv, self.qkv_amax, num_heads=heads,
+                    scale=scale).to(self.dtype)
+            elif route == "i8":
                 out = dot_product_attention_qkv_i8(
                     qkv, self.qkv_amax, self.out_amax, num_heads=heads,
                     scale=scale)
@@ -424,7 +450,10 @@ class Attention(nn.Module):
 class Block(nn.Module):
     """Pre-LN block with optional LayerScale and DropPath (identity at eval):
     x = x + DropPath(gamma_1 * Attn(LN1(x)));
-    x = x + DropPath(gamma_2 * MLP(LN2(x)))."""
+    x = x + DropPath(gamma_2 * MLP(LN2(x))).
+    ``forward_carry`` is the same block on the deferred-residual carry of
+    the static int8 model with ``add_lnq`` (a separate method; ``forward``
+    takes only the plain stream)."""
 
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale=None,
@@ -434,7 +463,8 @@ class Block(nn.Module):
                  drop_path: float = 0.0, dtype=torch.float32,
                  param_dtype=None, quant: bool = False,
                  quant_mode: str = "dynamic", fused_w8a8: bool = False,
-                 fused_mlp: bool = False, qkv_i8: bool = True, device=None):
+                 fused_mlp: bool = False, qkv_i8: bool = True,
+                 int8_attn: bool = False, device=None):
         super().__init__()
         self.init_values = init_values
         self.dtype = dtype
@@ -457,7 +487,8 @@ class Block(nn.Module):
                               attn_dropout_form=attn_dropout_form,
                               quant=quant,
                               quant_mode=quant_mode, fused_w8a8=fused_w8a8,
-                              qkv_i8=qkv_i8, device=device)
+                              qkv_i8=qkv_i8, int8_attn=int8_attn,
+                              device=device)
         self.norm2 = norm()
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype,
                        param_dtype=param_dtype, drop=drop, quant=quant,
@@ -488,6 +519,22 @@ class Block(nn.Module):
         if self.gamma_2 is not None:
             m = m * self.gamma_2.to(self.dtype)
         return x + self.drop_path(m, generator)
+
+    def forward_carry(self, stream, pending):
+        """The block at eval on the deferred-residual carry (port of the JAX
+        Block's tuple branch, SIMPLE_TAD_ADD_LNQ): ``pending`` is the
+        previous block's un-added branch, added to ``stream`` inside norm1's
+        add + LayerNorm->int8; -> (the stream after the attention residual,
+        this block's un-added MLP branch).  Needs LayerNormQuant norms."""
+        x0, q1 = self.norm1(pending, residual=stream)
+        a = self.attn(q1)
+        if self.gamma_1 is not None:
+            a = a * self.gamma_1.to(self.dtype)
+        x1, q2 = self.norm2(a, residual=x0)
+        m = self.mlp(q2)
+        if self.gamma_2 is not None:
+            m = m * self.gamma_2.to(self.dtype)
+        return x1, m
 
 
 class PatchEmbed(nn.Module):

@@ -8,9 +8,17 @@ sincos table is a non-persistent buffer: it is regenerated, never loaded.
 The head runs in fp32.  ``quant=True`` builds the int8 model
 (models/layers.py, ops/quant.py) in ``quant_mode`` 'static', 'dynamic' or
 'calib'; its state comes from ops/quant.py and is never initialised.  The
-static model's serving options ``fused_w8a8``, ``fused_mlp`` and
-``qkv_i8`` (models/layers.py) default to the JAX package's program and
-raise on any other model.
+static model's serving options ``fused_w8a8``, ``fused_mlp``, ``qkv_i8``,
+``int8_attn`` and ``add_lnq`` (models/layers.py) default to the JAX
+package's program and raise on any other model.  ``add_lnq`` is the JAX
+package's deferred-residual carry (SIMPLE_TAD_ADD_LNQ, its scanned
+VisionTransformer._blocks): where the blocks' norms are LayerNorm->int8
+(embed_dim % 128 == 0) and the model is at eval, each block hands its
+un-added MLP branch to the next (``Block.forward_carry``), block 0 starts
+from a zero branch, and the last branch is added before the fc_norm
+pooling; 24 add + LayerNorm->int8 launches (E1) replace ViT-B's 24
+LayerNorm->int8 ones, with the same logits bit for bit.  ``int8_attn`` is
+SIMPLE_TAD_INT8_ATTN: the int8-compute attention (E2).
 
 Training: ``param_dtype=torch.float32`` builds fp32 masters computed in
 ``dtype`` (the JAX package's training setup), and their parameters
@@ -81,6 +89,11 @@ class ViTConfig:
     fused_w8a8: bool = False
     fused_mlp: bool = False
     qkv_i8: bool = True
+    # static int8 serving: int8_attn computes the attention in int8 (E2)
+    # where its gate holds; add_lnq runs each residual add inside the next
+    # norm's LayerNorm->int8 kernel (E1)
+    int8_attn: bool = False
+    add_lnq: bool = False
     # parameter storage: None keeps each parameter in the dtype the JAX
     # package computes it in (inference); torch.float32 gives fp32 training
     # masters
@@ -136,7 +149,8 @@ class VisionTransformer(nn.Module):
                   drop_path=float(rate),
                   dtype=dt, param_dtype=pdt, quant=cfg.quant,
                   quant_mode=cfg.quant_mode, fused_w8a8=cfg.fused_w8a8,
-                  fused_mlp=cfg.fused_mlp, qkv_i8=cfg.qkv_i8, device=device)
+                  fused_mlp=cfg.fused_mlp, qkv_i8=cfg.qkv_i8,
+                  int8_attn=cfg.int8_attn, device=device)
             for rate in dpr)
         norm_name = "fc_norm" if cfg.final_reduction == "fc_norm" else "norm"
         setattr(self, norm_name, LayerNormFp32(cfg.embed_dim, dtype=dt,
@@ -173,12 +187,26 @@ class VisionTransformer(nn.Module):
         tokens = x.to(cfg.dtype) if tokens_input else self.patch_embed(x)
         tokens = dropout(tokens + self.pos_embed, cfg.drop_rate,
                          self.training, generator)
-        for blk in self.blocks:
-            tokens = blk(tokens, generator)
+        if self._carry():
+            pending = torch.zeros_like(tokens)
+            for blk in self.blocks:
+                tokens, pending = blk.forward_carry(tokens, pending)
+            tokens = tokens + pending
+        else:
+            for blk in self.blocks:
+                tokens = blk(tokens, generator)
         if cfg.final_reduction == "fc_norm":
             return self.fc_norm(tokens.mean(dim=1))
         tokens = self.norm(tokens)
         return tokens[:, 0] if cfg.final_reduction == "cls" else tokens
+
+    def _carry(self) -> bool:
+        """Does the forward take the deferred-residual carry (``add_lnq``),
+        where the JAX program takes it: static int8 at eval, with
+        LayerNorm->int8 norms?"""
+        cfg = self.cfg
+        return (cfg.add_lnq and cfg.quant and cfg.quant_mode == "static"
+                and not self.training and cfg.embed_dim % 128 == 0)
 
     def forward(self, x, *, tokens_input: bool = False,
                 features_only: bool = False, generator=None):

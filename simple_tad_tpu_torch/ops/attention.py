@@ -30,7 +30,13 @@ keeps its ``qkv_i8`` default, else the bf16 attention with the int8
 output epilogue (B3, ops/flash_attention.py:flash_attention_qkv_q8) where
 the packed kernel takes the geometry, else plain bf16 attention on
 separate operands whose float output the proj GEMM quantizes itself (the
-JAX fallback, which drops the int8 epilogue).
+JAX fallback, which drops the int8 epilogue).  With ``int8_attn`` (the JAX
+package's SIMPLE_TAD_INT8_ATTN made an argument) the route is 'int8' first,
+wherever ``int8_attn_supported`` holds, whatever ``qkv_i8`` says:
+``dot_product_attention_qkv_int8`` quantizes qkv per head as the int8-storage
+route does and runs the int8-compute attention (E2,
+ops/flash_attention.py:flash_attention_qkv_int8), whose bf16 output the proj
+GEMM quantizes itself.
 ``static_attention_sep_route`` is InternVideo2's: int8 storage on
 separate operands (D2) where ``i8_storage_attn_sep_supported`` holds,
 else B3 on separate operands (flash_attention_q8) where the TPU's
@@ -60,7 +66,8 @@ import torch
 # package's _drop_rng_thresh) is re-exported beside the dispatch
 from simple_tad_tpu_torch.ops.flash_attention import (  # noqa: F401
     MAX_HEAD_DIM, dropout_rng_thresh, flash_attention, flash_attention_drop,
-    flash_attention_i8d, flash_attention_qkv, flash_attention_qkv_i8d)
+    flash_attention_i8d, flash_attention_qkv, flash_attention_qkv_i8d,
+    flash_attention_qkv_int8)
 from simple_tad_tpu_torch.ops.ln import quant_scale
 
 DROPOUT_FORMS = ("rng", "mask")
@@ -104,6 +111,15 @@ def i8_storage_attn_supported(N: int, C: int, num_heads: int) -> bool:
             and D % _LANE_GROUP != 0 and C % _LANE_GROUP == 0)
 
 
+def int8_attn_supported(N: int, C: int, num_heads: int) -> bool:
+    """Does the JAX package's static ViT with SIMPLE_TAD_INT8_ATTN take the
+    int8-compute attention (E2) at this geometry (ops/attention.py:
+    int8_attn_supported, without its environment knobs)?  Its gate is the
+    int8-storage one: the head dim divides 128 and is no multiple of it,
+    the channel axis is 128-aligned, N is within the single-pass cap."""
+    return i8_storage_attn_supported(N, C, num_heads)
+
+
 def packed_q8_attn_supported(N: int, C: int, num_heads: int) -> bool:
     """Does the JAX package's static ViT take the packed bf16 attention
     with the int8 output epilogue (B3) where int8 storage is not taken
@@ -144,11 +160,15 @@ def sep_q8_attn_supported(N: int, C: int, num_heads: int) -> bool:
 
 
 def static_attention_route(N: int, C: int, num_heads: int,
-                           qkv_i8: bool = True) -> str:
+                           qkv_i8: bool = True,
+                           int8_attn: bool = False) -> str:
     """The static int8 ViT's attention at this geometry, as the TPU program
-    routes it (models/layers.py Attention): 'i8' (int8 storage, B2), 'q8'
-    (bf16 with the int8 epilogue, B3) or 'float' (bf16 on separate
-    operands, the proj GEMM quantizing its input)."""
+    routes it (models/layers.py Attention): 'int8' (int8 compute, E2; with
+    ``int8_attn``), 'i8' (int8 storage, B2), 'q8' (bf16 with the int8
+    epilogue, B3) or 'float' (bf16 on separate operands, the proj GEMM
+    quantizing its input)."""
+    if int8_attn and int8_attn_supported(N, C, num_heads):
+        return "int8"
     if qkv_i8 and i8_storage_attn_supported(N, C, num_heads):
         return "i8"
     return "q8" if packed_q8_attn_supported(N, C, num_heads) else "float"
@@ -293,3 +313,13 @@ def dot_product_attention_qkv_i8(qkv, qkv_amax, out_amax, *, num_heads: int,
     return flash_attention_qkv_i8d(qkv_i8, qkv_amax, num_heads, scale,
                                    out_amax)
 
+
+def dot_product_attention_qkv_int8(qkv, qkv_amax, *, num_heads: int,
+                                   scale: float):
+    """int8-compute attention: qkv (B, N, 3C) float, post-bias -> bf16
+    (B, N, C), quantized per head against ``qkv_amax`` (3, H) as
+    ``dot_product_attention_qkv_i8`` quantizes it, then
+    flash_attention_qkv_int8.  The static model takes this where
+    ``static_attention_route`` returns 'int8'."""
+    qkv_i8 = quantize_per_head(qkv, qkv_amax.reshape(-1), 3 * num_heads)
+    return flash_attention_qkv_int8(qkv_i8, qkv_amax, num_heads, scale)

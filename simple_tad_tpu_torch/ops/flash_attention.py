@@ -22,6 +22,13 @@ whatever the model dtype (csrc/attention_i8.cu).  The TPU kernel's
 bf16-output mode is reached only through an environment knob of the JAX
 package and is not ported.
 
+int8-compute attention (kernel E2, csrc/attention_int8.cu; port of
+flash_attention_qkv_int8, TPU kernel _fwd_kernel_int8_packed): the static
+int8 ViT's ``int8_attn`` option.  Both products run in int8 on the packed
+int8 qkv: a max-subtracted softmax whose probabilities become codes
+round(exp2(s - m) * 127), an int8 PV, the fp32 row sum of the codes as the
+denominator and a bf16 output (``flash_attention_qkv_int8``).
+
 Separate operands (InternVideo2, whose q and k are RMS-normalised between
 the qkv projection and attention): ``flash_attention`` is the port of
 flash_attention -> _flash_primal_packed_impl (TPU kernels
@@ -101,7 +108,8 @@ the kernel or raises.  ``LAUNCHES`` counts launches of the bf16/fp32
 inference kernel on the packed qkv, ``SEP_LAUNCHES`` on separate operands,
 ``Q8_LAUNCHES`` and ``Q8_SEP_LAUNCHES`` those of B3 (packed, separate),
 ``I8_LAUNCHES`` those of the int8 one on the packed qkv and
-``I8_SEP_LAUNCHES`` on separate operands, ``FWD_LSE_LAUNCHES`` and
+``I8_SEP_LAUNCHES`` on separate operands, ``INT8_LAUNCHES`` those of the
+int8-compute one (E2), ``FWD_LSE_LAUNCHES`` and
 ``SEP_FWD_LSE_LAUNCHES`` those of the training forward (packed, separate)
 and ``BWD_LAUNCHES`` and ``SEP_BWD_LAUNCHES`` calls of the training
 backward (each call launches two kernels: dk/dv, then dq);
@@ -111,6 +119,8 @@ forward and backward with a mask, ``DROP_RNG_FWD_LAUNCHES`` and
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -124,6 +134,7 @@ LAUNCHES = 0
 SEP_LAUNCHES = 0
 I8_LAUNCHES = 0
 I8_SEP_LAUNCHES = 0
+INT8_LAUNCHES = 0
 Q8_LAUNCHES = 0
 Q8_SEP_LAUNCHES = 0
 FWD_LSE_LAUNCHES = 0
@@ -975,6 +986,109 @@ def flash_attention_qkv_i8d(qkv_i8, amax, num_heads: int, scale: float,
                                num_heads, scale, N)
     global I8_LAUNCHES
     I8_LAUNCHES += 1
+    return out
+
+
+@contextlib.contextmanager
+def _fp32_matmul_exact():
+    """fp32 matrix products in full fp32 on the card (no TF32), so that
+    products of int8 values summed below 2^24 stay exact."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def int8_attention_codes(qkv_i8, amax, num_heads: int, scale: float):
+    """The probability codes of the int8-compute attention -> (p (B, H, N,
+    N) fp32 integers in [0, 127], v (B, H, N, Dh) int8, sv (H, 1, 1)).
+
+    Per head, with sq, sk, sv = amax / 127: s = float(q_i8 . k_i8) *
+    (((sq * sk) * scale) * log2e); p = round_half_even(exp2(s - m) * 127)
+    with m the row maximum of s.  The scores are an fp32 product of the
+    int8 values: exact, each partial sum an integer below 64 * 127^2 <
+    2^24, with TF32 off.
+    """
+    q, k, v = _split_heads(qkv_i8, num_heads)
+    sq, sk, sv = (amax.float() * (1.0 / 127.0))[..., None, None]
+    with _fp32_matmul_exact():
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s * (sq * sk * scale * LOG2E)
+    p = torch.round(torch.exp2(s - s.amax(dim=-1, keepdim=True)) * 127.0)
+    return p, v, sv
+
+
+def flash_attention_qkv_int8_plain(qkv_i8, amax, num_heads: int,
+                                   scale: float):
+    """The int8-compute attention -> bf16 (B, N, C).
+
+    qkv_i8 (B, N, 3C) int8 per-head codes against amax (3, H) fp32; the
+    codes p of ``int8_attention_codes``; l = the fp32 row sum of p (exact
+    integers); o = p . v_i8, exact in float64 (at N = 1568 the sums reach
+    1568 * 127^2 > 2^24); out = bf16((float(o) / l) * sv).
+    """
+    p, v, sv = int8_attention_codes(qkv_i8, amax, num_heads, scale)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.double(), v.double()).float()
+    return _merge_heads((o / l * sv).to(torch.bfloat16))
+
+
+def flash_attention_qkv_int8(qkv_i8, amax, num_heads: int, scale: float):
+    """Non-causal attention computed in int8 on the packed int8 qkv
+    (kernel E2) -> bf16 (B, N, C).
+
+    qkv_i8: (B, N, 3C) int8, contiguous, [q | k | v] columns each
+    (H, Dh)-major, Dh a multiple of 8 and at most 64 (a multiple of 16 goes
+    straight in, 8 is zero-padded to 16); amax: (3, H) fp32, the per-head
+    absmax the codes were made against, on the device (no host
+    synchronisation).
+    """
+    if qkv_i8.device.type == "cpu":
+        return flash_attention_qkv_int8_plain(qkv_i8, amax, num_heads, scale)
+    name = "flash_attention_qkv_int8"
+    if qkv_i8.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {qkv_i8.device}")
+    if qkv_i8.dtype != torch.int8 or qkv_i8.dim() != 3 \
+            or qkv_i8.shape[-1] % (3 * num_heads):
+        raise ValueError(f"{name}: qkv {qkv_i8.dtype} "
+                         f"{tuple(qkv_i8.shape)} is not int8 "
+                         f"(B, N, 3 * {num_heads} * Dh)")
+    B, N, C3 = qkv_i8.shape
+    C = C3 // 3
+    D = C // num_heads
+    if D % 8 or D > 64:
+        raise ValueError(f"{name}: head dim {D} must be a multiple of 8 and "
+                         f"at most 64")
+    if not qkv_i8.is_contiguous():
+        raise ValueError(f"{name}: qkv must be contiguous")
+    if not scale > 0:
+        raise ValueError(f"{name}: scale {scale} must be > 0")
+    if amax.numel() != 3 * num_heads or amax.dtype != torch.float32 \
+            or amax.device != qkv_i8.device or not amax.is_contiguous():
+        raise ValueError(f"{name}: amax must be {3 * num_heads} contiguous "
+                         f"fp32 values on qkv's device")
+    if B == 0 or N == 0:
+        return torch.empty((B, N, C), dtype=torch.bfloat16,
+                           device=qkv_i8.device)
+    dp = -(-D // 16) * 16
+    if dp != D:
+        qkv_i8 = _pad_heads(qkv_i8, 3 * num_heads, dp)
+    if qkv_i8.data_ptr() % 16:
+        raise ValueError(f"{name}: qkv must be 16-byte aligned")
+    out = torch.empty((B, N, num_heads * dp), dtype=torch.bfloat16,
+                      device=qkv_i8.device)
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(qkv_i8.device).cuda_stream
+    code = lib.stt_attention_int8(qkv_i8.data_ptr(), amax.data_ptr(),
+                                  out.data_ptr(), B, N, num_heads, dp,
+                                  float(scale), stream)
+    kbuild.check(code, "attention_int8")
+    global INT8_LAUNCHES
+    INT8_LAUNCHES += 1
+    if dp != D:
+        out = out.view(B, N, num_heads, dp)[..., :D].reshape(B, N, C)
     return out
 
 

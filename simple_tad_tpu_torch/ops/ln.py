@@ -10,6 +10,13 @@ by default), the kernels take any C up to 4096: ``layernorm`` serves every
 LayerNorm of the bf16 ViT (norm1, norm2, fc_norm), ``layernorm_quant`` the
 int8 model's norm1 and norm2, whose output is the next GEMM's int8 input.
 
+Residual add + LayerNorm->int8 (kernel E1, csrc/layernorm.cu
+``stt_add_layernorm_quant``): port of fused_add_layernorm_quant (TPU kernel
+_add_ln_quant_kernel), the static int8 ViT's deferred-residual carry
+(``add_lnq``).  It returns the sum residual + branch rounded to their dtype
+and the codes of ``layernorm_quant`` of that stored sum: B1's kernel with the
+add in front, so its codes equal B1's of the sum bit for bit.
+
 RMSNorm->int8 (kernel D3, csrc/layernorm.cu ``stt_rmsnorm_quant``): port
 of fused_rmsnorm_quant (TPU kernel _rms_quant_kernel), InternVideo2's
 static int8 serving with the fused RMSNorm->int8 option.  fp32 mean(x^2),
@@ -25,6 +32,7 @@ backward is not a Pallas kernel, so neither is this one.
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  ``LAUNCHES`` counts launches of the LayerNorm
 kernel, ``QUANT_LAUNCHES`` those of the LayerNorm->int8 kernel,
+``ADD_QUANT_LAUNCHES`` those of the add + LayerNorm->int8 kernel,
 ``RMSQ_LAUNCHES`` those of the RMSNorm->int8 kernel.
 """
 
@@ -37,6 +45,7 @@ from simple_tad_tpu_torch.kernels import build as kbuild
 MAX_COLS = 4096
 LAUNCHES = 0
 QUANT_LAUNCHES = 0
+ADD_QUANT_LAUNCHES = 0
 RMSQ_LAUNCHES = 0
 
 
@@ -153,6 +162,56 @@ def layernorm_quant(x, weight, bias, amax, eps: float = 1e-6):
     global QUANT_LAUNCHES
     QUANT_LAUNCHES += 1
     return out
+
+
+def add_layernorm_quant_plain(branch, residual, weight, bias, amax,
+                              eps: float = 1e-6):
+    """-> (sum, codes): residual + branch in fp32 rounded to branch's
+    dtype, and ``layernorm_quant_plain`` of that stored sum."""
+    total = (branch.float() + residual.float()).to(branch.dtype)
+    return total, layernorm_quant_plain(total, weight, bias, amax, eps)
+
+
+def add_layernorm_quant(branch, residual, weight, bias, amax,
+                        eps: float = 1e-6):
+    """The residual add, then LayerNorm->int8 of the sum.
+
+    branch, residual: (..., C) bf16 or fp32 of one shape and dtype,
+    contiguous; weight, bias: (C,); amax: one fp32 value on their device ->
+    (sum in their dtype, int8 codes), both (..., C).
+    """
+    if branch.device.type == "cpu":
+        return add_layernorm_quant_plain(branch, residual, weight, bias, amax,
+                                         eps)
+    if branch.device.type != "cuda":
+        raise ValueError(f"add_layernorm_quant: unsupported device "
+                         f"{branch.device}")
+    if residual.shape != branch.shape or residual.dtype != branch.dtype \
+            or residual.device != branch.device \
+            or not residual.is_contiguous():
+        raise ValueError("add_layernorm_quant: residual must be contiguous "
+                         "and share the branch's shape, dtype and device")
+    rows, C = _check("add_layernorm_quant", branch, weight, bias)
+    if amax.numel() != 1 or amax.device != branch.device \
+            or amax.dtype != torch.float32:
+        raise ValueError("add_layernorm_quant: amax must be one fp32 value "
+                         "on the inputs' device")
+    total = torch.empty_like(branch)
+    out = torch.empty(branch.shape, dtype=torch.int8, device=branch.device)
+    if rows == 0:
+        return total, out
+    w = weight.float().contiguous()
+    b = bias.float().contiguous()
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(branch.device).cuda_stream
+    code = lib.stt_add_layernorm_quant(
+        branch.data_ptr(), residual.data_ptr(), w.data_ptr(), b.data_ptr(),
+        amax.data_ptr(), total.data_ptr(), out.data_ptr(), rows, C,
+        float(eps), kbuild.dtype_code(branch.dtype), stream)
+    kbuild.check(code, "add_layernorm_quant")
+    global ADD_QUANT_LAUNCHES
+    ADD_QUANT_LAUNCHES += 1
+    return total, out
 
 
 def rmsnorm_quant_plain(x, weight, inv_c, eps: float = 1e-6):

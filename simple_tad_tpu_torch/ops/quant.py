@@ -159,8 +159,9 @@ def quant_model(cfg, qstate, mode: str, device):
     ``mode`` holding ``qstate`` (quantize_vit_params' or
     quantize_iv2_params' output; with the calibrated absmax for mode
     'static').  The config's static serving options (``fused_w8a8``,
-    ``fused_mlp``, ``qkv_i8``, ``fused_rmsq``) carry over.  A model that
-    never takes int8-storage attention (``qkv_i8=False``) has no
+    ``fused_mlp``, ``qkv_i8``, ``fused_rmsq``; the ViT's ``int8_attn`` and
+    ``add_lnq``) carry over.  A model that takes neither int8-storage nor
+    int8-compute attention (``qkv_i8=False`` without ``int8_attn``) has no
     ``attn.qkv_amax``; one in ``qstate`` (calibration records it) is left
     out."""
     from simple_tad_tpu_torch.models.internvideo2 import (IV2Config,

@@ -729,7 +729,8 @@ def _launches():
             "i8": fa.I8_LAUNCHES, "i8_sep": fa.I8_SEP_LAUNCHES,
             "q8": fa.Q8_LAUNCHES, "q8_sep": fa.Q8_SEP_LAUNCHES,
             "sep": fa.SEP_LAUNCHES, "gemm": int8_gemm.GEMM_LAUNCHES,
-            "mlp": int8_gemm.MLP_LAUNCHES, "int_mm": quant.INT_MM_CALLS}
+            "mlp": int8_gemm.MLP_LAUNCHES, "int_mm": quant.INT_MM_CALLS,
+            "add_lnq": ln.ADD_QUANT_LAUNCHES, "int8": fa.INT8_LAUNCHES}
 
 
 @pytest.mark.cuda
@@ -985,3 +986,168 @@ def test_tiny_vit_train_step_with_attn_dropout_goes_through_kernels(form,
                      else (0, 0, 0, 0, 2, 2))
     assert torch.isfinite(metrics["loss"]) and logits.shape == (2, 2)
     assert all(p.grad is not None for p in model.parameters())
+
+
+# The static int8 ViT's opt-in variants: E1 (residual add + LayerNorm->int8)
+# equals B1 on its stored sum bit for bit (B1's kernel with the add in
+# front); E2 (int8-compute attention) is held to its plain version by the
+# share of bf16 outputs that differ (1%) and, per output, by what one
+# flipped probability code can move it (sv * 254 / (l - 1) of its row, plus
+# a bf16 rounding of either side), where exp2f and torch.exp2 round a code
+# at a .5 boundary apart.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows", [1568, 15, 1])
+@pytest.mark.parametrize("C", [128, 384, 768, 1024, 4096, 100])
+def test_add_layernorm_quant_kernel_matches_plain(rows, C, dtype, cuda):
+    branch = (_randn((rows, C), 40, cuda) * 2 + 0.5).to(dtype)
+    residual = (_randn((rows, C), 41, cuda) * 3).to(dtype)
+    w = _randn((C,), 42, cuda) * 0.2 + 1
+    b = _randn((C,), 43, cuda) * 0.1
+    total, _ = ln.add_layernorm_quant_plain(branch, residual, w, b,
+                                            torch.ones((), device=cuda))
+    amax = ln.layernorm_plain(total, w, b, out_dtype=torch.float32
+                              ).abs().max() * 0.9
+    before = ln.ADD_QUANT_LAUNCHES
+    got_sum, got = ln.add_layernorm_quant(branch, residual, w, b, amax)
+    torch.cuda.synchronize()
+    assert ln.ADD_QUANT_LAUNCHES == before + 1
+    assert got_sum.dtype == dtype and got.dtype == torch.int8
+    assert torch.equal(got_sum, total)
+    assert torch.equal(got, ln.layernorm_quant(got_sum, w, b, amax))
+    worst, share = _code_diff(got, ln.layernorm_quant_plain(total, w, b,
+                                                            amax))
+    assert worst <= 1 and share <= I8_SHARE, (worst, share)
+
+
+def _int8_codes(b, n, heads, d, seed, device):
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.integers(-127, 128, (b, n, 3 * heads * d)
+                                        ).astype(np.int8)).to(device)
+    amax = torch.from_numpy(rng.uniform(0.5, 4.0, (3, heads)).astype(
+        np.float32)).to(device)
+    return qkv, amax
+
+
+def _assert_within_one_code(got, want, qkv_i8, amax, heads, scale):
+    p, _, sv = fa.int8_attention_codes(qkv_i8, amax, heads, scale)
+    l = p.sum(dim=-1, keepdim=True)
+    d = qkv_i8.shape[-1] // 3 // heads
+    effect = fa._merge_heads((sv * 254.0 / (l - 1)).expand(
+        *l.shape[:-1], d))
+    diff = (got.float() - want.float()).abs()
+    share = float((diff > 0).float().mean())
+    assert share <= 0.01, share
+    assert bool((diff <= effect + want.float().abs() * 2 ** -7).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 131, 1568, 4096])
+@pytest.mark.parametrize("heads,d", [(6, 64), (12, 64), (16, 64), (4, 16),
+                                     (4, 32)])
+def test_attention_int8_kernel_matches_plain(heads, d, n, cuda):
+    """ViT-S, ViT-B and ViT-L geometry (Dh 64), and Dh 16 and 32."""
+    qkv_i8, amax = _int8_codes(2, n, heads, d, 44, cuda)
+    scale = d ** -0.5
+    before = fa.INT8_LAUNCHES
+    got = fa.flash_attention_qkv_int8(qkv_i8, amax, heads, scale)
+    torch.cuda.synchronize()
+    assert fa.INT8_LAUNCHES == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (2, n, heads * d)
+    want = fa.flash_attention_qkv_int8_plain(qkv_i8, amax, heads, scale)
+    _assert_within_one_code(got, want, qkv_i8, amax, heads, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 200])
+def test_attention_int8_kernel_pv_key_order(n, cuda):
+    """The PV product's key permutation: v one-hot (key j holds 127 at dim
+    j % 64 and 0 elsewhere), so output (row, c) is 127 times the sum of the
+    codes of keys c, c + 64, ... over l: each dim picks out its own keys'
+    codes, and a key read at another key's place moves it."""
+    heads, d = 2, 64
+    qkv_i8, amax = _int8_codes(1, n, heads, d, 45, cuda)
+    C = heads * d
+    v = qkv_i8[..., 2 * C:].view(1, n, heads, d)
+    v.zero_()
+    keys = torch.arange(n, device=cuda)
+    v[0, keys, :, keys % d] = 127
+    amax[2] = 127.0
+    scale = d ** -0.5
+    got = fa.flash_attention_qkv_int8(qkv_i8, amax, heads, scale)
+    torch.cuda.synchronize()
+    p, _, sv = fa.int8_attention_codes(qkv_i8, amax, heads, scale)
+    picked = torch.stack([p[..., keys[keys % d == c]].sum(dim=-1)
+                          for c in range(d)], -1)
+    want = fa._merge_heads(((picked * 127) / p.sum(dim=-1, keepdim=True)
+                            * sv).to(torch.bfloat16))
+    _assert_within_one_code(got, want, qkv_i8, amax, heads, scale)
+    assert torch.equal(want, fa.flash_attention_qkv_int8_plain(
+        qkv_i8, amax, heads, scale))
+
+
+@pytest.mark.cuda
+def test_attention_int8_kernel_rejects_unsupported_head_dim(cuda):
+    qkv = torch.zeros((1, 8, 3 * 1 * 128), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_qkv_int8(qkv, torch.ones(3, 1, device=cuda), 1,
+                                    0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [dict(add_lnq=True),
+                                     dict(int8_attn=True),
+                                     dict(add_lnq=True, int8_attn=True,
+                                          fused_w8a8=True, fused_mlp=True)],
+                         ids=["add_lnq", "int8_attn", "both_fused"])
+def test_tiny_int8_vit_variants_go_through_kernels(options, cuda):
+    """Static int8 ViT-S (2 layers) with each variant: per block two E1
+    launches and no LayerNorm->int8 (add_lnq), one E2 launch and no B2
+    (int8_attn); with add_lnq the logits equal the same model's without it
+    bit for bit, and every variant's are within the int8 bound of the
+    model run through the plain versions."""
+    from unittest import mock
+    from simple_tad_tpu_torch.models import create_model, layers
+    from simple_tad_tpu_torch.ops import attention
+    from simple_tad_tpu_torch.ops.quant import quantize_and_calibrate
+    masters = create_model("vit_small_patch16_224", device="cpu",
+                           generator=torch.Generator().manual_seed(0),
+                           img_size=32, depth=2, init_scale=1.0,
+                           init_values=0.1)
+    x = _randn((2, 32, 384), 46, cuda).bfloat16()
+    base = dataclasses.replace(masters.cfg, dtype=torch.bfloat16)
+    model = quantize_and_calibrate(dataclasses.replace(base, **options),
+                                   masters.state_dict(), [x], device=cuda,
+                                   tokens_input=True)
+    before = _launches()
+    with torch.inference_mode():
+        logits = model(x, tokens_input=True)
+    torch.cuda.synchronize()
+    after = _launches()
+    got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    want = {"add_lnq": 4} if options.get("add_lnq") else {"lnq": 4}
+    want.update({"int8": 2} if options.get("int8_attn") else {"i8": 2})
+    if options.get("fused_w8a8"):
+        want.update(gemm=4, mlp=2)
+    else:
+        want["int_mm"] = 8
+    assert got == want, got
+    assert torch.isfinite(logits).all()
+    if options == dict(add_lnq=True):
+        unfused = quantize_and_calibrate(base, masters.state_dict(), [x],
+                                         device=cuda, tokens_input=True)
+        with torch.inference_mode():
+            assert torch.equal(logits, unfused(x, tokens_input=True))
+    with mock.patch.object(layers, "add_layernorm_quant",
+                           ln.add_layernorm_quant_plain), \
+            mock.patch.object(layers, "layernorm_quant",
+                              ln.layernorm_quant_plain), \
+            mock.patch.object(attention, "flash_attention_qkv_int8",
+                              fa.flash_attention_qkv_int8_plain), \
+            mock.patch.object(attention, "flash_attention_qkv_i8d",
+                              fa.flash_attention_qkv_i8d_plain), \
+            torch.inference_mode():
+        plain = model(x, tokens_input=True)
+    torch.testing.assert_close(logits, plain, rtol=0,
+                               atol=2.5e-2 * float(plain.abs().max()))
+

@@ -1,14 +1,18 @@
 """Port the static int8 serving options (``fused_w8a8``, ``fused_mlp``,
 ``qkv_i8=False``: the fused int8 GEMM kernels B4 and the int8-output
-attention B3) against the JAX package's programs that they reproduce, on
-the tiny fp32 ViT (tests/test_torch_quant_vit.py) and IV2
-(tests/test_torch_iv2.py).
+attention B3; the ViT's ``add_lnq`` and ``int8_attn``: the deferred-residual
+carry through E1 and the int8-compute attention E2) against the JAX
+package's programs that they reproduce, on the tiny fp32 ViT
+(tests/test_torch_quant_vit.py) and IV2 (tests/test_torch_iv2.py).
 
 The JAX side runs each program as on a TPU, its Pallas kernels in
 interpret mode: SIMPLE_TAD_FUSED_LNQ=force and SIMPLE_TAD_FORCE_QKV_I8=1
 (the default int8 program), plus SIMPLE_TAD_FUSED_W8A8=force for
 ``fused_w8a8``, or SIMPLE_TAD_QKV_I8=0 with SIMPLE_TAD_FORCE_PACKED_ATTN=1
-for ``qkv_i8=False`` (the ViT then runs _flash_primal_packed_qkv_q8_impl).
+for ``qkv_i8=False`` (the ViT then runs _flash_primal_packed_qkv_q8_impl),
+SIMPLE_TAD_ADD_LNQ=1 for ``add_lnq`` (its scanned blocks then take the
+carry through _add_ln_quant_kernel) and SIMPLE_TAD_INT8_ATTN=1 with
+SIMPLE_TAD_FORCE_INT8_ATTN=1 for ``int8_attn`` (_fwd_kernel_int8_packed).
 ``fused_mlp`` is held to the JAX *unfused* static model: the JAX fused MLP
 applies the tanh GELU at fp32, the unfused model the erf one (ROADMAP F4),
 and the port's fused MLP computes the unfused model's function.  The JAX
@@ -25,10 +29,11 @@ Tolerances, each with its reason:
   * the B3 plain versions against the Pallas kernels: codes at most 1
     apart, at most 1% of codes apart, and a control (probabilities not
     rounded to bf16) beyond that share, as tests/test_torch_iv2_ops.py;
-  * FrameEvaluator and the CLIs: with the fused GEMMs the same predictions
-    bit for bit (plain versions on the CPU); with ``qkv_i8=False`` (bf16
-    attention instead of int8-stored q, k, v) within ROADMAP F2's int8
-    bound, 2e-3 in risk.
+  * FrameEvaluator and the CLIs: with the fused GEMMs, and with
+    ``add_lnq``, the same predictions bit for bit (plain versions on the
+    CPU); with ``qkv_i8=False`` (bf16 attention instead of int8-stored q, k,
+    v) and with ``int8_attn`` (probabilities in 1/127 steps) within ROADMAP
+    F2's int8 bound, 2e-3 in risk.
 """
 
 import csv
@@ -65,21 +70,42 @@ from tests.test_torch_vit import (TINY, one_torch_thread,  # noqa: F401
                                   perturbed_jax_params, port_model_from)
 
 CODE_SHARE = 0.01
+ADD_LNQ = {"SIMPLE_TAD_ADD_LNQ": "1"}
+INT8_ATTN = {"SIMPLE_TAD_INT8_ATTN": "1", "SIMPLE_TAD_FORCE_INT8_ATTN": "1"}
+VARIANTS = dict(add_lnq=True, int8_attn=True)
 JAX_PROGRAMS = {
-    # port options -> the JAX environment of the program they reproduce
+    # port options -> (the JAX environment of the program they reproduce,
+    # the options, the tree's geometry beyond TINY4)
     "fused_w8a8": ({"SIMPLE_TAD_FUSED_W8A8": "force"},
-                   dict(fused_w8a8=True)),
-    "fused_mlp": ({}, dict(fused_mlp=True)),
+                   dict(fused_w8a8=True), {}),
+    "fused_mlp": ({}, dict(fused_mlp=True), {}),
     "fused_both": ({"SIMPLE_TAD_FUSED_W8A8": "force"},
-                   dict(fused_w8a8=True, fused_mlp=True)),
+                   dict(fused_w8a8=True, fused_mlp=True), {}),
     "no_qkv_i8": ({"SIMPLE_TAD_QKV_I8": "0",
                    "SIMPLE_TAD_FORCE_PACKED_ATTN": "1"},
-                  dict(qkv_i8=False)),
+                  dict(qkv_i8=False), {}),
+    "add_lnq": (ADD_LNQ, dict(add_lnq=True), {}),
+    "int8_attn": (INT8_ATTN, dict(int8_attn=True), {}),
+    "add_lnq_int8_attn": ({**ADD_LNQ, **INT8_ATTN}, VARIANTS, {}),
+    "add_lnq_int8_attn_fused": (
+        {**ADD_LNQ, **INT8_ATTN, "SIMPLE_TAD_FUSED_W8A8": "force"},
+        dict(VARIANTS, fused_w8a8=True, fused_mlp=True), {}),
+    # N = 4 * 5 = 20 tokens, no multiple of 8: the JAX kernels pad to 24
+    # and mask, the port's kernels mask by index
+    "add_lnq_int8_attn_n20": ({**ADD_LNQ, **INT8_ATTN}, VARIANTS,
+                              dict(all_frames=10)),
 }
+# the logit bound of a case where one LayerNorm->int8 code flips (the
+# Pallas LN kernel sums the row in another fp32 order): ROADMAP F2's int8
+# bound.  At N = 20 block 1's norm2 emits one code 1 apart from the JAX
+# one on inputs equal to the JAX ones (every earlier GEMM output and every
+# E2 output equal bit for bit): logits 4.21e-5 apart
+LOGIT_ATOL = {"add_lnq_int8_attn_n20": 2e-3}
 
 
 def _counts():
-    return (ln.QUANT_LAUNCHES, ln.RMSQ_LAUNCHES, fa.I8_LAUNCHES,
+    return (ln.QUANT_LAUNCHES, ln.ADD_QUANT_LAUNCHES, ln.RMSQ_LAUNCHES,
+            fa.I8_LAUNCHES, fa.INT8_LAUNCHES,
             fa.I8_SEP_LAUNCHES, fa.Q8_LAUNCHES, fa.Q8_SEP_LAUNCHES,
             fa.SEP_LAUNCHES, int8_gemm.GEMM_LAUNCHES,
             int8_gemm.MLP_LAUNCHES)
@@ -91,10 +117,11 @@ def _port_tree(qp):
 
 @pytest.mark.parametrize("program", sorted(JAX_PROGRAMS))
 def test_static_vit_options_on_jax_tree_match_jax(program, monkeypatch):
-    env, options = JAX_PROGRAMS[program]
-    jcfg = JaxViTConfig(**TINY4)
+    env, options, geometry = JAX_PROGRAMS[program]
+    cfg = dict(TINY4, **geometry)
+    jcfg = JaxViTConfig(**cfg)
     params = perturbed_jax_params(jcfg, seed=0)
-    x = _video(1)
+    x = _video(1, frames=cfg["all_frames"])
     monkeypatch.setenv("SIMPLE_TAD_FUSED_LNQ", "force")
     monkeypatch.setenv("SIMPLE_TAD_FORCE_QKV_I8", "1")
     for key, val in env.items():
@@ -108,8 +135,9 @@ def test_static_vit_options_on_jax_tree_match_jax(program, monkeypatch):
         # a static tree of this JAX program has no qkv_amax (only the
         # int8-storage branch makes it); the model must not need it
         sd = {k: v for k, v in sd.items() if not k.endswith("qkv_amax")}
-    model = quant.quant_model(ViTConfig(**TINY4, **options), sd, "static",
+    model = quant.quant_model(ViTConfig(**cfg, **options), sd, "static",
                               "cpu")
+    assert model._carry() == options.get("add_lnq", False)
     assert isinstance(model.blocks[0].mlp.fused_mlp, bool)
     assert model.blocks[0].mlp.fused_mlp == options.get("fused_mlp", False)
     before = _counts()
@@ -117,7 +145,8 @@ def test_static_vit_options_on_jax_tree_match_jax(program, monkeypatch):
         got = model(torch.from_numpy(x))
     assert _counts() == before
     assert np.abs(want).max() > 1e-2
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=LOGIT_ATOL.get(program, 1e-5), rtol=0)
 
 
 @pytest.mark.parametrize("program", ["fused", "fused_rmsq", "no_qkv_i8"])
@@ -265,7 +294,8 @@ def _risks(rows):
 @pytest.fixture(scope="module")
 def evaluated(dota_root):
     """FrameEvaluator (static int8) with the default program, with the
-    fused GEMMs, and with qkv_i8=False, on the same tiny ViT."""
+    fused GEMMs, with qkv_i8=False, with add_lnq and with add_lnq and
+    int8_attn, on the same tiny ViT."""
     params = perturbed_jax_params(JaxViTConfig(**TINY), seed=7)
     ds = FrameDataset(read_dota_clips(dota_root, "val_split.txt"),
                       mode="test", view_len=16, target_fps=10, orig_fps=10,
@@ -273,7 +303,9 @@ def evaluated(dota_root):
     out = {}
     for name, options in (("default", {}),
                           ("fused", dict(fused_w8a8=True, fused_mlp=True)),
-                          ("no_qkv_i8", dict(qkv_i8=False))):
+                          ("no_qkv_i8", dict(qkv_i8=False)),
+                          ("add_lnq", dict(add_lnq=True)),
+                          ("variants", dict(add_lnq=True, int8_attn=True))):
         ev = FrameEvaluator(port_model_from(params, **TINY), device="cpu",
                             batch_size=8, resize_on_host=True, quant8=True,
                             **options)
@@ -294,6 +326,16 @@ def test_evaluator_options_serve_the_same_predictions(evaluated):
     assert no_i8.n_windows == base.n_windows == 75
     np.testing.assert_allclose(_risks(no_i8.rows), _risks(base.rows),
                                atol=2e-3)
+    ev, carried = evaluated["add_lnq"]
+    assert ev.model.cfg.add_lnq and ev.model._carry()
+    for col in ("logits_safe", "logits_risk"):
+        np.testing.assert_array_equal(carried.rows[col], base.rows[col])
+    ev, variants = evaluated["variants"]
+    assert ev.model.cfg.int8_attn and ev.model._carry()
+    assert ev.model.blocks[0].attn.qkv_amax.shape == (3, 2)
+    assert variants.n_windows == 75
+    np.testing.assert_allclose(_risks(variants.rows), _risks(base.rows),
+                               atol=2e-3)
 
 
 def _csv_risks(path):
@@ -313,7 +355,8 @@ def test_eval_cli_options(dota_root, tmp_path):
     risks = {}
     for name, flags in (("default", []),
                         ("fused", ["--fused_w8a8", "--fused_mlp"]),
-                        ("no_qkv_i8", ["--no_qkv_i8"])):
+                        ("no_qkv_i8", ["--no_qkv_i8"]),
+                        ("variants", ["--add_lnq", "--int8_attn"])):
         out = tmp_path / name
         res = main(args + flags + ["--output_dir", str(out)])
         assert res.n_windows == 75
@@ -321,10 +364,13 @@ def test_eval_cli_options(dota_root, tmp_path):
     np.testing.assert_array_equal(risks["fused"], risks["default"])
     np.testing.assert_allclose(risks["no_qkv_i8"], risks["default"],
                                atol=2e-3)
+    np.testing.assert_allclose(risks["variants"], risks["default"],
+                               atol=2e-3)
 
 
 def test_inference_cli_options(dota_root, tmp_path):
-    """Streaming and batched, with the fused GEMMs and with --no_qkv_i8."""
+    """Streaming and batched, with the fused GEMMs, with --no_qkv_i8 and
+    with --add_lnq --int8_attn."""
     import os
     import zipfile
     from simple_tad_tpu_torch.cli.inference import main
@@ -341,7 +387,8 @@ def test_inference_cli_options(dota_root, tmp_path):
             "--input_size", "32", "--dtype", "float32", "--device", "cpu",
             "--quant8"]
     base = [r for _, r in main(args)]
-    for flags in (["--fused_w8a8", "--fused_mlp"], ["--no_qkv_i8"]):
+    for flags in (["--fused_w8a8", "--fused_mlp"], ["--no_qkv_i8"],
+                  ["--add_lnq", "--int8_attn"]):
         stream = [r for _, r in main(args + flags)]
         batched = [r for _, r in main(args + flags + ["--batched"])]
         assert len(stream) == 24 and len(batched) == 25
@@ -351,6 +398,8 @@ def test_inference_cli_options(dota_root, tmp_path):
         np.testing.assert_allclose(stream, batched[1:], atol=2e-3)
     with pytest.raises(ValueError, match="options of --quant8"):
         main(args[:-1] + ["--fused_mlp"])
+    with pytest.raises(ValueError, match="options of --quant8 with a ViT"):
+        main(args[:-1] + ["--int8_attn"])
 
 
 def test_options_raise_outside_static_int8():
@@ -358,15 +407,25 @@ def test_options_raise_outside_static_int8():
     twin): on a bf16/fp32 or dynamic int8 model, or a FrameEvaluator that
     serves none, it raises."""
     for options in (dict(fused_w8a8=True), dict(fused_mlp=True),
-                    dict(qkv_i8=False)):
+                    dict(qkv_i8=False), dict(add_lnq=True),
+                    dict(int8_attn=True)):
         with pytest.raises(ValueError, match="static int8"):
             VisionTransformer(ViTConfig(**TINY4, **options), device="cpu")
         with pytest.raises(ValueError, match="static int8"):
             VisionTransformer(ViTConfig(**TINY4, quant=True,
                                         quant_mode="dynamic", **options),
                               device="cpu")
-        with pytest.raises(ValueError, match="static int8"):
-            InternVideo2(IV2Config(**TINY_IV2, **options), device="cpu")
+        if "add_lnq" in options or "int8_attn" in options:
+            # InternVideo2 has neither option (its JAX model neither)
+            iv2 = create_model("internvideo2_small_patch14_224",
+                               device="cpu",
+                               generator=torch.Generator().manual_seed(0),
+                               **TINY_IV2)
+            with pytest.raises(ValueError, match="static int8 ViT"):
+                FrameEvaluator(iv2, device="cpu", quant8=True, **options)
+        else:
+            with pytest.raises(ValueError, match="static int8"):
+                InternVideo2(IV2Config(**TINY_IV2, **options), device="cpu")
         model = create_model("vit_small_patch16_224", device="cpu",
                              generator=torch.Generator().manual_seed(0),
                              **TINY4)
@@ -378,5 +437,6 @@ def test_options_raise_outside_static_int8():
     # the calibration twin of a configured static model builds
     cfg = dataclasses.replace(ViTConfig(**TINY4), quant=True,
                               quant_mode="calib", fused_w8a8=True,
-                              fused_mlp=True, qkv_i8=False)
+                              fused_mlp=True, qkv_i8=False, add_lnq=True,
+                              int8_attn=True)
     VisionTransformer(cfg, device="cpu")
