@@ -20,15 +20,21 @@ Phases (any failure raises, so the exit code is non-zero):
      largest code difference (<= 1) and the share of codes that differ,
      with the same two controls.  The training attention kernels (C1,
      the forward with lse; C2, the backward) are checked at ViT-B's
-     training shape (8, 1568, 2304) bf16 and on a masked fp32 tail: C1's
-     out under the attention bounds and its lse within LSE_ATOL, C2's
-     dqkv under the bf16 bounds, each with a control (the plain version
-     with probabilities not rounded before PV, or before dV); they are
-     timed at the job's batch, (56, 1568, 2304).  Every kernel is also
-     timed against one PyTorch call that computes the same function where
-     there is one (library_ms: scaled_dot_product_attention forward or
-     backward, layer_norm; a yardstick the port never calls), and its
-     bound_ms is computed from its shapes and the H100's data-sheet rates.
+     training shape (8, 1568, 2304) bf16 (C2's wgmma route), ViT-H's head
+     dim 80 (2, 1568, 3840) bf16 (its mma.sync route) and on a masked fp32
+     tail: C1's out under the attention bounds and its lse within
+     LSE_ATOL, C2's dqkv under the bf16 bounds, each with a control (the
+     plain version with probabilities not rounded before PV, or before
+     dV), and C2's two launches on the same inputs must be bit-equal; they
+     are timed at the job's batch, (56, 1568, 2304).  The backward's delta
+     pre-pass (attention_delta) is held to the plain rowsum at the fp32
+     bounds, against a control that rounds each product to bf16, at
+     ViT-B's job batch (timed), IV2-S batch 8 and an fp32 tail.  Every
+     kernel is also timed against one PyTorch call that computes the same
+     function where there is one (library_ms: scaled_dot_product_attention
+     forward or backward, layer_norm; a yardstick the port never calls),
+     and its bound_ms is computed from its shapes and the H100's
+     data-sheet rates.
      InternVideo2's kernels are checked at IV2-S and IV2-B batch 32, N =
      2049 (8 x 16 x 16 patches + CLS): A1 on separate operands
      (attention_sep) with v the strided column block of a real qkv tensor,
@@ -43,8 +49,9 @@ Phases (any failure raises, so the exit code is non-zero):
      attention (C3: attention_sep_fwd_lse, attention_sep_bwd, C1 and C2 on
      separate operands) is checked at IV2-S batch 8 (8, 2049, 384 x 3) bf16
      and a masked fp32 tail, v strided, with C1's and C2's bounds and
-     controls plus a gross one (v read with q's row stride), and timed at
-     the job's batch 56 against SDPA's forward and backward;
+     controls plus a gross one (v read with q's row stride), two
+     launches of C3-bwd bit-equal, and timed at the job's batch 56 against
+     SDPA's forward and backward;
   3. sliding-window evaluation at full width: ViT-B 16x224 bf16 with
      seeded weights on a synthetic 96-frame 360x640 clip (81 windows),
      device resize, token path, batch 32, through FrameEvaluator, timed
@@ -74,8 +81,10 @@ Phases (any failure raises, so the exit code is non-zero):
      RandAugment m6 n3, RandomErasing 0.25, crossentropy, AdamW, weight
      decay 0.05), synthetic uint8 clips through ops/augment.py on the
      card.  (i) batch 8: one train step must launch C1 12 times, C2 12
-     times (each C2 call is two kernel launches: dk/dv, then dq), the
-     LayerNorm kernel 25 times and the inference attention 0 times; the
+     times (each C2 call is two kernel launches: dk/dv, then dq), all 12
+     on the wgmma route (printed with its counters; head dim 64), the
+     delta pre-pass 12 times, the LayerNorm kernel 25 times and the
+     inference attention 0 times; the
      step's gradients must agree with the same step run through the plain
      versions (relative error of the global gradient norm within
      GRAD_NORM_RTOL, of the worst parameter within GRAD_PARAM_RTOL), and a
@@ -116,8 +125,9 @@ Phases (any failure raises, so the exit code is non-zero):
      0.75, drop path 0.1, RandAugment m6 n3, RandomErasing 0.25), synthetic
      uint8 clips of 8 frames through ops/augment.py on the card; as phase
      6: (i) batch 8, one train step must launch C3-fwd 12 times, C3-bwd 12
-     times and no other kernel (RMSNorm, LayerScale and the pooling head
-     are plain PyTorch), its gradients within phase 6's bounds of the
+     times on the wgmma route, the delta pre-pass 12 times and no other
+     kernel (RMSNorm, LayerScale and the pooling head are plain PyTorch),
+     its gradients within phase 6's bounds of the
      plain-version step and the control (no delta term) outside them; (ii)
      10 steps on one fixed batch at the constant lr IV2_LR, the loss must
      fall by LOSS_DROP; (iii) FinetuneTrainer at batch 56 in
@@ -162,13 +172,13 @@ Phases (any failure raises, so the exit code is non-zero):
      dropout_p 0.1 forward and backward; (ii) the Philox forward's keep
      bits, read off its output (q = k = 0, v one-hot) at (2, 2, 392, 392)
      bf16, must equal dropout_keep_plain's bit for bit; (iii) one train
-     step per form at batch 8: 12 dropout forward and 12 dropout backward
-     calls of the form, 25 LayerNorm and no C1/C2, its gradients within
-     phase 6's bounds of the plain-version step from the same generator
-     state and phase 6's control outside them; (iv) the batch-56
-     FinetuneTrainer timing of phase 6 in TIMING_PROCESSES fresh processes
-     (Philox form) and one (mask form), each first process with the step
-     breakdown and a profiler window;
+     step per form at batch 8: 12 dropout forward, 12 dropout backward
+     and 12 delta calls of the form, 25 LayerNorm and no C1/C2, its
+     gradients within phase 6's bounds of the plain-version step from the
+     same generator state and phase 6's control outside them; (iv) the
+     batch-56 FinetuneTrainer timing of phase 6 in TIMING_PROCESSES fresh
+     processes (Philox form) and one (mask form), each first process with
+     the step breakdown and a profiler window;
  12. the static int8 ViT's two opt-in serving variants, kernels E1 (the
      residual add + LayerNorm->int8 of the deferred-residual carry,
      add_lnq) and E2 (int8-compute attention, int8_attn): (i) inside phase
@@ -405,6 +415,11 @@ SOURCES = {
                             "simple_tad_tpu/ops/ln.py:91"),
     "attention_int8": ("simple_tad_tpu_torch/csrc/attention_int8.cu",
                        "simple_tad_tpu/ops/flash_attention.py:1081"),
+    # the backward's delta pre-pass (C2, C3-bwd and C4-bwd launch it): the
+    # XLA rowsum _flash_bwd_impl runs beside its TPU kernels (the packed
+    # _flash_bwd_packed_qkv_impl's is its einsum at :1020)
+    "attention_delta": ("simple_tad_tpu_torch/csrc/attention_train.cu",
+                        "simple_tad_tpu/ops/flash_attention.py:2299"),
 }
 
 
@@ -951,6 +966,24 @@ def layernorm_bound(rows, C, in_bytes, out_bytes):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def attention_delta_bf16_products(out, dout, num_heads: int):
+    """The control of the delta pre-pass: each product rounded to bf16
+    before the sum."""
+    B, N, C = out.shape
+    prod = (dout.float() * out.float()).bfloat16().float()
+    return prod.view(B, N, num_heads, -1).sum(-1).permute(0, 2, 1
+                                                          ).contiguous()
+
+
+def delta_bound(B, N, C, heads, esz):
+    """The delta pre-pass reads out and dout once and writes (B, H, N)
+    fp32 (2 operations an element outside the tensor cores)."""
+    t_bytes = (2 * B * N * C * esz + B * heads * N * 4) / PEAK["bytes"]
+    t_ops = 2.0 * B * N * C / PEAK["fp32"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def check_kernels(dev, seed: int) -> dict:
     """Phase 2 -> {kernel name: {max_abs_err, ms, plain_ms, library_ms,
     bound_ms, bound_by}}; the times are those of the main-path shape (first
@@ -1005,6 +1038,18 @@ def check_kernels(dev, seed: int) -> dict:
         if time_it == "every" or (time_it and "ms" not in r):
             timed(name, kernel, plain, library, bound,
                   case=case if "ms" in r else None)
+
+    def launches_equal(name, case, kernel):
+        """Two launches on the same inputs agree bit for bit (no atomics:
+        one summation order)."""
+        first, second = kernel(), kernel()
+        if name in SEP_GRADS:
+            first, second = torch.cat(first, -1), torch.cat(second, -1)
+        equal = torch.equal(first, second)
+        print(f"[{name}] {case}: two launches "
+              f"{'bit-equal' if equal else 'DIFFER'}")
+        if not equal:
+            failures.append(f"{name} {case}: two launches differ")
 
     print(f"[bounds] bf16: allclose {BF16_TOL} and at most this share of "
           f"outputs differing {BF16_MISMATCH}; fp32: allclose {F32_TOL} "
@@ -1097,9 +1142,11 @@ def check_kernels(dev, seed: int) -> dict:
         del qkv_i8
         torch.cuda.empty_cache()
 
-    # training attention: checked at ViT-B's b8 and a masked fp32 tail,
-    # timed at the job's batch
+    # training attention: checked at ViT-B's b8 (the backward's wgmma
+    # route), ViT-H's head dim 80 (its mma.sync route) and a masked fp32
+    # tail, timed at the job's batch
     train_cases = [((8, 1568, 2304), 12, torch.bfloat16),
+                   ((2, 1568, 3840), 16, torch.bfloat16),
                    ((2, 200, 384), 2, torch.float32)]
     for shape, heads, dt in train_cases:
         B, N, C3 = shape
@@ -1122,8 +1169,26 @@ def check_kernels(dev, seed: int) -> dict:
                  (lambda: attention_bwd_control(qkv, out, lse, dout, heads,
                                                 scale)) if bf16 else None,
                  time_it=False)
+        launches_equal("attention_bwd", f"{shape} H={heads} {dt}",
+                       lambda: fa.flash_attention_qkv_bwd(
+                           qkv, out, lse, dout, heads, scale))
         del qkv, dout, out, lse
         torch.cuda.empty_cache()
+    # the backward's delta pre-pass: at ViT-B's job batch (timed), IV2-S
+    # b8 and an fp32 tail
+    delta_cases = [((JOB_BATCH, 1568, 768), 12, torch.bfloat16),
+                   ((8, 2049, 384), 6, torch.bfloat16),
+                   ((2, 200, 384), 2, torch.float32)]
+    for (B, N, C), heads, dt in delta_cases:
+        out = torch.randn((B, N, C), generator=g, device=dev).to(dt)
+        dout = torch.randn((B, N, C), generator=g, device=dev).to(dt)
+        run_case("attention_delta", f"{(B, N, C)} H={heads} {dt}",
+                 lambda: fa.flash_attention_delta(out, dout, heads),
+                 lambda: fa.attention_delta(out, dout, heads),
+                 lambda: attention_delta_bf16_products(out, dout, heads),
+                 bound=delta_bound(B, N, C, heads, out.element_size()))
+        del out, dout
+    torch.cuda.empty_cache()
     B, N, C, heads = JOB_BATCH, 1568, 768, 12
     scale = (C // heads) ** -0.5
     qkv = torch.randn((B, N, 3 * C), generator=g,
@@ -1238,6 +1303,9 @@ def check_kernels(dev, seed: int) -> dict:
                  ([lambda: attention_sep_bwd_control(*bargs)] if bf16
                   else []) + [lambda: attention_sep_bwd_misread_v(*bargs)],
                  time_it=False)
+        launches_equal("attention_sep_bwd",
+                       f"{shape} H={heads} {dt}, v strided",
+                       lambda: fa.flash_attention_bwd(*bargs))
         del qkv, dout, ops, out, lse, bargs
         torch.cuda.empty_cache()
     B, N, C, heads = JOB_BATCH, 2049, 384, 6
@@ -1989,7 +2057,12 @@ COUNTERS = {"layernorm": ("ln", "LAUNCHES"),
             "int8_gemm": ("gemm", "GEMM_LAUNCHES"),
             "int8_mlp": ("gemm", "MLP_LAUNCHES"),
             "add_layernorm_quant": ("ln", "ADD_QUANT_LAUNCHES"),
-            "attention_int8": ("fa", "INT8_LAUNCHES")}
+            "attention_int8": ("fa", "INT8_LAUNCHES"),
+            "attention_delta": ("fa", "DELTA_LAUNCHES"),
+            # the kernels a C2 / C3-bwd call took (fa.attention_bwd_route)
+            "bwd_route_wgmma": ("fa", "BWD_WGMMA_LAUNCHES"),
+            "bwd_route_mma_sync": ("fa", "BWD_MMA_LAUNCHES"),
+            "bwd_route_fp32": ("fa", "BWD_F32_LAUNCHES")}
 
 
 def _counter_owners():
@@ -2541,6 +2614,7 @@ def grad_errors(got, want):
 def run_finetune(dev, seed: int, family: str = "vit") -> dict:
     """Phase 6 (ViT-B) or 9 (IV2-S) (i) and (ii) at batch TRAIN_BATCH ->
     stats."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
     from simple_tad_tpu_torch.train.losses import create_criterion
     from simple_tad_tpu_torch.train.steps import make_finetune_train_step
     iv2 = family == "iv2"
@@ -2579,19 +2653,29 @@ def run_finetune(dev, seed: int, family: str = "vit") -> dict:
         losses.append(float(metrics["loss"]))
     drop = 1.0 - losses[-1] / losses[0]
     print(f"[{label}] launches in one train step {launches} (each backward "
-          f"call launches two kernels: dk/dv, then dq)")
+          f"call launches the delta pre-pass, then two kernels: dk/dv, dq)")
     print(f"[{label}] {TRAIN_STEPS} steps on one augmented batch at "
           f"constant lr {lr}: losses "
           f"{' '.join(f'{x:.5f}' for x in losses)}; drop {drop:.3f} "
           f"(required {LOSS_DROP}); last grad_norm "
           f"{float(metrics['grad_norm']):.4e}")
     depth = model.cfg.depth
+    head_dim = model.cfg.embed_dim // model.cfg.num_heads
+    route = fa.attention_bwd_route(torch.bfloat16, head_dim)
+    print(f"[{label}] backward route at head dim {head_dim}: {route} "
+          f"(bwd_route_wgmma {launches['bwd_route_wgmma']}, "
+          f"bwd_route_mma_sync {launches['bwd_route_mma_sync']}, "
+          f"bwd_route_fp32 {launches['bwd_route_fp32']} calls in the step)")
     want = dict.fromkeys(COUNTERS, 0)
     if iv2:       # RMSNorm and the pooling head are plain PyTorch
         want.update(attention_sep_fwd_lse=depth, attention_sep_bwd=depth)
     else:
         want.update(layernorm=2 * depth + 1, attention_fwd_lse=depth,
                     attention_bwd=depth)
+    want["attention_delta"] = depth
+    # every trunk the fine-tuning jobs run has head dim 64: the wgmma kernels
+    assert head_dim == 64 and route == "wgmma", (head_dim, route)
+    want["bwd_route_wgmma"] = depth
     assert logits.shape == (TRAIN_BATCH, 2)
     assert np.isfinite(losses).all(), losses
     assert launches == want, (launches, want)
@@ -2656,7 +2740,7 @@ def run_finetune_dropout(dev, seed: int) -> dict:
         want_counts = dict.fromkeys(COUNTERS, 0)
         fwd, bwd = DROP_KERNELS[form]
         want_counts.update({"layernorm": 2 * depth + 1, fwd: depth,
-                            bwd: depth})
+                            bwd: depth, "attention_delta": depth})
         assert logits.shape == (TRAIN_BATCH, 2)
         assert np.isfinite(float(metrics["loss"]))
         assert launches == want_counts, (launches, want_counts)
@@ -2916,7 +3000,8 @@ def main(argv=None):
                 **{k: qstats["launches"][k]
                    for k in ("layernorm_quant", "attention_i8")},
                 **{k: fstats["launches"][k]
-                   for k in ("attention_fwd_lse", "attention_bwd")},
+                   for k in ("attention_fwd_lse", "attention_bwd",
+                             "attention_delta")},
                 "attention_sep": istats["launches"]["attention_sep"],
                 **{k: i8stats[True]["launches"][k]
                    for k in ("attention_i8_sep", "rmsnorm_quant")},

@@ -22,8 +22,9 @@
 //
 // The inputs are q, k, v, the output gradient dout (B, N, C), the
 // forward's base-2 lse (B, H, N) and delta = rowsum(dout * out) (B, H, N),
-// both fp32 (delta is computed by the caller, as the JAX package computes
-// it outside its kernel).
+// both fp32.  delta is an input, as the JAX package computes it outside its
+// kernels; the wrappers compute it with attn_delta_kernel below
+// (stt_attention_delta), a pre-pass bound by its two reads of (B, N, C).
 //
 // Numerics held to the plain version (ops/flash_attention.py) and the TPU
 // kernels: s = bf16(q * scale * log2 e) . k in fp32; p = exp2(s - lse) in
@@ -40,25 +41,52 @@
 // above the card's ~295 flop/byte, so it is bound by tensor-core
 // throughput.  The TPU kernel carries dq across a sequential key grid in
 // VMEM; on the H100 blocks run in parallel in no order, so the work is
-// split in two deterministic kernels without atomics:
-//   * dk/dv: one block of 4 warps per (64-key tile, head, batch); each
-//     warp owns 16 keys, whose K and V fragments stay in registers, and
-//     the block loops over 64-query tiles (scaled Q and dout row-major for
-//     S^T = K Q^T and dP^T = V dout^T, raw Q and dout transposed for
-//     dK += dS^T Q and dV += P^T dout, all through shared memory); P^T and
-//     dS^T go from the fp32 accumulators straight into the A fragments of
-//     the next products, as A1 does with P;
-//   * dq: one block per (64-query tile, head, batch); each warp keeps its
-//     16 rows of scaled Q and dout as fragments and loops over 64-key
-//     tiles (K and V row-major, K transposed), dQ += dS K.
-// mma.sync m16n8k16 bf16 with fp32 accumulators; no TMA, wgmma or warp
-// specialisation yet.  Row offsets inside a (batch, head) stay 32-bit, as
-// in common.cuh's tile loader.  fp32 inputs (tests, small shapes) take two
-// simple CUDA-core kernels with the same split: one thread per key (dk/dv)
-// or per query (dq), 16-row tiles in shared memory.
+// split in two deterministic kernels without atomics (dk/dv per key tile,
+// dq per query tile), each pair launched by one call.  Three routes, by
+// dtype and head dim (route() below, ops/flash_attention.py:
+// attention_bwd_route):
+//   * bf16 at head dim 64 (every trunk the fine-tuning jobs run: ViT-S/B/L,
+//     IV2-S/B/L), the wgmma kernels (namespace wg): one warpgroup per
+//     64-row tile (keys in dk/dv, queries in dq).  The streamed tiles (q and
+//     dout, or k and v) arrive by TMA (rank-3 tensor maps over (batch, row,
+//     column) at the head's column offset, 128-byte swizzle, rows beyond N
+//     read as zero) into a two-stage ring on mbarriers, thread 0 refilling
+//     a stage after the block's barrier at the end of its tile.  All five
+//     products are wgmma m64n64k16: S^T = K Qs^T and dP^T = V dout^T (dq:
+//     S = Qs K^T, dP = dout V^T) with both operands K-major in shared
+//     memory; dV += bf16(P^T) dout and dK += bf16(dS^T) q (dq:
+//     dQ += bf16(dS) K) with A from registers (the rounded fp32
+//     accumulators, whose layout is the A-fragment layout) and B read
+//     MN-major through the descriptor's transpose bit: no transposed copy
+//     is staged, and the swizzle leaves no bank conflicts.  The scaled copy
+//     of q is made in shared memory from the raw tile as it lands, so s
+//     keeps its rounding; p's exp2 runs on the special-function unit
+//     (ex2.approx.ftz: exp2f's value wherever p is a normal float).  lse
+//     and delta are read by the threads a tile ahead: a head's (B, H, N)
+//     slice starts at any 4-byte offset (N = 2049), below TMA's 16-byte
+//     alignment.  No producer warp: at 168 registers a 128-thread block
+//     fits three times an SM and a 160-thread one twice;
+//   * bf16 at the other head dims (8 to 128; ViT-H's 80, IV2-1B's 88,
+//     IV2-6B's 128) and every dropout call (C4-bwd), the mma.sync kernels:
+//     one block of 4 warps per (64-key tile, head, batch); each warp owns 16
+//     keys, whose K and V fragments stay in registers, and the block loops
+//     over 64-query tiles (scaled Q and dout row-major for S^T = K Q^T and
+//     dP^T = V dout^T, raw Q and dout transposed for dK += dS^T Q and
+//     dV += P^T dout, all through shared memory, synchronous loads); P^T
+//     and dS^T go from the fp32 accumulators straight into the A fragments
+//     of the next products, as A1 does with P; dq: one block per (64-query
+//     tile, head, batch), each warp keeping its 16 rows of scaled Q and
+//     dout as fragments over 64-key tiles (K and V row-major, K
+//     transposed), dQ += dS K;
+//   * fp32 (tests, small shapes): two simple CUDA-core kernels with the
+//     same split, one thread per key (dk/dv) or per query (dq), 16-row
+//     tiles in shared memory.
+// Row offsets inside a (batch, head) stay 32-bit, as in common.cuh's tile
+// loader.
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -588,11 +616,476 @@ __global__ void __launch_bounds__(kThreadsF32)
   }
 }
 
+// ---- the wgmma route: bf16, head dim 64, no dropout ----
+namespace wg {
+
+namespace hw = stt::hopper;
+
+constexpr int kD = 64;                        // the route's head dim
+constexpr int kRows = 64;                     // rows of a tile (wgmma's M)
+constexpr int kThreads = 128;                 // one warpgroup a block
+constexpr int kTileBytes = kRows * kD * 2;    // one bf16 tile, 8 KB
+constexpr int kStages = 2;                    // the ring of streamed tiles
+constexpr int kKStep = 32 >> 4;               // k16 step, K-major (desc)
+constexpr int kMnStep = (16 * 128) >> 4;      // k16 step, MN-major (desc)
+
+struct DkdvSmem {
+  bf16 k[kRows * kD];             // the block's keys, K-major A of S^T
+  bf16 v[kRows * kD];             // ... and of dP^T
+  bf16 qs[kRows * kD];            // bf16(q * scale * log2 e), B of S^T
+  bf16 q[kStages][kRows * kD];    // raw q: MN-major B of dK
+  bf16 o[kStages][kRows * kD];    // dout: B of dP^T, MN-major B of dV
+  float ld[2][kRows];             // the tile's lse and delta (queries)
+  uint64_t full[kStages], kv;
+};
+
+struct DqSmem {
+  bf16 qs[kRows * kD];            // the block's scaled q, A of S
+  bf16 o[kRows * kD];             // ... and dout, A of dP
+  bf16 k[kStages][kRows * kD];    // B of S; MN-major B of dQ
+  bf16 v[kStages][kRows * kD];    // B of dP
+  uint64_t full[kStages], qo;
+};
+
+constexpr int kDkdvSmem = static_cast<int>(sizeof(DkdvSmem)) + 1024;
+constexpr int kDqSmem = static_cast<int>(sizeof(DqSmem)) + 1024;
+
+// bf16(x * qscale) of a swizzled 64 x 64 tile, position for position (the
+// swizzle moves 16-byte chunks only, so the copy keeps the layout); visible
+// to wgmma once every thread has passed the block's next barrier
+__device__ __forceinline__ void scale_tile(bf16* dst, const bf16* src,
+                                           float qscale) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int i = 0; i < kRows * kD / 8 / kThreads; ++i) {
+    const int c = i * kThreads + threadIdx.x;
+    uint4 val = s[c];
+    bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      e[t] = __float2bfloat16_rn(__bfloat162float(e[t]) * qscale);
+    }
+    d[c] = val;
+  }
+  hw::fence_proxy_async();
+}
+
+__device__ __forceinline__ void zero(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+// dK and dV of one 64-key tile.  (q, dout) tiles stream by TMA through a
+// kStages ring: thread 0 refills a stage once the block's barrier at the
+// end of its tile shows every warp done with it, so the next tile's copy
+// runs under this tile's products.  S^T = K Qs^T and dP^T = V dout^T (both
+// operands K-major from shared memory), P^T and dS^T in registers (the
+// accumulator layout is the A-fragment layout of the next products), then
+// dV += bf16(P^T) dout and dK += bf16(dS^T) q with dout and q read MN-major:
+// no transposed copy.
+__global__ void __launch_bounds__(kThreads, 3)
+    attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               int n, int g_sb, int g_sn, float qscale,
+                               float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  DkdvSmem& sm = *reinterpret_cast<DkdvSmem*>(hw::align_1024(smem_raw));
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * kRows;
+  const int col = blockIdx.y * kD;
+  const int b = blockIdx.z;
+  const int tiles = (n + kRows - 1) / kRows;
+  auto issue = [&](int j) {
+    const int s = j % kStages;
+    hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+    hw::tma_load_3d(sm.q[s], &tq, &sm.full[s], col, j * kRows, b);
+    hw::tma_load_3d(sm.o[s], &tdo, &sm.full[s], col, j * kRows, b);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) hw::mbar_init(&sm.full[s], 1);
+    hw::mbar_init(&sm.kv, 1);
+    hw::mbar_init_fence();
+    hw::mbar_expect_tx(&sm.kv, 2 * kTileBytes);
+    hw::tma_load_3d(sm.k, &tk, &sm.kv, col, k0, b);
+    hw::tma_load_3d(sm.v, &tv, &sm.kv, col, k0, b);
+    for (int j = 0; j < kStages && j < tiles; ++j) issue(j);
+  }
+  __syncthreads();
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  // lse (threads 0-63) and delta (64-127) of a tile's queries, one value a
+  // thread, loaded a tile ahead (a head's (B, H, N) slice starts at any
+  // 4-byte offset, below TMA's 16-byte alignment); pad queries read none
+  const int half = tid / kRows;
+  const int r = tid % kRows;
+  const float* lsd = (half == 0 ? lse : delta) +
+                     (static_cast<size_t>(b) * gridDim.y + blockIdx.y) *
+                         static_cast<size_t>(n);
+  float next = r < n ? lsd[r] : 0.f;
+  float dka[32], dva[32];
+  zero(dka);
+  zero(dva);
+  const uint64_t desc_k = hw::desc_kmajor(sm.k);
+  const uint64_t desc_v = hw::desc_kmajor(sm.v);
+  const uint64_t desc_qs = hw::desc_kmajor(sm.qs);
+  hw::mbar_wait(&sm.kv, 0);
+
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % kStages;
+    const int q0 = j * kRows;
+    sm.ld[half][r] = next;
+    next = q0 + kRows + r < n ? lsd[q0 + kRows + r] : 0.f;
+    hw::mbar_wait(&sm.full[s], (j / kStages) & 1);
+    scale_tile(sm.qs, sm.q[s], qscale);
+    __syncthreads();  // the scaled copy, lse and delta are visible
+
+    // S^T = K (q * scale * log2e)^T and dP^T = V dout^T: 64 keys x 64
+    // queries, fp32 accumulators
+    float st[32], dpt[32];
+    zero(st);
+    zero(dpt);
+    const uint64_t desc_o = hw::desc_kmajor(sm.o[s]);
+    hw::fence_regs(st);
+    hw::fence_regs(dpt);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      hw::wgmma_ss(st, desc_k + kk * kKStep, desc_qs + kk * kKStep, kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      hw::wgmma_ss(dpt, desc_v + kk * kKStep, desc_o + kk * kKStep, kk);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(st);
+    hw::fence_regs(dpt);
+
+    // P^T = exp2(S^T - lse), dS^T = P^T (dP^T - delta); queries >= n are
+    // 0 (selected, so their lse and delta are never used).  Accumulator
+    // column tiles 2kk and 2kk+1 are the A fragments of k-step kk.
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const int c = j8 * 8 + t4 * 2;
+      const int i = j8 * 4;
+      const bool ok0 = q0 + c < n;
+      const bool ok1 = q0 + c + 1 < n;
+      const float l0 = sm.ld[0][c], l1 = sm.ld[0][c + 1];
+      const float e0 = sm.ld[1][c], e1 = sm.ld[1][c + 1];
+      const float p00 = ok0 ? hw::exp2_approx(st[i] - l0) : 0.f;
+      const float p01 = ok1 ? hw::exp2_approx(st[i + 1] - l1) : 0.f;
+      const float p10 = ok0 ? hw::exp2_approx(st[i + 2] - l0) : 0.f;
+      const float p11 = ok1 ? hw::exp2_approx(st[i + 3] - l1) : 0.f;
+      pf[j8 / 2][(j8 % 2) * 2] = as_u32(__floats2bfloat162_rn(p00, p01));
+      pf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(p10, p11));
+      const float ds00 = ok0 ? p00 * (dpt[i] - e0) : 0.f;
+      const float ds01 = ok1 ? p01 * (dpt[i + 1] - e1) : 0.f;
+      const float ds10 = ok0 ? p10 * (dpt[i + 2] - e0) : 0.f;
+      const float ds11 = ok1 ? p11 * (dpt[i + 3] - e1) : 0.f;
+      dsf[j8 / 2][(j8 % 2) * 2] = as_u32(__floats2bfloat162_rn(ds00, ds01));
+      dsf[j8 / 2][(j8 % 2) * 2 + 1] =
+          as_u32(__floats2bfloat162_rn(ds10, ds11));
+    }
+
+    // dV += bf16(P^T) dout;  dK += bf16(dS^T) q  (64 keys x 64 dims)
+    const uint64_t desc_om = hw::desc_mnmajor(sm.o[s]);
+    const uint64_t desc_qm = hw::desc_mnmajor(sm.q[s]);
+    hw::fence_regs(dva);
+    hw::fence_regs(dka);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      hw::wgmma_rs_mn(dva, pf[kk], desc_om + kk * kMnStep, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      hw::wgmma_rs_mn(dka, dsf[kk], desc_qm + kk * kMnStep, 1);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dva);
+    hw::fence_regs(dka);
+    hw::fence_regs(pf);
+    hw::fence_regs(dsf);
+    __syncthreads();  // every warp is done with stage s, qs and ld
+    if (tid == 0 && j + kStages < tiles) issue(j + kStages);
+  }
+
+  const int key0 = k0 + warp * 16 + g;
+  const int key1 = key0 + 8;
+  const size_t g_off = static_cast<size_t>(b) * g_sb + col;
+  bf16* dkb = dk + g_off;
+  bf16* dvb = dv + g_off;
+#pragma unroll
+  for (int j8 = 0; j8 < 8; ++j8) {
+    const int c = j8 * 8 + t4 * 2;
+    const int i = j8 * 4;
+    if (key0 < n) {
+      const size_t at = static_cast<size_t>(key0) * g_sn + c;
+      *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
+          __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
+          __floats2bfloat162_rn(dva[i], dva[i + 1]);
+    }
+    if (key1 < n) {
+      const size_t at = static_cast<size_t>(key1) * g_sn + c;
+      *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
+          __floats2bfloat162_rn(dka[i + 2] * scale, dka[i + 3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
+          __floats2bfloat162_rn(dva[i + 2], dva[i + 3]);
+    }
+  }
+}
+
+// dQ of one 64-query tile: q (scaled in place) and dout are loaded once;
+// (k, v) tiles stream through the ring as in the dk/dv kernel; S = Qs K^T
+// and dP = dout V^T (K-major), dS in registers, dQ += bf16(dS) K with K
+// read MN-major.  Pad query rows read no lse: their q and dout rows are
+// zero, so ds = 0.
+__global__ void __launch_bounds__(kThreads, 4)
+    attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dq, int n, int g_sb, int g_sn,
+                             float qscale, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(hw::align_1024(smem_raw));
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kRows;
+  const int col = blockIdx.y * kD;
+  const int b = blockIdx.z;
+  const int tiles = (n + kRows - 1) / kRows;
+  auto issue = [&](int j) {
+    const int s = j % kStages;
+    hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+    hw::tma_load_3d(sm.k[s], &tk, &sm.full[s], col, j * kRows, b);
+    hw::tma_load_3d(sm.v[s], &tv, &sm.full[s], col, j * kRows, b);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) hw::mbar_init(&sm.full[s], 1);
+    hw::mbar_init(&sm.qo, 1);
+    hw::mbar_init_fence();
+    hw::mbar_expect_tx(&sm.qo, 2 * kTileBytes);
+    hw::tma_load_3d(sm.qs, &tq, &sm.qo, col, q0, b);
+    hw::tma_load_3d(sm.o, &tdo, &sm.qo, col, q0, b);
+    for (int j = 0; j < kStages && j < tiles; ++j) issue(j);
+  }
+  __syncthreads();
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const size_t row_off = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) *
+                         static_cast<size_t>(n);
+  const int row0 = q0 + warp * 16 + g;
+  const int row1 = row0 + 8;
+  const float l0 = row0 < n ? lse[row_off + row0] : 0.f;
+  const float l1 = row1 < n ? lse[row_off + row1] : 0.f;
+  const float e0 = row0 < n ? delta[row_off + row0] : 0.f;
+  const float e1 = row1 < n ? delta[row_off + row1] : 0.f;
+  float acc[32];
+  zero(acc);
+  const uint64_t desc_qs = hw::desc_kmajor(sm.qs);
+  const uint64_t desc_o = hw::desc_kmajor(sm.o);
+  hw::mbar_wait(&sm.qo, 0);
+  scale_tile(sm.qs, sm.qs, qscale);  // in place: raw q is not needed here
+  __syncthreads();
+
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % kStages;
+    const int k0 = j * kRows;
+    hw::mbar_wait(&sm.full[s], (j / kStages) & 1);
+    float sc[32], dp[32];
+    zero(sc);
+    zero(dp);
+    const uint64_t desc_k = hw::desc_kmajor(sm.k[s]);
+    const uint64_t desc_v = hw::desc_kmajor(sm.v[s]);
+    hw::fence_regs(sc);
+    hw::fence_regs(dp);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      hw::wgmma_ss(sc, desc_qs + kk * kKStep, desc_k + kk * kKStep, kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      hw::wgmma_ss(dp, desc_o + kk * kKStep, desc_v + kk * kKStep, kk);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(sc);
+    hw::fence_regs(dp);
+
+    uint32_t dsf[4][4];
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const int key = k0 + j8 * 8 + t4 * 2;
+      const int i = j8 * 4;
+      const bool ok0 = key < n;
+      const bool ok1 = key + 1 < n;
+      const float p00 = ok0 ? hw::exp2_approx(sc[i] - l0) : 0.f;
+      const float p01 = ok1 ? hw::exp2_approx(sc[i + 1] - l0) : 0.f;
+      const float p10 = ok0 ? hw::exp2_approx(sc[i + 2] - l1) : 0.f;
+      const float p11 = ok1 ? hw::exp2_approx(sc[i + 3] - l1) : 0.f;
+      dsf[j8 / 2][(j8 % 2) * 2] = as_u32(__floats2bfloat162_rn(
+          p00 * (dp[i] - e0), p01 * (dp[i + 1] - e0)));
+      dsf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(
+          p10 * (dp[i + 2] - e1), p11 * (dp[i + 3] - e1)));
+    }
+
+    // dQ += bf16(dS) K  (64 queries x 64 dims)
+    const uint64_t desc_km = hw::desc_mnmajor(sm.k[s]);
+    hw::fence_regs(acc);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      hw::wgmma_rs_mn(acc, dsf[kk], desc_km + kk * kMnStep, 1);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(acc);
+    hw::fence_regs(dsf);
+    __syncthreads();  // every warp is done with stage s: refill it
+    if (tid == 0 && j + kStages < tiles) issue(j + kStages);
+  }
+
+  bf16* dqb = dq + static_cast<size_t>(b) * g_sb + col;
+#pragma unroll
+  for (int j8 = 0; j8 < 8; ++j8) {
+    const int c = j8 * 8 + t4 * 2;
+    const int i = j8 * 4;
+    if (row0 < n) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          dqb + static_cast<size_t>(row0) * g_sn + c) =
+          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+    }
+    if (row1 < n) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          dqb + static_cast<size_t>(row1) * g_sn + c) =
+          __floats2bfloat162_rn(acc[i + 2] * scale, acc[i + 3] * scale);
+    }
+  }
+}
+
+}  // namespace wg
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// delta = rowsum(dout * out) per head in fp32, (B, N, C) x2 -> (B, H, N):
+// the pre-pass of C2, C3-bwd and C4-bwd (the JAX package computes it with
+// XLA beside its kernels, flash_attention.py:1020 and :2299).  kDeltaRows rows
+// of the (B*N, C) operands per block, one 16-byte chunk of both at a time
+// (the products are exact in fp32, summed in chunk order), chunk sums in
+// shared memory, then one thread per (row, head) adds its head's chunks in
+// order: a fixed order, no atomics.  Bound by bytes (2 reads of B N C).
+constexpr int kDeltaRows = 16;
+constexpr int kDeltaThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kDeltaThreads)
+    attn_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                      float* __restrict__ delta, int rows, int n, int h,
+                      int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  extern __shared__ float part[];  // [kDeltaRows][C / kVec]
+  const int per_row = h * d / kVec;
+  const int per_head = d / kVec;
+  const int row0 = blockIdx.x * kDeltaRows;
+  for (int i = threadIdx.x; i < kDeltaRows * per_row; i += kDeltaThreads) {
+    const int row = row0 + i / per_row;
+    float acc = 0.f;
+    if (row < rows) {
+      const size_t at =
+          static_cast<size_t>(row) * h * d + (i % per_row) * kVec;
+      uint4 a = *reinterpret_cast<const uint4*>(out + at);
+      uint4 g = *reinterpret_cast<const uint4*>(dout + at);
+      const T* ea = reinterpret_cast<const T*>(&a);
+      const T* eg = reinterpret_cast<const T*>(&g);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        acc = fmaf(stt::to_float(eg[e]), stt::to_float(ea[e]), acc);
+      }
+    }
+    part[i] = acc;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kDeltaRows * h; i += kDeltaThreads) {
+    const int row = row0 + i / h;
+    const int head = i % h;
+    if (row >= rows) continue;
+    const float* p = part + (i / h) * per_row + head * per_head;
+    float sum = 0.f;
+    for (int c = 0; c < per_head; ++c) sum += p[c];
+    delta[(static_cast<size_t>(row / n) * h + head) * n + row % n] = sum;
+  }
+}
+
+// The wgmma route: four tensor maps (q, k, v and dout by rank-3 tiles at
+// the head's column offset), encoded per call, then the dk/dv and dq
+// kernels on the stream.
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, void* dk, void* dv, int b, int n, int h,
+                 const Strides& st, float qscale, float scale,
+                 cudaStream_t stream) {
+  namespace hw = stt::hopper;
+  const int cols = h * wg::kD;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hw::tile_map_bf16(&tq, q, cols, n, b, st.q_sn, st.q_sb) ||
+      !hw::tile_map_bf16(&tk, k, cols, n, b, st.k_sn, st.k_sb) ||
+      !hw::tile_map_bf16(&tv, v, cols, n, b, st.v_sn, st.v_sb) ||
+      !hw::tile_map_bf16(&tdo, dout, cols, n, b, st.do_sn, st.do_sb)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err =
+      allow_smem(wg::attn_bwd_dkdv_wgmma_kernel, wg::kDkdvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem(wg::attn_bwd_dq_wgmma_kernel, wg::kDqSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + wg::kRows - 1) / wg::kRows, h, b);
+  wg::attn_bwd_dkdv_wgmma_kernel<<<grid, wg::kThreads, wg::kDkdvSmem,
+                                   stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), n, st.g_sb, st.g_sn, qscale, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wg::attn_bwd_dq_wgmma_kernel<<<grid, wg::kThreads, wg::kDqSmem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), n, st.g_sb,
+      st.g_sn, qscale, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Which kernels a call takes (shared with ops/flash_attention.py:
+// attention_bwd_route): fp32 the CUDA-core kernels; bf16 at head dim 64
+// without dropout the wgmma kernels; every other bf16 call (head dims 8 to
+// 128 but 64, and every dropout call, C4-bwd) the mma.sync kernels.
+enum Route : int { kRouteF32 = 0, kRouteMma = 1, kRouteWgmma = 2 };
+
+constexpr int route(int dtype, int d, bool drop) {
+  return dtype == stt::kFloat32 ? kRouteF32
+         : (d == wg::kD && !drop) ? kRouteWgmma
+                                  : kRouteMma;
 }
 
 template <int DP, Drop DROP>
@@ -652,6 +1145,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route(dtype, d, DROP != Drop::kNone) == kRouteWgmma) {
+    return launch_wgmma(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, st,
+                        qscale, scale, s);
+  }
 #define STT_BWD(DP)                                                     \
   return launch<DP, DROP>(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, \
                           d, st, qscale, scale, kp, dtype, s)
@@ -690,6 +1187,49 @@ extern "C" int stt_attention_bwd(const void* q, const void* k, const void* v,
                    do_sb, do_sn, g_sb, g_sn};
   return dispatch(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, d, st,
                   qscale, scale, dtype, stream);
+}
+
+// The route a C2 or C3-bwd call of this dtype code and head dim takes:
+// 0 the fp32 CUDA-core kernels, 1 the mma.sync kernels, 2 the wgmma
+// kernels; -1 for what the entry points refuse.
+extern "C" int stt_attention_bwd_route(int dtype, int d) {
+  if (d <= 0 || d % 8 != 0 || d > 128 ||
+      (dtype != stt::kBFloat16 && dtype != stt::kFloat32)) {
+    return -1;
+  }
+  return route(dtype, d, false);
+}
+
+// The delta pre-pass of C2, C3-bwd and C4-bwd: out and dout (B, N, C)
+// contiguous, 16-byte aligned, in the dtype code's type, C = h * d with d a
+// multiple of 8 -> delta (B, H, N) fp32 contiguous.
+extern "C" int stt_attention_delta(const void* out, const void* dout,
+                                   float* delta, int b, int n, int h, int d,
+                                   int dtype, void* stream) {
+  if (b <= 0 || n <= 0 || h <= 0 || d <= 0 || d % 8 != 0 ||
+      static_cast<long long>(b) * n >= (1ll << 31) ||
+      (dtype != stt::kBFloat16 && dtype != stt::kFloat32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = b * n;
+  const int grid = (rows + kDeltaRows - 1) / kDeltaRows;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == stt::kBFloat16) {
+    const int bytes = kDeltaRows * h * d / 8 * 4;
+    const cudaError_t err = allow_smem(attn_delta_kernel<bf16>, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attn_delta_kernel<bf16><<<grid, kDeltaThreads, bytes, s>>>(
+        static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta,
+        rows, n, h, d);
+  } else {
+    const int bytes = kDeltaRows * h * d / 4 * 4;
+    const cudaError_t err = allow_smem(attn_delta_kernel<float>, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attn_delta_kernel<float><<<grid, kDeltaThreads, bytes, s>>>(
+        static_cast<const float*>(out), static_cast<const float*>(dout),
+        delta, rows, n, h, d);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Kernel C3-bwd: stt_attention_bwd with a (batch, row) stride pair for each

@@ -1,0 +1,251 @@
+// Hopper (sm_90a) building blocks of the training-attention backward's
+// wgmma kernels (attention_train.cu): mbarriers, TMA tile loads, wgmma
+// m64n64k16 bf16 products and their shared-memory descriptors, and the
+// host-side encoding of TMA tensor maps.  Only attention_train.cu includes
+// this header; the other kernels keep common.cuh's mma.sync helpers.
+//
+// The tensor-map encoder is the driver's cuTensorMapEncodeTiled, reached
+// through the runtime's driver entry point, so the library links no -lcuda
+// (cuda.h is read for its types only).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace stt {
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// p rounded up to the next 1024-byte boundary of shared memory (a
+// 128-byte-swizzled TMA tile, and wgmma's view of it, repeat every 1024
+// bytes; the kernel allocates 1024 bytes of slack)
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// make initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed (the spin
+// stays inside one asm block, so the warp reaches the next .aligned
+// instruction converged)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz): exp2f's value where
+// the result is a normal float; a result below 2^-126 is 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// TMA load of one tile, completing on `bar` (coordinates innermost first)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// shared-memory writes of this thread -> visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most `Pending` committed groups of this warpgroup's
+// products are still running (groups complete in commit order)
+template <int Pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending)
+               : "memory");
+}
+
+// pin accumulator registers in place around asynchronous products, so the
+// compiler neither reads nor moves them while a wgmma may write them
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ... and an A operand's bf16 fragments in registers, which an in-flight
+// wgmma still reads
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+// Descriptor of a bf16 tile in shared memory written by a 128-byte-swizzle
+// TMA load: rows of 64 values (128 bytes), 8-row swizzle atoms of 1024
+// bytes, base 1024-byte aligned.  As a K-major operand (rows along M or N,
+// the contraction along the row) a k16 step is +32 bytes and the 8-row
+// groups are 1024 bytes apart (SBO); as an MN-major operand (rows along
+// the contraction) a k16 step is +2048 bytes, the two 8-row groups of the
+// step again 1024 bytes apart, and the 64-value row is the one MN atom
+// (LBO would step to the next; set to the same 1024 bytes, unused at 64).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFFull) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
+  return desc_sw128(p, 16, 1024);
+}
+
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* p) {
+  return desc_sw128(p, 1024, 1024);
+}
+
+#define STT_D32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+#define STT_D32_OPS(d)                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// D (64x64 fp32, this warpgroup) (+)= A (64x16) B (16x64), A and B K-major
+// in shared memory; `accumulate` 0 overwrites D
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " STT_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : STT_D32_OPS(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64x64 fp32) (+)= A (64x16, bf16 fragments in registers: the m16n8k16
+// A layout, warp w holding rows 16w..16w+15) B (16x64), B MN-major in
+// shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " STT_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : STT_D32_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+#undef STT_D32
+#undef STT_D32_OPS
+
+// ---- host side ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, or nullptr if the driver lacks it
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// 64 x 64 tiles, 128-byte swizzle, of a bf16 operand addressed as
+// (batch, row, column): `cols` contiguous columns (a head's 64 are chosen
+// by the column coordinate), `rows` rows `row_stride` apart and `batches`
+// batches `batch_stride` apart (elements).  Rows and batches beyond the
+// extents read as zero.
+inline bool tile_map_bf16(CUtensorMap* map, const void* base, int cols,
+                          int rows, int batches, long long row_stride,
+                          long long batch_stride) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batches)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_stride) * 2,
+                                 static_cast<cuuint64_t>(batch_stride) * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper
+}  // namespace stt

@@ -12,10 +12,18 @@ order other, this, this, other, all on one card.  Each process builds its
 checkout's kernels from its own sources.  Printed per kernel: whether the
 outputs of all four runs are bit-equal (a digest of their bytes), the
 median CUDA-event time of each run, and this checkout's mean time over the
-other's.
+other's.  A kernel named in ``--changed`` (one whose summation order the
+change moved on purpose) must agree bit for bit within each checkout and is
+reported, not failed, where the two checkouts differ; every other kernel
+must be bit-equal in all four runs.  With ``--steps`` each checkout also
+times its own fine-tuning step (its chip_smoke.py's phase-6 / phase-9
+FinetuneTrainer timing: ViT-B 16x224 and IV2-S 8x224 at the jobs' batch
+56, the median of its timed steps), in a fresh process per run, in the
+same order.
 
     git archive <commit> | tar -x -C build/parent
-    python -m simple_tad_tpu_torch.kernels.ab_checkouts --other build/parent
+    python -m simple_tad_tpu_torch.kernels.ab_checkouts --other build/parent \
+        [--changed attention_bwd,attention_sep_bwd] [--steps]
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
           "attention_i8_sep": (32, 2049, 6), "layernorm": (32, 1568, 12),
           "layernorm_quant": (32, 1568, 12), "rmsnorm_quant": (32, 2049, 6)}
 NORMS = ("layernorm", "layernorm_quant", "rmsnorm_quant")
+# --steps: chip_smoke.py's training families (ViT-B, IV2-S)
+STEP_FAMILIES = ("vit", "iv2")
 # the norms take ~0.07 ms, about the host's time in a wrapper call, which a
 # single call's event pair would include: they are timed CALLS_PER_EVENT
 # calls to an event pair, so the calls queue up on the card
@@ -148,12 +158,49 @@ def _worker(root: str) -> dict:
     return out
 
 
+def _step_worker(root: str, family: str) -> dict:
+    """Run in a fresh process with ``root`` first on the path -> the median
+    step ms of that checkout's own training timing."""
+    sys.path[0] = os.path.abspath(root)
+    import chip_smoke
+    r = chip_smoke.time_training_process(SEED, profile=False, family=family)
+    return {"batch": r.get("batch"), "ms": statistics.median(r["step_ms"])}
+
+
+def _runs(order, *args) -> list:
+    """Run this script's worker once per (label, root) of ``order`` ->
+    [(label, its JSON result)]."""
+    runs = []
+    for label, root in order:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), *args, root],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout + proc.stderr)
+            raise RuntimeError(f"the {label} run failed ({root})")
+        runs.append((label, json.loads(proc.stdout.splitlines()[-1])))
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other",
                     help="root of the other checkout (e.g. the parent)")
+    ap.add_argument("--changed", default="",
+                    help="comma-separated kernels expected to differ from "
+                         "the other checkout in their last bits")
+    ap.add_argument("--steps", action="store_true",
+                    help="also time each checkout's fine-tuning steps")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--step-worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.step_worker:
+        family, root = args.step_worker.split(":", 1)
+        print(json.dumps(_step_worker(root, family)))
+        return 0
+    changed = {name for name in args.changed.split(",") if name}
+    if changed - set(SHAPES):
+        ap.error(f"--changed: unknown kernels {sorted(changed - set(SHAPES))}")
     if args.worker:
         print(json.dumps(_worker(args.worker)))
         return 0
@@ -163,15 +210,7 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     order = [("other", args.other), ("this", this), ("this", this),
              ("other", args.other)]
-    runs = []
-    for label, root in order:
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker", root],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stdout + proc.stderr)
-            raise RuntimeError(f"the {label} run failed ({root})")
-        runs.append((label, json.loads(proc.stdout.splitlines()[-1])))
+    runs = _runs(order, "--worker")
     ok = True
     for name, shape in SHAPES.items():
         digests = {r[name]["digest"] for _, r in runs}
@@ -181,11 +220,38 @@ def main(argv=None) -> int:
         theirs = statistics.mean(m for (lbl, _), m in zip(runs, ms)
                                  if lbl == "other")
         equal = len(digests) == 1
-        ok &= equal
-        print(f"[ab] {name} {shape}: outputs "
-              f"{'bit-equal' if equal else 'DIFFER'} across the four runs; "
+        if name in changed:
+            within = all(len({r[name]["digest"] for lbl, r in runs
+                              if lbl == side}) == 1
+                         for side in ("this", "other"))
+            ok &= within
+            if not within:
+                verdict = "DIFFER within a checkout"
+            elif equal:
+                verdict = "bit-equal across the four runs"
+            else:
+                verdict = ("bit-equal within each checkout, different from "
+                           "the other's (expected: --changed)")
+        else:
+            ok &= equal
+            verdict = ("bit-equal" if equal else "DIFFER") + \
+                " across the four runs"
+        print(f"[ab] {name} {shape}: outputs {verdict}; "
               f"ms (other, this, this, other) "
               f"{' '.join(f'{m:.4f}' for m in ms)}; this / other "
+              f"{mine / theirs:.4f}")
+    for family in STEP_FAMILIES if args.steps else ():
+        steps = [(label, r) for (label, _), (_, r) in zip(order, _runs(
+            [(label, f"{family}:{root}") for label, root in order],
+            "--step-worker"))]
+        ms = [r["ms"] for _, r in steps]
+        mine = statistics.mean(r["ms"] for lbl, r in steps if lbl == "this")
+        theirs = statistics.mean(r["ms"] for lbl, r in steps
+                                 if lbl == "other")
+        print(f"[ab] {family} train step, batch "
+              f"{'/'.join(str(r['batch']) for _, r in steps)}: median ms "
+              f"(other, this, this, other) "
+              f"{' '.join(f'{m:.2f}' for m in ms)}; this / other "
               f"{mine / theirs:.4f}")
     return 0 if ok else 1
 

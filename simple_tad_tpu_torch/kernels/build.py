@@ -146,6 +146,10 @@ def load() -> ctypes.CDLL:
             lib.stt_attention_bwd_sep.argtypes = [p] * 9 + [i] * 14 + [
                 ctypes.c_float, ctypes.c_float, i, p]
             lib.stt_attention_bwd_sep.restype = i
+            lib.stt_attention_bwd_route.argtypes = [i, i]
+            lib.stt_attention_bwd_route.restype = i
+            lib.stt_attention_delta.argtypes = [p, p, p, i, i, i, i, i, p]
+            lib.stt_attention_delta.restype = i
             # the keep source of the dropout kernels: mask, its (batch,
             # head) strides, seed, threshold, 1 / keep
             keep = [p, ctypes.c_int64, ctypes.c_int64, p, ctypes.c_uint32,

@@ -56,7 +56,13 @@ denominator, (B, H, N) fp32) and whose backward is
 _bwd_merged_kernel_packed: dq, dk, dv from qkv, out, lse, dout and
 delta = rowsum(dout * out), written as one (B, N, 3C) gradient in
 [dq | dk | dv] column order; csrc/attention_train.cu).  It saves
-(qkv, out, lse), as the JAX forward does.
+(qkv, out, lse), as the JAX forward does.  ``attention_bwd_route`` names
+the kernels a backward call takes: at head dim 64 (every trunk the
+fine-tuning jobs run) bf16 takes the wgmma kernels (TMA ring, wgmma
+products, no transposed staging), at the other head dims the mma.sync
+kernels; fp32 the CUDA-core kernels.  delta comes from
+``flash_attention_delta``, a pre-pass kernel on the card whose plain
+version is ``attention_delta``.
 
 Training on separate operands (InternVideo2; port of the custom VJPs
 _flash_core_packed and _flash_core under grad): ``flash_attention`` on
@@ -112,10 +118,15 @@ inference kernel on the packed qkv, ``SEP_LAUNCHES`` on separate operands,
 int8-compute one (E2), ``FWD_LSE_LAUNCHES`` and
 ``SEP_FWD_LSE_LAUNCHES`` those of the training forward (packed, separate)
 and ``BWD_LAUNCHES`` and ``SEP_BWD_LAUNCHES`` calls of the training
-backward (each call launches two kernels: dk/dv, then dq);
-``DROP_FWD_LAUNCHES`` and ``DROP_BWD_LAUNCHES`` those of the dropout
-forward and backward with a mask, ``DROP_RNG_FWD_LAUNCHES`` and
-``DROP_RNG_BWD_LAUNCHES`` with a seed.
+backward (each call launches two kernels: dk/dv, then dq), which
+``attention_bwd_route`` sends to one of three kernel pairs, counted per
+route over both layouts: ``BWD_WGMMA_LAUNCHES`` (bf16 at head dim 64: the
+wgmma kernels), ``BWD_MMA_LAUNCHES`` (bf16 at the other head dims: the
+mma.sync kernels) and ``BWD_F32_LAUNCHES`` (fp32: the CUDA-core kernels);
+``DELTA_LAUNCHES`` those of the delta pre-pass (one per backward call,
+dropout or not); ``DROP_FWD_LAUNCHES`` and ``DROP_BWD_LAUNCHES`` those of
+the dropout forward and backward with a mask, ``DROP_RNG_FWD_LAUNCHES``
+and ``DROP_RNG_BWD_LAUNCHES`` with a seed.
 """
 
 from __future__ import annotations
@@ -141,10 +152,18 @@ FWD_LSE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 SEP_FWD_LSE_LAUNCHES = 0
 SEP_BWD_LAUNCHES = 0
+BWD_WGMMA_LAUNCHES = 0
+BWD_MMA_LAUNCHES = 0
+BWD_F32_LAUNCHES = 0
+DELTA_LAUNCHES = 0
 DROP_FWD_LAUNCHES = 0
 DROP_BWD_LAUNCHES = 0
 DROP_RNG_FWD_LAUNCHES = 0
 DROP_RNG_BWD_LAUNCHES = 0
+# the training backward's routes, by the code csrc/attention_train.cu's
+# stt_attention_bwd_route returns, and the head dim of the wgmma kernels
+BWD_ROUTES = ("fp32", "mma_sync", "wgmma")
+WGMMA_HEAD_DIM = 64
 # Philox4x32-10's multipliers and Weyl constants (csrc/philox.cuh)
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -214,11 +233,47 @@ def flash_attention_qkv_fwd_lse_plain(qkv, num_heads: int, scale: float):
 
 def attention_delta(out, dout, num_heads: int):
     """delta = rowsum(dout * out) per head, (B, N, C) x2 -> (B, H, N) in
-    the accumulation dtype, contiguous."""
+    the accumulation dtype, contiguous (the plain version of
+    ``flash_attention_delta``, and the plain backward's delta)."""
     B, N, C = out.shape
     acc = _acc(out.dtype)
     d = (dout.to(acc) * out.to(acc)).view(B, N, num_heads, -1).sum(-1)
     return d.permute(0, 2, 1).contiguous()
+
+
+def flash_attention_delta(out, dout, num_heads: int):
+    """The training backward's delta pre-pass (the JAX package's XLA rowsum
+    in _flash_bwd_impl and _flash_bwd_packed_qkv_impl): ``attention_delta``
+    on the CPU, the kernel of csrc/attention_train.cu on the card.  out and
+    dout contiguous, 16-byte aligned (B, N, C) bf16 or fp32 with
+    C = num_heads * Dh, Dh a multiple of 8 -> (B, H, N) fp32 contiguous."""
+    if out.device.type == "cpu":
+        return attention_delta(out, dout, num_heads)
+    B, N, C = out.shape
+    name = "flash_attention_delta"
+    for t in (out, dout):
+        if t.device.type != "cuda" or t.shape != out.shape \
+                or t.dtype != out.dtype or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: out and dout must be contiguous, "
+                             f"16-byte aligned (B, N, C) CUDA tensors of one "
+                             f"dtype")
+    if C % num_heads or (C // num_heads) % 8:
+        raise ValueError(f"{name}: C = {C} is not {num_heads} heads of a "
+                         f"multiple of 8")
+    delta = torch.empty((B, num_heads, N), dtype=torch.float32,
+                        device=out.device)
+    if B == 0 or N == 0:
+        return delta
+    lib = kbuild.load()
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    code = lib.stt_attention_delta(
+        out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, N, num_heads,
+        C // num_heads, kbuild.dtype_code(out.dtype), stream)
+    kbuild.check(code, "attention_delta")
+    global DELTA_LAUNCHES
+    DELTA_LAUNCHES += 1
+    return delta
 
 
 def _attend_bwd_plain(q, k, v, out, lse, dout, num_heads: int,
@@ -507,6 +562,35 @@ def flash_attention_qkv_fwd_lse(qkv, num_heads: int, scale: float):
     return out, lse
 
 
+def attention_bwd_route(dtype, head_dim: int) -> str:
+    """The kernels a CUDA call of the training backward (C2, C3-bwd) of
+    ``dtype`` at ``head_dim`` launches, as csrc/attention_train.cu's
+    dispatch picks them: 'wgmma' (bf16 at head dim 64, every trunk the
+    fine-tuning jobs run), 'mma_sync' (bf16 at the other head dims) or
+    'fp32' (the CUDA-core kernels).  The dropout backward (C4-bwd) always
+    takes the mma.sync kernels."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"attention_bwd_route: dtype {dtype} is not "
+                        f"bfloat16 or float32")
+    if head_dim <= 0 or head_dim % 8 or head_dim > MAX_HEAD_DIM:
+        raise ValueError(f"attention_bwd_route: head dim {head_dim} must be "
+                         f"a positive multiple of 8, at most {MAX_HEAD_DIM}")
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if head_dim == WGMMA_HEAD_DIM else "mma_sync"
+
+
+def _count_bwd_route(dtype, head_dim: int) -> None:
+    global BWD_WGMMA_LAUNCHES, BWD_MMA_LAUNCHES, BWD_F32_LAUNCHES
+    route = attention_bwd_route(dtype, head_dim)
+    if route == "wgmma":
+        BWD_WGMMA_LAUNCHES += 1
+    elif route == "mma_sync":
+        BWD_MMA_LAUNCHES += 1
+    else:
+        BWD_F32_LAUNCHES += 1
+
+
 def flash_attention_qkv_bwd(qkv, out, lse, dout, num_heads: int,
                             scale: float):
     """The training backward (kernel C2): qkv (B, N, 3C), the forward's out
@@ -522,7 +606,7 @@ def flash_attention_qkv_bwd(qkv, out, lse, dout, num_heads: int,
     dqkv = torch.empty_like(qkv)
     if B == 0 or N == 0:
         return dqkv
-    delta = attention_delta(out, dout, num_heads)
+    delta = flash_attention_delta(out, dout, num_heads)
     lib = kbuild.load()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     code = lib.stt_attention_bwd(
@@ -534,6 +618,7 @@ def flash_attention_qkv_bwd(qkv, out, lse, dout, num_heads: int,
     kbuild.check(code, "attention_bwd")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
+    _count_bwd_route(qkv.dtype, D)
     return dqkv
 
 
@@ -587,8 +672,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, num_heads: int,
     """The training backward on separate operands (kernel C3-bwd): q, k, v
     as ``flash_attention``, the forward's out (B, N, C) and lse (B, H, N)
     fp32, and dout (B, N, C) -> (dq, dk, dv), each (B, N, C) contiguous in
-    q's dtype.  delta = rowsum(dout * out) is computed here, as
-    ``attention_delta`` does for the packed backward."""
+    q's dtype.  delta = rowsum(dout * out) is computed here by
+    ``flash_attention_delta``, as for the packed backward."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, num_heads,
                                          scale)
@@ -600,7 +685,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, num_heads: int,
                              device=q.device).unbind(0)
     if B == 0 or N == 0:
         return dq, dk, dv
-    delta = attention_delta(out, dout, num_heads)
+    delta = flash_attention_delta(out, dout, num_heads)
     lib = kbuild.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.stt_attention_bwd_sep(
@@ -612,6 +697,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, num_heads: int,
     kbuild.check(code, "attention_bwd_sep")
     global SEP_BWD_LAUNCHES
     SEP_BWD_LAUNCHES += 1
+    _count_bwd_route(q.dtype, D)
     return dq, dk, dv
 
 
@@ -836,7 +922,8 @@ def flash_attention_drop_bwd(q, k, v, out, lse, dout, num_heads: int,
     """The dropout training backward (kernel C4-bwd): q, k, v, rate and the
     keep source as ``flash_attention_drop_fwd``, its out (B, N, C) and lse
     (B, H, N) fp32, and dout (B, N, C) -> (dq, dk, dv), each (B, N, C)
-    contiguous in q's dtype; delta = rowsum(dout * out) is computed here."""
+    contiguous in q's dtype; delta = rowsum(dout * out) is computed here
+    (``flash_attention_delta``)."""
     if q.device.type == "cpu":
         return flash_attention_drop_bwd_plain(q, k, v, out, lse, dout,
                                               num_heads, scale, rate,
@@ -849,7 +936,7 @@ def flash_attention_drop_bwd(q, k, v, out, lse, dout, num_heads: int,
                              device=q.device).unbind(0)
     if B == 0 or N == 0:
         return dq, dk, dv
-    delta = attention_delta(out, dout, num_heads)
+    delta = flash_attention_delta(out, dout, num_heads)
     lib = kbuild.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.stt_attention_bwd_drop(

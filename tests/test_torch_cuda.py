@@ -293,8 +293,9 @@ def test_attention_bwd_kernel_rejects_bad_lse(cuda):
 @pytest.mark.cuda
 def test_tiny_vit_train_step_goes_through_kernels(cuda):
     """One train step of a 2-layer ViT-S with fp32 masters computed in bf16
-    runs C1 and C2 once per block, the LayerNorm kernel 5 times and the
-    inference attention never; gradients reach the fp32 masters."""
+    runs C1 and C2 once per block (C2 on its wgmma kernels: head dim 64),
+    the LayerNorm kernel 5 times and the inference attention never;
+    gradients reach the fp32 masters."""
     from simple_tad_tpu_torch.models import create_model
     from simple_tad_tpu_torch.train.losses import create_criterion
     from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
@@ -313,11 +314,13 @@ def test_tiny_vit_train_step_goes_through_kernels(cuda):
     step = make_finetune_train_step(create_criterion("crossentropy"))
     batch = {"video": _randn((2, 16, 32, 32, 3), 17, cuda).bfloat16(),
              "label": torch.tensor([0, 1], device=cuda)}
-    counts = (ln.LAUNCHES, fa.LAUNCHES, fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES)
+    counts = (ln.LAUNCHES, fa.LAUNCHES, fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES,
+              fa.BWD_WGMMA_LAUNCHES, fa.BWD_MMA_LAUNCHES)
     metrics, logits = step(state, batch)
     torch.cuda.synchronize()
-    after = (ln.LAUNCHES, fa.LAUNCHES, fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES)
-    assert tuple(a - b for a, b in zip(after, counts)) == (5, 0, 2, 2)
+    after = (ln.LAUNCHES, fa.LAUNCHES, fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES,
+             fa.BWD_WGMMA_LAUNCHES, fa.BWD_MMA_LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, counts)) == (5, 0, 2, 2, 2, 0)
     assert torch.isfinite(metrics["loss"]) and logits.shape == (2, 2)
     for n, p in model.named_parameters():
         assert p.dtype == torch.float32, n
@@ -548,10 +551,98 @@ def test_attention_sep_training_wrappers_reject_bad_inputs(cuda):
         fa.flash_attention_bwd(q, strided, q, q, lse, q, 2, 0.125)
 
 
+# The backward's routes (fa.attention_bwd_route): bf16 at head dim 64 takes
+# the wgmma kernels (TMA ring, wgmma products), bf16 at the other head dims
+# the mma.sync kernels, fp32 the CUDA-core kernels.  The wgmma kernels are
+# held to the plain versions at the 64-row tile edges and at IV2-S's
+# N = 2049 (a 1-row last tile), packed and on separate operands with v
+# strided, under BWD_TOL; two launches on the same inputs are bit-equal
+# (no atomics, one summation order).
+ROUTE_COUNTERS = {"wgmma": "BWD_WGMMA_LAUNCHES",
+                  "mma_sync": "BWD_MMA_LAUNCHES", "fp32": "BWD_F32_LAUNCHES"}
+
+
+def _route_counts():
+    return {route: getattr(fa, name) for route, name in ROUTE_COUNTERS.items()}
+
+
+def _bwd_both_layouts(layout, b, n, heads, d, seed, device, dtype):
+    """-> (kernel call, plain call) of the packed (C2) or separate (C3-bwd,
+    v strided) backward on seeded inputs, both returning (B, N, 3C)."""
+    scale = d ** -0.5
+    q, k, v, qkv = _sep_operands(b, n, heads, d, seed, device, dtype)
+    dout = _randn((b, n, heads * d), seed + 1, device).to(dtype)
+    out, lse = fa.flash_attention_fwd_lse_plain(q, k, v, heads, scale)
+    if layout == "packed":
+        return (lambda: fa.flash_attention_qkv_bwd(qkv, out, lse, dout, heads,
+                                                   scale),
+                lambda: fa.flash_attention_qkv_bwd_plain(qkv, out, lse, dout,
+                                                         heads, scale))
+    return (lambda: torch.cat(fa.flash_attention_bwd(
+                q, k, v, out, lse, dout, heads, scale), -1),
+            lambda: torch.cat(fa.flash_attention_bwd_plain(
+                q, k, v, out, lse, dout, heads, scale), -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "separate"])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 2049])
+def test_attention_bwd_wgmma_kernels_match_plain(n, layout, cuda):
+    kernel, plain = _bwd_both_layouts(layout, 2, n, 3, 64, 40, cuda,
+                                      torch.bfloat16)
+    before = _route_counts()
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    after = _route_counts()
+    assert {r: after[r] - before[r] for r in after} == {
+        "wgmma": 2, "mma_sync": 0, "fp32": 0}
+    assert torch.equal(got, again), "two launches differ"
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), plain().float(),
+                               **BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 88, 96, 112, 128])
+def test_attention_bwd_routes_by_head_dim(d, dtype, cuda):
+    """Each head dim takes the route attention_bwd_route names, counted on
+    that route only, and matches the plain version there."""
+    route = fa.attention_bwd_route(dtype, d)
+    kernel, plain = _bwd_both_layouts("separate", 2, 129, 2, d, 41, cuda,
+                                      dtype)
+    before = _route_counts()
+    got = kernel()
+    torch.cuda.synchronize()
+    after = _route_counts()
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    torch.testing.assert_close(got.float(), plain().float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_attention_bwd_route_is_the_kernel_dispatch(cuda):
+    """attention_bwd_route names the kernels csrc/attention_train.cu's
+    dispatch launches (stt_attention_bwd_route), at every head dim the
+    entry points take; the ones they refuse are refused by both."""
+    from simple_tad_tpu_torch.kernels import build as kbuild
+    lib = kbuild.load()
+    for dtype in DTYPES:
+        code = kbuild.dtype_code(dtype)
+        for d in range(8, fa.MAX_HEAD_DIM + 1, 8):
+            assert fa.BWD_ROUTES[lib.stt_attention_bwd_route(code, d)] == \
+                fa.attention_bwd_route(dtype, d), (dtype, d)
+        for d in (0, 12, 136):
+            assert lib.stt_attention_bwd_route(code, d) == -1
+            with pytest.raises(ValueError):
+                fa.attention_bwd_route(dtype, d)
+
+
 @pytest.mark.cuda
 def test_tiny_iv2_train_step_goes_through_kernels(cuda):
     """One train step of a 2-layer IV2-S with fp32 masters computed in bf16
-    runs C3-fwd and C3-bwd once per block and no other kernel (RMSNorm,
+    runs C3-fwd and C3-bwd once per block (C3-bwd on its wgmma kernels)
+    and no other kernel (RMSNorm,
     LayerScale and the pooling head are plain PyTorch); gradients reach
     every fp32 master and the update moves every block parameter (the
     pooling head's key biases have a zero gradient in exact arithmetic)."""
@@ -571,12 +662,14 @@ def test_tiny_iv2_train_step_goes_through_kernels(cuda):
     batch = {"video": _randn((2, 4, 28, 28, 3), 30, cuda).bfloat16(),
              "label": torch.tensor([0, 1], device=cuda)}
     names = ("LAUNCHES", "SEP_LAUNCHES", "FWD_LSE_LAUNCHES", "BWD_LAUNCHES",
-             "SEP_FWD_LSE_LAUNCHES", "SEP_BWD_LAUNCHES")
+             "SEP_FWD_LSE_LAUNCHES", "SEP_BWD_LAUNCHES", "BWD_WGMMA_LAUNCHES",
+             "BWD_MMA_LAUNCHES")
     counts = [getattr(fa, n) for n in names] + [ln.LAUNCHES]
     metrics, logits = step(state, batch)
     torch.cuda.synchronize()
     after = [getattr(fa, n) for n in names] + [ln.LAUNCHES]
-    assert [a - b for a, b in zip(after, counts)] == [0, 0, 0, 0, 2, 2, 0]
+    assert [a - b for a, b in zip(after, counts)] == [0, 0, 0, 0, 2, 2, 2, 0,
+                                                      0]
     assert torch.isfinite(metrics["loss"]) and logits.shape == (2, 2)
     for n, p in model.named_parameters():
         assert p.dtype == torch.float32 and p.grad is not None, n

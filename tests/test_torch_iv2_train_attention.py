@@ -3,9 +3,10 @@ simple_tad_tpu_torch.ops.flash_attention.flash_attention_fwd_lse,
 flash_attention_bwd and the autograd FlashAttention) against the JAX
 package's _flash_fwd_impl and _flash_bwd_impl (TPU kernels _fwd_kernel and
 _bwd_merged_kernel_dt) in interpret mode, on the (B*H, N, Dh) relayout the
-JAX side runs them on.  B=2, H=2, ragged N in {9, 37}, Dh in {64, 88}: the
-port takes 88 as it is, the JAX side zero-pads it to 128 as its
-dot_product_attention does (the pad columns add nothing to QK or PV).
+JAX side runs them on.  B=2, H=2, ragged N in {9, 37} at Dh in {64, 88}, plus
+Dh 80 and 128 at N = 9 and N = 129 at Dh 64: the port takes 80 and 88 as
+they are, the JAX side zero-pads them to 128 as its dot_product_attention
+does (the pad columns add nothing to QK or PV).
 
 Tolerances, each with its reason:
   * fp32 out and lse 3e-5 (as tests/test_torch_attention.py: summation
@@ -84,9 +85,16 @@ def _from_bh(x, d):
     return a.reshape(B, H, -1, d).transpose(0, 2, 1, 3).reshape(B, -1, H * d)
 
 
+# (N, Dh): the ragged N of 9 and 37 at Dh 64 and 88, and the head dims the
+# backward's route separates (64 the wgmma kernels, 80 and 128 the mma.sync
+# ones) at N = 129, one row past two 64-row tiles (80 and 128 at N = 9 to
+# keep interpret mode cheap)
+C3_CASES = [(9, 64), (9, 88), (37, 64), (37, 88), (9, 80), (9, 128),
+            (129, 64)]
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("d", [64, 88])
-@pytest.mark.parametrize("n", [9, 37])
+@pytest.mark.parametrize("n,d", C3_CASES)
 def test_plain_c3_matches_pallas(n, d, dtype):
     tdt, jdt = DTYPES[dtype]
     tol = TOL[dtype]
