@@ -148,9 +148,11 @@ Phases (any failure raises, so the exit code is non-zero):
      and a gross control (attention left unnormalized), and evaluate is
      timed over EVAL_RUNS runs; (i) ends with 16 int8 streaming steps.
      Phase 2 holds int8_gemm (ViT-B qkv and proj on int8 input, fc2 on
-     fp32 input), int8_mlp (ViT-B on int8 input, IV2-S on bf16 input) and
-     B3 (packed at ViT-B, separate at IV2-S with v strided) to their plain
-     versions, each with a control the bound must reject: the int8 GEMMs'
+     fp32 input, IV2-S qkv on bf16 input), int8_mlp (ViT-B and ViT-L on
+     int8 input, IV2-S on bf16 input) and B3 (packed at ViT-B, separate at
+     IV2-S with v strided) to their plain versions, B4's two launches on
+     the same inputs bit-equal and the GB of a float x its column blocks
+     read printed, each with a control the bound must reject: the int8 GEMMs'
      outputs equal the plain version's bit for bit (an exact int32 product
      and the same fp32 epilogue), against q8 rounding half away from zero
      (roundf) where x is fp32, the fp32 rescale done in bf16 where it is
@@ -1356,7 +1358,7 @@ def check_kernels(dev, seed: int) -> dict:
                  bound=layernorm_bound(shape[0], C, x.element_size(), 1))
         del x
     torch.cuda.empty_cache()
-    check_int8_kernels(dev, g, run_case, timed)
+    check_int8_kernels(dev, g, run_case, launches_equal)
     failures += check_dropout_kernels(dev, g, run_case, timed)
     failures += check_variant_kernels(dev, g, run_case)
     if failures:
@@ -1578,10 +1580,27 @@ def _gemm_operands(g, dev, M, K, N, x_dtype, bias: bool):
     return x.to(x_dtype), w_q, w_scale, amax, b
 
 
-def check_int8_kernels(dev, g, run_case, timed) -> None:
+# columns of one GEMM kernel block (csrc/int8_gemm.cu GemmCfg: 256 for an
+# fp32 x, else 128): how many times the blocks read and quantize a float x
+GEMM_BLOCK_N = {torch.float32: 256, torch.bfloat16: 128, torch.int8: 128}
+
+
+def x_traffic(m, k, n, x_dtype) -> str:
+    """GB of x the GEMM's column blocks read through L2 (each block reads
+    its rows of x once), and what 128-column blocks would read."""
+    size = m * k * torch.tensor([], dtype=x_dtype).element_size() / 1e9
+    now = -(-n // GEMM_BLOCK_N[x_dtype])
+    narrow = -(-n // 128)
+    return (f"x {size:.3f} GB read by {now} column blocks: "
+            f"{now * size:.2f} GB through L2 (128-column blocks: {narrow}, "
+            f"{narrow * size:.2f} GB)")
+
+
+def check_int8_kernels(dev, g, run_case, launches_equal) -> None:
     """Phase 2's static int8 cases: the GEMM and MLP kernels (B4) and the
     int8-output attention (B3), each against its plain version and a
-    control, timed against torch._int_mm / SDPA and the bound."""
+    control, timed against torch._int_mm / SDPA and the bound; B4's two
+    launches on the same inputs bit-equal."""
     import torch.nn.functional as F
     from simple_tad_tpu_torch.ops import flash_attention as fa
     from simple_tad_tpu_torch.ops import int8_gemm
@@ -1601,18 +1620,24 @@ def check_int8_kernels(dev, g, run_case, timed) -> None:
         # (bf16 ones at these shapes did not, on the CPU rehearsal)
         control = (int8_gemm_roundf if x_dtype == torch.float32
                    else int8_gemm_bf16_rescale)
-        run_case("int8_gemm", f"{label} ({m}, {k}) {x_dtype} -> {n}"
-                 f"{' + bias' if bias else ''}",
+        case = (f"{label} ({m}, {k}) {x_dtype} -> {n}"
+                f"{' + bias' if bias else ''}")
+        run_case("int8_gemm", case,
                  lambda: int8_gemm.w8a8_gemm(*args),
                  lambda: int8_gemm.w8a8_gemm_plain(*args),
                  lambda: control(*args),
                  time_it="every", library=int8_library((x_i8, w_q)),
                  bound=int8_gemm_bound(m, k, n, x.element_size(), 2))
+        launches_equal("int8_gemm", case, lambda: int8_gemm.w8a8_gemm(*args))
+        if x_dtype != torch.int8:
+            print(f"[int8_gemm] {label}: {x_traffic(m, k, n, x_dtype)}")
         del x, x_i8, args
         torch.cuda.empty_cache()
 
+    # ViT-L's width takes the MLP kernel too (use_fused_mlp)
     mlp_cases = [("vit-b", M, 768, 3072, torch.int8),
-                 ("iv2-s", 32 * 2049, 384, 1536, torch.bfloat16)]
+                 ("iv2-s", 32 * 2049, 384, 1536, torch.bfloat16),
+                 ("vit-l", M, 1024, 4096, torch.int8)]
     for label, m, dim, hidden, x_dtype in mlp_cases:
         x, w1, s1, a1, b1 = _gemm_operands(g, dev, m, dim, hidden, x_dtype,
                                            True)
@@ -1626,7 +1651,8 @@ def check_int8_kernels(dev, g, run_case, timed) -> None:
         x_i8 = x if x_dtype == torch.int8 else quantize_static(x.float(), a1)
         args = (x, w1, s1, a1, b1, w2, s2, a2, b2, "gelu_tanh",
                 torch.bfloat16)
-        run_case("int8_mlp", f"{label} ({m}, {dim}) {x_dtype} -> {hidden}",
+        case = f"{label} ({m}, {dim}) {x_dtype} -> {hidden}"
+        run_case("int8_mlp", case,
                  lambda: int8_gemm.w8a8_mlp(*args),
                  lambda: int8_gemm.w8a8_mlp_plain(*args),
                  [lambda: int8_mlp_no_bias1(*args),
@@ -1634,6 +1660,7 @@ def check_int8_kernels(dev, g, run_case, timed) -> None:
                  time_it="every",
                  library=int8_library((x_i8, w1), (h_i8, w2)),
                  bound=int8_mlp_bound(m, dim, hidden, x.element_size(), 2))
+        launches_equal("int8_mlp", case, lambda: int8_gemm.w8a8_mlp(*args))
         del x, x_i8, h_i8, args
         torch.cuda.empty_cache()
 

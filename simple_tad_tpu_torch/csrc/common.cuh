@@ -60,7 +60,7 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // D (16x8, s32) += A (16x32, s8, row-major) * B (32x8, s8, col-major); the
-// int8 products (kernels B2/D2 and B4) accumulate exactly in int32
+// int8 products (kernels B2/D2) accumulate exactly in int32
 __device__ __forceinline__ void mma_16832_s8(int (&d)[4],
                                              const uint32_t (&a)[4],
                                              uint32_t b0, uint32_t b1) {

@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks of the training-attention backward's
-// wgmma kernels (attention_train.cu): mbarriers, TMA tile loads, wgmma
-// m64n64k16 bf16 products and their shared-memory descriptors, and the
-// host-side encoding of TMA tensor maps.  Only attention_train.cu includes
-// this header; the other kernels keep common.cuh's mma.sync helpers.
+// Hopper (sm_90a) building blocks of the port's wgmma kernels: mbarriers,
+// TMA tile loads, wgmma products and their shared-memory descriptors, and
+// the host-side encoding of TMA tensor maps.  The training-attention
+// backward (attention_train.cu) takes the m64n64k16 bf16 products on
+// 128-byte-swizzled tiles; the static int8 GEMMs (int8_gemm.cu) the
+// m64n128k32 s8 products on 128- or 64-byte-swizzled tiles.  The other
+// kernels keep common.cuh's mma.sync helpers.
 //
 // The tensor-map encoder is the driver's cuTensorMapEncodeTiled, reached
 // through the runtime's driver entry point, so the library links no -lcuda
@@ -85,6 +87,30 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one arrival (no transactions) on `bar`
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads) among `threads` threads
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// TMA load of one rank-2 tile, completing on `bar` (coordinates innermost
+// first)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // shared-memory writes of this thread -> visible to the async proxy (wgmma)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -138,12 +164,30 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// (a K-major tile of int8 codes, 128 a row, has the same layout; its k32
+// step is the same +32 bytes)
 __device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
   return desc_sw128(p, 16, 1024);
 }
 
 __device__ __forceinline__ uint64_t desc_mnmajor(const void* p) {
   return desc_sw128(p, 1024, 1024);
+}
+
+// Descriptor of an 8-bit K-major tile written by a 64-byte-swizzle TMA load
+// (or laid out as one): rows of 64 codes (64 bytes), 8-row swizzle atoms of
+// 512 bytes (SBO), base 512-byte aligned.  A k32 step is +32 bytes, +2 in
+// the descriptor's address field.
+__device__ __forceinline__ uint64_t desc_kmajor_sw64(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// byte offset of code (row, col) in such a tile: the 16-byte chunk index
+// (col / 16, 2 bits) XOR address bits 7-8, i.e. (row / 2) % 4
+__device__ __forceinline__ int sw64_offset(int row, int col) {
+  return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
 }
 
 #define STT_D32                                                            \
@@ -195,6 +239,58 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
 #undef STT_D32
 #undef STT_D32_OPS
 
+#define STT_R64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63}"
+
+#define STT_R64_OPS(d) \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), \
+  "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+  "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), \
+  "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), \
+  "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), \
+  "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+  "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), \
+  "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), \
+  "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), \
+  "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), \
+  "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), \
+  "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), \
+  "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), \
+  "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), \
+  "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), \
+  "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+
+// D (64x128 s32, this warpgroup) += A (64x32 s8) B (32x128 s8), both K-major
+// in shared memory (desc_kmajor_sw64); the int32 sum is exact.  Integer
+// wgmma takes no scale or transpose immediates: 8-bit operands are K-major
+// only, as x (M, K) and the (N, K) weight codes already are.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " STT_R64
+      ", %64, %65, p;\n"
+      "}\n"
+      : STT_R64_OPS(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// pin an s32 accumulator in place around asynchronous products
+__device__ __forceinline__ void fence_regs(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#undef STT_R64
+#undef STT_R64_OPS
+
 // ---- host side ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -243,6 +339,28 @@ inline bool tile_map_bf16(CUtensorMap* map, const void* base, int cols,
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
              const_cast<void*>(base), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tiles of `box_cols` x `box_rows` of a rank-2 row-major operand of
+// `cols` contiguous elements by `rows` rows, `row_bytes` apart: int8 codes
+// (CU_TENSOR_MAP_DATA_TYPE_UINT8: the bytes as they are), bf16 or fp32.
+// Rows and columns beyond the extents read as zero.
+inline bool tile_map_2d(CUtensorMap* map, const void* base,
+                        CUtensorMapDataType dtype, int cols, int rows,
+                        long long row_bytes, int box_cols, int box_rows,
+                        CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, dtype, 2, const_cast<void*>(base), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

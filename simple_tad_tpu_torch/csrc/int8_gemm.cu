@@ -15,46 +15,69 @@
 // or fp32.  The product is rescaled and the bias added as two separate
 // fp32 roundings (__fmul_rn, __fadd_rn: never one FMA), as the plain
 // version computes them; act is none, tanh GELU or erf GELU, written as
-// PyTorch's GELU is.
+// PyTorch's GELU is.  The output is bf16 or fp32, or int8 codes q8 against
+// a second absmax (the MLP's hidden activation).
 //
-// w8a8_mlp: y = q8'(gelu(q8(x) . W1^T * c1 + b1)) . W2^T * c2 + b2, the
-// (rows, hidden) activation never leaving the chip: q8' quantizes against
-// fc2's calibrated absmax.  One block owns BM rows and walks hidden in
-// 32-column chunks: fc1 for the chunk (K = dim), its epilogue and q8' into
-// shared memory, then the chunk's fc2 product added into int32
-// accumulators that stay in registers for the whole walk.  The int32 sum
-// over hidden is exact, so fc2's scale applies once at the end, as in the
-// plain version (one int32 GEMM).  The (BM x dim) accumulator sets BM:
-// BM * dim / 256 threads <= 96 registers a thread (dim 384 -> 64 rows, dim
-// 768 -> 32 rows); wider models (ViT-L's 1024, IV2-1B's 1408) take two
-// w8a8_gemm launches instead (ops/int8_gemm.py:use_fused_mlp).
+// w8a8_mlp: y = q8'(gelu(q8(x) . W1^T * c1 + b1)) . W2^T * c2 + b2, with q8'
+// against fc2's calibrated absmax: two launches of the GEMM kernel, fc1
+// with the int8-output epilogue into an (M, hidden) scratch of codes that
+// the wrapper allocates, then fc2 on those codes.  The int32 sums are exact
+// and each epilogue is the plain version's fp32 arithmetic, so the result
+// is the plain version's (fc1 to fp32, quantize_static, fc2) wherever
+// CUDA's tanhf / erff round as PyTorch's GELU does.  Any dim and hidden
+// that are multiples of 32 (ops/int8_gemm.py:use_fused_mlp).
 //
 // What bounds them on the H100: at ViT-B batch 32 (M = 50176) the qkv
 // product does 1.78e11 int8 operations against ~270 MB moved (0.090 vs
-// 0.081 ms at the data-sheet rates), the MLP 4.74e11 operations against
-// ~155 MB: both are bounded by the int8 tensor cores.  The kernels run the
-// products on mma.sync m16n8k32 s8 x s8 -> s32 (exact), quantizing a float
-// x on its way into shared memory.  w8a8_gemm: 128 x 128 output tiles, 8
-// warps of 64 x 32, 64-deep k tiles double-buffered through registers (the
-// next tile's loads are in flight while the current one multiplies).
-// w8a8_mlp: the weight chunks double-buffered with cp.async.  No TMA,
-// wgmma or warp specialisation yet.
+// 0.081 ms at the data-sheet rates), the MLP 4.74e11 operations (0.239
+// ms): the int8 tensor cores, which only wgmma drives at their full rate.
+// The fc2-shape product on an fp32 x (50176, 3072) is bound by reading x
+// (0.208 ms).  The design (Hopper's: a TMA ring feeding wgmma):
+//   * a block computes a 128 x BN output tile with two consumer
+//     warpgroups of 64 rows, each issuing wgmma m64n128k32 s8 x s8 -> s32
+//     (BN = 128, or 256 as two n128 products for an fp32 x), operands
+//     K-major in shared memory (SS form): x (M, K) and the (N, K) weight
+//     codes are K-major already;
+//   * x and W tiles stream by TMA (rows and columns past M, N, K read as
+//     zero, which adds nothing to an int32 sum) through a ring of 3-6
+//     stages on mbarriers, refilled by a producer warp as the consumers
+//     release each stage: 128 k bytes a stage with a 128-byte swizzle for
+//     an int8 x, 64 with a 64-byte swizzle for a float one;
+//   * a float x lands by TMA as it is (64 bf16 or fp32 a row) and each
+//     consumer warpgroup quantizes its 64 rows (round half to even) into a
+//     64-byte-swizzled int8 tile, double buffered, while its previous
+//     k-tile's products run;
+//   * the epilogue runs on the accumulator fragments (the s32 layout is
+//     the f32 one: the m16n8 fragment repeated), compiled once per output
+//     type; the four threads of a quad exchange their words in two
+//     butterfly stages so that each stores whole 8-column groups (16
+//     bytes of bf16), masked at the M and N tails (its instruction count,
+//     more than the products, set much of the kernels' time on an H100).
+// A block of 128 columns holds ~97 KB of ring, so two blocks share an SM
+// and one's prologue and epilogue can run under the other's products (one
+// block an SM, persistent or not, ran slower on an H100).
+// An fp32 x is read and quantized by N / 256 column blocks (3 at fc2's N =
+// 768, where 128-column blocks would read it 6 times).  The MLP's hidden
+// codes make one round trip through device memory (2 x 154 MB at ViT-B
+// batch 32, ~0.09 ms at 3.35 TB/s), but each weight is read once per
+// 128-row tile (an fc2 accumulator kept in registers would hold 32 rows
+// at dim 768).  What still holds them back
+// (on an H100): the L2-to-SM traffic of 128 x 128 tiles (each output
+// tile reads its x rows and W rows once per k: ~1.35 GB at qkv's shape),
+// the epilogue, which the two blocks of an SM reach at about the same
+// time, and for a float x the quantize that every column block repeats.
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using stt::mma_16832_s8;
+namespace hw = stt::hopper;
 
 enum Act : int { kActNone = 0, kActGeluTanh = 1, kActGeluErf = 2 };
-
-constexpr int kThreads = 256;  // 8 warps
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+enum Out : int { kOutF32 = 0, kOutBF16 = 1, kOutI8 = 2 };
 
 // GELU as PyTorch writes it (aten/src/ATen/native/cuda/ActivationGeluKernel)
 __device__ __forceinline__ float gelu(float x, int act) {
@@ -82,398 +105,347 @@ __device__ __forceinline__ float epilogue(int acc, float comb,
   return gelu(y, act);
 }
 
-__device__ __forceinline__ void store_pair(void* y, bool out_bf16, size_t idx,
-                                           float a, float b) {
-  if (out_bf16) {
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(y) + idx) =
-        __floats2bfloat162_rn(a, b);
-  } else {
-    *reinterpret_cast<float2*>(static_cast<float*>(y) + idx) =
-        make_float2(a, b);
+// Across the four threads of a quad (lanes 4g .. 4g+3, t4 = lane & 3): word
+// w[i] of thread s is its part of column group i; afterwards thread t4
+// holds group t4's words of threads 0-3 in out[0..3], i.e. in column order.
+// Two butterfly stages (lane bit 0, then bit 1), two exchanges each: no
+// shared memory.
+__device__ __forceinline__ void quad_transpose(const uint32_t (&w)[4],
+                                               uint32_t (&out)[4], int t4) {
+  const bool b0 = t4 & 1, b1 = t4 & 2;
+  uint32_t u[4];  // u[2 j + b] = word 2 j + (t4 & 1) of thread (t4 & 2) | b
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const uint32_t got =
+        __shfl_xor_sync(0xffffffffu, b0 ? w[2 * j] : w[2 * j + 1], 1);
+    u[2 * j] = b0 ? got : w[2 * j];
+    u[2 * j + 1] = b0 ? w[2 * j + 1] : got;
+  }
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    const uint32_t got =
+        __shfl_xor_sync(0xffffffffu, b1 ? u[b] : u[2 + b], 2);
+    out[b] = b1 ? got : u[b];
+    out[2 + b] = b1 ? u[2 + b] : got;
   }
 }
 
-// 16 consecutive values of x (one 16-byte chunk of codes): raw loads, then
-// the codes (q8 of a float input against inv).
+constexpr int kBM = 128;                 // output rows a block
+constexpr int kSubN = 128;               // columns of one wgmma
+constexpr int kWgRows = 64;              // rows of a consumer warpgroup
+constexpr int kConsumers = 256;          // two warpgroups
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kKStep = 32 >> 4;          // k32 step in the descriptor
+
+// Tile and ring sizes by the input's type.  int8 x: stages of 128 k
+// bytes, 128-byte swizzle; a float x lands as it is, 64 values a row (an
+// fp32 row of 128 would take 64 KB a stage), into a 64-byte-swizzled int8
+// tile.  A block of 128 columns keeps its ring under ~110 KB so that two
+// blocks share an SM (each then gets 96 registers a thread: 18 warps on 4
+// schedulers); an fp32 x takes 256 columns (half the re-reads of x) and
+// the SM alone.
 template <typename TIn>
-struct Chunk {
-  static constexpr int kWords = sizeof(TIn);  // 16-byte words per chunk
-  uint4 v[kWords];
-
-  __device__ __forceinline__ void load(const TIn* src, bool valid) {
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) {
-      v[i] = valid ? reinterpret_cast<const uint4*>(src)[i]
-                   : make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-
-  __device__ __forceinline__ uint4 codes(float inv) const {
-    uint4 out;
-    int8_t* c = reinterpret_cast<int8_t*>(&out);
-    const TIn* e = reinterpret_cast<const TIn*>(v);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) c[i] = stt::quant_i8(stt::to_float(e[i]), inv);
-    return out;
-  }
+struct GemmCfg {
+  static constexpr bool kFloat = sizeof(TIn) > 1;
+  static constexpr int kBK = kFloat ? 64 : 128;  // k (codes, bytes) a stage
+  static constexpr int kNSub = sizeof(TIn) == 4 ? 2 : 1;
+  static constexpr int kBN = kSubN * kNSub;
+  static constexpr int kMinBlocks = kNSub == 1 ? 2 : 1;
+  static constexpr int kABytes = kBM * kBK * static_cast<int>(sizeof(TIn));
+  static constexpr int kBBytes = kBN * kBK;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kA8Bytes = kFloat ? 2 * kBM * kBK : 0;  // two buffers
+  static constexpr int kBudget = (kNSub == 1 ? 110 : 224) * 1024;
+  static constexpr int kFit = (kBudget - 1024 - kA8Bytes - 256) / kStageBytes;
+  static constexpr int kStages = kFit > 6 ? 6 : kFit;
+  static constexpr int kSmem =
+      1024 + kStages * kStageBytes + kA8Bytes + 2 * kStages * 8;
+  static_assert(kStages >= 3, "the ring needs at least three stages");
 };
 
-// int8 input: already codes
-template <>
-__device__ __forceinline__ uint4 Chunk<int8_t>::codes(float) const {
-  return v[0];
+// stt::quant_i8 of four values, packed little-endian
+__device__ __forceinline__ uint32_t quant4(float a, float b, float c,
+                                           float d, float inv) {
+  auto q = [inv](float y) {
+    return static_cast<uint32_t>(stt::quant_i8(y, inv));
+  };
+  return __byte_perm(__byte_perm(q(a), q(b), 0x0040),
+                     __byte_perm(q(c), q(d), 0x0040), 0x5410);
 }
 
-// ------------------------------------------------------------------ GEMM ---
-
-constexpr int kBM = 128;        // output rows per block
-constexpr int kBN = 128;        // output columns per block
-constexpr int kBK = 64;         // k bytes per tile
-constexpr int kLd = kBK + 16;   // shared row stride (bytes): conflict-free
-constexpr int kTileChunks = kBM * kBK / 16 / kThreads;  // 2 per thread
-
+// q8 of this warpgroup's 64 rows of a float x tile (row-major, 64 values a
+// row, as TMA left it) into a 64-byte-swizzled int8 tile; t is the thread's
+// index in the warpgroup.  16 bytes of x a step: consecutive threads read
+// consecutive chunks and write consecutive codes.
 template <typename TIn>
-__global__ void __launch_bounds__(kThreads)
-    w8a8_gemm_kernel(const TIn* __restrict__ x, const int8_t* __restrict__ w,
-                     const float* __restrict__ amax,
-                     const float* __restrict__ comb,
-                     const float* __restrict__ bias, void* __restrict__ y,
-                     int m, int n, int k, int act, bool out_bf16) {
-  __shared__ __align__(16) int8_t sA[2][kBM * kLd];
-  __shared__ __align__(16) int8_t sB[2][kBN * kLd];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int wm = warp >> 2;  // 64-row half of the block tile
-  const int wn = warp & 3;   // 32-column quarter
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const float inv = sizeof(TIn) == 1 ? 0.f : stt::quant_inv(amax);
-
-  Chunk<TIn> ra[kTileChunks];
-  Chunk<int8_t> rb[kTileChunks];
-  auto load = [&](int kt) {
+__device__ __forceinline__ void quantize_rows(const TIn* src, int8_t* dst,
+                                              float inv, int t) {
+  constexpr int kBK = 64;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(TIn));
+  constexpr int kRowChunks = kBK / kVec;
+  constexpr int kChunks = kWgRows * kRowChunks;
+#pragma unroll 2
+  for (int c = t; c < kChunks; c += 128) {
+    const int row = c / kRowChunks;
+    const int col = (c % kRowChunks) * kVec;
+    const uint4 v = reinterpret_cast<const uint4*>(src)[c];
+    const TIn* e = reinterpret_cast<const TIn*>(&v);
+    uint32_t w[kVec / 4];
 #pragma unroll
-    for (int i = 0; i < kTileChunks; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c >> 2;
-      const int col = kt * kBK + (c & 3) * 16;
-      const bool kin = col < k;
-      ra[i].load(x + (static_cast<size_t>(m0 + r) * k + col),
-                 kin && m0 + r < m);
-      rb[i].load(w + (static_cast<size_t>(n0 + r) * k + col),
-                 kin && n0 + r < n);
+    for (int i = 0; i < kVec / 4; ++i) {
+      w[i] = quant4(stt::to_float(e[4 * i]), stt::to_float(e[4 * i + 1]),
+                    stt::to_float(e[4 * i + 2]), stt::to_float(e[4 * i + 3]),
+                    inv);
     }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < kTileChunks; ++i) {
-      const int c = tid + i * kThreads;
-      const int off = (c >> 2) * kLd + (c & 3) * 16;
-      *reinterpret_cast<uint4*>(&sA[buf][off]) = ra[i].codes(inv);
-      *reinterpret_cast<uint4*>(&sB[buf][off]) = rb[i].v[0];
+    int8_t* d = dst + hw::sw64_offset(row, col);
+    if constexpr (kVec == 4) {
+      *reinterpret_cast<uint32_t*>(d) = w[0];
+    } else {
+      *reinterpret_cast<uint2*>(d) = make_uint2(w[0], w[1]);
     }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] =
-                                    acc[i][j][3] = 0;
-
-  const int ktiles = (k + kBK - 1) / kBK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < ktiles) load(kt + 1);  // in flight during the products
-#pragma unroll
-    for (int kk = 0; kk < kBK / 32; ++kk) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int8_t* ar = &sA[buf][(wm * 64 + i * 16 + g) * kLd + kk * 32 +
-                                    t4 * 4];
-        af[i][0] = ld32(ar);
-        af[i][1] = ld32(ar + 8 * kLd);
-        af[i][2] = ld32(ar + 16);
-        af[i][3] = ld32(ar + 8 * kLd + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* br = &sB[buf][(wn * 32 + j * 8 + g) * kLd + kk * 32 +
-                                    t4 * 4];
-        bfr[j][0] = ld32(br);
-        bfr[j][1] = ld32(br + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_16832_s8(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-    // the other buffer was last read before the previous barrier
-    if (kt + 1 < ktiles) store(buf ^ 1);
-    __syncthreads();
   }
+}
 
+struct GemmArgs {
+  const float* amax;      // x's absmax (a float x only)
+  const float* comb;      // (n,) fp32 rescale
+  const float* bias;      // (n,) fp32 or null
+  const float* amax_out;  // int8 output: the codes' absmax
+  void* y;                // (m, n) bf16, fp32 or int8
+  int m, n, k, act, out;
+};
+
+// The epilogue, four column groups of 8 at a time: each thread computes
+// its two columns of each group and row, the quad's words are exchanged
+// so that thread t4 holds group t4 whole, and it stores that group's 8
+// columns of the row (16 bytes of bf16, 32 of fp32, 8 of codes): full
+// 32-byte sectors where the fragment's own pairs would write 4 bytes.
+// Rows row0 and row0 + 8 of the output, the accumulator's columns from n0.
+template <int kOut, int kNSub>
+__device__ __forceinline__ void store_tile(const int (&acc)[kNSub][64],
+                                           const GemmArgs& a, int row0,
+                                           int n0, int t4) {
+  const float inv_out = kOut == kOutI8 ? stt::quant_inv(a.amax_out) : 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row0 = m0 + wm * 64 + i * 16 + g;
+  for (int sub = 0; sub < kNSub; ++sub) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn * 32 + j * 8 + t4 * 2;
-      if (col >= n) continue;
-      const float c0 = comb[col], c1 = comb[col + 1];
+    for (int q = 0; q < kSubN / 32; ++q) {
+      const int base = n0 + sub * kSubN + q * 32;  // the four groups' start
+      float c0[4], c1[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int col = base + jj * 8 + t4 * 2;
+        c0[jj] = col < a.n ? a.comb[col] : 0.f;
+        c1[jj] = col < a.n ? a.comb[col + 1] : 0.f;
+      }
+      const int gcol = base + t4 * 8;  // this thread's group after the swap
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + h * 8;
-        if (row >= m) continue;
-        store_pair(y, out_bf16, static_cast<size_t>(row) * n + col,
-                   epilogue(acc[i][j][2 * h], c0, bias, col, act),
-                   epilogue(acc[i][j][2 * h + 1], c1, bias, col + 1, act));
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int col = base + jj * 8 + t4 * 2;
+          const int j = q * 4 + jj;
+          const bool in = col < a.n;
+          const float v0 = in ? epilogue(acc[sub][4 * j + 2 * h], c0[jj],
+                                         a.bias, col, a.act)
+                              : 0.f;
+          const float v1 = in ? epilogue(acc[sub][4 * j + 2 * h + 1],
+                                         c1[jj], a.bias, col + 1, a.act)
+                              : 0.f;
+          if constexpr (kOut == kOutBF16) {
+            lo[jj] = stt::as_u32(__floats2bfloat162_rn(v0, v1));
+          } else if constexpr (kOut == kOutF32) {
+            lo[jj] = __float_as_uint(v0);
+            hi[jj] = __float_as_uint(v1);
+          } else {
+            lo[jj] = static_cast<uint8_t>(stt::quant_i8(v0, inv_out)) |
+                     static_cast<uint32_t>(static_cast<uint8_t>(
+                         stt::quant_i8(v1, inv_out)))
+                         << 8;
+          }
+        }
+        uint32_t L[4], H[4];
+        quad_transpose(lo, L, t4);
+        if constexpr (kOut == kOutF32) quad_transpose(hi, H, t4);
+        if (row >= a.m || gcol >= a.n) continue;
+        const size_t at = static_cast<size_t>(row) * a.n + gcol;
+        if constexpr (kOut == kOutBF16) {
+          *reinterpret_cast<uint4*>(static_cast<bf16*>(a.y) + at) =
+              make_uint4(L[0], L[1], L[2], L[3]);
+        } else if constexpr (kOut == kOutF32) {
+          uint4* d = reinterpret_cast<uint4*>(static_cast<float*>(a.y) + at);
+          d[0] = make_uint4(L[0], H[0], L[1], H[1]);
+          d[1] = make_uint4(L[2], H[2], L[3], H[3]);
+        } else {
+          *reinterpret_cast<uint2*>(static_cast<int8_t*>(a.y) + at) =
+              make_uint2(L[0] | (L[1] << 16), L[2] | (L[3] << 16));
+        }
       }
     }
+  }
+}
+
+// One 128 x BN output tile.  Warps 0-7: two consumer warpgroups (rows
+// 0-63, 64-127); warp 8: the producer, whose lane 0 issues the TMA loads.
+// full[s] completes when stage s has landed; empty[s] when the eight
+// consumer warps are done with it (their products on it have completed).
+// The grid runs n fastest, so the blocks in flight share x's rows and all
+// of W in L2.
+template <typename TIn>
+__global__ void __launch_bounds__(kThreads, GemmCfg<TIn>::kMinBlocks)
+    w8a8_gemm_kernel(const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tw, GemmArgs a) {
+  using C = GemmCfg<TIn>;
+  constexpr int kBK = C::kBK;
+  constexpr int kS = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = hw::align_1024(smem_raw);
+  int8_t* a8 = reinterpret_cast<int8_t*>(ring + kS * C::kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kS * C::kStageBytes +
+                                               C::kA8Bytes);
+  uint64_t* empty = full + kS;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * C::kBN;
+  const int ktiles = (a.k + kBK - 1) / kBK;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {  // the producer
+    if (lane == 0) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % kS;
+        if (kt >= kS) hw::mbar_wait(&empty[s], ((kt / kS) + 1) & 1);
+        unsigned char* st = ring + s * C::kStageBytes;
+        hw::mbar_expect_tx(&full[s], C::kStageBytes);
+        hw::tma_load_2d(st, &tx, &full[s], kt * kBK, m0);
+        hw::tma_load_2d(st + C::kABytes, &tw, &full[s], kt * kBK, n0);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  const int t = tid & 127;
+  const float inv = C::kFloat ? stt::quant_inv(a.amax) : 0.f;
+  int acc[C::kNSub][64];
+#pragma unroll
+  for (int sub = 0; sub < C::kNSub; ++sub) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[sub][i] = 0;
+  }
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % kS;
+    const unsigned char* st = ring + s * C::kStageBytes;
+    hw::mbar_wait(&full[s], (kt / kS) & 1);
+    const void* a_tile;
+    if constexpr (C::kFloat) {
+      // this k-tile's codes go to the buffer whose products (two k-tiles
+      // back) the wait below last completed
+      int8_t* dst = a8 + (kt & 1) * kBM * kBK + wg * kWgRows * kBK;
+      quantize_rows<TIn>(
+          reinterpret_cast<const TIn*>(st) + wg * kWgRows * kBK, dst, inv,
+          t);
+      hw::fence_proxy_async();
+      hw::named_bar_sync(1 + wg, 128);
+      a_tile = dst;
+    } else {
+      a_tile = st + wg * kWgRows * kBK;
+    }
+    const uint64_t desc_a = kBK == 128 ? hw::desc_kmajor(a_tile)
+                                       : hw::desc_kmajor_sw64(a_tile);
+    const unsigned char* b_tile = st + C::kABytes;
+    const uint64_t desc_b = kBK == 128 ? hw::desc_kmajor(b_tile)
+                                       : hw::desc_kmajor_sw64(b_tile);
+#pragma unroll
+    for (int sub = 0; sub < C::kNSub; ++sub) hw::fence_regs(acc[sub]);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk) {
+#pragma unroll
+      for (int sub = 0; sub < C::kNSub; ++sub) {
+        hw::wgmma_s8_n128(acc[sub], desc_a + kk * kKStep,
+                          desc_b + sub * ((kSubN * kBK) >> 4) + kk * kKStep);
+      }
+    }
+    hw::wgmma_commit();
+#pragma unroll
+    for (int sub = 0; sub < C::kNSub; ++sub) hw::fence_regs(acc[sub]);
+    hw::wgmma_wait<1>();  // the previous k-tile's products are done
+    if (kt > 0 && lane == 0) hw::mbar_arrive(&empty[(kt - 1) % kS]);
+  }
+  hw::wgmma_wait<0>();
+#pragma unroll
+  for (int sub = 0; sub < C::kNSub; ++sub) hw::fence_regs(acc[sub]);
+
+  const int row0 = m0 + wg * kWgRows + (warp & 3) * 16 + (lane >> 2);
+  switch (a.out) {
+    case kOutBF16: store_tile<kOutBF16>(acc, a, row0, n0, lane & 3); break;
+    case kOutF32: store_tile<kOutF32>(acc, a, row0, n0, lane & 3); break;
+    default: store_tile<kOutI8>(acc, a, row0, n0, lane & 3); break;
   }
 }
 
 template <typename TIn>
-void launch_gemm(const void* x, const int8_t* w, const float* amax,
-                 const float* comb, const float* bias, void* y, int m, int n,
-                 int k, int act, bool out_bf16, cudaStream_t stream) {
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  w8a8_gemm_kernel<TIn><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TIn*>(x), w, amax, comb, bias, y, m, n, k, act,
-      out_bf16);
+constexpr CUtensorMapDataType map_dtype() {
+  return sizeof(TIn) == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+         : sizeof(TIn) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 }
 
-// ------------------------------------------------------------- fused MLP ---
-
-constexpr int kBH = 32;         // hidden columns per chunk
-constexpr int kLdH = kBH + 16;  // shared row stride of sW2 and sH (bytes)
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <int D>
-struct MlpShape {
-  static constexpr int BM = D * 64 <= 24576 ? 64 : 32;  // rows per block
-  static constexpr int LdX = D + 16;  // shared row stride of sX and sW1
-  static constexpr int X = BM * LdX;
-  static constexpr int W1 = kBH * LdX;
-  static constexpr int W2 = D * kLdH;
-  static constexpr int H = BM * kLdH;
-  static constexpr int kBytes = X + 2 * (W1 + W2) + H;
-};
-
-struct MlpArgs {
-  const void* x;
-  const int8_t* w1;   // (hidden, D) int8
-  const float* c1;    // (hidden,) fc1 rescale
-  const float* b1;    // (hidden,) or null
-  const float* amax1; // fc1's input absmax
-  const float* amax2; // fc2's input absmax (the hidden codes')
-  const int8_t* w2;   // (D, hidden) int8
-  const float* c2;    // (D,) fc2 rescale
-  const float* b2;    // (D,) or null
-  void* y;            // (M, D) bf16 or fp32
-  int m, hidden, act;
-  bool out_bf16;
-};
-
-template <int D, typename TIn>
-__global__ void __launch_bounds__(kThreads) w8a8_mlp_kernel(MlpArgs a) {
-  using S = MlpShape<D>;
-  constexpr int BM = S::BM;
-  constexpr int MT2 = BM / 16;   // fc2: m16 tiles a warp (all BM rows)
-  constexpr int NT2 = D / 64;    // fc2: n8 tiles a warp (D / 8 columns)
-  constexpr int MT1 = BM / 32;   // fc1: m16 tiles a warp
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* sX = smem;
-  int8_t* sW1 = sX + S::X;            // two stages
-  int8_t* sW2 = sW1 + 2 * S::W1;      // two stages
-  int8_t* sH = sW2 + 2 * S::W2;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int m0 = blockIdx.x * BM;
-  const int m = a.m;
-  const int hidden = a.hidden;
-
-  // weight chunk c (hidden columns c*32 .. c*32+31) -> stage st
-  auto prefetch = [&](int c, int st) {
-    const int h0 = c * kBH;
-    int8_t* w1s = sW1 + st * S::W1;
-    int8_t* w2s = sW2 + st * S::W2;
-    for (int i = tid; i < kBH * (D / 16); i += kThreads) {
-      const int r = i / (D / 16);
-      const int col = (i % (D / 16)) * 16;
-      cp_async16(w1s + r * S::LdX + col,
-                 a.w1 + (static_cast<size_t>(h0 + r) * D + col));
-    }
-    for (int i = tid; i < D * (kBH / 16); i += kThreads) {
-      const int r = i / (kBH / 16);
-      const int col = (i % (kBH / 16)) * 16;
-      cp_async16(w2s + r * kLdH + col,
-                 a.w2 + (static_cast<size_t>(r) * hidden + h0 + col));
-    }
-    cp_async_commit();
-  };
-
-  prefetch(0, 0);
-  // the x tile -> codes in shared memory, once
-  {
-    const float inv = sizeof(TIn) == 1 ? 0.f : stt::quant_inv(a.amax1);
-    const TIn* x = static_cast<const TIn*>(a.x);
-    for (int i = tid; i < BM * (D / 16); i += kThreads) {
-      const int r = i / (D / 16);
-      const int col = (i % (D / 16)) * 16;
-      Chunk<TIn> ch;
-      ch.load(x + (static_cast<size_t>(m0 + r) * D + col), m0 + r < m);
-      *reinterpret_cast<uint4*>(sX + r * S::LdX + col) = ch.codes(inv);
-    }
+// Two tensor maps (x by 128-row tiles of BK k values, int8 swizzled for
+// wgmma, a float x as it is; W by BN-row tiles of BK codes), then the
+// kernel on the stream.
+template <typename TIn>
+int launch_gemm(const void* x, const int8_t* w, const GemmArgs& a,
+                cudaStream_t stream) {
+  using C = GemmCfg<TIn>;
+  const CUtensorMapSwizzle sw = C::kBK == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                              : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tx, tw;
+  if (!hw::tile_map_2d(&tx, x, map_dtype<TIn>(), a.k, a.m,
+                       static_cast<long long>(a.k) * sizeof(TIn), C::kBK,
+                       kBM, C::kFloat ? CU_TENSOR_MAP_SWIZZLE_NONE : sw) ||
+      !hw::tile_map_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.k, a.n, a.k,
+                       C::kBK, C::kBN, sw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float inv2 = stt::quant_inv(a.amax2);
-
-  int acc2[MT2][NT2][4];
-#pragma unroll
-  for (int i = 0; i < MT2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT2; ++j)
-      acc2[i][j][0] = acc2[i][j][1] = acc2[i][j][2] = acc2[i][j][3] = 0;
-
-  // fc1 work of this warp: m16 tiles (warp / 4) * MT1 + i, n8 tile warp % 4
-  const int n1 = (warp & 3) * 8;
-  const int mb1 = (warp >> 2) * MT1;
-  const int chunks = hidden / kBH;
-  for (int c = 0; c < chunks; ++c) {
-    const int st = c & 1;
-    if (c + 1 < chunks) {
-      prefetch(c + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // chunk c (and, at c = 0, the x tile) visible
-    const int8_t* w1s = sW1 + st * S::W1;
-    const int8_t* w2s = sW2 + st * S::W2;
-
-    // fc1 for the chunk: (BM x 32) = x (BM x D) . W1[chunk]^T
-    int acc1[MT1][4];
-#pragma unroll
-    for (int i = 0; i < MT1; ++i) acc1[i][0] = acc1[i][1] = acc1[i][2] =
-                                      acc1[i][3] = 0;
-    const int8_t* br = w1s + (n1 + g) * S::LdX + t4 * 4;
-#pragma unroll 4
-    for (int kk = 0; kk < D / 32; ++kk) {
-      const uint32_t b0 = ld32(br + kk * 32), b1 = ld32(br + kk * 32 + 16);
-#pragma unroll
-      for (int i = 0; i < MT1; ++i) {
-        const int8_t* ar = sX + ((mb1 + i) * 16 + g) * S::LdX + kk * 32 +
-                           t4 * 4;
-        const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * S::LdX),
-                                ld32(ar + 16), ld32(ar + 8 * S::LdX + 16)};
-        mma_16832_s8(acc1[i], af, b0, b1);
-      }
-    }
-    // epilogue: rescale, bias, GELU, then the codes against fc2's absmax
-    {
-      const int hc = c * kBH + n1 + t4 * 2;  // hidden column of acc1[.][0]
-      const float c0 = a.c1[hc], c1 = a.c1[hc + 1];
-#pragma unroll
-      for (int i = 0; i < MT1; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = (mb1 + i) * 16 + g + h * 8;
-          *reinterpret_cast<char2*>(sH + r * kLdH + n1 + t4 * 2) = make_char2(
-              stt::quant_i8(epilogue(acc1[i][2 * h], c0, a.b1, hc, a.act),
-                            inv2),
-              stt::quant_i8(epilogue(acc1[i][2 * h + 1], c1, a.b1, hc + 1,
-                                     a.act),
-                            inv2));
-        }
-      }
-    }
-    __syncthreads();  // sH complete
-
-    // fc2: acc2 (BM x D) += h (BM x 32) . W2[:, chunk]^T, this warp's
-    // D / 8 columns
-    {
-      uint32_t af[MT2][4];
-#pragma unroll
-      for (int i = 0; i < MT2; ++i) {
-        const int8_t* ar = sH + (i * 16 + g) * kLdH + t4 * 4;
-        af[i][0] = ld32(ar);
-        af[i][1] = ld32(ar + 8 * kLdH);
-        af[i][2] = ld32(ar + 16);
-        af[i][3] = ld32(ar + 8 * kLdH + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NT2; ++j) {
-        const int8_t* b = w2s + (warp * (D / 8) + j * 8 + g) * kLdH + t4 * 4;
-        const uint32_t b0 = ld32(b), b1 = ld32(b + 16);
-#pragma unroll
-        for (int i = 0; i < MT2; ++i) mma_16832_s8(acc2[i][j], af[i], b0, b1);
-      }
-    }
-    __syncthreads();  // stage st and sH are rewritten next
-  }
-
-#pragma unroll
-  for (int j = 0; j < NT2; ++j) {
-    const int col = warp * (D / 8) + j * 8 + t4 * 2;
-    const float c0 = a.c2[col], c1 = a.c2[col + 1];
-#pragma unroll
-    for (int i = 0; i < MT2; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + i * 16 + g + h * 8;
-        if (row >= m) continue;
-        store_pair(a.y, a.out_bf16, static_cast<size_t>(row) * D + col,
-                   epilogue(acc2[i][j][2 * h], c0, a.b2, col, kActNone),
-                   epilogue(acc2[i][j][2 * h + 1], c1, a.b2, col + 1,
-                            kActNone));
-      }
-    }
-  }
-}
-
-template <int D, typename TIn>
-int launch_mlp(const MlpArgs& a, cudaStream_t stream) {
-  using S = MlpShape<D>;
-  auto kernel = w8a8_mlp_kernel<D, TIn>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  auto kernel = w8a8_gemm_kernel<TIn>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (a.m + S::BM - 1) / S::BM;
-  kernel<<<blocks, kThreads, S::kBytes, stream>>>(a);
+  const dim3 grid((a.n + C::kBN - 1) / C::kBN, (a.m + kBM - 1) / kBM);
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(tx, tw, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_mlp_in(const MlpArgs& a, int x_dtype, cudaStream_t stream) {
+int launch_gemm_in(const void* x, int x_dtype, const int8_t* w,
+                   const GemmArgs& a, cudaStream_t stream) {
   switch (x_dtype) {
-    case stt::kInt8: return launch_mlp<D, int8_t>(a, stream);
-    case stt::kBFloat16: return launch_mlp<D, bf16>(a, stream);
-    default: return launch_mlp<D, float>(a, stream);
+    case stt::kInt8: return launch_gemm<int8_t>(x, w, a, stream);
+    case stt::kBFloat16: return launch_gemm<bf16>(x, w, a, stream);
+    case stt::kFloat32: return launch_gemm<float>(x, w, a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+bool bad_dims(int m, int n, int k, int act) {
+  return m <= 0 || n <= 0 || k <= 0 || k % 32 != 0 || n % 8 != 0 ||
+         (m + kBM - 1) / kBM > 65535 || act < kActNone || act > kActGeluErf;
 }
 
 }  // namespace
@@ -482,66 +454,46 @@ int launch_mlp_in(const MlpArgs& a, int x_dtype, cudaStream_t stream) {
 // int8 row-major; amax: fc's input absmax (one fp32 value in device memory,
 // read only for a float x); comb: (n,) fp32 rescale; bias: (n,) fp32 or
 // null; y: (m, n) bf16 (out_bf16) or fp32, contiguous.  k % 32 == 0 and
-// n % 8 == 0; x and w 16-byte aligned.
+// n % 8 == 0; x, w and y 16-byte aligned.
 extern "C" int stt_w8a8_gemm(const void* x, int x_dtype, const void* w,
                              const float* amax, const float* comb,
                              const float* bias, void* y, int m, int n, int k,
                              int act, int out_bf16, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || k % 32 != 0 || n % 8 != 0 ||
-      (m + kBM - 1) / kBM > 65535 || act < kActNone || act > kActGeluErf ||
-      (x_dtype != stt::kInt8 && amax == nullptr) || comb == nullptr) {
+  if (bad_dims(m, n, k, act) || (x_dtype != stt::kInt8 && amax == nullptr) ||
+      comb == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* wq = static_cast<const int8_t*>(w);
-  switch (x_dtype) {
-    case stt::kInt8:
-      launch_gemm<int8_t>(x, wq, amax, comb, bias, y, m, n, k, act,
-                          out_bf16 != 0, s);
-      break;
-    case stt::kBFloat16:
-      launch_gemm<bf16>(x, wq, amax, comb, bias, y, m, n, k, act,
-                        out_bf16 != 0, s);
-      break;
-    case stt::kFloat32:
-      launch_gemm<float>(x, wq, amax, comb, bias, y, m, n, k, act,
-                         out_bf16 != 0, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const GemmArgs a{amax, comb, bias, nullptr, y, m, n, k, act,
+                   out_bf16 != 0 ? kOutBF16 : kOutF32};
+  return launch_gemm_in(x, x_dtype, static_cast<const int8_t*>(w), a,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // The whole MLP: x (m, dim) int8 codes, bf16 or fp32, contiguous; w1 (hidden,
 // dim) and w2 (dim, hidden) int8 row-major; c1 (hidden,), c2 (dim,) fp32
 // rescales; b1, b2 fp32 or null; amax1, amax2 the two inputs' absmax in
-// device memory; y (m, dim) bf16 or fp32.  dim is 128, 256, 384, 512, 640
-// or 768 and hidden % 32 == 0 (ops/int8_gemm.py:use_fused_mlp).
+// device memory; y (m, dim) bf16 or fp32; h (m, hidden) int8 scratch for
+// fc1's codes.  dim and hidden are multiples of 32
+// (ops/int8_gemm.py:use_fused_mlp).  Two launches on the stream: fc1 with
+// the int8-output epilogue into h, then fc2 on h.
 extern "C" int stt_w8a8_mlp(const void* x, int x_dtype, const void* w1,
                             const float* c1, const float* b1,
                             const float* amax1, const void* w2,
                             const float* c2, const float* b2,
                             const float* amax2, void* y, int m, int dim,
-                            int hidden, int act, int out_bf16, void* stream) {
-  if (m <= 0 || hidden <= 0 || hidden % kBH != 0 || act < kActNone ||
-      act > kActGeluErf || amax2 == nullptr ||
-      (x_dtype != stt::kInt8 && amax1 == nullptr) ||
-      (x_dtype != stt::kInt8 && x_dtype != stt::kBFloat16 &&
-       x_dtype != stt::kFloat32)) {
+                            int hidden, int act, int out_bf16, void* h,
+                            void* stream) {
+  if (bad_dims(m, hidden, dim, act) || bad_dims(m, dim, hidden, act) ||
+      amax2 == nullptr || h == nullptr || c1 == nullptr || c2 == nullptr ||
+      (x_dtype != stt::kInt8 && amax1 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const MlpArgs a{x, static_cast<const int8_t*>(w1), c1, b1, amax1, amax2,
-                  static_cast<const int8_t*>(w2), c2, b2, y, m, hidden, act,
-                  out_bf16 != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dim) {
-    case 128: return launch_mlp_in<128>(a, x_dtype, s);
-    case 256: return launch_mlp_in<256>(a, x_dtype, s);
-    case 384: return launch_mlp_in<384>(a, x_dtype, s);
-    case 512: return launch_mlp_in<512>(a, x_dtype, s);
-    case 640: return launch_mlp_in<640>(a, x_dtype, s);
-    case 768: return launch_mlp_in<768>(a, x_dtype, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const GemmArgs fc1{amax1, c1, b1, amax2, h, m, hidden, dim, act, kOutI8};
+  const int err =
+      launch_gemm_in(x, x_dtype, static_cast<const int8_t*>(w1), fc1, s);
+  if (err != 0) return err;
+  const GemmArgs fc2{amax2, c2, b2, nullptr, y, m, dim, hidden, kActNone,
+                     out_bf16 != 0 ? kOutBF16 : kOutF32};
+  return launch_gemm<int8_t>(h, static_cast<const int8_t*>(w2), fc2, s);
 }

@@ -1,4 +1,4 @@
-"""A/B of the attention and norm kernels between this checkout and another.
+"""A/B of the port's kernels between this checkout and another.
 
 A1 (inference), C1 (training forward with lse) and C2 (training backward)
 on the packed qkv, C3-fwd and C3-bwd (the same on separate operands, at
@@ -6,9 +6,11 @@ IV2-S's N = 2049 and the job's batch 56, v strided), the int8-storage
 attention packed (B2) and on separate operands (D2, IV2-S, v strided), and
 the row norms of csrc/layernorm.cu (A2 LayerNorm and B1 LayerNorm->int8 on
 ViT-B's (32 * 1568, 768) bf16, D3 RMSNorm->int8 on IV2-S's (32 * 2049,
-384)), run on the same seeded inputs at ViT-B's (and IV2-S's) shapes in
-both checkouts, each in a fresh process (the two packages share a name), in the
-order other, this, this, other, all on one card.  Each process builds its
+384)), and the static int8 GEMM and MLP (B4) at chip_smoke.py phase 2's
+shapes (``GEMMS``, ``MLPS``; 20 queued calls to an event pair, as the
+norms), run on the same seeded inputs in both checkouts, each in a fresh
+process (the two packages share a name), in the order other, this, this,
+other, all on one card.  Each process builds its
 checkout's kernels from its own sources.  Printed per kernel: whether the
 outputs of all four runs are bit-equal (a digest of their bytes), the
 median CUDA-event time of each run, and this checkout's mean time over the
@@ -19,11 +21,13 @@ must be bit-equal in all four runs.  With ``--steps`` each checkout also
 times its own fine-tuning step (its chip_smoke.py's phase-6 / phase-9
 FinetuneTrainer timing: ViT-B 16x224 and IV2-S 8x224 at the jobs' batch
 56, the median of its timed steps), in a fresh process per run, in the
-same order.
+same order; with ``--evals`` its static int8 serving on the fused GEMMs
+(its chip_smoke.py's phase-10 ``run_eval_fused``: ViT-B, and IV2-S with
+fused_rmsq, windows/s as the median of its evaluate runs), the same way.
 
     git archive <commit> | tar -x -C build/parent
     python -m simple_tad_tpu_torch.kernels.ab_checkouts --other build/parent \
-        [--changed attention_bwd,attention_sep_bwd] [--steps]
+        [--changed attention_bwd,attention_sep_bwd] [--steps] [--evals]
 """
 
 from __future__ import annotations
@@ -48,12 +52,61 @@ SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
           "attention_i8_sep": (32, 2049, 6), "layernorm": (32, 1568, 12),
           "layernorm_quant": (32, 1568, 12), "rmsnorm_quant": (32, 2049, 6)}
 NORMS = ("layernorm", "layernorm_quant", "rmsnorm_quant")
+# B4 at phase 2's shapes: GEMM (M, K, N, x dtype, bias), MLP (M, dim,
+# hidden, x dtype): ViT-B batch 32 qkv, proj and the per-GEMM fc2 (fp32 x),
+# IV2-S batch 32 qkv (bf16 x); the ViT-B and IV2-S MLPs
+GEMMS = {"int8_gemm": (32 * 1568, 768, 2304, "int8", False),
+         "int8_gemm_proj": (32 * 1568, 768, 768, "int8", True),
+         "int8_gemm_fc2": (32 * 1568, 3072, 768, "float32", True),
+         "int8_gemm_iv2": (32 * 2049, 384, 1152, "bfloat16", False)}
+MLPS = {"int8_mlp": (32 * 1568, 768, 3072, "int8"),
+        "int8_mlp_iv2": (32 * 2049, 384, 1536, "bfloat16")}
+KERNELS = {**SHAPES, **GEMMS, **MLPS}
 # --steps: chip_smoke.py's training families (ViT-B, IV2-S)
 STEP_FAMILIES = ("vit", "iv2")
+# --evals: chip_smoke.py phase 10's (family, (label, qkv_i8, fused_rmsq))
+EVAL_CASES = (("vit", ("vit fused", True, False)),
+              ("iv2", ("iv2 fused rmsq", True, True)))
 # the norms take ~0.07 ms, about the host's time in a wrapper call, which a
 # single call's event pair would include: they are timed CALLS_PER_EVENT
-# calls to an event pair, so the calls queue up on the card
+# calls to an event pair, so the calls queue up on the card (B4's 0.1-1 ms
+# calls too)
 CALLS_PER_EVENT = 20
+
+
+def _b4_fn(name, dev, g):
+    """The B4 call of ``name`` on seeded operands (chip_smoke.py's: x, its
+    0.999-quantile absmax, per-channel int8 weights, a bias)."""
+    import torch
+
+    from simple_tad_tpu_torch.ops import int8_gemm
+    from simple_tad_tpu_torch.ops.ln import quantize_static
+
+    def operands(M, K, N, dtype):
+        x = torch.randn((M, K), generator=g, device=dev)
+        amax = torch.quantile(x[:4096].abs().flatten(), 0.999)
+        if dtype == torch.int8:
+            x = quantize_static(x, amax)
+        w = torch.randn((N, K), generator=g, device=dev) * 0.02
+        w_s = torch.clamp(w.abs().amax(dim=1) / 127.0, min=1e-12)
+        w_q = torch.clamp(torch.round(w / w_s[:, None]), -127,
+                          127).to(torch.int8)
+        b = torch.randn(N, generator=g, device=dev) * 0.1
+        return x.to(dtype), w_q, w_s, amax, b
+
+    if name in GEMMS:
+        M, K, N, dtype, bias = GEMMS[name]
+        x, w_q, w_s, amax, b = operands(M, K, N, getattr(torch, dtype))
+        args = (x, w_q, w_s, amax, b if bias else None, None, torch.bfloat16)
+        return lambda: (int8_gemm.w8a8_gemm(*args),)
+    M, dim, hidden, dtype = MLPS[name]
+    x, w1, s1, a1, b1 = operands(M, dim, hidden, getattr(torch, dtype))
+    _, w2, s2, _, b2 = operands(8, hidden, dim, torch.float32)
+    h = int8_gemm.w8a8_gemm_plain(x[:4096], w1, s1, a1, b1, "gelu_tanh",
+                                  torch.float32)
+    a2 = torch.quantile(h.abs().flatten(), 0.999)
+    args = (x, w1, s1, a1, b1, w2, s2, a2, b2, "gelu_tanh", torch.bfloat16)
+    return lambda: (int8_gemm.w8a8_mlp(*args),)
 
 
 def _worker(root: str) -> dict:
@@ -68,10 +121,14 @@ def _worker(root: str) -> dict:
     kbuild.load()
     dev = torch.device("cuda")
     out = {}
-    for name, (B, N, heads) in SHAPES.items():
+    for name in KERNELS:
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        if name not in SHAPES:
+            _time(name, _b4_fn(name, dev, g), out)
+            continue
+        B, N, heads = SHAPES[name]
         C = 64 * heads
         scale = 64 ** -0.5
-        g = torch.Generator(device=dev).manual_seed(SEED)
         qkv = torch.randn((B, N, 3 * C), generator=g,
                           device=dev).to(torch.bfloat16)
         if name in NORMS:
@@ -136,26 +193,32 @@ def _worker(root: str) -> dict:
             def fn():
                 return (fa.flash_attention_qkv_bwd(qkv, o, lse, dout, heads,
                                                    scale),)
-        h = hashlib.sha256()
-        for t in fn():
-            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-        for _ in range(3):
-            fn()
-        calls = CALLS_PER_EVENT if name in NORMS else 1
-        times = []
-        for _ in range(RUNS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(calls):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / calls)
-        out[name] = {"digest": h.hexdigest(), "ms": statistics.median(times)}
+        _time(name, fn, out)
         del qkv, fn
-        torch.cuda.empty_cache()
     return out
+
+
+def _time(name, fn, out) -> None:
+    """out[name] = the digest of fn()'s outputs and its median time."""
+    import torch
+    h = hashlib.sha256()
+    for t in fn():
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    for _ in range(3):
+        fn()
+    calls = 1 if name in SHAPES and name not in NORMS else CALLS_PER_EVENT
+    times = []
+    for _ in range(RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    out[name] = {"digest": h.hexdigest(), "ms": statistics.median(times)}
+    torch.cuda.empty_cache()
 
 
 def _step_worker(root: str, family: str) -> dict:
@@ -165,6 +228,25 @@ def _step_worker(root: str, family: str) -> dict:
     import chip_smoke
     r = chip_smoke.time_training_process(SEED, profile=False, family=family)
     return {"batch": r.get("batch"), "ms": statistics.median(r["step_ms"])}
+
+
+def _eval_worker(root: str) -> dict:
+    """Run in a fresh process with ``root`` first on the path -> {label:
+    windows/s} of that checkout's own phase-10 runs (the logits' drift
+    from bf16 is printed against 0, not measured)."""
+    sys.path[0] = os.path.abspath(root)
+    import torch
+
+    import chip_smoke
+    dev = torch.device("cuda")
+    out = {}
+    for family, (label, qkv_i8, fused_rmsq) in EVAL_CASES:
+        r = chip_smoke.run_eval_fused(
+            dev, SEED, family,
+            [(label, qkv_i8, fused_rmsq, chip_smoke.EVAL_RUNS)], 0.0)
+        out[label] = r[label]["windows_per_sec"]
+        torch.cuda.empty_cache()
+    return out
 
 
 def _runs(order, *args) -> list:
@@ -191,16 +273,22 @@ def main(argv=None) -> int:
                          "the other checkout in their last bits")
     ap.add_argument("--steps", action="store_true",
                     help="also time each checkout's fine-tuning steps")
+    ap.add_argument("--evals", action="store_true",
+                    help="also time each checkout's fused int8 serving")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--step-worker", help=argparse.SUPPRESS)
+    ap.add_argument("--eval-worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.eval_worker:
+        print(json.dumps(_eval_worker(args.eval_worker)))
+        return 0
     if args.step_worker:
         family, root = args.step_worker.split(":", 1)
         print(json.dumps(_step_worker(root, family)))
         return 0
     changed = {name for name in args.changed.split(",") if name}
-    if changed - set(SHAPES):
-        ap.error(f"--changed: unknown kernels {sorted(changed - set(SHAPES))}")
+    if changed - set(KERNELS):
+        ap.error(f"--changed: unknown kernels {sorted(changed - set(KERNELS))}")
     if args.worker:
         print(json.dumps(_worker(args.worker)))
         return 0
@@ -212,7 +300,7 @@ def main(argv=None) -> int:
              ("other", args.other)]
     runs = _runs(order, "--worker")
     ok = True
-    for name, shape in SHAPES.items():
+    for name, shape in KERNELS.items():
         digests = {r[name]["digest"] for _, r in runs}
         ms = [r[name]["ms"] for _, r in runs]
         mine = statistics.mean(m for (lbl, _), m in zip(runs, ms)
@@ -253,6 +341,17 @@ def main(argv=None) -> int:
               f"(other, this, this, other) "
               f"{' '.join(f'{m:.2f}' for m in ms)}; this / other "
               f"{mine / theirs:.4f}")
+    if args.evals:
+        evals = _runs(order, "--eval-worker")
+        for _, (label, *_) in EVAL_CASES:
+            rates = [r[label] for _, r in evals]
+            mine = statistics.mean(r[label] for (lbl, _), (_, r)
+                                   in zip(order, evals) if lbl == "this")
+            theirs = statistics.mean(r[label] for (lbl, _), (_, r)
+                                     in zip(order, evals) if lbl == "other")
+            print(f"[ab] {label} evaluate: windows/s (other, this, this, "
+                  f"other) {' '.join(f'{w:.2f}' for w in rates)}; this / "
+                  f"other {mine / theirs:.4f}")
     return 0 if ok else 1
 
 

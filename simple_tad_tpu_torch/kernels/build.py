@@ -172,7 +172,8 @@ def load() -> ctypes.CDLL:
             lib.stt_w8a8_gemm.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i,
                                           p]
             lib.stt_w8a8_gemm.restype = i
-            lib.stt_w8a8_mlp.argtypes = [p, i] + [p] * 9 + [i] * 5 + [p]
+            # ..., the hidden codes' scratch, the stream
+            lib.stt_w8a8_mlp.argtypes = [p, i] + [p] * 9 + [i] * 5 + [p] * 2
             lib.stt_w8a8_mlp.restype = i
             lib.stt_error_string.argtypes = [i]
             lib.stt_error_string.restype = ctypes.c_char_p

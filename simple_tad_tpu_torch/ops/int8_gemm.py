@@ -18,7 +18,8 @@ Numerics (both versions), with c = w_scale * (amax / 127) in fp32:
     output dtype: bit for bit the unfused static model's
     ops/quant.py:int8_matmul_static + bias + GELU;
   * the MLP quantizes fc1's fp32 activation against fc2's absmax, as the
-    unfused model's fc2 does.
+    unfused model's fc2 does (``w8a8_gemm_q8_plain``: fc1 with the int8
+    output its kernel launch writes).
 GELU: the JAX _mlp_kernel always applies the tanh form, the unfused model
 ``gelu_for(dtype)`` (erf at fp32, tanh at bf16; ROADMAP F4).  The port
 takes the form as an argument and its models pass ``gelu_act(dtype)``, so
@@ -28,8 +29,14 @@ Weights are the port's layout: ``w_q`` (N, K) int8 (the JAX package's
 (K, N) transposed), per-output-channel fp32 scales.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.  ``GEMM_LAUNCHES`` counts launches of the GEMM kernel,
-``MLP_LAUNCHES`` those of the MLP kernel.
+kernel or raises.  ``GEMM_LAUNCHES`` counts ``w8a8_gemm`` calls (one kernel
+launch each), ``MLP_LAUNCHES`` ``w8a8_mlp`` calls (two launches of the GEMM
+kernel each: fc1 into int8 codes, then fc2 on them).
+
+Width rule (``use_fused_mlp``): the MLP takes any dim and hidden that are
+multiples of 32, as its two products do; every registered width does (ViT
+384/768/1024/1280 x4; InternVideo2 384/768/1024 x4, 1408 x 6144, 3200 x
+12800).  Another width takes the per-GEMM route of the model's MLP.
 """
 
 from __future__ import annotations
@@ -45,11 +52,6 @@ GEMM_LAUNCHES = 0
 MLP_LAUNCHES = 0
 # activation codes of csrc/int8_gemm.cu
 ACTS = {None: 0, "gelu_tanh": 1, "gelu_erf": 2}
-# widths the MLP kernel is built for: its (rows x dim) int32 accumulator
-# stays in the registers of 8 warps (rows * dim / 256 <= 96 a thread, at 64
-# rows up to dim 384 and 32 rows up to 768)
-MLP_DIMS = (128, 256, 384, 512, 640, 768)
-MLP_CHUNK = 32   # hidden columns per step of the kernel's walk
 
 
 def gelu_act(dtype) -> str:
@@ -74,12 +76,13 @@ def rescale(w_scale, a_amax):
 
 
 def use_fused_mlp(dim: int, hidden: int) -> bool:
-    """Does the MLP kernel's working set fit at this width?  Its (rows x
-    dim) int32 accumulator must stay in registers (``MLP_DIMS``) and hidden
-    is walked in 32-column chunks.  Wider MLPs (ViT-L's 1024 x 4096,
-    IV2-1B's 1408 x 6144) take two ``w8a8_gemm`` launches, as the JAX
-    package's mlp_fits_vmem sends IV2-1B to its per-GEMM kernel."""
-    return dim in MLP_DIMS and hidden % MLP_CHUNK == 0
+    """Does ``w8a8_mlp`` take this width?  Its two products contract over
+    dim and hidden, and the GEMM kernel takes K a multiple of 32 (its
+    output width then a multiple of 8): every registered ViT and
+    InternVideo2 width.  (The JAX package's mlp_fits_vmem sends IV2-1B to
+    its per-GEMM kernel; the port's MLP holds no width-sized state on the
+    chip.)"""
+    return dim > 0 and hidden > 0 and dim % 32 == 0 and hidden % 32 == 0
 
 
 def w8a8_gemm_plain(x, w_q, w_scale, a_amax, bias=None, act=None,
@@ -95,12 +98,21 @@ def w8a8_gemm_plain(x, w_q, w_scale, a_amax, bias=None, act=None,
     return activation(y, act).to(out_dtype)
 
 
+def w8a8_gemm_q8_plain(x, w_q, w_scale, a_amax, bias, act, out_amax):
+    """The GEMM's int8-output form (the MLP kernel's fc1 launch): the fp32
+    output of ``w8a8_gemm_plain`` quantized against ``out_amax`` ->
+    (..., N) int8 codes."""
+    y = w8a8_gemm_plain(x, w_q, w_scale, a_amax, bias, act, torch.float32)
+    return quantize_static(y, out_amax)
+
+
 def w8a8_mlp_plain(x, w1_q, s1, amax1, b1, w2_q, s2, amax2, b2,
                    act="gelu_tanh", out_dtype=torch.bfloat16):
     """The whole MLP: fc1 (w1_q (hidden, dim)) with its bias and ``act`` in
     fp32, then fc2 (w2_q (dim, hidden)) on that fp32 activation quantized
-    against ``amax2`` -> (..., dim) in ``out_dtype``."""
-    h = w8a8_gemm_plain(x, w1_q, s1, amax1, b1, act, torch.float32)
+    against ``amax2`` -> (..., dim) in ``out_dtype``: fc1's codes, then
+    fc2 on them, the split of the kernel's two launches."""
+    h = w8a8_gemm_q8_plain(x, w1_q, s1, amax1, b1, act, amax2)
     return w8a8_gemm_plain(h, w2_q, s2, amax2, b2, None, out_dtype)
 
 
@@ -220,9 +232,11 @@ def w8a8_gemm(x, w_q, w_scale, a_amax, bias=None, act=None,
 
 def w8a8_mlp(x, w1_q, s1, amax1, b1, w2_q, s2, amax2, b2, act="gelu_tanh",
              out_dtype=torch.bfloat16):
-    """The whole static int8 MLP in one kernel (kernel B4-mlp):
-    y = q8(act(q8(x) W1^T c1 + b1)) W2^T c2 + b2, the (rows, hidden)
-    activation kept on the chip.
+    """The whole static int8 MLP in one call (kernel B4-mlp):
+    y = q8(act(q8(x) W1^T c1 + b1)) W2^T c2 + b2: two launches of the GEMM
+    kernel, fc1 with its int8-output epilogue into an (rows, hidden) int8
+    scratch (a quarter of the fp32 activation the per-GEMM route writes),
+    then fc2 on those codes.
 
     x: (..., dim) bf16, fp32 or int8 codes against ``amax1``, contiguous;
     w1_q: (hidden, dim), w2_q: (dim, hidden) int8; s1 (hidden,), s2 (dim,)
@@ -244,13 +258,14 @@ def w8a8_mlp(x, w1_q, s1, amax1, b1, w2_q, s2, amax2, b2, act="gelu_tanh",
     if M == 0:
         return y
     c1, c2 = rescale(s1, amax1), rescale(s2, amax2)
+    h = torch.empty((M, hidden), dtype=torch.int8, device=x.device)
     lib = kbuild.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.stt_w8a8_mlp(
         x.data_ptr(), kbuild.dtype_code(x.dtype, int8=True), w1_q.data_ptr(),
         c1.data_ptr(), _ptr(b1), amax1.data_ptr(), w2_q.data_ptr(),
         c2.data_ptr(), _ptr(b2), amax2.data_ptr(), y.data_ptr(), M, dim,
-        hidden, ACTS[act], out_bf16, stream)
+        hidden, ACTS[act], out_bf16, h.data_ptr(), stream)
     kbuild.check(code, name)
     global MLP_LAUNCHES
     MLP_LAUNCHES += 1

@@ -699,6 +699,17 @@ def _gemm_operands(m, k, n, x_dtype, seed, device):
                              ).to(device))
 
 
+def _rows_plain(plain, x, *rest):
+    """``plain`` on x's rows: torch._int_mm on the card takes more than 16
+    rows, so a shorter x is padded with zero rows (each output row depends
+    on its own row alone) and the result cut back."""
+    m = x.shape[0]
+    if m > 16:
+        return plain(x, *rest)
+    pad = torch.zeros((32 - m, x.shape[1]), dtype=x.dtype, device=x.device)
+    return plain(torch.cat([x, pad]), *rest)[:m]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,x_dtype,bias,act,out", [
     (1000, 768, 2304, torch.int8, False, None, torch.bfloat16),   # qkv
@@ -707,7 +718,15 @@ def _gemm_operands(m, k, n, x_dtype, seed, device):
     (257, 384, 1536, torch.bfloat16, True, "gelu_tanh", torch.float32),
     (130, 256, 200, torch.float32, True, "gelu_erf", torch.float32),
     (64, 64, 8, torch.int8, False, None, torch.float32),
-    (40, 96, 136, torch.bfloat16, False, "gelu_erf", torch.bfloat16)])
+    (40, 96, 136, torch.bfloat16, False, "gelu_erf", torch.bfloat16),
+    # M at and around the 128-row block, N past a 128- or 256-column block
+    # (an fp32 x takes 256 columns a block), K 96 (a half 64-deep stage)
+    (1, 768, 768, torch.int8, True, None, torch.bfloat16),
+    (127, 384, 1152, torch.bfloat16, False, None, torch.bfloat16),
+    (128, 96, 264, torch.float32, True, None, torch.float32),
+    (129, 768, 2304, torch.int8, False, "gelu_tanh", torch.bfloat16),
+    (129, 96, 8, torch.bfloat16, True, None, torch.float32),
+    (1, 3072, 776, torch.float32, True, None, torch.bfloat16)])
 def test_w8a8_gemm_kernel_matches_plain(m, k, n, x_dtype, bias, act, out,
                                         cuda):
     from simple_tad_tpu_torch.ops import int8_gemm, quant
@@ -718,7 +737,8 @@ def test_w8a8_gemm_kernel_matches_plain(m, k, n, x_dtype, bias, act, out,
     torch.cuda.synchronize()
     assert (int8_gemm.GEMM_LAUNCHES, quant.INT_MM_CALLS) == (
         before[0] + 1, before[1])
-    want = int8_gemm.w8a8_gemm_plain(*args)
+    assert torch.equal(int8_gemm.w8a8_gemm(*args), got)  # one sum order
+    want = _rows_plain(int8_gemm.w8a8_gemm_plain, *args)
     assert got.dtype == out and got.shape == (m, n)
     if act is None:
         assert torch.equal(got, want)
@@ -732,8 +752,8 @@ def _mlp_operands(m, dim, hidden, x_dtype, seed, device):
     _, w2, s2, _, b2 = _gemm_operands(8, hidden, dim, torch.float32,
                                       seed + 1, device)
     from simple_tad_tpu_torch.ops import int8_gemm
-    h = int8_gemm.w8a8_gemm_plain(x, w1, s1, amax1, b1, "gelu_tanh",
-                                  torch.float32)
+    h = _rows_plain(int8_gemm.w8a8_gemm_plain, x, w1, s1, amax1, b1,
+                    "gelu_tanh", torch.float32)
     return x, w1, s1, amax1, b1, w2, s2, h.abs().max() * 0.9, b2
 
 
@@ -742,7 +762,13 @@ def _mlp_operands(m, dim, hidden, x_dtype, seed, device):
     (1000, 384, 1536, torch.bfloat16, "gelu_tanh", torch.bfloat16),
     (777, 768, 3072, torch.int8, "gelu_erf", torch.float32),
     (100, 128, 512, torch.float32, "gelu_tanh", torch.float32),
-    (65, 256, 96, torch.bfloat16, "gelu_erf", torch.bfloat16)])
+    (65, 256, 96, torch.bfloat16, "gelu_erf", torch.bfloat16),
+    # the widths use_fused_mlp took on with the two-launch MLP: ViT-L,
+    # IV2-1B, and dims that are multiples of 32 only; M 1 and 129
+    (129, 1024, 4096, torch.bfloat16, "gelu_tanh", torch.bfloat16),
+    (127, 1408, 6144, torch.int8, "gelu_erf", torch.float32),
+    (1, 768, 3072, torch.int8, "gelu_tanh", torch.bfloat16),
+    (128, 96, 160, torch.float32, "gelu_erf", torch.float32)])
 def test_w8a8_mlp_kernel_matches_plain(m, dim, hidden, x_dtype, act, out,
                                        cuda):
     from simple_tad_tpu_torch.ops import int8_gemm
@@ -751,7 +777,8 @@ def test_w8a8_mlp_kernel_matches_plain(m, dim, hidden, x_dtype, act, out,
     got = int8_gemm.w8a8_mlp(*ops, act, out)
     torch.cuda.synchronize()
     assert int8_gemm.MLP_LAUNCHES == before + 1
-    want = int8_gemm.w8a8_mlp_plain(*ops, act, out)
+    assert torch.equal(int8_gemm.w8a8_mlp(*ops, act, out), got)
+    want = _rows_plain(int8_gemm.w8a8_mlp_plain, *ops, act, out)
     assert got.dtype == out and got.shape == (m, dim)
     share = float((got != want).float().mean())
     scale = float(want.float().abs().max())
@@ -759,7 +786,8 @@ def test_w8a8_mlp_kernel_matches_plain(m, dim, hidden, x_dtype, act, out,
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=0.02 * scale)
     # control: fc1's bias left out
-    control = int8_gemm.w8a8_mlp_plain(*ops[:4], None, *ops[5:], act, out)
+    control = _rows_plain(int8_gemm.w8a8_mlp_plain, *ops[:4], None,
+                          *ops[5:], act, out)
     assert float((control != want).float().mean()) > 0.02
 
 
@@ -769,9 +797,11 @@ def test_w8a8_kernels_reject_what_they_do_not_take(cuda):
     x, w_q, w_s, amax, b = _gemm_operands(64, 48, 64, torch.int8, 32, cuda)
     with pytest.raises(ValueError, match="multiple of 32"):
         int8_gemm.w8a8_gemm(x, w_q, w_s, amax, b)
-    # IV2-1B's 1408 x 6144 pair: no MLP kernel (two w8a8_gemm launches)
-    assert not int8_gemm.use_fused_mlp(1408, 6144)
-    ops = _mlp_operands(32, 1408, 64, torch.bfloat16, 33, cuda)
+    # the MLP takes dim and hidden that are multiples of 32 (IV2-1B's 1408
+    # x 6144 among them); a dim of 48 takes the per-GEMM route
+    assert int8_gemm.use_fused_mlp(1408, 6144)
+    assert not int8_gemm.use_fused_mlp(48, 64)
+    ops = _mlp_operands(32, 48, 64, torch.bfloat16, 33, cuda)
     with pytest.raises(ValueError, match="use_fused_mlp"):
         int8_gemm.w8a8_mlp(*ops)
 

@@ -27,6 +27,8 @@ from jax.experimental.pallas import tpu as pltpu
 from simple_tad_tpu.models.layers import gelu_for as jax_gelu_for
 from simple_tad_tpu.ops import int8_gemm as jax_gemm
 from simple_tad_tpu.ops.quant import int8_matmul_static, quantize_weight
+from simple_tad_tpu_torch import models
+from simple_tad_tpu_torch.models.layers import Mlp
 from simple_tad_tpu_torch.ops import int8_gemm, ln, quant
 from tests.test_torch_vit import one_torch_thread  # noqa: F401
 
@@ -42,11 +44,15 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-@pytest.mark.parametrize("case", ["bias_fp32", "gelu_n_blocks_m_tail"])
+@pytest.mark.parametrize("case", ["bias_fp32", "gelu_n_blocks_m_tail",
+                                  "q8_out_gelu"])
 def test_w8a8_gemm_plain_matches_pallas_kernel(case):
     """tests/test_int8_gemm.py's two GEMM cases: a bias epilogue on
     (3, 50, 256) -> 384, and the GELU epilogue with N in two blocks and an
-    M tail (70 rows in 32-row blocks)."""
+    M tail (70 rows in 32-row blocks); and the int8-output form of the
+    second (the MLP kernel's fc1 launch): ``w8a8_gemm_q8_plain`` is
+    quantize_static of the fp32 GEMM output, and the JAX kernel's output
+    quantized by its own _quantize_tile gives the same codes."""
     rng = np.random.default_rng(0 if case == "bias_fp32" else 1)
     if case == "bias_fp32":
         x = rng.normal(size=(3, 50, 256)).astype(np.float32)
@@ -66,6 +72,18 @@ def test_w8a8_gemm_plain_matches_pallas_kernel(case):
     got = int8_gemm.w8a8_gemm(_t(x), wt, _t(ws), torch.tensor(amax),
                               None if bias is None else _t(bias), act,
                               torch.float32)
+    if case == "q8_out_gelu":
+        out_amax = np.float32(np.abs(want).max() * 0.8)   # some codes clip
+        codes = int8_gemm.w8a8_gemm_q8_plain(
+            _t(x), wt, _t(ws), torch.tensor(amax), None, act,
+            torch.tensor(out_amax))
+        assert codes.dtype == torch.int8
+        assert torch.equal(codes, ln.quantize_static(got,
+                                                     torch.tensor(out_amax)))
+        jax_codes = np.asarray(jax_gemm._quantize_tile(
+            jnp.asarray(want), jnp.float32(127.0) / jnp.asarray(out_amax)))
+        np.testing.assert_array_equal(codes.numpy(), jax_codes)
+        return
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
     # the activation codes are the JAX kernel's quantize, bit for bit
@@ -127,7 +145,7 @@ def test_w8a8_gemm_int8_input_matches_jax_unfused(act, bias):
                                atol=1e-6 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("x_dtype", ["int8", "float32"])
+@pytest.mark.parametrize("x_dtype", ["int8", "float32", "bfloat16"])
 def test_w8a8_mlp_erf_matches_jax_unfused_chain(x_dtype):
     """The fp32 model's MLP applies the erf GELU (ROADMAP F4): the port's
     w8a8_mlp with 'gelu_erf' against the JAX unfused static chain at fp32
@@ -137,6 +155,8 @@ def test_w8a8_mlp_erf_matches_jax_unfused_chain(x_dtype):
     x = rng.normal(size=(40, 128)).astype(np.float32)
     if x_dtype == "int8":
         x = np.clip(np.round(x * (127.0 / a1)), -127, 127).astype(np.int8)
+    elif x_dtype == "bfloat16":   # the IV2 MLP's input: bf16 values
+        x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
     w1q, w1s, w1t = _qw(rng, 128, 256, 0.05)
     w2q, w2s, w2t = _qw(rng, 256, 128, 0.05)
     b1, b2 = (rng.normal(size=(n,)).astype(np.float32) * 0.1
@@ -147,7 +167,8 @@ def test_w8a8_mlp_erf_matches_jax_unfused_chain(x_dtype):
     a2 = np.float32(float(jnp.abs(h).max()) * 0.8)     # some codes clip
     want = np.asarray(int8_matmul_static(h, jnp.asarray(w2q),
                                          jnp.asarray(w2s), a2) + b2)
-    got = int8_gemm.w8a8_mlp(_t(x), w1t, _t(w1s), torch.tensor(a1), _t(b1),
+    xt = _t(x).bfloat16() if x_dtype == "bfloat16" else _t(x)
+    got = int8_gemm.w8a8_mlp(xt, w1t, _t(w1s), torch.tensor(a1), _t(b1),
                              w2t, _t(w2s), torch.tensor(a2), _t(b2),
                              "gelu_erf", torch.float32)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
@@ -206,14 +227,28 @@ def test_kernel_argument_checks():
     with pytest.raises(ValueError, match="unsupported device"):
         int8_gemm.w8a8_gemm(torch.zeros((4, 64), device="meta"), wt, _t(ws),
                             amax)
-    # the MLP kernel's working set: ViT-S/B, IV2-S/B fit; ViT-L's and
-    # IV2-1B's widths take two GEMM launches
+    # the MLP's width rule: dim and hidden multiples of 32 (its two
+    # products' K); ViT-L's and IV2-1B's widths among them
     for dim, hidden, fits in ((384, 1536, True), (768, 3072, True),
-                              (1024, 4096, False), (1408, 6144, False),
-                              (768, 3000, False)):
+                              (1024, 4096, True), (1408, 6144, True),
+                              (768, 3000, False), (48, 192, False)):
         assert int8_gemm.use_fused_mlp(dim, hidden) == fits, (dim, hidden)
-    _, s1, w1 = _qw(rng, 1408, 64)
-    _, s2, w2 = _qw(rng, 64, 1408)
+    _, s1, w1 = _qw(rng, 48, 192)
+    _, s2, w2 = _qw(rng, 192, 48)
     with pytest.raises(ValueError, match="use_fused_mlp"):
-        int8_gemm.check_mlp_args(torch.zeros((4, 1408)), w1, _t(s1), amax,
+        int8_gemm.check_mlp_args(torch.zeros((4, 48)), w1, _t(s1), amax,
                                  None, w2, _t(s2), amax, None)
+
+
+@pytest.mark.parametrize("name", models.list_models())
+def test_use_fused_mlp_at_every_registered_width(name):
+    """Every registered ViT and InternVideo2 width takes the MLP kernel
+    with ``fused_mlp`` (its dim and hidden are multiples of 32), and the
+    model's Mlp says so."""
+    kind, cfg = models._REGISTRY[name]
+    dim = cfg["embed_dim"]
+    hidden = int(dim * cfg["mlp_ratio"])
+    assert int8_gemm.use_fused_mlp(dim, hidden), (name, dim, hidden)
+    mlp = Mlp(dim, hidden, quant=True, quant_mode="static", fused_w8a8=True,
+              fused_mlp=True, device="meta")
+    assert mlp.fused_mlp, name
