@@ -11,6 +11,14 @@ Phases (any failure raises, so the exit code is non-zero):
   2. kernels against their plain PyTorch versions on the card, at the
      shapes the main path gives them, each within its stated tolerance,
      timed with CUDA events (median of 30 runs after warm-up).  Every
+     case of the bf16/fp32 attention forward (A1 packed and on separate
+     operands, C1, C3-fwd, B3, C4-fwd) must launch once on the route
+     fa.attention_fwd_route names, and no other: the wgmma kernel at head
+     dim 64 (ViT-S/B/L, IV2-S/B; two launches on the same inputs
+     bit-equal), the mma.sync kernel at ViT-H's head dim 80 and IV2-1B's
+     88 (timed too) and for dropout, the CUDA-core kernel in fp32; each
+     such case's route and error (and times, where timed) are kept in the
+     kernels record's "cases".  Every
      LayerNorm case and every bf16 attention case also runs a control: the
      plain version with one required numerics step left out (LayerNorm:
      unbiased variance; attention: probabilities not rounded to bf16
@@ -55,8 +63,9 @@ Phases (any failure raises, so the exit code is non-zero):
   3. sliding-window evaluation at full width: ViT-B 16x224 bf16 with
      seeded weights on a synthetic 96-frame 360x640 clip (81 windows),
      device resize, token path, batch 32, through FrameEvaluator, timed
-     over 5 runs; the launch counters must show 12 attention and 25
-     LayerNorm launches per chunk forward, and the logits must agree with
+     over 5 runs; the launch counters must show 12 attention launches, all
+     on the forward's wgmma route, and 25 LayerNorm launches per chunk
+     forward and nothing else, and the logits must agree with
      the same model run through the plain versions on the card (and the
      model run through the controls must not);
   4. streaming: 16 batch-1 steps of cli/inference.py's StreamingScorer;
@@ -81,8 +90,8 @@ Phases (any failure raises, so the exit code is non-zero):
      RandAugment m6 n3, RandomErasing 0.25, crossentropy, AdamW, weight
      decay 0.05), synthetic uint8 clips through ops/augment.py on the
      card.  (i) batch 8: one train step must launch C1 12 times, C2 12
-     times (each C2 call is two kernel launches: dk/dv, then dq), all 12
-     on the wgmma route (printed with its counters; head dim 64), the
+     times (each C2 call is two kernel launches: dk/dv, then dq), all 24
+     on the wgmma routes (printed with their counters; head dim 64), the
      delta pre-pass 12 times, the LayerNorm kernel 25 times and the
      inference attention 0 times; the
      step's gradients must agree with the same step run through the plain
@@ -103,7 +112,8 @@ Phases (any failure raises, so the exit code is non-zero):
      clip with the DoTA job's view setting (--num_frames 8 --view_fps 5:
      every other frame, 82 windows), token path, batch 32, through
      FrameEvaluator, timed over 5 runs; the counters must show 12
-     separate-operand attention launches per chunk forward and no other
+     separate-operand attention launches per chunk forward, all on the
+     forward's wgmma route, and no other
      kernel (its norms are plain PyTorch, as the JAX package leaves them
      to XLA); every attention call of one run is checked against its plain
      version and its control, and the logits against the plain-version run
@@ -125,7 +135,7 @@ Phases (any failure raises, so the exit code is non-zero):
      0.75, drop path 0.1, RandAugment m6 n3, RandomErasing 0.25), synthetic
      uint8 clips of 8 frames through ops/augment.py on the card; as phase
      6: (i) batch 8, one train step must launch C3-fwd 12 times, C3-bwd 12
-     times on the wgmma route, the delta pre-pass 12 times and no other
+     times, all on the wgmma routes, the delta pre-pass 12 times and no other
      kernel (RMSNorm, LayerScale and the pooling head are plain PyTorch),
      its gradients within phase 6's bounds of the
      plain-version step and the control (no delta term) outside them; (ii)
@@ -139,10 +149,12 @@ Phases (any failure raises, so the exit code is non-zero):
      fused_mlp=True): (i) ViT-B: per chunk forward 24 LayerNorm->int8, 12
      int8-storage attention, 24 int8_gemm (qkv, proj), 12 int8_mlp, 1
      LayerNorm and no torch._int_mm call; (ii) ViT-B with qkv_i8=False: 12
-     attention_q8 (B3) instead of the int8-storage attention; (iii) IV2-S:
+     attention_q8 (B3, on the forward's wgmma route) instead of the
+     int8-storage attention; (iii) IV2-S:
      12 D2, 24 int8_gemm, 12 int8_mlp (the MLP's input bf16: the JAX
      package's own fused-MLP program), then with fused_rmsq (+48 D3, the
-     MLP's input int8); (iv) IV2-S with qkv_i8=False: 12 attention_q8_sep.
+     MLP's input int8); (iv) IV2-S with qkv_i8=False: 12 attention_q8_sep
+     (on the wgmma route).
      In each, every kernel call of one run is checked against its plain
      version and its control, the logits against the plain-version run
      and a gross control (attention left unnormalized), and evaluate is
@@ -174,8 +186,9 @@ Phases (any failure raises, so the exit code is non-zero):
      dropout_p 0.1 forward and backward; (ii) the Philox forward's keep
      bits, read off its output (q = k = 0, v one-hot) at (2, 2, 392, 392)
      bf16, must equal dropout_keep_plain's bit for bit; (iii) one train
-     step per form at batch 8: 12 dropout forward, 12 dropout backward
-     and 12 delta calls of the form, 25 LayerNorm and no C1/C2, its
+     step per form at batch 8: 12 dropout forward (on the forward's
+     mma.sync route), 12 dropout backward and 12 delta calls of the form,
+     25 LayerNorm and no C1/C2, its
      gradients within phase 6's bounds of the plain-version step from the
      same generator state and phase 6's control outside them; (iv) the
      batch-56 FinetuneTrainer timing of phase 6 in TIMING_PROCESSES fresh
@@ -462,7 +475,8 @@ def build_kernels() -> None:
     log = kbuild.library_path().parent / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
-            if "Used" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("Used", "spill", "Compiling",
+                                       "wgmma")):
                 print("[ptxas]", line.strip())
 
 
@@ -998,11 +1012,15 @@ def check_kernels(dev, seed: int) -> dict:
     failures = []
 
     def timed(name, kernel, plain, library=None, bound=None, plain_runs=20,
-              case=None):
+              case=None, into=None):
         """Time the kernel, its plain version and the library call; the
         first shape timed (``case`` None) is the kernel's record, others
-        are printed with their case."""
-        r = {} if case else results.setdefault(name, {"max_abs_err": 0.0})
+        are printed with their case (and kept in ``into``, a case's
+        record, where given)."""
+        if case:
+            r = {} if into is None else into
+        else:
+            r = results.setdefault(name, {"max_abs_err": 0.0})
         r["ms"], r["plain_ms"] = cuda_ms(kernel), cuda_ms(plain,
                                                           runs=plain_runs)
         r["library_ms"] = cuda_ms(library) if library is not None else None
@@ -1014,16 +1032,24 @@ def check_kernels(dev, seed: int) -> dict:
               f"{lib}  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     def run_case(name, case, kernel, plain, control=None, time_it=True,
-                 library=None, bound=None):
+                 library=None, bound=None, route=None):
         """``control``: one callable, or a list of them (each must fail
         the bounds).  The first case of a kernel is timed (its record);
-        ``time_it='every'`` times every case."""
-        got, want = kernel(), plain()
+        ``time_it='every'`` times every case.  ``route``: the forward
+        route (fa.attention_fwd_route) the kernel call must be counted on,
+        and no other; the case is then kept in the record's cases."""
+        before = fwd_route_counts()
+        got = kernel()
+        moved = {r: n - before[r] for r, n in fwd_route_counts().items()}
+        want = plain()
         err, share, ok = compare(name, got, want)
         print(f"[{name}] {case}: max_abs_err {err:.3e} differ {share:.3e} "
-              f"{'ok' if ok else 'FAIL'}")
+              f"{'ok' if ok else 'FAIL'}"
+              + (f" ({route} route: {moved})" if route else ""))
         if not ok:
             failures.append(f"{name} {case}")
+        if route and moved != {r: int(r == route) for r in moved}:
+            failures.append(f"{name} {case}: not one {route} launch {moved}")
         controls = control if isinstance(control, list) else (
             [] if control is None else [control])
         for i, ctrl in enumerate(controls):
@@ -1037,9 +1063,17 @@ def check_kernels(dev, seed: int) -> dict:
                                 f"through")
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        entry = {"case": case, "route": route, "max_abs_err": err,
+                 "differ": share}
+        if route:
+            r.setdefault("cases", []).append(entry)
         if time_it == "every" or (time_it and "ms" not in r):
+            first = "ms" not in r
             timed(name, kernel, plain, library, bound,
-                  case=case if "ms" in r else None)
+                  case=None if first else case, into=entry)
+            if first and route:
+                entry.update({k: r[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 
     def launches_equal(name, case, kernel):
         """Two launches on the same inputs agree bit for bit (no atomics:
@@ -1047,6 +1081,9 @@ def check_kernels(dev, seed: int) -> dict:
         first, second = kernel(), kernel()
         if name in SEP_GRADS:
             first, second = torch.cat(first, -1), torch.cat(second, -1)
+        elif isinstance(first, tuple):                 # (out, lse)
+            first, second = torch.cat([t.flatten().float() for t in first]), \
+                torch.cat([t.flatten().float() for t in second])
         equal = torch.equal(first, second)
         print(f"[{name}] {case}: two launches "
               f"{'bit-equal' if equal else 'DIFFER'}")
@@ -1084,18 +1121,25 @@ def check_kernels(dev, seed: int) -> dict:
                   ((2, 1568, 3840), 16, torch.bfloat16)]    # ViT-H, Dh=80
     for shape, heads, dt in attn_cases:
         qkv = torch.randn(shape, generator=g, device=dev).to(dt)
-        scale = (shape[-1] // 3 // heads) ** -0.5
+        D = shape[-1] // 3 // heads
+        scale = D ** -0.5
         q, k, v = qkv_views(qkv, heads)
-        run_case("attention", f"{shape} H={heads} {dt}",
+        route = fa.attention_fwd_route(dt, D)
+        case = f"{shape} H={heads} {dt}"
+        run_case("attention", case,
                  lambda: fa.flash_attention_qkv(qkv, heads, scale),
                  lambda: fa.flash_attention_qkv_plain(qkv, heads, scale),
                  # in fp32 the rounding the control leaves out is exact
                  (lambda: attention_control(qkv, heads, scale))
                  if dt == torch.bfloat16 else None,
+                 time_it="every" if route == "mma_sync" else True,
                  library=lambda: F.scaled_dot_product_attention(
                      q, k, v, scale=scale),
                  bound=attention_bound(shape[0], shape[1], shape[2] // 3,
-                                       heads, dt))
+                                       heads, dt), route=route)
+        if route == "wgmma":
+            launches_equal("attention", case,
+                           lambda: fa.flash_attention_qkv(qkv, heads, scale))
         del qkv, q, k, v
         torch.cuda.empty_cache()
 
@@ -1156,12 +1200,17 @@ def check_kernels(dev, seed: int) -> dict:
         dout = torch.randn((B, N, C3 // 3), generator=g, device=dev).to(dt)
         scale = (C3 // 3 // heads) ** -0.5
         bf16 = dt == torch.bfloat16
+        route = fa.attention_fwd_route(dt, C3 // 3 // heads)
         run_case("attention_fwd_lse", f"{shape} H={heads} {dt}",
                  lambda: fa.flash_attention_qkv_fwd_lse(qkv, heads, scale),
                  lambda: fa.flash_attention_qkv_fwd_lse_plain(qkv, heads,
                                                               scale),
                  (lambda: attention_fwd_lse_control(qkv, heads, scale))
-                 if bf16 else None, time_it=False)
+                 if bf16 else None, time_it=False, route=route)
+        if route == "wgmma":
+            launches_equal("attention_fwd_lse", f"{shape} H={heads} {dt}",
+                           lambda: fa.flash_attention_qkv_fwd_lse(
+                               qkv, heads, scale))
         out, lse = fa.flash_attention_qkv_fwd_lse_plain(qkv, heads, scale)
         run_case("attention_bwd", f"{shape} H={heads} {dt}",
                  lambda: fa.flash_attention_qkv_bwd(qkv, out, lse, dout,
@@ -1229,7 +1278,9 @@ def check_kernels(dev, seed: int) -> dict:
                  # JAX package takes _fwd_kernel_nomax (flash_attention.py
                  # :345) on the (B*H, N, Dh) layout; A1 computes the same
                  # function
-                 ((8, 2049, 576), 3, torch.bfloat16)]
+                 ((8, 2049, 576), 3, torch.bfloat16),
+                 # IV2-1B's head dim 88: the mma.sync route
+                 ((4, 2049, 4224), 16, torch.bfloat16)]
     for shape, heads, dt in sep_cases:
         B, N, C3 = shape
         C = C3 // 3
@@ -1238,14 +1289,20 @@ def check_kernels(dev, seed: int) -> dict:
                    qkv[..., 2 * C:])
         scale = (C // heads) ** -0.5
         qh, kh, vh = sep_heads(heads, q, k, v)
-        run_case("attention_sep", f"{shape} H={heads} {dt}, v strided",
+        route = fa.attention_fwd_route(dt, C // heads)
+        case = f"{shape} H={heads} {dt}, v strided"
+        run_case("attention_sep", case,
                  lambda: fa.flash_attention(q, k, v, heads, scale),
                  lambda: fa.flash_attention_plain(q, k, v, heads, scale),
                  (lambda: attention_sep_control(q, k, v, heads, scale))
                  if dt == torch.bfloat16 else None,
+                 time_it="every" if route == "mma_sync" else True,
                  library=lambda: F.scaled_dot_product_attention(
                      qh, kh, vh, scale=scale),
-                 bound=attention_bound(B, N, C, heads, dt))
+                 bound=attention_bound(B, N, C, heads, dt), route=route)
+        if route == "wgmma":
+            launches_equal("attention_sep", case,
+                           lambda: fa.flash_attention(q, k, v, heads, scale))
         del qkv, q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
 
@@ -1290,13 +1347,18 @@ def check_kernels(dev, seed: int) -> dict:
         ops = (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
                qkv[..., 2 * C:], heads, (C // heads) ** -0.5)
         bf16 = dt == torch.bfloat16
+        route = fa.attention_fwd_route(dt, C // heads)
         run_case("attention_sep_fwd_lse",
                  f"{shape} H={heads} {dt}, v strided",
                  lambda: fa.flash_attention_fwd_lse(*ops),
                  lambda: fa.flash_attention_fwd_lse_plain(*ops),
                  ([lambda: attention_sep_fwd_lse_control(*ops)] if bf16
                   else []) + [lambda: attention_sep_fwd_lse_misread_v(*ops)],
-                 time_it=False)
+                 time_it=False, route=route)
+        if route == "wgmma":
+            launches_equal("attention_sep_fwd_lse",
+                           f"{shape} H={heads} {dt}, v strided",
+                           lambda: fa.flash_attention_fwd_lse(*ops))
         out, lse = fa.flash_attention_fwd_lse_plain(*ops)
         bargs = (*ops[:3], out, lse, dout, *ops[3:])
         run_case("attention_sep_bwd", f"{shape} H={heads} {dt}, v strided",
@@ -1500,7 +1562,8 @@ def check_dropout_kernels(dev, g, run_case, timed) -> list:
                      [lambda: attention_drop_fwd_after(*args, **src),
                       lambda: fa.flash_attention_drop_fwd_plain(*args,
                                                                 **gross)],
-                     time_it=False)
+                     time_it=False,
+                     route=fa.attention_fwd_route(dt, C // heads, drop=True))
             out, lse = fa.flash_attention_drop_fwd_plain(*args, **src)
             bargs = (*args[:3], out, lse, dout, *args[3:])
             run_case(bwd, case,
@@ -1674,6 +1737,7 @@ def check_int8_kernels(dev, g, run_case, launches_equal) -> None:
         out_amax = fa.flash_attention_qkv_plain(qkv[:2], heads,
                                                 scale).float().abs().max()
         q, k, v = qkv_views(qkv, heads)
+        route = fa.attention_fwd_route(dt, C3 // 3 // heads)
         run_case("attention_q8", f"{shape} H={heads} {dt}",
                  lambda: fa.flash_attention_qkv_q8(qkv, heads, scale,
                                                    out_amax),
@@ -1684,11 +1748,16 @@ def check_int8_kernels(dev, g, run_case, launches_equal) -> None:
                  library=lambda: F.scaled_dot_product_attention(
                      q, k, v, scale=scale),
                  bound=attention_bound(B, N, C3 // 3, heads, dt,
-                                       q8_out=True))
+                                       q8_out=True), route=route)
+        if route == "wgmma":
+            launches_equal("attention_q8", f"{shape} H={heads} {dt}",
+                           lambda: fa.flash_attention_qkv_q8(
+                               qkv, heads, scale, out_amax))
         del qkv, q, k, v
         torch.cuda.empty_cache()
     for shape, heads, dt, n_valid in [
             ((32, 2049, 1152), 6, torch.bfloat16, None),
+            ((32, 2049, 1152), 6, torch.bfloat16, 2040),     # keys masked
             ((2, 200, 384), 2, torch.float32, 190)]:
         B, N, C3 = shape
         C = C3 // 3
@@ -1701,15 +1770,20 @@ def check_int8_kernels(dev, g, run_case, launches_equal) -> None:
         args = (q, k, v, heads, scale, out_amax, n_valid)
         qh, kh, vh = sep_heads(heads, q, k, v)
         bf16 = dt == torch.bfloat16
-        run_case("attention_q8_sep",
-                 f"{shape} H={heads} {dt} n_valid={n_valid}, v strided",
+        route = fa.attention_fwd_route(dt, C // heads)
+        case = f"{shape} H={heads} {dt} n_valid={n_valid}, v strided"
+        run_case("attention_q8_sep", case,
                  lambda: fa.flash_attention_q8(*args),
                  lambda: fa.flash_attention_q8_plain(*args),
                  ([lambda: attention_q8_sep_control(*args)] if bf16 else [])
                  + [lambda: attention_q8_sep_misread_v(*args)],
                  library=lambda: F.scaled_dot_product_attention(
                      qh, kh, vh, scale=scale),
-                 bound=attention_bound(B, N, C, heads, dt, q8_out=True))
+                 bound=attention_bound(B, N, C, heads, dt, q8_out=True),
+                 route=route)
+        if route == "wgmma":
+            launches_equal("attention_q8_sep", case,
+                           lambda: fa.flash_attention_q8(*args))
         del qkv, q, k, v, qh, kh, vh, args
         torch.cuda.empty_cache()
 
@@ -1867,10 +1941,9 @@ def run_eval(dev, seed: int):
                         resize_on_host=False, precompute_tubelets=True)
     ev.evaluate(ds)                                  # warm-up
 
-    ln.LAUNCHES = 0
-    flash_attention.LAUNCHES = 0
+    reset_counts()
     res = ev.evaluate(ds)
-    launches = {"layernorm": ln.LAUNCHES, "attention": flash_attention.LAUNCHES}
+    launches = read_counts()
     rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
                                      for _ in range(EVAL_RUNS - 1)]
     logits = logits_of(res)
@@ -1898,8 +1971,12 @@ def run_eval(dev, seed: int):
           f"{LOGIT_RTOL:.3e}, max |logit| {scale:.3e})")
     assert res.n_windows == n_windows
     assert np.isfinite(logits).all(), "non-finite logits"
-    assert launches["attention"] == cfg.depth * chunks, launches
-    assert launches["layernorm"] == (2 * cfg.depth + 1) * chunks, launches
+    want = dict.fromkeys(COUNTERS, 0)
+    # every attention call on the wgmma route (head dim 64)
+    want.update(attention=cfg.depth * chunks,
+                fwd_route_wgmma=cfg.depth * chunks,
+                layernorm=(2 * cfg.depth + 1) * chunks)
+    assert launches == want, (launches, want)
     assert err <= LOGIT_RTOL, f"logits disagree with the plain run: {err}"
     assert control_err > LOGIT_RTOL, \
         f"the logit bound lets the controls through: {control_err}"
@@ -1990,12 +2067,9 @@ def run_eval_int8(model, dev, seed: int, bf16_logits):
     calib_s = time.perf_counter() - t0
     ev.evaluate(ds)                                  # warm-up
 
-    ln.LAUNCHES = ln.QUANT_LAUNCHES = 0
-    fa.LAUNCHES = fa.I8_LAUNCHES = 0
+    reset_counts()
     res = ev.evaluate(ds)
-    launches = {"layernorm": ln.LAUNCHES, "attention": fa.LAUNCHES,
-                "layernorm_quant": ln.QUANT_LAUNCHES,
-                "attention_i8": fa.I8_LAUNCHES}
+    launches = read_counts()
     rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
                                      for _ in range(EVAL_RUNS - 1)]
     logits = logits_of(res)
@@ -2027,9 +2101,9 @@ def run_eval_int8(model, dev, seed: int, bf16_logits):
     assert not site_failures, site_failures
     assert res.n_windows == n_windows
     assert np.isfinite(logits).all(), "non-finite int8 logits"
-    want = {"layernorm_quant": 2 * cfg.depth * chunks,
-            "attention_i8": cfg.depth * chunks, "layernorm": chunks,
-            "attention": 0}
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(layernorm_quant=2 * cfg.depth * chunks,
+                attention_i8=cfg.depth * chunks, layernorm=chunks)
     assert launches == want, (launches, want)
     assert err <= LOGIT_RTOL_I8, \
         f"int8 logits disagree with the plain run: {err}"
@@ -2089,7 +2163,19 @@ COUNTERS = {"layernorm": ("ln", "LAUNCHES"),
             # the kernels a C2 / C3-bwd call took (fa.attention_bwd_route)
             "bwd_route_wgmma": ("fa", "BWD_WGMMA_LAUNCHES"),
             "bwd_route_mma_sync": ("fa", "BWD_MMA_LAUNCHES"),
-            "bwd_route_fp32": ("fa", "BWD_F32_LAUNCHES")}
+            "bwd_route_fp32": ("fa", "BWD_F32_LAUNCHES"),
+            # the kernel an A1, A1-sep, C1, C3-fwd, B3, B3-sep or C4-fwd
+            # call took (fa.attention_fwd_route)
+            "fwd_route_wgmma": ("fa", "FWD_WGMMA_LAUNCHES"),
+            "fwd_route_mma_sync": ("fa", "FWD_MMA_LAUNCHES"),
+            "fwd_route_fp32": ("fa", "FWD_F32_LAUNCHES")}
+
+
+def fwd_route_counts() -> dict:
+    """-> {route: launches} of the bf16/fp32 attention forward so far."""
+    counts = read_counts()
+    return {route: counts[f"fwd_route_{route}"]
+            for route in ("wgmma", "mma_sync", "fp32")}
 
 
 def _counter_owners():
@@ -2168,7 +2254,8 @@ def run_eval_iv2(dev, seed: int):
     assert res.n_windows == n_windows
     assert np.isfinite(logits).all(), "non-finite IV2 logits"
     want = dict.fromkeys(COUNTERS, 0)
-    want["attention_sep"] = cfg.depth * chunks
+    # every attention call on the wgmma route (head dim 64)
+    want["attention_sep"] = want["fwd_route_wgmma"] = cfg.depth * chunks
     assert launches == want, (launches, want)
     assert err <= LOGIT_RTOL_IV2, f"IV2 logits disagree with plain: {err}"
     assert control_err > LOGIT_RTOL_IV2, \
@@ -2283,6 +2370,8 @@ def fused_launches(family: str, depth: int, chunks: int, qkv_i8: bool,
             depth * chunks
         if fused_rmsq:
             want["rmsnorm_quant"] = 4 * depth * chunks
+    if not qkv_i8:        # B3 at head dim 64: the wgmma route
+        want["fwd_route_wgmma"] = depth * chunks
     return want
 
 
@@ -2689,7 +2778,12 @@ def run_finetune(dev, seed: int, family: str = "vit") -> dict:
     depth = model.cfg.depth
     head_dim = model.cfg.embed_dim // model.cfg.num_heads
     route = fa.attention_bwd_route(torch.bfloat16, head_dim)
-    print(f"[{label}] backward route at head dim {head_dim}: {route} "
+    fwd_route = fa.attention_fwd_route(torch.bfloat16, head_dim)
+    print(f"[{label}] routes at head dim {head_dim}: forward {fwd_route} "
+          f"(fwd_route_wgmma {launches['fwd_route_wgmma']}, "
+          f"fwd_route_mma_sync {launches['fwd_route_mma_sync']}, "
+          f"fwd_route_fp32 {launches['fwd_route_fp32']} calls in the step), "
+          f"backward {route} "
           f"(bwd_route_wgmma {launches['bwd_route_wgmma']}, "
           f"bwd_route_mma_sync {launches['bwd_route_mma_sync']}, "
           f"bwd_route_fp32 {launches['bwd_route_fp32']} calls in the step)")
@@ -2701,8 +2795,9 @@ def run_finetune(dev, seed: int, family: str = "vit") -> dict:
                     attention_bwd=depth)
     want["attention_delta"] = depth
     # every trunk the fine-tuning jobs run has head dim 64: the wgmma kernels
-    assert head_dim == 64 and route == "wgmma", (head_dim, route)
-    want["bwd_route_wgmma"] = depth
+    assert head_dim == 64 and route == fwd_route == "wgmma", (head_dim,
+                                                             route)
+    want["bwd_route_wgmma"] = want["fwd_route_wgmma"] = depth
     assert logits.shape == (TRAIN_BATCH, 2)
     assert np.isfinite(losses).all(), losses
     assert launches == want, (launches, want)
@@ -2766,8 +2861,10 @@ def run_finetune_dropout(dev, seed: int) -> dict:
         depth = model.cfg.depth
         want_counts = dict.fromkeys(COUNTERS, 0)
         fwd, bwd = DROP_KERNELS[form]
+        # C4-fwd takes the mma.sync route (fa.attention_fwd_route)
         want_counts.update({"layernorm": 2 * depth + 1, fwd: depth,
-                            bwd: depth, "attention_delta": depth})
+                            bwd: depth, "attention_delta": depth,
+                            "fwd_route_mma_sync": depth})
         assert logits.shape == (TRAIN_BATCH, 2)
         assert np.isfinite(float(metrics["loss"]))
         assert launches == want_counts, (launches, want_counts)
@@ -2788,9 +2885,10 @@ def _kernel_categories(prof):
               if getattr(e, "device_type", None)
               == torch.autograd.DeviceType.CUDA]
     # first match wins: copies run inside elementwise kernels
-    # the training forward (C1 packed, C3 separate) is attn_fwd_bf16, the
-    # backward (C2, C3) attn_bwd_: the launch counts say which ran
-    cats = {"attention fwd + lse": ("attn_fwd_bf16",),
+    # the training forward (C1 packed, C3 separate) is attn_fwd_wgmma (the
+    # dropout forward C4 attn_fwd_bf16), the backward (C2, C3) attn_bwd_:
+    # the launch counts say which ran
+    cats = {"attention fwd + lse": ("attn_fwd_wgmma", "attn_fwd_bf16"),
             "attention bwd": ("attn_bwd_",),
             "A2 layernorm": ("layernorm",),
             "gemm (cuBLAS)": ("gemm", "nvjet", "cutlass", "xmma"),
@@ -3052,7 +3150,8 @@ def main(argv=None):
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
-         **{k: kstats[name][k] for k in keys}}
+         **{k: kstats[name][k] for k in keys},
+         **{k: kstats[name][k] for k in ("cases",) if k in kstats[name]}}
         for name, (src, rep) in SOURCES.items()]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

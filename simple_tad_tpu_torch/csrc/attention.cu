@@ -43,19 +43,37 @@
 //
 // What bounds it on the H100: at N = 1568, Dh = 64 the two products do
 // 4 * N^2 * Dh flops per (batch, head) against 4 * N * Dh * 2 bytes of
-// q/k/v/out, ~400 flop/byte, so once tiled it is compute-bound.  The bf16
-// kernel therefore runs both products on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulators) in the FlashAttention-2 shape:
-// one block of 4 warps per (64-query tile, head, batch); each warp owns 16
-// query rows whose Q fragments stay in registers; 64-key K and V tiles
-// stream through shared memory (V stored transposed so each B fragment is
-// one 32-bit load); the score accumulators are rounded to bf16 and reused
-// directly as the A fragments of the PV product, so probabilities never
-// leave registers.  No TMA, wgmma or warp specialisation yet.
-//
-// fp32 inputs (tests, small shapes) take a simple CUDA-core kernel: one
-// thread per query row, 32-key tiles in shared memory, the same online
-// integer-max softmax.
+// q/k/v/out, ~400 flop/byte, so once tiled it is compute-bound; and at
+// Dh = 64 the special-function unit's N^2 exp2 per (batch, head) take about
+// as long as the two products.  Three routes, by dtype, head dim and
+// dropout (route() below, ops/flash_attention.py:attention_fwd_route):
+//   * bf16 at head dim 64 without dropout (every trunk the jobs run:
+//     ViT-S/B/L, IV2-S/B/L; A1, C1, C3-fwd and B3), the wgmma kernel
+//     (namespace wg): one warpgroup per (64-query tile, head, batch); the
+//     q tile and a ring of (k, v) tiles arrive by TMA (rank-3 tensor maps
+//     over (batch, row, column) at the head's column offset, 128-byte
+//     swizzle, rows beyond N or n_kv read as zero), q is scaled in place in
+//     shared memory; S = Qs K^T is wgmma m64n64k16 with both operands
+//     K-major in shared memory, O += bf16(P) V takes P from registers (the
+//     rounded accumulators, whose layout is the A-fragment layout) and V
+//     MN-major through the descriptor's transpose bit, so no transposed
+//     copy is staged.  A tile's S, softmax and PV run in turn, and the
+//     blocks of an SM (five fit: 92 registers a thread, 42 KB of shared
+//     memory) overlap one another's products and softmax;
+//   * bf16 at the other head dims (8 to 128; ViT-H's 80, IV2-1B's 88,
+//     IV2-6B's 128) and every dropout call (C4-fwd), the mma.sync kernel
+//     attn_fwd_bf16_kernel (m16n8k16, fp32 accumulators) in the
+//     FlashAttention-2 shape: one block of 4 warps per (64-query tile,
+//     head, batch); each warp owns 16 query rows whose Q fragments stay in
+//     registers; 64-key K and V tiles are loaded synchronously through
+//     shared memory (V stored transposed so each B fragment is one 32-bit
+//     load); the score accumulators are rounded to bf16 and reused directly
+//     as the A fragments of the PV product;
+//   * fp32 inputs (tests, small shapes), a simple CUDA-core kernel: one
+//     thread per query row, 32-key tiles in shared memory, the same online
+//     integer-max softmax.
+// The two bf16 kernels hold the same numerics; their fp32 products sum in
+// another order, so their outputs may differ in the last bits.
 //
 // With a keep source (kernel C4-fwd, stt_attention_fwd_lse_drop) the same
 // kernels are C3-fwd with attention dropout: see attn_fwd_bf16_kernel's
@@ -74,6 +92,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -410,6 +429,249 @@ __global__ void __launch_bounds__(kBlockM)
   }
 }
 
+// ---- the wgmma route: bf16, head dim 64, no dropout ----
+namespace wg {
+
+namespace hw = stt::hopper;
+
+constexpr int kD = 64;                        // the route's head dim
+constexpr int kRows = 64;                     // queries a block, keys a tile
+constexpr int kThreads = 128;                 // one warpgroup a block
+constexpr int kTileBytes = kRows * kD * 2;    // one bf16 tile, 8 KB
+constexpr int kKStep = 32 >> 4;               // k16 step, K-major (desc)
+constexpr int kMnStep = (16 * 128) >> 4;      // k16 step, MN-major (desc)
+constexpr int kStages = 2;                    // the ring of (k, v) tiles
+
+struct Smem {
+  bf16 q[kRows * kD];             // the block's q, scaled in place: A of S
+  bf16 k[kStages][kRows * kD];    // B of S (K-major)
+  bf16 v[kStages][kRows * kD];    // B of PV (MN-major)
+  uint64_t full[kStages], qbar;
+};
+
+constexpr int kSmem = static_cast<int>(sizeof(Smem)) + 1024;
+
+// The online softmax of one 64-key tile on this thread's S accumulators
+// (rows g and g + 8 of its warp's 16 queries, keys j8 * 8 + 2 t4 + {0, 1}):
+// keys at or beyond n_kv masked by index, the running maxima m rounded up
+// to an integer, a the rescale factors of O and l (exact powers of two, 0
+// on the first tile), and p = exp2(s - m) left in s.  ex2.approx.ftz gives
+// exp2f's value wherever p is a normal float; a p below 2^-126 reads 0
+// where exp2f gives a subnormal, at most 2^-125 of the row's largest p
+// (which is at least 1/2 once m is final).
+__device__ __forceinline__ void tile_softmax(float (&s)[32], int k0, int n_kv,
+                                             int t4, float (&m)[2],
+                                             float (&a)[2]) {
+  if (k0 + kRows > n_kv) {
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const int key = k0 + j8 * 8 + t4 * 2;
+      if (key >= n_kv) s[j8 * 4] = s[j8 * 4 + 2] = -INFINITY;
+      if (key + 1 >= n_kv) s[j8 * 4 + 1] = s[j8 * 4 + 3] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j8 = 0; j8 < 8; ++j8) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j8 * 4], s[j8 * 4 + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j8 * 4 + 2], s[j8 * 4 + 3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+    }
+    float mn = fmaxf(m[r], ceilf(mx[r]));
+    if (mn == -INFINITY) mn = 0.f;  // only if every key so far is masked
+    a[r] = exp2f(m[r] - mn);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int j8 = 0; j8 < 8; ++j8) {
+    s[j8 * 4] = hw::exp2_approx(s[j8 * 4] - m[0]);
+    s[j8 * 4 + 1] = hw::exp2_approx(s[j8 * 4 + 1] - m[0]);
+    s[j8 * 4 + 2] = hw::exp2_approx(s[j8 * 4 + 2] - m[1]);
+    s[j8 * 4 + 3] = hw::exp2_approx(s[j8 * 4 + 3] - m[1]);
+  }
+}
+
+// O and l rescaled by a, then p rounded to bf16 into the A fragments of PV
+// (accumulator key columns 16 kk to 16 kk + 15 are k-step kk, as for the
+// mma.sync kernel's pf) and the rounded values added to l
+__device__ __forceinline__ void rescale_and_pack(float (&o)[32],
+                                                 const float (&p)[32],
+                                                 const float (&a)[2],
+                                                 float (&l)[2],
+                                                 uint32_t (&pf)[4][4]) {
+  l[0] *= a[0];
+  l[1] *= a[1];
+#pragma unroll
+  for (int j8 = 0; j8 < 8; ++j8) {
+    const int i = j8 * 4;
+    o[i] *= a[0];
+    o[i + 1] *= a[0];
+    o[i + 2] *= a[1];
+    o[i + 3] *= a[1];
+    const __nv_bfloat162 p0 = __floats2bfloat162_rn(p[i], p[i + 1]);
+    const __nv_bfloat162 p1 = __floats2bfloat162_rn(p[i + 2], p[i + 3]);
+    l[0] += __low2float(p0) + __high2float(p0);
+    l[1] += __low2float(p1) + __high2float(p1);
+    pf[j8 / 2][(j8 % 2) * 2] = as_u32(p0);
+    pf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(p1);
+  }
+}
+
+// One block per (64-query tile, head, batch), one warpgroup, at least four
+// blocks an SM.  The raw q tile arrives by TMA and is scaled in place
+// (bf16(q * qscale), the numerics of the mma.sync kernel); (k, v) tiles
+// stream by TMA through a ring of kStages, thread 0 refilling a stage once
+// the block's barrier at the end of its tile shows every warp done with
+// it, so the next tile's copy runs under this tile's work.  S = Qs K^T by
+// wgmma from shared memory (both K-major), the online softmax in
+// registers, O += bf16(P) V by wgmma with P from registers and V read
+// MN-major (no transposed copy).  A tile's S, softmax and PV run in turn;
+// the SM's blocks overlap one another's products and softmax (an
+// in-warpgroup pipeline, S of the next tile issued with this tile's PV,
+// measured slower on the H100: PERF.md).  Query rows at or beyond n read as
+// zero and are not stored; the lse (LSE) is stored from the threads.
+template <bool LSE, bool Q8>
+__global__ void __launch_bounds__(kThreads, 4)
+    attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          void* __restrict__ o, float* __restrict__ lse,
+                          const float* __restrict__ out_amax, int n,
+                          int n_kv, int o_sb, int o_sn, float qscale) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(hw::align_1024(smem_raw));
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kRows;
+  const int col = blockIdx.y * kD;
+  const int b = blockIdx.z;
+  const int tiles = (n_kv + kRows - 1) / kRows;
+  auto issue = [&](int j) {
+    const int s = j % kStages;
+    hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+    hw::tma_load_3d(sm.k[s], &tk, &sm.full[s], col, j * kRows, b);
+    hw::tma_load_3d(sm.v[s], &tv, &sm.full[s], col, j * kRows, b);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) hw::mbar_init(&sm.full[s], 1);
+    hw::mbar_init(&sm.qbar, 1);
+    hw::mbar_init_fence();
+    hw::mbar_expect_tx(&sm.qbar, kTileBytes);
+    hw::tma_load_3d(sm.q, &tq, &sm.qbar, col, q0, b);
+    for (int j = 0; j < kStages && j < tiles; ++j) issue(j);
+  }
+  __syncthreads();
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const uint64_t desc_q = hw::desc_kmajor(sm.q);
+  hw::mbar_wait(&sm.qbar, 0);
+  hw::scale_tile(sm.q, sm.q, qscale);
+  __syncthreads();
+
+  float acc[32], sc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float a[2];
+  uint32_t pf[4][4];
+  hw::zero(acc);
+  hw::zero(sc);
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % kStages;
+    hw::mbar_wait(&sm.full[s], (j / kStages) & 1);
+    // S = (q * scale * log2e) K^T: 64 queries x 64 keys, fp32
+    const uint64_t desc_k = hw::desc_kmajor(sm.k[s]);
+    hw::fence_regs(sc);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      hw::wgmma_ss(sc, desc_q + kk * kKStep, desc_k + kk * kKStep, kk);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(sc);
+
+    tile_softmax(sc, j * kRows, n_kv, t4, m, a);
+    rescale_and_pack(acc, sc, a, l, pf);
+
+    // O += bf16(P) V  (64 queries x 64 dims)
+    const uint64_t desc_v = hw::desc_mnmajor(sm.v[s]);
+    hw::fence_regs(acc);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      hw::wgmma_rs_mn(acc, pf[kk], desc_v + kk * kMnStep, 1);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(acc);
+    hw::fence_regs(pf);
+    __syncthreads();  // every warp is done with stage s: refill it
+    if (tid == 0 && j + kStages < tiles) issue(j + kStages);
+  }
+
+  // full row denominators, normalise, store
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+    }
+  }
+  const int row0 = q0 + warp * 16 + g;
+  const int row1 = row0 + 8;
+  if (LSE && t4 == 0) {
+    float* lrow = lse + (static_cast<size_t>(b) * gridDim.y + blockIdx.y) *
+                            static_cast<size_t>(n);
+    if (row0 < n) lrow[row0] = m[0] + log2f(l[0]);
+    if (row1 < n) lrow[row1] = m[1] + log2f(l[1]);
+  }
+  const size_t ooff = static_cast<size_t>(b) * o_sb + col;
+  const size_t at0 = static_cast<size_t>(row0) * o_sn;
+  const size_t at1 = static_cast<size_t>(row1) * o_sn;
+  if constexpr (Q8) {
+    const float oinv = stt::quant_inv(out_amax);
+    int8_t* ob = static_cast<int8_t*>(o) + ooff;
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const int c = j8 * 8 + t4 * 2;
+      const int i = j8 * 4;
+      if (row0 < n) {
+        *reinterpret_cast<char2*>(ob + at0 + c) =
+            make_char2(stt::quant_i8(__fdiv_rn(acc[i], l[0]), oinv),
+                       stt::quant_i8(__fdiv_rn(acc[i + 1], l[0]), oinv));
+      }
+      if (row1 < n) {
+        *reinterpret_cast<char2*>(ob + at1 + c) =
+            make_char2(stt::quant_i8(__fdiv_rn(acc[i + 2], l[1]), oinv),
+                       stt::quant_i8(__fdiv_rn(acc[i + 3], l[1]), oinv));
+      }
+    }
+  } else {
+    bf16* ob = static_cast<bf16*>(o) + ooff;
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const int c = j8 * 8 + t4 * 2;
+      const int i = j8 * 4;
+      if (row0 < n) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + at0 + c) =
+            __floats2bfloat162_rn(acc[i] / l[0], acc[i + 1] / l[0]);
+      }
+      if (row1 < n) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + at1 + c) =
+            __floats2bfloat162_rn(acc[i + 2] / l[1], acc[i + 3] / l[1]);
+      }
+    }
+  }
+}
+
+}  // namespace wg
+
 // Output and scratch of one launch: o (and, with Q8, the absmax its int8
 // codes are made against), lse (LSE only), and the keep source (DROP only).
 struct Out {
@@ -418,6 +680,46 @@ struct Out {
   const float* out_amax;
   Keep keep;
 };
+
+// Which kernel a call takes (shared with ops/flash_attention.py:
+// attention_fwd_route): fp32 the CUDA-core kernel; bf16 at head dim 64
+// without dropout the wgmma kernel; every other bf16 call (head dims 8 to
+// 128 but 64, and every dropout call, C4-fwd) the mma.sync kernel.
+enum Route : int { kRouteF32 = 0, kRouteMma = 1, kRouteWgmma = 2 };
+
+constexpr int route(int dtype, int d, bool drop) {
+  return dtype == stt::kFloat32 ? kRouteF32
+         : (d == wg::kD && !drop) ? kRouteWgmma
+                                  : kRouteMma;
+}
+
+// The wgmma route: three tensor maps (q, k and v by rank-3 tiles at the
+// head's column offset; k and v end at n_kv, q at n), encoded per call,
+// then one launch on the stream.  A map that does not encode fails the
+// call: nothing falls back to the mma.sync kernel.
+template <bool LSE, bool Q8>
+int launch_wgmma(const void* q, const void* k, const void* v, const Out& out,
+                 int b, int n, int n_kv, int h, const Strides& st,
+                 float qscale, cudaStream_t stream) {
+  namespace hw = stt::hopper;
+  const int cols = h * wg::kD;
+  CUtensorMap tq, tk, tv;
+  if (!hw::tile_map_bf16(&tq, q, cols, n, b, st.q_sn, st.q_sb) ||
+      !hw::tile_map_bf16(&tk, k, cols, n_kv, b, st.k_sn, st.k_sb) ||
+      !hw::tile_map_bf16(&tv, v, cols, n_kv, b, st.v_sn, st.v_sb)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      wg::attn_fwd_wgmma_kernel<LSE, Q8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + wg::kRows - 1) / wg::kRows, h, b);
+  wg::attn_fwd_wgmma_kernel<LSE, Q8><<<grid, wg::kThreads, wg::kSmem,
+                                       stream>>>(
+      tq, tk, tv, out.o, out.lse, out.out_amax, n, n_kv, st.o_sb, st.o_sn,
+      qscale);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int DP, bool LSE, bool Q8, Drop DROP>
 void launch(const void* q, const void* k, const void* v, const Out& out,
@@ -448,6 +750,12 @@ int dispatch(const void* q, const void* k, const void* v, const Out& out,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (DROP == Drop::kNone) {
+    if (route(dtype, d, false) == kRouteWgmma) {
+      return launch_wgmma<LSE, Q8>(q, k, v, out, b, n, n_kv, h, st, qscale,
+                                   s);
+    }
+  }
 #define STT_FWD(DP) \
   launch<DP, LSE, Q8, DROP>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s)
   switch ((d + 15) / 16 * 16) {
@@ -480,6 +788,18 @@ extern "C" int stt_attention_fwd(const void* q, const void* k, const void* v,
   const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
   return dispatch<false>(q, k, v, Out{o, nullptr, nullptr}, b, n, n, h, d, st,
                          qscale, dtype, stream);
+}
+
+// The route an A1, C1, C3-fwd or B3 call of this dtype code and head dim
+// takes: 0 the fp32 CUDA-core kernel, 1 the mma.sync kernel, 2 the wgmma
+// kernel; -1 for what the entry points refuse.  Every C4-fwd call
+// (stt_attention_fwd_lse_drop) takes route 1 in bf16, 0 in fp32.
+extern "C" int stt_attention_fwd_route(int dtype, int d) {
+  if (d <= 0 || d % 8 != 0 || d > 128 ||
+      (dtype != stt::kBFloat16 && dtype != stt::kFloat32)) {
+    return -1;
+  }
+  return route(dtype, d, false);
 }
 
 // Kernel C1: A1 on the packed qkv (one stride pair for q, k and v) that

@@ -650,32 +650,6 @@ struct DqSmem {
 constexpr int kDkdvSmem = static_cast<int>(sizeof(DkdvSmem)) + 1024;
 constexpr int kDqSmem = static_cast<int>(sizeof(DqSmem)) + 1024;
 
-// bf16(x * qscale) of a swizzled 64 x 64 tile, position for position (the
-// swizzle moves 16-byte chunks only, so the copy keeps the layout); visible
-// to wgmma once every thread has passed the block's next barrier
-__device__ __forceinline__ void scale_tile(bf16* dst, const bf16* src,
-                                           float qscale) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-  for (int i = 0; i < kRows * kD / 8 / kThreads; ++i) {
-    const int c = i * kThreads + threadIdx.x;
-    uint4 val = s[c];
-    bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      e[t] = __float2bfloat16_rn(__bfloat162float(e[t]) * qscale);
-    }
-    d[c] = val;
-  }
-  hw::fence_proxy_async();
-}
-
-__device__ __forceinline__ void zero(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
-}
-
 // dK and dV of one 64-key tile.  (q, dout) tiles stream by TMA through a
 // kStages ring: thread 0 refills a stage once the block's barrier at the
 // end of its tile shows every warp done with it, so the next tile's copy
@@ -733,8 +707,8 @@ __global__ void __launch_bounds__(kThreads, 3)
                          static_cast<size_t>(n);
   float next = r < n ? lsd[r] : 0.f;
   float dka[32], dva[32];
-  zero(dka);
-  zero(dva);
+  hw::zero(dka);
+  hw::zero(dva);
   const uint64_t desc_k = hw::desc_kmajor(sm.k);
   const uint64_t desc_v = hw::desc_kmajor(sm.v);
   const uint64_t desc_qs = hw::desc_kmajor(sm.qs);
@@ -746,14 +720,14 @@ __global__ void __launch_bounds__(kThreads, 3)
     sm.ld[half][r] = next;
     next = q0 + kRows + r < n ? lsd[q0 + kRows + r] : 0.f;
     hw::mbar_wait(&sm.full[s], (j / kStages) & 1);
-    scale_tile(sm.qs, sm.q[s], qscale);
+    hw::scale_tile(sm.qs, sm.q[s], qscale);
     __syncthreads();  // the scaled copy, lse and delta are visible
 
     // S^T = K (q * scale * log2e)^T and dP^T = V dout^T: 64 keys x 64
     // queries, fp32 accumulators
     float st[32], dpt[32];
-    zero(st);
-    zero(dpt);
+    hw::zero(st);
+    hw::zero(dpt);
     const uint64_t desc_o = hw::desc_kmajor(sm.o[s]);
     hw::fence_regs(st);
     hw::fence_regs(dpt);
@@ -900,11 +874,11 @@ __global__ void __launch_bounds__(kThreads, 4)
   const float e0 = row0 < n ? delta[row_off + row0] : 0.f;
   const float e1 = row1 < n ? delta[row_off + row1] : 0.f;
   float acc[32];
-  zero(acc);
+  hw::zero(acc);
   const uint64_t desc_qs = hw::desc_kmajor(sm.qs);
   const uint64_t desc_o = hw::desc_kmajor(sm.o);
   hw::mbar_wait(&sm.qo, 0);
-  scale_tile(sm.qs, sm.qs, qscale);  // in place: raw q is not needed here
+  hw::scale_tile(sm.qs, sm.qs, qscale);  // in place: raw q is not needed here
   __syncthreads();
 
   for (int j = 0; j < tiles; ++j) {
@@ -912,8 +886,8 @@ __global__ void __launch_bounds__(kThreads, 4)
     const int k0 = j * kRows;
     hw::mbar_wait(&sm.full[s], (j / kStages) & 1);
     float sc[32], dp[32];
-    zero(sc);
-    zero(dp);
+    hw::zero(sc);
+    hw::zero(dp);
     const uint64_t desc_k = hw::desc_kmajor(sm.k[s]);
     const uint64_t desc_v = hw::desc_kmajor(sm.v[s]);
     hw::fence_regs(sc);

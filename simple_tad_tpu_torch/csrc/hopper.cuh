@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: mbarriers,
 // TMA tile loads, wgmma products and their shared-memory descriptors, and
-// the host-side encoding of TMA tensor maps.  The training-attention
-// backward (attention_train.cu) takes the m64n64k16 bf16 products on
-// 128-byte-swizzled tiles; the static int8 GEMMs (int8_gemm.cu) the
-// m64n128k32 s8 products on 128- or 64-byte-swizzled tiles.  The other
-// kernels keep common.cuh's mma.sync helpers.
+// the host-side encoding of TMA tensor maps.  The bf16 attention forward
+// (attention.cu) and the training-attention backward (attention_train.cu)
+// take the m64n64k16 bf16 products on 128-byte-swizzled tiles, and share
+// scale_tile; the static int8 GEMMs (int8_gemm.cu) the m64n128k32 s8
+// products on 128- or 64-byte-swizzled tiles.  The other kernels keep
+// common.cuh's mma.sync helpers.
 //
 // The tensor-map encoder is the driver's cuTensorMapEncodeTiled, reached
 // through the runtime's driver entry point, so the library links no -lcuda
@@ -130,6 +131,34 @@ template <int Pending>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending)
                : "memory");
+}
+
+__device__ __forceinline__ void zero(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+// bf16(x * qscale) of a 64 x 64 bf16 tile written by a 128-byte-swizzle TMA
+// load, by the 128 threads of one warpgroup, position for position (the
+// swizzle moves 16-byte chunks only, so the copy keeps the layout); visible
+// to wgmma once every thread has passed the block's next barrier
+__device__ __forceinline__ void scale_tile(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           float qscale) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int i = 0; i < 64 * 64 / 8 / 128; ++i) {
+    const int c = i * 128 + threadIdx.x;
+    uint4 val = s[c];
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      e[t] = __float2bfloat16_rn(__bfloat162float(e[t]) * qscale);
+    }
+    d[c] = val;
+  }
+  fence_proxy_async();
 }
 
 // pin accumulator registers in place around asynchronous products, so the

@@ -2,7 +2,10 @@
 
 A1 (inference), C1 (training forward with lse) and C2 (training backward)
 on the packed qkv, C3-fwd and C3-bwd (the same on separate operands, at
-IV2-S's N = 2049 and the job's batch 56, v strided), the int8-storage
+IV2-S's N = 2049 and the job's batch 56, v strided), A1 on separate
+operands (IV2-S batch 32, v strided), B3 (A1 with an int8 output) packed
+at ViT-B batch 32 and on separate operands at IV2-S batch 32 with keys
+masked at n_kv < N (``N_KV``), the int8-storage
 attention packed (B2) and on separate operands (D2, IV2-S, v strided), and
 the row norms of csrc/layernorm.cu (A2 LayerNorm and B1 LayerNorm->int8 on
 ViT-B's (32 * 1568, 768) bf16, D3 RMSNorm->int8 on IV2-S's (32 * 2049,
@@ -21,13 +24,15 @@ must be bit-equal in all four runs.  With ``--steps`` each checkout also
 times its own fine-tuning step (its chip_smoke.py's phase-6 / phase-9
 FinetuneTrainer timing: ViT-B 16x224 and IV2-S 8x224 at the jobs' batch
 56, the median of its timed steps), in a fresh process per run, in the
-same order; with ``--evals`` its static int8 serving on the fused GEMMs
-(its chip_smoke.py's phase-10 ``run_eval_fused``: ViT-B, and IV2-S with
-fused_rmsq, windows/s as the median of its evaluate runs), the same way.
+same order; with ``--evals`` its bf16 serving (its chip_smoke.py's phase 3
+``run_eval``, ViT-B, and phase 7 ``run_eval_iv2``, IV2-S) and its static
+int8 serving on the fused GEMMs (phase 10's ``run_eval_fused``: ViT-B with
+the int8-storage attention and with B3, IV2-S with fused_rmsq), windows/s
+as the median of its evaluate runs, the same way.
 
     git archive <commit> | tar -x -C build/parent
     python -m simple_tad_tpu_torch.kernels.ab_checkouts --other build/parent \
-        [--changed attention_bwd,attention_sep_bwd] [--steps] [--evals]
+        [--changed attention,attention_sep] [--steps] [--evals]
 """
 
 from __future__ import annotations
@@ -42,16 +47,21 @@ import sys
 
 SEED = 0
 RUNS = 30
-# kernel -> (batch, tokens, heads): ViT-B 16x224 at the eval batch (A1) and
-# the fine-tuning job's batch (C1, C2); IV2-S 8x224 at the job's batch (C3)
-# and the eval batch (D2)
+# kernel -> (batch, tokens, heads): ViT-B 16x224 at the eval batch (A1, B3)
+# and the fine-tuning job's batch (C1, C2); IV2-S 8x224 at the job's batch
+# (C3) and the eval batch (A1 and B3 on separate operands, D2)
 SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
           "attention_bwd": (56, 1568, 12),
+          "attention_sep": (32, 2049, 6), "attention_q8": (32, 1568, 12),
+          "attention_q8_sep": (32, 2049, 6),
           "attention_sep_fwd_lse": (56, 2049, 6),
           "attention_sep_bwd": (56, 2049, 6), "attention_i8": (32, 1568, 12),
           "attention_i8_sep": (32, 2049, 6), "layernorm": (32, 1568, 12),
           "layernorm_quant": (32, 1568, 12), "rmsnorm_quant": (32, 2049, 6)}
 NORMS = ("layernorm", "layernorm_quant", "rmsnorm_quant")
+# B3 on separate operands: keys at or beyond this masked (chip_smoke.py
+# phase 2's IV2-S case)
+N_KV = 2040
 # B4 at phase 2's shapes: GEMM (M, K, N, x dtype, bias), MLP (M, dim,
 # hidden, x dtype): ViT-B batch 32 qkv, proj and the per-GEMM fc2 (fp32 x),
 # IV2-S batch 32 qkv (bf16 x); the ViT-B and IV2-S MLPs
@@ -64,9 +74,14 @@ MLPS = {"int8_mlp": (32 * 1568, 768, 3072, "int8"),
 KERNELS = {**SHAPES, **GEMMS, **MLPS}
 # --steps: chip_smoke.py's training families (ViT-B, IV2-S)
 STEP_FAMILIES = ("vit", "iv2")
-# --evals: chip_smoke.py phase 10's (family, (label, qkv_i8, fused_rmsq))
+# --evals: chip_smoke.py phases 3 and 7's bf16 serving (label, function),
+# and phase 10's (family, (label, qkv_i8, fused_rmsq))
+BF16_EVALS = (("vit bf16", "run_eval"), ("iv2 bf16", "run_eval_iv2"))
 EVAL_CASES = (("vit", ("vit fused", True, False)),
+              ("vit", ("vit fused q8", False, False)),
               ("iv2", ("iv2 fused rmsq", True, True)))
+EVAL_LABELS = tuple(label for label, _ in BF16_EVALS) + tuple(
+    label for _, (label, *_) in EVAL_CASES)
 # the norms take ~0.07 ms, about the host's time in a wrapper call, which a
 # single call's event pair would include: they are timed CALLS_PER_EVENT
 # calls to an event pair, so the calls queue up on the card (B4's 0.1-1 ms
@@ -168,6 +183,23 @@ def _worker(root: str) -> dict:
         elif name == "attention":
             def fn():
                 return (fa.flash_attention_qkv(qkv, heads, scale),)
+        elif name in ("attention_sep", "attention_q8_sep"):
+            ops = (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
+                   qkv[..., 2 * C:], heads, scale)
+            if name == "attention_sep":
+                def fn():
+                    return (fa.flash_attention(*ops),)
+            else:
+                out_amax = torch.full((), 0.5, device=dev)
+
+                def fn():
+                    return (fa.flash_attention_q8(*ops, out_amax, N_KV),)
+        elif name == "attention_q8":
+            out_amax = torch.full((), 0.5, device=dev)
+
+            def fn():
+                return (fa.flash_attention_qkv_q8(qkv, heads, scale,
+                                                  out_amax),)
         elif name == "attention_fwd_lse":
             def fn():
                 return fa.flash_attention_qkv_fwd_lse(qkv, heads, scale)
@@ -232,14 +264,18 @@ def _step_worker(root: str, family: str) -> dict:
 
 def _eval_worker(root: str) -> dict:
     """Run in a fresh process with ``root`` first on the path -> {label:
-    windows/s} of that checkout's own phase-10 runs (the logits' drift
-    from bf16 is printed against 0, not measured)."""
+    windows/s} of that checkout's own phase-3, 7 and 10 runs (phase 10's
+    logit drift from bf16 is printed against 0, not measured)."""
     sys.path[0] = os.path.abspath(root)
     import torch
 
     import chip_smoke
     dev = torch.device("cuda")
     out = {}
+    for label, fn in BF16_EVALS:
+        _, stats = getattr(chip_smoke, fn)(dev, SEED)
+        out[label] = stats["windows_per_sec"]
+        torch.cuda.empty_cache()
     for family, (label, qkv_i8, fused_rmsq) in EVAL_CASES:
         r = chip_smoke.run_eval_fused(
             dev, SEED, family,
@@ -343,7 +379,7 @@ def main(argv=None) -> int:
               f"{mine / theirs:.4f}")
     if args.evals:
         evals = _runs(order, "--eval-worker")
-        for _, (label, *_) in EVAL_CASES:
+        for label in EVAL_LABELS:
             rates = [r[label] for _, r in evals]
             mine = statistics.mean(r[label] for (lbl, _), (_, r)
                                    in zip(order, evals) if lbl == "this")

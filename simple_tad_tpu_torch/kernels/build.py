@@ -138,6 +138,8 @@ def load() -> ctypes.CDLL:
                                                       *[i] * 12,
                                                       ctypes.c_float, i, p]
             lib.stt_attention_fwd_lse_sep.restype = i
+            lib.stt_attention_fwd_route.argtypes = [i, i]
+            lib.stt_attention_fwd_route.restype = i
             lib.stt_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i,
                                               i, i, i, i, i, i, i, i, i,
                                               ctypes.c_float, ctypes.c_float,

@@ -5,7 +5,11 @@ TPU kernel is _fwd_kernel_nomax_packed with _attend_rows_t.  The kernel is
 csrc/attention.cu: it reads q, k and v in place from the (B, N, 3C) qkv
 projection output (no slice copies, no head relayout) and runs both
 products on the tensor cores (attention at N=1568, Dh=64 is compute-bound
-once tiled; see the note at the top of the source).
+once tiled; see the note at the top of the source).  ``attention_fwd_route``
+names the kernel a forward call takes: bf16 at head dim 64 without dropout
+(every trunk the jobs run) the wgmma kernel (TMA ring, wgmma products), bf16
+at the other head dims and every dropout forward the mma.sync kernel, fp32
+the CUDA-core kernel.
 
 Numerics (both versions): q is pre-scaled by scale*log2(e) and rounded to
 the input dtype; QK accumulates in fp32; probabilities are exp2(s - m)
@@ -126,7 +130,10 @@ mma.sync kernels) and ``BWD_F32_LAUNCHES`` (fp32: the CUDA-core kernels);
 ``DELTA_LAUNCHES`` those of the delta pre-pass (one per backward call,
 dropout or not); ``DROP_FWD_LAUNCHES`` and ``DROP_BWD_LAUNCHES`` those of
 the dropout forward and backward with a mask, ``DROP_RNG_FWD_LAUNCHES``
-and ``DROP_RNG_BWD_LAUNCHES`` with a seed.
+and ``DROP_RNG_BWD_LAUNCHES`` with a seed.  Every launch of the bf16/fp32
+forward (A1 packed and separate, C1, C3-fwd, B3 packed and separate,
+C4-fwd) is also counted on the route ``attention_fwd_route`` names:
+``FWD_WGMMA_LAUNCHES``, ``FWD_MMA_LAUNCHES`` or ``FWD_F32_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -155,14 +162,19 @@ SEP_BWD_LAUNCHES = 0
 BWD_WGMMA_LAUNCHES = 0
 BWD_MMA_LAUNCHES = 0
 BWD_F32_LAUNCHES = 0
+FWD_WGMMA_LAUNCHES = 0
+FWD_MMA_LAUNCHES = 0
+FWD_F32_LAUNCHES = 0
 DELTA_LAUNCHES = 0
 DROP_FWD_LAUNCHES = 0
 DROP_BWD_LAUNCHES = 0
 DROP_RNG_FWD_LAUNCHES = 0
 DROP_RNG_BWD_LAUNCHES = 0
 # the training backward's routes, by the code csrc/attention_train.cu's
-# stt_attention_bwd_route returns, and the head dim of the wgmma kernels
+# stt_attention_bwd_route returns, and the head dim of the wgmma kernels;
+# the forward's (csrc/attention.cu's stt_attention_fwd_route) are the same
 BWD_ROUTES = ("fp32", "mma_sync", "wgmma")
+FWD_ROUTES = BWD_ROUTES
 WGMMA_HEAD_DIM = 64
 # Philox4x32-10's multipliers and Weyl constants (csrc/philox.cuh)
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -511,6 +523,7 @@ def flash_attention_qkv(qkv, num_heads: int, scale: float):
     out = _launch_attention(*_qkv_views(qkv, C), num_heads, scale)
     global LAUNCHES
     LAUNCHES += 1
+    _count_fwd_route(qkv.dtype, D)
     return out
 
 
@@ -535,6 +548,7 @@ def flash_attention(q, k, v, num_heads: int, scale: float):
     out = _launch_attention(q, k, v, num_heads, scale)
     global SEP_LAUNCHES
     SEP_LAUNCHES += 1
+    _count_fwd_route(q.dtype, D)
     return out
 
 
@@ -559,7 +573,19 @@ def flash_attention_qkv_fwd_lse(qkv, num_heads: int, scale: float):
     kbuild.check(code, "attention_fwd_lse")
     global FWD_LSE_LAUNCHES
     FWD_LSE_LAUNCHES += 1
+    _count_fwd_route(qkv.dtype, D)
     return out, lse
+
+
+def _route(name: str, dtype, head_dim: int, drop: bool) -> str:
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: dtype {dtype} is not bfloat16 or float32")
+    if head_dim <= 0 or head_dim % 8 or head_dim > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {head_dim} must be a positive "
+                         f"multiple of 8, at most {MAX_HEAD_DIM}")
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if head_dim == WGMMA_HEAD_DIM and not drop else "mma_sync"
 
 
 def attention_bwd_route(dtype, head_dim: int) -> str:
@@ -569,26 +595,33 @@ def attention_bwd_route(dtype, head_dim: int) -> str:
     fine-tuning jobs run), 'mma_sync' (bf16 at the other head dims) or
     'fp32' (the CUDA-core kernels).  The dropout backward (C4-bwd) always
     takes the mma.sync kernels."""
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"attention_bwd_route: dtype {dtype} is not "
-                        f"bfloat16 or float32")
-    if head_dim <= 0 or head_dim % 8 or head_dim > MAX_HEAD_DIM:
-        raise ValueError(f"attention_bwd_route: head dim {head_dim} must be "
-                         f"a positive multiple of 8, at most {MAX_HEAD_DIM}")
-    if dtype == torch.float32:
-        return "fp32"
-    return "wgmma" if head_dim == WGMMA_HEAD_DIM else "mma_sync"
+    return _route("attention_bwd_route", dtype, head_dim, False)
+
+
+def attention_fwd_route(dtype, head_dim: int, drop: bool = False) -> str:
+    """The kernel a CUDA call of the bf16/fp32 attention forward (A1 packed
+    or on separate operands, C1, C3-fwd, B3, and with ``drop`` C4-fwd) of
+    ``dtype`` at ``head_dim`` launches, as csrc/attention.cu's dispatch
+    picks it: 'wgmma' (bf16 at head dim 64 without dropout, every trunk
+    the jobs run), 'mma_sync' (bf16 at the other head dims, and every
+    dropout forward) or 'fp32' (the CUDA-core kernel)."""
+    return _route("attention_fwd_route", dtype, head_dim, drop)
+
+
+_BWD_COUNTERS = {"wgmma": "BWD_WGMMA_LAUNCHES",
+                 "mma_sync": "BWD_MMA_LAUNCHES", "fp32": "BWD_F32_LAUNCHES"}
+_FWD_COUNTERS = {"wgmma": "FWD_WGMMA_LAUNCHES",
+                 "mma_sync": "FWD_MMA_LAUNCHES", "fp32": "FWD_F32_LAUNCHES"}
 
 
 def _count_bwd_route(dtype, head_dim: int) -> None:
-    global BWD_WGMMA_LAUNCHES, BWD_MMA_LAUNCHES, BWD_F32_LAUNCHES
-    route = attention_bwd_route(dtype, head_dim)
-    if route == "wgmma":
-        BWD_WGMMA_LAUNCHES += 1
-    elif route == "mma_sync":
-        BWD_MMA_LAUNCHES += 1
-    else:
-        BWD_F32_LAUNCHES += 1
+    name = _BWD_COUNTERS[attention_bwd_route(dtype, head_dim)]
+    globals()[name] += 1
+
+
+def _count_fwd_route(dtype, head_dim: int, drop: bool = False) -> None:
+    name = _FWD_COUNTERS[attention_fwd_route(dtype, head_dim, drop)]
+    globals()[name] += 1
 
 
 def flash_attention_qkv_bwd(qkv, out, lse, dout, num_heads: int,
@@ -664,6 +697,7 @@ def flash_attention_fwd_lse(q, k, v, num_heads: int, scale: float):
     kbuild.check(code, "attention_fwd_lse_sep")
     global SEP_FWD_LSE_LAUNCHES
     SEP_FWD_LSE_LAUNCHES += 1
+    _count_fwd_route(q.dtype, D)
     return out, lse
 
 
@@ -913,6 +947,7 @@ def flash_attention_drop_fwd(q, k, v, num_heads: int, scale: float,
         DROP_FWD_LAUNCHES += 1
     else:
         DROP_RNG_FWD_LAUNCHES += 1
+    _count_fwd_route(q.dtype, D, drop=True)
     return out, lse
 
 
@@ -1311,6 +1346,7 @@ def flash_attention_qkv_q8(qkv, num_heads: int, scale: float, out_amax):
                                scale, N)
     global Q8_LAUNCHES
     Q8_LAUNCHES += 1
+    _count_fwd_route(qkv.dtype, D)
     return out
 
 
@@ -1334,4 +1370,5 @@ def flash_attention_q8(q, k, v, num_heads: int, scale: float, out_amax,
     out = _launch_attention_q8(q, k, v, out_amax, num_heads, scale, n_kv)
     global Q8_SEP_LAUNCHES
     Q8_SEP_LAUNCHES += 1
+    _count_fwd_route(q.dtype, D)
     return out

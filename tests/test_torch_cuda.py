@@ -638,6 +638,116 @@ def test_attention_bwd_route_is_the_kernel_dispatch(cuda):
                 fa.attention_bwd_route(dtype, d)
 
 
+# The bf16 attention forward's routes (A1 packed and separate, C1, C3-fwd,
+# B3 packed and separate; csrc/attention.cu): the wgmma kernel at head dim
+# 64, the mma.sync kernel at the others and for dropout, counted per route
+# over every entry point.  Two launches of one call agree bit for bit (no
+# atomics, one summation order).
+FWD_ROUTE_COUNTERS = {"wgmma": "FWD_WGMMA_LAUNCHES",
+                      "mma_sync": "FWD_MMA_LAUNCHES",
+                      "fp32": "FWD_F32_LAUNCHES"}
+FWD_ENTRIES = ["A1", "A1-sep", "C1", "C3-fwd", "B3", "B3-sep"]
+
+
+def _fwd_route_counts():
+    return {route: getattr(fa, name)
+            for route, name in FWD_ROUTE_COUNTERS.items()}
+
+
+def _fwd_entry(entry, b, n, heads, d, seed, device, dtype):
+    """-> (kernel call, plain call) of one forward entry point on seeded
+    inputs: the packed qkv, or separate q, k and v with v its strided
+    column block; B3-sep masks keys at or beyond max(1, n - 5)."""
+    scale = d ** -0.5
+    q, k, v, qkv = _sep_operands(b, n, heads, d, seed, device, dtype)
+    sep = (q, k, v, heads, scale)
+    out_amax = fa.flash_attention_plain(*sep).float().abs().max()
+    n_kv = max(1, n - 5)
+    return {
+        "A1": (lambda: fa.flash_attention_qkv(qkv, heads, scale),
+               lambda: fa.flash_attention_qkv_plain(qkv, heads, scale)),
+        "A1-sep": (lambda: fa.flash_attention(*sep),
+                   lambda: fa.flash_attention_plain(*sep)),
+        "C1": (lambda: fa.flash_attention_qkv_fwd_lse(qkv, heads, scale),
+               lambda: fa.flash_attention_qkv_fwd_lse_plain(qkv, heads,
+                                                            scale)),
+        "C3-fwd": (lambda: fa.flash_attention_fwd_lse(*sep),
+                   lambda: fa.flash_attention_fwd_lse_plain(*sep)),
+        "B3": (lambda: fa.flash_attention_qkv_q8(qkv, heads, scale,
+                                                 out_amax),
+               lambda: fa.flash_attention_qkv_q8_plain(qkv, heads, scale,
+                                                       out_amax)),
+        "B3-sep": (lambda: fa.flash_attention_q8(*sep, out_amax, n_kv),
+                   lambda: fa.flash_attention_q8_plain(*sep, out_amax,
+                                                       n_kv)),
+    }[entry]
+
+
+def _check_fwd(entry, got, want, dtype):
+    if entry.startswith("B3"):
+        worst, share = _code_diff(got, want)
+        assert worst <= 1 and share <= I8_SHARE, (worst, share)
+        return
+    if isinstance(got, tuple):                     # (out, lse)
+        torch.testing.assert_close(got[1], want[1], **LSE_TOL[dtype])
+        got, want = got[0], want[0]
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", FWD_ENTRIES)
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1568, 2049])
+def test_attention_fwd_wgmma_kernel_matches_plain(n, entry, cuda):
+    kernel, plain = _fwd_entry(entry, 2, n, 3, 64, 42, cuda, torch.bfloat16)
+    before = _fwd_route_counts()
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    after = _fwd_route_counts()
+    assert {r: after[r] - before[r] for r in after} == {
+        "wgmma": 2, "mma_sync": 0, "fp32": 0}
+    for g, a in zip(got if isinstance(got, tuple) else (got,),
+                    again if isinstance(again, tuple) else (again,)):
+        assert torch.equal(g, a), "two launches differ"
+    _check_fwd(entry, got, plain(), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 88, 96, 112, 128])
+def test_attention_fwd_routes_by_head_dim(d, dtype, cuda):
+    """Each head dim takes the route attention_fwd_route names, counted on
+    that route only, and matches the plain version there."""
+    route = fa.attention_fwd_route(dtype, d)
+    for entry in FWD_ENTRIES:
+        kernel, plain = _fwd_entry(entry, 2, 129, 2, d, 43, cuda, dtype)
+        before = _fwd_route_counts()
+        got = kernel()
+        torch.cuda.synchronize()
+        after = _fwd_route_counts()
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == route) for r in after}, entry
+        _check_fwd(entry, got, plain(), dtype)
+
+
+@pytest.mark.cuda
+def test_attention_fwd_route_is_the_kernel_dispatch(cuda):
+    """attention_fwd_route names the kernel csrc/attention.cu's dispatch
+    launches (stt_attention_fwd_route), at every head dim the entry points
+    take; the ones they refuse are refused by both."""
+    from simple_tad_tpu_torch.kernels import build as kbuild
+    lib = kbuild.load()
+    for dtype in DTYPES:
+        code = kbuild.dtype_code(dtype)
+        for d in range(8, fa.MAX_HEAD_DIM + 1, 8):
+            assert fa.FWD_ROUTES[lib.stt_attention_fwd_route(code, d)] == \
+                fa.attention_fwd_route(dtype, d), (dtype, d)
+        for d in (0, 12, 136):
+            assert lib.stt_attention_fwd_route(code, d) == -1
+            with pytest.raises(ValueError):
+                fa.attention_fwd_route(dtype, d)
+
+
 @pytest.mark.cuda
 def test_tiny_iv2_train_step_goes_through_kernels(cuda):
     """One train step of a 2-layer IV2-S with fp32 masters computed in bf16
