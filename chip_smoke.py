@@ -14,9 +14,9 @@ Phases (any failure raises, so the exit code is non-zero):
      case of the bf16/fp32 attention forward (A1 packed and on separate
      operands, C1, C3-fwd, B3, C4-fwd) must launch once on the route
      fa.attention_fwd_route names, and no other: the wgmma kernel at head
-     dim 64 (ViT-S/B/L, IV2-S/B; two launches on the same inputs
-     bit-equal), the mma.sync kernel at ViT-H's head dim 80 and IV2-1B's
-     88 (timed too) and for dropout, the CUDA-core kernel in fp32; each
+     dim 64 (ViT-S/B/L, IV2-S/B, with or without dropout; two launches on
+     the same inputs bit-equal), the mma.sync kernel at ViT-H's head dim
+     80 and IV2-1B's 88 (timed too), the CUDA-core kernel in fp32; each
      such case's route and error (and times, where timed) are kept in the
      kernels record's "cases".  Every
      LayerNorm case and every bf16 attention case also runs a control: the
@@ -182,13 +182,22 @@ Phases (any failure raises, so the exit code is non-zero):
      training shape (8, 1568, 2304) bf16 and a masked fp32 tail, each with
      three controls that must fail (the denominator summed after dropout,
      or dP not scaled by the keep factor; the mask read transposed, or the
-     next seed), and timed at the job's batch 56 against SDPA with
-     dropout_p 0.1 forward and backward; (ii) the Philox forward's keep
-     bits, read off its output (q = k = 0, v one-hot) at (2, 2, 392, 392)
-     bf16, must equal dropout_keep_plain's bit for bit; (iii) one train
-     step per form at batch 8: 12 dropout forward (on the forward's
-     mma.sync route), 12 dropout backward and 12 delta calls of the form,
-     25 LayerNorm and no C1/C2, its
+     next seed), each call counted once on the route
+     fa.attention_fwd_route / attention_bwd_route name (the wgmma kernels
+     at head dim 64; two launches bit-equal), and at ViT-H's head dim 80
+     (2, 1568, 3840) H=16 on the mma.sync kernels; timed at the job's batch
+     56 against SDPA with dropout_p 0.1 forward and backward, the bound
+     with the Philox form's integer floor (one philox4x32_10 call's SASS
+     instructions from cuobjdump of the built library, its round keys
+     counted once a thread, split by pipe: the busier of the FMA pipe's
+     IMADs and the ALU pipe's rest at 64 lanes an SM, or all of them at
+     128 issued an SM a clock, at the maximum SM clock); (ii) the Philox
+     forward's keep bits, read off its output (q = k = 0, v one-hot) at (2, 2, 392, 392)
+     bf16, must equal dropout_keep_plain's bit for bit, at head dim 64
+     (the wgmma kernel) and 80 (the mma.sync kernel); (iii) one train
+     step per form at batch 8: 12 dropout forward and 12 dropout backward
+     calls of the form, all on the wgmma routes, 12 delta calls, 25
+     LayerNorm and no C1/C2, its
      gradients within phase 6's bounds of the plain-version step from the
      same generator state and phase 6's control outside them; (iv) the
      batch-56 FinetuneTrainer timing of phase 6 in TIMING_PROCESSES fresh
@@ -227,6 +236,8 @@ import argparse
 import contextlib
 import json
 import multiprocessing
+import re
+import shutil
 import statistics
 import subprocess
 import time
@@ -275,10 +286,11 @@ import torch
 #                                         at 1.1e-7 (the fc head's gradient
 #                                         dominates it), so the per-parameter
 #                                         bound is the one that catches it
-#   attention dropout (C4) at (8, 1568, 2304) bf16, rate 0.1, both forms:
-#     C4-fwd outputs differing            <= 1.620e-3 vs controls >= 0.838
-#     C4-bwd dqkv differing               <= 2.089e-3 vs controls >= 0.663
-#     ViT-B train step with dropout, worst parameter <= 6.909e-3 vs control
+#   attention dropout (C4), rate 0.1, both forms, at (8, 1568, 2304) bf16
+#   (the wgmma kernels) and (2, 1568, 3840) H=16 (head dim 80, mma.sync):
+#     C4-fwd outputs differing            <= 1.722e-3 vs controls >= 0.836
+#     C4-bwd dqkv differing               <= 2.331e-3 vs controls >= 0.662
+#     ViT-B train step with dropout, worst parameter <= 6.910e-3 vs control
 #                                         >= 3.304
 #   the static int8 ViT's variants (phases 2 and 12):
 #     add_layernorm_quant codes differing <= 9.9e-7 vs controls >= 8.6e-3;
@@ -346,12 +358,22 @@ TIMING_PROCESSES, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 3, 3, 10, 2
 ATTN_DROP = 0.1
 DROP_KERNELS = {"mask": ("attention_drop_fwd", "attention_drop_bwd"),
                 "rng": ("attention_drop_rng_fwd", "attention_drop_rng_bwd")}
-# C4 checked at ViT-B's training shape and a masked fp32 tail, its Philox
-# bits read off at (B, H, N, Dh), timed at the job's batch (B, N, C, H)
+# C4 checked at ViT-B's training shape (the wgmma kernels), ViT-H's head
+# dim 80 (the mma.sync kernels) and a masked fp32 tail, its Philox bits
+# read off at (B, H, N, Dh) on each bf16 route, timed at the job's batch
+# (B, N, C, H)
 DROP_CASES = [((8, 1568, 2304), 12, torch.bfloat16),
+              ((2, 1568, 3840), 16, torch.bfloat16),
               ((2, 200, 384), 2, torch.float32)]
-DROP_PROBE = (2, 2, 392, 64)
+DROP_PROBES = [(2, 2, 392, 64), (2, 2, 392, 80)]
 DROP_TIMED = (JOB_BATCH, 1568, 768, 12)
+# the H100's integer rates an SM a clock (NVIDIA's Hopper architecture
+# white paper; the CUDA C++ programming guide's throughput table at compute
+# capability 9.0): 64 lanes of 32-bit integer multiply-add (IMAD, on the
+# FMA pipe), 64 of the ALU pipe beside it (LOP3, IADD3, ISETP, ...), and
+# four schedulers issuing a warp instruction each (128 lanes)
+INT_LANES = {"fma": 64, "alu": 64}
+ISSUE_LANES = 128
 BREAKDOWN_STEPS = 4
 # phase 12 (i): E1 at ViT-B's norm shape and two tails (fp32; C % 8 != 0),
 # E2 at ViT-B's attention shape and a masked key tail (N = 131)
@@ -1421,7 +1443,7 @@ def check_kernels(dev, seed: int) -> dict:
         del x
     torch.cuda.empty_cache()
     check_int8_kernels(dev, g, run_case, launches_equal)
-    failures += check_dropout_kernels(dev, g, run_case, timed)
+    failures += check_dropout_kernels(dev, g, run_case, timed, launches_equal)
     failures += check_variant_kernels(dev, g, run_case)
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
@@ -1490,15 +1512,80 @@ def attention_drop_bwd_no_delta(*args, **kw):
     return attention_drop_bwd_variant(*args, **kw, use_delta=False)
 
 
-def drop_bound(B, N, C, heads, *, mask: bool, backward: bool = False):
+def philox_call_cost() -> tuple:
+    """-> ({pipe: SASS instructions}, {opcode: instructions}, the round
+    keys' instructions) of one philox4x32_10 call: in cuobjdump -sass of
+    the built library, (philox_cost_kernel<10, 2> - <0, 2>) - (<10, 1> -
+    <0, 1>) (csrc/attention_train.cu), NOPs not counted, the round keys
+    (which depend on the seed alone, so a thread computes them once) what
+    one call's kernel adds beyond that; IMAD* and IMUL* on the FMA pipe,
+    the rest on the ALU pipe."""
+    from simple_tad_tpu_torch.kernels import build as kbuild
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(kbuild.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    ops, name = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if name and op and op.group(1) != "NOP":
+            kernel = ops.setdefault(name, {})
+            kernel[op.group(1)] = kernel.get(op.group(1), 0) + 1
+
+    def kernel(rounds, calls):
+        found = [k for k in ops
+                 if f"philox_cost_kernelILi{rounds}ELi{calls}EE" in k]
+        assert len(found) == 1, sorted(ops)
+        return ops[found[0]]
+    k = {(r, c): kernel(r, c) for r in (10, 0) for c in (1, 2)}
+    names = set().union(*k.values())
+    call = {op: k[10, 2].get(op, 0) - k[0, 2].get(op, 0)
+            - k[10, 1].get(op, 0) + k[0, 1].get(op, 0) for op in names}
+    call = {op: n for op, n in sorted(call.items()) if n}
+    keys = (sum(k[10, 1].values()) - sum(k[0, 1].values())
+            - sum(call.values()))
+    fma = sum(n for op, n in call.items() if op.startswith(("IMAD", "IMUL")))
+    # ten rounds of two 32 x 32 -> 64 products and two 3-input XORs
+    assert fma >= 20 and sum(call.values()) - fma >= 20, (call, keys)
+    return {"fma": fma, "alu": sum(call.values()) - fma}, call, keys
+
+
+def sm_clock_rate() -> tuple:
+    """-> (SM clocks a second over the card: its SMs x the maximum SM clock
+    nvidia-smi reports, that clock in MHz)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * mhz * 1e6, mhz
+
+
+def philox_floor_ms(words: float, pipes: dict, sm_hz: float) -> float:
+    """The least time the card takes to draw ``words`` keep words, four a
+    philox4x32_10 call of ``pipes`` instructions: the busier pipe's time or
+    the issue limit's, whichever is longer."""
+    clocks = max(max(pipes[p] / INT_LANES[p] for p in INT_LANES),
+                 sum(pipes.values()) / ISSUE_LANES)
+    return words / 4 * clocks / sm_hz * 1e3
+
+
+def drop_bound(B, N, C, heads, *, mask: bool, backward: bool = False,
+               philox_ms: float = 0.0):
     """-> (bound ms, 'operations' or 'bytes') of one dropout attention call:
-    the tensor-core products of C1/C2 (``attention_bound``) against the
-    bytes, with the mask's B H N^2 bytes read once in the mask form.  The
-    Philox form's integer work (~20 operations per score element) is left
-    out: the data-sheet table has no int32 rate to set it against."""
+    the tensor-core products of C1/C2 (``attention_bound``) and, in the
+    Philox form, the integer floor ``philox_ms`` (``philox_floor_ms`` of
+    the B H N^2 keep words, each drawn once), against the bytes, with the
+    mask's B H N^2 bytes read once in the mask form.  The function needs
+    each keep bit once, in the backward too (its two kernels draw them
+    twice)."""
     D = C // heads
     prod = 2.0 * B * heads * N * N * D
-    t_ops = (5 if backward else 2) * prod / PEAK["bf16"]
+    t_ops = max((5 if backward else 2) * prod / PEAK["bf16"], philox_ms / 1e3)
     nbytes = (B * N * 3 * C * 2 + B * N * C * 2 + B * heads * N * 4
               + (B * N * 3 * C * 2 + B * N * C * 2 + B * heads * N * 4
                  if backward else 0)
@@ -1529,12 +1616,21 @@ def probe_keep_mask(B, heads, N, D, rate, seed, dtype, dev):
     return mask
 
 
-def check_dropout_kernels(dev, g, run_case, timed) -> list:
+def bwd_route_counts() -> dict:
+    """-> {route: calls} of the training backward so far."""
+    counts = read_counts()
+    return {route: counts[f"bwd_route_{route}"]
+            for route in ("wgmma", "mma_sync", "fp32")}
+
+
+def check_dropout_kernels(dev, g, run_case, timed, launches_equal) -> list:
     """Phase 11 (i)-(ii), inside phase 2: C4 in both forms against the plain
     versions on the same mask or seed at ViT-B's training shape (8, 1568,
-    2304) bf16 and a masked fp32 tail, each with its controls; the Philox
-    forward's keep bits against dropout_keep_plain's; then the times at the
-    job's batch.  -> failures."""
+    2304) bf16 (the wgmma kernels), ViT-H's head dim 80 (the mma.sync
+    kernels) and a masked fp32 tail, each with its controls, each call on
+    its route, two launches of each bf16 case bit-equal; the Philox
+    forward's keep bits against dropout_keep_plain's on both bf16 routes;
+    then the times at the job's batch.  -> failures."""
     import torch.nn.functional as F
     from simple_tad_tpu_torch.ops import flash_attention as fa
     from simple_tad_tpu_torch.ops.attention import (draw_dropout_seed,
@@ -1563,9 +1659,11 @@ def check_dropout_kernels(dev, g, run_case, timed) -> list:
                       lambda: fa.flash_attention_drop_fwd_plain(*args,
                                                                 **gross)],
                      time_it=False,
-                     route=fa.attention_fwd_route(dt, C // heads, drop=True))
+                     route=fa.attention_fwd_route(dt, C // heads))
             out, lse = fa.flash_attention_drop_fwd_plain(*args, **src)
             bargs = (*args[:3], out, lse, dout, *args[3:])
+            route = fa.attention_bwd_route(dt, C // heads)
+            before = bwd_route_counts()
             run_case(bwd, case,
                      lambda: fa.flash_attention_drop_bwd(*bargs, **src),
                      lambda: fa.flash_attention_drop_bwd_plain(*bargs, **src),
@@ -1573,24 +1671,48 @@ def check_dropout_kernels(dev, g, run_case, timed) -> list:
                       lambda: fa.flash_attention_drop_bwd_plain(*bargs,
                                                                 **gross)],
                      time_it=False)
+            moved = {r: n - before[r] for r, n in bwd_route_counts().items()}
+            print(f"[{bwd}] {case}: {route} route: {moved}")
+            if moved != {r: int(r == route) for r in moved}:
+                failures.append(f"{bwd} {case}: not one {route} call "
+                                f"{moved}")
+            if dt == torch.bfloat16:
+                launches_equal(fwd, case, lambda: fa.flash_attention_drop_fwd(
+                    *args, **src))
+                launches_equal(bwd, case, lambda: fa.flash_attention_drop_bwd(
+                    *bargs, **src))
             del out, lse, bargs
         del qkv, dout, args, mask
         torch.cuda.empty_cache()
 
-    # (ii) the bits the Philox kernel draws, two batches x two heads at
-    # N = 392 (q and key tiles past the first), bf16 as on the main path
+    # (ii) the bits the Philox kernels draw, two batches x two heads at
+    # N = 392 (q and key tiles past the first), bf16 as on the main path:
+    # the wgmma kernel's at head dim 64, the mma.sync kernel's at 80
     seed = draw_dropout_seed(g)
-    B, heads, N, D = DROP_PROBE
-    got = probe_keep_mask(B, heads, N, D, ATTN_DROP, seed, torch.bfloat16,
-                          dev)
-    want = fa.dropout_keep_plain(seed, B, heads, N, ATTN_DROP)
-    equal = torch.equal(got, want)
-    print(f"[attention_drop_rng] keep bits of the kernel {tuple(got.shape)} "
-          f"{'equal' if equal else 'DIFFER from'} dropout_keep_plain's "
-          f"({(got != want).sum().item()} differ); keep rate "
-          f"{got.float().mean().item():.5f} (1 - rate {1 - ATTN_DROP})")
-    if not equal:
-        failures.append("attention_drop_rng: kernel keep bits")
+    for B, heads, N, D in DROP_PROBES:
+        route = fa.attention_fwd_route(torch.bfloat16, D)
+        got = probe_keep_mask(B, heads, N, D, ATTN_DROP, seed,
+                              torch.bfloat16, dev)
+        want = fa.dropout_keep_plain(seed, B, heads, N, ATTN_DROP)
+        equal = torch.equal(got, want)
+        print(f"[attention_drop_rng] keep bits of the {route} kernel (head "
+              f"dim {D}) {tuple(got.shape)} "
+              f"{'equal' if equal else 'DIFFER from'} dropout_keep_plain's "
+              f"({(got != want).sum().item()} differ); keep rate "
+              f"{got.float().mean().item():.5f} (1 - rate {1 - ATTN_DROP})")
+        if not equal:
+            failures.append(f"attention_drop_rng: {route} kernel keep bits")
+
+    # the Philox form's integer floor: one call's instructions, the rate
+    pipes, call_ops, key_ops = philox_call_cost()
+    sm_hz, mhz = sm_clock_rate()
+    print(f"[attention_drop_rng] one philox4x32_10 call: {pipes} SASS "
+          f"instructions by pipe {call_ops} (cuobjdump -sass, "
+          f"philox_cost_kernel (<10, 2> - <0, 2>) - (<10, 1> - <0, 1>)), "
+          f"and {key_ops} for the round keys, once a thread; lanes an SM "
+          f"{INT_LANES}, {ISSUE_LANES} issued; "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs "
+          f"x {mhz:.0f} MHz (nvidia-smi clocks.max.sm)")
 
     B, N, C, heads = DROP_TIMED
     scale = (C // heads) ** -0.5
@@ -1606,18 +1728,30 @@ def check_dropout_kernels(dev, g, run_case, timed) -> list:
     for form, src in (("mask", {"mask": make_dropout_mask(
             g, ATTN_DROP, B, heads, N)}), ("rng", {"seed": seed})):
         fwd, bwd = DROP_KERNELS[form]
+        floor = philox_floor_ms(B * heads * N * N, pipes, sm_hz)
+        rng = {} if form == "mask" else {"philox_ms": floor}
+        if rng:
+            for name, backward in ((fwd, False), (bwd, True)):
+                cores = drop_bound(B, N, C, heads, mask=False,
+                                   backward=backward)[0]
+                print(f"[{name}] bound at {DROP_TIMED}: tensor cores and "
+                      f"bytes {cores:.4f} ms, Philox integer floor "
+                      f"{floor:.4f} ms (the kernels draw each word "
+                      f"{2 if backward else 1}x)")
         timed(fwd, lambda: fa.flash_attention_drop_fwd(*args, **src),
               lambda: fa.flash_attention_drop_fwd_plain(*args, **src),
               lambda: F.scaled_dot_product_attention(
                   qh, kh, vh, dropout_p=ATTN_DROP, scale=scale),
-              drop_bound(B, N, C, heads, mask=form == "mask"), plain_runs=3)
+              drop_bound(B, N, C, heads, mask=form == "mask", **rng),
+              plain_runs=3)
         out, lse = fa.flash_attention_drop_fwd(*args, **src)
         bargs = (*args[:3], out, lse, dout, *args[3:])
         timed(bwd, lambda: fa.flash_attention_drop_bwd(*bargs, **src),
               lambda: fa.flash_attention_drop_bwd_plain(*bargs, **src),
               lambda: torch.autograd.grad(sdpa_out, leaf, sdpa_dout,
                                           retain_graph=True),
-              drop_bound(B, N, C, heads, mask=form == "mask", backward=True),
+              drop_bound(B, N, C, heads, mask=form == "mask", backward=True,
+                         **rng),
               plain_runs=3)
         del src, out, lse, bargs
     del qkv, dout, args, qh, kh, vh, leaf, sdpa_out, sdpa_dout
@@ -2160,7 +2294,8 @@ COUNTERS = {"layernorm": ("ln", "LAUNCHES"),
             "add_layernorm_quant": ("ln", "ADD_QUANT_LAUNCHES"),
             "attention_int8": ("fa", "INT8_LAUNCHES"),
             "attention_delta": ("fa", "DELTA_LAUNCHES"),
-            # the kernels a C2 / C3-bwd call took (fa.attention_bwd_route)
+            # the kernels a C2 / C3-bwd / C4-bwd call took
+            # (fa.attention_bwd_route)
             "bwd_route_wgmma": ("fa", "BWD_WGMMA_LAUNCHES"),
             "bwd_route_mma_sync": ("fa", "BWD_MMA_LAUNCHES"),
             "bwd_route_fp32": ("fa", "BWD_F32_LAUNCHES"),
@@ -2861,10 +2996,13 @@ def run_finetune_dropout(dev, seed: int) -> dict:
         depth = model.cfg.depth
         want_counts = dict.fromkeys(COUNTERS, 0)
         fwd, bwd = DROP_KERNELS[form]
-        # C4-fwd takes the mma.sync route (fa.attention_fwd_route)
+        # ViT-B's head dim 64: C4-fwd and C4-bwd on the wgmma routes
+        assert fa.attention_fwd_route(torch.bfloat16, 64) == \
+            fa.attention_bwd_route(torch.bfloat16, 64) == "wgmma"
         want_counts.update({"layernorm": 2 * depth + 1, fwd: depth,
                             bwd: depth, "attention_delta": depth,
-                            "fwd_route_mma_sync": depth})
+                            "fwd_route_wgmma": depth,
+                            "bwd_route_wgmma": depth})
         assert logits.shape == (TRAIN_BATCH, 2)
         assert np.isfinite(float(metrics["loss"]))
         assert launches == want_counts, (launches, want_counts)
@@ -2885,9 +3023,9 @@ def _kernel_categories(prof):
               if getattr(e, "device_type", None)
               == torch.autograd.DeviceType.CUDA]
     # first match wins: copies run inside elementwise kernels
-    # the training forward (C1 packed, C3 separate) is attn_fwd_wgmma (the
-    # dropout forward C4 attn_fwd_bf16), the backward (C2, C3) attn_bwd_:
-    # the launch counts say which ran
+    # the training forward (C1 packed, C3 separate, the dropout forward C4)
+    # is attn_fwd_wgmma (attn_fwd_bf16 at head dims other than 64), the
+    # backward (C2, C3, C4) attn_bwd_: the launch counts say which ran
     cats = {"attention fwd + lse": ("attn_fwd_wgmma", "attn_fwd_bf16"),
             "attention bwd": ("attn_bwd_",),
             "A2 layernorm": ("layernorm",),

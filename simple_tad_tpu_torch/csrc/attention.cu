@@ -45,10 +45,11 @@
 // 4 * N^2 * Dh flops per (batch, head) against 4 * N * Dh * 2 bytes of
 // q/k/v/out, ~400 flop/byte, so once tiled it is compute-bound; and at
 // Dh = 64 the special-function unit's N^2 exp2 per (batch, head) take about
-// as long as the two products.  Three routes, by dtype, head dim and
-// dropout (route() below, ops/flash_attention.py:attention_fwd_route):
-//   * bf16 at head dim 64 without dropout (every trunk the jobs run:
-//     ViT-S/B/L, IV2-S/B/L; A1, C1, C3-fwd and B3), the wgmma kernel
+// as long as the two products.  Three routes, by dtype and head dim
+// (route() below, ops/flash_attention.py:attention_fwd_route):
+//   * bf16 at head dim 64 (every trunk the jobs run: ViT-S/B/L,
+//     IV2-S/B/L; A1, C1, C3-fwd, B3 and, with dropout, C4-fwd), the wgmma
+//     kernel
 //     (namespace wg): one warpgroup per (64-query tile, head, batch); the
 //     q tile and a ring of (k, v) tiles arrive by TMA (rank-3 tensor maps
 //     over (batch, row, column) at the head's column offset, 128-byte
@@ -61,7 +62,7 @@
 //     blocks of an SM (five fit: 92 registers a thread, 42 KB of shared
 //     memory) overlap one another's products and softmax;
 //   * bf16 at the other head dims (8 to 128; ViT-H's 80, IV2-1B's 88,
-//     IV2-6B's 128) and every dropout call (C4-fwd), the mma.sync kernel
+//     IV2-6B's 128), C4-fwd there too, the mma.sync kernel
 //     attn_fwd_bf16_kernel (m16n8k16, fp32 accumulators) in the
 //     FlashAttention-2 shape: one block of 4 warps per (64-query tile,
 //     head, batch); each warp owns 16 query rows whose Q fragments stay in
@@ -77,7 +78,11 @@
 //
 // With a keep source (kernel C4-fwd, stt_attention_fwd_lse_drop) the same
 // kernels are C3-fwd with attention dropout: see attn_fwd_bf16_kernel's
-// DROP and philox.cuh.
+// and attn_fwd_wgmma_kernel's DROP, and philox.cuh.  In the wgmma kernel the
+// Philox words are drawn under the tile's S product, and the mask form's
+// 64 x 64 int8 tile rides the (k, v) ring: copied by the threads
+// (cp.async, or byte loads where mask rows are off 4 bytes) into a
+// swizzled shared tile whose arrivals complete the stage's barrier.
 //
 // With Q8 the same kernels are B3, the int8-output epilogue of the static
 // int8 model's bf16 attention: they replace the TPU kernels
@@ -429,7 +434,7 @@ __global__ void __launch_bounds__(kBlockM)
   }
 }
 
-// ---- the wgmma route: bf16, head dim 64, no dropout ----
+// ---- the wgmma route: bf16, head dim 64 ----
 namespace wg {
 
 namespace hw = stt::hopper;
@@ -449,7 +454,6 @@ struct Smem {
   uint64_t full[kStages], qbar;
 };
 
-constexpr int kSmem = static_cast<int>(sizeof(Smem)) + 1024;
 
 // The online softmax of one 64-key tile on this thread's S accumulators
 // (rows g and g + 8 of its warp's 16 queries, keys j8 * 8 + 2 t4 + {0, 1}):
@@ -498,12 +502,17 @@ __device__ __forceinline__ void tile_softmax(float (&s)[32], int k0, int n_kv,
 
 // O and l rescaled by a, then p rounded to bf16 into the A fragments of PV
 // (accumulator key columns 16 kk to 16 kk + 15 are k-step kk, as for the
-// mma.sync kernel's pf) and the rounded values added to l
+// mma.sync kernel's pf) and the rounded values added to l.  With dropout
+// (DROP) l sums the unrounded p before dropout and the A fragments are
+// bf16(p * keep / keep_prob), as attn_fwd_bf16_kernel's DROP branch.
+template <Drop DROP = Drop::kNone>
 __device__ __forceinline__ void rescale_and_pack(float (&o)[32],
                                                  const float (&p)[32],
                                                  const float (&a)[2],
                                                  float (&l)[2],
-                                                 uint32_t (&pf)[4][4]) {
+                                                 uint32_t (&pf)[4][4],
+                                                 uint32_t keep = 0,
+                                                 float inv_keep = 0.f) {
   l[0] *= a[0];
   l[1] *= a[1];
 #pragma unroll
@@ -513,12 +522,23 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[32],
     o[i + 1] *= a[0];
     o[i + 2] *= a[1];
     o[i + 3] *= a[1];
-    const __nv_bfloat162 p0 = __floats2bfloat162_rn(p[i], p[i + 1]);
-    const __nv_bfloat162 p1 = __floats2bfloat162_rn(p[i + 2], p[i + 3]);
-    l[0] += __low2float(p0) + __high2float(p0);
-    l[1] += __low2float(p1) + __high2float(p1);
-    pf[j8 / 2][(j8 % 2) * 2] = as_u32(p0);
-    pf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(p1);
+    if constexpr (DROP == Drop::kNone) {
+      const __nv_bfloat162 p0 = __floats2bfloat162_rn(p[i], p[i + 1]);
+      const __nv_bfloat162 p1 = __floats2bfloat162_rn(p[i + 2], p[i + 3]);
+      l[0] += __low2float(p0) + __high2float(p0);
+      l[1] += __low2float(p1) + __high2float(p1);
+      pf[j8 / 2][(j8 % 2) * 2] = as_u32(p0);
+      pf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(p1);
+    } else {
+      l[0] += p[i] + p[i + 1];  // before dropout, unrounded
+      l[1] += p[i + 2] + p[i + 3];
+      pf[j8 / 2][(j8 % 2) * 2] = as_u32(__floats2bfloat162_rn(
+          p[i] * stt::keep_factor(keep, j8, 0, inv_keep),
+          p[i + 1] * stt::keep_factor(keep, j8, 1, inv_keep)));
+      pf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(
+          p[i + 2] * stt::keep_factor(keep, j8, 2, inv_keep),
+          p[i + 3] * stt::keep_factor(keep, j8, 3, inv_keep)));
+    }
   }
 }
 
@@ -535,37 +555,63 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[32],
 // in-warpgroup pipeline, S of the next tile issued with this tile's PV,
 // measured slower on the H100: PERF.md).  Query rows at or beyond n read as
 // zero and are not stored; the lse (LSE) is stored from the threads.
-template <bool LSE, bool Q8>
+// With DROP (kernel C4-fwd, LSE only) a tile's keep bits come from kp: the
+// Philox words drawn while its S product runs, or the mask tile staged with
+// its (k, v) (copy_mask_tile; every thread then arrives on the stage's
+// barrier too) and read under the S product; rescale_and_pack<DROP> applies
+// them.
+template <bool LSE, bool Q8, Drop DROP = Drop::kNone>
 __global__ void __launch_bounds__(kThreads, 4)
     attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           void* __restrict__ o, float* __restrict__ lse,
                           const float* __restrict__ out_amax, int n,
-                          int n_kv, int o_sb, int o_sn, float qscale) {
+                          int n_kv, int o_sb, int o_sn, float qscale,
+                          Keep kp) {
+  constexpr bool kMask = DROP == Drop::kMask;
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(hw::align_1024(smem_raw));
+  int8_t* mtile = reinterpret_cast<int8_t*>(&sm) + stt::mask_off<Smem>();
+  const int8_t* mh = kMask ? stt::mask_head(kp) : nullptr;
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kRows;
   const int col = blockIdx.y * kD;
   const int b = blockIdx.z;
   const int tiles = (n_kv + kRows - 1) / kRows;
-  auto issue = [&](int j) {
+  // stage j % kStages: thread 0's TMA loads of (k, v) tile j and, in the
+  // mask form, every thread's share of its mask tile
+  auto fill = [&](int j) {
     const int s = j % kStages;
-    hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-    hw::tma_load_3d(sm.k[s], &tk, &sm.full[s], col, j * kRows, b);
-    hw::tma_load_3d(sm.v[s], &tv, &sm.full[s], col, j * kRows, b);
+    if (tid == 0) {
+      hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+      hw::tma_load_3d(sm.k[s], &tk, &sm.full[s], col, j * kRows, b);
+      hw::tma_load_3d(sm.v[s], &tv, &sm.full[s], col, j * kRows, b);
+    }
+    if constexpr (kMask) {
+      stt::copy_mask_tile(mtile + s * stt::kMaskTile, mh, q0, j * kRows, n,
+                          kp.mask_vec, &sm.full[s]);
+    }
   };
   if (tid == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) hw::mbar_init(&sm.full[s], 1);
+    for (int s = 0; s < kStages; ++s) {
+      hw::mbar_init(&sm.full[s], kMask ? 1 + kThreads : 1);
+    }
     hw::mbar_init(&sm.qbar, 1);
     hw::mbar_init_fence();
     hw::mbar_expect_tx(&sm.qbar, kTileBytes);
     hw::tma_load_3d(sm.q, &tq, &sm.qbar, col, q0, b);
-    for (int j = 0; j < kStages && j < tiles; ++j) issue(j);
   }
   __syncthreads();
+  for (int j = 0; j < kStages && j < tiles; ++j) fill(j);
+  // Philox: the seed words, once
+  uint32_t s0 = 0, s1 = 0;
+  if constexpr (DROP == Drop::kPhilox) {
+    s0 = static_cast<uint32_t>(kp.seed[0]);
+    s1 = static_cast<uint32_t>(kp.seed[1]);
+  }
+  const int bh = b * gridDim.y + blockIdx.y;
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -593,11 +639,19 @@ __global__ void __launch_bounds__(kThreads, 4)
       hw::wgmma_ss(sc, desc_q + kk * kKStep, desc_k + kk * kKStep, kk);
     }
     hw::wgmma_commit();
+    uint32_t keep = 0;  // this tile's keep bits, drawn under the product
+    if constexpr (DROP == Drop::kPhilox) {
+      keep = stt::philox_bits<false, 8>(s0, s1, kp.thresh, bh,
+                                        q0 + warp * 16 + g, j * kRows, t4);
+    } else if constexpr (kMask) {
+      keep = stt::keep_bits_smem<false>(mtile + s * stt::kMaskTile,
+                                        warp * 16 + g, t4);
+    }
     hw::wgmma_wait<0>();
     hw::fence_regs(sc);
 
     tile_softmax(sc, j * kRows, n_kv, t4, m, a);
-    rescale_and_pack(acc, sc, a, l, pf);
+    rescale_and_pack<DROP>(acc, sc, a, l, pf, keep, kp.inv_keep);
 
     // O += bf16(P) V  (64 queries x 64 dims)
     const uint64_t desc_v = hw::desc_mnmajor(sm.v[s]);
@@ -612,7 +666,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     hw::fence_regs(acc);
     hw::fence_regs(pf);
     __syncthreads();  // every warp is done with stage s: refill it
-    if (tid == 0 && j + kStages < tiles) issue(j + kStages);
+    if (j + kStages < tiles) fill(j + kStages);
   }
 
   // full row denominators, normalise, store
@@ -682,22 +736,22 @@ struct Out {
 };
 
 // Which kernel a call takes (shared with ops/flash_attention.py:
-// attention_fwd_route): fp32 the CUDA-core kernel; bf16 at head dim 64
-// without dropout the wgmma kernel; every other bf16 call (head dims 8 to
-// 128 but 64, and every dropout call, C4-fwd) the mma.sync kernel.
+// attention_fwd_route): fp32 the CUDA-core kernel; bf16 at head dim 64 the
+// wgmma kernel, with or without dropout (C4-fwd in either keep form); bf16
+// at the other head dims (8 to 128) the mma.sync kernel.
 enum Route : int { kRouteF32 = 0, kRouteMma = 1, kRouteWgmma = 2 };
 
-constexpr int route(int dtype, int d, bool drop) {
+constexpr int route(int dtype, int d) {
   return dtype == stt::kFloat32 ? kRouteF32
-         : (d == wg::kD && !drop) ? kRouteWgmma
-                                  : kRouteMma;
+         : d == wg::kD          ? kRouteWgmma
+                                : kRouteMma;
 }
 
 // The wgmma route: three tensor maps (q, k and v by rank-3 tiles at the
 // head's column offset; k and v end at n_kv, q at n), encoded per call,
 // then one launch on the stream.  A map that does not encode fails the
 // call: nothing falls back to the mma.sync kernel.
-template <bool LSE, bool Q8>
+template <bool LSE, bool Q8, Drop DROP>
 int launch_wgmma(const void* q, const void* k, const void* v, const Out& out,
                  int b, int n, int n_kv, int h, const Strides& st,
                  float qscale, cudaStream_t stream) {
@@ -709,15 +763,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, const Out& out,
       !hw::tile_map_bf16(&tv, v, cols, n_kv, b, st.v_sn, st.v_sb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  constexpr int smem = stt::smem_bytes<wg::Smem, wg::kStages>(DROP);
   const cudaError_t err = cudaFuncSetAttribute(
-      wg::attn_fwd_wgmma_kernel<LSE, Q8>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmem);
+      wg::attn_fwd_wgmma_kernel<LSE, Q8, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + wg::kRows - 1) / wg::kRows, h, b);
-  wg::attn_fwd_wgmma_kernel<LSE, Q8><<<grid, wg::kThreads, wg::kSmem,
-                                       stream>>>(
+  wg::attn_fwd_wgmma_kernel<LSE, Q8, DROP><<<grid, wg::kThreads, smem,
+                                             stream>>>(
       tq, tk, tv, out.o, out.lse, out.out_amax, n, n_kv, st.o_sb, st.o_sn,
-      qscale);
+      qscale, out.keep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -750,11 +805,9 @@ int dispatch(const void* q, const void* k, const void* v, const Out& out,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (DROP == Drop::kNone) {
-    if (route(dtype, d, false) == kRouteWgmma) {
-      return launch_wgmma<LSE, Q8>(q, k, v, out, b, n, n_kv, h, st, qscale,
-                                   s);
-    }
+  if (route(dtype, d) == kRouteWgmma) {
+    return launch_wgmma<LSE, Q8, DROP>(q, k, v, out, b, n, n_kv, h, st,
+                                       qscale, s);
   }
 #define STT_FWD(DP) \
   launch<DP, LSE, Q8, DROP>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s)
@@ -790,16 +843,15 @@ extern "C" int stt_attention_fwd(const void* q, const void* k, const void* v,
                          qscale, dtype, stream);
 }
 
-// The route an A1, C1, C3-fwd or B3 call of this dtype code and head dim
-// takes: 0 the fp32 CUDA-core kernel, 1 the mma.sync kernel, 2 the wgmma
-// kernel; -1 for what the entry points refuse.  Every C4-fwd call
-// (stt_attention_fwd_lse_drop) takes route 1 in bf16, 0 in fp32.
+// The route an A1, C1, C3-fwd, B3 or C4-fwd call (either keep form) of
+// this dtype code and head dim takes: 0 the fp32 CUDA-core kernel, 1 the
+// mma.sync kernel, 2 the wgmma kernel; -1 for what the entry points refuse.
 extern "C" int stt_attention_fwd_route(int dtype, int d) {
   if (d <= 0 || d % 8 != 0 || d > 128 ||
       (dtype != stt::kBFloat16 && dtype != stt::kFloat32)) {
     return -1;
   }
-  return route(dtype, d, false);
+  return route(dtype, d);
 }
 
 // Kernel C1: A1 on the packed qkv (one stride pair for q, k and v) that
@@ -848,6 +900,7 @@ extern "C" int stt_attention_fwd_lse_sep(const void* q, const void* k,
 // Philox bits kept where they are at least thresh.  Bounded like C1 (the
 // two tensor-core products); the mask form adds N^2 bytes per (batch,
 // head) read, the Philox form ~20 integer operations per score element.
+// At head dim 64 in bf16 it is the wgmma kernel (route()).
 extern "C" int stt_attention_fwd_lse_drop(
     const void* q, const void* k, const void* v, void* o, float* lse, int b,
     int n, int h, int d, int q_sb, int q_sn, int k_sb, int k_sn, int v_sb,
@@ -858,8 +911,9 @@ extern "C" int stt_attention_fwd_lse_drop(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
-  const Out out{o, lse, nullptr, Keep{mask, m_sb, m_sh, seed, thresh,
-                                      inv_keep}};
+  const Out out{o, lse, nullptr,
+                Keep{mask, m_sb, m_sh, seed, thresh, inv_keep,
+                     stt::mask_vec(mask, m_sb, m_sh, n)}};
   return mask != nullptr
              ? dispatch<true, false, Drop::kMask>(q, k, v, out, b, n, n, h,
                                                   d, st, qscale, dtype,

@@ -46,7 +46,8 @@
 // dtype and head dim (route() below, ops/flash_attention.py:
 // attention_bwd_route):
 //   * bf16 at head dim 64 (every trunk the fine-tuning jobs run: ViT-S/B/L,
-//     IV2-S/B/L), the wgmma kernels (namespace wg): one warpgroup per
+//     IV2-S/B/L; C2, C3-bwd and, with dropout, C4-bwd in either keep form),
+//     the wgmma kernels (namespace wg): one warpgroup per
 //     64-row tile (keys in dk/dv, queries in dq).  The streamed tiles (q and
 //     dout, or k and v) arrive by TMA (rank-3 tensor maps over (batch, row,
 //     column) at the head's column offset, 128-byte swizzle, rows beyond N
@@ -67,7 +68,7 @@
 //     alignment.  No producer warp: at 168 registers a 128-thread block
 //     fits three times an SM and a 160-thread one twice;
 //   * bf16 at the other head dims (8 to 128; ViT-H's 80, IV2-1B's 88,
-//     IV2-6B's 128) and every dropout call (C4-bwd), the mma.sync kernels:
+//     IV2-6B's 128), C4-bwd there too, the mma.sync kernels:
 //     one block of 4 warps per (64-key tile, head, batch); each warp owns 16
 //     keys, whose K and V fragments stay in registers, and the block loops
 //     over 64-query tiles (scaled Q and dout row-major for S^T = K Q^T and
@@ -83,6 +84,13 @@
 //     tiles in shared memory.
 // Row offsets inside a (batch, head) stay 32-bit, as in common.cuh's tile
 // loader.
+//
+// With a keep source (kernel C4-bwd, stt_attention_bwd_drop) the kernels
+// take DROP (philox.cuh): in the wgmma kernels a tile's 32 keep bits a
+// thread are drawn (Philox) or read from shared memory (the mask form's
+// 64 x 64 int8 tile, staged with the streamed operands by copy_mask_tile)
+// before the tile's first products, so only those bits stay live across
+// them.
 #include <math.h>
 
 #include "common.cuh"
@@ -616,7 +624,7 @@ __global__ void __launch_bounds__(kThreadsF32)
   }
 }
 
-// ---- the wgmma route: bf16, head dim 64, no dropout ----
+// ---- the wgmma route: bf16, head dim 64 ----
 namespace wg {
 
 namespace hw = stt::hopper;
@@ -647,8 +655,6 @@ struct DqSmem {
   uint64_t full[kStages], qo;
 };
 
-constexpr int kDkdvSmem = static_cast<int>(sizeof(DkdvSmem)) + 1024;
-constexpr int kDqSmem = static_cast<int>(sizeof(DqSmem)) + 1024;
 
 // dK and dV of one 64-key tile.  (q, dout) tiles stream by TMA through a
 // kStages ring: thread 0 refills a stage once the block's barrier at the
@@ -657,8 +663,14 @@ constexpr int kDqSmem = static_cast<int>(sizeof(DqSmem)) + 1024;
 // operands K-major from shared memory), P^T and dS^T in registers (the
 // accumulator layout is the A-fragment layout of the next products), then
 // dV += bf16(P^T) dout and dK += bf16(dS^T) q with dout and q read MN-major:
-// no transposed copy.
-__global__ void __launch_bounds__(kThreads, 3)
+// no transposed copy.  With DROP (kernel C4-bwd) dV takes bf16(P^T keep /
+// keep_prob) and dP^T is scaled by keep / keep_prob before dS^T, as
+// attn_bwd_dkdv_bf16_kernel's DROP branch; the keep bits are read
+// transposed (rows are keys), the mask tile (q0.., k0..) staged with the
+// (q, dout) tile.  The dropout instantiations run two blocks an SM: at
+// three (168 registers) they spilled, and ran slower (PERF.md).
+template <Drop DROP = Drop::kNone>
+__global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 3 : 2)
     attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tv,
@@ -667,31 +679,50 @@ __global__ void __launch_bounds__(kThreads, 3)
                                const float* __restrict__ delta,
                                bf16* __restrict__ dk, bf16* __restrict__ dv,
                                int n, int g_sb, int g_sn, float qscale,
-                               float scale) {
+                               float scale, Keep kp) {
+  constexpr bool kMask = DROP == Drop::kMask;
   extern __shared__ unsigned char smem_raw[];
   DkdvSmem& sm = *reinterpret_cast<DkdvSmem*>(hw::align_1024(smem_raw));
+  int8_t* mtile = reinterpret_cast<int8_t*>(&sm) + stt::mask_off<DkdvSmem>();
+  const int8_t* mh = kMask ? stt::mask_head(kp) : nullptr;
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * kRows;
   const int col = blockIdx.y * kD;
   const int b = blockIdx.z;
   const int tiles = (n + kRows - 1) / kRows;
-  auto issue = [&](int j) {
+  // stage j % kStages: thread 0's TMA loads of (q, dout) tile j and, in
+  // the mask form, every thread's share of its mask tile
+  auto fill = [&](int j) {
     const int s = j % kStages;
-    hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-    hw::tma_load_3d(sm.q[s], &tq, &sm.full[s], col, j * kRows, b);
-    hw::tma_load_3d(sm.o[s], &tdo, &sm.full[s], col, j * kRows, b);
+    if (tid == 0) {
+      hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+      hw::tma_load_3d(sm.q[s], &tq, &sm.full[s], col, j * kRows, b);
+      hw::tma_load_3d(sm.o[s], &tdo, &sm.full[s], col, j * kRows, b);
+    }
+    if constexpr (kMask) {
+      stt::copy_mask_tile(mtile + s * stt::kMaskTile, mh, j * kRows, k0, n,
+                          kp.mask_vec, &sm.full[s]);
+    }
   };
   if (tid == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) hw::mbar_init(&sm.full[s], 1);
+    for (int s = 0; s < kStages; ++s) {
+      hw::mbar_init(&sm.full[s], kMask ? 1 + kThreads : 1);
+    }
     hw::mbar_init(&sm.kv, 1);
     hw::mbar_init_fence();
     hw::mbar_expect_tx(&sm.kv, 2 * kTileBytes);
     hw::tma_load_3d(sm.k, &tk, &sm.kv, col, k0, b);
     hw::tma_load_3d(sm.v, &tv, &sm.kv, col, k0, b);
-    for (int j = 0; j < kStages && j < tiles; ++j) issue(j);
   }
   __syncthreads();
+  for (int j = 0; j < kStages && j < tiles; ++j) fill(j);
+  uint32_t s0 = 0, s1 = 0;  // Philox: the seed words, once
+  if constexpr (DROP == Drop::kPhilox) {
+    s0 = static_cast<uint32_t>(kp.seed[0]);
+    s1 = static_cast<uint32_t>(kp.seed[1]);
+  }
+  const int bh = b * gridDim.y + blockIdx.y;
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -719,7 +750,16 @@ __global__ void __launch_bounds__(kThreads, 3)
     const int q0 = j * kRows;
     sm.ld[half][r] = next;
     next = q0 + kRows + r < n ? lsd[q0 + kRows + r] : 0.f;
+    uint32_t keep = 0;  // this tile's keep bits (rows keys, columns queries)
+    if constexpr (DROP == Drop::kPhilox) {
+      keep = stt::philox_bits<true, 8>(s0, s1, kp.thresh, bh,
+                                       k0 + warp * 16 + g, q0, t4);
+    }
     hw::mbar_wait(&sm.full[s], (j / kStages) & 1);
+    if constexpr (kMask) {
+      keep = stt::keep_bits_smem<true>(mtile + s * stt::kMaskTile,
+                                       warp * 16 + g, t4);
+    }
     hw::scale_tile(sm.qs, sm.q[s], qscale);
     __syncthreads();  // the scaled copy, lse and delta are visible
 
@@ -761,8 +801,25 @@ __global__ void __launch_bounds__(kThreads, 3)
       const float p01 = ok1 ? hw::exp2_approx(st[i + 1] - l1) : 0.f;
       const float p10 = ok0 ? hw::exp2_approx(st[i + 2] - l0) : 0.f;
       const float p11 = ok1 ? hw::exp2_approx(st[i + 3] - l1) : 0.f;
-      pf[j8 / 2][(j8 % 2) * 2] = as_u32(__floats2bfloat162_rn(p00, p01));
-      pf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(p10, p11));
+      if constexpr (DROP == Drop::kNone) {
+        pf[j8 / 2][(j8 % 2) * 2] = as_u32(__floats2bfloat162_rn(p00, p01));
+        pf[j8 / 2][(j8 % 2) * 2 + 1] =
+            as_u32(__floats2bfloat162_rn(p10, p11));
+      } else {
+        const float f = kp.inv_keep;
+        const float f00 = stt::keep_factor(keep, j8, 0, f);
+        const float f01 = stt::keep_factor(keep, j8, 1, f);
+        const float f10 = stt::keep_factor(keep, j8, 2, f);
+        const float f11 = stt::keep_factor(keep, j8, 3, f);
+        pf[j8 / 2][(j8 % 2) * 2] =
+            as_u32(__floats2bfloat162_rn(p00 * f00, p01 * f01));
+        pf[j8 / 2][(j8 % 2) * 2 + 1] =
+            as_u32(__floats2bfloat162_rn(p10 * f10, p11 * f11));
+        dpt[i] *= f00;
+        dpt[i + 1] *= f01;
+        dpt[i + 2] *= f10;
+        dpt[i + 3] *= f11;
+      }
       const float ds00 = ok0 ? p00 * (dpt[i] - e0) : 0.f;
       const float ds01 = ok1 ? p01 * (dpt[i + 1] - e1) : 0.f;
       const float ds10 = ok0 ? p10 * (dpt[i + 2] - e0) : 0.f;
@@ -793,7 +850,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     hw::fence_regs(pf);
     hw::fence_regs(dsf);
     __syncthreads();  // every warp is done with stage s, qs and ld
-    if (tid == 0 && j + kStages < tiles) issue(j + kStages);
+    if (j + kStages < tiles) fill(j + kStages);
   }
 
   const int key0 = k0 + warp * 16 + g;
@@ -826,8 +883,14 @@ __global__ void __launch_bounds__(kThreads, 3)
 // (k, v) tiles stream through the ring as in the dk/dv kernel; S = Qs K^T
 // and dP = dout V^T (K-major), dS in registers, dQ += bf16(dS) K with K
 // read MN-major.  Pad query rows read no lse: their q and dout rows are
-// zero, so ds = 0.
-__global__ void __launch_bounds__(kThreads, 4)
+// zero, so ds = 0.  With DROP (kernel C4-bwd) dP is scaled by keep /
+// keep_prob before dS, as attn_bwd_dq_bf16_kernel's; the mask tile
+// (q0.., k0..) is staged with the (k, v) tile.  The dropout instantiations
+// run three blocks an SM (the mask form's tiles leave shared memory for
+// three; at four, 128 registers, both forms spilled and ran slower:
+// PERF.md).
+template <Drop DROP = Drop::kNone>
+__global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 4 : 3)
     attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
@@ -835,31 +898,50 @@ __global__ void __launch_bounds__(kThreads, 4)
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              bf16* __restrict__ dq, int n, int g_sb, int g_sn,
-                             float qscale, float scale) {
+                             float qscale, float scale, Keep kp) {
+  constexpr bool kMask = DROP == Drop::kMask;
   extern __shared__ unsigned char smem_raw[];
   DqSmem& sm = *reinterpret_cast<DqSmem*>(hw::align_1024(smem_raw));
+  int8_t* mtile = reinterpret_cast<int8_t*>(&sm) + stt::mask_off<DqSmem>();
+  const int8_t* mh = kMask ? stt::mask_head(kp) : nullptr;
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kRows;
   const int col = blockIdx.y * kD;
   const int b = blockIdx.z;
   const int tiles = (n + kRows - 1) / kRows;
-  auto issue = [&](int j) {
+  // stage j % kStages: thread 0's TMA loads of (k, v) tile j and, in the
+  // mask form, every thread's share of its mask tile
+  auto fill = [&](int j) {
     const int s = j % kStages;
-    hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-    hw::tma_load_3d(sm.k[s], &tk, &sm.full[s], col, j * kRows, b);
-    hw::tma_load_3d(sm.v[s], &tv, &sm.full[s], col, j * kRows, b);
+    if (tid == 0) {
+      hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+      hw::tma_load_3d(sm.k[s], &tk, &sm.full[s], col, j * kRows, b);
+      hw::tma_load_3d(sm.v[s], &tv, &sm.full[s], col, j * kRows, b);
+    }
+    if constexpr (kMask) {
+      stt::copy_mask_tile(mtile + s * stt::kMaskTile, mh, q0, j * kRows, n,
+                          kp.mask_vec, &sm.full[s]);
+    }
   };
   if (tid == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) hw::mbar_init(&sm.full[s], 1);
+    for (int s = 0; s < kStages; ++s) {
+      hw::mbar_init(&sm.full[s], kMask ? 1 + kThreads : 1);
+    }
     hw::mbar_init(&sm.qo, 1);
     hw::mbar_init_fence();
     hw::mbar_expect_tx(&sm.qo, 2 * kTileBytes);
     hw::tma_load_3d(sm.qs, &tq, &sm.qo, col, q0, b);
     hw::tma_load_3d(sm.o, &tdo, &sm.qo, col, q0, b);
-    for (int j = 0; j < kStages && j < tiles; ++j) issue(j);
   }
   __syncthreads();
+  for (int j = 0; j < kStages && j < tiles; ++j) fill(j);
+  uint32_t s0 = 0, s1 = 0;  // Philox: the seed words, once
+  if constexpr (DROP == Drop::kPhilox) {
+    s0 = static_cast<uint32_t>(kp.seed[0]);
+    s1 = static_cast<uint32_t>(kp.seed[1]);
+  }
+  const int bh = b * gridDim.y + blockIdx.y;
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -884,7 +966,15 @@ __global__ void __launch_bounds__(kThreads, 4)
   for (int j = 0; j < tiles; ++j) {
     const int s = j % kStages;
     const int k0 = j * kRows;
+    uint32_t keep = 0;  // this tile's keep bits (rows queries)
+    if constexpr (DROP == Drop::kPhilox) {
+      keep = stt::philox_bits<false, 8>(s0, s1, kp.thresh, bh, row0, k0, t4);
+    }
     hw::mbar_wait(&sm.full[s], (j / kStages) & 1);
+    if constexpr (kMask) {
+      keep = stt::keep_bits_smem<false>(mtile + s * stt::kMaskTile,
+                                        warp * 16 + g, t4);
+    }
     float sc[32], dp[32];
     hw::zero(sc);
     hw::zero(dp);
@@ -917,6 +1007,13 @@ __global__ void __launch_bounds__(kThreads, 4)
       const float p01 = ok1 ? hw::exp2_approx(sc[i + 1] - l0) : 0.f;
       const float p10 = ok0 ? hw::exp2_approx(sc[i + 2] - l1) : 0.f;
       const float p11 = ok1 ? hw::exp2_approx(sc[i + 3] - l1) : 0.f;
+      if constexpr (DROP != Drop::kNone) {
+        const float f = kp.inv_keep;
+        dp[i] *= stt::keep_factor(keep, j8, 0, f);
+        dp[i + 1] *= stt::keep_factor(keep, j8, 1, f);
+        dp[i + 2] *= stt::keep_factor(keep, j8, 2, f);
+        dp[i + 3] *= stt::keep_factor(keep, j8, 3, f);
+      }
       dsf[j8 / 2][(j8 % 2) * 2] = as_u32(__floats2bfloat162_rn(
           p00 * (dp[i] - e0), p01 * (dp[i + 1] - e0)));
       dsf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(
@@ -936,7 +1033,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     hw::fence_regs(acc);
     hw::fence_regs(dsf);
     __syncthreads();  // every warp is done with stage s: refill it
-    if (tid == 0 && j + kStages < tiles) issue(j + kStages);
+    if (j + kStages < tiles) fill(j + kStages);
   }
 
   bf16* dqb = dq + static_cast<size_t>(b) * g_sb + col;
@@ -1017,11 +1114,13 @@ __global__ void __launch_bounds__(kDeltaThreads)
 
 // The wgmma route: four tensor maps (q, k, v and dout by rank-3 tiles at
 // the head's column offset), encoded per call, then the dk/dv and dq
-// kernels on the stream.
+// kernels on the stream.  A map that does not encode fails the call:
+// nothing falls back to the mma.sync kernels.
+template <Drop DROP>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
                  void* dq, void* dk, void* dv, int b, int n, int h,
-                 const Strides& st, float qscale, float scale,
+                 const Strides& st, float qscale, float scale, const Keep& kp,
                  cudaStream_t stream) {
   namespace hw = stt::hopper;
   const int cols = h * wg::kD;
@@ -1032,34 +1131,37 @@ int launch_wgmma(const void* q, const void* k, const void* v,
       !hw::tile_map_bf16(&tdo, dout, cols, n, b, st.do_sn, st.do_sb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  constexpr int dkdv_smem = stt::smem_bytes<wg::DkdvSmem, wg::kStages>(DROP);
+  constexpr int dq_smem = stt::smem_bytes<wg::DqSmem, wg::kStages>(DROP);
   cudaError_t err =
-      allow_smem(wg::attn_bwd_dkdv_wgmma_kernel, wg::kDkdvSmem);
+      allow_smem(wg::attn_bwd_dkdv_wgmma_kernel<DROP>, dkdv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(wg::attn_bwd_dq_wgmma_kernel, wg::kDqSmem);
+  err = allow_smem(wg::attn_bwd_dq_wgmma_kernel<DROP>, dq_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + wg::kRows - 1) / wg::kRows, h, b);
-  wg::attn_bwd_dkdv_wgmma_kernel<<<grid, wg::kThreads, wg::kDkdvSmem,
-                                   stream>>>(
+  wg::attn_bwd_dkdv_wgmma_kernel<DROP><<<grid, wg::kThreads, dkdv_smem,
+                                         stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), n, st.g_sb, st.g_sn, qscale, scale);
+      static_cast<bf16*>(dv), n, st.g_sb, st.g_sn, qscale, scale, kp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  wg::attn_bwd_dq_wgmma_kernel<<<grid, wg::kThreads, wg::kDqSmem, stream>>>(
+  wg::attn_bwd_dq_wgmma_kernel<DROP><<<grid, wg::kThreads, dq_smem,
+                                       stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), n, st.g_sb,
-      st.g_sn, qscale, scale);
+      st.g_sn, qscale, scale, kp);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Which kernels a call takes (shared with ops/flash_attention.py:
-// attention_bwd_route): fp32 the CUDA-core kernels; bf16 at head dim 64
-// without dropout the wgmma kernels; every other bf16 call (head dims 8 to
-// 128 but 64, and every dropout call, C4-bwd) the mma.sync kernels.
+// attention_bwd_route): fp32 the CUDA-core kernels; bf16 at head dim 64 the
+// wgmma kernels, with or without dropout (C4-bwd in either keep form); bf16
+// at the other head dims (8 to 128) the mma.sync kernels.
 enum Route : int { kRouteF32 = 0, kRouteMma = 1, kRouteWgmma = 2 };
 
-constexpr int route(int dtype, int d, bool drop) {
+constexpr int route(int dtype, int d) {
   return dtype == stt::kFloat32 ? kRouteF32
-         : (d == wg::kD && !drop) ? kRouteWgmma
-                                  : kRouteMma;
+         : d == wg::kD          ? kRouteWgmma
+                                : kRouteMma;
 }
 
 template <int DP, Drop DROP>
@@ -1119,9 +1221,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route(dtype, d, DROP != Drop::kNone) == kRouteWgmma) {
-    return launch_wgmma(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, st,
-                        qscale, scale, s);
+  if (route(dtype, d) == kRouteWgmma) {
+    return launch_wgmma<DROP>(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h,
+                              st, qscale, scale, kp, s);
   }
 #define STT_BWD(DP)                                                     \
   return launch<DP, DROP>(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, \
@@ -1163,15 +1265,15 @@ extern "C" int stt_attention_bwd(const void* q, const void* k, const void* v,
                   qscale, scale, dtype, stream);
 }
 
-// The route a C2 or C3-bwd call of this dtype code and head dim takes:
-// 0 the fp32 CUDA-core kernels, 1 the mma.sync kernels, 2 the wgmma
-// kernels; -1 for what the entry points refuse.
+// The route a C2, C3-bwd or C4-bwd call (either keep form) of this dtype
+// code and head dim takes: 0 the fp32 CUDA-core kernels, 1 the mma.sync
+// kernels, 2 the wgmma kernels; -1 for what the entry points refuse.
 extern "C" int stt_attention_bwd_route(int dtype, int d) {
   if (d <= 0 || d % 8 != 0 || d > 128 ||
       (dtype != stt::kBFloat16 && dtype != stt::kFloat32)) {
     return -1;
   }
-  return route(dtype, d, false);
+  return route(dtype, d);
 }
 
 // The delta pre-pass of C2, C3-bwd and C4-bwd: out and dout (B, N, C)
@@ -1233,7 +1335,9 @@ extern "C" int stt_attention_bwd_sep(const void* q, const void* k,
 // stt_attention_fwd_lse_drop (exactly one of mask and seed).  The dk/dv
 // kernel reads the mask transposed by index (mask[b, h, query, key] from
 // its key-major tile; no transposed copy) and draws the Philox words in
-// its own orientation (philox.cuh): two launches, as C2.
+// its own orientation (philox.cuh): two launches, as C2.  At head dim 64 in
+// bf16 they are the wgmma kernels (route()), which stage the mask's tiles
+// in shared memory and read them there in either orientation.
 extern "C" int stt_attention_bwd_drop(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, void* dk, void* dv,
@@ -1247,7 +1351,8 @@ extern "C" int stt_attention_bwd_drop(
   }
   const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
                    do_sb, do_sn, g_sb, g_sn};
-  const Keep kp{mask, m_sb, m_sh, seed, thresh, inv_keep};
+  const Keep kp{mask, m_sb, m_sh, seed, thresh, inv_keep,
+                stt::mask_vec(mask, m_sb, m_sh, n)};
   return mask != nullptr
              ? dispatch<Drop::kMask>(q, k, v, dout, lse, delta, dq, dk, dv, b,
                                      n, h, d, st, qscale, scale, dtype,
@@ -1256,3 +1361,33 @@ extern "C" int stt_attention_bwd_drop(
                                        b, n, h, d, st, qscale, scale, dtype,
                                        stream, kp);
 }
+
+// Philox4x32-10 alone, for the dropout bound's integer floor
+// (chip_smoke.py:philox_call_cost): CALLS calls a thread under one seed,
+// each on a counter read from memory, each call's words stored.  ROUNDS =
+// 0 is the same kernel without the rounds.  The round keys depend on the
+// seed alone, so a thread computes them once however many calls it makes;
+// the instructions of one call besides them are (<10, 2> - <0, 2>) -
+// (<10, 1> - <0, 1>) in cuobjdump -sass of the built library.  Never
+// launched.
+template <int ROUNDS, int CALLS>
+__global__ void philox_cost_kernel(const int32_t* __restrict__ seed,
+                                   const uint4* __restrict__ ctr,
+                                   uint4* __restrict__ out) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t s0 = static_cast<uint32_t>(seed[0]);
+  const uint32_t s1 = static_cast<uint32_t>(seed[1]);
+#pragma unroll
+  for (int c = 0; c < CALLS; ++c) {
+    out[CALLS * i + c] = stt::philox4x32<ROUNDS>(ctr[CALLS * i + c], s0, s1);
+  }
+}
+
+template __global__ void philox_cost_kernel<0, 1>(const int32_t*,
+                                                  const uint4*, uint4*);
+template __global__ void philox_cost_kernel<0, 2>(const int32_t*,
+                                                  const uint4*, uint4*);
+template __global__ void philox_cost_kernel<10, 1>(const int32_t*,
+                                                   const uint4*, uint4*);
+template __global__ void philox_cost_kernel<10, 2>(const int32_t*,
+                                                   const uint4*, uint4*);

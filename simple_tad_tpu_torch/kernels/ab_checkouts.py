@@ -5,7 +5,9 @@ on the packed qkv, C3-fwd and C3-bwd (the same on separate operands, at
 IV2-S's N = 2049 and the job's batch 56, v strided), A1 on separate
 operands (IV2-S batch 32, v strided), B3 (A1 with an int8 output) packed
 at ViT-B batch 32 and on separate operands at IV2-S batch 32 with keys
-masked at n_kv < N (``N_KV``), the int8-storage
+masked at n_kv < N (``N_KV``), the dropout attention C4 (forward and
+backward, mask and Philox forms, rate 0.1, on the packed qkv's views at
+ViT-B's job batch), the int8-storage
 attention packed (B2) and on separate operands (D2, IV2-S, v strided), and
 the row norms of csrc/layernorm.cu (A2 LayerNorm and B1 LayerNorm->int8 on
 ViT-B's (32 * 1568, 768) bf16, D3 RMSNorm->int8 on IV2-S's (32 * 2049,
@@ -21,8 +23,9 @@ other's.  A kernel named in ``--changed`` (one whose summation order the
 change moved on purpose) must agree bit for bit within each checkout and is
 reported, not failed, where the two checkouts differ; every other kernel
 must be bit-equal in all four runs.  With ``--steps`` each checkout also
-times its own fine-tuning step (its chip_smoke.py's phase-6 / phase-9
-FinetuneTrainer timing: ViT-B 16x224 and IV2-S 8x224 at the jobs' batch
+times its own fine-tuning step (its chip_smoke.py's phase-6 / phase-9 /
+phase-11 FinetuneTrainer timing: ViT-B 16x224, IV2-S 8x224, and ViT-B with
+attention dropout 0.1 in the Philox and the mask form, at the jobs' batch
 56, the median of its timed steps), in a fresh process per run, in the
 same order; with ``--evals`` its bf16 serving (its chip_smoke.py's phase 3
 ``run_eval``, ViT-B, and phase 7 ``run_eval_iv2``, IV2-S) and its static
@@ -56,9 +59,16 @@ SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
           "attention_q8_sep": (32, 2049, 6),
           "attention_sep_fwd_lse": (56, 2049, 6),
           "attention_sep_bwd": (56, 2049, 6), "attention_i8": (32, 1568, 12),
+          "attention_drop_fwd": (56, 1568, 12),
+          "attention_drop_bwd": (56, 1568, 12),
+          "attention_drop_rng_fwd": (56, 1568, 12),
+          "attention_drop_rng_bwd": (56, 1568, 12),
           "attention_i8_sep": (32, 2049, 6), "layernorm": (32, 1568, 12),
           "layernorm_quant": (32, 1568, 12), "rmsnorm_quant": (32, 2049, 6)}
 NORMS = ("layernorm", "layernorm_quant", "rmsnorm_quant")
+# C4's rate (chip_smoke.py's ATTN_DROP) and its Philox seed words
+DROP_RATE = 0.1
+DROP_SEED = (12345, -678)
 # B3 on separate operands: keys at or beyond this masked (chip_smoke.py
 # phase 2's IV2-S case)
 N_KV = 2040
@@ -72,8 +82,12 @@ GEMMS = {"int8_gemm": (32 * 1568, 768, 2304, "int8", False),
 MLPS = {"int8_mlp": (32 * 1568, 768, 3072, "int8"),
         "int8_mlp_iv2": (32 * 2049, 384, 1536, "bfloat16")}
 KERNELS = {**SHAPES, **GEMMS, **MLPS}
-# --steps: chip_smoke.py's training families (ViT-B, IV2-S)
-STEP_FAMILIES = ("vit", "iv2")
+# --steps: chip_smoke.py's training timings (label -> the keywords of its
+# time_training_process): ViT-B, IV2-S, ViT-B with attention dropout in
+# each keep form
+STEP_FAMILIES = {"vit": {}, "iv2": {"family": "iv2"},
+                 "vit drop rng": {"attn_drop": DROP_RATE, "form": "rng"},
+                 "vit drop mask": {"attn_drop": DROP_RATE, "form": "mask"}}
 # --evals: chip_smoke.py phases 3 and 7's bf16 serving (label, function),
 # and phase 10's (family, (label, qkv_i8, fused_rmsq))
 BF16_EVALS = (("vit bf16", "run_eval"), ("iv2 bf16", "run_eval_iv2"))
@@ -203,6 +217,8 @@ def _worker(root: str) -> dict:
         elif name == "attention_fwd_lse":
             def fn():
                 return fa.flash_attention_qkv_fwd_lse(qkv, heads, scale)
+        elif name.startswith("attention_drop"):
+            fn = _drop_fn(name, qkv, heads, scale, g)
         elif name in ("attention_sep_fwd_lse", "attention_sep_bwd"):
             ops = (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
                    qkv[..., 2 * C:], heads, scale)
@@ -230,6 +246,32 @@ def _worker(root: str) -> dict:
     return out
 
 
+def _drop_fn(name, qkv, heads, scale, g):
+    """The C4 call of ``name`` on the packed qkv's (q, k, v) views: a seeded
+    keep mask (mask form) or DROP_SEED (Philox form); the backward on the
+    plain forward's out and lse and a seeded dout."""
+    import torch
+
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    args = (*qkv.view(B, N, 3, C).unbind(2), heads, scale, DROP_RATE)
+    if "_rng_" in name:
+        src = {"seed": torch.tensor(DROP_SEED, dtype=torch.int32,
+                                    device=qkv.device)}
+    else:
+        src = {"mask": (torch.rand((B, heads, N, N), generator=g,
+                                   device=qkv.device) >= DROP_RATE
+                        ).to(torch.int8)}
+    if name.endswith("_fwd"):
+        return lambda: fa.flash_attention_drop_fwd(*args, **src)
+    out, lse = fa.flash_attention_drop_fwd_plain(*args, **src)
+    dout = torch.randn((B, N, C), generator=g,
+                       device=qkv.device).to(torch.bfloat16)
+    bargs = (*args[:3], out, lse, dout, *args[3:])
+    return lambda: fa.flash_attention_drop_bwd(*bargs, **src)
+
+
 def _time(name, fn, out) -> None:
     """out[name] = the digest of fn()'s outputs and its median time."""
     import torch
@@ -253,12 +295,14 @@ def _time(name, fn, out) -> None:
     torch.cuda.empty_cache()
 
 
-def _step_worker(root: str, family: str) -> dict:
+def _step_worker(root: str, label: str) -> dict:
     """Run in a fresh process with ``root`` first on the path -> the median
-    step ms of that checkout's own training timing."""
+    step ms of that checkout's own training timing of ``label``
+    (STEP_FAMILIES)."""
     sys.path[0] = os.path.abspath(root)
     import chip_smoke
-    r = chip_smoke.time_training_process(SEED, profile=False, family=family)
+    r = chip_smoke.time_training_process(SEED, profile=False,
+                                         **STEP_FAMILIES[label])
     return {"batch": r.get("batch"), "ms": statistics.median(r["step_ms"])}
 
 
@@ -319,8 +363,8 @@ def main(argv=None) -> int:
         print(json.dumps(_eval_worker(args.eval_worker)))
         return 0
     if args.step_worker:
-        family, root = args.step_worker.split(":", 1)
-        print(json.dumps(_step_worker(root, family)))
+        label, root = args.step_worker.split(":", 1)
+        print(json.dumps(_step_worker(root, label)))
         return 0
     changed = {name for name in args.changed.split(",") if name}
     if changed - set(KERNELS):

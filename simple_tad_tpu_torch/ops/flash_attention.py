@@ -6,10 +6,10 @@ csrc/attention.cu: it reads q, k and v in place from the (B, N, 3C) qkv
 projection output (no slice copies, no head relayout) and runs both
 products on the tensor cores (attention at N=1568, Dh=64 is compute-bound
 once tiled; see the note at the top of the source).  ``attention_fwd_route``
-names the kernel a forward call takes: bf16 at head dim 64 without dropout
-(every trunk the jobs run) the wgmma kernel (TMA ring, wgmma products), bf16
-at the other head dims and every dropout forward the mma.sync kernel, fp32
-the CUDA-core kernel.
+names the kernel a forward call takes: bf16 at head dim 64 (every trunk the
+jobs run), with or without dropout, the wgmma kernel (TMA ring, wgmma
+products), bf16 at the other head dims the mma.sync kernel, fp32 the
+CUDA-core kernel.
 
 Numerics (both versions): q is pre-scaled by scale*log2(e) and rounded to
 the input dtype; QK accumulates in fp32; probabilities are exp2(s - m)
@@ -111,7 +111,10 @@ hardware PRNG bits cannot be reproduced, so the seed form is held to the
 JAX mask kernels fed ``dropout_keep_plain``'s mask.  q, k and v are
 (B, N, C) views with a stride pair each, as C3 takes them (the ViT's packed
 qkv is read in place).  It saves (q, k, v, mask or seed, out, lse), as
-_flash_core_drop_fwd and _flash_core_drop_rng_fwd do.
+_flash_core_drop_fwd and _flash_core_drop_rng_fwd do.  Both directions take
+the routes of the calls without dropout (``attention_fwd_route``,
+``attention_bwd_route``): at head dim 64 in bf16 the wgmma kernels, which
+stage the mask form's tiles in shared memory.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  ``LAUNCHES`` counts launches of the bf16/fp32
@@ -124,7 +127,8 @@ int8-compute one (E2), ``FWD_LSE_LAUNCHES`` and
 and ``BWD_LAUNCHES`` and ``SEP_BWD_LAUNCHES`` calls of the training
 backward (each call launches two kernels: dk/dv, then dq), which
 ``attention_bwd_route`` sends to one of three kernel pairs, counted per
-route over both layouts: ``BWD_WGMMA_LAUNCHES`` (bf16 at head dim 64: the
+route over both layouts and the dropout backward (C4-bwd):
+``BWD_WGMMA_LAUNCHES`` (bf16 at head dim 64: the
 wgmma kernels), ``BWD_MMA_LAUNCHES`` (bf16 at the other head dims: the
 mma.sync kernels) and ``BWD_F32_LAUNCHES`` (fp32: the CUDA-core kernels);
 ``DELTA_LAUNCHES`` those of the delta pre-pass (one per backward call,
@@ -577,7 +581,8 @@ def flash_attention_qkv_fwd_lse(qkv, num_heads: int, scale: float):
     return out, lse
 
 
-def _route(name: str, dtype, head_dim: int, drop: bool) -> str:
+def _route(name: str, dtype, head_dim: int) -> str:
+    """route() of csrc/attention.cu and csrc/attention_train.cu."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: dtype {dtype} is not bfloat16 or float32")
     if head_dim <= 0 or head_dim % 8 or head_dim > MAX_HEAD_DIM:
@@ -585,27 +590,27 @@ def _route(name: str, dtype, head_dim: int, drop: bool) -> str:
                          f"multiple of 8, at most {MAX_HEAD_DIM}")
     if dtype == torch.float32:
         return "fp32"
-    return "wgmma" if head_dim == WGMMA_HEAD_DIM and not drop else "mma_sync"
+    return "wgmma" if head_dim == WGMMA_HEAD_DIM else "mma_sync"
 
 
 def attention_bwd_route(dtype, head_dim: int) -> str:
-    """The kernels a CUDA call of the training backward (C2, C3-bwd) of
-    ``dtype`` at ``head_dim`` launches, as csrc/attention_train.cu's
-    dispatch picks them: 'wgmma' (bf16 at head dim 64, every trunk the
-    fine-tuning jobs run), 'mma_sync' (bf16 at the other head dims) or
-    'fp32' (the CUDA-core kernels).  The dropout backward (C4-bwd) always
-    takes the mma.sync kernels."""
-    return _route("attention_bwd_route", dtype, head_dim, False)
+    """The kernels a CUDA call of the training backward (C2, C3-bwd, and
+    C4-bwd in either keep form) of ``dtype`` at ``head_dim`` launches, as
+    csrc/attention_train.cu's dispatch picks them: 'wgmma' (bf16 at head
+    dim 64, every trunk the fine-tuning jobs run), 'mma_sync' (bf16 at the
+    other head dims) or 'fp32' (the CUDA-core kernels).  Dropout does not
+    change the route."""
+    return _route("attention_bwd_route", dtype, head_dim)
 
 
-def attention_fwd_route(dtype, head_dim: int, drop: bool = False) -> str:
+def attention_fwd_route(dtype, head_dim: int) -> str:
     """The kernel a CUDA call of the bf16/fp32 attention forward (A1 packed
-    or on separate operands, C1, C3-fwd, B3, and with ``drop`` C4-fwd) of
-    ``dtype`` at ``head_dim`` launches, as csrc/attention.cu's dispatch
-    picks it: 'wgmma' (bf16 at head dim 64 without dropout, every trunk
-    the jobs run), 'mma_sync' (bf16 at the other head dims, and every
-    dropout forward) or 'fp32' (the CUDA-core kernel)."""
-    return _route("attention_fwd_route", dtype, head_dim, drop)
+    or on separate operands, C1, C3-fwd, B3, and C4-fwd in either keep
+    form) of ``dtype`` at ``head_dim`` launches, as csrc/attention.cu's
+    dispatch picks it: 'wgmma' (bf16 at head dim 64, every trunk the jobs
+    run), 'mma_sync' (bf16 at the other head dims) or 'fp32' (the
+    CUDA-core kernel).  Dropout does not change the route."""
+    return _route("attention_fwd_route", dtype, head_dim)
 
 
 _BWD_COUNTERS = {"wgmma": "BWD_WGMMA_LAUNCHES",
@@ -619,8 +624,8 @@ def _count_bwd_route(dtype, head_dim: int) -> None:
     globals()[name] += 1
 
 
-def _count_fwd_route(dtype, head_dim: int, drop: bool = False) -> None:
-    name = _FWD_COUNTERS[attention_fwd_route(dtype, head_dim, drop)]
+def _count_fwd_route(dtype, head_dim: int) -> None:
+    name = _FWD_COUNTERS[attention_fwd_route(dtype, head_dim)]
     globals()[name] += 1
 
 
@@ -947,7 +952,7 @@ def flash_attention_drop_fwd(q, k, v, num_heads: int, scale: float,
         DROP_FWD_LAUNCHES += 1
     else:
         DROP_RNG_FWD_LAUNCHES += 1
-    _count_fwd_route(q.dtype, D, drop=True)
+    _count_fwd_route(q.dtype, D)
     return out, lse
 
 
@@ -986,6 +991,7 @@ def flash_attention_drop_bwd(q, k, v, out, lse, dout, num_heads: int,
         DROP_BWD_LAUNCHES += 1
     else:
         DROP_RNG_BWD_LAUNCHES += 1
+    _count_bwd_route(q.dtype, D)
     return dq, dk, dv
 
 

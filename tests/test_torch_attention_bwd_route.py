@@ -1,14 +1,17 @@
-"""The training backward's route by dtype and head dim (kernels C2 and
-C3-bwd, simple_tad_tpu_torch.ops.flash_attention.attention_bwd_route), on
-the CPU.
+"""The training backward's route by dtype and head dim (kernels C2, C3-bwd
+and C4-bwd, simple_tad_tpu_torch.ops.flash_attention.attention_bwd_route),
+on the CPU.
 
 bf16 at head dim 64 takes the wgmma kernels of csrc/attention_train.cu,
-bf16 at the other head dims the mma.sync kernels, fp32 the CUDA-core
-kernels; the function mirrors the source's dispatch (stt_attention_bwd_route
-on the card, tests/test_torch_cuda.py).  A CPU tensor takes the plain
-version and counts no launch on any route.
+with or without dropout (C4-bwd in either keep form), bf16 at the other
+head dims the mma.sync kernels, fp32 the CUDA-core kernels; the function
+mirrors the source's dispatch (stt_attention_bwd_route on the card,
+tests/test_torch_cuda.py).  A CPU tensor takes the plain version and
+counts no launch on any route.  The dropout backward counts its call on
+the route it takes, as the forward does.
 """
 
+import inspect
 import re
 from pathlib import Path
 
@@ -47,14 +50,38 @@ def test_route_rejects_dtypes_the_kernels_refuse(dtype):
 
 
 def test_route_matches_the_kernel_source():
-    """The route codes and the wgmma head dim of csrc/attention_train.cu."""
+    """The route codes and the wgmma head dim of csrc/attention_train.cu,
+    and its route(), which takes no dropout argument: every keep form's
+    dispatch takes the route of the call without dropout."""
     src = SOURCE.read_text()
+    assert re.search(r"constexpr int route\(int dtype, int d\) \{\s*"
+                     r"return dtype == stt::kFloat32 \? kRouteF32\s*"
+                     r": d == wg::kD\s*\? kRouteWgmma\s*"
+                     r": kRouteMma;\s*\}", src)
+    assert len(re.findall(r"if \(route\(dtype, d\) == kRouteWgmma\)",
+                          src)) == 1
     codes = dict(re.findall(r"kRoute(\w+) = (\d)", src))
     assert [fa.BWD_ROUTES[int(codes[k])] for k in ("F32", "Mma", "Wgmma")
             ] == ["fp32", "mma_sync", "wgmma"]
     wg = src[src.index("namespace wg {"):]
     assert int(re.search(r"constexpr int kD = (\d+);", wg).group(1)) == \
         fa.WGMMA_HEAD_DIM
+
+
+@pytest.mark.parametrize("head_dim", range(8, fa.MAX_HEAD_DIM + 1, 8))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_dropout_backward_counts_its_route(dtype, head_dim, monkeypatch):
+    """flash_attention_drop_bwd counts a CUDA call on the route
+    attention_bwd_route names (the counting helper it calls, called here
+    directly: the kernel does not run on the CPU), and on no other."""
+    for name in ROUTE_COUNTERS:
+        monkeypatch.setattr(fa, name, 0)
+    fa._count_bwd_route(dtype, head_dim)
+    route = fa.attention_bwd_route(dtype, head_dim)
+    assert {name: getattr(fa, name) for name in ROUTE_COUNTERS} == {
+        name: int(name == fa._BWD_COUNTERS[route]) for name in ROUTE_COUNTERS}
+    assert "_count_bwd_route(q.dtype, D)" in inspect.getsource(
+        fa.flash_attention_drop_bwd)
 
 
 def _operands(b, n, heads, d, dtype, seed):

@@ -1,15 +1,17 @@
-"""The bf16/fp32 attention forward's route by dtype, head dim and dropout
+"""The bf16/fp32 attention forward's route by dtype and head dim
 (kernels A1 packed and on separate operands, C1, C3-fwd, B3 and C4-fwd;
 simple_tad_tpu_torch.ops.flash_attention.attention_fwd_route), on the CPU.
 
-bf16 at head dim 64 without dropout takes the wgmma kernel of
-csrc/attention.cu, bf16 at the other head dims and every dropout forward
+bf16 at head dim 64 takes the wgmma kernel of csrc/attention.cu, with or
+without dropout (C4-fwd in either keep form), bf16 at the other head dims
 the mma.sync kernel, fp32 the CUDA-core kernel; the function mirrors the
 source's route() (stt_attention_fwd_route on the card,
 tests/test_torch_cuda.py).  A CPU tensor takes the plain version and counts
-no launch on any route.
+no launch on any route.  The dropout forward counts its call on the route
+it takes, as the other forwards do.
 """
 
+import inspect
 import re
 from pathlib import Path
 
@@ -22,40 +24,61 @@ from simple_tad_tpu_torch.ops import flash_attention as fa
 SOURCE = Path(fa.__file__).resolve().parent.parent / "csrc" / "attention.cu"
 ROUTE_COUNTERS = ("FWD_WGMMA_LAUNCHES", "FWD_MMA_LAUNCHES",
                   "FWD_F32_LAUNCHES")
-# route() of csrc/attention.cu, as its source spells it
-ROUTE_EXPR = (r"constexpr int route\(int dtype, int d, bool drop\) \{\s*"
+# route() of csrc/attention.cu, as its source spells it: it takes no
+# dropout input
+ROUTE_EXPR = (r"constexpr int route\(int dtype, int d\) \{\s*"
               r"return dtype == stt::kFloat32 \? kRouteF32\s*"
-              r": \(d == wg::kD && !drop\) \? kRouteWgmma\s*"
+              r": d == wg::kD\s*\? kRouteWgmma\s*"
               r": kRouteMma;\s*\}")
+# every dispatch of a C4 entry point (stt_attention_fwd_lse_drop,
+# stt_attention_bwd_drop) goes through that route()
+DISPATCH_EXPR = r"if \(route\(dtype, d\) == kRouteWgmma\)"
 
 
 def _source_route():
-    """-> route(dtype, d, drop) of csrc/attention.cu as a Python function
+    """-> route(dtype, d) of csrc/attention.cu as a Python function
     returning the route's name, from the source's codes and wgmma head
     dim."""
     src = SOURCE.read_text()
     assert re.search(ROUTE_EXPR, src), "route() no longer reads as expected"
+    assert len(re.findall(DISPATCH_EXPR, src)) == 1, \
+        "dispatch no longer takes route() for every keep form"
     codes = {k: int(v) for k, v in re.findall(r"kRoute(\w+) = (\d)", src)}
     wg = src[src.index("namespace wg {"):]
     kd = int(re.search(r"constexpr int kD = (\d+);", wg).group(1))
 
-    def route(dtype, d, drop):
+    def route(dtype, d):
         code = (codes["F32"] if dtype == torch.float32
-                else codes["Wgmma"] if d == kd and not drop
+                else codes["Wgmma"] if d == kd
                 else codes["Mma"])
         return fa.FWD_ROUTES[code]
     return route
 
 
-@pytest.mark.parametrize("drop", [False, True], ids=["no_drop", "drop"])
 @pytest.mark.parametrize("head_dim", range(8, fa.MAX_HEAD_DIM + 1, 8))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-def test_route_matches_the_kernel_source(dtype, head_dim, drop):
+def test_route_matches_the_kernel_source(dtype, head_dim):
     want = ("fp32" if dtype == torch.float32
-            else "wgmma" if head_dim == 64 and not drop else "mma_sync")
-    got = fa.attention_fwd_route(dtype, head_dim, drop)
-    assert got == want == _source_route()(dtype, head_dim, drop)
+            else "wgmma" if head_dim == 64 else "mma_sync")
+    got = fa.attention_fwd_route(dtype, head_dim)
+    assert got == want == _source_route()(dtype, head_dim)
     assert got in fa.FWD_ROUTES
+
+
+@pytest.mark.parametrize("head_dim", range(8, fa.MAX_HEAD_DIM + 1, 8))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_dropout_forward_counts_its_route(dtype, head_dim, monkeypatch):
+    """flash_attention_drop_fwd counts a CUDA call on the route
+    attention_fwd_route names (the counting helper it calls, called here
+    directly: the kernel does not run on the CPU), and on no other."""
+    for name in ROUTE_COUNTERS:
+        monkeypatch.setattr(fa, name, 0)
+    fa._count_fwd_route(dtype, head_dim)
+    route = fa.attention_fwd_route(dtype, head_dim)
+    assert {name: getattr(fa, name) for name in ROUTE_COUNTERS} == {
+        name: int(name == fa._FWD_COUNTERS[route]) for name in ROUTE_COUNTERS}
+    assert "_count_fwd_route(q.dtype, D)" in inspect.getsource(
+        fa.flash_attention_drop_fwd)
 
 
 def test_route_codes_are_the_backward_ones():

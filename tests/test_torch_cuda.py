@@ -639,9 +639,9 @@ def test_attention_bwd_route_is_the_kernel_dispatch(cuda):
 
 
 # The bf16 attention forward's routes (A1 packed and separate, C1, C3-fwd,
-# B3 packed and separate; csrc/attention.cu): the wgmma kernel at head dim
-# 64, the mma.sync kernel at the others and for dropout, counted per route
-# over every entry point.  Two launches of one call agree bit for bit (no
+# B3 packed and separate, C4-fwd; csrc/attention.cu): the wgmma kernel at
+# head dim 64, the mma.sync kernel at the others, counted per route over
+# every entry point.  Two launches of one call agree bit for bit (no
 # atomics, one summation order).
 FWD_ROUTE_COUNTERS = {"wgmma": "FWD_WGMMA_LAUNCHES",
                       "mma_sync": "FWD_MMA_LAUNCHES",
@@ -1036,9 +1036,14 @@ def test_tiny_int8_iv2_fused_forward_goes_through_kernels(qkv_i8, fused_rmsq,
 # bits drawn in the kernel from a seed; v the strided column block of a
 # (B, N, 3C) tensor; C1's and C2's bounds.  Both forms compute the same
 # function of the same keep bits, so the seed form equals the mask form fed
-# dropout_keep_plain's mask bit for bit.
+# dropout_keep_plain's mask bit for bit.  In bf16 head dim 64 takes the
+# wgmma kernels, the others the mma.sync ones: the wgmma mask form copies
+# its tiles by 16 bytes at N = 1568 (ViT-B's length, N % 16 == 0), by 8 at
+# 392 and 200, by 4 at 132 and by single bytes at IV2's 2049 (rows off 4
+# bytes).
 DROP_CASES = [(2, 392, 12, 64), (2, 200, 2, 64), (3, 97, 4, 80),
-              (1, 130, 3, 128), (2, 33, 4, 32)]
+              (1, 130, 3, 128), (2, 33, 4, 32), (1, 2049, 2, 64),
+              (2, 1568, 12, 64), (2, 132, 3, 64)]
 DROP_RATE = 0.1
 
 
@@ -1056,6 +1061,10 @@ def _drop_counts():
             fa.DROP_RNG_FWD_LAUNCHES, fa.DROP_RNG_BWD_LAUNCHES)
 
 
+def _moved(before, after):
+    return {r: after[r] - before[r] for r in after}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["mask", "seed"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -1064,13 +1073,22 @@ def test_attention_drop_fwd_kernel_matches_plain(b, n, heads, d, dtype, form,
                                                  cuda):
     q, k, v, _ = _sep_operands(b, n, heads, d, 40, cuda, dtype)
     src = _keep_source(form, b, heads, n, 41, cuda)
-    before = _drop_counts()
+    before, routes = _drop_counts(), _fwd_route_counts()
     out, lse = fa.flash_attention_drop_fwd(q, k, v, heads, d ** -0.5,
                                            DROP_RATE, **src)
     torch.cuda.synchronize()
     moved = tuple(a - x for a, x in zip(_drop_counts(), before))
     assert moved == ((1, 0, 0, 0) if form == "mask" else (0, 0, 1, 0))
+    route = fa.attention_fwd_route(dtype, d)
+    assert route == ("fp32" if dtype == torch.float32
+                     else "wgmma" if d == 64 else "mma_sync")
+    assert _moved(routes, _fwd_route_counts()) == {
+        r: int(r == route) for r in routes}
     assert out.dtype == dtype and lse.shape == (b, heads, n)
+    again = fa.flash_attention_drop_fwd(q, k, v, heads, d ** -0.5, DROP_RATE,
+                                        **src)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1]), \
+        "two launches differ"
     want_out, want_lse = fa.flash_attention_drop_fwd_plain(
         q, k, v, heads, d ** -0.5, DROP_RATE, **src)
     torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
@@ -1089,12 +1107,21 @@ def test_attention_drop_bwd_kernel_matches_plain(b, n, heads, d, dtype, form,
     src = _keep_source(form, b, heads, n, 44, cuda)
     out, lse = fa.flash_attention_drop_fwd_plain(q, k, v, heads, scale,
                                                  DROP_RATE, **src)
-    before = _drop_counts()
+    before, routes = _drop_counts(), _route_counts()
     got = fa.flash_attention_drop_bwd(q, k, v, out, lse, dout, heads, scale,
                                       DROP_RATE, **src)
     torch.cuda.synchronize()
     moved = tuple(a - x for a, x in zip(_drop_counts(), before))
     assert moved == ((0, 1, 0, 0) if form == "mask" else (0, 0, 0, 1))
+    route = fa.attention_bwd_route(dtype, d)
+    assert route == ("fp32" if dtype == torch.float32
+                     else "wgmma" if d == 64 else "mma_sync")
+    assert _moved(routes, _route_counts()) == {
+        r: int(r == route) for r in routes}
+    again = fa.flash_attention_drop_bwd(q, k, v, out, lse, dout, heads, scale,
+                                        DROP_RATE, **src)
+    assert all(torch.equal(g, a) for g, a in zip(got, again)), \
+        "two launches differ"
     want = fa.flash_attention_drop_bwd_plain(q, k, v, out, lse, dout, heads,
                                              scale, DROP_RATE, **src)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -1106,13 +1133,14 @@ def test_attention_drop_bwd_kernel_matches_plain(b, n, heads, d, dtype, form,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("b,n,heads,d", DROP_CASES[:3])
+@pytest.mark.parametrize("b,n,heads,d", DROP_CASES[:3] + DROP_CASES[5:])
 def test_attention_drop_seed_form_is_the_mask_form_of_its_bits(b, n, heads,
                                                                d, dtype,
                                                                cuda):
     """The Philox kernels draw exactly dropout_keep_plain's bits: fed that
     mask, the mask kernels give the same out, lse and gradients, bit for
-    bit."""
+    bit (on the wgmma route at head dim 64 in bf16, the mma.sync one at
+    80)."""
     scale = d ** -0.5
     q, k, v, _ = _sep_operands(b, n, heads, d, 45, cuda, dtype)
     dout = _randn((b, n, heads * d), 46, cuda).to(dtype)
@@ -1152,12 +1180,14 @@ def _probe_keep_mask(b, heads, n, d, rate, seed, dtype, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("rate", [0.1, 0.5])
-def test_attention_drop_rng_kernel_bits_equal_plain(rate, dtype, cuda):
+def test_attention_drop_rng_kernel_bits_equal_plain(rate, dtype, d, cuda):
     """The keep bits the Philox forward draws (q-tiles and key tiles past
-    the first, a ragged tail) equal dropout_keep_plain's, bit for bit."""
-    b, heads, n, d = 2, 3, 200, 64
+    the first, a ragged tail) equal dropout_keep_plain's, bit for bit: in
+    bf16 the wgmma kernel's at head dim 64, the mma.sync kernel's at 80."""
+    b, heads, n = 2, 3, 200
     seed = torch.tensor([12345, -678], dtype=torch.int32, device=cuda)
     got = _probe_keep_mask(b, heads, n, d, rate, seed, dtype, cuda)
     want = fa.dropout_keep_plain(seed, b, heads, n, rate)
@@ -1211,12 +1241,17 @@ def test_tiny_vit_train_step_with_attn_dropout_goes_through_kernels(form,
     batch = {"video": _randn((2, 16, 32, 32, 3), 48, cuda).bfloat16(),
              "label": torch.tensor([0, 1], device=cuda)}
     counts = (fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES, *_drop_counts())
+    routes = (_fwd_route_counts(), _route_counts())
     metrics, logits = step(state, batch)
     torch.cuda.synchronize()
     after = (fa.FWD_LSE_LAUNCHES, fa.BWD_LAUNCHES, *_drop_counts())
     moved = tuple(a - b for a, b in zip(after, counts))
     assert moved == ((0, 0, 2, 2, 0, 0) if form == "mask"
                      else (0, 0, 0, 0, 2, 2))
+    # ViT-S's head dim 64: both directions on the wgmma kernels
+    want = {"wgmma": 2, "mma_sync": 0, "fp32": 0}
+    assert _moved(routes[0], _fwd_route_counts()) == want
+    assert _moved(routes[1], _route_counts()) == want
     assert torch.isfinite(metrics["loss"]) and logits.shape == (2, 2)
     assert all(p.grad is not None for p in model.parameters())
 
