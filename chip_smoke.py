@@ -26,7 +26,10 @@ Phases (any failure raises, so the exit code is non-zero):
      the bound is shown to catch it.  The int8 kernels (LayerNorm->int8,
      int8-storage attention) are held to their plain versions by the
      largest code difference (<= 1) and the share of codes that differ,
-     with the same two controls.  The training attention kernels (C1,
+     with the same two controls; every B2 and D2 case must launch once on
+     the route fa.attention_i8_route names (the wgmma kernel at head dim
+     64, two launches bit-equal; the mma.sync kernel at ViT-H's 80 and
+     IV2-1B's 88, timed too).  The training attention kernels (C1,
      the forward with lse; C2, the backward) are checked at ViT-B's
      training shape (8, 1568, 2304) bf16 (C2's wgmma route), ViT-H's head
      dim 80 (2, 1568, 3840) bf16 (its mma.sync route) and on a masked fp32
@@ -42,7 +45,9 @@ Phases (any failure raises, so the exit code is non-zero):
      function where there is one (library_ms: scaled_dot_product_attention
      forward or backward, layer_norm; a yardstick the port never calls),
      and its bound_ms is computed from its shapes and the H100's
-     data-sheet rates.
+     data-sheet rates (an attention's also from its N^2 exp2 a (batch,
+     head) on the special-function units at the maximum SM clock, the
+     record's "bound_term" "exp2" where that term is the larger).
      InternVideo2's kernels are checked at IV2-S and IV2-B batch 32, N =
      2049 (8 x 16 x 16 patches + CLS): A1 on separate operands
      (attention_sep) with v the strided column block of a real qkv tensor,
@@ -72,8 +77,9 @@ Phases (any failure raises, so the exit code is non-zero):
   5. int8 static serving: the same clip through FrameEvaluator(quant8=True)
      (ViT-B quantized from its seeded fp32 masters, calibrated explicitly
      first), timed over 5 runs; the counters must show 24 LayerNorm->int8,
-     12 int8 attention, 1 LayerNorm (fc_norm) and 0 bf16 attention
-     launches per chunk forward.  In one more run every int8 kernel call
+     12 int8 attention (all on B2's wgmma route), 1 LayerNorm (fc_norm)
+     and 0 bf16 attention launches per chunk forward.  In one more run
+     every int8 kernel call
      of the main path is checked on its own inputs against its plain
      version (the int8 bounds above) and against its control (which must
      fail them).  The logits must agree with the same int8 model run
@@ -123,7 +129,8 @@ Phases (any failure raises, so the exit code is non-zero):
      5; then 16 streaming steps;
   8. the same IV2-S as static int8 (quantized from its seeded fp32 masters,
      calibrated explicitly first), once unfused and once with fused_rmsq:
-     the counters must show 12 D2 launches per chunk forward and, with
+     the counters must show 12 D2 launches per chunk forward (all on the
+     wgmma route) and, with
      fused_rmsq, 48 D3 (norm1, norm2, q-norm, k-norm), and nothing else;
      every D2 and D3 call of one run is checked against its plain version
      and its control, and the logits against the plain-version run (and a
@@ -147,8 +154,9 @@ Phases (any failure raises, so the exit code is non-zero):
      int8-output attention (B3), at full width on the clip and batch of
      phases 5 and 8, through FrameEvaluator(quant8=True, fused_w8a8=True,
      fused_mlp=True): (i) ViT-B: per chunk forward 24 LayerNorm->int8, 12
-     int8-storage attention, 24 int8_gemm (qkv, proj), 12 int8_mlp, 1
-     LayerNorm and no torch._int_mm call; (ii) ViT-B with qkv_i8=False: 12
+     int8-storage attention (B2, all on its wgmma route, as D2's below),
+     24 int8_gemm (qkv, proj), 12 int8_mlp, 1 LayerNorm and no
+     torch._int_mm call; (ii) ViT-B with qkv_i8=False: 12
      attention_q8 (B3, on the forward's wgmma route) instead of the
      int8-storage attention; (iii) IV2-S:
      12 D2, 24 int8_gemm, 12 int8_mlp (the MLP's input bf16: the JAX
@@ -213,14 +221,18 @@ Phases (any failure raises, so the exit code is non-zero):
      (32, 1568, 2304) H=12 and N = 131, under the bf16 bounds (at most
      BF16_MISMATCH['attention_int8'] of outputs differing), with three
      controls (the probabilities left unrounded, a max-free softmax, v read
-     without the kernel's key permutation); (ii) ViT-B static int8 from
+     without the kernel's key permutation), each case once on the route
+     fa.attention_int8_route names (the wgmma kernel at head dim 64, two
+     launches bit-equal; the mma.sync kernel at head dim 32, (4, 1568,
+     1152) H=12); (ii) ViT-B static int8 from
      phase 5's seeded masters and explicit calibration, on phase 3's clip at
      batch 32, through FrameEvaluator in three variants: add_lnq; int8_attn;
      both with fused_w8a8 and fused_mlp.  Each: the launch counts per chunk
      forward (24 E1 and no B1; 12 E2, no B2 or B3, 24 B1; 24 E1, 12 E2, 24
      GEMM and 12 MLP kernels and no torch._int_mm), every kernel call of one
      run against its plain version and its control, windows/s as the median
-     of EVAL_RUNS; add_lnq's logits equal phase 5's (the same static model
+     of EVAL_RUNS; every E2 and B2 call on its wgmma route; add_lnq's
+     logits equal phase 5's (the same static model
      without the carry) bit for bit; the int8_attn variants' logits within
      LOGIT_RTOL_I8 of their plain-version run, a gross control (attention
      left unnormalized) outside it, and their distance from the bf16 and
@@ -234,6 +246,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import multiprocessing
 import re
@@ -374,12 +387,17 @@ DROP_TIMED = (JOB_BATCH, 1568, 768, 12)
 # four schedulers issuing a warp instruction each (128 lanes)
 INT_LANES = {"fma": 64, "alu": 64}
 ISSUE_LANES = 128
+# ... and its special-function units' exp2 (MUFU.EX2) lanes an SM a clock
+# (the programming guide's table: 32-bit exp2, log2, reciprocal)
+SFU_LANES = 16
 BREAKDOWN_STEPS = 4
 # phase 12 (i): E1 at ViT-B's norm shape and two tails (fp32; C % 8 != 0),
 # E2 at ViT-B's attention shape and a masked key tail (N = 131)
 E1_CASES = [((32 * 1568, 768), torch.bfloat16), ((4096, 384), torch.float32),
             ((1000, 100), torch.bfloat16)]
-E2_CASES = [((32, 1568, 2304), 12), ((4, 131, 2304), 12)]
+E2_CASES = [((32, 1568, 2304), 12), ((4, 131, 2304), 12),
+            # head dim 32: E2's mma.sync route
+            ((4, 1568, 1152), 12)]
 CLIP_H, CLIP_W = 224, 398          # decode_scaled's short side 224, 16:9
 # phases 7 and 8: IV2-S of jobs/finetune/IV2-S_DoTA.sh (--num_frames 8
 # --view_fps 5 on 10 fps DoTA: windows of every other frame)
@@ -967,12 +985,15 @@ def qkv_views(qkv, num_heads: int):
 
 def attention_bound(B, N, C, heads, dtype=torch.bfloat16, *, backward=False,
                     int8_qk=False, lse=False, q8_out=False, int8_pv=False):
-    """-> (bound ms, 'operations' or 'bytes') of one packed-qkv attention
-    call: QK and PV are N^2 Dh multiply-adds each per (batch, head) (the
-    backward's five products: 2.5x the forward's); bytes: qkv read once,
-    the output (and lse) written once (backward: qkv, out, dout and lse
-    read, dqkv written).  ``int8_pv`` (E2): both products int8, int8 qkv
-    in, bf16 out."""
+    """-> (bound ms, 'operations', 'exp2' or 'bytes') of one packed-qkv
+    attention call: QK and PV are N^2 Dh multiply-adds each per (batch,
+    head) (the backward's five products: 2.5x the forward's) on the tensor
+    cores, and the softmax's N^2 exp2 per (batch, head) on the
+    special-function units (SFU_LANES an SM a clock at the maximum SM
+    clock; the backward recomputes P once), the larger of the two; bytes:
+    qkv read once, the output (and lse) written once (backward: qkv, out,
+    dout and lse read, dqkv written).  ``int8_pv`` (E2): both products
+    int8, int8 qkv in, bf16 out."""
     D = C // heads
     prod = 2.0 * B * heads * N * N * D          # one N x N x Dh product
     esz = 1 if int8_qk else torch.finfo(dtype).bits // 8
@@ -990,9 +1011,10 @@ def attention_bound(B, N, C, heads, dtype=torch.bfloat16, *, backward=False,
         nbytes = B * N * 4 * C * esz + (B * heads * N * 4 if lse else 0)
         if q8_out:                              # B3: int8 output
             nbytes -= B * N * C * (esz - 1)
+    t_exp2 = B * heads * N * N / (SFU_LANES * sm_clock_rate()[0])
     t_bytes = nbytes / PEAK["bytes"]
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    by = max((t_ops, "operations"), (t_exp2, "exp2"), (t_bytes, "bytes"))
+    return by[0] * 1e3, by[1]
 
 
 def layernorm_bound(rows, C, in_bytes, out_bytes):
@@ -1054,15 +1076,18 @@ def check_kernels(dev, seed: int) -> dict:
               f"{lib}  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     def run_case(name, case, kernel, plain, control=None, time_it=True,
-                 library=None, bound=None, route=None):
+                 library=None, bound=None, route=None,
+                 route_counts=None):
         """``control``: one callable, or a list of them (each must fail
         the bounds).  The first case of a kernel is timed (its record);
-        ``time_it='every'`` times every case.  ``route``: the forward
-        route (fa.attention_fwd_route) the kernel call must be counted on,
-        and no other; the case is then kept in the record's cases."""
-        before = fwd_route_counts()
+        ``time_it='every'`` times every case.  ``route``: the route the
+        kernel call must be counted on, and no other, by ``route_counts``
+        (default the forward's, fa.attention_fwd_route); the case is then
+        kept in the record's cases."""
+        counts = route_counts or fwd_route_counts
+        before = counts()
         got = kernel()
-        moved = {r: n - before[r] for r, n in fwd_route_counts().items()}
+        moved = {r: n - before[r] for r, n in counts().items()}
         want = plain()
         err, share, ok = compare(name, got, want)
         print(f"[{name}] {case}: max_abs_err {err:.3e} differ {share:.3e} "
@@ -1199,14 +1224,22 @@ def check_kernels(dev, seed: int) -> dict:
         scale = D ** -0.5
         out_amax = fa.attention_i8_plain_f32(qkv_i8, amax, heads,
                                              scale).abs().max()
-        run_case("attention_i8", f"{shape} H={heads}",
+        route = fa.attention_i8_route(D)
+        case = f"{shape} H={heads}"
+        run_case("attention_i8", case,
                  lambda: fa.flash_attention_qkv_i8d(qkv_i8, amax, heads,
                                                     scale, out_amax),
                  lambda: fa.flash_attention_qkv_i8d_plain(
                      qkv_i8, amax, heads, scale, out_amax),
                  lambda: attention_i8_control(qkv_i8, amax, heads, scale,
                                               out_amax),
-                 bound=attention_bound(B, N, C3 // 3, heads, int8_qk=True))
+                 time_it="every" if route == "mma_sync" else True,
+                 bound=attention_bound(B, N, C3 // 3, heads, int8_qk=True),
+                 route=route, route_counts=i8_route_counts)
+        if route == "wgmma":
+            launches_equal("attention_i8", case,
+                           lambda: fa.flash_attention_qkv_i8d(
+                               qkv_i8, amax, heads, scale, out_amax))
         del qkv_i8
         torch.cuda.empty_cache()
 
@@ -1347,12 +1380,18 @@ def check_kernels(dev, seed: int) -> dict:
         out_amax = fa.attention_i8d_plain_f32(q, k, v, amax, heads, scale,
                                               n_valid).abs().max()
         args = (q, k, v, amax, heads, scale, out_amax, n_valid)
-        run_case("attention_i8_sep",
-                 f"{shape} H={heads} n_valid={n_valid}, v strided",
+        route = fa.attention_i8_route(D)
+        case = f"{shape} H={heads} n_valid={n_valid}, v strided"
+        run_case("attention_i8_sep", case,
                  lambda: fa.flash_attention_i8d(*args),
                  lambda: fa.flash_attention_i8d_plain(*args),
                  lambda: attention_i8_sep_control(*args),
-                 bound=attention_bound(B, N, C, heads, int8_qk=True))
+                 time_it="every" if route == "mma_sync" else True,
+                 bound=attention_bound(B, N, C, heads, int8_qk=True),
+                 route=route, route_counts=i8_route_counts)
+        if route == "wgmma":
+            launches_equal("attention_i8_sep", case,
+                           lambda: fa.flash_attention_i8d(*args))
         del qkv_i8, q, k, v, args
         torch.cuda.empty_cache()
 
@@ -1444,7 +1483,7 @@ def check_kernels(dev, seed: int) -> dict:
     torch.cuda.empty_cache()
     check_int8_kernels(dev, g, run_case, launches_equal)
     failures += check_dropout_kernels(dev, g, run_case, timed, launches_equal)
-    failures += check_variant_kernels(dev, g, run_case)
+    failures += check_variant_kernels(dev, g, run_case, launches_equal)
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return results
@@ -1554,6 +1593,7 @@ def philox_call_cost() -> tuple:
     return {"fma": fma, "alu": sum(call.values()) - fma}, call, keys
 
 
+@functools.lru_cache(maxsize=None)
 def sm_clock_rate() -> tuple:
     """-> (SM clocks a second over the card: its SMs x the maximum SM clock
     nvidia-smi reports, that clock in MHz)."""
@@ -1922,7 +1962,7 @@ def check_int8_kernels(dev, g, run_case, launches_equal) -> None:
         torch.cuda.empty_cache()
 
 
-def check_variant_kernels(dev, g, run_case) -> list:
+def check_variant_kernels(dev, g, run_case, launches_equal) -> list:
     """Phase 12 (i): E1 (add_layernorm_quant) and E2 (attention_int8)
     against their plain versions and controls, each timed at its first
     case (the main-path shape) -> the failed checks beyond run_case's."""
@@ -1969,13 +2009,20 @@ def check_variant_kernels(dev, g, run_case) -> list:
         qkv_i8 = torch.clamp(torch.round(qkv * inv), -127, 127).to(torch.int8)
         del qkv, inv
         args = (qkv_i8, amax, heads, D ** -0.5)
-        run_case("attention_int8", f"{shape} H={heads}",
+        route = fa.attention_int8_route(D)
+        case = f"{shape} H={heads}"
+        run_case("attention_int8", case,
                  lambda: fa.flash_attention_qkv_int8(*args),
                  lambda: fa.flash_attention_qkv_int8_plain(*args),
                  [lambda: attention_int8_unrounded(*args),
                   lambda: attention_int8_max_free(*args),
                   lambda: attention_int8_unpermuted_v(*args)],
-                 bound=attention_bound(B, N, C3 // 3, heads, int8_pv=True))
+                 time_it="every" if route == "mma_sync" else True,
+                 bound=attention_bound(B, N, C3 // 3, heads, int8_pv=True),
+                 route=route, route_counts=int8_route_counts)
+        if route == "wgmma":
+            launches_equal("attention_int8", case,
+                           lambda: fa.flash_attention_qkv_int8(*args))
         del qkv_i8, args
         torch.cuda.empty_cache()
     return failures
@@ -2182,24 +2229,35 @@ def check_sites(ev, ds, sites, label: str = "int8 sites") -> list:
     return failures
 
 
-def run_eval_int8(model, dev, seed: int, bf16_logits):
-    """Phase 5 -> (static int8 model, stats dict)."""
+def static_int8_evaluator(model, dev, seed: int, masters, options: dict):
+    """The static int8 serving of phases 5 and 12 (and of the A/B's int8
+    evals): ``model`` quantized from the fp32 state dict ``masters`` with
+    FrameEvaluator ``options``, on phase 3's clip at its batch, calibrated
+    explicitly, then one warm-up evaluate -> (evaluator, clip, windows,
+    chunk forwards, calibration seconds)."""
     from simple_tad_tpu_torch.eval.engine import FrameEvaluator
-    from simple_tad_tpu_torch.ops import flash_attention as fa
-    from simple_tad_tpu_torch.ops import ln
-    cfg = model.cfg
-    ds, n_windows, chunks = synthetic_clip(cfg, seed)
-    # the int8 model is quantized from the fp32 masters: the same seeded
-    # build at fp32 (never the bf16 model's weights)
-    masters = vit_b("cpu", seed, torch.float32).state_dict()
+    ds, n_windows, chunks = synthetic_clip(model.cfg, seed)
     ev = FrameEvaluator(model, device=dev, batch_size=BATCH,
                         resize_on_host=False, precompute_tubelets=True,
-                        quant8=True, fp32_state=masters)
+                        quant8=True, fp32_state=masters, **options)
     t0 = time.perf_counter()
     ev.calibrate(ds)
     torch.cuda.synchronize()
     calib_s = time.perf_counter() - t0
     ev.evaluate(ds)                                  # warm-up
+    return ev, ds, n_windows, chunks, calib_s
+
+
+def run_eval_int8(model, dev, seed: int, bf16_logits):
+    """Phase 5 -> (static int8 model, stats dict)."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    cfg = model.cfg
+    # the int8 model is quantized from the fp32 masters: the same seeded
+    # build at fp32 (never the bf16 model's weights)
+    masters = vit_b("cpu", seed, torch.float32).state_dict()
+    ev, ds, n_windows, chunks, calib_s = static_int8_evaluator(
+        model, dev, seed, masters, {})
 
     reset_counts()
     res = ev.evaluate(ds)
@@ -2236,8 +2294,10 @@ def run_eval_int8(model, dev, seed: int, bf16_logits):
     assert res.n_windows == n_windows
     assert np.isfinite(logits).all(), "non-finite int8 logits"
     want = dict.fromkeys(COUNTERS, 0)
+    # every int8 attention call on the wgmma route (head dim 64)
     want.update(layernorm_quant=2 * cfg.depth * chunks,
-                attention_i8=cfg.depth * chunks, layernorm=chunks)
+                attention_i8=cfg.depth * chunks,
+                i8_route_wgmma=cfg.depth * chunks, layernorm=chunks)
     assert launches == want, (launches, want)
     assert err <= LOGIT_RTOL_I8, \
         f"int8 logits disagree with the plain run: {err}"
@@ -2303,7 +2363,13 @@ COUNTERS = {"layernorm": ("ln", "LAUNCHES"),
             # call took (fa.attention_fwd_route)
             "fwd_route_wgmma": ("fa", "FWD_WGMMA_LAUNCHES"),
             "fwd_route_mma_sync": ("fa", "FWD_MMA_LAUNCHES"),
-            "fwd_route_fp32": ("fa", "FWD_F32_LAUNCHES")}
+            "fwd_route_fp32": ("fa", "FWD_F32_LAUNCHES"),
+            # the kernel a B2 / D2 call took (fa.attention_i8_route), and an
+            # E2 call (fa.attention_int8_route)
+            "i8_route_wgmma": ("fa", "I8_WGMMA_LAUNCHES"),
+            "i8_route_mma_sync": ("fa", "I8_MMA_LAUNCHES"),
+            "int8_route_wgmma": ("fa", "INT8_WGMMA_LAUNCHES"),
+            "int8_route_mma_sync": ("fa", "INT8_MMA_LAUNCHES")}
 
 
 def fwd_route_counts() -> dict:
@@ -2311,6 +2377,20 @@ def fwd_route_counts() -> dict:
     counts = read_counts()
     return {route: counts[f"fwd_route_{route}"]
             for route in ("wgmma", "mma_sync", "fp32")}
+
+
+def i8_route_counts() -> dict:
+    """-> {route: launches} of the int8-storage attention (B2, D2)."""
+    counts = read_counts()
+    return {route: counts[f"i8_route_{route}"]
+            for route in ("wgmma", "mma_sync")}
+
+
+def int8_route_counts() -> dict:
+    """-> {route: launches} of the int8-compute attention (E2)."""
+    counts = read_counts()
+    return {route: counts[f"int8_route_{route}"]
+            for route in ("wgmma", "mma_sync")}
 
 
 def _counter_owners():
@@ -2451,7 +2531,8 @@ def run_eval_iv2_int8(dev, seed: int, bf16_logits, fused_rmsq: bool):
     assert res.n_windows == n_windows
     assert np.isfinite(logits).all(), "non-finite IV2 int8 logits"
     want = dict.fromkeys(COUNTERS, 0)
-    want["attention_i8_sep"] = cfg.depth * chunks
+    # every D2 call on the wgmma route (head dim 64)
+    want["attention_i8_sep"] = want["i8_route_wgmma"] = cfg.depth * chunks
     if fused_rmsq:   # norm1, norm2, q-norm, k-norm
         want["rmsnorm_quant"] = 4 * cfg.depth * chunks
     assert launches == want, (launches, want)
@@ -2505,8 +2586,8 @@ def fused_launches(family: str, depth: int, chunks: int, qkv_i8: bool,
             depth * chunks
         if fused_rmsq:
             want["rmsnorm_quant"] = 4 * depth * chunks
-    if not qkv_i8:        # B3 at head dim 64: the wgmma route
-        want["fwd_route_wgmma"] = depth * chunks
+    # B2 / D2, or B3, at head dim 64: the wgmma route
+    want["i8_route_wgmma" if qkv_i8 else "fwd_route_wgmma"] = depth * chunks
     return want
 
 
@@ -2619,7 +2700,11 @@ def variant_launches(options: dict, depth: int, chunks: int) -> dict:
     norm = "add_layernorm_quant" if options.get("add_lnq") \
         else "layernorm_quant"
     attn = "attention_int8" if options.get("int8_attn") else "attention_i8"
-    want.update({norm: 2 * depth * chunks, attn: depth * chunks})
+    # every int8 attention call on its wgmma route (head dim 64)
+    route = "int8_route_wgmma" if options.get("int8_attn") \
+        else "i8_route_wgmma"
+    want.update({norm: 2 * depth * chunks, attn: depth * chunks,
+                 route: depth * chunks})
     if options.get("fused_w8a8"):
         want.update(int8_gemm=2 * depth * chunks, int8_mlp=depth * chunks)
     return want
@@ -2630,7 +2715,6 @@ def run_eval_variants(dev, seed: int, bf16_logits, int8_logits) -> dict:
     with both on the fused GEMMs, from phase 5's seeded masters and
     explicit calibration on phase 3's clip -> {label: stats dict}.
     ``int8_logits``: phase 5's (the static model without either variant)."""
-    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
     from simple_tad_tpu_torch.ops import ln, quant
     masters = vit_b("cpu", seed, torch.float32).state_dict()
     variants = [("add_lnq", dict(add_lnq=True)),
@@ -2639,15 +2723,8 @@ def run_eval_variants(dev, seed: int, bf16_logits, int8_logits) -> dict:
                                         fused_w8a8=True, fused_mlp=True))]
     out = {}
     for label, options in variants:
-        model = vit_b(dev, seed, torch.bfloat16)
-        cfg = model.cfg
-        ds, n_windows, chunks = synthetic_clip(cfg, seed)
-        ev = FrameEvaluator(model, device=dev, batch_size=BATCH,
-                            resize_on_host=False, precompute_tubelets=True,
-                            quant8=True, fp32_state=masters, **options)
-        del model
-        ev.calibrate(ds)
-        ev.evaluate(ds)                              # warm-up
+        ev, ds, n_windows, chunks, _ = static_int8_evaluator(
+            vit_b(dev, seed, torch.bfloat16), dev, seed, masters, options)
         reset_counts()
         int_mm = quant.INT_MM_CALLS
         res = ev.evaluate(ds)
@@ -2673,7 +2750,7 @@ def run_eval_variants(dev, seed: int, bf16_logits, int8_logits) -> dict:
         assert not site_failures, site_failures
         assert res.n_windows == n_windows
         assert np.isfinite(logits).all(), f"non-finite {label} logits"
-        want = variant_launches(options, cfg.depth, chunks)
+        want = variant_launches(options, ev.model.cfg.depth, chunks)
         assert launches == want, (label, launches, want)
         if options.get("fused_w8a8"):
             assert int_mm == 0, f"{label}: {int_mm} torch._int_mm calls"
@@ -3289,6 +3366,9 @@ def main(argv=None):
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
          **{k: kstats[name][k] for k in keys},
+         # an exp2-bound attention: operations on the special-function units
+         **({"bound_by": "operations", "bound_term": "exp2"}
+            if kstats[name]["bound_by"] == "exp2" else {}),
          **{k: kstats[name][k] for k in ("cases",) if k in kstats[name]}}
         for name, (src, rep) in SOURCES.items()]}
     print(json.dumps(record))

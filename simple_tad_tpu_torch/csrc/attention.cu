@@ -97,6 +97,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "attention_wg.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
 
@@ -454,93 +455,11 @@ struct Smem {
   uint64_t full[kStages], qbar;
 };
 
-
-// The online softmax of one 64-key tile on this thread's S accumulators
-// (rows g and g + 8 of its warp's 16 queries, keys j8 * 8 + 2 t4 + {0, 1}):
-// keys at or beyond n_kv masked by index, the running maxima m rounded up
-// to an integer, a the rescale factors of O and l (exact powers of two, 0
-// on the first tile), and p = exp2(s - m) left in s.  ex2.approx.ftz gives
-// exp2f's value wherever p is a normal float; a p below 2^-126 reads 0
-// where exp2f gives a subnormal, at most 2^-125 of the row's largest p
-// (which is at least 1/2 once m is final).
-__device__ __forceinline__ void tile_softmax(float (&s)[32], int k0, int n_kv,
-                                             int t4, float (&m)[2],
-                                             float (&a)[2]) {
-  if (k0 + kRows > n_kv) {
-#pragma unroll
-    for (int j8 = 0; j8 < 8; ++j8) {
-      const int key = k0 + j8 * 8 + t4 * 2;
-      if (key >= n_kv) s[j8 * 4] = s[j8 * 4 + 2] = -INFINITY;
-      if (key + 1 >= n_kv) s[j8 * 4 + 1] = s[j8 * 4 + 3] = -INFINITY;
-    }
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j8 = 0; j8 < 8; ++j8) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[j8 * 4], s[j8 * 4 + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[j8 * 4 + 2], s[j8 * 4 + 3]));
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
-    }
-    float mn = fmaxf(m[r], ceilf(mx[r]));
-    if (mn == -INFINITY) mn = 0.f;  // only if every key so far is masked
-    a[r] = exp2f(m[r] - mn);
-    m[r] = mn;
-  }
-#pragma unroll
-  for (int j8 = 0; j8 < 8; ++j8) {
-    s[j8 * 4] = hw::exp2_approx(s[j8 * 4] - m[0]);
-    s[j8 * 4 + 1] = hw::exp2_approx(s[j8 * 4 + 1] - m[0]);
-    s[j8 * 4 + 2] = hw::exp2_approx(s[j8 * 4 + 2] - m[1]);
-    s[j8 * 4 + 3] = hw::exp2_approx(s[j8 * 4 + 3] - m[1]);
-  }
-}
-
-// O and l rescaled by a, then p rounded to bf16 into the A fragments of PV
-// (accumulator key columns 16 kk to 16 kk + 15 are k-step kk, as for the
-// mma.sync kernel's pf) and the rounded values added to l.  With dropout
-// (DROP) l sums the unrounded p before dropout and the A fragments are
-// bf16(p * keep / keep_prob), as attn_fwd_bf16_kernel's DROP branch.
-template <Drop DROP = Drop::kNone>
-__device__ __forceinline__ void rescale_and_pack(float (&o)[32],
-                                                 const float (&p)[32],
-                                                 const float (&a)[2],
-                                                 float (&l)[2],
-                                                 uint32_t (&pf)[4][4],
-                                                 uint32_t keep = 0,
-                                                 float inv_keep = 0.f) {
-  l[0] *= a[0];
-  l[1] *= a[1];
-#pragma unroll
-  for (int j8 = 0; j8 < 8; ++j8) {
-    const int i = j8 * 4;
-    o[i] *= a[0];
-    o[i + 1] *= a[0];
-    o[i + 2] *= a[1];
-    o[i + 3] *= a[1];
-    if constexpr (DROP == Drop::kNone) {
-      const __nv_bfloat162 p0 = __floats2bfloat162_rn(p[i], p[i + 1]);
-      const __nv_bfloat162 p1 = __floats2bfloat162_rn(p[i + 2], p[i + 3]);
-      l[0] += __low2float(p0) + __high2float(p0);
-      l[1] += __low2float(p1) + __high2float(p1);
-      pf[j8 / 2][(j8 % 2) * 2] = as_u32(p0);
-      pf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(p1);
-    } else {
-      l[0] += p[i] + p[i + 1];  // before dropout, unrounded
-      l[1] += p[i + 2] + p[i + 3];
-      pf[j8 / 2][(j8 % 2) * 2] = as_u32(__floats2bfloat162_rn(
-          p[i] * stt::keep_factor(keep, j8, 0, inv_keep),
-          p[i + 1] * stt::keep_factor(keep, j8, 1, inv_keep)));
-      pf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(
-          p[i + 2] * stt::keep_factor(keep, j8, 2, inv_keep),
-          p[i + 3] * stt::keep_factor(keep, j8, 3, inv_keep)));
-    }
-  }
-}
+// the online softmax and the pack of P (attention_wg.cuh, shared with the
+// int8-storage kernel of attention_i8.cu)
+using stt::attn_wg::rescale_and_pack;
+using stt::attn_wg::tile_softmax;
+static_assert(stt::attn_wg::kTile == kRows, "one tile size");
 
 // One block per (64-query tile, head, batch), one warpgroup, at least four
 // blocks an SM.  The raw q tile arrives by TMA and is scaled in place
@@ -686,28 +605,13 @@ __global__ void __launch_bounds__(kThreads, 4)
     if (row1 < n) lrow[row1] = m[1] + log2f(l[1]);
   }
   const size_t ooff = static_cast<size_t>(b) * o_sb + col;
-  const size_t at0 = static_cast<size_t>(row0) * o_sn;
-  const size_t at1 = static_cast<size_t>(row1) * o_sn;
   if constexpr (Q8) {
-    const float oinv = stt::quant_inv(out_amax);
-    int8_t* ob = static_cast<int8_t*>(o) + ooff;
-#pragma unroll
-    for (int j8 = 0; j8 < 8; ++j8) {
-      const int c = j8 * 8 + t4 * 2;
-      const int i = j8 * 4;
-      if (row0 < n) {
-        *reinterpret_cast<char2*>(ob + at0 + c) =
-            make_char2(stt::quant_i8(__fdiv_rn(acc[i], l[0]), oinv),
-                       stt::quant_i8(__fdiv_rn(acc[i + 1], l[0]), oinv));
-      }
-      if (row1 < n) {
-        *reinterpret_cast<char2*>(ob + at1 + c) =
-            make_char2(stt::quant_i8(__fdiv_rn(acc[i + 2], l[1]), oinv),
-                       stt::quant_i8(__fdiv_rn(acc[i + 3], l[1]), oinv));
-      }
-    }
+    stt::attn_wg::store_rows_q8(static_cast<int8_t*>(o) + ooff, acc, l,
+                                out_amax, row0, n, o_sn, t4);
   } else {
     bf16* ob = static_cast<bf16*>(o) + ooff;
+    const size_t at0 = static_cast<size_t>(row0) * o_sn;
+    const size_t at1 = static_cast<size_t>(row1) * o_sn;
 #pragma unroll
     for (int j8 = 0; j8 < 8; ++j8) {
       const int c = j8 * 8 + t4 * 2;

@@ -33,23 +33,49 @@
 // max-free ones times 2^-m and the result is the max-free one.
 //
 // What bounds it on the H100: at (32, 1568, 2304), H = 12, it does 1.2e11
-// int8 ops (QK) and 1.2e11 bf16 flops (PV) against 154 MB moved, so once
-// tiled it is compute-bound, like A1.  The design is A1's FlashAttention-2
-// shape: one block of 4 warps per (64-query tile, head, batch); each warp
-// owns 16 query rows whose int8 Q fragments stay in registers; 64-key int8
-// K tiles and dequantized, transposed bf16 V tiles stream through shared
-// memory.  QK runs on mma.sync m16n8k32 s8 x s8 -> s32 (exact), PV on
-// bf16 m16n8k16 with fp32 accumulators.  The s32 accumulator fragment of
-// m16n8k32 has the (16x8, 4 values a thread) layout of the fp32 one of
-// m16n8k16, and an int8 A/B fragment holds in each 32-bit register the 4
-// bytes a bf16 one holds at the same byte offsets, so the tile addressing
-// is A1's in bytes and the scores become the PV A fragments in registers
-// exactly as in A1.  Dh is zero-padded to a multiple of 32 (the QK depth)
-// in shared memory: Dh = 80 runs as 96.  No TMA, wgmma or warp
-// specialisation yet.
+// int8 ops (QK) and 1.2e11 bf16 flops (PV) against 154 MB moved (0.06 ms
+// of tensor cores, 0.05 ms of memory), and its softmax evaluates
+// B H N^2 = 9.4e8 exp2 on the special-function units, 16 lanes an SM a
+// clock: 0.226 ms at 1980 MHz, the bound.  Two routes by head dim (route()
+// below, ops/flash_attention.py:attention_i8_route):
+//   * head dim 64 (every int8 trunk the jobs run: ViT-S/B/L, IV2-S/B), the
+//     wgmma kernel (namespace wg), attention.cu's bf16 wgmma forward with
+//     an s8 QK: one warpgroup per (64-query tile, head, batch); the q tile
+//     and a ring of (k, v) tiles arrive by TMA (rank-3 maps over (batch,
+//     row, column) at the head's column offset, the packed qkv's row
+//     stride 3C or D2's own stride pairs; int8 q and k with a 64-byte
+//     swizzle; rows at or beyond n or n_kv read as zero); S = Q K^T by s8
+//     wgmma m64n64k32 (two k-steps, exact int32); the online softmax and
+//     the bf16 pack of P are attention.cu's (attention_wg.cuh); O +=
+//     bf16(P) V by bf16
+//     wgmma with P from registers and V read MN-major through the
+//     descriptor's transpose bit.  V = bf16(float(v) * sv) comes from a
+//     pre-pass that dequantizes it once a call into a (B, N, C) bf16
+//     scratch (0.12 GB of traffic at ViT-B batch 32) and reaches the ring by
+//     TMA as attention.cu's bf16 v does; every query tile of a head would
+//     otherwise convert the head's whole V again (9.6e8 conversions a call;
+//     that in-kernel form, staged, read 1.21x slower, PERF.md).
+//   * the other head dims (ViT-H's 80, IV2-1B's 88 padded to 96, 32, 128),
+//     the mma.sync kernel attn_fwd_i8_kernel in A1's FlashAttention-2
+//     shape: one block of 4 warps per (64-query tile, head, batch); each
+//     warp owns 16 query rows whose int8 Q fragments stay in registers;
+//     64-key int8 K tiles and dequantized, transposed bf16 V tiles stream
+//     through shared memory by synchronous 16-byte loads.  QK runs on
+//     mma.sync m16n8k32 s8 x s8 -> s32 (exact), PV on bf16 m16n8k16 with
+//     fp32 accumulators.  The s32 accumulator fragment of m16n8k32 has the
+//     (16x8, 4 values a thread) layout of the fp32 one of m16n8k16, and an
+//     int8 A/B fragment holds in each 32-bit register the 4 bytes a bf16
+//     one holds at the same byte offsets, so the tile addressing is A1's in
+//     bytes and the scores become the PV A fragments in registers exactly
+//     as in A1.  Dh is zero-padded to a multiple of 32 (the QK depth) in
+//     shared memory: Dh = 80 runs as 96.
+// The two routes hold the same numerics; their fp32 PV sums run in another
+// order, so their codes may differ where a value sits at a rounding edge.
 #include <math.h>
 
+#include "attention_wg.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -301,6 +327,224 @@ void launch(const void* q, const void* k, const void* v, const void* amax,
       d, st, scale);
 }
 
+// ---- the wgmma route: head dim 64 ----
+namespace wg {
+
+namespace hw = stt::hopper;
+namespace aw = stt::attn_wg;
+
+constexpr int kD = 64;                        // the route's head dim
+constexpr int kRows = aw::kTile;              // queries a block, keys a tile
+constexpr int kThreads = 128;                 // one warpgroup a block
+constexpr int kI8Tile = kRows * kD;           // one int8 tile, 4 KB
+constexpr int kBf16Tile = kRows * kD * 2;     // one bf16 tile, 8 KB
+constexpr int kKStep = 32 >> 4;               // k32 step of an s8 operand
+constexpr int kMnStep = (16 * 128) >> 4;      // k16 step, bf16 MN-major
+constexpr int kStages = 2;                    // the ring of (k, v) tiles
+
+// Shared memory of one block: the ring's bf16 V tiles first (the
+// dequantize pre-pass's output, by TMA with a 128-byte swizzle; 1024-byte
+// aligned), then the 64-byte swizzled int8 q and k tiles (512-byte aligned).
+struct Smem {
+  bf16 v[kStages][kRows * kD];    // B of PV (MN-major)
+  int8_t q[kI8Tile];              // A of S (K-major)
+  int8_t k[kStages][kI8Tile];     // B of S (K-major)
+  uint64_t full[kStages], qbar;
+};
+
+// One block per (64-query tile, head, batch), one warpgroup.  The q tile
+// and a ring of (k, v) tiles arrive by TMA (rank-3 maps at the head's
+// column offset; q and k int8 with a 64-byte swizzle, rows at or beyond n
+// or n_kv read as zero); thread 0 refills a stage once the block's barrier
+// at the end of its tile shows every warp done with it.  S = Q K^T by s8
+// wgmma m64n64k32 from shared memory (two k-steps, exact int32), the
+// scores s = fl(float(si) * sscale), the online
+// softmax and the pack of bf16(P) (attention_wg.cuh, as the bf16 kernel),
+// O += bf16(P) V by bf16 wgmma with P from registers and V MN-major; V is
+// bf16(float(v) * sv), made by the pre-pass.  The epilogue stores int8
+// codes against out_amax.
+__global__ void __launch_bounds__(kThreads, 4)
+    attn_fwd_i8_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const float* __restrict__ amax,
+                             const float* __restrict__ out_amax,
+                             int8_t* __restrict__ o, int n, int n_kv,
+                             int o_sb, int o_sn, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(hw::align_1024(smem_raw));
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kRows;
+  const int head = blockIdx.y;
+  const int heads = gridDim.y;
+  const int col = head * kD;
+  const int b = blockIdx.z;
+  const int tiles = (n_kv + kRows - 1) / kRows;
+  auto fill = [&](int j) {
+    const int s = j % kStages;
+    if (tid == 0) {
+      hw::mbar_expect_tx(&sm.full[s], kI8Tile + kBf16Tile);
+      hw::tma_load_3d(sm.k[s], &tk, &sm.full[s], col, j * kRows, b);
+      hw::tma_load_3d(sm.v[s], &tv, &sm.full[s], col, j * kRows, b);
+    }
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) hw::mbar_init(&sm.full[s], 1);
+    hw::mbar_init(&sm.qbar, 1);
+    hw::mbar_init_fence();
+    hw::mbar_expect_tx(&sm.qbar, kI8Tile);
+    hw::tma_load_3d(sm.q, &tq, &sm.qbar, col, q0, b);
+  }
+  __syncthreads();
+  for (int j = 0; j < kStages && j < tiles; ++j) fill(j);
+
+  // per-head scales, in the plain version's order of fp32 operations
+  const float sq = amax[head] * (1.f / 127.f);
+  const float sk = amax[heads + head] * (1.f / 127.f);
+  const float sscale = sq * sk * scale * kLog2e;
+
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t4 = tid & 3;
+  const uint64_t desc_q = hw::desc_kmajor_sw64(sm.q);
+  hw::mbar_wait(&sm.qbar, 0);
+
+  float acc[32], sc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float a[2];
+  int si[32] = {};
+  uint32_t pf[4][4];
+  hw::zero(acc);
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % kStages;
+    hw::mbar_wait(&sm.full[s], (j / kStages) & 1);
+    // S = q_i8 k_i8^T: 64 queries x 64 keys, exact int32
+    const uint64_t desc_k = hw::desc_kmajor_sw64(sm.k[s]);
+    hw::fence_regs(si);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 32; ++kk) {
+      hw::wgmma_s8_n64(si, desc_q + kk * kKStep, desc_k + kk * kKStep, kk);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(si);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = __fmul_rn(static_cast<float>(si[i]), sscale);
+    }
+    aw::tile_softmax(sc, j * kRows, n_kv, t4, m, a);
+    aw::rescale_and_pack(acc, sc, a, l, pf);
+
+    // O += bf16(P) V  (64 queries x 64 dims)
+    const uint64_t desc_v = hw::desc_mnmajor(sm.v[s]);
+    hw::fence_regs(acc);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      hw::wgmma_rs_mn(acc, pf[kk], desc_v + kk * kMnStep, 1);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(acc);
+    hw::fence_regs(pf);
+    __syncthreads();  // every warp is done with stage s: refill it
+    if (j + kStages < tiles) fill(j + kStages);
+  }
+
+  // full row denominators, normalise, int8 codes against out_amax
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+    }
+  }
+  aw::store_rows_q8(o + static_cast<size_t>(b) * o_sb + col, acc, l,
+                    out_amax, q0 + warp * 16 + g, n, o_sn, t4);
+}
+
+// The dequantize pre-pass: vbf (b, n, c) bf16, contiguous, rows below n_kv
+// = bf16(float(v) * sv) of the head's column block, 16 codes a thread
+__global__ void dequantize_v_kernel(const int8_t* __restrict__ v,
+                                    const float* __restrict__ amax,
+                                    bf16* __restrict__ vbf, int n, int n_kv,
+                                    int c, int heads, int v_sb, int v_sn) {
+  const int chunks = c / 16;
+  const size_t batch = blockIdx.y;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < static_cast<long long>(n_kv) * chunks;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int row = static_cast<int>(i / chunks);
+    const int c16 = static_cast<int>(i % chunks) * 16;
+    const float sv = amax[2 * heads + c16 / kD] * (1.f / 127.f);
+    const uint4 w = *reinterpret_cast<const uint4*>(
+        v + batch * v_sb + static_cast<size_t>(row) * v_sn + c16);
+    const int8_t* e = reinterpret_cast<const int8_t*>(&w);
+    uint32_t out[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      out[t] = stt::as_u32(__floats2bfloat162_rn(
+          __fmul_rn(static_cast<float>(e[2 * t]), sv),
+          __fmul_rn(static_cast<float>(e[2 * t + 1]), sv)));
+    }
+    uint4* dst = reinterpret_cast<uint4*>(
+        vbf + (batch * n + row) * static_cast<size_t>(c) + c16);
+    dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
+    dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
+  }
+}
+
+}  // namespace wg
+
+// Which kernel a call takes (shared with ops/flash_attention.py:
+// attention_i8_route): head dim 64 the wgmma kernel, the other head dims
+// (16 to 128, multiples of 16; ViT-H's 80, IV2-1B's 88 padded to 96) the
+// mma.sync kernel.  The codes are attention.cu's.
+enum Route : int { kRouteMma = 1, kRouteWgmma = 2 };
+
+constexpr int route(int d) { return d == wg::kD ? kRouteWgmma : kRouteMma; }
+
+// The wgmma route: q and k by rank-3 int8 maps at the head's column offset
+// (k ends at n_kv, q at n), v by a bf16 map over the pre-pass's output vbf;
+// then the two launches on the stream.  A map that does not encode (a base
+// or stride off 16 bytes) fails the call: nothing falls back to the
+// mma.sync kernel.
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* amax, const void* out_amax, void* o, void* vbf,
+                 int b, int n, int n_kv, int h, const Strides& st,
+                 float scale, cudaStream_t stream) {
+  namespace hw = stt::hopper;
+  const int c = h * wg::kD;
+  CUtensorMap tq, tk, tv;
+  const bool maps =
+      hw::tile_map_i8(&tq, q, c, n, b, st.q_sn, st.q_sb,
+                      CU_TENSOR_MAP_SWIZZLE_64B) &&
+      hw::tile_map_i8(&tk, k, c, n_kv, b, st.k_sn, st.k_sb,
+                      CU_TENSOR_MAP_SWIZZLE_64B) &&
+      hw::tile_map_bf16(&tv, vbf, c, n_kv, b, c,
+                        static_cast<long long>(n) * c);
+  if (!maps) return static_cast<int>(cudaErrorInvalidValue);
+  const long long chunks = static_cast<long long>(n_kv) * (c / 16);
+  const int blocks = static_cast<int>(
+      chunks / 256 + 1 < 4096 ? chunks / 256 + 1 : 4096);
+  wg::dequantize_v_kernel<<<dim3(blocks, b), 256, 0, stream>>>(
+      static_cast<const int8_t*>(v), static_cast<const float*>(amax),
+      static_cast<bf16*>(vbf), n, n_kv, c, h, st.v_sb, st.v_sn);
+  constexpr int smem = static_cast<int>(sizeof(wg::Smem)) + 1024;
+  const cudaError_t err = cudaFuncSetAttribute(
+      wg::attn_fwd_i8_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + wg::kRows - 1) / wg::kRows, h, b);
+  wg::attn_fwd_i8_wgmma_kernel<<<grid, wg::kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<const float*>(amax),
+      static_cast<const float*>(out_amax), static_cast<int8_t*>(o), n, n_kv,
+      st.o_sb, st.o_sn, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v: int8 base pointers of head 0 (for packed qkv: qkv, qkv + C,
@@ -310,13 +554,16 @@ void launch(const void* q, const void* k, const void* v, const void* amax,
 // 0..n_kv-1 (1 <= n_kv <= n; the rest are masked).  amax: (3, h) fp32
 // absmax of q, k and v per head; out_amax: one fp32 absmax of the output;
 // both in device memory.  d must be a multiple of 16 and at most 128; every
-// base pointer and stride must keep 16-byte alignment.
+// base pointer and stride must keep 16-byte alignment (the wgmma route's
+// tensor maps refuse any other, and the call fails).  vbf: on the wgmma
+// route (route()), a (b, n, h d) bf16 scratch for the dequantize pre-pass
+// (the call fails without it); unused on the mma.sync route.
 extern "C" int stt_attention_i8(const void* q, const void* k, const void* v,
                                 const void* amax, const void* out_amax,
-                                void* o, int b, int n, int n_kv, int h, int d,
-                                int q_sb, int q_sn, int k_sb, int k_sn,
-                                int v_sb, int v_sn, int o_sb, int o_sn,
-                                float scale, void* stream) {
+                                void* o, void* vbf, int b, int n, int n_kv,
+                                int h, int d, int q_sb, int q_sn, int k_sb,
+                                int k_sn, int v_sb, int v_sn, int o_sb,
+                                int o_sn, float scale, void* stream) {
   if (b <= 0 || n <= 0 || n_kv <= 0 || n_kv > n || h <= 0 || d <= 0 ||
       d % 16 != 0 || d > 128 || b > 65535 || h > 65535 || amax == nullptr ||
       out_amax == nullptr) {
@@ -324,6 +571,11 @@ extern "C" int stt_attention_i8(const void* q, const void* k, const void* v,
   }
   const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route(d) == kRouteWgmma) {
+    if (vbf == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wgmma(q, k, v, amax, out_amax, o, vbf, b, n, n_kv, h, st,
+                        scale, s);
+  }
   switch ((d + 31) / 32 * 32) {
     case 32: launch<32>(q, k, v, amax, out_amax, o, b, n, n_kv, h, d, st, scale, s); break;
     case 64: launch<64>(q, k, v, amax, out_amax, o, b, n, n_kv, h, d, st, scale, s); break;
@@ -331,4 +583,12 @@ extern "C" int stt_attention_i8(const void* q, const void* k, const void* v,
     default: launch<128>(q, k, v, amax, out_amax, o, b, n, n_kv, h, d, st, scale, s); break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The route a B2 or D2 call at head dim d (as the kernel takes it: a
+// multiple of 16 up to 128) takes: 1 the mma.sync kernel, 2 the wgmma
+// kernel; -1 for what the entry point refuses.
+extern "C" int stt_attention_i8_route(int d) {
+  if (d <= 0 || d % 16 != 0 || d > 128) return -1;
+  return route(d);
 }

@@ -1,0 +1,143 @@
+// The register-side steps of the wgmma attention forwards, shared by the
+// bf16 kernel of attention.cu (A1, B3, C1, C3-fwd, C4-fwd) and the
+// int8-storage kernel of attention_i8.cu (B2, D2): the online softmax of
+// one 64-key tile on a warpgroup's S accumulators, the rescale of O and l
+// with p packed into the bf16 A fragments of PV, and the int8 store of the
+// normalised rows.
+//
+// A thread of the warpgroup holds, of an m64n64 accumulator (fp32 or
+// s32), rows g and g + 8 of its warp's 16 (g = lane / 4) and columns
+// j8 * 8 + 2 t4 + {0, 1} (t4 = lane % 4) of each 8-column group j8: the
+// m16n8 fragment repeated, element j8 * 4 + {0, 1} on row g, + {2, 3} on
+// row g + 8.
+#pragma once
+
+#include <math.h>
+
+#include "common.cuh"
+#include "hopper.cuh"
+#include "philox.cuh"
+
+namespace stt {
+namespace attn_wg {
+
+constexpr int kTile = 64;  // queries a block, keys a tile
+
+// The online softmax of one 64-key tile on this thread's S accumulators
+// (rows g and g + 8 of its warp's 16 queries, keys j8 * 8 + 2 t4 + {0, 1}):
+// keys at or beyond n_kv masked by index, the running maxima m rounded up
+// to an integer, a the rescale factors of O and l (exact powers of two, 0
+// on the first tile), and p = exp2(s - m) left in s.  ex2.approx.ftz gives
+// exp2f's value wherever p is a normal float; a p below 2^-126 reads 0
+// where exp2f gives a subnormal, at most 2^-125 of the row's largest p
+// (which is at least 1/2 once m is final).
+__device__ __forceinline__ void tile_softmax(float (&s)[32], int k0, int n_kv,
+                                             int t4, float (&m)[2],
+                                             float (&a)[2]) {
+  if (k0 + kTile > n_kv) {
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const int key = k0 + j8 * 8 + t4 * 2;
+      if (key >= n_kv) s[j8 * 4] = s[j8 * 4 + 2] = -INFINITY;
+      if (key + 1 >= n_kv) s[j8 * 4 + 1] = s[j8 * 4 + 3] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j8 = 0; j8 < 8; ++j8) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j8 * 4], s[j8 * 4 + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j8 * 4 + 2], s[j8 * 4 + 3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+    }
+    float mn = fmaxf(m[r], ceilf(mx[r]));
+    if (mn == -INFINITY) mn = 0.f;  // only if every key so far is masked
+    a[r] = exp2f(m[r] - mn);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int j8 = 0; j8 < 8; ++j8) {
+    s[j8 * 4] = hopper::exp2_approx(s[j8 * 4] - m[0]);
+    s[j8 * 4 + 1] = hopper::exp2_approx(s[j8 * 4 + 1] - m[0]);
+    s[j8 * 4 + 2] = hopper::exp2_approx(s[j8 * 4 + 2] - m[1]);
+    s[j8 * 4 + 3] = hopper::exp2_approx(s[j8 * 4 + 3] - m[1]);
+  }
+}
+
+// O and l rescaled by a, then p rounded to bf16 into the A fragments of PV
+// (accumulator key columns 16 kk to 16 kk + 15 are k-step kk, as for the
+// mma.sync kernel's pf) and the rounded values added to l.  With dropout
+// (DROP) l sums the unrounded p before dropout and the A fragments are
+// bf16(p * keep / keep_prob), as attn_fwd_bf16_kernel's DROP branch.
+template <Drop DROP = Drop::kNone>
+__device__ __forceinline__ void rescale_and_pack(float (&o)[32],
+                                                 const float (&p)[32],
+                                                 const float (&a)[2],
+                                                 float (&l)[2],
+                                                 uint32_t (&pf)[4][4],
+                                                 uint32_t keep = 0,
+                                                 float inv_keep = 0.f) {
+  l[0] *= a[0];
+  l[1] *= a[1];
+#pragma unroll
+  for (int j8 = 0; j8 < 8; ++j8) {
+    const int i = j8 * 4;
+    o[i] *= a[0];
+    o[i + 1] *= a[0];
+    o[i + 2] *= a[1];
+    o[i + 3] *= a[1];
+    if constexpr (DROP == Drop::kNone) {
+      const __nv_bfloat162 p0 = __floats2bfloat162_rn(p[i], p[i + 1]);
+      const __nv_bfloat162 p1 = __floats2bfloat162_rn(p[i + 2], p[i + 3]);
+      l[0] += __low2float(p0) + __high2float(p0);
+      l[1] += __low2float(p1) + __high2float(p1);
+      pf[j8 / 2][(j8 % 2) * 2] = as_u32(p0);
+      pf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(p1);
+    } else {
+      l[0] += p[i] + p[i + 1];  // before dropout, unrounded
+      l[1] += p[i + 2] + p[i + 3];
+      pf[j8 / 2][(j8 % 2) * 2] = as_u32(__floats2bfloat162_rn(
+          p[i] * keep_factor(keep, j8, 0, inv_keep),
+          p[i + 1] * keep_factor(keep, j8, 1, inv_keep)));
+      pf[j8 / 2][(j8 % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(
+          p[i + 2] * keep_factor(keep, j8, 2, inv_keep),
+          p[i + 3] * keep_factor(keep, j8, 3, inv_keep)));
+    }
+  }
+}
+
+// The normalised rows row0 and row1 (= row0 + 8) of O as int8 codes against
+// out_amax (quant_i8: round half to even, clipped to +-127), two codes a
+// store, at ob + row * o_sn; rows at or beyond n are not stored.
+__device__ __forceinline__ void store_rows_q8(int8_t* ob,
+                                              const float (&acc)[32],
+                                              const float (&l)[2],
+                                              const float* out_amax, int row0,
+                                              int n, int o_sn, int t4) {
+  const float oinv = quant_inv(out_amax);
+  const int row1 = row0 + 8;
+  const size_t at0 = static_cast<size_t>(row0) * o_sn;
+  const size_t at1 = static_cast<size_t>(row1) * o_sn;
+#pragma unroll
+  for (int j8 = 0; j8 < 8; ++j8) {
+    const int c = j8 * 8 + t4 * 2;
+    const int i = j8 * 4;
+    if (row0 < n) {
+      *reinterpret_cast<char2*>(ob + at0 + c) =
+          make_char2(quant_i8(__fdiv_rn(acc[i], l[0]), oinv),
+                     quant_i8(__fdiv_rn(acc[i + 1], l[0]), oinv));
+    }
+    if (row1 < n) {
+      *reinterpret_cast<char2*>(ob + at1 + c) =
+          make_char2(quant_i8(__fdiv_rn(acc[i + 2], l[1]), oinv),
+                     quant_i8(__fdiv_rn(acc[i + 3], l[1]), oinv));
+    }
+  }
+}
+
+}  // namespace attn_wg
+}  // namespace stt

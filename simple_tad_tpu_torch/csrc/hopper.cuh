@@ -4,8 +4,10 @@
 // (attention.cu) and the training-attention backward (attention_train.cu)
 // take the m64n64k16 bf16 products on 128-byte-swizzled tiles, and share
 // scale_tile; the static int8 GEMMs (int8_gemm.cu) the m64n128k32 s8
-// products on 128- or 64-byte-swizzled tiles.  The other kernels keep
-// common.cuh's mma.sync helpers.
+// products on 128- or 64-byte-swizzled tiles; the int8 attentions
+// (attention_i8.cu, attention_int8.cu) the m64n64k32 s8 products on
+// 64-byte-swizzled tiles, E2's PV with its codes in registers, and B2's PV
+// the bf16 one.  The other kernels keep common.cuh's mma.sync helpers.
 //
 // The tensor-map encoder is the driver's cuTensorMapEncodeTiled, reached
 // through the runtime's driver entry point, so the library links no -lcuda
@@ -320,6 +322,69 @@ __device__ __forceinline__ void fence_regs(int (&d)[64]) {
 #undef STT_R64
 #undef STT_R64_OPS
 
+#define STT_R32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+#define STT_R32_OPS(d)                                                       \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),   \
+      "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),          \
+      "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),      \
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),      \
+      "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),      \
+      "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),      \
+      "+r"(d[31])
+
+// D (64x64 s32, this warpgroup) (+)= A (64x32 s8) B (32x64 s8), both
+// K-major in shared memory (desc_kmajor_sw64); `accumulate` 0 overwrites
+// D.  The int32 sum is exact.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " STT_R32
+      ", %32, %33, p;\n"
+      "}\n"
+      : STT_R32_OPS(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64x64 s32) (+)= A (64x32 s8, four 32-bit registers of codes a thread:
+// the m16n8k32 A layout, warp w holding rows 16w..16w+15) B (32x64 s8),
+// B K-major in shared memory
+__device__ __forceinline__ void wgmma_s8_rs_n64(int (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " STT_R32
+      ", {%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : STT_R32_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void fence_regs(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[2][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+#undef STT_R32
+#undef STT_R32_OPS
+
 // ---- host side ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -369,6 +434,28 @@ inline bool tile_map_bf16(CUtensorMap* map, const void* base, int cols,
              const_cast<void*>(base), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 64 x 64 tiles of an int8 operand addressed as (batch, row, column), as
+// tile_map_bf16 but with strides in bytes: 64-byte rows of codes, with
+// the given swizzle (64-byte: the wgmma K-major layout of
+// desc_kmajor_sw64).  Rows and batches beyond the extents read as zero.
+inline bool tile_map_i8(CUtensorMap* map, const void* base, int cols,
+                        int rows, int batches, long long row_bytes,
+                        long long batch_bytes, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batches)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
+                                 static_cast<cuuint64_t>(batch_bytes)};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -8,7 +8,8 @@ at ViT-B batch 32 and on separate operands at IV2-S batch 32 with keys
 masked at n_kv < N (``N_KV``), the dropout attention C4 (forward and
 backward, mask and Philox forms, rate 0.1, on the packed qkv's views at
 ViT-B's job batch), the int8-storage
-attention packed (B2) and on separate operands (D2, IV2-S, v strided), and
+attention packed (B2) and on separate operands (D2, IV2-S, v strided), the
+int8-compute attention (E2, ViT-B batch 32), and
 the row norms of csrc/layernorm.cu (A2 LayerNorm and B1 LayerNorm->int8 on
 ViT-B's (32 * 1568, 768) bf16, D3 RMSNorm->int8 on IV2-S's (32 * 2049,
 384)), and the static int8 GEMM and MLP (B4) at chip_smoke.py phase 2's
@@ -30,8 +31,9 @@ attention dropout 0.1 in the Philox and the mask form, at the jobs' batch
 same order; with ``--evals`` its bf16 serving (its chip_smoke.py's phase 3
 ``run_eval``, ViT-B, and phase 7 ``run_eval_iv2``, IV2-S) and its static
 int8 serving on the fused GEMMs (phase 10's ``run_eval_fused``: ViT-B with
-the int8-storage attention and with B3, IV2-S with fused_rmsq), windows/s
-as the median of its evaluate runs, the same way.
+the int8-storage attention and with B3, IV2-S with fused_rmsq) and its
+unfused static int8 ViT-B (phase 5's, on B2) and with int8_attn (phase 12's,
+on E2), windows/s as the median of its evaluate runs, the same way.
 
     git archive <commit> | tar -x -C build/parent
     python -m simple_tad_tpu_torch.kernels.ab_checkouts --other build/parent \
@@ -63,7 +65,8 @@ SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
           "attention_drop_bwd": (56, 1568, 12),
           "attention_drop_rng_fwd": (56, 1568, 12),
           "attention_drop_rng_bwd": (56, 1568, 12),
-          "attention_i8_sep": (32, 2049, 6), "layernorm": (32, 1568, 12),
+          "attention_i8_sep": (32, 2049, 6),
+          "attention_int8": (32, 1568, 12), "layernorm": (32, 1568, 12),
           "layernorm_quant": (32, 1568, 12), "rmsnorm_quant": (32, 2049, 6)}
 NORMS = ("layernorm", "layernorm_quant", "rmsnorm_quant")
 # C4's rate (chip_smoke.py's ATTN_DROP) and its Philox seed words
@@ -94,13 +97,19 @@ BF16_EVALS = (("vit bf16", "run_eval"), ("iv2 bf16", "run_eval_iv2"))
 EVAL_CASES = (("vit", ("vit fused", True, False)),
               ("vit", ("vit fused q8", False, False)),
               ("iv2", ("iv2 fused rmsq", True, True)))
+# and the unfused static int8 ViT-B of phase 5 (B2 on torch._int_mm) and
+# with phase 12's int8_attn (E2): label -> FrameEvaluator options
+INT8_EVALS = {"vit int8": {}, "vit int8_attn": {"int8_attn": True}}
 EVAL_LABELS = tuple(label for label, _ in BF16_EVALS) + tuple(
-    label for _, (label, *_) in EVAL_CASES)
+    label for _, (label, *_) in EVAL_CASES) + tuple(INT8_EVALS)
 # the norms take ~0.07 ms, about the host's time in a wrapper call, which a
 # single call's event pair would include: they are timed CALLS_PER_EVENT
 # calls to an event pair, so the calls queue up on the card (B4's 0.1-1 ms
 # calls too)
 CALLS_PER_EVENT = 20
+# the root of this checkout
+_THIS = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def _b4_fn(name, dev, g):
@@ -176,7 +185,7 @@ def _worker(root: str) -> dict:
 
                 def fn():
                     return (ln.rmsnorm_quant(x, w, inv),)
-        elif name in ("attention_i8", "attention_i8_sep"):
+        elif name in ("attention_i8", "attention_i8_sep", "attention_int8"):
             amax = qkv.float().view(B, N, 3, heads, 64).abs().amax(
                 dim=(0, 1, 4))
             inv = (127.0 / amax).reshape(-1).repeat_interleave(64)
@@ -187,6 +196,10 @@ def _worker(root: str) -> dict:
                 def fn():
                     return (fa.flash_attention_qkv_i8d(q8, amax, heads, scale,
                                                        out_amax),)
+            elif name == "attention_int8":
+                def fn():
+                    return (fa.flash_attention_qkv_int8(q8, amax, heads,
+                                                        scale),)
             else:
                 ops = (q8[..., :C].contiguous(),
                        q8[..., C:2 * C].contiguous(), q8[..., 2 * C:])
@@ -326,7 +339,33 @@ def _eval_worker(root: str) -> dict:
             [(label, qkv_i8, fused_rmsq, chip_smoke.EVAL_RUNS)], 0.0)
         out[label] = r[label]["windows_per_sec"]
         torch.cuda.empty_cache()
+    for label, options in INT8_EVALS.items():
+        out[label] = _int8_eval(chip_smoke, dev, options)
+        torch.cuda.empty_cache()
     return out
+
+
+def _int8_eval(chip_smoke, dev, options) -> float:
+    """The windows/s of the static int8 ViT-B with FrameEvaluator
+    ``options``, set up by chip_smoke.py's ``static_int8_evaluator`` (phases
+    5 and 12: seeded fp32 masters, explicit calibration, phase 3's clip at
+    its batch, a warm-up) and timed as the median of EVAL_RUNS evaluates.
+    A checkout whose chip_smoke.py predates that helper is set up by this
+    checkout's, on its own package."""
+    import importlib.util
+
+    import torch
+    if not hasattr(chip_smoke, "static_int8_evaluator"):
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_this", os.path.join(_THIS, "chip_smoke.py"))
+        chip_smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(chip_smoke)
+    masters = chip_smoke.vit_b("cpu", SEED, torch.float32).state_dict()
+    ev, ds, *_ = chip_smoke.static_int8_evaluator(
+        chip_smoke.vit_b(dev, SEED, torch.bfloat16), dev, SEED, masters,
+        options)
+    return statistics.median(ev.evaluate(ds).windows_per_sec
+                             for _ in range(chip_smoke.EVAL_RUNS))
 
 
 def _runs(order, *args) -> list:
@@ -354,7 +393,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", action="store_true",
                     help="also time each checkout's fine-tuning steps")
     ap.add_argument("--evals", action="store_true",
-                    help="also time each checkout's fused int8 serving")
+                    help="also time each checkout's bf16 and int8 serving")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--step-worker", help=argparse.SUPPRESS)
     ap.add_argument("--eval-worker", help=argparse.SUPPRESS)
@@ -374,9 +413,7 @@ def main(argv=None) -> int:
         return 0
     if not args.other:
         ap.error("--other is required")
-    this = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    order = [("other", args.other), ("this", this), ("this", this),
+    order = [("other", args.other), ("this", _THIS), ("this", _THIS),
              ("other", args.other)]
     runs = _runs(order, "--worker")
     ok = True

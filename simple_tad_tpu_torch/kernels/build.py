@@ -162,12 +162,18 @@ def load() -> ctypes.CDLL:
             lib.stt_attention_bwd_drop.argtypes = [p] * 9 + [i] * 14 + [
                 ctypes.c_float, ctypes.c_float] + keep + [i, p]
             lib.stt_attention_bwd_drop.restype = i
-            lib.stt_attention_i8.argtypes = [p, p, p, p, p, p, *[i] * 13,
-                                             ctypes.c_float, p]
+            # ..., out, the wgmma route's bf16 V scratch (or None), sizes
+            lib.stt_attention_i8.argtypes = [p] * 7 + [i] * 13 + [
+                ctypes.c_float, p]
             lib.stt_attention_i8.restype = i
-            lib.stt_attention_int8.argtypes = [p, p, p, i, i, i, i,
+            lib.stt_attention_i8_route.argtypes = [i]
+            lib.stt_attention_i8_route.restype = i
+            # qkv, amax, out, the wgmma route's v^T scratch, sizes
+            lib.stt_attention_int8.argtypes = [p, p, p, p, i, i, i, i,
                                                ctypes.c_float, p]
             lib.stt_attention_int8.restype = i
+            lib.stt_attention_int8_route.argtypes = [i]
+            lib.stt_attention_int8_route.restype = i
             lib.stt_attention_q8.argtypes = [p] * 5 + [i] * 13 + [
                 ctypes.c_float, i, p]
             lib.stt_attention_q8.restype = i

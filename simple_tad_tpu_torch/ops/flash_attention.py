@@ -24,7 +24,11 @@ flash_attention_qkv_i8d with ``out_amax`` (TPU kernel
 _fwd_kernel_nomax_packed_q8io): int8 qkv in, int8 out, computed in bf16
 whatever the model dtype (csrc/attention_i8.cu).  The TPU kernel's
 bf16-output mode is reached only through an environment knob of the JAX
-package and is not ported.
+package and is not ported.  ``attention_i8_route`` names the kernel a
+call takes (B2 here, D2 below): where the head dim, padded to 16, is 64
+(every int8 trunk the jobs run) the wgmma kernel, whose V a pre-pass
+dequantizes into a bf16 scratch the wrapper allocates; at the other head
+dims the mma.sync kernel.
 
 int8-compute attention (kernel E2, csrc/attention_int8.cu; port of
 flash_attention_qkv_int8, TPU kernel _fwd_kernel_int8_packed): the static
@@ -32,6 +36,9 @@ int8 ViT's ``int8_attn`` option.  Both products run in int8 on the packed
 int8 qkv: a max-subtracted softmax whose probabilities become codes
 round(exp2(s - m) * 127), an int8 PV, the fp32 row sum of the codes as the
 denominator and a bf16 output (``flash_attention_qkv_int8``).
+``attention_int8_route`` names its kernel: at head dim 64 the wgmma kernel,
+whose V^T a pre-pass writes into an int8 scratch the wrapper allocates; at
+16, 32 and 48 the mma.sync kernel.
 
 Separate operands (InternVideo2, whose q and k are RMS-normalised between
 the qkv projection and attention): ``flash_attention`` is the port of
@@ -121,8 +128,12 @@ the kernel or raises.  ``LAUNCHES`` counts launches of the bf16/fp32
 inference kernel on the packed qkv, ``SEP_LAUNCHES`` on separate operands,
 ``Q8_LAUNCHES`` and ``Q8_SEP_LAUNCHES`` those of B3 (packed, separate),
 ``I8_LAUNCHES`` those of the int8 one on the packed qkv and
-``I8_SEP_LAUNCHES`` on separate operands, ``INT8_LAUNCHES`` those of the
-int8-compute one (E2), ``FWD_LSE_LAUNCHES`` and
+``I8_SEP_LAUNCHES`` on separate operands, and ``I8_WGMMA_LAUNCHES`` /
+``I8_MMA_LAUNCHES`` the route of every such call (``attention_i8_route``;
+one call is the pre-pass and the kernel on the wgmma route),
+``INT8_LAUNCHES`` those of the int8-compute one (E2) and
+``INT8_WGMMA_LAUNCHES`` / ``INT8_MMA_LAUNCHES`` their routes
+(``attention_int8_route``), ``FWD_LSE_LAUNCHES`` and
 ``SEP_FWD_LSE_LAUNCHES`` those of the training forward (packed, separate)
 and ``BWD_LAUNCHES`` and ``SEP_BWD_LAUNCHES`` calls of the training
 backward (each call launches two kernels: dk/dv, then dq), which
@@ -174,6 +185,12 @@ DROP_FWD_LAUNCHES = 0
 DROP_BWD_LAUNCHES = 0
 DROP_RNG_FWD_LAUNCHES = 0
 DROP_RNG_BWD_LAUNCHES = 0
+# the routes the int8 attentions took: B2 and D2 together, and E2
+I8_WGMMA_LAUNCHES = 0
+I8_MMA_LAUNCHES = 0
+INT8_WGMMA_LAUNCHES = 0
+INT8_MMA_LAUNCHES = 0
+INT8_MAX_HEAD_DIM = 64
 # the training backward's routes, by the code csrc/attention_train.cu's
 # stt_attention_bwd_route returns, and the head dim of the wgmma kernels;
 # the forward's (csrc/attention.cu's stt_attention_fwd_route) are the same
@@ -494,17 +511,25 @@ def _launch_attention(q, k, v, num_heads: int, scale: float):
 def _launch_attention_i8(q, k, v, amax, out_amax, num_heads: int,
                          scale: float, n_kv: int):
     """The int8-storage kernel on three non-empty int8 (B, N, C) operands,
-    keys at or beyond ``n_kv`` masked -> int8 (B, N, C) contiguous."""
+    keys at or beyond ``n_kv`` masked -> int8 (B, N, C) contiguous.  On the
+    wgmma route V is dequantized to bf16 by a pre-pass into a (B, N, C)
+    scratch."""
     B, N, C = q.shape
+    D = C // num_heads
+    route = attention_i8_route(D)
     out = torch.empty((B, N, C), dtype=torch.int8, device=q.device)
+    vbf = (torch.empty((B, N, C), dtype=torch.bfloat16, device=q.device)
+           if route == "wgmma" else None)
     lib = kbuild.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.stt_attention_i8(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), amax.data_ptr(),
-        out_amax.data_ptr(), out.data_ptr(), B, N, n_kv, num_heads,
-        C // num_heads, *_strides(q), *_strides(k), *_strides(v), N * C, C,
-        float(scale), stream)
+        out_amax.data_ptr(), out.data_ptr(),
+        None if vbf is None else vbf.data_ptr(), B, N, n_kv, num_heads, D,
+        *_strides(q), *_strides(k), *_strides(v), N * C, C, float(scale),
+        stream)
     kbuild.check(code, "attention_i8")
+    globals()[_I8_COUNTERS[route]] += 1
     return out
 
 
@@ -613,6 +638,36 @@ def attention_fwd_route(dtype, head_dim: int) -> str:
     return _route("attention_fwd_route", dtype, head_dim)
 
 
+def _int8_route(name: str, head_dim: int, max_dim: int) -> str:
+    """route() of csrc/attention_i8.cu and csrc/attention_int8.cu on the
+    head dim the kernel is given: the wrappers zero-pad a head dim that is
+    a multiple of 8 to the next multiple of 16."""
+    if head_dim <= 0 or head_dim % 8 or head_dim > max_dim:
+        raise ValueError(f"{name}: head dim {head_dim} must be a positive "
+                         f"multiple of 8, at most {max_dim}")
+    padded = -(-head_dim // 16) * 16
+    return "wgmma" if padded == WGMMA_HEAD_DIM else "mma_sync"
+
+
+def attention_i8_route(head_dim: int) -> str:
+    """The kernel a CUDA call of the int8-storage attention (B2 on the
+    packed qkv, D2 on separate operands) at ``head_dim`` launches, as
+    csrc/attention_i8.cu's dispatch picks it: 'wgmma' where the padded head
+    dim is 64 (every int8 trunk the jobs run), 'mma_sync' at the others
+    (ViT-H's 80, IV2-1B's 88 padded to 96, 32, 128)."""
+    return _int8_route("attention_i8_route", head_dim, MAX_HEAD_DIM)
+
+
+def attention_int8_route(head_dim: int) -> str:
+    """The kernel a CUDA call of the int8-compute attention (E2) at
+    ``head_dim`` launches, as csrc/attention_int8.cu's dispatch picks it:
+    'wgmma' where the padded head dim is 64, 'mma_sync' at 16, 32 and 48."""
+    return _int8_route("attention_int8_route", head_dim, INT8_MAX_HEAD_DIM)
+
+
+_I8_COUNTERS = {"wgmma": "I8_WGMMA_LAUNCHES", "mma_sync": "I8_MMA_LAUNCHES"}
+_INT8_COUNTERS = {"wgmma": "INT8_WGMMA_LAUNCHES",
+                  "mma_sync": "INT8_MMA_LAUNCHES"}
 _BWD_COUNTERS = {"wgmma": "BWD_WGMMA_LAUNCHES",
                  "mma_sync": "BWD_MMA_LAUNCHES", "fp32": "BWD_F32_LAUNCHES"}
 _FWD_COUNTERS = {"wgmma": "FWD_WGMMA_LAUNCHES",
@@ -1186,9 +1241,9 @@ def flash_attention_qkv_int8(qkv_i8, amax, num_heads: int, scale: float):
     B, N, C3 = qkv_i8.shape
     C = C3 // 3
     D = C // num_heads
-    if D % 8 or D > 64:
+    if D % 8 or D > INT8_MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {D} must be a multiple of 8 and "
-                         f"at most 64")
+                         f"at most {INT8_MAX_HEAD_DIM}")
     if not qkv_i8.is_contiguous():
         raise ValueError(f"{name}: qkv must be contiguous")
     if not scale > 0:
@@ -1207,14 +1262,21 @@ def flash_attention_qkv_int8(qkv_i8, amax, num_heads: int, scale: float):
         raise ValueError(f"{name}: qkv must be 16-byte aligned")
     out = torch.empty((B, N, num_heads * dp), dtype=torch.bfloat16,
                       device=qkv_i8.device)
+    route = attention_int8_route(dp)
+    # the wgmma route's v^T scratch: (B, H, 64, N rounded up to 16) int8
+    vt = (torch.empty(B * num_heads * dp * (-(-N // 16) * 16),
+                      dtype=torch.int8, device=qkv_i8.device)
+          if route == "wgmma" else None)
     lib = kbuild.load()
     stream = torch.cuda.current_stream(qkv_i8.device).cuda_stream
     code = lib.stt_attention_int8(qkv_i8.data_ptr(), amax.data_ptr(),
-                                  out.data_ptr(), B, N, num_heads, dp,
-                                  float(scale), stream)
+                                  out.data_ptr(),
+                                  None if vt is None else vt.data_ptr(),
+                                  B, N, num_heads, dp, float(scale), stream)
     kbuild.check(code, "attention_int8")
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1
+    globals()[_INT8_COUNTERS[route]] += 1
     if dp != D:
         out = out.view(B, N, num_heads, dp)[..., :D].reshape(B, N, C)
     return out

@@ -1419,3 +1419,185 @@ def test_tiny_int8_vit_variants_go_through_kernels(options, cuda):
     torch.testing.assert_close(logits, plain, rtol=0,
                                atol=2.5e-2 * float(plain.abs().max()))
 
+
+
+# The int8 attentions' routes: B2 and D2 (csrc/attention_i8.cu) and E2
+# (csrc/attention_int8.cu) take their wgmma kernels where the padded head
+# dim is 64, their mma.sync kernels at the others, counted per route.  Two
+# launches of one call agree bit for bit.  B2 and D2 are held to their
+# plain versions as chip_smoke.py holds them (I8_MISMATCH: codes at most 1
+# apart, at most this share of them, and one code where the share of so
+# few codes would be less); E2, whose integers are exact and whose float
+# steps are the plain version's, bit for bit.
+I8_ROUTE_COUNTERS = {"wgmma": "I8_WGMMA_LAUNCHES",
+                     "mma_sync": "I8_MMA_LAUNCHES"}
+INT8_ROUTE_COUNTERS = {"wgmma": "INT8_WGMMA_LAUNCHES",
+                       "mma_sync": "INT8_MMA_LAUNCHES"}
+I8_MISMATCH = 4e-4
+
+
+def _route_moved(counters, before):
+    return {r: getattr(fa, name) - before[r] for r, name in counters.items()}
+
+
+def _route_before(counters):
+    return {r: getattr(fa, name) for r, name in counters.items()}
+
+
+def _assert_i8_codes(got, want):
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert int((diff > 0).sum()) <= max(1, I8_MISMATCH * diff.numel()), \
+        float((diff > 0).float().mean())
+
+
+def _i8_entry(entry, b, n, heads, d, seed, device):
+    """-> (kernel call, plain call) of B2 on the packed int8 qkv, or D2 on
+    its separate operands with v the strided column block and keys masked
+    at or beyond max(1, n - 5)."""
+    qkv_i8, amax = _qkv_i8(b, n, heads, d, seed, device)
+    C = heads * d
+    scale = d ** -0.5
+    if entry == "B2":
+        out_amax = fa.attention_i8_plain_f32(qkv_i8, amax, heads,
+                                             scale).abs().max()
+        args = (qkv_i8, amax, heads, scale, out_amax)
+        return (lambda: fa.flash_attention_qkv_i8d(*args),
+                lambda: fa.flash_attention_qkv_i8d_plain(*args))
+    q, k, v = (qkv_i8[..., :C].contiguous(), qkv_i8[..., C:2 * C].contiguous(),
+               qkv_i8[..., 2 * C:])
+    n_valid = max(1, n - 5)
+    out_amax = fa.attention_i8d_plain_f32(q, k, v, amax, heads, scale,
+                                          n_valid).abs().max()
+    args = (q, k, v, amax, heads, scale, out_amax, n_valid)
+    return (lambda: fa.flash_attention_i8d(*args),
+            lambda: fa.flash_attention_i8d_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["B2", "D2"])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1568, 2049])
+def test_attention_i8_wgmma_kernel_matches_plain(n, entry, cuda):
+    kernel, plain = _i8_entry(entry, 2, n, 3, 64, 47, cuda)
+    before = _route_before(I8_ROUTE_COUNTERS)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    assert _route_moved(I8_ROUTE_COUNTERS, before) == {"wgmma": 2,
+                                                       "mma_sync": 0}
+    assert torch.equal(got, again), "two launches differ"
+    _assert_i8_codes(got, plain())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 40, 48, 56, 64, 80, 88, 96, 128])
+def test_attention_i8_routes_by_head_dim(d, cuda):
+    """Each head dim takes the route attention_i8_route names (D2 pads 40,
+    56 and 88 to 48, 64 and 96; B2 takes multiples of 16), counted on that
+    route only, and matches the plain version there."""
+    route = fa.attention_i8_route(d)
+    for entry in ("B2", "D2") if d % 16 == 0 else ("D2",):
+        kernel, plain = _i8_entry(entry, 2, 129, 2, d, 49, cuda)
+        before = _route_before(I8_ROUTE_COUNTERS)
+        got = kernel()
+        torch.cuda.synchronize()
+        assert _route_moved(I8_ROUTE_COUNTERS, before) == {
+            r: int(r == route) for r in I8_ROUTE_COUNTERS}, entry
+        _assert_i8_codes(got, plain())
+
+
+@pytest.mark.cuda
+def test_attention_i8_route_is_the_kernel_dispatch(cuda):
+    """attention_i8_route names the kernel csrc/attention_i8.cu's dispatch
+    launches (stt_attention_i8_route) on the head dim the wrappers give it
+    (padded to 16), at every head dim they take; the ones they refuse are
+    refused by both."""
+    from simple_tad_tpu_torch.kernels import build as kbuild
+    lib = kbuild.load()
+    for d in range(8, fa.MAX_HEAD_DIM + 1, 8):
+        padded = -(-d // 16) * 16
+        assert fa.FWD_ROUTES[lib.stt_attention_i8_route(padded)] == \
+            fa.attention_i8_route(d), d
+    for d in (0, 12, 136):
+        assert lib.stt_attention_i8_route(d) == -1
+        with pytest.raises(ValueError):
+            fa.attention_i8_route(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 131, 1568])
+def test_attention_int8_wgmma_kernel_matches_plain(n, cuda):
+    qkv_i8, amax = _int8_codes(2, n, 3, 64, 50, cuda)
+    scale = 0.125
+    before = _route_before(INT8_ROUTE_COUNTERS)
+    got = fa.flash_attention_qkv_int8(qkv_i8, amax, 3, scale)
+    again = fa.flash_attention_qkv_int8(qkv_i8, amax, 3, scale)
+    torch.cuda.synchronize()
+    assert _route_moved(INT8_ROUTE_COUNTERS, before) == {"wgmma": 2,
+                                                         "mma_sync": 0}
+    assert torch.equal(got, again), "two launches differ"
+    assert torch.equal(got, fa.flash_attention_qkv_int8_plain(
+        qkv_i8, amax, 3, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 48, 56, 64])
+def test_attention_int8_routes_by_head_dim(d, cuda):
+    """Each head dim takes the route attention_int8_route names (8, 24, 40
+    and 56 padded to 16, 32, 48 and 64), counted on that route only, and
+    matches the plain version there."""
+    route = fa.attention_int8_route(d)
+    qkv_i8, amax = _int8_codes(2, 129, 2, d, 51, cuda)
+    scale = d ** -0.5
+    before = _route_before(INT8_ROUTE_COUNTERS)
+    got = fa.flash_attention_qkv_int8(qkv_i8, amax, 2, scale)
+    torch.cuda.synchronize()
+    assert _route_moved(INT8_ROUTE_COUNTERS, before) == {
+        r: int(r == route) for r in INT8_ROUTE_COUNTERS}
+    want = fa.flash_attention_qkv_int8_plain(qkv_i8, amax, 2, scale)
+    _assert_within_one_code(got, want, qkv_i8, amax, 2, scale)
+
+
+@pytest.mark.cuda
+def test_attention_int8_route_is_the_kernel_dispatch(cuda):
+    """attention_int8_route names the kernel csrc/attention_int8.cu's
+    dispatch launches (stt_attention_int8_route) on the padded head dim, at
+    every head dim the wrapper takes; the ones it refuses are refused by
+    both."""
+    from simple_tad_tpu_torch.kernels import build as kbuild
+    lib = kbuild.load()
+    for d in range(8, fa.INT8_MAX_HEAD_DIM + 1, 8):
+        padded = -(-d // 16) * 16
+        assert fa.FWD_ROUTES[lib.stt_attention_int8_route(padded)] == \
+            fa.attention_int8_route(d), d
+    for d in (0, 12, 72, 128):
+        assert lib.stt_attention_int8_route(d) == -1
+        with pytest.raises(ValueError):
+            fa.attention_int8_route(d)
+
+
+@pytest.mark.cuda
+def test_int8_attention_wrappers_reject_what_the_kernels_refuse(cuda):
+    """B2 takes int8 at multiples of 16 up to 128, D2 int8 at multiples of
+    8 up to 128 (it pads), E2 int8 at multiples of 8 up to 64: the head
+    dims attention_i8_route and attention_int8_route refuse, and any other
+    dtype, raise before a launch."""
+    amax, one = torch.ones(6, device=cuda), torch.ones((), device=cuda)
+    for c3 in (3 * 2 * 24, 3 * 2 * 136):
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention_qkv_i8d(torch.zeros((1, 8, c3),
+                                                   dtype=torch.int8,
+                                                   device=cuda), amax, 2,
+                                       0.2, one)
+    with pytest.raises(ValueError, match="not int8"):
+        fa.flash_attention_qkv_i8d(torch.zeros((1, 8, 384), device=cuda),
+                                   amax, 2, 0.2, one)
+    sep = [torch.zeros((1, 8, 24), dtype=torch.int8, device=cuda)] * 3
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_i8d(*sep, amax, 2, 0.2, one)
+    with pytest.raises(ValueError):
+        fa.flash_attention_i8d(*[t.float() for t in sep], amax, 2, 0.2, one)
+    for c3, dtype in ((3 * 2 * 72, torch.int8), (384, torch.bfloat16)):
+        with pytest.raises(ValueError):
+            fa.flash_attention_qkv_int8(torch.zeros((1, 8, c3), dtype=dtype,
+                                                    device=cuda), amax, 2,
+                                        0.2)
