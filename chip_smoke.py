@@ -10,7 +10,11 @@ Phases (any failure raises, so the exit code is non-zero):
      prints the build seconds and the ptxas register / spill report;
   2. kernels against their plain PyTorch versions on the card, at the
      shapes the main path gives them, each within its stated tolerance,
-     timed with CUDA events (median of 30 runs after warm-up).  Every
+     timed with CUDA events (median of 30 runs after warm-up; the row
+     norms A2, B1, E1, D3 and the delta pre-pass, and their plain and
+     library calls, QUEUED_CALLS calls a run on two copies of their
+     inputs in turn, so that the time is the device's and the input comes
+     from device memory).  Every
      case of the bf16/fp32 attention forward (A1 packed and on separate
      operands, C1, C3-fwd, B3, C4-fwd) must launch once on the route
      fa.attention_fwd_route names, and no other: the wgmma kernel at head
@@ -26,7 +30,8 @@ Phases (any failure raises, so the exit code is non-zero):
      the bound is shown to catch it.  The int8 kernels (LayerNorm->int8,
      int8-storage attention) are held to their plain versions by the
      largest code difference (<= 1) and the share of codes that differ,
-     with the same two controls; every B2 and D2 case must launch once on
+     with the same two controls (two launches of each B1 case
+     bit-equal); every B2 and D2 case must launch once on
      the route fa.attention_i8_route names (the wgmma kernel at head dim
      64, two launches bit-equal; the mma.sync kernel at ViT-H's 80 and
      IV2-1B's 88, timed too).  The training attention kernels (C1,
@@ -56,7 +61,8 @@ Phases (any failure raises, so the exit code is non-zero):
      IV2-1B's head dim 88 (padded to 96), and A1 on separate operands at
      C = 192 (H = 3, Dh = 64), the geometry at which the JAX package takes
      its (B*H, N, Dh) inference kernel; D3 (rmsnorm_quant, RMSNorm->int8)
-     at (32 x 2049, 384) with per-head inverse scales.  Their controls: the
+     at (32 x 2049, 384) with per-head inverse scales (two launches of
+     each case bit-equal).  Their controls: the
      probabilities not rounded to bf16 (A1, D2), and for D3 the bf16-rounded
      value quantized instead of the fp32 one.  InternVideo2's training
      attention (C3: attention_sep_fwd_lse, attention_sep_bwd, C1 and C2 on
@@ -329,6 +335,13 @@ I8_MISMATCH = {"layernorm_quant": 1.5e-4, "attention_i8": 4e-4,
                "attention_q8": 4e-4, "attention_q8_sep": 4e-4}
 LOGIT_RTOL_I8 = 2.5e-2   # as LOGIT_RTOL, the 12-layer int8 model
 EVAL_RUNS = 5
+# the row norms (A2, B1, E1, D3) and the delta pre-pass take 0.02-0.14 ms,
+# about the host's time in a wrapper call, which one call's event pair
+# would include: they are timed QUEUED_CALLS calls to an event pair (as
+# kernels/ab_checkouts.py's CALLS_PER_EVENT), taken in turn on two copies
+# of their inputs so that each call reads device memory, not the L2 (D3's
+# 50 MB input is about the L2's size)
+QUEUED_CALLS = 20
 # training attention: C1's out is A1's out (its bounds); lse within one
 # flipped bf16 rounding of a probability (log2(1 + 2^-7), 0.0112); C2's
 # bf16 dqkv by the share of outputs that differ; fp32 backward sums N
@@ -479,19 +492,36 @@ SOURCES = {
 
 
 def cuda_ms(fn, runs: int = 30, warmup: int = 3) -> float:
-    """Median device time of fn() in ms, CUDA events around each run."""
-    for _ in range(warmup):
-        fn()
+    """Median device time of one call in ms, CUDA events around each run.
+    ``fn``: a callable, one call a run; or a tuple of callables (the same
+    call on other copies of its inputs, ``in_turn``), QUEUED_CALLS calls a
+    run, taken in turn."""
+    fns = fn if isinstance(fn, tuple) else (fn,)
+    calls = QUEUED_CALLS if isinstance(fn, tuple) else 1
+    for i in range(warmup):
+        fns[i % len(fns)]()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for i in range(calls):
+            fns[i % len(fns)]()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def in_turn(fn, *inputs) -> tuple:
+    """fn on each of ``inputs`` (argument tuples): calls that cuda_ms times
+    queued, in turn; a check takes the first."""
+    return tuple(functools.partial(fn, *args) for args in inputs)
+
+
+def first_call(fn):
+    """The call a check makes of a kernel, plain version or control."""
+    return fn[0] if isinstance(fn, tuple) else fn
 
 
 def device_check() -> str:
@@ -1078,17 +1108,19 @@ def check_kernels(dev, seed: int) -> dict:
     def run_case(name, case, kernel, plain, control=None, time_it=True,
                  library=None, bound=None, route=None,
                  route_counts=None):
-        """``control``: one callable, or a list of them (each must fail
-        the bounds).  The first case of a kernel is timed (its record);
+        """``kernel``, ``plain`` and ``library``: callables, or tuples of
+        them (``in_turn``: the check takes the first, the timing all,
+        queued).  ``control``: one callable, or a list of them (each must
+        fail the bounds).  The first case of a kernel is timed (its record);
         ``time_it='every'`` times every case.  ``route``: the route the
         kernel call must be counted on, and no other, by ``route_counts``
         (default the forward's, fa.attention_fwd_route); the case is then
         kept in the record's cases."""
         counts = route_counts or fwd_route_counts
         before = counts()
-        got = kernel()
+        got = first_call(kernel)()
         moved = {r: n - before[r] for r, n in counts().items()}
-        want = plain()
+        want = first_call(plain)()
         err, share, ok = compare(name, got, want)
         print(f"[{name}] {case}: max_abs_err {err:.3e} differ {share:.3e} "
               f"{'ok' if ok else 'FAIL'}"
@@ -1152,13 +1184,16 @@ def check_kernels(dev, seed: int) -> dict:
         w = torch.randn(C, generator=g, device=dev) * 0.2 + 1
         b = torch.randn(C, generator=g, device=dev) * 0.1
         wl, bl = w.to(dt), b.to(dt)
+        xs = ((x,), (x.clone(),))       # taken in turn when timed
         run_case("layernorm", f"{shape} {dt}",
-                 lambda: ln.layernorm(x, w, b),
-                 lambda: ln.layernorm_plain(x, w, b),
+                 in_turn(lambda x: ln.layernorm(x, w, b), *xs),
+                 in_turn(lambda x: ln.layernorm_plain(x, w, b), *xs),
                  lambda: layernorm_control(x, w, b),
-                 library=lambda: F.layer_norm(x, (C,), wl, bl, 1e-6),
+                 library=in_turn(lambda x: F.layer_norm(x, (C,), wl, bl,
+                                                        1e-6), *xs),
                  bound=layernorm_bound(shape[0], C, x.element_size(),
                                        x.element_size()))
+        del xs
 
     attn_cases = [((32, 1568, 2304), 12, torch.bfloat16),   # ViT-B b32
                   ((8, 1568, 2304), 12, torch.bfloat16),    # ViT-B
@@ -1200,12 +1235,16 @@ def check_kernels(dev, seed: int) -> dict:
         # a calibrated absmax: that of the LayerNorm output itself
         amax = ln.layernorm_plain(x, w, b, out_dtype=torch.float32
                                   ).abs().max()
+        xs = ((x,), (x.clone(),))
         run_case("layernorm_quant", f"{shape} {dt}",
-                 lambda: ln.layernorm_quant(x, w, b, amax),
-                 lambda: ln.layernorm_quant_plain(x, w, b, amax),
+                 in_turn(lambda x: ln.layernorm_quant(x, w, b, amax), *xs),
+                 in_turn(lambda x: ln.layernorm_quant_plain(x, w, b, amax),
+                         *xs),
                  lambda: layernorm_quant_control(x, w, b, amax),
                  bound=layernorm_bound(shape[0], C, x.element_size(), 1))
-        del x
+        launches_equal("layernorm_quant", f"{shape} {dt}",
+                       lambda: ln.layernorm_quant(x, w, b, amax))
+        del x, xs
     torch.cuda.empty_cache()
 
     i8_cases = [((32, 1568, 2304), 12),     # ViT-B b32
@@ -1288,12 +1327,13 @@ def check_kernels(dev, seed: int) -> dict:
     for (B, N, C), heads, dt in delta_cases:
         out = torch.randn((B, N, C), generator=g, device=dev).to(dt)
         dout = torch.randn((B, N, C), generator=g, device=dev).to(dt)
+        pairs = ((out, dout, heads), (out.clone(), dout.clone(), heads))
         run_case("attention_delta", f"{(B, N, C)} H={heads} {dt}",
-                 lambda: fa.flash_attention_delta(out, dout, heads),
-                 lambda: fa.attention_delta(out, dout, heads),
+                 in_turn(fa.flash_attention_delta, *pairs),
+                 in_turn(fa.attention_delta, *pairs),
                  lambda: attention_delta_bf16_products(out, dout, heads),
                  bound=delta_bound(B, N, C, heads, out.element_size()))
-        del out, dout
+        del out, dout, pairs
     torch.cuda.empty_cache()
     B, N, C, heads = JOB_BATCH, 1568, 768, 12
     scale = (C // heads) ** -0.5
@@ -1474,12 +1514,15 @@ def check_kernels(dev, seed: int) -> dict:
         head_amax = y.abs().view(-1, heads, C // heads).amax(dim=(0, 2))
         inv = (127.0 / head_amax).repeat_interleave(C // heads)
         del y
+        xs = ((x, w, inv), (x.clone(), w, inv))
         run_case("rmsnorm_quant", f"{shape} {dt} {heads} heads",
-                 lambda: ln.rmsnorm_quant(x, w, inv),
-                 lambda: ln.rmsnorm_quant_plain(x, w, inv),
+                 in_turn(ln.rmsnorm_quant, *xs),
+                 in_turn(ln.rmsnorm_quant_plain, *xs),
                  lambda: rmsnorm_quant_control(x, w, inv),
                  bound=layernorm_bound(shape[0], C, x.element_size(), 1))
-        del x
+        launches_equal("rmsnorm_quant", f"{shape} {dt} {heads} heads",
+                       lambda: ln.rmsnorm_quant(x, w, inv))
+        del x, xs
     torch.cuda.empty_cache()
     check_int8_kernels(dev, g, run_case, launches_equal)
     failures += check_dropout_kernels(dev, g, run_case, timed, launches_equal)
@@ -1991,13 +2034,14 @@ def check_variant_kernels(dev, g, run_case, launches_equal) -> list:
                             f"differ from B1's of the stored sum")
         del got_sum, got
         esz = branch.element_size()
+        copies = (args, (branch.clone(), residual.clone(), w, b, amax))
         run_case("add_layernorm_quant", f"{shape} {dt}",
-                 lambda: ln.add_layernorm_quant(*args),
-                 lambda: ln.add_layernorm_quant_plain(*args),
+                 in_turn(ln.add_layernorm_quant, *copies),
+                 in_turn(ln.add_layernorm_quant_plain, *copies),
                  [lambda: add_layernorm_quant_control(*args),
                   lambda: add_layernorm_quant_residual_only(*args)],
                  bound=layernorm_bound(shape[0], C, 2 * esz, esz + 1))
-        del branch, residual, args
+        del branch, residual, args, copies
         torch.cuda.empty_cache()
 
     for shape, heads in E2_CASES:

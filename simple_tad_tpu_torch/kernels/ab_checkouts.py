@@ -10,11 +10,13 @@ backward, mask and Philox forms, rate 0.1, on the packed qkv's views at
 ViT-B's job batch), the int8-storage
 attention packed (B2) and on separate operands (D2, IV2-S, v strided), the
 int8-compute attention (E2, ViT-B batch 32), and
-the row norms of csrc/layernorm.cu (A2 LayerNorm and B1 LayerNorm->int8 on
-ViT-B's (32 * 1568, 768) bf16, D3 RMSNorm->int8 on IV2-S's (32 * 2049,
-384)), and the static int8 GEMM and MLP (B4) at chip_smoke.py phase 2's
-shapes (``GEMMS``, ``MLPS``; 20 queued calls to an event pair, as the
-norms), run on the same seeded inputs in both checkouts, each in a fresh
+the row norms of csrc/layernorm.cu (A2 LayerNorm, B1 LayerNorm->int8 and
+E1 add + LayerNorm->int8 on ViT-B's (32 * 1568, 768) bf16, D3
+RMSNorm->int8 on IV2-S's (32 * 2049, 384); 20 queued calls to an event
+pair, on two copies of their inputs in turn), and the static int8 GEMM and
+MLP (B4) at chip_smoke.py phase 2's shapes (``GEMMS``, ``MLPS``; 20 queued
+calls to an event pair), run on the same seeded inputs in both checkouts,
+each in a fresh
 process (the two packages share a name), in the order other, this, this,
 other, all on one card.  Each process builds its
 checkout's kernels from its own sources.  Printed per kernel: whether the
@@ -43,6 +45,7 @@ on E2), windows/s as the median of its evaluate runs, the same way.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -67,8 +70,11 @@ SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
           "attention_drop_rng_bwd": (56, 1568, 12),
           "attention_i8_sep": (32, 2049, 6),
           "attention_int8": (32, 1568, 12), "layernorm": (32, 1568, 12),
-          "layernorm_quant": (32, 1568, 12), "rmsnorm_quant": (32, 2049, 6)}
-NORMS = ("layernorm", "layernorm_quant", "rmsnorm_quant")
+          "layernorm_quant": (32, 1568, 12),
+          "add_layernorm_quant": (32, 1568, 12),
+          "rmsnorm_quant": (32, 2049, 6)}
+NORMS = ("layernorm", "layernorm_quant", "add_layernorm_quant",
+         "rmsnorm_quant")
 # C4's rate (chip_smoke.py's ATTN_DROP) and its Philox seed words
 DROP_RATE = 0.1
 DROP_SEED = (12345, -678)
@@ -102,10 +108,11 @@ EVAL_CASES = (("vit", ("vit fused", True, False)),
 INT8_EVALS = {"vit int8": {}, "vit int8_attn": {"int8_attn": True}}
 EVAL_LABELS = tuple(label for label, _ in BF16_EVALS) + tuple(
     label for _, (label, *_) in EVAL_CASES) + tuple(INT8_EVALS)
-# the norms take ~0.07 ms, about the host's time in a wrapper call, which a
-# single call's event pair would include: they are timed CALLS_PER_EVENT
-# calls to an event pair, so the calls queue up on the card (B4's 0.1-1 ms
-# calls too)
+# the norms take 0.02-0.14 ms, about the host's time in a wrapper call,
+# which a single call's event pair would include: they are timed
+# CALLS_PER_EVENT calls to an event pair, so the calls queue up on the card
+# (B4's 0.1-1 ms calls too), the norms' taken in turn on two copies of
+# their inputs, so that each reads device memory, not the L2
 CALLS_PER_EVENT = 20
 # the root of this checkout
 _THIS = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -174,17 +181,18 @@ def _worker(root: str) -> dict:
             w = torch.randn(C, generator=g, device=dev) * 0.2 + 1
             b = torch.randn(C, generator=g, device=dev) * 0.1
             amax = torch.full((), 4.0, device=dev)
-            if name == "layernorm":
-                def fn():
-                    return (ln.layernorm(x, w, b),)
-            elif name == "layernorm_quant":
-                def fn():
-                    return (ln.layernorm_quant(x, w, b, amax),)
-            else:
-                inv = 127.0 / (w.abs() * 4)
-
-                def fn():
-                    return (ln.rmsnorm_quant(x, w, inv),)
+            inv = 127.0 / (w.abs() * 4)
+            # E1's residual: another column block of qkv
+            res = qkv[..., C:2 * C].reshape(B * N, C) * 3
+            call = {"layernorm": lambda x, r: (ln.layernorm(x, w, b),),
+                    "layernorm_quant": lambda x, r: (
+                        ln.layernorm_quant(x, w, b, amax),),
+                    "add_layernorm_quant": lambda x, r:
+                        ln.add_layernorm_quant(x, r, w, b, amax),
+                    "rmsnorm_quant": lambda x, r: (
+                        ln.rmsnorm_quant(x, w, inv),)}[name]
+            fn = tuple(functools.partial(call, *copy) for copy in
+                       ((x, res), (x.clone(), res.clone())))
         elif name in ("attention_i8", "attention_i8_sep", "attention_int8"):
             amax = qkv.float().view(B, N, 3, heads, 64).abs().amax(
                 dim=(0, 1, 4))
@@ -286,21 +294,24 @@ def _drop_fn(name, qkv, heads, scale, g):
 
 
 def _time(name, fn, out) -> None:
-    """out[name] = the digest of fn()'s outputs and its median time."""
+    """out[name] = the digest of fn()'s outputs and its median time; fn is
+    a call, or a tuple of calls (the same on copies of the inputs) taken in
+    turn, the first digested."""
     import torch
+    fns = fn if isinstance(fn, tuple) else (fn,)
     h = hashlib.sha256()
-    for t in fn():
+    for t in fns[0]():
         h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    for _ in range(3):
-        fn()
+    for i in range(3):
+        fns[i % len(fns)]()
     calls = 1 if name in SHAPES and name not in NORMS else CALLS_PER_EVENT
     times = []
     for _ in range(RUNS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(calls):
-            fn()
+        for i in range(calls):
+            fns[i % len(fns)]()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)

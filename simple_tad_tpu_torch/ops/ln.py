@@ -3,9 +3,9 @@ versions.
 
 Port of simple_tad_tpu/ops/ln.py:fused_layernorm (TPU kernel _ln_kernel)
 and fused_layernorm_quant (TPU kernel _ln_quant_kernel).  The kernels are
-csrc/layernorm.cu: one thread block per row reads the row once from
-device memory (LayerNorm is bandwidth-bound on the H100; see the note at
-the top of the source).  Unlike the TPU gate (C % 128 == 0, and C <= 512
+csrc/layernorm.cu: one warp a row, on a persistent grid, reads the row
+once from device memory (LayerNorm is bandwidth-bound on the H100; see the
+note at the top of the source).  Unlike the TPU gate (C % 128 == 0, and C <= 512
 by default), the kernels take any C up to 4096: ``layernorm`` serves every
 LayerNorm of the bf16 ViT (norm1, norm2, fc_norm), ``layernorm_quant`` the
 int8 model's norm1 and norm2, whose output is the next GEMM's int8 input.

@@ -115,10 +115,20 @@ def _code_diff(got, want):
     return int(d.max()), float((d > 0).float().mean())
 
 
+# The persistent warp-a-row kernels of csrc/layernorm.cu: one row; a row
+# count that is no multiple of a block's warps; more rows than the grid's
+# warps (at most 132 SMs x 64); 1, 2 (lanes uneven at 384), 3 and 4 chunks
+# a lane in registers (256, 384, 768, 1024), and wider rows read again at
+# each pass (1280, 4096)
+ROW_KERNEL_ROWS = [(1, 768), (133, 768), (9001, 768), (9001, 384)]
+ROW_KERNEL_WIDTHS = [(97, 256), (61, 1024), (45, 1280), (33, 4096)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("shape", [(1568, 768), (3, 5, 384), (17, 100),
-                                   (2, 1280)])
+                                   (2, 1280)] + ROW_KERNEL_ROWS
+                         + ROW_KERNEL_WIDTHS)
 def test_layernorm_quant_kernel_matches_plain(shape, dtype, cuda):
     C = shape[-1]
     x = (_randn(shape, 6, cuda) * 2 + 0.5).to(dtype)
@@ -403,7 +413,8 @@ def test_attention_i8_packed_equals_separate_call(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("shape", [(4 * 2049, 384), (3, 5, 100), (17, 4096),
-                                   (2, 1408)])
+                                   (2, 1408)] + ROW_KERNEL_ROWS
+                         + ROW_KERNEL_WIDTHS)
 def test_rmsnorm_quant_kernel_matches_plain(shape, dtype, cuda):
     """Per-head inverse scales (6 heads' worth of columns, as at the q/k-norm
     sites); (3, 5, 100) takes the kernel for widths that are not a multiple
