@@ -243,7 +243,44 @@ Phases (any failure raises, so the exit code is non-zero):
      LOGIT_RTOL_I8 of their plain-version run, a gross control (attention
      left unnormalized) outside it, and their distance from the bf16 and
      the phase-5 int8 logits printed; the last variant ends with 16 batch-1
-     streaming steps.
+     streaming steps;
+ 13. DAPT pre-training at full width (jobs/dapt/pretrain_bdd_capdata.sh):
+     MAE-B, the encoder 768 wide and 12 deep on the visible tokens, the
+     decoder 384 wide and 4 deep on all 1568, seeded fp32 masters computed
+     in bf16, synthetic uint8 clips through ops/augment.py's
+     pretrain_augment_align on the card, tube masks; AdamW betas (0.9,
+     0.95), weight decay 0.05.  Inside phase 2, C1 and C2 at the path's new
+     shapes (DAPT_TRAIN_CASES: N = 392 and 160 of the encoder at mask 0.75
+     and 0.9, a 157-row tail, the decoder's C = 384 packed at H = 6, and
+     MVD-B's N = 1569) against their plain versions and controls, each call
+     on its wgmma route, two launches bit-equal, and at DAPT's batch 200
+     (DAPT_TIMED) against their plain versions and controls and timed with
+     SDPA's forward and backward and their bounds, in the records' cases; A1 at (32, 1569, 2304) beside the other A1 cases,
+     timed.  (i) One step at batch 8 at mask 0.75, then at 0.9: 16 C1 and
+     16 C2 calls (12 encoder + 4 decoder blocks), all on the wgmma routes,
+     the delta pre-pass 16 times, the LayerNorm kernel 34 times (2 x 12 +
+     1 + 2 x 4 + 1) and nothing else; the gradients against the same step
+     through the plain versions within GRAD_NORM_RTOL / GRAD_PARAM_RTOL and
+     the control (no delta term) outside them.  (ii) TRAIN_STEPS steps on
+     one fixed batch at MAE_LR: the loss must fall by LOSS_DROP.  (iii)
+     cli/pretrain.py's PretrainTrainer at batch MAE_BATCH (the parts
+     MAE_PARTS of the double loop, each pinned on the host while the
+     previous step runs, concatenated on the card) in
+     TIMING_PROCESSES fresh processes: median step ms, clips/s, peak device
+     memory, and in the first a profiler window of PROFILE_STEPS steps;
+ 14. the MVD-B and UMT-B trunks (jobs/finetune/MVD-B_DoTA.sh: the 3-D
+     table, no CLS token, N = 1568; UMT-B_D2K.sh: tubelet 1, 8 frames,
+     N = 1568): seeded bf16 weights through FrameEvaluator at batch 32 on
+     phase 3's clip (UMT: windows of every other frame), timed over
+     EVAL_RUNS, 12 A1 and 25 LayerNorm launches a chunk forward, all A1 on
+     the wgmma route; every A1 and LayerNorm call of one evaluate against
+     its plain version and control at its inputs; at TRUNK_SEEDS seeds the
+     pooled features the head takes against the plain-version run within
+     FEATURE_RTOL and the gross control outside it; then the fine-tune
+     check at batch 8 with the job's hyperparameters (as phase 6: 12 C1,
+     12 C2, 12 delta, 25 LayerNorm, gradients against the plain-version
+     step and the control, TRAIN_STEPS fixed-batch steps whose loss must
+     fall by LOSS_DROP).
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -289,6 +326,16 @@ import torch
 #                                           main path <= 9.3e-5 vs >= 1.7e-3
 #     rmsnorm_quant codes differing         <= 6.4e-7 vs control >= 2.0e-2;
 #                                           main path <= 1.1e-6 vs >= 2.7e-2
+#   MVD-B / UMT-B evaluate (phase 14; 6 seeds each, N = 1568):
+#     A1 / A2 calls' outputs differing  <= 6.5e-4 / 2.6e-5 vs controls
+#                                       >= 4.0e-2 / 0.115
+#     head inputs, max ||err|| / ||plain|| over windows  <= 2.438e-3 vs
+#                                       the subtle control >= 2.850e-3 (no
+#                                       margin: hence the per-call check)
+#                                       and the gross control >= 0.661;
+#                                       logits / max |logit| read up to
+#                                       2.18e-2 where the seeded head's
+#                                       logits are small (UMT-B seed 5)
 #     IV2-S logits / max |logit|: bf16 3.251e-3 vs the subtle control
 #     3.806e-3 (no margin: hence the per-call check) and the gross control
 #     4.180e-2; int8 4.801e-3, fused 3.755e-3, vs gross controls >= 9.07e-2
@@ -412,6 +459,39 @@ E2_CASES = [((32, 1568, 2304), 12), ((4, 131, 2304), 12),
             # head dim 32: E2's mma.sync route
             ((4, 1568, 1152), 12)]
 CLIP_H, CLIP_W = 224, 398          # decode_scaled's short side 224, 16:9
+# phase 2, the DAPT and MVD / UMT shapes (bf16, head dim 64, the wgmma
+# routes): C1 and C2 at the MAE-B encoder's visible tokens at mask 0.75 and
+# 0.9 (N = 392; N = 160, and a 157-row tail), at its decoder (all 1568
+# tokens, C = 384 packed, H = 6) and at MVD-B's N = 1569 (the CLS token),
+# batch 8 (B, N, 3C, H); timed at DAPT's batch MAE_BATCH (B, N, C, H)
+DAPT_TRAIN_CASES = [((8, 392, 2304), 12), ((8, 160, 2304), 12),
+                    ((8, 157, 2304), 12), ((8, 1568, 1152), 6),
+                    ((8, 1569, 2304), 12)]
+# phase 13: DAPT, jobs/dapt/pretrain_bdd_capdata.sh: MAE-B (encoder 768 x
+# 12, decoder 384 x 4), 16 frames at 224, tube masks at 0.75 (and 0.9),
+# finetune-aligned augmentation, AdamW betas (0.9, 0.95), weight decay
+# 0.05, lr 3e-4 scaled to the job's total batch 240 + 160 as the CLI scales
+# it; timed at half that batch (the whole 400 does not fit one card with
+# the masters and moments: PERF.md)
+MAE_MASKS = (0.75, 0.9)
+MAE_LR = 3e-4 * 400 / 256
+MAE_BATCH = 200
+MAE_PARTS = (120, 80)              # the job's 240 : 160 split of a batch
+MAE_WARMUP, MAE_TIMED = 2, 8
+DAPT_TIMED = [(MAE_BATCH, 392, 768, 12), (MAE_BATCH, 1568, 384, 6)]
+# phase 14: the MVD-B and UMT-B fine-tuning jobs (jobs/finetune/
+# MVD-B_DoTA.sh, UMT-B_D2K.sh): lr 5e-4 scaled to batch 56, layer decay
+# 0.6, weight decay 0.05, drop path 0.2; MVD-B as the job builds it (no
+# CLS token: N = 1568; N = 1569 is held in phase 2), UMT-B at tubelet 1 and
+# 8 frames (N = 1568), windows of every other frame (--view_fps 5)
+TRUNK_LR = 5e-4 * JOB_BATCH / 256
+TRUNKS = ("mvd", "umt")
+# the end-to-end check's seeds, its bound and the controls it must catch:
+# held at the head's input, since max |logit error| / max |logit| swings
+# with the seeded head's scale (PERF.md); each A1 and LayerNorm call is
+# held at its own inputs as well (check_sites)
+TRUNK_SEEDS = 3
+FEATURE_RTOL = 1e-2
 # phases 7 and 8: IV2-S of jobs/finetune/IV2-S_DoTA.sh (--num_frames 8
 # --view_fps 5 on 10 fps DoTA: windows of every other frame)
 IV2_VIEW_STEP = 2
@@ -1200,7 +1280,9 @@ def check_kernels(dev, seed: int) -> dict:
                   ((8, 1568, 1152), 6, torch.bfloat16),     # ViT-S
                   ((4, 1568, 3072), 16, torch.bfloat16),    # ViT-L
                   ((2, 200, 384), 2, torch.float32),        # masked tail
-                  ((2, 1568, 3840), 16, torch.bfloat16)]    # ViT-H, Dh=80
+                  ((2, 1568, 3840), 16, torch.bfloat16),    # ViT-H, Dh=80
+                  # MVD-B b32 with its CLS token: a one-row tail tile
+                  ((32, 1569, 2304), 12, torch.bfloat16)]
     for shape, heads, dt in attn_cases:
         qkv = torch.randn(shape, generator=g, device=dev).to(dt)
         D = shape[-1] // 3 // heads
@@ -1214,7 +1296,8 @@ def check_kernels(dev, seed: int) -> dict:
                  # in fp32 the rounding the control leaves out is exact
                  (lambda: attention_control(qkv, heads, scale))
                  if dt == torch.bfloat16 else None,
-                 time_it="every" if route == "mma_sync" else True,
+                 time_it=("every" if route == "mma_sync" or shape[1] == 1569
+                          else True),
                  library=lambda: F.scaled_dot_product_attention(
                      q, k, v, scale=scale),
                  bound=attention_bound(shape[0], shape[1], shape[2] // 3,
@@ -1527,9 +1610,90 @@ def check_kernels(dev, seed: int) -> dict:
     check_int8_kernels(dev, g, run_case, launches_equal)
     failures += check_dropout_kernels(dev, g, run_case, timed, launches_equal)
     failures += check_variant_kernels(dev, g, run_case, launches_equal)
+    check_pretrain_kernels(dev, g, run_case, launches_equal)
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return results
+
+
+def check_pretrain_kernels(dev, g, run_case, launches_equal):
+    """Phase 2, the DAPT and MVD / UMT shapes: C1 and C2 against their
+    plain versions and controls at DAPT_TRAIN_CASES, each call on its wgmma
+    route, two launches bit-equal; then C1 and C2 at DAPT's batch
+    (DAPT_TIMED), against their plain versions and controls on their wgmma
+    route and timed with their plain versions, SDPA's forward and backward
+    and their bounds, kept in the records' cases."""
+    import torch.nn.functional as F
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    dt = torch.bfloat16
+    for shape, heads in DAPT_TRAIN_CASES:
+        B, N, C3 = shape
+        D = C3 // 3 // heads
+        qkv = torch.randn(shape, generator=g, device=dev).to(dt)
+        dout = torch.randn((B, N, C3 // 3), generator=g, device=dev).to(dt)
+        scale = D ** -0.5
+        case = f"{shape} H={heads} {dt} (DAPT / MVD)"
+        run_case("attention_fwd_lse", case,
+                 lambda: fa.flash_attention_qkv_fwd_lse(qkv, heads, scale),
+                 lambda: fa.flash_attention_qkv_fwd_lse_plain(qkv, heads,
+                                                              scale),
+                 lambda: attention_fwd_lse_control(qkv, heads, scale),
+                 time_it=False, route=fa.attention_fwd_route(dt, D))
+        launches_equal("attention_fwd_lse", case,
+                       lambda: fa.flash_attention_qkv_fwd_lse(qkv, heads,
+                                                              scale))
+        out, lse = fa.flash_attention_qkv_fwd_lse_plain(qkv, heads, scale)
+        run_case("attention_bwd", case,
+                 lambda: fa.flash_attention_qkv_bwd(qkv, out, lse, dout,
+                                                    heads, scale),
+                 lambda: fa.flash_attention_qkv_bwd_plain(qkv, out, lse,
+                                                          dout, heads, scale),
+                 lambda: attention_bwd_control(qkv, out, lse, dout, heads,
+                                               scale),
+                 time_it=False, route=fa.attention_bwd_route(dt, D),
+                 route_counts=bwd_route_counts)
+        launches_equal("attention_bwd", case,
+                       lambda: fa.flash_attention_qkv_bwd(
+                           qkv, out, lse, dout, heads, scale))
+        del qkv, dout, out, lse
+    torch.cuda.empty_cache()
+
+    for B, N, C, heads in DAPT_TIMED:
+        scale = (C // heads) ** -0.5
+        qkv = torch.randn((B, N, 3 * C), generator=g, device=dev).to(dt)
+        dout = torch.randn((B, N, C), generator=g, device=dev).to(dt)
+        q, k, v = qkv_views(qkv, heads)
+        case = f"({B}, {N}, {3 * C}) H={heads} {dt} (DAPT batch)"
+        run_case("attention_fwd_lse", case,
+                 lambda: fa.flash_attention_qkv_fwd_lse(qkv, heads, scale),
+                 lambda: fa.flash_attention_qkv_fwd_lse_plain(qkv, heads,
+                                                              scale),
+                 lambda: attention_fwd_lse_control(qkv, heads, scale),
+                 time_it="every",
+                 library=lambda: F.scaled_dot_product_attention(
+                     q, k, v, scale=scale),
+                 bound=attention_bound(B, N, C, heads, lse=True),
+                 route=fa.attention_fwd_route(dt, C // heads))
+        out, lse = fa.flash_attention_qkv_fwd_lse_plain(qkv, heads, scale)
+        leaf = qkv.detach().requires_grad_(True)
+        sdpa_out = F.scaled_dot_product_attention(*qkv_views(leaf, heads),
+                                                  scale=scale)
+        sdpa_dout = dout.view(B, N, heads, -1).transpose(1, 2)
+        run_case("attention_bwd", case,
+                 lambda: fa.flash_attention_qkv_bwd(qkv, out, lse, dout,
+                                                    heads, scale),
+                 lambda: fa.flash_attention_qkv_bwd_plain(qkv, out, lse,
+                                                          dout, heads, scale),
+                 lambda: attention_bwd_control(qkv, out, lse, dout, heads,
+                                               scale),
+                 time_it="every",
+                 library=lambda: torch.autograd.grad(
+                     sdpa_out, leaf, sdpa_dout, retain_graph=True),
+                 bound=attention_bound(B, N, C, heads, backward=True),
+                 route=fa.attention_bwd_route(dt, C // heads),
+                 route_counts=bwd_route_counts)
+        del qkv, dout, q, k, v, out, lse, leaf, sdpa_out, sdpa_dout
+        torch.cuda.empty_cache()
 
 
 def _drop_keep(B, heads, N, rate, mask, seed):
@@ -2209,6 +2373,136 @@ def run_eval(dev, seed: int):
                    "logits_err": err, "logits": logits}
 
 
+def trunk_b(family: str, dev, seed: int, dtype, **kw):
+    """MVD-B (3-D sincos table, N = 1568: jobs/finetune/MVD-B_DoTA.sh sets
+    no CLS token) or UMT-B (tubelet 1, 8 frames, the UMT table: N = 1568),
+    seeded, head scale 1."""
+    from simple_tad_tpu_torch.models import create_model
+    return create_model(f"{family}_vit_base_patch16_224", device=dev,
+                        dtype=dtype, init_scale=1.0,
+                        generator=torch.Generator().manual_seed(seed), **kw)
+
+
+def attention_next_head_v(qkv, num_heads: int, scale: float):
+    """The plain packed attention with each head reading the next head's v:
+    the gross control of phase 14's feature check."""
+    from simple_tad_tpu_torch.ops.flash_attention import (
+        flash_attention_qkv_plain)
+    C = qkv.shape[-1] // 3
+    v = qkv[..., 2 * C:].roll(-(C // num_heads), dims=-1)
+    return flash_attention_qkv_plain(torch.cat([qkv[..., :2 * C], v], -1),
+                                     num_heads, scale)
+
+
+def head_inputs(ev, ds, **routes):
+    """One evaluate with the wrappers ``routes`` -> (result, the pooled
+    features the head took, (windows, C) fp32)."""
+    feats = []
+    hook = ev.model.head.register_forward_hook(
+        lambda mod, args, out: feats.append(args[0].detach().float().cpu()))
+    try:
+        with routed(**routes):
+            res = ev.evaluate(ds)
+    finally:
+        hook.remove()
+    return res, torch.cat(feats).numpy()
+
+
+def feature_error(got, want) -> float:
+    """max over windows of ||got - want|| / ||want||."""
+    return float((np.linalg.norm(got - want, axis=1)
+                  / np.linalg.norm(want, axis=1)).max())
+
+
+def run_eval_trunk(dev, seed: int, family: str,
+                   seeds: int = TRUNK_SEEDS) -> dict:
+    """Phase 14: MVD-B or UMT-B bf16 through FrameEvaluator at batch 32 on
+    phase 3's clip (UMT: windows of every other frame), timed over
+    EVAL_RUNS; 12 A1 launches a chunk forward, all on the wgmma route, and
+    25 LayerNorm; every A1 and LayerNorm call of one evaluate against its
+    plain version and its control at the call's inputs (check_sites); then,
+    at each of ``seeds`` seeds, the pooled features the head takes (the
+    head is the same fp32 Linear in every run, so the logits differ by its
+    weight times theirs) against the plain-version run within
+    FEATURE_RTOL and the gross control outside it (the subtle one is
+    printed: it reads within 1.2x of the kernels, so check_sites holds it)."""
+    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.ops import ln
+    label = f"{family} eval"
+    step = IV2_VIEW_STEP if family == "umt" else 1
+    sites = {"attention": ("flash_attention_qkv", fa.flash_attention_qkv,
+                           fa.flash_attention_qkv_plain, attention_control),
+             "layernorm": ("layernorm", ln.layernorm, ln.layernorm_plain,
+                           layernorm_control)}
+    controls = {"subtle": dict(layernorm=layernorm_control,
+                               flash_attention_qkv=attention_control),
+                "gross": dict(flash_attention_qkv=attention_next_head_v)}
+    readings = []
+    for s in range(seed, seed + seeds):
+        model = trunk_b(family, dev, s, torch.bfloat16)
+        cfg = model.cfg
+        ds, n_windows, chunks = synthetic_clip(cfg, s, step)
+        ev = FrameEvaluator(model, device=dev, batch_size=BATCH,
+                            resize_on_host=False, precompute_tubelets=True)
+        if s == seed:
+            ev.evaluate(ds)                              # warm-up
+            reset_counts()
+            res = ev.evaluate(ds)
+            launches = read_counts()
+            rates = [res.windows_per_sec] + [
+                ev.evaluate(ds).windows_per_sec
+                for _ in range(EVAL_RUNS - 1)]
+            rate = statistics.median(rates)
+            print(f"[{label}] {family}_vit_base_patch16_224 bf16 "
+                  f"{cfg.all_frames}x{cfg.img_size} tubelet "
+                  f"{cfg.tubelet_size}, N = {cfg.num_patches}, batch "
+                  f"{BATCH}: windows {res.n_windows}, chunks {chunks}; "
+                  f"evaluate median {rate:.2f} windows/s over {EVAL_RUNS} "
+                  f"runs (min {min(rates):.2f}, max {max(rates):.2f})")
+            print(f"[{label}] launches {launches}")
+            site_failures = check_sites(ev, ds, sites, f"{family} sites")
+        res, feats = head_inputs(ev, ds)
+        assert res.n_windows == n_windows == feats.shape[0]
+        logits = logits_of(res)
+        assert np.isfinite(logits).all() and np.isfinite(feats).all(), \
+            "non-finite logits or features"
+        plain_res, plain = head_inputs(
+            ev, ds, layernorm=ln.layernorm_plain,
+            flash_attention_qkv=fa.flash_attention_qkv_plain)
+        err = feature_error(feats, plain)
+        c_errs = {k: feature_error(head_inputs(ev, ds, **r)[1], plain)
+                  for k, r in controls.items()}
+        logit_err = (float(np.abs(logits - logits_of(plain_res)).max())
+                     / float(np.abs(logits_of(plain_res)).max()))
+        print(f"[{label}] seed {s}: head inputs vs plain: max over windows "
+              f"||err|| / ||plain|| {err:.3e}; controls: subtle (the "
+              f"phase-2 controls of A1 and A2) {c_errs['subtle']:.3e}, gross "
+              f"(each head reads the next head's v) {c_errs['gross']:.3e} "
+              f"(bound {FEATURE_RTOL:.3e}); logits max_abs_err / max "
+              f"|logit| {logit_err:.3e} (printed)")
+        readings.append((err, c_errs))
+        del model, ev
+        torch.cuda.empty_cache()
+    errs = [r[0] for r in readings]
+    print(f"[{label}] {seeds} seeds: head-input error {min(errs):.3e} "
+          f"to {max(errs):.3e}; " + ", ".join(
+              f"{k} control {min(r[1][k] for r in readings):.3e} to "
+              f"{max(r[1][k] for r in readings):.3e}" for k in controls))
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(attention=cfg.depth * chunks,
+                fwd_route_wgmma=cfg.depth * chunks,
+                layernorm=(2 * cfg.depth + 1) * chunks)
+    assert not site_failures, site_failures
+    assert launches == want, (launches, want)
+    assert max(errs) <= FEATURE_RTOL, \
+        f"features disagree with the plain run: {errs}"
+    assert all(r[1]["gross"] > FEATURE_RTOL for r in readings), \
+        f"the feature bound lets the gross control through: {readings}"
+    return {"windows_per_sec": rate, "launches": launches,
+            "feature_err": max(errs)}
+
+
 def vit_int8_sites():
     """-> {kernel name: (wrapper name, kernel, plain, control)} of the int8
     ViT's main path."""
@@ -2870,6 +3164,9 @@ def job_model(dev, seed: int, family: str = "vit", attn_drop: float = 0.0,
                             num_frames=8, drop_path_rate=0.1,
                             init_values=0.1,
                             generator=torch.Generator().manual_seed(seed))
+    if family in TRUNKS:
+        return trunk_b(family, dev, seed, torch.bfloat16,
+                       param_dtype=torch.float32, drop_path_rate=0.2)
     return create_model("vit_base_patch16_224", device=dev,
                         dtype=torch.bfloat16, param_dtype=torch.float32,
                         drop_path_rate=0.2, attn_drop_rate=attn_drop,
@@ -2883,7 +3180,8 @@ def job_state(model, dev, seed: int, family: str = "vit"):
     and IV2_LR), and the generator of the training masks."""
     from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
     from simple_tad_tpu_torch.train.steps import TrainState
-    lr, layer_decay = (IV2_LR, 0.75) if family == "iv2" else (TRAIN_LR, 0.6)
+    lr, layer_decay = {"iv2": (IV2_LR, 0.75), "mvd": (TRUNK_LR, 0.6),
+                       "umt": (TRUNK_LR, 0.6)}.get(family, (TRAIN_LR, 0.6))
     opt = FinetuneOptimizer(dict(model.named_parameters()), lr_schedule=lr,
                             weight_decay=0.05, layer_decay=layer_decay,
                             depth=model.cfg.depth)
@@ -2984,14 +3282,16 @@ def grad_errors(got, want):
 
 
 def run_finetune(dev, seed: int, family: str = "vit") -> dict:
-    """Phase 6 (ViT-B) or 9 (IV2-S) (i) and (ii) at batch TRAIN_BATCH ->
-    stats."""
+    """Phase 6 (ViT-B), 9 (IV2-S) or 14 (MVD-B, UMT-B) (i) and (ii) at batch
+    TRAIN_BATCH -> stats."""
     from simple_tad_tpu_torch.ops import flash_attention as fa
     from simple_tad_tpu_torch.train.losses import create_criterion
     from simple_tad_tpu_torch.train.steps import make_finetune_train_step
     iv2 = family == "iv2"
-    label, frames, lr = (("iv2 finetune", 8, IV2_LR) if iv2
-                         else ("finetune", 16, TRAIN_LR))
+    label, frames, lr = {"iv2": ("iv2 finetune", 8, IV2_LR),
+                         "mvd": ("mvd finetune", 16, TRUNK_LR),
+                         "umt": ("umt finetune", 8, TRUNK_LR)}.get(
+                             family, ("finetune", 16, TRAIN_LR))
     model = job_model(dev, seed, family)
     batch = augmented_batch(dev, TRAIN_BATCH, seed, frames)
     state = job_state(model, dev, seed, family)
@@ -3005,8 +3305,10 @@ def run_finetune(dev, seed: int, family: str = "vit") -> dict:
     c_norm, c_param, c_worst = grad_errors(ctrl, plain)
     del kern, plain, ctrl
     state.generator.set_state(g0)
-    name = ("internvideo2_small_patch14_224 8x224" if iv2
-            else "vit_base_patch16_224")
+    name = {"iv2": "internvideo2_small_patch14_224 8x224",
+            "mvd": "mvd_vit_base_patch16_224 (N = 1568)",
+            "umt": "umt_vit_base_patch16_224 8x224 tubelet 1"}.get(
+                family, "vit_base_patch16_224")
     print(f"[{label}] {name} bf16, fp32 masters, batch {TRAIN_BATCH}: loss "
           f"{loss_k:.6f} (plain versions {loss_p:.6f}); gradients vs plain: "
           f"global norm rel err {norm_err:.3e} (bound {GRAD_NORM_RTOL:.1e}), "
@@ -3061,7 +3363,8 @@ def run_finetune(dev, seed: int, family: str = "vit") -> dict:
         "gradients disagree with the plain-version step"
     assert c_norm > GRAD_NORM_RTOL or c_param > GRAD_PARAM_RTOL, \
         "the gradient bounds let the control through"
-    assert drop >= LOSS_DROP, f"the fixed-batch loss fell by {drop:.3f}"
+    assert drop >= LOSS_DROP, \
+        f"the fixed-batch loss fell by {drop:.3f}"
     return {"launches": launches, "grad_norm_err": norm_err,
             "grad_param_err": param_err, "losses": losses}
 
@@ -3135,6 +3438,255 @@ def run_finetune_dropout(dev, seed: int) -> dict:
         del model, state, metrics, logits
         torch.cuda.empty_cache()
     return out
+
+
+def mae_b(dev, seed: int):
+    """The DAPT job's MAE-B (decoder depth 4), seeded fp32 masters computed
+    in bf16."""
+    from simple_tad_tpu_torch.models import create_model
+    return create_model("pretrain_videomae_base_patch16_224", device=dev,
+                        dtype=torch.bfloat16, param_dtype=torch.float32,
+                        decoder_depth=4,
+                        generator=torch.Generator().manual_seed(seed))
+
+
+def mae_state(model, dev, seed: int, lr=MAE_LR):
+    """The DAPT job's AdamW (betas 0.9 / 0.95, weight decay 0.05, no layer
+    decay) at a constant lr, and the generator of the training masks."""
+    from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
+    from simple_tad_tpu_torch.train.steps import TrainState
+    opt = FinetuneOptimizer(dict(model.named_parameters()), lr_schedule=lr,
+                            weight_decay=0.05, betas=(0.9, 0.95))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    return TrainState.create(model, opt, gen)
+
+
+def mae_masks(batch: int, ratio: float, seed: int):
+    """(batch, 1568) tube masks of the job's 8 x 14 x 14 token grid ->
+    (mask, masked tokens a row)."""
+    from simple_tad_tpu_torch.data.masking import TubeMaskingGenerator
+    gen = TubeMaskingGenerator((8, 14, 14), ratio)
+    return gen.batch(batch, np.random.default_rng(seed)), gen.total_masks
+
+
+def pretrain_batch(dev, batch: int, seed: int, ratio: float):
+    """Seeded uint8 clips through the port's pretrain_augment_align on the
+    card (the job's --transforms_finetune_align) and tube masks ->
+    ({'video', 'mask'}, masked tokens a row)."""
+    from simple_tad_tpu_torch.ops.augment import pretrain_augment_align
+    rng = np.random.default_rng(seed)
+    u8 = torch.from_numpy(rng.integers(
+        0, 256, (batch, 16, CLIP_H, CLIP_W, 3), np.uint8)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    video = pretrain_augment_align(u8, gen, crop_size=224,
+                                   dtype=torch.bfloat16)
+    assert video.shape == (batch, 16, 224, 224, 3), video.shape
+    assert torch.isfinite(video.float()).all(), "non-finite augmentation"
+    mask, num_masked = mae_masks(batch, ratio, seed)
+    return {"video": video, "mask": torch.from_numpy(mask).to(dev)}, \
+        num_masked
+
+
+def mae_step_grads(model, batch, num_masked: int, gen, gen_state):
+    """Forward and backward of one MAE step (train/steps.py:mae_loss, no
+    update) -> ({name: grad}, loss), the masks drawn from ``gen`` reset to
+    ``gen_state``."""
+    from simple_tad_tpu_torch.train.steps import mae_loss
+    gen.set_state(gen_state)
+    for p in model.parameters():
+        p.grad = None
+    loss = mae_loss(model, batch, num_masked, gen)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return grads, loss.item()
+
+
+def run_pretrain(dev, seed: int) -> dict:
+    """Phase 13 (i) and (ii): one MAE-B step at batch TRAIN_BATCH at each of
+    MAE_MASKS, its gradients against the plain-version step and the control
+    (no delta term), the launch counts of one real step (C1 and C2 once a
+    block, 12 + 4, on the wgmma routes; the delta pre-pass 16; LayerNorm
+    2 * 12 + 1 + 2 * 4 + 1 = 34; nothing else); then TRAIN_STEPS steps on
+    one fixed batch at mask 0.75, whose loss must fall by LOSS_DROP."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.train.steps import make_mae_train_step
+    out = {}
+    for ratio in MAE_MASKS:
+        label = f"dapt mask {ratio}"
+        model = mae_b(dev, seed)
+        cfg = model.cfg
+        state = mae_state(model, dev, seed)
+        batch, nm = pretrain_batch(dev, TRAIN_BATCH, seed, ratio)
+        g0 = state.generator.get_state()
+        kern, loss_k = mae_step_grads(model, batch, nm, state.generator, g0)
+        with routed_train(**train_routes("vit")):
+            plain, loss_p = mae_step_grads(model, batch, nm, state.generator,
+                                           g0)
+        with routed_train(**train_routes("vit", no_delta=True)):
+            ctrl, _ = mae_step_grads(model, batch, nm, state.generator, g0)
+        norm_err, param_err, worst = grad_errors(kern, plain)
+        c_norm, c_param, c_worst = grad_errors(ctrl, plain)
+        del kern, plain, ctrl
+        n_vis = cfg.num_patches - nm
+        print(f"[{label}] pretrain_videomae_base_patch16_224 (encoder "
+              f"{cfg.encoder_embed_dim} x {cfg.encoder_depth} on {n_vis} "
+              f"visible tokens, decoder {cfg.decoder_embed_dim} x "
+              f"{cfg.decoder_depth} on {cfg.num_patches}) bf16, fp32 "
+              f"masters, batch {TRAIN_BATCH}: loss {loss_k:.6f} (plain "
+              f"versions {loss_p:.6f}); gradients vs plain: global norm rel "
+              f"err {norm_err:.3e} (bound {GRAD_NORM_RTOL:.1e}), worst "
+              f"parameter {param_err:.3e} ({worst}; bound "
+              f"{GRAD_PARAM_RTOL:.1e}); control (no delta): {c_norm:.3e}, "
+              f"{c_param:.3e} ({c_worst})")
+        step = make_mae_train_step(num_masked=nm)
+        state.generator.set_state(g0)
+        reset_counts()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"[{label}] launches in one train step {launches}")
+        blocks = cfg.encoder_depth + cfg.decoder_depth
+        assert fa.attention_fwd_route(torch.bfloat16, 64) == \
+            fa.attention_bwd_route(torch.bfloat16, 64) == "wgmma"
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update(layernorm=2 * blocks + 2, attention_fwd_lse=blocks,
+                    attention_bwd=blocks, attention_delta=blocks,
+                    fwd_route_wgmma=blocks, bwd_route_wgmma=blocks)
+        assert np.isfinite(float(metrics["loss"]))
+        assert launches == want, (launches, want)
+        assert norm_err <= GRAD_NORM_RTOL and param_err <= GRAD_PARAM_RTOL, \
+            f"{label}: gradients disagree with the plain-version step"
+        assert c_norm > GRAD_NORM_RTOL or c_param > GRAD_PARAM_RTOL, \
+            f"{label}: the gradient bounds let the control through"
+        out[ratio] = {"launches": launches, "grad_norm_err": norm_err,
+                      "grad_param_err": param_err}
+        if ratio == MAE_MASKS[0]:
+            losses = [float(metrics["loss"])]
+            for _ in range(TRAIN_STEPS - 1):
+                metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+            drop = 1.0 - losses[-1] / losses[0]
+            print(f"[{label}] {TRAIN_STEPS} steps on one augmented batch at "
+                  f"constant lr {MAE_LR}: losses "
+                  f"{' '.join(f'{x:.5f}' for x in losses)}; drop "
+                  f"{drop:.3f} (required {LOSS_DROP}); last grad_norm "
+                  f"{float(metrics['grad_norm']):.4e}")
+            assert np.isfinite(losses).all(), losses
+            assert drop >= LOSS_DROP, f"the fixed-batch loss fell by {drop}"
+            out["losses"] = losses
+        del model, state, batch, metrics
+        torch.cuda.empty_cache()
+    return out
+
+
+class SyntheticPretrainBatches:
+    """Loader batches of the double DAPT loop from memory: each step one
+    part per dataset (MAE_PARTS clips), seeded uint8 clips of 16 frames at
+    CLIP_H x CLIP_W drawn from a pool of 8, and tube masks at 0.75.  The
+    timing takes them as a list made beforehand: the CLI's PretrainLoader
+    assembles its batches on worker threads while the card runs."""
+
+    def __init__(self, seed: int, pool: int = 8):
+        rng = np.random.default_rng(seed)
+        self.frames = rng.integers(0, 256, (pool, 16, CLIP_H, CLIP_W, 3),
+                                   np.uint8)
+        self.seed = seed
+
+    def epoch(self, steps: int):
+        rng = np.random.default_rng(self.seed)
+        for i in range(steps):
+            parts = []
+            for j, n in enumerate(MAE_PARTS):
+                idx = rng.integers(0, len(self.frames), n)
+                parts.append({"video_u8": self.frames[idx],
+                              "mask": mae_masks(n, MAE_MASKS[0],
+                                                self.seed + 7 * i + j)[0]})
+            yield parts
+
+
+def time_pretrain_process(seed: int, profile: bool) -> dict:
+    """Phase 13 (iii), in a fresh process: the pre-training CLI's epoch loop
+    (cli/pretrain.py:PretrainTrainer: the parts pinned on the host while
+    the previous step runs, uploaded, concatenated and augmented on the
+    card, the MAE step) at batch MAE_BATCH ->
+    step times, peak memory and, with ``profile``, a profiler window."""
+    from simple_tad_tpu_torch.cli.pretrain import PretrainTrainer
+    from simple_tad_tpu_torch.train.steps import make_mae_train_step
+    dev = torch.device("cuda", 0)
+    model = mae_b(dev, seed)
+    state = mae_state(model, dev, seed)
+    step = make_mae_train_step(num_masked=mae_masks(1, MAE_MASKS[0], 0)[1])
+    starts = []
+
+    def timed_step(state, batch):
+        starts.append(time.perf_counter())
+        return step(state, batch)
+
+    trainer = PretrainTrainer(timed_step, state, device=dev, crop_size=224,
+                              align=True, dtype=torch.bfloat16, seed=seed)
+    data = SyntheticPretrainBatches(seed)
+    torch.cuda.reset_peak_memory_stats()
+    batches = list(data.epoch(MAE_WARMUP + MAE_TIMED))
+    trainer.train_one_epoch(batches, 0, print_freq=10 ** 6)
+    end = time.perf_counter()
+    marks = starts + [end]
+    out = {"step_ms": [(b - a) * 1e3 for a, b in zip(marks[MAE_WARMUP:],
+                                                    marks[MAE_WARMUP + 1:])],
+           "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if profile:
+        batches = batches[:PROFILE_STEPS]
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            trainer.train_one_epoch(batches, 1, print_freq=10 ** 6)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        sums, top, total = _kernel_categories(prof)
+        out["profile"] = {"wall_ms": wall, "device_ms": total,
+                          "categories": sums, "top": top}
+    return out
+
+
+def run_pretrain_timing(seed: int, processes: int = TIMING_PROCESSES
+                        ) -> dict:
+    """Phase 13 (iii): ``processes`` fresh processes one after another; the
+    first also takes the profiler window."""
+    label = "dapt timing"
+    batch = sum(MAE_PARTS)
+    ctx = multiprocessing.get_context("spawn")
+    runs = []
+    for i in range(processes):
+        with ctx.Pool(1) as pool:
+            runs.append(pool.apply(time_pretrain_process, (seed, i == 0)))
+        r = runs[-1]
+        med = statistics.median(r["step_ms"])
+        parts = " + ".join(map(str, MAE_PARTS))
+        print(f"[{label}] process {i}: batch {batch} ({parts}), "
+              f"mask {MAE_MASKS[0]}, median step {med:.2f} ms over "
+              f"{len(r['step_ms'])} steps after {MAE_WARMUP} warm-up (min "
+              f"{min(r['step_ms']):.2f}, max {max(r['step_ms']):.2f}): "
+              f"{batch * 1e3 / med:.2f} clips/s; peak device memory "
+              f"{r['peak_gb']:.2f} GiB")
+    prof = runs[0].get("profile")
+    if prof:
+        busy = prof["device_ms"] / prof["wall_ms"]
+        print(f"[dapt profile] {PROFILE_STEPS} steps: wall "
+              f"{prof['wall_ms']:.1f} ms, kernel time {prof['device_ms']:.1f}"
+              f" ms, device busy {busy:.3f}, idle {1 - busy:.3f}")
+        print("[dapt profile] by category (ms): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in prof["categories"].items()))
+        for name, calls, ms in prof["top"]:
+            print(f"[dapt profile]   {ms:9.2f} ms  {calls:5d}x  {name[:90]}")
+    meds = [statistics.median(r["step_ms"]) for r in runs]
+    return {"batch": batch, "step_ms": meds,
+            "clips_per_s": [batch * 1e3 / m for m in meds],
+            "peak_gb": max(r["peak_gb"] for r in runs)}
 
 
 def _kernel_categories(prof):
@@ -3379,6 +3931,16 @@ def main(argv=None):
     p12 = run_eval_variants(dev, args.seed, estats["logits"],
                             qstats["logits"])
     torch.cuda.empty_cache()
+    # phase 13: DAPT pre-training (MAE-B)
+    run_pretrain(dev, args.seed)
+    torch.cuda.empty_cache()
+    run_pretrain_timing(args.seed)
+    # phase 14: the MVD-B and UMT-B trunks, evaluation and a fine-tune check
+    for family in TRUNKS:
+        run_eval_trunk(dev, args.seed, family)
+        torch.cuda.empty_cache()
+        run_finetune(dev, args.seed, family)
+        torch.cuda.empty_cache()
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]

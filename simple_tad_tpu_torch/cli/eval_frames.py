@@ -9,6 +9,9 @@ quantized from fp32 masters (the seeded fp32 build with the checkpoint
 loaded), in ``--quant8_mode`` static (calibrated on the first clips, the
 default) or dynamic.
 
+``--model mvd_vit_{size}_patch16_224`` and ``umt_vit_{base,large}_patch16_224``
+serve the MVD and UMT trunks (UMT-B's job: ``--tubelet_size 1 --num_frames
+8 --view_fps 5``).
 ``--model internvideo2_{small,base,large,1B,6B}_patch14_224`` serves
 InternVideo2 (tubelet 1, patch 14; the DoTA job's setting is
 ``--num_frames 8 --view_fps 5``).  Its tubelet is the family's own: the

@@ -14,7 +14,12 @@ InternVideo2 (``jobs/finetune/IV2-S_DoTA.sh``: ``--num_frames 8
 --view_fps 5``).  Its tubelet is the family's own (1): the ViT's
 ``--tubelet_size`` and ``--final_reduction`` do not apply to it, as in
 cli/eval_frames.py (the JAX CLI passes them to every model; ROADMAP.md F3).
-``--finetune`` loads a reference ``.pth`` of either family.
+``--finetune`` loads a reference ``.pth`` of either family, or a
+pre-training checkpoint (cli/pretrain.py's ``checkpoint-<epoch>.pth``, or
+the reference's): its encoder's weights, by the reference's key surgery.
+``--model mvd_vit_{size}_patch16_224`` and ``umt_vit_{base,large}_patch16_224``
+fine-tune the MVD and UMT trunks (``jobs/finetune/MVD-B_DoTA.sh``,
+``UMT-B_D2K.sh``: ``--tubelet_size 1 --num_frames 8 --view_fps 5``).
 
 ``--attn_drop_rate`` > 0 trains the ViT with attention dropout (kernels
 C4) in the form ``--attn_dropout_form`` selects: ``rng`` (the default, the

@@ -7,6 +7,8 @@ stays on the device; only the new frame crosses from the host.
 ``--batched`` scores all windows of the folder in batches instead.
 ``--quant8`` serves the static int8 model, quantized from fp32 masters
 and calibrated on the first T frames (batch 1), as the JAX CLI does.
+``--model mvd_vit_*_patch16_224`` / ``umt_vit_*_patch16_224`` serve the
+MVD and UMT trunks (UMT: its registry geometry, tubelet 1 and 8 frames).
 ``--model internvideo2_*_patch14_224`` serves InternVideo2 (e.g.
 ``--num_frames 8``); ``--fused_rmsq`` adds its RMSNorm->int8 kernel to
 ``--quant8``.  ``--fused_w8a8``, ``--fused_mlp`` and ``--no_qkv_i8`` are

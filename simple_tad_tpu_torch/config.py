@@ -5,9 +5,9 @@ and run_mae_double_pretraining.py.  Field names match the reference flags
 1:1 (SURVEY.md §5f) so bash job configs translate directly; defaults are the
 reference defaults.  Use ``FinetuneConfig.from_args([...])`` for CLI parsing.
 
-Copy of simple_tad_tpu/config.py's FinetuneConfig, so the port's CLIs take
-the same flags (tests/test_torch_host_copies.py holds it to the original).
-PretrainConfig waits for the port's pre-training slice.
+Copy of simple_tad_tpu/config.py's FinetuneConfig and PretrainConfig, so
+the port's CLIs take the same flags (tests/test_torch_host_copies.py holds
+them to the originals).
 """
 
 from __future__ import annotations
@@ -144,3 +144,73 @@ class FinetuneConfig:
                 parser.add_argument(name, type=typ, default=f.default)
         ns = parser.parse_args(argv)
         return cls(**vars(ns))
+
+
+@dataclasses.dataclass
+class PretrainConfig:
+    model: str = "pretrain_videomae_base_patch16_224"
+    batch_size: int = 64
+    batch_size2: int = 0                   # second dataset (double DAPT)
+    batch_size3: int = 0                   # third dataset (triple loop)
+    epochs: int = 800
+    stop_at_epoch: int = -1                # hard stop (double DAPT uses 12)
+    update_freq: int = 1
+    # data
+    data_set: str = "DoTA"
+    data_set2: str = ""
+    data_set3: str = ""                    # train_one_epoch_triple
+    data_path: str = ""
+    data_path2: str = ""
+    data_path3: str = ""
+    # precomputed view lists (the *_prepared datasets: skip the per-clip
+    # duration scan at startup; see data.pretrain_datasets.load_view_list)
+    view_list: str = ""
+    view_list2: str = ""
+    view_list3: str = ""
+    # BDD100K: txt of relative video names fixing clip-id order (the
+    # prepared clips_txt, bdd100k.py:164-177); pairs with view_list
+    clips_list: str = ""
+    clips_list2: str = ""
+    clips_list3: str = ""
+    mask_type: str = "tube"
+    mask_ratio: float = 0.9
+    num_frames: int = 16
+    sampling_rate: int = 4
+    view_fps: int = 10
+    input_size: int = 224
+    transforms_finetune_align: bool = False
+    nb_samples_per_epoch: int = 0
+    num_workers: int = 8
+    # model
+    tubelet_size: int = 2
+    decoder_depth: int = 4
+    drop_path: float = 0.0
+    use_checkpoint: bool = False           # gradient checkpointing (remat)
+    normlize_target: bool = True           # (sic) reference spelling
+    # optimizer
+    opt: str = "adamw"
+    opt_eps: float = 1e-8
+    opt_betas: Sequence[float] = (0.9, 0.95)
+    clip_grad: Optional[float] = None
+    weight_decay: float = 0.05
+    weight_decay_end: Optional[float] = None
+    lr: float = 3e-4
+    warmup_lr: float = 1e-6
+    min_lr: float = 1e-5
+    warmup_epochs: int = 40
+    warmup_steps: int = -1
+    # checkpoints
+    from_ckpt: str = ""
+    output_dir: str = ""
+    log_dir: Optional[str] = None
+    resume: str = ""
+    auto_resume: bool = True
+    save_ckpt_freq: int = 20
+    seed: int = 0
+    start_epoch: int = 0
+    # TPU-specific
+    dtype: str = "bfloat16"
+    attn_impl: str = "auto"
+
+    save = FinetuneConfig.save
+    from_args = classmethod(FinetuneConfig.from_args.__func__)

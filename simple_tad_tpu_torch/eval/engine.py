@@ -13,7 +13,10 @@ package's jit artefacts (frame-count buckets, fixed chunk shapes, per-step
 program caches) are gone: chunks are simply the last, shorter slice.  One
 device; while the device scores a clip, the host decodes the next.
 
-The model is a VisionTransformer or an InternVideo2 (tubelet 1, patch 14;
+The model is a VisionTransformer (VideoMAE, MVD with or without its CLS
+token, UMT at tubelet 1: the position table and the CLS token are added
+inside the model from tokens, as forward_features adds them) or an
+InternVideo2 (tubelet 1, patch 14;
 its patch embedding has the ViT's ``patch_embed.proj`` names, and the CLS
 token and position table are added inside the model from tokens).
 ``quant8=True`` serves the int8 model (ops/quant.py) made from the fp32

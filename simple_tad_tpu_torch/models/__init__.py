@@ -1,7 +1,9 @@
-"""Model registry of the port: the VideoMAE ViT sizes and the InternVideo2
-single-modality sizes of simple_tad_tpu/models/__init__.py (names mirror
-the reference timm registry).  Other families of the JAX registry are not
-ported yet."""
+"""Model registry of the port: the VideoMAE ViT sizes, the MVD and UMT
+trunk variants, the InternVideo2 single-modality sizes and the VideoMAE /
+MVD pre-training models (PretrainVideoMAE) of
+simple_tad_tpu/models/__init__.py (names mirror the reference timm
+registry).  The InternVideo2 pre-training and distillation names of the
+JAX registry are not ported yet and raise, naming their ROADMAP item."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Dict, Tuple
 import torch
 
 from simple_tad_tpu_torch.models.internvideo2 import IV2Config, InternVideo2
+from simple_tad_tpu_torch.models.mae import MAEConfig, PretrainVideoMAE
 from simple_tad_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
 # (embed_dim, depth, num_heads) per trunk size
@@ -29,12 +32,48 @@ _IV2_SIZES = {
     "6B": (3200, 48, 25, 4.0),
 }
 
+# MAE decoder geometry per trunk size (decoder_embed_dim, decoder_num_heads)
+_MAE_DECODER = {
+    "small": (192, 3),
+    "base": (384, 6),
+    "large": (512, 8),
+    "huge": (640, 8),
+}
+
+
+def _mae(size: str, **extra) -> Tuple[str, dict]:
+    dim, depth, heads = _VIT_SIZES[size]
+    ddim, dheads = _MAE_DECODER[size]
+    return "mae", dict(img_size=224, patch_size=16, encoder_embed_dim=dim,
+                       encoder_depth=depth, encoder_num_heads=heads,
+                       decoder_embed_dim=ddim, decoder_num_heads=dheads,
+                       decoder_num_classes=1536, mlp_ratio=4.0,
+                       qkv_bias=True, **extra)
+
+
 _REGISTRY: Dict[str, Tuple[str, dict]] = {
     **{f"vit_{size}_patch16_{img}": ("vit", dict(
         img_size=img, patch_size=16, embed_dim=dim, depth=depth,
         num_heads=heads, mlp_ratio=4.0, qkv_bias=True))
        for size, (dim, depth, heads) in _VIT_SIZES.items()
        for img in (224, 384, 512)},
+    # MVD: the 3-D sincos table (its CLS token is ``use_cls_token``)
+    **{f"mvd_vit_{size}_patch16_224": ("vit", dict(
+        img_size=224, patch_size=16, embed_dim=dim, depth=depth,
+        num_heads=heads, mlp_ratio=4.0, qkv_bias=True, pos_embed_kind="3d"))
+       for size, (dim, depth, heads) in _VIT_SIZES.items()},
+    # UMT: tubelet 1, 8 frames, the interpolated checkpoint-geometry table
+    **{f"umt_vit_{size}_patch16_224": ("vit", dict(
+        img_size=224, patch_size=16, embed_dim=_VIT_SIZES[size][0],
+        depth=_VIT_SIZES[size][1], num_heads=_VIT_SIZES[size][2],
+        mlp_ratio=4.0, qkv_bias=True, tubelet_size=1, all_frames=8,
+        pos_embed_kind="umt"))
+       for size in ("base", "large")},
+    # VideoMAE pre-training, and MVD's (the 3-D table in the encoder)
+    **{f"pretrain_videomae_{size}_patch16_224": _mae(size)
+       for size in _VIT_SIZES},
+    **{f"pretrain_videomae_mvd_{size}_patch16_224": _mae(
+        size, pos_embed_kind="3d") for size in _VIT_SIZES},
     **{f"internvideo2_{size}_patch14_224": ("iv2", dict(
         img_size=224, patch_size=14, embed_dim=dim, depth=depth,
         num_heads=heads, mlp_ratio=ratio, attn_pool_num_heads=16,
@@ -42,7 +81,18 @@ _REGISTRY: Dict[str, Tuple[str, dict]] = {
        for size, (dim, depth, heads, ratio) in _IV2_SIZES.items()},
 }
 _FAMILIES = {"vit": (ViTConfig, VisionTransformer),
-             "iv2": (IV2Config, InternVideo2)}
+             "iv2": (IV2Config, InternVideo2),
+             "mae": (MAEConfig, PretrainVideoMAE)}
+# names of the JAX registry that the port does not build yet
+_NOT_PORTED = {
+    **{name: "queue 1 item 7, PretrainIV2VideoMAE" for name in (
+        ["pretrain_videomae_internvideo2_patch14_224"]
+        + [f"pretrain_videomae_internvideo2_{size}_patch14_224"
+           for size in _VIT_SIZES])},
+    **{f"distill_internvideo2_{size}_patch14_224":
+       "queue 1 item 7, models/iv2_distill.py"
+       for size in ("small", "base", "large")},
+}
 
 
 def list_models():
@@ -50,7 +100,10 @@ def list_models():
 
 
 def model_family(name: str) -> str:
-    """'vit' or 'iv2' for a registry name."""
+    """'vit', 'iv2' or 'mae' for a registry name."""
+    if name in _NOT_PORTED:
+        raise KeyError(f"model {name!r} is not ported yet (ROADMAP.md "
+                       f"{_NOT_PORTED[name]})")
     if name not in _REGISTRY:
         raise KeyError(
             f"model {name!r} is not ported yet (ROADMAP.md queue 1); "
@@ -70,7 +123,9 @@ def create_model(name: str, *, device, generator: torch.Generator = None,
     ``attn_drop_rate``, which its config lacks) are ignored, as in the JAX
     registry.  For InternVideo2, ``all_frames`` sets ``num_frames``, as
     the JAX registry maps it, and ``param_dtype``, ``drop_path_rate`` and
-    ``fc_drop_rate`` reach its config as they reach the ViT's.  With
+    ``fc_drop_rate`` reach its config as they reach the ViT's.  The
+    pre-training models (PretrainVideoMAE) take MAEConfig's fields
+    (``decoder_depth``, ``drop_path_rate``, ``param_dtype``, ...).  With
     ``generator`` the weights are initialised from it; otherwise they are
     left uninitialised for a checkpoint to fill."""
     kind = model_family(name)

@@ -114,6 +114,71 @@ def sincos_pos_embed(n_position: int, dim: int) -> np.ndarray:
     return table[None].astype(np.float32)
 
 
+def sincos_1d_mae(dim: int, positions: np.ndarray,
+                  scale: float = None) -> np.ndarray:
+    """MAE-style 1-D sincos, [sin block | cos block] (not interleaved):
+    get_1d_sincos_pos_embed_from_grid of the MVD reference, float64."""
+    omega = np.arange(dim // 2, dtype=np.float64) / (dim / 2.0)
+    omega = 1.0 / 10000 ** omega
+    pos = positions.reshape(-1).astype(np.float64)
+    if scale is not None:
+        pos = pos * scale
+    out = np.einsum("m,d->md", pos, omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def sincos_3d_pos_embed(dim: int, grid_size: int, t_size: int,
+                        scale_t: float = None) -> np.ndarray:
+    """MVD's 3-D sincos table, (1, t * g * g, dim) float32 in (t, h, w)
+    token order: a temporal block of dim / 4 columns, then the spatial
+    3 * dim / 4, whose first half encodes the w coordinate and second half
+    the h coordinate (get_3d_sincos_pos_embed of the MVD reference)."""
+    if dim % 4:
+        raise ValueError(f"the 3-D sincos table needs dim % 4 == 0, got "
+                         f"{dim}")
+    dim_sp, dim_t = dim // 4 * 3, dim // 4
+    grid = np.arange(grid_size, dtype=np.float64)
+    grid_w, grid_h = np.meshgrid(grid, grid)          # w varies fastest
+    spatial = np.concatenate([sincos_1d_mae(dim_sp // 2, grid_w),
+                              sincos_1d_mae(dim_sp // 2, grid_h)], axis=1)
+    temporal = sincos_1d_mae(dim_t, np.arange(t_size, dtype=np.float64),
+                             scale=scale_t)
+    temporal = np.repeat(temporal[:, None, :], grid_size ** 2, axis=1)
+    spatial = np.repeat(spatial[None, :, :], t_size, axis=0)
+    pos = np.concatenate([temporal, spatial], axis=-1)
+    return pos.reshape(1, -1, dim).astype(np.float32)
+
+
+def umt_pos_embed(num_patches: int, dim: int, cur_frames: int,
+                  patch_size: int = 16) -> np.ndarray:
+    """UMT's table, (1, num_patches, dim) float32: the 1-D sincos table
+    generated at the checkpoint's geometry (8 frames of 14 x 14 patches,
+    1568 rows; 2048 at patch 14), resized bicubically in space to the
+    runtime grid, then linearly in time to ``cur_frames`` (the UMT
+    reference's modeling_finetune.py:195-239)."""
+    import torch.nn.functional as F
+    pre_n = 2048 if patch_size == 14 else 1568
+    table = sincos_pos_embed(pre_n, dim)
+    if num_patches // cur_frames * 8 != pre_n and cur_frames != -1:
+        T, P = 8, 14
+        new_p = int((num_patches // cur_frames) ** 0.5)
+        t = torch.from_numpy(table).reshape(-1, T, P, P, dim)
+        t = t.reshape(-1, P, P, dim).permute(0, 3, 1, 2)
+        t = F.interpolate(t, size=(new_p, new_p), mode="bicubic",
+                          align_corners=False)
+        t = t.permute(0, 2, 3, 1).reshape(-1, T, new_p, new_p, dim)
+        table = t.flatten(1, 3).numpy()
+    if cur_frames not in (-1, 8):
+        T = 8
+        P = int((num_patches // cur_frames) ** 0.5)
+        t = torch.from_numpy(np.asarray(table)).reshape(-1, T, P, P, dim)
+        t = t.permute(0, 2, 3, 4, 1).reshape(-1, dim, T)
+        t = F.interpolate(t, size=cur_frames, mode="linear")
+        t = t.reshape(1, P, P, dim, cur_frames).permute(0, 4, 1, 2, 3)
+        table = t.flatten(1, 3).numpy()
+    return np.asarray(table, np.float32)
+
+
 def trunc_normal(shape, std: float, generator: torch.Generator
                  ) -> torch.Tensor:
     """fp32 CPU sample of std * N(0, 1) truncated to [-2, 2] (inverse CDF)."""

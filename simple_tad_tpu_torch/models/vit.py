@@ -1,11 +1,16 @@
 """VideoMAE-style video Vision Transformer, in PyTorch.
 
-Port of simple_tad_tpu/models/vit.py:VisionTransformer for the fixed
-sincos position table without a CLS token (the VideoMAE fine-tuned models
-of the main path).  Input is channels-last video (B, T, H, W, C), or
-pre-embedded tokens (B, num_patches, D) with ``tokens_input=True``.  The
-sincos table is a non-persistent buffer: it is regenerated, never loaded.
-The head runs in fp32.  ``quant=True`` builds the int8 model
+Port of simple_tad_tpu/models/vit.py:VisionTransformer.  Input is
+channels-last video (B, T, H, W, C), or pre-embedded tokens
+(B, num_patches, D) with ``tokens_input=True``; the position table and
+the CLS token are added inside the model in both cases.  The position
+table is ``pos_embed_kind`` 'sincos' (VideoMAE, the main path), '3d'
+(MVD's temporal + spatial sincos) or 'umt' (UMT's checkpoint-geometry
+table, interpolated), a non-persistent buffer that is regenerated, never
+loaded; or, with ``use_learnable_pos_emb``, the parameter ``pos_embed``.
+``use_cls_token`` prepends the parameter ``cls_token`` after the position
+add (it gets no position) and leaves it out of the fc_norm mean pool
+(MVD).  The head runs in fp32.  ``quant=True`` builds the int8 model
 (models/layers.py, ops/quant.py) in ``quant_mode`` 'static', 'dynamic' or
 'calib'; its state comes from ops/quant.py and is never initialised.  The
 static model's serving options ``fused_w8a8``, ``fused_mlp``, ``qkv_i8``,
@@ -44,10 +49,14 @@ import torch
 from torch import nn
 
 from simple_tad_tpu_torch.models.layers import (Block, LayerNormFp32, Linear,
-                                                PatchEmbed,
+                                                PatchEmbed, _param,
                                                 check_static_options, dropout,
-                                                sincos_pos_embed)
+                                                sincos_3d_pos_embed,
+                                                sincos_pos_embed,
+                                                trunc_normal, umt_pos_embed)
 from simple_tad_tpu_torch.ops.attention import DROPOUT_FORMS
+
+POS_EMBED_KINDS = ("sincos", "3d", "umt")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,15 +115,26 @@ class ViTConfig:
                 * (self.all_frames // self.tubelet_size))
 
 
+def fixed_pos_embed(cfg) -> np.ndarray:
+    """The fixed (1, num_patches, embed_dim) float32 position table of
+    ``cfg.pos_embed_kind``."""
+    if cfg.pos_embed_kind == "3d":
+        return sincos_3d_pos_embed(cfg.embed_dim,
+                                   cfg.img_size // cfg.patch_size,
+                                   cfg.all_frames // cfg.tubelet_size)
+    if cfg.pos_embed_kind == "umt":
+        return umt_pos_embed(cfg.num_patches, cfg.embed_dim,
+                             cfg.all_frames // cfg.tubelet_size,
+                             cfg.patch_size)
+    return sincos_pos_embed(cfg.num_patches, cfg.embed_dim)
+
+
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, *, device):
         super().__init__()
-        if (cfg.pos_embed_kind != "sincos" or cfg.use_cls_token
-                or cfg.use_learnable_pos_emb):
-            raise NotImplementedError(
-                "MVD / UMT position tables, learnable position tables and "
-                "the CLS token are not ported yet (ROADMAP.md queue 1, "
-                "trunk variants)")
+        if cfg.pos_embed_kind not in POS_EMBED_KINDS:
+            raise ValueError(f"unknown pos_embed_kind {cfg.pos_embed_kind!r}"
+                             f"; expected one of {POS_EMBED_KINDS}")
         if cfg.final_reduction not in ("fc_norm", "cls", "none"):
             raise ValueError(f"unknown final_reduction {cfg.final_reduction!r}")
         if cfg.attn_dropout_form not in DROPOUT_FORMS:
@@ -134,11 +154,15 @@ class VisionTransformer(nn.Module):
                                       cfg.tubelet_size, cfg.in_chans,
                                       dtype=dt, param_dtype=pdt,
                                       device=device)
-        self.register_buffer(
-            "pos_embed",
-            torch.from_numpy(sincos_pos_embed(cfg.num_patches, cfg.embed_dim)
-                             ).to(device=device, dtype=dt),
-            persistent=False)
+        if cfg.use_learnable_pos_emb:
+            self.pos_embed = _param((1, cfg.num_patches, cfg.embed_dim),
+                                    pdt or dt, device)
+        else:
+            self.register_buffer(
+                "pos_embed", torch.from_numpy(fixed_pos_embed(cfg)).to(
+                    device=device, dtype=dt), persistent=False)
+        self.cls_token = (_param((1, 1, cfg.embed_dim), pdt or dt, device)
+                          if cfg.use_cls_token else None)
         dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
         self.blocks = nn.ModuleList(
             Block(cfg.embed_dim, cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
@@ -169,6 +193,12 @@ class VisionTransformer(nn.Module):
                 "the int8 model is not initialised: its state comes from "
                 "ops/quant.py:quantize_vit_params of an fp32 state dict")
         self.patch_embed.init_weights(generator)
+        with torch.no_grad():
+            if cfg.use_learnable_pos_emb:
+                self.pos_embed.copy_(trunc_normal(self.pos_embed.shape, 0.02,
+                                                  generator))
+            if self.cls_token is not None:
+                self.cls_token.zero_()
         for blk in self.blocks:
             blk.init_weights(generator)
         self.final_norm().init_weights()
@@ -185,8 +215,11 @@ class VisionTransformer(nn.Module):
                          generator=None):
         cfg = self.cfg
         tokens = x.to(cfg.dtype) if tokens_input else self.patch_embed(x)
-        tokens = dropout(tokens + self.pos_embed, cfg.drop_rate,
-                         self.training, generator)
+        tokens = tokens + self.pos_embed.to(cfg.dtype)
+        if self.cls_token is not None:
+            cls = self.cls_token.to(cfg.dtype).expand(tokens.shape[0], -1, -1)
+            tokens = torch.cat([cls, tokens], dim=1)
+        tokens = dropout(tokens, cfg.drop_rate, self.training, generator)
         if self._carry():
             pending = torch.zeros_like(tokens)
             for blk in self.blocks:
@@ -196,6 +229,8 @@ class VisionTransformer(nn.Module):
             for blk in self.blocks:
                 tokens = blk(tokens, generator)
         if cfg.final_reduction == "fc_norm":
+            if self.cls_token is not None:
+                tokens = tokens[:, 1:]
             return self.fc_norm(tokens.mean(dim=1))
         tokens = self.norm(tokens)
         return tokens[:, 0] if cfg.final_reduction == "cls" else tokens

@@ -17,8 +17,16 @@ those parameters), so tests can feed both packages the same parameters.
 The whole batch is processed at once on its device: per-sample parameters
 are tensors, and the RandAugment ops run once per (layer, op) on the
 samples that drew that op.  Video is float (B, T, H, W, C) in [0, 255]
-(channels-last, as in the JAX package).  The pre-training augmentations
-and mixup/cutmix are not ported yet (ROADMAP.md queue 1).
+(channels-last, as in the JAX package).
+
+The pre-training (MAE / DAPT) pipelines (the JAX package's
+pretrain_augment_orig and pretrain_augment_align) follow the same split:
+``group_multi_scale_crop`` (TSN's GroupMultiScaleCrop: a (w, h) crop pair
+of the scaled base size, one of 13 fixed offsets, bilinear resize,
+clip-consistent per sample), and ``pretrain_augment_align``'s
+pad + resize, RandAugment on the clips whose gate draw exceeds 0.3
+(dota.py:706) and a light crop.  Mixup/cutmix are not ported yet
+(ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -416,3 +424,142 @@ def train_augment(video_u8, generator, *, crop_size: int = 224,
     if reprob > 0:
         x = random_erasing(x, generator, probability=reprob)
     return x.to(dtype)
+
+
+# --------------------------------------------- pre-training (MAE / DAPT) --
+
+ORIG_SCALES = (1.0, 0.875, 0.75, 0.66)
+ALIGN_SCALES = (1, 1, 0.975, 0.95, 0.9, 0.875, 0.85)
+# the 13 fixed offsets of GroupMultiScaleCrop (transforms.py:139-165), as
+# multiples of a quarter of the slack, (w, h)
+CROP_OFFSETS = ((0, 0), (4, 0), (0, 4), (4, 4), (2, 2), (0, 2), (4, 2),
+                (2, 4), (2, 0), (1, 1), (3, 1), (1, 3), (3, 3))
+
+
+def crop_pairs(H: int, W: int, out_size: int, scales=ORIG_SCALES,
+               max_distort: int = 1):
+    """The (w, h) crop sizes GroupMultiScaleCrop chooses among: the base
+    size min(H, W) times each scale (snapped to out_size within 3 pixels),
+    pairs whose scale indices differ by at most ``max_distort``."""
+    sizes = [int(min(H, W) * s) for s in scales]
+    sizes = [out_size if abs(s - out_size) < 3 else s for s in sizes]
+    return [(w, h) for i, h in enumerate(sizes)
+            for j, w in enumerate(sizes) if abs(i - j) <= max_distort]
+
+
+def draw_multi_scale_crop(video, generator, scales=ORIG_SCALES,
+                          max_distort: int = 1) -> Dict[str, torch.Tensor]:
+    """Per sample: the index of its (w, h) crop pair (uniform) and of its
+    offset (uniform over the 13).  The pair count depends on the scales
+    alone, not on the video's size."""
+    B = video.shape[0]
+    n = len(scales)
+    n_pairs = sum(abs(i - j) <= max_distort for i in range(n)
+                  for j in range(n))
+    dev = video.device
+    return {"pair": torch.randint(0, n_pairs, (B,), generator=generator,
+                                  device=dev),
+            "offset": torch.randint(0, len(CROP_OFFSETS), (B,),
+                                    generator=generator, device=dev)}
+
+
+def apply_multi_scale_crop(video, params, out_size: int, scales=ORIG_SCALES,
+                           max_distort: int = 1):
+    """Crop each clip at its drawn size and offset and resize it to
+    out_size x out_size by bilinear sampling at pixel centres (PIL's crop
+    then resize, without its antialiasing): (B, T, H, W, C) float ->
+    (B, T, out, out, C); samples outside the clip read 0."""
+    B, T, H, W, C = video.shape
+    dev = video.device
+    pairs = torch.tensor(crop_pairs(H, W, out_size, scales, max_distort),
+                         dtype=torch.float32, device=dev)
+    mult = torch.tensor(CROP_OFFSETS, dtype=torch.float32, device=dev)
+    crop_w, crop_h = pairs[params["pair"]].unbind(1)
+    off_w = mult[params["offset"], 0] * torch.floor((W - crop_w) / 4.0)
+    off_h = mult[params["offset"], 1] * torch.floor((H - crop_h) / 4.0)
+    o = torch.arange(out_size, dtype=torch.float32, device=dev)
+    sx = off_w[:, None] + (o + 0.5) * (crop_w / out_size)[:, None] - 0.5
+    sy = off_h[:, None] + (o + 0.5) * (crop_h / out_size)[:, None] - 0.5
+    sx = sx[:, None, :].expand(B, out_size, out_size)      # (B, y, x)
+    sy = sy[:, :, None].expand(B, out_size, out_size)
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    wx = (sx - x0)[:, None, :, :, None]
+    wy = (sy - y0)[:, None, :, :, None]
+    x0i = x0.long().clamp(0, W - 1)
+    x1i = (x0i + 1).clamp(0, W - 1)
+    y0i = y0.long().clamp(0, H - 1)
+    y1i = (y0i + 1).clamp(0, H - 1)
+    bidx = torch.arange(B, device=dev)[:, None, None]
+
+    def at(yi, xi):
+        return video[bidx, :, yi, xi].permute(0, 3, 1, 2, 4)
+
+    top = at(y0i, x0i) * (1 - wx) + at(y0i, x1i) * wx
+    bot = at(y1i, x0i) * (1 - wx) + at(y1i, x1i) * wx
+    out = top * (1 - wy) + bot * wy
+    valid = ((sx >= -0.5) & (sx <= W - 0.5) & (sy >= -0.5)
+             & (sy <= H - 0.5))[:, None, :, :, None]
+    return torch.where(valid, out, torch.zeros((), device=dev))
+
+
+def group_multi_scale_crop(video, generator, out_size: int,
+                           scales=ORIG_SCALES, max_distort: int = 1):
+    return apply_multi_scale_crop(
+        video, draw_multi_scale_crop(video, generator, scales, max_distort),
+        out_size, scales, max_distort)
+
+
+def draw_pretrain_orig(video_u8, generator) -> Dict[str, torch.Tensor]:
+    """The draws of ``pretrain_augment_orig``: its crop."""
+    return {"crop": draw_multi_scale_crop(video_u8, generator)}
+
+
+def apply_pretrain_orig(video_u8, params, *, crop_size: int = 224,
+                        dtype=torch.float32):
+    """MAE's 'orig' pipeline (datasets_frame.py:13-39): GroupMultiScaleCrop
+    [1, .875, .75, .66] -> /255 -> ImageNet normalize, in ``dtype``."""
+    x = apply_multi_scale_crop(video_u8.float(), params["crop"], crop_size)
+    return normalize(x).to(dtype)
+
+
+def pretrain_augment_orig(video_u8, generator, *, crop_size: int = 224,
+                          dtype=torch.float32):
+    return apply_pretrain_orig(video_u8, draw_pretrain_orig(video_u8,
+                                                            generator),
+                               crop_size=crop_size, dtype=dtype)
+
+
+def draw_pretrain_align(video_u8, generator, *, magnitude: float = 6.0,
+                        num_layers: int = 3
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The draws of ``pretrain_augment_align``: the pad, the RandAugment
+    layers, the per-clip gate (U(0, 1)) and the crop of the padded
+    clips."""
+    return {"pad": draw_pad_wide(video_u8, generator),
+            "ra": draw_rand_augment(video_u8, generator, magnitude=magnitude,
+                                    num_layers=num_layers),
+            "gate": _uniform(video_u8.shape[0], generator, video_u8.device),
+            "crop": draw_multi_scale_crop(video_u8, generator, ALIGN_SCALES)}
+
+
+def apply_pretrain_align(video_u8, params, *, crop_size: int = 224,
+                         dtype=torch.float32):
+    """DAPT's 'transforms_finetune_align' pipeline (dota.py:697-716 with
+    DataAugmentationForVideoMAE_LightCrop): pad + resize -> the drive
+    RandAugment on the clips whose gate exceeds 0.3 -> the light
+    GroupMultiScaleCrop -> /255 -> ImageNet normalize, in ``dtype``."""
+    x = apply_pad_wide(video_u8.float(), params["pad"], crop_size)
+    aug = apply_rand_augment(x, params["ra"])
+    x = torch.where(_bcast(params["gate"] > 0.3), aug, x)
+    x = apply_multi_scale_crop(x, params["crop"], crop_size, ALIGN_SCALES)
+    return normalize(x).to(dtype)
+
+
+def pretrain_augment_align(video_u8, generator, *, crop_size: int = 224,
+                           magnitude: float = 6.0, num_layers: int = 3,
+                           dtype=torch.float32):
+    return apply_pretrain_align(
+        video_u8, draw_pretrain_align(video_u8, generator,
+                                      magnitude=magnitude,
+                                      num_layers=num_layers),
+        crop_size=crop_size, dtype=dtype)

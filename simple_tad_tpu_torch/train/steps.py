@@ -1,4 +1,4 @@
-"""The frame fine-tuning train step, in PyTorch.
+"""The frame fine-tuning and MAE pre-training train steps, in PyTorch.
 
 Port of simple_tad_tpu/train/steps.py:make_finetune_train_step (reference:
 the per-step body of engine_for_frame_finetuning.py:85-200): forward in
@@ -8,6 +8,13 @@ gradients, before clipping) and ``acc``, as 0-dim tensors on the device;
 the logits are returned beside them.  The JAX package splits one PRNG key
 per step for dropout and stochastic depth; here one ``torch.Generator`` on
 the model's device (``TrainState.generator``) draws every mask.
+
+``make_mae_train_step`` is the port of make_mae_train_step (reference:
+engine_for_pretraining.py:16-150): the per-patch-normalised pixel targets
+of the masked tokens from the normalised batch (models/mae.py:mae_targets,
+gather first, then fp32), the PretrainVideoMAE forward, the MSE over the
+masked tokens (``mae_loss``), backward and update; metrics ``loss`` and
+``grad_norm``.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from simple_tad_tpu_torch.models.mae import mae_targets
+from simple_tad_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
 from simple_tad_tpu_torch.train.optim import FinetuneOptimizer, global_norm
 
 
@@ -71,5 +80,49 @@ def make_finetune_train_step(criterion: Callable, *,
         state.step += 1
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "acc": acc}
         return metrics, logits.detach()
+
+    return step
+
+
+def mae_loss(model, batch: Dict[str, torch.Tensor], num_masked: int,
+             generator: torch.Generator, *,
+             normalize_target: bool = True) -> torch.Tensor:
+    """The MAE loss of one batch, in train mode: the MSE of the
+    PretrainVideoMAE prediction against the targets of the masked tokens.
+
+    batch: {'video': (B, T, H, W, C) ImageNet-normalised, 'mask': (B, N)
+    bool, True = masked, ``num_masked`` a row} on the model's device."""
+    cfg = model.cfg
+    video, mask = batch["video"], batch["mask"]
+    with torch.no_grad():
+        mean = torch.as_tensor(IMAGENET_MEAN, device=video.device)
+        std = torch.as_tensor(IMAGENET_STD, device=video.device)
+        targets = mae_targets(video, mask, num_masked,
+                              patch_size=cfg.patch_size,
+                              tubelet_size=cfg.tubelet_size,
+                              normalize_target=normalize_target,
+                              mean=mean, std=std)
+    model.train()
+    pred = model(video, mask, num_masked, generator=generator)
+    return (pred - targets).square().mean()
+
+
+def make_mae_train_step(*, num_masked: int, normalize_target: bool = True):
+    """-> step(state, batch) -> metrics, for a PretrainVideoMAE state; batch
+    as ``mae_loss`` takes it."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        opt = state.optimizer
+        opt.zero_grad()
+        loss = mae_loss(state.model, batch, num_masked, state.generator,
+                        normalize_target=normalize_target)
+        loss.backward()
+        with torch.no_grad():
+            grad_norm = global_norm(p.grad for p in opt.params.values()
+                                    if p.grad is not None)
+            opt.step()
+        state.step += 1
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
 
     return step

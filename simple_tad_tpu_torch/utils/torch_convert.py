@@ -1,16 +1,27 @@
 """Checkpoints into the port's models: reference ``.pth`` files and JAX
 params.
 
-Port of simple_tad_tpu/utils/torch_convert.py for the VideoMAE ViT and
-InternVideo2.  The
+Port of simple_tad_tpu/utils/torch_convert.py for the VideoMAE ViT (and
+its MVD and UMT variants), InternVideo2 and the pre-training
+PretrainVideoMAE.  The
 port's parameters already carry the reference's torch names, so a ``.pth``
-needs only the reference's key surgery (run_frame_finetuning.py:404-430):
+needs only the reference's key surgery (run_frame_finetuning.py:404-458):
 'model' | 'module' unwrapping, 'backbone.' / 'encoder.' prefixes,
-'encoder.norm' -> 'fc_norm', and dropping a classifier head whose class
-count does not match.  A fixed sincos ``pos_embed`` is never loaded (the
-port regenerates it).  ``from_jax_params`` is the inverse of the JAX
-package's torch_to_vit_params: JAX VisionTransformer params (nested dicts
-of numpy arrays, blocks stacked on a leading depth axis) -> a state dict.
+'encoder.norm' -> 'fc_norm' (so the encoder of a DAPT checkpoint loads
+into the fine-tuning ViT), a K710 head remapped to 400/600/700 classes
+(``_remap_710_head``), dropping a classifier head whose class count does
+not match, and a learnable ``pos_embed`` of another spatial grid
+resampled bicubically (``interpolate_pos_embed``).  A fixed ``pos_embed``
+(sincos, 3-D, UMT) is never loaded (the port regenerates it); a
+``cls_token`` loads where the model has one.  ``load_mae_checkpoint`` is
+the pre-training CLI's ``--from_ckpt`` warm start: every key of the JAX
+package's torch_to_mae_params must be in the file, and each is laid over
+the initialised model (the JAX merge_params).  ``from_jax_params`` is the
+inverse of the JAX package's torch_to_vit_params: JAX VisionTransformer
+params (nested dicts of numpy arrays, blocks stacked on a leading depth
+axis) -> a state dict; it reads the JAX PretrainVideoMAE tree too
+(``encoder_patch_embed``, the scanned ``encoder`` / ``decoder`` stacks,
+``encoder_to_decoder``, ``mask_token``, ``decoder_head``).
 It also reads the JAX package's quantized, calibrated tree
 (ops/quant.py there: ``qkv_q``/``kernel_q`` int8, ``*_scale``, the
 ``act_amax``/``qkv_amax``/``out_amax`` absmax) into the port's int8 model
@@ -30,10 +41,12 @@ initialise the fp32 training model of either family (cli/finetune.py
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import warnings
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -66,20 +79,75 @@ def remap_finetune_keys(sd: Mapping[str, Any]) -> Dict[str, Any]:
     return new
 
 
-def _drop_mismatched_head(sd, num_classes: int) -> None:
-    """A classifier head of another class count is not loaded (the model
-    keeps its fresh head, run_frame_finetuning.py:414-417)."""
-    if "head.weight" in sd and sd["head.weight"].shape[0] != num_classes:
+def _remap_710_head(head_w, head_b, num_classes: Optional[int],
+                    head_label_map: Optional[Sequence[int]]):
+    """A K710-pretrained 710-row classifier head -> the Kinetics finetune
+    head (the IV2 reference's run_finetuning.py:388-400): 400 classes take
+    the first 400 rows; 600 and 700 gather the rows ``head_label_map``
+    names (the reference's k710/label_mixto{N}.json, a list of 710-space
+    indices).  Any other mismatch comes back unchanged, for the caller's
+    drop-the-head rule."""
+    if (num_classes is None or head_w.shape[0] != 710
+            or num_classes == 710):
+        return head_w, head_b
+    if num_classes == 400:
+        return head_w[:400], head_b[:400]
+    if num_classes in (600, 700):
+        if head_label_map is not None:
+            idx = torch.as_tensor(np.asarray(head_label_map, np.int64))
+            if idx.shape != (num_classes,):
+                raise ValueError(f"label map has {idx.shape[0]} entries, "
+                                 f"expected {num_classes}")
+            return head_w[idx], head_b[idx]
+        # the IV2 reference always remaps 710 -> 600/700 by its label map;
+        # without one the head is dropped and freshly initialised: say so
+        warnings.warn(
+            f"710-row pretrained head with nb_classes={num_classes} and no "
+            "head_label_map: the head will be dropped and freshly "
+            "initialized. The reference remaps it via "
+            "k710/label_mixto{N}.json; pass that list as head_label_map "
+            "to reproduce its runs.", stacklevel=3)
+    return head_w, head_b
+
+
+def _fit_head(sd, num_classes: int, head_label_map=None) -> None:
+    """The checkpoint's classifier head for a ``num_classes`` model: a
+    K710 head remapped, and a head of another class count not loaded (the
+    model keeps its fresh head, run_frame_finetuning.py:414-417)."""
+    if "head.weight" not in sd:
+        return
+    w, b = _remap_710_head(sd["head.weight"], sd["head.bias"], num_classes,
+                           head_label_map)
+    if w.shape[0] != num_classes:
         sd.pop("head.weight")
         sd.pop("head.bias", None)
+    else:
+        sd["head.weight"], sd["head.bias"] = w, b
 
 
-def load_vit_checkpoint(path: str, model, num_classes: Optional[int] = None):
+def interpolate_pos_embed(pos: torch.Tensor, *, num_temporal: int,
+                          new_size: int) -> torch.Tensor:
+    """Bicubic spatial resampling of a (1, T * H * W, D) position table to
+    a new_size x new_size grid (run_frame_finetuning.py:433-458)."""
+    d = pos.shape[-1]
+    orig_size = int((pos.shape[1] // num_temporal) ** 0.5)
+    if orig_size == new_size:
+        return pos
+    t = pos.reshape(-1, num_temporal, orig_size, orig_size, d)
+    t = t.reshape(-1, orig_size, orig_size, d).permute(0, 3, 1, 2)
+    t = F.interpolate(t, size=(new_size, new_size), mode="bicubic",
+                      align_corners=False)
+    return t.permute(0, 2, 3, 1).reshape(1, -1, d)
+
+
+def load_vit_checkpoint(path: str, model, num_classes: Optional[int] = None,
+                        head_label_map: Optional[Sequence[int]] = None):
     """Read a reference .pth into ``model`` by parameter name.
 
     Parameters the checkpoint lacks keep their values (a fresh head, for
     instance); checkpoint keys the model lacks are ignored; any other shape
-    mismatch raises.  Returns the names that were loaded."""
+    mismatch raises.  A learnable position table of another spatial grid is
+    resampled to the model's.  Returns the names that were loaded."""
     sd = remap_finetune_keys(load_torch_state_dict(path))
     cfg = model.cfg
     if cfg.final_reduction == "fc_norm" and "fc_norm.weight" not in sd \
@@ -87,28 +155,73 @@ def load_vit_checkpoint(path: str, model, num_classes: Optional[int] = None):
         # some MAE-encoder exports keep the final norm as 'norm'
         sd["fc_norm.weight"] = sd.pop("norm.weight")
         sd["fc_norm.bias"] = sd.pop("norm.bias")
-    _drop_mismatched_head(sd, cfg.num_classes if num_classes is None
-                          else num_classes)
-    sd.pop("pos_embed", None)
+    _fit_head(sd, cfg.num_classes if num_classes is None else num_classes,
+              head_label_map)
+    if not cfg.use_learnable_pos_emb:
+        sd.pop("pos_embed", None)
+    elif "pos_embed" in sd and \
+            tuple(sd["pos_embed"].shape) != tuple(model.pos_embed.shape):
+        sd["pos_embed"] = interpolate_pos_embed(
+            sd["pos_embed"], num_temporal=cfg.all_frames // cfg.tubelet_size,
+            new_size=cfg.img_size // cfg.patch_size)
     return _load_by_name(model, sd)
 
 
-def load_iv2_checkpoint(path: str, model):
+def load_iv2_checkpoint(path: str, model,
+                        head_label_map: Optional[Sequence[int]] = None):
     """Read a reference InternVideo2 .pth into ``model`` by parameter name,
     with the rules of ``load_vit_checkpoint``; the position table is a
     learned parameter and is loaded.  Returns the names that were
     loaded."""
     sd = load_torch_state_dict(path)
-    _drop_mismatched_head(sd, model.cfg.num_classes)
+    _fit_head(sd, model.cfg.num_classes, head_label_map)
     return _load_by_name(model, sd)
 
 
-def load_checkpoint_auto(path: str, model):
-    """Model-aware .pth loader: InternVideo2 or the ViT."""
+# the keys the JAX package's torch_to_mae_params reads besides the blocks
+MAE_KEYS = ("encoder.patch_embed.proj.weight", "encoder.patch_embed.proj.bias",
+            "encoder.norm.weight", "encoder.norm.bias",
+            "encoder_to_decoder.weight", "mask_token",
+            "decoder.norm.weight", "decoder.norm.bias",
+            "decoder.head.weight", "decoder.head.bias")
+
+
+def load_mae_checkpoint(path: str, model):
+    """The pre-training warm start (``--from_ckpt``; the JAX CLI's
+    torch_to_mae_params + merge_params): a reference VideoMAE pre-training
+    .pth laid over the initialised PretrainVideoMAE by name.  Every key the
+    JAX converter reads must be there (the patch embedding, both block
+    stacks to the model's depths, the norms, encoder_to_decoder, the mask
+    token and the decoder head); others (a position table) are ignored.
+    Returns the names that were loaded."""
+    sd = load_torch_state_dict(path)
+    cfg = model.cfg
+    need = list(MAE_KEYS) + [
+        f"{part}.blocks.{i}.{leaf}"
+        for part, depth in (("encoder", cfg.encoder_depth),
+                            ("decoder", cfg.decoder_depth))
+        for i in range(depth)
+        for leaf in ("norm1.weight", "norm2.weight", "attn.qkv.weight",
+                     "attn.proj.weight", "mlp.fc1.weight", "mlp.fc2.weight")]
+    missing = [k for k in need if k not in sd]
+    if missing:
+        raise KeyError(f"{path} is not a VideoMAE pre-training checkpoint of "
+                       f"this geometry: it lacks {missing[:4]}")
+    return _load_by_name(model, sd)
+
+
+def load_checkpoint_auto(path: str, model,
+                         head_label_map: Optional[Sequence[int]] = None):
+    """Model-aware .pth loader: InternVideo2, PretrainVideoMAE or the ViT
+    (``head_label_map``: the K710 head remap indices of a 600/700-class
+    fine-tune)."""
     from simple_tad_tpu_torch.models.internvideo2 import InternVideo2
+    from simple_tad_tpu_torch.models.mae import PretrainVideoMAE
     if isinstance(model, InternVideo2):
-        return load_iv2_checkpoint(path, model)
-    return load_vit_checkpoint(path, model)
+        return load_iv2_checkpoint(path, model, head_label_map)
+    if isinstance(model, PretrainVideoMAE):
+        return load_mae_checkpoint(path, model)
+    return load_vit_checkpoint(path, model, head_label_map=head_label_map)
 
 
 def _load_by_name(model, sd):
@@ -149,16 +262,52 @@ def from_jax_params(params: Mapping[str, Any], *,
     ``tubelet_size`` defaults to the family's (ViT 2, InternVideo2 1)."""
     if "patch_kernel" in params:
         return _from_jax_iv2(params, tubelet_size or 1, in_chans)
+    if "encoder_patch_embed" in params:
+        return _from_jax_mae(params, tubelet_size or 2, in_chans)
 
     out: Dict[str, np.ndarray] = {}
     out["patch_embed.proj.weight"] = _conv3d_from_kernel(
         _f32(params["patch_embed"]["kernel"]), tubelet_size or 2, in_chans)
     out["patch_embed.proj.bias"] = _f32(params["patch_embed"]["bias"])
+    for key in ("cls_token", "pos_embed"):
+        if key in params:
+            out[key] = _f32(params[key])
+    _vit_blocks(out, params["blocks"], "blocks.")
+    for norm in ("fc_norm", "norm"):
+        if norm in params:
+            out[norm + ".weight"] = _f32(params[norm]["scale"])
+            out[norm + ".bias"] = _f32(params[norm]["bias"])
+    if "head" in params:
+        _dense_leaves(out, "head", params["head"])
+    return {k: torch.from_numpy(v) for k, v in out.items()}
 
-    blocks = params["blocks"]
+
+def _from_jax_mae(params, tubelet_size: int, in_chans: int):
+    """The JAX PretrainVideoMAE tree (both stacks scanned) -> the
+    reference-named state dict."""
+    out: Dict[str, np.ndarray] = {
+        "encoder.patch_embed.proj.weight": _conv3d_from_kernel(
+            _f32(params["encoder_patch_embed"]["kernel"]), tubelet_size,
+            in_chans),
+        "encoder.patch_embed.proj.bias": _f32(
+            params["encoder_patch_embed"]["bias"]),
+        "encoder_to_decoder.weight": np.ascontiguousarray(
+            _f32(params["encoder_to_decoder"]["kernel"]).T),
+        "mask_token": _f32(params["mask_token"])}
+    for part in ("encoder", "decoder"):
+        _vit_blocks(out, params[part]["blocks"], f"{part}.blocks.")
+        out[f"{part}.norm.weight"] = _f32(params[part]["norm"]["scale"])
+        out[f"{part}.norm.bias"] = _f32(params[part]["norm"]["bias"])
+    _dense_leaves(out, "decoder.head", params["decoder_head"])
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def _vit_blocks(out, blocks, prefix: str) -> None:
+    """The ViT's scanned block stack (leaves stacked on a leading depth
+    axis) into ``out`` under ``prefix``<i>."""
     attn, mlp = blocks["attn"], blocks["mlp"]
     for i in range(np.shape(blocks["norm1"]["scale"])[0]):
-        pre = f"blocks.{i}."
+        pre = f"{prefix}{i}."
         for norm in ("norm1", "norm2"):
             out[pre + norm + ".weight"] = _f32(blocks[norm]["scale"][i])
             out[pre + norm + ".bias"] = _f32(blocks[norm]["bias"][i])
@@ -180,13 +329,6 @@ def from_jax_params(params: Mapping[str, Any], *,
         if "gamma_1" in blocks:
             out[pre + "gamma_1"] = _f32(blocks["gamma_1"][i])
             out[pre + "gamma_2"] = _f32(blocks["gamma_2"][i])
-    for norm in ("fc_norm", "norm"):
-        if norm in params:
-            out[norm + ".weight"] = _f32(params[norm]["scale"])
-            out[norm + ".bias"] = _f32(params[norm]["bias"])
-    if "head" in params:
-        _dense_leaves(out, "head", params["head"])
-    return {k: torch.from_numpy(v) for k, v in out.items()}
 
 
 def _dense_leaves(out, name, leaves, i=None):
@@ -323,24 +465,52 @@ def _iv2_layer(r: _Leaves, pre: str) -> Dict[str, Any]:
             "fc1": r.dense(pre + "mlp.fc1"), "fc2": r.dense(pre + "mlp.fc2")}
 
 
+def _patch_kernel(r: _Leaves, name: str) -> np.ndarray:
+    w = r.arr(name)                                     # (D, c, t, p, p)
+    return np.ascontiguousarray(
+        w.transpose(2, 3, 4, 1, 0).reshape(-1, w.shape[0]))
+
+
+def _depth(state, prefix: str) -> int:
+    return 1 + max(int(k[len(prefix):].split(".")[0]) for k in state
+                   if k.startswith(prefix))
+
+
+def _to_jax_mae(r: _Leaves, state) -> Dict[str, Any]:
+    out: Dict[str, Any] = {
+        "encoder_patch_embed": {
+            "kernel": _patch_kernel(r, "encoder.patch_embed.proj.weight"),
+            "bias": r.arr("encoder.patch_embed.proj.bias")},
+        "encoder_to_decoder": {"kernel": r.arr(
+            "encoder_to_decoder.weight").T},
+        "mask_token": r.arr("mask_token"),
+        "decoder_head": r.dense("decoder.head")}
+    for part in ("encoder", "decoder"):
+        pre = f"{part}.blocks."
+        out[part] = {"blocks": _stacked(_vit_layer(r, f"{pre}{i}.")
+                                        for i in range(_depth(state, pre))),
+                     "norm": r.norm(f"{part}.norm")}
+    return out
+
+
 def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of ``from_jax_params`` for the fp model: a reference-named
     state dict (or any dict keyed by the model's parameter names, such as
-    its gradients or Adam moments) -> the JAX VisionTransformer or
-    InternVideo2 tree of fp32 numpy arrays, blocks stacked on a leading
-    depth axis (InternVideo2: its flat ``patch_kernel``/``patch_bias`` and
-    the pooling head, the inverse of ``_from_jax_iv2``)."""
+    its gradients or Adam moments) -> the JAX VisionTransformer,
+    InternVideo2 or PretrainVideoMAE tree of fp32 numpy arrays, blocks
+    stacked on a leading depth axis (InternVideo2: its flat
+    ``patch_kernel``/``patch_bias`` and the pooling head, the inverse of
+    ``_from_jax_iv2``)."""
     r = _Leaves(state)
-    iv2 = "cls_token" in r
-    w = r.arr("patch_embed.proj.weight")                # (D, c, t, p, p)
-    kernel = np.ascontiguousarray(
-        w.transpose(2, 3, 4, 1, 0).reshape(-1, w.shape[0]))
+    if "encoder.patch_embed.proj.weight" in r:
+        return _to_jax_mae(r, state)
+    iv2 = "blocks.0.ls1.gamma" in r
+    kernel = _patch_kernel(r, "patch_embed.proj.weight")
     bias = r.arr("patch_embed.proj.bias")
-    depth = 1 + max(int(k.split(".")[1]) for k in state
-                    if k.startswith("blocks."))
     layer = _iv2_layer if iv2 else _vit_layer
     out: Dict[str, Any] = {
-        "blocks": _stacked(layer(r, f"blocks.{i}.") for i in range(depth))}
+        "blocks": _stacked(layer(r, f"blocks.{i}.")
+                           for i in range(_depth(state, "blocks.")))}
     if iv2:
         out.update(patch_kernel=kernel, patch_bias=bias,
                    cls_token=r.arr("cls_token"))
@@ -358,6 +528,9 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         out["clip_projector"] = pool
     else:
         out["patch_embed"] = {"kernel": kernel, "bias": bias}
+        for key in ("cls_token", "pos_embed"):
+            if key in r:
+                out[key] = r.arr(key)
     for norm in ("fc_norm", "norm"):
         if norm + ".weight" in r:
             out[norm] = r.norm(norm)

@@ -1612,3 +1612,78 @@ def test_int8_attention_wrappers_reject_what_the_kernels_refuse(cuda):
             fa.flash_attention_qkv_int8(torch.zeros((1, 8, c3), dtype=dtype,
                                                     device=cuda), amax, 2,
                                         0.2)
+
+
+# The pre-training (DAPT) and MVD / UMT shapes, bf16 at head dim 64 (the
+# wgmma routes): the MAE-B encoder's visible tokens at mask 0.75 and 0.9
+# (N = 392 and 160, and a 157-row tail), its decoder (all N = 1568 tokens at
+# C = 384 packed, H = 6) and MVD-B's sequence with its CLS token (N = 1569:
+# one row past a 64-row tile).
+DAPT_CASES = [(2, 392, 12, 64), (2, 160, 12, 64), (2, 157, 12, 64),
+              (2, 1568, 6, 64), (2, 1569, 12, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,heads,d", DAPT_CASES)
+def test_training_attention_at_dapt_and_mvd_shapes(b, n, heads, d, cuda):
+    """C1 and C2 against their plain versions, each call on the wgmma route
+    and counted once; C1's output is A1's bit for bit."""
+    dtype, scale = torch.bfloat16, d ** -0.5
+    qkv = _randn((b, n, 3 * heads * d), 41, cuda).to(dtype)
+    dout = _randn((b, n, heads * d), 42, cuda).to(dtype)
+    routes = (fa.FWD_WGMMA_LAUNCHES, fa.BWD_WGMMA_LAUNCHES)
+    out, lse = fa.flash_attention_qkv_fwd_lse(qkv, heads, scale)
+    got = fa.flash_attention_qkv_bwd(qkv, out, lse, dout, heads, scale)
+    torch.cuda.synchronize()
+    assert (fa.FWD_WGMMA_LAUNCHES, fa.BWD_WGMMA_LAUNCHES) == (
+        routes[0] + 1, routes[1] + 1)
+    want_out, want_lse = fa.flash_attention_qkv_fwd_lse_plain(qkv, heads,
+                                                              scale)
+    torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL[dtype])
+    assert torch.equal(out, fa.flash_attention_qkv(qkv, heads, scale))
+    want = fa.flash_attention_qkv_bwd_plain(qkv, out, lse, dout, heads, scale)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_tiny_mae_train_step_goes_through_kernels(cuda):
+    """One MAE step of a 2 + 2 block PretrainVideoMAE (head dim 64 in the
+    encoder and the decoder) with fp32 masters computed in bf16 runs C1 and
+    C2 once per block, all on the wgmma routes, and the LayerNorm kernel
+    2 * 2 + 1 times in each stack; gradients reach the fp32 masters."""
+    from simple_tad_tpu_torch.data.masking import TubeMaskingGenerator
+    from simple_tad_tpu_torch.models.mae import MAEConfig, PretrainVideoMAE
+    from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
+    from simple_tad_tpu_torch.train.steps import (TrainState,
+                                                  make_mae_train_step)
+    cfg = MAEConfig(img_size=64, all_frames=4, encoder_embed_dim=128,
+                    encoder_depth=2, encoder_num_heads=2,
+                    decoder_embed_dim=64, decoder_depth=2,
+                    decoder_num_heads=1, dtype=torch.bfloat16,
+                    param_dtype=torch.float32)
+    model = PretrainVideoMAE(cfg, device=cuda).init_weights(
+        torch.Generator().manual_seed(0))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    state = TrainState.create(model, FinetuneOptimizer(
+        dict(model.named_parameters()), lr_schedule=1e-3,
+        betas=(0.9, 0.95)), gen)
+    maskgen = TubeMaskingGenerator((2, 4, 4), 0.75)
+    step = make_mae_train_step(num_masked=maskgen.total_masks)
+    batch = {"video": _randn((2, 4, 64, 64, 3), 43, cuda).bfloat16(),
+             "mask": torch.from_numpy(maskgen.batch(
+                 2, np.random.default_rng(0))).to(cuda)}
+    names = ("LAUNCHES", "FWD_LSE_LAUNCHES", "BWD_LAUNCHES",
+             "FWD_WGMMA_LAUNCHES", "BWD_WGMMA_LAUNCHES", "DELTA_LAUNCHES")
+    counts = [ln.LAUNCHES] + [getattr(fa, n) for n in names]
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    after = [ln.LAUNCHES] + [getattr(fa, n) for n in names]
+    assert [a - b for a, b in zip(after, counts)] == [10, 0, 4, 4, 4, 4, 4]
+    assert torch.isfinite(metrics["loss"])
+    for n, p in model.named_parameters():
+        assert p.dtype == torch.float32, n
+        assert not torch.equal(p, before[n]), n

@@ -14,6 +14,8 @@ import pytest
 import simple_tad_tpu.config as jax_config
 import simple_tad_tpu.data.frame_datasets as jax_fd
 import simple_tad_tpu.data.labels as jax_labels
+import simple_tad_tpu.data.masking as jax_masking
+import simple_tad_tpu.data.pretrain_datasets as jax_pre
 import simple_tad_tpu.data.sequencing as jax_seq
 import simple_tad_tpu.data.zipreader as jax_zip
 import simple_tad_tpu.eval.metrics as jax_metrics
@@ -22,6 +24,8 @@ import simple_tad_tpu.utils.logging as jax_logging
 import simple_tad_tpu_torch.config as port_config
 import simple_tad_tpu_torch.data.frame_datasets as port_fd
 import simple_tad_tpu_torch.data.labels as port_labels
+import simple_tad_tpu_torch.data.masking as port_masking
+import simple_tad_tpu_torch.data.pretrain_datasets as port_pre
 import simple_tad_tpu_torch.data.sequencing as port_seq
 import simple_tad_tpu_torch.data.zipreader as port_zip
 import simple_tad_tpu_torch.eval.metrics as port_metrics
@@ -76,8 +80,26 @@ def _config(m):
     argv = ["--model", "vit_small_patch16_224", "--batch_size", "8",
             "--input_size", "32", "--no_dist_eval", "--clip_grad", "1.5",
             "--opt_betas", "0.9", "0.98", "--resize_on_host"]
+    pre = ["--model", "pretrain_videomae_base_patch16_224", "--batch_size",
+           "240", "--data_set", "BDD100K", "--data_set2", "DoTA",
+           "--batch_size2", "160", "--mask_ratio", "0.75",
+           "--transforms_finetune_align", "--opt_betas", "0.9", "0.95",
+           "--stop_at_epoch", "12", "--no_normlize_target"]
     return [dataclasses.asdict(m.FinetuneConfig.from_args(argv)),
-            dataclasses.asdict(m.FinetuneConfig.from_args([]))]
+            dataclasses.asdict(m.FinetuneConfig.from_args([])),
+            dataclasses.asdict(m.PretrainConfig.from_args(pre)),
+            dataclasses.asdict(m.PretrainConfig.from_args([]))]
+
+
+def _masking(m):
+    out = []
+    for kind, size, ratio in (("tube", (8, 14, 14), 0.75),
+                              ("tube", (8, 14, 14), 0.9),
+                              ("random", (8, 16, 16), 0.8)):
+        gen = m.make_mask_generator(kind, size, ratio)
+        out += [gen.total_masks, gen(np.random.default_rng(1)),
+                gen.batch(4, np.random.default_rng(2))]
+    return out
 
 
 def _logging(m):
@@ -112,7 +134,8 @@ def dota_root(tmp_path_factory):
     (_labels, jax_labels, port_labels),
     (_config, jax_config, port_config),
     (_logging, jax_logging, port_logging),
-], ids=["metrics", "sequencing", "labels", "config", "logging"])
+    (_masking, jax_masking, port_masking),
+], ids=["metrics", "sequencing", "labels", "config", "logging", "masking"])
 def test_host_copy_matches_original(make, jax_mod, port_mod):
     _equal(make(port_mod), make(jax_mod))
 
@@ -158,3 +181,37 @@ def test_train_loader_matches_original(dota_root, monkeypatch,
         return [loader.steps_per_epoch()] + list(loader.epoch(1))
 
     _equal(batches(port_engine, port_fd), batches(jax_engine, jax_fd))
+
+
+def _pretrain_data(fd, pre, root, tmp):
+    """Windows, one epoch of loader batches (one decode thread: with
+    several, batches come in the order threads finish), the cycling zips,
+    the Kinetics samplers and the view-list round trip."""
+    clips = fd.read_dota_clips(root, "all_split.txt")
+    ds = pre.PretrainWindowDataset(pre.ZipClipSource(clips, short_size=40),
+                                   view_len=16, target_fps=10, orig_fps=10,
+                                   view_step=4)
+    loader = pre.PretrainLoader(ds, 2, window_size=(8, 2, 2), mask_ratio=0.75,
+                                seed=3, num_threads=1)
+    path = str(tmp / f"views_{pre.__name__.split('.')[0]}.txt")
+    pre.save_view_list(ds.samples, path)
+
+    def count(n):
+        return lambda epoch: iter(range(epoch * 100, epoch * 100 + n))
+    rng = np.random.default_rng(4)
+    return [ds.samples, ds.get_window(1), loader.num_masked,
+            loader.steps_per_epoch(), list(loader.epoch(1)),
+            pre.load_view_list(path),
+            list(pre.CyclicZip(count(5), count(2)).epoch(1)),
+            list(pre.CyclicZipN(count(4), count(3), count(1)).epoch(2)),
+            pre.tsn_train_indices(100, 16, 4, rng),
+            pre.tsn_train_indices(30, 16, 4, rng, temporal_jitter=True),
+            pre.sample_frame_window_indices(300, 30.0, 16, 10.0, rng)]
+
+
+def test_pretrain_datasets_match_original(dota_root, monkeypatch, tmp_path):
+    from simple_tad_tpu.data import native
+    monkeypatch.setattr(native, "decode_zip_frames_native",
+                        lambda *a, **k: None)
+    _equal(_pretrain_data(port_fd, port_pre, dota_root, tmp_path),
+           _pretrain_data(jax_fd, jax_pre, dota_root, tmp_path))

@@ -26,7 +26,10 @@ for name in ("ops.quant", "ops.int8_gemm", "ops.ln", "ops.flash_attention",
              "ops.attention", "models.layers", "models.internvideo2",
              "eval.engine", "cli.inference", "train.steps",
              "train.optim", "train.losses", "train.engine", "ops.augment",
-             "utils.checkpoint", "utils.logging", "cli.finetune"):
+             "utils.checkpoint", "utils.logging", "cli.finetune",
+             # the pre-training path's and the trunk variants'
+             "models.mae", "cli.pretrain", "data.masking",
+             "data.pretrain_datasets", "utils.torch_convert"):
     assert "simple_tad_tpu_torch." + name in names, name
 """
 

@@ -209,8 +209,16 @@ def test_executed_reference_goldens(name, model_name, overrides, tmp_path):
 
 
 def test_unported_variants_raise():
+    """The MVD and UMT trunks are ported (tests/test_torch_trunk_variants.py);
+    the InternVideo2 pre-training and distillation names and gradient
+    checkpointing still raise, naming their ROADMAP item."""
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        create_model("mvd_vit_small_patch16_224", device="cpu")
+        create_model("pretrain_videomae_internvideo2_small_patch14_224",
+                     device="cpu")
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        create_model("distill_internvideo2_small_patch14_224", device="cpu")
     with pytest.raises(NotImplementedError):
+        create_model("vit_small_patch16_224", device="cpu", remat=True)
+    with pytest.raises(ValueError, match="pos_embed_kind"):
         create_model("vit_small_patch16_224", device="cpu",
-                     use_cls_token=True)
+                     pos_embed_kind="2d")
