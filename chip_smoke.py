@@ -280,7 +280,45 @@ Phases (any failure raises, so the exit code is non-zero):
      check at batch 8 with the job's hyperparameters (as phase 6: 12 C1,
      12 C2, 12 delta, 25 LayerNorm, gradients against the plain-version
      step and the control, TRAIN_STEPS fixed-batch steps whose loss must
-     fall by LOSS_DROP).
+     fall by LOSS_DROP);
+ 15. InternVideo2 stage-2 distillation (jobs/distill/IV2-S_dist_1B.sh):
+     the IV2-S student (distill_internvideo2_small_patch14_224, seeded
+     fp32 masters in bf16, MLP tap decoders to 1408, the final decoder to
+     768, drop path 0.05) from the IV2-1B teacher (seeded on the card,
+     bf16, grad free), 8 frames at 224 through train_augment, the
+     attention mask at 0.8 (the student on 410 visible tokens and the CLS
+     token, N = 411), 6 taps (the teacher's at interval 3.34).  Inside
+     phase 2, C3-fwd and C3-bwd at (8, 411, 1152) H = 6 (a 27-row tail
+     tile) against their plain versions and controls on their wgmma
+     routes, two launches bit-equal; timed at the job's batch
+     DISTILL_BATCH: A1-sep at the teacher's (B, 2049, 4224) H = 16 (head
+     dim 88, mma.sync; its plain version and control PLAIN_CHUNK samples
+     at a time) and C3 at (B, 411, 1152) H = 6, each against its plain
+     version and control, with SDPA and its bound.  (i) At batch 8: every
+     A1-sep call of the teacher's forward (40, all mma.sync, nothing else
+     launched) and every C3-fwd, C3-bwd and delta call of one student step
+     (12 each, wgmma; the calls counted) against its plain version and
+     controls at its own inputs (C3-bwd's subtle control caught at some
+     call, its gross one at every call); the teacher's taps, final
+     feature and pooling attention against the plain-version teacher
+     within FEATURE_RTOL and the gross control (v read with q's row
+     stride) outside it in all three; the attention masks from one Gumbel
+     draw on the kernels' and the plain teacher's attention, the share of
+     positions apart within DISTILL_MASK_SHARE and a mask from the noise
+     drawn anew outside it; the student's gradients against the plain-version step
+     (GRAD_NORM_RTOL, GRAD_PARAM_RTOL) and the control (no delta term)
+     outside them; one real step's launch counts; TRAIN_STEPS steps on
+     one batch at DISTILL_LR whose loss must fall by LOSS_DROP.  The mask
+     share holds the mask's plumbing, not the kernels (see
+     DISTILL_MASK_SHARE).  (iii) The CLI's trainer (cli/distill.py on
+     DISTILL_FLAGS: upload, train_augment on the card, the teacher's
+     forward, the mask, the student's step) at DISTILL_BATCH (or the
+     largest of DISTILL_BATCHES that fits) in DISTILL_PROCESSES fresh
+     processes: median step ms after DISTILL_WARMUP (DISTILL_STEPS_FIRST
+     steps in the first, DISTILL_STEPS in the second), clips/s, peak
+     memory, and in the first a profiler window of PROFILE_STEPS steps
+     with the teacher's forward and the whole step timed apart by CUDA
+     events.
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -290,6 +328,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import multiprocessing
 import re
@@ -364,6 +403,19 @@ import torch
 #                                         B1's of that sum, bit for bit
 #     attention_int8 outputs differing    0 (bit for bit) vs controls
 #                                         >= 0.119
+#   IV2 stage-2 distillation (phase 15, batch 8; the IV2-1B teacher at
+#   N = 2049, head dim 88, mma.sync; the IV2-S student at N = 411):
+#     teacher A1-sep calls, outputs differing  <= 7.1e-4 vs control >= 3.75e-2
+#     teacher taps / final / attention vs plain, max over features
+#                                          8.147e-3 / 3.295e-3 / 1.324e-3
+#                                          vs the gross control 0.205 /
+#                                          0.361 / 2.85e-2 (the taps' worst
+#                                          token 1.90e-2, printed)
+#     attention-mask positions apart      2.44e-4 vs the noise drawn anew
+#                                          0.321
+#     student C3-fwd / C3-bwd calls       <= 1.8e-4 / 4.8e-4 vs the gross
+#                                          controls >= 0.998 / 0.583
+#     student gradients, worst parameter  5.94e-3 vs control 9.53
 # Readings are bit-for-bit the same from run to run on one card and
 # software stack (no atomics; fixed seeds).
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)    # ~1 bf16 ulp (2^-7 relative)
@@ -492,6 +544,62 @@ TRUNKS = ("mvd", "umt")
 # held at its own inputs as well (check_sites)
 TRUNK_SEEDS = 3
 FEATURE_RTOL = 1e-2
+# phase 15: jobs/distill/IV2-S_dist_1B.sh: the IV2-S student
+# (distill_internvideo2_small_patch14_224) from the IV2-1B teacher, 8
+# frames at 224, the attention mask at 0.8 (2048 - 1638 = 410 visible
+# tokens and the CLS token: N = 411), 6 taps (the teacher's at interval
+# 3.34: 23, 26, 29, 33, 36, 39; the student's last 6), MLP decoders, loss
+# ratio 1 : 1, drop path 0.05; the reference recipe's AdamW (betas 0.9 /
+# 0.98, eps 1e-6, weight decay 0.05) at lr 1e-3 scaled to the job's batch
+# 128; timed at that batch (or the largest of DISTILL_BATCHES that fits)
+# in DISTILL_PROCESSES processes
+DISTILL_TEACHER = "internvideo2_1B_patch14_224"
+DISTILL_STUDENT = "distill_internvideo2_small_patch14_224"
+DISTILL_MASK_RATIO, DISTILL_RETURN_LAYERS, DISTILL_T_INTERVAL = 0.8, 6, 3.34
+DISTILL_MASKED = int(2048 * DISTILL_MASK_RATIO)
+DISTILL_N = 2048 + 1 - DISTILL_MASKED
+DISTILL_BATCH = 128
+DISTILL_BATCHES = (DISTILL_BATCH, 96, 64)
+DISTILL_LR = 1e-3 * DISTILL_BATCH / 256
+DISTILL_BETAS, DISTILL_EPS = (0.9, 0.98), 1e-6
+# the job's flags (jobs/distill/IV2-S_dist_1B.sh, which passes the JAX
+# CLI's AdamW betas and eps: here the recipe's, as in (i)); no data is read
+DISTILL_FLAGS = [
+    "--objective", "masked_feature", "--mask_type", "attention",
+    "--mask_ratio", str(DISTILL_MASK_RATIO),
+    "--clip_return_layer", str(DISTILL_RETURN_LAYERS),
+    "--clip_teacher_return_interval", str(DISTILL_T_INTERVAL),
+    "--clip_student_return_interval", "1", "--clip_teacher_embed_dim",
+    "1408", "--clip_teacher_final_dim", "768", "--clip_loss_ratio", "1",
+    "1", "--clip_norm_type", "l2", "--clip_student_decoder", "mlp",
+    "--drop_path", "0.05", "--data_set", "K700", "--data_path", "",
+    "--model", DISTILL_STUDENT, "--teacher_model", DISTILL_TEACHER,
+    "--epochs", "101", "--warmup_epochs", "20", "--lr", "1e-3",
+    "--weight_decay", "0.05", "--num_frames", "8", "--sampling_rate", "1",
+    "--opt_betas", *map(str, DISTILL_BETAS), "--opt_eps", str(DISTILL_EPS),
+    "--device", "cuda"]
+# (iii): the first process times DISTILL_STEPS_FIRST steps after
+# DISTILL_WARMUP and takes the profiler window, the second DISTILL_STEPS
+DISTILL_WARMUP, DISTILL_STEPS_FIRST, DISTILL_STEPS = 2, 5, 3
+DISTILL_PROCESSES = 2
+# the share of attention-mask positions the kernels' teacher may move from
+# the plain one's on the same noise (a token near the threshold flips).
+# This holds the mask's plumbing (the step takes the noise it is given, in
+# the threshold form), not the kernels: the seeded teacher's pooling
+# attention is near uniform, so even the gross control's teacher moves
+# fewer positions than this; the kernels are held by the sites and the
+# features
+DISTILL_MASK_SHARE = 2e-2
+# phase 2 at phase 15's shapes: C3 at the student's N = 411 (a 27-row tail
+# tile) at batch 8, two launches bit-equal; timed at DISTILL_BATCH: A1-sep
+# at the teacher's (B, 2049, 3 x 1408) H = 16 (head dim 88, mma.sync) and
+# C3 at (B, 411, 3 x 384) H = 6 (wgmma)
+DISTILL_CHECK = ((8, DISTILL_N, 1152), 6)
+DISTILL_TIMED = [((DISTILL_BATCH, 2049, 4224), 16),
+                 ((DISTILL_BATCH, DISTILL_N, 1152), 6)]
+# the plain attention at DISTILL_BATCH, taken this many samples at a time
+# (its fp32 scores at B = 128 would not fit)
+PLAIN_CHUNK = 8
 # phases 7 and 8: IV2-S of jobs/finetune/IV2-S_DoTA.sh (--num_frames 8
 # --view_fps 5 on 10 fps DoTA: windows of every other frame)
 IV2_VIEW_STEP = 2
@@ -1187,7 +1295,7 @@ def check_kernels(dev, seed: int) -> dict:
 
     def run_case(name, case, kernel, plain, control=None, time_it=True,
                  library=None, bound=None, route=None,
-                 route_counts=None):
+                 route_counts=None, plain_runs=20):
         """``kernel``, ``plain`` and ``library``: callables, or tuples of
         them (``in_turn``: the check takes the first, the timing all,
         queued).  ``control``: one callable, or a list of them (each must
@@ -1195,7 +1303,8 @@ def check_kernels(dev, seed: int) -> dict:
         ``time_it='every'`` times every case.  ``route``: the route the
         kernel call must be counted on, and no other, by ``route_counts``
         (default the forward's, fa.attention_fwd_route); the case is then
-        kept in the record's cases."""
+        kept in the record's cases; ``plain_runs``: the plain version's
+        timed runs."""
         counts = route_counts or fwd_route_counts
         before = counts()
         got = first_call(kernel)()
@@ -1228,7 +1337,7 @@ def check_kernels(dev, seed: int) -> dict:
             r.setdefault("cases", []).append(entry)
         if time_it == "every" or (time_it and "ms" not in r):
             first = "ms" not in r
-            timed(name, kernel, plain, library, bound,
+            timed(name, kernel, plain, library, bound, plain_runs,
                   case=None if first else case, into=entry)
             if first and route:
                 entry.update({k: r[k] for k in (
@@ -1611,9 +1720,115 @@ def check_kernels(dev, seed: int) -> dict:
     failures += check_dropout_kernels(dev, g, run_case, timed, launches_equal)
     failures += check_variant_kernels(dev, g, run_case, launches_equal)
     check_pretrain_kernels(dev, g, run_case, launches_equal)
+    check_distill_kernels(dev, g, run_case, launches_equal)
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return results
+
+
+def chunked(fn, n: int = PLAIN_CHUNK):
+    """``fn`` applied to its tensor arguments' leading (batch) axis ``n``
+    samples at a time, the results concatenated (each item of a tuple
+    result): the plain attention at a batch whose fp32 scores would not
+    fit at once."""
+    def run(*args):
+        B = args[0].shape[0]
+        parts = [fn(*(a[i:i + n] if torch.is_tensor(a) else a
+                      for a in args)) for i in range(0, B, n)]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat(p) for p in zip(*parts))
+        return torch.cat(parts)
+    return run
+
+
+def check_distill_kernels(dev, g, run_case, launches_equal):
+    """Phase 2 at phase 15's shapes: C3-fwd and C3-bwd at the student's
+    N = 411 (DISTILL_CHECK) against their plain versions and controls on
+    their wgmma routes, two launches bit-equal; then, timed at
+    DISTILL_BATCH (DISTILL_TIMED) with their plain versions, SDPA and their
+    bounds: A1-sep at the IV2-1B teacher's shape on its mma.sync route (the
+    plain version and its control PLAIN_CHUNK samples at a time), and
+    C3-fwd and C3-bwd at the student's, each against its plain version and
+    controls, kept in the records' cases."""
+    import torch.nn.functional as F
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    dt = torch.bfloat16
+    t0 = time.perf_counter()
+
+    def operands(shape, heads):
+        B, N, C3 = shape
+        C = C3 // 3
+        qkv = torch.randn(shape, generator=g, device=dev).to(dt)
+        return (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
+                qkv[..., 2 * C:], heads, (C // heads) ** -0.5)
+
+    def c3(shape, heads, timed):
+        B, N, C3 = shape
+        C, D = C3 // 3, C3 // 3 // heads
+        ops = operands(shape, heads)
+        dout = torch.randn((B, N, C), generator=g, device=dev).to(dt)
+        case = f"{shape} H={heads} {dt}, v strided (distill student)"
+        scale = ops[-1]
+        sdpa = (lambda: F.scaled_dot_product_attention(
+            *sep_heads(heads, *ops[:3]), scale=scale)) if timed else None
+        run_case("attention_sep_fwd_lse", case,
+                 lambda: fa.flash_attention_fwd_lse(*ops),
+                 lambda: fa.flash_attention_fwd_lse_plain(*ops),
+                 [lambda: attention_sep_fwd_lse_control(*ops),
+                  lambda: attention_sep_fwd_lse_misread_v(*ops)],
+                 time_it="every" if timed else False, library=sdpa,
+                 bound=attention_bound(B, N, C, heads, lse=True),
+                 route=fa.attention_fwd_route(dt, D))
+        if not timed:
+            launches_equal("attention_sep_fwd_lse", case,
+                           lambda: fa.flash_attention_fwd_lse(*ops))
+        out, lse = fa.flash_attention_fwd_lse_plain(*ops)
+        bargs = (*ops[:3], out, lse, dout, *ops[3:])
+        library = None
+        if timed:
+            leaves = [t.detach().requires_grad_(True) for t in ops[:3]]
+            sdpa_out = F.scaled_dot_product_attention(
+                *sep_heads(heads, *leaves), scale=scale)
+            sdpa_dout = sep_heads(heads, dout)[0]
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                sdpa_out, leaves, sdpa_dout, retain_graph=True)
+        run_case("attention_sep_bwd", case,
+                 lambda: fa.flash_attention_bwd(*bargs),
+                 lambda: fa.flash_attention_bwd_plain(*bargs),
+                 [lambda: attention_sep_bwd_control(*bargs),
+                  lambda: attention_sep_bwd_misread_v(*bargs)],
+                 time_it="every" if timed else False, library=library,
+                 bound=attention_bound(B, N, C, heads, backward=True),
+                 route=fa.attention_bwd_route(dt, D),
+                 route_counts=bwd_route_counts)
+        if not timed:
+            launches_equal("attention_sep_bwd", case,
+                           lambda: fa.flash_attention_bwd(*bargs))
+        del ops, dout, out, lse, bargs
+        torch.cuda.empty_cache()
+
+    c3(*DISTILL_CHECK, timed=False)
+    (shape, heads), student = DISTILL_TIMED
+    B, N, C3 = shape
+    C = C3 // 3
+    q, k, v, _, scale = operands(shape, heads)
+    qh, kh, vh = sep_heads(heads, q, k, v)
+    run_case("attention_sep", f"{shape} H={heads} {dt}, v strided "
+             f"(distill teacher)",
+             lambda: fa.flash_attention(q, k, v, heads, scale),
+             lambda: chunked(fa.flash_attention_plain)(q, k, v, heads,
+                                                       scale),
+             lambda: chunked(attention_sep_control)(q, k, v, heads, scale),
+             time_it="every",
+             library=lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                            scale=scale),
+             bound=attention_bound(B, N, C, heads),
+             route=fa.attention_fwd_route(dt, C // heads), plain_runs=3)
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    c3(*student, timed=True)
+    print(f"[time] phase 2's distillation cases: "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def check_pretrain_kernels(dev, g, run_case, launches_equal):
@@ -2461,7 +2676,8 @@ def run_eval_trunk(dev, seed: int, family: str,
                   f"evaluate median {rate:.2f} windows/s over {EVAL_RUNS} "
                   f"runs (min {min(rates):.2f}, max {max(rates):.2f})")
             print(f"[{label}] launches {launches}")
-            site_failures = check_sites(ev, ds, sites, f"{family} sites")
+            site_failures = check_sites(functools.partial(ev.evaluate, ds),
+                                        sites, f"{family} sites")
         res, feats = head_inputs(ev, ds)
         assert res.n_windows == n_windows == feats.shape[0]
         logits = logits_of(res)
@@ -2532,38 +2748,71 @@ def iv2_int8_sites(fused_rmsq: bool):
     return sites
 
 
-def check_sites(ev, ds, sites, label: str = "int8 sites") -> list:
-    """One evaluate in which every kernel call of ``sites`` also runs the
-    plain version and the control on the same inputs (the forward goes on
-    with the kernel's output) -> the failed checks."""
+def check_sites(run, sites, label: str = "int8 sites", *, router=None,
+                scaled=(), calls=None) -> list:
+    """One ``run()`` in which every kernel call of ``sites`` {name: (route,
+    kernel, plain, controls)} also runs the plain version and the controls
+    on the same inputs (the run goes on with the kernel's output) -> the
+    failed checks.  ``route``: the wrapper's name in ``router`` (default
+    ``routed``; ``routed_train`` for the training wrappers).
+    ``controls``: one control, which every call must catch, or a list of
+    (label, control, must): must 'every' call catch it, 'any' call, or
+    None (printed).  ``scaled``: names whose outputs are compared divided
+    by the power of two nearest the plain output's largest magnitude
+    (exact), so that phase 2's bounds, set on outputs of magnitude ~1, hold
+    a training step's small gradients as they hold those.  ``calls``:
+    {name: the calls the run must make} (default: at least one), so that
+    a path around the routed wrapper fails the check."""
     readings = {name: [] for name in sites}
+    spec = {name: c if isinstance(c, list) else [("control", c, "every")]
+            for name, (_, _, _, c) in sites.items()}
 
-    def checked(name, kernel, plain, control):
+    def checked(name, kernel, plain, _):
         def fn(*args, **kwargs):
             want = plain(*args, **kwargs)
             got = kernel(*args, **kwargs)
-            readings[name].append((compare(name, got, want),
-                                   compare(name, control(*args, **kwargs),
-                                           want)))
+            s = _pow2_scale(want) if name in scaled else None
+
+            def held(out):
+                if s is None:
+                    return compare(name, out, want)
+                return compare(name, _scaled(out, s), _scaled(want, s))
+
+            readings[name].append((held(got), [
+                held(ctrl(*args, **kwargs)) for _, ctrl, _ in spec[name]]))
             return got
         return fn
 
-    with routed(**{route: checked(name, *fns)
-                   for name, (route, *fns) in sites.items()}):
-        ev.evaluate(ds)
+    with (router or routed)(**{route: checked(name, *fns)
+                               for name, (route, *fns) in sites.items()}):
+        run()
     failures = []
     for name, rs in readings.items():
+        want_calls = (calls or {}).get(name)
+        if not rs or want_calls not in (None, len(rs)):
+            failures.append(f"{name}: {len(rs)} checked calls, expected "
+                            f"{want_calls or 'at least one'}")
+            continue
         shares = [r[0][1] for r in rs]
-        c_shares = [r[1][1] for r in rs]
         bound = I8_MISMATCH.get(name, BF16_MISMATCH.get(name))
         print(f"[{label}] {name}: {len(rs)} calls on the main path; "
               f"outputs differing from plain max {max(shares):.3e} (mean "
-              f"{statistics.mean(shares):.3e}); controls min "
-              f"{min(c_shares):.3e} (bound {bound:.1e})")
+              f"{statistics.mean(shares):.3e}), max_abs_err "
+              f"{max(r[0][0] for r in rs):.3e}"
+              + (f" (bound {bound:.1e})" if bound is not None else ""))
         failures += [f"{name} call {i}" for i, r in enumerate(rs)
                      if not r[0][2]]
-        failures += [f"{name} call {i}: control not caught"
-                     for i, r in enumerate(rs) if r[1][2]]
+        for j, (c_label, _, must) in enumerate(spec[name]):
+            caught = [not r[1][j][2] for r in rs]
+            print(f"[{label}] {name}: {c_label} differing min "
+                  f"{min(r[1][j][1] for r in rs):.3e}; caught at "
+                  f"{sum(caught)} of {len(rs)} calls (required: "
+                  f"{must or 'none, printed'})")
+            if must == "every":
+                failures += [f"{name} call {i}: {c_label} not caught"
+                             for i, c in enumerate(caught) if not c]
+            elif must == "any" and not any(caught):
+                failures.append(f"{name}: {c_label} caught at no call")
     return failures
 
 
@@ -2603,7 +2852,8 @@ def run_eval_int8(model, dev, seed: int, bf16_logits):
     rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
                                      for _ in range(EVAL_RUNS - 1)]
     logits = logits_of(res)
-    site_failures = check_sites(ev, ds, vit_int8_sites())
+    site_failures = check_sites(functools.partial(ev.evaluate, ds),
+                                vit_int8_sites())
     with routed(layernorm=ln.layernorm_plain,
                 layernorm_quant=ln.layernorm_quant_plain,
                 flash_attention_qkv_i8d=fa.flash_attention_qkv_i8d_plain):
@@ -2783,9 +3033,10 @@ def run_eval_iv2(dev, seed: int):
                                      for _ in range(EVAL_RUNS - 1)]
     logits = logits_of(res)
     site_failures = check_sites(
-        ev, ds, {"attention_sep": ("flash_attention", fa.flash_attention,
-                                   fa.flash_attention_plain,
-                                   attention_sep_control)}, "iv2 sites")
+        functools.partial(ev.evaluate, ds),
+        {"attention_sep": ("flash_attention", fa.flash_attention,
+                           fa.flash_attention_plain, attention_sep_control)},
+        "iv2 sites")
     with routed(flash_attention=fa.flash_attention_plain):
         plain_res = ev.evaluate(ds)
     with routed(flash_attention=attention_sep_misread_v):
@@ -2842,7 +3093,8 @@ def run_eval_iv2_int8(dev, seed: int, bf16_logits, fused_rmsq: bool):
     rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
                                      for _ in range(EVAL_RUNS - 1)]
     logits = logits_of(res)
-    site_failures = check_sites(ev, ds, iv2_int8_sites(fused_rmsq))
+    site_failures = check_sites(functools.partial(ev.evaluate, ds),
+                                iv2_int8_sites(fused_rmsq))
     plain = dict(flash_attention_i8d=fa.flash_attention_i8d_plain,
                  **({"rmsnorm_quant": ln.rmsnorm_quant_plain}
                     if fused_rmsq else {}))
@@ -2961,7 +3213,8 @@ def run_eval_fused(dev, seed: int, family: str, variants, bf16_logits):
                                          for _ in range(runs - 1)]
         logits = logits_of(res)
         sites = fused_sites(family, qkv_i8, fused_rmsq)
-        site_failures = check_sites(ev, ds, sites, f"{label} sites")
+        site_failures = check_sites(functools.partial(ev.evaluate, ds),
+                                    sites, f"{label} sites")
         plain = {route: fns[1] for route, *fns in sites.values()}
         plain.update(layernorm=ln.layernorm_plain)
         with routed(**plain):
@@ -3072,7 +3325,8 @@ def run_eval_variants(dev, seed: int, bf16_logits, int8_logits) -> dict:
                                          for _ in range(EVAL_RUNS - 1)]
         logits = logits_of(res)
         sites = variant_sites(options)
-        site_failures = check_sites(ev, ds, sites, f"{label} sites")
+        site_failures = check_sites(functools.partial(ev.evaluate, ds),
+                                    sites, f"{label} sites")
         rate = statistics.median(rates)
         drift = float(np.abs(logits - bf16_logits).max())
         vs_int8 = float(np.abs(logits - int8_logits).max())
@@ -3608,85 +3862,137 @@ class SyntheticPretrainBatches:
             yield parts
 
 
-def time_pretrain_process(seed: int, profile: bool) -> dict:
+def time_steps(trainer, batches, warmup: int) -> dict:
+    """``trainer.train_one_epoch(batches)`` with the host clock read as
+    each step starts -> {"step_ms": each step after ``warmup``, to the next
+    one's start (the last to the epoch's end), "warmup", "peak_gb"}."""
+    starts, step = [], trainer.train_step
+
+    def timed_step(state, batch):
+        starts.append(time.perf_counter())
+        return step(state, batch)
+
+    trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer.train_one_epoch(batches, 0, print_freq=10 ** 6)
+        marks = starts + [time.perf_counter()]
+    finally:
+        trainer.train_step = step
+    return {"step_ms": [(b - a) * 1e3 for a, b in zip(marks[warmup:],
+                                                     marks[warmup + 1:])],
+            "warmup": warmup,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def profile_window(trainer, batches) -> dict:
+    """One torch.profiler window over ``trainer.train_one_epoch(batches)``
+    -> its wall ms, kernel ms, kernel ms by category and top kernels."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        trainer.train_one_epoch(batches, 1, print_freq=10 ** 6)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    sums, top, total = _kernel_categories(prof)
+    return {"wall_ms": wall, "device_ms": total, "categories": sums,
+            "top": top}
+
+
+def largest_fitting(batches, attempt) -> dict:
+    """``attempt(batch)`` for each of ``batches`` in turn until one runs
+    without running out of device memory -> its dict, with "batch" and the
+    batches that did not fit ("oom")."""
+    oom = []
+    for batch in batches:
+        try:
+            return {**attempt(batch), "batch": batch, "oom": oom}
+        except torch.OutOfMemoryError:
+            oom.append(batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"oom": oom}
+
+
+def run_timing(label: str, process, args=(),
+               processes: int = TIMING_PROCESSES) -> dict:
+    """Phases 6, 9, 11, 13 and 15 (iii): ``process(profile, *args)`` in
+    ``processes`` fresh processes one after another, the first with
+    ``profile`` (its step parts and profiler window) -> the median steps,
+    clips/s and peak memory; each printed."""
+    ctx = multiprocessing.get_context("spawn")
+    runs = []
+    for i in range(processes):
+        with ctx.Pool(1) as pool:
+            runs.append(pool.apply(process, (i == 0, *args)))
+        r = runs[-1]
+        if r["oom"]:
+            print(f"[{label} timing] process {i}: batch {r['oom']} does "
+                  f"not fit (out of memory)")
+        assert "batch" in r, "no batch size fits"
+        med = statistics.median(r["step_ms"])
+        print(f"[{label} timing] process {i}: batch {r['batch']}"
+              f"{r.get('note', '')}, median step {med:.2f} ms over "
+              f"{len(r['step_ms'])} steps after {r['warmup']} warm-up (min "
+              f"{min(r['step_ms']):.2f}, max {max(r['step_ms']):.2f}): "
+              f"{r['batch'] * 1e3 / med:.2f} clips/s; peak device memory "
+              f"{r['peak_gb']:.2f} GiB")
+    parts = runs[0].get("parts")
+    if parts:
+        print(f"[{label} parts] process 0, median of {BREAKDOWN_STEPS} "
+              f"steps: host step {parts['step']:.2f} ms; device ms: augment "
+              f"{parts['augment']:.2f}, forward + backward "
+              f"{parts['forward_backward']:.2f}, optimizer "
+              f"{parts['optimizer']:.2f}")
+    prof = runs[0].get("profile")
+    if prof:
+        busy = prof["device_ms"] / prof["wall_ms"]
+        print(f"[{label} profile] {PROFILE_STEPS} steps: wall "
+              f"{prof['wall_ms']:.1f} ms, kernel time {prof['device_ms']:.1f}"
+              f" ms, device busy {busy:.3f}, idle {1 - busy:.3f}")
+        if "teacher_ms" in prof:
+            step = statistics.median(prof["step_ms"])
+            teacher = statistics.median(prof["teacher_ms"])
+            print(f"[{label} profile] a train step after its upload and "
+                  f"augmentation (CUDA events, median): {step:.2f} ms, of "
+                  f"it the teacher's forward {teacher:.2f} ms, the rest "
+                  f"(the mask, the student's step) {step - teacher:.2f} ms")
+        print(f"[{label} profile] by category (ms): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in prof["categories"].items()))
+        for name, calls, ms in prof["top"]:
+            print(f"[{label} profile]   {ms:9.2f} ms  {calls:5d}x  "
+                  f"{name[:90]}")
+    meds = [statistics.median(r["step_ms"]) for r in runs]
+    return {"batch": runs[0]["batch"], "step_ms": meds,
+            "clips_per_s": [runs[0]["batch"] * 1e3 / m for m in meds],
+            "peak_gb": max(r["peak_gb"] for r in runs)}
+
+
+def time_pretrain_process(profile: bool, seed: int) -> dict:
     """Phase 13 (iii), in a fresh process: the pre-training CLI's epoch loop
     (cli/pretrain.py:PretrainTrainer: the parts pinned on the host while
     the previous step runs, uploaded, concatenated and augmented on the
-    card, the MAE step) at batch MAE_BATCH ->
-    step times, peak memory and, with ``profile``, a profiler window."""
+    card, the MAE step) at batch MAE_BATCH -> step times, peak memory and,
+    with ``profile``, a profiler window."""
     from simple_tad_tpu_torch.cli.pretrain import PretrainTrainer
     from simple_tad_tpu_torch.train.steps import make_mae_train_step
     dev = torch.device("cuda", 0)
     model = mae_b(dev, seed)
     state = mae_state(model, dev, seed)
     step = make_mae_train_step(num_masked=mae_masks(1, MAE_MASKS[0], 0)[1])
-    starts = []
-
-    def timed_step(state, batch):
-        starts.append(time.perf_counter())
-        return step(state, batch)
-
-    trainer = PretrainTrainer(timed_step, state, device=dev, crop_size=224,
+    trainer = PretrainTrainer(step, state, device=dev, crop_size=224,
                               align=True, dtype=torch.bfloat16, seed=seed)
-    data = SyntheticPretrainBatches(seed)
-    torch.cuda.reset_peak_memory_stats()
-    batches = list(data.epoch(MAE_WARMUP + MAE_TIMED))
-    trainer.train_one_epoch(batches, 0, print_freq=10 ** 6)
-    end = time.perf_counter()
-    marks = starts + [end]
-    out = {"step_ms": [(b - a) * 1e3 for a, b in zip(marks[MAE_WARMUP:],
-                                                    marks[MAE_WARMUP + 1:])],
-           "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    batches = list(SyntheticPretrainBatches(seed).epoch(MAE_WARMUP
+                                                        + MAE_TIMED))
+    out = {"batch": sum(MAE_PARTS), "oom": [],
+           "note": f" ({' + '.join(map(str, MAE_PARTS))}), mask "
+                   f"{MAE_MASKS[0]}",
+           **time_steps(trainer, batches, MAE_WARMUP)}
     if profile:
-        batches = batches[:PROFILE_STEPS]
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            trainer.train_one_epoch(batches, 1, print_freq=10 ** 6)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        sums, top, total = _kernel_categories(prof)
-        out["profile"] = {"wall_ms": wall, "device_ms": total,
-                          "categories": sums, "top": top}
+        out["profile"] = profile_window(trainer, batches[:PROFILE_STEPS])
     return out
-
-
-def run_pretrain_timing(seed: int, processes: int = TIMING_PROCESSES
-                        ) -> dict:
-    """Phase 13 (iii): ``processes`` fresh processes one after another; the
-    first also takes the profiler window."""
-    label = "dapt timing"
-    batch = sum(MAE_PARTS)
-    ctx = multiprocessing.get_context("spawn")
-    runs = []
-    for i in range(processes):
-        with ctx.Pool(1) as pool:
-            runs.append(pool.apply(time_pretrain_process, (seed, i == 0)))
-        r = runs[-1]
-        med = statistics.median(r["step_ms"])
-        parts = " + ".join(map(str, MAE_PARTS))
-        print(f"[{label}] process {i}: batch {batch} ({parts}), "
-              f"mask {MAE_MASKS[0]}, median step {med:.2f} ms over "
-              f"{len(r['step_ms'])} steps after {MAE_WARMUP} warm-up (min "
-              f"{min(r['step_ms']):.2f}, max {max(r['step_ms']):.2f}): "
-              f"{batch * 1e3 / med:.2f} clips/s; peak device memory "
-              f"{r['peak_gb']:.2f} GiB")
-    prof = runs[0].get("profile")
-    if prof:
-        busy = prof["device_ms"] / prof["wall_ms"]
-        print(f"[dapt profile] {PROFILE_STEPS} steps: wall "
-              f"{prof['wall_ms']:.1f} ms, kernel time {prof['device_ms']:.1f}"
-              f" ms, device busy {busy:.3f}, idle {1 - busy:.3f}")
-        print("[dapt profile] by category (ms): " + ", ".join(
-            f"{k} {v:.1f}" for k, v in prof["categories"].items()))
-        for name, calls, ms in prof["top"]:
-            print(f"[dapt profile]   {ms:9.2f} ms  {calls:5d}x  {name[:90]}")
-    meds = [statistics.median(r["step_ms"]) for r in runs]
-    return {"batch": batch, "step_ms": meds,
-            "clips_per_s": [batch * 1e3 / m for m in meds],
-            "peak_gb": max(r["peak_gb"] for r in runs)}
 
 
 def _kernel_categories(prof):
@@ -3721,68 +4027,39 @@ def _kernel_categories(prof):
     return sums, rows[:15], sum(r[2] for r in rows)
 
 
-def time_training_process(seed: int, profile: bool, family: str = "vit",
+def time_training_process(profile: bool, seed: int, family: str = "vit",
                           attn_drop: float = 0.0, form: str = "rng") -> dict:
     """Phase 6, 9 or 11 (iii), in a fresh process: FinetuneTrainer at the
     job's batch (or the largest of JOB_BATCH, 48, 40, 32 that fits) -> step
-    times, peak memory and, with ``profile``, a profiler window."""
+    times, peak memory and, with ``profile``, the step's parts and a
+    profiler window."""
     from simple_tad_tpu_torch.train.engine import FinetuneTrainer, TrainLoader
     from simple_tad_tpu_torch.train.losses import create_criterion
     from simple_tad_tpu_torch.train.steps import make_finetune_train_step
     dev = torch.device("cuda", 0)
     step = make_finetune_train_step(create_criterion("crossentropy"))
-    starts = []
 
-    def timed_step(state, batch):
-        starts.append(time.perf_counter())
-        return step(state, batch)
-
-    out = {"oom": []}
-    for batch in (JOB_BATCH, 48, 40, 32):
-        starts.clear()
+    def attempt(batch):
         model = job_model(dev, seed, family, attn_drop, form)
         state = job_state(model, dev, seed, family)
-        n_steps = WARMUP_STEPS + TIMED_STEPS
-        data = SyntheticTrainDataset(n_steps * batch, seed,
-                                     8 if family == "iv2" else 16)
-        trainer = FinetuneTrainer(timed_step, state, device=dev,
-                                  crop_size=224, reprob=0.25,
-                                  dtype=torch.bfloat16, seed=seed)
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            trainer.train_one_epoch(TrainLoader(data, batch, seed=seed),
-                                    0, print_freq=10 ** 6)
-            end = time.perf_counter()
-        except torch.OutOfMemoryError:
-            out["oom"].append(batch)
-            del model, state, trainer
-            torch.cuda.empty_cache()
-            continue
-        marks = starts + [end]
-        ms = [(b - a) * 1e3 for a, b in zip(marks[WARMUP_STEPS:],
-                                            marks[WARMUP_STEPS + 1:])]
-        out.update(batch=batch, step_ms=ms,
-                   peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        data = SyntheticTrainDataset((WARMUP_STEPS + TIMED_STEPS) * batch,
+                                     seed, 8 if family == "iv2" else 16)
+        trainer = FinetuneTrainer(step, state, device=dev, crop_size=224,
+                                  reprob=0.25, dtype=torch.bfloat16,
+                                  seed=seed)
+        out = time_steps(trainer, TrainLoader(data, batch, seed=seed),
+                         WARMUP_STEPS)
         if profile:
-            out["parts"] = step_parts(trainer, data, batch, seed, starts)
-            loader = TrainLoader(data, batch, seed=seed,
-                                 nb_samples_per_epoch=PROFILE_STEPS * batch)
-            torch.cuda.synchronize()
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                trainer.train_one_epoch(loader, 1, print_freq=10 ** 6)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            sums, top, total = _kernel_categories(prof)
-            out.update(profile={"wall_ms": wall, "device_ms": total,
-                                "categories": sums, "top": top})
+            out["parts"] = step_parts(trainer, data, batch, seed)
+            out["profile"] = profile_window(trainer, TrainLoader(
+                data, batch, seed=seed,
+                nb_samples_per_epoch=PROFILE_STEPS * batch))
         return out
-    return out
+
+    return largest_fitting((JOB_BATCH, 48, 40, 32), attempt)
 
 
-def step_parts(trainer, data, batch: int, seed: int, starts) -> dict:
+def step_parts(trainer, data, batch: int, seed: int) -> dict:
     """Median device ms of the augmentation, the forward + backward and the
     optimizer update over BREAKDOWN_STEPS train steps (CUDA events), and
     the median step ms on the host clock."""
@@ -3809,13 +4086,10 @@ def step_parts(trainer, data, batch: int, seed: int, starts) -> dict:
         return out
 
     trainer.device_batch, trainer.state.optimizer.step = timed_batch, timed_opt
-    starts.clear()
     try:
-        trainer.train_one_epoch(
-            TrainLoader(data, batch, seed=seed,
-                        nb_samples_per_epoch=BREAKDOWN_STEPS * batch),
-            2, print_freq=10 ** 6)
-        end = time.perf_counter()
+        host = time_steps(trainer, TrainLoader(
+            data, batch, seed=seed,
+            nb_samples_per_epoch=BREAKDOWN_STEPS * batch), 0)
     finally:
         del trainer.device_batch, trainer.state.optimizer.step
     torch.cuda.synchronize()
@@ -3824,60 +4098,324 @@ def step_parts(trainer, data, batch: int, seed: int, starts) -> dict:
         parts["augment"].append(a0.elapsed_time(a1))
         parts["forward_backward"].append(a1.elapsed_time(o0))
         parts["optimizer"].append(o0.elapsed_time(o1))
-    marks = starts + [end]
     out = {k: statistics.median(v) for k, v in parts.items()}
-    out["step"] = statistics.median((b - a) * 1e3
-                                    for a, b in zip(marks, marks[1:]))
+    out["step"] = statistics.median(host["step_ms"])
     return out
 
 
-def run_finetune_timing(seed: int, family: str = "vit",
-                        attn_drop: float = 0.0, form: str = "rng",
-                        processes: int = TIMING_PROCESSES) -> dict:
-    """Phase 6, 9 or 11 (iii): ``processes`` fresh processes, one after
-    another; the first also takes the profiler window."""
-    label = "iv2 finetune" if family == "iv2" else "finetune"
-    if attn_drop:
-        label += f" attn_drop {attn_drop} {form}"
-    ctx = multiprocessing.get_context("spawn")
-    runs = []
-    for i in range(processes):
-        with ctx.Pool(1) as pool:
-            runs.append(pool.apply(time_training_process,
-                                   (seed, i == 0, family, attn_drop, form)))
-        r = runs[-1]
-        if r["oom"]:
-            print(f"[{label} timing] process {i}: batch {r['oom']} does "
-                  f"not fit (out of memory)")
-        assert "batch" in r, "no batch size fits"
-        med = statistics.median(r["step_ms"])
-        print(f"[{label} timing] process {i}: batch {r['batch']}, median "
-              f"step {med:.2f} ms over {len(r['step_ms'])} steps after "
-              f"{WARMUP_STEPS} warm-up (min {min(r['step_ms']):.2f}, max "
-              f"{max(r['step_ms']):.2f}): {r['batch'] * 1e3 / med:.2f} "
-              f"clips/s; peak device memory {r['peak_gb']:.2f} GiB")
-    parts = runs[0].get("parts")
-    if parts:
-        print(f"[{label} parts] process 0, median of {BREAKDOWN_STEPS} "
-              f"steps: host step {parts['step']:.2f} ms; device ms: augment "
-              f"{parts['augment']:.2f}, forward + backward "
-              f"{parts['forward_backward']:.2f}, optimizer "
-              f"{parts['optimizer']:.2f}")
-    prof = runs[0].get("profile")
-    if prof:
-        busy = prof["device_ms"] / prof["wall_ms"]
-        print(f"[{label} profile] {PROFILE_STEPS} steps: wall "
-              f"{prof['wall_ms']:.1f} ms, kernel time {prof['device_ms']:.1f}"
-              f" ms, device busy {busy:.3f}, idle {1 - busy:.3f}")
-        print(f"[{label} profile] by category (ms): " + ", ".join(
-            f"{k} {v:.1f}" for k, v in prof["categories"].items()))
-        for name, calls, ms in prof["top"]:
-            print(f"[{label} profile]   {ms:9.2f} ms  {calls:5d}x  "
-                  f"{name[:90]}")
-    meds = [statistics.median(r["step_ms"]) for r in runs]
-    return {"batch": runs[0]["batch"], "step_ms": meds,
-            "clips_per_s": [runs[0]["batch"] * 1e3 / m for m in meds],
-            "peak_gb": max(r["peak_gb"] for r in runs)}
+def distill_models(dev, seed: int):
+    """Phase 15's models, of jobs/distill/IV2-S_dist_1B.sh: the IV2-1B
+    teacher, seeded on the card, its weights in bf16 (grad free); the IV2-S
+    student (distill_internvideo2_small_patch14_224: 6 MLP tap decoders to
+    1408, the final decoder to 768, drop path 0.05), seeded fp32 masters
+    computed in bf16; both 8 frames at 224 with LayerScale 0.1 (the
+    reference goldens' magnitude, as phases 7 and 9, so the trunks move
+    the features) -> (student, teacher)."""
+    from simple_tad_tpu_torch.models import create_model
+    teacher = create_model(
+        DISTILL_TEACHER, device=dev, dtype=torch.bfloat16, num_frames=8,
+        init_values=0.1,
+        generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    student = create_model(
+        DISTILL_STUDENT, device=dev, dtype=torch.bfloat16,
+        param_dtype=torch.float32, num_frames=8, init_values=0.1,
+        drop_path_rate=0.05, clip_teacher_embed_dim=teacher.cfg.embed_dim,
+        clip_teacher_final_dim=teacher.cfg.clip_embed_dim,
+        clip_return_layer=DISTILL_RETURN_LAYERS,
+        clip_student_return_interval=1.0, clip_student_decoder="mlp",
+        generator=torch.Generator().manual_seed(seed))
+    return student, teacher
+
+
+def distill_state(model, dev, seed: int):
+    """The job's AdamW (the reference recipe's betas 0.9 / 0.98, eps 1e-6,
+    weight decay 0.05) at its lr scaled to its batch, constant, and the
+    generator of the drop-path masks and the attention mask's noise."""
+    from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
+    from simple_tad_tpu_torch.train.steps import TrainState
+    opt = FinetuneOptimizer(dict(model.named_parameters()),
+                            lr_schedule=DISTILL_LR, weight_decay=0.05,
+                            betas=DISTILL_BETAS, eps=DISTILL_EPS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    return TrainState.create(model, opt, gen)
+
+
+def distill_taps(teacher):
+    from simple_tad_tpu_torch.train.distill import teacher_tap_indices
+    return teacher_tap_indices(teacher.cfg.depth, DISTILL_RETURN_LAYERS,
+                               DISTILL_T_INTERVAL)
+
+
+def feature_errors(got, want, lead: int) -> tuple:
+    """-> (max over features of ||got - want|| / ||want||, a feature being
+    the slab under the ``lead`` leading axes (a tap of one sample, as phase
+    14's window feature), the same max over rows of the last axis (one
+    token's tap, printed))."""
+    got, want = got.float(), want.float()
+    diff = (got - want).flatten(lead)
+    feat = (diff.norm(dim=-1) / want.flatten(lead).norm(dim=-1)).max()
+    rows = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max()
+    return feat.item(), rows.item()
+
+
+def _pow2_scale(t) -> float:
+    """The power of two nearest max |t| (1 for zeros): dividing by it is
+    exact, in bf16 too."""
+    top = t.abs().max().item() if torch.is_tensor(t) else max(
+        x.abs().max().item() for x in t)
+    return 2.0 ** round(np.log2(top)) if top > 0 else 1.0
+
+
+def _scaled(out, s: float):
+    return tuple(t / s for t in out) if isinstance(out, tuple) else out / s
+
+
+def distill_step_grads(student, teacher, batch, gen, gen_state):
+    """Forward and backward of one distillation step (train/distill.py:
+    masked_distill_loss, no update) -> ({name: grad}, loss), the drop-path
+    masks drawn from ``gen`` reset to ``gen_state``, the attention mask
+    from ``batch['gumbel']``."""
+    from simple_tad_tpu_torch.train.distill import masked_distill_loss
+    gen.set_state(gen_state)
+    for p in student.parameters():
+        p.grad = None
+    loss, _, _ = masked_distill_loss(
+        student, teacher, batch, num_masked=DISTILL_MASKED,
+        teacher_taps=distill_taps(teacher), mask_type="attention",
+        generator=gen)
+    loss.backward()
+    grads = {n: p.grad.detach().clone()
+             for n, p in student.named_parameters()}
+    for p in student.parameters():
+        p.grad = None
+    return grads, loss.item()
+
+
+def run_distill(dev, seed: int) -> dict:
+    """Phase 15 (i): the checks at batch TRAIN_BATCH -> stats."""
+    from simple_tad_tpu_torch.models.mae import mask_partition
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.train import distill as D
+    label = "distill"
+    student, teacher = distill_models(dev, seed)
+    taps = distill_taps(teacher)
+    state = distill_state(student, dev, seed)
+    batch = {"video": augmented_batch(dev, TRAIN_BATCH, seed, 8)["video"]}
+    N = student.cfg.num_patches
+    batch["gumbel"] = D.gumbel_noise((TRAIN_BATCH, N), state.generator, dev)
+    print(f"[{label}] teacher {DISTILL_TEACHER} bf16 (depth "
+          f"{teacher.cfg.depth}, head dim "
+          f"{teacher.cfg.embed_dim // teacher.cfg.num_heads}), taps {taps}; "
+          f"student {DISTILL_STUDENT} fp32 masters in bf16, taps "
+          f"{student.cfg.return_index}; mask attention {DISTILL_MASK_RATIO}:"
+          f" {DISTILL_MASKED} of {N} tokens masked, "
+          f"{N + 1 - DISTILL_MASKED} visible with the CLS token; batch "
+          f"{TRAIN_BATCH}")
+
+    # the teacher: every A1-sep call against its plain version and control
+    t_depth, s_depth = teacher.cfg.depth, student.cfg.depth
+    with torch.no_grad():
+        reset_counts()
+        failures = check_sites(
+            lambda: teacher(batch["video"], return_taps=taps),
+            {"attention_sep": ("flash_attention", fa.flash_attention,
+                               fa.flash_attention_plain,
+                               attention_sep_control)},
+            f"{label} teacher sites", calls={"attention_sep": t_depth})
+        torch.cuda.synchronize()
+        t_launches = read_counts()
+        # its outputs through the kernels, the plain versions and the gross
+        # control (v read with q's row stride)
+        outs = {"kernels": teacher(batch["video"], return_taps=taps)}
+        with routed(flash_attention=fa.flash_attention_plain):
+            outs["plain"] = teacher(batch["video"], return_taps=taps)
+        with routed(flash_attention=attention_sep_misread_v):
+            outs["gross"] = teacher(batch["video"], return_taps=taps)
+    # a feature: one tap of one sample (K, B | N, C), one sample's final
+    # feature, one sample's attention over the tokens
+    readings = {k: [feature_errors(g, w, lead) for g, w, lead in zip(
+        outs[k], outs["plain"], (2, 1, 1))] for k in ("kernels", "gross")}
+    errs = {k: [r[0] for r in v] for k, v in readings.items()}
+    names = ("taps", "final", "attention")
+    print(f"[{label}] teacher outputs vs plain, max over features "
+          f"||err|| / ||plain||: " + ", ".join(
+              f"{n} {e:.3e} (gross control {c:.3e})" for n, e, c in
+              zip(names, errs["kernels"], errs["gross"]))
+          + f" (bound {FEATURE_RTOL:.1e}); the taps' worst token "
+          f"{readings['kernels'][0][1]:.3e} (gross control "
+          f"{readings['gross'][0][1]:.3e}; printed)")
+    masks = {k: D.attention_mask_from_importance(outs[k][2], DISTILL_MASKED,
+                                                 batch["gumbel"])
+             for k in outs}
+    # the mask's control: the kernels' teacher with the noise drawn anew,
+    # the fault of a step that does not take the noise it is given (the
+    # seeded teacher's pooling attention is near uniform, so the gross
+    # control's attention moves few positions)
+    masks["noise"] = D.attention_mask_from_importance(
+        outs["kernels"][2], DISTILL_MASKED,
+        D.gumbel_noise(batch["gumbel"].shape, state.generator, dev))
+    share = {k: (masks[k] != masks["plain"]).float().mean().item()
+             for k in ("kernels", "gross", "noise")}
+    print(f"[{label}] attention masks from the same Gumbel noise: "
+          f"positions differing from the plain teacher's "
+          f"{share['kernels']:.3e}; the gross control's teacher "
+          f"{share['gross']:.3e} (printed); control (the noise drawn anew) "
+          f"{share['noise']:.3e} (bound {DISTILL_MASK_SHARE:.1e})")
+    assert (masks["kernels"].sum(1) == DISTILL_MASKED).all()
+    vis, _ = mask_partition(masks["kernels"], DISTILL_MASKED)
+    assert vis.shape[1] == DISTILL_N and (vis[:, 0] == 0).all()
+    del outs, masks
+
+    # the student's gradients against the plain-version step and the
+    # control (no delta term)
+    g0 = state.generator.get_state()
+    kern, loss_k = distill_step_grads(student, teacher, batch,
+                                      state.generator, g0)
+    with routed_train(**train_routes("iv2")):
+        plain, loss_p = distill_step_grads(student, teacher, batch,
+                                           state.generator, g0)
+    with routed_train(**train_routes("iv2", no_delta=True)):
+        ctrl, _ = distill_step_grads(student, teacher, batch,
+                                     state.generator, g0)
+    norm_err, param_err, worst = grad_errors(kern, plain)
+    c_norm, c_param, c_worst = grad_errors(ctrl, plain)
+    del kern, plain, ctrl
+    print(f"[{label}] student loss {loss_k:.6f} (plain versions "
+          f"{loss_p:.6f}); gradients vs plain: global norm rel err "
+          f"{norm_err:.3e} (bound {GRAD_NORM_RTOL:.1e}), worst parameter "
+          f"{param_err:.3e} ({worst}; bound {GRAD_PARAM_RTOL:.1e}); "
+          f"control (no delta): {c_norm:.3e}, {c_param:.3e} ({c_worst})")
+
+    # one real step: its launches, every C3 and delta call checked
+    step = D.make_masked_distill_step(teacher, num_masked=DISTILL_MASKED,
+                                      teacher_taps=taps,
+                                      mask_type="attention")
+    # phase 2's controls; at the step's own inputs (near-uniform
+    # probabilities over 411 keys) the backward's subtle one (p not
+    # rounded before dV) moves too few gradients for the share bound at
+    # most calls, so every call is held to the gross one and some call to
+    # the subtle one
+    gross = "gross control (v misread)"
+    s_sites = {"attention_sep_fwd_lse": (
+                   "flash_attention_fwd_lse", fa.flash_attention_fwd_lse,
+                   fa.flash_attention_fwd_lse_plain,
+                   [("control", attention_sep_fwd_lse_control, "every"),
+                    (gross, attention_sep_fwd_lse_misread_v, "every")]),
+               "attention_sep_bwd": (
+                   "flash_attention_bwd", fa.flash_attention_bwd,
+                   fa.flash_attention_bwd_plain,
+                   [("control", attention_sep_bwd_control, "any"),
+                    (gross, attention_sep_bwd_misread_v, "every")]),
+               "attention_delta": (
+                   "flash_attention_delta", fa.flash_attention_delta,
+                   fa.attention_delta, attention_delta_bf16_products)}
+    state.generator.set_state(g0)
+    metrics = {}
+    reset_counts()
+    failures += check_sites(
+        lambda: metrics.update(step(state, batch)), s_sites,
+        f"{label} student sites", router=routed_train,
+        scaled=("attention_sep_bwd", "attention_delta"),
+        calls=dict.fromkeys(s_sites, s_depth))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    losses = [float(metrics["loss"])]
+    for _ in range(TRAIN_STEPS - 1):
+        losses.append(float(step(state, batch)["loss"]))
+    drop = 1.0 - losses[-1] / losses[0]
+    print(f"[{label}] launches in the teacher's forward {t_launches}")
+    print(f"[{label}] launches in one step (teacher forward + student "
+          f"step) {launches}")
+    print(f"[{label}] {TRAIN_STEPS} steps on one batch at constant lr "
+          f"{DISTILL_LR}: losses {' '.join(f'{x:.5f}' for x in losses)}; "
+          f"drop {drop:.3f} (required {LOSS_DROP})")
+    want_t = dict.fromkeys(COUNTERS, 0)
+    # IV2-1B's head dim 88: the mma.sync route; its norms, LayerScale and
+    # pooling head are plain PyTorch
+    want_t.update(attention_sep=t_depth, fwd_route_mma_sync=t_depth)
+    want = dict(want_t)
+    # IV2-S's head dim 64 at N = 411: the wgmma routes; the decoders'
+    # LayerNorms are plain PyTorch too
+    want.update(attention_sep_fwd_lse=s_depth, attention_sep_bwd=s_depth,
+                attention_delta=s_depth, fwd_route_wgmma=s_depth,
+                bwd_route_wgmma=s_depth)
+    assert not failures, failures
+    assert t_launches == want_t, (t_launches, want_t)
+    assert launches == want, (launches, want)
+    assert max(errs["kernels"]) <= FEATURE_RTOL, errs
+    assert min(errs["gross"]) > FEATURE_RTOL, \
+        f"the feature bound lets the gross control through: {errs}"
+    assert share["kernels"] <= DISTILL_MASK_SHARE < share["noise"], share
+    assert norm_err <= GRAD_NORM_RTOL and param_err <= GRAD_PARAM_RTOL, \
+        "gradients disagree with the plain-version step"
+    assert c_norm > GRAD_NORM_RTOL or c_param > GRAD_PARAM_RTOL, \
+        "the gradient bounds let the control through"
+    assert np.isfinite(losses).all() and drop >= LOSS_DROP, losses
+    return {"launches": launches, "teacher_launches": t_launches,
+            "feature_err": errs["kernels"], "mask_share": share["kernels"],
+            "grad_norm_err": norm_err, "grad_param_err": param_err,
+            "losses": losses}
+
+
+def time_distill_process(profile: bool, seed: int) -> dict:
+    """Phase 15 (iii), in a fresh process: the distillation CLI's trainer
+    (cli/distill.py: build_models, build_trainer and DistillTrainer's epoch
+    loop on the job's flags, DISTILL_FLAGS: the uint8 clips uploaded,
+    train_augment on the card, the teacher's forward, the attention mask,
+    the student's step) at DISTILL_BATCH, or the largest of
+    DISTILL_BATCHES that fits -> step times and peak memory: DISTILL_STEPS
+    steps after DISTILL_WARMUP, or with ``profile`` (the first process)
+    DISTILL_STEPS_FIRST steps and a profiler window, in which CUDA events
+    time the teacher's forward and the whole step apart."""
+    from simple_tad_tpu_torch.cli import distill as cli
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (8, 8, CLIP_H, CLIP_W, 3), np.uint8)
+    n_steps = DISTILL_WARMUP + (DISTILL_STEPS_FIRST if profile
+                                else DISTILL_STEPS)
+
+    def attempt(batch):
+        args = cli.build_parser().parse_args(
+            DISTILL_FLAGS + ["--batch_size", str(batch), "--seed", str(seed)])
+        student, teacher = cli.build_models(args, dev, torch.bfloat16)
+        trainer = cli.build_trainer(args, student, teacher, dev,
+                                    torch.bfloat16, n_steps)
+        # loader batches (PretrainLoader's keys; its tube masks, which the
+        # attention mask ignores, as zeros of their shape), made
+        # beforehand: the loader assembles them on worker threads
+        batches = [{"video_u8": pool[rng.integers(0, len(pool), batch)],
+                    "mask": np.zeros((batch, student.cfg.num_patches), bool)}
+                   for _ in range(n_steps)]
+        out = time_steps(trainer, batches, DISTILL_WARMUP)
+        if not profile:
+            return out
+        events, step, forward = [], trainer.train_step, teacher.forward
+
+        def timed(fn):
+            def run(*a, **kw):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                res = fn(*a, **kw)
+                ev[1].record()
+                events.append(ev)
+                return res
+            return run
+
+        trainer.train_step, teacher.forward = timed(step), timed(forward)
+        try:
+            out["profile"] = profile_window(trainer,
+                                            batches[:PROFILE_STEPS])
+        finally:
+            trainer.train_step = step
+            del teacher.forward
+        # per step: the teacher's forward's events, then the step's
+        out["profile"].update(
+            teacher_ms=[a.elapsed_time(b) for a, b in events[0::2]],
+            step_ms=[a.elapsed_time(b) for a, b in events[1::2]])
+        return out
+
+    return largest_fitting(DISTILL_BATCHES, attempt)
 
 
 def main(argv=None):
@@ -3887,29 +4425,44 @@ def main(argv=None):
 
     kind = device_check()
     dev = torch.device("cuda", 0)
+    clock = [time.perf_counter()] * 2
+
+    def lap(phase: str) -> None:
+        """Print the phase's seconds and the run's so far."""
+        now = time.perf_counter()
+        print(f"[time] {phase}: {now - clock[1]:.1f} s (run "
+              f"{now - clock[0]:.1f} s)")
+        clock[1] = now
+        torch.cuda.empty_cache()
+
     build_kernels()
+    lap("build")
     kstats = check_kernels(dev, args.seed)
+    lap("phase 2")
     model, estats = run_eval(dev, args.seed)
     run_stream(model, dev, args.seed)
+    lap("phases 3-4")
     qmodel, qstats = run_eval_int8(model, dev, args.seed, estats["logits"])
     del model
     run_stream(qmodel, dev, args.seed, label="int8 stream")
     del qmodel
-    torch.cuda.empty_cache()
+    lap("phase 5")
     fstats = run_finetune(dev, args.seed)
     torch.cuda.empty_cache()
-    run_finetune_timing(args.seed)
+    run_timing("finetune", time_training_process, (args.seed,))
+    lap("phase 6")
     imodel, istats = run_eval_iv2(dev, args.seed)
     run_stream(imodel, dev, args.seed, label="iv2 stream")
     del imodel
-    torch.cuda.empty_cache()
+    lap("phase 7")
     i8stats = {fused: run_eval_iv2_int8(dev, args.seed, istats["logits"],
                                         fused)
                for fused in (False, True)}
-    torch.cuda.empty_cache()
+    lap("phase 8")
     f9stats = run_finetune(dev, args.seed, "iv2")
     torch.cuda.empty_cache()
-    run_finetune_timing(args.seed, "iv2")
+    run_timing("iv2 finetune", time_training_process, (args.seed, "iv2"))
+    lap("phase 9")
     # phase 10: (label, qkv_i8, fused_rmsq, evaluate runs)
     p10 = run_eval_fused(dev, args.seed, "vit",
                          [("vit fused", True, False, EVAL_RUNS),
@@ -3920,27 +4473,37 @@ def main(argv=None):
                                ("iv2 fused rmsq", True, True, EVAL_RUNS),
                                ("iv2 fused q8", False, False, EVAL_RUNS)],
                               istats["logits"]))
-    torch.cuda.empty_cache()
+    lap("phase 10")
     # phase 11: ViT-B fine-tuning with attention dropout (C4)
     p11 = run_finetune_dropout(dev, args.seed)
     torch.cuda.empty_cache()
-    run_finetune_timing(args.seed, attn_drop=ATTN_DROP, form="rng")
-    run_finetune_timing(args.seed, attn_drop=ATTN_DROP, form="mask",
-                        processes=1)
+    for form, processes in (("rng", TIMING_PROCESSES), ("mask", 1)):
+        run_timing(f"finetune attn_drop {ATTN_DROP} {form}",
+                   time_training_process,
+                   (args.seed, "vit", ATTN_DROP, form), processes)
+    lap("phase 11")
     # phase 12: the static int8 ViT's opt-in variants (E1, E2)
     p12 = run_eval_variants(dev, args.seed, estats["logits"],
                             qstats["logits"])
-    torch.cuda.empty_cache()
+    lap("phase 12")
     # phase 13: DAPT pre-training (MAE-B)
     run_pretrain(dev, args.seed)
     torch.cuda.empty_cache()
-    run_pretrain_timing(args.seed)
+    run_timing("dapt", time_pretrain_process, (args.seed,))
+    lap("phase 13")
     # phase 14: the MVD-B and UMT-B trunks, evaluation and a fine-tune check
     for family in TRUNKS:
         run_eval_trunk(dev, args.seed, family)
         torch.cuda.empty_cache()
         run_finetune(dev, args.seed, family)
         torch.cuda.empty_cache()
+    lap("phase 14")
+    # phase 15: IV2-S stage-2 distillation from the IV2-1B teacher
+    run_distill(dev, args.seed)
+    lap("phase 15 (i)")
+    run_timing("distill", time_distill_process, (args.seed,),
+               DISTILL_PROCESSES)
+    lap("phase 15 (iii)")
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]

@@ -3,7 +3,10 @@
 Port of simple_tad_tpu/cli/eval_frames.py (reference:
 ``run_frame_finetuning.py --eval``): builds the test-mode dataset (stride
 1: every frame gets a window), scores every window, writes
-predictions.csv + stats.txt + params.json.  Same flags as the JAX CLI,
+predictions.csv + stats.txt + plots/{pr,roc,confusion,dist}.jpg +
+params.json (the plots need matplotlib and Pillow, the package's
+``plots`` extra: with ``--output_dir`` the CLI checks for them before it
+evaluates).  Same flags as the JAX CLI,
 plus ``--device`` (default cuda).  ``--quant8`` serves the int8 model,
 quantized from fp32 masters (the seeded fp32 build with the checkpoint
 loaded), in ``--quant8_mode`` static (calibrated on the first clips, the
@@ -61,8 +64,12 @@ def main(argv=None):
     # makes it a no-op; asked for explicitly it needs multi-device eval
     if "--dist_eval" in rest:
         raise NotImplementedError(
-            "--dist_eval is not ported yet (ROADMAP.md queue 1, evaluation "
-            "path: multi-device)")
+            "--dist_eval is not ported yet (ROADMAP.md queue 1 item 5: "
+            "multi-device evaluation)")
+    if cfg.output_dir:
+        # the plots come last: fail before the evaluation, not after it
+        from simple_tad_tpu_torch.eval.plots import require_plotting
+        require_plotting()
 
     from simple_tad_tpu_torch.data.frame_datasets import (
         FrameDataset, read_dada_clips, read_dota_clips)
@@ -134,9 +141,10 @@ def main(argv=None):
           f"({res.windows_per_sec:.1f} windows/s on {device})")
     if cfg.output_dir:
         os.makedirs(cfg.output_dir, exist_ok=True)
-        res.save(os.path.join(cfg.output_dir, "predictions.csv"),
-                 os.path.join(cfg.output_dir, "stats.txt"))
         cfg.save(os.path.join(cfg.output_dir, "params.json"))
+        res.save(os.path.join(cfg.output_dir, "predictions.csv"),
+                 os.path.join(cfg.output_dir, "stats.txt"),
+                 plots_dir=cfg.output_dir)
         print(f"wrote {cfg.output_dir}/predictions.csv")
     return res
 

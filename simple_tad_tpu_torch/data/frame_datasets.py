@@ -109,23 +109,40 @@ def read_dota_clips(data_path: str, split_file: str, *, orig_fps: int = 10,
     return clips
 
 
+def _csv_number(text: str):
+    """The number a CSV cell holds, as pandas reads a numeric column (an
+    int where it is integral); None for text that is not a number."""
+    try:
+        value = float(text)
+    except (TypeError, ValueError):
+        return None
+    return int(value) if value.is_integer() else value
+
+
 def read_dada_clips(data_path: str, split_file: str, *, orig_fps: int = 30,
                     ttc_TT: float = 2.0, ttc_TA: float = 1.0,
                     video_ext: str = ".png") -> List[ClipInfo]:
-    import pandas as pd
+    import csv
     import zipfile
 
     with open(os.path.join(data_path, split_file)) as f:
         names = [line.strip() for line in f if line.strip()]
-    df = pd.read_csv(os.path.join(data_path, "annotation", "full_anno.csv"))
+    with open(os.path.join(data_path, "annotation", "full_anno.csv"),
+              newline="") as f:
+        rows = list(csv.DictReader(f))
+    # the annotation row of a clip: the one whose (type, video) numbers
+    # equal the clip name's, as the JAX package's pandas lookup
+    by_key: Dict[tuple, list] = {}
+    for r in rows:
+        key = (_csv_number(r["type"]), _csv_number(r["video"]))
+        by_key.setdefault(key, []).append(r)
 
     clips = []
     for name in names:
         clip_type, clip_video = name.split("/")
-        row = df[(df["video"] == int(clip_video))
-                 & (df["type"] == int(clip_type))]
-        assert len(row) == 1, f"annotation rows != 1 for {name}"
-        row = row.iloc[0]
+        found = by_key.get((int(clip_type), int(clip_video)), [])
+        assert len(found) == 1, f"annotation rows != 1 for {name}"
+        row = found[0]
         zip_path = os.path.join(data_path, "frames", name, "images.zip")
         with zipfile.ZipFile(zip_path) as zf:
             members = sorted(
@@ -133,8 +150,8 @@ def read_dada_clips(data_path: str, split_file: str, *, orig_fps: int = 30,
                 for m in zf.namelist()
                 if os.path.splitext(m)[1] == video_ext)
         timesteps = np.array([t for t, _ in members])
-        st = int(row["abnormal start frame"])
-        en = int(row["abnormal end frame"])
+        st = int(_csv_number(row["abnormal start frame"]))
+        en = int(_csv_number(row["abnormal end frame"]))
         if st > -1 and en > -1:
             binary = ((timesteps >= st) & (timesteps <= en)).astype(np.int64)
         else:
@@ -146,7 +163,7 @@ def read_dada_clips(data_path: str, split_file: str, *, orig_fps: int = 30,
             frame_names=[f"{t:04d}{video_ext}" for t in timesteps],
             timesteps=timesteps, binary_labels=binary, cat_labels=cat,
             ego=clip_type in DADA_EGO_CATEGORIES,
-            night=int(row["light(day,night)1-2"]) == 2,
+            night=_csv_number(row["light(day,night)1-2"]) == 2,
             ttc=ttc, smoothed=smooth_labels(binary, ttc, ttc_TT, ttc_TA)))
     return clips
 

@@ -8,7 +8,7 @@ reference's datasets/masking_generator.py:28-49 (random: one mask over all
 T*H*W patches, the IV2 pre-training scripts' ``--mask_type random``).
 Vectorized to emit whole batches at once. The reference's third mask type,
 ``attention``, is drawn from a teacher on the device and is not a
-generator (distillation: ROADMAP.md queue 1 item 7).
+generator (train/distill.py:attention_mask_from_importance).
 """
 
 from __future__ import annotations

@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from simple_tad_tpu_torch.data.frame_datasets import ClipEvalView, FrameDataset
-from simple_tad_tpu_torch.eval.metrics import BinaryMetrics, binary_metrics
+from simple_tad_tpu_torch.eval.metrics import (BinaryMetrics, binary_metrics,
+                                               risk_probs)
 from simple_tad_tpu_torch.models.internvideo2 import IV2Config
 from simple_tad_tpu_torch.models.layers import embed_tubelets, patch_matrix
 from simple_tad_tpu_torch.ops import image as image_ops
@@ -97,10 +98,8 @@ class EvalResult:
 
     def save(self, preds_file: str, stats_file: Optional[str] = None,
              plots_dir: Optional[str] = None):
-        if plots_dir:
-            raise NotImplementedError(
-                "metric plots are not ported yet (ROADMAP.md queue 1, "
-                "evaluation path)")
+        """Write predictions.csv, then the stats, then (``plots_dir``) the
+        metric plots ``plots_dir``/plots/{pr,roc,confusion,dist}.jpg."""
         with open(preds_file, "w", newline="") as f:
             writer = csv.writer(f)
             writer.writerow(COLUMNS)
@@ -111,6 +110,12 @@ class EvalResult:
                     f.write(f"{k}: {v}\n")
                 f.write(f"n_windows: {self.n_windows}\n")
                 f.write(f"windows_per_sec: {self.windows_per_sec:.2f}\n")
+        if plots_dir:
+            from simple_tad_tpu_torch.eval.plots import save_metric_plots
+            save_metric_plots(self.metrics,
+                              risk_probs(self.rows["logits_safe"],
+                                         self.rows["logits_risk"]),
+                              np.asarray(self.rows["label"]), plots_dir)
 
 
 class FrameEvaluator:
@@ -136,7 +141,7 @@ class FrameEvaluator:
         if devices is not None:
             raise NotImplementedError(
                 "multi-device evaluation is not ported yet (ROADMAP.md "
-                "queue 1, evaluation path)")
+                "queue 1 item 5)")
         cfg = model.cfg
         self.device = torch.device(device)
         self._qstate = None

@@ -9,7 +9,8 @@ that must agree (SURVEY.md §5e):
 
 This module implements the binned family as vectorized numpy (one sort +
 cumulative counts instead of 101 full passes — O(n log n + T) vs O(n*T))
-and delegates 'exact' mode to sklearn.  AUC-MCC — the paper's second
+and the 'exact' mode's two sklearn scores in numpy (``roc_auc_score``,
+``average_precision_score``), so the port needs no scikit-learn.  AUC-MCC — the paper's second
 headline metric — is the trapezoidal area of MCC over the threshold grid
 (engine:635: sklearn.auc(THRESHOLDS, mcc)).
 """
@@ -97,6 +98,64 @@ def auc_mcc(probs, labels, thresholds=THRESHOLDS) -> float:
                               thresholds))
 
 
+def risk_probs(logits_safe, logits_risk) -> np.ndarray:
+    """The risk probability of each row's two logits (the softmax's second
+    column), in float64."""
+    logits = np.stack([np.asarray(logits_safe, np.float64),
+                       np.asarray(logits_risk, np.float64)], axis=1)
+    e = np.exp(logits - logits.max(axis=1, keepdims=True))
+    return (e / e.sum(axis=1, keepdims=True))[:, 1]
+
+
+def _check_binary(labels) -> np.ndarray:
+    labels = np.asarray(labels).astype(np.int64).reshape(-1)
+    if len(np.unique(labels)) != 2:
+        raise ValueError("Only one class present in y_true. The score is "
+                         "not defined in that case.")
+    return labels
+
+
+def roc_auc_score(labels, scores) -> float:
+    """Exact area under the ROC curve of binary ``labels`` (0/1) against
+    ``scores``: the Mann-Whitney statistic, the share of (positive,
+    negative) pairs the scores order correctly, a tied pair counting one
+    half (sklearn.metrics.roc_auc_score's value).  Average ranks over the
+    ties give it in one sort."""
+    labels = _check_binary(labels)
+    scores = np.asarray(scores, np.float64).reshape(-1)
+    _, inverse, counts = np.unique(scores, return_inverse=True,
+                                   return_counts=True)
+    # 1-based average rank of each distinct score: the ranks of a tie
+    # group run from its start + 1 to its end
+    ends = np.cumsum(counts).astype(np.float64)
+    ranks = (ends - (counts - 1) / 2.0)[inverse]
+    n_pos = float(labels.sum())
+    n_neg = float(len(labels)) - n_pos
+    u = ranks[labels == 1].sum() - n_pos * (n_pos + 1) / 2.0
+    return float(u / (n_pos * n_neg))
+
+
+def average_precision_score(labels, scores) -> float:
+    """Exact average precision, sklearn.metrics.average_precision_score's
+    step sum: over the distinct score thresholds, from the highest down,
+    the precision at each times the recall it adds."""
+    labels = np.asarray(labels).astype(np.int64).reshape(-1)
+    scores = np.asarray(scores, np.float64).reshape(-1)
+    order = np.argsort(scores, kind="mergesort")[::-1]
+    scores, y = scores[order], labels[order].astype(np.float64)
+    # the last index of each distinct score (ties share one threshold)
+    last = np.r_[np.where(np.diff(scores))[0], y.size - 1]
+    tps = np.cumsum(y)[last]
+    fps = 1 + last - tps
+    precision = np.divide(tps, tps + fps, out=np.zeros_like(tps),
+                          where=(tps + fps) != 0)
+    recall = (np.ones_like(tps) if tps[-1] == 0 else tps / tps[-1])
+    # sklearn's curve: recall falling to its appended 0, precision to 1
+    precision = np.r_[precision[::-1], 1.0]
+    recall = np.r_[recall[::-1], 0.0]
+    return float(-np.sum(np.diff(recall) * precision[:-1]))
+
+
 @dataclasses.dataclass
 class BinaryMetrics:
     """Everything calculate_metrics / calculate_MORE_metrics report."""
@@ -129,8 +188,8 @@ def binary_metrics(probs, labels, thresholds=THRESHOLDS,
     """Full metric report for anomaly probabilities vs binary labels.
 
     exact=False: binned AUROC/AP at the fixed grid (engine parity).
-    exact=True: sklearn roc_auc_score / average_precision_score
-    (anaysis/metrics.py parity).  Threshold-indexed curves are always binned.
+    exact=True: ``roc_auc_score`` / ``average_precision_score``, sklearn's
+    (anaysis/metrics.py parity) in numpy.  Threshold-indexed curves are always binned.
     """
     probs = np.asarray(probs, dtype=np.float64)
     labels = np.asarray(labels).astype(np.int64)
@@ -144,7 +203,6 @@ def binary_metrics(probs, labels, thresholds=THRESHOLDS,
     mcc_c = mcc_curve(probs, labels, thresholds)
 
     if exact:
-        from sklearn.metrics import average_precision_score, roc_auc_score
         auroc = float(roc_auc_score(labels, probs))
         ap = float(average_precision_score(labels, probs))
     else:

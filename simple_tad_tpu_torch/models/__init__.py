@@ -1,9 +1,11 @@
 """Model registry of the port: the VideoMAE ViT sizes, the MVD and UMT
-trunk variants, the InternVideo2 single-modality sizes and the VideoMAE /
-MVD pre-training models (PretrainVideoMAE) of
+trunk variants, the InternVideo2 single-modality sizes, the VideoMAE /
+MVD pre-training models (PretrainVideoMAE) and the InternVideo2 stage-2
+distillation students (DistillInternVideo2) of
 simple_tad_tpu/models/__init__.py (names mirror the reference timm
-registry).  The InternVideo2 pre-training and distillation names of the
-JAX registry are not ported yet and raise, naming their ROADMAP item."""
+registry).  The InternVideo2 pre-training names of the JAX registry
+(PretrainIV2VideoMAE) are not ported yet and raise, naming their ROADMAP
+item."""
 
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from typing import Dict, Tuple
 import torch
 
 from simple_tad_tpu_torch.models.internvideo2 import IV2Config, InternVideo2
+from simple_tad_tpu_torch.models.iv2_distill import (DistillInternVideo2,
+                                                     DistillIV2Config)
 from simple_tad_tpu_torch.models.mae import MAEConfig, PretrainVideoMAE
 from simple_tad_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
@@ -79,19 +83,25 @@ _REGISTRY: Dict[str, Tuple[str, dict]] = {
         num_heads=heads, mlp_ratio=ratio, attn_pool_num_heads=16,
         clip_embed_dim=768))
        for size, (dim, depth, heads, ratio) in _IV2_SIZES.items()},
+    # stage-2 distillation students: the masked IV2 trunk, K tap decoders
+    # and the attention-pooled final decoder (internvideo2_distill.py:
+    # 703-740)
+    **{f"distill_internvideo2_{size}_patch14_224": ("iv2_distill", dict(
+        img_size=224, patch_size=14, embed_dim=_IV2_SIZES[size][0],
+        depth=_IV2_SIZES[size][1], num_heads=_IV2_SIZES[size][2],
+        mlp_ratio=4.0, attn_pool_num_heads=16, clip_embed_dim=768))
+       for size in ("small", "base", "large")},
 }
 _FAMILIES = {"vit": (ViTConfig, VisionTransformer),
              "iv2": (IV2Config, InternVideo2),
-             "mae": (MAEConfig, PretrainVideoMAE)}
+             "mae": (MAEConfig, PretrainVideoMAE),
+             "iv2_distill": (DistillIV2Config, DistillInternVideo2)}
 # names of the JAX registry that the port does not build yet
 _NOT_PORTED = {
     **{name: "queue 1 item 7, PretrainIV2VideoMAE" for name in (
         ["pretrain_videomae_internvideo2_patch14_224"]
         + [f"pretrain_videomae_internvideo2_{size}_patch14_224"
            for size in _VIT_SIZES])},
-    **{f"distill_internvideo2_{size}_patch14_224":
-       "queue 1 item 7, models/iv2_distill.py"
-       for size in ("small", "base", "large")},
 }
 
 
@@ -100,7 +110,7 @@ def list_models():
 
 
 def model_family(name: str) -> str:
-    """'vit', 'iv2' or 'mae' for a registry name."""
+    """'vit', 'iv2', 'mae' or 'iv2_distill' for a registry name."""
     if name in _NOT_PORTED:
         raise KeyError(f"model {name!r} is not ported yet (ROADMAP.md "
                        f"{_NOT_PORTED[name]})")
@@ -125,13 +135,15 @@ def create_model(name: str, *, device, generator: torch.Generator = None,
     the JAX registry maps it, and ``param_dtype``, ``drop_path_rate`` and
     ``fc_drop_rate`` reach its config as they reach the ViT's.  The
     pre-training models (PretrainVideoMAE) take MAEConfig's fields
-    (``decoder_depth``, ``drop_path_rate``, ``param_dtype``, ...).  With
+    (``decoder_depth``, ``drop_path_rate``, ``param_dtype``, ...), the
+    distillation students DistillIV2Config's (``clip_teacher_embed_dim``,
+    ``clip_return_layer``, ``clip_student_decoder``, ...).  With
     ``generator`` the weights are initialised from it; otherwise they are
     left uninitialised for a checkpoint to fill."""
     kind = model_family(name)
     kw = dict(_REGISTRY[name][1])
     kw.update(overrides)
-    if kind == "iv2" and "all_frames" in kw:
+    if kind in ("iv2", "iv2_distill") and "all_frames" in kw:
         kw.setdefault("num_frames", kw.pop("all_frames"))
     config_cls, model_cls = _FAMILIES[kind]
     fields = {f.name for f in dataclasses.fields(config_cls)}

@@ -56,7 +56,11 @@ Gradient checkpointing (``remat``) is not ported and raises.
 The JAX package's model-level sequence pad (``attn_seq_pad``) is not
 ported: it exists to save per-layer copies on the TPU, the port's kernels
 mask keys by index, and the unpadded program computes the same valid rows.
-``features_only`` and the distillation taps are later slices.
+
+Distillation surfaces (cli/distill.py): ``features_only`` returns the
+fc_norm'd pooled features, and ``return_taps`` the stage-2 teacher's
+l2-normalized block outputs, pooled feature and pooling attention.  The
+masked distillation student is models/iv2_distill.py.
 """
 
 from __future__ import annotations
@@ -165,6 +169,13 @@ class IV2Config:
 
 def _vector(dim, device):
     return _param((dim,), torch.float32, device)
+
+
+def l2_normalize(x):
+    """x / max(||x||, 1e-6) over the last axis, in fp32."""
+    x = x.float()
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(
+        1e-6)
 
 
 def rmsnorm_plain(x, weight, eps: float, dtype):
@@ -452,7 +463,10 @@ class AttentionPooling(nn.Module):
             m.init_weights()
         self.cross_attn.init_weights(generator)
 
-    def forward(self, x):
+    def forward(self, x, return_attn: bool = False):
+        """x (B, N, C) -> (B, out_dim); with ``return_attn`` also the
+        pooling attention averaged over heads (B, N) fp32 (the importance
+        of the distillation teacher's 'attention' mask)."""
         B, N, C = x.shape
         H = self.num_heads
         ca = self.cross_attn
@@ -465,7 +479,10 @@ class AttentionPooling(nn.Module):
         probs = torch.softmax(logits, dim=-1).to(self.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs.float(),
                            v.view(B, N, H, -1).float()).to(self.dtype)
-        return ca.proj(out.reshape(B, C))
+        out = ca.proj(out.reshape(B, C))
+        if return_attn:
+            return out, probs.float().mean(dim=1)[:, 0]
+        return out
 
 
 class InternVideo2(nn.Module):
@@ -567,20 +584,39 @@ class InternVideo2(nn.Module):
                                                            dim=1))
         return torch.cat([self.pos_embed_cls, pos], dim=1)
 
-    def forward(self, x, *, tokens_input: bool = False, generator=None):
+    def forward(self, x, *, tokens_input: bool = False, generator=None,
+                features_only: bool = False, return_taps=()):
         """x: (B, T, H, W, C) normalized video -> (B, num_classes) fp32
         logits; with ``tokens_input``, x is (B, num_patches, D) tokens (the
         CLS token and the position table are added here).  ``generator``:
         the source of the training-mode stochastic-depth and head-dropout
-        masks (on x's device)."""
+        masks (on x's device).
+
+        ``features_only``: the fc_norm'd pooled features (B,
+        clip_embed_dim) instead of the logits (the feature-distillation
+        surface).  ``return_taps`` (block indices): the stage-2
+        distillation teacher's surface (internvideo2_teacher.py:523-588)
+        -> (the block outputs at the indices in ascending order,
+        l2-normalized, (K, B, N + 1, D) fp32; the pooled feature
+        l2-normalized, without fc_norm, (B, clip_embed_dim) fp32; the
+        pooling attention averaged over heads at the non-CLS tokens (B, N)
+        fp32)."""
         dt = self.cfg.dtype
         tokens = x.to(dt) if tokens_input else self.patch_embed(x)
         cls = self.cls_token.to(dt).expand(tokens.shape[0], -1, -1)
         tokens = torch.cat([cls, tokens], dim=1) + self.position_table().to(dt)
-        for blk in self.blocks:
+        wanted = sorted(return_taps)
+        outs = {}
+        for i, blk in enumerate(self.blocks):
             tokens = blk(tokens, generator)
+            if i in wanted:
+                outs[i] = tokens
+        if wanted:
+            final, attn = self.clip_projector(tokens, return_attn=True)
+            taps = l2_normalize(torch.stack([outs[i] for i in wanted]))
+            return taps, l2_normalize(final), attn[:, 1:]
         feats = self.fc_norm(self.clip_projector(tokens))
-        if self.head is None:
+        if self.head is None or features_only:
             return feats
         feats = dropout(feats, self.cfg.fc_drop_rate, self.training,
                         generator)

@@ -181,10 +181,12 @@ def umt_pos_embed(num_patches: int, dim: int, cur_frames: int,
 
 def trunc_normal(shape, std: float, generator: torch.Generator
                  ) -> torch.Tensor:
-    """fp32 CPU sample of std * N(0, 1) truncated to [-2, 2] (inverse CDF)."""
+    """fp32 sample of std * N(0, 1) truncated to [-2, 2] (inverse CDF), on
+    the generator's device (the CPU without one)."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
-    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    u = torch.rand(shape, generator=generator, dtype=torch.float64,
+                   device=None if generator is None else generator.device)
     x = torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0) * math.sqrt(2.0)
     return (x.clamp_(-2.0, 2.0) * std).float()
 

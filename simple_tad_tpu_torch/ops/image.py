@@ -45,3 +45,33 @@ def make_windows(frames: torch.Tensor, window_idx: torch.Tensor) -> torch.Tensor
     (W, T, H, W, C).  Each source frame is decoded and moved once even
     though stride-1 windows reuse it up to T times."""
     return frames[window_idx]
+
+
+def pad_to_square(frames: torch.Tensor, mode: str = "black",
+                  fill=None) -> torch.Tensor:
+    """Pad (..., H, W, C) frames to square along the shorter side, evenly
+    split (the extra row or column after): 'black' pads zeros, 'color'
+    pads ``fill`` (one value per channel; without it, black),
+    'replicate' repeats the edge rows or columns.  Port of the JAX
+    package's pad_to_square (reference: pad_wide_clips'
+    deterministic modes, video_transforms.py:1301-1337)."""
+    h, w = frames.shape[-3], frames.shape[-2]
+    if h == w:
+        return frames
+    diff = abs(h - w)
+    lo = diff // 2
+    axis = frames.ndim - (3 if h < w else 2)
+    n = frames.shape[axis]
+    if mode == "replicate":
+        idx = torch.arange(-lo, n + diff - lo, device=frames.device)
+        return frames.index_select(axis, idx.clamp_(0, n - 1))
+    shape = list(frames.shape)
+    shape[axis] = n + diff
+    if mode == "color" and fill is not None:
+        value = torch.as_tensor(np.asarray(fill), device=frames.device
+                                ).to(frames.dtype)
+        out = value.expand(shape).clone()
+    else:
+        out = frames.new_zeros(shape)
+    out.narrow(axis, lo, n).copy_(frames)
+    return out

@@ -32,7 +32,13 @@ pooling head), fp or quantized and calibrated.  ``load_checkpoint_auto``
 loads a reference ``.pth`` into either family: an InternVideo2 checkpoint
 by name as it is (its learnable position table included), as the JAX
 package's torch_to_iv2_params reads it.
-``to_jax_params`` is its inverse for the fp ViT and InternVideo2 (tests
+It reads the JAX DistillInternVideo2 tree as well (the stage-2 student:
+its ``patch_embed``, ``clip_pos_embed``, ``clip_decoder_<k>`` and
+``final_clip_decoder``), and ``load_distill_checkpoint`` a reference
+student ``.pth`` (the JAX torch_to_distill_iv2_params' keys; a teacher
+``.pth`` is an InternVideo2 one, ``load_iv2_checkpoint``).
+``to_jax_params`` is its inverse for the fp ViT, InternVideo2 and the
+distillation student (tests
 compare gradients, updated parameters and optimizer moments leaf by leaf
 with it).  ``load_checkpoint_auto`` (and ``load_vit_checkpoint``) also
 initialise the fp32 training model of either family (cli/finetune.py
@@ -210,13 +216,38 @@ def load_mae_checkpoint(path: str, model):
     return _load_by_name(model, sd)
 
 
+def load_distill_checkpoint(path: str, model):
+    """Read a reference DistInternVideo2 (stage-2 student) .pth into the
+    port's DistillInternVideo2 by name: the keys the JAX package's
+    torch_to_distill_iv2_params reads (the patch embedding, CLS token, both
+    position tables, the blocks, the pooling head, the K tap decoders) must
+    all be there; the final decoder loads where the file has one.  Returns
+    the names that were loaded."""
+    sd = load_torch_state_dict(path)
+    missing = [k for k in model.state_dict() if k not in sd
+               and not k.startswith(("final_clip_decoder.",
+                                     "clip_projector."))]
+    if "final_clip_decoder.norm.weight" in sd:
+        missing += [k for k in model.state_dict() if k not in sd
+                    and k.startswith(("final_clip_decoder.",
+                                      "clip_projector."))]
+    if missing:
+        raise KeyError(f"{path} is not a distillation student checkpoint of "
+                       f"this geometry: it lacks {missing[:4]}")
+    return _load_by_name(model, sd)
+
+
 def load_checkpoint_auto(path: str, model,
                          head_label_map: Optional[Sequence[int]] = None):
-    """Model-aware .pth loader: InternVideo2, PretrainVideoMAE or the ViT
+    """Model-aware .pth loader: InternVideo2, its distillation student,
+    PretrainVideoMAE or the ViT
     (``head_label_map``: the K710 head remap indices of a 600/700-class
     fine-tune)."""
     from simple_tad_tpu_torch.models.internvideo2 import InternVideo2
+    from simple_tad_tpu_torch.models.iv2_distill import DistillInternVideo2
     from simple_tad_tpu_torch.models.mae import PretrainVideoMAE
+    if isinstance(model, DistillInternVideo2):
+        return load_distill_checkpoint(path, model)
     if isinstance(model, InternVideo2):
         return load_iv2_checkpoint(path, model, head_label_map)
     if isinstance(model, PretrainVideoMAE):
@@ -262,6 +293,8 @@ def from_jax_params(params: Mapping[str, Any], *,
     ``tubelet_size`` defaults to the family's (ViT 2, InternVideo2 1)."""
     if "patch_kernel" in params:
         return _from_jax_iv2(params, tubelet_size or 1, in_chans)
+    if "clip_pos_embed" in params:
+        return _from_jax_distill(params, tubelet_size or 1, in_chans)
     if "encoder_patch_embed" in params:
         return _from_jax_mae(params, tubelet_size or 2, in_chans)
 
@@ -363,7 +396,18 @@ def _from_jax_iv2(params, tubelet_size: int, in_chans: int):
                 "pos_embed_cls"):
         if key in params:
             out[key] = _f32(params[key])
-    blocks = params["blocks"]
+    _from_jax_iv2_blocks(out, params["blocks"])
+    _from_jax_pool(out, params["clip_projector"])
+    out["fc_norm.weight"] = _f32(params["fc_norm"]["scale"])
+    out["fc_norm.bias"] = _f32(params["fc_norm"]["bias"])
+    if "head" in params:
+        _dense_leaves(out, "head", params["head"])
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def _from_jax_iv2_blocks(out, blocks) -> None:
+    """The JAX InternVideo2 block stack (scanned: leaves stacked on a
+    leading depth axis) into ``out`` under blocks.<i>."""
     attn = blocks["attn"]
     for i in range(np.shape(blocks["norm1"]["scale"])[0]):
         pre = f"blocks.{i}."
@@ -385,7 +429,10 @@ def _from_jax_iv2(params, tubelet_size: int, in_chans: int):
                 out[pre + "attn." + name] = _f32(attn[name][i])
         for fc in ("fc1", "fc2"):
             _dense_leaves(out, pre + f"mlp.{fc}", blocks[fc], i)
-    pool = params["clip_projector"]
+
+
+def _from_jax_pool(out, pool) -> None:
+    """The JAX attention-pooling head into ``out`` under clip_projector."""
     for side in ("q", "k", "v"):
         norm = pool[f"norm_{side}"]
         out[f"clip_projector.norm1_{side}.weight"] = _f32(norm["scale"])
@@ -395,11 +442,41 @@ def _from_jax_iv2(params, tubelet_size: int, in_chans: int):
         out[f"clip_projector.cross_attn.{side}_bias"] = _f32(
             pool[f"{side}_bias"])
     _dense_leaves(out, "clip_projector.cross_attn.proj", pool["proj"])
-    out["fc_norm.weight"] = _f32(params["fc_norm"]["scale"])
-    out["fc_norm.bias"] = _f32(params["fc_norm"]["bias"])
-    if "head" in params:
-        _dense_leaves(out, "head", params["head"])
+
+
+def _from_jax_distill(params, tubelet_size: int, in_chans: int):
+    """The JAX DistillInternVideo2 tree (its patch_embed Dense, the scanned
+    ``blocks``, ``clip_decoder_<k>`` and ``final_clip_decoder``) -> the
+    reference-named state dict."""
+    out: Dict[str, np.ndarray] = {
+        "patch_embed.proj.weight": _conv3d_from_kernel(
+            _f32(params["patch_embed"]["kernel"]), tubelet_size, in_chans),
+        "patch_embed.proj.bias": _f32(params["patch_embed"]["bias"])}
+    for key in ("cls_token", "pos_embed", "clip_pos_embed"):
+        out[key] = _f32(params[key])
+    _from_jax_iv2_blocks(out, params["blocks"])
+    for name, tree in params.items():
+        if name.startswith("clip_decoder_"):
+            _from_jax_decoder(out, f"clip_decoder.{name.split('_')[-1]}",
+                              tree)
+    if "final_clip_decoder" in params:
+        _from_jax_pool(out, params["clip_projector"])
+        _from_jax_decoder(out, "final_clip_decoder",
+                          params["final_clip_decoder"])
     return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def _from_jax_decoder(out, prefix: str, tree) -> None:
+    """A JAX FeatureDecoder (``head``, or ``fc1`` / ``fc2``, and ``norm``)
+    into ``out`` under the reference's names (the MLP's Sequential indices
+    head.0 / head.2)."""
+    out[prefix + ".norm.weight"] = _f32(tree["norm"]["scale"])
+    out[prefix + ".norm.bias"] = _f32(tree["norm"]["bias"])
+    if "head" in tree:
+        _dense_leaves(out, prefix + ".head", tree["head"])
+    else:
+        _dense_leaves(out, prefix + ".head.0", tree["fc1"])
+        _dense_leaves(out, prefix + ".head.2", tree["fc2"])
 
 
 class _Leaves:
@@ -493,6 +570,42 @@ def _to_jax_mae(r: _Leaves, state) -> Dict[str, Any]:
     return out
 
 
+def _to_jax_pool(r: _Leaves) -> Dict[str, Any]:
+    pool = {"proj": r.dense("clip_projector.cross_attn.proj")}
+    for side in ("q", "k", "v"):
+        pool[f"norm_{side}"] = r.norm(f"clip_projector.norm1_{side}")
+        pool[f"{side}_kernel"] = r.arr(
+            f"clip_projector.cross_attn.{side}.weight").T
+        pool[f"{side}_bias"] = r.arr(f"clip_projector.cross_attn.{side}_bias")
+    return pool
+
+
+def _to_jax_decoder(r: _Leaves, prefix: str) -> Dict[str, Any]:
+    tree = {"norm": r.norm(prefix + ".norm")}
+    if prefix + ".head.weight" in r:
+        tree["head"] = r.dense(prefix + ".head")
+    else:
+        tree["fc1"] = r.dense(prefix + ".head.0")
+        tree["fc2"] = r.dense(prefix + ".head.2")
+    return tree
+
+
+def _to_jax_distill(r: _Leaves, state) -> Dict[str, Any]:
+    out: Dict[str, Any] = {
+        "patch_embed": {"kernel": _patch_kernel(r, "patch_embed.proj.weight"),
+                        "bias": r.arr("patch_embed.proj.bias")},
+        "blocks": _stacked(_iv2_layer(r, f"blocks.{i}.")
+                           for i in range(_depth(state, "blocks.")))}
+    for key in ("cls_token", "pos_embed", "clip_pos_embed"):
+        out[key] = r.arr(key)
+    for k in range(_depth(state, "clip_decoder.")):
+        out[f"clip_decoder_{k}"] = _to_jax_decoder(r, f"clip_decoder.{k}")
+    if "final_clip_decoder.norm.weight" in r:
+        out["clip_projector"] = _to_jax_pool(r)
+        out["final_clip_decoder"] = _to_jax_decoder(r, "final_clip_decoder")
+    return out
+
+
 def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of ``from_jax_params`` for the fp model: a reference-named
     state dict (or any dict keyed by the model's parameter names, such as
@@ -504,6 +617,8 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     r = _Leaves(state)
     if "encoder.patch_embed.proj.weight" in r:
         return _to_jax_mae(r, state)
+    if "clip_pos_embed" in r:
+        return _to_jax_distill(r, state)
     iv2 = "blocks.0.ls1.gamma" in r
     kernel = _patch_kernel(r, "patch_embed.proj.weight")
     bias = r.arr("patch_embed.proj.bias")
@@ -518,14 +633,7 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
                     "pos_embed_cls"):
             if key in r:
                 out[key] = r.arr(key)
-        pool = {"proj": r.dense("clip_projector.cross_attn.proj")}
-        for side in ("q", "k", "v"):
-            pool[f"norm_{side}"] = r.norm(f"clip_projector.norm1_{side}")
-            pool[f"{side}_kernel"] = r.arr(
-                f"clip_projector.cross_attn.{side}.weight").T
-            pool[f"{side}_bias"] = r.arr(
-                f"clip_projector.cross_attn.{side}_bias")
-        out["clip_projector"] = pool
+        out["clip_projector"] = _to_jax_pool(r)
     else:
         out["patch_embed"] = {"kernel": kernel, "bias": bias}
         for key in ("cls_token", "pos_embed"):

@@ -35,7 +35,8 @@ from simple_tad_tpu.ops import attention as jattn
 from simple_tad_tpu.ops import flash_attention as jfa
 from simple_tad_tpu_torch.ops import attention as attn
 from simple_tad_tpu_torch.ops import flash_attention as fa
-from tests.test_torch_vit import one_torch_thread  # noqa: F401
+from tests.test_torch_vit import (  # noqa: F401
+    drop_checkpoints, one_torch_thread)
 
 B, H, D = 2, 2, 64
 C = H * D

@@ -1687,3 +1687,107 @@ def test_tiny_mae_train_step_goes_through_kernels(cuda):
     for n, p in model.named_parameters():
         assert p.dtype == torch.float32, n
         assert not torch.equal(p, before[n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,heads", [(8, 411, 384, 6),
+                                         (2, 2049, 1408, 16)],
+                         ids=["c3_distill_student", "a1_sep_iv2_1b"])
+def test_attention_sep_at_distillation_shapes(b, n, c, heads, cuda):
+    """The distillation job's shapes, bf16, v strided: the IV2-S student's
+    training attention (C3-fwd, C3-bwd) at N = 411, a 27-row tail tile, on
+    the wgmma routes; the IV2-1B teacher's A1 on separate operands at head
+    dim 88, on the mma.sync route.  Each against its plain version; C3's
+    forward output is A1's bit for bit."""
+    dtype, d = torch.bfloat16, c // heads
+    scale = d ** -0.5
+    qkv = _randn((b, n, 3 * c), 51, cuda).to(dtype)
+    q, k, v = (qkv[..., :c].contiguous(), qkv[..., c:2 * c].contiguous(),
+               qkv[..., 2 * c:])
+    route = fa.attention_fwd_route(dtype, d)
+    before = (fa.SEP_LAUNCHES, fa.FWD_WGMMA_LAUNCHES, fa.FWD_MMA_LAUNCHES)
+    got = fa.flash_attention(q, k, v, heads, scale)
+    torch.cuda.synchronize()
+    moved = (fa.SEP_LAUNCHES - before[0], fa.FWD_WGMMA_LAUNCHES - before[1],
+             fa.FWD_MMA_LAUNCHES - before[2])
+    assert moved == ((1, 1, 0) if route == "wgmma" else (1, 0, 1))
+    assert route == ("mma_sync" if d == 88 else "wgmma")
+    torch.testing.assert_close(
+        got.float(), fa.flash_attention_plain(q, k, v, heads, scale).float(),
+        **TOL[dtype])
+    if d == 88:
+        return
+    dout = _randn((b, n, c), 52, cuda).to(dtype)
+    routes = (fa.FWD_WGMMA_LAUNCHES, fa.BWD_WGMMA_LAUNCHES)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, heads, scale)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, heads, scale)
+    torch.cuda.synchronize()
+    assert (fa.FWD_WGMMA_LAUNCHES, fa.BWD_WGMMA_LAUNCHES) == (
+        routes[0] + 1, routes[1] + 1)
+    assert torch.equal(out, got)
+    want_out, want_lse = fa.flash_attention_fwd_lse_plain(q, k, v, heads,
+                                                          scale)
+    torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL[dtype])
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, heads,
+                                        scale)
+    for g, w in zip(grads, want):
+        assert torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_tiny_distill_step_goes_through_kernels(cuda):
+    """One masked-feature distillation step (the attention mask) of a
+    2-block DistillInternVideo2 student (head dim 64, fp32 masters in bf16)
+    from a 3-block InternVideo2 teacher (head dim 88, bf16): the teacher's
+    A1 on separate operands 3 times on the mma.sync route, the student's
+    C3-fwd and C3-bwd twice each on the wgmma routes with the delta
+    pre-pass, nothing else; gradients reach the fp32 masters."""
+    from simple_tad_tpu_torch.models.internvideo2 import (IV2Config,
+                                                          InternVideo2)
+    from simple_tad_tpu_torch.models.iv2_distill import (DistillInternVideo2,
+                                                         DistillIV2Config)
+    from simple_tad_tpu_torch.train import distill as D
+    from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
+    from simple_tad_tpu_torch.train.steps import TrainState
+    geo = dict(img_size=56, num_frames=4, attn_pool_num_heads=2,
+               clip_embed_dim=64)
+    teacher = InternVideo2(IV2Config(**geo, embed_dim=176, depth=3,
+                                     num_heads=2, dtype=torch.bfloat16),
+                           device=cuda).init_weights(
+        torch.Generator(device=cuda).manual_seed(0))
+    student = DistillInternVideo2(DistillIV2Config(
+        **geo, embed_dim=128, depth=2, num_heads=2,
+        clip_teacher_embed_dim=176, clip_teacher_final_dim=64,
+        clip_return_layer=2, dtype=torch.bfloat16,
+        param_dtype=torch.float32), device=cuda).init_weights(
+        torch.Generator().manual_seed(1))
+    before = {n: p.detach().clone() for n, p in student.named_parameters()}
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    state = TrainState.create(student, FinetuneOptimizer(
+        dict(student.named_parameters()), lr_schedule=1e-3,
+        betas=(0.9, 0.98), eps=1e-6), gen)
+    num_masked = int(64 * 0.8)
+    step = D.make_masked_distill_step(teacher, num_masked=num_masked,
+                                      teacher_taps=(0, 2),
+                                      mask_type="attention")
+    names = ("SEP_LAUNCHES", "SEP_FWD_LSE_LAUNCHES", "SEP_BWD_LAUNCHES",
+             "FWD_WGMMA_LAUNCHES", "FWD_MMA_LAUNCHES", "BWD_WGMMA_LAUNCHES",
+             "DELTA_LAUNCHES", "LAUNCHES")
+    counts = [getattr(fa, n) for n in names] + [ln.LAUNCHES]
+    metrics = step(state, {"video": _randn((2, 4, 56, 56, 3), 53,
+                                           cuda).bfloat16()})
+    torch.cuda.synchronize()
+    after = [getattr(fa, n) for n in names] + [ln.LAUNCHES]
+    assert [a - b for a, b in zip(after, counts)] == [3, 2, 2, 2, 3, 2, 2,
+                                                      0, 0]
+    assert torch.isfinite(metrics["loss"])
+    # the pooling head's key biases have no gradient in exact arithmetic
+    # (they shift each softmax row by a constant): rounding noise may
+    # leave them where they were
+    still = {n for n, p in student.named_parameters()
+             if torch.equal(p, before[n])}
+    assert still <= {"clip_projector.cross_attn.k_bias",
+                     "clip_projector.norm1_k.bias"}, still

@@ -27,7 +27,8 @@ from simple_tad_tpu_torch.data.frame_datasets import (FrameDataset,
 from simple_tad_tpu_torch.eval.engine import FrameEvaluator
 from simple_tad_tpu_torch.models import create_model
 from tests.fixtures import make_synthetic_dota
-from tests.test_torch_vit import (TINY, one_torch_thread,  # noqa: F401
+from tests.test_torch_vit import (TINY, drop_checkpoints,  # noqa: F401
+                                   one_torch_thread,
                                    perturbed_jax_params, port_model_from)
 
 

@@ -31,7 +31,7 @@ import simple_tad_tpu_torch.data.zipreader as port_zip
 import simple_tad_tpu_torch.eval.metrics as port_metrics
 import simple_tad_tpu_torch.train.engine as port_engine
 import simple_tad_tpu_torch.utils.logging as port_logging
-from tests.fixtures import make_synthetic_dota
+from tests.fixtures import make_synthetic_dada, make_synthetic_dota
 
 
 def _equal(a, b):
@@ -215,3 +215,44 @@ def test_pretrain_datasets_match_original(dota_root, monkeypatch, tmp_path):
                         lambda *a, **k: None)
     _equal(_pretrain_data(port_fd, port_pre, dota_root, tmp_path),
            _pretrain_data(jax_fd, jax_pre, dota_root, tmp_path))
+
+
+def test_read_dada_clips_matches_original(tmp_path):
+    """The port's csv-module reader of DADA-2000's full_anno.csv against
+    the original's pandas one: the same clips, labels, ego, night and TTC
+    vectors, for every split (clips of both types, one with an accident,
+    one at night)."""
+    root = make_synthetic_dada(str(tmp_path / "dada"), n_clips=4,
+                               frames_per_clip=60)
+    for split in ("training.txt", "validation.txt", "all.txt"):
+        path = f"DADA2K_my_split/{split}"
+        _equal(port_fd.read_dada_clips(root, path, ttc_TT=1.5),
+               jax_fd.read_dada_clips(root, path, ttc_TT=1.5))
+
+
+@pytest.mark.parametrize("ties", [0, 1, 2], ids=["distinct", "round2",
+                                                  "thirds"])
+def test_exact_metrics_match_original(ties, monkeypatch):
+    """binary_metrics(exact=True): the port's numpy AUROC (Mann-Whitney,
+    ties at half weight) and AP (the step sum over distinct thresholds)
+    against the original's scikit-learn ones, with scikit-learn blocked for
+    the port: AP equal, AUROC within 1e-12 (the two sum in another order),
+    the rest equal."""
+    import sys
+    rng = np.random.default_rng(3 + ties)
+    labels = (rng.random(2000) < 0.3).astype(np.int64)
+    probs = np.clip(labels * 0.2 + rng.random(2000) * 0.8, 0, 1)
+    if ties == 1:
+        probs = np.round(probs, 2)
+    elif ties == 2:
+        probs = np.round(probs * 3) / 3
+    want = jax_metrics.binary_metrics(probs, labels, exact=True)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "sklearn", None)
+        m.setitem(sys.modules, "sklearn.metrics", None)
+        got = port_metrics.binary_metrics(probs, labels, exact=True)
+    np.testing.assert_allclose(got.auroc, want.auroc, rtol=1e-12)
+    assert got.ap == want.ap
+    _equal(dataclasses.replace(got, auroc=want.auroc), want)
+    with pytest.raises(ValueError, match="one class"):
+        port_metrics.roc_auc_score(np.zeros(4), np.arange(4.0))

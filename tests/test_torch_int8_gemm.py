@@ -30,7 +30,8 @@ from simple_tad_tpu.ops.quant import int8_matmul_static, quantize_weight
 from simple_tad_tpu_torch import models
 from simple_tad_tpu_torch.models.layers import Mlp
 from simple_tad_tpu_torch.ops import int8_gemm, ln, quant
-from tests.test_torch_vit import one_torch_thread  # noqa: F401
+from tests.test_torch_vit import (  # noqa: F401
+    drop_checkpoints, one_torch_thread)
 
 
 def _qw(rng, k, n, scale=1.0):

@@ -52,7 +52,8 @@ from simple_tad_tpu_torch.ops.attention import (
     quantize_per_head, static_attention_route)
 from tests.test_torch_quant import (CODE_SHARE, _ln_inputs, code_diff,
                                     layernorm_quant_control)
-from tests.test_torch_vit import TINY, one_torch_thread  # noqa: F401
+from tests.test_torch_vit import (  # noqa: F401
+    TINY, drop_checkpoints, one_torch_thread)
 
 OUT_SHARE = 0.01     # share of E2's bf16 outputs that may differ
 

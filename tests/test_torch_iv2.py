@@ -48,7 +48,8 @@ from simple_tad_tpu_torch.ops import flash_attention as fa
 from simple_tad_tpu_torch.ops import ln, quant
 from simple_tad_tpu_torch.utils import torch_convert as tc
 from tests import golden_utils as gu
-from tests.test_torch_vit import one_torch_thread  # noqa: F401
+from tests.test_torch_vit import (  # noqa: F401
+    drop_checkpoints, one_torch_thread)
 
 TINY_IV2 = dict(img_size=28, patch_size=14, embed_dim=128, depth=2,
                 num_heads=2, mlp_ratio=4.0, num_frames=4,

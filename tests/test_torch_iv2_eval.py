@@ -41,7 +41,8 @@ from simple_tad_tpu_torch.models import create_model
 from tests.fixtures import make_synthetic_dota
 from tests.test_torch_iv2 import (jax_iv2, perturbed_iv2_params,
                                   port_iv2_from)
-from tests.test_torch_vit import one_torch_thread  # noqa: F401
+from tests.test_torch_vit import (  # noqa: F401
+    drop_checkpoints, one_torch_thread)
 
 
 @pytest.fixture(scope="module")

@@ -56,7 +56,8 @@ from tests.test_torch_train_optim import (_as_tree, _assert_trees_equal,
                                           _expand)
 from tests.test_torch_train_step import _adam_moments, _torch_batch
 from tests.test_torch_train_step import _tree_close as _leaves_close
-from tests.test_torch_vit import one_torch_thread  # noqa: F401
+from tests.test_torch_vit import (  # noqa: F401
+    drop_checkpoints, one_torch_thread)
 
 TINY = dict(img_size=28, patch_size=14, embed_dim=128, depth=2, num_heads=2,
             mlp_ratio=4.0, num_frames=2, attn_pool_num_heads=2,

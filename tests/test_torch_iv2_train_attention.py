@@ -44,7 +44,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from simple_tad_tpu.ops import flash_attention as jfa
 from simple_tad_tpu_torch.ops import flash_attention as fa
-from tests.test_torch_vit import one_torch_thread  # noqa: F401
+from tests.test_torch_vit import (  # noqa: F401
+    drop_checkpoints, one_torch_thread)
 
 B, H = 2, 2
 DTYPES = {"float32": (torch.float32, jnp.float32),

@@ -42,7 +42,8 @@ from simple_tad_tpu_torch.utils import torch_convert as tc
 from tests import golden_utils as gu
 from tests.test_torch_train_step import (_adam_moments, _tree_close,
                                          pallas)  # noqa: F401
-from tests.test_torch_vit import one_torch_thread  # noqa: F401
+from tests.test_torch_vit import (  # noqa: F401
+    drop_checkpoints, one_torch_thread)
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 # 4 frames of 32 x 32 at tubelet 2: 8 tokens, 6 masked at ratio 0.75; head

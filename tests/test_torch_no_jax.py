@@ -1,4 +1,5 @@
-"""The port imports no jax, flax, pandas or cv2 at module level.
+"""The port imports no jax, flax, pandas or cv2 at module level (nor
+scikit-learn or matplotlib, which the plots import when they draw).
 
 Runs in a subprocess: the test process itself already holds jax.
 """
@@ -16,7 +17,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
-bad = sorted(m for m in ("jax", "flax", "pandas", "cv2", "simple_tad_tpu")
+bad = sorted(m for m in ("jax", "flax", "pandas", "cv2", "simple_tad_tpu",
+                        "sklearn", "matplotlib")
              if m in sys.modules)
 print(len(names), bad)
 assert not bad, bad
@@ -29,7 +31,10 @@ for name in ("ops.quant", "ops.int8_gemm", "ops.ln", "ops.flash_attention",
              "utils.checkpoint", "utils.logging", "cli.finetune",
              # the pre-training path's and the trunk variants'
              "models.mae", "cli.pretrain", "data.masking",
-             "data.pretrain_datasets", "utils.torch_convert"):
+             "data.pretrain_datasets", "utils.torch_convert",
+             # the eval job's plots and grouped report, and distillation
+             "eval.plots", "eval.analysis", "cli.data_tools",
+             "models.iv2_distill", "train.distill", "cli.distill"):
     assert "simple_tad_tpu_torch." + name in names, name
 """
 

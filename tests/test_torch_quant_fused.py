@@ -66,7 +66,8 @@ from tests.test_torch_iv2 import (TINY_IV2, jax_iv2, jitted_apply,
                                   perturbed_iv2_params)
 from tests.test_torch_iv2 import _video as _iv2_video
 from tests.test_torch_quant_vit import TINY4, _video
-from tests.test_torch_vit import (TINY, one_torch_thread,  # noqa: F401
+from tests.test_torch_vit import (TINY, drop_checkpoints,  # noqa: F401
+                                  one_torch_thread,
                                   perturbed_jax_params, port_model_from)
 
 CODE_SHARE = 0.01

@@ -56,7 +56,8 @@ from simple_tad_tpu_torch.ops import flash_attention as fa
 from simple_tad_tpu_torch.ops import ln, quant
 from simple_tad_tpu_torch.utils import torch_convert as tc
 from tests.fixtures import make_synthetic_dota
-from tests.test_torch_vit import (TINY, one_torch_thread,  # noqa: F401
+from tests.test_torch_vit import (TINY, drop_checkpoints,  # noqa: F401
+                                   one_torch_thread,
                                    perturbed_jax_params, port_model_from)
 
 TINY4 = dict(TINY, all_frames=4)           # N = 2 * 2 * 2 = 8 tokens

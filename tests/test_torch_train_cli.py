@@ -12,7 +12,8 @@ import os
 import pytest
 import torch
 
-from tests.test_torch_vit import one_torch_thread  # noqa: F401
+from tests.test_torch_vit import (  # noqa: F401
+    drop_checkpoints, one_torch_thread)
 
 
 @pytest.fixture(scope="module")

@@ -48,7 +48,8 @@ from simple_tad_tpu_torch.train.steps import (TrainState,
 from simple_tad_tpu_torch.utils import torch_convert as tc
 from tests.test_torch_train_step import (_adam_moments, _torch_batch,
                                          _tree_close)
-from tests.test_torch_vit import one_torch_thread  # noqa: F401
+from tests.test_torch_vit import (  # noqa: F401
+    drop_checkpoints, one_torch_thread)
 
 TINY = dict(img_size=64, all_frames=4, patch_size=16, tubelet_size=2,
             embed_dim=128, depth=2, num_heads=2, num_classes=2,

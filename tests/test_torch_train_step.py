@@ -34,7 +34,8 @@ from simple_tad_tpu_torch.train import optim as O
 from simple_tad_tpu_torch.train.steps import (TrainState,
                                               make_finetune_train_step)
 from simple_tad_tpu_torch.utils import torch_convert as tc
-from tests.test_torch_vit import one_torch_thread  # noqa: F401
+from tests.test_torch_vit import (  # noqa: F401
+    drop_checkpoints, one_torch_thread)
 
 TINY = dict(img_size=32, all_frames=4, patch_size=16, tubelet_size=2,
             embed_dim=128, depth=2, num_heads=2, num_classes=2,

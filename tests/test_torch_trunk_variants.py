@@ -50,7 +50,8 @@ from simple_tad_tpu_torch.utils import torch_convert as tc
 from tests.fixtures import make_synthetic_dota
 from tests.test_torch_train_step import (_adam_moments, _tree_close,
                                          pallas)  # noqa: F401
-from tests.test_torch_vit import (_golden, one_torch_thread,  # noqa: F401
+from tests.test_torch_vit import (_golden, drop_checkpoints,  # noqa: F401
+                                  one_torch_thread,
                                   perturbed_jax_params)
 
 BASE = dict(img_size=32, patch_size=16, embed_dim=128, depth=2, num_heads=2,

@@ -44,6 +44,21 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True)
+def drop_checkpoints(request):
+    """Delete the checkpoints (*.pth) a test wrote under its tmp_path once
+    it has read them (autouse here and in each port test module that
+    imports it).  pytest keeps the last runs' temporary directories, and
+    the CLI tests' full-width checkpoints (0.3-0.7 GB a test) filled the
+    disk of a whole tier-1 run."""
+    root = (request.getfixturevalue("tmp_path")
+            if "tmp_path" in request.fixturenames else None)
+    yield
+    if root is not None:
+        for path in root.rglob("*.pth*"):
+            path.unlink()
+
+
 def perturbed_jax_params(cfg, seed=0):
     """JAX init, then every leaf moved by seeded numpy noise so q/v biases,
     LayerNorms, gammas and the head are all exercised."""
@@ -209,14 +224,20 @@ def test_executed_reference_goldens(name, model_name, overrides, tmp_path):
 
 
 def test_unported_variants_raise():
-    """The MVD and UMT trunks are ported (tests/test_torch_trunk_variants.py);
-    the InternVideo2 pre-training and distillation names and gradient
-    checkpointing still raise, naming their ROADMAP item."""
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        create_model("pretrain_videomae_internvideo2_small_patch14_224",
-                     device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        create_model("distill_internvideo2_small_patch14_224", device="cpu")
+    """The MVD and UMT trunks (tests/test_torch_trunk_variants.py) and the
+    InternVideo2 distillation students (tests/test_torch_distill.py) are
+    ported; the InternVideo2 pre-training names and gradient checkpointing
+    still raise, naming their ROADMAP item."""
+    from simple_tad_tpu_torch.models.iv2_distill import DistillInternVideo2
+    for name in ["pretrain_videomae_internvideo2_patch14_224"] + [
+            f"pretrain_videomae_internvideo2_{size}_patch14_224"
+            for size in ("small", "base", "large", "huge")]:
+        with pytest.raises(KeyError, match="ROADMAP.md"):
+            create_model(name, device="cpu")
+    for size in ("small", "base", "large"):
+        assert isinstance(create_model(
+            f"distill_internvideo2_{size}_patch14_224", device="meta"),
+            DistillInternVideo2)
     with pytest.raises(NotImplementedError):
         create_model("vit_small_patch16_224", device="cpu", remat=True)
     with pytest.raises(ValueError, match="pos_embed_kind"):
