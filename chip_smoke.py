@@ -318,7 +318,35 @@ Phases (any failure raises, so the exit code is non-zero):
      steps in the first, DISTILL_STEPS in the second), clips/s, peak
      memory, and in the first a profiler window of PROFILE_STEPS steps
      with the teacher's forward and the whole step timed apart by CUDA
-     events.
+     events;
+ 16. InternVideo2 probing, class fine-tuning and DAPT, each through its
+     CLI's trainer on its job's flags (PROBE_FLAGS, PROBE_6B_FLAGS,
+     CLS_FLAGS, the IV2_DAPT_* constants), clips from memory.  Inside
+     phase 2, A1-sep at 16 frames (N = 4097) at IV2-1B's head dim 88 and
+     IV2-6B's 128 (mma.sync), C3 at the IV2-S DAPT encoder's (8, 1024,
+     1152) H = 6 and C1 / C2 at its decoder's (8, 4096, 576) H = 3
+     (wgmma), each against its plain version and controls and timed with
+     SDPA and its bound.  (i) The IV2-1B attentive probe (open_block_num 0,
+     the pooling head open) at PROBE_CHECK_BATCH: the open parameters'
+     gradients against the plain-version step, the gross control (v
+     misread) outside the bounds; one real step with every A1-sep call
+     (40, mma.sync, nothing else launched) against its plain version and
+     control, the trunk's output without a grad_fn, every detached
+     parameter bit-unchanged, the classifier moved; the same with
+     open_block_num 1 (39 A1-sep, C3-fwd, C3-bwd and the delta pre-pass
+     once, the control without the delta term).  (ii) The probe at the
+     job's PROBE_BATCH in PROBE_PROCESSES fresh processes: median step
+     ms, clips/s, peak memory, a profiler window in the first.  (iii)
+     IV2-6B at full width (head dim 128), its depth cut to PROBE_6B_DEPTH,
+     at PROBE_6B_BATCH, as (i).  (iv) IV2-B class fine-tuning at batch 8:
+     train_augment_cls under torch.cuda's sync debug mode 'error' (no
+     host read); gradients against the plain-version step and the control
+     (no delta term); 12 C3-fwd + 12 C3-bwd + 12 delta (wgmma) and nothing
+     else; TRAIN_STEPS steps at CLS_FIT_LR whose loss must fall by
+     LOSS_DROP; timed at CLS_BATCH in one process.  (v) IV2-S DAPT at batch
+     8 as phase 13 (i)-(ii) (12 C3 + 4 C1 / C2 + 16 delta + 10 LayerNorm;
+     the fit at IV2_DAPT_FIT_LR), then PretrainTrainer at IV2_DAPT_PARTS
+     in one process.
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -416,6 +444,19 @@ import torch
 #     student C3-fwd / C3-bwd calls       <= 1.8e-4 / 4.8e-4 vs the gross
 #                                          controls >= 0.998 / 0.583
 #     student gradients, worst parameter  5.94e-3 vs control 9.53
+#   InternVideo2 probing, class fine-tuning and DAPT (phase 16, batch 2-8):
+#     IV2-1B probe A1-sep calls (N = 4097, head dim 88), outputs differing
+#                                          <= 1.69e-3 vs the gross control
+#                                          >= 0.998; the subtle control
+#                                          2.5e-2, under the bound at the
+#                                          step's near-uniform probabilities
+#                                          (printed; IV2-6B's 2.9e-2, caught
+#                                          at 1 of 4 calls)
+#     the probes' open parameters' gradients, worst 3.81e-3 (1B) / 4.02e-3
+#                                          (6B at depth 4) vs the gross
+#                                          control 0.312 / 0.211
+#     IV2-B class step gradients, worst    1.28e-2 vs control 9.30
+#     IV2-S DAPT step gradients, worst     3.46e-3 vs control 9.66
 # Readings are bit-for-bit the same from run to run on one card and
 # software stack (no atomics; fixed seeds).
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)    # ~1 bf16 ulp (2^-7 relative)
@@ -476,7 +517,9 @@ JOB_BATCH = 56
 # phase 9: the IV2-S job's lr 1e-3 scaled to its batch 56, as the CLI
 # scales it (x batch / 256)
 IV2_LR = 1e-3 * JOB_BATCH / 256
-TIMING_PROCESSES, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 3, 3, 10, 2
+# two timing processes a phase (three until phase 16 came: the run's
+# time limit)
+TIMING_PROCESSES, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 2, 3, 10, 2
 # phase 11: the attention dropout rate of the JAX package's own measurement
 # (simple_tad_tpu/ops/flash_attention.py:flash_attention's docstring); the
 # kernel names of each keep source
@@ -600,6 +643,76 @@ DISTILL_TIMED = [((DISTILL_BATCH, 2049, 4224), 16),
 # the plain attention at DISTILL_BATCH, taken this many samples at a time
 # (its fp32 scores at B = 128 would not fit)
 PLAIN_CHUNK = 8
+# phase 16: InternVideo2 probing, class fine-tuning and DAPT, each through
+# its CLI's trainer on its job's flags (no data is read: clips come from
+# memory).  (i)-(ii) jobs/probe/IV2-1B_ap_K710.sh, the attentive probe
+# (open_block_num 0, the pooling head open; 16 frames, 710 classes, lr 2e-4,
+# no weight decay, layer decay 1.0, drop path 0, the CLI's mixup 0.8 /
+# cutmix 1.0 and RandomErasing 0.25), checked at PROBE_CHECK_BATCH (and
+# once with open_block_num 1) with warm-up 0 (the job warms the lr up from
+# 0, which would leave the checked step's update at 0), timed at the job's
+# PROBE_BATCH in PROBE_PROCESSES processes; (iii) jobs/probe/
+# IV2-6B_ap_ANet.sh (200 classes, no erasing) at full width, the depth cut
+# to PROBE_6B_DEPTH blocks, batch PROBE_6B_BATCH
+PROBE_FLAGS = ["--model", "internvideo2_1B_patch14_224", "--anno_train", "",
+               "--nb_classes", "710", "--open_block_num", "0",
+               "--open_clip_projector", "--epochs", "25",
+               "--warmup_epochs", "5", "--lr", "2e-4", "--min_lr", "0",
+               "--weight_decay", "0", "--layer_decay", "1.0",
+               "--opt", "adamw", "--opt_betas", "0.9", "0.999",
+               "--num_frames", "16", "--sparse_sampling",
+               "--input_size", "224", "--short_side_size", "224",
+               "--drop_path", "0.0", "--test_num_segment", "1",
+               "--test_num_crop", "3"]
+PROBE_6B_FLAGS = ["--model", "internvideo2_6B_patch14_224",
+                  "--data_set", "ANet", "--anno_train", "",
+                  "--nb_classes", "200", "--open_block_num", "0",
+                  "--open_clip_projector", "--epochs", "40",
+                  "--warmup_epochs", "0", "--lr", "2e-4", "--min_lr", "0",
+                  "--weight_decay", "0", "--layer_decay", "1.0",
+                  "--opt", "adamw", "--opt_betas", "0.9", "0.999",
+                  "--num_frames", "16", "--input_size", "224",
+                  "--short_side_size", "224", "--drop_path", "0.0",
+                  "--reprob", "0.0", "--test_num_segment", "4",
+                  "--test_num_crop", "3"]
+PROBE_BATCH, PROBE_CHECK_BATCH, PROBE_PROCESSES = 64, 2, 2
+PROBE_WARMUP, PROBE_STEPS = 1, 3
+PROBE_6B_DEPTH, PROBE_6B_BATCH = 4, 4
+# (iv) jobs/finetune/IV2-B_ft_K710.sh: 8 frames, 710 classes, lr 2e-4
+# scaled to the batch, warm-up 4 epochs, layer decay 0.75, drop path 0.1,
+# the CLI's mixup / cutmix, RandAugment m7 n4, RandomErasing 0.25; checked
+# at TRAIN_BATCH (warm-up 0, as (i)), then TRAIN_STEPS steps on one batch at
+# the constant CLS_FIT_LR (the job's lr scaled to 8 clips, 6.25e-6, moves
+# the loss of 710 classes too little in 10 steps to show the fit); timed at
+# the job's CLS_BATCH in one process
+CLS_FLAGS = ["--model", "internvideo2_base_patch14_224", "--anno_train", "",
+             "--nb_classes", "710", "--epochs", "20", "--warmup_epochs", "4",
+             "--lr", "2e-4", "--weight_decay", "0.05", "--layer_decay",
+             "0.75", "--opt", "adamw", "--opt_betas", "0.9", "0.999",
+             "--num_frames", "8", "--sparse_sampling", "--input_size", "224",
+             "--short_side_size", "224", "--drop_path", "0.1",
+             "--test_num_segment", "4", "--test_num_crop", "3"]
+CLS_BATCH, CLS_FIT_LR = 32, 1e-3
+# (v) jobs/dapt/IV2-S_dapt_bdd_capdata.sh: 16 frames, tube masks at 0.75
+# over 16 x 16 x 16 tokens (tubelet 1), decoder depth 4, AdamW (0.9, 0.95),
+# weight decay 0.05, lr 3e-4 scaled to 64 + 64, pretrain_augment_orig (the
+# job passes no --transforms_finetune_align); checked at TRAIN_BATCH, timed
+# at the job's IV2_DAPT_PARTS in one process
+IV2_DAPT_MODEL = "pretrain_videomae_internvideo2_small_patch14_224"
+IV2_DAPT_PARTS = (64, 64)
+IV2_DAPT_WINDOW, IV2_DAPT_MASK = (16, 16, 16), 0.75
+IV2_DAPT_LR = 3e-4 * sum(IV2_DAPT_PARTS) / 256
+# the fixed-batch fit's constant lr: at IV2_DAPT_LR the loss of one batch
+# fell 4.5% in 10 steps on the H100, steadily (PERF.md); the fit
+# runs at phase 13's MAE_LR
+IV2_DAPT_FIT_LR = MAE_LR
+# phase 2 at phase 16's shapes: A1-sep at 16 frames (N = 4097), IV2-1B's
+# head dim 88 and IV2-6B's 128; C3 at the IV2-S DAPT encoder's 1024
+# visible tokens; C1 / C2 at its decoder (C = 192 packed, H = 3)
+PROBE_SEP_CASES = [((4, 4097, 4224), 16, "IV2-1B probe"),
+                   ((2, 4097, 9600), 25, "IV2-6B probe")]
+IV2_DAPT_ENCODER = ((8, 1024, 1152), 6)
+IV2_DAPT_DECODER = (8, 4096, 192, 3)
 # phases 7 and 8: IV2-S of jobs/finetune/IV2-S_DoTA.sh (--num_frames 8
 # --view_fps 5 on 10 fps DoTA: windows of every other frame)
 IV2_VIEW_STEP = 2
@@ -1721,6 +1834,7 @@ def check_kernels(dev, seed: int) -> dict:
     failures += check_variant_kernels(dev, g, run_case, launches_equal)
     check_pretrain_kernels(dev, g, run_case, launches_equal)
     check_distill_kernels(dev, g, run_case, launches_equal)
+    check_probe_kernels(dev, g, run_case, launches_equal)
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return results
@@ -1741,6 +1855,71 @@ def chunked(fn, n: int = PLAIN_CHUNK):
     return run
 
 
+def sep_operands(g, dev, shape, heads, dt=torch.bfloat16):
+    """Seeded (q, k, v, heads, scale) on separate operands of a (B, N, 3C)
+    qkv tensor, v its strided column block."""
+    B, N, C3 = shape
+    C = C3 // 3
+    qkv = torch.randn(shape, generator=g, device=dev).to(dt)
+    return (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
+            qkv[..., 2 * C:], heads, (C // heads) ** -0.5)
+
+
+def check_c3_case(g, dev, run_case, launches_equal, shape, heads,
+                  label: str, timed: bool) -> None:
+    """C3-fwd and C3-bwd at ``shape`` (B, N, 3C), H = ``heads``, bf16, v
+    strided, against their plain versions and controls (and the gross
+    one, v misread) on their routes; ``timed``: with SDPA's forward and
+    backward and their bounds, kept in the records' cases, else two
+    launches bit-equal."""
+    import torch.nn.functional as F
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    dt = torch.bfloat16
+    B, N, C3 = shape
+    C, D = C3 // 3, C3 // 3 // heads
+    ops = sep_operands(g, dev, shape, heads)
+    dout = torch.randn((B, N, C), generator=g, device=dev).to(dt)
+    case = f"{shape} H={heads} {dt}, v strided ({label})"
+    scale = ops[-1]
+    sdpa = (lambda: F.scaled_dot_product_attention(
+        *sep_heads(heads, *ops[:3]), scale=scale)) if timed else None
+    run_case("attention_sep_fwd_lse", case,
+             lambda: fa.flash_attention_fwd_lse(*ops),
+             lambda: fa.flash_attention_fwd_lse_plain(*ops),
+             [lambda: attention_sep_fwd_lse_control(*ops),
+              lambda: attention_sep_fwd_lse_misread_v(*ops)],
+             time_it="every" if timed else False, library=sdpa,
+             bound=attention_bound(B, N, C, heads, lse=True),
+             route=fa.attention_fwd_route(dt, D))
+    if not timed:
+        launches_equal("attention_sep_fwd_lse", case,
+                       lambda: fa.flash_attention_fwd_lse(*ops))
+    out, lse = fa.flash_attention_fwd_lse_plain(*ops)
+    bargs = (*ops[:3], out, lse, dout, *ops[3:])
+    library = None
+    if timed:
+        leaves = [t.detach().requires_grad_(True) for t in ops[:3]]
+        sdpa_out = F.scaled_dot_product_attention(
+            *sep_heads(heads, *leaves), scale=scale)
+        sdpa_dout = sep_heads(heads, dout)[0]
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa_out, leaves, sdpa_dout, retain_graph=True)
+    run_case("attention_sep_bwd", case,
+             lambda: fa.flash_attention_bwd(*bargs),
+             lambda: fa.flash_attention_bwd_plain(*bargs),
+             [lambda: attention_sep_bwd_control(*bargs),
+              lambda: attention_sep_bwd_misread_v(*bargs)],
+             time_it="every" if timed else False, library=library,
+             bound=attention_bound(B, N, C, heads, backward=True),
+             route=fa.attention_bwd_route(dt, D),
+             route_counts=bwd_route_counts)
+    if not timed:
+        launches_equal("attention_sep_bwd", case,
+                       lambda: fa.flash_attention_bwd(*bargs))
+    del ops, dout, out, lse, bargs
+    torch.cuda.empty_cache()
+
+
 def check_distill_kernels(dev, g, run_case, launches_equal):
     """Phase 2 at phase 15's shapes: C3-fwd and C3-bwd at the student's
     N = 411 (DISTILL_CHECK) against their plain versions and controls on
@@ -1755,63 +1934,12 @@ def check_distill_kernels(dev, g, run_case, launches_equal):
     dt = torch.bfloat16
     t0 = time.perf_counter()
 
-    def operands(shape, heads):
-        B, N, C3 = shape
-        C = C3 // 3
-        qkv = torch.randn(shape, generator=g, device=dev).to(dt)
-        return (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
-                qkv[..., 2 * C:], heads, (C // heads) ** -0.5)
-
-    def c3(shape, heads, timed):
-        B, N, C3 = shape
-        C, D = C3 // 3, C3 // 3 // heads
-        ops = operands(shape, heads)
-        dout = torch.randn((B, N, C), generator=g, device=dev).to(dt)
-        case = f"{shape} H={heads} {dt}, v strided (distill student)"
-        scale = ops[-1]
-        sdpa = (lambda: F.scaled_dot_product_attention(
-            *sep_heads(heads, *ops[:3]), scale=scale)) if timed else None
-        run_case("attention_sep_fwd_lse", case,
-                 lambda: fa.flash_attention_fwd_lse(*ops),
-                 lambda: fa.flash_attention_fwd_lse_plain(*ops),
-                 [lambda: attention_sep_fwd_lse_control(*ops),
-                  lambda: attention_sep_fwd_lse_misread_v(*ops)],
-                 time_it="every" if timed else False, library=sdpa,
-                 bound=attention_bound(B, N, C, heads, lse=True),
-                 route=fa.attention_fwd_route(dt, D))
-        if not timed:
-            launches_equal("attention_sep_fwd_lse", case,
-                           lambda: fa.flash_attention_fwd_lse(*ops))
-        out, lse = fa.flash_attention_fwd_lse_plain(*ops)
-        bargs = (*ops[:3], out, lse, dout, *ops[3:])
-        library = None
-        if timed:
-            leaves = [t.detach().requires_grad_(True) for t in ops[:3]]
-            sdpa_out = F.scaled_dot_product_attention(
-                *sep_heads(heads, *leaves), scale=scale)
-            sdpa_dout = sep_heads(heads, dout)[0]
-            library = lambda: torch.autograd.grad(  # noqa: E731
-                sdpa_out, leaves, sdpa_dout, retain_graph=True)
-        run_case("attention_sep_bwd", case,
-                 lambda: fa.flash_attention_bwd(*bargs),
-                 lambda: fa.flash_attention_bwd_plain(*bargs),
-                 [lambda: attention_sep_bwd_control(*bargs),
-                  lambda: attention_sep_bwd_misread_v(*bargs)],
-                 time_it="every" if timed else False, library=library,
-                 bound=attention_bound(B, N, C, heads, backward=True),
-                 route=fa.attention_bwd_route(dt, D),
-                 route_counts=bwd_route_counts)
-        if not timed:
-            launches_equal("attention_sep_bwd", case,
-                           lambda: fa.flash_attention_bwd(*bargs))
-        del ops, dout, out, lse, bargs
-        torch.cuda.empty_cache()
-
-    c3(*DISTILL_CHECK, timed=False)
+    check_c3_case(g, dev, run_case, launches_equal, *DISTILL_CHECK,
+                  "distill student", timed=False)
     (shape, heads), student = DISTILL_TIMED
     B, N, C3 = shape
     C = C3 // 3
-    q, k, v, _, scale = operands(shape, heads)
+    q, k, v, _, scale = sep_operands(g, dev, shape, heads)
     qh, kh, vh = sep_heads(heads, q, k, v)
     run_case("attention_sep", f"{shape} H={heads} {dt}, v strided "
              f"(distill teacher)",
@@ -1826,8 +1954,43 @@ def check_distill_kernels(dev, g, run_case, launches_equal):
              route=fa.attention_fwd_route(dt, C // heads), plain_runs=3)
     del q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
-    c3(*student, timed=True)
+    check_c3_case(g, dev, run_case, launches_equal, *student,
+                  "distill student", timed=True)
     print(f"[time] phase 2's distillation cases: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def check_probe_kernels(dev, g, run_case, launches_equal):
+    """Phase 2 at phase 16's shapes: A1-sep at 16 frames (N = 4097) at
+    IV2-1B's width (head dim 88) and IV2-6B's (head dim 128, the first
+    launch at 128), on the mma.sync route, against the plain version and
+    its control and timed with SDPA and the bound (PROBE_SEP_CASES); C3-fwd
+    and C3-bwd at the IV2-S DAPT encoder's 1024 visible tokens
+    (IV2_DAPT_ENCODER) against their plain versions and controls, timed."""
+    import torch.nn.functional as F
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    dt = torch.bfloat16
+    t0 = time.perf_counter()
+    for shape, heads, what in PROBE_SEP_CASES:
+        B, N, C3 = shape
+        C = C3 // 3
+        q, k, v, _, scale = sep_operands(g, dev, shape, heads)
+        qh, kh, vh = sep_heads(heads, q, k, v)
+        run_case("attention_sep", f"{shape} H={heads} {dt}, v strided "
+                 f"({what})",
+                 lambda: fa.flash_attention(q, k, v, heads, scale),
+                 lambda: fa.flash_attention_plain(q, k, v, heads, scale),
+                 lambda: attention_sep_control(q, k, v, heads, scale),
+                 time_it="every",
+                 library=lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, scale=scale),
+                 bound=attention_bound(B, N, C, heads),
+                 route=fa.attention_fwd_route(dt, C // heads), plain_runs=3)
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    check_c3_case(g, dev, run_case, launches_equal, *IV2_DAPT_ENCODER,
+                  "IV2-S DAPT encoder", timed=True)
+    print(f"[time] phase 2's probing and IV2 DAPT cases: "
           f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -1835,9 +1998,11 @@ def check_pretrain_kernels(dev, g, run_case, launches_equal):
     """Phase 2, the DAPT and MVD / UMT shapes: C1 and C2 against their
     plain versions and controls at DAPT_TRAIN_CASES, each call on its wgmma
     route, two launches bit-equal; then C1 and C2 at DAPT's batch
-    (DAPT_TIMED), against their plain versions and controls on their wgmma
-    route and timed with their plain versions, SDPA's forward and backward
-    and their bounds, kept in the records' cases."""
+    (DAPT_TIMED) and at the IV2-S DAPT decoder's (IV2_DAPT_DECODER: C =
+    192 packed, H = 3, all 4096 tokens), against their plain versions and
+    controls on their wgmma route and timed with their plain versions,
+    SDPA's forward and backward and their bounds, kept in the records'
+    cases."""
     import torch.nn.functional as F
     from simple_tad_tpu_torch.ops import flash_attention as fa
     dt = torch.bfloat16
@@ -1873,12 +2038,14 @@ def check_pretrain_kernels(dev, g, run_case, launches_equal):
         del qkv, dout, out, lse
     torch.cuda.empty_cache()
 
-    for B, N, C, heads in DAPT_TIMED:
+    for (B, N, C, heads), what in ([(c, "DAPT batch") for c in DAPT_TIMED]
+                                   + [(IV2_DAPT_DECODER,
+                                       "IV2-S DAPT decoder")]):
         scale = (C // heads) ** -0.5
         qkv = torch.randn((B, N, 3 * C), generator=g, device=dev).to(dt)
         dout = torch.randn((B, N, C), generator=g, device=dev).to(dt)
         q, k, v = qkv_views(qkv, heads)
-        case = f"({B}, {N}, {3 * C}) H={heads} {dt} (DAPT batch)"
+        case = f"({B}, {N}, {3 * C}) H={heads} {dt} ({what})"
         run_case("attention_fwd_lse", case,
                  lambda: fa.flash_attention_qkv_fwd_lse(qkv, heads, scale),
                  lambda: fa.flash_attention_qkv_fwd_lse_plain(qkv, heads,
@@ -3495,18 +3662,21 @@ def train_routes(family: str, no_delta: bool = False) -> dict:
             "layernorm": ln.layernorm_plain}
 
 
-def step_grads(model, batch, gen, gen_state):
+def step_grads(model, batch, gen, gen_state, soft: bool = False):
     """Forward and backward of one train step (no update) -> {name: grad}
-    and the loss; the masks are drawn from ``gen`` reset to ``gen_state``."""
+    of the parameters that take one, and the loss (against the labels, or
+    with ``soft`` the soft targets, batch['smoothed']); the masks are drawn
+    from ``gen`` reset to ``gen_state``."""
     from simple_tad_tpu_torch.train.losses import cross_entropy
     gen.set_state(gen_state)
     model.train()
     for p in model.parameters():
         p.grad = None
     loss = cross_entropy(model(batch["video"], generator=gen),
-                         batch["label"])
+                         batch["smoothed" if soft else "label"])
     loss.backward()
-    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
     for p in model.parameters():
         p.grad = None
     return grads, loss.item()
@@ -3716,11 +3886,11 @@ def mae_state(model, dev, seed: int, lr=MAE_LR):
     return TrainState.create(model, opt, gen)
 
 
-def mae_masks(batch: int, ratio: float, seed: int):
-    """(batch, 1568) tube masks of the job's 8 x 14 x 14 token grid ->
-    (mask, masked tokens a row)."""
+def mae_masks(batch: int, ratio: float, seed: int, window=(8, 14, 14)):
+    """(batch, tokens) tube masks of a token grid (the DAPT job's 8 x 14 x
+    14) -> (mask, masked tokens a row)."""
     from simple_tad_tpu_torch.data.masking import TubeMaskingGenerator
-    gen = TubeMaskingGenerator((8, 14, 14), ratio)
+    gen = TubeMaskingGenerator(window, ratio)
     return gen.batch(batch, np.random.default_rng(seed)), gen.total_masks
 
 
@@ -3839,26 +4009,29 @@ def run_pretrain(dev, seed: int) -> dict:
 
 class SyntheticPretrainBatches:
     """Loader batches of the double DAPT loop from memory: each step one
-    part per dataset (MAE_PARTS clips), seeded uint8 clips of 16 frames at
-    CLIP_H x CLIP_W drawn from a pool of 8, and tube masks at 0.75.  The
-    timing takes them as a list made beforehand: the CLI's PretrainLoader
-    assembles its batches on worker threads while the card runs."""
+    part per dataset (``parts`` clips), seeded uint8 clips of 16 frames at
+    CLIP_H x CLIP_W drawn from a pool of 8, and tube masks at 0.75 over
+    ``window``.  The timing takes them as a list made beforehand: the
+    CLI's PretrainLoader assembles its batches on worker threads while the
+    card runs."""
 
-    def __init__(self, seed: int, pool: int = 8):
+    def __init__(self, seed: int, pool: int = 8, parts=MAE_PARTS,
+                 window=(8, 14, 14)):
         rng = np.random.default_rng(seed)
         self.frames = rng.integers(0, 256, (pool, 16, CLIP_H, CLIP_W, 3),
                                    np.uint8)
-        self.seed = seed
+        self.seed, self.parts, self.window = seed, parts, window
 
     def epoch(self, steps: int):
         rng = np.random.default_rng(self.seed)
         for i in range(steps):
             parts = []
-            for j, n in enumerate(MAE_PARTS):
+            for j, n in enumerate(self.parts):
                 idx = rng.integers(0, len(self.frames), n)
                 parts.append({"video_u8": self.frames[idx],
                               "mask": mae_masks(n, MAE_MASKS[0],
-                                                self.seed + 7 * i + j)[0]})
+                                                self.seed + 7 * i + j,
+                                                self.window)[0]})
             yield parts
 
 
@@ -3952,6 +4125,10 @@ def run_timing(label: str, process, args=(),
         print(f"[{label} profile] {PROFILE_STEPS} steps: wall "
               f"{prof['wall_ms']:.1f} ms, kernel time {prof['device_ms']:.1f}"
               f" ms, device busy {busy:.3f}, idle {1 - busy:.3f}")
+        if "augment_ms" in prof:
+            print(f"[{label} profile] a step's upload and train_augment_cls "
+                  f"(CUDA events, median): "
+                  f"{statistics.median(prof['augment_ms']):.2f} ms")
         if "teacher_ms" in prof:
             step = statistics.median(prof["step_ms"])
             teacher = statistics.median(prof["teacher_ms"])
@@ -4418,6 +4595,430 @@ def time_distill_process(profile: bool, seed: int) -> dict:
     return largest_fitting(DISTILL_BATCHES, attempt)
 
 
+def probe_setup(dev, seed: int, flags, batch: int, *, depth=None,
+                extra=()):
+    """A class fine-tuning job's setup through its CLI (cli/class_finetune.
+    py: get_args on ``flags``, build_optimizer, which detaches the frozen
+    parameters of a probe, and ClassFinetuneTrainer with the soft-target
+    step): the model at full width seeded on the card, fp32 masters in
+    bf16, LayerScale 0.1 (the reference goldens' magnitude, as phases 7, 9
+    and 15, so the trunk moves the features); ``depth`` cuts its depth ->
+    (args, trainer)."""
+    from simple_tad_tpu_torch.cli import class_finetune as CF
+    from simple_tad_tpu_torch.models import create_model
+    from simple_tad_tpu_torch.train.steps import (TrainState,
+                                                  make_finetune_train_step)
+    args = CF.get_args(list(flags) + ["--batch_size", str(batch), "--seed",
+                                      str(seed), *extra])
+    model = create_model(
+        args.model, device=dev, dtype=torch.bfloat16,
+        param_dtype=torch.float32, num_classes=args.nb_classes,
+        num_frames=args.num_frames, img_size=args.input_size,
+        drop_path_rate=args.drop_path, init_values=0.1,
+        generator=torch.Generator(device=dev).manual_seed(seed),
+        **({} if depth is None else {"depth": depth}))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    state = TrainState.create(model, CF.build_optimizer(args, model, 100),
+                              gen)
+    return args, CF.ClassFinetuneTrainer(
+        make_finetune_train_step(CF.soft_target_criterion), state,
+        device=dev, args=args)
+
+
+def class_host_batch(batch: int, frames: int, classes: int, seed: int,
+                     pool=None):
+    """A host batch as the CLI's epoch_batches gives it: seeded uint8 clips
+    at CLIP_H x CLIP_W (from ``pool`` where given) and labels."""
+    rng = np.random.default_rng(seed)
+    video = (rng.integers(0, 256, (batch, frames, CLIP_H, CLIP_W, 3),
+                          np.uint8) if pool is None
+             else pool[rng.integers(0, len(pool), batch)])
+    return {"video_u8": video, "label": rng.integers(0, classes, batch)}
+
+
+def class_batch(trainer, dev, batch: int, seed: int, frames: int) -> dict:
+    """One host batch through the trainer's device_batch (the upload and
+    train_augment_cls on the card), run under torch.cuda's sync debug mode
+    'error', which raises if any draw or op reads the device from the host
+    -> the step's batch."""
+    host = class_host_batch(batch, frames, trainer.aug["num_classes"], seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    staged = trainer.stage(host)
+    trainer.device_batch(staged, gen)          # the constants, made once
+    torch.cuda.synchronize()
+    gen.manual_seed(seed)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = trainer.device_batch(staged, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    crop = trainer.aug["crop_size"]
+    assert out["video"].shape == (batch, frames, crop, crop, 3)
+    assert torch.isfinite(out["video"].float()).all()
+    sums = out["smoothed"].sum(-1)
+    assert torch.allclose(sums, torch.ones_like(sums), atol=1e-5)
+    return out
+
+
+def probe_check(dev, seed: int, flags, batch: int, label: str, *,
+                depth=None, open_blocks: int = 0) -> dict:
+    """Phase 16 (i) and (iii): one probe step of the CLI's trainer at
+    ``batch``.  Its open parameters' gradients and loss against the same
+    step through the plain versions (GRAD_NORM_RTOL, GRAD_PARAM_RTOL) and
+    the gross control (A1-sep with v misread) outside them; with
+    ``open_blocks`` 1 the last block's C3 runs under autograd (its plain
+    versions in the plain step, no delta term in the control); then one
+    real step with every attention call against the plain version at its
+    inputs (the open block's too: fa.flash_attention takes C3 there) and
+    the gross control, the subtle one printed: at the step's own inputs,
+    near-uniform probabilities over 4097 keys, rounding them to bf16 or
+    not moves too few outputs for the share bound (2.5e-2 against 3e-2 on
+    the H100; phase 2 holds that control at these shapes on random
+    inputs): the launch counts (A1-sep on the frozen blocks, C3 on
+    the open one, the route of the head dim), the trunk's output without
+    a grad_fn when no block is open, the detached parameters bit-unchanged
+    and the classifier moved."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    args, trainer = probe_setup(dev, seed, flags, batch, depth=depth,
+                                extra=["--warmup_epochs", "0",
+                                       "--open_block_num", str(open_blocks)])
+    state = trainer.state
+    model = state.model
+    depth, detached = model.cfg.depth, state.optimizer.detached
+    head_dim = model.cfg.embed_dim // model.cfg.num_heads
+    route = fa.attention_fwd_route(torch.bfloat16, head_dim)
+    open_names = sorted(n for n, p in model.named_parameters()
+                        if p.requires_grad)
+    batch_in = class_batch(trainer, dev, batch, seed, args.num_frames)
+    print(f"[{label}] {args.model} (depth {depth}, width "
+          f"{model.cfg.embed_dim}, head dim {head_dim}: {route}) bf16, fp32 "
+          f"masters, {args.num_frames} frames, batch {batch}, "
+          f"open_block_num {open_blocks}"
+          f"{', the pooling head open' if args.open_clip_projector else ''}"
+          f": {len(open_names)} parameters open, {len(detached)} detached")
+    plain_routes = {"flash_attention": fa.flash_attention_plain}
+    train_plain = train_routes("iv2") if open_blocks else {}
+    train_ctrl = train_routes("iv2", no_delta=True) if open_blocks else {}
+    g0 = state.generator.get_state()
+    kern, loss_k = step_grads(model, batch_in, state.generator, g0, True)
+    with routed(**plain_routes), routed_train(**train_plain):
+        plain, loss_p = step_grads(model, batch_in, state.generator, g0,
+                                   True)
+    with routed(flash_attention=attention_sep_misread_v), \
+            routed_train(**train_ctrl):
+        ctrl, loss_c = step_grads(model, batch_in, state.generator, g0,
+                                  True)
+    assert sorted(kern) == open_names, "a detached parameter took a grad"
+    norm_err, param_err, worst = grad_errors(kern, plain)
+    c_norm, c_param, c_worst = grad_errors(ctrl, plain)
+    del kern, plain, ctrl
+    print(f"[{label}] loss {loss_k:.6f} (plain versions {loss_p:.6f}, gross "
+          f"control {loss_c:.6f}); open parameters' gradients vs plain: "
+          f"global norm rel err {norm_err:.3e} (bound {GRAD_NORM_RTOL:.1e}),"
+          f" worst parameter {param_err:.3e} ({worst}; bound "
+          f"{GRAD_PARAM_RTOL:.1e}); gross control: {c_norm:.3e}, "
+          f"{c_param:.3e} ({c_worst})")
+
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n in detached}
+    head = model.head.weight.detach().clone()
+    grad_fns = []
+    hook = model.blocks[-1].register_forward_hook(
+        lambda mod, inp, out: grad_fns.append(out.grad_fn))
+    state.generator.set_state(g0)
+    metrics = {}
+    reset_counts()
+    try:
+        failures = check_sites(
+            lambda: metrics.update(trainer.train_step(state, batch_in)[0]),
+            {"attention_sep": (
+                "flash_attention", fa.flash_attention,
+                fa.flash_attention_plain,
+                [("control", attention_sep_control, None),
+                 ("gross control (v misread)", attention_sep_misread_v,
+                  "every")])},
+            f"{label} sites", calls={"attention_sep": depth})
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        hook.remove()
+    unchanged = [n for n, p in model.named_parameters()
+                 if n in frozen and torch.equal(p, frozen[n])]
+    moved = not torch.equal(model.head.weight, head)
+    print(f"[{label}] launches in one step {launches}; the last block's "
+          f"output grad_fn {type(grad_fns[0]).__name__}; detached "
+          f"parameters bit-unchanged {len(unchanged)} of {len(frozen)}; "
+          f"classifier moved {moved}; loss {float(metrics['loss']):.6f}")
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(attention_sep=depth - open_blocks)
+    want[f"fwd_route_{route}"] = depth
+    if open_blocks:
+        want.update(attention_sep_fwd_lse=open_blocks,
+                    attention_sep_bwd=open_blocks,
+                    attention_delta=open_blocks)
+        want[f"bwd_route_{fa.attention_bwd_route(torch.bfloat16, head_dim)}"] \
+            = open_blocks
+    assert not failures, failures
+    assert launches == want, (launches, want)
+    assert (grad_fns[0] is None) == (open_blocks == 0), grad_fns
+    assert len(unchanged) == len(frozen) > 0, "a detached parameter moved"
+    assert moved and np.isfinite(float(metrics["loss"]))
+    assert norm_err <= GRAD_NORM_RTOL and param_err <= GRAD_PARAM_RTOL, \
+        f"{label}: gradients disagree with the plain-version step"
+    assert c_norm > GRAD_NORM_RTOL or c_param > GRAD_PARAM_RTOL, \
+        f"{label}: the gradient bounds let the gross control through"
+    return {"launches": launches, "grad_norm_err": norm_err,
+            "grad_param_err": param_err}
+
+
+def time_class_process(profile: bool, seed: int, flags, batch: int,
+                       warmup: int, steps: int) -> dict:
+    """Phase 16 (ii) and (iv) (iii), in a fresh process: the class
+    fine-tuning CLI's trainer on ``flags`` at ``batch`` (host batches of
+    seeded clips from memory, made beforehand: the CLI decodes them on the
+    host between steps) -> step times, peak memory and, with ``profile``,
+    a profiler window with the device ms of each step's upload and
+    augmentation (CUDA events)."""
+    dev = torch.device("cuda", 0)
+    args, trainer = probe_setup(dev, seed, flags, batch)
+    pool = np.random.default_rng(seed).integers(
+        0, 256, (8, args.num_frames, CLIP_H, CLIP_W, 3), np.uint8)
+    batches = [class_host_batch(batch, args.num_frames, args.nb_classes,
+                                seed + i, pool)
+               for i in range(warmup + steps)]
+    out = {"batch": batch, "oom": [], **time_steps(trainer, batches,
+                                                   warmup)}
+    if not profile:
+        return out
+    # CUDA events around each step's upload and train_augment_cls
+    events, device_batch = [], trainer.device_batch
+
+    def timed_batch(*a):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+        ev[0].record()
+        res = device_batch(*a)
+        ev[1].record()
+        events.append(ev)
+        return res
+
+    trainer.device_batch = timed_batch
+    try:
+        out["profile"] = profile_window(trainer, batches[:PROFILE_STEPS])
+    finally:
+        del trainer.device_batch
+    out["profile"]["augment_ms"] = [a.elapsed_time(b) for a, b in events]
+    return out
+
+
+def run_class_finetune(dev, seed: int) -> dict:
+    """Phase 16 (iv) (i)-(ii): IV2-B on CLS_FLAGS through the CLI's trainer
+    at TRAIN_BATCH: the batch from train_augment_cls under the sync debug
+    mode; the step's gradients against the plain-version step and the
+    control (no delta term); one real step's launches (12 C3-fwd, 12
+    C3-bwd, 12 delta, on the wgmma routes; nothing else); TRAIN_STEPS
+    steps on the batch at CLS_FIT_LR, whose loss must fall by LOSS_DROP."""
+    label = "iv2-b class finetune"
+    args, trainer = probe_setup(dev, seed, CLS_FLAGS, TRAIN_BATCH,
+                                extra=["--warmup_epochs", "0"])
+    state = trainer.state
+    model = state.model
+    depth = model.cfg.depth
+    batch = class_batch(trainer, dev, TRAIN_BATCH, seed, args.num_frames)
+    g0 = state.generator.get_state()
+    kern, loss_k = step_grads(model, batch, state.generator, g0, True)
+    with routed_train(**train_routes("iv2")):
+        plain, loss_p = step_grads(model, batch, state.generator, g0, True)
+    with routed_train(**train_routes("iv2", no_delta=True)):
+        ctrl, _ = step_grads(model, batch, state.generator, g0, True)
+    norm_err, param_err, worst = grad_errors(kern, plain)
+    c_norm, c_param, c_worst = grad_errors(ctrl, plain)
+    del kern, plain, ctrl
+    print(f"[{label}] {args.model} 8x224 bf16, fp32 masters, batch "
+          f"{TRAIN_BATCH}, train_augment_cls under the sync debug mode "
+          f"'error' (no host read): loss {loss_k:.6f} (plain versions "
+          f"{loss_p:.6f}); gradients vs plain: global norm rel err "
+          f"{norm_err:.3e} (bound {GRAD_NORM_RTOL:.1e}), worst parameter "
+          f"{param_err:.3e} ({worst}; bound {GRAD_PARAM_RTOL:.1e}); control "
+          f"(no delta): {c_norm:.3e}, {c_param:.3e} ({c_worst})")
+    state.generator.set_state(g0)
+    state.optimizer.lr = lambda step: CLS_FIT_LR
+    reset_counts()
+    metrics, _ = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    losses = [float(metrics["loss"])]
+    for _ in range(TRAIN_STEPS - 1):
+        losses.append(float(trainer.train_step(state, batch)[0]["loss"]))
+    drop = 1.0 - losses[-1] / losses[0]
+    print(f"[{label}] launches in one train step {launches}")
+    print(f"[{label}] {TRAIN_STEPS} steps on one batch at constant lr "
+          f"{CLS_FIT_LR}: losses {' '.join(f'{x:.5f}' for x in losses)}; "
+          f"drop {drop:.3f} (required {LOSS_DROP})")
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(attention_sep_fwd_lse=depth, attention_sep_bwd=depth,
+                attention_delta=depth, fwd_route_wgmma=depth,
+                bwd_route_wgmma=depth)
+    assert launches == want, (launches, want)
+    assert norm_err <= GRAD_NORM_RTOL and param_err <= GRAD_PARAM_RTOL, \
+        "gradients disagree with the plain-version step"
+    assert c_norm > GRAD_NORM_RTOL or c_param > GRAD_PARAM_RTOL, \
+        "the gradient bounds let the control through"
+    assert np.isfinite(losses).all() and drop >= LOSS_DROP, losses
+    return {"launches": launches, "grad_norm_err": norm_err,
+            "grad_param_err": param_err, "losses": losses}
+
+
+def iv2_dapt_model(dev, seed: int):
+    """The IV2 DAPT job's model (encoder IV2-S 384 x 12, decoder 192 x 4,
+    16 frames at 224, tubelet 1), seeded fp32 masters computed in bf16,
+    LayerScale 0.1 (as (i))."""
+    from simple_tad_tpu_torch.models import create_model
+    return create_model(IV2_DAPT_MODEL, device=dev, dtype=torch.bfloat16,
+                        param_dtype=torch.float32, all_frames=16,
+                        decoder_depth=4, init_values=0.1,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed))
+
+
+def run_iv2_dapt(dev, seed: int) -> dict:
+    """Phase 16 (v) (i)-(ii): one IV2 DAPT step at batch TRAIN_BATCH (the
+    job's pretrain_augment_orig on the card, tube masks at 0.75 over 16 x
+    16 x 16 tokens): its gradients against the plain-version step and the
+    control (no delta term in either backward), one real step's launches
+    (C3 once an encoder block, C1 and C2 once a decoder block, 12 + 4, on
+    the wgmma routes; the delta pre-pass 16; LayerNorm 2 x 4 + 1 + 1 = 10
+    (the decoder's and the encoder's final norm); nothing else), then
+    TRAIN_STEPS steps on the batch at IV2_DAPT_FIT_LR, whose loss must
+    fall by LOSS_DROP."""
+    from simple_tad_tpu_torch.ops.augment import pretrain_augment_orig
+    from simple_tad_tpu_torch.train.steps import make_mae_train_step
+    label = "iv2-s dapt"
+    model = iv2_dapt_model(dev, seed)
+    cfg = model.cfg
+    state = mae_state(model, dev, seed, lr=IV2_DAPT_LR)
+    rng = np.random.default_rng(seed)
+    u8 = torch.from_numpy(rng.integers(
+        0, 256, (TRAIN_BATCH, 16, CLIP_H, CLIP_W, 3), np.uint8)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    mask, nm = mae_masks(TRAIN_BATCH, IV2_DAPT_MASK, seed, IV2_DAPT_WINDOW)
+    assert mask.shape[1] == cfg.num_patches, (mask.shape, cfg.num_patches)
+    batch = {"video": pretrain_augment_orig(u8, gen, crop_size=224,
+                                            dtype=torch.bfloat16),
+             "mask": torch.from_numpy(mask).to(dev)}
+    routes = {**train_routes("vit"), **train_routes("iv2")}
+    controls = {**train_routes("vit", no_delta=True),
+                **train_routes("iv2", no_delta=True)}
+    g0 = state.generator.get_state()
+    kern, loss_k = mae_step_grads(model, batch, nm, state.generator, g0)
+    with routed_train(**routes):
+        plain, loss_p = mae_step_grads(model, batch, nm, state.generator, g0)
+    with routed_train(**controls):
+        ctrl, _ = mae_step_grads(model, batch, nm, state.generator, g0)
+    norm_err, param_err, worst = grad_errors(kern, plain)
+    c_norm, c_param, c_worst = grad_errors(ctrl, plain)
+    del kern, plain, ctrl
+    print(f"[{label}] {IV2_DAPT_MODEL} (encoder {cfg.encoder_embed_dim} x "
+          f"{cfg.encoder_depth} on {cfg.num_patches - nm} visible tokens, "
+          f"decoder {cfg.decoder_embed_dim} x {cfg.decoder_depth} on "
+          f"{cfg.num_patches}, tubelet {cfg.tubelet_size}, head "
+          f"{cfg.decoder_num_classes}) bf16, fp32 masters, batch "
+          f"{TRAIN_BATCH}: loss {loss_k:.6f} (plain versions {loss_p:.6f}); "
+          f"gradients vs plain: global norm rel err {norm_err:.3e} (bound "
+          f"{GRAD_NORM_RTOL:.1e}), worst parameter {param_err:.3e} ({worst};"
+          f" bound {GRAD_PARAM_RTOL:.1e}); control (no delta): "
+          f"{c_norm:.3e}, {c_param:.3e} ({c_worst})")
+    step = make_mae_train_step(num_masked=nm)
+    state.generator.set_state(g0)
+    state.optimizer.lr = lambda step: IV2_DAPT_FIT_LR
+    reset_counts()
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    losses = [float(metrics["loss"])]
+    for _ in range(TRAIN_STEPS - 1):
+        losses.append(float(step(state, batch)["loss"]))
+    drop = 1.0 - losses[-1] / losses[0]
+    print(f"[{label}] launches in one train step {launches}")
+    print(f"[{label}] {TRAIN_STEPS} steps on one batch at constant lr "
+          f"{IV2_DAPT_FIT_LR}: losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; drop {drop:.3f} "
+          f"(required {LOSS_DROP})")
+    enc, dec = cfg.encoder_depth, cfg.decoder_depth
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(attention_sep_fwd_lse=enc, attention_sep_bwd=enc,
+                attention_fwd_lse=dec, attention_bwd=dec,
+                attention_delta=enc + dec, layernorm=2 * dec + 2,
+                fwd_route_wgmma=enc + dec, bwd_route_wgmma=enc + dec)
+    assert launches == want, (launches, want)
+    assert norm_err <= GRAD_NORM_RTOL and param_err <= GRAD_PARAM_RTOL, \
+        "gradients disagree with the plain-version step"
+    assert c_norm > GRAD_NORM_RTOL or c_param > GRAD_PARAM_RTOL, \
+        "the gradient bounds let the control through"
+    assert np.isfinite(losses).all() and drop >= LOSS_DROP, losses
+    return {"launches": launches, "grad_norm_err": norm_err,
+            "grad_param_err": param_err, "losses": losses}
+
+
+def time_iv2_dapt_process(profile: bool, seed: int) -> dict:
+    """Phase 16 (v) (iii), in a fresh process: the pre-training CLI's
+    PretrainTrainer (pretrain_augment_orig, the job's) on the IV2 DAPT
+    model at the job's IV2_DAPT_PARTS (the double loop's two parts, each
+    pinned while the step before runs) -> step times, peak memory and,
+    with ``profile``, a profiler window."""
+    from simple_tad_tpu_torch.cli.pretrain import PretrainTrainer
+    from simple_tad_tpu_torch.train.steps import make_mae_train_step
+    dev = torch.device("cuda", 0)
+    model = iv2_dapt_model(dev, seed)
+    state = mae_state(model, dev, seed, lr=IV2_DAPT_LR)
+    nm = mae_masks(1, IV2_DAPT_MASK, 0, IV2_DAPT_WINDOW)[1]
+    trainer = PretrainTrainer(make_mae_train_step(num_masked=nm), state,
+                              device=dev, crop_size=224, align=False,
+                              dtype=torch.bfloat16, seed=seed)
+    batches = list(SyntheticPretrainBatches(
+        seed, parts=IV2_DAPT_PARTS, window=IV2_DAPT_WINDOW).epoch(
+            MAE_WARMUP + MAE_TIMED))
+    out = {"batch": sum(IV2_DAPT_PARTS), "oom": [],
+           "note": f" ({' + '.join(map(str, IV2_DAPT_PARTS))}), mask "
+                   f"{IV2_DAPT_MASK}",
+           **time_steps(trainer, batches, MAE_WARMUP)}
+    if profile:
+        out["profile"] = profile_window(trainer, batches[:PROFILE_STEPS])
+    return out
+
+
+def run_phase16(dev, seed: int, lap) -> None:
+    """Phase 16: InternVideo2 probing (IV2-1B and the depth-cut IV2-6B),
+    IV2-B class fine-tuning and IV2-S DAPT, each part failing the run when
+    it fails."""
+    probe_check(dev, seed, PROBE_FLAGS, PROBE_CHECK_BATCH, "iv2-1b probe")
+    torch.cuda.empty_cache()
+    probe_check(dev, seed, PROBE_FLAGS, PROBE_CHECK_BATCH,
+                "iv2-1b probe open_block_num 1", open_blocks=1)
+    torch.cuda.empty_cache()
+    lap("phase 16 (i)")
+    run_timing("iv2-1b probe", time_class_process,
+               (seed, PROBE_FLAGS, PROBE_BATCH, PROBE_WARMUP, PROBE_STEPS),
+               PROBE_PROCESSES)
+    lap("phase 16 (ii)")
+    probe_check(dev, seed, PROBE_6B_FLAGS, PROBE_6B_BATCH,
+                f"iv2-6b probe (depth {PROBE_6B_DEPTH})",
+                depth=PROBE_6B_DEPTH)
+    torch.cuda.empty_cache()
+    lap("phase 16 (iii)")
+    run_class_finetune(dev, seed)
+    torch.cuda.empty_cache()
+    run_timing("iv2-b class finetune", time_class_process,
+               (seed, CLS_FLAGS, CLS_BATCH, WARMUP_STEPS, TIMED_STEPS), 1)
+    lap("phase 16 (iv)")
+    run_iv2_dapt(dev, seed)
+    torch.cuda.empty_cache()
+    run_timing("iv2-s dapt", time_iv2_dapt_process, (seed,), 1)
+    lap("phase 16 (v)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4504,6 +5105,8 @@ def main(argv=None):
     run_timing("distill", time_distill_process, (args.seed,),
                DISTILL_PROCESSES)
     lap("phase 15 (iii)")
+    # phase 16: InternVideo2 probing, class fine-tuning and DAPT
+    run_phase16(dev, args.seed, lap)
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]

@@ -11,15 +11,25 @@ as the JAX CLI, plus ``--device`` (default cuda; the run does not fall
 back to the CPU, ``--device cpu`` asks for it).  Each batch goes to the
 device as uint8 and is augmented there (ops/augment.py:
 pretrain_augment_align with ``--transforms_finetune_align``, else
-pretrain_augment_orig); the model is PretrainVideoMAE with fp32 masters
+pretrain_augment_orig); the model is PretrainVideoMAE (or
+PretrainIV2VideoMAE) with fp32 masters
 computed in ``--dtype``.  Every epoch writes ``checkpoint-last.pth``, and
 every ``--save_ckpt_freq`` epochs the weights as ``checkpoint-<epoch>.pth``
 under the reference's key names, which cli/finetune.py ``--finetune``
 loads into the ViT (the encoder's weights; utils/torch_convert.py).
 
+``--model pretrain_videomae_internvideo2_{,small_,base_,...}patch14_224``
+pre-trains InternVideo2 (PretrainIV2VideoMAE; jobs/dapt/
+IV2-S_dapt_bdd_capdata.sh: tube masks at 0.75 over 16 x 16 x 16 tokens,
+BDD100K + CAP-DATA).  Its tubelet is the family's own (1) whatever
+``--tubelet_size`` says: the JAX CLI passes the flag's default 2 to the
+model, whose 588-wide head then fails its assertion (ROADMAP.md F7).
+``--from_ckpt`` takes a DAPT checkpoint, or an InternVideo2 trunk or
+stage-2 student ``.pth`` for the encoder (utils/torch_convert.py:
+load_iv2_mae_checkpoint).
+
 Not ported: ``--use_checkpoint`` (gradient checkpointing, ROADMAP.md
-queue 1 item 5) and the InternVideo2 pre-training models (queue 1 item 7)
-raise.
+queue 1 item 5) raises.
 
 Usage (the DAPT job, jobs/dapt/pretrain_bdd_capdata.sh):
   python -m simple_tad_tpu_torch.cli.pretrain \\
@@ -217,23 +227,30 @@ def main(argv=None):
                                                   make_mae_train_step)
     from simple_tad_tpu_torch.utils import checkpoint as ckpt_utils
     from simple_tad_tpu_torch.utils.logging import JsonlLogger
-    from simple_tad_tpu_torch.utils.torch_convert import load_mae_checkpoint
+    from simple_tad_tpu_torch.utils.torch_convert import load_checkpoint_auto
 
-    if model_family(cfg.model) != "mae":
+    family = model_family(cfg.model)
+    if family not in ("mae", "iv2_mae"):
         raise ValueError(f"{cfg.model!r} is not a pre-training model")
     if cfg.data_set3 and not cfg.data_set2:
         raise ValueError("--data_set3 requires --data_set2")
     device = torch.device(dev_args.device)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    tubelet = {}
+    if family == "mae":
+        tubelet = dict(tubelet_size=cfg.tubelet_size)
+    else:
+        print(f"InternVideo2 DAPT: tubelet 1, the family's own "
+              f"(--tubelet_size {cfg.tubelet_size} is not used)")
     model = create_model(cfg.model, device=device,
                          generator=torch.Generator().manual_seed(cfg.seed),
                          all_frames=cfg.num_frames, img_size=cfg.input_size,
-                         tubelet_size=cfg.tubelet_size,
                          decoder_depth=cfg.decoder_depth,
                          drop_path_rate=cfg.drop_path, dtype=dtype,
-                         param_dtype=torch.float32, remat=cfg.use_checkpoint)
+                         param_dtype=torch.float32, remat=cfg.use_checkpoint,
+                         **tubelet)
     patch = model.cfg.patch_size
-    window_size = (cfg.num_frames // cfg.tubelet_size,
+    window_size = (cfg.num_frames // model.cfg.tubelet_size,
                    cfg.input_size // patch, cfg.input_size // patch)
 
     def loader(data_set, data_path, view_list, clips_list, batch, seed):
@@ -258,7 +275,7 @@ def main(argv=None):
     num_masked = loader1.num_masked
 
     if cfg.from_ckpt:
-        load_mae_checkpoint(cfg.from_ckpt, model)
+        load_checkpoint_auto(cfg.from_ckpt, model)
         print(f"warm-started from {cfg.from_ckpt}")
 
     steps_per_epoch = loader1.steps_per_epoch()

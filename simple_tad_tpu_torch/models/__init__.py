@@ -1,11 +1,9 @@
 """Model registry of the port: the VideoMAE ViT sizes, the MVD and UMT
 trunk variants, the InternVideo2 single-modality sizes, the VideoMAE /
-MVD pre-training models (PretrainVideoMAE) and the InternVideo2 stage-2
-distillation students (DistillInternVideo2) of
-simple_tad_tpu/models/__init__.py (names mirror the reference timm
-registry).  The InternVideo2 pre-training names of the JAX registry
-(PretrainIV2VideoMAE) are not ported yet and raise, naming their ROADMAP
-item."""
+MVD pre-training models (PretrainVideoMAE), the InternVideo2 DAPT models
+(PretrainIV2VideoMAE) and the InternVideo2 stage-2 distillation students
+(DistillInternVideo2) of simple_tad_tpu/models/__init__.py (names mirror
+the reference timm registry): every name of the JAX registry."""
 
 from __future__ import annotations
 
@@ -17,7 +15,9 @@ import torch
 from simple_tad_tpu_torch.models.internvideo2 import IV2Config, InternVideo2
 from simple_tad_tpu_torch.models.iv2_distill import (DistillInternVideo2,
                                                      DistillIV2Config)
-from simple_tad_tpu_torch.models.mae import MAEConfig, PretrainVideoMAE
+from simple_tad_tpu_torch.models.mae import (IV2MAEConfig, MAEConfig,
+                                             PretrainIV2VideoMAE,
+                                             PretrainVideoMAE)
 from simple_tad_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
 # (embed_dim, depth, num_heads) per trunk size
@@ -55,6 +55,19 @@ def _mae(size: str, **extra) -> Tuple[str, dict]:
                        qkv_bias=True, **extra)
 
 
+def _iv2_mae(size: str) -> Tuple[str, dict]:
+    """IV2 DAPT: the reference registers the S geometry alone
+    (internvideo2_pretrain_videomae.py:356-365); the JAX registry extends
+    it to each size with the VideoMAE decoder convention."""
+    dim, depth, heads = _VIT_SIZES[size]
+    ddim, dheads = _MAE_DECODER[size]
+    return "iv2_mae", dict(img_size=224, patch_size=14,
+                           encoder_embed_dim=dim, encoder_depth=depth,
+                           encoder_num_heads=heads, decoder_embed_dim=ddim,
+                           decoder_num_heads=dheads, decoder_num_classes=588,
+                           mlp_ratio=4.0)
+
+
 _REGISTRY: Dict[str, Tuple[str, dict]] = {
     **{f"vit_{size}_patch16_{img}": ("vit", dict(
         img_size=img, patch_size=16, embed_dim=dim, depth=depth,
@@ -78,6 +91,10 @@ _REGISTRY: Dict[str, Tuple[str, dict]] = {
        for size in _VIT_SIZES},
     **{f"pretrain_videomae_mvd_{size}_patch16_224": _mae(
         size, pos_embed_kind="3d") for size in _VIT_SIZES},
+    # InternVideo2 DAPT (pixel reconstruction on the IV2 trunk)
+    "pretrain_videomae_internvideo2_patch14_224": _iv2_mae("small"),
+    **{f"pretrain_videomae_internvideo2_{size}_patch14_224": _iv2_mae(size)
+       for size in _VIT_SIZES},
     **{f"internvideo2_{size}_patch14_224": ("iv2", dict(
         img_size=224, patch_size=14, embed_dim=dim, depth=depth,
         num_heads=heads, mlp_ratio=ratio, attn_pool_num_heads=16,
@@ -95,14 +112,8 @@ _REGISTRY: Dict[str, Tuple[str, dict]] = {
 _FAMILIES = {"vit": (ViTConfig, VisionTransformer),
              "iv2": (IV2Config, InternVideo2),
              "mae": (MAEConfig, PretrainVideoMAE),
+             "iv2_mae": (IV2MAEConfig, PretrainIV2VideoMAE),
              "iv2_distill": (DistillIV2Config, DistillInternVideo2)}
-# names of the JAX registry that the port does not build yet
-_NOT_PORTED = {
-    **{name: "queue 1 item 7, PretrainIV2VideoMAE" for name in (
-        ["pretrain_videomae_internvideo2_patch14_224"]
-        + [f"pretrain_videomae_internvideo2_{size}_patch14_224"
-           for size in _VIT_SIZES])},
-}
 
 
 def list_models():
@@ -110,10 +121,8 @@ def list_models():
 
 
 def model_family(name: str) -> str:
-    """'vit', 'iv2', 'mae' or 'iv2_distill' for a registry name."""
-    if name in _NOT_PORTED:
-        raise KeyError(f"model {name!r} is not ported yet (ROADMAP.md "
-                       f"{_NOT_PORTED[name]})")
+    """'vit', 'iv2', 'mae', 'iv2_mae' or 'iv2_distill' for a registry
+    name."""
     if name not in _REGISTRY:
         raise KeyError(
             f"model {name!r} is not ported yet (ROADMAP.md queue 1); "
@@ -134,8 +143,10 @@ def create_model(name: str, *, device, generator: torch.Generator = None,
     registry.  For InternVideo2, ``all_frames`` sets ``num_frames``, as
     the JAX registry maps it, and ``param_dtype``, ``drop_path_rate`` and
     ``fc_drop_rate`` reach its config as they reach the ViT's.  The
-    pre-training models (PretrainVideoMAE) take MAEConfig's fields
-    (``decoder_depth``, ``drop_path_rate``, ``param_dtype``, ...), the
+    pre-training models take MAEConfig's fields (PretrainVideoMAE) or
+    IV2MAEConfig's (PretrainIV2VideoMAE: ``all_frames`` is its own field
+    there, as in the JAX registry) (``decoder_depth``, ``drop_path_rate``,
+    ``param_dtype``, ...), the
     distillation students DistillIV2Config's (``clip_teacher_embed_dim``,
     ``clip_return_layer``, ``clip_student_decoder``, ...).  With
     ``generator`` the weights are initialised from it; otherwise they are

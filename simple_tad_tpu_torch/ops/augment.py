@@ -25,8 +25,18 @@ pretrain_augment_orig and pretrain_augment_align) follow the same split:
 of the scaled base size, one of 13 fixed offsets, bilinear resize,
 clip-consistent per sample), and ``pretrain_augment_align``'s
 pad + resize, RandAugment on the clips whose gate draw exceeds 0.3
-(dota.py:706) and a light crop.  Mixup/cutmix are not ported yet
-(ROADMAP.md queue 1 item 5).
+(dota.py:706) and a light crop.
+
+Action-recognition class fine-tuning (the JAX CLI's train_augment_cls,
+kinetics.py _aug_frame + mixup.py): ``random_resized_crop``
+(torchvision's RandomResizedCrop, clip-consistent), ``random_hflip``,
+``rand_augment_full`` ('rand-m7-n4-mstd0.5-inc1': the 10 drive ops plus
+posterize, solarize and the two translations), ``random_erasing`` and
+``mixup_cutmix`` (one lambda per batch, each sample mixed with its
+batch-flipped partner, label-smoothed soft targets), in
+``train_augment_cls``.  Their draws stay on the device: the full
+RandAugment evaluates each op on the whole batch and keeps it where a
+sample drew it, so no draw is read on the host.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import math
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from simple_tad_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
 
@@ -46,6 +57,21 @@ PAD_MODES = ("none", "black", "color", "reflect", "replicate")
 
 def _uniform(shape, generator, device):
     return torch.rand(shape, generator=generator, device=device)
+
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def _const(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A constant tensor of ``values`` (nested tuples of numbers) on
+    ``device``, made once: a tensor built from host values on each call is
+    a copy from pageable memory, which waits for the device's stream."""
+    key = (values, str(device), dtype)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype,
+                                           device=device)
+    return t
 
 
 # ---------------------------------------------------------------- sampling --
@@ -115,7 +141,7 @@ def draw_pad_wide(video, generator) -> Dict[str, torch.Tensor]:
     B, _, H, W, _ = video.shape
     dev = video.device
     slot = torch.randint(0, 12, (B,), generator=generator, device=dev)
-    mode = torch.bucketize(slot, torch.tensor([5, 7, 8, 10], device=dev),
+    mode = torch.bucketize(slot, _const((5, 7, 8, 10), dev, torch.long),
                            right=True)
     h_to_sq = max(W - H, 0)
     return {
@@ -205,7 +231,11 @@ def op_equalize(x, mag, sign):
     base = ((torch.arange(b, device=x.device)[:, None] * C
              + torch.arange(C, device=x.device)[None, :]) * 256)
     flat = vals + base[:, None, None, None, :]
-    h = torch.bincount(flat.reshape(-1), minlength=b * C * 256).view(b, C, 256)
+    # a scatter, not torch.bincount, whose CUDA version reads the largest
+    # value on the host
+    h = torch.zeros(b * C * 256, dtype=torch.long, device=x.device)
+    h.scatter_add_(0, flat.reshape(-1), torch.ones_like(flat.reshape(-1)))
+    h = h.view(b, C, 256)
     step = (h.sum(-1) - h[..., 255]) // 255                     # (b, C)
     csum = torch.cumsum(h, -1) - h
     lut = torch.clamp((step[..., None] // 2 + csum)
@@ -281,7 +311,7 @@ def _warp(x, coeffs):
     out = top * (1 - wy) + bot * wy
     valid = ((sx >= -0.5) & (sx <= W - 0.5) & (sy >= -0.5)
              & (sy <= H - 0.5))[:, None, :, :, None]
-    return torch.where(valid, out, torch.tensor(GRAY_FILL, device=x.device))
+    return torch.where(valid, out, GRAY_FILL)
 
 
 def op_rotate(x, mag, sign):
@@ -315,15 +345,17 @@ RA_OPS = (op_autocontrast, op_equalize, op_invert, op_rotate, op_color,
 
 def draw_rand_augment(video, generator, *, magnitude: float = 6.0,
                       mstd: float = 0.5, num_layers: int = 3,
-                      prob: float = 0.5) -> Dict[str, torch.Tensor]:
-    """Per sample and layer (B, num_layers): op index (uniform over the 10
-    ops, with replacement), magnitude ~ N(magnitude, mstd) clipped to
-    [0, 10], apply (probability ``prob``) and the op's random sign."""
+                      prob: float = 0.5, n_ops: int = NUM_RA_OPS
+                      ) -> Dict[str, torch.Tensor]:
+    """Per sample and layer (B, num_layers): op index (uniform over the
+    ``n_ops`` ops, with replacement), magnitude ~ N(magnitude, mstd)
+    clipped to [0, 10], apply (probability ``prob``) and the op's random
+    sign."""
     B = video.shape[0]
     dev = video.device
     shape = (B, num_layers)
     return {
-        "op": torch.randint(0, NUM_RA_OPS, shape, generator=generator,
+        "op": torch.randint(0, n_ops, shape, generator=generator,
                             device=dev),
         "mag": torch.clamp(magnitude + mstd * torch.randn(
             shape, generator=generator, device=dev), 0.0, 10.0),
@@ -404,8 +436,8 @@ def random_erasing(video, generator, **kw):
 
 def normalize(x):
     """[0, 255] -> ImageNet-normalized, as the JAX train pipeline does it."""
-    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
-    std = torch.as_tensor(IMAGENET_STD, device=x.device)
+    mean = _const(tuple(map(float, IMAGENET_MEAN)), x.device)
+    std = _const(tuple(map(float, IMAGENET_STD)), x.device)
     return (x / 255.0 - mean) / std
 
 
@@ -471,12 +503,22 @@ def apply_multi_scale_crop(video, params, out_size: int, scales=ORIG_SCALES,
     (B, T, out, out, C); samples outside the clip read 0."""
     B, T, H, W, C = video.shape
     dev = video.device
-    pairs = torch.tensor(crop_pairs(H, W, out_size, scales, max_distort),
-                         dtype=torch.float32, device=dev)
-    mult = torch.tensor(CROP_OFFSETS, dtype=torch.float32, device=dev)
+    pairs = _const(tuple(crop_pairs(H, W, out_size, scales, max_distort)),
+                   dev)
+    mult = _const(CROP_OFFSETS, dev)
     crop_w, crop_h = pairs[params["pair"]].unbind(1)
     off_w = mult[params["offset"], 0] * torch.floor((W - crop_w) / 4.0)
     off_h = mult[params["offset"], 1] * torch.floor((H - crop_h) / 4.0)
+    return _crop_resize(video, crop_w, crop_h, off_w, off_h, out_size)
+
+
+def _crop_resize(video, crop_w, crop_h, off_w, off_h, out_size: int):
+    """Each clip's (crop_w x crop_h) crop at (off_w, off_h) (per-sample
+    (B,) floats) resized to out_size x out_size by bilinear sampling at
+    pixel centres (PIL's crop then resize, without its antialiasing);
+    samples outside the clip read 0."""
+    B, T, H, W, C = video.shape
+    dev = video.device
     o = torch.arange(out_size, dtype=torch.float32, device=dev)
     sx = off_w[:, None] + (o + 0.5) * (crop_w / out_size)[:, None] - 0.5
     sy = off_h[:, None] + (o + 0.5) * (crop_h / out_size)[:, None] - 0.5
@@ -563,3 +605,215 @@ def pretrain_augment_align(video_u8, generator, *, crop_size: int = 224,
                                       magnitude=magnitude,
                                       num_layers=num_layers),
         crop_size=crop_size, dtype=dtype)
+
+
+# ------------------------------- action-recognition class fine-tuning --
+
+def op_posterize(x, mag, sign):
+    """Keep 4 - int(mag / 10 * 4) high bits: PosterizeIncreasing's range
+    [4..0] (rand_augment.py:247-252)."""
+    bits = torch.clamp(4.0 - torch.floor(mag / 10.0 * 4.0), 0, 4)
+    shift = _bcast((8 - bits).long())
+    vals = torch.clamp(x, 0, 255).long()
+    return ((vals >> shift) << shift).to(x.dtype)
+
+
+def op_solarize(x, mag, sign):
+    """Invert the pixels at or above 256 - mag / 10 * 256 (timm's
+    increasing variant)."""
+    thresh = _bcast(256.0 - mag / 10.0 * 256.0)
+    return torch.where(x >= thresh, 255.0 - x, x)
+
+
+def _translate_shift(mag, sign, extent: int):
+    frac = mag / 10.0 * 0.45
+    return torch.where(sign, frac, -frac) * extent
+
+
+def op_translate_x(x, mag, sign):
+    s = _translate_shift(mag, sign, x.shape[3])
+    one, zero = torch.ones_like(s), torch.zeros_like(s)
+    return _warp(x, (one, zero, s, zero, one, zero))
+
+
+def op_translate_y(x, mag, sign):
+    s = _translate_shift(mag, sign, x.shape[2])
+    one, zero = torch.ones_like(s), torch.zeros_like(s)
+    return _warp(x, (one, zero, zero, zero, one, s))
+
+
+RA_FULL_OPS = RA_OPS + (op_posterize, op_solarize, op_translate_x,
+                        op_translate_y)
+
+
+def draw_rand_augment_full(video, generator, *, magnitude: float = 7.0,
+                           mstd: float = 0.5, num_layers: int = 4,
+                           prob: float = 0.5) -> Dict[str, torch.Tensor]:
+    """``draw_rand_augment`` over the 14 ops of RA_FULL_OPS, at the class
+    fine-tuning defaults (m7, n4)."""
+    return draw_rand_augment(video, generator, magnitude=magnitude,
+                             mstd=mstd, num_layers=num_layers, prob=prob,
+                             n_ops=len(RA_FULL_OPS))
+
+
+def apply_rand_augment_full(video, params):
+    """Each layer: every op of RA_FULL_OPS on the whole batch (clipped to
+    [0, 255]), kept where a sample drew it and its ``apply`` holds.  No
+    draw is read on the host, at the price of running all 14 ops."""
+    x = video
+    for layer in range(params["op"].shape[1]):
+        op, use = params["op"][:, layer], params["apply"][:, layer]
+        mag, sign = params["mag"][:, layer], params["sign"][:, layer]
+        out = x
+        for k, fn in enumerate(RA_FULL_OPS):
+            y = torch.clamp(fn(x, mag, sign), 0.0, 255.0)
+            out = torch.where(_bcast(use & (op == k)), y, out)
+        x = out
+    return x
+
+
+def rand_augment_full(video, generator, **kw):
+    return apply_rand_augment_full(video, draw_rand_augment_full(
+        video, generator, **kw))
+
+
+def draw_random_resized_crop(video, generator, scale=(0.08, 1.0),
+                             ratio=(3 / 4, 4 / 3)) -> Dict[str, torch.Tensor]:
+    """Per sample: the crop's area as a share of the clip's (U(scale)), its
+    log aspect ratio (U(log ratio)) and the U(0, 1) draws that place it."""
+    B, dev = video.shape[0], video.device
+    lo, hi = math.log(ratio[0]), math.log(ratio[1])
+    return {"area": scale[0] + _uniform(B, generator, dev)
+            * (scale[1] - scale[0]),
+            "log_ratio": lo + _uniform(B, generator, dev) * (hi - lo),
+            "x": _uniform(B, generator, dev),
+            "y": _uniform(B, generator, dev)}
+
+
+def apply_random_resized_crop(video, params, out_size: int):
+    """torchvision's RandomResizedCrop, clip-consistent per sample
+    (video_transforms.random_resized_crop, kinetics.py _aug_frame): the
+    drawn area and aspect ratio, each side clipped to [8, the clip's], the
+    crop placed at the drawn share of the slack, bilinear resize."""
+    B, T, H, W, C = video.shape
+    target = params["area"] * (H * W)
+    r = torch.exp(params["log_ratio"])
+    w = torch.clamp(torch.sqrt(target * r), 8, W)
+    h = torch.clamp(torch.sqrt(target / r), 8, H)
+    return _crop_resize(video, w, h, params["x"] * (W - w),
+                        params["y"] * (H - h), out_size)
+
+
+def random_resized_crop(video, generator, out_size: int, **kw):
+    return apply_random_resized_crop(
+        video, draw_random_resized_crop(video, generator, **kw), out_size)
+
+
+def draw_random_hflip(video, generator, prob: float = 0.5
+                      ) -> Dict[str, torch.Tensor]:
+    return {"flip": _uniform(video.shape[0], generator, video.device) < prob}
+
+
+def apply_random_hflip(video, params):
+    """Per-sample horizontal flip, clip-consistent."""
+    return torch.where(_bcast(params["flip"]), video.flip(3), video)
+
+
+def random_hflip(video, generator, prob: float = 0.5):
+    return apply_random_hflip(video, draw_random_hflip(video, generator,
+                                                       prob))
+
+
+def _beta(alpha: float, generator, device):
+    """One Beta(alpha, alpha) draw, a 0-dim tensor on ``device``; 1 where
+    alpha is 0 (that mode is off)."""
+    if alpha <= 0:
+        return torch.ones((), device=device)
+    conc = torch.full((2,), float(alpha), device=device)
+    return torch._sample_dirichlet(conc, generator=generator)[0]
+
+
+def draw_mixup_cutmix(video, generator, *, mixup_alpha: float = 0.8,
+                      cutmix_alpha: float = 1.0, switch_prob: float = 0.5,
+                      prob: float = 1.0) -> Dict[str, torch.Tensor]:
+    """One draw per batch (timm Mixup's batch mode), each a 0-dim tensor
+    on the video's device: whether to mix, whether by cutmix, the two
+    lambdas (Beta(alpha, alpha)) and the cutmix box's centre."""
+    H, W, dev = video.shape[2], video.shape[3], video.device
+    return {"use": _uniform((), generator, dev) < prob,
+            "use_cutmix": _uniform((), generator, dev) < switch_prob,
+            "lam_mix": _beta(mixup_alpha, generator, dev),
+            "lam_cut": _beta(cutmix_alpha, generator, dev),
+            "cy": torch.randint(0, H, (), generator=generator, device=dev),
+            "cx": torch.randint(0, W, (), generator=generator, device=dev)}
+
+
+def apply_mixup_cutmix(video, labels, params, *, num_classes: int,
+                       label_smoothing: float = 0.1):
+    """Batch mixup / cutmix with soft targets (mixup.py:100-316): each
+    sample mixed with its batch-flipped partner, by a blend at lam_mix or
+    by pasting the partner's box (timm rand_bbox: area share 1 - lam_cut
+    around the drawn centre, clipped, lam the share left) -> (video,
+    (B, num_classes) fp32 label-smoothed targets mixed at the same lam)."""
+    H, W = video.shape[2], video.shape[3]
+    onehot = F.one_hot(labels.long(), num_classes).float()
+    onehot = onehot * (1.0 - label_smoothing) + label_smoothing / num_classes
+    flipped = video.flip(0)
+    lam_mix = params["lam_mix"]
+    blend = video * lam_mix + flipped * (1.0 - lam_mix)
+    cut_rat = torch.sqrt(1.0 - params["lam_cut"])
+    cut_h, cut_w = (H * cut_rat).long(), (W * cut_rat).long()
+    y1 = torch.clamp(params["cy"] - cut_h // 2, 0, H)
+    y2 = torch.clamp(params["cy"] + cut_h // 2, 0, H)
+    x1 = torch.clamp(params["cx"] - cut_w // 2, 0, W)
+    x2 = torch.clamp(params["cx"] + cut_w // 2, 0, W)
+    ys = torch.arange(H, device=video.device)[:, None]
+    xs = torch.arange(W, device=video.device)[None, :]
+    box = (ys >= y1) & (ys < y2) & (xs >= x1) & (xs < x2)
+    cut = torch.where(box[None, None, :, :, None], flipped, video)
+    lam_cut = 1.0 - ((y2 - y1) * (x2 - x1)) / (H * W)
+    mixed = torch.where(params["use_cutmix"], cut, blend)
+    lam = torch.where(params["use_cutmix"], lam_cut, lam_mix)
+    targets = onehot * lam + onehot.flip(0) * (1.0 - lam)
+    return (torch.where(params["use"], mixed, video),
+            torch.where(params["use"], targets, onehot))
+
+
+def mixup_cutmix(video, labels, generator, *, num_classes: int,
+                 mixup_alpha: float = 0.8, cutmix_alpha: float = 1.0,
+                 switch_prob: float = 0.5, prob: float = 1.0,
+                 label_smoothing: float = 0.1):
+    params = draw_mixup_cutmix(video, generator, mixup_alpha=mixup_alpha,
+                               cutmix_alpha=cutmix_alpha,
+                               switch_prob=switch_prob, prob=prob)
+    return apply_mixup_cutmix(video, labels, params, num_classes=num_classes,
+                              label_smoothing=label_smoothing)
+
+
+def train_augment_cls(video_u8, labels, generator, *, crop_size: int = 224,
+                      num_classes: int = 400, reprob: float = 0.25,
+                      mixup: float = 0.8, cutmix: float = 1.0,
+                      switch_prob: float = 0.5, smoothing: float = 0.1,
+                      dtype=torch.float32):
+    """The class fine-tuning augmentation (the JAX CLI's
+    train_augment_cls): (B, T, H, W, C) uint8 clips and (B,) labels on the
+    device -> the (B, T, crop, crop, C) video in ``dtype`` and (B,
+    num_classes) fp32 soft targets.  RandomResizedCrop -> flip -> full
+    RandAugment -> /255 + ImageNet normalize -> RandomErasing (``reprob``
+    > 0) -> mixup / cutmix (either alpha > 0; else one-hot targets)."""
+    x = video_u8.float()
+    x = random_resized_crop(x, generator, crop_size)
+    x = random_hflip(x, generator)
+    x = rand_augment_full(x, generator)
+    x = normalize(x)
+    if reprob > 0:
+        x = random_erasing(x, generator, probability=reprob)
+    if mixup > 0 or cutmix > 0:
+        x, targets = mixup_cutmix(x, labels, generator,
+                                  num_classes=num_classes,
+                                  mixup_alpha=mixup, cutmix_alpha=cutmix,
+                                  switch_prob=switch_prob,
+                                  label_smoothing=smoothing)
+    else:
+        targets = F.one_hot(labels.long(), num_classes).float()
+    return x.to(dtype), targets

@@ -21,6 +21,15 @@ are.  Masks and scales are keyed by the port's parameter names
 Of the reference's 14-name optimizer menu, ``adamw`` and ``adam`` are
 ported (both are the Adam direction here; decoupled weight decay is its
 own step of the chain).  The others raise (ROADMAP.md queue 1).
+
+``FinetuneOptimizer.detach_frozen`` is the probing freeze in PyTorch's
+idiom: every parameter whose freeze multiplier is 0 stops requiring a
+gradient, so autograd keeps no activations for a trunk that takes no
+update, and the chain skips those parameters.  Their values stay as they
+are, as the JAX package's zero update leaves them; two things differ from
+its mask: the frozen parameters' Adam moments stay zero (JAX fills them
+from gradients that never reach a parameter), and their gradients leave
+the global norm, so a caller with ``clip_grad`` keeps the mask alone.
 """
 
 from __future__ import annotations
@@ -212,6 +221,21 @@ class FinetuneOptimizer:
         self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.acc = ({n: torch.zeros_like(p) for n, p in self.params.items()}
                     if self.update_freq > 1 else None)
+        self.detached = set()     # frozen by detach_frozen
+
+    def detach_frozen(self) -> list:
+        """``requires_grad_(False)`` on every parameter whose freeze
+        multiplier is 0, which the chain then skips -> their names.  Not
+        with ``clip_grad``: the JAX global norm counts their gradients."""
+        if self.clip_grad:
+            raise ValueError("with clip_grad the frozen parameters' "
+                             "gradients enter the global norm: keep the "
+                             "freeze mask alone")
+        for n, m in (self.freeze or {}).items():
+            if m == 0.0:
+                self.params[n].requires_grad_(False)
+                self.detached.add(n)
+        return sorted(self.detached)
 
     def zero_grad(self) -> None:
         for p in self.params.values():
@@ -219,7 +243,7 @@ class FinetuneOptimizer:
 
     def _grads(self) -> Dict[str, torch.Tensor]:
         return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                for n, p in self.params.items()}
+                for n, p in self.params.items() if n not in self.detached}
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -232,7 +256,8 @@ class FinetuneOptimizer:
             if self.mini_step < self.update_freq - 1:
                 self.mini_step += 1
                 return False
-            grads = {n: a.clone() for n, a in self.acc.items()}
+            grads = {n: a.clone() for n, a in self.acc.items()
+                     if n not in self.detached}
             for a in self.acc.values():
                 a.zero_()
             self.mini_step = 0
@@ -251,8 +276,8 @@ class FinetuneOptimizer:
         bc2 = np.float32(1) - np.float32(self.b2) ** np.float32(self.count)
         wd = self.wd(self.count - 1)
         neg_lr = -self.lr(self.count - 1)
-        for n, p in self.params.items():
-            g = grads[n]
+        for n, g in grads.items():
+            p = self.params[n]
             mu, nu = self.mu[n], self.nu[n]
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)

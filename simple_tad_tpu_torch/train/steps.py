@@ -14,7 +14,8 @@ engine_for_pretraining.py:16-150): the per-patch-normalised pixel targets
 of the masked tokens from the normalised batch (models/mae.py:mae_targets,
 gather first, then fp32), the PretrainVideoMAE forward, the MSE over the
 masked tokens (``mae_loss``), backward and update; metrics ``loss`` and
-``grad_norm``.
+``grad_norm``.  It takes PretrainIV2VideoMAE as it is: the targets follow
+the model's patch (14) and tubelet (1), 588 values a token.
 """
 
 from __future__ import annotations

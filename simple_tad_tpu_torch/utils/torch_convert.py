@@ -37,8 +37,14 @@ its ``patch_embed``, ``clip_pos_embed``, ``clip_decoder_<k>`` and
 ``final_clip_decoder``), and ``load_distill_checkpoint`` a reference
 student ``.pth`` (the JAX torch_to_distill_iv2_params' keys; a teacher
 ``.pth`` is an InternVideo2 one, ``load_iv2_checkpoint``).
-``to_jax_params`` is its inverse for the fp ViT, InternVideo2 and the
-distillation student (tests
+``load_iv2_mae_checkpoint`` is the IV2 DAPT warm start (the JAX
+torch_to_iv2_mae_params + merge_params): a whole DAPT checkpoint by name,
+or the encoder from an InternVideo2 trunk or stage-2 student ``.pth``, its
+CLS position row dropped.  ``from_jax_params`` reads the JAX
+PretrainIV2VideoMAE tree (``encoder_blocks`` stacked IV2 blocks,
+``encoder_norm``) too.
+``to_jax_params`` is its inverse for the fp ViT, InternVideo2, the IV2
+DAPT model and the distillation student (tests
 compare gradients, updated parameters and optimizer moments leaf by leaf
 with it).  ``load_checkpoint_auto`` (and ``load_vit_checkpoint``) also
 initialise the fp32 training model of either family (cli/finetune.py
@@ -216,6 +222,56 @@ def load_mae_checkpoint(path: str, model):
     return _load_by_name(model, sd)
 
 
+def load_iv2_mae_checkpoint(path: str, model):
+    """The IV2 DAPT warm start (``--from_ckpt``; the JAX package's
+    torch_to_iv2_mae_params + merge_params, after the reference's surgery,
+    iv2_run_mae_double_pretraining.py:295-360) into PretrainIV2VideoMAE:
+
+      * a DAPT checkpoint (``encoder.patch_embed.*`` ...): every key the
+        JAX converter reads must be there, and all load by name;
+      * an InternVideo2 trunk, fine-tuned or a stage-2 distillation
+        student (``patch_embed.*``, ``blocks.*``, ``pos_embed`` with its
+        CLS row): the encoder alone, the CLS position row dropped, and
+        ``fc_norm`` (else ``norm``) as the encoder's final norm where its
+        width is the encoder's.
+
+    A tensor of another shape raises, as merge_params does.  Returns the
+    names that were loaded."""
+    sd = load_torch_state_dict(path)
+    cfg = model.cfg
+    blocks = [f"blocks.{i}.{leaf}" for i in range(cfg.encoder_depth)
+              for leaf in ("norm1.weight", "norm2.weight", "ls1.gamma",
+                           "ls2.gamma", "attn.qkv.weight", "attn.proj.weight",
+                           "attn.proj.bias", "mlp.fc1.weight", "mlp.fc1.bias",
+                           "mlp.fc2.weight", "mlp.fc2.bias")]
+    if "encoder.patch_embed.proj.weight" in sd:
+        need = list(MAE_KEYS) + ["encoder." + k for k in blocks] + [
+            f"decoder.blocks.{i}.{leaf}" for i in range(cfg.decoder_depth)
+            for leaf in ("norm1.weight", "norm2.weight", "attn.qkv.weight",
+                         "attn.proj.weight", "mlp.fc1.weight",
+                         "mlp.fc2.weight")]
+        renamed = dict(sd)
+    else:
+        need = ["patch_embed.proj.weight", "patch_embed.proj.bias"] + blocks
+        renamed = {"encoder." + k: v for k, v in sd.items()
+                   if k.startswith(("patch_embed.", "blocks.",
+                                    "pos_embed_spatial",
+                                    "pos_embed_temporal"))}
+        if "pos_embed" in sd:
+            renamed["encoder.pos_embed"] = sd["pos_embed"][:, 1:]
+        D = cfg.encoder_embed_dim
+        for norm in ("fc_norm", "norm"):
+            if norm + ".weight" in sd and sd[norm + ".weight"].shape[0] == D:
+                renamed["encoder.norm.weight"] = sd[norm + ".weight"]
+                renamed["encoder.norm.bias"] = sd[norm + ".bias"]
+                break
+    missing = [k for k in need if k not in sd]
+    if missing:
+        raise KeyError(f"{path} is not an InternVideo2 checkpoint of this "
+                       f"geometry: it lacks {missing[:4]}")
+    return _load_by_name(model, renamed)
+
+
 def load_distill_checkpoint(path: str, model):
     """Read a reference DistInternVideo2 (stage-2 student) .pth into the
     port's DistillInternVideo2 by name: the keys the JAX package's
@@ -240,16 +296,19 @@ def load_distill_checkpoint(path: str, model):
 def load_checkpoint_auto(path: str, model,
                          head_label_map: Optional[Sequence[int]] = None):
     """Model-aware .pth loader: InternVideo2, its distillation student,
-    PretrainVideoMAE or the ViT
+    PretrainIV2VideoMAE, PretrainVideoMAE or the ViT
     (``head_label_map``: the K710 head remap indices of a 600/700-class
     fine-tune)."""
     from simple_tad_tpu_torch.models.internvideo2 import InternVideo2
     from simple_tad_tpu_torch.models.iv2_distill import DistillInternVideo2
-    from simple_tad_tpu_torch.models.mae import PretrainVideoMAE
+    from simple_tad_tpu_torch.models.mae import (PretrainIV2VideoMAE,
+                                                 PretrainVideoMAE)
     if isinstance(model, DistillInternVideo2):
         return load_distill_checkpoint(path, model)
     if isinstance(model, InternVideo2):
         return load_iv2_checkpoint(path, model, head_label_map)
+    if isinstance(model, PretrainIV2VideoMAE):
+        return load_iv2_mae_checkpoint(path, model)
     if isinstance(model, PretrainVideoMAE):
         return load_mae_checkpoint(path, model)
     return load_vit_checkpoint(path, model, head_label_map=head_label_map)
@@ -295,6 +354,8 @@ def from_jax_params(params: Mapping[str, Any], *,
         return _from_jax_iv2(params, tubelet_size or 1, in_chans)
     if "clip_pos_embed" in params:
         return _from_jax_distill(params, tubelet_size or 1, in_chans)
+    if "encoder_blocks" in params:
+        return _from_jax_iv2_mae(params, tubelet_size or 1, in_chans)
     if "encoder_patch_embed" in params:
         return _from_jax_mae(params, tubelet_size or 2, in_chans)
 
@@ -318,6 +379,30 @@ def from_jax_params(params: Mapping[str, Any], *,
 def _from_jax_mae(params, tubelet_size: int, in_chans: int):
     """The JAX PretrainVideoMAE tree (both stacks scanned) -> the
     reference-named state dict."""
+    out = _from_jax_mae_common(params, tubelet_size, in_chans)
+    _vit_blocks(out, params["encoder"]["blocks"], "encoder.blocks.")
+    out["encoder.norm.weight"] = _f32(params["encoder"]["norm"]["scale"])
+    out["encoder.norm.bias"] = _f32(params["encoder"]["norm"]["bias"])
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def _from_jax_iv2_mae(params, tubelet_size: int, in_chans: int):
+    """The JAX PretrainIV2VideoMAE tree (``encoder_blocks`` scanned IV2
+    blocks, ``encoder_norm``, the learnable position tables) -> the
+    reference-named state dict."""
+    out = _from_jax_mae_common(params, tubelet_size, in_chans)
+    for key in ("pos_embed", "pos_embed_spatial", "pos_embed_temporal"):
+        if key in params:
+            out["encoder." + key] = _f32(params[key])
+    _from_jax_iv2_blocks(out, params["encoder_blocks"], "encoder.blocks.")
+    out["encoder.norm.weight"] = _f32(params["encoder_norm"]["scale"])
+    out["encoder.norm.bias"] = _f32(params["encoder_norm"]["bias"])
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def _from_jax_mae_common(params, tubelet_size: int, in_chans: int):
+    """The leaves both JAX pre-training trees share: the patch embedding,
+    encoder_to_decoder, the mask token and the decoder."""
     out: Dict[str, np.ndarray] = {
         "encoder.patch_embed.proj.weight": _conv3d_from_kernel(
             _f32(params["encoder_patch_embed"]["kernel"]), tubelet_size,
@@ -327,12 +412,11 @@ def _from_jax_mae(params, tubelet_size: int, in_chans: int):
         "encoder_to_decoder.weight": np.ascontiguousarray(
             _f32(params["encoder_to_decoder"]["kernel"]).T),
         "mask_token": _f32(params["mask_token"])}
-    for part in ("encoder", "decoder"):
-        _vit_blocks(out, params[part]["blocks"], f"{part}.blocks.")
-        out[f"{part}.norm.weight"] = _f32(params[part]["norm"]["scale"])
-        out[f"{part}.norm.bias"] = _f32(params[part]["norm"]["bias"])
+    _vit_blocks(out, params["decoder"]["blocks"], "decoder.blocks.")
+    out["decoder.norm.weight"] = _f32(params["decoder"]["norm"]["scale"])
+    out["decoder.norm.bias"] = _f32(params["decoder"]["norm"]["bias"])
     _dense_leaves(out, "decoder.head", params["decoder_head"])
-    return {k: torch.from_numpy(v) for k, v in out.items()}
+    return out
 
 
 def _vit_blocks(out, blocks, prefix: str) -> None:
@@ -405,12 +489,12 @@ def _from_jax_iv2(params, tubelet_size: int, in_chans: int):
     return {k: torch.from_numpy(v) for k, v in out.items()}
 
 
-def _from_jax_iv2_blocks(out, blocks) -> None:
+def _from_jax_iv2_blocks(out, blocks, prefix: str = "blocks.") -> None:
     """The JAX InternVideo2 block stack (scanned: leaves stacked on a
-    leading depth axis) into ``out`` under blocks.<i>."""
+    leading depth axis) into ``out`` under ``prefix``<i>."""
     attn = blocks["attn"]
     for i in range(np.shape(blocks["norm1"]["scale"])[0]):
-        pre = f"blocks.{i}."
+        pre = f"{prefix}{i}."
         for norm in ("norm1", "norm2"):
             out[pre + norm + ".weight"] = _f32(blocks[norm]["scale"][i])
             if "act_amax" in blocks[norm]:
@@ -554,6 +638,8 @@ def _depth(state, prefix: str) -> int:
 
 
 def _to_jax_mae(r: _Leaves, state) -> Dict[str, Any]:
+    """PretrainVideoMAE's tree, or PretrainIV2VideoMAE's (IV2 encoder
+    blocks)."""
     out: Dict[str, Any] = {
         "encoder_patch_embed": {
             "kernel": _patch_kernel(r, "encoder.patch_embed.proj.weight"),
@@ -562,7 +648,18 @@ def _to_jax_mae(r: _Leaves, state) -> Dict[str, Any]:
             "encoder_to_decoder.weight").T},
         "mask_token": r.arr("mask_token"),
         "decoder_head": r.dense("decoder.head")}
-    for part in ("encoder", "decoder"):
+    parts = ["decoder"]
+    if "encoder.blocks.0.ls1.gamma" in r:
+        pre = "encoder.blocks."
+        out["encoder_blocks"] = _stacked(_iv2_layer(r, f"{pre}{i}.")
+                                         for i in range(_depth(state, pre)))
+        out["encoder_norm"] = r.norm("encoder.norm")
+        for key in ("pos_embed", "pos_embed_spatial", "pos_embed_temporal"):
+            if "encoder." + key in r:
+                out[key] = r.arr("encoder." + key)
+    else:
+        parts.append("encoder")
+    for part in parts:
         pre = f"{part}.blocks."
         out[part] = {"blocks": _stacked(_vit_layer(r, f"{pre}{i}.")
                                         for i in range(_depth(state, pre))),
@@ -610,7 +707,8 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of ``from_jax_params`` for the fp model: a reference-named
     state dict (or any dict keyed by the model's parameter names, such as
     its gradients or Adam moments) -> the JAX VisionTransformer,
-    InternVideo2 or PretrainVideoMAE tree of fp32 numpy arrays, blocks
+    InternVideo2, PretrainVideoMAE or PretrainIV2VideoMAE tree of fp32
+    numpy arrays, blocks
     stacked on a leading depth axis (InternVideo2: its flat
     ``patch_kernel``/``patch_bias`` and the pooling head, the inverse of
     ``_from_jax_iv2``)."""

@@ -17,6 +17,7 @@ import simple_tad_tpu.data.labels as jax_labels
 import simple_tad_tpu.data.masking as jax_masking
 import simple_tad_tpu.data.pretrain_datasets as jax_pre
 import simple_tad_tpu.data.sequencing as jax_seq
+import simple_tad_tpu.data.video_cls_datasets as jax_cls
 import simple_tad_tpu.data.zipreader as jax_zip
 import simple_tad_tpu.eval.metrics as jax_metrics
 import simple_tad_tpu.train.engine as jax_engine
@@ -27,6 +28,7 @@ import simple_tad_tpu_torch.data.labels as port_labels
 import simple_tad_tpu_torch.data.masking as port_masking
 import simple_tad_tpu_torch.data.pretrain_datasets as port_pre
 import simple_tad_tpu_torch.data.sequencing as port_seq
+import simple_tad_tpu_torch.data.video_cls_datasets as port_cls
 import simple_tad_tpu_torch.data.zipreader as port_zip
 import simple_tad_tpu_torch.eval.metrics as port_metrics
 import simple_tad_tpu_torch.train.engine as port_engine
@@ -256,3 +258,88 @@ def test_exact_metrics_match_original(ties, monkeypatch):
     _equal(dataclasses.replace(got, auroc=want.auroc), want)
     with pytest.raises(ValueError, match="one class"):
         port_metrics.roc_auc_score(np.zeros(4), np.arange(4.0))
+
+
+@pytest.fixture(scope="module")
+def cls_root(tmp_path_factory):
+    """Videos whose pixel value encodes the frame index (40 and 23 frames,
+    64 x 48), a raw-frame folder of 24 frames, and each family's
+    annotations over them."""
+    import cv2
+    root = tmp_path_factory.mktemp("cls")
+    paths = []
+    for i, n in enumerate((40, 23)):
+        path = root / f"v{i}.avi"
+        wr = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                             (64, 48))
+        for t in range(n):
+            wr.write(np.full((48, 64, 3), (5 * t + 17 * i) % 256, np.uint8))
+        wr.release()
+        paths.append(str(path))
+    frames = root / "rf0"
+    frames.mkdir()
+    for t in range(24):
+        cv2.imwrite(str(frames / f"img_{t + 1:05}.jpg"),
+                    np.full((40, 56, 3), 10 * t, np.uint8))
+    annos = {
+        "kinetics": "".join(f"{p},{i}\n" for i, p in enumerate(paths)),
+        "anet": f"{paths[0]} 4.0 0.5 3.5 0\n{paths[1]} -1 -1 -1 1\n",
+        "hmdb": "".join(f"{p} {i}\n" for i, p in enumerate(paths)),
+        "rawframe": f"{frames} 24 1\n"}
+    out = {}
+    for name, text in annos.items():
+        (root / f"{name}.txt").write_text(text)
+        out[name] = str(root / f"{name}.txt")
+    return out
+
+
+def _cls_views(m, annos):
+    """Every getter of every reader: train clips (seeded, TSN and sparse
+    sampling), validation clips, every test view; build_cls_dataset's
+    class for each --data_set name."""
+    out = []
+    for data_set, anno in (("Kinetics", "kinetics"), ("ANet", "anet"),
+                           ("HMDB51", "hmdb"),
+                           ("HMDB51_rawframe", "rawframe")):
+        for sparse in (False, True):
+            kw = dict(clip_len=4, frame_sample_rate=3, crop_size=32,
+                      short_side_size=40, sparse_sampling=sparse)
+            train = m.build_cls_dataset(data_set, annos[anno], "",
+                                        mode="train", **kw)
+            rng = np.random.default_rng(5)
+            out.append([type(train).__name__, len(train)]
+                       + [train.get_train_clip(i, rng)
+                          for i in range(len(train))])
+            val = m.build_cls_dataset(data_set, annos[anno], "",
+                                      mode="validation", **kw)
+            out.append([val.get_val_clip(i) for i in range(len(val))])
+            test = m.build_cls_dataset(data_set, annos[anno], "",
+                                       mode="test", test_num_segment=2,
+                                       test_num_crop=3, **kw)
+            out.append([test.test_views]
+                       + [test.get_test_view(i) for i in range(len(test))])
+    return out
+
+
+def test_video_cls_datasets_match_original(cls_root):
+    """The copied action-recognition readers (Kinetics / SSV2 CSV, the
+    ANet interval reader with and without an interval, HMDB51 videos and
+    raw frames), train / validation / test getters and the --data_set
+    dispatch give the original's outputs."""
+    _equal(_cls_views(port_cls, cls_root), _cls_views(jax_cls, cls_root))
+    for name, anno in (("hacs", "anet"), ("HMDB", "hmdb"),
+                       ("hmdb_rawframe", "rawframe"), ("SSV2", "kinetics")):
+        assert (type(port_cls.build_cls_dataset(name, cls_root[anno],
+                                                "")).__name__
+                == type(jax_cls.build_cls_dataset(name, cls_root[anno],
+                                                  "")).__name__)
+
+
+def test_merge_test_views_matches_original():
+    rng = np.random.default_rng(8)
+    vids = [f"v{i % 7}" for i in range(40)]
+    labels = [int(v[1:]) % 5 for v in vids]
+    logits = [rng.normal(0, 2, 9) + 3 * np.eye(9)[y] * (i % 3 > 0)
+              for i, y in enumerate(labels)]
+    _equal(port_cls.merge_test_views(logits, vids, labels),
+           jax_cls.merge_test_views(logits, vids, labels))

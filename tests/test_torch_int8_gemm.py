@@ -242,7 +242,8 @@ def test_kernel_argument_checks():
 
 
 @pytest.mark.parametrize("name", [n for n in models.list_models()
-                                  if models.model_family(n) != "mae"])
+                                  if models.model_family(n)
+                                  not in ("mae", "iv2_mae")])
 def test_use_fused_mlp_at_every_registered_width(name):
     """Every registered ViT and InternVideo2 width (the served families;
     the pre-training models are not served in int8) takes the MLP kernel

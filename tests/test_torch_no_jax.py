@@ -34,7 +34,10 @@ for name in ("ops.quant", "ops.int8_gemm", "ops.ln", "ops.flash_attention",
              "data.pretrain_datasets", "utils.torch_convert",
              # the eval job's plots and grouped report, and distillation
              "eval.plots", "eval.analysis", "cli.data_tools",
-             "models.iv2_distill", "train.distill", "cli.distill"):
+             "models.iv2_distill", "train.distill", "cli.distill",
+             # class fine-tuning, probing and the IV2 DAPT
+             "data.video_cls_datasets", "cli.class_finetune",
+             "cli.linear_probe"):
     assert "simple_tad_tpu_torch." + name in names, name
 """
 

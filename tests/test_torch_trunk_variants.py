@@ -311,17 +311,17 @@ def test_static_int8_variant_on_jax_tree_matches_jax(variant, monkeypatch):
 
 def test_registry_builds_the_job_trunks():
     """The MVD-B and UMT-B names build (UMT at its job geometry: tubelet 1,
-    8 frames, N = 1568); the InternVideo2 pre-training names still raise,
-    naming their ROADMAP item."""
+    8 frames, N = 1568); so does the InternVideo2 pre-training name, at
+    its own tubelet 1."""
     mvd = create_model("mvd_vit_base_patch16_224", device="meta",
                        use_cls_token=True)
     umt = create_model("umt_vit_base_patch16_224", device="meta")
     assert mvd.cfg.pos_embed_kind == "3d" and mvd.cls_token is not None
     assert (umt.cfg.tubelet_size, umt.cfg.all_frames,
             umt.cfg.num_patches) == (1, 8, 1568)
-    with pytest.raises(KeyError, match="item 7"):
-        create_model("pretrain_videomae_internvideo2_patch14_224",
-                     device="cpu")
+    iv2 = create_model("pretrain_videomae_internvideo2_patch14_224",
+                       device="meta")
+    assert (iv2.cfg.tubelet_size, iv2.cfg.num_patches) == (1, 2048)
 
 
 @pytest.fixture(scope="module")

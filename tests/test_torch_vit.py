@@ -224,16 +224,21 @@ def test_executed_reference_goldens(name, model_name, overrides, tmp_path):
 
 
 def test_unported_variants_raise():
-    """The MVD and UMT trunks (tests/test_torch_trunk_variants.py) and the
-    InternVideo2 distillation students (tests/test_torch_distill.py) are
-    ported; the InternVideo2 pre-training names and gradient checkpointing
-    still raise, naming their ROADMAP item."""
+    """The MVD and UMT trunks (tests/test_torch_trunk_variants.py), the
+    InternVideo2 distillation students (tests/test_torch_distill.py) and
+    the InternVideo2 pre-training models (tests/test_torch_iv2_mae.py) are
+    ported; gradient checkpointing still raises, and a name outside the
+    registry raises naming ROADMAP.md."""
     from simple_tad_tpu_torch.models.iv2_distill import DistillInternVideo2
+    from simple_tad_tpu_torch.models.mae import PretrainIV2VideoMAE
     for name in ["pretrain_videomae_internvideo2_patch14_224"] + [
             f"pretrain_videomae_internvideo2_{size}_patch14_224"
             for size in ("small", "base", "large", "huge")]:
-        with pytest.raises(KeyError, match="ROADMAP.md"):
-            create_model(name, device="cpu")
+        assert isinstance(create_model(name, device="meta"),
+                          PretrainIV2VideoMAE)
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        create_model("pretrain_videomae_internvideo2_tiny_patch14_224",
+                     device="cpu")
     for size in ("small", "base", "large"):
         assert isinstance(create_model(
             f"distill_internvideo2_{size}_patch14_224", device="meta"),
