@@ -18,11 +18,14 @@ Phases (any failure raises, so the exit code is non-zero):
      case of the bf16/fp32 attention forward (A1 packed and on separate
      operands, C1, C3-fwd, B3, C4-fwd) must launch once on the route
      fa.attention_fwd_route names, and no other: the wgmma kernel at head
-     dim 64 (ViT-S/B/L, IV2-S/B, with or without dropout; two launches on
-     the same inputs bit-equal), the mma.sync kernel at ViT-H's head dim
-     80 and IV2-1B's 88 (timed too), the CUDA-core kernel in fp32; each
-     such case's route and error (and times, where timed) are kept in the
-     kernels record's "cases".  Every
+     dims 64 to 128 (ViT-S/B/L, IV2-S/B at 64, ViT-H's 80, IV2-1B's 88,
+     IV2-6B's 128, and 72, 104, 120 at a ragged N, with or without
+     dropout; two launches on the same inputs bit-equal; every case off
+     head dim 64 timed with SDPA and its bound), the mma.sync kernel at
+     head dim 32 (A1 packed and on separate operands with v strided, C1,
+     C4-fwd in both keep forms; timed too), the CUDA-core kernel in fp32;
+     each such case's route and error (and times, where timed) are kept in
+     the kernels record's "cases".  Every
      LayerNorm case and every bf16 attention case also runs a control: the
      plain version with one required numerics step left out (LayerNorm:
      unbiased variance; attention: probabilities not rounded to bf16
@@ -37,10 +40,11 @@ Phases (any failure raises, so the exit code is non-zero):
      IV2-1B's 88, timed too).  The training attention kernels (C1,
      the forward with lse; C2, the backward) are checked at ViT-B's
      training shape (8, 1568, 2304) bf16 (C2's wgmma route), ViT-H's head
-     dim 80 (2, 1568, 3840) bf16 (its mma.sync route) and on a masked fp32
-     tail: C1's out under the attention bounds and its lse within
-     LSE_ATOL, C2's dqkv under the bf16 bounds, each with a control (the
-     plain version with probabilities not rounded before PV, or before
+     dim 80 (2, 1568, 3840) bf16 (C1's wgmma route, C2's mma.sync one),
+     head dim 32 (4, 1568, 1152) bf16 (C1's and C2's mma.sync routes) and
+     on a masked fp32 tail: C1's out under the attention bounds and its lse
+     within LSE_ATOL, C2's dqkv under the bf16 bounds, each with a control
+     (the plain version with probabilities not rounded before PV, or before
      dV), and C2's two launches on the same inputs must be bit-equal; they
      are timed at the job's batch, (56, 1568, 2304).  The backward's delta
      pre-pass (attention_delta) is held to the plain rowsum at the fp32
@@ -199,7 +203,10 @@ Phases (any failure raises, so the exit code is non-zero):
      next seed), each call counted once on the route
      fa.attention_fwd_route / attention_bwd_route name (the wgmma kernels
      at head dim 64; two launches bit-equal), and at ViT-H's head dim 80
-     (2, 1568, 3840) H=16 on the mma.sync kernels; timed at the job's batch
+     (2, 1568, 3840) H=16 on the forward's wgmma kernel (timed with SDPA)
+     and the backward's mma.sync kernels, and at head dim 32 (2, 1568,
+     1152) H=12 on the mma.sync kernels both ways (the forward timed with
+     SDPA); timed at the job's batch
      56 against SDPA with dropout_p 0.1 forward and backward, the bound
      with the Philox form's integer floor (one philox4x32_10 call's SASS
      instructions from cuobjdump of the built library, its round keys
@@ -207,16 +214,16 @@ Phases (any failure raises, so the exit code is non-zero):
      IMADs and the ALU pipe's rest at 64 lanes an SM, or all of them at
      128 issued an SM a clock, at the maximum SM clock); (ii) the Philox
      forward's keep bits, read off its output (q = k = 0, v one-hot) at (2, 2, 392, 392)
-     bf16, must equal dropout_keep_plain's bit for bit, at head dim 64
-     (the wgmma kernel) and 80 (the mma.sync kernel); (iii) one train
+     bf16, must equal dropout_keep_plain's bit for bit, at head dims 64
+     and 80 (the wgmma kernel) and 32 (the mma.sync kernel); (iii) one train
      step per form at batch 8: 12 dropout forward and 12 dropout backward
      calls of the form, all on the wgmma routes, 12 delta calls, 25
      LayerNorm and no C1/C2, its
      gradients within phase 6's bounds of the plain-version step from the
      same generator state and phase 6's control outside them; (iv) the
-     batch-56 FinetuneTrainer timing of phase 6 in TIMING_PROCESSES fresh
-     processes (Philox form) and one (mask form), each first process with
-     the step breakdown and a profiler window;
+     batch-56 FinetuneTrainer timing of phase 6 in one fresh process a
+     form (Philox and mask), each with the step breakdown and a profiler
+     window;
  12. the static int8 ViT's two opt-in serving variants, kernels E1 (the
      residual add + LayerNorm->int8 of the deferred-residual carry,
      add_lnq) and E2 (int8-compute attention, int8_attn): (i) inside phase
@@ -292,10 +299,11 @@ Phases (any failure raises, so the exit code is non-zero):
      tile) against their plain versions and controls on their wgmma
      routes, two launches bit-equal; timed at the job's batch
      DISTILL_BATCH: A1-sep at the teacher's (B, 2049, 4224) H = 16 (head
-     dim 88, mma.sync; its plain version and control PLAIN_CHUNK samples
-     at a time) and C3 at (B, 411, 1152) H = 6, each against its plain
-     version and control, with SDPA and its bound.  (i) At batch 8: every
-     A1-sep call of the teacher's forward (40, all mma.sync, nothing else
+     dim 88, wgmma, two launches bit-equal; its plain version and control
+     PLAIN_CHUNK samples at a time) and C3 at (B, 411, 1152) H = 6, each
+     against its plain version and control, with SDPA and its bound.  (i)
+     At batch 8: every A1-sep call of the teacher's forward (40, all
+     wgmma, nothing else
      launched) and every C3-fwd, C3-bwd and delta call of one student step
      (12 each, wgmma; the calls counted) against its plain version and
      controls at its own inputs (C3-bwd's subtle control caught at some
@@ -323,14 +331,15 @@ Phases (any failure raises, so the exit code is non-zero):
      CLI's trainer on its job's flags (PROBE_FLAGS, PROBE_6B_FLAGS,
      CLS_FLAGS, the IV2_DAPT_* constants), clips from memory.  Inside
      phase 2, A1-sep at 16 frames (N = 4097) at IV2-1B's head dim 88 and
-     IV2-6B's 128 (mma.sync), C3 at the IV2-S DAPT encoder's (8, 1024,
+     IV2-6B's 128 (wgmma, two launches bit-equal), C3 at the IV2-S DAPT
+     encoder's (8, 1024,
      1152) H = 6 and C1 / C2 at its decoder's (8, 4096, 576) H = 3
      (wgmma), each against its plain version and controls and timed with
      SDPA and its bound.  (i) The IV2-1B attentive probe (open_block_num 0,
      the pooling head open) at PROBE_CHECK_BATCH: the open parameters'
      gradients against the plain-version step, the gross control (v
      misread) outside the bounds; one real step with every A1-sep call
-     (40, mma.sync, nothing else launched) against its plain version and
+     (40, wgmma, nothing else launched) against its plain version and
      control, the trunk's output without a grad_fn, every detached
      parameter bit-unchanged, the classifier moved; the same with
      open_block_num 1 (39 A1-sep, C3-fwd, C3-bwd and the delta pre-pass
@@ -420,7 +429,8 @@ import torch
 #                                         dominates it), so the per-parameter
 #                                         bound is the one that catches it
 #   attention dropout (C4), rate 0.1, both forms, at (8, 1568, 2304) bf16
-#   (the wgmma kernels) and (2, 1568, 3840) H=16 (head dim 80, mma.sync):
+#   (the wgmma kernels) and (2, 1568, 3840) H=16 (head dim 80, read when
+#   its forward took the mma.sync kernel):
 #     C4-fwd outputs differing            <= 1.722e-3 vs controls >= 0.836
 #     C4-bwd dqkv differing               <= 2.331e-3 vs controls >= 0.662
 #     ViT-B train step with dropout, worst parameter <= 6.910e-3 vs control
@@ -432,7 +442,8 @@ import torch
 #     attention_int8 outputs differing    0 (bit for bit) vs controls
 #                                         >= 0.119
 #   IV2 stage-2 distillation (phase 15, batch 8; the IV2-1B teacher at
-#   N = 2049, head dim 88, mma.sync; the IV2-S student at N = 411):
+#   N = 2049, head dim 88, read on the mma.sync kernel; the IV2-S student
+#   at N = 411):
 #     teacher A1-sep calls, outputs differing  <= 7.1e-4 vs control >= 3.75e-2
 #     teacher taps / final / attention vs plain, max over features
 #                                          8.147e-3 / 3.295e-3 / 1.324e-3
@@ -527,13 +538,16 @@ ATTN_DROP = 0.1
 DROP_KERNELS = {"mask": ("attention_drop_fwd", "attention_drop_bwd"),
                 "rng": ("attention_drop_rng_fwd", "attention_drop_rng_bwd")}
 # C4 checked at ViT-B's training shape (the wgmma kernels), ViT-H's head
-# dim 80 (the mma.sync kernels) and a masked fp32 tail, its Philox bits
-# read off at (B, H, N, Dh) on each bf16 route, timed at the job's batch
-# (B, N, C, H)
+# dim 80 (the forward's wgmma kernel, 96-column tiles, timed with SDPA; the
+# backward's mma.sync kernels), head dim 32 (the mma.sync kernels both
+# ways, the forward timed with SDPA) and a masked fp32 tail, its Philox
+# bits read off at (B, H, N, Dh) on each bf16 forward route (head dim 32:
+# the mma.sync kernel), timed at the job's batch (B, N, C, H)
 DROP_CASES = [((8, 1568, 2304), 12, torch.bfloat16),
               ((2, 1568, 3840), 16, torch.bfloat16),
+              ((2, 1568, 1152), 12, torch.bfloat16),
               ((2, 200, 384), 2, torch.float32)]
-DROP_PROBES = [(2, 2, 392, 64), (2, 2, 392, 80)]
+DROP_PROBES = [(2, 2, 392, 64), (2, 2, 392, 80), (2, 2, 392, 32)]
 DROP_TIMED = (JOB_BATCH, 1568, 768, 12)
 # the H100's integer rates an SM a clock (NVIDIA's Hopper architecture
 # white paper; the CUDA C++ programming guide's throughput table at compute
@@ -635,7 +649,7 @@ DISTILL_PROCESSES = 2
 DISTILL_MASK_SHARE = 2e-2
 # phase 2 at phase 15's shapes: C3 at the student's N = 411 (a 27-row tail
 # tile) at batch 8, two launches bit-equal; timed at DISTILL_BATCH: A1-sep
-# at the teacher's (B, 2049, 3 x 1408) H = 16 (head dim 88, mma.sync) and
+# at the teacher's (B, 2049, 3 x 1408) H = 16 (head dim 88, wgmma) and
 # C3 at (B, 411, 3 x 384) H = 6 (wgmma)
 DISTILL_CHECK = ((8, DISTILL_N, 1152), 6)
 DISTILL_TIMED = [((DISTILL_BATCH, 2049, 4224), 16),
@@ -721,6 +735,10 @@ LOGIT_RTOL_IV2_I8 = 2.5e-2   # as LOGIT_RTOL_I8
 # the card's data-sheet rates (H100 SXM, dense): bf16 tensor cores, int8
 # tensor cores, fp32 outside the tensor cores, device memory
 PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "bytes": 3.35e12}
+# the training forward with lse at IV2-1B's head dim 88 and IV2-6B's 128
+# (the wgmma route's 96- and 128-column tiles), packed (C1) and on
+# separate operands (C3-fwd), at N = 2049
+WIDE_LSE_CASES = [((4, 2049, 4224), 16), ((2, 2049, 9600), 25)]
 # kernel name -> (source, the TPU kernel it replaces)
 SOURCES = {
     "layernorm": ("simple_tad_tpu_torch/csrc/layernorm.cu",
@@ -1504,7 +1522,9 @@ def check_kernels(dev, seed: int) -> dict:
                   ((2, 200, 384), 2, torch.float32),        # masked tail
                   ((2, 1568, 3840), 16, torch.bfloat16),    # ViT-H, Dh=80
                   # MVD-B b32 with its CLS token: a one-row tail tile
-                  ((32, 1569, 2304), 12, torch.bfloat16)]
+                  ((32, 1569, 2304), 12, torch.bfloat16),
+                  # head dim 32: the mma.sync kernel's route (8 to 56)
+                  ((4, 1568, 1152), 12, torch.bfloat16)]
     for shape, heads, dt in attn_cases:
         qkv = torch.randn(shape, generator=g, device=dev).to(dt)
         D = shape[-1] // 3 // heads
@@ -1518,8 +1538,8 @@ def check_kernels(dev, seed: int) -> dict:
                  # in fp32 the rounding the control leaves out is exact
                  (lambda: attention_control(qkv, heads, scale))
                  if dt == torch.bfloat16 else None,
-                 time_it=("every" if route == "mma_sync" or shape[1] == 1569
-                          else True),
+                 time_it=("every" if D != fa.WGMMA_HEAD_DIM
+                          or shape[1] == 1569 else True),
                  library=lambda: F.scaled_dot_product_attention(
                      q, k, v, scale=scale),
                  bound=attention_bound(shape[0], shape[1], shape[2] // 3,
@@ -1587,11 +1607,13 @@ def check_kernels(dev, seed: int) -> dict:
         del qkv_i8
         torch.cuda.empty_cache()
 
-    # training attention: checked at ViT-B's b8 (the backward's wgmma
-    # route), ViT-H's head dim 80 (its mma.sync route) and a masked fp32
-    # tail, timed at the job's batch
+    # training attention: checked at ViT-B's b8 (the wgmma routes both
+    # ways), ViT-H's head dim 80 (the forward's wgmma route, the backward's
+    # mma.sync one), head dim 32 (the mma.sync routes both ways) and a
+    # masked fp32 tail, timed at the job's batch
     train_cases = [((8, 1568, 2304), 12, torch.bfloat16),
                    ((2, 1568, 3840), 16, torch.bfloat16),
+                   ((4, 1568, 1152), 12, torch.bfloat16),
                    ((2, 200, 384), 2, torch.float32)]
     for shape, heads, dt in train_cases:
         B, N, C3 = shape
@@ -1679,8 +1701,15 @@ def check_kernels(dev, seed: int) -> dict:
                  # :345) on the (B*H, N, Dh) layout; A1 computes the same
                  # function
                  ((8, 2049, 576), 3, torch.bfloat16),
-                 # IV2-1B's head dim 88: the mma.sync route
-                 ((4, 2049, 4224), 16, torch.bfloat16)]
+                 # IV2-1B's head dim 88: the wgmma route's 96-column tiles
+                 ((4, 2049, 4224), 16, torch.bfloat16),
+                 # head dims 72, 104 and 120 (tiles of 96, 128, 128 that
+                 # start 8 columns early on odd heads), a 3-row tail tile
+                 ((2, 131, 432), 2, torch.bfloat16),
+                 ((2, 131, 624), 2, torch.bfloat16),
+                 ((2, 131, 720), 2, torch.bfloat16),
+                 # head dim 32: the mma.sync route (8 to 56)
+                 ((4, 2049, 1152), 12, torch.bfloat16)]
     for shape, heads, dt in sep_cases:
         B, N, C3 = shape
         C = C3 // 3
@@ -1696,7 +1725,8 @@ def check_kernels(dev, seed: int) -> dict:
                  lambda: fa.flash_attention_plain(q, k, v, heads, scale),
                  (lambda: attention_sep_control(q, k, v, heads, scale))
                  if dt == torch.bfloat16 else None,
-                 time_it="every" if route == "mma_sync" else True,
+                 time_it=("every" if C // heads != fa.WGMMA_HEAD_DIM
+                          else True),
                  library=lambda: F.scaled_dot_product_attention(
                      qh, kh, vh, scale=scale),
                  bound=attention_bound(B, N, C, heads, dt), route=route)
@@ -1805,6 +1835,43 @@ def check_kernels(dev, seed: int) -> dict:
           attention_bound(B, N, C, heads, backward=True), plain_runs=3)
     del qkv, dout, ops, out, lse, leaves, sdpa_out, sdpa_dout, bargs
     torch.cuda.empty_cache()
+    for shape, heads in WIDE_LSE_CASES:
+        B, N, C3 = shape
+        C = C3 // 3
+        qkv = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        scale = (C // heads) ** -0.5
+        ops = (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
+               qkv[..., 2 * C:], heads, scale)
+        route = fa.attention_fwd_route(torch.bfloat16, C // heads)
+        case = f"{shape} H={heads} bf16"
+        run_case("attention_fwd_lse", case,
+                 lambda: fa.flash_attention_qkv_fwd_lse(qkv, heads, scale),
+                 lambda: fa.flash_attention_qkv_fwd_lse_plain(qkv, heads,
+                                                              scale),
+                 lambda: attention_fwd_lse_control(qkv, heads, scale),
+                 time_it="every",
+                 library=lambda: F.scaled_dot_product_attention(
+                     *qkv_views(qkv, heads), scale=scale),
+                 bound=attention_bound(B, N, C, heads, lse=True),
+                 route=route)
+        launches_equal("attention_fwd_lse", case,
+                       lambda: fa.flash_attention_qkv_fwd_lse(qkv, heads,
+                                                              scale))
+        case += ", v strided"
+        run_case("attention_sep_fwd_lse", case,
+                 lambda: fa.flash_attention_fwd_lse(*ops),
+                 lambda: fa.flash_attention_fwd_lse_plain(*ops),
+                 [lambda: attention_sep_fwd_lse_control(*ops),
+                  lambda: attention_sep_fwd_lse_misread_v(*ops)],
+                 time_it="every",
+                 library=lambda: F.scaled_dot_product_attention(
+                     *sep_heads(heads, *ops[:3]), scale=scale),
+                 bound=attention_bound(B, N, C, heads, lse=True),
+                 route=route)
+        launches_equal("attention_sep_fwd_lse", case,
+                       lambda: fa.flash_attention_fwd_lse(*ops))
+        del qkv, ops
+        torch.cuda.empty_cache()
 
     rmsq_cases = [((32 * 2049, 384), 6, torch.bfloat16),   # IV2-S b32
                   ((4096, 768), 12, torch.float32),
@@ -1925,8 +1992,9 @@ def check_distill_kernels(dev, g, run_case, launches_equal):
     N = 411 (DISTILL_CHECK) against their plain versions and controls on
     their wgmma routes, two launches bit-equal; then, timed at
     DISTILL_BATCH (DISTILL_TIMED) with their plain versions, SDPA and their
-    bounds: A1-sep at the IV2-1B teacher's shape on its mma.sync route (the
-    plain version and its control PLAIN_CHUNK samples at a time), and
+    bounds: A1-sep at the IV2-1B teacher's shape on its wgmma route (two
+    launches bit-equal; the plain version and its control PLAIN_CHUNK
+    samples at a time), and
     C3-fwd and C3-bwd at the student's, each against its plain version and
     controls, kept in the records' cases."""
     import torch.nn.functional as F
@@ -1952,6 +2020,9 @@ def check_distill_kernels(dev, g, run_case, launches_equal):
                                                             scale=scale),
              bound=attention_bound(B, N, C, heads),
              route=fa.attention_fwd_route(dt, C // heads), plain_runs=3)
+    launches_equal("attention_sep", f"{shape} H={heads} {dt}, v strided "
+                   f"(distill teacher)",
+                   lambda: fa.flash_attention(q, k, v, heads, scale))
     del q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
     check_c3_case(g, dev, run_case, launches_equal, *student,
@@ -1963,8 +2034,9 @@ def check_distill_kernels(dev, g, run_case, launches_equal):
 def check_probe_kernels(dev, g, run_case, launches_equal):
     """Phase 2 at phase 16's shapes: A1-sep at 16 frames (N = 4097) at
     IV2-1B's width (head dim 88) and IV2-6B's (head dim 128, the first
-    launch at 128), on the mma.sync route, against the plain version and
-    its control and timed with SDPA and the bound (PROBE_SEP_CASES); C3-fwd
+    launch at 128), on the wgmma route, against the plain version and
+    its control, two launches bit-equal, and timed with SDPA and the bound
+    (PROBE_SEP_CASES); C3-fwd
     and C3-bwd at the IV2-S DAPT encoder's 1024 visible tokens
     (IV2_DAPT_ENCODER) against their plain versions and controls, timed."""
     import torch.nn.functional as F
@@ -1986,6 +2058,9 @@ def check_probe_kernels(dev, g, run_case, launches_equal):
                      qh, kh, vh, scale=scale),
                  bound=attention_bound(B, N, C, heads),
                  route=fa.attention_fwd_route(dt, C // heads), plain_runs=3)
+        launches_equal("attention_sep", f"{shape} H={heads} {dt}, v strided "
+                       f"({what})",
+                       lambda: fa.flash_attention(q, k, v, heads, scale))
         del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
     check_c3_case(g, dev, run_case, launches_equal, *IV2_DAPT_ENCODER,
@@ -2255,9 +2330,10 @@ def bwd_route_counts() -> dict:
 def check_dropout_kernels(dev, g, run_case, timed, launches_equal) -> list:
     """Phase 11 (i)-(ii), inside phase 2: C4 in both forms against the plain
     versions on the same mask or seed at ViT-B's training shape (8, 1568,
-    2304) bf16 (the wgmma kernels), ViT-H's head dim 80 (the mma.sync
-    kernels) and a masked fp32 tail, each with its controls, each call on
-    its route, two launches of each bf16 case bit-equal; the Philox
+    2304) bf16 (the wgmma kernels), ViT-H's head dim 80 (the forward's
+    wgmma kernel, the backward's mma.sync one), head dim 32 (the mma.sync
+    kernels both ways) and a masked fp32 tail, each with its controls, each
+    call on its route, two launches of each bf16 case bit-equal; the Philox
     forward's keep bits against dropout_keep_plain's on both bf16 routes;
     then the times at the job's batch.  -> failures."""
     import torch.nn.functional as F
@@ -2265,6 +2341,9 @@ def check_dropout_kernels(dev, g, run_case, timed, launches_equal) -> list:
     from simple_tad_tpu_torch.ops.attention import (draw_dropout_seed,
                                                     make_dropout_mask)
     failures = []
+    # the Philox form's integer floor: one call's instructions, the rate
+    pipes, call_ops, key_ops = philox_call_cost()
+    sm_hz, mhz = sm_clock_rate()
     for shape, heads, dt in DROP_CASES:
         B, N, C3 = shape
         C = C3 // 3
@@ -2272,6 +2351,9 @@ def check_dropout_kernels(dev, g, run_case, timed, launches_equal) -> list:
         dout = torch.randn((B, N, C), generator=g, device=dev).to(dt)
         args = (*qkv.view(B, N, 3, C).unbind(2), heads, (C // heads) ** -0.5,
                 ATTN_DROP)
+        # a bf16 forward off head dim 64 is timed with SDPA (dropout_p)
+        wide = dt == torch.bfloat16 and C // heads != fa.WGMMA_HEAD_DIM
+        qh, kh, vh = qkv_views(qkv, heads)
         mask = make_dropout_mask(g, ATTN_DROP, B, heads, N)
         seed = draw_dropout_seed(g)
         # the gross controls: the mask read transposed, the next seed
@@ -2281,14 +2363,22 @@ def check_dropout_kernels(dev, g, run_case, timed, launches_equal) -> list:
                 ("rng", {"seed": seed}, {"seed": seed + 1})):
             fwd, bwd = DROP_KERNELS[form]
             case = f"{shape} H={heads} {dt} rate {ATTN_DROP}"
+            rng = {} if form == "mask" else {"philox_ms": philox_floor_ms(
+                B * heads * N * N, pipes, sm_hz)}
             run_case(fwd, case,
                      lambda: fa.flash_attention_drop_fwd(*args, **src),
                      lambda: fa.flash_attention_drop_fwd_plain(*args, **src),
                      [lambda: attention_drop_fwd_after(*args, **src),
                       lambda: fa.flash_attention_drop_fwd_plain(*args,
                                                                 **gross)],
-                     time_it=False,
-                     route=fa.attention_fwd_route(dt, C // heads))
+                     time_it="every" if wide else False,
+                     library=lambda: F.scaled_dot_product_attention(
+                         qh, kh, vh, dropout_p=ATTN_DROP,
+                         scale=args[4]),
+                     bound=drop_bound(B, N, C, heads, mask=form == "mask",
+                                      **rng),
+                     route=fa.attention_fwd_route(dt, C // heads),
+                     plain_runs=3)
             out, lse = fa.flash_attention_drop_fwd_plain(*args, **src)
             bargs = (*args[:3], out, lse, dout, *args[3:])
             route = fa.attention_bwd_route(dt, C // heads)
@@ -2311,12 +2401,12 @@ def check_dropout_kernels(dev, g, run_case, timed, launches_equal) -> list:
                 launches_equal(bwd, case, lambda: fa.flash_attention_drop_bwd(
                     *bargs, **src))
             del out, lse, bargs
-        del qkv, dout, args, mask
+        del qkv, dout, args, mask, qh, kh, vh
         torch.cuda.empty_cache()
 
     # (ii) the bits the Philox kernels draw, two batches x two heads at
     # N = 392 (q and key tiles past the first), bf16 as on the main path:
-    # the wgmma kernel's at head dim 64, the mma.sync kernel's at 80
+    # the wgmma kernel's at head dims 64 and 80, the mma.sync kernel's at 32
     seed = draw_dropout_seed(g)
     for B, heads, N, D in DROP_PROBES:
         route = fa.attention_fwd_route(torch.bfloat16, D)
@@ -2332,9 +2422,6 @@ def check_dropout_kernels(dev, g, run_case, timed, launches_equal) -> list:
         if not equal:
             failures.append(f"attention_drop_rng: {route} kernel keep bits")
 
-    # the Philox form's integer floor: one call's instructions, the rate
-    pipes, call_ops, key_ops = philox_call_cost()
-    sm_hz, mhz = sm_clock_rate()
     print(f"[attention_drop_rng] one philox4x32_10 call: {pipes} SASS "
           f"instructions by pipe {call_ops} (cuobjdump -sass, "
           f"philox_cost_kernel (<10, 2> - <0, 2>) - (<10, 1> - <0, 1>)), "
@@ -2521,6 +2608,8 @@ def check_int8_kernels(dev, g, run_case, launches_equal) -> None:
     for shape, heads, dt, n_valid in [
             ((32, 2049, 1152), 6, torch.bfloat16, None),
             ((32, 2049, 1152), 6, torch.bfloat16, 2040),     # keys masked
+            # IV2-1B's head dim 88 (96-column tiles), keys masked
+            ((4, 2049, 4224), 16, torch.bfloat16, 2040),
             ((2, 200, 384), 2, torch.float32, 190)]:
         B, N, C3 = shape
         C = C3 // 3
@@ -2540,6 +2629,8 @@ def check_int8_kernels(dev, g, run_case, launches_equal) -> None:
                  lambda: fa.flash_attention_q8_plain(*args),
                  ([lambda: attention_q8_sep_control(*args)] if bf16 else [])
                  + [lambda: attention_q8_sep_misread_v(*args)],
+                 time_it=("every" if C // heads != fa.WGMMA_HEAD_DIM
+                          else True),
                  library=lambda: F.scaled_dot_product_attention(
                      qh, kh, vh, scale=scale),
                  bound=attention_bound(B, N, C, heads, dt, q8_out=True),
@@ -4508,14 +4599,14 @@ def run_distill(dev, seed: int) -> dict:
           f"{DISTILL_LR}: losses {' '.join(f'{x:.5f}' for x in losses)}; "
           f"drop {drop:.3f} (required {LOSS_DROP})")
     want_t = dict.fromkeys(COUNTERS, 0)
-    # IV2-1B's head dim 88: the mma.sync route; its norms, LayerScale and
-    # pooling head are plain PyTorch
-    want_t.update(attention_sep=t_depth, fwd_route_mma_sync=t_depth)
+    # IV2-1B's head dim 88: the wgmma route (96-column tiles); its norms,
+    # LayerScale and pooling head are plain PyTorch
+    want_t.update(attention_sep=t_depth, fwd_route_wgmma=t_depth)
     want = dict(want_t)
     # IV2-S's head dim 64 at N = 411: the wgmma routes; the decoders'
     # LayerNorms are plain PyTorch too
     want.update(attention_sep_fwd_lse=s_depth, attention_sep_bwd=s_depth,
-                attention_delta=s_depth, fwd_route_wgmma=s_depth,
+                attention_delta=s_depth, fwd_route_wgmma=t_depth + s_depth,
                 bwd_route_wgmma=s_depth)
     assert not failures, failures
     assert t_launches == want_t, (t_launches, want_t)
@@ -5078,10 +5169,11 @@ def main(argv=None):
     # phase 11: ViT-B fine-tuning with attention dropout (C4)
     p11 = run_finetune_dropout(dev, args.seed)
     torch.cuda.empty_cache()
-    for form, processes in (("rng", TIMING_PROCESSES), ("mask", 1)):
+    # one process a form (no job sets attention dropout; the time limit)
+    for form in ("rng", "mask"):
         run_timing(f"finetune attn_drop {ATTN_DROP} {form}",
                    time_training_process,
-                   (args.seed, "vit", ATTN_DROP, form), processes)
+                   (args.seed, "vit", ATTN_DROP, form), 1)
     lap("phase 11")
     # phase 12: the static int8 ViT's opt-in variants (E1, E2)
     p12 = run_eval_variants(dev, args.seed, estats["logits"],

@@ -47,29 +47,37 @@
 // Dh = 64 the special-function unit's N^2 exp2 per (batch, head) take about
 // as long as the two products.  Three routes, by dtype and head dim
 // (route() below, ops/flash_attention.py:attention_fwd_route):
-//   * bf16 at head dim 64 (every trunk the jobs run: ViT-S/B/L,
-//     IV2-S/B/L; A1, C1, C3-fwd, B3 and, with dropout, C4-fwd), the wgmma
-//     kernel
-//     (namespace wg): one warpgroup per (64-query tile, head, batch); the
-//     q tile and a ring of (k, v) tiles arrive by TMA (rank-3 tensor maps
-//     over (batch, row, column) at the head's column offset, 128-byte
-//     swizzle, rows beyond N or n_kv read as zero), q is scaled in place in
-//     shared memory; S = Qs K^T is wgmma m64n64k16 with both operands
-//     K-major in shared memory, O += bf16(P) V takes P from registers (the
-//     rounded accumulators, whose layout is the A-fragment layout) and V
-//     MN-major through the descriptor's transpose bit, so no transposed
-//     copy is staged.  A tile's S, softmax and PV run in turn, and the
-//     blocks of an SM (five fit: 92 registers a thread, 42 KB of shared
-//     memory) overlap one another's products and softmax;
-//   * bf16 at the other head dims (8 to 128; ViT-H's 80, IV2-1B's 88,
-//     IV2-6B's 128), C4-fwd there too, the mma.sync kernel
-//     attn_fwd_bf16_kernel (m16n8k16, fp32 accumulators) in the
-//     FlashAttention-2 shape: one block of 4 warps per (64-query tile,
-//     head, batch); each warp owns 16 query rows whose Q fragments stay in
-//     registers; 64-key K and V tiles are loaded synchronously through
-//     shared memory (V stored transposed so each B fragment is one 32-bit
-//     load); the score accumulators are rounded to bf16 and reused directly
-//     as the A fragments of the PV product;
+//   * bf16 at head dims 64 to 128 (every trunk the jobs run: ViT-S/B/L,
+//     IV2-S/B/L at 64, IV2-1B at 88, IV2-6B at 128, and ViT-H's 80; A1,
+//     C1, C3-fwd, B3 and, with dropout, C4-fwd), the wgmma kernel
+//     (namespace wg), a template on the tile width DP = 64, 96 or 128
+//     (64 at 64, 96 at 72-96, 128 at 104-128): one warpgroup per (64-query
+//     tile, head, batch); the q tile and a ring of (k, v) tiles arrive by
+//     TMA (rank-3 tensor maps over (batch, row, column), rows beyond N and
+//     keys beyond n_kv reading as zero) as DP / A column atoms of A = 64
+//     or 32 columns (128- or 64-byte swizzle), starting at the head's first
+//     column rounded down to a multiple of 16 (a TMA row that starts off a
+//     32-byte sector ran slower), the columns that are not the head's
+//     zeroed in q (k must be finite there) and not stored from O; q is
+//     scaled in place in shared memory;
+//     S = Qs K^T is wgmma m64n64k16 over DP / 16 k-steps with both
+//     operands K-major in shared memory, O += bf16(P) V is wgmma m64nDPk16
+//     taking P from registers (the rounded accumulators, whose layout is
+//     the A-fragment layout) and V MN-major through the descriptor's
+//     transpose bit (its LBO stepping from one column atom to the next), so
+//     no transposed copy is staged.  A tile's S, softmax and PV run in
+//     turn, and the blocks of an SM overlap one another's products and
+//     softmax (five fit at DP = 64: 92 registers a thread, 42 KB of shared
+//     memory; three at 96, two at 128: 80 KB, DP / 2 = 64 O accumulators a
+//     thread);
+//   * bf16 at head dims 8 to 56, the mma.sync kernel attn_fwd_bf16_kernel
+//     (m16n8k16, fp32 accumulators) in the FlashAttention-2 shape: one
+//     block of 4 warps per (64-query tile, head, batch); each warp owns 16
+//     query rows whose Q fragments stay in registers; 64-key K and V tiles
+//     are loaded synchronously through shared memory (V stored transposed
+//     so each B fragment is one 32-bit load); the score accumulators are
+//     rounded to bf16 and reused directly as the A fragments of the PV
+//     product;
 //   * fp32 inputs (tests, small shapes), a simple CUDA-core kernel: one
 //     thread per query row, 32-key tiles in shared memory, the same online
 //     integer-max softmax.
@@ -435,25 +443,69 @@ __global__ void __launch_bounds__(kBlockM)
   }
 }
 
-// ---- the wgmma route: bf16, head dim 64 ----
+// ---- the wgmma route: bf16, head dims 64 to 128 ----
 namespace wg {
 
 namespace hw = stt::hopper;
 
-constexpr int kD = 64;                        // the route's head dim
+constexpr int kMinD = 64;                     // the route's least head dim
 constexpr int kRows = 64;                     // queries a block, keys a tile
 constexpr int kThreads = 128;                 // one warpgroup a block
-constexpr int kTileBytes = kRows * kD * 2;    // one bf16 tile, 8 KB
-constexpr int kKStep = 32 >> 4;               // k16 step, K-major (desc)
-constexpr int kMnStep = (16 * 128) >> 4;      // k16 step, MN-major (desc)
 constexpr int kStages = 2;                    // the ring of (k, v) tiles
 
+// The tile width DP of head dim d: 64 at 64, 96 at 72 to 96, 128 at 104
+// to 128; a head dim d = 8 (mod 16) needs d + 8 columns on its odd heads
+// (below).  Tiles of 80 or 112 columns (32-byte-swizzled atoms) are not
+// instantiated: they ran slower than 96 or 128 on the H100 in trials whose
+// times were not recorded (an open question of PERF.md).  Their cost:
+// S's k-steps and PV's n span DP / d of the head (1.2 at d = 80).
+__host__ __device__ constexpr int tile_width(int d) {
+  return d <= 64 ? 64 : d <= 96 ? 96 : 128;
+}
+
+// A (64-row, DP-column) bf16 tile: DP / kAtom column atoms of kAtom = 64
+// or 32 columns, the widest that divides DP, each one TMA box swizzled by
+// its row of 128 or 64 bytes (layout type 1 or 2 of a wgmma descriptor),
+// back to back.  At DP = 64 that is the one 128-byte-swizzled 8 KB tile.
+template <int DP>
+struct Tile {
+  static_assert(DP == 64 || DP == 96 || DP == 128, "a tile_width");
+  static constexpr int kAtom = DP % 64 == 0 ? 64 : 32;
+  static constexpr int kRowBytes = 2 * kAtom;
+  static constexpr int kAtomBytes = kRows * kRowBytes;
+  static constexpr int kBytes = kRows * DP * 2;
+  static constexpr uint32_t kLayout = kAtom == 64 ? 1 : 2;
+  // a K-major operand (S's q and k): 8-row atoms kRowBytes * 8 apart; k16
+  // step kk starts 32 bytes into its column atom per step within it
+  __host__ __device__ static constexpr int kk_offset(int kk) {
+    return ((kk * 16 / kAtom) * kAtomBytes + (kk * 16 % kAtom) * 2) >> 4;
+  }
+  __device__ static uint64_t kmajor(const bf16* t) {
+    return hw::desc_sw(t, 16, 8 * kRowBytes, kLayout);
+  }
+  // an MN-major operand (PV's v): k16 step +16 rows, the next column atom
+  // LBO = kAtomBytes on (unused with one atom: set as desc_mnmajor's)
+  static constexpr int kMnStep = (16 * kRowBytes) >> 4;
+  __device__ static uint64_t mnmajor(const bf16* t) {
+    return hw::desc_sw(t, DP == kAtom ? 8 * kRowBytes : kAtomBytes,
+                       8 * kRowBytes, kLayout);
+  }
+};
+
+template <int DP>
 struct Smem {
-  bf16 q[kRows * kD];             // the block's q, scaled in place: A of S
-  bf16 k[kStages][kRows * kD];    // B of S (K-major)
-  bf16 v[kStages][kRows * kD];    // B of PV (MN-major)
+  bf16 q[kRows * DP];             // the block's q, scaled in place: A of S
+  bf16 k[kStages][kRows * DP];    // B of S (K-major)
+  bf16 v[kStages][kRows * DP];    // B of PV (MN-major)
   uint64_t full[kStages], qbar;
 };
+
+// blocks an SM the registers are budgeted for: 92 registers a thread at
+// DP = 64 (five blocks fit its 42 KB of shared memory), DP / 2 fp32 O
+// accumulators beside S's 32 at the others (three blocks fit 60 KB at 96,
+// two 80 KB at 128)
+template <int DP>
+constexpr int kMinBlocks = DP == 64 ? 4 : DP == 96 ? 3 : 2;
 
 // the online softmax and the pack of P (attention_wg.cuh, shared with the
 // int8-storage kernel of attention_i8.cu)
@@ -461,51 +513,74 @@ using stt::attn_wg::rescale_and_pack;
 using stt::attn_wg::tile_softmax;
 static_assert(stt::attn_wg::kTile == kRows, "one tile size");
 
-// One block per (64-query tile, head, batch), one warpgroup, at least four
-// blocks an SM.  The raw q tile arrives by TMA and is scaled in place
-// (bf16(q * qscale), the numerics of the mma.sync kernel); (k, v) tiles
-// stream by TMA through a ring of kStages, thread 0 refilling a stage once
-// the block's barrier at the end of its tile shows every warp done with
-// it, so the next tile's copy runs under this tile's work.  S = Qs K^T by
-// wgmma from shared memory (both K-major), the online softmax in
-// registers, O += bf16(P) V by wgmma with P from registers and V read
-// MN-major (no transposed copy).  A tile's S, softmax and PV run in turn;
+// One block per (64-query tile, head, batch), one warpgroup.  The raw q
+// tile arrives by TMA and is scaled in place (bf16(q * qscale), the
+// numerics of the mma.sync kernel); (k, v) tiles stream by TMA through a
+// ring of kStages, thread 0 refilling a stage once the block's barrier at
+// the end of its tile shows every warp done with it, so the next tile's
+// copy runs under this tile's work.  A tile is DP columns that hold the
+// head's d (Tile<DP>'s atoms, one TMA box each, rows at or beyond n or
+// n_kv reading as zero): they start at the head's first column rounded
+// down to a multiple of 16, since a TMA row that starts off a 32-byte
+// sector ran much slower on the H100 (untimed), so at d = 8 (mod 16)
+// an odd head's tile starts with the previous head's last 8 columns, and
+// any tile may end in the next head's first columns (or beyond the last
+// head, zero).  Those columns of q are zeroed in the scale pass, so K's
+// add 0 to S as long as they are finite (the route's precondition on k:
+// see attention_fwd_route), and those of O are not stored.  S = Qs K^T by
+// wgmma m64n64k16 from shared memory (both K-major, DP / 16 k-steps across
+// the atoms), the online softmax in registers, O += bf16(P) V by wgmma
+// m64nDPk16 with P from registers and V read MN-major (no transposed
+// copy).  A tile's S, softmax and PV run in turn;
 // the SM's blocks overlap one another's products and softmax (an
 // in-warpgroup pipeline, S of the next tile issued with this tile's PV,
-// measured slower on the H100: PERF.md).  Query rows at or beyond n read as
-// zero and are not stored; the lse (LSE) is stored from the threads.
+// measured slower on the H100 at DP = 64: PERF.md).  Query rows at or
+// beyond n and O's columns outside the head are not stored; the lse (LSE)
+// is stored from the threads.
 // With DROP (kernel C4-fwd, LSE only) a tile's keep bits come from kp: the
 // Philox words drawn while its S product runs, or the mask tile staged with
 // its (k, v) (copy_mask_tile; every thread then arrives on the stage's
 // barrier too) and read under the S product; rescale_and_pack<DROP> applies
 // them.
-template <bool LSE, bool Q8, Drop DROP = Drop::kNone>
-__global__ void __launch_bounds__(kThreads, 4)
+template <int DP, bool LSE, bool Q8, Drop DROP = Drop::kNone>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
     attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           void* __restrict__ o, float* __restrict__ lse,
                           const float* __restrict__ out_amax, int n,
-                          int n_kv, int o_sb, int o_sn, float qscale,
+                          int n_kv, int d, int o_sb, int o_sn, float qscale,
                           Keep kp) {
+  using T = Tile<DP>;
   constexpr bool kMask = DROP == Drop::kMask;
   extern __shared__ unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(hw::align_1024(smem_raw));
-  int8_t* mtile = reinterpret_cast<int8_t*>(&sm) + stt::mask_off<Smem>();
+  Smem<DP>& sm = *reinterpret_cast<Smem<DP>*>(hw::align_1024(smem_raw));
+  int8_t* mtile = reinterpret_cast<int8_t*>(&sm) + stt::mask_off<Smem<DP>>();
   const int8_t* mh = kMask ? stt::mask_head(kp) : nullptr;
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kRows;
-  const int col = blockIdx.y * kD;
+  const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int tiles = (n_kv + kRows - 1) / kRows;
+  // the head dim (64 whenever the tile is: tile_width), and the head's
+  // columns [shift, shift + dh) of the tiles, which start at column col0 of
+  // the operands (a multiple of 16)
+  const int dh = DP == 64 ? 64 : d;
+  const int shift = head * dh % 16;
+  const int col0 = head * dh - shift;
   // stage j % kStages: thread 0's TMA loads of (k, v) tile j and, in the
   // mask form, every thread's share of its mask tile
   auto fill = [&](int j) {
     const int s = j % kStages;
     if (tid == 0) {
-      hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-      hw::tma_load_3d(sm.k[s], &tk, &sm.full[s], col, j * kRows, b);
-      hw::tma_load_3d(sm.v[s], &tv, &sm.full[s], col, j * kRows, b);
+      hw::mbar_expect_tx(&sm.full[s], 2 * T::kBytes);
+#pragma unroll
+      for (int c = 0; c < DP; c += T::kAtom) {
+        hw::tma_load_3d(sm.k[s] + c * kRows, &tk, &sm.full[s], col0 + c,
+                        j * kRows, b);
+        hw::tma_load_3d(sm.v[s] + c * kRows, &tv, &sm.full[s], col0 + c,
+                        j * kRows, b);
+      }
     }
     if constexpr (kMask) {
       stt::copy_mask_tile(mtile + s * stt::kMaskTile, mh, q0, j * kRows, n,
@@ -519,8 +594,11 @@ __global__ void __launch_bounds__(kThreads, 4)
     }
     hw::mbar_init(&sm.qbar, 1);
     hw::mbar_init_fence();
-    hw::mbar_expect_tx(&sm.qbar, kTileBytes);
-    hw::tma_load_3d(sm.q, &tq, &sm.qbar, col, q0, b);
+    hw::mbar_expect_tx(&sm.qbar, T::kBytes);
+#pragma unroll
+    for (int c = 0; c < DP; c += T::kAtom) {
+      hw::tma_load_3d(sm.q + c * kRows, &tq, &sm.qbar, col0 + c, q0, b);
+    }
   }
   __syncthreads();
   for (int j = 0; j < kStages && j < tiles; ++j) fill(j);
@@ -530,19 +608,23 @@ __global__ void __launch_bounds__(kThreads, 4)
     s0 = static_cast<uint32_t>(kp.seed[0]);
     s1 = static_cast<uint32_t>(kp.seed[1]);
   }
-  const int bh = b * gridDim.y + blockIdx.y;
+  const int bh = b * gridDim.y + head;
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const uint64_t desc_q = hw::desc_kmajor(sm.q);
+  const uint64_t desc_q = T::kmajor(sm.q);
   hw::mbar_wait(&sm.qbar, 0);
-  hw::scale_tile(sm.q, sm.q, qscale);
+  if constexpr (DP == 64) {
+    hw::scale_tile(sm.q, sm.q, qscale);  // the whole tile is the head's
+  } else {
+    hw::scale_tile_window<DP, T::kAtom>(sm.q, qscale, shift, shift + dh);
+  }
   __syncthreads();
 
-  float acc[32], sc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float a[2];
+  float acc[DP / 2], sc[32], m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f}, a[2];
   uint32_t pf[4][4];
   hw::zero(acc);
   hw::zero(sc);
@@ -550,12 +632,13 @@ __global__ void __launch_bounds__(kThreads, 4)
     const int s = j % kStages;
     hw::mbar_wait(&sm.full[s], (j / kStages) & 1);
     // S = (q * scale * log2e) K^T: 64 queries x 64 keys, fp32
-    const uint64_t desc_k = hw::desc_kmajor(sm.k[s]);
+    const uint64_t desc_k = T::kmajor(sm.k[s]);
     hw::fence_regs(sc);
     hw::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      hw::wgmma_ss(sc, desc_q + kk * kKStep, desc_k + kk * kKStep, kk);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      hw::wgmma_ss(sc, desc_q + T::kk_offset(kk), desc_k + T::kk_offset(kk),
+                   kk);
     }
     hw::wgmma_commit();
     uint32_t keep = 0;  // this tile's keep bits, drawn under the product
@@ -572,13 +655,13 @@ __global__ void __launch_bounds__(kThreads, 4)
     tile_softmax(sc, j * kRows, n_kv, t4, m, a);
     rescale_and_pack<DROP>(acc, sc, a, l, pf, keep, kp.inv_keep);
 
-    // O += bf16(P) V  (64 queries x 64 dims)
-    const uint64_t desc_v = hw::desc_mnmajor(sm.v[s]);
+    // O += bf16(P) V  (64 queries x DP dims)
+    const uint64_t desc_v = T::mnmajor(sm.v[s]);
     hw::fence_regs(acc);
     hw::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kRows / 16; ++kk) {
-      hw::wgmma_rs_mn(acc, pf[kk], desc_v + kk * kMnStep, 1);
+      hw::wgmma_rs_mn(acc, pf[kk], desc_v + kk * T::kMnStep, 1);
     }
     hw::wgmma_commit();
     hw::wgmma_wait<0>();
@@ -588,7 +671,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     if (j + kStages < tiles) fill(j + kStages);
   }
 
-  // full row denominators, normalise, store
+  // full row denominators, normalise, store the d columns of the head
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
 #pragma unroll
@@ -599,23 +682,25 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int row0 = q0 + warp * 16 + g;
   const int row1 = row0 + 8;
   if (LSE && t4 == 0) {
-    float* lrow = lse + (static_cast<size_t>(b) * gridDim.y + blockIdx.y) *
+    float* lrow = lse + (static_cast<size_t>(b) * gridDim.y + head) *
                             static_cast<size_t>(n);
     if (row0 < n) lrow[row0] = m[0] + log2f(l[0]);
     if (row1 < n) lrow[row1] = m[1] + log2f(l[1]);
   }
-  const size_t ooff = static_cast<size_t>(b) * o_sb + col;
+  const size_t ooff = static_cast<size_t>(b) * o_sb +
+                      static_cast<size_t>(head) * dh;
   if constexpr (Q8) {
     stt::attn_wg::store_rows_q8(static_cast<int8_t*>(o) + ooff, acc, l,
-                                out_amax, row0, n, o_sn, t4);
+                                out_amax, row0, n, o_sn, t4, dh, shift);
   } else {
     bf16* ob = static_cast<bf16*>(o) + ooff;
     const size_t at0 = static_cast<size_t>(row0) * o_sn;
     const size_t at1 = static_cast<size_t>(row1) * o_sn;
 #pragma unroll
-    for (int j8 = 0; j8 < 8; ++j8) {
-      const int c = j8 * 8 + t4 * 2;
+    for (int j8 = 0; j8 < DP / 8; ++j8) {
+      const int c = j8 * 8 + t4 * 2 - shift;
       const int i = j8 * 4;
+      if (c < 0 || c >= dh) continue;
       if (row0 < n) {
         *reinterpret_cast<__nv_bfloat162*>(ob + at0 + c) =
             __floats2bfloat162_rn(acc[i] / l[0], acc[i + 1] / l[0]);
@@ -640,62 +725,71 @@ struct Out {
 };
 
 // Which kernel a call takes (shared with ops/flash_attention.py:
-// attention_fwd_route): fp32 the CUDA-core kernel; bf16 at head dim 64 the
-// wgmma kernel, with or without dropout (C4-fwd in either keep form); bf16
-// at the other head dims (8 to 128) the mma.sync kernel.
+// attention_fwd_route): fp32 the CUDA-core kernel; bf16 at head dims 64 to
+// 128 the wgmma kernel, with or without dropout (C4-fwd in either keep
+// form); bf16 at head dims 8 to 56 the mma.sync kernel.
 enum Route : int { kRouteF32 = 0, kRouteMma = 1, kRouteWgmma = 2 };
 
 constexpr int route(int dtype, int d) {
   return dtype == stt::kFloat32 ? kRouteF32
-         : d == wg::kD          ? kRouteWgmma
+         : d >= wg::kMinD       ? kRouteWgmma
                                 : kRouteMma;
 }
 
-// The wgmma route: three tensor maps (q, k and v by rank-3 tiles at the
-// head's column offset; k and v end at n_kv, q at n), encoded per call,
-// then one launch on the stream.  A map that does not encode fails the
-// call: nothing falls back to the mma.sync kernel.
-template <bool LSE, bool Q8, Drop DROP>
+// The wgmma route at tile width DP: three tensor maps (q, k and v by
+// (batch, row, column) tiles of Tile<DP>'s atom width over the operand's
+// h * d columns; k and v end at n_kv, q at n), encoded per call, then one
+// launch on the stream.  A map that does not encode fails the call:
+// nothing falls back to the mma.sync kernel.
+template <int DP, bool LSE, bool Q8, Drop DROP>
 int launch_wgmma(const void* q, const void* k, const void* v, const Out& out,
-                 int b, int n, int n_kv, int h, const Strides& st,
+                 int b, int n, int n_kv, int h, int d, const Strides& st,
                  float qscale, cudaStream_t stream) {
   namespace hw = stt::hopper;
-  const int cols = h * wg::kD;
+  constexpr int box = wg::Tile<DP>::kAtom;
+  const int cols = h * d;
   CUtensorMap tq, tk, tv;
-  if (!hw::tile_map_bf16(&tq, q, cols, n, b, st.q_sn, st.q_sb) ||
-      !hw::tile_map_bf16(&tk, k, cols, n_kv, b, st.k_sn, st.k_sb) ||
-      !hw::tile_map_bf16(&tv, v, cols, n_kv, b, st.v_sn, st.v_sb)) {
+  if (!hw::tile_map_bf16(&tq, q, cols, n, b, st.q_sn, st.q_sb, box) ||
+      !hw::tile_map_bf16(&tk, k, cols, n_kv, b, st.k_sn, st.k_sb, box) ||
+      !hw::tile_map_bf16(&tv, v, cols, n_kv, b, st.v_sn, st.v_sb, box)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int smem = stt::smem_bytes<wg::Smem, wg::kStages>(DROP);
+  constexpr int smem = stt::smem_bytes<wg::Smem<DP>, wg::kStages>(DROP);
   const cudaError_t err = cudaFuncSetAttribute(
-      wg::attn_fwd_wgmma_kernel<LSE, Q8, DROP>,
+      wg::attn_fwd_wgmma_kernel<DP, LSE, Q8, DROP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + wg::kRows - 1) / wg::kRows, h, b);
-  wg::attn_fwd_wgmma_kernel<LSE, Q8, DROP><<<grid, wg::kThreads, smem,
-                                             stream>>>(
-      tq, tk, tv, out.o, out.lse, out.out_amax, n, n_kv, st.o_sb, st.o_sn,
-      qscale, out.keep);
+  wg::attn_fwd_wgmma_kernel<DP, LSE, Q8, DROP><<<grid, wg::kThreads, smem,
+                                                 stream>>>(
+      tq, tk, tv, out.o, out.lse, out.out_amax, n, n_kv, d, st.o_sb,
+      st.o_sn, qscale, out.keep);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The mma.sync (bf16, DP <= 64: head dims 8 to 56) and CUDA-core (fp32)
+// kernels
 template <int DP, bool LSE, bool Q8, Drop DROP>
-void launch(const void* q, const void* k, const void* v, const Out& out,
-            int b, int n, int n_kv, int h, int d, const Strides& st,
-            float qscale, int dtype, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const Out& out,
+           int b, int n, int n_kv, int h, int d, const Strides& st,
+           float qscale, int dtype, cudaStream_t stream) {
   const dim3 grid((n + kBlockM - 1) / kBlockM, h, b);
   if (dtype == stt::kBFloat16) {
-    attn_fwd_bf16_kernel<DP, LSE, Q8, DROP><<<grid, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), out.o, out.lse, out.out_amax, n, n_kv,
-        d, st, qscale, out.keep);
+    if constexpr (DP <= wg::kMinD) {
+      attn_fwd_bf16_kernel<DP, LSE, Q8, DROP><<<grid, kThreads, 0, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), out.o, out.lse, out.out_amax, n, n_kv,
+          d, st, qscale, out.keep);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);  // the wgmma route's
+    }
   } else {
     attn_fwd_f32_kernel<DP, LSE, Q8, DROP><<<grid, kBlockM, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), out.o, out.lse, out.out_amax, n, n_kv,
         d, st, qscale, out.keep);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool LSE, bool Q8 = false, Drop DROP = Drop::kNone>
@@ -710,23 +804,29 @@ int dispatch(const void* q, const void* k, const void* v, const Out& out,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route(dtype, d) == kRouteWgmma) {
-    return launch_wgmma<LSE, Q8, DROP>(q, k, v, out, b, n, n_kv, h, st,
-                                       qscale, s);
+#define STT_WG(DP)                                                      \
+  launch_wgmma<DP, LSE, Q8, DROP>(q, k, v, out, b, n, n_kv, h, d, st, \
+                                  qscale, s)
+    switch (wg::tile_width(d)) {
+      case 64: return STT_WG(64);
+      case 96: return STT_WG(96);
+      default: return STT_WG(128);
+    }
+#undef STT_WG
   }
 #define STT_FWD(DP) \
   launch<DP, LSE, Q8, DROP>(q, k, v, out, b, n, n_kv, h, d, st, qscale, dtype, s)
   switch ((d + 15) / 16 * 16) {
-    case 16: STT_FWD(16); break;
-    case 32: STT_FWD(32); break;
-    case 48: STT_FWD(48); break;
-    case 64: STT_FWD(64); break;
-    case 80: STT_FWD(80); break;
-    case 96: STT_FWD(96); break;
-    case 112: STT_FWD(112); break;
-    default: STT_FWD(128); break;
+    case 16: return STT_FWD(16);
+    case 32: return STT_FWD(32);
+    case 48: return STT_FWD(48);
+    case 64: return STT_FWD(64);
+    case 80: return STT_FWD(80);
+    case 96: return STT_FWD(96);
+    case 112: return STT_FWD(112);
+    default: return STT_FWD(128);
   }
 #undef STT_FWD
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -804,7 +904,7 @@ extern "C" int stt_attention_fwd_lse_sep(const void* q, const void* k,
 // Philox bits kept where they are at least thresh.  Bounded like C1 (the
 // two tensor-core products); the mask form adds N^2 bytes per (batch,
 // head) read, the Philox form ~20 integer operations per score element.
-// At head dim 64 in bf16 it is the wgmma kernel (route()).
+// At head dims 64 to 128 in bf16 it is the wgmma kernel (route()).
 extern "C" int stt_attention_fwd_lse_drop(
     const void* q, const void* k, const void* v, void* o, float* lse, int b,
     int n, int h, int d, int q_sb, int q_sn, int k_sb, int k_sn, int v_sb,

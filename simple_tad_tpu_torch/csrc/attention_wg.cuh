@@ -5,11 +5,11 @@
 // with p packed into the bf16 A fragments of PV, and the int8 store of the
 // normalised rows.
 //
-// A thread of the warpgroup holds, of an m64n64 accumulator (fp32 or
-// s32), rows g and g + 8 of its warp's 16 (g = lane / 4) and columns
-// j8 * 8 + 2 t4 + {0, 1} (t4 = lane % 4) of each 8-column group j8: the
-// m16n8 fragment repeated, element j8 * 4 + {0, 1} on row g, + {2, 3} on
-// row g + 8.
+// A thread of the warpgroup holds, of an m64nN accumulator (fp32 or s32;
+// S is n64, O n64 to n128 in the bf16 kernel), rows g and g + 8 of its
+// warp's 16 (g = lane / 4) and columns j8 * 8 + 2 t4 + {0, 1} (t4 =
+// lane % 4) of each 8-column group j8: the m16n8 fragment repeated,
+// element j8 * 4 + {0, 1} on row g, + {2, 3} on row g + 8; N / 2 values.
 #pragma once
 
 #include <math.h>
@@ -68,13 +68,14 @@ __device__ __forceinline__ void tile_softmax(float (&s)[32], int k0, int n_kv,
   }
 }
 
-// O and l rescaled by a, then p rounded to bf16 into the A fragments of PV
-// (accumulator key columns 16 kk to 16 kk + 15 are k-step kk, as for the
-// mma.sync kernel's pf) and the rounded values added to l.  With dropout
-// (DROP) l sums the unrounded p before dropout and the A fragments are
-// bf16(p * keep / keep_prob), as attn_fwd_bf16_kernel's DROP branch.
-template <Drop DROP = Drop::kNone>
-__device__ __forceinline__ void rescale_and_pack(float (&o)[32],
+// O (NO accumulators a thread: 32 to 64) and l rescaled by a, then p
+// rounded to bf16 into the A fragments of PV (accumulator key columns
+// 16 kk to 16 kk + 15 are k-step kk, as for the mma.sync kernel's pf) and
+// the rounded values added to l.  With dropout (DROP) l sums the unrounded p
+// before dropout and the A fragments are bf16(p * keep / keep_prob), as
+// attn_fwd_bf16_kernel's DROP branch.
+template <Drop DROP = Drop::kNone, int NO>
+__device__ __forceinline__ void rescale_and_pack(float (&o)[NO],
                                                  const float (&p)[32],
                                                  const float (&a)[2],
                                                  float (&l)[2],
@@ -84,12 +85,15 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[32],
   l[0] *= a[0];
   l[1] *= a[1];
 #pragma unroll
-  for (int j8 = 0; j8 < 8; ++j8) {
-    const int i = j8 * 4;
+  for (int i = 0; i < NO; i += 4) {
     o[i] *= a[0];
     o[i + 1] *= a[0];
     o[i + 2] *= a[1];
     o[i + 3] *= a[1];
+  }
+#pragma unroll
+  for (int j8 = 0; j8 < 8; ++j8) {
+    const int i = j8 * 4;
     if constexpr (DROP == Drop::kNone) {
       const __nv_bfloat162 p0 = __floats2bfloat162_rn(p[i], p[i + 1]);
       const __nv_bfloat162 p1 = __floats2bfloat162_rn(p[i + 2], p[i + 3]);
@@ -110,22 +114,27 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[32],
   }
 }
 
-// The normalised rows row0 and row1 (= row0 + 8) of O as int8 codes against
-// out_amax (quant_i8: round half to even, clipped to +-127), two codes a
-// store, at ob + row * o_sn; rows at or beyond n are not stored.
+// The normalised rows row0 and row1 (= row0 + 8) of O (2 NO columns) as
+// int8 codes against out_amax (quant_i8: round half to even, clipped to
+// +-127), two codes a store, at ob + row * o_sn; rows at or beyond n are
+// not stored, and of the columns only [shift, shift + d) (the head's, in
+// a tile that is wider than the head), as columns 0 to d - 1.
+template <int NO>
 __device__ __forceinline__ void store_rows_q8(int8_t* ob,
-                                              const float (&acc)[32],
+                                              const float (&acc)[NO],
                                               const float (&l)[2],
                                               const float* out_amax, int row0,
-                                              int n, int o_sn, int t4) {
+                                              int n, int o_sn, int t4,
+                                              int d = 2 * NO, int shift = 0) {
   const float oinv = quant_inv(out_amax);
   const int row1 = row0 + 8;
   const size_t at0 = static_cast<size_t>(row0) * o_sn;
   const size_t at1 = static_cast<size_t>(row1) * o_sn;
 #pragma unroll
-  for (int j8 = 0; j8 < 8; ++j8) {
-    const int c = j8 * 8 + t4 * 2;
+  for (int j8 = 0; j8 < NO / 4; ++j8) {
+    const int c = j8 * 8 + t4 * 2 - shift;
     const int i = j8 * 4;
+    if (c < 0 || c >= d) continue;
     if (row0 < n) {
       *reinterpret_cast<char2*>(ob + at0 + c) =
           make_char2(quant_i8(__fdiv_rn(acc[i], l[0]), oinv),

@@ -1,13 +1,16 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: mbarriers,
 // TMA tile loads, wgmma products and their shared-memory descriptors, and
 // the host-side encoding of TMA tensor maps.  The bf16 attention forward
-// (attention.cu) and the training-attention backward (attention_train.cu)
-// take the m64n64k16 bf16 products on 128-byte-swizzled tiles, and share
-// scale_tile; the static int8 GEMMs (int8_gemm.cu) the m64n128k32 s8
-// products on 128- or 64-byte-swizzled tiles; the int8 attentions
-// (attention_i8.cu, attention_int8.cu) the m64n64k32 s8 products on
-// 64-byte-swizzled tiles, E2's PV with its codes in registers, and B2's PV
-// the bf16 one.  The other kernels keep common.cuh's mma.sync helpers.
+// (attention.cu) takes the m64n64k16 bf16 product of S and the m64nDPk16
+// one of PV (DP = 64, 96 or 128) on tiles of 128- or 64-byte-swizzled
+// column atoms (desc_sw, tile_map_bf16's box widths, scale_tile_window,
+// scale_tile at 64); the training-attention backward (attention_train.cu)
+// the m64n64k16 bf16 products on 128-byte-swizzled tiles and scale_tile;
+// the static int8 GEMMs (int8_gemm.cu) the m64n128k32 s8 products on 128-
+// or 64-byte-swizzled tiles; the int8 attentions (attention_i8.cu,
+// attention_int8.cu) the m64n64k32 s8 products on 64-byte-swizzled tiles,
+// E2's PV with its codes in registers, and B2's PV the bf16 one.  The
+// other kernels keep common.cuh's mma.sync helpers.
 //
 // The tensor-map encoder is the driver's cuTensorMapEncodeTiled, reached
 // through the runtime's driver entry point, so the library links no -lcuda
@@ -135,9 +138,10 @@ __device__ __forceinline__ void wgmma_wait() {
                : "memory");
 }
 
-__device__ __forceinline__ void zero(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
 // bf16(x * qscale) of a 64 x 64 bf16 tile written by a 128-byte-swizzle TMA
@@ -163,11 +167,49 @@ __device__ __forceinline__ void scale_tile(__nv_bfloat16* dst,
   fence_proxy_async();
 }
 
+// scale_tile in place over a (64-row, COLS) tile of COLS / ATOM column
+// atoms (ATOM = 64 or 32 values: 128- or 64-byte swizzle, each atom 64
+// rows, back to back), keeping the columns [lo, hi) and writing zero to
+// the others; lo and hi are multiples of 8, so a 16-byte chunk is kept or
+// zeroed whole.  A chunk's column is its position in the row with the
+// swizzle undone: the 16-byte chunk index XOR the byte offset's bits 7 and
+// up, i.e. row % 8 or (row / 2) % 4.
+template <int COLS, int ATOM>
+__device__ __forceinline__ void scale_tile_window(__nv_bfloat16* tile,
+                                                  float qscale, int lo,
+                                                  int hi) {
+  static_assert(ATOM == 64 || ATOM == 32, "a 128- or 64-byte swizzle");
+  constexpr int kChunksRow = ATOM / 8;
+  constexpr int kRowShift = ATOM == 64 ? 0 : 1;
+  uint4* d = reinterpret_cast<uint4*>(tile);
+#pragma unroll
+  for (int i = 0; i < 64 * COLS / 8 / 128; ++i) {
+    const int c = i * 128 + threadIdx.x;
+    const int atom = c / (64 * kChunksRow);
+    const int row = c / kChunksRow % 64;
+    const int chunk = (c % kChunksRow) ^ ((row >> kRowShift) % kChunksRow);
+    const int col = atom * ATOM + chunk * 8;
+    uint4 val = d[c];
+    if (col < lo || col >= hi) {
+      val = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        e[t] = __float2bfloat16_rn(__bfloat162float(e[t]) * qscale);
+      }
+    }
+    d[c] = val;
+  }
+  fence_proxy_async();
+}
+
 // pin accumulator registers in place around asynchronous products, so the
 // compiler neither reads nor moves them while a wgmma may write them
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // ... and an A operand's bf16 fragments in registers, which an in-flight
@@ -188,11 +230,23 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
 // the contraction) a k16 step is +2048 bytes, the two 8-row groups of the
 // step again 1024 bytes apart, and the 64-value row is the one MN atom
 // (LBO would step to the next; set to the same 1024 bytes, unused at 64).
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
+// The descriptor of any such operand: start address, LBO and SBO (bytes),
+// and the layout type (1 128-byte swizzle, 2 64-byte).  A 64-byte-swizzled
+// tile has rows of 64 bytes and 8-row atoms of 512 bytes; as a K-major
+// operand its SBO is that atom, as an MN-major one (its rows along the
+// contraction) SBO is the atom too and LBO the distance from one column
+// atom (32 values along MN) to the next; at either swizzle.
+__device__ __forceinline__ uint64_t desc_sw(const void* p, uint32_t lbo,
+                                            uint32_t sbo, uint32_t layout) {
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFFull) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return desc_sw(p, lbo, sbo, 1);
 }
 
 // (a K-major tile of int8 codes, 128 a row, has the same layout; its k32
@@ -269,6 +323,73 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
 
 #undef STT_D32
 #undef STT_D32_OPS
+
+// The same at n = 96 and 128 (the wgmma attention forward's PV at tile
+// width DP: DP / 2 accumulators a thread, element j8 * 4 +
+// {0, 1, 2, 3} of 8-column group j8 as at n = 64); B spans DP / A column
+// atoms of A values, LBO apart
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[48],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
 
 #define STT_R64 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
@@ -413,14 +534,15 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// 64 x 64 tiles, 128-byte swizzle, of a bf16 operand addressed as
-// (batch, row, column): `cols` contiguous columns (a head's 64 are chosen
-// by the column coordinate), `rows` rows `row_stride` apart and `batches`
-// batches `batch_stride` apart (elements).  Rows and batches beyond the
-// extents read as zero.
+// 64-row tiles of `box_cols` columns (64 by default, or 32: 128- or
+// 64-byte rows, swizzled by the same span) of a bf16 operand addressed as
+// (batch, row, column): `cols` contiguous columns (a head's are chosen by
+// the column coordinate), `rows` rows `row_stride` apart and `batches`
+// batches `batch_stride` apart (elements).  Columns, rows and batches
+// beyond the extents read as zero.
 inline bool tile_map_bf16(CUtensorMap* map, const void* base, int cols,
                           int rows, int batches, long long row_stride,
-                          long long batch_stride) {
+                          long long batch_stride, int box_cols = 64) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
@@ -428,11 +550,13 @@ inline bool tile_map_bf16(CUtensorMap* map, const void* base, int cols,
                               static_cast<cuuint64_t>(batches)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_stride) * 2,
                                  static_cast<cuuint64_t>(batch_stride) * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
              const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -9,7 +9,11 @@ masked at n_kv < N (``N_KV``), the dropout attention C4 (forward and
 backward, mask and Philox forms, rate 0.1, on the packed qkv's views at
 ViT-B's job batch), the int8-storage
 attention packed (B2) and on separate operands (D2, IV2-S, v strided), the
-int8-compute attention (E2, ViT-B batch 32), and
+int8-compute attention (E2, ViT-B batch 32), the bf16
+forward at the head dims beyond 64 (``WIDE``: A1 on separate operands at
+IV2-1B's probe (4, 4097) H=16, head dim 88, and IV2-6B's (2, 4097) H=25,
+head dim 128, v strided; A1 packed at ViT-H's (2, 1568) H=16, head dim
+80), and
 the row norms of csrc/layernorm.cu (A2 LayerNorm, B1 LayerNorm->int8 and
 E1 add + LayerNorm->int8 on ViT-B's (32 * 1568, 768) bf16, D3
 RMSNorm->int8 on IV2-S's (32 * 2049, 384); 20 queued calls to an event
@@ -40,6 +44,9 @@ on E2), windows/s as the median of its evaluate runs, the same way.
     git archive <commit> | tar -x -C build/parent
     python -m simple_tad_tpu_torch.kernels.ab_checkouts --other build/parent \
         [--changed attention,attention_sep] [--steps] [--evals]
+
+A change of the bf16 forward's route at the wide head dims names those
+kernels: ``--changed attention_sep_dh88,attention_sep_dh128,attention_dh80``.
 """
 
 from __future__ import annotations
@@ -72,7 +79,15 @@ SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
           "attention_int8": (32, 1568, 12), "layernorm": (32, 1568, 12),
           "layernorm_quant": (32, 1568, 12),
           "add_layernorm_quant": (32, 1568, 12),
-          "rmsnorm_quant": (32, 2049, 6)}
+          "rmsnorm_quant": (32, 2049, 6),
+          "attention_sep_dh88": (4, 4097, 16),
+          "attention_sep_dh128": (2, 4097, 25),
+          "attention_dh80": (2, 1568, 16)}
+# the bf16 forward beyond head dim 64: kernel -> (head dim, the entry it
+# calls); every other kernel runs at head dim 64
+WIDE = {"attention_sep_dh88": (88, "attention_sep"),
+        "attention_sep_dh128": (128, "attention_sep"),
+        "attention_dh80": (80, "attention")}
 NORMS = ("layernorm", "layernorm_quant", "add_layernorm_quant",
          "rmsnorm_quant")
 # C4's rate (chip_smoke.py's ATTN_DROP) and its Philox seed words
@@ -172,8 +187,9 @@ def _worker(root: str) -> dict:
             _time(name, _b4_fn(name, dev, g), out)
             continue
         B, N, heads = SHAPES[name]
-        C = 64 * heads
-        scale = 64 ** -0.5
+        D, entry = WIDE.get(name, (64, name))
+        C = D * heads
+        scale = D ** -0.5
         qkv = torch.randn((B, N, 3 * C), generator=g,
                           device=dev).to(torch.bfloat16)
         if name in NORMS:
@@ -215,13 +231,13 @@ def _worker(root: str) -> dict:
                 def fn():
                     return (fa.flash_attention_i8d(*ops, amax, heads, scale,
                                                    out_amax),)
-        elif name == "attention":
+        elif entry == "attention":
             def fn():
                 return (fa.flash_attention_qkv(qkv, heads, scale),)
-        elif name in ("attention_sep", "attention_q8_sep"):
+        elif entry in ("attention_sep", "attention_q8_sep"):
             ops = (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
                    qkv[..., 2 * C:], heads, scale)
-            if name == "attention_sep":
+            if entry == "attention_sep":
                 def fn():
                     return (fa.flash_attention(*ops),)
             else:

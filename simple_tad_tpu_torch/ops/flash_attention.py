@@ -6,10 +6,11 @@ csrc/attention.cu: it reads q, k and v in place from the (B, N, 3C) qkv
 projection output (no slice copies, no head relayout) and runs both
 products on the tensor cores (attention at N=1568, Dh=64 is compute-bound
 once tiled; see the note at the top of the source).  ``attention_fwd_route``
-names the kernel a forward call takes: bf16 at head dim 64 (every trunk the
-jobs run), with or without dropout, the wgmma kernel (TMA ring, wgmma
-products), bf16 at the other head dims the mma.sync kernel, fp32 the
-CUDA-core kernel.
+names the kernel a forward call takes: bf16 at head dims 64 to 128 (every
+trunk the jobs run: 64, IV2-1B's 88, IV2-6B's 128; ViT-H's 80), with or
+without dropout, the wgmma kernel (TMA ring, wgmma products, tiles 64, 96
+or 128 columns wide), bf16 at head dims 8 to 56 the mma.sync kernel, fp32
+the CUDA-core kernel.
 
 Numerics (both versions): q is pre-scaled by scale*log2(e) and rounded to
 the input dtype; QK accumulates in fp32; probabilities are exp2(s - m)
@@ -192,8 +193,10 @@ INT8_WGMMA_LAUNCHES = 0
 INT8_MMA_LAUNCHES = 0
 INT8_MAX_HEAD_DIM = 64
 # the training backward's routes, by the code csrc/attention_train.cu's
-# stt_attention_bwd_route returns, and the head dim of the wgmma kernels;
+# stt_attention_bwd_route returns, and the head dim of its wgmma kernels;
 # the forward's (csrc/attention.cu's stt_attention_fwd_route) are the same
+# codes, its wgmma kernel taking bf16 at head dims WGMMA_HEAD_DIM to
+# MAX_HEAD_DIM
 BWD_ROUTES = ("fp32", "mma_sync", "wgmma")
 FWD_ROUTES = BWD_ROUTES
 WGMMA_HEAD_DIM = 64
@@ -606,8 +609,9 @@ def flash_attention_qkv_fwd_lse(qkv, num_heads: int, scale: float):
     return out, lse
 
 
-def _route(name: str, dtype, head_dim: int) -> str:
-    """route() of csrc/attention.cu and csrc/attention_train.cu."""
+def _route(name: str, dtype, head_dim: int, wgmma_dims) -> str:
+    """route() of csrc/attention.cu and csrc/attention_train.cu: bf16 at
+    the head dims ``wgmma_dims`` takes the wgmma kernels."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: dtype {dtype} is not bfloat16 or float32")
     if head_dim <= 0 or head_dim % 8 or head_dim > MAX_HEAD_DIM:
@@ -615,7 +619,7 @@ def _route(name: str, dtype, head_dim: int) -> str:
                          f"multiple of 8, at most {MAX_HEAD_DIM}")
     if dtype == torch.float32:
         return "fp32"
-    return "wgmma" if head_dim == WGMMA_HEAD_DIM else "mma_sync"
+    return "wgmma" if head_dim in wgmma_dims else "mma_sync"
 
 
 def attention_bwd_route(dtype, head_dim: int) -> str:
@@ -625,17 +629,26 @@ def attention_bwd_route(dtype, head_dim: int) -> str:
     dim 64, every trunk the fine-tuning jobs run), 'mma_sync' (bf16 at the
     other head dims) or 'fp32' (the CUDA-core kernels).  Dropout does not
     change the route."""
-    return _route("attention_bwd_route", dtype, head_dim)
+    return _route("attention_bwd_route", dtype, head_dim, (WGMMA_HEAD_DIM,))
 
 
 def attention_fwd_route(dtype, head_dim: int) -> str:
     """The kernel a CUDA call of the bf16/fp32 attention forward (A1 packed
     or on separate operands, C1, C3-fwd, B3, and C4-fwd in either keep
     form) of ``dtype`` at ``head_dim`` launches, as csrc/attention.cu's
-    dispatch picks it: 'wgmma' (bf16 at head dim 64, every trunk the jobs
-    run), 'mma_sync' (bf16 at the other head dims) or 'fp32' (the
-    CUDA-core kernel).  Dropout does not change the route."""
-    return _route("attention_fwd_route", dtype, head_dim)
+    dispatch picks it: 'wgmma' (bf16 at head dims 64 to 128: every trunk
+    the jobs run, 64 and IV2-1B's 88 and IV2-6B's 128, and ViT-H's 80; its
+    tiles are 64, 96 or 128 columns wide), 'mma_sync' (bf16 at head dims 8
+    to 56) or 'fp32' (the CUDA-core kernel).  Dropout does not
+    change the route.
+
+    Precondition of the wgmma route at head dims other than 64: k is
+    finite.  A tile there also reads columns of the neighbouring heads,
+    which meet q's zeroed columns in S, so a non-finite k in one head
+    makes its neighbours' rows NaN, where the plain version keeps them
+    finite (the head's own rows are NaN in both)."""
+    return _route("attention_fwd_route", dtype, head_dim,
+                  range(WGMMA_HEAD_DIM, MAX_HEAD_DIM + 1))
 
 
 def _int8_route(name: str, head_dim: int, max_dim: int) -> str:

@@ -2,9 +2,10 @@
 (kernels A1 packed and on separate operands, C1, C3-fwd, B3 and C4-fwd;
 simple_tad_tpu_torch.ops.flash_attention.attention_fwd_route), on the CPU.
 
-bf16 at head dim 64 takes the wgmma kernel of csrc/attention.cu, with or
-without dropout (C4-fwd in either keep form), bf16 at the other head dims
-the mma.sync kernel, fp32 the CUDA-core kernel; the function mirrors the
+bf16 at head dims 64 to 128 takes the wgmma kernel of csrc/attention.cu
+(a template on its tile width, 64, 96 or 128 columns), with or without
+dropout (C4-fwd in either keep form), bf16 at head dims 8 to 56 the
+mma.sync kernel, fp32 the CUDA-core kernel; the function mirrors the
 source's route() (stt_attention_fwd_route on the card,
 tests/test_torch_cuda.py).  A CPU tensor takes the plain version and counts
 no launch on any route.  The dropout forward counts its call on the route
@@ -28,28 +29,34 @@ ROUTE_COUNTERS = ("FWD_WGMMA_LAUNCHES", "FWD_MMA_LAUNCHES",
 # dropout input
 ROUTE_EXPR = (r"constexpr int route\(int dtype, int d\) \{\s*"
               r"return dtype == stt::kFloat32 \? kRouteF32\s*"
-              r": d == wg::kD\s*\? kRouteWgmma\s*"
+              r": d >= wg::kMinD\s*\? kRouteWgmma\s*"
               r": kRouteMma;\s*\}")
 # every dispatch of a C4 entry point (stt_attention_fwd_lse_drop,
 # stt_attention_bwd_drop) goes through that route()
 DISPATCH_EXPR = r"if \(route\(dtype, d\) == kRouteWgmma\)"
 
 
+def _wgmma_min_head_dim(src: str) -> int:
+    """The least head dim of the forward's wgmma route, as the source's
+    namespace wg declares it."""
+    wg = src[src.index("namespace wg {"):]
+    return int(re.search(r"constexpr int kMinD = (\d+);", wg).group(1))
+
+
 def _source_route():
     """-> route(dtype, d) of csrc/attention.cu as a Python function
-    returning the route's name, from the source's codes and wgmma head
-    dim."""
+    returning the route's name, from the source's codes and the wgmma
+    route's least head dim (the entry points take head dims up to 128)."""
     src = SOURCE.read_text()
     assert re.search(ROUTE_EXPR, src), "route() no longer reads as expected"
     assert len(re.findall(DISPATCH_EXPR, src)) == 1, \
         "dispatch no longer takes route() for every keep form"
     codes = {k: int(v) for k, v in re.findall(r"kRoute(\w+) = (\d)", src)}
-    wg = src[src.index("namespace wg {"):]
-    kd = int(re.search(r"constexpr int kD = (\d+);", wg).group(1))
+    min_d = _wgmma_min_head_dim(src)
 
     def route(dtype, d):
         code = (codes["F32"] if dtype == torch.float32
-                else codes["Wgmma"] if d == kd
+                else codes["Wgmma"] if d >= min_d
                 else codes["Mma"])
         return fa.FWD_ROUTES[code]
     return route
@@ -59,7 +66,7 @@ def _source_route():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 def test_route_matches_the_kernel_source(dtype, head_dim):
     want = ("fp32" if dtype == torch.float32
-            else "wgmma" if head_dim == 64 else "mma_sync")
+            else "wgmma" if head_dim >= 64 else "mma_sync")
     got = fa.attention_fwd_route(dtype, head_dim)
     assert got == want == _source_route()(dtype, head_dim)
     assert got in fa.FWD_ROUTES
@@ -82,17 +89,18 @@ def test_dropout_forward_counts_its_route(dtype, head_dim, monkeypatch):
 
 
 def test_route_codes_are_the_backward_ones():
-    """attention.cu and attention_train.cu number the three routes alike,
-    and both wgmma routes take head dim 64."""
+    """attention.cu and attention_train.cu number the three routes alike;
+    the backward's wgmma route takes head dim 64 and the forward's starts
+    there."""
     fwd = SOURCE.read_text()
     bwd = SOURCE.with_name("attention_train.cu").read_text()
     assert re.findall(r"kRoute(\w+) = (\d)", fwd) == \
         re.findall(r"kRoute(\w+) = (\d)", bwd)
     assert fa.FWD_ROUTES == fa.BWD_ROUTES
-    for src in (fwd, bwd):
-        wg = src[src.index("namespace wg {"):]
-        assert int(re.search(r"constexpr int kD = (\d+);", wg).group(1)) == \
-            fa.WGMMA_HEAD_DIM
+    wg = bwd[bwd.index("namespace wg {"):]
+    assert int(re.search(r"constexpr int kD = (\d+);", wg).group(1)) == \
+        fa.WGMMA_HEAD_DIM
+    assert _wgmma_min_head_dim(fwd) == fa.WGMMA_HEAD_DIM
 
 
 @pytest.mark.parametrize("head_dim", [0, -8, 12, 60, 136, 256])

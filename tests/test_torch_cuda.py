@@ -651,9 +651,9 @@ def test_attention_bwd_route_is_the_kernel_dispatch(cuda):
 
 # The bf16 attention forward's routes (A1 packed and separate, C1, C3-fwd,
 # B3 packed and separate, C4-fwd; csrc/attention.cu): the wgmma kernel at
-# head dim 64, the mma.sync kernel at the others, counted per route over
-# every entry point.  Two launches of one call agree bit for bit (no
-# atomics, one summation order).
+# head dims 64 to 128 (tiles 64, 96 or 128 wide), the mma.sync kernel at
+# 8 to 56, counted per route over every entry point.  Two launches of one
+# call agree bit for bit (no atomics, one summation order).
 FWD_ROUTE_COUNTERS = {"wgmma": "FWD_WGMMA_LAUNCHES",
                       "mma_sync": "FWD_MMA_LAUNCHES",
                       "fp32": "FWD_F32_LAUNCHES"}
@@ -709,8 +709,14 @@ def _check_fwd(entry, got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", FWD_ENTRIES)
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 1568, 2049])
-def test_attention_fwd_wgmma_kernel_matches_plain(n, entry, cuda):
-    kernel, plain = _fwd_entry(entry, 2, n, 3, 64, 42, cuda, torch.bfloat16)
+@pytest.mark.parametrize("d", [64, 80, 88, 128])
+def test_attention_fwd_wgmma_kernel_matches_plain(d, n, entry, cuda):
+    """Every forward entry on the wgmma kernel at head dim 64 and at
+    ViT-H's 80, IV2-1B's 88 (in 96-column tiles that start 8 columns
+    early on odd heads) and IV2-6B's 128, at ragged N (one valid query row
+    or key in the last tile), B3-sep with keys masked: two launches
+    bit-equal, on the plain version."""
+    kernel, plain = _fwd_entry(entry, 2, n, 3, d, 42, cuda, torch.bfloat16)
     before = _fwd_route_counts()
     got, again = kernel(), kernel()
     torch.cuda.synchronize()
@@ -725,7 +731,8 @@ def test_attention_fwd_wgmma_kernel_matches_plain(n, entry, cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 88, 96, 112, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 56, 64, 72, 80, 88, 96, 104, 112,
+                               120, 128])
 def test_attention_fwd_routes_by_head_dim(d, dtype, cuda):
     """Each head dim takes the route attention_fwd_route names, counted on
     that route only, and matches the plain version there."""
@@ -1047,8 +1054,9 @@ def test_tiny_int8_iv2_fused_forward_goes_through_kernels(qkv_i8, fused_rmsq,
 # bits drawn in the kernel from a seed; v the strided column block of a
 # (B, N, 3C) tensor; C1's and C2's bounds.  Both forms compute the same
 # function of the same keep bits, so the seed form equals the mask form fed
-# dropout_keep_plain's mask bit for bit.  In bf16 head dim 64 takes the
-# wgmma kernels, the others the mma.sync ones: the wgmma mask form copies
+# dropout_keep_plain's mask bit for bit.  In bf16 the forward takes its
+# wgmma kernel at head dims 64 to 128 and the backward its wgmma kernels at
+# 64, the others the mma.sync ones: the wgmma mask form copies
 # its tiles by 16 bytes at N = 1568 (ViT-B's length, N % 16 == 0), by 8 at
 # 392 and 200, by 4 at 132 and by single bytes at IV2's 2049 (rows off 4
 # bytes).
@@ -1092,7 +1100,7 @@ def test_attention_drop_fwd_kernel_matches_plain(b, n, heads, d, dtype, form,
     assert moved == ((1, 0, 0, 0) if form == "mask" else (0, 0, 1, 0))
     route = fa.attention_fwd_route(dtype, d)
     assert route == ("fp32" if dtype == torch.float32
-                     else "wgmma" if d == 64 else "mma_sync")
+                     else "wgmma" if d >= 64 else "mma_sync")
     assert _moved(routes, _fwd_route_counts()) == {
         r: int(r == route) for r in routes}
     assert out.dtype == dtype and lse.shape == (b, heads, n)
@@ -1150,8 +1158,8 @@ def test_attention_drop_seed_form_is_the_mask_form_of_its_bits(b, n, heads,
                                                                cuda):
     """The Philox kernels draw exactly dropout_keep_plain's bits: fed that
     mask, the mask kernels give the same out, lse and gradients, bit for
-    bit (on the wgmma route at head dim 64 in bf16, the mma.sync one at
-    80)."""
+    bit (the forward on its wgmma route at head dims 64 to 128 in bf16;
+    the backward on its wgmma route at 64, the mma.sync one at 80)."""
     scale = d ** -0.5
     q, k, v, _ = _sep_operands(b, n, heads, d, 45, cuda, dtype)
     dout = _randn((b, n, heads * d), 46, cuda).to(dtype)
@@ -1191,13 +1199,14 @@ def _probe_keep_mask(b, heads, n, d, rate, seed, dtype, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("d", [32, 64, 80])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_attention_drop_rng_kernel_bits_equal_plain(rate, dtype, d, cuda):
     """The keep bits the Philox forward draws (q-tiles and key tiles past
     the first, a ragged tail) equal dropout_keep_plain's, bit for bit: in
-    bf16 the wgmma kernel's at head dim 64, the mma.sync kernel's at 80."""
+    bf16 the wgmma kernel's at head dims 64 and 80, the mma.sync kernel's
+    at 32."""
     b, heads, n = 2, 3, 200
     seed = torch.tensor([12345, -678], dtype=torch.int32, device=cuda)
     got = _probe_keep_mask(b, heads, n, d, rate, seed, dtype, cuda)
@@ -1697,8 +1706,8 @@ def test_attention_sep_at_distillation_shapes(b, n, c, heads, cuda):
     """The distillation job's shapes, bf16, v strided: the IV2-S student's
     training attention (C3-fwd, C3-bwd) at N = 411, a 27-row tail tile, on
     the wgmma routes; the IV2-1B teacher's A1 on separate operands at head
-    dim 88, on the mma.sync route.  Each against its plain version; C3's
-    forward output is A1's bit for bit."""
+    dim 88, on the wgmma route too (96-column tiles).  Each against its
+    plain version; C3's forward output is A1's bit for bit."""
     dtype, d = torch.bfloat16, c // heads
     scale = d ** -0.5
     qkv = _randn((b, n, 3 * c), 51, cuda).to(dtype)
@@ -1710,8 +1719,8 @@ def test_attention_sep_at_distillation_shapes(b, n, c, heads, cuda):
     torch.cuda.synchronize()
     moved = (fa.SEP_LAUNCHES - before[0], fa.FWD_WGMMA_LAUNCHES - before[1],
              fa.FWD_MMA_LAUNCHES - before[2])
-    assert moved == ((1, 1, 0) if route == "wgmma" else (1, 0, 1))
-    assert route == ("mma_sync" if d == 88 else "wgmma")
+    assert moved == (1, 1, 0)
+    assert route == "wgmma"
     torch.testing.assert_close(
         got.float(), fa.flash_attention_plain(q, k, v, heads, scale).float(),
         **TOL[dtype])
@@ -1741,7 +1750,7 @@ def test_tiny_distill_step_goes_through_kernels(cuda):
     """One masked-feature distillation step (the attention mask) of a
     2-block DistillInternVideo2 student (head dim 64, fp32 masters in bf16)
     from a 3-block InternVideo2 teacher (head dim 88, bf16): the teacher's
-    A1 on separate operands 3 times on the mma.sync route, the student's
+    A1 on separate operands 3 times on the wgmma route, the student's
     C3-fwd and C3-bwd twice each on the wgmma routes with the delta
     pre-pass, nothing else; gradients reach the fp32 masters."""
     from simple_tad_tpu_torch.models.internvideo2 import (IV2Config,
@@ -1781,7 +1790,7 @@ def test_tiny_distill_step_goes_through_kernels(cuda):
                                            cuda).bfloat16()})
     torch.cuda.synchronize()
     after = [getattr(fa, n) for n in names] + [ln.LAUNCHES]
-    assert [a - b for a, b in zip(after, counts)] == [3, 2, 2, 2, 3, 2, 2,
+    assert [a - b for a, b in zip(after, counts)] == [3, 2, 2, 5, 0, 2, 2,
                                                       0, 0]
     assert torch.isfinite(metrics["loss"])
     # the pooling head's key biases have no gradient in exact arithmetic
