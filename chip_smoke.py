@@ -272,9 +272,10 @@ Phases (any failure raises, so the exit code is non-zero):
      one fixed batch at MAE_LR: the loss must fall by LOSS_DROP.  (iii)
      cli/pretrain.py's PretrainTrainer at batch MAE_BATCH (the parts
      MAE_PARTS of the double loop, each pinned on the host while the
-     previous step runs, concatenated on the card) in
-     TIMING_PROCESSES fresh processes: median step ms, clips/s, peak device
-     memory, and in the first a profiler window of PROFILE_STEPS steps;
+     previous step runs, concatenated on the card) in one fresh process
+     (phase 17 (ii) times the job's own 240 + 160): median step ms,
+     clips/s, peak device memory, and a profiler window of PROFILE_STEPS
+     steps;
  14. the MVD-B and UMT-B trunks (jobs/finetune/MVD-B_DoTA.sh: the 3-D
      table, no CLS token, N = 1568; UMT-B_D2K.sh: tubelet 1, 8 frames,
      N = 1568): seeded bf16 weights through FrameEvaluator at batch 32 on
@@ -323,7 +324,7 @@ Phases (any failure raises, so the exit code is non-zero):
      forward, the mask, the student's step) at DISTILL_BATCH (or the
      largest of DISTILL_BATCHES that fits) in DISTILL_PROCESSES fresh
      processes: median step ms after DISTILL_WARMUP (DISTILL_STEPS_FIRST
-     steps in the first, DISTILL_STEPS in the second), clips/s, peak
+     steps in the first, DISTILL_STEPS in any other), clips/s, peak
      memory, and in the first a profiler window of PROFILE_STEPS steps
      with the teacher's forward and the whole step timed apart by CUDA
      events;
@@ -356,6 +357,32 @@ Phases (any failure raises, so the exit code is non-zero):
      8 as phase 13 (i)-(ii) (12 C3 + 4 C1 / C2 + 16 delta + 10 LayerNorm;
      the fit at IV2_DAPT_FIT_LR), then PretrainTrainer at IV2_DAPT_PARTS
      in one process.
+ 17. Gradient checkpointing, the DAPT job's own step on one card, and
+     data parallelism.  (i) At batch 8, from the same weights, batch and
+     generator state, with ``use_checkpoint`` and without: the MAE-B DAPT
+     step (mask 0.75), the ViT-B fine-tune step with drop path 0.1 and
+     attention dropout 0.1 in both keep forms, and the IV2-S fine-tune
+     step.  Remat's gradients are held to the step without it by phase
+     6's bounds (bit-equality printed), the generator's state after the
+     step must be equal, and every attention counter (C1, C3-fwd, C4-fwd,
+     the backward and delta kernels, the routes) must read the same: the
+     recompute launches no forward attention (models/layers.py:
+     checkpoint_block); the LayerNorm counter is printed (the recompute
+     runs the norms again).  The control, a recompute that redraws its
+     masks (ViT-B, Philox form), must fail the bounds.  (ii) The DAPT
+     job's step (jobs/dapt/pretrain_bdd_capdata.sh: 240 + 160 clips, MAE-B
+     decoder depth 4, mask 0.75) through cli/pretrain.py:PretrainTrainer,
+     once with ``--use_checkpoint`` at 240 + 160 and once as 2 x (120 +
+     80) with ``--update_freq 2``, each in one fresh process: median job-
+     step ms over DAPT_JOB_TIMED steps after DAPT_JOB_WARMUP, clips/s,
+     peak memory and, from a profiler window of PROFILE_STEPS job steps,
+     the device's busy share.  (iii) In a fresh process given
+     DDP_TIMEOUT_S, a one-process NCCL group on a free 127.0.0.1 port:
+     DDP_STEPS ViT-B fine-tune steps at batch 8 through FinetuneTrainer,
+     through the data-parallel optimizer (parallel/mesh.py: the bucketed
+     gradient all-reduce) plain and with ``zero_stage`` 1 (the owner's
+     broadcast), must leave the parameters bit-equal to the same steps
+     without a process group, the collectives counted.
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -528,9 +555,9 @@ JOB_BATCH = 56
 # phase 9: the IV2-S job's lr 1e-3 scaled to its batch 56, as the CLI
 # scales it (x batch / 256)
 IV2_LR = 1e-3 * JOB_BATCH / 256
-# two timing processes a phase (three until phase 16 came: the run's
-# time limit)
-TIMING_PROCESSES, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 2, 3, 10, 2
+# one timing process a phase (three until phase 16, two until phase 17
+# came: the run's time limit)
+TIMING_PROCESSES, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 1, 3, 10, 2
 # phase 11: the attention dropout rate of the JAX package's own measurement
 # (simple_tad_tpu/ops/flash_attention.py:flash_attention's docstring); the
 # kernel names of each keep source
@@ -609,7 +636,7 @@ FEATURE_RTOL = 1e-2
 # ratio 1 : 1, drop path 0.05; the reference recipe's AdamW (betas 0.9 /
 # 0.98, eps 1e-6, weight decay 0.05) at lr 1e-3 scaled to the job's batch
 # 128; timed at that batch (or the largest of DISTILL_BATCHES that fits)
-# in DISTILL_PROCESSES processes
+# in DISTILL_PROCESSES processes (one since phase 17 took its time)
 DISTILL_TEACHER = "internvideo2_1B_patch14_224"
 DISTILL_STUDENT = "distill_internvideo2_small_patch14_224"
 DISTILL_MASK_RATIO, DISTILL_RETURN_LAYERS, DISTILL_T_INTERVAL = 0.8, 6, 3.34
@@ -638,7 +665,7 @@ DISTILL_FLAGS = [
 # (iii): the first process times DISTILL_STEPS_FIRST steps after
 # DISTILL_WARMUP and takes the profiler window, the second DISTILL_STEPS
 DISTILL_WARMUP, DISTILL_STEPS_FIRST, DISTILL_STEPS = 2, 5, 3
-DISTILL_PROCESSES = 2
+DISTILL_PROCESSES = 1
 # the share of attention-mask positions the kernels' teacher may move from
 # the plain one's on the same noise (a token near the threshold flips).
 # This holds the mask's plumbing (the step takes the noise it is given, in
@@ -689,7 +716,7 @@ PROBE_6B_FLAGS = ["--model", "internvideo2_6B_patch14_224",
                   "--short_side_size", "224", "--drop_path", "0.0",
                   "--reprob", "0.0", "--test_num_segment", "4",
                   "--test_num_crop", "3"]
-PROBE_BATCH, PROBE_CHECK_BATCH, PROBE_PROCESSES = 64, 2, 2
+PROBE_BATCH, PROBE_CHECK_BATCH, PROBE_PROCESSES = 64, 2, 1
 PROBE_WARMUP, PROBE_STEPS = 1, 3
 PROBE_6B_DEPTH, PROBE_6B_BATCH = 4, 4
 # (iv) jobs/finetune/IV2-B_ft_K710.sh: 8 frames, 710 classes, lr 2e-4
@@ -727,6 +754,21 @@ PROBE_SEP_CASES = [((4, 4097, 4224), 16, "IV2-1B probe"),
                    ((2, 4097, 9600), 25, "IV2-6B probe")]
 IV2_DAPT_ENCODER = ((8, 1024, 1152), 6)
 IV2_DAPT_DECODER = (8, 4096, 192, 3)
+# phase 17: gradient checkpointing, the DAPT job's own step on one card and
+# data parallelism.  (i) remat against the step without it at batch 8, drop
+# path 0.1, attention dropout ATTN_DROP in the ViT-B case; (ii) the DAPT
+# job's 240 + 160 clips a step (jobs/dapt/pretrain_bdd_capdata.sh) with
+# --use_checkpoint, and as 2 x (120 + 80) with --update_freq 2, each in
+# one fresh process, DAPT_JOB_TIMED steps after DAPT_JOB_WARMUP; (iii) a
+# one-process NCCL group: DDP_STEPS ViT-B steps at TRAIN_BATCH through
+# FinetuneTrainer, plain and with --zero_stage 1, against the same steps
+# without a group, in a process given DDP_TIMEOUT_S
+REMAT_DROP_PATH = 0.1
+DAPT_JOB_PARTS = (240, 160)
+DAPT_ACCUM_PARTS = (120, 80)
+DAPT_JOB_WARMUP, DAPT_JOB_TIMED = 2, 5
+DDP_STEPS = 3
+DDP_TIMEOUT_S = 300
 # phases 7 and 8: IV2-S of jobs/finetune/IV2-S_DoTA.sh (--num_frames 8
 # --view_fps 5 on 10 fps DoTA: windows of every other frame)
 IV2_VIEW_STEP = 2
@@ -5110,6 +5152,289 @@ def run_phase16(dev, seed: int, lap) -> None:
     lap("phase 16 (v)")
 
 
+# the counters of the attention kernels (everything but the row norms): a
+# checkpointed step launches them as often as the plain step
+ATTN_COUNTERS = tuple(n for n in COUNTERS if n.startswith(
+    ("attention", "fwd_route", "bwd_route")))
+
+
+def remat_step(build, loss_of, dev, seed: int, remat: bool) -> dict:
+    """One forward and backward (no update) of ``build(remat)`` on the loss
+    ``loss_of(model, gen)``, its masks from a generator seeded ``seed`` ->
+    loss, {name: grad}, the generator's state after the step and the
+    launch counts."""
+    model = build(remat)
+    model.train()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for p in model.parameters():
+        p.grad = None
+    reset_counts()
+    loss = loss_of(model, gen)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    out = {"loss": loss.item(), "grads": grads, "gen": gen.get_state(),
+           "counts": counts}
+    del model, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_remat_check(dev, seed: int) -> dict:
+    """Phase 17 (i): the MAE-B DAPT step (mask 0.75), the ViT-B fine-tune
+    step with drop path REMAT_DROP_PATH and attention dropout ATTN_DROP in
+    both keep forms, and the IV2-S fine-tune step, each with
+    ``use_checkpoint`` and without, from the same weights, batch and
+    generator state: the gradients within phase 6's bounds (bit-equality
+    printed), the generator's state after the step equal, the attention
+    kernels launched as often (no second forward attention), and the
+    control, a recompute that redraws its masks (the ViT-B case), caught
+    by the bounds."""
+    from simple_tad_tpu_torch.models import create_model, layers
+    from simple_tad_tpu_torch.train.losses import cross_entropy
+    from simple_tad_tpu_torch.train.steps import mae_loss
+    common = dict(device=dev, dtype=torch.bfloat16,
+                  param_dtype=torch.float32)
+    vit_batch = augmented_batch(dev, TRAIN_BATCH, seed)
+    iv2_batch = augmented_batch(dev, TRAIN_BATCH, seed, 8)
+    mae_batch, nm = pretrain_batch(dev, TRAIN_BATCH, seed, MAE_MASKS[0])
+
+    def classify(batch):
+        return lambda model, gen: cross_entropy(
+            model(batch["video"], generator=gen), batch["label"])
+
+    def vit(form):
+        return lambda remat: create_model(
+            "vit_base_patch16_224", drop_path_rate=REMAT_DROP_PATH,
+            attn_drop_rate=ATTN_DROP, attn_dropout_form=form, remat=remat,
+            generator=torch.Generator().manual_seed(seed), **common)
+    cases = {
+        "dapt mae-b": (lambda remat: create_model(
+            "pretrain_videomae_base_patch16_224", decoder_depth=4,
+            remat=remat, generator=torch.Generator().manual_seed(seed),
+            **common), lambda model, gen: mae_loss(model, mae_batch, nm,
+                                                    gen)),
+        "vit-b attn rng": (vit("rng"), classify(vit_batch)),
+        "vit-b attn mask": (vit("mask"), classify(vit_batch)),
+        "iv2-s": (lambda remat: create_model(
+            "internvideo2_small_patch14_224", num_frames=8,
+            drop_path_rate=REMAT_DROP_PATH, init_values=0.1, remat=remat,
+            generator=torch.Generator().manual_seed(seed), **common),
+            classify(iv2_batch))}
+    out = {}
+    for label, (build, loss_of) in cases.items():
+        plain = remat_step(build, loss_of, dev, seed + 1, False)
+        ckpt = remat_step(build, loss_of, dev, seed + 1, True)
+        norm_err, param_err, worst = grad_errors(ckpt["grads"],
+                                                 plain["grads"])
+        bit_equal = ckpt["loss"] == plain["loss"] and all(
+            torch.equal(ckpt["grads"][n], g)
+            for n, g in plain["grads"].items())
+        attn = {n: (plain["counts"][n], ckpt["counts"][n])
+                for n in ATTN_COUNTERS if plain["counts"][n]
+                or ckpt["counts"][n]}
+        same_gen = torch.equal(ckpt["gen"], plain["gen"])
+        print(f"[remat {label}] batch {TRAIN_BATCH}: loss "
+              f"{ckpt['loss']:.6f} (without remat {plain['loss']:.6f}); "
+              f"gradients vs the step without remat: global norm rel err "
+              f"{norm_err:.3e} (bound {GRAD_NORM_RTOL:.1e}), worst "
+              f"parameter {param_err:.3e} ({worst}; bound "
+              f"{GRAD_PARAM_RTOL:.1e}); bit-equal: {bit_equal}; generator "
+              f"state after the step equal: {same_gen}")
+        print(f"[remat {label}] attention launches (without, with remat) "
+              f"{attn}; LayerNorm {plain['counts']['layernorm']} -> "
+              f"{ckpt['counts']['layernorm']} (the recompute runs the "
+              f"norms again)")
+        assert attn and all(a == b for a, b in attn.values()), attn
+        assert same_gen, f"{label}: the generator advanced otherwise"
+        assert norm_err <= GRAD_NORM_RTOL and param_err <= GRAD_PARAM_RTOL, \
+            f"{label}: remat's gradients disagree with the plain step's"
+        if label == "vit-b attn rng":
+            with mock.patch.object(layers, "checkpoint_block",
+                                   functools.partial(layers.checkpoint_block,
+                                                     replay_draws=False)):
+                ctrl = remat_step(build, loss_of, dev, seed + 1, True)
+            c_norm, c_param, c_worst = grad_errors(ctrl["grads"],
+                                                   plain["grads"])
+            print(f"[remat {label}] control (the recompute redraws its "
+                  f"masks): {c_norm:.3e}, {c_param:.3e} ({c_worst}); "
+                  f"generator state equal: "
+                  f"{torch.equal(ctrl['gen'], plain['gen'])}")
+            assert c_norm > GRAD_NORM_RTOL or c_param > GRAD_PARAM_RTOL, \
+                "the gradient bounds let the remat control through"
+            del ctrl
+        out[label] = {"grad_norm_err": norm_err, "grad_param_err": param_err,
+                      "bit_equal": bit_equal, "attention": attn}
+        del plain, ckpt
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_dapt_job_process(profile: bool, seed: int, remat: bool,
+                          parts, update_freq: int) -> dict:
+    """Phase 17 (ii), in a fresh process: the DAPT job's step through
+    cli/pretrain.py:PretrainTrainer on its flags (MAE-B, decoder depth 4,
+    mask 0.75, finetune-aligned augmentation, AdamW betas 0.9 / 0.95), at
+    ``parts`` clips a call, ``update_freq`` calls an optimizer update, with
+    ``use_checkpoint`` = ``remat`` -> the job step's times (the sum of its
+    ``update_freq`` calls), peak memory and, with ``profile``, a profiler
+    window of PROFILE_STEPS job steps."""
+    from simple_tad_tpu_torch.cli.pretrain import PretrainTrainer
+    from simple_tad_tpu_torch.models import create_model
+    from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
+    from simple_tad_tpu_torch.train.steps import (TrainState,
+                                                  make_mae_train_step)
+    dev = torch.device("cuda", 0)
+    model = create_model("pretrain_videomae_base_patch16_224", device=dev,
+                         dtype=torch.bfloat16, param_dtype=torch.float32,
+                         decoder_depth=4, remat=remat,
+                         generator=torch.Generator().manual_seed(seed))
+    opt = FinetuneOptimizer(dict(model.named_parameters()),
+                            lr_schedule=MAE_LR, weight_decay=0.05,
+                            betas=(0.9, 0.95), update_freq=update_freq)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    state = TrainState.create(model, opt, gen)
+    step = make_mae_train_step(num_masked=mae_masks(1, MAE_MASKS[0], 0)[1])
+    trainer = PretrainTrainer(step, state, device=dev, crop_size=224,
+                              align=True, dtype=torch.bfloat16, seed=seed)
+    calls = (DAPT_JOB_WARMUP + DAPT_JOB_TIMED) * update_freq
+    # two calls' clips in turn: each call still pins and uploads its own
+    pool = list(SyntheticPretrainBatches(seed, parts=parts).epoch(2))
+    batches = [pool[i % 2] for i in range(calls)]
+    t = time_steps(trainer, batches, DAPT_JOB_WARMUP * update_freq)
+    ms = t["step_ms"]
+    assert opt.count == calls // update_freq, (opt.count, calls)
+    how = (f"use_checkpoint, {' + '.join(map(str, parts))}" if remat else
+           f"update_freq {update_freq} x ({' + '.join(map(str, parts))})")
+    out = {"batch": sum(parts) * update_freq, "oom": [],
+           "note": f" ({how}), mask {MAE_MASKS[0]}",
+           "step_ms": [sum(ms[i:i + update_freq])
+                       for i in range(0, len(ms), update_freq)],
+           "warmup": DAPT_JOB_WARMUP, "peak_gb": t["peak_gb"]}
+    if profile:
+        out["profile"] = profile_window(
+            trainer, batches[:PROFILE_STEPS * update_freq])
+    return out
+
+
+def ddp_world1_process(seed: int, port: int) -> dict:
+    """Phase 17 (iii), in a fresh process: DDP_STEPS ViT-B fine-tune steps
+    at TRAIN_BATCH through FinetuneTrainer (the job's model, optimizer and
+    augmentation) without a process group; then in a one-process NCCL group
+    on 127.0.0.1:``port``, through the data-parallel optimizer, plain and
+    with zero_stage 1 -> {zero_stage: parameters bit-equal to the steps
+    without a group} and the collectives each run called."""
+    import torch.distributed as dist
+    from simple_tad_tpu_torch.parallel.mesh import DataParallel
+    from simple_tad_tpu_torch.train.engine import FinetuneTrainer, TrainLoader
+    from simple_tad_tpu_torch.train.losses import create_criterion
+    from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
+    from simple_tad_tpu_torch.train.steps import (TrainState,
+                                                  make_finetune_train_step)
+    dev = torch.device("cuda", 0)
+    calls = {"all_reduce": 0, "broadcast": 0}
+
+    def counted(name):
+        fn = getattr(dist, name)
+
+        def run(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return run
+
+    def train(dp, zero_stage):
+        model = job_model(dev, seed)
+        opt = FinetuneOptimizer(dict(model.named_parameters()),
+                                lr_schedule=TRAIN_LR, weight_decay=0.05,
+                                layer_decay=0.6, depth=model.cfg.depth,
+                                data_parallel=dp, zero_stage=zero_stage)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 1)
+        state = TrainState.create(model, opt, gen)
+        trainer = FinetuneTrainer(
+            make_finetune_train_step(create_criterion("crossentropy")),
+            state, device=dev, crop_size=224, reprob=0.25,
+            dtype=torch.bfloat16, seed=seed)
+        data = SyntheticTrainDataset(DDP_STEPS * TRAIN_BATCH, seed)
+        trainer.train_one_epoch(TrainLoader(data, TRAIN_BATCH, seed=seed), 0,
+                                print_freq=10 ** 6)
+        assert state.step == opt.count == DDP_STEPS
+        return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    want = train(None, 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        dp = DataParallel(1, 0, dev)
+        out = {}
+        for zero_stage in (0, 1):
+            before = dict(calls)
+            with mock.patch.object(dist, "all_reduce",
+                                   counted("all_reduce")), \
+                    mock.patch.object(dist, "broadcast",
+                                      counted("broadcast")):
+                got = train(dp, zero_stage)
+            out[zero_stage] = {
+                "bit_equal": all(torch.equal(got[n], w)
+                                 for n, w in want.items()),
+                "calls": {k: calls[k] - before[k] for k in calls}}
+            del got
+        out["backend"] = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def run_ddp_world1(seed: int) -> dict:
+    """Phase 17 (iii): ``ddp_world1_process`` in a fresh process on a free
+    port, within DDP_TIMEOUT_S; every run's parameters must be bit-equal to
+    the steps without a group, and the collectives must have run."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(1) as pool:
+        out = pool.apply_async(ddp_world1_process, (seed, port)).get(
+            timeout=DDP_TIMEOUT_S)
+    for zero_stage in (0, 1):
+        r = out[zero_stage]
+        print(f"[ddp world 1] {out['backend']} group on 127.0.0.1:{port}, "
+              f"zero_stage {zero_stage}: {DDP_STEPS} ViT-B steps at batch "
+              f"{TRAIN_BATCH} through FinetuneTrainer; parameters bit-equal "
+              f"to the steps without a process group: {r['bit_equal']}; "
+              f"collectives {r['calls']}")
+        assert out["backend"] == "nccl"
+        assert r["bit_equal"], f"zero_stage {zero_stage}: parameters differ"
+        assert r["calls"]["all_reduce"] >= DDP_STEPS, r
+        assert zero_stage == 0 or r["calls"]["broadcast"] >= DDP_STEPS, r
+    return out
+
+
+def run_phase17(dev, seed: int, lap) -> dict:
+    """Phase 17: gradient checkpointing against the step without it, the
+    DAPT job's step on one card with --use_checkpoint and with
+    --update_freq 2, and the one-process NCCL group."""
+    out = {"remat": run_remat_check(dev, seed)}
+    torch.cuda.empty_cache()
+    lap("phase 17 (i)")
+    out["dapt remat"] = run_timing(
+        "dapt job use_checkpoint", time_dapt_job_process,
+        (seed, True, DAPT_JOB_PARTS, 1), 1)
+    out["dapt update_freq 2"] = run_timing(
+        "dapt job update_freq 2", time_dapt_job_process,
+        (seed, False, DAPT_ACCUM_PARTS, 2), 1)
+    lap("phase 17 (ii)")
+    out["ddp"] = run_ddp_world1(seed)
+    lap("phase 17 (iii)")
+    return out
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5182,7 +5507,8 @@ def main(argv=None):
     # phase 13: DAPT pre-training (MAE-B)
     run_pretrain(dev, args.seed)
     torch.cuda.empty_cache()
-    run_timing("dapt", time_pretrain_process, (args.seed,))
+    # one process: phase 17 (ii) times the job's own 240 + 160 step
+    run_timing("dapt", time_pretrain_process, (args.seed,), 1)
     lap("phase 13")
     # phase 14: the MVD-B and UMT-B trunks, evaluation and a fine-tune check
     for family in TRUNKS:
@@ -5199,6 +5525,8 @@ def main(argv=None):
     lap("phase 15 (iii)")
     # phase 16: InternVideo2 probing, class fine-tuning and DAPT
     run_phase16(dev, args.seed, lap)
+    # phase 17: remat, the DAPT job's step on one card, data parallelism
+    run_phase17(dev, args.seed, lap)
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]

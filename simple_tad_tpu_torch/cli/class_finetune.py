@@ -27,9 +27,13 @@ autograd.  Parameters after a step equal the JAX update-mask's; the
 frozen parameters' Adam moments stay zero.  With ``--clip_grad`` the whole
 graph is kept, as the JAX global norm counts the frozen gradients.
 
-Not ported: more than one device (the JAX CLI's data-parallel mesh;
-ROADMAP.md queue 1 item 5), and the optimizers of the menu other than
-adamw and adam.
+Data parallelism as cli/finetune.py (the JAX CLI's data mesh): ``torchrun
+--nproc_per_node=N -m simple_tad_tpu_torch.cli.class_finetune ...``;
+``--batch_size`` is per card, each step's clips are the global batch's
+rows of this rank (TSN-sampled with the rank's own host generator), the lr
+scales by the global batch, and the gradients of the open parameters are
+averaged across the ranks after each backward.  Every ``--opt`` of the
+menu is ported, with ``--momentum`` for sgd / momentum / rmsprop.
 
 Usage (jobs/finetune/IV2-B_ft_K710.sh):
   python -m simple_tad_tpu_torch.cli.class_finetune \\
@@ -45,7 +49,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -145,13 +149,14 @@ def freeze_spec(args) -> str:
     return args.freeze
 
 
-def build_optimizer(args, model, steps_per_epoch: int):
-    """The JAX CLI's AdamW: lr scaled by the batch over 256 on a per-step
-    cosine (min_lr not scaled), constant weight decay, layer decay over
-    the model's depth, the freeze spec; frozen parameters detached unless
-    ``--clip_grad``."""
+def build_optimizer(args, model, steps_per_epoch: int, data_parallel=None):
+    """The JAX CLI's AdamW (or ``--opt``): lr scaled by the global batch
+    over 256 on a per-step cosine (min_lr not scaled), constant weight
+    decay, layer decay over the model's depth, the freeze spec; frozen
+    parameters detached unless ``--clip_grad``."""
     from simple_tad_tpu_torch.train import optim as O
-    lr = O.scale_lr_by_batch(args.lr, args.batch_size)
+    world = data_parallel.world if data_parallel is not None else 1
+    lr = O.scale_lr_by_batch(args.lr, args.batch_size * world)
     sched = O.cosine_scheduler(lr, args.min_lr, args.epochs, steps_per_epoch,
                                warmup_epochs=args.warmup_epochs)
     opt = O.FinetuneOptimizer(
@@ -159,7 +164,7 @@ def build_optimizer(args, model, steps_per_epoch: int):
         weight_decay=args.weight_decay, layer_decay=args.layer_decay,
         depth=model.cfg.depth, betas=tuple(args.opt_betas), eps=args.opt_eps,
         clip_grad=args.clip_grad, freeze_layers=freeze_spec(args) or None,
-        opt=args.opt)
+        opt=args.opt, momentum=args.momentum, data_parallel=data_parallel)
     if opt.freeze is not None and not args.clip_grad:
         opt.detach_frozen()
     return opt
@@ -181,18 +186,26 @@ def build_dataset(args, mode: str):
 
 
 def epoch_batches(train_ds, batch_size: int, steps: int,
-                  rng: np.random.Generator) -> Iterator[Dict[str, np.ndarray]]:
+                  rng: np.random.Generator, *, rank: int = 0, world: int = 1,
+                  sample_rng: Optional[np.random.Generator] = None
+                  ) -> Iterator[Dict[str, np.ndarray]]:
     """One epoch of host batches, as the JAX CLI draws them: a permutation
     (wrapped to fill every batch of a tiny dataset), each clip decoded and
     TSN-sampled with ``rng``, cropped to the batch's smallest frame ->
-    {'video_u8': (B, T, H, W, 3) uint8, 'label': (B,) int64}."""
+    {'video_u8': (B, T, H, W, 3) uint8, 'label': (B,) int64}.  With
+    ``world`` > 1, ``batch_size`` is the global batch and each batch holds
+    this ``rank``'s rows, sampled with ``sample_rng``."""
+    from simple_tad_tpu_torch.parallel.mesh import rank_rows
     n = steps * batch_size
     order = rng.permutation(len(train_ds))[:n]
     if len(order) < n:
         order = np.resize(order, n)
+    rows = rank_rows(batch_size, rank, world)
+    sample_rng = rng if sample_rng is None else sample_rng
     for s in range(steps):
-        clips, ys = zip(*(train_ds.get_train_clip(int(i), rng)
-                          for i in order[s * batch_size:(s + 1) * batch_size]))
+        batch = order[s * batch_size:(s + 1) * batch_size][rows]
+        clips, ys = zip(*(train_ds.get_train_clip(int(i), sample_rng)
+                          for i in batch))
         h = min(c.shape[1] for c in clips)
         w = min(c.shape[2] for c in clips)
         yield {"video_u8": np.stack([c[:, :h, :w] for c in clips]),
@@ -200,13 +213,14 @@ def epoch_batches(train_ds, batch_size: int, steps: int,
 
 
 class ClassFinetuneTrainer:
-    """The class fine-tuning epoch loop on one device.  Each host batch is
-    pinned while the previous step runs; after that step's loss is read it
-    is uploaded as uint8 and augmented on the device (train_augment_cls,
-    from a generator seeded from ``seed`` and the epoch), and
-    ``train_step`` runs on the video and its soft targets."""
+    """The class fine-tuning epoch loop on one device (one rank of a
+    data-parallel run).  Each host batch is pinned while the previous step
+    runs; after that step's loss is read it is uploaded as uint8 and
+    augmented on the device (train_augment_cls, from a generator seeded
+    from ``seed``, the epoch and ``rank``), and ``train_step`` runs on the
+    video and its soft targets."""
 
-    def __init__(self, train_step, state, *, device, args):
+    def __init__(self, train_step, state, *, device, args, rank: int = 0):
         self.train_step = train_step
         self.state = state
         self.device = torch.device(device)
@@ -216,6 +230,7 @@ class ClassFinetuneTrainer:
                         switch_prob=args.mixup_switch_prob,
                         smoothing=args.smoothing, dtype=compute_dtype(args))
         self.seed = args.seed + 2
+        self.rank = rank
 
     def stage(self, batch) -> Dict[str, torch.Tensor]:
         out = {}
@@ -235,8 +250,9 @@ class ClassFinetuneTrainer:
                         print_freq: int = 10) -> Dict[str, float]:
         from simple_tad_tpu_torch.utils.logging import MetricLogger
         ml = MetricLogger(print_freq=print_freq)
+        from simple_tad_tpu_torch.parallel.mesh import rank_seed
         aug = torch.Generator(device=self.device)
-        aug.manual_seed(self.seed * 1_000_003 + epoch)
+        aug.manual_seed(rank_seed(self.seed * 1_000_003 + epoch, self.rank))
         metrics = None
         for batch in ml.log_every(batches, header=f"Epoch [{epoch}]"):
             staged = self.stage(batch)    # overlaps the step in flight
@@ -288,16 +304,16 @@ def evaluate(model, test_ds, batch_size: int, device):
 
 def main(argv=None):
     args = get_args(argv)
-    if "," in args.device:
-        raise NotImplementedError(
-            "training on more than one device is not ported yet "
-            "(ROADMAP.md queue 1 item 5)")
+    from simple_tad_tpu_torch.cli.finetune import check_device
+    from simple_tad_tpu_torch.parallel.mesh import (data_parallel_setup,
+                                                    rank_seed)
     from simple_tad_tpu_torch.train.steps import (TrainState,
                                                   make_finetune_train_step)
     from simple_tad_tpu_torch.utils import checkpoint as ckpt_utils
 
-    device = torch.device(args.device)
+    check_device(args.device)
     if args.eval:
+        device = torch.device(args.device)
         model = build_model(args, device, param_dtype=None)
         top1, top5, n_vid, n_view = evaluate(
             model, build_dataset(args, "test"), args.batch_size, device)
@@ -305,24 +321,30 @@ def main(argv=None):
               f"{n_view} views)")
         return top1, top5
 
+    dp = data_parallel_setup(args.device)
+    world, rank, device = dp
     model = build_model(args, device)
     train_ds = build_dataset(args, "train")
-    steps = max(len(train_ds) // args.batch_size, 1)
-    optimizer = build_optimizer(args, model, steps)
+    global_batch = args.batch_size * world
+    steps = max(len(train_ds) // global_batch, 1)
+    optimizer = build_optimizer(args, model, steps, dp)
     generator = torch.Generator(device=device)
-    generator.manual_seed(args.seed + 1)
+    generator.manual_seed(rank_seed(args.seed + 1, rank))
     state = TrainState.create(model, optimizer, generator)
     trainer = ClassFinetuneTrainer(
         make_finetune_train_step(soft_target_criterion), state,
-        device=device, args=args)
+        device=device, args=args, rank=rank)
     print(f"train clips: {len(train_ds)}  steps/epoch: {steps}  frozen "
           f"(detached): {len(optimizer.detached)} parameters  device: "
-          f"{device}")
+          f"{device} (rank {rank} of {world})")
     rng = np.random.default_rng(args.seed)
+    sample_rng = (np.random.default_rng(rank_seed(args.seed, rank))
+                  if world > 1 else None)
     for epoch in range(args.epochs):
         t0 = time.time()
         stats = trainer.train_one_epoch(
-            epoch_batches(train_ds, args.batch_size, steps, rng), epoch)
+            epoch_batches(train_ds, global_batch, steps, rng, rank=rank,
+                          world=world, sample_rng=sample_rng), epoch)
         print(f"[epoch {epoch}] loss {stats.get('loss', 0):.4f} "
               f"({time.time() - t0:.0f}s)")
         if args.output_dir:

@@ -1,5 +1,9 @@
-"""Knowledge-distillation CLI, in PyTorch, on one device: teacher ->
-student.
+"""Knowledge-distillation CLI, in PyTorch: teacher -> student, on one
+device or data-parallel under ``torchrun --nproc_per_node=N -m
+simple_tad_tpu_torch.cli.distill ...`` (as cli/finetune.py: ``--batch_size``
+per card, each rank decodes its rows of the global batch, the lr scales by
+the global batch, the student's gradients are averaged across the ranks;
+each rank holds its own copy of the frozen teacher).
 
 Port of simple_tad_tpu/cli/distill.py, with its flags plus ``--device``
 (default cuda; the run does not fall back to the CPU, ``--device cpu``
@@ -180,9 +184,10 @@ def build_models(args, device, dtype):
     return student, teacher
 
 
-def build_loader(args):
+def build_loader(args, rank: int = 0, world: int = 1):
     """-> (loader, kinetics): the unlabeled Kinetics loader of the feature
-    objectives, or the frame-window loader of DoTA / DADA."""
+    objectives, or the frame-window loader of DoTA / DADA; at ``world`` >
+    1 each draws the global batch and yields this ``rank``'s rows."""
     if args.data_set in ("K700", "Kinetics-700", "Kinetics-400"):
         if args.objective not in ("feature", "masked_feature"):
             raise ValueError("Kinetics sources are unlabeled - use "
@@ -200,7 +205,8 @@ def build_loader(args):
         # the attention mask is drawn from the teacher on the device; the
         # loader still generates (ignored) tube masks
         return PretrainLoader(
-            ds, args.batch_size, window_size=window,
+            ds, args.batch_size * world, rank=rank, world=world,
+            window_size=window,
             mask_ratio=(args.mask_ratio
                         if args.objective == "masked_feature" else 0.75),
             mask_type=("tube" if args.mask_type == "attention"
@@ -226,20 +232,22 @@ def build_loader(args):
     ds = FrameDataset(clips, mode="train", view_len=args.num_frames,
                       target_fps=args.view_fps, orig_fps=orig_fps,
                       view_step=args.sampling_rate, crop_size=args.input_size)
-    return TrainLoader(ds, args.batch_size, seed=args.seed,
-                       num_threads=args.num_workers), False
+    return TrainLoader(ds, args.batch_size * world, seed=args.seed,
+                       num_threads=args.num_workers, rank=rank,
+                       world=world), False
 
 
 class DistillTrainer:
-    """The distillation epoch loop on one device.  Each loader batch goes
-    to the device as uint8 and is augmented there (ops/augment.py:
-    train_augment) from one generator seeded from ``seed`` + 3; then
-    ``train_step`` runs on it, with the batch's mask (masked_feature) or
-    labels (logit_kd)."""
+    """The distillation epoch loop on one device (one rank of a
+    data-parallel run).  Each loader batch goes to the device as uint8 and
+    is augmented there (ops/augment.py: train_augment) from one generator
+    seeded from ``seed`` + 3 and ``rank``; then ``train_step`` runs on it,
+    with the batch's mask (masked_feature) or labels (logit_kd)."""
 
     def __init__(self, train_step, state, *, device, objective: str,
                  crop_size: int = 224, reprob: float = 0.25,
-                 dtype=torch.bfloat16, seed: int = 0):
+                 dtype=torch.bfloat16, seed: int = 0, rank: int = 0):
+        from simple_tad_tpu_torch.parallel.mesh import rank_seed
         self.train_step = train_step
         self.state = state
         self.device = torch.device(device)
@@ -247,7 +255,8 @@ class DistillTrainer:
         self.crop_size = crop_size
         self.reprob = reprob
         self.dtype = dtype
-        self.aug = torch.Generator(device=self.device).manual_seed(seed + 3)
+        self.aug = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed + 3, rank))
 
     def device_batch(self, batch) -> Dict[str, torch.Tensor]:
         from simple_tad_tpu_torch.ops.augment import train_augment
@@ -275,17 +284,20 @@ class DistillTrainer:
 
 
 def build_trainer(args, student, teacher, device, dtype,
-                  steps_per_epoch: int, loader_masked: Optional[int] = None
-                  ) -> DistillTrainer:
+                  steps_per_epoch: int, loader_masked: Optional[int] = None,
+                  data_parallel=None) -> DistillTrainer:
     """The objective's step, the optimizer (train/optim.py: AdamW at lr
-    ``--lr`` x batch / 256 on a cosine schedule) and the train state ->
-    the trainer.  ``loader_masked``: the tokens the loader's tube or
+    ``--lr`` x global batch / 256 on a cosine schedule) and the train state
+    -> the trainer.  ``loader_masked``: the tokens the loader's tube or
     random masks hide (masked_feature without ``attention``)."""
+    from simple_tad_tpu_torch.parallel.mesh import rank_seed
     from simple_tad_tpu_torch.train import distill as D
     from simple_tad_tpu_torch.train import optim as O
     from simple_tad_tpu_torch.train.steps import TrainState
 
-    lr = args.lr * args.batch_size / 256.0
+    world, rank = ((data_parallel.world, data_parallel.rank)
+                   if data_parallel is not None else (1, 0))
+    lr = args.lr * args.batch_size * world / 256.0
     sched = O.cosine_scheduler(lr, 1e-6, args.epochs, steps_per_epoch,
                                warmup_epochs=args.warmup_epochs)
     model = student
@@ -317,27 +329,33 @@ def build_trainer(args, student, teacher, device, dtype,
     opt = O.FinetuneOptimizer(dict(model.named_parameters()),
                               lr_schedule=O.array_schedule(sched),
                               weight_decay=args.weight_decay,
-                              betas=tuple(args.opt_betas), eps=args.opt_eps)
-    generator = torch.Generator(device=device).manual_seed(args.seed + 2)
+                              betas=tuple(args.opt_betas), eps=args.opt_eps,
+                              data_parallel=data_parallel)
+    generator = torch.Generator(device=device).manual_seed(
+        rank_seed(args.seed + 2, rank))
     state = TrainState.create(model, opt, generator)
     return DistillTrainer(step_fn, state, device=device,
                           objective=args.objective,
                           crop_size=args.input_size, reprob=args.reprob,
-                          dtype=dtype, seed=args.seed)
+                          dtype=dtype, seed=args.seed, rank=rank)
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
+    from simple_tad_tpu_torch.cli.finetune import check_device
+    from simple_tad_tpu_torch.parallel.mesh import data_parallel_setup
     from simple_tad_tpu_torch.utils import checkpoint as ckpt_utils
 
-    device = torch.device(args.device)
+    check_device(args.device)
+    dp = data_parallel_setup(args.device)
+    world, rank, device = dp
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     student, teacher = build_models(args, device, dtype)
-    loader, _ = build_loader(args)
+    loader, _ = build_loader(args, rank, world)
     trainer = build_trainer(args, student, teacher, device, dtype,
                             loader.steps_per_epoch(),
-                            getattr(loader, "num_masked", None))
+                            getattr(loader, "num_masked", None), dp)
     for epoch in range(args.epochs):
         t0 = time.time()
         ml = trainer.train_one_epoch(loader.epoch(epoch), epoch)

@@ -31,6 +31,14 @@ norm's LayerNorm->int8 kernel (the deferred-residual carry) and
 ``--int8_attn`` the int8-compute attention: the JAX package's
 SIMPLE_TAD_ADD_LNQ and SIMPLE_TAD_INT8_ATTN programs.
 
+``--dist_eval`` (on by default, as in the reference) under torchrun:
+rank r scores ``clip_eval_views()[r::world]`` on its card and writes
+``predictions.<r>.csv``; the metrics come from a ragged gather of every
+rank's windows, on every rank; rank 0 merges the shards into
+``predictions.csv`` and writes the stats and plots.  Without torchrun and
+with several local cards, the clips go round-robin over them
+(FrameEvaluator ``devices``).
+
 Usage:
   python -m simple_tad_tpu_torch.cli.eval_frames \
       --data_set DoTA --data_path /data/dota \
@@ -60,12 +68,6 @@ def main(argv=None):
     pre.add_argument("--int8_attn", action="store_true")
     dev_args, rest = pre.parse_known_args(argv)
     cfg = FinetuneConfig.from_args(rest)
-    # dist_eval is on by default in the reference flags, where one device
-    # makes it a no-op; asked for explicitly it needs multi-device eval
-    if "--dist_eval" in rest:
-        raise NotImplementedError(
-            "--dist_eval is not ported yet (ROADMAP.md queue 1 item 5: "
-            "multi-device evaluation)")
     if cfg.output_dir:
         # the plots come last: fail before the evaluation, not after it
         from simple_tad_tpu_torch.eval.plots import require_plotting
@@ -73,11 +75,17 @@ def main(argv=None):
 
     from simple_tad_tpu_torch.data.frame_datasets import (
         FrameDataset, read_dada_clips, read_dota_clips)
-    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
+    from simple_tad_tpu_torch.eval.engine import (FrameEvaluator,
+                                                  evaluate_distributed,
+                                                  read_predictions)
     from simple_tad_tpu_torch.models import create_model, model_family
+    from simple_tad_tpu_torch.parallel import multihost
+    from simple_tad_tpu_torch.parallel.mesh import data_parallel_setup
     from simple_tad_tpu_torch.utils.torch_convert import load_checkpoint_auto
 
-    device = torch.device(dev_args.device)
+    world, rank, device = (data_parallel_setup(dev_args.device)
+                           if cfg.dist_eval
+                           else (1, 0, torch.device(dev_args.device)))
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     if cfg.finetune and not cfg.finetune.endswith(".pth"):
         raise NotImplementedError(
@@ -125,6 +133,11 @@ def main(argv=None):
                       view_step=1, crop_size=cfg.input_size)
     print(f"eval windows: {len(ds)} over {len(clips)} clips")
 
+    devices = None
+    if (cfg.dist_eval and world == 1 and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
     ev = FrameEvaluator(model, device=device, batch_size=cfg.batch_size,
                         resize_on_host=cfg.resize_on_host, quant8=cfg.quant8,
                         quant8_mode=cfg.quant8_mode, fp32_state=fp32_state,
@@ -133,19 +146,29 @@ def main(argv=None):
                         fused_mlp=dev_args.fused_mlp,
                         qkv_i8=dev_args.qkv_i8,
                         add_lnq=dev_args.add_lnq,
-                        int8_attn=dev_args.int8_attn)
-    res = ev.evaluate(ds, exact_metrics=cfg.exact_metrics)
+                        int8_attn=dev_args.int8_attn, devices=devices)
+    res = evaluate_distributed(ev, ds, exact_metrics=cfg.exact_metrics)
     print(f"AUROC {res.metrics.auroc:.4f}  AP {res.metrics.ap:.4f}  "
           f"AUC-MCC {res.metrics.mcc_auc:.4f}  "
           f"MCC@0.5 {res.metrics.mcc_05:.4f}  "
           f"({res.windows_per_sec:.1f} windows/s on {device})")
     if cfg.output_dir:
         os.makedirs(cfg.output_dir, exist_ok=True)
-        cfg.save(os.path.join(cfg.output_dir, "params.json"))
-        res.save(os.path.join(cfg.output_dir, "predictions.csv"),
-                 os.path.join(cfg.output_dir, "stats.txt"),
-                 plots_dir=cfg.output_dir)
-        print(f"wrote {cfg.output_dir}/predictions.csv")
+        preds = os.path.join(cfg.output_dir, "predictions.csv")
+        if world > 1:
+            # each rank's shard, merged on rank 0, whose rows are then all
+            # the windows'
+            res.save(os.path.join(cfg.output_dir, f"predictions.{rank}.csv"))
+            multihost.barrier()
+            merged = multihost.merge_csv_shards(cfg.output_dir,
+                                                "predictions", world)
+            if merged:
+                res.rows = read_predictions(merged)
+        if multihost.is_main_process():
+            cfg.save(os.path.join(cfg.output_dir, "params.json"))
+            res.save(preds, os.path.join(cfg.output_dir, "stats.txt"),
+                     plots_dir=cfg.output_dir)
+            print(f"wrote {preds}")
     return res
 
 

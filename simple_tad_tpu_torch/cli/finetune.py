@@ -27,10 +27,23 @@ TPU program's: the kernels draw Philox bits from a seed) or ``mask`` (an
 int8 keep mask in memory; the JAX package's SIMPLE_TAD_DROPOUT_MASK).
 InternVideo2 has no attention dropout, as in the JAX package.
 
-Not ported: more than one device (``--zero_stage``, or ``--device`` naming
-several devices, raise: ROADMAP.md queue 1, DDP), gradient checkpointing
-(``--use_checkpoint``), and the optimizers of the menu other than adamw
-and adam.
+Data parallelism (the reference's DDP, the JAX package's data mesh):
+launched as ``torchrun --nproc_per_node=N -m simple_tad_tpu_torch.cli.finetune
+...`` (``--standalone`` on one node), one process per card.
+``--batch_size`` is per card: the loader draws the global batch of
+batch_size x N and each rank decodes its own rows; the lr scales by
+batch_size x update_freq x N / 256.  Gradients are averaged across the
+ranks after each backward (bucketed all-reduces of the optimizer's named
+gradients, not a DistributedDataParallel reducer), before the norm and
+``--clip_grad``; ``--zero_stage 1`` or ``2`` shards the optimizer state.
+Rank 0 writes the logs and checkpoints (the optimizer state gathered);
+auto-resume loads on every rank; validation with ``--dist_eval`` (on by
+default) splits the clips over the ranks (eval/engine.py:
+evaluate_distributed).  ``--use_checkpoint`` checkpoints each block
+(models/layers.py:block_call).  ``--grad_norm_heads N`` (N = the model's
+heads) records the per-layer / per-head gradient norms each step and
+writes ``grad_norms/gradnorm_ep<epoch>.npz`` (utils/diagnostics.py).
+Every name of the optimizer menu is ported (train/optim.py).
 
 Usage:
   python -m simple_tad_tpu_torch.cli.finetune --data_set DoTA \\
@@ -101,11 +114,14 @@ def build_model(cfg: FinetuneConfig, device, dtype, param_dtype=None,
         **vit_only)
 
 
-def build_optimizer(cfg: FinetuneConfig, model, steps_per_epoch: int):
-    """The layer-decay AdamW of the JAX CLI, with schedules sized in
-    optimizer updates (steps_per_epoch // update_freq per epoch)."""
+def build_optimizer(cfg: FinetuneConfig, model, steps_per_epoch: int,
+                    data_parallel=None):
+    """The layer-decay AdamW (or ``--opt``) of the JAX CLI, with schedules
+    sized in optimizer updates (steps_per_epoch // update_freq per epoch)
+    and the lr scaled by the global batch."""
     from simple_tad_tpu_torch.train import optim as O
-    total_batch = cfg.batch_size * cfg.update_freq
+    world = data_parallel.world if data_parallel is not None else 1
+    total_batch = cfg.batch_size * cfg.update_freq * world
     lr = O.scale_lr_by_batch(cfg.lr, total_batch)
     min_lr = O.scale_lr_by_batch(cfg.min_lr, total_batch)
     warmup_lr = O.scale_lr_by_batch(cfg.warmup_lr, total_batch)
@@ -126,7 +142,8 @@ def build_optimizer(cfg: FinetuneConfig, model, steps_per_epoch: int):
         weight_decay=cfg.weight_decay, layer_decay=cfg.layer_decay,
         depth=model.cfg.depth, betas=tuple(cfg.opt_betas), eps=cfg.opt_eps,
         clip_grad=cfg.clip_grad, freeze_layers=cfg.freeze_layers,
-        opt=cfg.opt, update_freq=cfg.update_freq)
+        opt=cfg.opt, update_freq=cfg.update_freq,
+        data_parallel=data_parallel, zero_stage=cfg.zero_stage)
 
 
 def main(argv=None):
@@ -134,17 +151,19 @@ def main(argv=None):
     pre.add_argument("--device", default="cuda")
     pre.add_argument("--attn_dropout_form", choices=("rng", "mask"),
                      default="rng")
+    pre.add_argument("--grad_norm_heads", type=int, default=None)
     dev_args, rest = pre.parse_known_args(argv)
     cfg = FinetuneConfig.from_args(rest)
-    if cfg.zero_stage or "," in dev_args.device:
-        raise NotImplementedError(
-            "training on more than one device (DDP, --zero_stage) is not "
-            "ported yet (ROADMAP.md queue 1, frame fine-tuning: DDP)")
+    check_device(dev_args.device)
     if cfg.finetune and not cfg.finetune.endswith(".pth"):
         raise NotImplementedError(
             "only reference .pth checkpoints load into the port")
 
-    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
+    from simple_tad_tpu_torch.eval.engine import (FrameEvaluator,
+                                                  evaluate_distributed)
+    from simple_tad_tpu_torch.parallel import multihost
+    from simple_tad_tpu_torch.parallel.mesh import (data_parallel_setup,
+                                                    rank_seed)
     from simple_tad_tpu_torch.train import losses as L
     from simple_tad_tpu_torch.train.engine import (FinetuneTrainer,
                                                    TrainLoader, validate)
@@ -153,10 +172,13 @@ def main(argv=None):
     from simple_tad_tpu_torch.utils import checkpoint as ckpt_utils
     from simple_tad_tpu_torch.utils.logging import (JsonlLogger,
                                                     TensorboardLogger)
+    from simple_tad_tpu_torch.utils.diagnostics import GradNormAccumulator
     from simple_tad_tpu_torch.utils.torch_convert import load_checkpoint_auto
 
     np.random.seed(cfg.seed)
-    device = torch.device(dev_args.device)
+    dp = data_parallel_setup(dev_args.device)
+    world, rank, device = dp
+    main_rank = multihost.is_main_process()
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     model = build_model(cfg, device, dtype, param_dtype=torch.float32,
                         attn_dropout_form=dev_args.attn_dropout_form)
@@ -165,42 +187,49 @@ def main(argv=None):
         print(f"initialized from {cfg.finetune}")
 
     train_ds, val_ds = build_datasets(cfg)
-    loader = TrainLoader(train_ds, cfg.batch_size, seed=cfg.seed,
+    loader = TrainLoader(train_ds, cfg.batch_size * world, seed=cfg.seed,
                          nb_samples_per_epoch=cfg.nb_samples_per_epoch,
                          num_threads=cfg.num_workers,
-                         num_sample=cfg.num_sample)
+                         num_sample=cfg.num_sample, rank=rank, world=world)
     steps_per_epoch = loader.steps_per_epoch()
     print(f"train windows: {len(train_ds)}  steps/epoch: {steps_per_epoch} "
-          f"device: {device}")
+          f"device: {device} (rank {rank} of {world})")
 
     ema_decay = cfg.model_ema_decay if cfg.model_ema else None
     step = make_finetune_train_step(L.create_criterion(cfg.loss,
                                                        cfg.smoothing),
-                                    ema_decay=ema_decay)
+                                    ema_decay=ema_decay,
+                                    grad_norm_heads=dev_args.grad_norm_heads)
     generator = torch.Generator(device=device)
-    generator.manual_seed(cfg.seed + 1)
+    generator.manual_seed(rank_seed(cfg.seed + 1, rank))
     state = TrainState.create(model,
-                              build_optimizer(cfg, model, steps_per_epoch),
+                              build_optimizer(cfg, model, steps_per_epoch,
+                                              dp),
                               generator, ema_decay=ema_decay)
 
     start_epoch = cfg.start_epoch
     if cfg.output_dir:
         os.makedirs(cfg.output_dir, exist_ok=True)
-        cfg.save(os.path.join(cfg.output_dir, "params.json"))
+        if main_rank:
+            cfg.save(os.path.join(cfg.output_dir, "params.json"))
         if cfg.auto_resume and not cfg.resume:
             state, start_epoch = ckpt_utils.load_train_state(cfg.output_dir,
                                                              state)
             if start_epoch:
                 print(f"auto-resumed at epoch {start_epoch}")
 
-    log_writer = TensorboardLogger(cfg.log_dir)
-    jsonl = JsonlLogger(cfg.output_dir or None)
+    log_writer = TensorboardLogger(cfg.log_dir if main_rank else None)
+    jsonl = JsonlLogger(cfg.output_dir if main_rank else None)
     tracker = (ckpt_utils.BestTracker(cfg.output_dir)
-               if cfg.output_dir else None)
+               if cfg.output_dir and main_rank else None)
+    grad_norms = (GradNormAccumulator(cfg.output_dir if main_rank else None,
+                                      dev_args.grad_norm_heads)
+                  if dev_args.grad_norm_heads is not None else None)
     trainer = FinetuneTrainer(step, state, device=device,
                               crop_size=cfg.input_size, reprob=cfg.reprob,
                               dtype=dtype, log_writer=log_writer,
-                              seed=cfg.seed)
+                              seed=cfg.seed, rank=rank,
+                              grad_norms=grad_norms)
     # validation model: the weights in the compute dtype, rebuilt from the
     # masters (or the EMA) each epoch
     eval_model = build_model(cfg, device, dtype)
@@ -213,7 +242,12 @@ def main(argv=None):
         eval_model.load_state_dict(weights)
         evaluator = FrameEvaluator(eval_model, device=device,
                                    batch_size=cfg.batch_size * 2)
-        val_stats = validate(evaluator, val_ds)
+        # --dist_eval: each rank scores its share of the clips
+        val_stats = validate(evaluator, val_ds, evaluate=(
+            (lambda: evaluate_distributed(evaluator, val_ds))
+            if cfg.dist_eval else None))
+        if grad_norms is not None:
+            grad_norms.save_epoch(epoch)
         print(f"[epoch {epoch}] train loss {train_stats.get('loss', 0):.4f} "
               f"val auroc {val_stats['auroc']:.4f} ap {val_stats['ap']:.4f} "
               f"mccauc {val_stats['mccauc']:.4f} "
@@ -230,6 +264,14 @@ def main(argv=None):
                                         state.model.state_dict(),
                                         f"checkpoint-{epoch}")
     return state
+
+
+def check_device(device: str) -> None:
+    """One device a process: several cards train through torchrun."""
+    if "," in device:
+        raise ValueError(f"--device {device!r}: one device a process; "
+                         f"launch one process per card with torchrun "
+                         f"--nproc_per_node=N")
 
 
 if __name__ == "__main__":

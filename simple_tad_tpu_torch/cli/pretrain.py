@@ -28,8 +28,14 @@ model, whose 588-wide head then fails its assertion (ROADMAP.md F7).
 stage-2 student ``.pth`` for the encoder (utils/torch_convert.py:
 load_iv2_mae_checkpoint).
 
-Not ported: ``--use_checkpoint`` (gradient checkpointing, ROADMAP.md
-queue 1 item 5) raises.
+``--use_checkpoint`` checkpoints each encoder and decoder block
+(models/layers.py:block_call): the DAPT job's 240 + 160 clips a step fit
+one H100 that way, or as 2 x (120 + 80) with ``--update_freq 2``
+(README.md).  Data parallelism as cli/finetune.py: ``torchrun
+--nproc_per_node=N -m simple_tad_tpu_torch.cli.pretrain ...``; each
+``--batch_size*`` is per card, every loader draws the global batch and
+each rank decodes its own rows of each, and the lr scales by the global
+batch (batch_size + batch_size2 + batch_size3) x update_freq x N / 256.
 
 Usage (the DAPT job, jobs/dapt/pretrain_bdd_capdata.sh):
   python -m simple_tad_tpu_torch.cli.pretrain \\
@@ -103,15 +109,16 @@ def _build_source(data_set: str, data_path: str, cfg,
 
 
 class PretrainTrainer:
-    """The pre-training epoch loop on one device.  Each step's loader
-    batches (one per dataset) are copied into pinned host memory while the
-    previous step runs on the device; after that step's loss is read they
-    are uploaded as uint8, concatenated and augmented on the device from a
-    generator seeded from ``seed`` and the epoch, and ``train_step`` runs
-    on them."""
+    """The pre-training epoch loop on one device (one rank of a
+    data-parallel run).  Each step's loader batches (one per dataset) are
+    copied into pinned host memory while the previous step runs on the
+    device; after that step's loss is read they are uploaded as uint8,
+    concatenated and augmented on the device from a generator seeded from
+    ``seed``, the epoch and ``rank``, and ``train_step`` runs on them."""
 
     def __init__(self, train_step, state, *, device, crop_size: int = 224,
-                 align: bool = True, dtype=torch.bfloat16, seed: int = 0):
+                 align: bool = True, dtype=torch.bfloat16, seed: int = 0,
+                 rank: int = 0):
         from simple_tad_tpu_torch.ops import augment
         self.train_step = train_step
         self.state = state
@@ -121,6 +128,7 @@ class PretrainTrainer:
                         else augment.pretrain_augment_orig)
         self.dtype = dtype
         self.seed = seed
+        self.rank = rank
 
     def _stage(self, x: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(x))
@@ -147,8 +155,9 @@ class PretrainTrainer:
                         print_freq: int = 10) -> Dict[str, float]:
         from simple_tad_tpu_torch.utils.logging import MetricLogger
         ml = MetricLogger(print_freq=print_freq)
+        from simple_tad_tpu_torch.parallel.mesh import rank_seed
         aug = torch.Generator(device=self.device)
-        aug.manual_seed(self.seed * 1_000_003 + epoch)
+        aug.manual_seed(rank_seed(self.seed * 1_000_003 + epoch, self.rank))
         metrics = None
         for parts in ml.log_every(batches, header=f"Epoch [{epoch}]"):
             staged = self.stage(parts)    # overlaps the step in flight
@@ -188,13 +197,15 @@ def epoch_batches(epoch: int, loader1, loader2=None, loader3=None):
         yield from CyclicZip(long.epoch, short.epoch).epoch(epoch)
 
 
-def build_optimizer(cfg: PretrainConfig, model, steps_per_epoch: int):
-    """AdamW of the JAX CLI: lr scaled by the total batch / 256 (min_lr and
-    warmup_lr are not scaled), per-update cosine lr and wd schedules, no
-    layer decay."""
+def build_optimizer(cfg: PretrainConfig, model, steps_per_epoch: int,
+                    data_parallel=None):
+    """AdamW (or ``--opt``) of the JAX CLI: lr scaled by the global batch /
+    256 (min_lr and warmup_lr are not scaled), per-update cosine lr and wd
+    schedules, no layer decay."""
     from simple_tad_tpu_torch.train import optim as O
+    world = data_parallel.world if data_parallel is not None else 1
     total_batch = ((cfg.batch_size + (cfg.batch_size2 or 0)
-                    + (cfg.batch_size3 or 0)) * cfg.update_freq)
+                    + (cfg.batch_size3 or 0)) * cfg.update_freq * world)
     lr = cfg.lr * total_batch / 256.0
     opt_steps_per_epoch = max(steps_per_epoch // cfg.update_freq, 1)
     lr_sched = O.cosine_scheduler(lr, cfg.min_lr, cfg.epochs,
@@ -212,7 +223,7 @@ def build_optimizer(cfg: PretrainConfig, model, steps_per_epoch: int):
         wd_schedule=O.array_schedule(wd_sched),
         weight_decay=cfg.weight_decay, betas=tuple(cfg.opt_betas),
         eps=cfg.opt_eps, clip_grad=cfg.clip_grad, opt=cfg.opt,
-        update_freq=cfg.update_freq)
+        update_freq=cfg.update_freq, data_parallel=data_parallel)
 
 
 def main(argv=None):
@@ -223,6 +234,9 @@ def main(argv=None):
 
     from simple_tad_tpu_torch.data.pretrain_datasets import PretrainLoader
     from simple_tad_tpu_torch.models import create_model, model_family
+    from simple_tad_tpu_torch.parallel import multihost
+    from simple_tad_tpu_torch.parallel.mesh import (data_parallel_setup,
+                                                    rank_seed)
     from simple_tad_tpu_torch.train.steps import (TrainState,
                                                   make_mae_train_step)
     from simple_tad_tpu_torch.utils import checkpoint as ckpt_utils
@@ -234,7 +248,9 @@ def main(argv=None):
         raise ValueError(f"{cfg.model!r} is not a pre-training model")
     if cfg.data_set3 and not cfg.data_set2:
         raise ValueError("--data_set3 requires --data_set2")
-    device = torch.device(dev_args.device)
+    dp = data_parallel_setup(dev_args.device)
+    world, rank, device = dp
+    main_rank = multihost.is_main_process()
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     tubelet = {}
     if family == "mae":
@@ -255,11 +271,12 @@ def main(argv=None):
 
     def loader(data_set, data_path, view_list, clips_list, batch, seed):
         ds = _build_source(data_set, data_path, cfg, view_list, clips_list)
-        return PretrainLoader(ds, batch, window_size=window_size,
+        return PretrainLoader(ds, batch * world, window_size=window_size,
                               mask_ratio=cfg.mask_ratio,
                               mask_type=cfg.mask_type, seed=seed,
                               nb_samples_per_epoch=cfg.nb_samples_per_epoch,
-                              num_threads=cfg.num_workers)
+                              num_threads=cfg.num_workers, rank=rank,
+                              world=world)
 
     loader1 = loader(cfg.data_set, cfg.data_path, cfg.view_list,
                      cfg.clips_list, cfg.batch_size, cfg.seed)
@@ -280,31 +297,33 @@ def main(argv=None):
 
     steps_per_epoch = loader1.steps_per_epoch()
     generator = torch.Generator(device=device)
-    generator.manual_seed(cfg.seed + 2)
+    generator.manual_seed(rank_seed(cfg.seed + 2, rank))
     state = TrainState.create(model,
-                              build_optimizer(cfg, model, steps_per_epoch),
+                              build_optimizer(cfg, model, steps_per_epoch,
+                                              dp),
                               generator)
     step = make_mae_train_step(num_masked=num_masked,
                                normalize_target=cfg.normlize_target)
     print(f"windows: {len(loader1.dataset)}  steps/epoch: {steps_per_epoch}"
           f"  masked tokens: {num_masked} of {model.cfg.num_patches}  "
-          f"device: {device}")
+          f"device: {device} (rank {rank} of {world})")
 
     start_epoch = cfg.start_epoch
     if cfg.output_dir:
         os.makedirs(cfg.output_dir, exist_ok=True)
-        cfg.save(os.path.join(cfg.output_dir, "params.json"))
+        if main_rank:
+            cfg.save(os.path.join(cfg.output_dir, "params.json"))
         if cfg.auto_resume and not cfg.resume:
             state, start_epoch = ckpt_utils.load_train_state(cfg.output_dir,
                                                              state)
             if start_epoch:
                 print(f"auto-resumed at epoch {start_epoch}")
 
-    jsonl = JsonlLogger(cfg.output_dir or None)
+    jsonl = JsonlLogger(cfg.output_dir if main_rank else None)
     trainer = PretrainTrainer(step, state, device=device,
                               crop_size=cfg.input_size,
                               align=cfg.transforms_finetune_align,
-                              dtype=dtype, seed=cfg.seed + 3)
+                              dtype=dtype, seed=cfg.seed + 3, rank=rank)
     stop_epoch = cfg.epochs if cfg.stop_at_epoch < 0 else min(
         cfg.epochs, cfg.stop_at_epoch)
     for epoch in range(start_epoch, stop_epoch):

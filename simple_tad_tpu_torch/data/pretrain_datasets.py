@@ -21,14 +21,13 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import queue
-import threading
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from simple_tad_tpu_torch.data.frame_datasets import ClipInfo
 from simple_tad_tpu_torch.data.masking import TubeMaskingGenerator
+from simple_tad_tpu_torch.data.prefetch import ordered_batches
 from simple_tad_tpu_torch.data.sequencing import (
     RegularSequencer, RegularSequencerWithStart)
 from simple_tad_tpu_torch.data.zipreader import decode_zip_frames
@@ -274,14 +273,23 @@ class PretrainLoader:
     can vary per source clip, so windows are center-padded/cropped to the
     batch's first window shape (sources normalize short side to 320, so
     shapes only differ in the long side by a few px across aspect ratios).
+    With ``world`` > 1, ``batch_size`` is the global batch and each batch
+    holds, and decodes, only this ``rank``'s rows of it and of its masks
+    (parallel/mesh.py:rank_rows; the crop to the smallest window is then
+    taken over the rank's rows).  The decode threads hand the batches over
+    in the epoch's order (data/prefetch.py), where the JAX package's come
+    in the order the threads finish.
     """
 
     def __init__(self, dataset: PretrainWindowDataset, batch_size: int, *,
                  window_size, mask_ratio: float, seed: int = 0,
                  nb_samples_per_epoch: int = 0, num_threads: int = 4,
-                 prefetch: int = 4, mask_type: str = "tube"):
+                 prefetch: int = 4, mask_type: str = "tube", rank: int = 0,
+                 world: int = 1):
         from simple_tad_tpu_torch.data.masking import make_mask_generator
+        from simple_tad_tpu_torch.parallel.mesh import rank_rows
         self.dataset = dataset
+        self.rows = rank_rows(batch_size, rank, world)
         self.batch_size = batch_size
         self.maskgen = make_mask_generator(mask_type, window_size,
                                            mask_ratio)
@@ -325,45 +333,16 @@ class PretrainLoader:
             n_batches, self.batch_size)
         mask_rng = np.random.default_rng(self.seed * 7919 + epoch_idx)
 
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
-        stop = threading.Event()
-
         def make(row):
-            wins = [self.dataset.get_window(int(i)) for i in row]
+            wins = [self.dataset.get_window(int(i)) for i in row[self.rows]]
             h = min(w.shape[1] for w in wins)
             wmin = min(w.shape[2] for w in wins)
-            video = np.stack([self._fit(w, h, wmin) for w in wins])
-            return video
+            return np.stack([self._fit(w, h, wmin) for w in wins])
 
-        def worker(shard):
-            try:
-                for row in shard:
-                    if stop.is_set():
-                        return
-                    q.put(make(row))
-            except BaseException as e:  # noqa: BLE001
-                # surface worker failures; a silent death would leave the
-                # consumer blocked on q.get() forever
-                q.put(e)
-
-        shards = [rows[i::self.num_threads]
-                  for i in range(self.num_threads)]
-        threads = [threading.Thread(target=worker, args=(s,), daemon=True)
-                   for s in shards if len(s)]
-        for t in threads:
-            t.start()
-        try:
-            for _ in range(n_batches):
-                video = q.get()
-                if isinstance(video, BaseException):
-                    stop.set()
-                    raise video
-                mask = self.maskgen.batch(self.batch_size, mask_rng)
-                yield {"video_u8": video, "mask": mask}
-        finally:
-            stop.set()
-            while not q.empty():
-                q.get_nowait()
+        for video in ordered_batches(rows, make, self.num_threads,
+                                     self.prefetch):
+            mask = self.maskgen.batch(self.batch_size, mask_rng)
+            yield {"video_u8": video, "mask": mask[self.rows]}
 
 
 class CyclicZip:

@@ -32,10 +32,18 @@ GEMM kernels, and the bf16 attention with the int8 output epilogue.
 SIMPLE_TAD_ADD_LNQ and SIMPLE_TAD_INT8_ATTN) are the ViT's deferred-residual
 carry through the add + LayerNorm->int8 kernel and its int8-compute
 attention (models/vit.py).
+
+``devices`` (the JAX package's local devices): with more than one card,
+a copy of the model on each scores the clips round-robin; one card is the
+evaluator's own.  ``evaluate_distributed`` is ``--dist_eval`` across the
+ranks of a torchrun launch: rank r scores ``clip_eval_views()[r::world]``
+and every rank gets the metrics of all the windows from a ragged gather
+(parallel/multihost.py); the rows stay on their rank, for its CSV shard.
 """
 
 from __future__ import annotations
 
+import copy
 import csv
 import dataclasses
 import time
@@ -138,10 +146,18 @@ class FrameEvaluator:
                  fused_w8a8: bool = False, fused_mlp: bool = False,
                  qkv_i8: bool = True, add_lnq: bool = False,
                  int8_attn: bool = False):
-        if devices is not None:
-            raise NotImplementedError(
-                "multi-device evaluation is not ported yet (ROADMAP.md "
-                "queue 1 item 5)")
+        self.lanes = None
+        if devices is not None and len(devices) > 1:
+            kw = dict(batch_size=batch_size, resize_on_host=resize_on_host,
+                      precompute_tubelets=precompute_tubelets, quant8=quant8,
+                      quant8_mode=quant8_mode, fp32_state=fp32_state,
+                      fused_rmsq=fused_rmsq, fused_w8a8=fused_w8a8,
+                      fused_mlp=fused_mlp, qkv_i8=qkv_i8, add_lnq=add_lnq,
+                      int8_attn=int8_attn)
+            self.lanes = [FrameEvaluator(
+                model if torch.device(d) == torch.device(device)
+                else copy.deepcopy(model).to(d), device=d, **kw)
+                for d in devices]
         cfg = model.cfg
         self.device = torch.device(device)
         self._qstate = None
@@ -279,11 +295,16 @@ class FrameEvaluator:
         """-> (W, num_classes) float32 logits for all windows of one clip."""
         return self.score_view_async(dataset, view).cpu().numpy()
 
-    def evaluate(self, dataset: FrameDataset, *,
+    def evaluate(self, dataset: FrameDataset, *, views=None,
                  exact_metrics: bool = False) -> EvalResult:
-        """Score every window of every eval view of ``dataset``."""
-        views = dataset.clip_eval_views()
-        self.calibrate(dataset, views=views)
+        """Score every window of the eval ``views`` of ``dataset`` (default:
+        all of them), round-robin over the ``devices`` lanes if there are
+        several."""
+        if views is None:
+            views = dataset.clip_eval_views()
+        lanes = self.lanes or [self]
+        for lane in lanes:
+            lane.calibrate(dataset)
         rows: Dict[str, list] = {k: [] for k in COLUMNS}
         t0 = time.perf_counter()
 
@@ -299,8 +320,9 @@ class FrameEvaluator:
         # one clip in flight: the host decodes and launches clip k+1 while
         # the device still scores clip k; rows keep dispatch order
         inflight = None
-        for view in views:
-            launched = (view, self.score_view_async(dataset, view))
+        for i, view in enumerate(views):
+            launched = (view, lanes[i % len(lanes)].score_view_async(
+                dataset, view))
             if inflight is not None:
                 drain(*inflight)
             inflight = launched
@@ -309,11 +331,49 @@ class FrameEvaluator:
         elapsed = time.perf_counter() - t0
 
         n_windows = len(rows["clip"])
-        logits = torch.tensor([rows["logits_safe"], rows["logits_risk"]],
-                              dtype=torch.float32).T
-        probs = torch.softmax(logits, dim=-1)[:, 1].numpy()
+        probs = _risk_probs_f32(rows)
         metrics = binary_metrics(probs, np.asarray(rows["label"]),
                                  exact=exact_metrics)
         return EvalResult(rows=rows, metrics=metrics,
                           windows_per_sec=n_windows / max(elapsed, 1e-9),
                           n_windows=n_windows)
+
+
+def read_predictions(path: str) -> Dict[str, list]:
+    """A predictions.csv back into ``EvalResult.rows``."""
+    types = {"logits_safe": float, "logits_risk": float, "label": int,
+             "ttc": float}
+    rows: Dict[str, list] = {k: [] for k in COLUMNS}
+    with open(path, newline="") as f:
+        for rec in csv.DictReader(f):
+            for k in COLUMNS:
+                rows[k].append(types.get(k, str)(rec[k]))
+    return rows
+
+
+def _risk_probs_f32(rows) -> np.ndarray:
+    """Each window's risk probability, the fp32 softmax of its logits."""
+    logits = torch.tensor([rows["logits_safe"], rows["logits_risk"]],
+                          dtype=torch.float32).T
+    return torch.softmax(logits, dim=-1)[:, 1].numpy()
+
+
+def evaluate_distributed(evaluator: FrameEvaluator, dataset: FrameDataset, *,
+                         exact_metrics: bool = False) -> EvalResult:
+    """``evaluator.evaluate`` over this rank's share of the clips,
+    ``clip_eval_views()[rank::world]``, with the metrics of every rank's
+    windows (a ragged gather of the risk probabilities and labels, on every
+    rank); ``rows`` are this rank's.  One process: ``evaluate``."""
+    from simple_tad_tpu_torch.parallel import multihost
+    world = multihost.world_size()
+    if world == 1:
+        return evaluator.evaluate(dataset, exact_metrics=exact_metrics)
+    views = dataset.clip_eval_views()[multihost.rank()::world]
+    res = evaluator.evaluate(dataset, views=views,
+                             exact_metrics=exact_metrics)
+    gathered = multihost.allgather_ragged_1d({
+        "probs": _risk_probs_f32(res.rows),
+        "label": np.asarray(res.rows["label"], np.int64)})
+    res.metrics = binary_metrics(gathered["probs"], gathered["label"],
+                                 exact=exact_metrics)
+    return res

@@ -51,7 +51,8 @@ depth runs on both residual branches after LayerScale with rates
 pooled features before the head, their masks drawn from the ``generator``
 given to ``forward``.  RMSNorm, LayerScale and the pooling head train
 through plain PyTorch autograd, as the JAX package leaves them to XLA.
-Gradient checkpointing (``remat``) is not ported and raises.
+Gradient checkpointing (``remat``) runs each block through
+models/layers.py:block_call.
 
 The JAX package's model-level sequence pad (``attn_seq_pad``) is not
 ported: it exists to save per-layer copies on the TPU, the port's kernels
@@ -74,7 +75,7 @@ from torch import nn
 
 from simple_tad_tpu_torch.models.layers import (QUANT_MODES, Linear, Mlp,
                                                 PatchEmbed, QuantLinear,
-                                                _param, absmax,
+                                                _param, absmax, block_call,
                                                 check_static_options,
                                                 drop_path, dropout, observe,
                                                 trunc_normal)
@@ -497,10 +498,6 @@ class InternVideo2(nn.Module):
         if cfg.quant and cfg.param_dtype is not None:
             raise ValueError("the int8 model is inference only")
         check_static_options(cfg)
-        if cfg.remat:
-            raise NotImplementedError(
-                "gradient checkpointing (--use_checkpoint) is not ported yet "
-                "(ROADMAP.md queue 1, frame fine-tuning: remat)")
         self.cfg = cfg
         dt, pdt, D = cfg.dtype, cfg.param_dtype, cfg.embed_dim
         nt, nh, nw = cfg.grid_size
@@ -608,7 +605,7 @@ class InternVideo2(nn.Module):
         wanted = sorted(return_taps)
         outs = {}
         for i, blk in enumerate(self.blocks):
-            tokens = blk(tokens, generator)
+            tokens = block_call(blk, tokens, generator, self.cfg.remat)
             if i in wanted:
                 outs[i] = tokens
         if wanted:

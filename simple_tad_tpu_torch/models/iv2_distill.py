@@ -25,7 +25,8 @@ mask, keeps the visible tokens in their original order, the reference's
 ``.pth`` loads by name (utils/torch_convert.py:load_distill_checkpoint).
 In ``train()`` mode with fp32 masters the blocks take the training
 attention (kernels C3) and draw their stochastic-depth masks from the
-``generator`` given to ``forward``.
+``generator`` given to ``forward``; ``remat`` checkpoints each block
+(models/layers.py:block_call).
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ from simple_tad_tpu_torch.models.internvideo2 import (AttentionPooling,
                                                       l2_normalize,
                                                       sincos_3d_pos_embed)
 from simple_tad_tpu_torch.models.layers import (Linear, PatchEmbed, _param,
-                                                gelu_for, trunc_normal)
+                                                block_call, gelu_for,
+                                                trunc_normal)
 from simple_tad_tpu_torch.models.mae import _gather_tokens, mask_partition
 
 
@@ -165,10 +167,6 @@ class DistillIV2Config:
 class DistillInternVideo2(nn.Module):
     def __init__(self, cfg: DistillIV2Config, *, device):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError(
-                "gradient checkpointing (--use_checkpoint) is not ported yet "
-                "(ROADMAP.md queue 1 item 5)")
         self.cfg = cfg
         dt, pdt, D = cfg.dtype, cfg.param_dtype, cfg.embed_dim
         kw = dict(dtype=dt, param_dtype=pdt, device=device)
@@ -245,7 +243,7 @@ class DistillInternVideo2(nn.Module):
         ret = cfg.return_index
         outs = {}
         for i, blk in enumerate(self.blocks):
-            x_vis = blk(x_vis, generator)
+            x_vis = block_call(blk, x_vis, generator, cfg.remat)
             if i in ret:
                 outs[i] = x_vis
         # the taps in ascending layer order, re-encoded by the second table

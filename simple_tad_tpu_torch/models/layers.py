@@ -20,6 +20,17 @@ draw their masks from the ``generator`` passed to ``forward``, each
 layer's attention draw before its proj dropout's, as the JAX Attention
 calls make_rng.
 
+Gradient checkpointing (``remat``; port of the JAX package's nn.remat of
+the block scan under ``remat_policy``): ``block_call`` runs each block
+through ``checkpoint_block``, which keeps the block's input and its
+attention's (out, lse) (ops/flash_attention.py:AttentionResiduals) and
+recomputes the rest in the backward: the qkv GEMM, the norms and the MLP
+run twice, the forward attention kernel once.  The recompute draws the
+block's masks again from the generator set back to its state at the
+block's forward, then leaves the generator where the forward left it, so
+the masks, the gradients and the generator's state are those of the step
+without checkpointing.
+
 The int8 model (``quant=True``) swaps in ``QuantLinear`` for the block
 GEMMs and, at widths that are multiples of 128 (the JAX gate),
 ``LayerNormQuant`` for norm1/norm2, in one of three modes: 'static'
@@ -55,18 +66,21 @@ bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from simple_tad_tpu_torch.ops.attention import (
     dot_product_attention, dot_product_attention_qkv,
     dot_product_attention_qkv_i8, dot_product_attention_qkv_int8,
     static_attention_route)
-from simple_tad_tpu_torch.ops.flash_attention import flash_attention_qkv_q8
+from simple_tad_tpu_torch.ops.flash_attention import (AttentionResiduals,
+                                                      flash_attention_qkv_q8)
 from simple_tad_tpu_torch.ops.int8_gemm import (activation, gelu_act,
                                                 use_fused_mlp, w8a8_gemm,
                                                 w8a8_mlp)
@@ -220,6 +234,41 @@ def dropout(x, rate: float, training: bool, generator=None):
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
+
+
+def checkpoint_block(block, x, generator=None, *, replay_draws=True):
+    """``block(x, generator)`` under torch's non-reentrant checkpoint: the
+    forward keeps ``x`` and the attention's (out, lse); the backward runs
+    the block again with the generator set back to its state at the
+    forward (``replay_draws``; False redraws every mask, a control that
+    must fail) and the attention taken from the kept pair."""
+    residuals = AttentionResiduals()
+    start = (generator.get_state()
+             if generator is not None and replay_draws else None)
+
+    @contextlib.contextmanager
+    def recompute():
+        after = generator.get_state() if start is not None else None
+        if start is not None:
+            generator.set_state(start)
+        try:
+            with residuals.reusing():
+                yield
+        finally:
+            if after is not None:
+                generator.set_state(after)
+
+    return torch.utils.checkpoint.checkpoint(
+        block, x, generator, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (residuals.saving(), recompute()))
+
+
+def block_call(block, x, generator=None, remat: bool = False):
+    """One block of a model's stack: checkpointed with ``remat`` in grad
+    mode (``checkpoint_block``), plain otherwise."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint_block(block, x, generator)
+    return block(x, generator)
 
 
 class DropPath(nn.Module):

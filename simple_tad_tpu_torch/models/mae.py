@@ -24,8 +24,10 @@ mask token + the masked positions], and its head, in fp32, predicts the
 trailing ``num_masked`` tokens.  ``mae_targets`` builds the targets.
 Training draws drop path and dropout from the ``generator`` passed to
 ``forward``; attention dropout takes ``attn_dropout_form`` as in the ViT.
-Not ported: the learnable encoder position table of PretrainVideoMAE and
-gradient checkpointing (both raise).
+``remat`` checkpoints each encoder and decoder block
+(models/layers.py:block_call), as the JAX package remats both scans.
+Not ported: the learnable encoder position table of PretrainVideoMAE
+(it raises).
 
 ``PretrainIV2VideoMAE`` (IV2MAEConfig) is the port of the JAX package's
 PretrainIV2VideoMAE (reference: internvideo2_pretrain_videomae.py:234-353,
@@ -54,6 +56,7 @@ from torch import nn
 
 from simple_tad_tpu_torch.models.layers import (Block, LayerNormFp32, Linear,
                                                 PatchEmbed, _param,
+                                                block_call,
                                                 sincos_1d_mae,
                                                 sincos_3d_pos_embed,
                                                 sincos_pos_embed,
@@ -171,6 +174,7 @@ class _Stack(nn.Module):
                  device):
         super().__init__()
         dpr = np.linspace(0.0, cfg.drop_path_rate, depth)
+        self.remat = cfg.remat
         self.blocks = nn.ModuleList(
             Block(dim, heads, mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
                   qk_scale=cfg.qk_scale, init_values=cfg.init_values,
@@ -188,7 +192,7 @@ class _Stack(nn.Module):
 
     def forward(self, x, generator=None):
         for blk in self.blocks:
-            x = blk(x, generator)
+            x = block_call(blk, x, generator, self.remat)
         return self.norm(x)
 
 
@@ -203,10 +207,6 @@ class PretrainVideoMAE(nn.Module):
             raise NotImplementedError(
                 "the learnable encoder position table of PretrainVideoMAE is "
                 "not ported (no pre-training job sets it)")
-        if cfg.remat:
-            raise NotImplementedError(
-                "gradient checkpointing (--use_checkpoint) is not ported yet "
-                "(ROADMAP.md queue 1 item 5, remat)")
         if cfg.pos_embed_kind not in ("1d", "3d"):
             raise ValueError(f"unknown pos_embed_kind {cfg.pos_embed_kind!r}"
                              f"; expected '1d' or '3d'")
@@ -415,7 +415,7 @@ class _IV2Encoder(nn.Module):
         tokens = self.patch_embed(x) + self.position_table().to(self.cfg.dtype)
         x = _gather_tokens(tokens, vis_idx)
         for blk in self.blocks:
-            x = blk(x, generator)
+            x = block_call(blk, x, generator, self.cfg.remat)
         return self.norm(x)
 
 
@@ -426,10 +426,6 @@ class PretrainIV2VideoMAE(nn.Module):
 
     def __init__(self, cfg: IV2MAEConfig, *, device):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError(
-                "gradient checkpointing (--use_checkpoint) is not ported yet "
-                "(ROADMAP.md queue 1 item 5, remat)")
         if cfg.attn_dropout_form not in DROPOUT_FORMS:
             raise ValueError(f"unknown attn_dropout_form "
                              f"{cfg.attn_dropout_form!r}")

@@ -35,8 +35,8 @@ dropout (``drop_rate``) and stochastic depth spread as
 (``attn_drop_rate``, kernels C4) in ``attn_dropout_form``: 'rng' (the TPU
 program's default: the kernels draw Philox bits from a seed) or 'mask' (an
 int8 keep mask drawn beside them; the JAX package's
-SIMPLE_TAD_DROPOUT_MASK).  Gradient checkpointing (``remat``) is not
-ported and raises.
+SIMPLE_TAD_DROPOUT_MASK).  Gradient checkpointing (``remat``) runs each
+block through models/layers.py:block_call.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ from torch import nn
 
 from simple_tad_tpu_torch.models.layers import (Block, LayerNormFp32, Linear,
                                                 PatchEmbed, _param,
+                                                block_call,
                                                 check_static_options, dropout,
                                                 sincos_3d_pos_embed,
                                                 sincos_pos_embed,
@@ -141,10 +142,6 @@ class VisionTransformer(nn.Module):
             raise ValueError(f"unknown attn_dropout_form "
                              f"{cfg.attn_dropout_form!r}; expected one of "
                              f"{DROPOUT_FORMS}")
-        if cfg.remat:
-            raise NotImplementedError(
-                "gradient checkpointing (--use_checkpoint) is not ported yet "
-                "(ROADMAP.md queue 1, frame fine-tuning: remat)")
         if cfg.quant and cfg.param_dtype is not None:
             raise ValueError("the int8 model is inference only")
         check_static_options(cfg)
@@ -227,7 +224,7 @@ class VisionTransformer(nn.Module):
             tokens = tokens + pending
         else:
             for blk in self.blocks:
-                tokens = blk(tokens, generator)
+                tokens = block_call(blk, tokens, generator, cfg.remat)
         if cfg.final_reduction == "fc_norm":
             if self.cls_token is not None:
                 tokens = tokens[:, 1:]

@@ -124,6 +124,15 @@ the routes of the calls without dropout (``attention_fwd_route``,
 ``attention_bwd_route``): at head dim 64 in bf16 the wgmma kernels, which
 stage the mask form's tiles in shared memory.
 
+Gradient checkpointing (port of the FLASH_RESIDUAL_NAME policy,
+models/layers.py:remat_policy there): the kernels are bound through
+ctypes, so a checkpoint policy of torch's, which sees dispatcher ops, can
+not keep their outputs.  ``AttentionResiduals`` does it instead: inside
+``residuals.saving()`` each training Function above keeps its forward's
+(out, lse) on the tape; inside ``residuals.reusing()`` (the recompute) it
+takes them back in order and launches no forward kernel, and its backward
+consumes the saved pair.  models/layers.py:checkpoint_block opens both.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  ``LAUNCHES`` counts launches of the bf16/fp32
 inference kernel on the packed qkv, ``SEP_LAUNCHES`` on separate operands,
@@ -155,12 +164,73 @@ C4-fwd) is also counted on the route ``attention_fwd_route`` names:
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from simple_tad_tpu_torch.kernels import build as kbuild
 from simple_tad_tpu_torch.ops.ln import quantize_static
+
+
+class AttentionResiduals:
+    """The (out, lse) pairs of the training attention forwards of one
+    checkpointed region.  ``saving()``: each forward launched inside
+    appends its pair; ``reusing()``: each forward inside takes the next
+    pair instead of launching (the recompute of the same region)."""
+
+    def __init__(self):
+        self.pairs = []
+        self.next = 0
+
+    @contextlib.contextmanager
+    def saving(self):
+        with _active(self, "save"):
+            yield
+
+    @contextlib.contextmanager
+    def reusing(self):
+        self.next = 0
+        with _active(self, "reuse"):
+            yield
+
+    def forward(self, launch):
+        """``launch()`` -> (out, lse), kept; or the kept pair."""
+        mode = _TAPE.mode
+        if mode == "reuse":
+            if self.next >= len(self.pairs):
+                raise RuntimeError("the recompute ran more attention "
+                                   "forwards than its forward pass")
+            out, lse = self.pairs[self.next]
+            # the recompute consumes each pair once: drop the tape's hold
+            self.pairs[self.next] = None
+            self.next += 1
+            return out.detach(), lse
+        out, lse = launch()
+        if mode == "save":
+            self.pairs.append((out.detach(), lse))
+        return out, lse
+
+
+_TAPE = threading.local()
+
+
+@contextlib.contextmanager
+def _active(tape, mode):
+    """Make ``tape`` the current one in ``mode`` on this thread (the
+    recompute runs on autograd's device thread)."""
+    prev = getattr(_TAPE, "tape", None), getattr(_TAPE, "mode", None)
+    _TAPE.tape, _TAPE.mode = tape, mode
+    try:
+        yield
+    finally:
+        _TAPE.tape, _TAPE.mode = prev
+
+
+def _residuals(launch):
+    """The forward's (out, lse): launched, or from the current tape."""
+    tape = getattr(_TAPE, "tape", None)
+    return launch() if tape is None else tape.forward(launch)
 
 LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 128
@@ -734,7 +804,8 @@ class FlashAttentionQKV(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, num_heads: int, scale: float):
-        out, lse = flash_attention_qkv_fwd_lse(qkv, num_heads, scale)
+        out, lse = _residuals(lambda: flash_attention_qkv_fwd_lse(
+            qkv, num_heads, scale))
         ctx.save_for_backward(qkv, out, lse)
         ctx.num_heads, ctx.scale = num_heads, scale
         return out
@@ -816,7 +887,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int, scale: float):
-        out, lse = flash_attention_fwd_lse(q, k, v, num_heads, scale)
+        out, lse = _residuals(lambda: flash_attention_fwd_lse(
+            q, k, v, num_heads, scale))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.num_heads, ctx.scale = num_heads, scale
         return out
@@ -1072,8 +1144,8 @@ class FlashAttentionDrop(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, keep, num_heads: int, scale: float,
                 rate: float, form: str):
-        out, lse = flash_attention_drop_fwd(q, k, v, num_heads, scale, rate,
-                                            **{form: keep})
+        out, lse = _residuals(lambda: flash_attention_drop_fwd(
+            q, k, v, num_heads, scale, rate, **{form: keep}))
         ctx.save_for_backward(q, k, v, keep, out, lse)
         ctx.num_heads, ctx.scale, ctx.rate, ctx.form = (num_heads, scale,
                                                         rate, form)

@@ -37,7 +37,7 @@ from simple_tad_tpu_torch.models.internvideo2 import l2_normalize
 from simple_tad_tpu_torch.models.layers import Linear, trunc_normal
 from simple_tad_tpu_torch.models.mae import mask_partition
 from simple_tad_tpu_torch.train.losses import cross_entropy
-from simple_tad_tpu_torch.train.optim import global_norm
+from simple_tad_tpu_torch.train.steps import backward_and_update
 
 
 def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -79,12 +79,7 @@ def _cosine_loss(s, t):
 
 def _update(state, loss) -> torch.Tensor:
     """Backward and the optimizer update -> the global gradient norm."""
-    opt = state.optimizer
-    loss.backward()
-    with torch.no_grad():
-        grad_norm = global_norm(p.grad for p in opt.params.values()
-                                if p.grad is not None)
-        opt.step()
+    grad_norm = backward_and_update(state.optimizer, loss)
     state.step += 1
     return grad_norm
 

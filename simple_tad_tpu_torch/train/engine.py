@@ -7,23 +7,26 @@ loop of run_frame_finetuning.py:620-747).  Host threads decode raw windows
 augmentation runs on the device (ops/augment.py:train_augment).
 
 ``TrainLoader`` is a copy of the JAX package's (that module imports jax at
-the top); tests/test_torch_host_copies.py holds it to the original.
+the top); tests/test_torch_host_copies.py holds it to the original.  Its
+decode threads hand the batches over in the epoch's order
+(data/prefetch.py), where the original's come in the order the threads
+finish, and at world > 1 it decodes this rank's rows only.
 ``FinetuneTrainer`` owns the train state on one device; ``validate``
 scores the validation split through the port's FrameEvaluator.
 """
 
 from __future__ import annotations
 
-import queue
-import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
 from simple_tad_tpu_torch.data.frame_datasets import FrameDataset
+from simple_tad_tpu_torch.data.prefetch import ordered_batches
 from simple_tad_tpu_torch.eval.metrics import binary_metrics
 from simple_tad_tpu_torch.ops.augment import train_augment
+from simple_tad_tpu_torch.parallel.mesh import rank_rows, rank_seed
 from simple_tad_tpu_torch.utils.logging import MetricLogger
 
 
@@ -33,15 +36,19 @@ class TrainLoader:
     Yields dicts {video_u8 (B,T,H,W,C), label, smoothed, ttc}.  Short final
     batches are dropped (the reference's DataLoader uses drop_last=True for
     training).  ``nb_samples_per_epoch`` caps an epoch like
-    ShortDistributedSampler (utils.py:1154-1181).
+    ShortDistributedSampler (utils.py:1154-1181).  With ``world`` > 1,
+    ``batch_size`` is the global batch and each batch holds, and decodes,
+    only this ``rank``'s rows of it (parallel/mesh.py:rank_rows).
     """
 
     def __init__(self, dataset: FrameDataset, batch_size: int, *,
                  seed: int = 0, nb_samples_per_epoch: int = 0,
                  num_threads: int = 4, prefetch: int = 4,
                  resize_scale: float = 1.0, num_sample: int = 1,
-                 balanced_ratio: Optional[float] = None):
+                 balanced_ratio: Optional[float] = None, rank: int = 0,
+                 world: int = 1):
         self.dataset = dataset
+        self.rows = rank_rows(batch_size, rank, world)
         self.batch_size = batch_size
         self.seed = seed
         self.cap = nb_samples_per_epoch
@@ -97,9 +104,6 @@ class TrainLoader:
         order = order[:n_batches * self.batch_size]
         batches = order.reshape(n_batches, self.batch_size)
 
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
-        stop = threading.Event()
-
         def decode_with_retry(i):
             # bad samples get a random substitute instead of failing
             # (dota.py:231-237)
@@ -116,7 +120,7 @@ class TrainLoader:
 
         def make_batch(idx_row):
             frames, labels, smoothed, ttc = [], [], [], []
-            for i in idx_row:
+            for i in idx_row[self.rows]:
                 f, s = decode_with_retry(i)
                 # repeated augmentation: decode once, duplicate; device augs
                 # draw independent params per copy
@@ -132,47 +136,22 @@ class TrainLoader:
                 "ttc": np.asarray(ttc, np.float32),
             }
 
-        def worker(rows):
-            try:
-                for row in rows:
-                    if stop.is_set():
-                        return
-                    q.put(make_batch(row))
-            except BaseException as e:  # noqa: BLE001
-                # propagate instead of dying silently: an unannounced dead
-                # worker would leave the consumer blocked on q.get() forever
-                q.put(e)
-
-        per = [batches[i::self.num_threads] for i in range(self.num_threads)]
-        # interleave deterministically: a single feeder thread per shard
-        # pushing into one queue loses global order; keep order by using
-        # one sequencer thread that farms decode to the zipreader pool.
-        threads = [threading.Thread(target=worker, args=(rows,), daemon=True)
-                   for rows in per if len(rows)]
-        for t in threads:
-            t.start()
-        try:
-            for _ in range(n_batches):
-                item = q.get()
-                if isinstance(item, BaseException):
-                    stop.set()
-                    raise item
-                yield item
-        finally:
-            stop.set()
-            while not q.empty():
-                q.get_nowait()
+        yield from ordered_batches(batches, make_batch, self.num_threads,
+                                   self.prefetch)
 
 
 class FinetuneTrainer:
     """Owns the train step, the train state and the epoch loop on one
-    device.  Augmentation masks come from a generator on the device seeded
-    from ``seed`` and the epoch."""
+    device (one rank of a data-parallel run).  Augmentation masks come
+    from a generator on the device seeded from ``seed``, the epoch and
+    ``rank``.  ``grad_norms``: a utils/diagnostics.py:GradNormAccumulator
+    fed each step's ``metrics['grad_norms']``."""
 
     def __init__(self, train_step, state, *, device, crop_size: int = 224,
                  aug_magnitude: float = 6.0, aug_layers: int = 3,
                  reprob: float = 0.25, dtype=torch.bfloat16,
-                 log_writer=None, seed: int = 0):
+                 log_writer=None, seed: int = 0, rank: int = 0,
+                 grad_norms=None):
         self.train_step = train_step
         self.state = state
         self.device = torch.device(device)
@@ -183,6 +162,8 @@ class FinetuneTrainer:
         self.dtype = dtype
         self.log_writer = log_writer
         self.seed = seed
+        self.rank = rank
+        self.grad_norms = grad_norms
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(x))
@@ -205,7 +186,7 @@ class FinetuneTrainer:
                         print_freq: int = 10) -> Dict[str, float]:
         ml = MetricLogger(print_freq=print_freq)
         aug = torch.Generator(device=self.device)
-        aug.manual_seed(self.seed * 1_000_003 + epoch)
+        aug.manual_seed(rank_seed(self.seed * 1_000_003 + epoch, self.rank))
         all_logits, all_labels = [], []
         for batch in ml.log_every(loader.epoch(epoch),
                                   header=f"Epoch [{epoch}]"):
@@ -218,6 +199,8 @@ class FinetuneTrainer:
             acc = float(metrics["acc"])
             ml.update(loss=loss, grad_norm=float(metrics["grad_norm"]),
                       acc=acc)
+            if self.grad_norms is not None and "grad_norms" in metrics:
+                self.grad_norms.update(metrics["grad_norms"])
             all_logits.append(logits.float().cpu())
             all_labels.append(batch["label"])
             if self.log_writer is not None:
@@ -231,10 +214,12 @@ class FinetuneTrainer:
         return stats
 
 
-def validate(evaluator, dataset: FrameDataset) -> Dict[str, float]:
+def validate(evaluator, dataset: FrameDataset, evaluate=None
+             ) -> Dict[str, float]:
     """validation_one_epoch equivalent: returns the metric dict keyed the
-    way BestTracker expects (auroc/ap/acc/mccauc)."""
-    res = evaluator.evaluate(dataset)
+    way BestTracker expects (auroc/ap/acc/mccauc).  ``evaluate``: the call
+    that scores (default ``evaluator.evaluate(dataset)``)."""
+    res = evaluate() if evaluate is not None else evaluator.evaluate(dataset)
     m = res.metrics
     return {"auroc": m.auroc, "ap": m.ap, "acc": m.acc,
             "mccauc": m.mcc_auc, "mcc_05": m.mcc_05, "f1": m.f1,

@@ -29,6 +29,7 @@ from torch import nn
 from simple_tad_tpu_torch.models.mae import mae_targets
 from simple_tad_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
 from simple_tad_tpu_torch.train.optim import FinetuneOptimizer, global_norm
+from simple_tad_tpu_torch.utils.diagnostics import grad_norm_summary
 
 
 @dataclasses.dataclass
@@ -51,13 +52,31 @@ class TrainState:
                    ema=ema)
 
 
+def backward_and_update(opt: FinetuneOptimizer, loss: torch.Tensor
+                        ) -> torch.Tensor:
+    """Backward, the gradients averaged across the data-parallel ranks
+    (``FinetuneOptimizer.reduce_grads``), then the optimizer call -> the
+    global norm of the (averaged) gradients, before clipping."""
+    loss.backward()
+    with torch.no_grad():
+        opt.reduce_grads()
+        grad_norm = global_norm(p.grad for p in opt.params.values()
+                                if p.grad is not None)
+        opt.step()
+    return grad_norm
+
+
 def make_finetune_train_step(criterion: Callable, *,
-                             ema_decay: Optional[float] = None):
+                             ema_decay: Optional[float] = None,
+                             grad_norm_heads: Optional[int] = None):
     """-> step(state, batch) -> (metrics, logits).
 
     batch: {'video': (B, T, H, W, C) normalized, 'label': (B,),
     'smoothed': (B, 2), 'ttc': (B,)} on the model's device; criterion from
-    train.losses.create_criterion.
+    train.losses.create_criterion.  ``grad_norm_heads``: the number of
+    attention heads; given, ``metrics['grad_norms']`` holds the per-layer /
+    per-head gradient norms of utils/diagnostics.py:grad_norm_summary (of
+    the gradients after the cross-rank average, before clipping).
     """
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
@@ -70,8 +89,13 @@ def make_finetune_train_step(criterion: Callable, *,
                          batch.get("ttc"))
         loss.backward()
         with torch.no_grad():
+            opt.reduce_grads()
             grad_norm = global_norm(p.grad for p in opt.params.values()
                                     if p.grad is not None)
+            norms = (grad_norm_summary(
+                {n: p.grad for n, p in opt.params.items()
+                 if p.grad is not None}, grad_norm_heads)
+                if grad_norm_heads is not None else None)
             opt.step()
             if ema_decay is not None and state.ema is not None:
                 for n, p in opt.params.items():
@@ -80,6 +104,8 @@ def make_finetune_train_step(criterion: Callable, *,
             acc = (logits.argmax(-1) == batch["label"]).float().mean()
         state.step += 1
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "acc": acc}
+        if norms is not None:
+            metrics["grad_norms"] = norms
         return metrics, logits.detach()
 
     return step
@@ -118,11 +144,7 @@ def make_mae_train_step(*, num_masked: int, normalize_target: bool = True):
         opt.zero_grad()
         loss = mae_loss(state.model, batch, num_masked, state.generator,
                         normalize_target=normalize_target)
-        loss.backward()
-        with torch.no_grad():
-            grad_norm = global_norm(p.grad for p in opt.params.values()
-                                    if p.grad is not None)
-            opt.step()
+        grad_norm = backward_and_update(opt, loss)
         state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 

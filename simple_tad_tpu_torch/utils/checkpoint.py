@@ -44,17 +44,27 @@ def _cpu(tree):
 
 def save_train_state(output_dir: str, state, epoch: int,
                      name: str = LAST) -> None:
-    """The full training state for resume."""
+    """The full training state for resume.  In a data-parallel run every
+    rank calls it (the optimizer gathers its ZeRO shards) and rank 0
+    writes, with every rank's drop-path generator state."""
+    from simple_tad_tpu_torch.parallel import multihost
+    optimizer = _cpu(state.optimizer.state_dict())
+    generators = multihost.allgather_object(state.generator.get_state())
+    if not multihost.is_main_process():
+        return
     _save({"params": _cpu(state.model.state_dict()),
-           "optimizer": _cpu(state.optimizer.state_dict()),
+           "optimizer": optimizer,
            "step": state.step, "epoch": epoch,
-           "generator": state.generator.get_state(),
+           "generator": generators[0], "generators": generators,
            "ema": _cpu(state.ema)}, _path(output_dir, name))
 
 
 def load_train_state(output_dir: str, state, name: str = LAST):
     """Restore ``state`` in place from checkpoint-last -> (state, next
-    epoch), or (state, 0) if there is none."""
+    epoch), or (state, 0) if there is none.  Every rank of a data-parallel
+    run loads the file (written at any world size); each rank's drop-path
+    generator takes the state saved for its rank, or, for a rank the file
+    has none for, rank 0's re-seeded with the rank folded in."""
     path = _path(output_dir, name)
     if not os.path.exists(path):
         return state, 0
@@ -62,7 +72,14 @@ def load_train_state(output_dir: str, state, name: str = LAST):
     state.model.load_state_dict(ckpt["params"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
-    state.generator.set_state(ckpt["generator"])
+    from simple_tad_tpu_torch.parallel import multihost
+    from simple_tad_tpu_torch.parallel.mesh import rank_seed
+    rank = multihost.rank()
+    saved = ckpt.get("generators") or [ckpt["generator"]]
+    state.generator.set_state(saved[min(rank, len(saved) - 1)])
+    if rank >= len(saved):
+        state.generator.manual_seed(rank_seed(
+            state.generator.initial_seed() + state.step, rank))
     if state.ema is not None and ckpt["ema"] is not None:
         for n, t in state.ema.items():
             t.copy_(ckpt["ema"][n])
@@ -71,7 +88,10 @@ def load_train_state(output_dir: str, state, name: str = LAST):
 
 def save_weights(output_dir: str, weights: Dict[str, torch.Tensor],
                  name: str) -> None:
-    """Weights-only snapshot (best-metric / periodic)."""
+    """Weights-only snapshot (best-metric / periodic), by rank 0."""
+    from simple_tad_tpu_torch.parallel.multihost import is_main_process
+    if not is_main_process():
+        return
     _save({"model": _cpu(dict(weights))}, _path(output_dir, name + ".pth"))
 
 

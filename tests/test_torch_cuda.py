@@ -1800,3 +1800,50 @@ def test_tiny_distill_step_goes_through_kernels(cuda):
              if torch.equal(p, before[n])}
     assert still <= {"clip_projector.cross_attn.k_bias",
                      "clip_projector.norm1_k.bias"}, still
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["rng", "mask"])
+def test_vit_b_remat_step_matches_the_plain_step(form, cuda):
+    """One ViT-B 16x224 step (forward and backward, batch 2, bf16 compute,
+    fp32 masters, drop path 0.1, attention dropout 0.1 in ``form``) with
+    ``remat`` gives the step without it's loss and gradients bit for bit,
+    leaves the generator where that step leaves it, and launches each
+    attention kernel as often (the recompute takes the forward's (out,
+    lse): models/layers.py:checkpoint_block); only the LayerNorm kernel
+    runs again, twice a block."""
+    from simple_tad_tpu_torch.models import create_model
+    from simple_tad_tpu_torch.train.losses import cross_entropy
+    names = ("FWD_LSE_LAUNCHES", "BWD_LAUNCHES", "DROP_FWD_LAUNCHES",
+             "DROP_BWD_LAUNCHES", "DROP_RNG_FWD_LAUNCHES",
+             "DROP_RNG_BWD_LAUNCHES", "DELTA_LAUNCHES", "LAUNCHES",
+             "FWD_WGMMA_LAUNCHES", "BWD_WGMMA_LAUNCHES")
+    video = _randn((2, 16, 224, 224, 3), 40, cuda).bfloat16()
+    labels = torch.tensor([0, 1], device=cuda)
+    runs = []
+    for remat in (False, True):
+        model = create_model("vit_base_patch16_224", device=cuda,
+                             generator=torch.Generator().manual_seed(0),
+                             dtype=torch.bfloat16, param_dtype=torch.float32,
+                             drop_path_rate=0.1, attn_drop_rate=0.1,
+                             attn_dropout_form=form, remat=remat).train()
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(1)
+        counts = [getattr(fa, n) for n in names] + [ln.LAUNCHES]
+        loss = cross_entropy(model(video, generator=gen), labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = [getattr(fa, n) - c for n, c in zip(names, counts)] + [
+            ln.LAUNCHES - counts[-1]]
+        runs.append((loss.detach(), {n: p.grad for n, p in
+                                     model.named_parameters()},
+                     gen.get_state(), counts))
+        del model
+    (loss, grads, state, counts), (rloss, rgrads, rstate, rcounts) = runs
+    assert counts[:-1] == rcounts[:-1] and sum(counts[:-1]) > 0, (counts,
+                                                                  rcounts)
+    assert rcounts[-1] == counts[-1] + 2 * 12, (counts, rcounts)
+    assert torch.equal(rloss, loss)
+    assert torch.equal(rstate, state)
+    for n, g in grads.items():
+        assert torch.equal(rgrads[n], g), n

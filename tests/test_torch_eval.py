@@ -121,12 +121,15 @@ def test_eval_cli_writes_jax_columns_and_keys(dota_root, tmp_path):
 
 
 def test_eval_cli_rejects_unported_options(dota_root):
-    """--dist_eval is not ported (--quant8 is: tests/test_torch_quant_vit.py
-    runs it); an unknown --quant8_mode is refused."""
+    """--dist_eval is ported (tests/test_torch_ddp.py runs it at world 2):
+    the flag passes to the evaluation, which here refuses an unknown
+    --quant8_mode, as it does without the flag (--quant8 is ported:
+    tests/test_torch_quant_vit.py runs it)."""
     from simple_tad_tpu_torch.cli.eval_frames import main
     base = ["--data_path", dota_root, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(base + ["--dist_eval"])
+    with pytest.raises(ValueError, match="quant8_mode"):
+        main(base + ["--dist_eval", "--input_size", "32", "--quant8",
+                     "--quant8_mode", "fp8"])
     with pytest.raises(ValueError, match="quant8_mode"):
         main(base + ["--input_size", "32", "--quant8",
                      "--quant8_mode", "fp8"])

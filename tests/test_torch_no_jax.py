@@ -37,7 +37,10 @@ for name in ("ops.quant", "ops.int8_gemm", "ops.ln", "ops.flash_attention",
              "models.iv2_distill", "train.distill", "cli.distill",
              # class fine-tuning, probing and the IV2 DAPT
              "data.video_cls_datasets", "cli.class_finetune",
-             "cli.linear_probe"):
+             "cli.linear_probe",
+             # data parallelism, the diagnostics, the eval CLI
+             "parallel", "parallel.multihost", "parallel.mesh",
+             "utils.diagnostics", "cli.eval_frames"):
     assert "simple_tad_tpu_torch." + name in names, name
 """
 

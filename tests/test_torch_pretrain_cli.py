@@ -95,15 +95,19 @@ def test_pretrain_cli_auto_resume_and_finetune_handoff(full_root, tmp_path):
 
 
 def test_pretrain_cli_rejects_unported_options(full_root, tmp_path):
+    """``--use_checkpoint``, once refused, now checkpoints every encoder
+    and decoder block, of PretrainVideoMAE and of the InternVideo2 DAPT
+    model (tests/test_torch_remat.py holds the step to the plain one),
+    and one epoch runs."""
     from simple_tad_tpu_torch.cli.pretrain import main
-    with pytest.raises(NotImplementedError, match="item 5"):
-        main(_args(full_root, str(tmp_path / "a"), "--use_checkpoint"))
-    # the InternVideo2 DAPT model is ported (tests/test_torch_iv2_mae.py);
-    # gradient checkpointing raises there too
-    with pytest.raises(NotImplementedError, match="item 5"):
-        main(_args(full_root, str(tmp_path / "b"), "--model",
-                   "pretrain_videomae_internvideo2_patch14_224",
-                   "--use_checkpoint"))
+    state = main(_args(full_root, str(tmp_path / "a"), "--use_checkpoint",
+                       "--stop_at_epoch", "1"))
+    assert state.model.cfg.remat and state.step == 4
+    state = main(_args(full_root, str(tmp_path / "b"), "--model",
+                       "pretrain_videomae_internvideo2_patch14_224",
+                       "--input_size", "28", "--use_checkpoint",
+                       "--stop_at_epoch", "1"))
+    assert state.model.cfg.remat and state.step == 4
 
 
 def test_trainer_epoch_takes_the_plain_loops_steps():

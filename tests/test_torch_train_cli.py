@@ -2,8 +2,8 @@
 end on the CPU, on the synthetic DoTA fixture with the arguments
 tests/test_cli.py gives the JAX CLI (ViT-S, 32x32 input, fp32, one
 epoch): it writes log.txt, checkpoint-last and the best-metric
-checkpoints, a second run auto-resumes, and options of the JAX CLI that
-are not ported raise."""
+checkpoints, a second run auto-resumes, and the options once refused
+(--zero_stage, --use_checkpoint, the optimizer menu) run."""
 
 import glob
 import json
@@ -66,9 +66,25 @@ def test_finetune_cli_one_epoch_and_auto_resume(full_root, tmp_path):
 ])
 def test_finetune_cli_rejects_unported_options(full_root, tmp_path, extra,
                                                match):
+    """The options the CLI once rejected as unported (``match`` names
+    which) now run an epoch: ``--zero_stage`` (one process: nothing to
+    shard), ``--use_checkpoint`` (the model checkpoints its blocks) and
+    ``--opt lamb``; several devices in one process are still refused, in
+    favour of one process per card under torchrun."""
     from simple_tad_tpu_torch.cli.finetune import main
-    with pytest.raises(NotImplementedError, match=match):
-        main(_args(full_root, str(tmp_path / "x"), *extra))
+    state = main(_args(full_root, str(tmp_path / "x"), *extra))
+    assert state.step > 0 and state.optimizer.count == state.step
+    if match == "DDP":
+        assert state.optimizer.zero_stage == 0 and state.optimizer.owner \
+            is None
+    elif match == "remat":
+        assert state.model.cfg.remat
+    else:
+        assert state.optimizer.opt == "lamb"
+        assert set(state.optimizer.state) == {"mu", "nu"}
+    with pytest.raises(ValueError, match="torchrun"):
+        main(_args(full_root, str(tmp_path / "y"), *extra) + [
+            "--device", "cpu,cpu"])
 
 
 def test_attention_dropout_raises_in_training():

@@ -227,8 +227,8 @@ def test_unported_variants_raise():
     """The MVD and UMT trunks (tests/test_torch_trunk_variants.py), the
     InternVideo2 distillation students (tests/test_torch_distill.py) and
     the InternVideo2 pre-training models (tests/test_torch_iv2_mae.py) are
-    ported; gradient checkpointing still raises, and a name outside the
-    registry raises naming ROADMAP.md."""
+    ported, and so is gradient checkpointing (tests/test_torch_remat.py);
+    a name outside the registry raises naming ROADMAP.md."""
     from simple_tad_tpu_torch.models.iv2_distill import DistillInternVideo2
     from simple_tad_tpu_torch.models.mae import PretrainIV2VideoMAE
     for name in ["pretrain_videomae_internvideo2_patch14_224"] + [
@@ -243,8 +243,8 @@ def test_unported_variants_raise():
         assert isinstance(create_model(
             f"distill_internvideo2_{size}_patch14_224", device="meta"),
             DistillInternVideo2)
-    with pytest.raises(NotImplementedError):
-        create_model("vit_small_patch16_224", device="cpu", remat=True)
+    assert create_model("vit_small_patch16_224", device="meta",
+                        remat=True).cfg.remat
     with pytest.raises(ValueError, match="pos_embed_kind"):
         create_model("vit_small_patch16_224", device="cpu",
                      pos_embed_kind="2d")
