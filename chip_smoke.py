@@ -383,6 +383,22 @@ Phases (any failure raises, so the exit code is non-zero):
      gradient all-reduce) plain and with ``zero_stage`` 1 (the owner's
      broadcast), must leave the parameters bit-equal to the same steps
      without a process group, the collectives counted.
+ 18. jobs/vis.sh's MAE reconstruction and the efficiency harness.  (i)
+     cli/visualize.py's mae-recon core (``reconstruct``) at the job's
+     flags (RECON_MODEL, RECON_FLAGS: MAE-B with decoder depth 4, 16x224,
+     tube mask 0.9, seed 42) in fp32 with seeded weights on a synthetic
+     16-frame 360x640 clip from memory (resized on the host by the port's
+     cubic resize): 12 encoder attention calls at N = 160 and 4 decoder
+     calls at N = 1568 (C = 384, H = 6), all on the forward's fp32 route,
+     and 34 LayerNorm calls, nothing else launched; the recon within
+     RECON_ATOL of the same core on the plain versions, and two controls
+     (the un-normalisation without the std; every head reading the next
+     head's v) outside it; the reconstruction timed host to host and the
+     model's forward by CUDA events.  (ii) cli/efficiency.py's
+     benchmark_model on vit_base_patch16_224 in bf16 at
+     EFFICIENCY_BATCHES (its rows printed as JSON lines): every forward's
+     12 attention calls on A1's wgmma route and 25 LayerNorm calls,
+     nothing else launched.
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -769,6 +785,22 @@ DAPT_ACCUM_PARTS = (120, 80)
 DAPT_JOB_WARMUP, DAPT_JOB_TIMED = 2, 5
 DDP_STEPS = 3
 DDP_TIMEOUT_S = 300
+# phase 18: (i) jobs/vis.sh's mae-recon (cli/visualize.py:reconstruct): the
+# job's model and flags, seeded weights (the repo holds no checkpoint), fp32,
+# on a synthetic 16-frame 360x640 clip from memory; its recon held to the
+# same core on the plain versions within RECON_ATOL (the recon is in [0, 1]
+# pixel units), against two controls that must fail it (the patches
+# un-normalised without the std; every head reading the next head's v);
+# the reconstruction timed RECON_RUNS times.  (ii) cli/efficiency.py's
+# benchmark_model on ViT-B bf16 at EFFICIENCY_BATCHES, EFFICIENCY_ITERS
+# iterations
+RECON_MODEL = "pretrain_videomae_base_patch16_224"
+RECON_FLAGS = dict(mask_ratio=0.9, decoder_depth=4, num_frames=16,
+                   input_size=224, seed=42)
+RECON_ATOL = 1e-3
+RECON_RUNS = 3
+EFFICIENCY_BATCHES = (1, 32)
+EFFICIENCY_ITERS = 4
 # phases 7 and 8: IV2-S of jobs/finetune/IV2-S_DoTA.sh (--num_frames 8
 # --view_fps 5 on 10 fps DoTA: windows of every other frame)
 IV2_VIEW_STEP = 2
@@ -5415,6 +5447,119 @@ def run_ddp_world1(seed: int) -> dict:
     return out
 
 
+def recon_without_std(out, cfg) -> np.ndarray:
+    """Phase 18's control: ``out``'s predictions painted back with the
+    patch means alone (the un-normalisation without the std)."""
+    from simple_tad_tpu_torch.cli import visualize as vis
+    p, tb = cfg.patch_size, cfg.tubelet_size
+    v = vis.patchify(out["orig"], p, tb)
+    rec = v.copy()
+    idx = out["mask_idx"]
+    rec[idx] = (out["pred"].reshape(len(idx), -1, 3)
+                + v.mean(axis=1, keepdims=True)[idx])
+    return vis.unpatchify(rec, out["orig"].shape, p, tb)
+
+
+def run_mae_recon(dev, seed: int) -> dict:
+    """Phase 18 (i): jobs/vis.sh's reconstruction core at full width."""
+    from simple_tad_tpu_torch.cli import visualize as vis
+    from simple_tad_tpu_torch.ops import flash_attention, ln
+    model = vis.build_mae_model(
+        RECON_MODEL, decoder_depth=RECON_FLAGS["decoder_depth"],
+        num_frames=RECON_FLAGS["num_frames"],
+        input_size=RECON_FLAGS["input_size"], device=dev, seed=seed)
+    cfg = model.cfg
+    frames = np.random.default_rng(seed).integers(
+        0, 256, (RECON_FLAGS["num_frames"], HEIGHT, WIDTH, 3), np.uint8)
+    kw = dict(mask_ratio=RECON_FLAGS["mask_ratio"], seed=RECON_FLAGS["seed"])
+    vis.reconstruct(model, frames, **kw)                   # warm-up
+    times = []
+    for _ in range(RECON_RUNS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        reset_counts()
+        out = vis.reconstruct(model, frames, **kw)
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = read_counts()
+    n_vis = cfg.num_patches - out["mask_idx"].size
+    x = torch.randn(1, cfg.all_frames, cfg.img_size, cfg.img_size, 3,
+                    device=dev)
+    mask = torch.zeros(1, cfg.num_patches, dtype=torch.bool, device=dev)
+    mask[0, torch.from_numpy(out["mask_idx"]).to(dev)] = True
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(x, mask, out["mask_idx"].size),
+                         runs=5, warmup=1)
+    with routed(layernorm=ln.layernorm_plain,
+                flash_attention_qkv=flash_attention.flash_attention_qkv_plain):
+        plain = vis.reconstruct(model, frames, **kw)
+    with routed(flash_attention_qkv=attention_next_head_v):
+        misread = vis.reconstruct(model, frames, **kw)
+    err = float(np.abs(out["recon"] - plain["recon"]).max())
+    controls = {"no std": float(np.abs(recon_without_std(plain, cfg)
+                                       - plain["recon"]).max()),
+                "next head's v": float(np.abs(misread["recon"]
+                                              - plain["recon"]).max())}
+    print(f"[mae-recon] {RECON_MODEL} fp32, decoder depth "
+          f"{cfg.decoder_depth}, {cfg.all_frames}x{cfg.img_size}, mask "
+          f"{RECON_FLAGS['mask_ratio']}: {n_vis} visible / "
+          f"{out['mask_idx'].size} masked tokens; reconstruct (host to "
+          f"host, resize from {HEIGHT}x{WIDTH} on the host) median "
+          f"{statistics.median(times):.2f} ms of {RECON_RUNS} (min "
+          f"{min(times):.2f}, max {max(times):.2f}); model forward "
+          f"{fwd_ms:.4f} ms (CUDA events, median of 5)")
+    print(f"[mae-recon] launches {launches}; recon vs plain versions max "
+          f"|err| {err:.3e} (bound {RECON_ATOL:.1e}); controls "
+          + ", ".join(f"{k} {v:.3e}" for k, v in controls.items()))
+    for name in ("orig", "masked", "recon"):
+        assert out[name].shape == (cfg.all_frames, cfg.img_size,
+                                   cfg.img_size, 3), name
+        assert np.isfinite(out[name]).all(), f"non-finite {name}"
+    want = dict.fromkeys(COUNTERS, 0)
+    blocks = cfg.encoder_depth + cfg.decoder_depth
+    want.update(attention=blocks, fwd_route_fp32=blocks,
+                layernorm=2 * blocks + 2)
+    assert launches == want, (launches, want)
+    assert err <= RECON_ATOL, f"recon disagrees with the plain run: {err}"
+    for name, value in controls.items():
+        assert value > RECON_ATOL, \
+            f"the recon bound lets the control through ({name}: {value})"
+    return {"ms": statistics.median(times), "forward_ms": fwd_ms,
+            "err": err, "launches": launches}
+
+
+def run_efficiency(dev, seed: int) -> list:
+    """Phase 18 (ii): cli/efficiency.py's benchmark_model on ViT-B bf16;
+    every forward's 12 attention calls on A1's wgmma route and 25
+    LayerNorm calls, nothing else launched."""
+    from simple_tad_tpu_torch.cli import efficiency
+    reset_counts()
+    rows = efficiency.benchmark_model(
+        "vit_base_patch16_224", batches=EFFICIENCY_BATCHES,
+        iters=EFFICIENCY_ITERS, dtype=torch.bfloat16, device=dev, seed=seed)
+    launches = read_counts()
+    forwards = launches["attention"] // 12
+    print(f"[efficiency] launches {launches} ({forwards} forwards)")
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(attention=12 * forwards, fwd_route_wgmma=12 * forwards,
+                layernorm=25 * forwards)
+    assert forwards >= 2 * len(EFFICIENCY_BATCHES), launches
+    assert launches == want, (launches, want)
+    assert [r["batch"] for r in rows] == list(EFFICIENCY_BATCHES)
+    for r in rows:
+        assert r["latency_ms"] > 0 and r["peak_hbm_mb"], r
+    return rows
+
+
+def run_phase18(dev, seed: int, lap) -> dict:
+    """Phase 18: jobs/vis.sh's MAE reconstruction and the efficiency
+    harness."""
+    out = {"recon": run_mae_recon(dev, seed)}
+    torch.cuda.empty_cache()
+    out["efficiency"] = run_efficiency(dev, seed)
+    lap("phase 18")
+    return out
+
+
 def run_phase17(dev, seed: int, lap) -> dict:
     """Phase 17: gradient checkpointing against the step without it, the
     DAPT job's step on one card with --use_checkpoint and with
@@ -5527,6 +5672,8 @@ def main(argv=None):
     run_phase16(dev, args.seed, lap)
     # phase 17: remat, the DAPT job's step on one card, data parallelism
     run_phase17(dev, args.seed, lap)
+    # phase 18: jobs/vis.sh's MAE reconstruction, the efficiency harness
+    run_phase18(dev, args.seed, lap)
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]

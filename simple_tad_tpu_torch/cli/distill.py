@@ -121,6 +121,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for the JAX CLI's flag set; the port has "
                         "one attention path")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--native_decoder", action="store_true",
+                   help="decode the DoTA / DADA zips with the C++ decoder "
+                        "(data/native.py); raises where it cannot be built")
     return p
 
 
@@ -231,7 +234,8 @@ def build_loader(args, rank: int = 0, world: int = 1):
         raise ValueError(f"unknown data_set {args.data_set}")
     ds = FrameDataset(clips, mode="train", view_len=args.num_frames,
                       target_fps=args.view_fps, orig_fps=orig_fps,
-                      view_step=args.sampling_rate, crop_size=args.input_size)
+                      view_step=args.sampling_rate, crop_size=args.input_size,
+                      native_decoder=args.native_decoder)
     return TrainLoader(ds, args.batch_size * world, seed=args.seed,
                        num_threads=args.num_workers, rank=rank,
                        world=world), False
@@ -348,6 +352,9 @@ def main(argv=None):
     from simple_tad_tpu_torch.utils import checkpoint as ckpt_utils
 
     check_device(args.device)
+    if args.native_decoder:         # fail before the models are built
+        from simple_tad_tpu_torch.data import native
+        native.load()
     dp = data_parallel_setup(args.device)
     world, rank, device = dp
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32

@@ -66,8 +66,15 @@ def main(argv=None):
     pre.add_argument("--no_qkv_i8", dest="qkv_i8", action="store_false")
     pre.add_argument("--add_lnq", action="store_true")
     pre.add_argument("--int8_attn", action="store_true")
+    pre.add_argument("--native_decoder", action="store_true",
+                     help="decode the zips with the C++ decoder "
+                          "(data/native.py); raises where it cannot be "
+                          "built")
     dev_args, rest = pre.parse_known_args(argv)
     cfg = FinetuneConfig.from_args(rest)
+    if dev_args.native_decoder:     # fail before the model is built
+        from simple_tad_tpu_torch.data import native
+        native.load()
     if cfg.output_dir:
         # the plots come last: fail before the evaluation, not after it
         from simple_tad_tpu_torch.eval.plots import require_plotting
@@ -130,7 +137,8 @@ def main(argv=None):
 
     ds = FrameDataset(clips, mode="test", view_len=cfg.num_frames,
                       target_fps=cfg.view_fps, orig_fps=orig_fps,
-                      view_step=1, crop_size=cfg.input_size)
+                      view_step=1, crop_size=cfg.input_size,
+                      native_decoder=dev_args.native_decoder)
     print(f"eval windows: {len(ds)} over {len(clips)} clips")
 
     devices = None

@@ -63,7 +63,7 @@ import torch
 from simple_tad_tpu_torch.config import FinetuneConfig
 
 
-def build_datasets(cfg: FinetuneConfig):
+def build_datasets(cfg: FinetuneConfig, native_decoder: bool = False):
     from simple_tad_tpu_torch.data.frame_datasets import (
         FrameDataset, read_dada_clips, read_dota_clips)
     if cfg.data_set == "DoTA":
@@ -88,12 +88,14 @@ def build_datasets(cfg: FinetuneConfig):
                             view_len=cfg.num_frames,
                             target_fps=cfg.view_fps, orig_fps=orig_fps,
                             view_step=cfg.sampling_rate,
-                            crop_size=cfg.input_size)
+                            crop_size=cfg.input_size,
+                            native_decoder=native_decoder)
     # validation stride 1 (datasets_frame.py:219)
     val_ds = FrameDataset(val_clips, mode="validation",
                           view_len=cfg.num_frames, target_fps=cfg.view_fps,
                           orig_fps=orig_fps, view_step=1,
-                          crop_size=cfg.input_size)
+                          crop_size=cfg.input_size,
+                          native_decoder=native_decoder)
     return train_ds, val_ds
 
 
@@ -152,9 +154,16 @@ def main(argv=None):
     pre.add_argument("--attn_dropout_form", choices=("rng", "mask"),
                      default="rng")
     pre.add_argument("--grad_norm_heads", type=int, default=None)
+    pre.add_argument("--native_decoder", action="store_true",
+                     help="decode the zips with the C++ decoder "
+                          "(data/native.py); raises where it cannot be "
+                          "built")
     dev_args, rest = pre.parse_known_args(argv)
     cfg = FinetuneConfig.from_args(rest)
     check_device(dev_args.device)
+    if dev_args.native_decoder:     # fail before the model is built
+        from simple_tad_tpu_torch.data import native
+        native.load()
     if cfg.finetune and not cfg.finetune.endswith(".pth"):
         raise NotImplementedError(
             "only reference .pth checkpoints load into the port")
@@ -186,7 +195,7 @@ def main(argv=None):
         load_checkpoint_auto(cfg.finetune, model)
         print(f"initialized from {cfg.finetune}")
 
-    train_ds, val_ds = build_datasets(cfg)
+    train_ds, val_ds = build_datasets(cfg, dev_args.native_decoder)
     loader = TrainLoader(train_ds, cfg.batch_size * world, seed=cfg.seed,
                          nb_samples_per_epoch=cfg.nb_samples_per_epoch,
                          num_threads=cfg.num_workers,

@@ -63,20 +63,24 @@ from simple_tad_tpu_torch.config import PretrainConfig
 
 
 def _build_source(data_set: str, data_path: str, cfg,
-                  view_list: str = "", clips_list: str = ""):
+                  view_list: str = "", clips_list: str = "",
+                  native_decoder: bool = False):
     """The window dataset of one ``--data_set`` (the JAX CLI's
-    _build_source)."""
+    _build_source); ``native_decoder`` decodes DoTA / DADA zips with the
+    C++ decoder (data/native.py)."""
     from simple_tad_tpu_torch.data.frame_datasets import (read_dada_clips,
                                                           read_dota_clips)
     from simple_tad_tpu_torch.data.pretrain_datasets import (
         PretrainWindowDataset, VideoFileSource, ZipClipSource)
     if data_set == "DoTA":
         clips = read_dota_clips(data_path, "all_split.txt", orig_fps=10)
-        source, orig_fps = ZipClipSource(clips), 10
+        source = ZipClipSource(clips, native_decoder=native_decoder)
+        orig_fps = 10
     elif data_set in ("DADA2K", "DADA"):
         clips = read_dada_clips(data_path, "DADA2K_my_split/all.txt",
                                 orig_fps=30)
-        source, orig_fps = ZipClipSource(clips), 30
+        source = ZipClipSource(clips, native_decoder=native_decoder)
+        orig_fps = 30
     elif data_set == "BDD100K":
         from simple_tad_tpu_torch.data.pretrain_datasets import read_bdd_clips
         names = read_bdd_clips(data_path, clips_list=clips_list or None)
@@ -229,8 +233,15 @@ def build_optimizer(cfg: PretrainConfig, model, steps_per_epoch: int,
 def main(argv=None):
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
+    pre.add_argument("--native_decoder", action="store_true",
+                     help="decode the zips with the C++ decoder "
+                          "(data/native.py); raises where it cannot be "
+                          "built")
     dev_args, rest = pre.parse_known_args(argv)
     cfg = PretrainConfig.from_args(rest)
+    if dev_args.native_decoder:     # fail before the model is built
+        from simple_tad_tpu_torch.data import native
+        native.load()
 
     from simple_tad_tpu_torch.data.pretrain_datasets import PretrainLoader
     from simple_tad_tpu_torch.models import create_model, model_family
@@ -270,7 +281,8 @@ def main(argv=None):
                    cfg.input_size // patch, cfg.input_size // patch)
 
     def loader(data_set, data_path, view_list, clips_list, batch, seed):
-        ds = _build_source(data_set, data_path, cfg, view_list, clips_list)
+        ds = _build_source(data_set, data_path, cfg, view_list, clips_list,
+                           dev_args.native_decoder)
         return PretrainLoader(ds, batch * world, window_size=window_size,
                               mask_ratio=cfg.mask_ratio,
                               mask_type=cfg.mask_type, seed=seed,

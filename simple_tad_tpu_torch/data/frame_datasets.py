@@ -196,13 +196,16 @@ class FrameDataset:
     build_frame_dataset (reference/datasets_frame.py:202-241): train
     uses sampling_rate, validation uses 1... — stride policy is the
     *caller's* job; pass the already-resolved ``view_step``.
+    ``native_decoder``: decode with the C++ decoder (data/native.py; the
+    CLIs' ``--native_decoder``) instead of zipfile + cv2.
     """
 
     def __init__(self, clips: Sequence[ClipInfo], *, mode: str = "test",
                  view_len: int = 16, target_fps: int = 10,
                  orig_fps: int = 10, view_step: int = 1,
-                 crop_size: int = 224):
+                 crop_size: int = 224, native_decoder: bool = False):
         self.clips = list(clips)
+        self.native_decoder = native_decoder
         self.mode = mode
         self.view_len = view_len
         self.target_fps = target_fps
@@ -252,10 +255,12 @@ class FrameDataset:
         if final_resize:
             frames = decode_zip_frames(
                 clip.zip_path, names,
-                resize=(self.crop_size, self.crop_size))
+                resize=(self.crop_size, self.crop_size),
+                native=self.native_decoder)
         else:
             frames = decode_scaled(clip.zip_path, names, self.crop_size,
-                                   resize_scale or 1.0)
+                                   resize_scale or 1.0,
+                                   native=self.native_decoder)
         return np.stack(frames), s
 
     # ---- clip-at-once eval views (TPU batched scoring)
@@ -285,4 +290,5 @@ class FrameDataset:
         resize = ((self.crop_size, self.crop_size)
                   if resize_on_host else None)
         return np.stack(decode_zip_frames(view.clip.zip_path, names,
-                                          resize=resize))
+                                          resize=resize,
+                                          native=self.native_decoder))

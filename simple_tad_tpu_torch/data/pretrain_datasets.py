@@ -49,11 +49,14 @@ def _half_then_short_side(img: np.ndarray, short_size: int = 320
 
 
 class ZipClipSource:
-    """Frame source over ClipInfo zips (DoTA/DADA)."""
+    """Frame source over ClipInfo zips (DoTA/DADA); ``native_decoder``
+    decodes with the C++ decoder (data/native.py)."""
 
-    def __init__(self, clips: Sequence[ClipInfo], short_size: int = 320):
+    def __init__(self, clips: Sequence[ClipInfo], short_size: int = 320,
+                 native_decoder: bool = False):
         self.clips = list(clips)
         self.short_size = short_size
+        self.native_decoder = native_decoder
 
     def __len__(self):
         return len(self.clips)
@@ -65,7 +68,8 @@ class ZipClipSource:
                     ) -> np.ndarray:
         clip = self.clips[clip_idx]
         names = [clip.frame_names[i] for i in frame_idx]
-        frames = decode_zip_frames(clip.zip_path, names)
+        frames = decode_zip_frames(clip.zip_path, names,
+                                   native=self.native_decoder)
         return np.stack([_half_then_short_side(f, self.short_size)
                          for f in frames])
 

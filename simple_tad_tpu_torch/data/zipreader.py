@@ -2,11 +2,14 @@
 
 Copy of simple_tad_tpu/data/zipreader.py with two changes: cv2 is imported
 inside the functions that decode (the port's main path imports no cv2 at
-module level), and the native C++ decoder branch is left out, so decoding
-is python zipfile + cv2 in a thread pool.  For sliding-window eval this
-pairs with device-side windowing (simple_tad_tpu_torch.ops.image.
-make_windows) so every source frame is decoded exactly once instead of up
-to 16 times.
+module level), and the native C++ decoder (data/native.py) is an explicit
+choice, ``native=True`` (the CLIs' ``--native_decoder``), where the JAX
+package takes it by an environment variable and the core count.  Without
+it decoding is python zipfile + cv2 in a thread pool.  The native branch
+serves ``decode_scaled`` (the train path) too, which the JAX package
+decodes with cv2 only.  For sliding-window eval this pairs with
+device-side windowing (simple_tad_tpu_torch.ops.image.make_windows) so
+every source frame is decoded exactly once instead of up to 16 times.
 """
 
 from __future__ import annotations
@@ -41,16 +44,31 @@ def _decode_one(buf: bytes, resize: Optional[Tuple[int, int]],
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
+def _native_frames(zip_path: str, names: Sequence[str]
+                   ) -> Optional[np.ndarray]:
+    from simple_tad_tpu_torch.data import native
+    return native.decode_zip_frames_native(zip_path, names)
+
+
 def decode_zip_frames(zip_path: str, names: Sequence[str],
                       resize: Optional[Tuple[int, int]] = None,
-                      interpolation: Optional[int] = None
-                      ) -> List[np.ndarray]:
+                      interpolation: Optional[int] = None,
+                      native: bool = False) -> List[np.ndarray]:
     """Read ``names`` members from ``zip_path`` and decode to RGB uint8
     (H, W, 3) arrays, optionally cv2-resizing to ``resize`` (w, h) with
-    ``interpolation`` (default cv2.INTER_CUBIC)."""
+    ``interpolation`` (default cv2.INTER_CUBIC).  ``native``: decode with
+    the C++ decoder (data/native.py), which raises where it cannot be
+    built; members that are not JPEGs of one size take the cv2 path."""
     import cv2
     if interpolation is None:
         interpolation = cv2.INTER_CUBIC
+    frames = _native_frames(zip_path, names) if native else None
+    if frames is not None:
+        if resize is None:
+            return list(frames)
+        futs = [_pool().submit(cv2.resize, f, resize, None, 0, 0,
+                               interpolation) for f in frames]
+        return [f.result() for f in futs]
     with zipfile.ZipFile(zip_path, "r") as zf:
         raw = [zf.read(n) for n in names]
     futs = [_pool().submit(_decode_one, b, resize, interpolation) for b in raw]
@@ -123,14 +141,16 @@ def frame_cache() -> Optional[FrameLRU]:
 
 
 def decode_scaled(zip_path: str, names: Sequence[str], crop_size: int,
-                  resize_scale: float = 1.0, short_side_cap: int = 320
-                  ) -> List[np.ndarray]:
+                  resize_scale: float = 1.0, short_side_cap: int = 320,
+                  native: bool = False) -> List[np.ndarray]:
     """Train-path decode: scale so the short side hits
     crop_size*resize_scale, mirroring reference/dota.py:349-355
     (short side capped at ``short_side_cap`` before computing the factor).
 
     Decoded frames land in the process-wide ``frame_cache`` keyed by
-    (zip, member, crop, scale, cap); only cache misses touch the zip."""
+    (zip, member, crop, scale, cap); only cache misses touch the zip.
+    ``native``: the misses are decoded by the C++ decoder, as in
+    ``decode_zip_frames``."""
     import cv2
     cache = frame_cache()
     keys = [(zip_path, n, crop_size, resize_scale, short_side_cap)
@@ -144,20 +164,26 @@ def decode_scaled(zip_path: str, names: Sequence[str], crop_size: int,
         if not missing:
             return out  # type: ignore[return-value]
 
-    with zipfile.ZipFile(zip_path, "r") as zf:
-        raw = [zf.read(names[i]) for i in missing]
+    def scale(img):
+        short = min(min(img.shape[:2]), short_side_cap)
+        k = crop_size * resize_scale / short
+        return cv2.resize(img, dsize=(0, 0), fx=k, fy=k,
+                          interpolation=cv2.INTER_CUBIC)
 
     def work(buf):
         img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
         if img is None:
             raise IOError("failed to decode frame")
-        short = min(min(img.shape[:2]), short_side_cap)
-        k = crop_size * resize_scale / short
-        img = cv2.resize(img, dsize=(0, 0), fx=k, fy=k,
-                         interpolation=cv2.INTER_CUBIC)
-        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        return cv2.cvtColor(scale(img), cv2.COLOR_BGR2RGB)
 
-    futs = [_pool().submit(work, b) for b in raw]
+    decoded = (_native_frames(zip_path, [names[i] for i in missing])
+               if native else None)
+    if decoded is not None:
+        futs = [_pool().submit(scale, f) for f in decoded]
+    else:
+        with zipfile.ZipFile(zip_path, "r") as zf:
+            raw = [zf.read(names[i]) for i in missing]
+        futs = [_pool().submit(work, b) for b in raw]
     for i, fut in zip(missing, futs):
         frame = fut.result()
         out[i] = frame

@@ -12,7 +12,14 @@ checkpoint this model writes loads into the fine-tuning ViT through
 utils/torch_convert.py:remap_finetune_keys.  The position tables are
 non-persistent buffers, regenerated, never loaded: the encoder's 1-D
 sincos table, or MVD's 3-D one (``pos_embed_kind='3d'``); the decoder's is
-always 1-D.
+always 1-D.  With ``use_learnable_pos_emb`` the encoder's table is the
+parameter ``encoder_pos_embed`` (1, N, C) instead, trunc-normal 0.02 at
+initialisation, kept in the parameter dtype and cast to the compute dtype
+in ``forward``.  It carries the JAX leaf's name, so the optimizer's
+no-decay prefixes treat it as the JAX package does (decayed; so is the
+reference's ``encoder.pos_embed``, whose full name misses its skip list);
+a reference ``.pth``'s ``encoder.pos_embed`` loads into it
+(utils/torch_convert.py:load_mae_checkpoint).
 
 Every sample masks the same number of tokens (tube masking), so the
 visible and masked token sets are fixed-size gathers: ``mask_partition``
@@ -26,8 +33,6 @@ Training draws drop path and dropout from the ``generator`` passed to
 ``forward``; attention dropout takes ``attn_dropout_form`` as in the ViT.
 ``remat`` checkpoints each encoder and decoder block
 (models/layers.py:block_call), as the JAX package remats both scans.
-Not ported: the learnable encoder position table of PretrainVideoMAE
-(it raises).
 
 ``PretrainIV2VideoMAE`` (IV2MAEConfig) is the port of the JAX package's
 PretrainIV2VideoMAE (reference: internvideo2_pretrain_videomae.py:234-353,
@@ -203,10 +208,6 @@ class PretrainVideoMAE(nn.Module):
 
     def __init__(self, cfg: MAEConfig, *, device):
         super().__init__()
-        if cfg.use_learnable_pos_emb:
-            raise NotImplementedError(
-                "the learnable encoder position table of PretrainVideoMAE is "
-                "not ported (no pre-training job sets it)")
         if cfg.pos_embed_kind not in ("1d", "3d"):
             raise ValueError(f"unknown pos_embed_kind {cfg.pos_embed_kind!r}"
                              f"; expected '1d' or '3d'")
@@ -222,14 +223,20 @@ class PretrainVideoMAE(nn.Module):
                                               cfg.tubelet_size, cfg.in_chans,
                                               dtype=dt, param_dtype=pdt,
                                               device=device)
-        if cfg.pos_embed_kind == "3d":
-            enc_pos = sincos_3d_pos_embed(D, cfg.img_size // cfg.patch_size,
-                                          cfg.all_frames // cfg.tubelet_size)
+        if cfg.use_learnable_pos_emb:
+            self.encoder_pos_embed = _param((1, cfg.num_patches, D),
+                                            pdt or dt, device)
         else:
-            enc_pos = sincos_pos_embed(cfg.num_patches, D)
-        self.encoder.register_buffer(
-            "pos_embed", torch.from_numpy(enc_pos).to(device=device, dtype=dt),
-            persistent=False)
+            if cfg.pos_embed_kind == "3d":
+                enc_pos = sincos_3d_pos_embed(
+                    D, cfg.img_size // cfg.patch_size,
+                    cfg.all_frames // cfg.tubelet_size)
+            else:
+                enc_pos = sincos_pos_embed(cfg.num_patches, D)
+            self.encoder.register_buffer(
+                "pos_embed", torch.from_numpy(enc_pos).to(device=device,
+                                                          dtype=dt),
+                persistent=False)
         _add_decoder(self, cfg, D, device)
         self.requires_grad_(pdt is not None)
 
@@ -237,15 +244,22 @@ class PretrainVideoMAE(nn.Module):
         """Fill every parameter from ``generator`` (the JAX package's
         initialisers: the ViT's for the patch embedding and the blocks,
         xavier-uniform encoder_to_decoder and decoder head with a zero bias,
-        a trunc-normal 0.02 mask token, unit LayerNorms)."""
+        a trunc-normal 0.02 mask token and learnable position table, unit
+        LayerNorms)."""
         self.encoder.patch_embed.init_weights(generator)
+        if self.cfg.use_learnable_pos_emb:
+            with torch.no_grad():
+                self.encoder_pos_embed.copy_(trunc_normal(
+                    self.encoder_pos_embed.shape, 0.02, generator))
         self.encoder.init_weights(generator)
         _init_decoder(self, generator)
         return self
 
     def forward(self, x, mask, num_masked: int, generator=None):
         vis_idx, mask_idx = mask_partition(mask, num_masked)
-        tokens = self.encoder.patch_embed(x) + self.encoder.pos_embed
+        pos = (self.encoder_pos_embed if self.cfg.use_learnable_pos_emb
+               else self.encoder.pos_embed)
+        tokens = self.encoder.patch_embed(x) + pos.to(self.cfg.dtype)
         x_vis = self.encoder(_gather_tokens(tokens, vis_idx), generator)
         return _decode(self, x_vis, vis_idx, mask_idx, num_masked, generator)
 

@@ -21,7 +21,8 @@ inverse of the JAX package's torch_to_vit_params: JAX VisionTransformer
 params (nested dicts of numpy arrays, blocks stacked on a leading depth
 axis) -> a state dict; it reads the JAX PretrainVideoMAE tree too
 (``encoder_patch_embed``, the scanned ``encoder`` / ``decoder`` stacks,
-``encoder_to_decoder``, ``mask_token``, ``decoder_head``).
+``encoder_to_decoder``, ``mask_token``, ``decoder_head`` and, with a
+learnable encoder table, ``encoder_pos_embed``).
 It also reads the JAX package's quantized, calibrated tree
 (ops/quant.py there: ``qkv_q``/``kernel_q`` int8, ``*_scale``, the
 ``act_amax``/``qkv_amax``/``out_amax`` absmax) into the port's int8 model
@@ -43,6 +44,8 @@ or the encoder from an InternVideo2 trunk or stage-2 student ``.pth``, its
 CLS position row dropped.  ``from_jax_params`` reads the JAX
 PretrainIV2VideoMAE tree (``encoder_blocks`` stacked IV2 blocks,
 ``encoder_norm``) too.
+``convert_vivit_state_dict`` turns a HuggingFace ViViT state dict into
+the ViT's names (packed qkv, the learnable table cut to 8 temporal slots).
 ``to_jax_params`` is its inverse for the fp ViT, InternVideo2, the IV2
 DAPT model and the distillation student (tests
 compare gradients, updated parameters and optimizer moments leaf by leaf
@@ -204,8 +207,11 @@ def load_mae_checkpoint(path: str, model):
     .pth laid over the initialised PretrainVideoMAE by name.  Every key the
     JAX converter reads must be there (the patch embedding, both block
     stacks to the model's depths, the norms, encoder_to_decoder, the mask
-    token and the decoder head); others (a position table) are ignored.
-    Returns the names that were loaded."""
+    token and the decoder head).  The file's ``encoder.pos_embed`` (the
+    reference's name; the port's own ``encoder_pos_embed`` too) loads into
+    a learnable encoder table (``use_learnable_pos_emb``; the JAX
+    converter reads none and keeps its initialisation) and is ignored by a
+    fixed one.  Returns the names that were loaded."""
     sd = load_torch_state_dict(path)
     cfg = model.cfg
     need = list(MAE_KEYS) + [
@@ -219,6 +225,8 @@ def load_mae_checkpoint(path: str, model):
     if missing:
         raise KeyError(f"{path} is not a VideoMAE pre-training checkpoint of "
                        f"this geometry: it lacks {missing[:4]}")
+    if "encoder.pos_embed" in sd:
+        sd["encoder_pos_embed"] = sd.pop("encoder.pos_embed")
     return _load_by_name(model, sd)
 
 
@@ -314,6 +322,72 @@ def load_checkpoint_auto(path: str, model,
     return load_vit_checkpoint(path, model, head_label_map=head_label_map)
 
 
+
+def convert_vivit_state_dict(hf_sd: Mapping[str, Any], *, depth: int = 12,
+                             num_temp_vivit: int = 16,
+                             num_temp_target: int = 8
+                             ) -> Dict[str, torch.Tensor]:
+    """HuggingFace ViViT state dict (tensors or numpy arrays) -> the
+    VideoMAE-named fp32 state dict of the port's ViT.
+
+    Port of the JAX package's convert_vivit_state_dict (reference:
+    other_models/ViViT/ckpt_vivit.py:56-190): the separate q/k/v
+    projections merge into one packed qkv weight (the k bias dropped: the
+    ViT's qkv has an implicit zero k bias), the layernorms are renamed
+    (``layernorm_before`` -> ``norm1``, ``layernorm_after`` -> ``norm2``,
+    the final ``layernorm`` -> ``fc_norm``), the CLS token is dropped, and
+    the learnable position table loses its CLS slot and is interpolated
+    trilinearly from ``num_temp_vivit`` to ``num_temp_target`` temporal
+    slots.  Save it as a ``.pth`` and read it with ``load_vit_checkpoint``
+    into a ViT built with ``use_learnable_pos_emb=True``."""
+    def t(key):
+        return torch.as_tensor(np.asarray(hf_sd[key], np.float32))
+
+    out: Dict[str, torch.Tensor] = {}
+    basic = {
+        "embeddings.patch_embeddings.projection.weight":
+            "patch_embed.proj.weight",
+        "embeddings.patch_embeddings.projection.bias":
+            "patch_embed.proj.bias",
+        "layernorm.weight": "fc_norm.weight",
+        "layernorm.bias": "fc_norm.bias",
+    }
+    per_block = {
+        "layernorm_before.weight": "norm1.weight",
+        "layernorm_before.bias": "norm1.bias",
+        "attention.output.dense.weight": "attn.proj.weight",
+        "attention.output.dense.bias": "attn.proj.bias",
+        "layernorm_after.weight": "norm2.weight",
+        "layernorm_after.bias": "norm2.bias",
+        "intermediate.dense.weight": "mlp.fc1.weight",
+        "intermediate.dense.bias": "mlp.fc1.bias",
+        "output.dense.weight": "mlp.fc2.weight",
+        "output.dense.bias": "mlp.fc2.bias",
+    }
+    for src, dst in basic.items():
+        if src in hf_sd:
+            out[dst] = t(src)
+    for i in range(depth):
+        pre = f"encoder.layer.{i}."
+        for src, dst in per_block.items():
+            out[f"blocks.{i}.{dst}"] = t(pre + src)
+        att = pre + "attention.attention."
+        out[f"blocks.{i}.attn.qkv.weight"] = torch.cat(
+            [t(att + f"{x}.weight") for x in ("query", "key", "value")])
+        out[f"blocks.{i}.attn.q_bias"] = t(att + "query.bias")
+        out[f"blocks.{i}.attn.v_bias"] = t(att + "value.bias")
+
+    pos_key = "embeddings.position_embeddings"
+    if pos_key in hf_sd:
+        pos = t(pos_key)[:, 1:]                          # drop the CLS slot
+        n, d = pos.shape[1], pos.shape[2]
+        hw = int(round((n // num_temp_vivit) ** 0.5))
+        pos = pos.reshape(1, num_temp_vivit, hw, hw, d).permute(0, 4, 1, 2, 3)
+        pos = F.interpolate(pos, size=(num_temp_target, hw, hw),
+                            mode="trilinear", align_corners=False)
+        out["pos_embed"] = pos.permute(0, 2, 3, 4, 1).reshape(1, -1, d)
+    return {k: v.contiguous() for k, v in out.items()}
+
 def _load_by_name(model, sd):
     own = model.state_dict()
     loaded = {}
@@ -380,6 +454,8 @@ def _from_jax_mae(params, tubelet_size: int, in_chans: int):
     """The JAX PretrainVideoMAE tree (both stacks scanned) -> the
     reference-named state dict."""
     out = _from_jax_mae_common(params, tubelet_size, in_chans)
+    if "encoder_pos_embed" in params:         # the learnable encoder table
+        out["encoder_pos_embed"] = _f32(params["encoder_pos_embed"])
     _vit_blocks(out, params["encoder"]["blocks"], "encoder.blocks.")
     out["encoder.norm.weight"] = _f32(params["encoder"]["norm"]["scale"])
     out["encoder.norm.bias"] = _f32(params["encoder"]["norm"]["bias"])
@@ -659,6 +735,8 @@ def _to_jax_mae(r: _Leaves, state) -> Dict[str, Any]:
                 out[key] = r.arr("encoder." + key)
     else:
         parts.append("encoder")
+        if "encoder_pos_embed" in r:
+            out["encoder_pos_embed"] = r.arr("encoder_pos_embed")
     for part in parts:
         pre = f"{part}.blocks."
         out[part] = {"blocks": _stacked(_vit_layer(r, f"{pre}{i}.")

@@ -115,10 +115,10 @@ def _logging(m):
             ml.epoch_stats(), str(ml)]
 
 
-def _frame_views(m, root):
+def _frame_views(m, root, **kw):
     clips = m.read_dota_clips(root, "val_split.txt")
     ds = m.FrameDataset(clips, mode="test", view_len=16, target_fps=5,
-                        orig_fps=10, view_step=1, crop_size=32)
+                        orig_fps=10, view_step=1, crop_size=32, **kw)
     views = ds.clip_eval_views()
     return [clips, ds.samples, views,
             ds.decode_clip_frames(views[1], resize_on_host=True)]
@@ -142,26 +142,56 @@ def test_host_copy_matches_original(make, jax_mod, port_mod):
     _equal(make(port_mod), make(jax_mod))
 
 
-def test_frame_dataset_views_match_original(dota_root, monkeypatch):
-    # the port decodes with python zipfile + cv2; hold the original to the
-    # same decoder (its native C++ branch is not ported)
+def _jax_native_off(monkeypatch):
     from simple_tad_tpu.data import native
     monkeypatch.setattr(native, "decode_zip_frames_native",
                         lambda *a, **k: None)
-    _equal(_frame_views(port_fd, dota_root), _frame_views(jax_fd, dota_root))
+
+
+def _jax_native_on(monkeypatch):
+    """The JAX package's native branch on (its opt-in variable), over its
+    tracked library; skipped where that library is absent."""
+    from simple_tad_tpu.data import native
+    if not native.available():
+        pytest.skip("the JAX package's native decoder library is absent")
+    monkeypatch.setenv("SIMPLE_TAD_NATIVE_DECODER", "1")
+
+
+def test_frame_dataset_views_match_original(dota_root, monkeypatch):
+    # both sides decode with python zipfile + cv2: the native branch off
+    # in the original (its variable) and in the port (its argument)
+    _jax_native_off(monkeypatch)
+    _equal(_frame_views(port_fd, dota_root, native_decoder=False),
+           _frame_views(jax_fd, dota_root))
+
+
+def test_frame_dataset_views_match_original_native(dota_root, monkeypatch):
+    # both sides on the native C++ decoder
+    _jax_native_on(monkeypatch)
+    _equal(_frame_views(port_fd, dota_root, native_decoder=True),
+           _frame_views(jax_fd, dota_root))
 
 
 def test_zip_decode_matches_original(dota_root, monkeypatch):
-    from simple_tad_tpu.data import native
-    monkeypatch.setattr(native, "decode_zip_frames_native",
-                        lambda *a, **k: None)
+    _jax_native_off(monkeypatch)
     zp = f"{dota_root}/frames/clip_000/images.zip"
     names = [f"{t:06d}.jpg" for t in range(0, 30, 7)]
     for resize in (None, (32, 24)):
-        _equal(port_zip.decode_zip_frames(zp, names, resize=resize),
+        _equal(port_zip.decode_zip_frames(zp, names, resize=resize,
+                                          native=False),
                jax_zip.decode_zip_frames(zp, names, resize=resize))
     _equal(port_zip.decode_scaled(zp, names, 32, 1.2),
            jax_zip.decode_scaled(zp, names, 32, 1.2))
+
+
+def test_zip_decode_matches_original_native(dota_root, monkeypatch):
+    _jax_native_on(monkeypatch)
+    zp = f"{dota_root}/frames/clip_000/images.zip"
+    names = [f"{t:06d}.jpg" for t in range(0, 30, 7)]
+    for resize in (None, (32, 24)):
+        _equal(port_zip.decode_zip_frames(zp, names, resize=resize,
+                                          native=True),
+               jax_zip.decode_zip_frames(zp, names, resize=resize))
 
 
 @pytest.mark.parametrize("balanced_ratio", [None, 0.5])
@@ -169,9 +199,7 @@ def test_train_loader_matches_original(dota_root, monkeypatch,
                                        balanced_ratio):
     """The same batch order and contents for a seed (one decode thread:
     with several, both loaders yield batches in the order threads finish)."""
-    from simple_tad_tpu.data import native
-    monkeypatch.setattr(native, "decode_zip_frames_native",
-                        lambda *a, **k: None)
+    _jax_native_off(monkeypatch)
 
     def batches(engine, fd):
         clips = fd.read_dota_clips(dota_root, "val_split.txt")
@@ -212,9 +240,7 @@ def _pretrain_data(fd, pre, root, tmp):
 
 
 def test_pretrain_datasets_match_original(dota_root, monkeypatch, tmp_path):
-    from simple_tad_tpu.data import native
-    monkeypatch.setattr(native, "decode_zip_frames_native",
-                        lambda *a, **k: None)
+    _jax_native_off(monkeypatch)
     _equal(_pretrain_data(port_fd, port_pre, dota_root, tmp_path),
            _pretrain_data(jax_fd, jax_pre, dota_root, tmp_path))
 

@@ -40,7 +40,12 @@ for name in ("ops.quant", "ops.int8_gemm", "ops.ln", "ops.flash_attention",
              "cli.linear_probe",
              # data parallelism, the diagnostics, the eval CLI
              "parallel", "parallel.multihost", "parallel.mesh",
-             "utils.diagnostics", "cli.eval_frames"):
+             "utils.diagnostics", "cli.eval_frames",
+             # the rest of the JAX package's modules: the builders, the
+             # native decoder, visualization, the efficiency harness and
+             # the standalone reference
+             "data.builders", "data.native", "cli.visualize",
+             "cli.efficiency", "examples.standalone_inference"):
     assert "simple_tad_tpu_torch." + name in names, name
 """
 
