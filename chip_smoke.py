@@ -399,6 +399,28 @@ Phases (any failure raises, so the exit code is non-zero):
      EFFICIENCY_BATCHES (its rows printed as JSON lines): every forward's
      12 attention calls on A1's wgmma route and 25 LayerNorm calls,
      nothing else launched.
+ 19. Tensor parallelism (parallel/tp.py) on the one card.  C4-fwd's
+     Philox form over a rank's heads (TP_PROBE: heads 6-11 of ViT-B's 12)
+     draws the whole model's keep bits of those heads, bit for bit
+     against dropout_keep_plain, and at the default offset a 6-head
+     model's.  Then TP_SIZE fresh processes on cuda:0 form a gloo group
+     (NCCL takes one card a rank; gloo sums the CUDA tensors through the
+     host, so no time here says anything of NCCL), each a model rank of
+     TP_CASES: ViT-B 16x224 at full depth (6 heads a rank, drop path 0.2)
+     at batch 4, IV2-6B 8x224 at full width (25 heads padded to 26, 13 a
+     rank, head dim 128; the q/k-norms' all-reduce) cut to 2 blocks at
+     batch 2; each builds its share of the seeded whole model
+     (create_model(tp=...)), takes the eval logits of an augmented batch
+     and one make_finetune_train_step step (AdamW, the TP-aware global
+     norm); the ranks' gradients, gathered whole, and logits, loss and
+     grad_norm are held to the world-1 model's in this process by phase
+     6's bounds (LOGIT_RTOL, GRAD_NORM_RTOL, GRAD_PARAM_RTOL), with a
+     control they must reject (the same shares merged in the other rank
+     order); every rank's launches in the step: ViT-B 12 C1 + 12 C2 + 12
+     delta + 25 LayerNorm on the wgmma routes, IV2-6B 2 C3-fwd (wgmma) +
+     2 C3-bwd (mma.sync at head dim 128) + 2 delta, nothing else.  Phase
+     2 holds C3-fwd and C3-bwd at that rank's shape (TP_IV2_C3) against
+     their plain versions and controls, two launches bit-equal.
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -794,6 +816,25 @@ DDP_TIMEOUT_S = 300
 # the reconstruction timed RECON_RUNS times.  (ii) cli/efficiency.py's
 # benchmark_model on ViT-B bf16 at EFFICIENCY_BATCHES, EFFICIENCY_ITERS
 # iterations
+# phase 19: tensor parallelism over two processes on the one card (gloo):
+# family -> (registry name, overrides, batch, frames); ViT-B at full depth
+# with phase 6's drop path, IV2-6B at full width (25 heads padded to 26, 13
+# a rank, head dim 128) cut to 2 blocks
+TP_SIZE = 2
+TP_CASES = {
+    "vit": ("vit_base_patch16_224", dict(drop_path_rate=0.2), 4, 16),
+    "iv2": ("internvideo2_6B_patch14_224",
+            dict(depth=2, num_frames=8, drop_path_rate=0.1, init_values=0.1),
+            2, 8),
+}
+TP_TIMEOUT_S = 300
+# phase 2 at an IV2-6B rank's attention in phase 19: C3 at (B, N, 3C) of its
+# 13 heads of 128 (the backward on mma.sync at head dim 128), H
+TP_IV2_C3 = ((2, 2049, 3 * 13 * 128), 13)
+# the Philox forward at a rank's heads: (B, the model's heads, N, head dim,
+# the rank's first head): ViT-B's second rank at mp 2
+TP_PROBE = (2, 12, 392, 64, 6)
+
 RECON_MODEL = "pretrain_videomae_base_patch16_224"
 RECON_FLAGS = dict(mask_ratio=0.9, decoder_depth=4, num_frames=16,
                    input_size=224, seed=42)
@@ -1976,6 +2017,8 @@ def check_kernels(dev, seed: int) -> dict:
     check_pretrain_kernels(dev, g, run_case, launches_equal)
     check_distill_kernels(dev, g, run_case, launches_equal)
     check_probe_kernels(dev, g, run_case, launches_equal)
+    check_c3_case(g, dev, run_case, launches_equal, *TP_IV2_C3,
+                  "IV2-6B tensor-parallel rank", timed=False)
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return results
@@ -2227,20 +2270,22 @@ def check_pretrain_kernels(dev, g, run_case, launches_equal):
         torch.cuda.empty_cache()
 
 
-def _drop_keep(B, heads, N, rate, mask, seed):
+def _drop_keep(B, heads, N, rate, mask, seed, head_offset=None,
+               total_heads=None):
     from simple_tad_tpu_torch.ops.flash_attention import dropout_keep_plain
-    return mask if mask is not None else dropout_keep_plain(seed, B, heads,
-                                                            N, rate)
+    return mask if mask is not None else dropout_keep_plain(
+        seed, B, heads, N, rate, head_offset, total_heads)
 
 
 def attention_drop_fwd_after(q, k, v, heads, scale, rate, *, mask=None,
-                             seed=None):
+                             seed=None, head_offset=None, total_heads=None):
     """The plain dropout forward with its denominator summed over the kept,
     scaled probabilities (after dropout, not before) -> (out, lse): phase
     11's control of C4-fwd."""
     from simple_tad_tpu_torch.ops.flash_attention import LOG2E
     B, N, _ = q.shape
-    keep = _drop_keep(B, heads, N, rate, mask, seed)
+    keep = _drop_keep(B, heads, N, rate, mask, seed, head_offset,
+                      total_heads)
     qh, kh, vh = sep_heads(heads, q, k, v)
     s = torch.matmul((qh.float() * (scale * LOG2E)).to(q.dtype).float(),
                      kh.float().transpose(-1, -2))
@@ -2253,7 +2298,8 @@ def attention_drop_fwd_after(q, k, v, heads, scale, rate, *, mask=None,
 
 def attention_drop_bwd_variant(q, k, v, out, lse, dout, heads, scale, rate,
                                *, mask=None, seed=None, scale_dp=True,
-                               use_delta=True):
+                               use_delta=True, head_offset=None,
+                               total_heads=None):
     """The plain dropout backward with a required step left out: dP not
     scaled by the keep factor (``scale_dp=False``, phase 11's control of
     C4-bwd) or no delta term (``use_delta=False``, the gradient control of
@@ -2261,8 +2307,8 @@ def attention_drop_bwd_variant(q, k, v, out, lse, dout, heads, scale, rate,
     from simple_tad_tpu_torch.ops.flash_attention import (LOG2E,
                                                           attention_delta)
     B, N, _ = q.shape
-    f = _drop_keep(B, heads, N, rate, mask, seed).float() * (
-        1.0 / (1.0 - rate))
+    f = _drop_keep(B, heads, N, rate, mask, seed, head_offset,
+                   total_heads).float() * (1.0 / (1.0 - rate))
     dt = q.dtype
     qh, kh, vh = (t.float() for t in sep_heads(heads, q, k, v))
     do = sep_heads(heads, dout)[0].float()
@@ -2373,11 +2419,13 @@ def drop_bound(B, N, C, heads, *, mask: bool, backward: bool = False,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def probe_keep_mask(B, heads, N, D, rate, seed, dtype, dev):
+def probe_keep_mask(B, heads, N, D, rate, seed, dtype, dev, head_offset=None,
+                    total_heads=None):
     """The keep mask of the Philox forward, read off its output: with
     q = k = 0 every probability is 1 and l = N, and with v one-hot
     (v[key, c] = 1 for key = shift + c) output column c of row q is nonzero
-    exactly where (q, shift + c) is kept."""
+    exactly where (q, shift + c) is kept.  ``head_offset`` and
+    ``total_heads``: the launch covers a tensor-parallel rank's heads."""
     from simple_tad_tpu_torch.ops import flash_attention as fa
     C = heads * D
     z = torch.zeros((B, N, C), dtype=dtype, device=dev)
@@ -2388,7 +2436,9 @@ def probe_keep_mask(B, heads, N, D, rate, seed, dtype, dev):
         c = torch.arange(w, device=dev)
         v[:, shift + c, :, c] = 1
         out, _ = fa.flash_attention_drop_fwd(z, z, v.view(B, N, C), heads,
-                                             D ** -0.5, rate, seed=seed)
+                                             D ** -0.5, rate, seed=seed,
+                                             head_offset=head_offset,
+                                             total_heads=total_heads)
         got = out.view(B, N, heads, D)[..., :w] != 0
         mask[..., shift:shift + w] = got.permute(0, 2, 1, 3).to(torch.int8)
     return mask
@@ -5550,6 +5600,201 @@ def run_efficiency(dev, seed: int) -> list:
     return rows
 
 
+def tp_model(family: str, dev, seed: int, tp=None):
+    """Phase 19's seeded model of ``family``, fp32 masters computed in bf16
+    (this rank's share with ``tp``: parallel/tp.py:init_sharded, the whole
+    model's draws)."""
+    from simple_tad_tpu_torch.models import create_model
+    name, kw, _, _ = TP_CASES[family]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return create_model(name, device=dev, generator=gen, tp=tp,
+                        dtype=torch.bfloat16, param_dtype=torch.float32, **kw)
+
+
+def tp_step(family: str, dev, seed: int, tp=None) -> dict:
+    """Phase 19's run of ``family`` in one process (with ``tp``: one model
+    rank): the eval logits of an augmented batch, then one train step of
+    make_finetune_train_step (AdamW at TRAIN_LR, layer decay 0.6, weight
+    decay 0.05) -> {logits, loss, grad_norm, grads (this rank's shares),
+    the launches of the step, peak GiB}."""
+    from simple_tad_tpu_torch.train.losses import create_criterion
+    from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
+    from simple_tad_tpu_torch.train.steps import (TrainState,
+                                                  make_finetune_train_step)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = tp_model(family, dev, seed, tp)
+    _, _, batch, frames = TP_CASES[family]
+    data = augmented_batch(dev, batch, seed, frames)
+    with torch.no_grad():
+        logits = model.eval()(data["video"]).float()
+    opt = FinetuneOptimizer(dict(model.named_parameters()),
+                            lr_schedule=TRAIN_LR, weight_decay=0.05,
+                            layer_decay=0.6, depth=model.cfg.depth,
+                            model_parallel=tp)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    state = TrainState.create(model, opt, gen)
+    step = make_finetune_train_step(create_criterion("crossentropy"))
+    reset_counts()
+    metrics, _ = step(state, data)
+    torch.cuda.synchronize(dev)
+    launches = read_counts()
+    return {"logits": logits, "loss": metrics["loss"].item(),
+            "grad_norm": metrics["grad_norm"].item(),
+            "grads": {n: p.grad for n, p in model.named_parameters()},
+            "launches": launches, "heads": model.cfg.num_heads,
+            "local_heads": model.blocks[0].attn.local_heads,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def tp_rank_process(rank: int, port: int, seed: int, out_dir: str) -> dict:
+    """Phase 19, model rank ``rank`` of TP_SIZE in a fresh process on
+    cuda:0: a gloo group on 127.0.0.1:``port`` (NCCL takes one card a rank;
+    gloo sums the CUDA tensors through the host), then ``tp_step`` of each
+    family; rank 0 writes the gathered whole gradients to ``out_dir`` ->
+    {family: logits, loss, grad_norm, launches, local heads, peak GiB,
+    seconds}."""
+    import torch.distributed as dist
+    from simple_tad_tpu_torch.parallel.tp import (gather_state_dict,
+                                                  make_2d_mesh)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=TP_SIZE, rank=rank)
+    try:
+        _, tp = make_2d_mesh(TP_SIZE, dev)
+        out = {"backend": dist.get_backend()}
+        for family in TP_CASES:
+            t0 = time.perf_counter()
+            r = tp_step(family, dev, seed, tp)
+            whole = gather_state_dict(r.pop("grads"), r["heads"], tp)
+            if rank == 0:
+                torch.save(whole, f"{out_dir}/{family}.pt")
+            del whole
+            r["seconds"] = time.perf_counter() - t0
+            out[family] = r
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def run_phase19(dev, seed: int, lap) -> dict:
+    """Phase 19: tensor parallelism (parallel/tp.py) over TP_SIZE processes
+    on the one card, gloo: ViT-B at full depth and IV2-6B at full width
+    with 2 blocks, each rank's eval logits and one train step's gradients
+    (gathered whole) held to the world-1 model here within phase 6's
+    bounds, with a control they must reject (the same shares merged in the
+    other rank order: heads put in the wrong place); each rank's attention
+    launches at its head count; and the Philox forward at a rank's first
+    head against the plain keep mask."""
+    import socket
+    import tempfile
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    from simple_tad_tpu_torch.parallel.tp import (merge_state_dicts,
+                                                  shard_state_dict)
+    B, H, N, D, h0 = TP_PROBE
+    seed_words = torch.tensor([20260, -1018], dtype=torch.int32, device=dev)
+    got = probe_keep_mask(B, H - h0, N, D, ATTN_DROP, seed_words,
+                          torch.bfloat16, dev, head_offset=h0, total_heads=H)
+    plain = fa.dropout_keep_plain(seed_words, B, H - h0, N, ATTN_DROP, h0, H)
+    whole = fa.dropout_keep_plain(seed_words, B, H, N, ATTN_DROP)
+    default = probe_keep_mask(B, H - h0, N, D, ATTN_DROP, seed_words,
+                              torch.bfloat16, dev)
+    own = fa.dropout_keep_plain(seed_words, B, H - h0, N, ATTN_DROP)
+    print(f"[tp] C4-fwd Philox at heads {h0}-{H - 1} of {H} (B {B}, N {N}, "
+          f"head dim {D}): keep bits equal to the plain version's "
+          f"{torch.equal(got, plain)}, to the whole model's slice "
+          f"{torch.equal(plain, whole[:, h0:])}; at the defaults (a "
+          f"{H - h0}-head model's bits) {torch.equal(default, own)}, and "
+          f"not the rank's {not torch.equal(default, got)}")
+    assert torch.equal(got, plain) and torch.equal(plain, whole[:, h0:])
+    assert torch.equal(default, own) and not torch.equal(got, default)
+    lap("phase 19's C4 probe")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(TP_SIZE) as pool:
+            jobs = [pool.apply_async(tp_rank_process, (r, port, seed, tmp))
+                    for r in range(TP_SIZE)]
+            # the world-1 runs while the ranks start and run
+            wants = {family: tp_step(family, dev, seed) for family in TP_CASES}
+            ranks = [j.get(timeout=TP_TIMEOUT_S) for j in jobs]
+        assert all(r["backend"] == "gloo" for r in ranks)
+        lap("phase 19 (i)")
+        for family, (name, kw, batch, _) in TP_CASES.items():
+            want = wants.pop(family)
+            got = torch.load(f"{tmp}/{family}.pt", map_location=dev)
+            grads = {n: want["grads"][n] for n in got}
+            norm_err, param_err, worst = grad_errors(got, grads)
+            parts = [shard_state_dict(got, want["heads"], TP_SIZE, r)
+                     for r in range(TP_SIZE)]
+            c_norm, c_param, _ = grad_errors(
+                merge_state_dicts(parts[::-1], want["heads"]), grads)
+            del parts
+            logit_err = max(((r[family]["logits"] - want["logits"]).abs()
+                             .max() / want["logits"].abs().max()).item()
+                            for r in ranks)
+            gn_err = max(abs(r[family]["grad_norm"] - want["grad_norm"])
+                         / want["grad_norm"] for r in ranks)
+            loss_err = max(abs(r[family]["loss"] - want["loss"])
+                           / want["loss"] for r in ranks)
+            depth = int(kw.get("depth", 12))
+            d = 64 if family == "vit" else 128
+            bwd = fa.attention_bwd_route(torch.bfloat16, d)
+            fwd = fa.attention_fwd_route(torch.bfloat16, d)
+            exp = dict.fromkeys(COUNTERS, 0)
+            if family == "vit":
+                exp.update(layernorm=2 * depth + 1, attention_fwd_lse=depth,
+                           attention_bwd=depth)
+            else:
+                exp.update(attention_sep_fwd_lse=depth,
+                           attention_sep_bwd=depth)
+            exp.update(attention_delta=depth)
+            exp[f"fwd_route_{fwd}"] = exp[f"bwd_route_{bwd}"] = depth
+            peaks = " ".join(f"{r[family]['peak_gib']:.2f}" for r in ranks)
+            secs = " ".join(f"{r[family]['seconds']:.1f}" for r in ranks)
+            used = [{k: v for k, v in r[family]["launches"].items() if v}
+                    for r in ranks]
+            print(f"[tp {family}] {name} bf16, fp32 masters, depth {depth}, "
+                  f"batch {batch}, {TP_SIZE} model ranks x "
+                  f"{ranks[0][family]['local_heads']} heads (of the model's "
+                  f"{want['heads']}; head dim {d}) over gloo on "
+                  f"cuda:0: logits rel err {logit_err:.3e} (bound "
+                  f"{LOGIT_RTOL:.1e}); loss rel err {loss_err:.3e} (bound "
+                  f"{LOGIT_RTOL:.1e}), "
+                  f"grad_norm rel err {gn_err:.3e}; gradients gathered "
+                  f"whole vs world 1: global norm rel err {norm_err:.3e} "
+                  f"(bound {GRAD_NORM_RTOL:.1e}), worst parameter "
+                  f"{param_err:.3e} ({worst}; bound {GRAD_PARAM_RTOL:.1e}); "
+                  f"control (shares merged in the other rank order) "
+                  f"{c_norm:.3e}, {c_param:.3e}; launches "
+                  f"a rank in the step {used} ({fwd} forward, {bwd} "
+                  f"backward); peak GiB a rank {peaks} (world 1: "
+                  f"{want['peak_gib']:.2f}); seconds a rank {secs} (the "
+                  f"all-reduces go through the host: nothing of NCCL)")
+            assert logit_err <= LOGIT_RTOL, "TP logits disagree with world 1"
+            assert loss_err <= LOGIT_RTOL, "TP loss disagrees with world 1"
+            assert norm_err <= GRAD_NORM_RTOL and param_err <= \
+                GRAD_PARAM_RTOL and gn_err <= GRAD_NORM_RTOL, \
+                "TP gradients disagree with world 1"
+            assert c_norm > GRAD_NORM_RTOL or c_param > GRAD_PARAM_RTOL, \
+                "the gradient bounds let the control through"
+            for r in ranks:
+                assert r[family]["launches"] == exp, (r[family]["launches"],
+                                                      exp)
+            out[family] = {"logit_err": logit_err, "grad_norm_err": norm_err,
+                           "grad_param_err": param_err}
+            del want, got, grads
+            torch.cuda.empty_cache()
+    lap("phase 19 (ii)")
+    return out
+
+
 def run_phase18(dev, seed: int, lap) -> dict:
     """Phase 18: jobs/vis.sh's MAE reconstruction and the efficiency
     harness."""
@@ -5674,6 +5919,8 @@ def main(argv=None):
     run_phase17(dev, args.seed, lap)
     # phase 18: jobs/vis.sh's MAE reconstruction, the efficiency harness
     run_phase18(dev, args.seed, lap)
+    # phase 19: tensor parallelism over two processes on the card
+    run_phase19(dev, args.seed, lap)
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]

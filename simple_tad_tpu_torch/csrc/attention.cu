@@ -200,7 +200,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   // rows r0 and r0 + 8: running integer max and partial denominators
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int bh = stt::rng_head(kp, blockIdx.z, blockIdx.y);
   const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
 
   for (int k0 = 0; k0 < n_kv; k0 += kBlockN) {
@@ -384,7 +384,7 @@ __global__ void __launch_bounds__(kBlockM)
     acc[c] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
-  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int bh = stt::rng_head(kp, blockIdx.z, blockIdx.y);
   const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
   for (int k0 = 0; k0 < n_kv; k0 += kBlockNF32) {
     for (int i = threadIdx.x; i < kBlockNF32 * DP; i += kBlockM) {
@@ -608,7 +608,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
     s0 = static_cast<uint32_t>(kp.seed[0]);
     s1 = static_cast<uint32_t>(kp.seed[1]);
   }
-  const int bh = b * gridDim.y + head;
+  const int bh = stt::rng_head(kp, b, head);
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -904,20 +904,23 @@ extern "C" int stt_attention_fwd_lse_sep(const void* q, const void* k,
 // Philox bits kept where they are at least thresh.  Bounded like C1 (the
 // two tensor-core products); the mask form adds N^2 bytes per (batch,
 // head) read, the Philox form ~20 integer operations per score element.
+// The Philox counter keys head h of batch b as b * rng_heads + rng_h0 + h
+// (philox.cuh): rng_h0 = 0 and rng_heads = h outside tensor parallelism.
 // At head dims 64 to 128 in bf16 it is the wgmma kernel (route()).
 extern "C" int stt_attention_fwd_lse_drop(
     const void* q, const void* k, const void* v, void* o, float* lse, int b,
     int n, int h, int d, int q_sb, int q_sn, int k_sb, int k_sn, int v_sb,
     int v_sn, int o_sb, int o_sn, float qscale, const int8_t* mask,
     long long m_sb, long long m_sh, const int32_t* seed, unsigned thresh,
-    float inv_keep, int dtype, void* stream) {
-  if ((mask == nullptr) == (seed == nullptr) || !(inv_keep >= 1.f)) {
+    float inv_keep, int rng_h0, int rng_heads, int dtype, void* stream) {
+  if ((mask == nullptr) == (seed == nullptr) || !(inv_keep >= 1.f) ||
+      rng_h0 < 0 || rng_heads < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn};
   const Out out{o, lse, nullptr,
                 Keep{mask, m_sb, m_sh, seed, thresh, inv_keep,
-                     stt::mask_vec(mask, m_sb, m_sh, n)}};
+                     stt::mask_vec(mask, m_sb, m_sh, n), rng_h0, rng_heads}};
   return mask != nullptr
              ? dispatch<true, false, Drop::kMask>(q, k, v, out, b, n, n, h,
                                                   d, st, qscale, dtype,

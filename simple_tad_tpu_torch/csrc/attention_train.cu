@@ -213,7 +213,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
   }
 
-  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int bh = stt::rng_head(kp, blockIdx.z, blockIdx.y);
   const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
 
   for (int q0 = 0; q0 < n; q0 += kTile) {
@@ -383,7 +383,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < DT; ++j) {
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   }
-  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int bh = stt::rng_head(kp, blockIdx.z, blockIdx.y);
   const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
 
   for (int k0 = 0; k0 < n; k0 += kTile) {
@@ -487,7 +487,7 @@ __global__ void __launch_bounds__(kThreadsF32)
   const float* vb = v + head_off(st.v_sb, d) + static_cast<size_t>(key) * st.v_sn;
   const size_t row_off =
       (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * n;
-  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int bh = stt::rng_head(kp, blockIdx.z, blockIdx.y);
   const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
   float kr[DP], vr[DP], dka[DP], dva[DP];
 #pragma unroll
@@ -573,7 +573,7 @@ __global__ void __launch_bounds__(kThreadsF32)
   const float* vb = v + head_off(st.v_sb, d);
   const size_t row_off =
       (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * n;
-  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int bh = stt::rng_head(kp, blockIdx.z, blockIdx.y);
   const int8_t* mh = DROP == Drop::kMask ? stt::mask_head(kp) : nullptr;
   float qr[DP], orr[DP], acc[DP];
 #pragma unroll
@@ -722,7 +722,7 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 3 : 2)
     s0 = static_cast<uint32_t>(kp.seed[0]);
     s1 = static_cast<uint32_t>(kp.seed[1]);
   }
-  const int bh = b * gridDim.y + blockIdx.y;
+  const int bh = stt::rng_head(kp, b, blockIdx.y);
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -941,7 +941,7 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 4 : 3)
     s0 = static_cast<uint32_t>(kp.seed[0]);
     s1 = static_cast<uint32_t>(kp.seed[1]);
   }
-  const int bh = b * gridDim.y + blockIdx.y;
+  const int bh = stt::rng_head(kp, b, blockIdx.y);
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -1332,7 +1332,8 @@ extern "C" int stt_attention_bwd_sep(const void* q, const void* k,
 // _flash_drop_rng_bwd_impl: one function in three TPU orientations).  The
 // arguments of stt_attention_bwd_sep, lse from the dropout forward and
 // delta = rowsum(dout * out) of its output, and the keep source of
-// stt_attention_fwd_lse_drop (exactly one of mask and seed).  The dk/dv
+// stt_attention_fwd_lse_drop (exactly one of mask and seed, and the Philox
+// counter's first head and head count).  The dk/dv
 // kernel reads the mask transposed by index (mask[b, h, query, key] from
 // its key-major tile; no transposed copy) and draws the Philox words in
 // its own orientation (philox.cuh): two launches, as C2.  At head dim 64 in
@@ -1345,14 +1346,15 @@ extern "C" int stt_attention_bwd_drop(
     int v_sb, int v_sn, int do_sb, int do_sn, int g_sb, int g_sn,
     float qscale, float scale, const int8_t* mask, long long m_sb,
     long long m_sh, const int32_t* seed, unsigned thresh, float inv_keep,
-    int dtype, void* stream) {
-  if ((mask == nullptr) == (seed == nullptr) || !(inv_keep >= 1.f)) {
+    int rng_h0, int rng_heads, int dtype, void* stream) {
+  if ((mask == nullptr) == (seed == nullptr) || !(inv_keep >= 1.f) ||
+      rng_h0 < 0 || rng_heads < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides st{q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
                    do_sb, do_sn, g_sb, g_sn};
   const Keep kp{mask, m_sb, m_sh, seed, thresh, inv_keep,
-                stt::mask_vec(mask, m_sb, m_sh, n)};
+                stt::mask_vec(mask, m_sb, m_sh, n), rng_h0, rng_heads};
   return mask != nullptr
              ? dispatch<Drop::kMask>(q, k, v, dout, lse, delta, dq, dk, dv, b,
                                      n, h, d, st, qscale, scale, dtype,

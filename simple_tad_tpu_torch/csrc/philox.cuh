@@ -11,6 +11,11 @@
 // (b * H + h, query q, key k) and kept in this one place (copied exactly
 // into dropout_keep_plain):
 //   counter = (k & ~8, q & ~8, b * H + h, 0), key = (seed[0], seed[1]);
+// H and h are the model's head count and the global head index: a launch
+// over a tensor-parallel rank's heads (parallel/tp.py) passes its first
+// head h0 and the model's head count (Keep::h0, Keep::heads), and its
+// local head hl draws at h = h0 + hl (rng_head), so every rank draws the
+// bits one launch over all the heads would.
 //   word    = 2 * ((q >> 3) & 1) + ((k >> 3) & 1) of the four outputs;
 //   kept iff word >= thresh, thresh = min(int(rate * 2^32), 2^32 - 1).
 // One call covers queries {q, q + 8} x keys {k, k + 8}.  An m16n8k16
@@ -44,7 +49,9 @@ enum class Drop : int { kNone = 0, kMask = 1, kPhilox = 2 };
 // probabilities are scaled by.
 // ``mask_vec`` is the widest of 16, 8 and 4 bytes that divides the mask's
 // base address, its strides and N, else 1 (mask_vec below): the width the
-// wgmma kernels copy a mask tile by.
+// wgmma kernels copy a mask tile by.  ``h0`` and ``heads``: the Philox
+// counter's first head and head count (the launch's own H and 0 unless it
+// covers a tensor-parallel rank's heads).
 struct Keep {
   const int8_t* mask;
   long long m_sb, m_sh;
@@ -52,7 +59,13 @@ struct Keep {
   uint32_t thresh;
   float inv_keep;
   int mask_vec;
+  int h0, heads;
 };
+
+// The Philox counter's head word of (batch b, the launch's head h)
+__device__ __forceinline__ int rng_head(const Keep& kp, int b, int h) {
+  return b * kp.heads + kp.h0 + h;
+}
 
 inline int mask_vec(const int8_t* mask, long long m_sb, long long m_sh,
                     int n) {

@@ -153,9 +153,10 @@ def load() -> ctypes.CDLL:
             lib.stt_attention_delta.argtypes = [p, p, p, i, i, i, i, i, p]
             lib.stt_attention_delta.restype = i
             # the keep source of the dropout kernels: mask, its (batch,
-            # head) strides, seed, threshold, 1 / keep
+            # head) strides, seed, threshold, 1 / keep, the Philox
+            # counter's first head and head count
             keep = [p, ctypes.c_int64, ctypes.c_int64, p, ctypes.c_uint32,
-                    ctypes.c_float]
+                    ctypes.c_float, i, i]
             lib.stt_attention_fwd_lse_drop.argtypes = [
                 p] * 5 + [i] * 12 + [ctypes.c_float] + keep + [i, p]
             lib.stt_attention_fwd_lse_drop.restype = i

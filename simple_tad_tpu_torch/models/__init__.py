@@ -131,7 +131,7 @@ def model_family(name: str) -> str:
 
 
 def create_model(name: str, *, device, generator: torch.Generator = None,
-                 **overrides):
+                 tp=None, **overrides):
     """Build a model by registry name on ``device``, in eval mode.  Keyword
     overrides set config fields (those of the JAX registry that the CLIs
     pass: ``num_classes``, ``all_frames``, ``img_size``, ``tubelet_size``,
@@ -150,7 +150,12 @@ def create_model(name: str, *, device, generator: torch.Generator = None,
     distillation students DistillIV2Config's (``clip_teacher_embed_dim``,
     ``clip_return_layer``, ``clip_student_decoder``, ...).  With
     ``generator`` the weights are initialised from it; otherwise they are
-    left uninitialised for a checkpoint to fill."""
+    left uninitialised for a checkpoint to fill.
+
+    ``tp`` (a parallel/tp.py:ModelParallel; the ViT and InternVideo2
+    families): this rank's tensor-parallel share of the model; seeded from
+    ``generator``, it holds its share of the weights the whole model draws
+    (parallel/tp.py:init_sharded, one block at a time)."""
     kind = model_family(name)
     kw = dict(_REGISTRY[name][1])
     kw.update(overrides)
@@ -158,8 +163,18 @@ def create_model(name: str, *, device, generator: torch.Generator = None,
         kw.setdefault("num_frames", kw.pop("all_frames"))
     config_cls, model_cls = _FAMILIES[kind]
     fields = {f.name for f in dataclasses.fields(config_cls)}
-    model = model_cls(config_cls(**{k: v for k, v in kw.items()
-                                    if k in fields}), device=device)
+    cfg = config_cls(**{k: v for k, v in kw.items() if k in fields})
+    if tp is None:
+        model = model_cls(cfg, device=device)
+        if generator is not None:
+            model.init_weights(generator)
+        return model.eval()
+    if kind not in ("vit", "iv2"):
+        raise ValueError(f"{name}: tensor parallelism is ported for the ViT "
+                         f"and InternVideo2 fine-tuning trunks only")
+    from simple_tad_tpu_torch.parallel.tp import init_sharded
+    model = model_cls(cfg, device=device, tp=tp)
     if generator is not None:
-        model.init_weights(generator)
+        init_sharded(model, model_cls(cfg, device="meta"), generator,
+                     cfg.num_heads, tp)
     return model.eval()

@@ -58,6 +58,14 @@ The JAX package's model-level sequence pad (``attn_seq_pad``) is not
 ported: it exists to save per-layer copies on the TPU, the port's kernels
 mask keys by index, and the unpadded program computes the same valid rows.
 
+Tensor parallelism (``tp``, parallel/tp.py): ``IV2Attention`` holds its
+rank's heads (padded at the end to a multiple of the model group: IV2-6B's
+25 heads as 26 or 28) of qkv, of the q/k-norm weights and of proj's input,
+``Mlp`` its block of fc1 / fc2 (models/layers.py); the q/k-norms run
+parallel/tp.py:qk_rmsnorm, the RMSNorm over the whole width with its
+sums of squares summed over the model group.  The int8 model has no
+tensor-parallel form.
+
 Distillation surfaces (cli/distill.py): ``features_only`` returns the
 fc_norm'd pooled features, and ``return_taps`` the stage-2 teacher's
 l2-normalized block outputs, pooled feature and pooling attention.  The
@@ -85,6 +93,7 @@ from simple_tad_tpu_torch.ops.attention import (dot_product_attention,
 from simple_tad_tpu_torch.ops.flash_attention import flash_attention_q8
 from simple_tad_tpu_torch.ops.ln import (layernorm_plain, quant_scale,
                                          rmsnorm_quant)
+from simple_tad_tpu_torch.parallel import tp as tpar
 
 
 def sincos_1d_mae(dim: int, positions: np.ndarray) -> np.ndarray:
@@ -265,7 +274,7 @@ class IV2Attention(nn.Module):
                  qk_normalization: bool = True, dtype=torch.float32,
                  param_dtype=None, quant: bool = False,
                  quant_mode: str = "dynamic", fused_rmsq: bool = False,
-                 fused_w8a8: bool = False, qkv_i8: bool = True,
+                 fused_w8a8: bool = False, qkv_i8: bool = True, tp=None,
                  device=None):
         super().__init__()
         self.dim = dim
@@ -276,6 +285,12 @@ class IV2Attention(nn.Module):
         self.fused_rmsq = fused_rmsq
         self.qkv_i8 = qkv_i8
         self.scale = (dim // num_heads) ** -0.5
+        self.tp = tp
+        # this rank's heads and columns (all of them without tp)
+        self.local_heads, self.width = num_heads, dim
+        if tp is not None:
+            self.local_heads = tpar.padded_heads(num_heads, tp.size) // tp.size
+            self.width = self.local_heads * (dim // num_heads)
         if quant:
             self.qkv = QuantLinear(dim, 3 * dim, bias=qkv_bias,
                                    mode=quant_mode, fused=fused_w8a8,
@@ -289,13 +304,14 @@ class IV2Attention(nn.Module):
                 self.out_amax = _param((), torch.float32, device)
             self.observed = {}
         else:
-            self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
+            w = self.width
+            self.qkv = Linear(dim, 3 * w, bias=qkv_bias, dtype=dtype,
                               param_dtype=param_dtype, device=device)
-            self.proj = Linear(dim, dim, dtype=dtype, param_dtype=param_dtype,
+            self.proj = Linear(w, dim, dtype=dtype, param_dtype=param_dtype,
                                device=device)
         if qk_normalization:
-            self.q_norm = RMSNorm(dim, dtype=dtype, device=device)
-            self.k_norm = RMSNorm(dim, dtype=dtype, device=device)
+            self.q_norm = RMSNorm(self.width, dtype=dtype, device=device)
+            self.k_norm = RMSNorm(self.width, dtype=dtype, device=device)
         else:
             self.q_norm = self.k_norm = None
 
@@ -307,12 +323,12 @@ class IV2Attention(nn.Module):
             self.k_norm.init_weights()
 
     def forward(self, x):
-        C, H = self.dim, self.num_heads
+        C, H = self.width, self.local_heads
         static = self.quant and self.mode == "static"
         route = static_attention_sep_route(x.shape[1], C, H, self.qkv_i8) \
             if static else None
         qkv = self.qkv(x, out_dtype=self.dtype) if self.quant \
-            else self.qkv(x).to(self.dtype)
+            else self.qkv(tpar.copy_to_model(x, self.tp)).to(self.dtype)
         q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
         if self.q_norm is not None:
             qi = ki = None
@@ -320,8 +336,8 @@ class IV2Attention(nn.Module):
                 inv = quant_scale(self.qkv_amax).repeat_interleave(C // H,
                                                                   dim=1)
                 qi, ki = inv[0], inv[1]
-            q = self.q_norm(q, qi)
-            k = self.k_norm(k, ki)
+            q = self._qk_norm(self.q_norm, q, qi)
+            k = self._qk_norm(self.k_norm, k, ki)
         if route == "i8":
             out = dot_product_attention_i8_sep(
                 q, k, v, self.qkv_amax, self.out_amax, num_heads=H,
@@ -339,7 +355,15 @@ class IV2Attention(nn.Module):
                 observe(self, "out_amax", absmax(out))
         if self.quant:
             return self.proj(out, out_dtype=self.dtype)
-        return self.proj(out).to(self.dtype)
+        return tpar.row_parallel_linear(out, self.proj, self.tp, self.dtype)
+
+    def _qk_norm(self, norm, t, quant_inv):
+        """The q or k RMSNorm; under tensor parallelism over the whole width
+        from this rank's columns (parallel/tp.py:qk_rmsnorm)."""
+        if self.tp is None:
+            return norm(t, quant_inv)
+        return tpar.qk_rmsnorm(t, norm.weight, norm.eps, self.dtype,
+                               self.dim, self.tp)
 
 
 class LayerScale(nn.Module):
@@ -369,7 +393,7 @@ class IV2Block(nn.Module):
                  dtype=torch.float32, param_dtype=None, quant: bool = False,
                  quant_mode: str = "dynamic", fused_rmsq: bool = False,
                  fused_w8a8: bool = False, fused_mlp: bool = False,
-                 qkv_i8: bool = True, device=None):
+                 qkv_i8: bool = True, tp=None, device=None):
         super().__init__()
         self.drop_path_rate = float(drop_path_rate)
         if quant and quant_mode not in QUANT_MODES:
@@ -388,13 +412,13 @@ class IV2Block(nn.Module):
                                  dtype=dtype, param_dtype=param_dtype,
                                  quant=quant, quant_mode=quant_mode,
                                  fused_rmsq=fused_rmsq, fused_w8a8=fused_w8a8,
-                                 qkv_i8=qkv_i8, device=device)
+                                 qkv_i8=qkv_i8, tp=tp, device=device)
         self.ls1 = LayerScale(dim, init_values, dtype=dtype, device=device)
         self.norm2 = norm()
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype,
                        param_dtype=param_dtype, quant=quant,
                        quant_mode=quant_mode, fused_w8a8=fused_w8a8,
-                       fused_mlp=fused_mlp, device=device)
+                       fused_mlp=fused_mlp, tp=tp, device=device)
         self.ls2 = LayerScale(dim, init_values, dtype=dtype, device=device)
 
     def init_weights(self, generator):
@@ -487,8 +511,11 @@ class AttentionPooling(nn.Module):
 
 
 class InternVideo2(nn.Module):
-    def __init__(self, cfg: IV2Config, *, device):
+    def __init__(self, cfg: IV2Config, *, device, tp=None):
         super().__init__()
+        if tp is not None and cfg.quant:
+            raise ValueError("the int8 model has no tensor-parallel form")
+        self.tp = tp
         if cfg.quant and cfg.quant_mode not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {cfg.quant_mode!r}")
         if cfg.fused_rmsq and not (cfg.quant
@@ -521,7 +548,7 @@ class InternVideo2(nn.Module):
                      drop_path_rate=float(rate), dtype=dt, param_dtype=pdt,
                      quant=cfg.quant, quant_mode=cfg.quant_mode,
                      fused_rmsq=cfg.fused_rmsq, fused_w8a8=cfg.fused_w8a8,
-                     fused_mlp=cfg.fused_mlp, qkv_i8=cfg.qkv_i8,
+                     fused_mlp=cfg.fused_mlp, qkv_i8=cfg.qkv_i8, tp=tp,
                      device=device)
             for rate in np.linspace(0.0, cfg.drop_path_rate, cfg.depth))
         self.clip_projector = AttentionPooling(
@@ -543,6 +570,10 @@ class InternVideo2(nn.Module):
             raise ValueError(
                 "the int8 model is not initialised: its state comes from "
                 "ops/quant.py:quantize_iv2_params of an fp32 state dict")
+        if self.tp is not None:
+            raise ValueError("a tensor-parallel model takes its share of the "
+                             "whole model's weights: parallel/tp.py:"
+                             "init_sharded")
         nt, nh, _ = cfg.grid_size
         D = cfg.embed_dim
         self.patch_embed.init_weights(generator)

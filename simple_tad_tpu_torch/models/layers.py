@@ -62,6 +62,19 @@ attention route follows the TPU program's geometry gates whatever the
 options.  The fused kernels compute the unfused model's function (the same
 codes, the same fp32 roundings, the same GELU form), and so does the carry,
 bit for bit.
+
+Tensor parallelism (``tp``, a parallel/tp.py:ModelParallel): ``Attention``
+holds its rank's heads of qkv, q_bias and v_bias and the matching input
+columns of proj (column- then row-parallel, by head, padded at the end to
+a multiple of the model group), ``Mlp`` its contiguous block of fc1's rows
+and fc2's columns; each runs Megatron's f before its first GEMM and g
+after its last, whose bias it adds once, after the sum.  One forward
+serves the whole model and a share: without ``tp`` f is the identity and
+the row-parallel Linear is the Linear itself (parallel/tp.py), so the
+whole model runs the ops it ran without tensor parallelism.  The norms,
+LayerScale and DropPath stay replicated.  The attention kernels run at the
+rank's head count; the attention dropout draws the whole model's keep
+source (ops/attention.py).  The int8 model has no tensor-parallel form.
 """
 
 from __future__ import annotations
@@ -87,6 +100,7 @@ from simple_tad_tpu_torch.ops.int8_gemm import (activation, gelu_act,
 from simple_tad_tpu_torch.ops.ln import (LayerNormFn, add_layernorm_quant,
                                          layernorm, layernorm_quant)
 from simple_tad_tpu_torch.ops.quant import int8_matmul, int8_matmul_static
+from simple_tad_tpu_torch.parallel import tp as tpar
 
 QUANT_MODES = ("static", "dynamic", "calib")
 
@@ -299,10 +313,14 @@ class Linear(nn.Module):
             if self.bias is not None:
                 self.bias.zero_()
 
-    def forward(self, x):
+    def forward(self, x, bias: bool = True):
+        """``bias`` False: the product alone (a row-parallel rank's share,
+        whose bias parallel/tp.py:row_parallel_linear adds once after the
+        sum)."""
         dt = self.dtype
+        b = self.bias if bias else None
         return F.linear(x.to(dt), self.weight.to(dt),
-                        None if self.bias is None else self.bias.to(dt))
+                        None if b is None else b.to(dt))
 
 
 def observe(module, name: str, value) -> None:
@@ -423,11 +441,14 @@ class Mlp(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, *, dtype=torch.float32,
                  param_dtype=None, drop: float = 0.0, quant: bool = False,
                  quant_mode: str = "dynamic", fused_w8a8: bool = False,
-                 fused_mlp: bool = False, device=None):
+                 fused_mlp: bool = False, tp=None, device=None):
         super().__init__()
         self.dtype = dtype
         self.drop = drop
         self.quant = quant
+        self.tp = tp
+        if tp is not None:
+            hidden_dim = tpar.local_hidden(hidden_dim, tp.size)
         self.fused_mlp = (quant and quant_mode == "static" and fused_mlp
                           and use_fused_mlp(dim, hidden_dim))
         if quant:
@@ -456,7 +477,8 @@ class Mlp(nn.Module):
         if self.quant:
             h = self.fc1(x, act=gelu_act(self.dtype))
             return self.fc2(h, out_dtype=self.dtype)
-        y = self.fc2(self.act(self.fc1(x))).to(self.dtype)
+        h = self.act(self.fc1(tpar.copy_to_model(x, self.tp)))
+        y = tpar.row_parallel_linear(h, self.fc2, self.tp, self.dtype)
         return dropout(y, self.drop, self.training, generator)
 
 
@@ -478,10 +500,12 @@ class Attention(nn.Module):
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
                  attn_dropout_form: str = "rng", quant: bool = False,
                  quant_mode: str = "dynamic", fused_w8a8: bool = False,
-                 qkv_i8: bool = True, int8_attn: bool = False, device=None):
+                 qkv_i8: bool = True, int8_attn: bool = False, tp=None,
+                 device=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.tp = tp
         self.attn_drop = attn_drop
         self.attn_dropout_form = attn_dropout_form
         self.proj_drop = proj_drop
@@ -491,6 +515,16 @@ class Attention(nn.Module):
         self.int8_attn = int8_attn
         head_dim = dim // num_heads
         self.scale = qk_scale or head_dim ** -0.5
+        # under tensor parallelism: this rank's heads, from head_offset on
+        # of total_heads (the dropout's keep source); without it all of them
+        self.local_heads, self.head_offset, self.total_heads = (num_heads,
+                                                                None, None)
+        width = dim
+        if tp is not None:
+            self.local_heads = tpar.padded_heads(num_heads, tp.size) // tp.size
+            self.head_offset = tp.rank * self.local_heads
+            self.total_heads = num_heads
+            width = self.local_heads * head_dim
         if quant:
             self.qkv = QuantLinear(dim, 3 * dim, bias=False, mode=quant_mode,
                                    fused=fused_w8a8, device=device)
@@ -503,13 +537,13 @@ class Attention(nn.Module):
                 self.out_amax = _param((), torch.float32, device)
             self.observed = {}
         else:
-            self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype,
+            self.qkv = Linear(dim, 3 * width, bias=False, dtype=dtype,
                               param_dtype=param_dtype, device=device)
-            self.proj = Linear(dim, dim, dtype=dtype, param_dtype=param_dtype,
-                               device=device)
+            self.proj = Linear(width, dim, dtype=dtype,
+                               param_dtype=param_dtype, device=device)
         if qkv_bias:
-            self.q_bias = _param((dim,), param_dtype or dtype, device)
-            self.v_bias = _param((dim,), param_dtype or dtype, device)
+            self.q_bias = _param((width,), param_dtype or dtype, device)
+            self.v_bias = _param((width,), param_dtype or dtype, device)
         else:
             self.q_bias = self.v_bias = None
 
@@ -523,7 +557,7 @@ class Attention(nn.Module):
 
     def forward(self, x, generator=None):
         qkv = self.qkv(x, out_dtype=self.dtype) if self.quant \
-            else self.qkv(x).to(self.dtype)
+            else self.qkv(tpar.copy_to_model(x, self.tp)).to(self.dtype)
         if self.q_bias is not None:
             qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                                    self.v_bias]).to(self.dtype)
@@ -553,13 +587,14 @@ class Attention(nn.Module):
                 observe(self, "qkv_amax", qkv.float().abs().view(
                     B, N, 3, heads, -1).amax(dim=(0, 1, 4)))
             out = dot_product_attention_qkv(
-                qkv, num_heads=heads, scale=scale,
+                qkv, num_heads=self.local_heads, scale=scale,
                 dropout_rate=self.attn_drop if self.training else 0.0,
-                generator=generator, dropout_form=self.attn_dropout_form)
+                generator=generator, dropout_form=self.attn_dropout_form,
+                head_offset=self.head_offset, total_heads=self.total_heads)
             if self.quant and self.mode == "calib":
                 observe(self, "out_amax", absmax(out))
         y = self.proj(out, out_dtype=self.dtype) if self.quant \
-            else self.proj(out).to(self.dtype)
+            else tpar.row_parallel_linear(out, self.proj, self.tp, self.dtype)
         return dropout(y, self.proj_drop, self.training, generator)
 
 
@@ -580,7 +615,7 @@ class Block(nn.Module):
                  param_dtype=None, quant: bool = False,
                  quant_mode: str = "dynamic", fused_w8a8: bool = False,
                  fused_mlp: bool = False, qkv_i8: bool = True,
-                 int8_attn: bool = False, device=None):
+                 int8_attn: bool = False, tp=None, device=None):
         super().__init__()
         self.init_values = init_values
         self.dtype = dtype
@@ -603,13 +638,13 @@ class Block(nn.Module):
                               attn_dropout_form=attn_dropout_form,
                               quant=quant,
                               quant_mode=quant_mode, fused_w8a8=fused_w8a8,
-                              qkv_i8=qkv_i8, int8_attn=int8_attn,
+                              qkv_i8=qkv_i8, int8_attn=int8_attn, tp=tp,
                               device=device)
         self.norm2 = norm()
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype,
                        param_dtype=param_dtype, drop=drop, quant=quant,
                        quant_mode=quant_mode, fused_w8a8=fused_w8a8,
-                       fused_mlp=fused_mlp, device=device)
+                       fused_mlp=fused_mlp, tp=tp, device=device)
         if init_values > 0:
             self.gamma_1 = _param((dim,), param_dtype or dtype, device)
             self.gamma_2 = _param((dim,), param_dtype or dtype, device)

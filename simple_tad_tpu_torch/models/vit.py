@@ -37,6 +37,12 @@ program's default: the kernels draw Philox bits from a seed) or 'mask' (an
 int8 keep mask drawn beside them; the JAX package's
 SIMPLE_TAD_DROPOUT_MASK).  Gradient checkpointing (``remat``) runs each
 block through models/layers.py:block_call.
+
+Tensor parallelism: ``tp`` (a parallel/tp.py:ModelParallel) builds this
+rank's share of the blocks (models/layers.py); the rest of the model is
+replicated.  A seeded tensor-parallel model is filled through
+parallel/tp.py:init_sharded (models/__init__.py:create_model does), with
+the whole model's draws.
 """
 
 from __future__ import annotations
@@ -131,8 +137,11 @@ def fixed_pos_embed(cfg) -> np.ndarray:
 
 
 class VisionTransformer(nn.Module):
-    def __init__(self, cfg: ViTConfig, *, device):
+    def __init__(self, cfg: ViTConfig, *, device, tp=None):
         super().__init__()
+        if tp is not None and cfg.quant:
+            raise ValueError("the int8 model has no tensor-parallel form")
+        self.tp = tp
         if cfg.pos_embed_kind not in POS_EMBED_KINDS:
             raise ValueError(f"unknown pos_embed_kind {cfg.pos_embed_kind!r}"
                              f"; expected one of {POS_EMBED_KINDS}")
@@ -171,7 +180,7 @@ class VisionTransformer(nn.Module):
                   dtype=dt, param_dtype=pdt, quant=cfg.quant,
                   quant_mode=cfg.quant_mode, fused_w8a8=cfg.fused_w8a8,
                   fused_mlp=cfg.fused_mlp, qkv_i8=cfg.qkv_i8,
-                  int8_attn=cfg.int8_attn, device=device)
+                  int8_attn=cfg.int8_attn, tp=tp, device=device)
             for rate in dpr)
         norm_name = "fc_norm" if cfg.final_reduction == "fc_norm" else "norm"
         setattr(self, norm_name, LayerNormFp32(cfg.embed_dim, dtype=dt,
@@ -189,6 +198,10 @@ class VisionTransformer(nn.Module):
             raise ValueError(
                 "the int8 model is not initialised: its state comes from "
                 "ops/quant.py:quantize_vit_params of an fp32 state dict")
+        if self.tp is not None:
+            raise ValueError("a tensor-parallel model takes its share of the "
+                             "whole model's weights: parallel/tp.py:"
+                             "init_sharded")
         self.patch_embed.init_weights(generator)
         with torch.no_grad():
             if cfg.use_learnable_pos_emb:

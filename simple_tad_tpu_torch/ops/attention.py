@@ -56,6 +56,15 @@ draw Philox bits from it, 'mask' draws an int8 (B, H, N, N) keep mask
 single-pass cap (N > 4096) both take the JAX package's route: plain
 attention with the mask form.  With no dropout nothing changes and the
 generator is not advanced.
+
+Under tensor parallelism (parallel/tp.py) a rank computes ``num_heads``
+heads of a model's ``total_heads``, from ``head_offset`` on (heads padded
+past the model's count sit at the end).  Its dropout draws what a call
+over every head draws, from a generator every model rank holds in the
+same state: the same seed, whose Philox bits the kernels take at the
+rank's global heads (ops/flash_attention.py:flash_attention_drop), or the
+whole (B, total_heads, N, N) mask, of which the rank reads its heads'
+slice (all kept for padded heads, whose output and gradients are 0).
 """
 
 from __future__ import annotations
@@ -224,37 +233,61 @@ def naive_attention_dropout(q, k, v, num_heads: int, scale: float,
     return o.transpose(1, 2).reshape(q.shape)
 
 
+def _rank_mask(generator, rate: float, B: int, N: int, num_heads: int,
+               head_offset, total_heads, device):
+    """The mask form's keep mask of heads ``head_offset`` to ``head_offset +
+    num_heads`` of ``total_heads``: the whole model's mask is drawn, then
+    sliced; heads past ``total_heads`` (padding) keep everything."""
+    if total_heads is None:
+        return make_dropout_mask(generator, rate, B, num_heads, N, device)
+    h0 = head_offset or 0
+    whole = make_dropout_mask(generator, rate, B, total_heads, N, device)
+    mine = whole[:, h0:h0 + num_heads]
+    if mine.shape[1] < num_heads:
+        mine = torch.cat([mine, torch.ones(
+            (B, num_heads - mine.shape[1], N, N), dtype=mine.dtype,
+            device=device)], dim=1)
+    return mine
+
+
 def _dropout_attention(q, k, v, num_heads: int, scale: float, rate: float,
-                       generator, form: str):
+                       generator, form: str, head_offset=None,
+                       total_heads=None):
     """Attention with dropout on (B, N, C) operands, the keep source drawn
-    from ``generator`` on q's device."""
+    from ``generator`` on q's device (for heads ``head_offset`` on of
+    ``total_heads``: a tensor-parallel rank's)."""
     if form not in DROPOUT_FORMS:
         raise ValueError(f"unknown dropout form {form!r}; expected one of "
                          f"{DROPOUT_FORMS}")
     B, N, _ = q.shape
-    if N > MAX_SINGLE_PASS_N:
-        mask = make_dropout_mask(generator, rate, B, num_heads, N, q.device)
-        return naive_attention_dropout(q, k, v, num_heads, scale, rate, mask)
-    if form == "rng":
+    if N > MAX_SINGLE_PASS_N or form == "mask":
+        mask = _rank_mask(generator, rate, B, N, num_heads, head_offset,
+                          total_heads, q.device)
+        if N > MAX_SINGLE_PASS_N:
+            return naive_attention_dropout(q, k, v, num_heads, scale, rate,
+                                           mask)
         return flash_attention_drop(q, k, v, num_heads, scale, rate,
-                                    seed=draw_dropout_seed(generator,
-                                                           q.device))
-    return flash_attention_drop(
-        q, k, v, num_heads, scale, rate,
-        mask=make_dropout_mask(generator, rate, B, num_heads, N, q.device))
+                                    mask=mask)
+    return flash_attention_drop(q, k, v, num_heads, scale, rate,
+                                seed=draw_dropout_seed(generator, q.device),
+                                head_offset=head_offset,
+                                total_heads=total_heads)
 
 
 def dot_product_attention_qkv(qkv, *, num_heads: int, scale: float,
                               dropout_rate: float = 0.0, generator=None,
-                              dropout_form: str = "rng"):
+                              dropout_form: str = "rng", head_offset=None,
+                              total_heads=None):
     """qkv: (B, N, 3C) in [q | k | v] column order -> (B, N, C).
     ``dropout_rate``: the attention dropout in effect (0 outside training),
-    its keep bits drawn from ``generator`` in ``dropout_form``."""
+    its keep bits drawn from ``generator`` in ``dropout_form``, for heads
+    ``head_offset`` on of ``total_heads`` (a tensor-parallel rank's)."""
     if dropout_rate > 0.0:
         B, N, C3 = qkv.shape
         q, k, v = qkv.view(B, N, 3, C3 // 3).unbind(2)
         return _dropout_attention(q, k, v, num_heads, scale, dropout_rate,
-                                  generator, dropout_form)
+                                  generator, dropout_form, head_offset,
+                                  total_heads)
     return flash_attention_qkv(qkv, num_heads=num_heads, scale=scale)
 
 

@@ -932,14 +932,18 @@ def philox4x32_plain(counter, key):
     return torch.stack(torch.broadcast_tensors(*c), -1)
 
 
-def dropout_keep_plain(seed, B: int, H: int, N: int, rate: float):
+def dropout_keep_plain(seed, B: int, H: int, N: int, rate: float,
+                       head_offset=None, total_heads=None):
     """The keep mask the Philox kernels draw from ``seed`` (2 int32 words)
     -> int8 (B, H, N, N) contiguous on seed's device, 1 = keep.
 
     The map of csrc/philox.cuh: element (b, h, query q, key k) is word
     2 * ((q >> 3) & 1) + ((k >> 3) & 1) of Philox4x32-10 at counter
-    (k & ~8, q & ~8, b * H + h, 0) with key (seed[0], seed[1]), kept iff
-    it is at least ``dropout_rng_thresh(rate)``."""
+    (k & ~8, q & ~8, b * Ht + h0 + h, 0) with key (seed[0], seed[1]), kept
+    iff it is at least ``dropout_rng_thresh(rate)``; h0 = ``head_offset``
+    (default 0) and Ht = ``total_heads`` (default H) place the H heads
+    among a model's heads (a tensor-parallel rank's share,
+    parallel/tp.py)."""
     dev = seed.device
     G = -(-N // 16)                              # 16-row groups
     # the row (column) indices with bit 3 clear
@@ -948,8 +952,10 @@ def dropout_keep_plain(seed, B: int, H: int, N: int, rate: float):
     thresh = dropout_rng_thresh(rate)
     out = torch.empty((B * H, 16 * G, 16 * G), dtype=torch.int8, device=dev)
     step = max(1, 2 ** 22 // lo.numel() ** 2)
+    heads = H if total_heads is None else int(total_heads)
     for b0 in range(0, B * H, step):
         bh = torch.arange(b0, min(b0 + step, B * H), device=dev)
+        bh = bh // H * heads + int(head_offset or 0) + bh % H
         counter = torch.stack(torch.broadcast_tensors(
             lo[None, None, :], lo[None, :, None], bh[:, None, None],
             torch.zeros((), dtype=torch.int64, device=dev)), -1)
@@ -960,14 +966,15 @@ def dropout_keep_plain(seed, B: int, H: int, N: int, rate: float):
     return out[:, :N, :N].reshape(B, H, N, N).contiguous()
 
 
-def _keep_mask(mask, seed, B: int, H: int, N: int, rate: float):
+def _keep_mask(mask, seed, B: int, H: int, N: int, rate: float,
+               head_offset=None, total_heads=None):
     """The int8 keep mask of the plain versions: ``mask`` as given, or the
-    Philox bits of ``seed``."""
+    Philox bits of ``seed`` (at ``head_offset`` among ``total_heads``)."""
     if (mask is None) == (seed is None):
         raise ValueError("dropout attention takes exactly one of mask= and "
                          "seed=")
-    return mask if mask is not None else dropout_keep_plain(seed, B, H, N,
-                                                            rate)
+    return mask if mask is not None else dropout_keep_plain(
+        seed, B, H, N, rate, head_offset, total_heads)
 
 
 def _drop_attend_plain(q, k, v, keep, scale: float, rate: float):
@@ -990,13 +997,16 @@ def _drop_attend_plain(q, k, v, keep, scale: float, rate: float):
 
 
 def flash_attention_drop_fwd_plain(q, k, v, num_heads: int, scale: float,
-                                   rate: float, *, mask=None, seed=None):
+                                   rate: float, *, mask=None, seed=None,
+                                   head_offset=None, total_heads=None):
     """The dropout training forward on separate (B, N, C) operands -> (out
     (B, N, C) in q's dtype, lse (B, H, N) base 2); the keep source is
     exactly one of ``mask`` (int8 (B, H, N, N)) and ``seed`` (2 int32
-    words, the kernels' Philox bits)."""
+    words, the kernels' Philox bits, drawn for heads ``head_offset`` on of
+    ``total_heads``: ``dropout_keep_plain``)."""
     B, N, _ = q.shape
-    keep = _keep_mask(mask, seed, B, num_heads, N, rate)
+    keep = _keep_mask(mask, seed, B, num_heads, N, rate, head_offset,
+                      total_heads)
     heads = (_heads(t, num_heads) for t in (q, k, v))
     o, lse = _drop_attend_plain(*heads, keep, scale, rate)
     return _merge_heads(o), lse
@@ -1004,7 +1014,8 @@ def flash_attention_drop_fwd_plain(q, k, v, num_heads: int, scale: float,
 
 def flash_attention_drop_bwd_plain(q, k, v, out, lse, dout, num_heads: int,
                                    scale: float, rate: float, *, mask=None,
-                                   seed=None):
+                                   seed=None, head_offset=None,
+                                   total_heads=None):
     """The dropout training backward -> (dq, dk, dv), each (B, N, C) in q's
     dtype: with f = keep / (1 - rate), s = bf16(q * scale * log2 e) . k,
     p = exp2(s - lse); dv = bf16(p f)^T dout; dp = (dout v^T) f;
@@ -1012,7 +1023,8 @@ def flash_attention_drop_bwd_plain(q, k, v, out, lse, dout, num_heads: int,
     scale and dq = bf16(ds) k * scale (q unscaled): the arithmetic of the
     TPU kernels _bwd_dq_kernel_drop and _bwd_dkv_kernel_drop."""
     B, N, _ = q.shape
-    keep = _keep_mask(mask, seed, B, num_heads, N, rate)
+    keep = _keep_mask(mask, seed, B, num_heads, N, rate, head_offset,
+                      total_heads)
     dt, acc = q.dtype, _acc(q.dtype)
     q, k, v = (_heads(t, num_heads).to(acc) for t in (q, k, v))
     do = _heads(dout, num_heads).to(acc)
@@ -1031,11 +1043,16 @@ def flash_attention_drop_bwd_plain(q, k, v, out, lse, dout, num_heads: int,
     return tuple(_merge_heads(g).to(dt) for g in (dq, dk, dv))
 
 
-def _check_drop(name: str, q, num_heads: int, rate: float, mask, seed):
+def _check_drop(name: str, q, num_heads: int, rate: float, mask, seed,
+                head_offset=None, total_heads=None):
     """The dropout rate and the keep source of a CUDA launch."""
     B, N, _ = q.shape
     if not 0.0 < rate < 1.0:
         raise ValueError(f"{name}: dropout rate {rate} outside (0, 1)")
+    if (head_offset or 0) < 0 or (total_heads is not None
+                                  and total_heads < 1):
+        raise ValueError(f"{name}: head_offset {head_offset} and "
+                         f"total_heads {total_heads}")
     if (mask is None) == (seed is None):
         raise ValueError(f"{name}: exactly one of mask= and seed=")
     if mask is not None:
@@ -1051,29 +1068,40 @@ def _check_drop(name: str, q, num_heads: int, rate: float, mask, seed):
                          f"q's device")
 
 
-def _keep_args(rate: float, mask, seed):
+def _keep_args(rate: float, mask, seed, num_heads: int, head_offset: int,
+               total_heads):
     """The keep-source arguments of the C entry points: mask, its (batch,
-    head) strides, seed, threshold, 1 / keep."""
+    head) strides, seed, threshold, 1 / keep, the Philox counter's first
+    head and head count."""
     inv_keep = 1.0 / (1.0 - rate)
+    heads = (int(head_offset or 0), num_heads if total_heads is None
+             else int(total_heads))
     if mask is not None:
         return (mask.data_ptr(), mask.stride(0), mask.stride(1), None, 0,
-                inv_keep)
-    return None, 0, 0, seed.data_ptr(), dropout_rng_thresh(rate), inv_keep
+                inv_keep, *heads)
+    return (None, 0, 0, seed.data_ptr(), dropout_rng_thresh(rate), inv_keep,
+            *heads)
 
 
 def flash_attention_drop_fwd(q, k, v, num_heads: int, scale: float,
-                             rate: float, *, mask=None, seed=None):
+                             rate: float, *, mask=None, seed=None,
+                             head_offset=None, total_heads=None):
     """The dropout training forward (kernel C4-fwd): q, k, v as
     ``flash_attention``, dropout ``rate`` in (0, 1), the keep source
     exactly one of ``mask`` (int8 (B, H, N, N) on the device, 1 = keep)
     and ``seed`` (2 int32 words on the device) -> (out (B, N, C) contiguous
-    in q's dtype, lse (B, H, N) fp32 base 2)."""
+    in q's dtype, lse (B, H, N) fp32 base 2).  ``head_offset`` and
+    ``total_heads`` (None: 0 and H) place the seed's Philox draws among a
+    model's heads: a tensor-parallel rank's heads draw the bits a launch
+    over all of them would (``dropout_keep_plain``)."""
     if q.device.type == "cpu":
-        return flash_attention_drop_fwd_plain(q, k, v, num_heads, scale,
-                                              rate, mask=mask, seed=seed)
+        return flash_attention_drop_fwd_plain(
+            q, k, v, num_heads, scale, rate, mask=mask, seed=seed,
+            head_offset=head_offset, total_heads=total_heads)
     name = "flash_attention_drop_fwd"
     B, N, C, D = _check_sep_float(name, (q, k, v), num_heads, scale)
-    _check_drop(name, q, num_heads, rate, mask, seed)
+    _check_drop(name, q, num_heads, rate, mask, seed, head_offset,
+                total_heads)
     out = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, num_heads, N), dtype=torch.float32,
                       device=q.device)
@@ -1085,7 +1113,8 @@ def flash_attention_drop_fwd(q, k, v, num_heads: int, scale: float,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, N, num_heads, D, *_strides(q), *_strides(k),
         *_strides(v), N * C, C, float(scale * LOG2E),
-        *_keep_args(rate, mask, seed), kbuild.dtype_code(q.dtype), stream)
+        *_keep_args(rate, mask, seed, num_heads, head_offset, total_heads),
+        kbuild.dtype_code(q.dtype), stream)
     kbuild.check(code, "attention_fwd_lse_drop")
     global DROP_FWD_LAUNCHES, DROP_RNG_FWD_LAUNCHES
     if mask is not None:
@@ -1098,20 +1127,23 @@ def flash_attention_drop_fwd(q, k, v, num_heads: int, scale: float,
 
 def flash_attention_drop_bwd(q, k, v, out, lse, dout, num_heads: int,
                              scale: float, rate: float, *, mask=None,
-                             seed=None):
+                             seed=None, head_offset=None,
+                             total_heads=None):
     """The dropout training backward (kernel C4-bwd): q, k, v, rate and the
-    keep source as ``flash_attention_drop_fwd``, its out (B, N, C) and lse
-    (B, H, N) fp32, and dout (B, N, C) -> (dq, dk, dv), each (B, N, C)
-    contiguous in q's dtype; delta = rowsum(dout * out) is computed here
+    keep source (with ``head_offset`` and ``total_heads``) as
+    ``flash_attention_drop_fwd``, its out (B, N, C) and lse (B, H, N)
+    fp32, and dout (B, N, C) -> (dq, dk, dv), each (B, N, C) contiguous in
+    q's dtype; delta = rowsum(dout * out) is computed here
     (``flash_attention_delta``)."""
     if q.device.type == "cpu":
-        return flash_attention_drop_bwd_plain(q, k, v, out, lse, dout,
-                                              num_heads, scale, rate,
-                                              mask=mask, seed=seed)
+        return flash_attention_drop_bwd_plain(
+            q, k, v, out, lse, dout, num_heads, scale, rate, mask=mask,
+            seed=seed, head_offset=head_offset, total_heads=total_heads)
     name = "flash_attention_drop_bwd"
     B, N, C, D = _check_sep_float(name, (q, k, v), num_heads, scale)
     _check_bwd_inputs(name, q, out, lse, dout, (B, N, C), num_heads)
-    _check_drop(name, q, num_heads, rate, mask, seed)
+    _check_drop(name, q, num_heads, rate, mask, seed, head_offset,
+                total_heads)
     dq, dk, dv = torch.empty((3, B, N, C), dtype=q.dtype,
                              device=q.device).unbind(0)
     if B == 0 or N == 0:
@@ -1124,7 +1156,8 @@ def flash_attention_drop_bwd(q, k, v, out, lse, dout, num_heads: int,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, N, num_heads, D, *_strides(q), *_strides(k),
         *_strides(v), N * C, C, N * C, C, float(scale * LOG2E), float(scale),
-        *_keep_args(rate, mask, seed), kbuild.dtype_code(q.dtype), stream)
+        *_keep_args(rate, mask, seed, num_heads, head_offset, total_heads),
+        kbuild.dtype_code(q.dtype), stream)
     kbuild.check(code, "attention_bwd_drop")
     global DROP_BWD_LAUNCHES, DROP_RNG_BWD_LAUNCHES
     if mask is not None:
@@ -1137,41 +1170,46 @@ def flash_attention_drop_bwd(q, k, v, out, lse, dout, num_heads: int,
 
 class FlashAttentionDrop(torch.autograd.Function):
     """Training attention with dropout: forward C4-fwd, backward C4-bwd.
-    ``keep`` is the mask (``form`` 'mask') or the seed ('seed'); saves
-    (q, k, v, keep, out, lse), as _flash_core_drop_fwd and
-    _flash_core_drop_rng_fwd do."""
+    ``keep`` is the mask (``form`` 'mask') or the seed ('seed', drawn at
+    ``heads`` = (head_offset, total_heads)); saves (q, k, v, keep, out,
+    lse), as _flash_core_drop_fwd and _flash_core_drop_rng_fwd do."""
 
     @staticmethod
     def forward(ctx, q, k, v, keep, num_heads: int, scale: float,
-                rate: float, form: str):
+                rate: float, form: str, heads=(None, None)):
         out, lse = _residuals(lambda: flash_attention_drop_fwd(
-            q, k, v, num_heads, scale, rate, **{form: keep}))
+            q, k, v, num_heads, scale, rate, **{form: keep},
+            head_offset=heads[0], total_heads=heads[1]))
         ctx.save_for_backward(q, k, v, keep, out, lse)
         ctx.num_heads, ctx.scale, ctx.rate, ctx.form = (num_heads, scale,
                                                         rate, form)
+        ctx.heads = heads
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, keep, out, lse = ctx.saved_tensors
-        grads = flash_attention_drop_bwd(q, k, v, out, lse, dout.contiguous(),
-                                         ctx.num_heads, ctx.scale, ctx.rate,
-                                         **{ctx.form: keep})
-        return (*grads, None, None, None, None, None)
+        grads = flash_attention_drop_bwd(
+            q, k, v, out, lse, dout.contiguous(), ctx.num_heads, ctx.scale,
+            ctx.rate, **{ctx.form: keep}, head_offset=ctx.heads[0],
+            total_heads=ctx.heads[1])
+        return (*grads, None, None, None, None, None, None)
 
 
 def flash_attention_drop(q, k, v, num_heads: int, scale: float, rate: float,
-                         *, mask=None, seed=None):
+                         *, mask=None, seed=None, head_offset=None,
+                         total_heads=None):
     """Non-causal attention with dropout on the probabilities (kernels C4):
     q, k, v as ``flash_attention``, dropout ``rate`` in (0, 1) and exactly
     one keep source, ``mask`` (int8 (B, H, N, N), 1 = keep) or ``seed``
-    (2 int32 words, the kernels' Philox bits) -> (B, N, C) in q's dtype."""
+    (2 int32 words, the kernels' Philox bits, drawn for heads
+    ``head_offset`` on of ``total_heads``) -> (B, N, C) in q's dtype."""
     if (mask is None) == (seed is None):
         raise ValueError("flash_attention_drop: exactly one of mask= and "
                          "seed=")
     form, keep = ("mask", mask) if mask is not None else ("seed", seed)
     return FlashAttentionDrop.apply(q, k, v, keep, num_heads, scale, rate,
-                                    form)
+                                    form, (head_offset, total_heads))
 
 
 def _attend_i8_plain(q, k, v, amax, scale: float):

@@ -18,11 +18,18 @@ gradient psum; here one process drives each card (torchrun) and:
   optimizer_state_sharding;
 * each rank's augmentation and drop-path generators are seeded with its
   rank folded in (``rank_seed``).
+
+Under tensor parallelism (parallel/tp.py:make_2d_mesh) the world is a
+(data x model) grid and ``DataParallel`` runs over its data group: its
+``world`` and ``rank`` are the data-parallel size and rank, which the rows
+(``rank_rows``) and the generator seeds (``rank_seed``) take, so the model
+ranks of one data replica decode the same rows and draw the same masks.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Sequence
+import dataclasses
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,13 +40,34 @@ from simple_tad_tpu_torch.parallel import multihost
 BUCKET_BYTES = 32 * 2 ** 20
 
 
-class DataParallel(NamedTuple):
+@dataclasses.dataclass(frozen=True, eq=False)
+class DataParallel:
     """(world, rank, device) of this process, and the collectives of the
-    data-parallel step over the default process group; without one (world
-    1) they leave the tensors as they are."""
+    data-parallel step over ``group`` (None: the default process group);
+    without a process group (world 1) they leave the tensors as they are.
+    ``world`` and ``rank`` are the size of the group and this process's
+    rank in it.  It unpacks, and compares with a tuple, as (world, rank,
+    device)."""
     world: int
     rank: int
     device: torch.device
+    group: Optional[object] = None
+
+    def __iter__(self):
+        return iter((self.world, self.rank, self.device))
+
+    def __eq__(self, other):
+        if isinstance(other, DataParallel):
+            return tuple(self) == tuple(other) and self.group is other.group
+        if isinstance(other, tuple):
+            return tuple(self) == other
+        return NotImplemented
+
+    def global_rank(self, rank: int) -> int:
+        """The default group's rank of this group's ``rank``."""
+        if self.group is None:
+            return rank
+        return dist.get_global_rank(self.group, rank)
 
     @property
     def active(self) -> bool:
@@ -72,7 +100,7 @@ class DataParallel(NamedTuple):
             return
         for bucket in self._buckets(tensors):
             flat = torch.cat([t.reshape(-1) for t in bucket])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self.group)
             flat.div_(self.world)
             off = 0
             for t in bucket:
@@ -91,7 +119,7 @@ class DataParallel(NamedTuple):
                     torch.empty(sum(t.numel() for t in bucket),
                                 dtype=bucket[0].dtype,
                                 device=bucket[0].device))
-            dist.broadcast(flat, src)
+            dist.broadcast(flat, self.global_rank(src), group=self.group)
             if self.rank != src:
                 off = 0
                 for t in bucket:

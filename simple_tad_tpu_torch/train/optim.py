@@ -43,6 +43,16 @@ instead (the accumulating calls communicate nothing).  With
 the leaves only, updates that share and broadcasts it; ``state_dict``
 gathers the whole state, so a checkpoint reads back at any world size.
 
+Tensor parallelism (``model_parallel``, parallel/tp.py:ModelParallel): each
+model rank holds and updates its share of the block weights, whose
+gradients are its own; the global norm of the clip and of the logged
+grad_norm sums the squares of the cut parameters over the model group and
+counts the replicated ones once (``global_norm_of``).  The data group
+(``data_parallel``) averages the gradients and partitions the ZeRO state
+as without it.  The elementwise directions need nothing more; novograd,
+lamb and adafactor, whose statistics span a whole leaf or a factored
+matrix, raise under tensor parallelism.
+
 ``FinetuneOptimizer.detach_frozen`` is the probing freeze in PyTorch's
 idiom: every parameter whose freeze multiplier is 0 stops requiring a
 gradient, so autograd keeps no activations for a trunk that takes no
@@ -258,6 +268,9 @@ _KIND = {"adamw": "adam", "adam": "adam", "nadam": "nadam",
          "rmsprop": "rmsprop", "rmsproptf": "rmsprop",
          "adadelta": "adadelta", "adafactor": "adafactor",
          "adabelief": "adabelief", "lamb": "lamb", "lion": "lion"}
+# directions whose statistics span a whole leaf or a factored matrix: a
+# tensor-parallel rank holds a share of it
+_WHOLE_LEAF_KINDS = ("novograd", "lamb", "adafactor")
 
 
 class FinetuneOptimizer:
@@ -269,7 +282,9 @@ class FinetuneOptimizer:
     ``.grad`` and returns True when it updated the parameters.
     ``data_parallel``: a parallel.mesh.DataParallel over a process group
     (None, or one without a group: one process alone); ``zero_stage`` 1 or
-    2 shards the optimizer state over its ranks.
+    2 shards the optimizer state over its ranks.  ``model_parallel``: a
+    parallel/tp.py:ModelParallel whose share of the parameters ``params``
+    are (None: the whole model).
     """
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], *,
@@ -279,9 +294,16 @@ class FinetuneOptimizer:
                  eps: float = 1e-8, clip_grad: Optional[float] = None,
                  freeze_layers: Optional[str] = None, opt: str = "adamw",
                  momentum: float = 0.9, update_freq: int = 1,
-                 data_parallel=None, zero_stage: int = 0):
+                 data_parallel=None, zero_stage: int = 0,
+                 model_parallel=None):
         self.opt = check_optimizer(opt)
         self.kind = _KIND[self.opt]
+        self.tp = (model_parallel if model_parallel is not None
+                   and model_parallel.size > 1 else None)
+        if self.tp is not None and self.kind in _WHOLE_LEAF_KINDS:
+            raise ValueError(f"--opt {self.opt} is not ported under tensor "
+                             f"parallelism: its statistics span a whole "
+                             f"leaf (ROADMAP.md)")
         self.params = dict(params)
         self.lr = (lr_schedule if callable(lr_schedule)
                    else _constant(lr_schedule))
@@ -325,6 +347,9 @@ class FinetuneOptimizer:
         self.acc = ({n: torch.zeros_like(p) for n, p in self.params.items()}
                     if self.update_freq > 1 else None)
         self.detached = set()     # frozen by detach_frozen
+        if self.tp is not None:
+            from simple_tad_tpu_torch.parallel.tp import sharded_names
+            self.sharded = set(sharded_names(self.params))
 
     def __getattr__(self, slot):
         # the moments by their optax names (opt.mu, opt.nu, ...)
@@ -411,9 +436,30 @@ class FinetuneOptimizer:
         self._update(grads)
         return True
 
+    def global_norm_of(self, tensors: Dict[str, torch.Tensor]
+                       ) -> torch.Tensor:
+        """The global norm of {name: tensor} over the whole model: under
+        tensor parallelism the cut tensors' sum of squares is summed over
+        the model group, the replicated ones counted once."""
+        if self.tp is None:
+            return global_norm(tensors.values())
+        dev = next(iter(self.params.values())).device
+        sq = {True: torch.zeros((), device=dev),
+              False: torch.zeros((), device=dev)}
+        for n, t in tensors.items():
+            sq[n in self.sharded] = sq[n in self.sharded] + t.float().pow(
+                2).sum()
+        return torch.sqrt(self.tp.all_reduce(sq[True]) + sq[False])
+
+    def grad_norm(self) -> torch.Tensor:
+        """The global norm of the parameters' gradients (those that have
+        one): the step's logged grad_norm."""
+        return self.global_norm_of({n: p.grad for n, p in self.params.items()
+                                    if p.grad is not None})
+
     def _update(self, grads: Dict[str, torch.Tensor]) -> None:
         if self.clip_grad:
-            norm = global_norm(grads.values())
+            norm = self.global_norm_of(grads)
             for n, g in grads.items():
                 grads[n] = torch.where(norm < self.clip_grad, g,
                                        g / norm * self.clip_grad)

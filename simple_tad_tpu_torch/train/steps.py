@@ -28,7 +28,7 @@ from torch import nn
 
 from simple_tad_tpu_torch.models.mae import mae_targets
 from simple_tad_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
-from simple_tad_tpu_torch.train.optim import FinetuneOptimizer, global_norm
+from simple_tad_tpu_torch.train.optim import FinetuneOptimizer
 from simple_tad_tpu_torch.utils.diagnostics import grad_norm_summary
 
 
@@ -60,8 +60,7 @@ def backward_and_update(opt: FinetuneOptimizer, loss: torch.Tensor
     loss.backward()
     with torch.no_grad():
         opt.reduce_grads()
-        grad_norm = global_norm(p.grad for p in opt.params.values()
-                                if p.grad is not None)
+        grad_norm = opt.grad_norm()
         opt.step()
     return grad_norm
 
@@ -82,6 +81,9 @@ def make_finetune_train_step(criterion: Callable, *,
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         model, opt = state.model, state.optimizer
+        if grad_norm_heads is not None and opt.tp is not None:
+            raise ValueError("--grad_norm_heads is not ported under tensor "
+                             "parallelism (ROADMAP.md)")
         model.train()
         opt.zero_grad()
         logits = model(batch["video"], generator=state.generator)
@@ -90,8 +92,7 @@ def make_finetune_train_step(criterion: Callable, *,
         loss.backward()
         with torch.no_grad():
             opt.reduce_grads()
-            grad_norm = global_norm(p.grad for p in opt.params.values()
-                                    if p.grad is not None)
+            grad_norm = opt.grad_norm()
             norms = (grad_norm_summary(
                 {n: p.grad for n, p in opt.params.items()
                  if p.grad is not None}, grad_norm_heads)

@@ -1178,11 +1178,13 @@ def test_attention_drop_seed_form_is_the_mask_form_of_its_bits(b, n, heads,
     assert all(torch.equal(a, b_) for a, b_ in zip(bwd_s, bwd_m))
 
 
-def _probe_keep_mask(b, heads, n, d, rate, seed, dtype, device):
+def _probe_keep_mask(b, heads, n, d, rate, seed, dtype, device,
+                     head_offset=None, total_heads=None):
     """The keep mask of the seed-form forward, read off its output: with
     q = k = 0 every probability is 1 and l = N, and with v one-hot
     (v[key, c] = 1 for key = shift + c) output column c of row q is
-    nonzero exactly where (q, shift + c) is kept."""
+    nonzero exactly where (q, shift + c) is kept.  ``head_offset`` and
+    ``total_heads``: the launch covers a tensor-parallel rank's heads."""
     C = heads * d
     z = torch.zeros((b, n, C), dtype=dtype, device=device)
     mask = torch.zeros((b, heads, n, n), dtype=torch.int8, device=device)
@@ -1192,7 +1194,9 @@ def _probe_keep_mask(b, heads, n, d, rate, seed, dtype, device):
         c = torch.arange(w, device=device)
         v[:, shift + c, :, c] = 1
         out, _ = fa.flash_attention_drop_fwd(z, z, v.view(b, n, C), heads,
-                                             d ** -0.5, rate, seed=seed)
+                                             d ** -0.5, rate, seed=seed,
+                                             head_offset=head_offset,
+                                             total_heads=total_heads)
         got = out.view(b, n, heads, d)[..., :w] != 0
         mask[..., shift:shift + w] = got.permute(0, 2, 1, 3).to(torch.int8)
     return mask
@@ -1213,6 +1217,37 @@ def test_attention_drop_rng_kernel_bits_equal_plain(rate, dtype, d, cuda):
     want = fa.dropout_keep_plain(seed, b, heads, n, rate)
     assert torch.equal(got, want)
     assert abs(1 - got.float().mean().item() - rate) < 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_attention_drop_rng_kernel_bits_at_a_head_offset(d, cuda):
+    """A launch over a tensor-parallel rank's heads (2 of 5, from head 3)
+    draws the whole model's bits of those heads, bit for bit, on each
+    route (mma.sync at 32, wgmma at 64 and 128); the dropout backward at
+    that offset equals the mask form fed those bits."""
+    b, n, h0, hl, heads = 2, 200, 3, 2, 5
+    seed = torch.tensor([4242, -99], dtype=torch.int32, device=cuda)
+    got = _probe_keep_mask(b, hl, n, d, 0.3, seed, torch.bfloat16, cuda,
+                           head_offset=h0, total_heads=heads)
+    whole = fa.dropout_keep_plain(seed, b, heads, n, 0.3)
+    assert torch.equal(got, whole[:, h0:h0 + hl])
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, dout = (torch.randn((b, n, hl * d), generator=g, device=cuda)
+                     .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_drop_fwd(q, k, v, hl, scale, 0.3,
+                                           seed=seed, head_offset=h0,
+                                           total_heads=heads)
+    mask = whole[:, h0:h0 + hl].contiguous()
+    ref = fa.flash_attention_drop_fwd(q, k, v, hl, scale, 0.3, mask=mask)
+    assert torch.equal(out, ref[0]) and torch.equal(lse, ref[1])
+    grads = fa.flash_attention_drop_bwd(q, k, v, out, lse, dout, hl, scale,
+                                        0.3, seed=seed, head_offset=h0,
+                                        total_heads=heads)
+    want = fa.flash_attention_drop_bwd(q, k, v, out, lse, dout, hl, scale,
+                                       0.3, mask=mask)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, want))
 
 
 @pytest.mark.cuda

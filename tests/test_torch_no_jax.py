@@ -38,8 +38,9 @@ for name in ("ops.quant", "ops.int8_gemm", "ops.ln", "ops.flash_attention",
              # class fine-tuning, probing and the IV2 DAPT
              "data.video_cls_datasets", "cli.class_finetune",
              "cli.linear_probe",
-             # data parallelism, the diagnostics, the eval CLI
-             "parallel", "parallel.multihost", "parallel.mesh",
+             # data and tensor parallelism, the diagnostics, the eval CLI
+             "parallel", "parallel.multihost", "parallel.mesh", "parallel.tp",
+             "parallel.check",
              "utils.diagnostics", "cli.eval_frames",
              # the rest of the JAX package's modules: the builders, the
              # native decoder, visualization, the efficiency harness and
