@@ -453,44 +453,12 @@ constexpr int kRows = 64;                     // queries a block, keys a tile
 constexpr int kThreads = 128;                 // one warpgroup a block
 constexpr int kStages = 2;                    // the ring of (k, v) tiles
 
-// The tile width DP of head dim d: 64 at 64, 96 at 72 to 96, 128 at 104
-// to 128; a head dim d = 8 (mod 16) needs d + 8 columns on its odd heads
-// (below).  Tiles of 80 or 112 columns (32-byte-swizzled atoms) are not
-// instantiated: they ran slower than 96 or 128 on the H100 in trials whose
-// times were not recorded (an open question of PERF.md).  Their cost:
-// S's k-steps and PV's n span DP / d of the head (1.2 at d = 80).
-__host__ __device__ constexpr int tile_width(int d) {
-  return d <= 64 ? 64 : d <= 96 ? 96 : 128;
-}
-
-// A (64-row, DP-column) bf16 tile: DP / kAtom column atoms of kAtom = 64
-// or 32 columns, the widest that divides DP, each one TMA box swizzled by
-// its row of 128 or 64 bytes (layout type 1 or 2 of a wgmma descriptor),
-// back to back.  At DP = 64 that is the one 128-byte-swizzled 8 KB tile.
-template <int DP>
-struct Tile {
-  static_assert(DP == 64 || DP == 96 || DP == 128, "a tile_width");
-  static constexpr int kAtom = DP % 64 == 0 ? 64 : 32;
-  static constexpr int kRowBytes = 2 * kAtom;
-  static constexpr int kAtomBytes = kRows * kRowBytes;
-  static constexpr int kBytes = kRows * DP * 2;
-  static constexpr uint32_t kLayout = kAtom == 64 ? 1 : 2;
-  // a K-major operand (S's q and k): 8-row atoms kRowBytes * 8 apart; k16
-  // step kk starts 32 bytes into its column atom per step within it
-  __host__ __device__ static constexpr int kk_offset(int kk) {
-    return ((kk * 16 / kAtom) * kAtomBytes + (kk * 16 % kAtom) * 2) >> 4;
-  }
-  __device__ static uint64_t kmajor(const bf16* t) {
-    return hw::desc_sw(t, 16, 8 * kRowBytes, kLayout);
-  }
-  // an MN-major operand (PV's v): k16 step +16 rows, the next column atom
-  // LBO = kAtomBytes on (unused with one atom: set as desc_mnmajor's)
-  static constexpr int kMnStep = (16 * kRowBytes) >> 4;
-  __device__ static uint64_t mnmajor(const bf16* t) {
-    return hw::desc_sw(t, DP == kAtom ? 8 * kRowBytes : kAtomBytes,
-                       8 * kRowBytes, kLayout);
-  }
-};
+// the tile width of a head dim, a tile's column atoms and where a head's
+// columns sit in its tiles (attention_wg.cuh, shared with the backward of
+// attention_train.cu)
+using stt::attn_wg::head_cols;
+using stt::attn_wg::Tile;
+using stt::attn_wg::tile_width;
 
 template <int DP>
 struct Smem {
@@ -562,25 +530,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int tiles = (n_kv + kRows - 1) / kRows;
-  // the head dim (64 whenever the tile is: tile_width), and the head's
-  // columns [shift, shift + dh) of the tiles, which start at column col0 of
-  // the operands (a multiple of 16)
-  const int dh = DP == 64 ? 64 : d;
-  const int shift = head * dh % 16;
-  const int col0 = head * dh - shift;
+  // the head dim, and the head's columns [shift, shift + dh) of the tiles,
+  // which start at column col0 of the operands (a multiple of 16)
+  const stt::attn_wg::HeadCols hc = head_cols<DP>(head, d);
+  const int dh = hc.d, col0 = hc.col0, shift = hc.shift;
   // stage j % kStages: thread 0's TMA loads of (k, v) tile j and, in the
   // mask form, every thread's share of its mask tile
   auto fill = [&](int j) {
     const int s = j % kStages;
     if (tid == 0) {
       hw::mbar_expect_tx(&sm.full[s], 2 * T::kBytes);
-#pragma unroll
-      for (int c = 0; c < DP; c += T::kAtom) {
-        hw::tma_load_3d(sm.k[s] + c * kRows, &tk, &sm.full[s], col0 + c,
-                        j * kRows, b);
-        hw::tma_load_3d(sm.v[s] + c * kRows, &tv, &sm.full[s], col0 + c,
-                        j * kRows, b);
-      }
+      T::load(sm.k[s], &tk, &sm.full[s], col0, j * kRows, b);
+      T::load(sm.v[s], &tv, &sm.full[s], col0, j * kRows, b);
     }
     if constexpr (kMask) {
       stt::copy_mask_tile(mtile + s * stt::kMaskTile, mh, q0, j * kRows, n,
@@ -595,10 +556,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
     hw::mbar_init(&sm.qbar, 1);
     hw::mbar_init_fence();
     hw::mbar_expect_tx(&sm.qbar, T::kBytes);
-#pragma unroll
-    for (int c = 0; c < DP; c += T::kAtom) {
-      hw::tma_load_3d(sm.q + c * kRows, &tq, &sm.qbar, col0 + c, q0, b);
-    }
+    T::load(sm.q, &tq, &sm.qbar, col0, q0, b);
   }
   __syncthreads();
   for (int j = 0; j < kStages && j < tiles; ++j) fill(j);
@@ -619,7 +577,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
   if constexpr (DP == 64) {
     hw::scale_tile(sm.q, sm.q, qscale);  // the whole tile is the head's
   } else {
-    hw::scale_tile_window<DP, T::kAtom>(sm.q, qscale, shift, shift + dh);
+    hw::scale_tile_window<DP, T::kAtom>(sm.q, sm.q, qscale, shift,
+                                        shift + dh);
   }
   __syncthreads();
 

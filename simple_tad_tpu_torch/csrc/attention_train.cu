@@ -45,30 +45,41 @@
 // dq per query tile), each pair launched by one call.  Three routes, by
 // dtype and head dim (route() below, ops/flash_attention.py:
 // attention_bwd_route):
-//   * bf16 at head dim 64 (every trunk the fine-tuning jobs run: ViT-S/B/L,
-//     IV2-S/B/L; C2, C3-bwd and, with dropout, C4-bwd in either keep form),
-//     the wgmma kernels (namespace wg): one warpgroup per
-//     64-row tile (keys in dk/dv, queries in dq).  The streamed tiles (q and
-//     dout, or k and v) arrive by TMA (rank-3 tensor maps over (batch, row,
-//     column) at the head's column offset, 128-byte swizzle, rows beyond N
-//     read as zero) into a two-stage ring on mbarriers, thread 0 refilling
-//     a stage after the block's barrier at the end of its tile.  All five
-//     products are wgmma m64n64k16: S^T = K Qs^T and dP^T = V dout^T (dq:
-//     S = Qs K^T, dP = dout V^T) with both operands K-major in shared
-//     memory; dV += bf16(P^T) dout and dK += bf16(dS^T) q (dq:
-//     dQ += bf16(dS) K) with A from registers (the rounded fp32
+//   * bf16 at head dims 64 to 128 (every trunk the fine-tuning jobs run:
+//     ViT-S/B/L, IV2-S/B/L at 64; ViT-H's 80, IV2-1B's 88 and IV2-6B's 128;
+//     C2, C3-bwd and, with dropout, C4-bwd in either keep form), the wgmma
+//     kernels (namespace wg), a template on the tile width DP = 64, 96 or
+//     128 (attention_wg.cuh: tile_width, Tile, head_cols, the forward's
+//     column scheme): one warpgroup per 64-row tile (keys in dk/dv, queries
+//     in dq).  The streamed tiles (q and dout, or k and v) arrive by TMA
+//     (rank-3 tensor maps over (batch, row, column), rows beyond N read as
+//     zero) as DP / A column atoms of A = 64 or 32 columns (128- or 64-byte
+//     swizzle) that start at the head's first column rounded down to 16,
+//     into a two-stage ring on mbarriers, thread 0 refilling a stage after
+//     the block's barrier at the end of its tile.  S^T = K Qs^T and
+//     dP^T = V dout^T (dq: S = Qs K^T, dP = dout V^T) are wgmma m64n64k16
+//     over DP / 16 k-steps with both operands K-major in shared memory;
+//     dV += bf16(P^T) dout and dK += bf16(dS^T) q (dq: dQ += bf16(dS) K)
+//     are wgmma m64nDPk16 with A from registers (the rounded fp32
 //     accumulators, whose layout is the A-fragment layout) and B read
-//     MN-major through the descriptor's transpose bit: no transposed copy
-//     is staged, and the swizzle leaves no bank conflicts.  The scaled copy
-//     of q is made in shared memory from the raw tile as it lands, so s
-//     keeps its rounding; p's exp2 runs on the special-function unit
+//     MN-major through the descriptor's transpose bit (its LBO stepping
+//     from one column atom to the next): no transposed copy is staged, and
+//     the swizzle leaves no bank conflicts.  The scaled copy of q is made in
+//     shared memory from the raw tile as it lands, so s keeps its rounding;
+//     where a tile is wider than the head, the neighbouring heads' columns
+//     are zeroed in that copy and in dout (k and v must be finite there:
+//     ops/flash_attention.py:attention_bwd_route) and not stored from dK,
+//     dV or dQ.  p's exp2 runs on the special-function unit
 //     (ex2.approx.ftz: exp2f's value wherever p is a normal float).  lse
 //     and delta are read by the threads a tile ahead: a head's (B, H, N)
 //     slice starts at any 4-byte offset (N = 2049), below TMA's 16-byte
-//     alignment.  No producer warp: at 168 registers a 128-thread block
-//     fits three times an SM and a 160-thread one twice;
-//   * bf16 at the other head dims (8 to 128; ViT-H's 80, IV2-1B's 88,
-//     IV2-6B's 128), C4-bwd there too, the mma.sync kernels:
+//     alignment.  No producer warp: at DP = 64, 168 registers a 128-thread
+//     block fit three times an SM and a 160-thread one twice; at 128 the
+//     dk/dv kernel's dK and dV accumulators are 64 + 64 a thread (up to
+//     255 registers), two blocks an SM, its shared memory request cut to
+//     fit them (dkdv_smem_request);
+//   * bf16 at head dims 8 to 56 (no trunk the jobs run), C4-bwd there too,
+//     the mma.sync kernels:
 //     one block of 4 warps per (64-key tile, head, batch); each warp owns 16
 //     keys, whose K and V fragments stay in registers, and the block loops
 //     over 64-query tiles (scaled Q and dout row-major for S^T = K Q^T and
@@ -93,6 +104,7 @@
 // them.
 #include <math.h>
 
+#include "attention_wg.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
@@ -624,53 +636,157 @@ __global__ void __launch_bounds__(kThreadsF32)
   }
 }
 
-// ---- the wgmma route: bf16, head dim 64 ----
+// ---- the wgmma route: bf16, head dims 64 to 128 ----
 namespace wg {
 
 namespace hw = stt::hopper;
 
-constexpr int kD = 64;                        // the route's head dim
+constexpr int kMinD = 64;                     // the route's least head dim
 constexpr int kRows = 64;                     // rows of a tile (wgmma's M)
 constexpr int kThreads = 128;                 // one warpgroup a block
-constexpr int kTileBytes = kRows * kD * 2;    // one bf16 tile, 8 KB
 constexpr int kStages = 2;                    // the ring of streamed tiles
-constexpr int kKStep = 32 >> 4;               // k16 step, K-major (desc)
-constexpr int kMnStep = (16 * 128) >> 4;      // k16 step, MN-major (desc)
 
+// the tile width of a head dim, a tile's column atoms and where a head's
+// columns sit in its tiles (attention_wg.cuh, shared with the forward of
+// attention.cu)
+using stt::attn_wg::head_cols;
+using stt::attn_wg::Tile;
+using stt::attn_wg::tile_width;
+static_assert(stt::attn_wg::kTile == kRows, "one tile size");
+
+template <int DP>
 struct DkdvSmem {
-  bf16 k[kRows * kD];             // the block's keys, K-major A of S^T
-  bf16 v[kRows * kD];             // ... and of dP^T
-  bf16 qs[kRows * kD];            // bf16(q * scale * log2 e), B of S^T
-  bf16 q[kStages][kRows * kD];    // raw q: MN-major B of dK
-  bf16 o[kStages][kRows * kD];    // dout: B of dP^T, MN-major B of dV
+  bf16 k[kRows * DP];             // the block's keys, K-major A of S^T
+  bf16 v[kRows * DP];             // ... and of dP^T
+  bf16 qs[kRows * DP];            // bf16(q * scale * log2 e), B of S^T
+  bf16 q[kStages][kRows * DP];    // raw q: MN-major B of dK
+  bf16 o[kStages][kRows * DP];    // dout: B of dP^T, MN-major B of dV
   float ld[2][kRows];             // the tile's lse and delta (queries)
   uint64_t full[kStages], kv;
 };
 
+template <int DP>
 struct DqSmem {
-  bf16 qs[kRows * kD];            // the block's scaled q, A of S
-  bf16 o[kRows * kD];             // ... and dout, A of dP
-  bf16 k[kStages][kRows * kD];    // B of S; MN-major B of dQ
-  bf16 v[kStages][kRows * kD];    // B of dP
+  bf16 qs[kRows * DP];            // the block's scaled q, A of S
+  bf16 o[kRows * DP];             // ... and dout, A of dP
+  bf16 k[kStages][kRows * DP];    // B of S; MN-major B of dQ
+  bf16 v[kStages][kRows * DP];    // B of dP
   uint64_t full[kStages], qo;
 };
 
+// Blocks an SM the registers are budgeted for.  dk/dv: at DP = 64, 168
+// registers a thread fit three 128-thread blocks (two with dropout: at
+// three they spilled and ran slower, PERF.md); at 96 the dK and dV
+// accumulators are 48 + 48 a thread, two blocks; at 128, 64 + 64 beside
+// S^T's and dP^T's 32 + 32, two blocks at up to 255 registers where their
+// shared memory fits (dkdv_smem_request), one with the mask ring.  dq:
+// four blocks at 64 (three with dropout: at four, 128 registers, both
+// forms spilled), three at 96 (two with dropout), two at 128 (96 KB of
+// shared memory a block).
+template <int DP, Drop DROP>
+constexpr int kDkdvBlocks = DP == 64 ? (DROP == Drop::kNone ? 3 : 2)
+                            : DP == 96 || DROP != Drop::kMask ? 2
+                                                              : 1;
+template <int DP, Drop DROP>
+constexpr int kDqBlocks = DP == 64   ? (DROP == Drop::kNone ? 4 : 3)
+                          : DP == 96 ? (DROP == Drop::kNone ? 3 : 2)
+                                     : 2;
 
-// dK and dV of one 64-key tile.  (q, dout) tiles stream by TMA through a
-// kStages ring: thread 0 refills a stage once the block's barrier at the
-// end of its tile shows every warp done with it, so the next tile's copy
-// runs under this tile's products.  S^T = K Qs^T and dP^T = V dout^T (both
-// operands K-major from shared memory), P^T and dS^T in registers (the
-// accumulator layout is the A-fragment layout of the next products), then
-// dV += bf16(P^T) dout and dK += bf16(dS^T) q with dout and q read MN-major:
-// no transposed copy.  With DROP (kernel C4-bwd) dV takes bf16(P^T keep /
-// keep_prob) and dP^T is scaled by keep / keep_prob before dS^T, as
-// attn_bwd_dkdv_bf16_kernel's DROP branch; the keep bits are read
-// transposed (rows are keys), the mask tile (q0.., k0..) staged with the
-// (q, dout) tile.  The dropout instantiations run two blocks an SM: at
-// three (168 registers) they spilled, and ran slower (PERF.md).
-template <Drop DROP = Drop::kNone>
-__global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 3 : 2)
+// The shared memory an SM holds for blocks, 228 KB, and what the runtime
+// reserves of it a block (the H100's
+// cudaDevAttrMaxSharedMemoryPerMultiprocessor and
+// cudaDevAttrReservedSharedMemoryPerBlock)
+constexpr int kSmemSm = 233472;
+constexpr int kSmemReserved = 1024;
+
+// The bytes a dk/dv launch asks for: stt::smem_bytes' (the struct, the
+// mask ring, and 1024 bytes of slack to align the struct), except at
+// DP = 128 without the mask ring, where 115224 bytes of struct and that
+// slack would leave room for one block an SM: there the request is what
+// two blocks may each ask for, 115712 bytes, the struct and 488 bytes of
+// slack.  That is enough where the dynamic shared memory starts on a
+// 1024-byte boundary (no slack used) or at most 488 bytes before one; the
+// kernel traps where its aligned struct would end past its request.
+template <int DP>
+constexpr int dkdv_smem_request(Drop drop) {
+  return DP == 128 && drop != Drop::kMask
+             ? kSmemSm / 2 - kSmemReserved
+             : stt::smem_bytes<DkdvSmem<DP>, kStages>(drop);
+}
+static_assert(sizeof(DkdvSmem<128>) <= kSmemSm / 2 - kSmemReserved,
+              "the dk/dv struct at DP = 128 fits two blocks an SM");
+
+// The operands of a tile that meet K and V in S (S^T) and dP (dP^T), made
+// ready in shared memory: bf16(q * qscale) from q into qs (in place where
+// they are one tile) and, in a tile wider than the head, the columns
+// outside [shift, shift + d) zeroed in qs and in dout; visible to wgmma once
+// every thread has passed the block's next barrier.
+template <int DP>
+__device__ __forceinline__ void ready_q_dout(bf16* qs, const bf16* q,
+                                             bf16* o, float qscale,
+                                             int shift, int d) {
+  using T = Tile<DP>;
+  if constexpr (DP == 64) {
+    hw::scale_tile(qs, q, qscale);  // the whole tile is the head's
+  } else {
+    hw::scale_tile_window<DP, T::kAtom>(qs, q, qscale, shift, shift + d);
+    if (shift != 0 || d != DP) {
+      hw::zero_tile_window<DP, T::kAtom>(o, shift, shift + d);
+    }
+  }
+}
+
+// The stored columns of a thread's DP / 2 accumulators (rows row0 and
+// row0 + 8, columns j8 * 8 + 2 t4 + {0, 1} of the tile) times `mul`, bf16,
+// at gb + row * g_sn + (column - shift): the head's d columns only, and
+// rows below n.  The columns of the tile beyond the head's belong to the
+// neighbouring heads (in C2 to their [dq | dk | dv] columns), which
+// another block writes.
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* gb, const float (&acc)[DP / 2],
+                                           float mul, int row0, int n,
+                                           int g_sn, int t4, int d,
+                                           int shift) {
+  const int row1 = row0 + 8;
+#pragma unroll
+  for (int j8 = 0; j8 < DP / 8; ++j8) {
+    const int c = j8 * 8 + t4 * 2 - shift;
+    const int i = j8 * 4;
+    if (c < 0 || c >= d) continue;
+    if (row0 < n) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          gb + static_cast<size_t>(row0) * g_sn + c) =
+          __floats2bfloat162_rn(acc[i] * mul, acc[i + 1] * mul);
+    }
+    if (row1 < n) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          gb + static_cast<size_t>(row1) * g_sn + c) =
+          __floats2bfloat162_rn(acc[i + 2] * mul, acc[i + 3] * mul);
+    }
+  }
+}
+
+// dK and dV of one 64-key tile at tile width DP (tile_width of the head
+// dim).  (q, dout) tiles stream by TMA through a kStages ring: thread 0
+// refills a stage once the block's barrier at the end of its tile shows
+// every warp done with it, so the next tile's copy runs under this tile's
+// products.  S^T = K Qs^T and dP^T = V dout^T (both operands K-major from
+// shared memory, DP / 16 k-steps across the column atoms), P^T and dS^T in
+// registers (the accumulator layout is the A-fragment layout of the next
+// products), then dV += bf16(P^T) dout and dK += bf16(dS^T) q, m64nDPk16
+// with dout and q read MN-major (the descriptor's LBO stepping from one
+// column atom to the next): no transposed copy.  A tile wider than the
+// head (DP > d, or an odd head's tile that starts 8 columns early) holds
+// columns of the neighbouring heads: they are zeroed in the scaled copy
+// of q and in dout as each tile lands, so K's and V's add 0 to S^T and
+// dP^T as long as they are finite (the route's precondition:
+// attention_bwd_route), and those of dK and dV are not stored.  With DROP
+// (kernel C4-bwd) dV takes bf16(P^T keep / keep_prob) and dP^T is scaled
+// by keep / keep_prob before dS^T, as attn_bwd_dkdv_bf16_kernel's DROP
+// branch; the keep bits are read transposed (rows are keys), the mask tile
+// (q0.., k0..) staged with the (q, dout) tile.
+template <int DP, Drop DROP = Drop::kNone>
+__global__ void __launch_bounds__(kThreads, kDkdvBlocks<DP, DROP>)
     attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tv,
@@ -678,26 +794,36 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 3 : 2)
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
                                bf16* __restrict__ dk, bf16* __restrict__ dv,
-                               int n, int g_sb, int g_sn, float qscale,
+                               int n, int d, int g_sb, int g_sn, float qscale,
                                float scale, Keep kp) {
+  using T = Tile<DP>;
+  using Smem = DkdvSmem<DP>;
   constexpr bool kMask = DROP == Drop::kMask;
   extern __shared__ unsigned char smem_raw[];
-  DkdvSmem& sm = *reinterpret_cast<DkdvSmem*>(hw::align_1024(smem_raw));
-  int8_t* mtile = reinterpret_cast<int8_t*>(&sm) + stt::mask_off<DkdvSmem>();
+  Smem& sm = *reinterpret_cast<Smem*>(hw::align_1024(smem_raw));
+  if (hw::smem_u32(&sm) - hw::smem_u32(smem_raw) +
+          (kMask ? stt::mask_off<Smem>() + kStages * stt::kMaskTile
+                 : sizeof(Smem)) >
+      hw::dynamic_smem_size()) {
+    __trap();  // the request's slack did not cover the alignment
+  }
+  int8_t* mtile = reinterpret_cast<int8_t*>(&sm) + stt::mask_off<Smem>();
   const int8_t* mh = kMask ? stt::mask_head(kp) : nullptr;
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * kRows;
-  const int col = blockIdx.y * kD;
+  const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int tiles = (n + kRows - 1) / kRows;
+  const stt::attn_wg::HeadCols hc = head_cols<DP>(head, d);
+  const int dh = hc.d, col0 = hc.col0, shift = hc.shift;
   // stage j % kStages: thread 0's TMA loads of (q, dout) tile j and, in
   // the mask form, every thread's share of its mask tile
   auto fill = [&](int j) {
     const int s = j % kStages;
     if (tid == 0) {
-      hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-      hw::tma_load_3d(sm.q[s], &tq, &sm.full[s], col, j * kRows, b);
-      hw::tma_load_3d(sm.o[s], &tdo, &sm.full[s], col, j * kRows, b);
+      hw::mbar_expect_tx(&sm.full[s], 2 * T::kBytes);
+      T::load(sm.q[s], &tq, &sm.full[s], col0, j * kRows, b);
+      T::load(sm.o[s], &tdo, &sm.full[s], col0, j * kRows, b);
     }
     if constexpr (kMask) {
       stt::copy_mask_tile(mtile + s * stt::kMaskTile, mh, j * kRows, k0, n,
@@ -711,9 +837,9 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 3 : 2)
     }
     hw::mbar_init(&sm.kv, 1);
     hw::mbar_init_fence();
-    hw::mbar_expect_tx(&sm.kv, 2 * kTileBytes);
-    hw::tma_load_3d(sm.k, &tk, &sm.kv, col, k0, b);
-    hw::tma_load_3d(sm.v, &tv, &sm.kv, col, k0, b);
+    hw::mbar_expect_tx(&sm.kv, 2 * T::kBytes);
+    T::load(sm.k, &tk, &sm.kv, col0, k0, b);
+    T::load(sm.v, &tv, &sm.kv, col0, k0, b);
   }
   __syncthreads();
   for (int j = 0; j < kStages && j < tiles; ++j) fill(j);
@@ -722,7 +848,7 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 3 : 2)
     s0 = static_cast<uint32_t>(kp.seed[0]);
     s1 = static_cast<uint32_t>(kp.seed[1]);
   }
-  const int bh = stt::rng_head(kp, b, blockIdx.y);
+  const int bh = stt::rng_head(kp, b, head);
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -734,15 +860,15 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 3 : 2)
   const int half = tid / kRows;
   const int r = tid % kRows;
   const float* lsd = (half == 0 ? lse : delta) +
-                     (static_cast<size_t>(b) * gridDim.y + blockIdx.y) *
+                     (static_cast<size_t>(b) * gridDim.y + head) *
                          static_cast<size_t>(n);
   float next = r < n ? lsd[r] : 0.f;
-  float dka[32], dva[32];
+  float dka[DP / 2], dva[DP / 2];
   hw::zero(dka);
   hw::zero(dva);
-  const uint64_t desc_k = hw::desc_kmajor(sm.k);
-  const uint64_t desc_v = hw::desc_kmajor(sm.v);
-  const uint64_t desc_qs = hw::desc_kmajor(sm.qs);
+  const uint64_t desc_k = T::kmajor(sm.k);
+  const uint64_t desc_v = T::kmajor(sm.v);
+  const uint64_t desc_qs = T::kmajor(sm.qs);
   hw::mbar_wait(&sm.kv, 0);
 
   for (int j = 0; j < tiles; ++j) {
@@ -760,25 +886,27 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 3 : 2)
       keep = stt::keep_bits_smem<true>(mtile + s * stt::kMaskTile,
                                        warp * 16 + g, t4);
     }
-    hw::scale_tile(sm.qs, sm.q[s], qscale);
-    __syncthreads();  // the scaled copy, lse and delta are visible
+    ready_q_dout<DP>(sm.qs, sm.q[s], sm.o[s], qscale, shift, dh);
+    __syncthreads();  // the scaled copy, dout's zeros, lse and delta
 
     // S^T = K (q * scale * log2e)^T and dP^T = V dout^T: 64 keys x 64
     // queries, fp32 accumulators
     float st[32], dpt[32];
     hw::zero(st);
     hw::zero(dpt);
-    const uint64_t desc_o = hw::desc_kmajor(sm.o[s]);
+    const uint64_t desc_o = T::kmajor(sm.o[s]);
     hw::fence_regs(st);
     hw::fence_regs(dpt);
     hw::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      hw::wgmma_ss(st, desc_k + kk * kKStep, desc_qs + kk * kKStep, kk);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      hw::wgmma_ss(st, desc_k + T::kk_offset(kk), desc_qs + T::kk_offset(kk),
+                   kk);
     }
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      hw::wgmma_ss(dpt, desc_v + kk * kKStep, desc_o + kk * kKStep, kk);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      hw::wgmma_ss(dpt, desc_v + T::kk_offset(kk), desc_o + T::kk_offset(kk),
+                   kk);
     }
     hw::wgmma_commit();
     hw::wgmma_wait<0>();
@@ -829,19 +957,19 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 3 : 2)
           as_u32(__floats2bfloat162_rn(ds10, ds11));
     }
 
-    // dV += bf16(P^T) dout;  dK += bf16(dS^T) q  (64 keys x 64 dims)
-    const uint64_t desc_om = hw::desc_mnmajor(sm.o[s]);
-    const uint64_t desc_qm = hw::desc_mnmajor(sm.q[s]);
+    // dV += bf16(P^T) dout;  dK += bf16(dS^T) q  (64 keys x DP columns)
+    const uint64_t desc_om = T::mnmajor(sm.o[s]);
+    const uint64_t desc_qm = T::mnmajor(sm.q[s]);
     hw::fence_regs(dva);
     hw::fence_regs(dka);
     hw::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kRows / 16; ++kk) {
-      hw::wgmma_rs_mn(dva, pf[kk], desc_om + kk * kMnStep, 1);
+      hw::wgmma_rs_mn(dva, pf[kk], desc_om + kk * T::kMnStep, 1);
     }
 #pragma unroll
     for (int kk = 0; kk < kRows / 16; ++kk) {
-      hw::wgmma_rs_mn(dka, dsf[kk], desc_qm + kk * kMnStep, 1);
+      hw::wgmma_rs_mn(dka, dsf[kk], desc_qm + kk * T::kMnStep, 1);
     }
     hw::wgmma_commit();
     hw::wgmma_wait<0>();
@@ -853,70 +981,54 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 3 : 2)
     if (j + kStages < tiles) fill(j + kStages);
   }
 
+  const size_t g_off = static_cast<size_t>(b) * g_sb +
+                       static_cast<size_t>(head) * dh;
   const int key0 = k0 + warp * 16 + g;
-  const int key1 = key0 + 8;
-  const size_t g_off = static_cast<size_t>(b) * g_sb + col;
-  bf16* dkb = dk + g_off;
-  bf16* dvb = dv + g_off;
-#pragma unroll
-  for (int j8 = 0; j8 < 8; ++j8) {
-    const int c = j8 * 8 + t4 * 2;
-    const int i = j8 * 4;
-    if (key0 < n) {
-      const size_t at = static_cast<size_t>(key0) * g_sn + c;
-      *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
-          __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
-          __floats2bfloat162_rn(dva[i], dva[i + 1]);
-    }
-    if (key1 < n) {
-      const size_t at = static_cast<size_t>(key1) * g_sn + c;
-      *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
-          __floats2bfloat162_rn(dka[i + 2] * scale, dka[i + 3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
-          __floats2bfloat162_rn(dva[i + 2], dva[i + 3]);
-    }
-  }
+  store_rows<DP>(dk + g_off, dka, scale, key0, n, g_sn, t4, dh, shift);
+  store_rows<DP>(dv + g_off, dva, 1.f, key0, n, g_sn, t4, dh, shift);
 }
 
-// dQ of one 64-query tile: q (scaled in place) and dout are loaded once;
-// (k, v) tiles stream through the ring as in the dk/dv kernel; S = Qs K^T
-// and dP = dout V^T (K-major), dS in registers, dQ += bf16(dS) K with K
-// read MN-major.  Pad query rows read no lse: their q and dout rows are
-// zero, so ds = 0.  With DROP (kernel C4-bwd) dP is scaled by keep /
-// keep_prob before dS, as attn_bwd_dq_bf16_kernel's; the mask tile
-// (q0.., k0..) is staged with the (k, v) tile.  The dropout instantiations
-// run three blocks an SM (the mask form's tiles leave shared memory for
-// three; at four, 128 registers, both forms spilled and ran slower:
-// PERF.md).
-template <Drop DROP = Drop::kNone>
-__global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 4 : 3)
+// dQ of one 64-query tile at tile width DP: q (scaled in place) and dout
+// are loaded once, their columns outside the head zeroed there; (k, v)
+// tiles stream through the ring as in the dk/dv kernel; S = Qs K^T and
+// dP = dout V^T (K-major), dS in registers, dQ += bf16(dS) K (m64nDPk16)
+// with K read MN-major, and only the head's columns of dQ stored.  Pad
+// query rows read no lse: their q and dout rows are zero, so ds = 0.  With
+// DROP (kernel C4-bwd) dP is scaled by keep / keep_prob before dS, as
+// attn_bwd_dq_bf16_kernel's; the mask tile (q0.., k0..) is staged with the
+// (k, v) tile.
+template <int DP, Drop DROP = Drop::kNone>
+__global__ void __launch_bounds__(kThreads, kDqBlocks<DP, DROP>)
     attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const __grid_constant__ CUtensorMap tdo,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             bf16* __restrict__ dq, int n, int g_sb, int g_sn,
-                             float qscale, float scale, Keep kp) {
+                             bf16* __restrict__ dq, int n, int d, int g_sb,
+                             int g_sn, float qscale, float scale, Keep kp) {
+  using T = Tile<DP>;
+  using Smem = DqSmem<DP>;
   constexpr bool kMask = DROP == Drop::kMask;
   extern __shared__ unsigned char smem_raw[];
-  DqSmem& sm = *reinterpret_cast<DqSmem*>(hw::align_1024(smem_raw));
-  int8_t* mtile = reinterpret_cast<int8_t*>(&sm) + stt::mask_off<DqSmem>();
+  Smem& sm = *reinterpret_cast<Smem*>(hw::align_1024(smem_raw));
+  int8_t* mtile = reinterpret_cast<int8_t*>(&sm) + stt::mask_off<Smem>();
   const int8_t* mh = kMask ? stt::mask_head(kp) : nullptr;
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kRows;
-  const int col = blockIdx.y * kD;
+  const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int tiles = (n + kRows - 1) / kRows;
+  const stt::attn_wg::HeadCols hc = head_cols<DP>(head, d);
+  const int dh = hc.d, col0 = hc.col0, shift = hc.shift;
   // stage j % kStages: thread 0's TMA loads of (k, v) tile j and, in the
   // mask form, every thread's share of its mask tile
   auto fill = [&](int j) {
     const int s = j % kStages;
     if (tid == 0) {
-      hw::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-      hw::tma_load_3d(sm.k[s], &tk, &sm.full[s], col, j * kRows, b);
-      hw::tma_load_3d(sm.v[s], &tv, &sm.full[s], col, j * kRows, b);
+      hw::mbar_expect_tx(&sm.full[s], 2 * T::kBytes);
+      T::load(sm.k[s], &tk, &sm.full[s], col0, j * kRows, b);
+      T::load(sm.v[s], &tv, &sm.full[s], col0, j * kRows, b);
     }
     if constexpr (kMask) {
       stt::copy_mask_tile(mtile + s * stt::kMaskTile, mh, q0, j * kRows, n,
@@ -930,9 +1042,9 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 4 : 3)
     }
     hw::mbar_init(&sm.qo, 1);
     hw::mbar_init_fence();
-    hw::mbar_expect_tx(&sm.qo, 2 * kTileBytes);
-    hw::tma_load_3d(sm.qs, &tq, &sm.qo, col, q0, b);
-    hw::tma_load_3d(sm.o, &tdo, &sm.qo, col, q0, b);
+    hw::mbar_expect_tx(&sm.qo, 2 * T::kBytes);
+    T::load(sm.qs, &tq, &sm.qo, col0, q0, b);
+    T::load(sm.o, &tdo, &sm.qo, col0, q0, b);
   }
   __syncthreads();
   for (int j = 0; j < kStages && j < tiles; ++j) fill(j);
@@ -941,13 +1053,13 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 4 : 3)
     s0 = static_cast<uint32_t>(kp.seed[0]);
     s1 = static_cast<uint32_t>(kp.seed[1]);
   }
-  const int bh = stt::rng_head(kp, b, blockIdx.y);
+  const int bh = stt::rng_head(kp, b, head);
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const size_t row_off = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) *
+  const size_t row_off = (static_cast<size_t>(b) * gridDim.y + head) *
                          static_cast<size_t>(n);
   const int row0 = q0 + warp * 16 + g;
   const int row1 = row0 + 8;
@@ -955,12 +1067,12 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 4 : 3)
   const float l1 = row1 < n ? lse[row_off + row1] : 0.f;
   const float e0 = row0 < n ? delta[row_off + row0] : 0.f;
   const float e1 = row1 < n ? delta[row_off + row1] : 0.f;
-  float acc[32];
+  float acc[DP / 2];
   hw::zero(acc);
-  const uint64_t desc_qs = hw::desc_kmajor(sm.qs);
-  const uint64_t desc_o = hw::desc_kmajor(sm.o);
+  const uint64_t desc_qs = T::kmajor(sm.qs);
+  const uint64_t desc_o = T::kmajor(sm.o);
   hw::mbar_wait(&sm.qo, 0);
-  hw::scale_tile(sm.qs, sm.qs, qscale);  // in place: raw q is not needed here
+  ready_q_dout<DP>(sm.qs, sm.qs, sm.o, qscale, shift, dh);  // raw q unused
   __syncthreads();
 
   for (int j = 0; j < tiles; ++j) {
@@ -978,18 +1090,20 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 4 : 3)
     float sc[32], dp[32];
     hw::zero(sc);
     hw::zero(dp);
-    const uint64_t desc_k = hw::desc_kmajor(sm.k[s]);
-    const uint64_t desc_v = hw::desc_kmajor(sm.v[s]);
+    const uint64_t desc_k = T::kmajor(sm.k[s]);
+    const uint64_t desc_v = T::kmajor(sm.v[s]);
     hw::fence_regs(sc);
     hw::fence_regs(dp);
     hw::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      hw::wgmma_ss(sc, desc_qs + kk * kKStep, desc_k + kk * kKStep, kk);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      hw::wgmma_ss(sc, desc_qs + T::kk_offset(kk), desc_k + T::kk_offset(kk),
+                   kk);
     }
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      hw::wgmma_ss(dp, desc_o + kk * kKStep, desc_v + kk * kKStep, kk);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      hw::wgmma_ss(dp, desc_o + T::kk_offset(kk), desc_v + T::kk_offset(kk),
+                   kk);
     }
     hw::wgmma_commit();
     hw::wgmma_wait<0>();
@@ -1020,13 +1134,13 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 4 : 3)
           p10 * (dp[i + 2] - e1), p11 * (dp[i + 3] - e1)));
     }
 
-    // dQ += bf16(dS) K  (64 queries x 64 dims)
-    const uint64_t desc_km = hw::desc_mnmajor(sm.k[s]);
+    // dQ += bf16(dS) K  (64 queries x DP columns)
+    const uint64_t desc_km = T::mnmajor(sm.k[s]);
     hw::fence_regs(acc);
     hw::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kRows / 16; ++kk) {
-      hw::wgmma_rs_mn(acc, dsf[kk], desc_km + kk * kMnStep, 1);
+      hw::wgmma_rs_mn(acc, dsf[kk], desc_km + kk * T::kMnStep, 1);
     }
     hw::wgmma_commit();
     hw::wgmma_wait<0>();
@@ -1036,22 +1150,9 @@ __global__ void __launch_bounds__(kThreads, DROP == Drop::kNone ? 4 : 3)
     if (j + kStages < tiles) fill(j + kStages);
   }
 
-  bf16* dqb = dq + static_cast<size_t>(b) * g_sb + col;
-#pragma unroll
-  for (int j8 = 0; j8 < 8; ++j8) {
-    const int c = j8 * 8 + t4 * 2;
-    const int i = j8 * 4;
-    if (row0 < n) {
-      *reinterpret_cast<__nv_bfloat162*>(
-          dqb + static_cast<size_t>(row0) * g_sn + c) =
-          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
-    }
-    if (row1 < n) {
-      *reinterpret_cast<__nv_bfloat162*>(
-          dqb + static_cast<size_t>(row1) * g_sn + c) =
-          __floats2bfloat162_rn(acc[i + 2] * scale, acc[i + 3] * scale);
-    }
-  }
+  store_rows<DP>(dq + static_cast<size_t>(b) * g_sb +
+                     static_cast<size_t>(head) * dh,
+                 acc, scale, row0, n, g_sn, t4, dh, shift);
 }
 
 }  // namespace wg
@@ -1112,85 +1213,94 @@ __global__ void __launch_bounds__(kDeltaThreads)
   }
 }
 
-// The wgmma route: four tensor maps (q, k, v and dout by rank-3 tiles at
-// the head's column offset), encoded per call, then the dk/dv and dq
-// kernels on the stream.  A map that does not encode fails the call:
-// nothing falls back to the mma.sync kernels.
-template <Drop DROP>
+// The wgmma route at tile width DP: four tensor maps (q, k, v and dout by
+// (batch, row, column) tiles of Tile<DP>'s atom width over the operand's
+// h * d columns), encoded per call, then the dk/dv and dq kernels on the
+// stream.  A map that does not encode fails the call: nothing falls back
+// to the mma.sync kernels.
+template <int DP, Drop DROP>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
-                 void* dq, void* dk, void* dv, int b, int n, int h,
+                 void* dq, void* dk, void* dv, int b, int n, int h, int d,
                  const Strides& st, float qscale, float scale, const Keep& kp,
                  cudaStream_t stream) {
   namespace hw = stt::hopper;
-  const int cols = h * wg::kD;
+  constexpr int box = wg::Tile<DP>::kAtom;
+  const int cols = h * d;
   CUtensorMap tq, tk, tv, tdo;
-  if (!hw::tile_map_bf16(&tq, q, cols, n, b, st.q_sn, st.q_sb) ||
-      !hw::tile_map_bf16(&tk, k, cols, n, b, st.k_sn, st.k_sb) ||
-      !hw::tile_map_bf16(&tv, v, cols, n, b, st.v_sn, st.v_sb) ||
-      !hw::tile_map_bf16(&tdo, dout, cols, n, b, st.do_sn, st.do_sb)) {
+  if (!hw::tile_map_bf16(&tq, q, cols, n, b, st.q_sn, st.q_sb, box) ||
+      !hw::tile_map_bf16(&tk, k, cols, n, b, st.k_sn, st.k_sb, box) ||
+      !hw::tile_map_bf16(&tv, v, cols, n, b, st.v_sn, st.v_sb, box) ||
+      !hw::tile_map_bf16(&tdo, dout, cols, n, b, st.do_sn, st.do_sb, box)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int dkdv_smem = stt::smem_bytes<wg::DkdvSmem, wg::kStages>(DROP);
-  constexpr int dq_smem = stt::smem_bytes<wg::DqSmem, wg::kStages>(DROP);
+  constexpr int dkdv_smem = wg::dkdv_smem_request<DP>(DROP);
+  constexpr int dq_smem = stt::smem_bytes<wg::DqSmem<DP>, wg::kStages>(DROP);
   cudaError_t err =
-      allow_smem(wg::attn_bwd_dkdv_wgmma_kernel<DROP>, dkdv_smem);
+      allow_smem(wg::attn_bwd_dkdv_wgmma_kernel<DP, DROP>, dkdv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(wg::attn_bwd_dq_wgmma_kernel<DROP>, dq_smem);
+  err = allow_smem(wg::attn_bwd_dq_wgmma_kernel<DP, DROP>, dq_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + wg::kRows - 1) / wg::kRows, h, b);
-  wg::attn_bwd_dkdv_wgmma_kernel<DROP><<<grid, wg::kThreads, dkdv_smem,
-                                         stream>>>(
+  wg::attn_bwd_dkdv_wgmma_kernel<DP, DROP><<<grid, wg::kThreads, dkdv_smem,
+                                             stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), n, st.g_sb, st.g_sn, qscale, scale, kp);
+      static_cast<bf16*>(dv), n, d, st.g_sb, st.g_sn, qscale, scale, kp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  wg::attn_bwd_dq_wgmma_kernel<DROP><<<grid, wg::kThreads, dq_smem,
-                                       stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), n, st.g_sb,
+  wg::attn_bwd_dq_wgmma_kernel<DP, DROP><<<grid, wg::kThreads, dq_smem,
+                                           stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), n, d, st.g_sb,
       st.g_sn, qscale, scale, kp);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Which kernels a call takes (shared with ops/flash_attention.py:
-// attention_bwd_route): fp32 the CUDA-core kernels; bf16 at head dim 64 the
-// wgmma kernels, with or without dropout (C4-bwd in either keep form); bf16
-// at the other head dims (8 to 128) the mma.sync kernels.
+// attention_bwd_route): fp32 the CUDA-core kernels; bf16 at head dims 64
+// to 128 the wgmma kernels, with or without dropout (C4-bwd in either keep
+// form); bf16 at head dims 8 to 56 the mma.sync kernels.
 enum Route : int { kRouteF32 = 0, kRouteMma = 1, kRouteWgmma = 2 };
 
 constexpr int route(int dtype, int d) {
   return dtype == stt::kFloat32 ? kRouteF32
-         : d == wg::kD          ? kRouteWgmma
+         : d >= wg::kMinD       ? kRouteWgmma
                                 : kRouteMma;
 }
 
+// The mma.sync (bf16, DP <= 64: head dims 8 to 56) and CUDA-core (fp32)
+// kernels
 template <int DP, Drop DROP>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk, void* dv,
            int b, int n, int h, int d, const Strides& st, float qscale,
            float scale, const Keep& kp, int dtype, cudaStream_t stream) {
   if (dtype == stt::kBFloat16) {
-    const dim3 grid((n + kTile - 1) / kTile, h, b);
-    const bf16* qp = static_cast<const bf16*>(q);
-    const bf16* kp_ = static_cast<const bf16*>(k);
-    const bf16* vp = static_cast<const bf16*>(v);
-    const bf16* op = static_cast<const bf16*>(dout);
-    constexpr int kv_bytes = dkdv_smem_bytes<DP>();
-    constexpr int q_bytes = dq_smem_bytes<DP>();
-    cudaError_t err =
-        allow_smem(attn_bwd_dkdv_bf16_kernel<DP, DROP>, kv_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = allow_smem(attn_bwd_dq_bf16_kernel<DP, DROP>, q_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dkdv_bf16_kernel<DP, DROP>
-        <<<grid, kThreads, kv_bytes, stream>>>(
-            qp, kp_, vp, op, lse, delta, static_cast<bf16*>(dk),
-            static_cast<bf16*>(dv), n, d, st, qscale, scale, kp);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dq_bf16_kernel<DP, DROP><<<grid, kThreads, q_bytes, stream>>>(
-        qp, kp_, vp, op, lse, delta, static_cast<bf16*>(dq), n, d, st, qscale,
-        scale, kp);
+    if constexpr (DP <= wg::kMinD) {
+      const dim3 grid((n + kTile - 1) / kTile, h, b);
+      const bf16* qp = static_cast<const bf16*>(q);
+      const bf16* kp_ = static_cast<const bf16*>(k);
+      const bf16* vp = static_cast<const bf16*>(v);
+      const bf16* op = static_cast<const bf16*>(dout);
+      constexpr int kv_bytes = dkdv_smem_bytes<DP>();
+      constexpr int q_bytes = dq_smem_bytes<DP>();
+      cudaError_t err =
+          allow_smem(attn_bwd_dkdv_bf16_kernel<DP, DROP>, kv_bytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = allow_smem(attn_bwd_dq_bf16_kernel<DP, DROP>, q_bytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attn_bwd_dkdv_bf16_kernel<DP, DROP>
+          <<<grid, kThreads, kv_bytes, stream>>>(
+              qp, kp_, vp, op, lse, delta, static_cast<bf16*>(dk),
+              static_cast<bf16*>(dv), n, d, st, qscale, scale, kp);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attn_bwd_dq_bf16_kernel<DP, DROP>
+          <<<grid, kThreads, q_bytes, stream>>>(
+              qp, kp_, vp, op, lse, delta, static_cast<bf16*>(dq), n, d, st,
+              qscale, scale, kp);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);  // the wgmma route's
+    }
   } else {
     const dim3 grid((n + kThreadsF32 - 1) / kThreadsF32, h, b);
     const float* qp = static_cast<const float*>(q);
@@ -1222,8 +1332,15 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route(dtype, d) == kRouteWgmma) {
-    return launch_wgmma<DROP>(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h,
-                              st, qscale, scale, kp, s);
+#define STT_WG(DP)                                                        \
+  launch_wgmma<DP, DROP>(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, d, \
+                         st, qscale, scale, kp, s)
+    switch (wg::tile_width(d)) {
+      case 64: return STT_WG(64);
+      case 96: return STT_WG(96);
+      default: return STT_WG(128);
+    }
+#undef STT_WG
   }
 #define STT_BWD(DP)                                                     \
   return launch<DP, DROP>(q, k, v, dout, lse, delta, dq, dk, dv, b, n, h, \
@@ -1265,6 +1382,39 @@ extern "C" int stt_attention_bwd(const void* q, const void* k, const void* v,
                   qscale, scale, dtype, stream);
 }
 
+// Blocks an SM of the wgmma route's dk/dv and dq kernels at tile width DP
+// and keep form DROP, by the runtime's occupancy calculator at the shared
+// memory their launches ask for.
+template <int DP, Drop DROP>
+int wgmma_occupancy(int* dkdv, int* dq) {
+  constexpr int dkdv_smem = wg::dkdv_smem_request<DP>(DROP);
+  constexpr int dq_smem = stt::smem_bytes<wg::DqSmem<DP>, wg::kStages>(DROP);
+  cudaError_t err =
+      allow_smem(wg::attn_bwd_dkdv_wgmma_kernel<DP, DROP>, dkdv_smem);
+  if (err == cudaSuccess) {
+    err = allow_smem(wg::attn_bwd_dq_wgmma_kernel<DP, DROP>, dq_smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        dkdv, wg::attn_bwd_dkdv_wgmma_kernel<DP, DROP>, wg::kThreads,
+        dkdv_smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        dq, wg::attn_bwd_dq_wgmma_kernel<DP, DROP>, wg::kThreads, dq_smem);
+  }
+  return static_cast<int>(err);
+}
+
+template <int DP>
+int wgmma_occupancy(int drop, int* dkdv, int* dq) {
+  switch (drop) {
+    case 0: return wgmma_occupancy<DP, Drop::kNone>(dkdv, dq);
+    case 1: return wgmma_occupancy<DP, Drop::kMask>(dkdv, dq);
+    default: return wgmma_occupancy<DP, Drop::kPhilox>(dkdv, dq);
+  }
+}
+
 // The route a C2, C3-bwd or C4-bwd call (either keep form) of this dtype
 // code and head dim takes: 0 the fp32 CUDA-core kernels, 1 the mma.sync
 // kernels, 2 the wgmma kernels; -1 for what the entry points refuse.
@@ -1274,6 +1424,22 @@ extern "C" int stt_attention_bwd_route(int dtype, int d) {
     return -1;
   }
   return route(dtype, d);
+}
+
+// Blocks an SM of the wgmma route's two kernels at head dim d (a multiple
+// of 8 from 64 to 128) and keep form drop (0 none, 1 the mask, 2 Philox)
+// -> *dkdv, *dq; a CUDA error code, or cudaErrorInvalidValue off the route.
+extern "C" int stt_attention_bwd_occupancy(int d, int drop, int* dkdv,
+                                           int* dq) {
+  if (d % 8 != 0 || route(stt::kBFloat16, d) != kRouteWgmma || d > 128 ||
+      drop < 0 || drop > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (wg::tile_width(d)) {
+    case 64: return wgmma_occupancy<64>(drop, dkdv, dq);
+    case 96: return wgmma_occupancy<96>(drop, dkdv, dq);
+    default: return wgmma_occupancy<128>(drop, dkdv, dq);
+  }
 }
 
 // The delta pre-pass of C2, C3-bwd and C4-bwd: out and dout (B, N, C)
@@ -1336,9 +1502,9 @@ extern "C" int stt_attention_bwd_sep(const void* q, const void* k,
 // counter's first head and head count).  The dk/dv
 // kernel reads the mask transposed by index (mask[b, h, query, key] from
 // its key-major tile; no transposed copy) and draws the Philox words in
-// its own orientation (philox.cuh): two launches, as C2.  At head dim 64 in
-// bf16 they are the wgmma kernels (route()), which stage the mask's tiles
-// in shared memory and read them there in either orientation.
+// its own orientation (philox.cuh): two launches, as C2.  At head dims 64
+// to 128 in bf16 they are the wgmma kernels (route()), which stage the
+// mask's tiles in shared memory and read them there in either orientation.
 extern "C" int stt_attention_bwd_drop(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, void* dk, void* dv,

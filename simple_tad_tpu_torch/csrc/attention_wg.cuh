@@ -3,7 +3,10 @@
 // int8-storage kernel of attention_i8.cu (B2, D2): the online softmax of
 // one 64-key tile on a warpgroup's S accumulators, the rescale of O and l
 // with p packed into the bf16 A fragments of PV, and the int8 store of the
-// normalised rows.
+// normalised rows.  And the column scheme of the bf16 wgmma kernels at head
+// dims 64 to 128, shared by the forward (attention.cu) and the backward
+// (attention_train.cu): the tile width of a head dim, a tile's column
+// atoms and their descriptors, and where a head's columns sit in its tiles.
 //
 // A thread of the warpgroup holds, of an m64nN accumulator (fp32 or s32;
 // S is n64, O n64 to n128 in the bf16 kernel), rows g and g + 8 of its
@@ -22,6 +25,78 @@ namespace stt {
 namespace attn_wg {
 
 constexpr int kTile = 64;  // queries a block, keys a tile
+
+namespace hw = hopper;
+
+// The tile width DP of head dim d: 64 at 64, 96 at 72 to 96, 128 at 104
+// to 128; a head dim d = 8 (mod 16) needs d + 8 columns on its odd heads
+// (head_cols).  Tiles of 80 or 112 columns (32-byte-swizzled atoms) are
+// not instantiated: they ran slower than 96 or 128 in the forward on the
+// H100 in trials whose times were not recorded (an open question of
+// PERF.md).  Their cost: products over the tile's columns span DP / d of
+// the head (1.2 at d = 80).
+__host__ __device__ constexpr int tile_width(int d) {
+  return d <= 64 ? 64 : d <= 96 ? 96 : 128;
+}
+
+// A (64-row, DP-column) bf16 tile: DP / kAtom column atoms of kAtom = 64
+// or 32 columns, the widest that divides DP, each one TMA box swizzled by
+// its row of 128 or 64 bytes (layout type 1 or 2 of a wgmma descriptor),
+// back to back.  At DP = 64 that is the one 128-byte-swizzled 8 KB tile.
+template <int DP>
+struct Tile {
+  static_assert(DP == 64 || DP == 96 || DP == 128, "a tile_width");
+  static constexpr int kAtom = DP % 64 == 0 ? 64 : 32;
+  static constexpr int kRowBytes = 2 * kAtom;
+  static constexpr int kAtomBytes = kTile * kRowBytes;
+  static constexpr int kBytes = kTile * DP * 2;
+  static constexpr uint32_t kLayout = kAtom == 64 ? 1 : 2;
+  // a K-major operand (rows along M or N, the contraction along the row):
+  // 8-row atoms kRowBytes * 8 apart; k16 step kk starts 32 bytes into its
+  // column atom per step within it
+  __host__ __device__ static constexpr int kk_offset(int kk) {
+    return ((kk * 16 / kAtom) * kAtomBytes + (kk * 16 % kAtom) * 2) >> 4;
+  }
+  __device__ static uint64_t kmajor(const __nv_bfloat16* t) {
+    return hw::desc_sw(t, 16, 8 * kRowBytes, kLayout);
+  }
+  // an MN-major operand (rows along the contraction, the tile's columns
+  // along N): k16 step +16 rows, the next column atom LBO = kAtomBytes on
+  // (unused with one atom: set as desc_mnmajor's)
+  static constexpr int kMnStep = (16 * kRowBytes) >> 4;
+  __device__ static uint64_t mnmajor(const __nv_bfloat16* t) {
+    return hw::desc_sw(t, DP == kAtom ? 8 * kRowBytes : kAtomBytes,
+                       8 * kRowBytes, kLayout);
+  }
+  // thread 0's TMA loads of the tile at (col0, row, batch) of `map` (its
+  // box kAtom columns wide), one box an atom, completing on `bar`
+  __device__ static void load(__nv_bfloat16* dst, const CUtensorMap* map,
+                              uint64_t* bar, int col0, int row, int b) {
+#pragma unroll
+    for (int c = 0; c < DP; c += kAtom) {
+      hw::tma_load_3d(dst + c * kTile, map, bar, col0 + c, row, b);
+    }
+  }
+};
+
+// Where head `head` sits in its tiles at tile width DP: the head dim d (64
+// whenever the tile is: tile_width), the tiles' first column col0 in the
+// operand, the head's first column rounded down to a multiple of 16 (a TMA
+// row that starts off a 32-byte sector ran much slower on the H100,
+// untimed), and the head's columns [shift, shift + d) of the tiles.  At
+// d = 8 (mod 16) an odd head's tiles start with the previous head's last
+// 8 columns, and any tile may end in the next head's first columns (or
+// beyond the last head, where TMA reads zero).
+struct HeadCols {
+  int d, col0, shift;
+};
+
+template <int DP>
+__device__ __forceinline__ HeadCols head_cols(int head, int d) {
+  const int dh = DP == 64 ? 64 : d;
+  const int shift = head * dh % 16;
+  return {dh, head * dh - shift, shift};
+}
 
 // The online softmax of one 64-key tile on this thread's S accumulators
 // (rows g and g + 8 of its warp's 16 queries, keys j8 * 8 + 2 t4 + {0, 1}):

@@ -5,7 +5,9 @@
 // one of PV (DP = 64, 96 or 128) on tiles of 128- or 64-byte-swizzled
 // column atoms (desc_sw, tile_map_bf16's box widths, scale_tile_window,
 // scale_tile at 64); the training-attention backward (attention_train.cu)
-// the m64n64k16 bf16 products on 128-byte-swizzled tiles and scale_tile;
+// the same products on the same tiles (S^T, dP^T and their dq-kernel
+// counterparts m64n64k16, dV, dK and dQ m64nDPk16), scale_tile_window and
+// zero_tile_window;
 // the static int8 GEMMs (int8_gemm.cu) the m64n128k32 s8 products on 128-
 // or 64-byte-swizzled tiles; the int8 attentions (attention_i8.cu,
 // attention_int8.cu) the m64n64k32 s8 products on 64-byte-swizzled tiles,
@@ -34,6 +36,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // bytes; the kernel allocates 1024 bytes of slack)
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// the bytes of dynamic shared memory this block's launch asked for
+__device__ __forceinline__ uint32_t dynamic_smem_size() {
+  uint32_t bytes;
+  asm("mov.u32 %0, %%dynamic_smem_size;\n" : "=r"(bytes));
+  return bytes;
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -167,29 +176,38 @@ __device__ __forceinline__ void scale_tile(__nv_bfloat16* dst,
   fence_proxy_async();
 }
 
-// scale_tile in place over a (64-row, COLS) tile of COLS / ATOM column
+// The column of 16-byte chunk c of a (64-row, COLS) tile of ATOM-column
 // atoms (ATOM = 64 or 32 values: 128- or 64-byte swizzle, each atom 64
-// rows, back to back), keeping the columns [lo, hi) and writing zero to
-// the others; lo and hi are multiples of 8, so a 16-byte chunk is kept or
-// zeroed whole.  A chunk's column is its position in the row with the
-// swizzle undone: the 16-byte chunk index XOR the byte offset's bits 7 and
-// up, i.e. row % 8 or (row / 2) % 4.
-template <int COLS, int ATOM>
-__device__ __forceinline__ void scale_tile_window(__nv_bfloat16* tile,
-                                                  float qscale, int lo,
-                                                  int hi) {
+// rows, back to back): its position in the row with the swizzle undone,
+// the chunk index within the row XOR the byte offset's bits 7 and up, i.e.
+// row % 8 or (row / 2) % 4.
+template <int ATOM>
+__device__ __forceinline__ int tile_chunk_col(int c) {
   static_assert(ATOM == 64 || ATOM == 32, "a 128- or 64-byte swizzle");
   constexpr int kChunksRow = ATOM / 8;
   constexpr int kRowShift = ATOM == 64 ? 0 : 1;
-  uint4* d = reinterpret_cast<uint4*>(tile);
+  const int atom = c / (64 * kChunksRow);
+  const int row = c / kChunksRow % 64;
+  const int chunk = (c % kChunksRow) ^ ((row >> kRowShift) % kChunksRow);
+  return atom * ATOM + chunk * 8;
+}
+
+// scale_tile over a (64-row, COLS) tile of COLS / ATOM column atoms
+// (tile_chunk_col), from src to dst (the same tile, or another of its
+// layout), keeping the columns [lo, hi) and writing zero to the others; lo
+// and hi are multiples of 8, so a 16-byte chunk is kept or zeroed whole
+template <int COLS, int ATOM>
+__device__ __forceinline__ void scale_tile_window(__nv_bfloat16* dst,
+                                                  const __nv_bfloat16* src,
+                                                  float qscale, int lo,
+                                                  int hi) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
 #pragma unroll
   for (int i = 0; i < 64 * COLS / 8 / 128; ++i) {
     const int c = i * 128 + threadIdx.x;
-    const int atom = c / (64 * kChunksRow);
-    const int row = c / kChunksRow % 64;
-    const int chunk = (c % kChunksRow) ^ ((row >> kRowShift) % kChunksRow);
-    const int col = atom * ATOM + chunk * 8;
-    uint4 val = d[c];
+    const int col = tile_chunk_col<ATOM>(c);
+    uint4 val = s[c];
     if (col < lo || col >= hi) {
       val = make_uint4(0u, 0u, 0u, 0u);
     } else {
@@ -200,6 +218,21 @@ __device__ __forceinline__ void scale_tile_window(__nv_bfloat16* tile,
       }
     }
     d[c] = val;
+  }
+  fence_proxy_async();
+}
+
+// zero, in place, the columns of such a tile outside [lo, hi) (multiples
+// of 8): stores only, to the chunks outside the window
+template <int COLS, int ATOM>
+__device__ __forceinline__ void zero_tile_window(__nv_bfloat16* tile, int lo,
+                                                 int hi) {
+  uint4* d = reinterpret_cast<uint4*>(tile);
+#pragma unroll
+  for (int i = 0; i < 64 * COLS / 8 / 128; ++i) {
+    const int c = i * 128 + threadIdx.x;
+    const int col = tile_chunk_col<ATOM>(c);
+    if (col < lo || col >= hi) d[c] = make_uint4(0u, 0u, 0u, 0u);
   }
   fence_proxy_async();
 }

@@ -10,10 +10,12 @@ backward, mask and Philox forms, rate 0.1, on the packed qkv's views at
 ViT-B's job batch), the int8-storage
 attention packed (B2) and on separate operands (D2, IV2-S, v strided), the
 int8-compute attention (E2, ViT-B batch 32), the bf16
-forward at the head dims beyond 64 (``WIDE``: A1 on separate operands at
-IV2-1B's probe (4, 4097) H=16, head dim 88, and IV2-6B's (2, 4097) H=25,
-head dim 128, v strided; A1 packed at ViT-H's (2, 1568) H=16, head dim
-80), and
+forward and backward at the head dims beyond 64 (``WIDE``: A1 on
+separate operands at IV2-1B's probe (4, 4097) H=16, head dim 88, and
+IV2-6B's (2, 4097) H=25, head dim 128, v strided; A1 packed at ViT-H's
+(2, 1568) H=16, head dim 80; C2 and C4-bwd in both keep forms at ViT-H's
+(2, 1568) H=16, C3-bwd at IV2-1B's (4, 2049) H=16 and at an IV2-6B
+tensor-parallel rank's (2, 2049) H=13, head dim 128, v strided), and
 the row norms of csrc/layernorm.cu (A2 LayerNorm, B1 LayerNorm->int8 and
 E1 add + LayerNorm->int8 on ViT-B's (32 * 1568, 768) bf16, D3
 RMSNorm->int8 on IV2-S's (32 * 2049, 384); 20 queued calls to an event
@@ -46,7 +48,10 @@ on E2), windows/s as the median of its evaluate runs, the same way.
         [--changed attention,attention_sep] [--steps] [--evals]
 
 A change of the bf16 forward's route at the wide head dims names those
-kernels: ``--changed attention_sep_dh88,attention_sep_dh128,attention_dh80``.
+kernels: ``--changed attention_sep_dh88,attention_sep_dh128,attention_dh80``;
+of the backward's, ``--changed attention_bwd_dh80,attention_sep_bwd_dh88,``
+``attention_sep_bwd_dh128,attention_drop_bwd_dh80,``
+``attention_drop_rng_bwd_dh80``.
 """
 
 from __future__ import annotations
@@ -82,12 +87,22 @@ SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
           "rmsnorm_quant": (32, 2049, 6),
           "attention_sep_dh88": (4, 4097, 16),
           "attention_sep_dh128": (2, 4097, 25),
-          "attention_dh80": (2, 1568, 16)}
-# the bf16 forward beyond head dim 64: kernel -> (head dim, the entry it
-# calls); every other kernel runs at head dim 64
+          "attention_dh80": (2, 1568, 16),
+          "attention_bwd_dh80": (2, 1568, 16),
+          "attention_sep_bwd_dh88": (4, 2049, 16),
+          "attention_sep_bwd_dh128": (2, 2049, 13),
+          "attention_drop_bwd_dh80": (2, 1568, 16),
+          "attention_drop_rng_bwd_dh80": (2, 1568, 16)}
+# the bf16 forward and backward beyond head dim 64: kernel -> (head dim,
+# the entry it calls); every other kernel runs at head dim 64
 WIDE = {"attention_sep_dh88": (88, "attention_sep"),
         "attention_sep_dh128": (128, "attention_sep"),
-        "attention_dh80": (80, "attention")}
+        "attention_dh80": (80, "attention"),
+        "attention_bwd_dh80": (80, "attention_bwd"),
+        "attention_sep_bwd_dh88": (88, "attention_sep_bwd"),
+        "attention_sep_bwd_dh128": (128, "attention_sep_bwd"),
+        "attention_drop_bwd_dh80": (80, "attention_drop_bwd"),
+        "attention_drop_rng_bwd_dh80": (80, "attention_drop_rng_bwd")}
 NORMS = ("layernorm", "layernorm_quant", "add_layernorm_quant",
          "rmsnorm_quant")
 # C4's rate (chip_smoke.py's ATTN_DROP) and its Philox seed words
@@ -256,10 +271,10 @@ def _worker(root: str) -> dict:
                 return fa.flash_attention_qkv_fwd_lse(qkv, heads, scale)
         elif name.startswith("attention_drop"):
             fn = _drop_fn(name, qkv, heads, scale, g)
-        elif name in ("attention_sep_fwd_lse", "attention_sep_bwd"):
+        elif entry in ("attention_sep_fwd_lse", "attention_sep_bwd"):
             ops = (qkv[..., :C].contiguous(), qkv[..., C:2 * C].contiguous(),
                    qkv[..., 2 * C:], heads, scale)
-            if name == "attention_sep_fwd_lse":
+            if entry == "attention_sep_fwd_lse":
                 def fn():
                     return fa.flash_attention_fwd_lse(*ops)
             else:

@@ -150,6 +150,10 @@ def load() -> ctypes.CDLL:
             lib.stt_attention_bwd_sep.restype = i
             lib.stt_attention_bwd_route.argtypes = [i, i]
             lib.stt_attention_bwd_route.restype = i
+            lib.stt_attention_bwd_occupancy.argtypes = [
+                i, i, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int)]
+            lib.stt_attention_bwd_occupancy.restype = i
             lib.stt_attention_delta.argtypes = [p, p, p, i, i, i, i, i, p]
             lib.stt_attention_delta.restype = i
             # the keep source of the dropout kernels: mask, its (batch,

@@ -69,10 +69,11 @@ _bwd_merged_kernel_packed: dq, dk, dv from qkv, out, lse, dout and
 delta = rowsum(dout * out), written as one (B, N, 3C) gradient in
 [dq | dk | dv] column order; csrc/attention_train.cu).  It saves
 (qkv, out, lse), as the JAX forward does.  ``attention_bwd_route`` names
-the kernels a backward call takes: at head dim 64 (every trunk the
-fine-tuning jobs run) bf16 takes the wgmma kernels (TMA ring, wgmma
-products, no transposed staging), at the other head dims the mma.sync
-kernels; fp32 the CUDA-core kernels.  delta comes from
+the kernels a backward call takes: at head dims 64 to 128 (every trunk
+the fine-tuning jobs run, ViT-H, IV2-1B and IV2-6B) bf16 takes the wgmma
+kernels (TMA ring, wgmma products, no transposed staging; tiles 64, 96 or
+128 columns wide), at head dims 8 to 56 the mma.sync kernels; fp32 the
+CUDA-core kernels.  delta comes from
 ``flash_attention_delta``, a pre-pass kernel on the card whose plain
 version is ``attention_delta``.
 
@@ -149,8 +150,8 @@ and ``BWD_LAUNCHES`` and ``SEP_BWD_LAUNCHES`` calls of the training
 backward (each call launches two kernels: dk/dv, then dq), which
 ``attention_bwd_route`` sends to one of three kernel pairs, counted per
 route over both layouts and the dropout backward (C4-bwd):
-``BWD_WGMMA_LAUNCHES`` (bf16 at head dim 64: the
-wgmma kernels), ``BWD_MMA_LAUNCHES`` (bf16 at the other head dims: the
+``BWD_WGMMA_LAUNCHES`` (bf16 at head dims 64 to 128:
+the wgmma kernels), ``BWD_MMA_LAUNCHES`` (bf16 at head dims 8 to 56: the
 mma.sync kernels) and ``BWD_F32_LAUNCHES`` (fp32: the CUDA-core kernels);
 ``DELTA_LAUNCHES`` those of the delta pre-pass (one per backward call,
 dropout or not); ``DROP_FWD_LAUNCHES`` and ``DROP_BWD_LAUNCHES`` those of
@@ -263,10 +264,10 @@ INT8_WGMMA_LAUNCHES = 0
 INT8_MMA_LAUNCHES = 0
 INT8_MAX_HEAD_DIM = 64
 # the training backward's routes, by the code csrc/attention_train.cu's
-# stt_attention_bwd_route returns, and the head dim of its wgmma kernels;
-# the forward's (csrc/attention.cu's stt_attention_fwd_route) are the same
-# codes, its wgmma kernel taking bf16 at head dims WGMMA_HEAD_DIM to
-# MAX_HEAD_DIM
+# stt_attention_bwd_route returns, and the least head dim of its wgmma
+# kernels; the forward's (csrc/attention.cu's stt_attention_fwd_route) are
+# the same codes; both take bf16 at head dims WGMMA_HEAD_DIM to
+# MAX_HEAD_DIM to their wgmma kernels
 BWD_ROUTES = ("fp32", "mma_sync", "wgmma")
 FWD_ROUTES = BWD_ROUTES
 WGMMA_HEAD_DIM = 64
@@ -696,10 +697,18 @@ def attention_bwd_route(dtype, head_dim: int) -> str:
     """The kernels a CUDA call of the training backward (C2, C3-bwd, and
     C4-bwd in either keep form) of ``dtype`` at ``head_dim`` launches, as
     csrc/attention_train.cu's dispatch picks them: 'wgmma' (bf16 at head
-    dim 64, every trunk the fine-tuning jobs run), 'mma_sync' (bf16 at the
-    other head dims) or 'fp32' (the CUDA-core kernels).  Dropout does not
-    change the route."""
-    return _route("attention_bwd_route", dtype, head_dim, (WGMMA_HEAD_DIM,))
+    dims 64 to 128: every trunk the fine-tuning jobs run at 64, and ViT-H's
+    80, IV2-1B's 88 and IV2-6B's 128; their tiles are 64, 96 or 128 columns
+    wide), 'mma_sync' (bf16 at head dims 8 to 56) or 'fp32' (the CUDA-core
+    kernels).  Dropout does not change the route.
+
+    Precondition of the wgmma route at head dims other than 64: k and v
+    are finite.  A tile there also reads columns of the neighbouring heads,
+    which meet the zeroed columns of the scaled q in S and of dout in dP,
+    so a non-finite k or v in one head makes its neighbours' gradients NaN,
+    where the plain version keeps them finite."""
+    return _route("attention_bwd_route", dtype, head_dim,
+                  range(WGMMA_HEAD_DIM, MAX_HEAD_DIM + 1))
 
 
 def attention_fwd_route(dtype, head_dim: int) -> str:

@@ -27,7 +27,8 @@ shard's masks drawn from that shard's generator; each rank's peak GiB is
 printed.  At M = 4 on the card it then takes two IV2-6B full-depth (48
 blocks) fine-tune steps in bf16 with gradient checkpointing at batch 2,
 with no whole-model run to compare with (one card cannot hold its state):
-the loss, that it is finite, the second step's ms and each card's peak GiB.
+the loss, that it is finite, the attention backward's calls by route (all
+on the wgmma kernels), the second step's ms and each card's peak GiB.
 """
 
 from __future__ import annotations
@@ -247,6 +248,12 @@ def tp_check(family: str, dev, dp, tp, seed: int = 2) -> bool:
     return ok
 
 
+def _bwd_routes() -> dict:
+    """-> {route: calls} of the training attention backward so far."""
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    return {r: getattr(fa, name) for r, name in fa._BWD_COUNTERS.items()}
+
+
 def full_depth_step(dev, dp, tp) -> bool:
     """IV2-6B at full depth, bf16 with fp32 masters and gradient
     checkpointing, FULL_STEPS steps at FULL_BATCH a data replica ->
@@ -270,6 +277,7 @@ def full_depth_step(dev, dp, tp) -> bool:
     opt = tp_optimizer(model, dp, tp, zero_stage=1)
     rows = rank_rows(batch, dp.rank, dp.world)
     losses, times = [], []
+    routes = _bwd_routes()
     for _ in range(FULL_STEPS):
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -279,9 +287,12 @@ def full_depth_step(dev, dp, tp) -> bool:
         torch.cuda.synchronize(dev)
         times.append(1e3 * (time.perf_counter() - t0))
         losses.append(loss.item())
+    routes = {r: n - routes[r] for r, n in _bwd_routes().items()}
     n_local = sum(p.numel() for p in model.parameters())
     peaks = multihost.allgather_object(_peak_gib(dev))
-    ok = bool(np.isfinite(losses).all())
+    # every backward call on the wgmma kernels (head dim 128)
+    ok = bool(np.isfinite(losses).all()) and routes["mma_sync"] == 0 \
+        and routes["wgmma"] > 0
     if multihost.rank() == 0:
         print(f"[tp iv2 full depth] internvideo2_6B_patch14_224 8x224, "
               f"{model.cfg.depth} blocks, {model.cfg.num_heads} heads padded "
@@ -291,7 +302,8 @@ def full_depth_step(dev, dp, tp) -> bool:
               f"{torch.cuda.get_device_name(dev)}, bf16 with fp32 masters, "
               f"use_checkpoint, batch {batch}: losses "
               f"{' '.join(f'{x:.6f}' for x in losses)} (finite: {ok}), "
-              f"grad_norm {norm.item():.4e}; step ms "
+              f"grad_norm {norm.item():.4e}; attention backward calls "
+              f"a rank by route {routes}; step ms "
               f"{' '.join(f'{t:.1f}' for t in times)} (the last is one "
               f"check's reading, not a benchmark); seeded init "
               f"{init_s:.1f} s; parameters a rank {n_local / 1e9:.3f} B; "

@@ -2,9 +2,10 @@
 and C4-bwd, simple_tad_tpu_torch.ops.flash_attention.attention_bwd_route),
 on the CPU.
 
-bf16 at head dim 64 takes the wgmma kernels of csrc/attention_train.cu,
-with or without dropout (C4-bwd in either keep form), bf16 at the other
-head dims the mma.sync kernels, fp32 the CUDA-core kernels; the function
+bf16 at head dims 64 to 128 takes the wgmma kernels of
+csrc/attention_train.cu, with or without dropout (C4-bwd in either keep
+form), bf16 at head dims 8 to 56 the mma.sync kernels, fp32 the CUDA-core
+kernels; the function
 mirrors the source's dispatch (stt_attention_bwd_route on the card,
 tests/test_torch_cuda.py).  A CPU tensor takes the plain version and
 counts no launch on any route.  The dropout backward counts its call on
@@ -31,7 +32,7 @@ ROUTE_COUNTERS = ("BWD_WGMMA_LAUNCHES", "BWD_MMA_LAUNCHES",
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 def test_route_by_dtype_and_head_dim(dtype, head_dim):
     want = ("fp32" if dtype == torch.float32
-            else "wgmma" if head_dim == 64 else "mma_sync")
+            else "wgmma" if head_dim >= 64 else "mma_sync")
     assert fa.attention_bwd_route(dtype, head_dim) == want
     assert want in fa.BWD_ROUTES
 
@@ -50,13 +51,14 @@ def test_route_rejects_dtypes_the_kernels_refuse(dtype):
 
 
 def test_route_matches_the_kernel_source():
-    """The route codes and the wgmma head dim of csrc/attention_train.cu,
-    and its route(), which takes no dropout argument: every keep form's
-    dispatch takes the route of the call without dropout."""
+    """The route codes and the wgmma route's least head dim of
+    csrc/attention_train.cu, and its route(), which takes no dropout
+    argument: every keep form's dispatch takes the route of the call
+    without dropout."""
     src = SOURCE.read_text()
     assert re.search(r"constexpr int route\(int dtype, int d\) \{\s*"
                      r"return dtype == stt::kFloat32 \? kRouteF32\s*"
-                     r": d == wg::kD\s*\? kRouteWgmma\s*"
+                     r": d >= wg::kMinD\s*\? kRouteWgmma\s*"
                      r": kRouteMma;\s*\}", src)
     assert len(re.findall(r"if \(route\(dtype, d\) == kRouteWgmma\)",
                           src)) == 1
@@ -64,8 +66,8 @@ def test_route_matches_the_kernel_source():
     assert [fa.BWD_ROUTES[int(codes[k])] for k in ("F32", "Mma", "Wgmma")
             ] == ["fp32", "mma_sync", "wgmma"]
     wg = src[src.index("namespace wg {"):]
-    assert int(re.search(r"constexpr int kD = (\d+);", wg).group(1)) == \
-        fa.WGMMA_HEAD_DIM
+    assert int(re.search(r"constexpr int kMinD = (\d+);", wg).group(1)) \
+        == fa.WGMMA_HEAD_DIM
 
 
 @pytest.mark.parametrize("head_dim", range(8, fa.MAX_HEAD_DIM + 1, 8))

@@ -37,7 +37,7 @@ DISPATCH_EXPR = r"if \(route\(dtype, d\) == kRouteWgmma\)"
 
 
 def _wgmma_min_head_dim(src: str) -> int:
-    """The least head dim of the forward's wgmma route, as the source's
+    """The least head dim of a source's wgmma route, as its
     namespace wg declares it."""
     wg = src[src.index("namespace wg {"):]
     return int(re.search(r"constexpr int kMinD = (\d+);", wg).group(1))
@@ -89,17 +89,14 @@ def test_dropout_forward_counts_its_route(dtype, head_dim, monkeypatch):
 
 
 def test_route_codes_are_the_backward_ones():
-    """attention.cu and attention_train.cu number the three routes alike;
-    the backward's wgmma route takes head dim 64 and the forward's starts
-    there."""
+    """attention.cu and attention_train.cu number the three routes alike,
+    and both wgmma routes start at head dim 64."""
     fwd = SOURCE.read_text()
     bwd = SOURCE.with_name("attention_train.cu").read_text()
     assert re.findall(r"kRoute(\w+) = (\d)", fwd) == \
         re.findall(r"kRoute(\w+) = (\d)", bwd)
     assert fa.FWD_ROUTES == fa.BWD_ROUTES
-    wg = bwd[bwd.index("namespace wg {"):]
-    assert int(re.search(r"constexpr int kD = (\d+);", wg).group(1)) == \
-        fa.WGMMA_HEAD_DIM
+    assert _wgmma_min_head_dim(bwd) == fa.WGMMA_HEAD_DIM
     assert _wgmma_min_head_dim(fwd) == fa.WGMMA_HEAD_DIM
 
 

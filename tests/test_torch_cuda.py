@@ -562,13 +562,16 @@ def test_attention_sep_training_wrappers_reject_bad_inputs(cuda):
         fa.flash_attention_bwd(q, strided, q, q, lse, q, 2, 0.125)
 
 
-# The backward's routes (fa.attention_bwd_route): bf16 at head dim 64 takes
-# the wgmma kernels (TMA ring, wgmma products), bf16 at the other head dims
-# the mma.sync kernels, fp32 the CUDA-core kernels.  The wgmma kernels are
-# held to the plain versions at the 64-row tile edges and at IV2-S's
-# N = 2049 (a 1-row last tile), packed and on separate operands with v
-# strided, under BWD_TOL; two launches on the same inputs are bit-equal
-# (no atomics, one summation order).
+# The backward's routes (fa.attention_bwd_route): bf16 at head dims 64 to
+# 128 takes the wgmma kernels (TMA ring, wgmma products; tiles 64, 96 or
+# 128 columns wide), bf16 at 8 to 56 the mma.sync kernels, fp32 the
+# CUDA-core kernels.  The wgmma kernels are held to the plain versions at
+# the 64-row tile edges and at IV2-S's N = 2049 (a 1-row last tile), packed
+# and on separate operands with v strided, under BWD_TOL, at head dim 64
+# and at every head dim of the wider tiles (72 to 128: tiles that hold
+# columns of the next head, and at 72, 88, 104 and 120 odd heads' tiles
+# that start 8 columns early); two launches on the same inputs are
+# bit-equal (no atomics, one summation order).
 ROUTE_COUNTERS = {"wgmma": "BWD_WGMMA_LAUNCHES",
                   "mma_sync": "BWD_MMA_LAUNCHES", "fp32": "BWD_F32_LAUNCHES"}
 
@@ -595,11 +598,16 @@ def _bwd_both_layouts(layout, b, n, heads, d, seed, device, dtype):
                 q, k, v, out, lse, dout, heads, scale), -1))
 
 
+BWD_WGMMA_CASES = ([(n, 64) for n in (1, 63, 64, 65, 129, 2049)]
+                   + [(n, d) for d in range(72, fa.MAX_HEAD_DIM + 1, 8)
+                      for n in (1, 63, 65, 2049)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["packed", "separate"])
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 2049])
-def test_attention_bwd_wgmma_kernels_match_plain(n, layout, cuda):
-    kernel, plain = _bwd_both_layouts(layout, 2, n, 3, 64, 40, cuda,
+@pytest.mark.parametrize("n,d", BWD_WGMMA_CASES)
+def test_attention_bwd_wgmma_kernels_match_plain(n, d, layout, cuda):
+    kernel, plain = _bwd_both_layouts(layout, 2, n, 3, d, 40, cuda,
                                       torch.bfloat16)
     before = _route_counts()
     got, again = kernel(), kernel()
@@ -615,7 +623,8 @@ def test_attention_bwd_wgmma_kernels_match_plain(n, layout, cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 88, 96, 112, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 72, 80, 88, 96, 104, 112,
+                               120, 128])
 def test_attention_bwd_routes_by_head_dim(d, dtype, cuda):
     """Each head dim takes the route attention_bwd_route names, counted on
     that route only, and matches the plain version there."""
@@ -629,6 +638,45 @@ def test_attention_bwd_routes_by_head_dim(d, dtype, cuda):
     assert {r: after[r] - before[r] for r in after} == {
         r: int(r == route) for r in after}
     torch.testing.assert_close(got.float(), plain().float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 88, 120])
+def test_attention_bwd_wgmma_writes_each_gradient_column_once(d, cuda):
+    """C2 on the wgmma route at head dims whose tiles hold columns of the
+    next head (80, 88, 120) and, at 88 and 120, odd heads' tiles that start
+    8 columns early, into a gradient buffer filled with NaN first: every
+    column of [dq | dk | dv] is written (none is left NaN), each with the
+    value a launch into a fresh buffer gives and the plain version's (a
+    block that stored a neighbouring head's columns from its own tile
+    would leave them wrong)."""
+    from simple_tad_tpu_torch.kernels import build as kbuild
+    b, n, heads = 2, 129, 5
+    scale = d ** -0.5
+    C = heads * d
+    qkv = _randn((b, n, 3 * C), 48, cuda).to(torch.bfloat16)
+    dout = _randn((b, n, C), 49, cuda).to(torch.bfloat16)
+    out, lse = fa.flash_attention_qkv_fwd_lse_plain(qkv, heads, scale)
+    want = fa.flash_attention_qkv_bwd(qkv, out, lse, dout, heads, scale)
+    delta = fa.flash_attention_delta(out, dout, heads)
+    dqkv = torch.full_like(qkv, float("nan"))
+    lib = kbuild.load()
+    code = lib.stt_attention_bwd(
+        *fa._qkv_pointers(qkv, C), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *fa._qkv_pointers(dqkv, C), b, n, heads, d,
+        n * 3 * C, 3 * C, n * C, C, n * 3 * C, 3 * C,
+        float(scale * fa.LOG2E), float(scale),
+        kbuild.dtype_code(torch.bfloat16),
+        torch.cuda.current_stream(cuda).cuda_stream)
+    kbuild.check(code, "attention_bwd")
+    torch.cuda.synchronize()
+    assert fa.attention_bwd_route(torch.bfloat16, d) == "wgmma"
+    assert not torch.isnan(dqkv).any(), "a gradient column left unwritten"
+    assert torch.equal(dqkv, want)
+    torch.testing.assert_close(
+        dqkv.float(), fa.flash_attention_qkv_bwd_plain(
+            qkv, out, lse, dout, heads, scale).float(),
+        **BWD_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
@@ -1054,15 +1102,15 @@ def test_tiny_int8_iv2_fused_forward_goes_through_kernels(qkv_i8, fused_rmsq,
 # bits drawn in the kernel from a seed; v the strided column block of a
 # (B, N, 3C) tensor; C1's and C2's bounds.  Both forms compute the same
 # function of the same keep bits, so the seed form equals the mask form fed
-# dropout_keep_plain's mask bit for bit.  In bf16 the forward takes its
-# wgmma kernel at head dims 64 to 128 and the backward its wgmma kernels at
-# 64, the others the mma.sync ones: the wgmma mask form copies
+# dropout_keep_plain's mask bit for bit.  In bf16 the forward and the
+# backward take their wgmma kernels at head dims 64 to 128 (80, 88 and 128
+# among the cases), the others the mma.sync ones: the wgmma mask form copies
 # its tiles by 16 bytes at N = 1568 (ViT-B's length, N % 16 == 0), by 8 at
 # 392 and 200, by 4 at 132 and by single bytes at IV2's 2049 (rows off 4
 # bytes).
 DROP_CASES = [(2, 392, 12, 64), (2, 200, 2, 64), (3, 97, 4, 80),
               (1, 130, 3, 128), (2, 33, 4, 32), (1, 2049, 2, 64),
-              (2, 1568, 12, 64), (2, 132, 3, 64)]
+              (2, 1568, 12, 64), (2, 132, 3, 64), (2, 129, 3, 88)]
 DROP_RATE = 0.1
 
 
@@ -1134,7 +1182,7 @@ def test_attention_drop_bwd_kernel_matches_plain(b, n, heads, d, dtype, form,
     assert moved == ((0, 1, 0, 0) if form == "mask" else (0, 0, 0, 1))
     route = fa.attention_bwd_route(dtype, d)
     assert route == ("fp32" if dtype == torch.float32
-                     else "wgmma" if d == 64 else "mma_sync")
+                     else "wgmma" if d >= 64 else "mma_sync")
     assert _moved(routes, _route_counts()) == {
         r: int(r == route) for r in routes}
     again = fa.flash_attention_drop_bwd(q, k, v, out, lse, dout, heads, scale,
