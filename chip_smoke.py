@@ -35,11 +35,13 @@ Phases (any failure raises, so the exit code is non-zero):
      largest code difference (<= 1) and the share of codes that differ,
      with the same two controls (two launches of each B1 case
      bit-equal); every B2 and D2 case must launch once on
-     the route fa.attention_i8_route names (the wgmma kernel at head dim
-     64, two launches bit-equal; the mma.sync kernel at ViT-H's 80 and
-     IV2-1B's 88, timed too).  The training attention kernels (C1,
-     the forward with lse; C2, the backward) are checked at ViT-B's
-     training shape (8, 1568, 2304) bf16 (the wgmma routes), ViT-H's head
+     the route fa.attention_i8_route names (the wgmma kernel at head dims
+     64 to 128, two launches bit-equal; at ViT-H's 80, IV2-1B's 88 and
+     IV2-6B's 128 in 128-column tiles, timed too; the mma.sync kernel at
+     a padded 40), each with two controls (the probabilities not rounded
+     to bf16; the output left unnormalized).  The training attention
+     kernels (C1, the forward with lse; C2, the backward) are checked at
+     ViT-B's training shape (8, 1568, 2304) bf16 (the wgmma routes), ViT-H's head
      dim 80 (2, 1568, 3840) bf16 (the wgmma routes, 96-column tiles; C2
      timed with SDPA's backward and its bound), head dim 32 (4, 1568,
      1152) bf16 (C1's and C2's mma.sync routes) and on a masked fp32 tail,
@@ -67,8 +69,10 @@ Phases (any failure raises, so the exit code is non-zero):
      2049 (8 x 16 x 16 patches + CLS): A1 on separate operands
      (attention_sep) with v the strided column block of a real qkv tensor,
      timed against SDPA; D2 (attention_i8_sep, int8 storage on separate
-     operands) likewise, once with keys masked at n_valid < N, and at
-     IV2-1B's head dim 88 (padded to 96), and A1 on separate operands at
+     operands) likewise, once with keys masked at n_valid < N, at
+     IV2-1B's head dim 88 read in place (batch 4 and phase 20's 32, its
+     plain version and controls PLAIN_CHUNK samples at a time) and
+     IV2-6B's 128 ((2, 2049, 9600) H=25), and A1 on separate operands at
      C = 192 (H = 3, Dh = 64), the geometry at which the JAX package takes
      its (B*H, N, Dh) inference kernel; D3 (rmsnorm_quant, RMSNorm->int8)
      at (32 x 2049, 384) with per-head inverse scales (two launches of
@@ -429,6 +433,21 @@ Phases (any failure raises, so the exit code is non-zero):
      delta, nothing else.  Phase 2 holds C3-fwd and C3-bwd at that rank's
      shape (TP_IV2_C3) against their plain versions and controls, two
      launches bit-equal, timed with SDPA's.
+ 20. IV2-1B static int8 serving at full width and depth
+     (internvideo2_1B_patch14_224: 1408 wide, 40 blocks, 16 heads of head
+     dim 88, 8x224, N = 2049), the registered name both serving CLIs take
+     with --quant8: fp32 masters seeded on the card (LayerScale 0.1, head
+     scale 1), quantized and calibrated on phase 3's clip through
+     FrameEvaluator(quant8=True) at batch 32 with phase 8's view step (82
+     windows), unfused as phase 8's first run: 40 D2 launches per chunk
+     forward, all on the wgmma route (head dim 88 read in place, no
+     padding copy), and nothing else; the logits within LOGIT_RTOL_IV2_I8
+     of the same model with D2 routed to its plain version, and the gross
+     control (attention left unnormalized) outside it; windows/s as the
+     median of IV2_1B_EVAL_RUNS evaluates and the peak GiB over them,
+     printed with the card's name and power limit (nvidia-smi).  The
+     kernels record's D2 entry carries phase 20's launches
+     ("launches_phase20").
 The line before the last is the kernels' JSON record (max_abs_err of an
 int8 kernel is in codes); the last line is {"ok": true, "device": {...}}.
 """
@@ -602,8 +621,9 @@ JOB_BATCH = 56
 # scales it (x batch / 256)
 IV2_LR = 1e-3 * JOB_BATCH / 256
 # one timing process a phase (three until phase 16, two until phase 17
-# came: the run's time limit)
-TIMING_PROCESSES, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 1, 3, 10, 2
+# came: the run's time limit); for the same reason few timed steps here
+# and in MAE_TIMED, DISTILL_STEPS_FIRST, DAPT_JOB_TIMED, IV2_1B_EVAL_RUNS
+TIMING_PROCESSES, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 1, 3, 6, 2
 # phase 11: the attention dropout rate of the JAX package's own measurement
 # (simple_tad_tpu/ops/flash_attention.py:flash_attention's docstring); the
 # kernel names of each keep source
@@ -659,7 +679,7 @@ MAE_MASKS = (0.75, 0.9)
 MAE_LR = 3e-4 * 400 / 256
 MAE_BATCH = 200
 MAE_PARTS = (120, 80)              # the job's 240 : 160 split of a batch
-MAE_WARMUP, MAE_TIMED = 2, 8
+MAE_WARMUP, MAE_TIMED = 2, 5
 DAPT_TIMED = [(MAE_BATCH, 392, 768, 12), (MAE_BATCH, 1568, 384, 6)]
 # phase 14: the MVD-B and UMT-B fine-tuning jobs (jobs/finetune/
 # MVD-B_DoTA.sh, UMT-B_D2K.sh): lr 5e-4 scaled to batch 56, layer decay
@@ -710,7 +730,7 @@ DISTILL_FLAGS = [
     "--device", "cuda"]
 # (iii): the first process times DISTILL_STEPS_FIRST steps after
 # DISTILL_WARMUP and takes the profiler window, the second DISTILL_STEPS
-DISTILL_WARMUP, DISTILL_STEPS_FIRST, DISTILL_STEPS = 2, 5, 3
+DISTILL_WARMUP, DISTILL_STEPS_FIRST, DISTILL_STEPS = 2, 3, 3
 DISTILL_PROCESSES = 1
 # the share of attention-mask positions the kernels' teacher may move from
 # the plain one's on the same noise (a token near the threshold flips).
@@ -812,7 +832,7 @@ IV2_DAPT_DECODER = (8, 4096, 192, 3)
 REMAT_DROP_PATH = 0.1
 DAPT_JOB_PARTS = (240, 160)
 DAPT_ACCUM_PARTS = (120, 80)
-DAPT_JOB_WARMUP, DAPT_JOB_TIMED = 2, 5
+DAPT_JOB_WARMUP, DAPT_JOB_TIMED = 2, 3
 DDP_STEPS = 3
 DDP_TIMEOUT_S = 300
 # phase 18: (i) jobs/vis.sh's mae-recon (cli/visualize.py:reconstruct): the
@@ -836,6 +856,17 @@ TP_CASES = {
             2, 8),
 }
 TP_TIMEOUT_S = 300
+# phase 2's D2 cases (B, N, 3C), heads, n_valid: IV2-S and IV2-B at the
+# eval batch, keys masked, IV2-1B's head dim 88 read in place (at batch 4
+# and at phase 20's eval batch 32), IV2-6B's 128 (2 samples), a padded
+# head dim 40 -> 48 on the mma.sync route with a tail
+I8_SEP_CASES = [((32, 2049, 1152), 6, None),      # IV2-S b32
+                ((32, 2049, 1152), 6, 2040),      # keys masked
+                ((32, 2049, 2304), 12, None),     # IV2-B b32
+                ((4, 2049, 4224), 16, None),      # IV2-1B, Dh 88 in place
+                ((32, 2049, 4224), 16, None),     # IV2-1B b32 (phase 20)
+                ((2, 2049, 9600), 25, None),      # IV2-6B, Dh 128
+                ((2, 200, 240), 2, 190)]          # Dh 40 -> 48, tail
 # phase 2 at an IV2-6B rank's attention in phase 19: C3 at (B, N, 3C) of its
 # 13 heads of 128 (both ways on the wgmma kernels' 128-column tiles), H
 TP_IV2_C3 = ((2, 2049, 3 * 13 * 128), 13)
@@ -860,6 +891,10 @@ EFFICIENCY_ITERS = 4
 IV2_VIEW_STEP = 2
 LOGIT_RTOL_IV2 = 5.7e-3      # as LOGIT_RTOL, the 12-layer bf16 IV2-S
 LOGIT_RTOL_IV2_I8 = 2.5e-2   # as LOGIT_RTOL_I8
+# phase 20: IV2-1B static int8 serving (the registered name both serving
+# CLIs take with --quant8), at phase 8's clip, view step and batch
+IV2_1B = "internvideo2_1B_patch14_224"
+IV2_1B_EVAL_RUNS = 3
 # the card's data-sheet rates (H100 SXM, dense): bf16 tensor cores, int8
 # tensor cores, fp32 outside the tensor cores, device memory
 PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "bytes": 3.35e12}
@@ -971,13 +1006,18 @@ def first_call(fn):
     return fn[0] if isinstance(fn, tuple) else fn
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
 def device_check() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip())
+    print(card_line())
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}")
     return torch.cuda.get_device_name(0)
@@ -1718,7 +1758,7 @@ def check_kernels(dev, seed: int) -> dict:
                 ((8, 1568, 1152), 6),       # ViT-S
                 ((4, 1568, 3072), 16),      # ViT-L
                 ((2, 200, 384), 2),         # masked tail
-                ((2, 1568, 3840), 16)]      # ViT-H, Dh=80
+                ((2, 1568, 3840), 16)]      # ViT-H, Dh=80 (128-col tiles)
     for shape, heads in i8_cases:
         B, N, C3 = shape
         D = C3 // 3 // heads
@@ -1732,20 +1772,18 @@ def check_kernels(dev, seed: int) -> dict:
                                              scale).abs().max()
         route = fa.attention_i8_route(D)
         case = f"{shape} H={heads}"
+        i8_args = (qkv_i8, amax, heads, scale, out_amax)
         run_case("attention_i8", case,
-                 lambda: fa.flash_attention_qkv_i8d(qkv_i8, amax, heads,
-                                                    scale, out_amax),
-                 lambda: fa.flash_attention_qkv_i8d_plain(
-                     qkv_i8, amax, heads, scale, out_amax),
-                 lambda: attention_i8_control(qkv_i8, amax, heads, scale,
-                                              out_amax),
-                 time_it="every" if route == "mma_sync" else True,
+                 lambda: fa.flash_attention_qkv_i8d(*i8_args),
+                 lambda: fa.flash_attention_qkv_i8d_plain(*i8_args),
+                 [lambda: attention_i8_control(*i8_args),
+                  lambda: attention_i8_unnormalized(*i8_args)],
+                 time_it="every" if D != fa.WGMMA_HEAD_DIM else True,
                  bound=attention_bound(B, N, C3 // 3, heads, int8_qk=True),
                  route=route, route_counts=i8_route_counts)
         if route == "wgmma":
             launches_equal("attention_i8", case,
-                           lambda: fa.flash_attention_qkv_i8d(
-                               qkv_i8, amax, heads, scale, out_amax))
+                           lambda: fa.flash_attention_qkv_i8d(*i8_args))
         del qkv_i8
         torch.cuda.empty_cache()
 
@@ -1880,12 +1918,7 @@ def check_kernels(dev, seed: int) -> dict:
         del qkv, q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
 
-    i8_sep_cases = [((32, 2049, 1152), 6, None),      # IV2-S b32
-                    ((32, 2049, 1152), 6, 2040),      # keys masked
-                    ((32, 2049, 2304), 12, None),     # IV2-B b32
-                    ((4, 2049, 4224), 16, None),      # IV2-1B, Dh 88 -> 96
-                    ((2, 200, 240), 2, 190)]          # Dh 40 -> 48, tail
-    for shape, heads, n_valid in i8_sep_cases:
+    for shape, heads, n_valid in I8_SEP_CASES:
         B, N, C3 = shape
         C, D = C3 // 3, C3 // 3 // heads
         qkv = torch.randn(shape, generator=g, device=dev)
@@ -1901,13 +1934,19 @@ def check_kernels(dev, seed: int) -> dict:
         args = (q, k, v, amax, heads, scale, out_amax, n_valid)
         route = fa.attention_i8_route(D)
         case = f"{shape} H={heads} n_valid={n_valid}, v strided"
+        # the plain version and controls PLAIN_CHUNK samples at a time
+        # where their fp32 scores would not fit at once
+        big = B * heads * N * N * 4 > 2 ** 32
+        wrap = (lambda fn: chunked(fn, lead=3)) if big else (lambda fn: fn)
         run_case("attention_i8_sep", case,
                  lambda: fa.flash_attention_i8d(*args),
-                 lambda: fa.flash_attention_i8d_plain(*args),
-                 lambda: attention_i8_sep_control(*args),
-                 time_it="every" if route == "mma_sync" else True,
+                 lambda: wrap(fa.flash_attention_i8d_plain)(*args),
+                 [lambda: wrap(attention_i8_sep_control)(*args),
+                  lambda: wrap(attention_i8_sep_unnormalized)(*args)],
+                 time_it="every" if D != fa.WGMMA_HEAD_DIM else True,
                  bound=attention_bound(B, N, C, heads, int8_qk=True),
-                 route=route, route_counts=i8_route_counts)
+                 route=route, route_counts=i8_route_counts,
+                 plain_runs=3 if big else 20)
         if route == "wgmma":
             launches_equal("attention_i8_sep", case,
                            lambda: fa.flash_attention_i8d(*args))
@@ -2047,6 +2086,7 @@ def check_kernels(dev, seed: int) -> dict:
     check_distill_kernels(dev, g, run_case, launches_equal)
     check_probe_kernels(dev, g, run_case, launches_equal)
     print_bwd_occupancy()
+    print_i8_occupancy()
     for shape, heads, label in WIDE_BWD_CASES:
         check_c3_case(g, dev, run_case, launches_equal, shape, heads, label,
                       timed=True, forward=label != "IV2-1B")
@@ -2075,15 +2115,39 @@ def print_bwd_occupancy() -> None:
               f"(dk/dv / dq): {', '.join(got)}")
 
 
-def chunked(fn, n: int = PLAIN_CHUNK):
+def print_i8_occupancy() -> None:
+    """The int8-storage attention's wgmma kernel (B2, D2): its blocks an
+    SM at tile widths 64 and 128, by the runtime's occupancy calculator
+    at the shared memory its launch asks for (stt_attention_i8_occupancy),
+    and its ptxas registers from the build log."""
+    import ctypes
+    from simple_tad_tpu_torch.kernels import build as kbuild
+    lib = kbuild.load()
+    log = kbuild.library_path().parent / "build.log"
+    text = log.read_text() if log.exists() else ""
+    for tile in (64, 128):
+        blocks = ctypes.c_int()
+        kbuild.check(lib.stt_attention_i8_occupancy(tile, ctypes.byref(
+            blocks)), "attention_i8_occupancy")
+        regs = re.search(rf"attn_fwd_i8_wgmma_kernelILi{tile}E.*?Used (\d+) "
+                         rf"registers", text, re.S)
+        print(f"[attention_i8] wgmma kernel, {tile}-column tiles: "
+              f"{blocks.value} blocks an SM, "
+              f"{regs.group(1) if regs else '?'} registers (ptxas)")
+
+
+def chunked(fn, n: int = PLAIN_CHUNK, lead: int = None):
     """``fn`` applied to its tensor arguments' leading (batch) axis ``n``
     samples at a time, the results concatenated (each item of a tuple
     result): the plain attention at a batch whose fp32 scores would not
-    fit at once."""
+    fit at once.  ``lead``: only the first ``lead`` arguments are batched
+    (the int8 attentions' q, k, v; their scales are not)."""
     def run(*args):
         B = args[0].shape[0]
-        parts = [fn(*(a[i:i + n] if torch.is_tensor(a) else a
-                      for a in args)) for i in range(0, B, n)]
+        parts = [fn(*(a[i:i + n] if torch.is_tensor(a) and
+                      (lead is None or j < lead) else a
+                      for j, a in enumerate(args)))
+                 for i in range(0, B, n)]
         if isinstance(parts[0], tuple):
             return tuple(torch.cat(p) for p in zip(*parts))
         return torch.cat(parts)
@@ -3557,6 +3621,83 @@ def run_eval_iv2_int8(dev, seed: int, bf16_logits, fused_rmsq: bool):
         f"the IV2 int8 logit bound lets the control through: {control_err}"
     return {"windows_per_sec": rate, "launches": launches,
             "logits_err": err}
+
+
+def run_eval_iv2_1b_int8(dev, seed: int) -> dict:
+    """Phase 20: IV2-1B static int8 serving at full width and depth ->
+    stats dict."""
+    from simple_tad_tpu_torch.eval.engine import FrameEvaluator
+    from simple_tad_tpu_torch.models import create_model
+    from simple_tad_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    # the fp32 masters seeded on the card, LayerScale 0.1 and head scale 1
+    # as phases 7-8; the evaluator quantizes them (the bf16 model, left
+    # uninitialised, gives it the configuration)
+    kw = dict(device=dev, dtype=torch.bfloat16, num_frames=8,
+              init_values=0.1, init_scale=1.0)
+    masters = create_model(IV2_1B, param_dtype=torch.float32,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               seed), **kw).state_dict()
+    model = create_model(IV2_1B, **kw)
+    cfg = model.cfg
+    ds, n_windows, chunks = synthetic_clip(cfg, seed, IV2_VIEW_STEP)
+    ev = FrameEvaluator(model, device=dev, batch_size=BATCH,
+                        resize_on_host=False, precompute_tubelets=True,
+                        quant8=True, fp32_state=masters)
+    del model, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev.calibrate(ds)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    ev.evaluate(ds)                                  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res = ev.evaluate(ds)
+    launches = read_counts()
+    rates = [res.windows_per_sec] + [ev.evaluate(ds).windows_per_sec
+                                     for _ in range(IV2_1B_EVAL_RUNS - 1)]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    logits = logits_of(res)
+    # the comparison runs: D2's plain version and the gross control
+    # PLAIN_CHUNK samples at a time (their fp32 scores at batch 32 and 16
+    # heads would take 8.6 GB a tensor)
+    with routed(flash_attention_i8d=chunked(fa.flash_attention_i8d_plain,
+                                            lead=3)):
+        plain_res = ev.evaluate(ds)
+    with routed(flash_attention_i8d=chunked(attention_i8_sep_unnormalized,
+                                            lead=3)):
+        control = logits_of(ev.evaluate(ds))
+    err, control_err, scale = logit_errors(logits, logits_of(plain_res),
+                                           control)
+    rate = statistics.median(rates)
+    print(f"[iv2-1b int8] {IV2_1B} 8x224 (N = {cfg.num_patches + 1}, "
+          f"{cfg.embed_dim} wide, {cfg.depth} blocks, {cfg.num_heads} heads "
+          f"of {cfg.embed_dim // cfg.num_heads}) static int8 batch {BATCH}, "
+          f"view step {IV2_VIEW_STEP}: set-up {setup_s:.1f} s, calibrate "
+          f"{calib_s:.2f} s; evaluate median {rate:.2f} windows/s over "
+          f"{IV2_1B_EVAL_RUNS} runs (min {min(rates):.2f}, max "
+          f"{max(rates):.2f}), peak {peak:.2f} GiB over them; plain D2 "
+          f"{plain_res.windows_per_sec:.2f} windows/s (one run); on "
+          f"{card_line()}")
+    print(f"[iv2-1b int8] launches {launches} over {chunks} chunk forwards; "
+          f"logits vs plain: max_abs_err / max |logit| {err:.3e}, gross "
+          f"control (attention left unnormalized) {control_err:.3e} (bound "
+          f"{LOGIT_RTOL_IV2_I8:.3e}, max |logit| {scale:.3e})")
+    assert res.n_windows == n_windows
+    assert np.isfinite(logits).all(), "non-finite IV2-1B int8 logits"
+    want = dict.fromkeys(COUNTERS, 0)
+    # every D2 call on the wgmma route (head dim 88, in place)
+    want["attention_i8_sep"] = want["i8_route_wgmma"] = cfg.depth * chunks
+    assert launches == want, (launches, want)
+    assert err <= LOGIT_RTOL_IV2_I8, \
+        f"IV2-1B int8 logits disagree with the plain run: {err}"
+    assert control_err > LOGIT_RTOL_IV2_I8, \
+        f"the IV2 int8 logit bound lets the control through: {control_err}"
+    return {"windows_per_sec": rate, "launches": launches,
+            "logits_err": err, "peak_gib": peak}
 
 
 def fused_sites(family: str, qkv_i8: bool, fused_rmsq: bool) -> dict:
@@ -5967,6 +6108,9 @@ def main(argv=None):
     run_phase18(dev, args.seed, lap)
     # phase 19: tensor parallelism over two processes on the card
     run_phase19(dev, args.seed, lap)
+    # phase 20: IV2-1B static int8 serving (D2 at head dim 88 in place)
+    p20 = run_eval_iv2_1b_int8(dev, args.seed)
+    lap("phase 20")
 
     launches = {**estats["launches"],
                 **{k: qstats["launches"][k]
@@ -6001,7 +6145,10 @@ def main(argv=None):
          # an exp2-bound attention: operations on the special-function units
          **({"bound_by": "operations", "bound_term": "exp2"}
             if kstats[name]["bound_by"] == "exp2" else {}),
-         **{k: kstats[name][k] for k in ("cases",) if k in kstats[name]}}
+         **{k: kstats[name][k] for k in ("cases",) if k in kstats[name]},
+         # D2's launches on phase 20's path too (IV2-1B, head dim 88)
+         **({"launches_phase20": p20["launches"][name]}
+            if name == "attention_i8_sep" else {})}
         for name, (src, rep) in SOURCES.items()]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

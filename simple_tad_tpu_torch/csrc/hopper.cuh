@@ -10,8 +10,9 @@
 // zero_tile_window;
 // the static int8 GEMMs (int8_gemm.cu) the m64n128k32 s8 products on 128-
 // or 64-byte-swizzled tiles; the int8 attentions (attention_i8.cu,
-// attention_int8.cu) the m64n64k32 s8 products on 64-byte-swizzled tiles,
-// E2's PV with its codes in registers, and B2's PV the bf16 one.  The
+// attention_int8.cu) the m64n64k32 s8 products (E2's on 64-byte-swizzled
+// tiles, with its PV codes in registers; B2's on 64- or 128-byte-swizzled
+// tiles, zero_i8_window, and its PV the bf16 one).  The
 // other kernels keep common.cuh's mma.sync helpers.
 //
 // The tensor-map encoder is the driver's cuTensorMapEncodeTiled, reached
@@ -176,20 +177,28 @@ __device__ __forceinline__ void scale_tile(__nv_bfloat16* dst,
   fence_proxy_async();
 }
 
-// The column of 16-byte chunk c of a (64-row, COLS) tile of ATOM-column
-// atoms (ATOM = 64 or 32 values: 128- or 64-byte swizzle, each atom 64
-// rows, back to back): its position in the row with the swizzle undone,
-// the chunk index within the row XOR the byte offset's bits 7 and up, i.e.
-// row % 8 or (row / 2) % 4.
-template <int ATOM>
-__device__ __forceinline__ int tile_chunk_col(int c) {
-  static_assert(ATOM == 64 || ATOM == 32, "a 128- or 64-byte swizzle");
-  constexpr int kChunksRow = ATOM / 8;
-  constexpr int kRowShift = ATOM == 64 ? 0 : 1;
+// The byte column of 16-byte chunk c of a (64-row, COLS) tile of ROW-byte
+// column atoms (ROW = 128 or 64: a TMA load swizzled by the same span,
+// each atom 64 rows, back to back): its position in the row with the
+// swizzle undone, the chunk index within the row XOR the byte offset's
+// bits 7 and up, i.e. row % 8 or (row / 2) % 4.
+template <int ROW>
+__device__ __forceinline__ int tile_chunk_byte(int c) {
+  static_assert(ROW == 128 || ROW == 64, "a 128- or 64-byte swizzle");
+  constexpr int kChunksRow = ROW / 16;
+  constexpr int kRowShift = ROW == 128 ? 0 : 1;
   const int atom = c / (64 * kChunksRow);
   const int row = c / kChunksRow % 64;
   const int chunk = (c % kChunksRow) ^ ((row >> kRowShift) % kChunksRow);
-  return atom * ATOM + chunk * 8;
+  return atom * ROW + chunk * 16;
+}
+
+// ... and the bf16 column of such a tile of ATOM-value atoms (ATOM = 64 or
+// 32 values: 128- or 64-byte swizzle)
+template <int ATOM>
+__device__ __forceinline__ int tile_chunk_col(int c) {
+  static_assert(ATOM == 64 || ATOM == 32, "a 128- or 64-byte swizzle");
+  return tile_chunk_byte<2 * ATOM>(c) / 2;
 }
 
 // scale_tile over a (64-row, COLS) tile of COLS / ATOM column atoms
@@ -233,6 +242,27 @@ __device__ __forceinline__ void zero_tile_window(__nv_bfloat16* tile, int lo,
     const int c = i * 128 + threadIdx.x;
     const int col = tile_chunk_col<ATOM>(c);
     if (col < lo || col >= hi) d[c] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();
+}
+
+// zero, in place, the codes of a (64-row, COLS) int8 tile swizzled by its
+// row of COLS bytes (tile_chunk_byte) outside the columns [lo, hi)
+// (multiples of 8), by the 128 threads of one warpgroup: 8-byte stores to
+// the halves of 16-byte chunks outside the window; visible to wgmma once
+// every thread has passed the block's next barrier
+template <int COLS>
+__device__ __forceinline__ void zero_i8_window(int8_t* tile, int lo, int hi) {
+  uint2* d = reinterpret_cast<uint2*>(tile);
+#pragma unroll
+  for (int i = 0; i < 64 * COLS / 16 / 128; ++i) {
+    const int c = i * 128 + threadIdx.x;
+    const int col = tile_chunk_byte<COLS>(c);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int at = col + 8 * half;
+      if (at < lo || at >= hi) d[2 * c + half] = make_uint2(0u, 0u);
+    }
   }
   fence_proxy_async();
 }
@@ -594,13 +624,16 @@ inline bool tile_map_bf16(CUtensorMap* map, const void* base, int cols,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// 64 x 64 tiles of an int8 operand addressed as (batch, row, column), as
-// tile_map_bf16 but with strides in bytes: 64-byte rows of codes, with
-// the given swizzle (64-byte: the wgmma K-major layout of
-// desc_kmajor_sw64).  Rows and batches beyond the extents read as zero.
+// 64-row tiles of `box_cols` codes (64 by default, or 128) of an int8
+// operand addressed as (batch, row, column), as tile_map_bf16 but with
+// strides in bytes, with the given swizzle (of the box's row span: the
+// wgmma K-major layouts of desc_sw; 64-byte at 64 codes is
+// desc_kmajor_sw64's).  Columns, rows and batches beyond the extents read
+// as zero.
 inline bool tile_map_i8(CUtensorMap* map, const void* base, int cols,
                         int rows, int batches, long long row_bytes,
-                        long long batch_bytes, CUtensorMapSwizzle swizzle) {
+                        long long batch_bytes, CUtensorMapSwizzle swizzle,
+                        int box_cols = 64) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
@@ -608,7 +641,7 @@ inline bool tile_map_i8(CUtensorMap* map, const void* base, int cols,
                               static_cast<cuuint64_t>(batches)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
                                  static_cast<cuuint64_t>(batch_bytes)};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -15,7 +15,9 @@ separate operands at IV2-1B's probe (4, 4097) H=16, head dim 88, and
 IV2-6B's (2, 4097) H=25, head dim 128, v strided; A1 packed at ViT-H's
 (2, 1568) H=16, head dim 80; C2 and C4-bwd in both keep forms at ViT-H's
 (2, 1568) H=16, C3-bwd at IV2-1B's (4, 2049) H=16 and at an IV2-6B
-tensor-parallel rank's (2, 2049) H=13, head dim 128, v strided), and
+tensor-parallel rank's (2, 2049) H=13, head dim 128, v strided; B2 at
+ViT-H's (2, 1568) H=16, D2 at IV2-1B's eval batch (32, 2049) H=16, head
+dim 88, and IV2-6B's (2, 2049) H=25, v strided), and
 the row norms of csrc/layernorm.cu (A2 LayerNorm, B1 LayerNorm->int8 and
 E1 add + LayerNorm->int8 on ViT-B's (32 * 1568, 768) bf16, D3
 RMSNorm->int8 on IV2-S's (32 * 2049, 384); 20 queued calls to an event
@@ -51,7 +53,8 @@ A change of the bf16 forward's route at the wide head dims names those
 kernels: ``--changed attention_sep_dh88,attention_sep_dh128,attention_dh80``;
 of the backward's, ``--changed attention_bwd_dh80,attention_sep_bwd_dh88,``
 ``attention_sep_bwd_dh128,attention_drop_bwd_dh80,``
-``attention_drop_rng_bwd_dh80``.
+``attention_drop_rng_bwd_dh80``; of the int8-storage attention's,
+``--changed attention_i8_dh80,attention_i8_sep_dh88,attention_i8_sep_dh128``.
 """
 
 from __future__ import annotations
@@ -92,7 +95,10 @@ SHAPES = {"attention": (32, 1568, 12), "attention_fwd_lse": (56, 1568, 12),
           "attention_sep_bwd_dh88": (4, 2049, 16),
           "attention_sep_bwd_dh128": (2, 2049, 13),
           "attention_drop_bwd_dh80": (2, 1568, 16),
-          "attention_drop_rng_bwd_dh80": (2, 1568, 16)}
+          "attention_drop_rng_bwd_dh80": (2, 1568, 16),
+          "attention_i8_dh80": (2, 1568, 16),
+          "attention_i8_sep_dh88": (32, 2049, 16),
+          "attention_i8_sep_dh128": (2, 2049, 25)}
 # the bf16 forward and backward beyond head dim 64: kernel -> (head dim,
 # the entry it calls); every other kernel runs at head dim 64
 WIDE = {"attention_sep_dh88": (88, "attention_sep"),
@@ -102,7 +108,10 @@ WIDE = {"attention_sep_dh88": (88, "attention_sep"),
         "attention_sep_bwd_dh88": (88, "attention_sep_bwd"),
         "attention_sep_bwd_dh128": (128, "attention_sep_bwd"),
         "attention_drop_bwd_dh80": (80, "attention_drop_bwd"),
-        "attention_drop_rng_bwd_dh80": (80, "attention_drop_rng_bwd")}
+        "attention_drop_rng_bwd_dh80": (80, "attention_drop_rng_bwd"),
+        "attention_i8_dh80": (80, "attention_i8"),
+        "attention_i8_sep_dh88": (88, "attention_i8_sep"),
+        "attention_i8_sep_dh128": (128, "attention_i8_sep")}
 NORMS = ("layernorm", "layernorm_quant", "add_layernorm_quant",
          "rmsnorm_quant")
 # C4's rate (chip_smoke.py's ATTN_DROP) and its Philox seed words
@@ -224,18 +233,18 @@ def _worker(root: str) -> dict:
                         ln.rmsnorm_quant(x, w, inv),)}[name]
             fn = tuple(functools.partial(call, *copy) for copy in
                        ((x, res), (x.clone(), res.clone())))
-        elif name in ("attention_i8", "attention_i8_sep", "attention_int8"):
-            amax = qkv.float().view(B, N, 3, heads, 64).abs().amax(
+        elif entry in ("attention_i8", "attention_i8_sep", "attention_int8"):
+            amax = qkv.float().view(B, N, 3, heads, D).abs().amax(
                 dim=(0, 1, 4))
-            inv = (127.0 / amax).reshape(-1).repeat_interleave(64)
+            inv = (127.0 / amax).reshape(-1).repeat_interleave(D)
             q8 = torch.clamp(torch.round(qkv.float() * inv), -127,
                              127).to(torch.int8)
             out_amax = torch.ones((), device=dev)
-            if name == "attention_i8":
+            if entry == "attention_i8":
                 def fn():
                     return (fa.flash_attention_qkv_i8d(q8, amax, heads, scale,
                                                        out_amax),)
-            elif name == "attention_int8":
+            elif entry == "attention_int8":
                 def fn():
                     return (fa.flash_attention_qkv_int8(q8, amax, heads,
                                                         scale),)

@@ -173,6 +173,10 @@ def load() -> ctypes.CDLL:
             lib.stt_attention_i8.restype = i
             lib.stt_attention_i8_route.argtypes = [i]
             lib.stt_attention_i8_route.restype = i
+            # the tile width, the blocks an SM (out)
+            lib.stt_attention_i8_occupancy.argtypes = [
+                i, ctypes.POINTER(ctypes.c_int)]
+            lib.stt_attention_i8_occupancy.restype = i
             # qkv, amax, out, the wgmma route's v^T scratch, sizes
             lib.stt_attention_int8.argtypes = [p, p, p, p, i, i, i, i,
                                                ctypes.c_float, p]

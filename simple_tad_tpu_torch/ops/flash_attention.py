@@ -26,10 +26,11 @@ _fwd_kernel_nomax_packed_q8io): int8 qkv in, int8 out, computed in bf16
 whatever the model dtype (csrc/attention_i8.cu).  The TPU kernel's
 bf16-output mode is reached only through an environment knob of the JAX
 package and is not ported.  ``attention_i8_route`` names the kernel a
-call takes (B2 here, D2 below): where the head dim, padded to 16, is 64
-(every int8 trunk the jobs run) the wgmma kernel, whose V a pre-pass
-dequantizes into a bf16 scratch the wrapper allocates; at the other head
-dims the mma.sync kernel.
+call takes (B2 here, D2 below): at head dims 64 to 128 (every int8 trunk
+the jobs run at 64; IV2-1B's 88, IV2-6B's 128, ViT-H's 80) the wgmma
+kernel, whose V a pre-pass dequantizes into a bf16 scratch the wrapper
+allocates, read in place in tiles 64 or 128 columns wide; at the head dims
+below 64, padded to 16, 32 or 48, the mma.sync kernel.
 
 int8-compute attention (kernel E2, csrc/attention_int8.cu; port of
 flash_attention_qkv_int8, TPU kernel _fwd_kernel_int8_packed): the static
@@ -730,31 +731,52 @@ def attention_fwd_route(dtype, head_dim: int) -> str:
                   range(WGMMA_HEAD_DIM, MAX_HEAD_DIM + 1))
 
 
-def _int8_route(name: str, head_dim: int, max_dim: int) -> str:
-    """route() of csrc/attention_i8.cu and csrc/attention_int8.cu on the
-    head dim the kernel is given: the wrappers zero-pad a head dim that is
-    a multiple of 8 to the next multiple of 16."""
+def _check_int8_head_dim(name: str, head_dim: int, max_dim: int) -> None:
     if head_dim <= 0 or head_dim % 8 or head_dim > max_dim:
         raise ValueError(f"{name}: head dim {head_dim} must be a positive "
                          f"multiple of 8, at most {max_dim}")
-    padded = -(-head_dim // 16) * 16
-    return "wgmma" if padded == WGMMA_HEAD_DIM else "mma_sync"
+
+
+def attention_i8_head_dim(head_dim: int) -> int:
+    """The head dim the int8-storage wrappers hand csrc/attention_i8.cu at
+    ``head_dim`` (a multiple of 8 up to 128): below 64 one that is no
+    multiple of 16 zero-padded to the next (``_pad_heads``: 8, 24, 40 and
+    56 run as 16, 32, 48 and 64), every other as it is (72 to 128 read in
+    place)."""
+    _check_int8_head_dim("attention_i8_route", head_dim, MAX_HEAD_DIM)
+    if head_dim < WGMMA_HEAD_DIM:
+        return -(-head_dim // 16) * 16
+    return head_dim
 
 
 def attention_i8_route(head_dim: int) -> str:
     """The kernel a CUDA call of the int8-storage attention (B2 on the
     packed qkv, D2 on separate operands) at ``head_dim`` launches, as
-    csrc/attention_i8.cu's dispatch picks it: 'wgmma' where the padded head
-    dim is 64 (every int8 trunk the jobs run), 'mma_sync' at the others
-    (ViT-H's 80, IV2-1B's 88 padded to 96, 32, 128)."""
-    return _int8_route("attention_i8_route", head_dim, MAX_HEAD_DIM)
+    csrc/attention_i8.cu's dispatch picks it on ``attention_i8_head_dim``:
+    'wgmma' at head dims 64 to 128 (every int8 trunk the jobs run at 64;
+    the static int8 InternVideo2's D2 at IV2-1B's 88 and IV2-6B's 128, and
+    ViT-H's 80; 56 padded to 64), in tiles 64 or 128 columns wide,
+    'mma_sync' at the head dims below 56 (padded to 16, 32 or 48).
+
+    The wgmma route has no precondition on its inputs: a tile at a head dim
+    other than 64 and 128 also reads columns of the neighbouring heads (or
+    zeros beyond the last), which meet q's zeroed columns in S; int8 codes
+    are always finite, so they add exactly 0 (unlike the bf16 routes,
+    attention_fwd_route)."""
+    dim = attention_i8_head_dim(head_dim)
+    return "wgmma" if dim >= WGMMA_HEAD_DIM else "mma_sync"
 
 
 def attention_int8_route(head_dim: int) -> str:
     """The kernel a CUDA call of the int8-compute attention (E2) at
-    ``head_dim`` launches, as csrc/attention_int8.cu's dispatch picks it:
-    'wgmma' where the padded head dim is 64, 'mma_sync' at 16, 32 and 48."""
-    return _int8_route("attention_int8_route", head_dim, INT8_MAX_HEAD_DIM)
+    ``head_dim`` launches, as csrc/attention_int8.cu's dispatch picks it on
+    the head dim the wrapper gives it (a multiple of 8 zero-padded to the
+    next multiple of 16): 'wgmma' where that is 64, 'mma_sync' at 16, 32
+    and 48."""
+    _check_int8_head_dim("attention_int8_route", head_dim,
+                         INT8_MAX_HEAD_DIM)
+    padded = -(-head_dim // 16) * 16
+    return "wgmma" if padded == WGMMA_HEAD_DIM else "mma_sync"
 
 
 _I8_COUNTERS = {"wgmma": "I8_WGMMA_LAUNCHES", "mma_sync": "I8_MMA_LAUNCHES"}
@@ -1446,8 +1468,11 @@ def flash_attention_i8d(q_i8, k_i8, v_i8, amax, num_heads: int,
 
     q_i8, k_i8, v_i8: (B, N, C) int8 per-head codes against amax (3, H)
     fp32, each contiguous or a strided view with unit column stride; Dh a
-    multiple of 8 up to 128 (a multiple of 16 goes straight in, any other is
-    zero-padded to the next multiple of 16: IV2-1B's 88 runs as 96);
+    multiple of 8 up to 128 (below 64 one that is no multiple of 16 is
+    zero-padded to the next, ``attention_i8_head_dim``; 64 to 128, IV2-1B's
+    88 among them, are read in place and the kernel's (B, N, C) output
+    returned as it is, unless C is no multiple of 16, an odd head count at
+    72, 88, 104 or 120, whose heads are padded too);
     out_amax: one fp32 value, the absmax the output codes are made against;
     n_valid: keys at or beyond it are masked (all N query rows are
     computed).  Both scales stay on the device.
@@ -1472,7 +1497,9 @@ def flash_attention_i8d(q_i8, k_i8, v_i8, amax, num_heads: int,
                              f"contiguous fp32 values on q's device")
     if B == 0 or N == 0:
         return torch.empty((B, N, C), dtype=torch.int8, device=q_i8.device)
-    dp = -(-D // 16) * 16
+    dp = attention_i8_head_dim(D)
+    if C % 16:  # rows of 16 bytes for the kernel's maps: pad (odd H)
+        dp = -(-D // 16) * 16
     if dp != D:
         q_i8, k_i8, v_i8 = (_pad_heads(t, num_heads, dp)
                             for t in (q_i8, k_i8, v_i8))

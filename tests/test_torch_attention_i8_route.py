@@ -2,12 +2,14 @@
 (csrc/attention_i8.cu; simple_tad_tpu_torch.ops.flash_attention.
 attention_i8_route) and E2 (csrc/attention_int8.cu; attention_int8_route).
 
-Where the head dim the kernel is given (the wrappers zero-pad a multiple of
-8 to the next multiple of 16) is 64, a CUDA call takes the wgmma kernel;
-at the other head dims the mma.sync kernel.  The functions mirror the
-sources' route() (stt_attention_i8_route and stt_attention_int8_route on
-the card, tests/test_torch_cuda.py).  A CPU tensor takes the plain version
-and counts no launch on any route.
+B2 and D2: at head dims 64 to 128 (multiples of 8, read in place; 56 the
+wrappers pad to 64) a CUDA call takes the wgmma kernel, below that (padded
+to 16, 32 or 48) the mma.sync kernel.  E2: where the head dim the kernel is
+given (the wrapper zero-pads a multiple of 8 to the next multiple of 16) is
+64, the wgmma kernel; at 16, 32 and 48 the mma.sync kernel.  The functions
+mirror the sources' route() (stt_attention_i8_route and
+stt_attention_int8_route on the card, tests/test_torch_cuda.py).  A CPU
+tensor takes the plain version and counts no launch on any route.
 """
 
 import re
@@ -22,56 +24,76 @@ from simple_tad_tpu_torch.ops import flash_attention as fa
 CSRC = Path(fa.__file__).resolve().parent.parent / "csrc"
 ROUTE_COUNTERS = ("I8_WGMMA_LAUNCHES", "I8_MMA_LAUNCHES",
                   "INT8_WGMMA_LAUNCHES", "INT8_MMA_LAUNCHES")
-# route() of each source, as it spells it, and the one dispatch through it
-ROUTE_EXPR = (r"constexpr int route\(int d\) \{\s*"
-              r"return d == wg::kD \? kRouteWgmma : kRouteMma;\s*\}")
+# each source: route() as it spells it, the wgmma head dim's name in its
+# namespace wg and how route() compares the head dim with it, the check of
+# the head dims its entry point and route query refuse, and how often
+# that check is spelled
+SOURCES = {
+    "attention_i8.cu": (
+        r"constexpr int route\(int d\) \{\s*"
+        r"return d >= wg::kMinD \? kRouteWgmma : kRouteMma;\s*\}",
+        "kMinD", ">=",
+        r"d > 0 && d <= 128 && d % \(d < wg::kMinD \? 16 : 8\) == 0", 1,
+        r"!head_dim_ok\(d\)", 2),
+    "attention_int8.cu": (
+        r"constexpr int route\(int d\) \{\s*"
+        r"return d == wg::kD \? kRouteWgmma : kRouteMma;\s*\}",
+        "kD", "==", r"d % 16 != 0 \|\| d > 64", 2, None, 0)}
 DISPATCH_EXPR = r"if \(route\(d\) == kRouteWgmma\)"
-# the head dims each entry point refuses, as it spells the check
-REFUSED_EXPR = {"attention_i8.cu": r"d % 16 != 0 \|\| d > 128",
-                "attention_int8.cu": r"d % 16 != 0 \|\| d > 64"}
+
+
+def _wgmma_dim(name):
+    src = (CSRC / name).read_text()
+    wg = src[src.index("namespace wg {"):]
+    const = SOURCES[name][1]
+    return int(re.search(rf"constexpr int {const} = (\d+);", wg).group(1))
 
 
 def _source_route(name):
     """-> route(d) of csrc/``name`` as a Python function returning the
     route's name (fa.FWD_ROUTES of its code), from the source's codes and
     wgmma head dim."""
+    route_expr, _, op, refused, n_refused, called, n_called = SOURCES[name]
     src = (CSRC / name).read_text()
-    assert re.search(ROUTE_EXPR, src), f"{name}: route() reads otherwise"
+    assert re.search(route_expr, src), f"{name}: route() reads otherwise"
     assert len(re.findall(DISPATCH_EXPR, src)) == 1, \
         f"{name}: the entry point no longer dispatches through route()"
-    assert len(re.findall(REFUSED_EXPR[name], src)) == 2, \
-        f"{name}: the entry point and its route query refuse otherwise"
+    assert len(re.findall(refused, src)) == n_refused, \
+        f"{name}: the head dims refused read otherwise"
+    if called:
+        assert len(re.findall(called, src)) == n_called, \
+            f"{name}: the entry point and its route query refuse otherwise"
     codes = {k: int(v) for k, v in re.findall(r"kRoute(\w+) = (\d)", src)}
-    wg = src[src.index("namespace wg {"):]
-    kd = int(re.search(r"constexpr int kD = (\d+);", wg).group(1))
+    kd = _wgmma_dim(name)
 
     def route(d):
-        return fa.FWD_ROUTES[codes["Wgmma"] if d == kd else codes["Mma"]]
+        wide = d >= kd if op == ">=" else d == kd
+        return fa.FWD_ROUTES[codes["Wgmma"] if wide else codes["Mma"]]
     return route
 
 
 def test_route_codes_are_the_forward_ones():
     """Both sources number their two routes as attention.cu does, and both
-    wgmma routes take head dim 64."""
+    wgmma routes start at head dim 64."""
     fwd = dict(re.findall(r"kRoute(\w+) = (\d)",
                           (CSRC / "attention.cu").read_text()))
-    for name in ("attention_i8.cu", "attention_int8.cu"):
+    for name in SOURCES:
         src = (CSRC / name).read_text()
         codes = dict(re.findall(r"kRoute(\w+) = (\d)", src))
         assert codes == {k: fwd[k] for k in ("Mma", "Wgmma")}, name
-        wg = src[src.index("namespace wg {"):]
-        assert int(re.search(r"constexpr int kD = (\d+);", wg).group(1)) \
-            == fa.WGMMA_HEAD_DIM
+        assert _wgmma_dim(name) == fa.WGMMA_HEAD_DIM, name
 
 
 @pytest.mark.parametrize("head_dim", range(8, fa.MAX_HEAD_DIM + 1, 8))
 def test_i8_route_matches_the_kernel_source(head_dim):
     """B2 and D2: every head dim D2 takes (B2 the multiples of 16 among
-    them), on the padded head dim the kernel is given."""
-    padded = -(-head_dim // 16) * 16
+    them), on the head dim the kernel is given (attention_i8_head_dim:
+    below 64 padded to a multiple of 16, from 64 on as it is)."""
+    dim = fa.attention_i8_head_dim(head_dim)
+    assert dim == (head_dim if head_dim >= 64 else -(-head_dim // 16) * 16)
     got = fa.attention_i8_route(head_dim)
-    assert got == ("wgmma" if padded == 64 else "mma_sync")
-    assert got == _source_route("attention_i8.cu")(padded)
+    assert got == ("wgmma" if head_dim >= 56 else "mma_sync")
+    assert got == _source_route("attention_i8.cu")(dim)
 
 
 @pytest.mark.parametrize("head_dim", range(8, fa.INT8_MAX_HEAD_DIM + 1, 8))

@@ -376,8 +376,8 @@ def test_attention_sep_kernel_matches_plain(b, n, heads, d, dtype, cuda):
     (2, 2049, 6, 64, None), (2, 2049, 6, 64, 2040), (2, 200, 2, 40, 190),
     (1, 130, 16, 88, None), (2, 33, 4, 16, 1)])
 def test_attention_i8d_kernel_matches_plain(b, n, heads, d, n_valid, cuda):
-    """v strided from an int8 (B, N, 3C) tensor; d = 40 and 88 run padded
-    to 48 and 96."""
+    """v strided from an int8 (B, N, 3C) tensor; d = 40 runs padded to 48,
+    d = 88 in place."""
     qkv_i8, amax = _qkv_i8(b, n, heads, d, 19, cuda)
     C = heads * d
     q, k, v = (qkv_i8[..., :C].contiguous(), qkv_i8[..., C:2 * C].contiguous(),
@@ -1594,9 +1594,9 @@ def test_attention_i8_wgmma_kernel_matches_plain(n, entry, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [16, 32, 40, 48, 56, 64, 80, 88, 96, 128])
 def test_attention_i8_routes_by_head_dim(d, cuda):
-    """Each head dim takes the route attention_i8_route names (D2 pads 40,
-    56 and 88 to 48, 64 and 96; B2 takes multiples of 16), counted on that
-    route only, and matches the plain version there."""
+    """Each head dim takes the route attention_i8_route names (D2 pads 40
+    and 56 to 48 and 64 and reads 88 in place; B2 takes multiples of 16),
+    counted on that route only, and matches the plain version there."""
     route = fa.attention_i8_route(d)
     for entry in ("B2", "D2") if d % 16 == 0 else ("D2",):
         kernel, plain = _i8_entry(entry, 2, 129, 2, d, 49, cuda)
@@ -1608,20 +1608,112 @@ def test_attention_i8_routes_by_head_dim(d, cuda):
         _assert_i8_codes(got, plain())
 
 
+def _i8_unnormalized(entry, kernel_args):
+    """The plain B2 / D2 call without the softmax denominator: a control
+    the code bounds must reject."""
+    if entry == "B2":
+        qkv_i8, amax, heads, scale, out_amax = kernel_args
+        C = qkv_i8.shape[-1] // 3
+        q, k, v = qkv_i8[..., :C], qkv_i8[..., C:2 * C], qkv_i8[..., 2 * C:]
+        n_valid = None
+    else:
+        q, k, v, amax, heads, scale, out_amax, n_valid = kernel_args
+    qh, kh, vh = (fa._heads(t, heads) for t in (q, k, v))
+    if n_valid is not None:
+        kh, vh = kh[:, :, :n_valid], vh[:, :, :n_valid]
+    sq, sk, sv = (amax.float() * (1.0 / 127.0))[..., None, None]
+    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    s = s * (sq * sk * scale * fa.LOG2E)
+    p = torch.exp2(s - torch.ceil(s.amax(dim=-1, keepdim=True)))
+    p = p.to(torch.bfloat16).float()
+    o = torch.matmul(p, (vh.float() * sv).to(torch.bfloat16).float())
+    return ln.quantize_static(fa._merge_heads(o), out_amax)
+
+
+def _i8_args(entry, b, n, heads, d, seed, device):
+    """The arguments of ``_i8_entry``'s kernel call (B2: qkv_i8, amax,
+    heads, scale, out_amax; D2: q, k, v strided, amax, heads, scale,
+    out_amax, n_valid = max(1, n - 5))."""
+    qkv_i8, amax = _qkv_i8(b, n, heads, d, seed, device)
+    C = heads * d
+    scale = d ** -0.5
+    if entry == "B2":
+        out_amax = fa.attention_i8_plain_f32(qkv_i8, amax, heads,
+                                             scale).abs().max()
+        return (qkv_i8, amax, heads, scale, out_amax)
+    q, k, v = (qkv_i8[..., :C].contiguous(), qkv_i8[..., C:2 * C].contiguous(),
+               qkv_i8[..., 2 * C:])
+    n_valid = max(1, n - 5)
+    out_amax = fa.attention_i8d_plain_f32(q, k, v, amax, heads, scale,
+                                          n_valid).abs().max()
+    return (q, k, v, amax, heads, scale, out_amax, n_valid)
+
+
+# B2 at the multiples of 16 it takes (no model calls it at 8 (mod 16)),
+# D2 at every multiple of 8 from 72 to 128, 4 heads; and D2 with 3 heads
+# at the head dims whose C = 3 d is then no multiple of 16
+I8_WIDE_CASES = [(entry, d, 4) for d in range(72, fa.MAX_HEAD_DIM + 1, 8)
+                 for entry in ("B2", "D2") if entry == "D2" or d % 16 == 0
+                 ] + [("D2", d, 3) for d in (72, 88, 104, 120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,d,heads", I8_WIDE_CASES)
+@pytest.mark.parametrize("n", [1, 65, 2049])
+def test_attention_i8_wide_wgmma_kernel_matches_plain(d, n, entry, heads,
+                                                      cuda):
+    """Head dims 72 to 128 on the wgmma route (B2 at the multiples of 16
+    it takes, D2 at every multiple of 8, keys masked at n_valid = N - 5 and
+    v the strided column block of the qkv tensor), 4 heads so that the
+    last, odd head at d = 8 (mod 16) ends at the tensor's last columns:
+    one launch counted on the wgmma route each, no head padded
+    (_pad_heads not called, the output the kernel's own), two launches
+    bit-equal, the codes within the plain version's bounds and the
+    unnormalized control outside them.  With 3 heads at d = 8 (mod 16),
+    C is no multiple of 16, so the kernel's maps cannot take the rows in
+    place: D2 pads each head to d + 8 (_pad_heads on q, k and v) and
+    slices the output, on the same route and to the same checks."""
+    from unittest import mock
+    args = _i8_args(entry, 2, n, heads, d, 53 + d, cuda)
+    kernel = (fa.flash_attention_qkv_i8d if entry == "B2"
+              else fa.flash_attention_i8d)
+    plain = (fa.flash_attention_qkv_i8d_plain if entry == "B2"
+             else fa.flash_attention_i8d_plain)
+    padded = heads * d % 16 != 0
+    before = _route_before(I8_ROUTE_COUNTERS)
+    with mock.patch.object(fa, "_pad_heads", wraps=fa._pad_heads) as pad:
+        got, again = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    assert pad.call_count == (6 if padded else 0)
+    assert all(c.args[2] == d + 8 for c in pad.call_args_list)
+    assert _route_moved(I8_ROUTE_COUNTERS, before) == {"wgmma": 2,
+                                                       "mma_sync": 0}
+    assert got.is_contiguous() and got.shape == (2, n, heads * d)
+    assert torch.equal(got, again), "two launches differ"
+    want = plain(*args)
+    _assert_i8_codes(got, want)
+    if n > 1:
+        with pytest.raises(AssertionError):
+            _assert_i8_codes(_i8_unnormalized(entry, args), want)
+
+
 @pytest.mark.cuda
 def test_attention_i8_route_is_the_kernel_dispatch(cuda):
     """attention_i8_route names the kernel csrc/attention_i8.cu's dispatch
     launches (stt_attention_i8_route) on the head dim the wrappers give it
-    (padded to 16), at every head dim they take; the ones they refuse are
-    refused by both."""
+    (attention_i8_head_dim: below 64 padded to 16, from 64 on as it is), at
+    every head dim they take; the ones they refuse are refused by both, and
+    the kernel refuses the head dims the wrappers pad."""
     from simple_tad_tpu_torch.kernels import build as kbuild
     lib = kbuild.load()
     for d in range(8, fa.MAX_HEAD_DIM + 1, 8):
-        padded = -(-d // 16) * 16
-        assert fa.FWD_ROUTES[lib.stt_attention_i8_route(padded)] == \
+        dim = fa.attention_i8_head_dim(d)
+        assert fa.FWD_ROUTES[lib.stt_attention_i8_route(dim)] == \
             fa.attention_i8_route(d), d
-    for d in (0, 12, 136):
+    for d in (0, 12, 136) + (8, 24, 40, 56):  # the last four: padded first
         assert lib.stt_attention_i8_route(d) == -1
+        if d % 8 == 0 and 0 < d < 64:
+            continue
         with pytest.raises(ValueError):
             fa.attention_i8_route(d)
 

@@ -96,6 +96,53 @@ def test_evaluate_matches_jax(quant8, dota_root, params, monkeypatch):
             key
 
 
+# IV2-1B's head geometry at the tiny size: head dim 88 (176 wide, 2 heads)
+WIDE_HEADS = dict(embed_dim=176, num_heads=2)
+
+
+def test_evaluate_int8_matches_jax_at_head_dim_88(dota_root, monkeypatch):
+    """Static int8 serving (unfused, as IV2-1B's on the card) at IV2-1B's
+    head dim 88 against the JAX evaluator: the JAX side takes D2 at this
+    geometry (its head dim pads to 128, a divisor of 128, and the padded
+    channel axis is 128-aligned: ops/attention.py's
+    i8_storage_attn_sep_supported, mirrored by the port's), with its int8
+    gate forced as in test_evaluate_matches_jax, kernels in interpret mode;
+    the port's D2 reads the 88-column heads in place on the card and runs
+    its plain version here.  Logits within 2e-3, for
+    test_evaluate_matches_jax's reason (a calibration sum in another order
+    flips a code at a rounding boundary); AUROC and AP within 1e-6 of the
+    JAX binary_metrics of the port's own probabilities."""
+    from simple_tad_tpu_torch.ops.attention import (
+        i8_storage_attn_sep_supported)
+    monkeypatch.setenv("SIMPLE_TAD_FORCE_QKV_I8", "1")
+    params = perturbed_iv2_params(seed=9, **WIDE_HEADS)
+    with pltpu.force_tpu_interpret_mode():
+        jres = JaxFrameEvaluator(
+            jax_iv2(**WIDE_HEADS), params, batch_size=8, frame_bucket=64,
+            dtype=jnp.float32, resize_on_host=True, quant8=True).evaluate(
+                _dataset(JaxFrameDataset, jax_read, dota_root))
+    ev = FrameEvaluator(port_iv2_from(params, **WIDE_HEADS), device="cpu",
+                        batch_size=8, resize_on_host=True, quant8=True)
+    cfg = ev.model.cfg
+    assert cfg.embed_dim // cfg.num_heads == 88
+    assert i8_storage_attn_sep_supported(cfg.num_patches + 1, cfg.embed_dim,
+                                         cfg.num_heads)
+    res = ev.evaluate(_dataset(FrameDataset, read_dota_clips, dota_root))
+    assert res.n_windows == jres.n_windows == 102
+    for col in ("clip", "filename", "label", "ttc"):
+        assert res.rows[col] == jres.rows[col].tolist(), col
+    for col in ("logits_safe", "logits_risk"):
+        np.testing.assert_allclose(res.rows[col], jres.rows[col].to_numpy(),
+                                   atol=2e-3)
+    logits = torch.tensor([res.rows["logits_safe"],
+                           res.rows["logits_risk"]]).T
+    want = jax_binary_metrics(torch.softmax(logits, dim=-1)[:, 1].numpy(),
+                              np.asarray(res.rows["label"]))
+    for key in ("auroc", "ap"):
+        assert abs(getattr(res.metrics, key) - getattr(want, key)) <= 1e-6, \
+            key
+
+
 def test_token_path_matches_pixel_path(dota_root, params):
     model = port_iv2_from(params)
     ds = _dataset(FrameDataset, read_dota_clips, dota_root)

@@ -115,13 +115,16 @@ def attention_i8d_control(q, k, v, amax, scale, out_amax, n_valid):
     return ln.quantize_static(o.reshape(q.shape), out_amax)
 
 
-@pytest.mark.parametrize("d", [64, 40])
+@pytest.mark.parametrize("d", [64, 40, 88, 128])
 @pytest.mark.parametrize("masked", [False, True])
 def test_attention_i8d_matches_pallas_kernel(d, masked, kv_grid):
     """Separate int8 operands against the JAX flash_attention_i8d with
     out_amax; ``masked``: keys at or beyond n_valid = N - 5 are masked (the
     TPU kernels' mask_keys); d = 40: the JAX launcher pads the head to 64,
-    the port's kernel to 48, and zero codes keep both exact."""
+    the port's kernel to 48; d = 88 (IV2-1B's): the JAX launcher pads it to
+    128, the port's kernel reads it in place (its tiles' other columns meet
+    zeroed q codes); d = 128 (IV2-6B's) goes straight into both; zero codes
+    keep every form exact."""
     n = 136
     n_valid = n - 5 if masked else None
     (q, k, v), amax = _codes(n, d, seed=d + masked)
@@ -143,6 +146,27 @@ def test_attention_i8d_matches_pallas_kernel(d, masked, kv_grid):
     _, c_share = code_diff(attention_i8d_control(
         q, k, v, amax, scale, out_amax, n_valid).numpy(), want)
     assert c_share > CODE_SHARE, c_share
+
+
+@pytest.mark.parametrize("d", [80, 128])
+def test_attention_i8_packed_plain_is_the_sep_plain(d):
+    """B2's plain version on the packed int8 qkv equals D2's on its three
+    column views bit for bit (the same operations in the same order).  The
+    JAX package's packed launcher takes no head dim 80 (its layout needs a
+    divisor of 128), so this ties B2 at ViT-H's 80, and at 128, to D2,
+    whose plain version test_attention_i8d_matches_pallas_kernel holds to
+    the JAX kernels; on the card both are one kernel."""
+    (q, k, v), amax = _codes(131, d, seed=d)
+    qkv = torch.cat([q, k, v], dim=-1)
+    C = H * d
+    views = (qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:])
+    out_amax = torch.tensor(0.3)
+    packed = fa.flash_attention_qkv_i8d_plain(qkv, amax, H, d ** -0.5,
+                                              out_amax)
+    sep = fa.flash_attention_i8d_plain(*views, amax, H, d ** -0.5, out_amax)
+    assert packed.dtype == torch.int8 and packed.shape == (B, 131, C)
+    assert np.abs(packed.numpy()).max() == 127
+    assert torch.equal(packed, sep)
 
 
 def test_attention_i8d_masks_keys_beyond_n_valid():

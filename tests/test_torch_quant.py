@@ -187,9 +187,13 @@ def attention_i8_control(qkv_i8, amax, heads, scale, out_amax):
                               out_amax)
 
 
+@pytest.mark.parametrize("dim", [64, 128])
 @pytest.mark.parametrize("n", [136, 200])
-def test_attention_i8_matches_pallas_kernel(n):
-    heads, dim = 2, 64
+def test_attention_i8_matches_pallas_kernel(n, dim):
+    """B2 against the JAX launcher, whose packed layout takes head dims
+    that divide 128: ViT-B's 64 and 128 (the port's wide wgmma tiles on the
+    card)."""
+    heads = 2
     scale = dim ** -0.5
     qkv_i8, amax, _ = _qkv_i8(n, heads, dim)
     q8, a = torch.from_numpy(qkv_i8), torch.from_numpy(amax)
